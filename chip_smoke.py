@@ -1,28 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
-The main path is density evaluation and sampling at the flagship width
-(RNODE, nvars = 8, naug = 8, MLP 16 -> 48 -> 16 with tanh, tspan (0, 13),
-tsit5 at rtol 1e-3 / atol 1e-6, batch 4096) through
-`ICNFDist(icnf, Mode.TEST, ps).logpdf` and `.sample`, whose solve runs in the
-K3 CUDA kernel.  Weights are random, made from a seed with numpy.
+The flagship model: RNODE, nvars = 8, naug = 8, MLP 16 -> 48 -> 16 with
+tanh, lambda1 = lambda2 = lambda3 = 1e-2, steer_rate 0.1, tspan (0, 13),
+tsit5 at rtol 1e-3 / atol 1e-6, one Gaussian VJP Hutchinson probe, batch
+4096.  Weights are random, made from a seed with numpy.  Two main paths:
+  * serving: `ICNFDist(icnf, Mode.TEST, ps).logpdf` and `.sample`, whose
+    solve runs in K3;
+  * training: `fit(ICNFModel(icnf, n_epochs=1, batch_size=4096), X)` on
+    4 x 4096 samples, four Lion steps whose forward solve runs in K1 and
+    whose BACKSOLVE adjoint runs in K2.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
-  2. build of every kernel from the sources in this checkout;
+  2. build of every kernel from the sources in this checkout (one nvcc per
+     source, all at once), with the ptxas lines;
   3. TF32 off for matmuls and cuDNN;
   4. the flagship model with Glorot weights, small nonzero biases and
      xs ~ U[0, 1) of shape (4096, 8);
-  5. each kernel's wrapper against its plain PyTorch version on the same
-     inputs at the main path's shapes, then logpdf through the kernel against
-     logpdf through the plain path (same steps; |dlogp| within
-     1e-4 * max(1, max |logp|));
-  6. the main path (logpdf, sample, logpdf of the samples) with the launch
-     counters reset just before it; finite outputs of the right shapes, and
-     each kernel launched during it;
-  7. CUDA-event timings of kernel and plain versions.
+  5. K3 against its plain version at the main path's shapes, then logpdf
+     through the kernel against logpdf through the plain path (same steps;
+     |dlogp| within 1e-4 * max(1, max |logp|));
+  6. the serving path (logpdf, sample, logpdf of the samples) with the
+     launch counters reset just before it;
+  7. K1 against `solve_train_plain` from nonzero accumulators (same steps;
+     z and each accumulator row within 1e-4 * max(1, max |.|)), and K2
+     against `adjoint_train_plain` from K1's output with the same cotangent
+     and warm start (same steps; z0 and a_z0 within 1e-4 relative of the
+     float64 twin, or within 4x the float32 twin's own distance from it;
+     each parameter gradient within 1e-3 * max(1, max |g|): sums of 4096
+     terms in another order);
+  8. one training loss and its gradient through fused=True (K1, K2) and
+     fused=False (the plain BACKSOLVE adjoint): losses within 1e-4
+     relative; both gradients within 2e-2 * max|g| of a float64 rtol 1e-7
+     plain solve (the two backward solves run on different step grids, and
+     the warm-started fused one is the coarser, as in the JAX package);
+  9. the training path, `fit` for one epoch of four Lion steps with the
+     launch counters reset just before it: four steps, finite losses, K1
+     and K2 each launched at least four times;
+ 10. CUDA-event timings of the kernels, their plain versions and the
+     training step.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Without a CUDA device it exits nonzero and
 prints no result.
@@ -34,10 +53,15 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 SEED = 0
 BATCH = 4096
 NVARS, NAUG = 8, 8
 TOL = 1e-4  # relative bound on kernel-vs-plain differences (f32 sums in another order)
+GRAD_TOL = 1e-3  # K2's batch-summed parameter gradients: 4096-term sums in another order
+SOLVE_REL = 2e-2  # training gradients vs a float64 rtol 1e-7 solve, relative to max|g|
+N_STEPS = 4  # Lion steps of the training path
 
 
 def nvidia_smi_line() -> str:
@@ -71,8 +95,6 @@ def check(cond: bool, what: str) -> None:
 
 def flagship_params(rng):
     """Glorot-uniform weights and small nonzero biases, JAX layout."""
-    import numpy as np
-
     dims = (NVARS + NAUG, 3 * (NVARS + NAUG), NVARS + NAUG)
     ps = []
     for din, dout in zip(dims[:-1], dims[1:]):
@@ -84,21 +106,255 @@ def flagship_params(rng):
     return tuple(ps), dims
 
 
+def rel_err(got, ref) -> float:
+    """max|got - ref| / max(1, max|ref|)."""
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def serving(cnf, fs, TSIT5, icnf_k, icnf_p, ps, xs, rng, dev):
+    """Phases 5 and 6 and K3's timings.  Returns K3's record."""
+    import torch
+
+    opts = icnf_k.solver
+    zdim = NVARS + NAUG
+    z0 = torch.cat([xs, torch.zeros((BATCH, NAUG), device=dev)], dim=1)
+    dlogp0 = torch.from_numpy(rng.normal(0.0, 0.1, BATCH).astype("float32")).to(dev)
+    spec = fs.chain_spec(icnf_k.nn, zdim)
+    kw = dict(
+        rtol=opts.rtol, atol=opts.atol, max_steps=opts.max_steps,
+        ws=[p["w"] for p in ps], bs=[p["b"] for p in ps], z0=z0, dlogp0=dlogp0,
+        t0=torch.tensor(0.0, device=dev), t1=torch.tensor(13.0, device=dev),
+        dt_init=torch.tensor(0.05, device=dev),
+    )
+    with torch.no_grad():
+        out_k = fs.run_solve_kernel(TSIT5, spec, **kw)
+        out_p = fs.solve_test_plain(TSIT5, spec, **kw)
+    torch.cuda.synchronize()
+    steps_k, steps_p = int(out_k[2]), int(out_p[2])
+    check(steps_k == steps_p and int(out_k[3]) == int(out_p[3]),
+          f"K3 steps/accepted {steps_k}/{int(out_k[3])} != plain {steps_p}/{int(out_p[3])}")
+    err_z = float((out_k[0] - out_p[0]).abs().max())
+    err_l = float((out_k[1] - out_p[1]).abs().max())
+    check(bool(torch.isfinite(out_k[0]).all() and torch.isfinite(out_k[1]).all()), "K3 output not finite")
+    check(err_z <= TOL * max(1.0, float(out_p[0].abs().max())), f"K3 zT differs by {err_z}")
+    check(err_l <= TOL * max(1.0, float(out_p[1].abs().max())), f"K3 dlogpT differs by {err_l}")
+    print(f"K3 vs plain: steps {steps_k}, max|dz| {err_z:.3e} (max|z| {float(out_p[0].abs().max()):.3e}), "
+          f"max|ddlogp| {err_l:.3e} (max|dlogp| {float(out_p[1].abs().max()):.3e})")
+
+    for n in (16, BATCH):
+        with torch.no_grad():
+            lp_k, _, st_k = cnf.inference(icnf_k, cnf.Mode.TEST, xs[:n], ps)
+            lp_p, _, st_p = cnf.inference(icnf_p, cnf.Mode.TEST, xs[:n], ps)
+        dlp = float((lp_k - lp_p).abs().max())
+        check(int(st_k.steps) == int(st_p.steps), f"B={n}: steps {int(st_k.steps)} != {int(st_p.steps)}")
+        check(dlp <= TOL * max(1.0, float(lp_p.abs().max())), f"B={n}: logp differs by {dlp}")
+        print(f"logpdf B={n}: steps {int(st_k.steps)}, nfe {int(st_k.nfe)}, max|dlogp| {dlp:.3e}")
+
+    # Phase 6: the serving path, counters reset just before it.
+    dist = cnf.ICNFDist(icnf_k, cnf.Mode.TEST, ps)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    fs.run_solve_kernel.launches = 0
+    with torch.no_grad():
+        lp = dist.logpdf(xs)
+        n_logpdf = fs.run_solve_kernel.launches
+        samples = dist.sample(BATCH, generator=gen)
+        n_sample = fs.run_solve_kernel.launches - n_logpdf
+        lp_samples = dist.logpdf(samples)
+    torch.cuda.synchronize()
+    launches = fs.run_solve_kernel.launches
+    check(n_logpdf >= 1 and n_sample >= 1, f"K3 launches: logpdf {n_logpdf}, sample {n_sample}")
+    check(tuple(lp.shape) == (BATCH,) and bool(torch.isfinite(lp).all()), "logpdf not finite")
+    check(tuple(samples.shape) == (BATCH, NVARS) and bool(torch.isfinite(samples).all()), "samples not finite")
+    check(bool(torch.isfinite(lp_samples).all()), "logpdf of samples not finite")
+    print(f"serving path: logpdf mean {float(lp.mean()):.4f}, logpdf(samples) mean "
+          f"{float(lp_samples.mean()):.4f}, K3 launches {launches}")
+
+    with torch.no_grad():
+        _, _, st = cnf.inference(icnf_k, cnf.Mode.TEST, xs, ps)
+        nfe = int(st.nfe)
+        ms_k = cuda_ms(lambda: dist.logpdf(xs), 10)
+        ms_s = cuda_ms(lambda: dist.sample(BATCH, generator=gen), 10)
+        ms_p = cuda_ms(lambda: cnf.inference(icnf_p, cnf.Mode.TEST, xs, ps), 3)
+        ms_kernel = cuda_ms(lambda: fs.run_solve_kernel(TSIT5, spec, **kw), 10)
+        ms_plain = cuda_ms(lambda: fs.solve_test_plain(TSIT5, spec, **kw), 3)
+    print(f"logpdf B={BATCH}: kernel {ms_k:.4f} ms ({BATCH / ms_k * 1e3:.1f} evals/s, "
+          f"{ms_k * 1e3 / nfe:.3f} us/NFE), plain {ms_p:.4f} ms ({BATCH / ms_p * 1e3:.1f} evals/s); "
+          f"steps {int(st.steps)}, NFE {nfe}")
+    print(f"sample n={BATCH}: kernel {ms_s:.4f} ms ({BATCH / ms_s * 1e3:.1f} samples/s)")
+    print(f"K3 alone: {ms_kernel:.4f} ms, plain version {ms_plain:.4f} ms ({steps_k} steps)")
+    return {
+        "name": fs.K3_KERNEL, "route": "cuda",
+        "source": "continuousnf_tpu_torch/ops/csrc/k3_test_solve.cu",
+        "replaces": "continuousnf_tpu/ops/fused_solve.py:1043",
+        "launches": launches, "max_abs_err": max(err_z, err_l), "ms": ms_kernel, "plain_ms": ms_plain,
+    }
+
+
+def training(cnf, fs, TSIT5, icnf_k, icnf_p, ps_np, xs, rng, dev):
+    """Phases 7 to 10 for K1, K2 and the training step.  Returns their
+    records."""
+    import torch
+
+    opts = icnf_k.solver
+    zdim = NVARS + NAUG
+    ps = cnf.params_from_numpy(ps_np, dev)
+    spec = fs.chain_spec(icnf_k.nn, zdim)
+    T = lambda a: torch.from_numpy(a.astype("float32")).to(dev)
+    eps = T(rng.normal(size=(1, BATCH, zdim)))
+    base = dict(norm_z=True, norm_j=True, rtol=opts.rtol, atol=opts.atol, max_steps=opts.max_steps,
+                ws=[p["w"] for p in ps], bs=[p["b"] for p in ps], eps=eps)
+
+    # Phase 7a: K1 against its twin, from nonzero accumulators.
+    kw1 = dict(base, z0=torch.cat([xs, torch.zeros((BATCH, NAUG), device=dev)], dim=1),
+               acc0=T(rng.normal(0.0, 0.1, (3, BATCH))), t0=torch.tensor(0.0, device=dev),
+               t1=torch.tensor(13.0, device=dev), dt_init=torch.tensor(0.05, device=dev))
+    with torch.no_grad():
+        out_k = fs.run_train_solve_kernel(TSIT5, spec, **kw1)
+        out_p = fs.solve_train_plain(TSIT5, spec, **kw1)
+    torch.cuda.synchronize()
+    check((int(out_k[2]), int(out_k[3])) == (int(out_p[2]), int(out_p[3])),
+          f"K1 steps/accepted {int(out_k[2])}/{int(out_k[3])} != plain {int(out_p[2])}/{int(out_p[3])}")
+    check(bool(torch.isfinite(out_k[0]).all() and torch.isfinite(out_k[1]).all()), "K1 output not finite")
+    errs1 = [rel_err(out_k[0], out_p[0])] + [rel_err(out_k[1][r], out_p[1][r]) for r in range(3)]
+    check(max(errs1) <= TOL, f"K1 differs from its twin: z, dlogp, reg_e, reg_n relative errors {errs1}")
+    abs1 = max(float((out_k[0] - out_p[0]).abs().max()), float((out_k[1] - out_p[1]).abs().max()))
+    print(f"K1 vs plain: steps {int(out_k[2])}, relative errors z {errs1[0]:.3e}, dlogp {errs1[1]:.3e}, "
+          f"reg_e {errs1[2]:.3e}, reg_n {errs1[3]:.3e}; dt_last {float(out_k[4]):.5f} vs {float(out_p[4]):.5f}")
+
+    # Phase 7b: K2 against its twin from K1's final state, a loss-like
+    # cotangent and K1's last step as the warm start.
+    kw2 = dict(base, zT=out_k[0], accT=out_k[1], azT=T(rng.normal(0.0, 1.0 / BATCH, (BATCH, zdim))),
+               aaccT=T(np.stack([np.full(BATCH, 1.0 / BATCH), np.full(BATCH, 1e-2 / BATCH),
+                                 np.full(BATCH, 1e-2 / BATCH)])),
+               t_hi=torch.tensor(13.0, device=dev), t_lo=torch.tensor(0.0, device=dev),
+               dt_init=-out_k[4].abs())
+    to64 = lambda v: v.double() if torch.is_tensor(v) else [x.double() for x in v] if isinstance(v, list) else v
+    with torch.no_grad():
+        adj_k = fs.run_adjoint_kernel(TSIT5, spec, **kw2)
+        adj_p = fs.adjoint_train_plain(TSIT5, spec, **kw2)
+        adj_64 = fs.adjoint_train_plain(TSIT5, spec, **{k: to64(v) for k, v in kw2.items()})
+    torch.cuda.synchronize()
+    check((int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6])),
+          f"K2 steps/accepted {int(adj_k[5])}/{int(adj_k[6])} != plain {int(adj_p[5])}/{int(adj_p[6])}")
+    check(all(bool(torch.isfinite(x).all()) for x in [adj_k[0], adj_k[2]] + adj_k[3] + adj_k[4]), "K2 output not finite")
+    # The state reconstructed backward (z0) and a_z0 are ill-conditioned
+    # here: the twin's own float32 result differs from its float64 one by
+    # more than 1e-4 (step sizes set by a roundoff-level eest, errors grown
+    # over tspan 13; PERF.md).  So K2 is held, beside the 1e-4 bound, to
+    # at most 4x the twin's own float32 distance from the float64 twin.
+    for what, i in (("z0", 0), ("a_z0", 2)):
+        e_k, e_p, e_kp = rel_err(adj_k[i], adj_64[i]), rel_err(adj_p[i], adj_64[i]), rel_err(adj_k[i], adj_p[i])
+        check(e_k <= max(TOL, 4.0 * e_p), f"K2 {what}: {e_k} from the float64 twin, the float32 twin {e_p}")
+        print(f"K2 {what}: relative distance to the float64 twin {e_k:.3e} (float32 twin {e_p:.3e}); "
+              f"to the float32 twin {e_kp:.3e}")
+    e_g = [rel_err(a, b) for a, b in zip(adj_k[3] + adj_k[4], adj_p[3] + adj_p[4])]
+    check(max(e_g) <= GRAD_TOL, f"K2 parameter gradients differ from the twin: w1, w2, b1, b2 {e_g}")
+    abs2 = max(float((a - b).abs().max()) for a, b in zip(
+        [adj_k[0], adj_k[2]] + adj_k[3] + adj_k[4], [adj_p[0], adj_p[2]] + adj_p[3] + adj_p[4]))
+    print(f"K2 vs plain: steps {int(adj_k[5])}, gradient relative errors g_w1 {e_g[0]:.3e}, g_w2 {e_g[1]:.3e}, "
+          f"g_b1 {e_g[2]:.3e}, g_b2 {e_g[3]:.3e}")
+
+    # Phase 8: the loss and its gradient through both paths, same draws.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    eps_s = icnf_k.draw_eps(gen, BATCH, dev)
+    steer_r = 0.05
+
+    def loss_grad(icnf, dtype=torch.float32):
+        p = cnf.params_from_numpy(ps_np, dev)
+        leaves = [x.to(dtype).requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
+        p = tuple({"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2]))
+        l, m = cnf.loss_and_metrics(icnf, cnf.Mode.TRAIN, xs.to(dtype), p, eps=eps_s.to(dtype), steer_r=steer_r)
+        return l.detach(), torch.autograd.grad(l, leaves), m
+
+    n1, n2 = fs.run_train_solve_kernel.launches, fs.run_adjoint_kernel.launches
+    l_k, g_k, m_k = loss_grad(icnf_k)
+    check(fs.run_train_solve_kernel.launches == n1 + 1 and fs.run_adjoint_kernel.launches == n2 + 1,
+          "the fused gradient did not run K1 and K2 once each")
+    l_p, g_p, m_p = loss_grad(icnf_p)
+    icnf_t = cnf.construct(
+        cnf.RNODE, cnf.MLP((zdim, 3 * zdim, zdim), device=dev, dtype=torch.float64), NVARS, NAUG, tspan=(0.0, 13.0), steer_rate=0.1, lam3=1e-2,
+        solver=cnf.SolverOptions(rtol=1e-7, atol=1e-9), dtype=torch.float64,
+    )
+    l_t, g_t, _ = loss_grad(icnf_t, torch.float64)
+    torch.cuda.synchronize()
+    check(abs(float(l_k - l_p)) <= TOL * max(1.0, abs(float(l_p))), f"losses {float(l_k)} vs {float(l_p)}")
+    # Fused and plain gradients come from backward solves on different step
+    # grids: the fused one is warm-started from the forward's last step and
+    # takes about half the plain one's steps.  Both are held to a float64
+    # rtol 1e-7 solve, within SOLVE_REL * max|g|: at the flagship the JAX
+    # package's own fused gradient sits 3.5e-3 * max|g| from such a solve
+    # and its plain one 5e-4 (PERF.md), so rtol 2e-3 between them is out of
+    # reach there.
+    for name, a, b, t in zip(("w1", "b1", "w2", "b2"), g_k, g_p, g_t):
+        d_k, d_p = float((a.double() - t).abs().max()), float((b.double() - t).abs().max())
+        scale = float(t.abs().max())
+        check(max(d_k, d_p) <= SOLVE_REL * scale,
+              f"g_{name}: fused {d_k} and plain {d_p} from the float64 solve, max|g| {scale}")
+        print(f"g_{name}: max|g| {scale:.4e}; distance to the float64 rtol 1e-7 solve: fused {d_k:.4e}, "
+              f"plain {d_p:.4e}; fused vs plain {float((a - b).abs().max()):.4e}")
+    print(f"train step B={BATCH}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 {float(l_t):.6f}, "
+          f"forward NFE {int(m_k['nfe'])}")
+
+    # Phase 9: the training path, counters reset just before it.
+    X = T(np.random.default_rng(SEED + 2).uniform(0.0, 1.0, (N_STEPS * BATCH, NVARS)))
+    lion_steps = []
+
+    def lion(params):
+        opt = cnf.Lion(params, lr=1e-3)
+        opt.register_step_post_hook(lambda *_: lion_steps.append(1))
+        return opt
+
+    for f in (fs.run_solve_kernel, fs.run_train_solve_kernel, fs.run_adjoint_kernel):
+        f.launches = 0
+    res = cnf.fit(cnf.ICNFModel(icnf_k, optimizers=(lion,), n_epochs=1, batch_size=BATCH), X,
+                  ps=cnf.params_from_numpy(ps_np, dev), seed=SEED)
+    torch.cuda.synchronize()
+    n_k1, n_k2 = fs.run_train_solve_kernel.launches, fs.run_adjoint_kernel.launches
+    check(len(lion_steps) == N_STEPS, f"{len(lion_steps)} Lion steps, expected {N_STEPS}")
+    check(bool(np.isfinite(res.losses).all()), f"fit losses {res.losses}")
+    check(n_k1 >= N_STEPS and n_k2 >= N_STEPS, f"fit launched K1 {n_k1} and K2 {n_k2} times")
+    check(all(bool(torch.isfinite(x).all()) for layer in res.ps for x in layer.values()), "fitted params not finite")
+    print(f"training path: fit {N_STEPS} Lion steps at B={BATCH}, epoch loss {float(res.losses[0]):.6f}, "
+          f"{float(res.metrics['samples_per_s'][0]):.1f} samples/s (host clock), K1 launches {n_k1}, "
+          f"K2 launches {n_k2}")
+
+    # Phase 10: timings.
+    p = cnf.params_from_numpy(ps_np, dev)
+    leaves = [x.requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
+    step_k = cnf.parallel.make_train_step_body(icnf_k, cnf.Lion(leaves, lr=1e-3))
+    ms_step = cuda_ms(lambda: step_k(p, xs, gen), 5)
+    p2 = cnf.params_from_numpy(ps_np, dev)
+    leaves2 = [x.requires_grad_() for layer in p2 for x in (layer["w"], layer["b"])]
+    step_p = cnf.parallel.make_train_step_body(icnf_p, cnf.Lion(leaves2, lr=1e-3))
+    ms_step_p = cuda_ms(lambda: step_p(p2, xs, gen), 1)
+    with torch.no_grad():
+        ms_k1 = cuda_ms(lambda: fs.run_train_solve_kernel(TSIT5, spec, **kw1), 10)
+        ms_p1 = cuda_ms(lambda: fs.solve_train_plain(TSIT5, spec, **kw1), 3)
+        ms_k2 = cuda_ms(lambda: fs.run_adjoint_kernel(TSIT5, spec, **kw2), 10)
+        ms_p2 = cuda_ms(lambda: fs.adjoint_train_plain(TSIT5, spec, **kw2), 2)
+    print(f"train step B={BATCH} (loss, gradient, Lion): fused {ms_step:.4f} ms "
+          f"({BATCH / ms_step * 1e3:.1f} samples/s), plain {ms_step_p:.4f} ms ({BATCH / ms_step_p * 1e3:.1f} samples/s)")
+    print(f"K1 alone: {ms_k1:.4f} ms, plain version {ms_p1:.4f} ms ({int(out_k[2])} steps)")
+    print(f"K2 alone: {ms_k2:.4f} ms, plain version {ms_p2:.4f} ms ({int(adj_k[5])} steps)")
+    return [
+        {"name": fs.K1_KERNEL, "route": "cuda", "source": "continuousnf_tpu_torch/ops/csrc/k1_train_solve.cu",
+         "replaces": "continuousnf_tpu/ops/fused_solve.py:1043", "launches": n_k1, "max_abs_err": abs1,
+         "ms": ms_k1, "plain_ms": ms_p1},
+        {"name": fs.K2_KERNEL, "route": "cuda", "source": "continuousnf_tpu_torch/ops/csrc/k2_train_adjoint.cu",
+         "replaces": "continuousnf_tpu/ops/fused_solve.py:1767", "launches": n_k2, "max_abs_err": abs2,
+         "ms": ms_k2, "plain_ms": ms_p2},
+    ]
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import numpy as np
-
     import continuousnf_tpu_torch as cnf
     from continuousnf_tpu_torch.ops import _build
-    from continuousnf_tpu_torch.ops.fused_solve import (
-        _KERNEL,
-        run_solve_kernel,
-        solve_test_plain,
-    )
+    from continuousnf_tpu_torch.ops import fused_solve as fs
     from continuousnf_tpu_torch.ode.tableaus import TSIT5
 
     dev = torch.device("cuda", 0)
@@ -107,11 +363,13 @@ def main() -> int:
     print(f"card: {smi}")
 
     t_build = time.perf_counter()
-    lib_path, log = _build.build_library(_KERNEL)
-    print(f"built {lib_path.name} in {time.perf_counter() - t_build:.2f} s")
-    for line in log.splitlines():
-        if any(k in line for k in ("entry function", "registers", "spill")):
-            print(f"  ptxas: {line.strip()}")
+    built = _build.build_libraries([fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL])
+    print(f"built {len(built)} kernels in {time.perf_counter() - t_build:.2f} s (one nvcc each, in parallel)")
+    for name, (lib_path, log) in built.items():
+        print(f"  {lib_path.name}")
+        for line in log.splitlines():
+            if any(k in line for k in ("entry function", "registers", "spill")):
+                print(f"    ptxas: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -130,89 +388,10 @@ def main() -> int:
         )
 
     icnf_k, icnf_p = model(True), model(False)
-    opts = icnf_k.solver
+    records = [serving(cnf, fs, TSIT5, icnf_k, icnf_p, ps, xs, rng, dev)]
+    records += training(cnf, fs, TSIT5, icnf_k, icnf_p, ps_np, xs, rng, dev)
 
-    # Phase 5a: the wrapper against its plain version, main-path shapes.
-    zdim = NVARS + NAUG
-    z0 = torch.cat([xs, torch.zeros((BATCH, NAUG), device=dev)], dim=1)
-    dlogp0 = torch.from_numpy(rng.normal(0.0, 0.1, BATCH).astype(np.float32)).to(dev)
-    spec = cnf.ops.fused_solve.chain_spec(icnf_k.nn, zdim)
-    kw = dict(
-        rtol=opts.rtol, atol=opts.atol, max_steps=opts.max_steps,
-        ws=[p["w"] for p in ps], bs=[p["b"] for p in ps], z0=z0, dlogp0=dlogp0,
-        t0=torch.tensor(0.0, device=dev), t1=torch.tensor(13.0, device=dev),
-        dt_init=torch.tensor(0.05, device=dev),
-    )
-    with torch.no_grad():
-        out_k = run_solve_kernel(TSIT5, spec, **kw)
-        out_p = solve_test_plain(TSIT5, spec, **kw)
-    torch.cuda.synchronize()
-    steps_k, steps_p = int(out_k[2]), int(out_p[2])
-    check(steps_k == steps_p and int(out_k[3]) == int(out_p[3]),
-          f"K3 steps/accepted {steps_k}/{int(out_k[3])} != plain {steps_p}/{int(out_p[3])}")
-    err_z = float((out_k[0] - out_p[0]).abs().max())
-    err_l = float((out_k[1] - out_p[1]).abs().max())
-    check(bool(torch.isfinite(out_k[0]).all() and torch.isfinite(out_k[1]).all()), "K3 output not finite")
-    check(err_z <= TOL * max(1.0, float(out_p[0].abs().max())), f"K3 zT differs by {err_z}")
-    check(err_l <= TOL * max(1.0, float(out_p[1].abs().max())), f"K3 dlogpT differs by {err_l}")
-    max_abs_err = max(err_z, err_l)
-    print(f"K3 vs plain: steps {steps_k}, max|dz| {err_z:.3e} (max|z| {float(out_p[0].abs().max()):.3e}), "
-          f"max|ddlogp| {err_l:.3e} (max|dlogp| {float(out_p[1].abs().max()):.3e})")
-
-    # Phase 5b: logpdf through the kernel against the plain path.
-    for n in (16, BATCH):
-        with torch.no_grad():
-            lp_k, _, st_k = cnf.inference(icnf_k, cnf.Mode.TEST, xs[:n], ps)
-            lp_p, _, st_p = cnf.inference(icnf_p, cnf.Mode.TEST, xs[:n], ps)
-        dlp = float((lp_k - lp_p).abs().max())
-        check(int(st_k.steps) == int(st_p.steps), f"B={n}: steps {int(st_k.steps)} != {int(st_p.steps)}")
-        check(dlp <= TOL * max(1.0, float(lp_p.abs().max())), f"B={n}: logp differs by {dlp}")
-        print(f"logpdf B={n}: steps {int(st_k.steps)}, nfe {int(st_k.nfe)}, max|dlogp| {dlp:.3e}")
-
-    # Phase 6: the main path, counters reset just before it.
-    dist = cnf.ICNFDist(icnf_k, cnf.Mode.TEST, ps)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    run_solve_kernel.launches = 0
-    with torch.no_grad():
-        lp = dist.logpdf(xs)
-        n_logpdf = run_solve_kernel.launches
-        samples = dist.sample(BATCH, generator=gen)
-        n_sample = run_solve_kernel.launches - n_logpdf
-        lp_samples = dist.logpdf(samples)
-    torch.cuda.synchronize()
-    launches = run_solve_kernel.launches
-    check(n_logpdf >= 1 and n_sample >= 1, f"K3 launches: logpdf {n_logpdf}, sample {n_sample}")
-    check(tuple(lp.shape) == (BATCH,) and bool(torch.isfinite(lp).all()), "logpdf not finite")
-    check(tuple(samples.shape) == (BATCH, NVARS) and bool(torch.isfinite(samples).all()), "samples not finite")
-    check(bool(torch.isfinite(lp_samples).all()), "logpdf of samples not finite")
-    print(f"main path: logpdf mean {float(lp.mean()):.4f}, logpdf(samples) mean "
-          f"{float(lp_samples.mean()):.4f}, K3 launches {launches}")
-
-    # Phase 7: timings (CUDA events).
-    with torch.no_grad():
-        _, _, st = cnf.inference(icnf_k, cnf.Mode.TEST, xs, ps)
-        nfe = int(st.nfe)
-        ms_k = cuda_ms(lambda: dist.logpdf(xs), 10)
-        ms_s = cuda_ms(lambda: dist.sample(BATCH, generator=gen), 10)
-        ms_p = cuda_ms(lambda: cnf.inference(icnf_p, cnf.Mode.TEST, xs, ps), 3)
-        ms_kernel = cuda_ms(lambda: run_solve_kernel(TSIT5, spec, **kw), 10)
-        ms_plain = cuda_ms(lambda: solve_test_plain(TSIT5, spec, **kw), 3)
-    print(f"logpdf B={BATCH}: kernel {ms_k:.4f} ms ({BATCH / ms_k * 1e3:.1f} evals/s, "
-          f"{ms_k * 1e3 / nfe:.3f} us/NFE), plain {ms_p:.4f} ms ({BATCH / ms_p * 1e3:.1f} evals/s); "
-          f"steps {int(st.steps)}, NFE {nfe}")
-    print(f"sample n={BATCH}: kernel {ms_s:.4f} ms ({BATCH / ms_s * 1e3:.1f} samples/s)")
-    print(f"K3 alone: {ms_kernel:.4f} ms, plain version {ms_plain:.4f} ms ({steps_k} steps)")
-
-    print(json.dumps({"kernels": [{
-        "name": _KERNEL,
-        "route": "cuda",
-        "source": "continuousnf_tpu_torch/ops/csrc/k3_test_solve.cu",
-        "replaces": "continuousnf_tpu/ops/fused_solve.py:1043",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms_kernel,
-        "plain_ms": ms_plain,
-    }]}))
+    print(json.dumps({"kernels": records}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,11 +1,14 @@
 """continuousnf_tpu_torch — the PyTorch and CUDA port of continuousnf_tpu.
 
 It grows slice by slice beside the JAX package, which stays the reference.
-This slice is density evaluation and sampling: `inference` and `generate` in
-TEST mode and `ICNFDist`, with the whole adaptive solve of a 2-layer tanh MLP
-field in one hand-written CUDA kernel for the H100 (`ops/csrc/`).  The
-package imports torch and numpy, never jax; the kernels are built at first
-use on a machine with nvcc, never at import.
+Ported so far: density evaluation and sampling (`inference` and `generate`
+in TEST mode, `ICNFDist`) and training (TRAIN-mode `inference`, `loss`,
+`loss_and_metrics` differentiated by the BACKSOLVE adjoint, and `fit` with
+the Lion optimizer).  The whole adaptive solves of a 2-layer tanh MLP field
+run in hand-written CUDA kernels for the H100 (`ops/csrc/`): the TEST and
+TRAIN forward solves and the TRAIN adjoint solve.  The package imports torch
+and numpy, never jax; the kernels are built at first use on a machine with
+nvcc, never at import.
 """
 
 from .types import (
@@ -35,15 +38,19 @@ from .core import (
     CondRNODE,
     Planar,
     Regs,
+    TrainState,
     construct,
     generate,
     inference,
     init_params,
+    loss,
+    loss_and_metrics,
 )
 from .nets import MLP, Chain, Dense, params_from_numpy
 from .ode import SolveStats, odeint_with_stats
 from .dist import ICNFDist
-from . import distributions, ops, utils
+from .train import FitResult, ICNFModel, Lion, fit
+from . import distributions, ops, parallel, train, utils
 
 __all__ = [
     "ADMode",
@@ -74,6 +81,13 @@ __all__ = [
     "init_params",
     "inference",
     "generate",
+    "loss",
+    "loss_and_metrics",
+    "TrainState",
+    "ICNFModel",
+    "FitResult",
+    "fit",
+    "Lion",
     "Chain",
     "Dense",
     "MLP",
@@ -83,5 +97,7 @@ __all__ = [
     "ICNFDist",
     "distributions",
     "ops",
+    "parallel",
+    "train",
     "utils",
 ]

@@ -1,8 +1,10 @@
-"""Augmented CNF dynamics, TEST mode: vector field plus exact divergence.
+"""Augmented CNF dynamics: vector field plus divergence and regularizer rates.
 
-Port of `continuousnf_tpu/core/dynamics.py`: `TestState` and `safe_norm`
-(:35-61) and the closed-form TEST branch of `make_augmented_dynamics`
-(:266-300).  The state is batch-major: z (B, dz), dlogp (B,).
+Port of `continuousnf_tpu/core/dynamics.py`: `TestState`, `TrainState` and
+`safe_norm` (:35-61), the closed-form TEST branch of `make_augmented_dynamics`
+(:266-300), the VJP branch of `_hutchinson_field` (:185-206) and the TRAIN
+fields `f_train` (:377-382) and `f_train_fused` (:334-375).  The state is
+batch-major: z (B, dz), the accumulators (B,); probes are (K, B, dz).
 """
 
 from __future__ import annotations
@@ -11,7 +13,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..types import ComputeMode, Mode
+from ..types import ADMode, ComputeMode, Mode
+
+_ITEM14 = "(ROADMAP queue 1, item 14)"
 
 
 class TestState(NamedTuple):
@@ -21,11 +25,38 @@ class TestState(NamedTuple):
     dlogp: torch.Tensor  # (B,)
 
 
+class TrainState(NamedTuple):
+    """TRAIN-mode state: adds the two RNODE regularizer accumulators."""
+
+    z: torch.Tensor  # (B, dz)
+    dlogp: torch.Tensor  # (B,)
+    reg_e: torch.Tensor  # (B,)  integral of ||dz/dt||
+    reg_n: torch.Tensor  # (B,)  integral of ||eps^T J||
+
+
 def safe_norm(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """L2 norm that is exactly 0 (with a zero gradient) at v = 0."""
     sq = torch.sum(v * v, dim=dim)
     pos = sq > 0
     return torch.where(pos, torch.sqrt(torch.where(pos, sq, torch.ones_like(sq))), torch.zeros_like(sq))
+
+
+def _hutchinson_field(nn_apply):
+    """dz plus the K-probe Hutchinson trace estimate and the ||eps^T J||
+    rate, both averaged over probes.  eps is (K, B, dz), fixed over the
+    trajectory.  The VJP goes through `torch.func.vjp`, so the field is
+    differentiable again (the adjoint takes its VJP) and runs under
+    `torch.no_grad()` in the forward solve."""
+    from torch.func import vjp
+
+    def field(ps, z, eps):
+        dz, vjp_fn = vjp(lambda zz: nn_apply(ps, zz), z)
+        eJ = torch.stack([vjp_fn(e)[0] for e in eps])  # (K, B, dz)
+        tr_est = torch.mean(torch.sum(eJ * eps, dim=-1), dim=0)
+        n_rate = torch.mean(safe_norm(eJ), dim=0)
+        return dz, tr_est, n_rate
+
+    return field
 
 
 def make_augmented_dynamics(
@@ -37,19 +68,54 @@ def make_augmented_dynamics(
     passive_aug_dims: int = 0,
 ):
     """Build the ODE right-hand side `f(t, state, args)`; `args["ps"]` holds
-    the net's params tree.
+    the net's params tree and, in TRAIN mode, `args["eps"]` the (K, B, dz)
+    probes.
 
     TEST mode on Dense/tanh chains: the closed-form 2-layer trace for tanh
     MLPs with biases, the chain product for any other tanh-or-identity chain.
+    TRAIN mode: the Hutchinson estimator with reverse-mode (VJP) probes, and
+    the RNODE rates ||f|| (norm_z) and ||eps^T J|| (norm_j).
     """
-    if mode != Mode.TEST:
-        raise NotImplementedError(
-            "TRAIN-mode dynamics are not ported yet (ROADMAP queue 1, items 4-6)"
-        )
     if passive_aug_dims:
+        raise NotImplementedError(f"passive augmentation is not ported yet {_ITEM14}")
+    if mode == Mode.TEST:
+        return _test_field(nn)
+    if compute_mode.exact_trace:
         raise NotImplementedError(
-            "passive augmentation is not ported yet (ROADMAP queue 1, item 14)"
+            "exact-trace TRAIN dynamics are not ported yet (ROADMAP queue 1, item 10)"
         )
+    if compute_mode.ad != ADMode.VJP:
+        raise NotImplementedError(f"forward-mode (JVP) Hutchinson probes are not ported yet {_ITEM14}")
+    from ..ops.fused_dynamics import fused_tanh_mlp_dynamics, supports_fusion
+
+    hutch = _hutchinson_field(nn.apply)
+
+    def pack(dz, tr_est, e_rate, n_rate):
+        zero = torch.zeros_like(tr_est)
+        return TrainState(
+            z=dz,
+            dlogp=-tr_est,
+            reg_e=e_rate if norm_z else zero,
+            reg_n=n_rate if norm_j else zero,
+        )
+
+    if compute_mode.fused and compute_mode.num_probes == 1 and supports_fusion(nn):
+
+        def f_train_fused(t, state: TrainState, args):
+            # The per-stage kernel (K10); the flagship step never evaluates
+            # it: its solve runs in K1/K2 and its Hairer pick on f_train.
+            return pack(*fused_tanh_mlp_dynamics(args["ps"], state.z, args["eps"][0]))
+
+        return f_train_fused
+
+    def f_train(t, state: TrainState, args):
+        dz, tr_est, n_rate = hutch(args["ps"], state.z, args["eps"])
+        return pack(dz, tr_est, safe_norm(dz) if norm_z else None, n_rate)
+
+    return f_train
+
+
+def _test_field(nn):
     from ..ops.fused_dynamics import (
         exact_dense_chain_trace,
         exact_tanh_mlp_trace,
@@ -77,4 +143,4 @@ def make_augmented_dynamics(
     return f_test
 
 
-__all__ = ["TestState", "safe_norm", "make_augmented_dynamics"]
+__all__ = ["TestState", "TrainState", "safe_norm", "make_augmented_dynamics"]

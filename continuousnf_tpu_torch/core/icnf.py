@@ -1,15 +1,20 @@
-"""ICNF model: construction, TEST-mode inference (log-density) and generation.
+"""ICNF model: construction, inference (log-density), generation and the loss.
 
 Port of `continuousnf_tpu/core/icnf.py`: the variant tags (:28-60), `Regs`,
-`ICNF`, `construct`, `init_params`, `_steer_tspan`, `_as_batch`,
-`_check_cond`, the TEST branch of `_prepare_inference` (:434-526, with the
-logit bijector), `_solve`, `_final_regs`, `inference` and `generate`.
+`ICNF` (with `draw_eps`, :192-198), `construct`, `init_params`, the steered
+`_steer_tspan` (:336-348), `_as_batch`, `_check_cond`, `_prepare_inference`
+(:434-526, TEST and TRAIN, with the logit bijector), `_solve`, `_final_regs`,
+`inference`, `generate` (TEST), `loss` and `loss_and_metrics` (:643-704).
 
 The same public signatures and batch-major layouts as the JAX package:
 `xs` is (B, nvars), params are the net's params tree (JAX layout).  Where
 the JAX package takes a PRNG key the port takes a `torch.Generator`, and
-`generate` accepts the base draw `z1` directly.  Tensors live on the device
-of the params.  TRAIN mode, trajectories, conditioning and gradients are not
+every draw can be given instead: the base draw of `generate` (`z1=`), the
+Hutchinson probes (`eps=`) and the steering draw r ~ U(-steer_rate,
+steer_rate) (`steer_r=`).  Tensors live on the device of the params.
+Gradients flow through the solve by the BACKSOLVE adjoint
+(`ode/adjoint.py`).  Trajectories, conditioning, TRAIN-mode generation and
+the TRAIN input variants (aug noise, x jitter, passive augmentation) are not
 ported yet and raise NotImplementedError naming their ROADMAP item.
 """
 
@@ -21,10 +26,10 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..distributions import std_normal_logpdf, std_normal_sample
+from ..distributions import sample_eps, std_normal_logpdf, std_normal_sample
 from ..ode.solve import odeint_with_stats
 from ..types import ComputeMode, Mode, SolverOptions
-from .dynamics import TestState, make_augmented_dynamics, safe_norm
+from .dynamics import TestState, TrainState, make_augmented_dynamics, safe_norm
 
 
 class _VariantTag:
@@ -62,8 +67,6 @@ _RNODE_VARIANTS = (RNODE, CondRNODE)
 
 #: Aug-input noise std at which the per-dim Gaussian density at 0 is 1.
 CALIBRATED_AUG_SIGMA = 1.0 / math.sqrt(2.0 * math.pi)
-
-_TRAIN_TODO = "TRAIN mode is not ported yet (ROADMAP queue 1, items 4-6)"
 
 
 class Regs(NamedTuple):
@@ -108,6 +111,10 @@ class ICNF:
         return self.naugmented
 
     @property
+    def steered(self) -> bool:
+        return self.steer_rate > 0.0
+
+    @property
     def zdim(self) -> int:
         """Dimensionality of the transported state (nvars + augmented dims)."""
         return self.nvars + self.naugmented
@@ -125,6 +132,14 @@ class ICNF:
         if self.basedist is not None:
             return self.basedist.sample(generator, batch_shape, self.dtype, device)
         return std_normal_sample(generator, (*batch_shape, self.zdim), self.dtype, device)
+
+    def draw_eps(self, generator, batch: int, device=None) -> torch.Tensor:
+        """Draw the (num_probes, batch, zdim) Hutchinson probes from
+        `epsdist` if set, else from the `compute_mode.eps_dist` enum."""
+        shape = (self.compute_mode.num_probes, batch)
+        if self.epsdist is not None:
+            return self.epsdist.sample(generator, shape, self.dtype, device)
+        return sample_eps(generator, (*shape, self.zdim), self.compute_mode.eps_dist, self.dtype, device)
 
 
 def construct(
@@ -203,11 +218,21 @@ def _device_of(ps) -> torch.device:
     return leaf.device
 
 
-def _steer_tspan(icnf: ICNF, device):
-    """(t0, t1) as tensors.  TEST mode never steers; TRAIN-mode steering
-    comes with the TRAIN slice (ROADMAP queue 1, item 5)."""
+def _steer_tspan(icnf: ICNF, mode: Mode, device, generator=None, steer_r=None):
+    """(t0, t1) as tensors.  In TRAIN mode on a steered model t1 moves by
+    |t1 - t0| * r with r ~ U(-steer_rate, steer_rate), drawn from
+    `generator` unless given as `steer_r`."""
     t0 = torch.tensor(icnf.tspan[0], dtype=icnf.dtype, device=device)
     t1 = torch.tensor(icnf.tspan[1], dtype=icnf.dtype, device=device)
+    if mode == Mode.TRAIN and icnf.steered:
+        if steer_r is None:
+            u = torch.rand((), generator=generator, dtype=icnf.dtype, device=device)
+            r = (2.0 * u - 1.0) * icnf.steer_rate
+        else:
+            r = torch.as_tensor(steer_r, dtype=icnf.dtype, device=device)
+            if r.ndim or float(r.abs()) > icnf.steer_rate:
+                raise ValueError(f"steer_r must be a scalar in [-{icnf.steer_rate}, {icnf.steer_rate}]")
+        t1 = t1 + torch.abs(t1 - t0) * r
     return t0, t1
 
 
@@ -225,12 +250,6 @@ def _check_cond(icnf: ICNF, ys):
         raise NotImplementedError("conditional models are not ported yet (ROADMAP queue 1, item 13)")
     if ys is not None:
         raise ValueError("non-conditional ICNF got ys")
-
-
-def _check_supported(icnf: ICNF, mode: Mode, ys):
-    if mode != Mode.TEST:
-        raise NotImplementedError(_TRAIN_TODO)
-    _check_cond(icnf, ys)
 
 
 def _solve(icnf: ICNF, mode: Mode, state0, args, t0, t1):
@@ -255,14 +274,36 @@ def _final_regs(icnf: ICNF, mode: Mode, stateT) -> Regs:
         a = safe_norm(stateT.z[:, icnf.zdim - icnf.n_aug_input :])
     else:
         a = zero
+    if mode == Mode.TRAIN:
+        return Regs(e=stateT.reg_e, n=stateT.reg_n, a=a)
     return Regs(e=zero, n=zero, a=a)
 
 
-def _prepare_inference(icnf: ICNF, mode: Mode, xs, ps, ys):
+def _train_probes(icnf: ICNF, eps, generator, B: int, device) -> torch.Tensor:
+    """The (K, B, zdim) probes: validated when given (a (B, zdim) array is
+    K = 1 shorthand), else one draw per call, fixed over the trajectory."""
+    cm = icnf.compute_mode
+    if cm.exact_trace:
+        raise NotImplementedError("exact-trace TRAIN is not ported yet (ROADMAP queue 1, item 10)")
+    if eps is None:
+        return icnf.draw_eps(generator, B, device)
+    eps = torch.as_tensor(eps, dtype=icnf.dtype, device=device)
+    if eps.ndim == 2:
+        eps = eps[None]
+    if tuple(eps.shape) != (cm.num_probes, B, icnf.zdim):
+        raise ValueError(
+            f"eps must have shape (num_probes={cm.num_probes}, B={B}, "
+            f"zdim={icnf.zdim}) or (B, zdim) for K=1; got {tuple(eps.shape)}"
+        )
+    return eps
+
+
+def _prepare_inference(icnf: ICNF, mode: Mode, xs, ps, ys, generator=None, eps=None, steer_r=None):
     """Input validation and batching, the logit bijector's change of
-    variables and the augmented initial state (TEST mode).  Returns
-    (state0, args, t0, t1, ldj, squeeze)."""
-    _check_supported(icnf, mode, ys)
+    variables, the augmented initial state and, in TRAIN mode, the probes
+    and the steered span.  The probes are drawn from `generator` before the
+    steering draw.  Returns (state0, args, t0, t1, ldj, squeeze)."""
+    _check_cond(icnf, ys)
     device = _device_of(ps)
     xs = torch.as_tensor(xs, dtype=icnf.dtype, device=device)
     xs, squeeze = _as_batch(xs, "xs")
@@ -281,9 +322,20 @@ def _prepare_inference(icnf: ICNF, mode: Mode, xs, ps, ys):
     z0 = xs
     if icnf.n_aug_input:
         z0 = torch.cat([xs, torch.zeros((B, icnf.n_aug_input), dtype=icnf.dtype, device=device)], dim=-1)
-    state0 = TestState(z=z0, dlogp=torch.zeros((B,), dtype=icnf.dtype, device=device))
-    args = {"ps": ps, "ys": ys}
-    t0, t1 = _steer_tspan(icnf, device)
+    zeros_b = torch.zeros((B,), dtype=icnf.dtype, device=device)
+    if mode == Mode.TRAIN:
+        for name, value in (("x_jitter", icnf.x_jitter), ("aug_noise", icnf.aug_noise)):
+            if value > 0.0 and (name == "x_jitter" or icnf.n_aug_input):
+                raise NotImplementedError(f"{name} > 0 is not ported yet (ROADMAP queue 1, item 14)")
+        if icnf.aug_passive and icnf.n_aug_input:
+            raise NotImplementedError("passive augmentation is not ported yet (ROADMAP queue 1, item 14)")
+        eps = _train_probes(icnf, eps, generator, B, device)
+        state0 = TrainState(z=z0, dlogp=zeros_b, reg_e=zeros_b, reg_n=zeros_b)
+        args = {"ps": ps, "eps": eps, "ys": ys}
+    else:
+        state0 = TestState(z=z0, dlogp=zeros_b)
+        args = {"ps": ps, "ys": ys}
+    t0, t1 = _steer_tspan(icnf, mode, device, generator, steer_r)
     return state0, args, t0, t1, ldj, squeeze
 
 
@@ -294,6 +346,9 @@ def inference(
     ps: Any,
     *,
     ys=None,
+    generator: Optional[torch.Generator] = None,
+    eps=None,
+    steer_r=None,
     trajectory: bool = False,
 ):
     """Transport data to the base distribution and return log-density:
@@ -301,10 +356,18 @@ def inference(
 
     Returns (logpx (B,), regs: Regs, stats: SolveStats).  Rank-1 `xs` is a
     single sample and is squeezed back.
+
+    TRAIN mode draws the probes (K, B, zdim) and then the steering r from
+    `generator` (torch's default generator of the device when None), or
+    takes them as `eps` ((K, B, zdim), or (B, zdim) for K = 1) and
+    `steer_r`.  Under BACKSOLVE the probes are Monte-Carlo constants: their
+    gradient is zero.
     """
     if trajectory:
         raise NotImplementedError("trajectory=True is not ported yet (ROADMAP queue 1, item 15)")
-    state0, args, t0, t1, ldj, squeeze = _prepare_inference(icnf, mode, xs, ps, ys)
+    state0, args, t0, t1, ldj, squeeze = _prepare_inference(
+        icnf, mode, xs, ps, ys, generator, eps, steer_r
+    )
     stateT, stats = _solve(icnf, mode, state0, args, t0, t1)
     logpx = icnf.base_logpdf(stateT.z) - stateT.dlogp
     if ldj is not None:
@@ -331,9 +394,11 @@ def generate(
     keeping the first `nvars` dims.  `n=None` returns a single sample.
 
     The base draw comes from `generator` on the params' device, or is given
-    as `z1` ((n, zdim), or (zdim,) / (1, zdim) with n=None).
+    as `z1` ((n, zdim), or (zdim,) / (1, zdim) with n=None).  TEST mode only.
     """
-    _check_supported(icnf, mode, ys)
+    if mode != Mode.TEST:
+        raise NotImplementedError("TRAIN-mode generate is not ported yet (ROADMAP queue 1, item 12)")
+    _check_cond(icnf, ys)
     squeeze = n is None
     B = 1 if squeeze else int(n)
     device = _device_of(ps)
@@ -350,7 +415,7 @@ def generate(
             raise ValueError(f"z1 holds {z1.shape[0]} draws, expected {B}")
     state1 = TestState(z=z1, dlogp=torch.zeros((B,), dtype=icnf.dtype, device=device))
     args = {"ps": ps, "ys": ys}
-    t0, t1 = _steer_tspan(icnf, device)
+    t0, t1 = _steer_tspan(icnf, mode, device)
     state0, stats = _solve(icnf, mode, state1, args, t1, t0)
     samples = state0.z[:, : icnf.nvars]
     if icnf.input_bijector == "logit":
@@ -360,6 +425,61 @@ def generate(
     if with_stats:
         return samples, stats
     return samples
+
+
+def loss(
+    icnf: ICNF,
+    mode: Mode,
+    xs,
+    ps: Any,
+    *,
+    ys=None,
+    generator: Optional[torch.Generator] = None,
+    weights=None,
+    eps=None,
+    steer_r=None,
+) -> torch.Tensor:
+    """Scalar loss: TRAIN mean(-logpx + lam1 E + lam2 N + lam3 A), TEST
+    mean(-logpx).  `weights` (B,) gives a weighted mean (the trainer's
+    padded samples carry weight 0)."""
+    return loss_and_metrics(
+        icnf, mode, xs, ps, ys=ys, generator=generator, weights=weights, eps=eps, steer_r=steer_r
+    )[0]
+
+
+def loss_and_metrics(
+    icnf: ICNF,
+    mode: Mode,
+    xs,
+    ps: Any,
+    *,
+    ys=None,
+    generator: Optional[torch.Generator] = None,
+    weights=None,
+    eps=None,
+    steer_r=None,
+):
+    """`loss` plus the per-step metrics: loss, mean E (kinetic energy) and
+    mean N (Jacobian norm), both detached, and the forward solve's NFE."""
+    logpx, regs, stats = inference(
+        icnf, mode, xs, ps, ys=ys, generator=generator, eps=eps, steer_r=steer_r
+    )
+    if mode == Mode.TRAIN:
+        per_sample = -logpx + icnf.lam1 * regs.e + icnf.lam2 * regs.n + icnf.lam3 * regs.a
+    else:
+        per_sample = -logpx
+    if weights is None:
+        l = torch.mean(per_sample)
+        e_mean = torch.mean(regs.e)
+        n_mean = torch.mean(regs.n)
+    else:
+        weights = torch.as_tensor(weights, dtype=per_sample.dtype, device=per_sample.device)
+        denom = torch.clamp(torch.sum(weights), min=1e-12)
+        l = torch.sum(per_sample * weights) / denom
+        e_mean = torch.sum(regs.e * weights) / denom
+        n_mean = torch.sum(regs.n * weights) / denom
+    metrics = {"loss": l, "e": e_mean.detach(), "n": n_mean.detach(), "nfe": stats.nfe}
+    return l, metrics
 
 
 __all__ = [
@@ -376,4 +496,6 @@ __all__ = [
     "init_params",
     "inference",
     "generate",
+    "loss",
+    "loss_and_metrics",
 ]

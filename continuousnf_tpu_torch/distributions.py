@@ -1,7 +1,8 @@
-"""The standard normal base distribution.
+"""The standard normal base distribution and the Hutchinson probe draw.
 
-Port of `continuousnf_tpu/distributions.py:21-46`.  Sampling takes an
-explicit `torch.Generator` where the JAX package takes a PRNG key.
+Port of `continuousnf_tpu/distributions.py:21-46` and `sample_eps`
+(:146-165).  Sampling takes an explicit `torch.Generator` where the JAX
+package takes a PRNG key.
 """
 
 from __future__ import annotations
@@ -49,4 +50,23 @@ class MvStdNormal:
         return std_normal_sample(generator, (*batch_shape, self.dim), dtype, device)
 
 
-__all__ = ["std_normal_logpdf", "std_normal_sample", "MvStdNormal"]
+def sample_eps(
+    generator: Optional[torch.Generator],
+    shape: Tuple[int, ...],
+    kind,
+    dtype=torch.float32,
+    device=None,
+) -> torch.Tensor:
+    """Draw Hutchinson probe vectors: `kind` is an `EpsDist` (standard
+    Gaussian, or Rademacher +-1 with equal odds)."""
+    from .types import EpsDist
+
+    if kind == EpsDist.GAUSSIAN:
+        return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    if kind == EpsDist.RADEMACHER:
+        bits = torch.randint(0, 2, shape, generator=generator, device=device)
+        return (2 * bits - 1).to(dtype)
+    raise ValueError(f"unknown eps dist {kind}")
+
+
+__all__ = ["std_normal_logpdf", "std_normal_sample", "MvStdNormal", "sample_eps"]

@@ -1,15 +1,16 @@
-"""Adaptive and fixed-step explicit RK integration, forward only.
+"""Adaptive and fixed-step explicit RK integration.
 
 Port of `continuousnf_tpu/ode/solve.py:45-265` and `:411-477`.  The state is
-one flat vector (a `TestState` is flattened to `[z.ravel() | dlogp]`,
-batch-major, the order of the JAX package's `ravel_pytree`), and one error
-norm covers the whole flat state: the step control is batch-global.
+one flat vector (a `TestState` is flattened to `[z.ravel() | dlogp]`, a
+`TrainState` to `[z.ravel() | dlogp | reg_e | reg_n]`, batch-major, the order
+of the JAX package's `ravel_pytree`), and one error norm covers the whole
+flat state: the step control is batch-global.
 
 The loop is eager PyTorch: each attempted step reads its loop condition on
 the host.  The solve-in-kernel path (`full_solve`, `ops/fused_solve.py`)
-replaces it with one kernel launch.  Gradients through the solve are not
-ported yet (the BACKSOLVE adjoint is ROADMAP queue 1, item 6): a solve whose
-inputs require grad raises.
+replaces it with one kernel launch.  Gradients flow through the BACKSOLVE
+adjoint (`ode/adjoint.py`); the DIRECT, fixed-step and `Adjoint.NONE` solves
+are forward only, and raise when their inputs require grad.
 """
 
 from __future__ import annotations
@@ -247,13 +248,18 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
+def needs_grad(*trees) -> bool:
+    """True when autograd would record a graph through these tensors."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in _tensors(trees))
+
+
 def forbid_grad(*trees) -> None:
-    """Raise when autograd would have to record a graph through the solve:
-    gradients (the BACKSOLVE adjoint) are not ported yet."""
-    if torch.is_grad_enabled() and any(x.requires_grad for x in _tensors(trees)):
+    """Raise when autograd would have to record a graph through a solve that
+    has no backward (DIRECT, fixed-step, Adjoint.NONE)."""
+    if needs_grad(*trees):
         raise NotImplementedError(
-            "gradients through the ODE solve (the BACKSOLVE adjoint) are not ported "
-            "yet (ROADMAP queue 1, item 6); run under torch.no_grad() or detach inputs"
+            "gradients through the DIRECT, fixed-step and Adjoint.NONE solves are not "
+            "ported (ROADMAP queue 1, item 15); use Adjoint.BACKSOLVE, or run under torch.no_grad()"
         )
 
 
@@ -287,12 +293,12 @@ def odeint_with_stats(
 
     `full_solve`, when given, replaces the adaptive forward solve on the flat
     state (`full_solve.forward(y0f, t0, t1, args) -> (yTf, stats)`, the
-    solve-in-kernel path).  The DIRECT and fixed-step paths ignore it, as in
-    the JAX package.
+    solve-in-kernel path) and, under BACKSOLVE, the backward integration
+    (`full_solve.adjoint`, when not None).  The DIRECT and fixed-step paths
+    ignore it, as in the JAX package.
     """
     if getattr(opts, "tstops", None):
         raise NotImplementedError("tstops are not ported yet (ROADMAP queue 1, item 15)")
-    forbid_grad(y0, args)
     y0f, unravel = _ravel(y0)
     t0 = torch.as_tensor(t0, dtype=y0f.dtype, device=y0f.device)
     t1 = torch.as_tensor(t1, dtype=y0f.dtype, device=y0f.device)
@@ -300,6 +306,22 @@ def odeint_with_stats(
     def func_flat(yf, t, args_):
         return _ravel(func(t, unravel(yf), args_))[0]
 
+    if opts.adjoint == Adjoint.BACKSOLVE and opts.fixed_num_steps is None:
+        if (
+            full_solve is not None
+            and full_solve.adjoint is None
+            and y0f.device.type == "cuda"
+            and needs_grad(y0f, t0, t1, args)
+        ):
+            raise NotImplementedError(
+                "gradients through the fused TEST solve need its backward kernel "
+                "(K5, ROADMAP queue 2); use fused=False for TEST-mode gradients on the card"
+            )
+        from .adjoint import odeint_backsolve_flat
+
+        yf, stats = odeint_backsolve_flat(func_flat, opts, y0f, t0, t1, args, full_solve)
+        return unravel(yf), stats
+    forbid_grad(y0f, args)
     if full_solve is not None and opts.fixed_num_steps is None and opts.adjoint != Adjoint.DIRECT:
         yf, stats = full_solve.forward(y0f, t0, t1, args)
     else:
@@ -307,4 +329,4 @@ def odeint_with_stats(
     return unravel(yf), stats
 
 
-__all__ = ["odeint_with_stats", "SolveStats", "forbid_grad"]
+__all__ = ["odeint_with_stats", "SolveStats", "forbid_grad", "needs_grad"]

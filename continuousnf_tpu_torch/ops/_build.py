@@ -1,15 +1,18 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one `csrc/<name>.cu` file with a plain C interface.  It is
-compiled with nvcc for Hopper (`sm_90a`) into a shared library under
-`build/kernels/` at the repository root (listed in .gitignore), at its first
-use, and loaded with ctypes.  Importing the package builds nothing.  The
-library's file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.
+Each kernel is one `csrc/<name>.cu` file with a plain C interface (it may
+include the shared `csrc/*.cuh` headers).  It is compiled with nvcc for
+Hopper (`sm_90a`) into a shared library under `build/kernels/` at the
+repository root (listed in .gitignore), at its first use, and loaded with
+ctypes.  Importing the package builds nothing.  The library's file name
+carries a hash of the source, the headers and the flags, so an edited source
+is rebuilt and a stale library is never loaded.  `build_libraries` starts one
+nvcc per source at once.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -18,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -43,7 +46,10 @@ def build_library(name: str) -> Tuple[Path, str]:
     flags exists.  Returns its path and nvcc's output (empty when nothing
     was compiled)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return out, ""
@@ -64,6 +70,13 @@ def build_library(name: str) -> Tuple[Path, str]:
     return out, proc.stdout + proc.stderr
 
 
+def build_libraries(names) -> Dict[str, Tuple[Path, str]]:
+    """`build_library` for several kernels, one nvcc process each, all
+    started together.  Returns {name: (path, nvcc output)}."""
+    with concurrent.futures.ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build_library, names)))
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu`'s shared library."""
@@ -71,4 +84,4 @@ def load_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(path))
 
 
-__all__ = ["build_library", "load_library", "BUILD_DIR"]
+__all__ = ["build_library", "build_libraries", "load_library", "BUILD_DIR"]

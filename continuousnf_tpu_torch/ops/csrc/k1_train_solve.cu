@@ -1,0 +1,200 @@
+// K1: the TRAIN-mode forward solve of a CNF whose field is a 2-layer tanh MLP
+// with one Hutchinson probe (reverse mode), the whole adaptive tsit5 solve in
+// one cooperative launch.
+//
+// Replaces the TPU kernel continuousnf_tpu/ops/fused_solve.py::_run_solve_kernel
+// (pl.pallas_call at :1043) built by _make_solve_kernel (:773-942) with the
+// _stage_train stage (:333-369; _probe_pullback :291, _safe_col_norm :155).
+// What it computes, per attempted step: the tsit5 stages of the state
+// [z (B, dz) | -tr | ||f|| | ||eps^T J||] (three accumulator rows), where per
+// sample
+//   h = tanh(z W1 + b1),  y = tanh(h W2 + b2)               (the field)
+//   v1 = eps (1 - y^2),  u1 = W2 v1,  v0 = u1 (1 - h^2),  eJ = W1 v0
+//   rates: -<eJ, eps>,  ||y|| (norm_z),  ||eJ|| (norm_j)   (safe norms)
+// then ONE Hairer norm over all B * (dz + 3) elements, the PI controller,
+// FSAL and the max_steps cap (the loop of solve_common.cuh, shared with K3).
+// The accumulators are seeded from the incoming state; the TPU kernel starts
+// them at zero (fused_solve.py:836-838), a fault that is not copied.
+//
+// What bounds it on the H100: latency, as for K3.  A stage is about
+// 4 * dz * H FMA per sample (3 k at dz = 16, H = 48), so a whole stage at
+// B = 4096 is microseconds of one SM's work; the time goes to each thread's
+// dependent FMA chains and to one grid barrier per attempted step.  The
+// design is K3's: one thread per sample, weights in shared memory read with
+// 16-byte broadcast loads, state and stage registers in a (row, B) global
+// scratch.  The hidden activations h, which the pullback needs after the
+// forward pass, go to a per-thread column of shared memory (H floats at a
+// stride of the block size: conflict-free) instead of registers.
+// Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+
+#include "solve_common.cuh"
+
+namespace {
+
+using cnf::FwdArgs;
+using cnf::kMaxBlock;
+using cnf::kRedFloats;
+
+__device__ __forceinline__ float safe_norm_sq(float sq) { return sq > 0.f ? sqrtf(sq) : 0.f; }
+
+// The TRAIN field of one sample with its probe.  Columns i >= dz of the
+// padded weights are zero and the probe is zero there, so padded entries add
+// nothing to y, eJ, the trace or the norms.
+template <int DZ>
+struct TrainField {
+  const float* w1t;  // (H, DZ): w1t[j][i] = w1[i][j]
+  const float* b1;   // (H)
+  const float* w2p;  // (H, DZ): w2p[j][k] = w2[j][k]
+  const float* b2p;  // (DZ)
+  const float* eps;  // (B, dz)
+  float* hcol;       // this thread's h column: hcol[j * hstride]
+  int H, dz, hstride, norm_z, norm_j;
+
+  __device__ __forceinline__ void operator()(int s, const float (&z)[DZ], float (&ky)[DZ],
+                                             float (&kr)[3]) const {
+    float pre[DZ];
+#pragma unroll
+    for (int k = 0; k < DZ; ++k) pre[k] = b2p[k];
+    for (int j = 0; j < H; ++j) {
+      const float4* w1j = reinterpret_cast<const float4*>(w1t + j * DZ);
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+      for (int q = 0; q < DZ / 4; ++q) {
+        const float4 w = w1j[q];
+        a0 = fmaf(z[4 * q + 0], w.x, a0);
+        a1 = fmaf(z[4 * q + 1], w.y, a1);
+        a2 = fmaf(z[4 * q + 2], w.z, a2);
+        a3 = fmaf(z[4 * q + 3], w.w, a3);
+      }
+      const float h = tanhf(((a0 + a1) + (a2 + a3)) + b1[j]);
+      hcol[j * hstride] = h;
+      const float4* w2j = reinterpret_cast<const float4*>(w2p + j * DZ);
+#pragma unroll
+      for (int q = 0; q < DZ / 4; ++q) {
+        const float4 w = w2j[q];
+        pre[4 * q + 0] = fmaf(h, w.x, pre[4 * q + 0]);
+        pre[4 * q + 1] = fmaf(h, w.y, pre[4 * q + 1]);
+        pre[4 * q + 2] = fmaf(h, w.z, pre[4 * q + 2]);
+        pre[4 * q + 3] = fmaf(h, w.w, pre[4 * q + 3]);
+      }
+    }
+    // y and the probe gated by the output layer's tanh'.
+    float e[DZ], v1[DZ], ysq = 0.f;
+#pragma unroll
+    for (int k = 0; k < DZ; ++k) {
+      const float y = tanhf(pre[k]);
+      ky[k] = y;
+      ysq = fmaf(y, y, ysq);
+      e[k] = k < dz ? eps[(size_t)s * dz + k] : 0.f;
+      v1[k] = e[k] * (1.f - y * y);
+    }
+    // The pullback eJ = eps^T J through both layers.
+    float eJ[DZ];
+#pragma unroll
+    for (int i = 0; i < DZ; ++i) eJ[i] = 0.f;
+    for (int j = 0; j < H; ++j) {
+      const float4* w2j = reinterpret_cast<const float4*>(w2p + j * DZ);
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+      for (int q = 0; q < DZ / 4; ++q) {
+        const float4 w = w2j[q];
+        a0 = fmaf(v1[4 * q + 0], w.x, a0);
+        a1 = fmaf(v1[4 * q + 1], w.y, a1);
+        a2 = fmaf(v1[4 * q + 2], w.z, a2);
+        a3 = fmaf(v1[4 * q + 3], w.w, a3);
+      }
+      const float h = hcol[j * hstride];
+      const float v0 = ((a0 + a1) + (a2 + a3)) * (1.f - h * h);
+      const float4* w1j = reinterpret_cast<const float4*>(w1t + j * DZ);
+#pragma unroll
+      for (int q = 0; q < DZ / 4; ++q) {
+        const float4 w = w1j[q];
+        eJ[4 * q + 0] = fmaf(w.x, v0, eJ[4 * q + 0]);
+        eJ[4 * q + 1] = fmaf(w.y, v0, eJ[4 * q + 1]);
+        eJ[4 * q + 2] = fmaf(w.z, v0, eJ[4 * q + 2]);
+        eJ[4 * q + 3] = fmaf(w.w, v0, eJ[4 * q + 3]);
+      }
+    }
+    float tr = 0.f, nsq = 0.f;
+#pragma unroll
+    for (int i = 0; i < DZ; ++i) {
+      tr = fmaf(eJ[i], e[i], tr);
+      nsq = fmaf(eJ[i], eJ[i], nsq);
+    }
+    kr[0] = -tr;
+    kr[1] = norm_z ? safe_norm_sq(ysq) : 0.f;
+    kr[2] = norm_j ? safe_norm_sq(nsq) : 0.f;
+  }
+};
+
+template <int DZ>
+__global__ void __launch_bounds__(kMaxBlock) k1_train_solve(const FwdArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = p.H, dz = p.dz;
+  float* w1t = smem;          // (H, DZ)
+  float* w2p = w1t + H * DZ;  // (H, DZ)
+  float* b2p = w2p + H * DZ;  // (DZ)
+  float* b1 = b2p + DZ;       // (H)
+  float* red = b1 + H;        // kRedFloats
+  float* hbuf = red + kRedFloats;  // (H, blockDim.x)
+
+  for (int idx = threadIdx.x; idx < H * DZ; idx += blockDim.x) {
+    const int j = idx / DZ, i = idx % DZ;
+    w1t[idx] = i < dz ? p.w1[(size_t)i * H + j] : 0.f;
+    w2p[idx] = i < dz ? p.w2[(size_t)j * dz + i] : 0.f;
+  }
+  for (int k = threadIdx.x; k < DZ; k += blockDim.x) b2p[k] = k < dz ? p.b2[k] : 0.f;
+  for (int j = threadIdx.x; j < H; j += blockDim.x) b1[j] = p.b1[j];
+  __syncthreads();
+
+  const TrainField<DZ> field{w1t, b1, w2p, b2p, p.eps, hbuf + threadIdx.x,
+                             H, dz, (int)blockDim.x, p.norm_z, p.norm_j};
+  cnf::forward_solve<DZ, 3>(p, field, red);
+}
+
+template <int DZ>
+size_t smem_bytes(int H, int block) {
+  return sizeof(float) * (2 * (size_t)H * DZ + DZ + H + kRedFloats + (size_t)H * block);
+}
+
+}  // namespace
+
+// Largest co-resident grid for a cooperative launch (0 if none).
+extern "C" int cnf_k1_max_grid(int dz, int H, int block, int* out) {
+  switch (cnf::padded_dz(dz)) {
+    case 4: return (int)cnf::coop_max_grid(k1_train_solve<4>, smem_bytes<4>(H, block), block, out);
+    case 8: return (int)cnf::coop_max_grid(k1_train_solve<8>, smem_bytes<8>(H, block), block, out);
+    case 16: return (int)cnf::coop_max_grid(k1_train_solve<16>, smem_bytes<16>(H, block), block, out);
+    case 32: return (int)cnf::coop_max_grid(k1_train_solve<32>, smem_bytes<32>(H, block), block, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// acc0/accT: (3, B), rows [dlogp | reg_e | reg_n].  tab: a (kStages x
+// kStages, row-major), b, btilde.  Returns the launch's cudaError_t.
+extern "C" int cnf_k1_train_solve(const float* w1, const float* b1, const float* w2,
+                                  const float* b2, const float* eps, const float* z0,
+                                  const float* acc0, const float* ts, float* zT, float* accT,
+                                  int* stats, float* dt_last, float* work, float* partials, int B,
+                                  int dz, int H, int max_steps, int norm_z, int norm_j, float rtol,
+                                  float atol, float beta1, float beta2, float inv_order,
+                                  const float* tab, int grid, int block, void* stream) {
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  FwdArgs a = {};
+  a.w1 = w1; a.b1 = b1; a.w2 = w2; a.b2 = b2; a.eps = eps;
+  a.z0 = z0; a.acc0 = acc0; a.ts = ts;
+  a.zT = zT; a.accT = accT; a.stats = stats; a.dt_last = dt_last;
+  a.work = work; a.partials = partials;
+  a.B = B; a.dz = dz; a.H = H; a.max_steps = max_steps; a.norm_z = norm_z; a.norm_j = norm_j;
+  a.rtol = rtol; a.atol = atol; a.beta1 = beta1; a.beta2 = beta2; a.inv_order = inv_order;
+  cnf::read_tableau(tab, &a.tab);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cnf::padded_dz(dz)) {
+    case 4: return (int)cnf::coop_launch(k1_train_solve<4>, a, grid, block, smem_bytes<4>(H, block), s);
+    case 8: return (int)cnf::coop_launch(k1_train_solve<8>, a, grid, block, smem_bytes<8>(H, block), s);
+    case 16: return (int)cnf::coop_launch(k1_train_solve<16>, a, grid, block, smem_bytes<16>(H, block), s);
+    case 32: return (int)cnf::coop_launch(k1_train_solve<32>, a, grid, block, smem_bytes<32>(H, block), s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

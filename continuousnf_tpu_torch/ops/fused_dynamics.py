@@ -3,8 +3,9 @@ that the fused solve (`ops/fused_solve.py`) is held against.
 
 Port of `continuousnf_tpu/ops/fused_dynamics.py`: `exact_tanh_mlp_trace`
 (:145-166), `is_dense_tanh_chain` (:169-181), `exact_dense_chain_trace`
-(:217-258) and `supports_fusion` (:261-272).  The per-stage TRAIN kernel of
-that file (K10, `_fused_forward`) is not ported yet (ROADMAP queue 2).
+(:217-258), `supports_fusion` (:261-272), and the plain version of the
+per-stage TRAIN kernel `_fused_forward` (K10, `_reference_impl` :43-54),
+whose CUDA kernel is not ported yet (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -110,7 +111,27 @@ def supports_fusion(nn) -> bool:
     )
 
 
+def fused_tanh_mlp_dynamics(params, z: torch.Tensor, eps: torch.Tensor):
+    """The per-stage TRAIN field of a 2-layer tanh MLP for one (B, dz) probe:
+    (y, tr = <eps^T J, eps>, ||y||, ||eps^T J||).  CPU tensors run the plain
+    version; the CUDA kernel (K10) is not ported, so CUDA tensors raise."""
+    if z.device.type != "cpu":
+        raise NotImplementedError(
+            "the per-stage TRAIN kernel (K10, ROADMAP queue 2) is not ported; "
+            "use the fused solve (K1/K2) or fused=False"
+        )
+    (p1, p2) = params
+    w1, b1, w2, b2 = p1["w"], p1["b"], p2["w"], p2["b"]
+    h = torch.tanh(z @ w1 + b1)
+    y = torch.tanh(h @ w2 + b2)
+    g1 = ((eps * (1.0 - y * y)) @ w2.T) * (1.0 - h * h)
+    eJ = g1 @ w1.T
+    tr = torch.sum(eJ * eps, dim=-1)
+    return y, tr, torch.linalg.vector_norm(y, dim=-1), torch.linalg.vector_norm(eJ, dim=-1)
+
+
 __all__ = [
+    "fused_tanh_mlp_dynamics",
     "exact_tanh_mlp_trace",
     "dense_chain_trace",
     "exact_dense_chain_trace",

@@ -1,23 +1,28 @@
-"""Whole-ODE-solve kernel ("solve-in-kernel") for TEST-mode densities.
+"""Whole-ODE-solve kernels ("solve-in-kernel"): the TEST and TRAIN forward
+solves and the TRAIN backsolve adjoint.
 
-Port of the TEST forward path of `continuousnf_tpu/ops/fused_solve.py`:
-`ChainSpec`/`chain_spec` (:101-152), `FullSolve` (:1346-1357) and
-`make_full_solve` (:1378-1569), with `run_solve_kernel` in the place of
-`_run_solve_kernel` (:968-1061).
+Port of `continuousnf_tpu/ops/fused_solve.py`: `ChainSpec`/`chain_spec`
+(:101-152), the stages `_stage_train` (:333-369) with `_chain_fwd`,
+`_probe_pullback`, `_safe_col_norm` and `_ct_safe_norm` (:155-306), the
+hand-derived stage VJP `_stage_train_fwdbwd` (:372-481), `FullSolve`
+(:1346-1357) and `make_full_solve` (:1378-1823), in batch-major layout.
 
-The kernel, K3 (`csrc/k3_test_solve.cu`), replaces the TPU megakernel
-`fused_solve.py::_run_solve_kernel` with the `_stage_test` stage: the whole
-adaptive tsit5 solve of [z | dlogp] for a 2-layer tanh MLP in one
+Three CUDA kernels (`csrc/`), each with a plain PyTorch twin:
+- K3 (`k3_test_solve.cu`, `run_solve_kernel`, twin `solve_test_plain`) for
+  `_run_solve_kernel` with `_stage_test`: the TEST solve of [z | dlogp];
+- K1 (`k1_train_solve.cu`, `run_train_solve_kernel`, twin
+  `solve_train_plain`) for `_run_solve_kernel` with `_stage_train`: the TRAIN
+  solve of [z | dlogp | reg_e | reg_n];
+- K2 (`k2_train_adjoint.cu`, `run_adjoint_kernel`, twin
+  `adjoint_train_plain`) for `adjoint_solve` with `_stage_train_fwdbwd`: the
+  backward integration of (z, acc, a_z, g_p) from t1 to t0.
+Each runs one whole adaptive tsit5 solve of a 2-layer tanh MLP field in one
 cooperative launch, with one batch-global error norm per attempted step.
-On the H100 it is bound by latency (the dependent FMA chains of one thread
-per sample, and one grid barrier per attempted step), not by bytes or FLOPs;
-the source note in the .cu file says what its design does about that.
 
-`run_solve_kernel` launches the kernel for CUDA tensors and runs its plain
-PyTorch version, `solve_test_plain` (the eager `_solve_adaptive_while` on the
-plain TEST field), for CPU tensors.  On a CUDA tensor there is no fallback:
-a configuration the kernel does not cover raises NotImplementedError.
-`run_solve_kernel.launches` counts the kernel's launches.
+A wrapper launches its kernel for CUDA tensors and runs its twin for CPU
+tensors.  On a CUDA tensor there is no fallback: a configuration the kernel
+does not cover raises NotImplementedError naming the kernel that would.
+Each wrapper's `.launches` counts its kernel's launches.
 """
 
 from __future__ import annotations
@@ -28,11 +33,14 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..ode.solve import SolveStats, _initial_step_size, _solve_adaptive_while, forbid_grad
+from ..core.dynamics import safe_norm
+from ..ode.solve import SolveStats, _initial_step_size, _solve_adaptive_while, needs_grad
 from ..ode.tableaus import TSIT5, ButcherTableau, get_tableau
-from ..types import Mode
+from ..types import ADMode, Mode
 
-_KERNEL = "k3_test_solve"
+K3_KERNEL = "k3_test_solve"
+K1_KERNEL = "k1_train_solve"
+K2_KERNEL = "k2_train_adjoint"
 
 
 class ChainSpec(NamedTuple):
@@ -87,11 +95,16 @@ class FullSolve(NamedTuple):
     """Fused solve implementations handed to `ode.solve.odeint_with_stats`.
 
     forward: (y0f, t0, t1, args) -> (yTf, stats).
-    adjoint: the backward megakernel; None until gradients are ported.
+    adjoint: (yTf, g_yf, args, t_hi, t_lo, dt_warm=None) ->
+             (y0f, a_y0f, g_args, stats), the backsolve backward integration
+             (`ode/adjoint.py`); None where it is not ported (TEST mode, K5).
     """
 
     forward: Callable
     adjoint: Optional[Callable]
+
+
+# ---- stages (batch-major) ----
 
 
 def _test_stage(spec: ChainSpec, ws, bs, z):
@@ -103,10 +116,133 @@ def _test_stage(spec: ChainSpec, ws, bs, z):
     return dense_chain_trace(ws, bs, spec.acts, z)
 
 
+def _chain_fwd(spec: ChainSpec, z, ws, bs):
+    """Forward pass of the chain: hs[0] = z, hs[i+1] = layer i's output;
+    ds[i] = its tanh' gate (None for an identity layer)."""
+    hs, ds = [z], []
+    for i in range(spec.n_layers):
+        a = hs[-1] @ ws[i] + bs[i]
+        if spec.acts[i]:
+            h = torch.tanh(a)
+            ds.append(1.0 - h * h)
+        else:
+            h = a
+            ds.append(None)
+        hs.append(h)
+    return hs, ds
+
+
+def _probe_pullback(spec: ChainSpec, ek, ws, ds):
+    """One Hutchinson VJP pass, eps^T J.  Returns (us, vs, eJ): us[i] = the
+    cotangent arriving at hs[i] (us[N] = ek), vs[i] = the gated cotangent
+    entering layer i's matmul, eJ = us[0]."""
+    N = spec.n_layers
+    us = [None] * (N + 1)
+    vs = [None] * N
+    us[N] = ek
+    for i in reversed(range(N)):
+        vs[i] = us[i + 1] * ds[i] if ds[i] is not None else us[i + 1]
+        us[i] = vs[i] @ ws[i].T
+    return us, vs, us[0]
+
+
+def _ct_safe_norm(ct, norm):
+    """Cotangent factor of `safe_norm`: ct / ||v||, 0 at v = 0."""
+    pos = norm > 0
+    return torch.where(pos, ct / torch.where(pos, norm, torch.ones_like(norm)), torch.zeros_like(norm))
+
+
+def _stage_train(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool):
+    """One TRAIN field evaluation: z (B, dz), probes eps (K, B, dz).
+    Returns (k_z (B, dz), rates (3, B) = [-tr, ||y||, ||eps^T J||]), the
+    trace and the Jacobian norm averaged over the K probes."""
+    hs, ds = _chain_fwd(spec, z, ws, bs)
+    y = hs[-1]
+    zero = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
+    tr, n_rate = zero, zero
+    for ek in eps:
+        _, _, eJ = _probe_pullback(spec, ek, ws, ds)
+        tr = tr + torch.sum(eJ * ek, dim=-1)
+        if norm_j:
+            n_rate = n_rate + safe_norm(eJ)
+    if eps.shape[0] > 1:
+        tr = tr / eps.shape[0]
+        n_rate = n_rate / eps.shape[0]
+    e_rate = safe_norm(y) if norm_z else zero
+    return y, torch.stack([-tr, e_rate, n_rate])
+
+
+def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ct_y, ct_r):
+    """`_stage_train` and its hand-derived VJP against (ct_y (B, dz), ct_r
+    (3, B)) in one pass: the math the K2 kernel runs.  Returns (k_z, rates,
+    ct_z, ct_ws, ct_bs), the cotangents not negated and the parameter ones
+    summed over the batch."""
+    N = spec.n_layers
+    K = eps.shape[0]
+    hs, ds = _chain_fwd(spec, z, ws, bs)
+    y = hs[-1]
+    zero = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
+    uss, vss, eJs, ns = [], [], [], []
+    tr, n_rate = zero, zero
+    for ek in eps:
+        us, vs, eJ = _probe_pullback(spec, ek, ws, ds)
+        uss.append(us)
+        vss.append(vs)
+        eJs.append(eJ)
+        tr = tr + torch.sum(eJ * ek, dim=-1)
+        if norm_j:
+            ns.append(safe_norm(eJ))
+            n_rate = n_rate + ns[-1]
+    if K > 1:
+        tr = tr / K
+        n_rate = n_rate / K
+    e_rate = safe_norm(y) if norm_z else zero
+    kr = torch.stack([-tr, e_rate, n_rate])
+
+    def add(acc, x):
+        return x if acc is None else acc + x
+
+    # Rates row 0 is -tr, averaged over the probes.
+    ct_tr = (-1.0 / K) * ct_r[0]
+    ct_hs = [None] * (N + 1)
+    ct_ws = [None] * N
+    ct_ytot = ct_y
+    if norm_z:
+        ct_ytot = ct_ytot + y * _ct_safe_norm(ct_r[1], e_rate)[:, None]
+    for k, ek in enumerate(eps):
+        ct_u = ek * ct_tr[:, None]
+        if norm_j:
+            ct_u = ct_u + eJs[k] * _ct_safe_norm(ct_r[2] / K, ns[k])[:, None]
+        # Up the pullback chain: u_i = v_i W_i^T, v_i = u_{i+1} * d_i.
+        for i in range(N):
+            ct_v = ct_u @ ws[i]
+            ct_ws[i] = add(ct_ws[i], ct_u.T @ vss[k][i])
+            if ds[i] is not None:
+                ct_u = ct_v * ds[i]
+                # d_i = 1 - hs[i+1]^2: ct_h += -2 h (ct_v * u_{i+1})
+                ct_hs[i + 1] = add(ct_hs[i + 1], (-2.0 * hs[i + 1]) * (ct_v * uss[k][i + 1]))
+            else:
+                ct_u = ct_v
+    # Down the forward chain.
+    ct_h = add(ct_hs[N], ct_ytot)
+    ct_bs = [None] * N
+    for i in reversed(range(N)):
+        ct_a = ct_h * ds[i] if ds[i] is not None else ct_h
+        ct_ws[i] = add(ct_ws[i], hs[i].T @ ct_a)
+        ct_bs[i] = torch.sum(ct_a, dim=0)
+        ct_h = ct_a @ ws[i].T
+        if i > 0 and ct_hs[i] is not None:
+            ct_h = ct_h + ct_hs[i]
+    return y, kr, ct_h, ct_ws, ct_bs
+
+
+# ---- plain twins ----
+
+
 def solve_test_plain(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init):
-    """Plain PyTorch version of the kernel: the eager adaptive solve of
-    [z | dlogp] on the closed-form TEST field, from the given initial step.
-    Returns (zT, dlogpT, steps, accepted, dt_last)."""
+    """Plain PyTorch version of K3: the eager adaptive solve of [z | dlogp]
+    on the closed-form TEST field, from the given initial step.  Returns
+    (zT, dlogpT, steps, accepted, dt_last)."""
     B, dz = z0.shape
 
     def f(t, yf):
@@ -118,8 +254,74 @@ def solve_test_plain(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0
     return yf[: B * dz].reshape(B, dz), yf[B * dz :], st.steps, st.accepted, st.dt_last
 
 
-def _kernel_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
-    """Why the CUDA kernel cannot run this configuration (None if it can)."""
+def solve_train_plain(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init
+):
+    """Plain PyTorch version of K1: the eager adaptive solve of
+    [z | acc] with acc (3, B) = [dlogp | reg_e | reg_n] rows, seeded from
+    acc0, on `_stage_train` with probes eps (K, B, dz).  Returns
+    (zT, accT, steps, accepted, dt_last)."""
+    B, dz = z0.shape
+
+    def f(t, yf):
+        y, kr = _stage_train(spec, yf[: B * dz].reshape(B, dz), eps, ws, bs, norm_z, norm_j)
+        return torch.cat([y.reshape(-1), kr.reshape(-1)])
+
+    y0f = torch.cat([z0.reshape(-1), acc0.reshape(-1)])
+    yf, st = _solve_adaptive_while(f, tab, y0f, t0, t1, rtol, atol, max_steps, dt_init)
+    return yf[: B * dz].reshape(B, dz), yf[B * dz :].reshape(3, B), st.steps, st.accepted, st.dt_last
+
+
+def _adjoint_field(spec, norm_z, norm_j, ws, bs, eps, aaccT):
+    """The backward field of the flat augmented state
+    [z | acc (3, B) | a_z | a_acc (3, B) | g_w... | g_b...]: the stage, its
+    rates, -ct_z, a constant a_acc and the negated parameter cotangents."""
+    B, dz = eps.shape[1], eps.shape[2]
+    n = B * dz
+
+    def f(t, uf):
+        z = uf[:n].reshape(B, dz)
+        az = uf[n + 3 * B : 2 * n + 3 * B].reshape(B, dz)
+        y, kr, ct_z, ct_ws, ct_bs = _stage_train_fwdbwd(spec, z, eps, ws, bs, norm_z, norm_j, az, aaccT)
+        parts = [y.reshape(-1), kr.reshape(-1), -ct_z.reshape(-1), torch.zeros_like(aaccT).reshape(-1)]
+        return torch.cat(parts + [-g.reshape(-1) for g in ct_ws + ct_bs])
+
+    return f
+
+
+def adjoint_train_plain(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init,
+):
+    """Plain PyTorch version of K2: the eager adaptive backsolve of
+    (z, acc, a_z, a_acc, g_p) from t_hi to t_lo, one error norm over the whole
+    augmented state (a_acc constant), on the hand-derived stage VJP.
+    `dt_init` None picks the first step by Hairer's rule.  Returns
+    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted)."""
+    B, dz = zT.shape
+    n = B * dz
+    u0 = torch.cat(
+        [zT.reshape(-1), accT.reshape(-1), azT.reshape(-1), aaccT.reshape(-1)]
+        + [torch.zeros(w.numel(), dtype=zT.dtype, device=zT.device) for w in list(ws) + list(bs)]
+    )
+    f = _adjoint_field(spec, norm_z, norm_j, ws, bs, eps, aaccT)
+    uf, st = _solve_adaptive_while(f, tab, u0, t_hi, t_lo, rtol, atol, max_steps, dt_init)
+    sizes = [w.numel() for w in list(ws) + list(bs)]
+    grads = torch.split(uf[2 * n + 6 * B :], sizes)
+    N = len(ws)
+    g_ws = [g.reshape(w.shape) for g, w in zip(grads[:N], ws)]
+    g_bs = [g.reshape(b.shape) for g, b in zip(grads[N:], bs)]
+    z0 = uf[:n].reshape(B, dz)
+    acc0 = uf[n : n + 3 * B].reshape(3, B)
+    az0 = uf[n + 3 * B : 2 * n + 3 * B].reshape(B, dz)
+    return z0, acc0, az0, g_ws, g_bs, st.steps, st.accepted
+
+
+# ---- the CUDA kernels ----
+
+
+def _kernel_covers(tab: ButcherTableau, spec: ChainSpec, k_probes: int = 1) -> Optional[str]:
+    """Why the CUDA kernels cannot run this configuration (None if they can)."""
     if tab != TSIT5:
         return f"the {tab.name} tableau (K9, ROADMAP queue 2)"
     if spec.n_layers != 2:
@@ -128,13 +330,23 @@ def _kernel_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
         return "identity-activation layers (K9, ROADMAP queue 2)"
     if spec.n_cond:
         return "conditional nets (K8, ROADMAP queue 2)"
+    if k_probes != 1:
+        return f"{k_probes} Hutchinson probes (K6, ROADMAP queue 2)"
     if spec.dz > 32:
-        return f"state width {spec.dz} > 32 (the kernel keeps one sample's state in registers)"
+        return f"state width {spec.dz} > 32 (the kernels keep one sample's state in registers)"
     return None
 
 
+def _no_grad_inputs(kernel: str, *tensors) -> None:
+    if needs_grad(tensors):
+        raise NotImplementedError(
+            f"{kernel} is not differentiable: gradients go through the BACKSOLVE "
+            "adjoint (ode/adjoint.py)"
+        )
+
+
 def _tableau_array() -> ctypes.Array:
-    """tsit5 as the kernel reads it: a (7 x 7, row-major) | b | btilde."""
+    """tsit5 as the kernels read it: a (7 x 7, row-major) | b | btilde."""
     s = TSIT5.num_stages
     a = [[0.0] * s for _ in range(s)]
     for i, row in enumerate(TSIT5.a):
@@ -143,74 +355,112 @@ def _tableau_array() -> ctypes.Array:
     return (ctypes.c_float * len(flat))(*flat)
 
 
-def _library() -> ctypes.CDLL:
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    K3_KERNEL: {
+        "cnf_k3_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k3_test_solve": ([_P] * 13 + [_I] * 4 + [_F] * 5 + [_P, _I, _I, _P], _I),
+    },
+    K1_KERNEL: {
+        "cnf_k1_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k1_train_solve": ([_P] * 14 + [_I] * 6 + [_F] * 5 + [_P, _I, _I, _P], _I),
+    },
+    K2_KERNEL: {
+        "cnf_k2_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k2_train_adjoint": ([_P] * 21 + [_I] * 6 + [_F] * 5 + [_P, _I, _I, _P], _I),
+    },
+}
+
+
+def _library(name: str) -> ctypes.CDLL:
     from ._build import load_library
 
-    lib = load_library(_KERNEL)
+    lib = load_library(name)
     if not getattr(lib, "_cnf_typed", False):
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.cnf_k3_max_grid.argtypes = [I, I, I, ctypes.POINTER(I)]
-        lib.cnf_k3_max_grid.restype = I
-        lib.cnf_k3_test_solve.argtypes = (
-            [P] * 13 + [I, I, I, I] + [F] * 5 + [P, I, I, P]
-        )
-        lib.cnf_k3_test_solve.restype = I
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         lib._cnf_typed = True
     return lib
 
 
-def _launch_shape(lib, B: int, dz: int, H: int, device) -> Tuple[int, int]:
-    """Threads per block and blocks, capped at the co-resident grid.  128
-    threads per block (256 once that would need more than two blocks per
-    SM): at B = 4096 on the H100, 128 beat 32, 64 and 256 because fewer
-    blocks make the per-step grid barrier and partial sum cheaper (PERF.md)."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    block = 128
-    while block < 256 and -(-B // block) > 2 * n_sm:
-        block *= 2
+def _launch_shape(max_grid, label: str, B: int, dz: int, H: int, blocks) -> Tuple[int, int]:
+    """(threads per block, blocks) for a cooperative launch: the first block
+    size in `blocks` that the kernel can launch with, and at most as many
+    blocks as are co-resident."""
     cap = ctypes.c_int(0)
-    err = lib.cnf_k3_max_grid(dz, H, block, ctypes.byref(cap))
-    if err != 0 or cap.value < 1:
-        raise RuntimeError(
-            f"K3 cannot be launched cooperatively (dz={dz}, H={H}, block={block}): "
-            f"cudaError {err}, co-resident grid {cap.value}"
-        )
-    return block, min(-(-B // block), cap.value)
+    for block in blocks:
+        err = max_grid(dz, H, block, ctypes.byref(cap))
+        if err == 0 and cap.value >= 1:
+            return block, min(-(-B // block), cap.value)
+    raise RuntimeError(
+        f"{label} cannot be launched cooperatively (dz={dz}, H={H}, blocks {tuple(blocks)}): "
+        f"cudaError {err}, co-resident grid {cap.value}"
+    )
+
+
+def _forward_blocks(B: int, device) -> Tuple[int, ...]:
+    """128 threads per block, 256 once that would need more than two blocks
+    per SM: at B = 4096 on the H100, 128 beat 32, 64 and 256 for K3 because
+    fewer blocks make the per-step grid barrier and partial sum cheaper
+    (PERF.md)."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return (256,) if -(-B // 128) > 2 * n_sm else (128,)
+
+
+def _check_inputs(label, device, tensors, shapes):
+    if any(x.dtype != torch.float32 or x.device != device for x in tensors):
+        raise ValueError(f"{label} takes float32 tensors on one device")
+    for x, shape in zip(tensors, shapes):
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{label}: got a tensor of shape {tuple(x.shape)}, expected {tuple(shape)}")
+    return [x.contiguous() for x in tensors]
+
+
+def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _controller_floats(tab):
+    return 7.0 / (10.0 * tab.order), 2.0 / (5.0 * tab.order), 1.0 / tab.order
+
+
+def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
+    why = _kernel_covers(tab, spec, k_probes)
+    if why is not None:
+        raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
 
 def run_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init):
-    """The forward solve of [z | dlogp] from t0 to t1 (0-d tensors; t1 < t0
+    """K3: the TEST solve of [z | dlogp] from t0 to t1 (0-d tensors; t1 < t0
     runs backward) starting with step `dt_init`.  z0 is (B, dz) batch-major
     and dlogp0 (B,) seeds the accumulator.  Returns
     (zT, dlogpT, steps, accepted, dt_last), all on z0's device.
 
     CUDA tensors go through the K3 kernel, CPU tensors through its plain
     version."""
-    forbid_grad(ws, bs, z0, dlogp0)
+    _no_grad_inputs("K3", ws, bs, z0, dlogp0)
     if z0.device.type == "cpu":
         return solve_test_plain(
             tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
             z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
         )
-    if z0.device.type != "cuda":
-        raise ValueError(f"K3 runs on CUDA or CPU tensors, got {z0.device}")
-    why = _kernel_covers(tab, spec)
-    if why is not None:
-        raise NotImplementedError(f"the CUDA solve kernel does not cover {why}")
+    _cuda_only("K3", z0, tab, spec)
     B, dz = z0.shape
     H = spec.out_dims[0]
     device = z0.device
-    tensors = [ws[0], bs[0], ws[1], bs[1], z0, dlogp0]
-    if any(x.dtype != torch.float32 or x.device != device for x in tensors):
-        raise ValueError("K3 takes float32 tensors on one device")
-    w1, b1, w2, b2, z0, dlogp0 = (x.contiguous() for x in tensors)
-    if w1.shape != (dz, H) or w2.shape != (H, dz) or b1.shape != (H,) or b2.shape != (dz,):
-        raise ValueError(f"K3 weight shapes do not match z0 {tuple(z0.shape)}")
-    if dlogp0.shape != (B,):
-        raise ValueError(f"dlogp0 must have shape ({B},), got {tuple(dlogp0.shape)}")
-
-    lib = _library()
-    block, grid = _launch_shape(lib, B, dz, H, device)
+    w1, b1, w2, b2, z0, dlogp0 = _check_inputs(
+        "K3", device, [ws[0], bs[0], ws[1], bs[1], z0, dlogp0],
+        [(dz, H), (H,), (H, dz), (dz,), (B, dz), (B,)],
+    )
+    lib = _library(K3_KERNEL)
+    block, grid = _launch_shape(lib.cnf_k3_max_grid, "K3", B, dz, H, _forward_blocks(B, device))
     ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
     zT = torch.empty_like(z0)
     dlogpT = torch.empty_like(dlogp0)
@@ -218,14 +468,11 @@ def run_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0
     dt_last = torch.empty(1, dtype=torch.float32, device=device)
     work = torch.empty((TSIT5.num_stages + 2) * (dz + 1) * B, dtype=torch.float32, device=device)
     partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
-    beta1, beta2 = 7.0 / (10.0 * tab.order), 2.0 / (5.0 * tab.order)
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     err = lib.cnf_k3_test_solve(
-        ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(z0), ptr(dlogp0), ptr(ts),
-        ptr(zT), ptr(dlogpT), ptr(stats), ptr(dt_last), ptr(work), ptr(partials),
-        B, dz, H, int(max_steps), rtol, atol, beta1, beta2, 1.0 / tab.order,
-        _tableau_array(), grid, block,
-        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
+        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(z0), _ptr(dlogp0), _ptr(ts),
+        _ptr(zT), _ptr(dlogpT), _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials),
+        B, dz, H, int(max_steps), rtol, atol, *_controller_floats(tab),
+        _tableau_array(), grid, block, _stream(device),
     )
     if err != 0:
         raise RuntimeError(f"K3 launch failed with cudaError {err} (grid {grid}, block {block})")
@@ -236,6 +483,111 @@ def run_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0
 run_solve_kernel.launches = 0
 
 
+def run_train_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init
+):
+    """K1: the TRAIN solve of [z | acc] from t0 to t1 starting with step
+    `dt_init`.  z0 is (B, dz), eps (K, B, dz) and acc0 (3, B) = [dlogp |
+    reg_e | reg_n] seeds the accumulators.  Returns
+    (zT, accT, steps, accepted, dt_last), all on z0's device.
+
+    CUDA tensors go through the K1 kernel (one probe), CPU tensors through
+    its plain version."""
+    _no_grad_inputs("K1", ws, bs, z0, eps, acc0)
+    if z0.device.type == "cpu":
+        return solve_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+        )
+    _cuda_only("K1", z0, tab, spec, eps.shape[0])
+    B, dz = z0.shape
+    H = spec.out_dims[0]
+    device = z0.device
+    w1, b1, w2, b2, z0, e0, acc0 = _check_inputs(
+        "K1", device, [ws[0], bs[0], ws[1], bs[1], z0, eps[0], acc0],
+        [(dz, H), (H,), (H, dz), (dz,), (B, dz), (B, dz), (3, B)],
+    )
+    lib = _library(K1_KERNEL)
+    block, grid = _launch_shape(lib.cnf_k1_max_grid, "K1", B, dz, H, _forward_blocks(B, device))
+    ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
+    zT = torch.empty_like(z0)
+    accT = torch.empty_like(acc0)
+    stats = torch.empty(2, dtype=torch.int32, device=device)
+    dt_last = torch.empty(1, dtype=torch.float32, device=device)
+    work = torch.empty((TSIT5.num_stages + 2) * (dz + 3) * B, dtype=torch.float32, device=device)
+    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
+    err = lib.cnf_k1_train_solve(
+        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(e0), _ptr(z0), _ptr(acc0), _ptr(ts),
+        _ptr(zT), _ptr(accT), _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials),
+        B, dz, H, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
+        _tableau_array(), grid, block, _stream(device),
+    )
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed with cudaError {err} (grid {grid}, block {block})")
+    run_train_solve_kernel.launches += 1
+    return zT, accT, stats[0], stats[1], dt_last[0]
+
+
+run_train_solve_kernel.launches = 0
+
+
+def run_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init,
+):
+    """K2: the backsolve of (z, acc, a_z, a_acc, g_p) from t_hi to t_lo
+    starting with step `dt_init`, on the TRAIN stage with probes eps
+    (K, B, dz).  zT, azT are (B, dz), accT, aaccT (3, B).  Returns
+    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted), g_* summed over the batch.
+
+    CUDA tensors go through the K2 kernel (one probe), CPU tensors through
+    its plain version."""
+    _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT)
+    if zT.device.type == "cpu":
+        return adjoint_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
+        )
+    _cuda_only("K2", zT, tab, spec, eps.shape[0])
+    if dt_init is None:
+        raise ValueError("K2 needs dt_init (the caller picks it)")
+    B, dz = zT.shape
+    H = spec.out_dims[0]
+    device = zT.device
+    w1, b1, w2, b2, e0, zT, accT, azT, aaccT = _check_inputs(
+        "K2", device, [ws[0], bs[0], ws[1], bs[1], eps[0], zT, accT, azT, aaccT],
+        [(dz, H), (H,), (H, dz), (dz,), (B, dz), (B, dz), (3, B), (B, dz), (3, B)],
+    )
+    lib = _library(K2_KERNEL)
+    block, grid = _launch_shape(lib.cnf_k2_max_grid, "K2", B, dz, H, (128, 64, 32))
+    P = 2 * dz * H + H + dz
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
+    z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
+    gw1, gb1, gw2, gb2 = (torch.empty_like(x) for x in (w1, b1, w2, b2))
+    stats = torch.empty(2, dtype=torch.int32, device=device)
+    work = torch.empty((TSIT5.num_stages + 2) * (2 * dz + 3) * B, dtype=torch.float32, device=device)
+    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
+    gpart = torch.empty(2 * grid * 2 * P, dtype=torch.float32, device=device)
+    err = lib.cnf_k2_train_adjoint(
+        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT),
+        _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0), _ptr(gw1), _ptr(gb1), _ptr(gw2),
+        _ptr(gb2), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gpart),
+        B, dz, H, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
+        _tableau_array(), grid, block, _stream(device),
+    )
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed with cudaError {err} (grid {grid}, block {block})")
+    run_adjoint_kernel.launches += 1
+    return z0, acc0, az0, [gw1, gw2], [gb1, gb2], stats[0], stats[1]
+
+
+run_adjoint_kernel.launches = 0
+
+
+# ---- make_full_solve ----
+
+
 def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     """Build the fused solve for `ode.solve.odeint_with_stats`, or None when
     the JAX package's megakernel would not apply either.
@@ -243,9 +595,12 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     Eligibility follows the JAX package: opted in via `compute_mode.fused`;
     a Dense chain with tanh-or-identity activations; no passive
     augmentation; an adaptive explicit method with an embedded error
-    estimate; float32.  Within those, what this port has not reached
-    raises NotImplementedError: TRAIN mode, conditional nets and bf16 stages.
-    The flat layout is [z.ravel() (batch-major) | dlogp].
+    estimate; float32.  Within those, what this port has not reached raises
+    NotImplementedError: exact-trace TRAIN (K4), JVP probes (K6), conditional
+    nets (K8) and bf16 stages.  The flat layout is [z.ravel() (batch-major) |
+    dlogp] in TEST mode and [z.ravel() | dlogp | reg_e | reg_n] in TRAIN
+    mode.  TRAIN solves have the backward member (K2); TEST ones have none
+    yet (K5).
     """
     cm = icnf.compute_mode
     opts = icnf.solver
@@ -265,31 +620,53 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         return None
     if icnf.dtype != torch.float32:
         return None
-    if mode != Mode.TEST:
+    train = mode == Mode.TRAIN
+    if train and cm.exact_trace:
         raise NotImplementedError(
-            "the fused TRAIN solve (K1, K2) is not ported yet (ROADMAP queue 1, items 4-7)"
+            "exact-trace TRAIN and its kernel (K4) are not ported yet (ROADMAP queue 1, item 10)"
+        )
+    if train and cm.ad != ADMode.VJP:
+        raise NotImplementedError(
+            "JVP probes and their kernel (K6) are not ported yet (ROADMAP queue 1, item 14)"
         )
     if spec.n_cond:
-        raise NotImplementedError("conditional models are not ported yet (ROADMAP queue 1, item 13)")
+        raise NotImplementedError(
+            "conditional models and their kernel rows (K8) are not ported yet (ROADMAP queue 1, item 13)"
+        )
     if cm.bf16:
         raise NotImplementedError(
             "bf16 stage matmuls in the fused solve are not ported (ROADMAP queue 2, K3 variants)"
         )
 
-    from ..core.dynamics import TestState, make_augmented_dynamics
+    from ..core.dynamics import TestState, TrainState, make_augmented_dynamics
 
     B = batch
     dz = icnf.zdim
+    nacc = 3 if train else 1
+    norm_z, norm_j = icnf.lam1 != 0.0, icnf.lam2 != 0.0
     # The plain flat field, used only for the Hairer initial-step pick (two
     # evaluations per solve), exactly as on the plain path.
-    dyn = make_augmented_dynamics(icnf.nn, mode, dataclasses.replace(cm, fused=False), False, False)
+    dyn = make_augmented_dynamics(icnf.nn, mode, dataclasses.replace(cm, fused=False), norm_z, norm_j)
+
+    def unpack_flat(yf):
+        z = yf[: B * dz].reshape(B, dz)
+        if train:
+            acc = yf[B * dz :].reshape(3, B)
+            return TrainState(z=z, dlogp=acc[0], reg_e=acc[1], reg_n=acc[2])
+        return TestState(z=z, dlogp=yf[B * dz :])
 
     def plain_f_flat(t, yf, args):
-        d = dyn(t, TestState(z=yf[: B * dz].reshape(B, dz), dlogp=yf[B * dz :]), args)
-        return torch.cat([d.z.reshape(-1), d.dlogp])
+        return torch.cat([x.reshape(-1) for x in dyn(t, unpack_flat(yf), args)])
+
+    def kernel_kw(ps):
+        return dict(
+            rtol=opts.rtol, atol=opts.atol, max_steps=opts.max_steps,
+            ws=[p["w"] for p in ps], bs=[p["b"] for p in ps],
+        )
+
+    nfe_per = (tab.num_stages - 1) + (0 if tab.fsal else 1)
 
     def forward(y0f, t0, t1, args):
-        ps = args["ps"]
         tdir = torch.sign(t1 - t0)
         if opts.dt0 is None:
             f0 = plain_f_flat(t0, y0f, args)
@@ -301,19 +678,61 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         else:
             dt_init = tdir * abs(float(opts.dt0))
             nfe_init = 1
-        zT, dlogpT, steps, accepted, dt_last = run_solve_kernel(
-            tab, spec, rtol=opts.rtol, atol=opts.atol, max_steps=opts.max_steps,
-            ws=[p["w"] for p in ps], bs=[p["b"] for p in ps],
-            z0=y0f[: B * dz].reshape(B, dz), dlogp0=y0f[B * dz :],
-            t0=t0, t1=t1, dt_init=dt_init,
-        )
-        nfe_per = (tab.num_stages - 1) + (0 if tab.fsal else 1)
+        z0 = y0f[: B * dz].reshape(B, dz)
+        if train:
+            zT, accT, steps, accepted, dt_last = run_train_solve_kernel(
+                tab, spec, norm_z=norm_z, norm_j=norm_j, **kernel_kw(args["ps"]), z0=z0,
+                eps=args["eps"], acc0=y0f[B * dz :].reshape(3, B), t0=t0, t1=t1, dt_init=dt_init,
+            )
+        else:
+            zT, accT, steps, accepted, dt_last = run_solve_kernel(
+                tab, spec, **kernel_kw(args["ps"]), z0=z0, dlogp0=y0f[B * dz :],
+                t0=t0, t1=t1, dt_init=dt_init,
+            )
         stats = SolveStats(
             steps=steps, accepted=accepted, nfe=steps * nfe_per + nfe_init, dt_last=dt_last
         )
-        return torch.cat([zT.reshape(-1), dlogpT]), stats
+        return torch.cat([zT.reshape(-1), accT.reshape(-1)]), stats
 
-    return FullSolve(forward=forward, adjoint=None)
+    def adjoint(yTf, g_yf, args, t_hi, t_lo, dt_warm=None):
+        """Backward solve of (z, acc, a_z, g_p) from t_hi down to t_lo.
+        Returns (y0f, a_y0f, g_args, stats); a_acc is constant, so its final
+        value is the incoming cotangent.  `dt_warm` (the forward solve's last
+        step size) is the first step; without it Hairer's rule picks one
+        over the whole augmented state."""
+        ps, eps = args["ps"], args["eps"]
+        kw = kernel_kw(ps)
+        zT, accT = yTf[: B * dz].reshape(B, dz), yTf[B * dz :].reshape(nacc, B)
+        azT, aaccT = g_yf[: B * dz].reshape(B, dz), g_yf[B * dz :].reshape(nacc, B)
+        tdir = torch.sign(t_lo - t_hi)
+        nfe_init = 1
+        if dt_warm is not None:
+            dt_init = tdir * torch.abs(torch.as_tensor(dt_warm, dtype=yTf.dtype, device=yTf.device))
+        elif opts.dt0 is None:
+            f = _adjoint_field(spec, norm_z, norm_j, kw["ws"], kw["bs"], eps, aaccT)
+            u0 = torch.cat(
+                [yTf, g_yf] + [torch.zeros(x.numel(), dtype=yTf.dtype, device=yTf.device) for x in kw["ws"] + kw["bs"]]
+            )
+            dt_init = _initial_step_size(
+                f, t_hi, u0, f(t_hi, u0), tdir, tab.order, opts.rtol, opts.atol, torch.abs(t_lo - t_hi)
+            )
+            nfe_init = 2
+        else:
+            dt_init = tdir * abs(float(opts.dt0))
+        z0, acc0, az0, g_ws, g_bs, steps, accepted = run_adjoint_kernel(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, eps=eps, zT=zT, accT=accT, azT=azT,
+            aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
+        )
+        g_ps = tuple(
+            {k: (gw if k == "w" else gb) for k in p} for p, gw, gb in zip(ps, g_ws, g_bs)
+        )
+        g_args = dict(args, ps=g_ps, eps=torch.zeros_like(eps))
+        stats = SolveStats(steps=steps, accepted=accepted, nfe=steps * nfe_per + nfe_init)
+        y0f = torch.cat([z0.reshape(-1), acc0.reshape(-1)])
+        a_y0f = torch.cat([az0.reshape(-1), aaccT.reshape(-1)])
+        return y0f, a_y0f, g_args, stats
+
+    return FullSolve(forward=forward, adjoint=adjoint if train else None)
 
 
 __all__ = [
@@ -322,5 +741,9 @@ __all__ = [
     "FullSolve",
     "make_full_solve",
     "run_solve_kernel",
+    "run_train_solve_kernel",
+    "run_adjoint_kernel",
     "solve_test_plain",
+    "solve_train_plain",
+    "adjoint_train_plain",
 ]

@@ -85,8 +85,9 @@ DIJacVecVectorMode = JacVecMode
 class Adjoint(enum.Enum):
     """How gradients flow through the ODE solve.
 
-    The port is forward-only so far: BACKSOLVE and NONE both run the forward
-    solve, DIRECT runs it under the `direct_max_steps` cap.
+    BACKSOLVE differentiates by the continuous adjoint (`ode/adjoint.py`).
+    NONE runs the forward solve only, and DIRECT its forward under the
+    `direct_max_steps` cap; neither is differentiable in the port yet.
     """
 
     BACKSOLVE = "backsolve"

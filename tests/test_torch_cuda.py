@@ -1,4 +1,5 @@
-"""The K3 CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (K3, K1, K2) against their plain PyTorch versions, on
+the card, and the configurations they do not cover.
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a card
 (and without JAX, whose conftest this file does not need):
@@ -18,6 +19,8 @@ pytestmark = pytest.mark.gpu
 
 # Kernel and plain version sum in other orders (f32): a relative bound.
 REL = 1e-4
+# K2's parameter gradients are sums over the batch taken in another order.
+GRAD_REL = 1e-3
 
 
 @pytest.fixture
@@ -148,3 +151,187 @@ def test_kernel_edge_cases_match_plain(dev, case):
         assert _close(zk, zp) and _close(lk, lp)
     if case == "empty-span":
         assert int(sk) == 0 and torch.equal(zk, kw["z0"]) and torch.equal(lk, kw["dlogp0"])
+
+
+def _train_args(dims, B, span, dev, seed=0):
+    """K1 inputs (nonzero accumulators) and the K2 inputs built from them."""
+    kw = _kernel_args(dims, B, span, dev, seed)
+    rng = np.random.default_rng(seed + 2)
+    T = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    dz = dims[-1]
+    kw.pop("dlogp0")
+    kw.update(norm_z=True, norm_j=True, eps=T(rng.normal(size=(1, B, dz))), acc0=T(rng.normal(0.0, 0.5, (3, B))))
+    adj = dict(
+        {k: kw[k] for k in ("rtol", "atol", "max_steps", "ws", "bs", "eps", "norm_z", "norm_j")},
+        azT=T(rng.normal(0.0, 1.0 / B, (B, dz))), aaccT=T(rng.normal(0.0, 1.0 / B, (3, B))),
+        t_hi=kw["t1"], t_lo=kw["t0"],
+    )
+    return kw, adj
+
+
+def _grad_close(got, ref):
+    return float((got - ref).abs().max()) <= GRAD_REL * max(1.0, float(ref.abs().max()))
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def _adjoint_twin64(spec, adj):
+    to64 = lambda v: v.double() if torch.is_tensor(v) else [x.double() for x in v] if isinstance(v, list) else v
+    return tfs.adjoint_train_plain(TSIT5, spec, **{k: to64(v) for k, v in adj.items()})
+
+
+def _state_close(got, ref32, ref64):
+    """The backward-reconstructed state is ill-conditioned (its float32 twin
+    can sit more than 1e-4 from the float64 one): within 1e-4 of the
+    float64 twin or within 4x the float32 twin's own distance from it."""
+    return _rel(got, ref64) <= max(REL, 4.0 * _rel(ref32, ref64))
+
+
+@pytest.mark.parametrize(
+    "dims,B",
+    [((16, 48, 16), 1), ((16, 48, 16), 37), ((16, 48, 16), 512), ((16, 48, 16), 4096), ((5, 15, 5), 37)],
+    ids=["flagship-B1", "flagship-B37", "flagship-B512", "flagship-B4096", "dz5-B37"],
+)
+def test_train_kernels_match_twins(dev, dims, B):
+    spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
+    span = (0.0, 13.0) if dims[0] == 16 else (0.0, 2.0)
+    kw, adj = _train_args(dims, B, span, dev)
+    n1, n2 = tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches
+    with torch.no_grad():
+        zk, ak, sk, ck, dk = tfs.run_train_solve_kernel(TSIT5, spec, **kw)
+        zp, ap, sp, cp, dp = tfs.solve_train_plain(TSIT5, spec, **kw)
+        adj.update(zT=zk, accT=ak, dt_init=-dk.abs())
+        out_k = tfs.run_adjoint_kernel(TSIT5, spec, **adj)
+        out_p = tfs.adjoint_train_plain(TSIT5, spec, **adj)
+        out_64 = _adjoint_twin64(spec, adj)
+    torch.cuda.synchronize()
+    assert (tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches) == (n1 + 1, n2 + 1)
+    assert (int(sk), int(ck)) == (int(sp), int(cp))
+    assert _close(zk, zp) and all(_close(ak[r], ap[r]) for r in range(3))
+    # dt_last is not compared: it follows a roundoff-level eest and drifts
+    # by up to 16 % between K1 and its twin (B = 37); K2 and its twin start
+    # from the same step.
+    assert (int(out_k[5]), int(out_k[6])) == (int(out_p[5]), int(out_p[6]))
+    for i in range(3):  # z0, acc0, a_z0
+        assert _state_close(out_k[i], out_p[i], out_64[i])
+    for a, b in zip(out_k[3] + out_k[4], out_p[3] + out_p[4]):
+        assert torch.isfinite(a).all() and _grad_close(a, b)
+
+
+@pytest.mark.parametrize("case", ["cap", "empty-span", "single-sample"])
+def test_train_kernel_edge_cases_match_twins(dev, case):
+    dims = (16, 48, 16)
+    spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
+    kw, adj = _train_args(dims, 1 if case == "single-sample" else 64, (0.0, 13.0), dev)
+    if case == "cap":
+        kw["max_steps"] = adj["max_steps"] = 5
+    if case == "empty-span":
+        kw["t1"] = kw["t0"].clone()
+        adj["t_hi"] = adj["t_lo"].clone()
+    with torch.no_grad():
+        zk, ak, sk, ck, _ = tfs.run_train_solve_kernel(TSIT5, spec, **kw)
+        zp, ap, sp, cp, _ = tfs.solve_train_plain(TSIT5, spec, **kw)
+        adj.update(zT=zp, accT=ap, dt_init=torch.tensor(-0.05, device=dev))
+        out_k = tfs.run_adjoint_kernel(TSIT5, spec, **adj)
+        out_p = tfs.adjoint_train_plain(TSIT5, spec, **adj)
+        out_64 = _adjoint_twin64(spec, adj)
+    assert (int(sk), int(ck)) == (int(sp), int(cp))
+    assert (int(out_k[5]), int(out_k[6])) == (int(out_p[5]), int(out_p[6]))
+    if case == "cap":
+        # As for K3: where a capped solve stops follows step sizes set by an
+        # eest at f32 roundoff level, so only the counts are compared.
+        assert int(sk) == 5 and int(out_k[5]) == 5
+        assert torch.isfinite(zk).all() and all(torch.isfinite(g).all() for g in out_k[3] + out_k[4])
+        return
+    assert _close(zk, zp) and _close(ak, ap)
+    assert all(_state_close(out_k[i], out_p[i], out_64[i]) for i in range(3))
+    for a, b in zip(out_k[3] + out_k[4], out_p[3] + out_p[4]):
+        assert _grad_close(a, b)
+    if case == "empty-span":
+        assert int(sk) == 0 and int(out_k[5]) == 0
+        assert torch.equal(zk, kw["z0"]) and torch.equal(ak, kw["acc0"])
+        assert all(float(g.abs().max()) == 0.0 for g in out_k[3] + out_k[4])
+
+
+def test_train_step_on_the_card_matches_the_twins_on_the_cpu(dev):
+    """The fused TRAIN loss and gradient through K1 and K2 against the same
+    step on the CPU, where the fused path runs the kernels' twins."""
+    dims = (16, 48, 16)
+    ps_np = _np_params(dims, 3)
+    xs = np.random.default_rng(4).uniform(size=(512, 8)).astype(np.float32)
+    eps = np.random.default_rng(5).normal(size=(1, 512, 16)).astype(np.float32)
+
+    def run(device):
+        icnf = tcnf.construct(
+            tcnf.RNODE, tcnf.MLP(dims, device=device), 8, 8, tspan=(0.0, 13.0), steer_rate=0.1,
+            lam3=1e-2, compute_mode=tcnf.VecJacMode(fused=True),
+        )
+        ps = tcnf.params_from_numpy(ps_np, device)
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        l, m = tcnf.loss_and_metrics(icnf, tcnf.Mode.TRAIN, xs, ps, eps=eps, steer_r=0.03)
+        return l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)], int(m["nfe"])
+
+    n1, n2 = tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches
+    l_k, g_k, nfe_k = run(dev)
+    assert (tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches) == (n1 + 1, n2 + 1)
+    l_c, g_c, nfe_c = run(torch.device("cpu"))
+    assert nfe_k == nfe_c and _close(l_k, l_c)
+    for a, b in zip(g_k, g_c):
+        assert _grad_close(a, b)
+
+
+def _small(fused=True, **kw):
+    cm = kw.pop("compute_mode", tcnf.VecJacMode(fused=fused))
+    return tcnf.construct(tcnf.RNODE, tcnf.MLP((5, 15, 5)), 3, 2, compute_mode=cm, **kw)
+
+
+@pytest.mark.parametrize(
+    "kernel",
+    ["K4-exact-trace", "K5-test-gradients", "K6-probes", "K6-jvp", "K7-three-layer", "K8-conditional",
+     "K9-tableau", "K9-identity-layer", "K10-per-stage-field"],
+)
+def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
+    name = kernel.split("-")[0]
+    ps_np = _np_params((5, 15, 5), 6)
+    xs = torch.from_numpy(np.random.default_rng(7).uniform(size=(8, 3)).astype(np.float32)).to(dev)
+    before = (tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches)
+    if kernel in ("K4-exact-trace", "K6-jvp", "K8-conditional"):
+        icnf = {
+            "K4-exact-trace": lambda: _small(compute_mode=tcnf.VecJacMode(fused=True, exact_trace=True)),
+            "K6-jvp": lambda: _small(compute_mode=tcnf.JacVecMode(fused=True)),
+            "K8-conditional": lambda: tcnf.construct(
+                tcnf.CondRNODE, tcnf.MLP((7, 15, 5)), 3, 2, compute_mode=tcnf.VecJacMode(fused=True)
+            ),
+        }[kernel]()
+        with pytest.raises(NotImplementedError, match=name):
+            tfs.make_full_solve(icnf, tcnf.Mode.TRAIN, 8)
+        return
+    if kernel == "K5-test-gradients":
+        ps = tcnf.params_from_numpy(ps_np, dev)
+        [x.requires_grad_() for p in ps for x in p.values()]
+        with pytest.raises(NotImplementedError, match=name):
+            tcnf.loss(_small(), tcnf.Mode.TEST, xs, ps)
+        return
+    if kernel == "K10-per-stage-field":
+        icnf = _small(solver=tcnf.SolverOptions(adjoint=tcnf.Adjoint.DIRECT))
+        with pytest.raises(NotImplementedError, match=name), torch.no_grad():
+            tcnf.inference(icnf, tcnf.Mode.TRAIN, xs, tcnf.params_from_numpy(ps_np, dev),
+                           generator=torch.Generator(dev).manual_seed(0))
+        return
+    dims, final, tab, k = {
+        "K6-probes": ((5, 15, 5), torch.tanh, TSIT5, 2),
+        "K7-three-layer": ((5, 9, 7, 5), torch.tanh, TSIT5, 1),
+        "K9-tableau": ((5, 15, 5), torch.tanh, DOPRI5, 1),
+        "K9-identity-layer": ((5, 15, 5), None, TSIT5, 1),
+    }[kernel]
+    spec = tfs.chain_spec(tcnf.MLP(dims, final_activation=final), dims[-1])
+    kw, adj = _train_args(dims, 8, (0.0, 1.0), dev)
+    kw["eps"] = adj["eps"] = kw["eps"].expand(k, -1, -1).contiguous()
+    adj.update(zT=kw["z0"], accT=kw["acc0"], dt_init=torch.tensor(-0.05, device=dev))
+    with pytest.raises(NotImplementedError, match=name):
+        tfs.run_train_solve_kernel(tab, spec, **kw)
+    with pytest.raises(NotImplementedError, match=name):
+        tfs.run_adjoint_kernel(tab, spec, **adj)
+    assert (tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches) == before

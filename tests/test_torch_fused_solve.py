@@ -66,13 +66,17 @@ def test_eligibility_matches_reference(name):
     got = tfs.make_full_solve(make(tcnf), tcnf.Mode.TEST, 16)
     assert (got is None) == (ref is None)
     if got is not None:
-        assert got.adjoint is None  # gradients are not ported yet
+        assert got.adjoint is None  # the TEST backward kernel (K5) is not ported yet
 
 
 def test_train_and_bf16_raise():
+    """TRAIN builds the fused solve with its backward member; what the port
+    has not reached raises: JVP probes (K6) and bf16 stages."""
     assert jfull(ELIGIBILITY["fused"](cnf), cnf.Mode.TRAIN, 16) is not None
-    with pytest.raises(NotImplementedError, match="items 4-7"):
-        tfs.make_full_solve(ELIGIBILITY["fused"](tcnf), tcnf.Mode.TRAIN, 16)
+    assert tfs.make_full_solve(ELIGIBILITY["fused"](tcnf), tcnf.Mode.TRAIN, 16).adjoint is not None
+    assert jfull(ELIGIBILITY["jvp"](cnf), cnf.Mode.TRAIN, 16) is not None
+    with pytest.raises(NotImplementedError, match="K6"):
+        tfs.make_full_solve(ELIGIBILITY["jvp"](tcnf), tcnf.Mode.TRAIN, 16)
     bf16 = lambda m: m.construct(m.RNODE, m.MLP((5, 15, 5)), 3, 2, compute_mode=m.VecJacMode(fused=True, bf16=True))
     assert jfull(bf16(cnf), cnf.Mode.TEST, 16) is not None
     with pytest.raises(NotImplementedError, match="bf16"):
@@ -162,5 +166,5 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting():
     assert tfs.run_solve_kernel.launches == before
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="not differentiable"):
         tfs.run_solve_kernel(TSIT5, spec, **{**kw, "z0": kw["z0"].clone().requires_grad_()})

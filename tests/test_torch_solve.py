@@ -175,14 +175,19 @@ def test_tstops_not_ported():
 
 
 def test_gradients_raise_instead_of_recording_a_graph():
+    """The DIRECT and fixed-step solves have no backward in the port: they
+    raise when their inputs require grad.  BACKSOLVE records its adjoint."""
     dims = (5, 15, 5)
     ps_np, z0, dlogp0 = _problem(dims, 4)
     nn = tcnf.MLP(dims)
     f = tdyn(nn, tcnf.Mode.TEST, tcnf.VecJacMode(), False, False)
     ps = tuple({k: v.requires_grad_() for k, v in p.items()} for p in tcnf.params_from_numpy(ps_np))
     y0 = TState(torch.from_numpy(z0), torch.from_numpy(dlogp0))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        todeint(f, y0, 0.0, 1.0, {"ps": ps})
-    with torch.no_grad():
-        yT, _ = todeint(f, y0, 0.0, 1.0, {"ps": ps})
-    assert not yT.z.requires_grad
+    for opts in (tcnf.SolverOptions(adjoint=tcnf.Adjoint.DIRECT), tcnf.SolverOptions(fixed_num_steps=4)):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            todeint(f, y0, 0.0, 1.0, {"ps": ps}, opts)
+        with torch.no_grad():
+            yT, _ = todeint(f, y0, 0.0, 1.0, {"ps": ps}, opts)
+        assert not yT.z.requires_grad
+    yT, _ = todeint(f, y0, 0.0, 1.0, {"ps": ps})
+    assert yT.z.requires_grad
