@@ -2,8 +2,10 @@
 
 Port of `continuousnf_tpu/core/dynamics.py`: `TestState`, `TrainState` and
 `safe_norm` (:35-61), the closed-form TEST branch of `make_augmented_dynamics`
-(:266-300), the VJP branch of `_hutchinson_field` (:185-206) and the TRAIN
-fields `f_train` (:377-382) and `f_train_fused` (:334-375).  The state is
+(:266-300), the VJP branch of `_hutchinson_field` (:185-206), the TRAIN
+fields `f_train` (:377-382) and `f_train_fused` (:334-375), and the
+exact-trace TRAIN field `f_train_exact` (:302-332) with its closed form
+`exact_tanh_mlp_trace_fro` (:155-182).  The state is
 batch-major: z (B, dz), the accumulators (B,); probes are (K, B, dz).
 """
 
@@ -34,11 +36,15 @@ class TrainState(NamedTuple):
     reg_n: torch.Tensor  # (B,)  integral of ||eps^T J||
 
 
-def safe_norm(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """L2 norm that is exactly 0 (with a zero gradient) at v = 0."""
-    sq = torch.sum(v * v, dim=dim)
+def safe_sqrt(sq: torch.Tensor) -> torch.Tensor:
+    """sqrt of a sum of squares that is exactly 0 (with a zero gradient) at 0."""
     pos = sq > 0
     return torch.where(pos, torch.sqrt(torch.where(pos, sq, torch.ones_like(sq))), torch.zeros_like(sq))
+
+
+def safe_norm(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """L2 norm that is exactly 0 (with a zero gradient) at v = 0."""
+    return safe_sqrt(torch.sum(v * v, dim=dim))
 
 
 def _hutchinson_field(nn_apply):
@@ -74,16 +80,16 @@ def make_augmented_dynamics(
     TEST mode on Dense/tanh chains: the closed-form 2-layer trace for tanh
     MLPs with biases, the chain product for any other tanh-or-identity chain.
     TRAIN mode: the Hutchinson estimator with reverse-mode (VJP) probes, and
-    the RNODE rates ||f|| (norm_z) and ||eps^T J|| (norm_j).
+    the RNODE rates ||f|| (norm_z) and ||eps^T J|| (norm_j); with
+    `compute_mode.exact_trace` the exact trace and ||J||_F instead (Dense
+    chains only; `args["eps"]` is not read).
     """
     if passive_aug_dims:
         raise NotImplementedError(f"passive augmentation is not ported yet {_ITEM14}")
     if mode == Mode.TEST:
         return _test_field(nn)
     if compute_mode.exact_trace:
-        raise NotImplementedError(
-            "exact-trace TRAIN dynamics are not ported yet (ROADMAP queue 1, item 10)"
-        )
+        return _exact_train_field(nn, norm_z, norm_j)
     if compute_mode.ad != ADMode.VJP:
         raise NotImplementedError(f"forward-mode (JVP) Hutchinson probes are not ported yet {_ITEM14}")
     from ..ops.fused_dynamics import fused_tanh_mlp_dynamics, supports_fusion
@@ -115,6 +121,62 @@ def make_augmented_dynamics(
     return f_train
 
 
+def exact_tanh_mlp_trace_fro(params, z: torch.Tensor):
+    """Closed-form (y, tr J, ||J||_F) of a 2-layer tanh MLP per sample.
+
+    With m[b, i, j] = sum_h W1[i, h] dh_h W2[h, j], J_ij = m_ij dy_j, so
+    tr J = sum_i m_ii dy_i and ||J||_F^2 = sum_ij m_ij^2 dy_j^2.  All dz^2
+    inner sums are one (B, H) @ (H, dz^2) product, as in the JAX package."""
+    (p1, p2) = params
+    w1, b1, w2, b2 = p1["w"], p1["b"], p2["w"], p2["b"]
+    dz = w1.shape[0]
+    h = torch.tanh(z @ w1 + b1)
+    y = torch.tanh(h @ w2 + b2)
+    dh = 1.0 - h * h
+    dy = 1.0 - y * y
+    p2m = (w1.T[:, :, None] * w2[:, None, :]).reshape(w1.shape[1], dz * dz)
+    m = (dh @ p2m).reshape(-1, dz, dz)
+    tr = torch.einsum("bii,bi->b", m, dy)
+    fro2 = torch.einsum("bij,bj->b", m * m, dy * dy)
+    return y, tr, safe_sqrt(fro2)
+
+
+def _exact_train_field(nn, norm_z: bool, norm_j: bool):
+    """TRAIN with the exact divergence and the exact ||J||_F rate: the closed
+    form for 2-layer tanh MLPs, the chain Jacobian for other Dense chains."""
+    from ..ops.fused_dynamics import exact_dense_chain_jacobian, is_dense_tanh_chain, supports_fusion
+
+    if supports_fusion(nn):
+
+        def fields(ps, z):
+            return exact_tanh_mlp_trace_fro(ps, z)
+
+    elif is_dense_tanh_chain(nn):
+
+        def fields(ps, z):
+            dz, jac = exact_dense_chain_jacobian(nn, ps, z)
+            tr = torch.diagonal(jac, dim1=-2, dim2=-1).sum(-1)
+            return dz, tr, safe_norm(jac.reshape(jac.shape[0], -1))
+
+    else:
+        raise NotImplementedError(
+            f"exact-trace TRAIN dynamics for {type(nn).__name__} (the generic identity-basis "
+            "field) are not ported yet (ROADMAP queue 1, item 16)"
+        )
+
+    def f_train_exact(t, state: TrainState, args):
+        dz, tr, fro = fields(args["ps"], state.z)
+        zero = torch.zeros_like(tr)
+        return TrainState(
+            z=dz,
+            dlogp=-tr,
+            reg_e=safe_norm(dz) if norm_z else zero,
+            reg_n=fro if norm_j else zero,
+        )
+
+    return f_train_exact
+
+
 def _test_field(nn):
     from ..ops.fused_dynamics import (
         exact_dense_chain_trace,
@@ -143,4 +205,4 @@ def _test_field(nn):
     return f_test
 
 
-__all__ = ["TestState", "TrainState", "safe_norm", "make_augmented_dynamics"]
+__all__ = ["TestState", "TrainState", "safe_norm", "safe_sqrt", "exact_tanh_mlp_trace_fro", "make_augmented_dynamics"]

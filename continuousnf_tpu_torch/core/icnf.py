@@ -279,12 +279,19 @@ def _final_regs(icnf: ICNF, mode: Mode, stateT) -> Regs:
     return Regs(e=zero, n=zero, a=a)
 
 
-def _train_probes(icnf: ICNF, eps, generator, B: int, device) -> torch.Tensor:
+def _train_probes(icnf: ICNF, eps, generator, B: int, device) -> Optional[torch.Tensor]:
     """The (K, B, zdim) probes: validated when given (a (B, zdim) array is
-    K = 1 shorthand), else one draw per call, fixed over the trajectory."""
+    K = 1 shorthand), else one draw per call, fixed over the trajectory.
+    The exact-trace field reads no probes: None, and nothing is drawn."""
     cm = icnf.compute_mode
     if cm.exact_trace:
-        raise NotImplementedError("exact-trace TRAIN is not ported yet (ROADMAP queue 1, item 10)")
+        if eps is not None:
+            # Accepting and ignoring them would hide a configuration mistake.
+            raise ValueError(
+                "eps= was given but compute_mode.exact_trace=True uses no "
+                "Hutchinson probes; drop eps or use a stochastic mode"
+            )
+        return None
     if eps is None:
         return icnf.draw_eps(generator, B, device)
     eps = torch.as_tensor(eps, dtype=icnf.dtype, device=device)
@@ -361,7 +368,8 @@ def inference(
     `generator` (torch's default generator of the device when None), or
     takes them as `eps` ((K, B, zdim), or (B, zdim) for K = 1) and
     `steer_r`.  Under BACKSOLVE the probes are Monte-Carlo constants: their
-    gradient is zero.
+    gradient is zero.  With `compute_mode.exact_trace` no probes are drawn
+    and `eps` is rejected.
     """
     if trajectory:
         raise NotImplementedError("trajectory=True is not ported yet (ROADMAP queue 1, item 15)")

@@ -314,8 +314,9 @@ def odeint_with_stats(
             and needs_grad(y0f, t0, t1, args)
         ):
             raise NotImplementedError(
-                "gradients through the fused TEST solve need its backward kernel "
-                "(K5, ROADMAP queue 2); use fused=False for TEST-mode gradients on the card"
+                "gradients through this fused solve need a backward kernel that is not ported: "
+                "the TEST stage's (K5) or the exact trace of N != 2-layer chains' (K7), ROADMAP "
+                "queue 2; use fused=False for these gradients on the card"
             )
         from .adjoint import odeint_backsolve_flat
 

@@ -34,8 +34,7 @@ namespace {
 using cnf::FwdArgs;
 using cnf::kMaxBlock;
 using cnf::kRedFloats;
-
-__device__ __forceinline__ float safe_norm_sq(float sq) { return sq > 0.f ? sqrtf(sq) : 0.f; }
+using cnf::safe_norm_sq;
 
 // The TRAIN field of one sample with its probe.  Columns i >= dz of the
 // padded weights are zero and the probe is zero there, so padded entries add
@@ -138,13 +137,7 @@ __global__ void __launch_bounds__(kMaxBlock) k1_train_solve(const FwdArgs p) {
   float* red = b1 + H;        // kRedFloats
   float* hbuf = red + kRedFloats;  // (H, blockDim.x)
 
-  for (int idx = threadIdx.x; idx < H * DZ; idx += blockDim.x) {
-    const int j = idx / DZ, i = idx % DZ;
-    w1t[idx] = i < dz ? p.w1[(size_t)i * H + j] : 0.f;
-    w2p[idx] = i < dz ? p.w2[(size_t)j * dz + i] : 0.f;
-  }
-  for (int k = threadIdx.x; k < DZ; k += blockDim.x) b2p[k] = k < dz ? p.b2[k] : 0.f;
-  for (int j = threadIdx.x; j < H; j += blockDim.x) b1[j] = p.b1[j];
+  cnf::load_weights<DZ>(p.w1, p.b1, p.w2, p.b2, dz, H, w1t, w2p, b2p, b1);
   __syncthreads();
 
   const TrainField<DZ> field{w1t, b1, w2p, b2p, p.eps, hbuf + threadIdx.x,

@@ -17,16 +17,12 @@
 //
 // The error norm is batch-global and covers g_p, as in the TPU kernel with
 // one batch tile (its per-tile controllers are not ported: they change the
-// numerics): sqrt(sum / n) over n = B * 2 * (dz + 3) + P elements, where the
-// g_p entries are scaled by atol + rtol * max(|g_p|, |g_p_new|) of the
-// batch-summed values.  So every attempted step needs, besides the per-sample
-// sums of squares, the grid-wide sums of dt * sum_i b_i k_gp,i and
-// dt * sum_i btilde_i k_gp,i (2 P floats per block).  Each block writes its
-// two P-vectors and its partial sum into parity-indexed buffers, one
-// grid.sync(), and then every block adds all blocks' vectors in block order
-// and reduces the g_p error in one fixed thread order: every block holds the
-// same g_p and takes the same decision.  FSAL carries each block's own
-// partial of the last stage's g_p rate (the sum is linear in the samples).
+// numerics): the backsolve loop of solve_common.cuh (adjoint_solve), shared
+// with the K4 adjoint, over n = B * 2 * (dz + 3) + P elements, with each
+// block's partials of the b- and btilde-weighted g_p sums in parity-indexed
+// global buffers, one grid.sync() per attempted step, and every block adding
+// all blocks' partials in block order.  g_p, its proposal and the block's
+// FSAL and last-stage partials (4 P floats) live in shared memory.
 //
 // What bounds it on the H100: latency.  A stage is about 8 dz H FMA per
 // sample plus 2 P FMA per sample for the outer products; the time goes to
@@ -43,37 +39,25 @@
 
 namespace {
 
-namespace cg = cooperative_groups;
+using cnf::axpy4;
+using cnf::ct_safe_norm;
+using cnf::dot4;
 using cnf::kMaxBlock;
 using cnf::kRedFloats;
-using cnf::kStages;
-using cnf::Tableau;
+using cnf::safe_norm_sq;
 
 struct AdjArgs {
+  cnf::AdjState s;
   const float* w1;    // (dz, H)
   const float* b1;    // (H)
   const float* w2;    // (H, dz)
   const float* b2;    // (dz)
   const float* eps;   // (B, dz) Hutchinson probe
-  const float* zT;    // (B, dz) state at t_hi
-  const float* accT;  // (3, B)
-  const float* azT;   // (B, dz) cotangent of z at t_hi
-  const float* aaccT; // (3, B) cotangent of acc (constant)
-  const float* ts;    // t_hi, t_lo, dt_init
-  float* z0;          // (B, dz) state at t_lo
-  float* acc0;        // (3, B)
-  float* az0;         // (B, dz)
   float* gw1;         // (dz, H)
   float* gb1;         // (H)
   float* gw2;         // (H, dz)
   float* gb2;         // (dz)
-  int* stats;         // attempted, accepted
-  float* work;        // (kStages + 2) * (2 dz + 3) * B
-  float* partials;    // [parity][sum | flag][gridDim.x]
-  float* gpart;       // [parity][gridDim.x][2 P]
-  int B, dz, H, max_steps, norm_z, norm_j;
-  float rtol, atol, beta1, beta2, inv_order;
-  Tableau tab;
+  int H, norm_z, norm_j;
 };
 
 // Offsets in a thread's shared-memory slot: four dz-vectors, then five
@@ -87,37 +71,6 @@ struct Slot {
     size = (ca + H) | 1;
   }
 };
-
-__device__ __forceinline__ float safe_norm_sq(float sq) { return sq > 0.f ? sqrtf(sq) : 0.f; }
-__device__ __forceinline__ float ct_safe_norm(float ct, float norm) { return norm > 0.f ? ct / norm : 0.f; }
-
-template <int DZ>
-__device__ __forceinline__ float dot4(const float (&v)[DZ], const float* w) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-  for (int q = 0; q < DZ / 4; ++q) {
-    const float4 x = w4[q];
-    a0 = fmaf(v[4 * q + 0], x.x, a0);
-    a1 = fmaf(v[4 * q + 1], x.y, a1);
-    a2 = fmaf(v[4 * q + 2], x.z, a2);
-    a3 = fmaf(v[4 * q + 3], x.w, a3);
-  }
-  return (a0 + a1) + (a2 + a3);
-}
-
-template <int DZ>
-__device__ __forceinline__ void axpy4(float (&acc)[DZ], float c, const float* w) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-  for (int q = 0; q < DZ / 4; ++q) {
-    const float4 x = w4[q];
-    acc[4 * q + 0] = fmaf(x.x, c, acc[4 * q + 0]);
-    acc[4 * q + 1] = fmaf(x.y, c, acc[4 * q + 1]);
-    acc[4 * q + 2] = fmaf(x.z, c, acc[4 * q + 2]);
-    acc[4 * q + 3] = fmaf(x.w, c, acc[4 * q + 3]);
-  }
-}
 
 struct Weights {
   const float* w1t;  // (H, DZ): w1t[j][i] = w1[i][j]
@@ -224,51 +177,66 @@ __device__ void adjoint_stage(const Weights& w, float* sl, const float (&z)[DZ],
   for (int i = 0; i < DZ; ++i) kaz[i] = -cz[i];
 }
 
-// Zero a slot (a thread without a sample adds nothing to the outer products).
+// The block's sum over its first `nvalid` samples (thread order) of the
+// negated parameter-gradient rate of the stage just evaluated, entry p of
+// [W1 (dz, H) | b1 | W2 (H, dz) | b2].
 template <int DZ>
-__device__ void clear_slot(float* sl, int H) {
+__device__ __forceinline__ float block_grad_entry(const float* slots, int p, int dz, int H, int nvalid) {
   const Slot<DZ> o(H);
-  for (int i = 0; i < o.size; ++i) sl[i] = 0.f;
-}
-
-// The block's sum over its samples of the (negated) parameter-gradient rate
-// of the stage just evaluated, entry p of [W1 (dz, H) | b1 | W2 (H, dz) | b2];
-// each thread takes entries p = threadIdx.x + k * blockDim.x, and sums over
-// the block's slots in thread order.
-template <int DZ>
-__device__ __forceinline__ float block_grad_entry(const float* slots, int p, int dz, int H) {
-  const Slot<DZ> o(H);
-  const int nb = blockDim.x;
   float v = 0.f;
   if (p < dz * H) {
     const int i = p / H, j = p % H;
-    for (int t = 0; t < nb; ++t) {
+    for (int t = 0; t < nvalid; ++t) {
       const float* sl = slots + t * o.size;
       v = fmaf(sl[o.cte + i], sl[o.v0 + j], v);
       v = fmaf(sl[o.z + i], sl[o.ca + j], v);
     }
   } else if (p < dz * H + H) {
     const int j = p - dz * H;
-    for (int t = 0; t < nb; ++t) v += slots[t * o.size + o.ca + j];
+    for (int t = 0; t < nvalid; ++t) v += slots[t * o.size + o.ca + j];
   } else if (p < 2 * dz * H + H) {
     const int q = p - dz * H - H;
     const int j = q / dz, k = q % dz;
-    for (int t = 0; t < nb; ++t) {
+    for (int t = 0; t < nvalid; ++t) {
       const float* sl = slots + t * o.size;
       v = fmaf(sl[o.cu + j], sl[o.v1 + k], v);
       v = fmaf(sl[o.h + j], sl[o.ca1 + k], v);
     }
   } else {
     const int k = p - 2 * dz * H - H;
-    for (int t = 0; t < nb; ++t) v += slots[t * o.size + o.ca1 + k];
+    for (int t = 0; t < nvalid; ++t) v += slots[t * o.size + o.ca1 + k];
   }
   return -v;
 }
 
+// The stage and gradient callbacks of cnf::adjoint_solve.
+template <int DZ>
+struct ProbeStage {
+  Weights w;
+  const float* eps;  // (B, dz)
+  float* sl;         // this thread's slot
+  __device__ void operator()(int s, const float (&z)[DZ], const float (&az)[DZ], const float (&aacc)[3],
+                             float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ]) const {
+    float e[DZ];
+#pragma unroll
+    for (int i = 0; i < DZ; ++i) e[i] = i < w.dz ? eps[(size_t)s * w.dz + i] : 0.f;
+    adjoint_stage<DZ>(w, sl, z, az, e, aacc, kz, kr, kaz);
+  }
+};
+
+template <int DZ>
+struct ProbeGrad {
+  const float* slots;
+  int dz, H;
+  __device__ float operator()(int q, int, int nvalid) const {
+    return block_grad_entry<DZ>(slots, q, dz, H, nvalid);
+  }
+};
+
 template <int DZ>
 __global__ void __launch_bounds__(kMaxBlock) k2_train_adjoint(const AdjArgs p) {
   extern __shared__ __align__(16) float smem[];
-  const int H = p.H, dz = p.dz, B = p.B;
+  const int H = p.H, dz = p.s.dz;
   const int P = 2 * dz * H + H + dz;
   float* w1t = smem;               // (H, DZ)
   float* w2p = w1t + H * DZ;       // (H, DZ)
@@ -276,213 +244,17 @@ __global__ void __launch_bounds__(kMaxBlock) k2_train_adjoint(const AdjArgs p) {
   float* b1 = b2p + DZ;            // (H)
   float* red = b1 + H;             // kRedFloats
   float* gp = red + kRedFloats;    // (P) g_p, the same in every block
-  float* GB = gp + P;              // (P) this block's dt sum_i b_i k_gp,i; then g_p_new
-  float* GE = GB + P;              // (P) this block's dt sum_i btilde_i k_gp,i
-  float* K1p = GE + P;             // (P) this block's FSAL stage rate
+  float* gnew = gp + P;            // (P) the proposed g_p
+  float* K1p = gnew + P;           // (P) this block's FSAL stage rate
   float* K7p = K1p + P;            // (P) this block's last-stage rate
   float* slots = K7p + P;          // blockDim.x slots
   const Slot<DZ> o(H);
-  float* sl = slots + threadIdx.x * o.size;
-
-  for (int idx = threadIdx.x; idx < H * DZ; idx += blockDim.x) {
-    const int j = idx / DZ, i = idx % DZ;
-    w1t[idx] = i < dz ? p.w1[(size_t)i * H + j] : 0.f;
-    w2p[idx] = i < dz ? p.w2[(size_t)j * dz + i] : 0.f;
-  }
-  for (int k = threadIdx.x; k < DZ; k += blockDim.x) b2p[k] = k < dz ? p.b2[k] : 0.f;
-  for (int j = threadIdx.x; j < H; j += blockDim.x) b1[j] = p.b1[j];
-  for (int q = threadIdx.x; q < P; q += blockDim.x) {
-    gp[q] = 0.f;
-    K1p[q] = 0.f;
-  }
-  __syncthreads();
+  cnf::load_weights<DZ>(p.w1, p.b1, p.w2, p.b2, dz, H, w1t, w2p, b2p, b1);
   const Weights w{w1t, w2p, b1, b2p, H, dz, p.norm_z, p.norm_j};
+  const ProbeStage<DZ> stage{w, p.eps, slots + threadIdx.x * o.size};
+  const ProbeGrad<DZ> grad{slots, dz, H};
+  cnf::adjoint_solve<DZ>(p.s, stage, grad, P, gp, gnew, K1p, K7p, red);
 
-  cg::grid_group grid = cg::this_grid();
-  const int G = gridDim.x;
-  const int nthr = G * blockDim.x;
-  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int rounds = (B + nthr - 1) / nthr;
-  const int R = 2 * dz + 3;         // rows: z, acc, a_z
-  const size_t RB = (size_t)R * B;  // one (row, B) plane
-  float* Y = p.work;
-  float* Yn = Y + RB;
-  float* K = Yn + RB;
-
-  // One sample's stage inputs: the probe and the constant a_acc.
-  auto load_consts = [&](int s, float (&e)[DZ], float (&aacc)[3]) {
-#pragma unroll
-    for (int i = 0; i < DZ; ++i) e[i] = i < dz ? p.eps[(size_t)s * dz + i] : 0.f;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) aacc[r] = p.aaccT[(size_t)r * B + s];
-  };
-  auto store_stage = [&](float* kst, int s, const float (&kz)[DZ], const float (&kr)[3],
-                         const float (&kaz)[DZ]) {
-#pragma unroll
-    for (int i = 0; i < DZ; ++i) {
-      if (i < dz) {
-        kst[(size_t)i * B + s] = kz[i];
-        kst[(size_t)(dz + 3 + i) * B + s] = kaz[i];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 3; ++r) kst[(size_t)(dz + r) * B + s] = kr[r];
-  };
-
-  // Initial state and the first stage (its g_p rate partial into K1p).
-  for (int rd = 0; rd < rounds; ++rd) {
-    const int s = gtid + rd * nthr;
-    if (s < B) {
-      float z[DZ], az[DZ], e[DZ], aacc[3], kz[DZ], kr[3], kaz[DZ];
-#pragma unroll
-      for (int i = 0; i < DZ; ++i) {
-        z[i] = i < dz ? p.zT[(size_t)s * dz + i] : 0.f;
-        az[i] = i < dz ? p.azT[(size_t)s * dz + i] : 0.f;
-      }
-      load_consts(s, e, aacc);
-      adjoint_stage<DZ>(w, sl, z, az, e, aacc, kz, kr, kaz);
-      for (int i = 0; i < dz; ++i) {
-        Y[(size_t)i * B + s] = z[i];
-        Y[(size_t)(dz + 3 + i) * B + s] = az[i];
-      }
-      for (int r = 0; r < 3; ++r) Y[(size_t)(dz + r) * B + s] = p.accT[(size_t)r * B + s];
-      store_stage(K, s, kz, kr, kaz);
-    } else {
-      clear_slot<DZ>(sl, H);
-    }
-    __syncthreads();
-    for (int q = threadIdx.x; q < P; q += blockDim.x) K1p[q] += block_grad_entry<DZ>(slots, q, dz, H);
-    __syncthreads();
-  }
-
-  cnf::Controller c;
-  c.init(p.ts, p.beta1, p.beta2, p.inv_order);
-  const float n_elems = (float)B * (float)(2 * (dz + 3)) + (float)P;
-
-  while (c.running(p.max_steps)) {
-    bool is_last;
-    const float dt_use = c.plan(&is_last);
-    const float cb0 = dt_use * p.tab.b[0], ce0 = dt_use * p.tab.btilde[0];
-    for (int q = threadIdx.x; q < P; q += blockDim.x) {
-      GB[q] = cb0 * K1p[q];
-      GE[q] = ce0 * K1p[q];
-      K7p[q] = 0.f;
-    }
-
-    for (int st = 1; st < kStages; ++st) {
-      for (int rd = 0; rd < rounds; ++rd) {
-        const int s = gtid + rd * nthr;
-        if (s < B) {
-          float z[DZ], az[DZ], e[DZ], aacc[3], kz[DZ], kr[3], kaz[DZ];
-#pragma unroll
-          for (int i = 0; i < DZ; ++i) {
-            z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
-            az[i] = i < dz ? Y[(size_t)(dz + 3 + i) * B + s] : 0.f;
-          }
-          for (int j = 0; j < st; ++j) {
-            if (p.tab.a[st][j] != 0.f) {
-              const float cf = dt_use * p.tab.a[st][j];
-              const float* kj = K + j * RB;
-#pragma unroll
-              for (int i = 0; i < DZ; ++i) {
-                if (i < dz) {
-                  z[i] = fmaf(cf, kj[(size_t)i * B + s], z[i]);
-                  az[i] = fmaf(cf, kj[(size_t)(dz + 3 + i) * B + s], az[i]);
-                }
-              }
-            }
-          }
-          load_consts(s, e, aacc);
-          adjoint_stage<DZ>(w, sl, z, az, e, aacc, kz, kr, kaz);
-          store_stage(K + st * RB, s, kz, kr, kaz);
-        } else {
-          clear_slot<DZ>(sl, H);
-        }
-        __syncthreads();
-        const float cb = dt_use * p.tab.b[st], ce = dt_use * p.tab.btilde[st];
-        const bool last = st == kStages - 1;
-        for (int q = threadIdx.x; q < P; q += blockDim.x) {
-          const float g = block_grad_entry<DZ>(slots, q, dz, H);
-          if (p.tab.b[st] != 0.f) GB[q] = fmaf(cb, g, GB[q]);
-          if (p.tab.btilde[st] != 0.f) GE[q] = fmaf(ce, g, GE[q]);
-          if (last) K7p[q] += g;
-        }
-        __syncthreads();
-      }
-    }
-
-    // Per-sample proposals and errors: z, acc and a_z rows (a_acc is
-    // constant: zero error, but counted in n_elems).
-    float sumsq = 0.f;
-    bool finite = true;
-    for (int s = gtid; s < B; s += nthr) {
-      for (int r = 0; r < R; ++r) {
-        const size_t off = (size_t)r * B + s;
-        const float y = Y[off];
-        float yn = y, err = 0.f;
-#pragma unroll
-        for (int st = 0; st < kStages; ++st) {
-          const float k = K[st * RB + off];
-          if (p.tab.b[st] != 0.f) yn = fmaf(dt_use * p.tab.b[st], k, yn);
-          if (p.tab.btilde[st] != 0.f) err = fmaf(dt_use * p.tab.btilde[st], k, err);
-        }
-        Yn[off] = yn;
-        const float qv = err / (p.atol + p.rtol * fmaxf(fabsf(y), fabsf(yn)));
-        sumsq = fmaf(qv, qv, sumsq);
-        if (r < dz || r >= dz + 3) finite = finite && isfinite(yn);
-      }
-    }
-
-    const int par = c.steps & 1;
-    float* gout = p.gpart + ((size_t)par * G + blockIdx.x) * 2 * P;
-    for (int q = threadIdx.x; q < P; q += blockDim.x) {
-      gout[q] = GB[q];
-      gout[P + q] = GE[q];
-    }
-    cnf::write_block_partial(sumsq, finite, p.partials, par, red);
-    grid.sync();
-    float total;
-    bool all_finite;
-    cnf::read_grid_total(p.partials, par, red, &total, &all_finite);
-    // The g_p block: all blocks' vectors summed in block order, the same in
-    // every block; GB becomes the proposed g_p.
-    float gsq = 0.f;
-    for (int q = threadIdx.x; q < P; q += blockDim.x) {
-      float gs = 0.f, es = 0.f;
-      for (int g = 0; g < G; ++g) {
-        const float* base = p.gpart + ((size_t)par * G + g) * 2 * P;
-        gs += __ldcg(base + q);
-        es += __ldcg(base + P + q);
-      }
-      const float gn = gp[q] + gs;
-      GB[q] = gn;
-      const float qv = es / (p.atol + p.rtol * fmaxf(fabsf(gp[q]), fabsf(gn)));
-      gsq = fmaf(qv, qv, gsq);
-    }
-    gsq = cnf::block_sum(gsq, red);
-    if (c.update(sqrtf((total + gsq) / n_elems), all_finite, dt_use, is_last)) {
-      for (int s = gtid; s < B; s += nthr) {
-        for (int r = 0; r < R; ++r) {
-          const size_t off = (size_t)r * B + s;
-          Y[off] = Yn[off];
-          K[off] = K[(kStages - 1) * RB + off];
-        }
-      }
-      for (int q = threadIdx.x; q < P; q += blockDim.x) {
-        gp[q] = GB[q];
-        K1p[q] = K7p[q];
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int s = gtid; s < B; s += nthr) {
-    for (int i = 0; i < dz; ++i) {
-      p.z0[(size_t)s * dz + i] = Y[(size_t)i * B + s];
-      p.az0[(size_t)s * dz + i] = Y[(size_t)(dz + 3 + i) * B + s];
-    }
-    for (int r = 0; r < 3; ++r) p.acc0[(size_t)r * B + s] = Y[(size_t)(dz + r) * B + s];
-  }
   if (blockIdx.x == 0) {
     for (int q = threadIdx.x; q < P; q += blockDim.x) {
       const float g = gp[q];
@@ -497,16 +269,12 @@ __global__ void __launch_bounds__(kMaxBlock) k2_train_adjoint(const AdjArgs p) {
       }
     }
   }
-  if (gtid == 0) {
-    p.stats[0] = c.steps;
-    p.stats[1] = c.accepted;
-  }
 }
 
 template <int DZ>
 size_t smem_bytes(int dz, int H, int block) {
   const size_t P = 2 * (size_t)dz * H + H + dz;
-  return sizeof(float) * (2 * (size_t)H * DZ + DZ + H + kRedFloats + 5 * P +
+  return sizeof(float) * (cnf::weight_floats<DZ>(H) + kRedFloats + 4 * P +
                           (size_t)block * Slot<DZ>(H).size);
 }
 
@@ -548,14 +316,11 @@ extern "C" int cnf_k2_train_adjoint(const float* w1, const float* b1, const floa
   if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1)
     return (int)cudaErrorInvalidValue;
   AdjArgs a = {};
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, gpart, B,
+                     dz, max_steps, rtol, atol, beta1, beta2, inv_order, tab);
   a.w1 = w1; a.b1 = b1; a.w2 = w2; a.b2 = b2; a.eps = eps;
-  a.zT = zT; a.accT = accT; a.azT = azT; a.aaccT = aaccT; a.ts = ts;
-  a.z0 = z0; a.acc0 = acc0; a.az0 = az0;
-  a.gw1 = gw1; a.gb1 = gb1; a.gw2 = gw2; a.gb2 = gb2; a.stats = stats;
-  a.work = work; a.partials = partials; a.gpart = gpart;
-  a.B = B; a.dz = dz; a.H = H; a.max_steps = max_steps; a.norm_z = norm_z; a.norm_j = norm_j;
-  a.rtol = rtol; a.atol = atol; a.beta1 = beta1; a.beta2 = beta2; a.inv_order = inv_order;
-  cnf::read_tableau(tab, &a.tab);
+  a.gw1 = gw1; a.gb1 = gb1; a.gw2 = gw2; a.gb2 = gb2;
+  a.H = H; a.norm_z = norm_z; a.norm_j = norm_j;
   cudaStream_t s = (cudaStream_t)stream;
   switch (cnf::padded_dz(dz)) {
     case 4: return (int)cnf::coop_launch(k2_train_adjoint<4>, a, grid, block, smem_bytes<4>(dz, H, block), s);

@@ -1,7 +1,10 @@
-// Shared pieces of the solve kernels (K3, K1, K2): the tsit5 tableau, the PI
-// step-size controller, the fixed-order block and grid reductions that give
-// every block bitwise the same error norm, the cooperative-launch helpers,
-// and the whole adaptive forward solve of a per-sample field (K3 and K1).
+// Shared pieces of the solve kernels (K3, K1, K2, K4): the tsit5 tableau, the
+// PI step-size controller, the fixed-order block and grid reductions that
+// give every block bitwise the same error norm, the cooperative-launch
+// helpers, the weights' shared-memory layout with its float4 row products,
+// the whole adaptive forward solve of a per-sample field (K3, K1 and the K4
+// forward) and the whole adaptive backsolve of a per-sample augmented stage
+// with a batch-summed gradient (K2 and the K4 adjoint).
 //
 // The forward solve keeps the state [z (dz rows) | accumulators (NACC rows)]
 // in a global scratch laid out (row, B), so a warp's accesses are coalesced.
@@ -41,6 +44,60 @@ inline void read_tableau(const float* tab, Tableau* t) {
     t->b[i] = tab[kStages * kStages + i];
     t->btilde[i] = tab[kStages * kStages + kStages + i];
   }
+}
+
+__device__ __forceinline__ float safe_norm_sq(float sq) { return sq > 0.f ? sqrtf(sq) : 0.f; }
+
+// Cotangent factor of a safe norm: ct / ||v||, 0 at v = 0.
+__device__ __forceinline__ float ct_safe_norm(float ct, float norm) { return norm > 0.f ? ct / norm : 0.f; }
+
+// <v, w> for a DZ-vector v in registers and a 16-byte aligned row w of
+// shared memory, read as float4 broadcasts, in four partial sums.
+template <int DZ>
+__device__ __forceinline__ float dot4(const float (&v)[DZ], const float* w) {
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+  for (int q = 0; q < DZ / 4; ++q) {
+    const float4 x = w4[q];
+    a0 = fmaf(v[4 * q + 0], x.x, a0);
+    a1 = fmaf(v[4 * q + 1], x.y, a1);
+    a2 = fmaf(v[4 * q + 2], x.z, a2);
+    a3 = fmaf(v[4 * q + 3], x.w, a3);
+  }
+  return (a0 + a1) + (a2 + a3);
+}
+
+// acc += c * w for a 16-byte aligned row w of shared memory.
+template <int DZ>
+__device__ __forceinline__ void axpy4(float (&acc)[DZ], float c, const float* w) {
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+#pragma unroll
+  for (int q = 0; q < DZ / 4; ++q) {
+    const float4 x = w4[q];
+    acc[4 * q + 0] = fmaf(x.x, c, acc[4 * q + 0]);
+    acc[4 * q + 1] = fmaf(x.y, c, acc[4 * q + 1]);
+    acc[4 * q + 2] = fmaf(x.z, c, acc[4 * q + 2]);
+    acc[4 * q + 3] = fmaf(x.w, c, acc[4 * q + 3]);
+  }
+}
+
+// The 2-layer net's weights as the kernels keep them in shared memory, the
+// state width padded to DZ with zero columns: w1t[j][i] = w1[i][j] and
+// w2p[j][k] = w2[j][k], both (H, DZ); b2p (DZ).  Returns the float count.
+template <int DZ>
+__host__ __device__ inline size_t weight_floats(int H) { return 2 * (size_t)H * DZ + DZ + H; }
+
+template <int DZ>
+__device__ void load_weights(const float* w1, const float* b1, const float* w2, const float* b2,
+                             int dz, int H, float* w1t, float* w2p, float* b2p, float* b1s) {
+  for (int idx = threadIdx.x; idx < H * DZ; idx += blockDim.x) {
+    const int j = idx / DZ, i = idx % DZ;
+    w1t[idx] = i < dz ? w1[(size_t)i * H + j] : 0.f;
+    w2p[idx] = i < dz ? w2[(size_t)j * dz + i] : 0.f;
+  }
+  for (int k = threadIdx.x; k < DZ; k += blockDim.x) b2p[k] = k < dz ? b2[k] : 0.f;
+  for (int j = threadIdx.x; j < H; j += blockDim.x) b1s[j] = b1[j];
 }
 
 // The padded state width a kernel is compiled for (4, 8, 16 or 32), 0 if none.
@@ -180,7 +237,7 @@ struct FwdArgs {
   const float* b1;    // (H)
   const float* w2;    // (H, dz)
   const float* b2;    // (dz)
-  const float* eps;   // (B, dz) Hutchinson probe (K1), unused by K3
+  const float* eps;   // (B, dz) Hutchinson probe (K1), unused by K3 and K4
   const float* z0;    // (B, dz)
   const float* acc0;  // (NACC, B) accumulators the solve starts from
   const float* ts;    // t0, t1, dt_init
@@ -308,6 +365,248 @@ __device__ void forward_solve(const FwdArgs& p, const Field& field, float* red) 
     p.stats[1] = c.accepted;
     p.dt_last[0] = c.dt;
   }
+}
+
+// Arguments of the adjoint solve kernels (K2, the K4 adjoint) besides the
+// net and its gradient outputs.
+struct AdjState {
+  const float* zT;    // (B, dz) state at t_hi
+  const float* accT;  // (3, B)
+  const float* azT;   // (B, dz) cotangent of z at t_hi
+  const float* aaccT; // (3, B) cotangent of acc (constant)
+  const float* ts;    // t_hi, t_lo, dt_init
+  float* z0;          // (B, dz) state at t_lo
+  float* acc0;        // (3, B)
+  float* az0;         // (B, dz)
+  int* stats;         // attempted, accepted
+  float* work;        // (kStages + 2) * (2 dz + 3) * B
+  float* partials;    // [parity][sum | flag][gridDim.x]
+  float* gpart;       // [parity][gridDim.x][2 Pg]: the blocks' b- and btilde-weighted g sums
+  int B, dz, max_steps;
+  float rtol, atol, beta1, beta2, inv_order;
+  Tableau tab;
+};
+
+// The whole adaptive backsolve (K2 and the K4 adjoint) of the per-sample
+// state (z, acc, a_z, a_acc: a_acc constant) and of the batch-summed
+// gradient g (Pg floats) from ts[0] to ts[1].  Per sample, `stage(s, z, az,
+// aacc, kz, kr, kaz)` evaluates the augmented stage (the field, its rates and
+// k_az = -ct_z) and leaves in the thread's slot what `grad` reads; after each
+// stage `grad(q, base, nvalid)` is the block's sum, over its samples base ..
+// base + nvalid - 1 in thread order, of the negated g rate entry q.
+//
+// One batch-global Hairer norm over B * 2 * (dz + 3) + Pg elements, the g
+// entries scaled by atol + rtol * max(|g|, |g_new|) of the batch-summed
+// values.  Each block accumulates its partials of dt * sum_i b_i k_g,i and
+// dt * sum_i btilde_i k_g,i in its parity-indexed slice of gpart, writes its
+// per-sample sum of squares, one grid.sync(), and then every block adds all
+// blocks' vectors in block order, so every block holds the same g and takes
+// the same decision.  FSAL keeps each block's own partial of the last stage's
+// g rate (the sum is linear in the samples).  gp, gnew, K1p and K7p are the
+// block's own Pg-float buffers (shared or global memory) for g, the proposed
+// g, and the FSAL and last-stage partials; on return gp holds g.
+template <int DZ, class Stage, class Grad>
+__device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad& grad, int Pg, float* gp,
+                              float* gnew, float* K1p, float* K7p, float* red) {
+  cg::grid_group grid = cg::this_grid();
+  const int dz = p.dz, B = p.B, G = gridDim.x;
+  const int nthr = G * blockDim.x;
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int rounds = (B + nthr - 1) / nthr;
+  const int R = 2 * dz + 3;         // rows: z, acc, a_z
+  const size_t RB = (size_t)R * B;  // one (row, B) plane
+  float* Y = p.work;
+  float* Yn = Y + RB;
+  float* K = Yn + RB;
+
+  for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
+    gp[q] = 0.f;
+    K1p[q] = 0.f;
+  }
+  __syncthreads();
+
+  // Sample s's stage at (z, az), its rates stored into the plane kst.
+  auto run_stage = [&](int s, const float (&z)[DZ], const float (&az)[DZ], float* kst) {
+    float aacc[3], kz[DZ], kr[3], kaz[DZ];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) aacc[r] = p.aaccT[(size_t)r * B + s];
+    stage(s, z, az, aacc, kz, kr, kaz);
+#pragma unroll
+    for (int i = 0; i < DZ; ++i) {
+      if (i < dz) {
+        kst[(size_t)i * B + s] = kz[i];
+        kst[(size_t)(dz + 3 + i) * B + s] = kaz[i];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 3; ++r) kst[(size_t)(dz + r) * B + s] = kr[r];
+  };
+  // The block's samples in round rd: [base, base + nvalid).
+  auto round_base = [&](int rd) { return rd * nthr + (int)(blockIdx.x * blockDim.x); };
+  auto round_valid = [&](int rd) { return max(0, min((int)blockDim.x, B - round_base(rd))); };
+
+  // Initial state and the first stage (its g rate partial into K1p).
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int s = gtid + rd * nthr;
+    if (s < B) {
+      float z[DZ], az[DZ];
+#pragma unroll
+      for (int i = 0; i < DZ; ++i) {
+        z[i] = i < dz ? p.zT[(size_t)s * dz + i] : 0.f;
+        az[i] = i < dz ? p.azT[(size_t)s * dz + i] : 0.f;
+      }
+      run_stage(s, z, az, K);
+      for (int i = 0; i < dz; ++i) {
+        Y[(size_t)i * B + s] = z[i];
+        Y[(size_t)(dz + 3 + i) * B + s] = az[i];
+      }
+      for (int r = 0; r < 3; ++r) Y[(size_t)(dz + r) * B + s] = p.accT[(size_t)r * B + s];
+    }
+    __syncthreads();
+    const int base = round_base(rd), nv = round_valid(rd);
+    for (int q = threadIdx.x; q < Pg; q += blockDim.x) K1p[q] += grad(q, base, nv);
+    __syncthreads();
+  }
+
+  Controller c;
+  c.init(p.ts, p.beta1, p.beta2, p.inv_order);
+  const float n_elems = (float)B * (float)(2 * (dz + 3)) + (float)Pg;
+
+  while (c.running(p.max_steps)) {
+    bool is_last;
+    const float dt_use = c.plan(&is_last);
+    const int par = c.steps & 1;
+    float* GB = p.gpart + ((size_t)par * G + blockIdx.x) * 2 * Pg;
+    float* GE = GB + Pg;
+    const float cb0 = dt_use * p.tab.b[0], ce0 = dt_use * p.tab.btilde[0];
+    for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
+      GB[q] = cb0 * K1p[q];
+      GE[q] = ce0 * K1p[q];
+      K7p[q] = 0.f;
+    }
+
+    for (int st = 1; st < kStages; ++st) {
+      for (int rd = 0; rd < rounds; ++rd) {
+        const int s = gtid + rd * nthr;
+        if (s < B) {
+          float z[DZ], az[DZ];
+#pragma unroll
+          for (int i = 0; i < DZ; ++i) {
+            z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
+            az[i] = i < dz ? Y[(size_t)(dz + 3 + i) * B + s] : 0.f;
+          }
+          for (int j = 0; j < st; ++j) {
+            if (p.tab.a[st][j] != 0.f) {
+              const float cf = dt_use * p.tab.a[st][j];
+              const float* kj = K + j * RB;
+#pragma unroll
+              for (int i = 0; i < DZ; ++i) {
+                if (i < dz) {
+                  z[i] = fmaf(cf, kj[(size_t)i * B + s], z[i]);
+                  az[i] = fmaf(cf, kj[(size_t)(dz + 3 + i) * B + s], az[i]);
+                }
+              }
+            }
+          }
+          run_stage(s, z, az, K + st * RB);
+        }
+        __syncthreads();
+        const float cb = dt_use * p.tab.b[st], ce = dt_use * p.tab.btilde[st];
+        const bool last = st == kStages - 1;
+        const int base = round_base(rd), nv = round_valid(rd);
+        for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
+          const float g = grad(q, base, nv);
+          if (p.tab.b[st] != 0.f) GB[q] = fmaf(cb, g, GB[q]);
+          if (p.tab.btilde[st] != 0.f) GE[q] = fmaf(ce, g, GE[q]);
+          if (last) K7p[q] += g;
+        }
+        __syncthreads();
+      }
+    }
+
+    // Per-sample proposals and errors: z, acc and a_z rows (a_acc is
+    // constant: zero error, but counted in n_elems).
+    float sumsq = 0.f;
+    bool finite = true;
+    for (int s = gtid; s < B; s += nthr) {
+      for (int r = 0; r < R; ++r) {
+        const size_t off = (size_t)r * B + s;
+        const float y = Y[off];
+        float yn = y, err = 0.f;
+#pragma unroll
+        for (int st = 0; st < kStages; ++st) {
+          const float k = K[st * RB + off];
+          if (p.tab.b[st] != 0.f) yn = fmaf(dt_use * p.tab.b[st], k, yn);
+          if (p.tab.btilde[st] != 0.f) err = fmaf(dt_use * p.tab.btilde[st], k, err);
+        }
+        Yn[off] = yn;
+        const float qv = err / (p.atol + p.rtol * fmaxf(fabsf(y), fabsf(yn)));
+        sumsq = fmaf(qv, qv, sumsq);
+        if (r < dz || r >= dz + 3) finite = finite && isfinite(yn);
+      }
+    }
+
+    write_block_partial(sumsq, finite, p.partials, par, red);
+    grid.sync();
+    float total;
+    bool all_finite;
+    read_grid_total(p.partials, par, red, &total, &all_finite);
+    // The g block: all blocks' vectors summed in block order.
+    float gsq = 0.f;
+    for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
+      float gs = 0.f, es = 0.f;
+      for (int g = 0; g < G; ++g) {
+        const float* base = p.gpart + ((size_t)par * G + g) * 2 * Pg;
+        gs += __ldcg(base + q);
+        es += __ldcg(base + Pg + q);
+      }
+      const float gn = gp[q] + gs;
+      gnew[q] = gn;
+      const float qv = es / (p.atol + p.rtol * fmaxf(fabsf(gp[q]), fabsf(gn)));
+      gsq = fmaf(qv, qv, gsq);
+    }
+    gsq = block_sum(gsq, red);
+    if (c.update(sqrtf((total + gsq) / n_elems), all_finite, dt_use, is_last)) {
+      for (int s = gtid; s < B; s += nthr) {
+        for (int r = 0; r < R; ++r) {
+          const size_t off = (size_t)r * B + s;
+          Y[off] = Yn[off];
+          K[off] = K[(kStages - 1) * RB + off];
+        }
+      }
+      for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
+        gp[q] = gnew[q];
+        K1p[q] = K7p[q];
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int s = gtid; s < B; s += nthr) {
+    for (int i = 0; i < dz; ++i) {
+      p.z0[(size_t)s * dz + i] = Y[(size_t)i * B + s];
+      p.az0[(size_t)s * dz + i] = Y[(size_t)(dz + 3 + i) * B + s];
+    }
+    for (int r = 0; r < 3; ++r) p.acc0[(size_t)r * B + s] = Y[(size_t)(dz + r) * B + s];
+  }
+  if (gtid == 0) {
+    p.stats[0] = c.steps;
+    p.stats[1] = c.accepted;
+  }
+}
+
+// Fill the AdjState fields from the adjoint kernels' C arguments.
+inline void set_adj_state(AdjState* a, const float* zT, const float* accT, const float* azT,
+                          const float* aaccT, const float* ts, float* z0, float* acc0, float* az0,
+                          int* stats, float* work, float* partials, float* gpart, int B, int dz,
+                          int max_steps, float rtol, float atol, float beta1, float beta2,
+                          float inv_order, const float* tab) {
+  a->zT = zT; a->accT = accT; a->azT = azT; a->aaccT = aaccT; a->ts = ts;
+  a->z0 = z0; a->acc0 = acc0; a->az0 = az0; a->stats = stats;
+  a->work = work; a->partials = partials; a->gpart = gpart;
+  a->B = B; a->dz = dz; a->max_steps = max_steps;
+  a->rtol = rtol; a->atol = atol; a->beta1 = beta1; a->beta2 = beta2; a->inv_order = inv_order;
+  read_tableau(tab, &a->tab);
 }
 
 // Largest co-resident grid of `kernel` for a cooperative launch (0 if the

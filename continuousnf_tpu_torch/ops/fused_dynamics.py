@@ -1,9 +1,10 @@
-"""Closed-form TEST-mode fields of Dense/tanh chains: the plain PyTorch field
+"""Closed-form fields of Dense/tanh chains (trace, Jacobian): the plain PyTorch field
 that the fused solve (`ops/fused_solve.py`) is held against.
 
 Port of `continuousnf_tpu/ops/fused_dynamics.py`: `exact_tanh_mlp_trace`
-(:145-166), `is_dense_tanh_chain` (:169-181), `exact_dense_chain_trace`
-(:217-258), `supports_fusion` (:261-272), and the plain version of the
+(:145-166), `is_dense_tanh_chain` (:169-181), `exact_dense_chain_jacobian`
+(:184-214), `exact_dense_chain_trace` (:217-258), `supports_fusion`
+(:261-272), and the plain version of the
 per-stage TRAIN kernel `_fused_forward` (K10, `_reference_impl` :43-54),
 whose CUDA kernel is not ported yet (ROADMAP queue 2).
 """
@@ -78,14 +79,49 @@ def dense_chain_trace(
     return h, tr
 
 
-def exact_dense_chain_trace(nn, params, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`dense_chain_trace` for a Chain module and its params tree."""
-    return dense_chain_trace(
+def dense_chain_jacobian(
+    ws: Sequence[torch.Tensor],
+    bs: Sequence[Optional[torch.Tensor]],
+    acts: Sequence[bool],
+    z: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closed-form (y, J) of an N-layer Dense chain, J (B, d, d) with
+    J[b, j, i] = d y_i / d z_j: the batched left-to-right chain product of
+    the layer factors W_k diag(act'_k)."""
+    h = z
+    J = None
+    for w, b, act in zip(ws, bs, acts):
+        a = h @ w
+        if b is not None:
+            a = a + b
+        if act:
+            h = torch.tanh(a)
+            d = 1.0 - h * h
+        else:
+            h = a
+            d = None
+        J = w.expand(z.shape[0], *w.shape) if J is None else torch.einsum("bij,jk->bik", J, w)
+        if d is not None:
+            J = J * d[:, None, :]
+    return h, J
+
+
+def _chain_args(nn, params):
+    return (
         [p["w"] for p in params],
         [p.get("b") if layer.use_bias else None for layer, p in zip(nn.layers, params)],
         [layer.activation is torch.tanh for layer in nn.layers],
-        z,
     )
+
+
+def exact_dense_chain_trace(nn, params, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`dense_chain_trace` for a Chain module and its params tree."""
+    return dense_chain_trace(*_chain_args(nn, params), z)
+
+
+def exact_dense_chain_jacobian(nn, params, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`dense_chain_jacobian` for a Chain module and its params tree."""
+    return dense_chain_jacobian(*_chain_args(nn, params), z)
 
 
 def is_dense_tanh_chain(nn) -> bool:
@@ -134,7 +170,9 @@ __all__ = [
     "fused_tanh_mlp_dynamics",
     "exact_tanh_mlp_trace",
     "dense_chain_trace",
+    "dense_chain_jacobian",
     "exact_dense_chain_trace",
+    "exact_dense_chain_jacobian",
     "is_dense_tanh_chain",
     "supports_fusion",
 ]

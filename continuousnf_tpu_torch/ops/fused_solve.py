@@ -1,13 +1,16 @@
 """Whole-ODE-solve kernels ("solve-in-kernel"): the TEST and TRAIN forward
-solves and the TRAIN backsolve adjoint.
+solves and the TRAIN backsolve adjoints.
 
 Port of `continuousnf_tpu/ops/fused_solve.py`: `ChainSpec`/`chain_spec`
 (:101-152), the stages `_stage_train` (:333-369) with `_chain_fwd`,
 `_probe_pullback`, `_safe_col_norm` and `_ct_safe_norm` (:155-306), the
-hand-derived stage VJP `_stage_train_fwdbwd` (:372-481), `FullSolve`
-(:1346-1357) and `make_full_solve` (:1378-1823), in batch-major layout.
+hand-derived stage VJP `_stage_train_fwdbwd` (:372-481), the exact stages
+`exact_stage_consts`, `exact_pm_chain`, `_stage_train_exact`,
+`_stage_train_exact_fwdbwd` and `_stage_train_exact_chain` (:542-728),
+`FullSolve` (:1346-1357) and `make_full_solve` (:1378-1823), in batch-major
+layout.
 
-Three CUDA kernels (`csrc/`), each with a plain PyTorch twin:
+Five CUDA kernels (`csrc/`), each with a plain PyTorch twin:
 - K3 (`k3_test_solve.cu`, `run_solve_kernel`, twin `solve_test_plain`) for
   `_run_solve_kernel` with `_stage_test`: the TEST solve of [z | dlogp];
 - K1 (`k1_train_solve.cu`, `run_train_solve_kernel`, twin
@@ -15,7 +18,14 @@ Three CUDA kernels (`csrc/`), each with a plain PyTorch twin:
   solve of [z | dlogp | reg_e | reg_n];
 - K2 (`k2_train_adjoint.cu`, `run_adjoint_kernel`, twin
   `adjoint_train_plain`) for `adjoint_solve` with `_stage_train_fwdbwd`: the
-  backward integration of (z, acc, a_z, g_p) from t1 to t0.
+  backward integration of (z, acc, a_z, g_p) from t1 to t0;
+- the K4 forward (`k4_exact_solve.cu`, `run_exact_solve_kernel`, twin
+  `solve_train_exact_plain`) for `_run_solve_kernel` with
+  `_stage_train_exact`: the exact-trace TRAIN solve;
+- the K4 adjoint (`k4_exact_adjoint.cu`, `run_exact_adjoint_kernel`, twin
+  `adjoint_train_exact_plain`) for `adjoint_solve` with
+  `_stage_train_exact_fwdbwd`: the backward integration of
+  (z, acc, a_z, g_p, g_pm).
 Each runs one whole adaptive tsit5 solve of a 2-layer tanh MLP field in one
 cooperative launch, with one batch-global error norm per attempted step.
 
@@ -24,7 +34,6 @@ tensors.  On a CUDA tensor there is no fallback: a configuration the kernel
 does not cover raises NotImplementedError naming the kernel that would.
 Each wrapper's `.launches` counts its kernel's launches.
 """
-
 from __future__ import annotations
 
 import ctypes
@@ -33,7 +42,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core.dynamics import safe_norm
+from ..core.dynamics import safe_norm, safe_sqrt
 from ..ode.solve import SolveStats, _initial_step_size, _solve_adaptive_while, needs_grad
 from ..ode.tableaus import TSIT5, ButcherTableau, get_tableau
 from ..types import ADMode, Mode
@@ -41,6 +50,8 @@ from ..types import ADMode, Mode
 K3_KERNEL = "k3_test_solve"
 K1_KERNEL = "k1_train_solve"
 K2_KERNEL = "k2_train_adjoint"
+K4_KERNEL = "k4_exact_solve"
+K4A_KERNEL = "k4_exact_adjoint"
 
 
 class ChainSpec(NamedTuple):
@@ -97,7 +108,8 @@ class FullSolve(NamedTuple):
     forward: (y0f, t0, t1, args) -> (yTf, stats).
     adjoint: (yTf, g_yf, args, t_hi, t_lo, dt_warm=None) ->
              (y0f, a_y0f, g_args, stats), the backsolve backward integration
-             (`ode/adjoint.py`); None where it is not ported (TEST mode, K5).
+             (`ode/adjoint.py`); None where it is not ported (TEST mode, K5;
+             exact-trace chains of N != 2 layers, K7).
     """
 
     forward: Callable
@@ -236,22 +248,128 @@ def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: b
     return y, kr, ct_h, ct_ws, ct_bs
 
 
+def _exact_pm_stage(spec: ChainSpec) -> bool:
+    """True where the exact TRAIN stage is the 2-layer pm form (K4); other
+    Dense chains take the basis-propagation form (K7)."""
+    return spec.n_layers == 2 and all(spec.acts)
+
+
+def exact_stage_consts(w1, w2):
+    """pm[(j, i), h] = w1[j, h] w2[h, i], (dz^2, H) in j-major row order: the
+    2-layer exact stage's constant, built once per solve."""
+    dz, H = w1.shape
+    return (w1[:, None, :] * w2.T[None, :, :]).reshape(dz * dz, H)
+
+
+def exact_pm_chain(g_pm, w1, w2):
+    """Chain the pm cotangent (dz^2, H) back to (w1, w2)."""
+    dz, H = w1.shape
+    g3 = g_pm.reshape(dz, dz, H)  # [j, i, h]
+    return torch.einsum("jih,hi->jh", g3, w2), torch.einsum("jih,jh->hi", g3, w1)
+
+
+def _exact_m3(spec: ChainSpec, z, ws, bs, pm):
+    """Forward pass and m[b, j, i] = sum_h pm[(j, i), h] dh[b, h]."""
+    hs, ds = _chain_fwd(spec, z, ws, bs)
+    m3 = (ds[0] @ pm.T).reshape(z.shape[0], spec.dz, spec.dz)
+    return hs, ds, m3
+
+
+def _stage_train_exact(spec: ChainSpec, z, ws, bs, pm, norm_z: bool, norm_j: bool):
+    """One exact TRAIN field evaluation of a 2-layer tanh chain: with
+    J[b]_ji = dy_i m[b, j, i], tr = sum_i dy_i m[i, i] and
+    ||J||_F^2 = sum_i dy_i^2 sum_j m[j, i]^2.  Returns (k_z, rates (3, B) =
+    [-tr, ||y||, ||J||_F])."""
+    hs, ds, m3 = _exact_m3(spec, z, ws, bs, pm)
+    y, dy = hs[-1], ds[1]
+    tr = torch.sum(dy * torch.diagonal(m3, dim1=1, dim2=2), dim=-1)
+    zero = torch.zeros_like(tr)
+    n_rate = safe_sqrt(torch.sum(dy * dy * torch.sum(m3 * m3, dim=1), dim=-1)) if norm_j else zero
+    e_rate = safe_norm(y) if norm_z else zero
+    return y, torch.stack([-tr, e_rate, n_rate])
+
+
+def _stage_train_exact_fwdbwd(spec: ChainSpec, z, ws, bs, pm, norm_z: bool, norm_j: bool, ct_y, ct_r):
+    """`_stage_train_exact` and its hand-derived VJP against (ct_y (B, dz),
+    ct_r (3, B)) in one pass: the math the K4 adjoint runs.  Returns (k_z,
+    rates, ct_z, ct_ws, ct_bs, ct_pm), the cotangents not negated and the
+    parameter and pm ones summed over the batch."""
+    hs, ds, m3 = _exact_m3(spec, z, ws, bs, pm)
+    y, (dh, dy) = hs[-1], ds
+    d = torch.diagonal(m3, dim1=1, dim2=2)  # (B, dz)
+    s = torch.sum(m3 * m3, dim=1)  # (B, dz): s[i] = sum_j m[j, i]^2
+    tr = torch.sum(dy * d, dim=-1)
+    zero = torch.zeros_like(tr)
+    n_rate = safe_sqrt(torch.sum(dy * dy * s, dim=-1)) if norm_j else zero
+    e_rate = safe_norm(y) if norm_z else zero
+    kr = torch.stack([-tr, e_rate, n_rate])
+
+    ct_tr = -ct_r[0][:, None]
+    ct_d = dy * ct_tr
+    ct_dy = d * ct_tr
+    ct_m3 = torch.diag_embed(ct_d)
+    if norm_j:
+        # n = sqrt(fro^2): d n / d fro^2 = 1 / (2 n), 0 at n = 0.
+        ct_fro2 = 0.5 * _ct_safe_norm(ct_r[2], n_rate)[:, None]
+        ct_s = (dy * dy) * ct_fro2
+        ct_dy = ct_dy + 2.0 * dy * s * ct_fro2
+        ct_m3 = ct_m3 + (2.0 * ct_s[:, None, :]) * m3
+    ct_mflat = ct_m3.reshape(z.shape[0], -1)
+    ct_dh = ct_mflat @ pm  # (B, H)
+    ct_pm = ct_mflat.T @ dh  # (dz^2, H)
+    ct_ytot = ct_y + (-2.0 * y) * ct_dy
+    if norm_z:
+        ct_ytot = ct_ytot + y * _ct_safe_norm(ct_r[1], e_rate)[:, None]
+    ct_pre2 = ct_ytot * dy
+    ct_h = ct_pre2 @ ws[1].T + (-2.0 * hs[1]) * ct_dh
+    ct_pre1 = ct_h * dh
+    ct_ws = [z.T @ ct_pre1, hs[1].T @ ct_pre2]
+    ct_bs = [torch.sum(ct_pre1, dim=0), torch.sum(ct_pre2, dim=0)]
+    return y, kr, ct_pre1 @ ws[0].T, ct_ws, ct_bs, ct_pm
+
+
+def _stage_train_exact_chain(spec: ChainSpec, z, ws, bs, norm_z: bool, norm_j: bool):
+    """The exact TRAIN stage of any Dense tanh-or-identity chain, from the
+    batched chain Jacobian (the basis-propagation form, K7)."""
+    from .fused_dynamics import dense_chain_jacobian
+
+    y, J = dense_chain_jacobian(ws, bs, spec.acts, z)
+    tr = torch.diagonal(J, dim1=1, dim2=2).sum(-1)
+    zero = torch.zeros_like(tr)
+    n_rate = safe_sqrt(torch.sum(J * J, dim=(1, 2))) if norm_j else zero
+    e_rate = safe_norm(y) if norm_z else zero
+    return y, torch.stack([-tr, e_rate, n_rate])
+
+
 # ---- plain twins ----
+
+
+def _solve_plain(stage, tab, *, rtol, atol, max_steps, z0, acc0, t0, t1, dt_init):
+    """The eager adaptive solve of [z | acc] with `stage(z) -> (k_z, k_acc)`,
+    the accumulators seeded from acc0 (its shape: (B,) or (rows, B)).
+    Returns (zT, accT, steps, accepted, dt_last)."""
+    B, dz = z0.shape
+
+    def f(t, yf):
+        y, kr = stage(yf[: B * dz].reshape(B, dz))
+        return torch.cat([y.reshape(-1), kr.reshape(-1)])
+
+    y0f = torch.cat([z0.reshape(-1), acc0.reshape(-1)])
+    yf, st = _solve_adaptive_while(f, tab, y0f, t0, t1, rtol, atol, max_steps, dt_init)
+    return yf[: B * dz].reshape(B, dz), yf[B * dz :].reshape(acc0.shape), st.steps, st.accepted, st.dt_last
 
 
 def solve_test_plain(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init):
     """Plain PyTorch version of K3: the eager adaptive solve of [z | dlogp]
     on the closed-form TEST field, from the given initial step.  Returns
     (zT, dlogpT, steps, accepted, dt_last)."""
-    B, dz = z0.shape
 
-    def f(t, yf):
-        y, tr = _test_stage(spec, ws, bs, yf[: B * dz].reshape(B, dz))
-        return torch.cat([y.reshape(-1), -tr])
+    def stage(z):
+        y, tr = _test_stage(spec, ws, bs, z)
+        return y, -tr
 
-    y0f = torch.cat([z0.reshape(-1), dlogp0])
-    yf, st = _solve_adaptive_while(f, tab, y0f, t0, t1, rtol, atol, max_steps, dt_init)
-    return yf[: B * dz].reshape(B, dz), yf[B * dz :], st.steps, st.accepted, st.dt_last
+    return _solve_plain(stage, tab, rtol=rtol, atol=atol, max_steps=max_steps, z0=z0, acc0=dlogp0,
+                        t0=t0, t1=t1, dt_init=dt_init)
 
 
 def solve_train_plain(
@@ -261,32 +379,87 @@ def solve_train_plain(
     [z | acc] with acc (3, B) = [dlogp | reg_e | reg_n] rows, seeded from
     acc0, on `_stage_train` with probes eps (K, B, dz).  Returns
     (zT, accT, steps, accepted, dt_last)."""
-    B, dz = z0.shape
-
-    def f(t, yf):
-        y, kr = _stage_train(spec, yf[: B * dz].reshape(B, dz), eps, ws, bs, norm_z, norm_j)
-        return torch.cat([y.reshape(-1), kr.reshape(-1)])
-
-    y0f = torch.cat([z0.reshape(-1), acc0.reshape(-1)])
-    yf, st = _solve_adaptive_while(f, tab, y0f, t0, t1, rtol, atol, max_steps, dt_init)
-    return yf[: B * dz].reshape(B, dz), yf[B * dz :].reshape(3, B), st.steps, st.accepted, st.dt_last
+    return _solve_plain(
+        lambda z: _stage_train(spec, z, eps, ws, bs, norm_z, norm_j), tab, rtol=rtol, atol=atol,
+        max_steps=max_steps, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+    )
 
 
-def _adjoint_field(spec, norm_z, norm_j, ws, bs, eps, aaccT):
+def solve_train_exact_plain(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init
+):
+    """Plain PyTorch version of the K4 forward: the eager adaptive solve of
+    [z | acc] with acc (3, B) = [dlogp | reg_e | reg_n] rows, seeded from
+    acc0, on the exact TRAIN stage (`_stage_train_exact` for 2-layer tanh
+    chains, `_stage_train_exact_chain` for others).  Returns
+    (zT, accT, steps, accepted, dt_last)."""
+    if _exact_pm_stage(spec):
+        pm = exact_stage_consts(ws[0], ws[1])
+        stage = lambda z: _stage_train_exact(spec, z, ws, bs, pm, norm_z, norm_j)  # noqa: E731
+    else:
+        stage = lambda z: _stage_train_exact_chain(spec, z, ws, bs, norm_z, norm_j)  # noqa: E731
+    return _solve_plain(stage, tab, rtol=rtol, atol=atol, max_steps=max_steps, z0=z0, acc0=acc0,
+                        t0=t0, t1=t1, dt_init=dt_init)
+
+
+def _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT):
+    """`(z, a_z) -> (k_z, rates, ct_z, gradient blocks [w..., b...])` of the
+    Hutchinson TRAIN stage (K2)."""
+
+    def stage(z, az):
+        y, kr, ct_z, ct_ws, ct_bs = _stage_train_fwdbwd(spec, z, eps, ws, bs, norm_z, norm_j, az, aaccT)
+        return y, kr, ct_z, list(ct_ws) + list(ct_bs)
+
+    return stage
+
+
+def _exact_adjoint_stage(spec, ws, bs, pm, norm_z, norm_j, aaccT):
+    """The same for the 2-layer exact TRAIN stage (K4): the blocks are
+    [w1, w2, b1, b2, pm]."""
+
+    def stage(z, az):
+        y, kr, ct_z, ct_ws, ct_bs, ct_pm = _stage_train_exact_fwdbwd(spec, z, ws, bs, pm, norm_z, norm_j, az, aaccT)
+        return y, kr, ct_z, list(ct_ws) + list(ct_bs) + [ct_pm]
+
+    return stage
+
+
+def _adjoint_state(stage, zT, accT, azT, aaccT, shapes):
     """The backward field of the flat augmented state
-    [z | acc (3, B) | a_z | a_acc (3, B) | g_w... | g_b...]: the stage, its
-    rates, -ct_z, a constant a_acc and the negated parameter cotangents."""
-    B, dz = eps.shape[1], eps.shape[2]
+    [z | acc (3, B) | a_z | a_acc (3, B) | gradient blocks of `shapes`] (the
+    stage, its rates, -ct_z, a constant a_acc and the negated cotangents)
+    and its value at t_hi (zero gradients)."""
+    B, dz = zT.shape
     n = B * dz
 
     def f(t, uf):
         z = uf[:n].reshape(B, dz)
         az = uf[n + 3 * B : 2 * n + 3 * B].reshape(B, dz)
-        y, kr, ct_z, ct_ws, ct_bs = _stage_train_fwdbwd(spec, z, eps, ws, bs, norm_z, norm_j, az, aaccT)
+        y, kr, ct_z, grads = stage(z, az)
         parts = [y.reshape(-1), kr.reshape(-1), -ct_z.reshape(-1), torch.zeros_like(aaccT).reshape(-1)]
-        return torch.cat(parts + [-g.reshape(-1) for g in ct_ws + ct_bs])
+        return torch.cat(parts + [-g.reshape(-1) for g in grads])
 
-    return f
+    u0 = torch.cat(
+        [zT.reshape(-1), accT.reshape(-1), azT.reshape(-1), aaccT.reshape(-1)]
+        + [torch.zeros(torch.Size(s).numel(), dtype=zT.dtype, device=zT.device) for s in shapes]
+    )
+    return f, u0
+
+
+def _adjoint_plain(stage, shapes, tab, *, rtol, atol, max_steps, zT, accT, azT, aaccT, t_hi, t_lo, dt_init):
+    """The eager adaptive backsolve of (z, acc, a_z, a_acc, gradient blocks)
+    from t_hi to t_lo, one error norm over the whole augmented state.
+    Returns (z0, acc0, a_z0, blocks, steps, accepted)."""
+    B, dz = zT.shape
+    n = B * dz
+    f, u0 = _adjoint_state(stage, zT, accT, azT, aaccT, shapes)
+    uf, st = _solve_adaptive_while(f, tab, u0, t_hi, t_lo, rtol, atol, max_steps, dt_init)
+    sizes = [torch.Size(s).numel() for s in shapes]
+    blocks = [g.reshape(s) for g, s in zip(torch.split(uf[2 * n + 6 * B :], sizes), shapes)]
+    z0 = uf[:n].reshape(B, dz)
+    acc0 = uf[n : n + 3 * B].reshape(3, B)
+    az0 = uf[n + 3 * B : 2 * n + 3 * B].reshape(B, dz)
+    return z0, acc0, az0, blocks, st.steps, st.accepted
 
 
 def adjoint_train_plain(
@@ -298,23 +471,35 @@ def adjoint_train_plain(
     augmented state (a_acc constant), on the hand-derived stage VJP.
     `dt_init` None picks the first step by Hairer's rule.  Returns
     (z0, acc0, a_z0, g_ws, g_bs, steps, accepted)."""
-    B, dz = zT.shape
-    n = B * dz
-    u0 = torch.cat(
-        [zT.reshape(-1), accT.reshape(-1), azT.reshape(-1), aaccT.reshape(-1)]
-        + [torch.zeros(w.numel(), dtype=zT.dtype, device=zT.device) for w in list(ws) + list(bs)]
-    )
-    f = _adjoint_field(spec, norm_z, norm_j, ws, bs, eps, aaccT)
-    uf, st = _solve_adaptive_while(f, tab, u0, t_hi, t_lo, rtol, atol, max_steps, dt_init)
-    sizes = [w.numel() for w in list(ws) + list(bs)]
-    grads = torch.split(uf[2 * n + 6 * B :], sizes)
     N = len(ws)
-    g_ws = [g.reshape(w.shape) for g, w in zip(grads[:N], ws)]
-    g_bs = [g.reshape(b.shape) for g, b in zip(grads[N:], bs)]
-    z0 = uf[:n].reshape(B, dz)
-    acc0 = uf[n : n + 3 * B].reshape(3, B)
-    az0 = uf[n + 3 * B : 2 * n + 3 * B].reshape(B, dz)
-    return z0, acc0, az0, g_ws, g_bs, st.steps, st.accepted
+    z0, acc0, az0, g, steps, accepted = _adjoint_plain(
+        _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT), [x.shape for x in list(ws) + list(bs)],
+        tab, rtol=rtol, atol=atol, max_steps=max_steps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+        t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
+    )
+    return z0, acc0, az0, g[:N], g[N:], steps, accepted
+
+
+def adjoint_train_exact_plain(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init,
+):
+    """Plain PyTorch version of the K4 adjoint: the eager adaptive backsolve
+    of (z, acc, a_z, a_acc, g_p, g_pm) from t_hi to t_lo on the hand-derived
+    exact stage VJP of a 2-layer tanh chain, one error norm over the whole
+    augmented state, g_pm included.  g_pm is chained back into g_w1 and g_w2
+    after the solve.  Returns (z0, acc0, a_z0, g_ws, g_bs, steps, accepted)."""
+    if not _exact_pm_stage(spec):
+        raise ValueError("the exact adjoint covers 2-layer tanh chains; deeper chains have none (K7)")
+    pm = exact_stage_consts(ws[0], ws[1])
+    z0, acc0, az0, g, steps, accepted = _adjoint_plain(
+        _exact_adjoint_stage(spec, ws, bs, pm, norm_z, norm_j, aaccT),
+        [x.shape for x in list(ws) + list(bs)] + [pm.shape], tab, rtol=rtol, atol=atol,
+        max_steps=max_steps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo,
+        dt_init=dt_init,
+    )
+    g_w1, g_w2 = exact_pm_chain(g[4], ws[0], ws[1])
+    return z0, acc0, az0, [g[0] + g_w1, g[1] + g_w2], g[2:4], steps, accepted
 
 
 # ---- the CUDA kernels ----
@@ -368,6 +553,15 @@ _SIGNATURES = {
     K2_KERNEL: {
         "cnf_k2_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
         "cnf_k2_train_adjoint": ([_P] * 21 + [_I] * 6 + [_F] * 5 + [_P, _I, _I, _P], _I),
+    },
+    K4_KERNEL: {
+        "cnf_k4_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k4_exact_solve": ([_P] * 13 + [_I] * 6 + [_F] * 5 + [_P, _I, _I, _P], _I),
+    },
+    K4A_KERNEL: {
+        "cnf_k4a_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k4a_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+        "cnf_k4_exact_adjoint": ([_P] * 23 + [_I] * 6 + [_F] * 5 + [_P, _I, _I, _P], _I),
     },
 }
 
@@ -585,6 +779,112 @@ def run_adjoint_kernel(
 run_adjoint_kernel.launches = 0
 
 
+def run_exact_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init
+):
+    """K4 forward: the exact-trace TRAIN solve of [z | acc] from t0 to t1
+    starting with step `dt_init`.  z0 is (B, dz) and acc0 (3, B) = [dlogp |
+    reg_e | reg_n] seeds the accumulators.  Returns
+    (zT, accT, steps, accepted, dt_last), all on z0's device.
+
+    CUDA tensors go through the K4 forward kernel (2-layer tanh chains), CPU
+    tensors through its plain version (any Dense chain)."""
+    _no_grad_inputs("K4", ws, bs, z0, acc0)
+    if z0.device.type == "cpu":
+        return solve_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+        )
+    _cuda_only("K4", z0, tab, spec)
+    B, dz = z0.shape
+    H = spec.out_dims[0]
+    device = z0.device
+    w1, b1, w2, b2, z0, acc0 = _check_inputs(
+        "K4", device, [ws[0], bs[0], ws[1], bs[1], z0, acc0],
+        [(dz, H), (H,), (H, dz), (dz,), (B, dz), (3, B)],
+    )
+    lib = _library(K4_KERNEL)
+    block, grid = _launch_shape(lib.cnf_k4_max_grid, "K4", B, dz, H, _forward_blocks(B, device))
+    ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
+    zT = torch.empty_like(z0)
+    accT = torch.empty_like(acc0)
+    stats = torch.empty(2, dtype=torch.int32, device=device)
+    dt_last = torch.empty(1, dtype=torch.float32, device=device)
+    work = torch.empty((TSIT5.num_stages + 2) * (dz + 3) * B, dtype=torch.float32, device=device)
+    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
+    err = lib.cnf_k4_exact_solve(
+        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(z0), _ptr(acc0), _ptr(ts),
+        _ptr(zT), _ptr(accT), _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials),
+        B, dz, H, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
+        _tableau_array(), grid, block, _stream(device),
+    )
+    if err != 0:
+        raise RuntimeError(f"K4 forward launch failed with cudaError {err} (grid {grid}, block {block})")
+    run_exact_solve_kernel.launches += 1
+    return zT, accT, stats[0], stats[1], dt_last[0]
+
+
+run_exact_solve_kernel.launches = 0
+
+
+def run_exact_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init,
+):
+    """K4 adjoint: the backsolve of (z, acc, a_z, a_acc, g_p, g_pm) from t_hi
+    to t_lo starting with step `dt_init`, on the exact TRAIN stage of a
+    2-layer tanh chain.  zT, azT are (B, dz), accT, aaccT (3, B).  Returns
+    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted), g_* summed over the batch
+    with g_pm chained into g_w1 and g_w2.
+
+    CUDA tensors go through the K4 adjoint kernel, CPU tensors through its
+    plain version."""
+    _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT)
+    if zT.device.type == "cpu":
+        return adjoint_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
+        )
+    _cuda_only("K4", zT, tab, spec)
+    if dt_init is None:
+        raise ValueError("the K4 adjoint needs dt_init (the caller picks it)")
+    B, dz = zT.shape
+    H = spec.out_dims[0]
+    device = zT.device
+    w1, b1, w2, b2, zT, accT, azT, aaccT = _check_inputs(
+        "K4", device, [ws[0], bs[0], ws[1], bs[1], zT, accT, azT, aaccT],
+        [(dz, H), (H,), (H, dz), (dz,), (B, dz), (3, B), (B, dz), (3, B)],
+    )
+    lib = _library(K4A_KERNEL)
+    block, grid = _launch_shape(lib.cnf_k4a_max_grid, "K4 adjoint", B, dz, H, (128, 64, 32))
+    P_total = 2 * dz * H + H + dz + dz * dz * H
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
+    z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
+    gw1, gb1, gw2, gb2 = (torch.empty_like(x) for x in (w1, b1, w2, b2))
+    gpm = torch.empty((dz * dz, H), dtype=torch.float32, device=device)
+    stats = torch.empty(2, dtype=torch.int32, device=device)
+    work = torch.empty((TSIT5.num_stages + 2) * (2 * dz + 3) * B, dtype=torch.float32, device=device)
+    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
+    gpart = torch.empty(2 * grid * 2 * P_total, dtype=torch.float32, device=device)
+    gblk = torch.empty(grid * 4 * P_total, dtype=torch.float32, device=device)
+    mbuf = torch.empty(dz * dz * B, dtype=torch.float32, device=device)
+    err = lib.cnf_k4_exact_adjoint(
+        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT),
+        _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0), _ptr(gw1), _ptr(gb1), _ptr(gw2), _ptr(gb2),
+        _ptr(gpm), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gpart), _ptr(gblk), _ptr(mbuf),
+        B, dz, H, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
+        _tableau_array(), grid, block, _stream(device),
+    )
+    if err != 0:
+        raise RuntimeError(f"K4 adjoint launch failed with cudaError {err} (grid {grid}, block {block})")
+    run_exact_adjoint_kernel.launches += 1
+    g_w1, g_w2 = exact_pm_chain(gpm, w1, w2)
+    return z0, acc0, az0, [gw1 + g_w1, gw2 + g_w2], [gb1, gb2], stats[0], stats[1]
+
+
+run_exact_adjoint_kernel.launches = 0
+
+
 # ---- make_full_solve ----
 
 
@@ -596,11 +896,14 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     a Dense chain with tanh-or-identity activations; no passive
     augmentation; an adaptive explicit method with an embedded error
     estimate; float32.  Within those, what this port has not reached raises
-    NotImplementedError: exact-trace TRAIN (K4), JVP probes (K6), conditional
-    nets (K8) and bf16 stages.  The flat layout is [z.ravel() (batch-major) |
-    dlogp] in TEST mode and [z.ravel() | dlogp | reg_e | reg_n] in TRAIN
-    mode.  TRAIN solves have the backward member (K2); TEST ones have none
-    yet (K5).
+    NotImplementedError: JVP probes (K6), conditional nets (K8) and bf16
+    stages.  The flat layout is [z.ravel() (batch-major) | dlogp] in TEST
+    mode and [z.ravel() | dlogp | reg_e | reg_n] in TRAIN mode.  Hutchinson
+    TRAIN solves run K1 with the backward member K2; exact-trace TRAIN solves
+    run the K4 forward, with the K4 adjoint as the backward member for 2-layer
+    tanh chains and none for other chains (the JAX package's deep exact
+    chains are forward-only too; their CUDA kernel, K7, raises).  TEST solves
+    have no backward member yet (K5).
     """
     cm = icnf.compute_mode
     opts = icnf.solver
@@ -621,11 +924,8 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     if icnf.dtype != torch.float32:
         return None
     train = mode == Mode.TRAIN
-    if train and cm.exact_trace:
-        raise NotImplementedError(
-            "exact-trace TRAIN and its kernel (K4) are not ported yet (ROADMAP queue 1, item 10)"
-        )
-    if train and cm.ad != ADMode.VJP:
+    exact = train and cm.exact_trace
+    if train and not exact and cm.ad != ADMode.VJP:
         raise NotImplementedError(
             "JVP probes and their kernel (K6) are not ported yet (ROADMAP queue 1, item 14)"
         )
@@ -666,6 +966,8 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
 
     nfe_per = (tab.num_stages - 1) + (0 if tab.fsal else 1)
 
+    exact_pm = exact and _exact_pm_stage(spec)
+
     def forward(y0f, t0, t1, args):
         tdir = torch.sign(t1 - t0)
         if opts.dt0 is None:
@@ -679,7 +981,12 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
             dt_init = tdir * abs(float(opts.dt0))
             nfe_init = 1
         z0 = y0f[: B * dz].reshape(B, dz)
-        if train:
+        if exact:
+            zT, accT, steps, accepted, dt_last = run_exact_solve_kernel(
+                tab, spec, norm_z=norm_z, norm_j=norm_j, **kernel_kw(args["ps"]), z0=z0,
+                acc0=y0f[B * dz :].reshape(3, B), t0=t0, t1=t1, dt_init=dt_init,
+            )
+        elif train:
             zT, accT, steps, accepted, dt_last = run_train_solve_kernel(
                 tab, spec, norm_z=norm_z, norm_j=norm_j, **kernel_kw(args["ps"]), z0=z0,
                 eps=args["eps"], acc0=y0f[B * dz :].reshape(3, B), t0=t0, t1=t1, dt_init=dt_init,
@@ -695,12 +1002,15 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         return torch.cat([zT.reshape(-1), accT.reshape(-1)]), stats
 
     def adjoint(yTf, g_yf, args, t_hi, t_lo, dt_warm=None):
-        """Backward solve of (z, acc, a_z, g_p) from t_hi down to t_lo.
-        Returns (y0f, a_y0f, g_args, stats); a_acc is constant, so its final
-        value is the incoming cotangent.  `dt_warm` (the forward solve's last
-        step size) is the first step; without it Hairer's rule picks one
-        over the whole augmented state."""
-        ps, eps = args["ps"], args["eps"]
+        """Backward solve of (z, acc, a_z, g_p) (and g_pm under exact trace)
+        from t_hi down to t_lo.  Returns (y0f, a_y0f, g_args, stats); a_acc
+        is constant, so its final value is the incoming cotangent.
+        `dt_warm` (the forward solve's last step size) is the first step;
+        without it Hairer's rule picks one over the whole augmented state
+        that the backward solve integrates (under exact trace g_pm
+        included; the JAX package's pick chains pm into the parameters
+        first)."""
+        ps, eps = args["ps"], args.get("eps")
         kw = kernel_kw(ps)
         zT, accT = yTf[: B * dz].reshape(B, dz), yTf[B * dz :].reshape(nacc, B)
         azT, aaccT = g_yf[: B * dz].reshape(B, dz), g_yf[B * dz :].reshape(nacc, B)
@@ -709,30 +1019,41 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         if dt_warm is not None:
             dt_init = tdir * torch.abs(torch.as_tensor(dt_warm, dtype=yTf.dtype, device=yTf.device))
         elif opts.dt0 is None:
-            f = _adjoint_field(spec, norm_z, norm_j, kw["ws"], kw["bs"], eps, aaccT)
-            u0 = torch.cat(
-                [yTf, g_yf] + [torch.zeros(x.numel(), dtype=yTf.dtype, device=yTf.device) for x in kw["ws"] + kw["bs"]]
-            )
+            shapes = [x.shape for x in kw["ws"] + kw["bs"]]
+            if exact:
+                pm = exact_stage_consts(kw["ws"][0], kw["ws"][1])
+                stage = _exact_adjoint_stage(spec, kw["ws"], kw["bs"], pm, norm_z, norm_j, aaccT)
+                shapes.append(pm.shape)
+            else:
+                stage = _train_adjoint_stage(spec, kw["ws"], kw["bs"], eps, norm_z, norm_j, aaccT)
+            f, u0 = _adjoint_state(stage, zT, accT, azT, aaccT, shapes)
             dt_init = _initial_step_size(
                 f, t_hi, u0, f(t_hi, u0), tdir, tab.order, opts.rtol, opts.atol, torch.abs(t_lo - t_hi)
             )
             nfe_init = 2
         else:
             dt_init = tdir * abs(float(opts.dt0))
-        z0, acc0, az0, g_ws, g_bs, steps, accepted = run_adjoint_kernel(
-            tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, eps=eps, zT=zT, accT=accT, azT=azT,
-            aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
-        )
+        state = dict(zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init)
+        if exact:
+            z0, acc0, az0, g_ws, g_bs, steps, accepted = run_exact_adjoint_kernel(
+                tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, **state
+            )
+        else:
+            z0, acc0, az0, g_ws, g_bs, steps, accepted = run_adjoint_kernel(
+                tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, eps=eps, **state
+            )
         g_ps = tuple(
             {k: (gw if k == "w" else gb) for k in p} for p, gw, gb in zip(ps, g_ws, g_bs)
         )
-        g_args = dict(args, ps=g_ps, eps=torch.zeros_like(eps))
+        g_args = dict(args, ps=g_ps)
+        if eps is not None:
+            g_args["eps"] = torch.zeros_like(eps)
         stats = SolveStats(steps=steps, accepted=accepted, nfe=steps * nfe_per + nfe_init)
         y0f = torch.cat([z0.reshape(-1), acc0.reshape(-1)])
         a_y0f = torch.cat([az0.reshape(-1), aaccT.reshape(-1)])
         return y0f, a_y0f, g_args, stats
 
-    return FullSolve(forward=forward, adjoint=adjoint if train else None)
+    return FullSolve(forward=forward, adjoint=adjoint if train and (not exact or exact_pm) else None)
 
 
 __all__ = [
@@ -743,7 +1064,13 @@ __all__ = [
     "run_solve_kernel",
     "run_train_solve_kernel",
     "run_adjoint_kernel",
+    "run_exact_solve_kernel",
+    "run_exact_adjoint_kernel",
     "solve_test_plain",
     "solve_train_plain",
+    "solve_train_exact_plain",
     "adjoint_train_plain",
+    "adjoint_train_exact_plain",
+    "exact_stage_consts",
+    "exact_pm_chain",
 ]

@@ -1,5 +1,6 @@
-"""The CUDA kernels (K3, K1, K2) against their plain PyTorch versions, on
-the card, and the configurations they do not cover.
+"""The CUDA kernels (K3, K1, K2, the K4 forward and adjoint) against their
+plain PyTorch versions, on the card, and the configurations they do not
+cover.
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a card
 (and without JAX, whose conftest this file does not need):
@@ -177,9 +178,10 @@ def _rel(got, ref):
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
-def _adjoint_twin64(spec, adj):
+def _twin64(twin, spec, adj):
+    """A plain adjoint twin run in float64."""
     to64 = lambda v: v.double() if torch.is_tensor(v) else [x.double() for x in v] if isinstance(v, list) else v
-    return tfs.adjoint_train_plain(TSIT5, spec, **{k: to64(v) for k, v in adj.items()})
+    return twin(TSIT5, spec, **{k: to64(v) for k, v in adj.items()})
 
 
 def _state_close(got, ref32, ref64):
@@ -205,7 +207,7 @@ def test_train_kernels_match_twins(dev, dims, B):
         adj.update(zT=zk, accT=ak, dt_init=-dk.abs())
         out_k = tfs.run_adjoint_kernel(TSIT5, spec, **adj)
         out_p = tfs.adjoint_train_plain(TSIT5, spec, **adj)
-        out_64 = _adjoint_twin64(spec, adj)
+        out_64 = _twin64(tfs.adjoint_train_plain, spec, adj)
     torch.cuda.synchronize()
     assert (tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches) == (n1 + 1, n2 + 1)
     assert (int(sk), int(ck)) == (int(sp), int(cp))
@@ -236,7 +238,7 @@ def test_train_kernel_edge_cases_match_twins(dev, case):
         adj.update(zT=zp, accT=ap, dt_init=torch.tensor(-0.05, device=dev))
         out_k = tfs.run_adjoint_kernel(TSIT5, spec, **adj)
         out_p = tfs.adjoint_train_plain(TSIT5, spec, **adj)
-        out_64 = _adjoint_twin64(spec, adj)
+        out_64 = _twin64(tfs.adjoint_train_plain, spec, adj)
     assert (int(sk), int(ck)) == (int(sp), int(cp))
     assert (int(out_k[5]), int(out_k[6])) == (int(out_p[5]), int(out_p[6]))
     if case == "cap":
@@ -289,7 +291,7 @@ def _small(fused=True, **kw):
 
 @pytest.mark.parametrize(
     "kernel",
-    ["K4-exact-trace", "K5-test-gradients", "K6-probes", "K6-jvp", "K7-three-layer", "K8-conditional",
+    ["K5-test-gradients", "K6-probes", "K6-jvp", "K7-three-layer", "K7-exact-chain", "K8-conditional",
      "K9-tableau", "K9-identity-layer", "K10-per-stage-field"],
 )
 def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
@@ -297,9 +299,31 @@ def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
     ps_np = _np_params((5, 15, 5), 6)
     xs = torch.from_numpy(np.random.default_rng(7).uniform(size=(8, 3)).astype(np.float32)).to(dev)
     before = (tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches)
-    if kernel in ("K4-exact-trace", "K6-jvp", "K8-conditional"):
+    if kernel == "K7-exact-chain":
+        # The exact trace of a 3-layer chain: the CPU runs its plain solve,
+        # the card raises in the K4 wrappers (no silent fallback).
+        dims = (5, 9, 7, 5)
+        icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(dims), 3, 2,
+                              compute_mode=tcnf.VecJacMode(fused=True, exact_trace=True))
+        assert tfs.make_full_solve(icnf, tcnf.Mode.TRAIN, 8).adjoint is None
+        n4 = (tfs.run_exact_solve_kernel.launches, tfs.run_exact_adjoint_kernel.launches)
+        ps = tcnf.params_from_numpy(_np_params(dims, 6), dev)
+        with pytest.raises(NotImplementedError, match=name), torch.no_grad():
+            tcnf.inference(icnf, tcnf.Mode.TRAIN, xs, ps, generator=torch.Generator(dev).manual_seed(0))
+        [x.requires_grad_() for p in ps for x in p.values()]
+        with pytest.raises(NotImplementedError, match=name):
+            tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, generator=torch.Generator(dev).manual_seed(0))
+        spec = tfs.chain_spec(icnf.nn, 5)
+        kw, adj = _exact_args(dims, 8, (0.0, 1.0), dev)
+        adj.update(zT=kw["z0"], accT=kw["acc0"], dt_init=torch.tensor(-0.05, device=dev))
+        with pytest.raises(NotImplementedError, match=name):
+            tfs.run_exact_solve_kernel(TSIT5, spec, **kw)
+        with pytest.raises(NotImplementedError, match=name):
+            tfs.run_exact_adjoint_kernel(TSIT5, spec, **adj)
+        assert (tfs.run_exact_solve_kernel.launches, tfs.run_exact_adjoint_kernel.launches) == n4
+        return
+    if kernel in ("K6-jvp", "K8-conditional"):
         icnf = {
-            "K4-exact-trace": lambda: _small(compute_mode=tcnf.VecJacMode(fused=True, exact_trace=True)),
             "K6-jvp": lambda: _small(compute_mode=tcnf.JacVecMode(fused=True)),
             "K8-conditional": lambda: tcnf.construct(
                 tcnf.CondRNODE, tcnf.MLP((7, 15, 5)), 3, 2, compute_mode=tcnf.VecJacMode(fused=True)
@@ -335,3 +359,123 @@ def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
     with pytest.raises(NotImplementedError, match=name):
         tfs.run_adjoint_kernel(tab, spec, **adj)
     assert (tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches) == before
+
+
+def _exact_args(dims, B, span, dev, seed=0):
+    """K4 forward inputs (nonzero accumulators) and the K4 adjoint inputs
+    built from them (no probes)."""
+    kw, adj = _train_args(dims, B, span, dev, seed)
+    kw.pop("eps")
+    adj.pop("eps")
+    return kw, adj
+
+
+@pytest.mark.parametrize(
+    "dims,B,span",
+    [
+        ((16, 48, 16), 37, (0.0, 13.0)),
+        ((16, 48, 16), 512, (0.0, 13.0)),
+        ((16, 48, 16), 4096, (0.0, 13.0)),
+        ((16, 48, 16), 256, (13.0, 0.0)),
+        ((5, 15, 5), 37, (0.0, 2.0)),
+        ((32, 64, 32), 64, (0.0, 3.0)),
+    ],
+    ids=["flagship-B37", "flagship-B512", "flagship-B4096", "flagship-reverse", "dz5-B37", "dz32-B64"],
+)
+def test_exact_kernels_match_twins(dev, dims, B, span):
+    """The K4 forward from nonzero accumulators and the K4 adjoint from its
+    output, warm-started from its last step, against their plain versions."""
+    spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
+    kw, adj = _exact_args(dims, B, span, dev)
+    n4 = (tfs.run_exact_solve_kernel.launches, tfs.run_exact_adjoint_kernel.launches)
+    with torch.no_grad():
+        zk, ak, sk, ck, dk = tfs.run_exact_solve_kernel(TSIT5, spec, **kw)
+        zp, ap, sp, cp, _ = tfs.solve_train_exact_plain(TSIT5, spec, **kw)
+        adj.update(zT=zk, accT=ak, dt_init=-torch.sign(kw["t1"] - kw["t0"]) * dk.abs())
+        out_k = tfs.run_exact_adjoint_kernel(TSIT5, spec, **adj)
+        out_p = tfs.adjoint_train_exact_plain(TSIT5, spec, **adj)
+        out_64 = _twin64(tfs.adjoint_train_exact_plain, spec, adj)
+    torch.cuda.synchronize()
+    assert (tfs.run_exact_solve_kernel.launches, tfs.run_exact_adjoint_kernel.launches) == (n4[0] + 1, n4[1] + 1)
+    assert (int(sk), int(ck)) == (int(sp), int(cp))
+    assert torch.isfinite(zk).all() and torch.isfinite(ak).all()
+    assert _close(zk, zp) and all(_close(ak[r], ap[r]) for r in range(3))
+    assert (int(out_k[5]), int(out_k[6])) == (int(out_p[5]), int(out_p[6]))
+    for i in range(3):  # z0, acc0, a_z0
+        assert _state_close(out_k[i], out_p[i], out_64[i])
+    for a, b in zip(out_k[3] + out_k[4], out_p[3] + out_p[4]):
+        assert torch.isfinite(a).all() and _grad_close(a, b)
+
+
+@pytest.mark.parametrize("case", ["cap", "empty-span", "single-sample"])
+def test_exact_kernel_edge_cases_match_twins(dev, case):
+    dims = (16, 48, 16)
+    spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
+    kw, adj = _exact_args(dims, 1 if case == "single-sample" else 64, (0.0, 13.0), dev)
+    if case == "cap":
+        kw["max_steps"] = adj["max_steps"] = 5
+    if case == "empty-span":
+        kw["t1"] = kw["t0"].clone()
+        adj["t_hi"] = adj["t_lo"].clone()
+    with torch.no_grad():
+        zk, ak, sk, ck, _ = tfs.run_exact_solve_kernel(TSIT5, spec, **kw)
+        zp, ap, sp, cp, _ = tfs.solve_train_exact_plain(TSIT5, spec, **kw)
+        adj.update(zT=zp, accT=ap, dt_init=torch.tensor(-0.05, device=dev))
+        out_k = tfs.run_exact_adjoint_kernel(TSIT5, spec, **adj)
+        out_p = tfs.adjoint_train_exact_plain(TSIT5, spec, **adj)
+        out_64 = _twin64(tfs.adjoint_train_exact_plain, spec, adj)
+    assert (int(sk), int(ck)) == (int(sp), int(cp))
+    if case == "single-sample":
+        # With one sample the norm is 13,888 gradient entries of one
+        # sample's products against 38 state entries, and the error
+        # estimate of g sits at roundoff: the twin takes 18 steps in float32
+        # and 16 in float64 (the kernel 20).  So the adjoint's counts are
+        # held to that spread and its results to the float64 twin.
+        spread = abs(int(out_p[5]) - int(out_64[5]))
+        assert abs(int(out_k[5]) - int(out_p[5])) <= 2 * max(spread, 1)
+        assert _close(zk, zp) and _close(ak, ap)
+        for a, b in zip(out_k[3] + out_k[4], out_64[3] + out_64[4]):
+            assert _grad_close(a.double(), b)
+        return
+    assert (int(out_k[5]), int(out_k[6])) == (int(out_p[5]), int(out_p[6]))
+    if case == "cap":
+        # As for K3: where a capped solve stops follows step sizes set by an
+        # eest at f32 roundoff level, so only the counts are compared.
+        assert int(sk) == 5 and int(out_k[5]) == 5
+        assert torch.isfinite(zk).all() and all(torch.isfinite(g).all() for g in out_k[3] + out_k[4])
+        return
+    assert _close(zk, zp) and _close(ak, ap)
+    assert all(_state_close(out_k[i], out_p[i], out_64[i]) for i in range(3))
+    for a, b in zip(out_k[3] + out_k[4], out_p[3] + out_p[4]):
+        assert _grad_close(a, b)
+    if case == "empty-span":
+        assert int(sk) == 0 and int(out_k[5]) == 0
+        assert torch.equal(zk, kw["z0"]) and torch.equal(ak, kw["acc0"])
+        assert all(float(g.abs().max()) == 0.0 for g in out_k[3] + out_k[4])
+
+
+def test_exact_train_step_on_the_card_matches_the_twins_on_the_cpu(dev):
+    """The exact fused TRAIN loss and gradient through the K4 forward and
+    adjoint against the same step on the CPU, where the fused path runs the
+    kernels' twins."""
+    dims = (16, 48, 16)
+    ps_np = _np_params(dims, 3)
+    xs = np.random.default_rng(4).uniform(size=(512, 8)).astype(np.float32)
+
+    def run(device):
+        icnf = tcnf.construct(
+            tcnf.RNODE, tcnf.MLP(dims, device=device), 8, 8, tspan=(0.0, 13.0), steer_rate=0.1,
+            lam3=1e-2, compute_mode=tcnf.VecJacMode(fused=True, exact_trace=True),
+        )
+        ps = tcnf.params_from_numpy(ps_np, device)
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        l, m = tcnf.loss_and_metrics(icnf, tcnf.Mode.TRAIN, xs, ps, steer_r=0.03)
+        return l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)], int(m["nfe"])
+
+    n4 = (tfs.run_exact_solve_kernel.launches, tfs.run_exact_adjoint_kernel.launches)
+    l_k, g_k, nfe_k = run(dev)
+    assert (tfs.run_exact_solve_kernel.launches, tfs.run_exact_adjoint_kernel.launches) == (n4[0] + 1, n4[1] + 1)
+    l_c, g_c, nfe_c = run(torch.device("cpu"))
+    assert nfe_k == nfe_c and _close(l_k, l_c)
+    for a, b in zip(g_k, g_c):
+        assert _grad_close(a, b)

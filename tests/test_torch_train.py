@@ -238,7 +238,7 @@ def test_train_draws_come_from_the_generator():
         ({"eps": np.zeros((2, B, 5), np.float32)}, ValueError, "eps must have shape"),
         ({"steer_r": 0.5}, ValueError, "steer_r"),
         ({"model": {"compute_mode": "jvp"}}, NotImplementedError, "item 14"),
-        ({"model": {"compute_mode": "exact"}}, NotImplementedError, "item 10"),
+        ({"model": {"compute_mode": "exact"}}, None, None),
         ({"model": {"x_jitter": 0.1}}, NotImplementedError, "item 14"),
         ({"model": {"aug_noise": 0.1}}, NotImplementedError, "item 14"),
         ({"model": {"aug_passive": True}}, NotImplementedError, "item 14"),
@@ -246,6 +246,8 @@ def test_train_draws_come_from_the_generator():
     ids=["eps-shape", "steer-range", "jvp", "exact-trace", "x-jitter", "aug-noise", "aug-passive"],
 )
 def test_train_inputs_are_validated(kw, err, match):
+    """Bad inputs raise, and configurations not ported yet raise naming
+    their ROADMAP item; exact trace (err None) runs."""
     mkw = dict(kw.pop("model", {}))
     cm = mkw.pop("compute_mode", None)
     if cm == "jvp":
@@ -254,6 +256,10 @@ def test_train_inputs_are_validated(kw, err, match):
         mkw["compute_mode"] = tcnf.VecJacMode(exact_trace=True)
     icnf = _model(tcnf, **mkw)
     xs = np.zeros((B, NVARS), np.float32)
+    if err is None:
+        lp, regs, _ = tcnf.inference(icnf, tcnf.Mode.TRAIN, xs, tcnf.params_from_numpy(_np_params(DIMS, 1)), **kw)
+        assert lp.shape == (B,) and torch.isfinite(lp).all() and torch.isfinite(regs.n).all()
+        return
     with pytest.raises(err, match=match):
         tcnf.inference(icnf, tcnf.Mode.TRAIN, xs, tcnf.params_from_numpy(_np_params(DIMS, 1)), **kw)
 
@@ -273,7 +279,8 @@ def test_train_inputs_are_validated(kw, err, match):
 )
 def test_train_eligibility(name, expect):
     """The fused TRAIN solve applies where the JAX package's does; what the
-    port has not reached raises, naming its kernel."""
+    port has not reached raises, naming its kernel.  Exact trace (K4) has
+    the backward member, as in the JAX package."""
     base = dict(nvars=3, naugmented=2)
     make = {
         "fused-off": lambda m: m.construct(m.RNODE, m.MLP(DIMS), **base),
@@ -290,7 +297,7 @@ def test_train_eligibility(name, expect):
     ref = jfs.make_full_solve(make(cnf), cnf.Mode.TRAIN, B)
     if expect is None:
         assert ref is None and tfs.make_full_solve(make(tcnf), tcnf.Mode.TRAIN, B) is None
-    elif expect == "adjoint":
+    elif expect in ("adjoint", "K4"):
         got = tfs.make_full_solve(make(tcnf), tcnf.Mode.TRAIN, B)
         assert ref is not None and got is not None and got.adjoint is not None
     else:
