@@ -5,10 +5,12 @@ Ported so far: density evaluation and sampling (`inference` and `generate`
 in TEST mode, `ICNFDist`) and training (TRAIN-mode `inference`, `loss`,
 `loss_and_metrics` differentiated by the BACKSOLVE adjoint, and `fit` with
 the Lion optimizer).  The whole adaptive solves of a 2-layer tanh MLP field
-run in hand-written CUDA kernels for the H100 (`ops/csrc/`): the TEST and
-TRAIN forward solves and the TRAIN adjoint solve.  The package imports torch
-and numpy, never jax; the kernels are built at first use on a machine with
-nvcc, never at import.
+and of deeper tanh chains run in hand-written CUDA kernels for the H100
+(`ops/csrc/`): the TEST and TRAIN forward solves and the TRAIN adjoint
+solve.  Entry points run on the CUDA card unless a device is named or set
+with `set_default_device`.  The package imports torch and numpy, never jax;
+the kernels are built at first use on a machine with nvcc, never at
+import.
 """
 
 from .types import (
@@ -27,6 +29,8 @@ from .types import (
     TestMode,
     TrainMode,
     VecJacMode,
+    resolve_device,
+    set_default_device,
 )
 from .core import (
     CALIBRATED_AUG_SIGMA,
@@ -59,6 +63,8 @@ __all__ = [
     "EpsDist",
     "JacVecMode",
     "VecJacMode",
+    "resolve_device",
+    "set_default_device",
     "DIVecJacMatrixMode",
     "DIJacVecMatrixMode",
     "DIVecJacVectorMode",

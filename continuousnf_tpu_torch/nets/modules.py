@@ -9,6 +9,8 @@ also has the functional form of the JAX package: `init(generator)` returns a
 fresh params tree, `apply(params, x)` runs the net on a given tree, and
 `load_params(params)` copies a tree into the module.  A Chain's params tree
 is a tuple of `{"w": (in, out), "b": (out,)}` dicts, one per layer.
+Parameters are made on `device`, by default the CUDA card
+(`types.resolve_device`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from ..types import resolve_device
 
 Params = Any
 
@@ -54,6 +58,7 @@ class Dense(nn.Module):
         self.b = nn.Parameter(p["b"]) if self.use_bias else None
 
     def init(self, generator=None, dtype=torch.float32, device=None) -> Params:
+        device = resolve_device(device)
         params = {"w": _glorot_uniform((self.in_dim, self.out_dim), generator, dtype, device)}
         if self.use_bias:
             params["b"] = torch.zeros((self.out_dim,), dtype=dtype, device=device)
@@ -89,6 +94,7 @@ class Chain(nn.Module):
         self.out_dim = getattr(self.layers[-1], "out_dim", None) if len(self.layers) else None
 
     def init(self, generator=None, dtype=torch.float32, device=None) -> Params:
+        device = resolve_device(device)
         return tuple(layer.init(generator, dtype, device) for layer in self.layers)
 
     def params(self) -> Params:
@@ -131,8 +137,9 @@ def MLP(
 def params_from_numpy(ps_np: Params, device=None) -> Params:
     """Turn a params tree of numpy arrays (e.g. the JAX package's params after
     `jax.tree.map(np.asarray, ps)`) into the same tree of torch tensors on
-    `device`.  Tuples, lists and dicts keep their structure and keys; dtypes
-    are kept."""
+    `device` (None: `types.resolve_device`).  Tuples, lists and dicts keep
+    their structure and keys; dtypes are kept."""
+    device = resolve_device(device)
     if isinstance(ps_np, dict):
         return {k: params_from_numpy(v, device) for k, v in ps_np.items()}
     if isinstance(ps_np, (tuple, list)):

@@ -294,8 +294,8 @@ def odeint_with_stats(
     `full_solve`, when given, replaces the adaptive forward solve on the flat
     state (`full_solve.forward(y0f, t0, t1, args) -> (yTf, stats)`, the
     solve-in-kernel path) and, under BACKSOLVE, the backward integration
-    (`full_solve.adjoint`, when not None).  The DIRECT and fixed-step paths
-    ignore it, as in the JAX package.
+    (`full_solve.adjoint`; when it is None the plain backward runs).  The
+    DIRECT and fixed-step paths ignore it, as in the JAX package.
     """
     if getattr(opts, "tstops", None):
         raise NotImplementedError("tstops are not ported yet (ROADMAP queue 1, item 15)")
@@ -307,17 +307,6 @@ def odeint_with_stats(
         return _ravel(func(t, unravel(yf), args_))[0]
 
     if opts.adjoint == Adjoint.BACKSOLVE and opts.fixed_num_steps is None:
-        if (
-            full_solve is not None
-            and full_solve.adjoint is None
-            and y0f.device.type == "cuda"
-            and needs_grad(y0f, t0, t1, args)
-        ):
-            raise NotImplementedError(
-                "gradients through this fused solve need a backward kernel that is not ported: "
-                "the TEST stage's (K5) or the exact trace of N != 2-layer chains' (K7), ROADMAP "
-                "queue 2; use fused=False for these gradients on the card"
-            )
         from .adjoint import odeint_backsolve_flat
 
         yf, stats = odeint_backsolve_flat(func_flat, opts, y0f, t0, t1, args, full_solve)

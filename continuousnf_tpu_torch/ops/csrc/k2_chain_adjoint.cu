@@ -1,0 +1,389 @@
+// The K2 chain form: the continuous-adjoint (backsolve) backward integration
+// of a TRAIN-mode CNF whose field is a Dense tanh chain of 2 to 4 layers with
+// one Hutchinson probe (reverse mode), the whole adaptive tsit5 solve from
+// t_hi down to t_lo in one cooperative launch.
+//
+// Replaces the TPU kernel built by continuousnf_tpu/ops/fused_solve.py::
+// _make_adjoint_kernel (:1064-1343), launched by make_full_solve.adjoint_solve
+// (pl.pallas_call at :1767), with the N-layer _stage_train_fwdbwd
+// (:372-481).  The state is, per sample, z (dz), acc (3), a_z (dz) and the
+// constant a_acc (3), plus the batch-summed parameter gradient g_p
+// (P = sum_i in_i out_i + out_i floats; 4,998 at the tabular power6 width
+// 6 -> 64 -> 64 -> 6).  Per sample and stage, the forward pass, the probe
+// pullback (keeping the cotangents u_l and the gated v_l), and the
+// hand-derived VJP against (a_z, a_acc):
+//   ascending the pullback chain, for layer i: ct_v = pu_i W_i,
+//     pu_(i+1) = ct_v (1 - h_(i+1)^2), ct_h(i+1) = -2 h_(i+1) (ct_v u_(i+1));
+//   down the forward chain: ca_i = (ca_(i+1) W_(i+1)^T + ct_h(i+1)) (.) tanh',
+//     ct_z = ca_0 W_0^T;
+//   per-sample gradient of W_i: pu_i (x) v_i + h_i (x) ca_i, of b_i: ca_i.
+// The probes are Monte-Carlo constants: no eps cotangent is integrated.
+//
+// Controller: K2's (adjoint_solve of solve_common.cuh, shared with K2 and the
+// K4 adjoint): one batch-global Hairer norm over B * 2 * (dz + 3) + P
+// elements, g_p scaled by atol + rtol * max(|g_p|, |g_p_new|); per attempted
+// step each block adds its samples' b- and btilde-weighted g_p rates into
+// parity-indexed global partials, one grid.sync(), and every block sums all
+// blocks' partials in block order.  The TPU package runs two batch tiles of
+// 2048 at power6, B = 4096, each with its own controller; the port keeps the
+// single-tile numerics, as for K2 and the K4 adjoint.
+//
+// Memory plan.  A sample's residuals (the activations, pu, v, u then ct_h,
+// and ca of every level: 4 DZ + 5 sum(hidden) floats, 673 at power6) live in
+// the thread's shared-memory slot; at 128 threads that is 345 KB, over the
+// 227 KB a block may use, so the wrapper takes the largest of 128, 64 and 32
+// threads that fits (64 at power6: 172 KB of slots and 37 KB of weights).
+// g_p, its proposal and the block's FSAL and last-stage partials (4 P floats
+// a block) live in block-owned global buffers (the K4 adjoint's layout:
+// L2-resident), which leaves shared memory to the slots.
+//
+// What bounds it on the H100: latency.  A stage is about 29 k FMA per sample
+// at power6 on one thread per sample (the forward pass, the pullback, its
+// VJP and the forward chain's VJP: six passes of about 4.9 k), plus the
+// block's outer-product pass (2 FMA per sample and gradient entry, 10 k per
+// thread at 64 threads), plus one barrier and the all-blocks partials read
+// (2 P G floats) per attempted step.
+// Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+
+#include "chain_common.cuh"
+
+namespace {
+
+using cnf::axpy4;
+using cnf::ChainLayout;
+using cnf::ct_safe_norm;
+using cnf::dot4;
+using cnf::kMaxBlock;
+using cnf::kMaxLayers;
+using cnf::kRedFloats;
+using cnf::safe_norm_sq;
+
+// Offsets in a thread's slot: four dz-vectors (z, pu_0, and v and ca of the
+// last layer), then five hidden blocks (activations h, pullback cotangents
+// pu, gated cotangents v, u then ct_h, and ca), and for each layer where the
+// gradient pass reads its four vectors.
+struct Slot {
+  int z, pu0, vl, cal, hs, pu, v, u, ca, size;
+  int gin[kMaxLayers], gpu[kMaxLayers], gv[kMaxLayers], gca[kMaxLayers];
+};
+
+template <int DZ>
+Slot make_slot(const ChainLayout& L) {
+  Slot m{};
+  m.z = 0;
+  m.pu0 = DZ;
+  m.vl = 2 * DZ;
+  m.cal = 3 * DZ;
+  m.hs = 4 * DZ;
+  m.pu = m.hs + L.hsum;
+  m.v = m.pu + L.hsum;
+  m.u = m.v + L.hsum;
+  m.ca = m.u + L.hsum;
+  m.size = (m.ca + L.hsum) | 1;
+  for (int i = 0; i < L.n; ++i) {
+    m.gin[i] = i == 0 ? m.z : m.hs + L.hofs[i];
+    m.gpu[i] = i == 0 ? m.pu0 : m.pu + L.hofs[i];
+    m.gv[i] = i == L.n - 1 ? m.vl : m.v + L.hofs[i + 1];
+    m.gca[i] = i == L.n - 1 ? m.cal : m.ca + L.hofs[i + 1];
+  }
+  return m;
+}
+
+struct AdjArgs {
+  cnf::AdjState s;
+  ChainLayout L;
+  Slot m;
+  const float* params;  // [W0 | b0 | W1 | b1 | ...]
+  const float* eps;     // (B, dz) Hutchinson probe
+  float* g;             // (P) the gradient, laid out as params
+  float* gblk;          // [gridDim.x][4 P]: each block's g, g_new, FSAL and last-stage partials
+  int norm_z, norm_j;
+};
+
+// One augmented stage of one sample (fused_solve.py::_stage_train_fwdbwd with
+// ct_y = a_z, ct_r = a_acc): the field y and rates kr, k_az = -ct_z, and the
+// residuals of the outer-product pass left in the slot `sl`.
+template <int DZ>
+__device__ void chain_adjoint_stage(const ChainLayout& L, const Slot& m, const float* w, float* sl, int norm_z,
+                                    int norm_j, const float (&z)[DZ], const float (&az)[DZ],
+                                    const float (&e)[DZ], const float (&aacc)[3], float (&kz)[DZ],
+                                    float (&kr)[3], float (&kaz)[DZ]) {
+  const int n = L.n;
+  float* HS = sl + m.hs;
+  float* PU = sl + m.pu;
+  float* V = sl + m.v;
+  float* U = sl + m.u;
+  float* CA = sl + m.ca;
+  const float* w0 = w + L.wofs[0];
+  const float* wl = w + L.wofs[n - 1];
+  const int hl = L.hofs[n - 1], wlast = L.width[n - 1];
+
+  // Forward.
+  float y[DZ];
+  cnf::chain_forward<DZ>(L, w, z, HS, y);
+  float vl[DZ], ysq = 0.f;
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) {
+    ysq = fmaf(y[k], y[k], ysq);
+    vl[k] = e[k] * (1.f - y[k] * y[k]);
+    sl[m.z + k] = z[k];
+    sl[m.vl + k] = vl[k];
+  }
+  // The pullback, keeping u_l (U) and v_l (V) of every hidden level.
+  for (int k = 0; k < wlast; ++k) {
+    const float uk = dot4<DZ>(vl, wl + k * DZ), h = HS[hl + k];
+    U[hl + k] = uk;
+    V[hl + k] = uk * (1.f - h * h);
+  }
+  for (int i = n - 2; i >= 1; --i) {
+    float* u = U + L.hofs[i];
+    float* v = V + L.hofs[i];
+    const float* h = HS + L.hofs[i];
+    cnf::mv_cols(V + L.hofs[i + 1], L.width[i + 1], w + L.tofs[i], L.tpitch[i], nullptr, L.width[i],
+                 [&](int k, float a) {
+                   u[k] = a;
+                   v[k] = a * (1.f - h[k] * h[k]);
+                 });
+  }
+  float eJ[DZ];
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) eJ[i] = 0.f;
+  for (int o = 0; o < L.width[1]; ++o) axpy4<DZ>(eJ, V[L.hofs[1] + o], w0 + o * DZ);
+  float tr = 0.f, nsq = 0.f;
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) {
+    tr = fmaf(eJ[i], e[i], tr);
+    nsq = fmaf(eJ[i], eJ[i], nsq);
+  }
+  const float e_rate = safe_norm_sq(ysq), n_rate = safe_norm_sq(nsq);
+  kr[0] = -tr;
+  kr[1] = norm_z ? e_rate : 0.f;
+  kr[2] = norm_j ? n_rate : 0.f;
+
+  // Backward.  Rates row 0 is -tr: ct_tr = -a_acc[0].
+  const float ct_tr = -aacc[0];
+  const float fz = norm_z ? ct_safe_norm(aacc[1], e_rate) : 0.f;
+  const float fn = norm_j ? ct_safe_norm(aacc[2], n_rate) : 0.f;
+  float cu[DZ];
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) {
+    cu[i] = fmaf(eJ[i], fn, e[i] * ct_tr);
+    sl[m.pu0 + i] = cu[i];
+  }
+  // Up the pullback chain: ct_v = pu_i W_i, pu_(i+1) = ct_v (1 - h^2) and
+  // ct_h = -2 h (ct_v u) over u in place.
+  {
+    float* pu = PU + L.hofs[1];
+    float* u = U + L.hofs[1];
+    const float* h = HS + L.hofs[1];
+    for (int o = 0; o < L.width[1]; ++o) {
+      const float cv = dot4<DZ>(cu, w0 + o * DZ), hh = h[o];
+      pu[o] = cv * (1.f - hh * hh);
+      u[o] = (-2.f * hh) * (cv * u[o]);
+    }
+  }
+  for (int i = 1; i < n - 1; ++i) {
+    float* pu = PU + L.hofs[i + 1];
+    float* u = U + L.hofs[i + 1];
+    const float* h = HS + L.hofs[i + 1];
+    cnf::mv_cols(PU + L.hofs[i], L.width[i], w + L.wofs[i], L.pitch[i], nullptr, L.width[i + 1],
+                 [&](int o, float cv) {
+                   const float hh = h[o];
+                   pu[o] = cv * (1.f - hh * hh);
+                   u[o] = (-2.f * hh) * (cv * u[o]);
+                 });
+  }
+  float cv[DZ];
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) cv[k] = 0.f;
+  for (int k = 0; k < wlast; ++k) axpy4<DZ>(cv, PU[hl + k], wl + k * DZ);
+  // The output layer: ct_h = a_z + y fz - 2 y (ct_v eps), ca = ct_h (1 - y^2).
+  float cal[DZ];
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) {
+    const float ct_h = fmaf(y[k], fz, az[k]) + (-2.f * y[k]) * (cv[k] * e[k]);
+    cal[k] = ct_h * (1.f - y[k] * y[k]);
+    sl[m.cal + k] = cal[k];
+    kz[k] = y[k];
+  }
+  // Down the forward chain: ca of the level below = (ca W^T + ct_h) (1 - h^2).
+  for (int k = 0; k < wlast; ++k) {
+    const float h = HS[hl + k];
+    CA[hl + k] = (dot4<DZ>(cal, wl + k * DZ) + U[hl + k]) * (1.f - h * h);
+  }
+  for (int i = n - 2; i >= 1; --i) {
+    float* ca = CA + L.hofs[i];
+    const float* u = U + L.hofs[i];
+    const float* h = HS + L.hofs[i];
+    cnf::mv_cols(CA + L.hofs[i + 1], L.width[i + 1], w + L.tofs[i], L.tpitch[i], nullptr, L.width[i],
+                 [&](int k, float a) { ca[k] = (a + u[k]) * (1.f - h[k] * h[k]); });
+  }
+  float cz[DZ];
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) cz[i] = 0.f;
+  for (int o = 0; o < L.width[1]; ++o) axpy4<DZ>(cz, CA[L.hofs[1] + o], w0 + o * DZ);
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) kaz[i] = -cz[i];
+}
+
+// The block's sum over its first `nvalid` samples (thread order) of the
+// negated gradient rate of the stage just evaluated, entry q of the flat
+// [W0 | b0 | W1 | b1 | ...].
+__device__ __forceinline__ float block_grad_entry(const ChainLayout& L, const Slot& m, const float* slots, int q,
+                                                  int nvalid) {
+  int i = 0;
+  while (i + 1 < L.n && q >= L.pofs[i + 1]) ++i;
+  const int in = L.width[i], out = L.width[i + 1];
+  const int r = q - L.pofs[i];
+  float v = 0.f;
+  if (r < in * out) {
+    const int k = r / out, o = r % out;
+    const int a = m.gpu[i] + k, b = m.gv[i] + o, c = m.gin[i] + k, d = m.gca[i] + o;
+    for (int t = 0; t < nvalid; ++t) {
+      const float* sl = slots + t * m.size;
+      v = fmaf(sl[a], sl[b], v);
+      v = fmaf(sl[c], sl[d], v);
+    }
+  } else {
+    const int d = m.gca[i] + (r - in * out);
+    for (int t = 0; t < nvalid; ++t) v += slots[t * m.size + d];
+  }
+  return -v;
+}
+
+// The stage and gradient callbacks of cnf::adjoint_solve.
+template <int DZ>
+struct ChainStage {
+  const ChainLayout* L;
+  const Slot* m;
+  const float* w;
+  const float* eps;  // (B, dz)
+  float* sl;         // this thread's slot
+  int dz, norm_z, norm_j;
+  __device__ void operator()(int s, const float (&z)[DZ], const float (&az)[DZ], const float (&aacc)[3],
+                             float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ]) const {
+    float e[DZ];
+#pragma unroll
+    for (int i = 0; i < DZ; ++i) e[i] = i < dz ? eps[(size_t)s * dz + i] : 0.f;
+    chain_adjoint_stage<DZ>(*L, *m, w, sl, norm_z, norm_j, z, az, e, aacc, kz, kr, kaz);
+  }
+};
+
+struct ChainGrad {
+  const ChainLayout* L;
+  const Slot* m;
+  const float* slots;
+  __device__ float operator()(int q, int, int nvalid) const { return block_grad_entry(*L, *m, slots, q, nvalid); }
+};
+
+template <int DZ>
+__global__ void __launch_bounds__(kMaxBlock) k2_chain_adjoint(const AdjArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ ChainLayout L;
+  __shared__ Slot m;
+  if (threadIdx.x == 0) m = p.m;
+  cnf::share_layout(p.L, &L);
+  const int P = L.P;
+  float* w = smem;
+  float* red = w + L.wfloats;
+  float* slots = red + kRedFloats;
+  cnf::load_chain_weights<DZ>(p.params, L, w);
+  __syncthreads();
+  // This block's g (the same in every block), proposed g, FSAL stage rate and
+  // last-stage rate, in global memory.
+  float* gp = p.gblk + (size_t)blockIdx.x * 4 * P;
+  const ChainStage<DZ> stage{&L, &m, w, p.eps, slots + threadIdx.x * m.size, p.s.dz, p.norm_z, p.norm_j};
+  const ChainGrad grad{&L, &m, slots};
+  cnf::adjoint_solve<DZ>(p.s, stage, grad, P, gp, gp + P, gp + 2 * P, gp + 3 * P, red);
+  if (blockIdx.x == 0)
+    for (int q = threadIdx.x; q < P; q += blockDim.x) p.g[q] = gp[q];
+}
+
+size_t smem_bytes(const ChainLayout& L, const Slot& m, int block) {
+  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + (size_t)block * m.size);
+}
+
+template <int DZ>
+bool layout(int n, const int* widths, ChainLayout* L, Slot* m) {
+  if (!cnf::make_chain_layout<DZ>(n, widths, L)) return false;
+  *m = make_slot<DZ>(*L);
+  return true;
+}
+
+template <int DZ>
+long long smem_of(int n, const int* widths, int block) {
+  ChainLayout L;
+  Slot m;
+  return layout<DZ>(n, widths, &L, &m) ? (long long)smem_bytes(L, m, block) : 0;
+}
+
+template <int DZ>
+int max_grid(int n, const int* widths, int block, int* out) {
+  ChainLayout L;
+  Slot m;
+  *out = 0;
+  if (!layout<DZ>(n, widths, &L, &m)) return (int)cudaErrorInvalidValue;
+  return (int)cnf::coop_max_grid(k2_chain_adjoint<DZ>, smem_bytes(L, m, block), block, out);
+}
+
+template <int DZ>
+int launch(AdjArgs a, int n, const int* widths, int grid, int block, cudaStream_t s) {
+  if (!layout<DZ>(n, widths, &a.L, &a.m)) return (int)cudaErrorInvalidValue;
+  return (int)cnf::coop_launch(k2_chain_adjoint<DZ>, a, grid, block, smem_bytes(a.L, a.m, block), s);
+}
+
+}  // namespace
+
+// Dynamic shared memory of one block (bytes), 0 for a chain not covered.
+extern "C" long long cnf_k2c_smem_bytes(int n, const int* widths, int block) {
+  switch (cnf::chain_dz(n, widths)) {
+    case 4: return smem_of<4>(n, widths, block);
+    case 8: return smem_of<8>(n, widths, block);
+    case 16: return smem_of<16>(n, widths, block);
+    case 32: return smem_of<32>(n, widths, block);
+    default: return 0;
+  }
+}
+
+// Largest co-resident grid for a cooperative launch (0 if none).  widths:
+// n + 1 level widths (host memory).
+extern "C" int cnf_k2c_max_grid(int n, const int* widths, int block, int* out) {
+  switch (cnf::chain_dz(n, widths)) {
+    case 4: return max_grid<4>(n, widths, block, out);
+    case 8: return max_grid<8>(n, widths, block, out);
+    case 16: return max_grid<16>(n, widths, block, out);
+    case 32: return max_grid<32>(n, widths, block, out);
+    default: *out = 0; return (int)cudaErrorInvalidValue;
+  }
+}
+
+// params/g: [W0 | b0 | ...] flat (device); eps, zT, azT, z0, az0: (B, dz);
+// accT/aaccT/acc0: (3, B).  gpart: 2 * grid * 2 P floats, gblk: grid * 4 P.
+// tab: a (kStages x kStages, row-major), b, btilde.  Returns the launch's
+// cudaError_t.
+extern "C" int cnf_k2c_train_adjoint(const float* params, const float* eps, const float* zT, const float* accT,
+                                     const float* azT, const float* aaccT, const float* ts, float* z0,
+                                     float* acc0, float* az0, float* g, int* stats, float* work, float* partials,
+                                     float* gpart, float* gblk, int B, int n, const int* widths, int max_steps,
+                                     int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
+                                     float inv_order, const float* tab, int grid, int block, void* stream) {
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  AdjArgs a = {};
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, gpart, B,
+                     widths[0], max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.params = params;
+  a.eps = eps;
+  a.g = g;
+  a.gblk = gblk;
+  a.norm_z = norm_z;
+  a.norm_j = norm_j;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cnf::chain_dz(n, widths)) {
+    case 4: return launch<4>(a, n, widths, grid, block, s);
+    case 8: return launch<8>(a, n, widths, grid, block, s);
+    case 16: return launch<16>(a, n, widths, grid, block, s);
+    case 32: return launch<32>(a, n, widths, grid, block, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

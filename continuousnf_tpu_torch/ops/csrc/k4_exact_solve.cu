@@ -146,14 +146,10 @@ extern "C" int cnf_k4_exact_solve(const float* w1, const float* b1, const float*
                                   const float* tab, int grid, int block, void* stream) {
   if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1)
     return (int)cudaErrorInvalidValue;
-  FwdArgs a = {};
-  a.w1 = w1; a.b1 = b1; a.w2 = w2; a.b2 = b2; a.eps = nullptr;
-  a.z0 = z0; a.acc0 = acc0; a.ts = ts;
-  a.zT = zT; a.accT = accT; a.stats = stats; a.dt_last = dt_last;
-  a.work = work; a.partials = partials;
-  a.B = B; a.dz = dz; a.H = H; a.max_steps = max_steps; a.norm_z = norm_z; a.norm_j = norm_j;
-  a.rtol = rtol; a.atol = atol; a.beta1 = beta1; a.beta2 = beta2; a.inv_order = inv_order;
-  cnf::read_tableau(tab, &a.tab);
+  FwdArgs a;
+  cnf::set_fwd_args(&a, nullptr, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, dz,
+                    max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
+  a.w1 = w1; a.b1 = b1; a.w2 = w2; a.b2 = b2; a.H = H;
   cudaStream_t s = (cudaStream_t)stream;
   switch (cnf::padded_dz(dz)) {
     case 4: return (int)cnf::coop_launch(k4_exact_solve<4>, a, grid, block, smem_bytes<4>(H, block), s);

@@ -1,0 +1,232 @@
+// K7: the forward solves of a CNF whose field is a Dense tanh chain of 2 to 4
+// layers with the exact trace by basis propagation, the whole adaptive tsit5
+// solve in one cooperative launch.  Two entry points:
+//   * TEST: the state [z | dlogp], rate -tr J (one accumulator row);
+//   * exact TRAIN: [z | dlogp | reg_e | reg_n], rates -tr J, ||y|| (norm_z)
+//     and ||J||_F (norm_j) (three rows).
+//
+// Replaces the TPU kernel continuousnf_tpu/ops/fused_solve.py::_run_solve_kernel
+// (pl.pallas_call at :1043) built by _make_solve_kernel (:773-942) with
+// _stage_test -> _stage_exact_chain (:484-493, :678-719; want_fro=False) and
+// with _stage_train_exact_chain (:722-728).  As in the JAX package these are
+// forward-only: a deep exact chain's gradient runs the plain BACKSOLVE.
+//
+// Per sample and field evaluation: the forward pass (chain_forward of
+// chain_common.cuh), each hidden level's activation h replaced by its tanh'
+// d = 1 - h^2, then for each basis column j < dz one column of J pushed
+// through the linearised layers:
+//   t_1 = d_1 (.) W_0[j, :],  t_(l+1) = d_(l+1) (.) (t_l W_l),
+//   t_N = dy (.) (t_(N-1) W_(N-1)),
+// tr += t_N[j] and ||J||_F^2 += |t_N|^2.  TEST needs only t_N[j] but
+// computes the whole row t_N all the same: as DZ independent FMA chains fed
+// by float4 weight reads it runs faster here than the one dependent chain of
+// H_(N-1) FMAs that column j alone is (with one warp per scheduler nothing
+// hides that chain's latency; PERF.md, Findings).  The JAX kernel folds the
+// basis next to the batch as an (out, dz, B) block; the sums are the same,
+// taken in another order.  The accumulators are seeded from the input; the
+// controller is forward_solve's (one Hairer norm over the whole state per
+// attempted step, one grid barrier).
+//
+// What bounds it on the H100: latency.  At the tabular power6 width
+// (6 -> 64 -> 64 -> 6) a field evaluation is the forward pass (4.9 k FMA)
+// plus dz columns of 4.5 k FMA each, about 32 k FMA per sample on one
+// thread per sample (TEST needs 30 k of them); a stage at B = 4096 is
+// 0.26 GFLOP, about 4 us of the card's f32 rate.  The time goes to the
+// per-thread chain of FMAs and shared-memory reads (mv_cols reads each t
+// entry once per 8 outputs) and to the barrier.  The thread's slot holds the
+// d vectors (one hidden block) and two hidden-width columns for t: 256
+// floats a sample at power6.
+// Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+
+#include "chain_common.cuh"
+
+namespace {
+
+using cnf::ChainLayout;
+using cnf::kMaxBlock;
+using cnf::kRedFloats;
+using cnf::safe_norm_sq;
+
+struct Args {
+  cnf::FwdArgs f;
+  ChainLayout L;
+  const float* params;  // [W0 | b0 | W1 | b1 | ...]
+};
+
+__host__ __device__ inline int slot_floats(const ChainLayout& L) { return (L.hsum + 2 * L.hmax) | 1; }
+
+// The exact field of one sample: ky = y; kr = [-tr] (NACC = 1) or
+// [-tr, ||y||, ||J||_F] (NACC = 3).
+template <int DZ, int NACC>
+struct ChainExactField {
+  const ChainLayout* L;
+  const float* w;  // the shared weight region
+  float* sl;       // this thread's slot: d (a hidden block), then t columns
+  int dz, norm_z, norm_j;
+
+  __device__ __forceinline__ void operator()(int, const float (&z)[DZ], float (&ky)[DZ],
+                                             float (&kr)[NACC]) const {
+    const ChainLayout& c = *L;
+    const int n = c.n;
+    float y[DZ];
+    cnf::chain_forward<DZ>(c, w, z, sl, y);
+    for (int q = 0; q < c.hsum; ++q) {
+      const float h = sl[q];
+      sl[q] = 1.f - h * h;
+    }
+    float dy[DZ], ysq = 0.f;
+#pragma unroll
+    for (int k = 0; k < DZ; ++k) {
+      ky[k] = y[k];
+      ysq = fmaf(y[k], y[k], ysq);
+      dy[k] = 1.f - y[k] * y[k];
+    }
+    float* ta = sl + c.hsum;
+    float* tb = ta + c.hmax;
+    const float* w0 = w + c.wofs[0];
+    const float* wl = w + c.wofs[n - 1];
+    const float* d1 = sl + c.hofs[1];
+    float tr = 0.f, fro2 = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < dz; ++j) {
+      for (int o = 0; o < c.width[1]; ++o) ta[o] = d1[o] * w0[o * DZ + j];
+      float* cur = ta;
+      float* nxt = tb;
+      for (int i = 1; i < n - 1; ++i) {
+        const float* d = sl + c.hofs[i + 1];
+        float* dst = nxt;
+        cnf::mv_cols(cur, c.width[i], w + c.wofs[i], c.pitch[i], nullptr, c.width[i + 1],
+                     [&](int o, float a) { dst[o] = a * d[o]; });
+        nxt = cur;
+        cur = dst;
+      }
+      float t[DZ];
+#pragma unroll
+      for (int i = 0; i < DZ; ++i) t[i] = 0.f;
+      for (int k = 0; k < c.width[n - 1]; ++k) cnf::axpy4<DZ>(t, cur[k], wl + k * DZ);
+#pragma unroll
+      for (int i = 0; i < DZ; ++i) {
+        const float ti = t[i] * dy[i];
+        if (i == j) tr += ti;
+        fro2 = fmaf(ti, ti, fro2);
+      }
+    }
+    kr[0] = -tr;
+    if constexpr (NACC == 3) {
+      kr[1] = norm_z ? safe_norm_sq(ysq) : 0.f;
+      kr[2] = norm_j ? safe_norm_sq(fro2) : 0.f;
+    }
+  }
+};
+
+template <int DZ, int NACC>
+__global__ void __launch_bounds__(kMaxBlock) k7_chain_solve(const Args p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ ChainLayout L;
+  cnf::share_layout(p.L, &L);
+  float* w = smem;
+  float* red = w + L.wfloats;
+  float* slots = red + kRedFloats;
+  cnf::load_chain_weights<DZ>(p.params, L, w);
+  __syncthreads();
+  const ChainExactField<DZ, NACC> field{&L, w, slots + threadIdx.x * slot_floats(L), p.f.dz, p.f.norm_z,
+                                        p.f.norm_j};
+  cnf::forward_solve<DZ, NACC>(p.f, field, red);
+}
+
+size_t smem_bytes(const ChainLayout& L, int block) {
+  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + (size_t)block * slot_floats(L));
+}
+
+template <int DZ, int NACC>
+int max_grid(int n, const int* widths, int block, int* out) {
+  ChainLayout L;
+  *out = 0;
+  if (!cnf::make_chain_layout<DZ>(n, widths, &L)) return (int)cudaErrorInvalidValue;
+  return (int)cnf::coop_max_grid(k7_chain_solve<DZ, NACC>, smem_bytes(L, block), block, out);
+}
+
+template <int DZ, int NACC>
+int launch(Args a, int n, const int* widths, int grid, int block, cudaStream_t s) {
+  if (!cnf::make_chain_layout<DZ>(n, widths, &a.L)) return (int)cudaErrorInvalidValue;
+  return (int)cnf::coop_launch(k7_chain_solve<DZ, NACC>, a, grid, block, smem_bytes(a.L, block), s);
+}
+
+template <int NACC>
+int max_grid_any(int n, const int* widths, int block, int* out) {
+  switch (cnf::chain_dz(n, widths)) {
+    case 4: return max_grid<4, NACC>(n, widths, block, out);
+    case 8: return max_grid<8, NACC>(n, widths, block, out);
+    case 16: return max_grid<16, NACC>(n, widths, block, out);
+    case 32: return max_grid<32, NACC>(n, widths, block, out);
+    default: *out = 0; return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int NACC>
+int solve(const float* params, const float* z0, const float* acc0, const float* ts, float* zT, float* accT,
+          int* stats, float* dt_last, float* work, float* partials, int B, int n, const int* widths,
+          int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
+          float inv_order, const float* tab, int grid, int block, void* stream) {
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  Args a = {};
+  cnf::set_fwd_args(&a.f, nullptr, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[0],
+                    max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
+  a.params = params;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cnf::chain_dz(n, widths)) {
+    case 4: return launch<4, NACC>(a, n, widths, grid, block, s);
+    case 8: return launch<8, NACC>(a, n, widths, grid, block, s);
+    case 16: return launch<16, NACC>(a, n, widths, grid, block, s);
+    case 32: return launch<32, NACC>(a, n, widths, grid, block, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Dynamic shared memory of one block (bytes, either entry point), 0 for a
+// chain not covered.
+extern "C" long long cnf_k7_smem_bytes(int n, const int* widths, int block) {
+  ChainLayout L;
+  switch (cnf::chain_dz(n, widths)) {
+    case 4: return cnf::make_chain_layout<4>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
+    case 8: return cnf::make_chain_layout<8>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
+    case 16: return cnf::make_chain_layout<16>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
+    case 32: return cnf::make_chain_layout<32>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
+    default: return 0;
+  }
+}
+
+// Largest co-resident grid for a cooperative launch of the TEST or the exact
+// TRAIN entry point (0 if none).  widths: n + 1 level widths (host memory).
+extern "C" int cnf_k7_test_max_grid(int n, const int* widths, int block, int* out) {
+  return max_grid_any<1>(n, widths, block, out);
+}
+
+extern "C" int cnf_k7_exact_max_grid(int n, const int* widths, int block, int* out) {
+  return max_grid_any<3>(n, widths, block, out);
+}
+
+// TEST: params [W0 | b0 | ...] flat (device), z0 (B, dz), dlogp0/dlogpT (B).
+// Returns the launch's cudaError_t.
+extern "C" int cnf_k7_test_solve(const float* params, const float* z0, const float* dlogp0, const float* ts,
+                                 float* zT, float* dlogpT, int* stats, float* dt_last, float* work,
+                                 float* partials, int B, int n, const int* widths, int max_steps, float rtol,
+                                 float atol, float beta1, float beta2, float inv_order, const float* tab,
+                                 int grid, int block, void* stream) {
+  return solve<1>(params, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, B, n, widths, max_steps,
+                  0, 0, rtol, atol, beta1, beta2, inv_order, tab, grid, block, stream);
+}
+
+// Exact TRAIN: acc0/accT (3, B), rows [dlogp | reg_e | reg_n].  Returns the
+// launch's cudaError_t.
+extern "C" int cnf_k7_exact_solve(const float* params, const float* z0, const float* acc0, const float* ts,
+                                  float* zT, float* accT, int* stats, float* dt_last, float* work,
+                                  float* partials, int B, int n, const int* widths, int max_steps, int norm_z,
+                                  int norm_j, float rtol, float atol, float beta1, float beta2, float inv_order,
+                                  const float* tab, int grid, int block, void* stream) {
+  return solve<3>(params, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths, max_steps,
+                  norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab, grid, block, stream);
+}

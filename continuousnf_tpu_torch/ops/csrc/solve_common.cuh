@@ -1,10 +1,11 @@
-// Shared pieces of the solve kernels (K3, K1, K2, K4): the tsit5 tableau, the
-// PI step-size controller, the fixed-order block and grid reductions that
-// give every block bitwise the same error norm, the cooperative-launch
-// helpers, the weights' shared-memory layout with its float4 row products,
-// the whole adaptive forward solve of a per-sample field (K3, K1 and the K4
-// forward) and the whole adaptive backsolve of a per-sample augmented stage
-// with a batch-summed gradient (K2 and the K4 adjoint).
+// Shared pieces of the solve kernels (K3, K1, K2, K4 and the chain kernels):
+// the tsit5 tableau, the PI step-size controller, the fixed-order block and
+// grid reductions that give every block bitwise the same error norm, the
+// cooperative-launch helpers, the 2-layer weights' shared-memory layout with
+// its float4 row products, the whole adaptive forward solve of a per-sample
+// field (K3, K1, the K4 forward, the K1 chain form and K7) and the whole
+// adaptive backsolve of a per-sample augmented stage with a batch-summed
+// gradient (K2, the K4 adjoint and the K2 chain form).
 //
 // The forward solve keeps the state [z (dz rows) | accumulators (NACC rows)]
 // in a global scratch laid out (row, B), so a warp's accesses are coalesced.
@@ -595,6 +596,22 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
   }
 }
 
+// Fill the FwdArgs fields from the forward kernels' C arguments (the net's
+// weights go in separately).
+inline void set_fwd_args(FwdArgs* a, const float* eps, const float* z0, const float* acc0, const float* ts,
+                         float* zT, float* accT, int* stats, float* dt_last, float* work, float* partials,
+                         int B, int dz, int max_steps, int norm_z, int norm_j, float rtol, float atol,
+                         float beta1, float beta2, float inv_order, const float* tab) {
+  *a = FwdArgs{};
+  a->eps = eps;
+  a->z0 = z0; a->acc0 = acc0; a->ts = ts;
+  a->zT = zT; a->accT = accT; a->stats = stats; a->dt_last = dt_last;
+  a->work = work; a->partials = partials;
+  a->B = B; a->dz = dz; a->max_steps = max_steps; a->norm_z = norm_z; a->norm_j = norm_j;
+  a->rtol = rtol; a->atol = atol; a->beta1 = beta1; a->beta2 = beta2; a->inv_order = inv_order;
+  read_tableau(tab, &a->tab);
+}
+
 // Fill the AdjState fields from the adjoint kernels' C arguments.
 inline void set_adj_state(AdjState* a, const float* zT, const float* accT, const float* azT,
                           const float* aaccT, const float* ts, float* z0, float* acc0, float* az0,
@@ -610,19 +627,26 @@ inline void set_adj_state(AdjState* a, const float* zT, const float* accT, const
 }
 
 // Largest co-resident grid of `kernel` for a cooperative launch (0 if the
-// device cannot launch cooperatively or the block does not fit).
+// device cannot launch cooperatively or the block does not fit).  A block
+// that asks for more shared memory than the device gives one is refused
+// before any runtime call, and a failed call's error is cleared, so a probe
+// leaves no error behind for a later cudaGetLastError (the launch's, or
+// PyTorch's own checks) to report.
 template <class Kernel>
 cudaError_t coop_max_grid(Kernel kernel, size_t smem, int block, int* out) {
   *out = 0;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess) return e;
-  if (!coop) return cudaSuccess;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
-  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess && smem > (size_t)optin) return cudaErrorInvalidValue;
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess && coop) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
   *out = per_sm * sms;
   return cudaSuccess;
 }

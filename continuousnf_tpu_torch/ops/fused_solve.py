@@ -10,7 +10,8 @@ hand-derived stage VJP `_stage_train_fwdbwd` (:372-481), the exact stages
 `FullSolve` (:1346-1357) and `make_full_solve` (:1378-1823), in batch-major
 layout.
 
-Five CUDA kernels (`csrc/`), each with a plain PyTorch twin:
+Eight CUDA kernels (`csrc/`), each with a plain PyTorch twin; five for
+2-layer tanh MLPs:
 - K3 (`k3_test_solve.cu`, `run_solve_kernel`, twin `solve_test_plain`) for
   `_run_solve_kernel` with `_stage_test`: the TEST solve of [z | dlogp];
 - K1 (`k1_train_solve.cu`, `run_train_solve_kernel`, twin
@@ -25,9 +26,21 @@ Five CUDA kernels (`csrc/`), each with a plain PyTorch twin:
 - the K4 adjoint (`k4_exact_adjoint.cu`, `run_exact_adjoint_kernel`, twin
   `adjoint_train_exact_plain`) for `adjoint_solve` with
   `_stage_train_exact_fwdbwd`: the backward integration of
-  (z, acc, a_z, g_p, g_pm).
-Each runs one whole adaptive tsit5 solve of a 2-layer tanh MLP field in one
-cooperative launch, with one batch-global error norm per attempted step.
+  (z, acc, a_z, g_p, g_pm);
+and three for tanh chains of 2 to CHAIN_MAX_LAYERS layers, sharing the chain
+layer of `csrc/chain_common.cuh`:
+- the K1 chain form (`k1_chain_solve.cu`, `run_chain_train_solve_kernel`,
+  twin `solve_train_plain`) for `_stage_train` over N layers;
+- the K2 chain form (`k2_chain_adjoint.cu`, `run_chain_adjoint_kernel`, twin
+  `adjoint_train_plain`) for the N-layer `_stage_train_fwdbwd`;
+- K7 (`k7_chain_solve.cu`) for `_stage_exact_chain` (TEST,
+  `run_chain_test_solve_kernel`, twin `solve_test_plain`) and
+  `_stage_train_exact_chain` (exact TRAIN, `run_chain_exact_solve_kernel`,
+  twin `solve_train_exact_plain`).
+Each runs one whole adaptive tsit5 solve in one cooperative launch, with one
+batch-global error norm per attempted step.  `make_full_solve` takes the
+chain kernels for chains of 3 or more layers and the 2-layer kernels for
+2-layer nets.
 
 A wrapper launches its kernel for CUDA tensors and runs its twin for CPU
 tensors.  On a CUDA tensor there is no fallback: a configuration the kernel
@@ -52,6 +65,16 @@ K1_KERNEL = "k1_train_solve"
 K2_KERNEL = "k2_train_adjoint"
 K4_KERNEL = "k4_exact_solve"
 K4A_KERNEL = "k4_exact_adjoint"
+K1C_KERNEL = "k1_chain_solve"
+K2C_KERNEL = "k2_chain_adjoint"
+K7_KERNEL = "k7_chain_solve"
+
+#: The chain kernels (the K1 and K2 chain forms, K7) take tanh chains of 2
+#: to CHAIN_MAX_LAYERS layers with hidden widths up to CHAIN_MAX_WIDTH, and
+#: every kernel a state width up to MAX_DZ (csrc/chain_common.cuh).
+CHAIN_MAX_LAYERS = 4
+CHAIN_MAX_WIDTH = 64
+MAX_DZ = 32
 
 
 class ChainSpec(NamedTuple):
@@ -108,8 +131,10 @@ class FullSolve(NamedTuple):
     forward: (y0f, t0, t1, args) -> (yTf, stats).
     adjoint: (yTf, g_yf, args, t_hi, t_lo, dt_warm=None) ->
              (y0f, a_y0f, g_args, stats), the backsolve backward integration
-             (`ode/adjoint.py`); None where it is not ported (TEST mode, K5;
-             exact-trace chains of N != 2 layers, K7).
+             (`ode/adjoint.py`); None for TEST mode (its backward kernel,
+             K5, is not ported yet) and for exact-trace chains of N != 2
+             layers (forward-only, as in the JAX package: the plain
+             BACKSOLVE backward runs).
     """
 
     forward: Callable
@@ -480,6 +505,12 @@ def adjoint_train_plain(
     return z0, acc0, az0, g[:N], g[N:], steps, accepted
 
 
+_NO_EXACT_CHAIN_ADJOINT = (
+    "the exact adjoint covers 2-layer tanh chains; deeper chains have none, as in the JAX package "
+    "(K7 is forward-only: their gradient runs the plain BACKSOLVE)"
+)
+
+
 def adjoint_train_exact_plain(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
     t_hi, t_lo, dt_init,
@@ -490,7 +521,7 @@ def adjoint_train_exact_plain(
     augmented state, g_pm included.  g_pm is chained back into g_w1 and g_w2
     after the solve.  Returns (z0, acc0, a_z0, g_ws, g_bs, steps, accepted)."""
     if not _exact_pm_stage(spec):
-        raise ValueError("the exact adjoint covers 2-layer tanh chains; deeper chains have none (K7)")
+        raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
     pm = exact_stage_consts(ws[0], ws[1])
     z0, acc0, az0, g, steps, accepted = _adjoint_plain(
         _exact_adjoint_stage(spec, ws, bs, pm, norm_z, norm_j, aaccT),
@@ -505,20 +536,35 @@ def adjoint_train_exact_plain(
 # ---- the CUDA kernels ----
 
 
-def _kernel_covers(tab: ButcherTableau, spec: ChainSpec, k_probes: int = 1) -> Optional[str]:
-    """Why the CUDA kernels cannot run this configuration (None if they can)."""
+def _kernel_covers(
+    tab: ButcherTableau, spec: ChainSpec, k_probes: int = 1, chain: bool = False
+) -> Optional[str]:
+    """Why the 2-layer kernels (K3, K1, K2, K4; `chain` False) or the chain
+    kernels (the K1 and K2 chain forms, K7; `chain` True) do not run this
+    configuration (None if they do).  The 2-layer kernels take 2-layer tanh
+    chains; the chain kernels take tanh chains of 2 to CHAIN_MAX_LAYERS
+    layers with hidden widths up to CHAIN_MAX_WIDTH."""
     if tab != TSIT5:
         return f"the {tab.name} tableau (K9, ROADMAP queue 2)"
-    if spec.n_layers != 2:
-        return f"{spec.n_layers}-layer chains (K7, ROADMAP queue 2)"
     if not all(spec.acts):
         return "identity-activation layers (K9, ROADMAP queue 2)"
     if spec.n_cond:
         return "conditional nets (K8, ROADMAP queue 2)"
     if k_probes != 1:
         return f"{k_probes} Hutchinson probes (K6, ROADMAP queue 2)"
-    if spec.dz > 32:
-        return f"state width {spec.dz} > 32 (the kernels keep one sample's state in registers)"
+    if spec.dz > MAX_DZ:
+        return f"state width {spec.dz} > {MAX_DZ} (the kernels keep one sample's state in registers; ROADMAP queue 2)"
+    if spec.n_layers == 1:
+        return f"1-layer nets (the kernels take 2 to {CHAIN_MAX_LAYERS} layers)"
+    if not chain:
+        if spec.n_layers != 2:
+            return f"{spec.n_layers}-layer chains (K3, K1, K2 and K4 take 2 layers; the chain kernels take deeper ones)"
+        return None
+    if spec.n_layers > CHAIN_MAX_LAYERS:
+        return f"{spec.n_layers}-layer chains (the chain kernels take at most {CHAIN_MAX_LAYERS} layers)"
+    wide = max(spec.out_dims[:-1])
+    if wide > CHAIN_MAX_WIDTH:
+        return f"hidden width {wide} > {CHAIN_MAX_WIDTH} (the chain kernels keep a sample's hidden vectors in shared memory)"
     return None
 
 
@@ -541,6 +587,10 @@ def _tableau_array() -> ctypes.Array:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
+_CHAIN_GRID = ([_I, _IP, _I, _IP], _I)
+_CHAIN_SMEM = ([_I, _IP, _I], ctypes.c_longlong)
+_TAIL = [_F] * 5 + [_P, _I, _I, _P]
 _SIGNATURES = {
     K3_KERNEL: {
         "cnf_k3_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
@@ -563,6 +613,23 @@ _SIGNATURES = {
         "cnf_k4a_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
         "cnf_k4_exact_adjoint": ([_P] * 23 + [_I] * 6 + [_F] * 5 + [_P, _I, _I, _P], _I),
     },
+    K1C_KERNEL: {
+        "cnf_k1c_max_grid": _CHAIN_GRID,
+        "cnf_k1c_smem_bytes": _CHAIN_SMEM,
+        "cnf_k1c_train_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I] + _TAIL, _I),
+    },
+    K7_KERNEL: {
+        "cnf_k7_test_max_grid": _CHAIN_GRID,
+        "cnf_k7_exact_max_grid": _CHAIN_GRID,
+        "cnf_k7_smem_bytes": _CHAIN_SMEM,
+        "cnf_k7_test_solve": ([_P] * 10 + [_I, _I, _IP, _I] + _TAIL, _I),
+        "cnf_k7_exact_solve": ([_P] * 10 + [_I, _I, _IP, _I, _I, _I] + _TAIL, _I),
+    },
+    K2C_KERNEL: {
+        "cnf_k2c_max_grid": _CHAIN_GRID,
+        "cnf_k2c_smem_bytes": _CHAIN_SMEM,
+        "cnf_k2c_train_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I] + _TAIL, _I),
+    },
 }
 
 
@@ -578,17 +645,18 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _launch_shape(max_grid, label: str, B: int, dz: int, H: int, blocks) -> Tuple[int, int]:
+def _launch_shape(max_grid, label: str, B: int, blocks) -> Tuple[int, int]:
     """(threads per block, blocks) for a cooperative launch: the first block
-    size in `blocks` that the kernel can launch with, and at most as many
-    blocks as are co-resident."""
+    size in `blocks` that the kernel can launch with (`max_grid(block,
+    byref(cap))` sets the co-resident grid), and at most as many blocks as
+    are co-resident."""
     cap = ctypes.c_int(0)
     for block in blocks:
-        err = max_grid(dz, H, block, ctypes.byref(cap))
+        err = max_grid(block, ctypes.byref(cap))
         if err == 0 and cap.value >= 1:
             return block, min(-(-B // block), cap.value)
     raise RuntimeError(
-        f"{label} cannot be launched cooperatively (dz={dz}, H={H}, blocks {tuple(blocks)}): "
+        f"{label} cannot be launched cooperatively (blocks {tuple(blocks)}): "
         f"cudaError {err}, co-resident grid {cap.value}"
     )
 
@@ -623,10 +691,10 @@ def _controller_floats(tab):
     return 7.0 / (10.0 * tab.order), 2.0 / (5.0 * tab.order), 1.0 / tab.order
 
 
-def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1) -> None:
+def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain: bool = False) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
-    why = _kernel_covers(tab, spec, k_probes)
+    why = _kernel_covers(tab, spec, k_probes, chain)
     if why is not None:
         raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
@@ -637,8 +705,8 @@ def run_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0
     and dlogp0 (B,) seeds the accumulator.  Returns
     (zT, dlogpT, steps, accepted, dt_last), all on z0's device.
 
-    CUDA tensors go through the K3 kernel, CPU tensors through its plain
-    version."""
+    CUDA tensors go through the K3 kernel (2-layer tanh chains), CPU
+    tensors through its plain version (any Dense chain)."""
     _no_grad_inputs("K3", ws, bs, z0, dlogp0)
     if z0.device.type == "cpu":
         return solve_test_plain(
@@ -654,7 +722,9 @@ def run_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0
         [(dz, H), (H,), (H, dz), (dz,), (B, dz), (B,)],
     )
     lib = _library(K3_KERNEL)
-    block, grid = _launch_shape(lib.cnf_k3_max_grid, "K3", B, dz, H, _forward_blocks(B, device))
+    block, grid = _launch_shape(
+        lambda blk, cap: lib.cnf_k3_max_grid(dz, H, blk, cap), "K3", B, _forward_blocks(B, device)
+    )
     ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
     zT = torch.empty_like(z0)
     dlogpT = torch.empty_like(dlogp0)
@@ -685,8 +755,8 @@ def run_train_solve_kernel(
     reg_e | reg_n] seeds the accumulators.  Returns
     (zT, accT, steps, accepted, dt_last), all on z0's device.
 
-    CUDA tensors go through the K1 kernel (one probe), CPU tensors through
-    its plain version."""
+    CUDA tensors go through the K1 kernel (2-layer tanh chains, one probe),
+    CPU tensors through its plain version (any Dense chain)."""
     _no_grad_inputs("K1", ws, bs, z0, eps, acc0)
     if z0.device.type == "cpu":
         return solve_train_plain(
@@ -702,7 +772,9 @@ def run_train_solve_kernel(
         [(dz, H), (H,), (H, dz), (dz,), (B, dz), (B, dz), (3, B)],
     )
     lib = _library(K1_KERNEL)
-    block, grid = _launch_shape(lib.cnf_k1_max_grid, "K1", B, dz, H, _forward_blocks(B, device))
+    block, grid = _launch_shape(
+        lambda blk, cap: lib.cnf_k1_max_grid(dz, H, blk, cap), "K1", B, _forward_blocks(B, device)
+    )
     ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
     zT = torch.empty_like(z0)
     accT = torch.empty_like(acc0)
@@ -734,8 +806,8 @@ def run_adjoint_kernel(
     (K, B, dz).  zT, azT are (B, dz), accT, aaccT (3, B).  Returns
     (z0, acc0, a_z0, g_ws, g_bs, steps, accepted), g_* summed over the batch.
 
-    CUDA tensors go through the K2 kernel (one probe), CPU tensors through
-    its plain version."""
+    CUDA tensors go through the K2 kernel (2-layer tanh chains, one probe),
+    CPU tensors through its plain version (any Dense chain)."""
     _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT)
     if zT.device.type == "cpu":
         return adjoint_train_plain(
@@ -754,7 +826,9 @@ def run_adjoint_kernel(
         [(dz, H), (H,), (H, dz), (dz,), (B, dz), (B, dz), (3, B), (B, dz), (3, B)],
     )
     lib = _library(K2_KERNEL)
-    block, grid = _launch_shape(lib.cnf_k2_max_grid, "K2", B, dz, H, (128, 64, 32))
+    block, grid = _launch_shape(
+        lambda blk, cap: lib.cnf_k2_max_grid(dz, H, blk, cap), "K2", B, (128, 64, 32)
+    )
     P = 2 * dz * H + H + dz
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
     z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
@@ -804,7 +878,9 @@ def run_exact_solve_kernel(
         [(dz, H), (H,), (H, dz), (dz,), (B, dz), (3, B)],
     )
     lib = _library(K4_KERNEL)
-    block, grid = _launch_shape(lib.cnf_k4_max_grid, "K4", B, dz, H, _forward_blocks(B, device))
+    block, grid = _launch_shape(
+        lambda blk, cap: lib.cnf_k4_max_grid(dz, H, blk, cap), "K4", B, _forward_blocks(B, device)
+    )
     ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
     zT = torch.empty_like(z0)
     accT = torch.empty_like(acc0)
@@ -838,7 +914,10 @@ def run_exact_adjoint_kernel(
     with g_pm chained into g_w1 and g_w2.
 
     CUDA tensors go through the K4 adjoint kernel, CPU tensors through its
-    plain version."""
+    plain version.  Deeper chains have no exact adjoint, as in the JAX
+    package: K7 is forward-only."""
+    if not _exact_pm_stage(spec):
+        raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
     _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT)
     if zT.device.type == "cpu":
         return adjoint_train_exact_plain(
@@ -856,7 +935,9 @@ def run_exact_adjoint_kernel(
         [(dz, H), (H,), (H, dz), (dz,), (B, dz), (3, B), (B, dz), (3, B)],
     )
     lib = _library(K4A_KERNEL)
-    block, grid = _launch_shape(lib.cnf_k4a_max_grid, "K4 adjoint", B, dz, H, (128, 64, 32))
+    block, grid = _launch_shape(
+        lambda blk, cap: lib.cnf_k4a_max_grid(dz, H, blk, cap), "K4 adjoint", B, (128, 64, 32)
+    )
     P_total = 2 * dz * H + H + dz + dz * dz * H
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
     z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
@@ -885,6 +966,221 @@ def run_exact_adjoint_kernel(
 run_exact_adjoint_kernel.launches = 0
 
 
+# ---- the chain kernels (2 to CHAIN_MAX_LAYERS layers) ----
+
+_CHAIN_BLOCKS = (128, 64, 32)
+
+
+def _chain_params(label: str, spec: ChainSpec, ws, bs, device):
+    """The flat params [W0 | b0 | W1 | b1 | ...] of a chain kernel and its
+    level widths as a C int array."""
+    widths = (spec.in_dims[0],) + tuple(spec.out_dims)
+    shapes = [s for a, b in zip(widths[:-1], widths[1:]) for s in ((a, b), (b,))]
+    leaves = _check_inputs(label, device, [x for w, b in zip(ws, bs) for x in (w, b)], shapes)
+    return torch.cat([x.reshape(-1) for x in leaves]), (ctypes.c_int * len(widths))(*widths)
+
+
+def _split_params(flat: torch.Tensor, spec: ChainSpec):
+    """The (ws, bs) views of a flat [W0 | b0 | W1 | b1 | ...] vector."""
+    ws, bs, o = [], [], 0
+    for a, b in zip((spec.in_dims[0],) + tuple(spec.out_dims[:-1]), spec.out_dims):
+        ws.append(flat[o : o + a * b].view(a, b))
+        bs.append(flat[o + a * b : o + a * b + b])
+        o += a * b + b
+    return ws, bs
+
+
+def _run_chain_forward(label, lib_name, entry, max_grid, tab, spec, *, rtol, atol, max_steps, ws, bs, z0, acc0,
+                       t0, t1, dt_init, eps=None, norms=()):
+    """Launch a chain forward kernel, whose C arguments are (params, [eps],
+    z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths,
+    max_steps, *norms, rtol, atol, the controller, the tableau, grid, block,
+    stream).  Returns (zT, accT, steps, accepted, dt_last)."""
+    B, dz = z0.shape
+    device = z0.device
+    params, widths = _chain_params(label, spec, ws, bs, device)
+    probe = [] if eps is None else [eps[0]]
+    z0, acc0, *probe = _check_inputs(label, device, [z0, acc0] + probe, [(B, dz), tuple(acc0.shape), (B, dz)])
+    nacc = 1 if acc0.dim() == 1 else acc0.shape[0]
+    lib = _library(lib_name)
+    block, grid = _launch_shape(
+        lambda blk, cap: getattr(lib, max_grid)(spec.n_layers, widths, blk, cap), label, B, _CHAIN_BLOCKS
+    )
+    ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
+    zT, accT = torch.empty_like(z0), torch.empty_like(acc0)
+    stats = torch.empty(2, dtype=torch.int32, device=device)
+    dt_last = torch.empty(1, dtype=torch.float32, device=device)
+    work = torch.empty((TSIT5.num_stages + 2) * (dz + nacc) * B, dtype=torch.float32, device=device)
+    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
+    err = getattr(lib, entry)(
+        _ptr(params), *[_ptr(x) for x in probe], _ptr(z0), _ptr(acc0), _ptr(ts), _ptr(zT), _ptr(accT),
+        _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials), B, spec.n_layers, widths, int(max_steps),
+        *[int(x) for x in norms], rtol, atol, *_controller_floats(tab), _tableau_array(), grid, block,
+        _stream(device),
+    )
+    if err != 0:
+        raise RuntimeError(f"{label} launch failed with cudaError {err} (grid {grid}, block {block})")
+    return zT, accT, stats[0], stats[1], dt_last[0]
+
+
+def run_chain_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init):
+    """K7 TEST: the TEST solve of [z | dlogp] of a tanh chain of 2 to
+    CHAIN_MAX_LAYERS layers, the exact trace by basis propagation; arguments
+    and returns as `run_solve_kernel`.
+
+    CUDA tensors go through the K7 kernel's TEST entry point, CPU tensors
+    through its plain version."""
+    _no_grad_inputs("K7", ws, bs, z0, dlogp0)
+    if z0.device.type == "cpu":
+        return solve_test_plain(
+            tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
+        )
+    _cuda_only("K7", z0, tab, spec, chain=True)
+    out = _run_chain_forward(
+        "K7 TEST", K7_KERNEL, "cnf_k7_test_solve", "cnf_k7_test_max_grid", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
+    )
+    run_chain_test_solve_kernel.launches += 1
+    return out
+
+
+run_chain_test_solve_kernel.launches = 0
+
+
+def run_chain_exact_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init
+):
+    """K7 exact: the exact-trace TRAIN solve of [z | acc] of a tanh chain of
+    2 to CHAIN_MAX_LAYERS layers (trace and ||J||_F by basis propagation);
+    arguments and returns as `run_exact_solve_kernel`.
+
+    CUDA tensors go through the K7 kernel's exact entry point, CPU tensors
+    through its plain version."""
+    _no_grad_inputs("K7", ws, bs, z0, acc0)
+    if z0.device.type == "cpu":
+        return solve_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+        )
+    _cuda_only("K7", z0, tab, spec, chain=True)
+    out = _run_chain_forward(
+        "K7 exact", K7_KERNEL, "cnf_k7_exact_solve", "cnf_k7_exact_max_grid", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+        norms=(norm_z, norm_j),
+    )
+    run_chain_exact_solve_kernel.launches += 1
+    return out
+
+
+run_chain_exact_solve_kernel.launches = 0
+
+
+def run_chain_train_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init
+):
+    """The K1 chain form: the TRAIN solve of [z | acc] of a tanh chain of 2
+    to CHAIN_MAX_LAYERS layers with one VJP probe; arguments and returns as
+    `run_train_solve_kernel`.
+
+    CUDA tensors go through the kernel, CPU tensors through its plain
+    version."""
+    _no_grad_inputs("K1", ws, bs, z0, eps, acc0)
+    if z0.device.type == "cpu":
+        return solve_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+        )
+    _cuda_only("K1", z0, tab, spec, eps.shape[0], chain=True)
+    out = _run_chain_forward(
+        "K1 chain form", K1C_KERNEL, "cnf_k1c_train_solve", "cnf_k1c_max_grid", tab, spec, rtol=rtol,
+        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
+        norms=(norm_z, norm_j),
+    )
+    run_chain_train_solve_kernel.launches += 1
+    return out
+
+
+run_chain_train_solve_kernel.launches = 0
+
+
+def run_chain_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init,
+):
+    """The K2 chain form: the backsolve of (z, acc, a_z, a_acc, g_p) of a
+    tanh chain of 2 to CHAIN_MAX_LAYERS layers with one VJP probe; arguments
+    and returns as `run_adjoint_kernel`.
+
+    CUDA tensors go through the kernel, CPU tensors through its plain
+    version."""
+    _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT)
+    if zT.device.type == "cpu":
+        return adjoint_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
+        )
+    _cuda_only("K2", zT, tab, spec, eps.shape[0], chain=True)
+    if dt_init is None:
+        raise ValueError("the K2 chain form needs dt_init (the caller picks it)")
+    label = "K2 chain form"
+    B, dz = zT.shape
+    device = zT.device
+    params, widths = _chain_params(label, spec, ws, bs, device)
+    e0, zT, accT, azT, aaccT = _check_inputs(
+        label, device, [eps[0], zT, accT, azT, aaccT], [(B, dz), (B, dz), (3, B), (B, dz), (3, B)]
+    )
+    lib = _library(K2C_KERNEL)
+    block, grid = _launch_shape(
+        lambda blk, cap: lib.cnf_k2c_max_grid(spec.n_layers, widths, blk, cap), label, B, _CHAIN_BLOCKS
+    )
+    P = params.numel()
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
+    z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
+    g = torch.empty(P, dtype=torch.float32, device=device)
+    stats = torch.empty(2, dtype=torch.int32, device=device)
+    work = torch.empty((TSIT5.num_stages + 2) * (2 * dz + 3) * B, dtype=torch.float32, device=device)
+    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
+    gpart = torch.empty(2 * grid * 2 * P, dtype=torch.float32, device=device)
+    gblk = torch.empty(grid * 4 * P, dtype=torch.float32, device=device)
+    err = lib.cnf_k2c_train_adjoint(
+        _ptr(params), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
+        _ptr(az0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gpart), _ptr(gblk),
+        B, spec.n_layers, widths, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
+        _tableau_array(), grid, block, _stream(device),
+    )
+    if err != 0:
+        raise RuntimeError(f"{label} launch failed with cudaError {err} (grid {grid}, block {block})")
+    run_chain_adjoint_kernel.launches += 1
+    g_ws, g_bs = _split_params(g, spec)
+    return z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]
+
+
+run_chain_adjoint_kernel.launches = 0
+
+
+#: Every kernel's wrapper by kernel name; each wrapper's `.launches` counts
+#: its own kernel's launches.
+KERNEL_WRAPPERS = {
+    K3_KERNEL: run_solve_kernel,
+    K1_KERNEL: run_train_solve_kernel,
+    K2_KERNEL: run_adjoint_kernel,
+    K4_KERNEL: run_exact_solve_kernel,
+    K4A_KERNEL: run_exact_adjoint_kernel,
+    K1C_KERNEL: run_chain_train_solve_kernel,
+    K2C_KERNEL: run_chain_adjoint_kernel,
+    K7_KERNEL + "/test": run_chain_test_solve_kernel,
+    K7_KERNEL + "/exact": run_chain_exact_solve_kernel,
+}
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+
+
 # ---- make_full_solve ----
 
 
@@ -898,12 +1194,15 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     estimate; float32.  Within those, what this port has not reached raises
     NotImplementedError: JVP probes (K6), conditional nets (K8) and bf16
     stages.  The flat layout is [z.ravel() (batch-major) | dlogp] in TEST
-    mode and [z.ravel() | dlogp | reg_e | reg_n] in TRAIN mode.  Hutchinson
-    TRAIN solves run K1 with the backward member K2; exact-trace TRAIN solves
-    run the K4 forward, with the K4 adjoint as the backward member for 2-layer
-    tanh chains and none for other chains (the JAX package's deep exact
-    chains are forward-only too; their CUDA kernel, K7, raises).  TEST solves
-    have no backward member yet (K5).
+    mode and [z.ravel() | dlogp | reg_e | reg_n] in TRAIN mode.  The
+    wrappers are chosen here by depth: 2-layer nets run the 2-layer kernels,
+    deeper chains the chain kernels.  Hutchinson TRAIN solves run K1 (or its
+    chain form) with the backward member K2 (or its chain form); exact-trace
+    TRAIN solves run the K4 forward (K7 for deeper chains), with the K4
+    adjoint as the backward member for 2-layer tanh chains and none for
+    other chains (the JAX package's deep exact chains are forward-only too:
+    their gradient runs the plain BACKSOLVE).  TEST solves run K3 (K7 for
+    deeper chains) and have no backward member yet (K5).
     """
     cm = icnf.compute_mode
     opts = icnf.solver
@@ -967,6 +1266,11 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     nfe_per = (tab.num_stages - 1) + (0 if tab.fsal else 1)
 
     exact_pm = exact and _exact_pm_stage(spec)
+    deep = spec.n_layers > 2
+    run_test = run_chain_test_solve_kernel if deep else run_solve_kernel
+    run_train = run_chain_train_solve_kernel if deep else run_train_solve_kernel
+    run_exact = run_chain_exact_solve_kernel if deep else run_exact_solve_kernel
+    run_adjoint = run_chain_adjoint_kernel if deep else run_adjoint_kernel
 
     def forward(y0f, t0, t1, args):
         tdir = torch.sign(t1 - t0)
@@ -982,17 +1286,17 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
             nfe_init = 1
         z0 = y0f[: B * dz].reshape(B, dz)
         if exact:
-            zT, accT, steps, accepted, dt_last = run_exact_solve_kernel(
+            zT, accT, steps, accepted, dt_last = run_exact(
                 tab, spec, norm_z=norm_z, norm_j=norm_j, **kernel_kw(args["ps"]), z0=z0,
                 acc0=y0f[B * dz :].reshape(3, B), t0=t0, t1=t1, dt_init=dt_init,
             )
         elif train:
-            zT, accT, steps, accepted, dt_last = run_train_solve_kernel(
+            zT, accT, steps, accepted, dt_last = run_train(
                 tab, spec, norm_z=norm_z, norm_j=norm_j, **kernel_kw(args["ps"]), z0=z0,
                 eps=args["eps"], acc0=y0f[B * dz :].reshape(3, B), t0=t0, t1=t1, dt_init=dt_init,
             )
         else:
-            zT, accT, steps, accepted, dt_last = run_solve_kernel(
+            zT, accT, steps, accepted, dt_last = run_test(
                 tab, spec, **kernel_kw(args["ps"]), z0=z0, dlogp0=y0f[B * dz :],
                 t0=t0, t1=t1, dt_init=dt_init,
             )
@@ -1039,7 +1343,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
                 tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, **state
             )
         else:
-            z0, acc0, az0, g_ws, g_bs, steps, accepted = run_adjoint_kernel(
+            z0, acc0, az0, g_ws, g_bs, steps, accepted = run_adjoint(
                 tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, eps=eps, **state
             )
         g_ps = tuple(
@@ -1066,6 +1370,12 @@ __all__ = [
     "run_adjoint_kernel",
     "run_exact_solve_kernel",
     "run_exact_adjoint_kernel",
+    "run_chain_test_solve_kernel",
+    "run_chain_exact_solve_kernel",
+    "run_chain_train_solve_kernel",
+    "run_chain_adjoint_kernel",
+    "KERNEL_WRAPPERS",
+    "reset_launches",
     "solve_test_plain",
     "solve_train_plain",
     "solve_train_exact_plain",

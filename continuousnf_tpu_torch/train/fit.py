@@ -28,6 +28,7 @@ import torch
 from ..core.icnf import ICNF, init_params
 from ..ode.adjoint import flatten_tree
 from ..parallel.sharding import make_train_step_body
+from ..types import resolve_device
 from .lion import Lion
 
 
@@ -98,7 +99,8 @@ def fit(
     """Train on data `X` ((n, nvars) array or tensor).
 
     Params start from `ps` (their device) or a fresh draw on `device` (X's
-    device when X is a tensor, else the CPU).  `opt_state` (an optimizer
+    device when X is a tensor, else `types.resolve_device`: the CUDA card
+    unless a default is set).  `opt_state` (an optimizer
     `state_dict`) and `epoch_start` resume a single-optimizer fit;
     `state_callback(epoch, ps, optimizer_state_dict)` runs after every
     epoch.  `callback(epoch, ps) -> bool` runs every `callback_every`
@@ -122,8 +124,10 @@ def fit(
 
     if ps is not None:
         device = flatten_tree(ps)[0][0].device
-    elif device is None:
-        device = X.device if isinstance(X, torch.Tensor) else torch.device("cpu")
+    elif device is None and isinstance(X, torch.Tensor):
+        device = X.device
+    else:
+        device = resolve_device(device)
     xs = torch.as_tensor(X, dtype=icnf.dtype).to(device)
     check_array("X", xs, rank=(2,), last_dim=icnf.nvars, dtype=icnf.dtype)
     n = xs.shape[0]

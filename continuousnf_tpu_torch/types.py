@@ -1,8 +1,12 @@
-"""Core type system: modes, compute modes, solver options.
+"""Core type system: modes, compute modes, solver options, and the device
+the entry points default to.
 
 PyTorch port of `continuousnf_tpu/types.py:21-215`.  The classes are plain
 frozen dataclasses and enums with the same fields and defaults as the JAX
-package, so a configuration reads the same in both packages.
+package, so a configuration reads the same in both packages.  Entry points
+that make tensors (`Dense`, `MLP`, `Chain.init`, `params_from_numpy`,
+`init_params`, `fit` without params) run on the CUDA card unless the caller
+names a device or sets one with `set_default_device`.
 """
 
 from __future__ import annotations
@@ -10,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 import enum
 from typing import Optional, Tuple
+
+import torch
 
 
 class Mode(enum.Enum):
@@ -131,6 +137,34 @@ def resolve_stage_precision(opts: SolverOptions) -> str:
 README_TOLERANCES = {"rtol": 3.452669831108329e-4, "atol": 1.1920929e-7}
 
 
+_default_device: Optional[torch.device] = None
+
+
+def set_default_device(device) -> Optional[torch.device]:
+    """The device the entry points use when the caller names none (None:
+    the CUDA card).  Returns the previous setting."""
+    global _default_device
+    previous = _default_device
+    _default_device = None if device is None else torch.device(device)
+    return previous
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device of an entry point called with `device`: the one named,
+    else `set_default_device`'s, else the current CUDA card.  Without a
+    card it raises rather than run on the CPU."""
+    if device is None:
+        device = _default_device
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "continuousnf_tpu_torch runs on the CUDA card by default and none is available; "
+            "pass device='cpu' or call continuousnf_tpu_torch.set_default_device('cpu') to run on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 __all__ = [
     "Mode",
     "README_TOLERANCES",
@@ -148,4 +182,6 @@ __all__ = [
     "Adjoint",
     "SolverOptions",
     "resolve_stage_precision",
+    "set_default_device",
+    "resolve_device",
 ]

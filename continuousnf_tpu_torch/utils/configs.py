@@ -1,0 +1,84 @@
+"""The model configurations that `chip_smoke.py` and `utils/profile_step.py`
+drive on the card, their weight and data recipes, and a CUDA-event timer.
+
+  * flagship (`bench.py:142-177`): RNODE, nvars = 8, naug = 8, MLP
+    16 -> 48 -> 16 tanh, lambda3 = 1e-2, steer_rate 0.1, tspan (0, 13);
+    data xs ~ U[0, 1).
+  * power6 (`benchmarks/tabular.py:69-79`): RNODE, nvars = 6, naug = 0, MLP
+    6 -> 64 -> 64 -> 6 tanh on all three layers, tspan (0, 1), no steering;
+    data from the recipe of the JAX package's `synthetic_tabular`
+    (`continuousnf_tpu/data.py:56-64`), tanh(z mix) + 0.1 z.
+
+Both: lambda1 = lambda2 = 1e-2 (the RNODE defaults), tsit5 at rtol 1e-3 /
+atol 1e-6, one Gaussian VJP probe, batch 4096 in the scripts.  Weights are
+Glorot-uniform with N(0, 0.05) biases, drawn with numpy.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+MODELS = {
+    "flagship": dict(dims=(16, 48, 16), nvars=8, naug=8, tspan=(0.0, 13.0), extra={"steer_rate": 0.1, "lam3": 1e-2}),
+    "power6": dict(dims=(6, 64, 64, 6), nvars=6, naug=0, tspan=(0.0, 1.0), extra={}),
+}
+
+
+def glorot_params(rng: np.random.Generator, dims):
+    """Glorot-uniform weights and N(0, 0.05) biases in the JAX layout
+    (numpy float32), drawn layer by layer, w then b."""
+    ps = []
+    for din, dout in zip(dims[:-1], dims[1:]):
+        lim = math.sqrt(6.0 / (din + dout))
+        ps.append({
+            "w": rng.uniform(-lim, lim, (din, dout)).astype(np.float32),
+            "b": rng.normal(0.0, 0.05, (dout,)).astype(np.float32),
+        })
+    return tuple(ps)
+
+
+def tabular_data(rng: np.random.Generator, n: int, nvars: int) -> np.ndarray:
+    """n samples of the recipe of the JAX package's `synthetic_tabular`:
+    tanh(z mix) + 0.1 z, z ~ N(0, I), mix ~ N(0, 1 / nvars)."""
+    mix = rng.normal(size=(nvars, nvars)) / math.sqrt(nvars)
+    z = rng.normal(size=(n, nvars))
+    return (np.tanh(z @ mix) + 0.1 * z).astype(np.float32)
+
+
+def model_data(name: str, rng: np.random.Generator, n: int) -> np.ndarray:
+    """n data points of the configuration `name` (numpy float32)."""
+    nvars = MODELS[name]["nvars"]
+    if name == "power6":
+        return tabular_data(rng, n, nvars)
+    return rng.uniform(0.0, 1.0, (n, nvars)).astype(np.float32)
+
+
+def make_icnf(name: str, device, *, fused: bool = True, exact: bool = False, dtype=torch.float32, **kw):
+    """The configuration `name` as an ICNF on `device`: `fused` and `exact`
+    pick `VecJacMode(fused=..., exact_trace=...)`; `kw` goes to `construct`
+    (a `solver`, say)."""
+    from .. import MLP, RNODE, VecJacMode, construct
+
+    cfg = MODELS[name]
+    return construct(
+        RNODE, MLP(cfg["dims"], device=device, dtype=dtype), cfg["nvars"], cfg["naug"], tspan=cfg["tspan"],
+        compute_mode=VecJacMode(fused=fused, exact_trace=exact), dtype=dtype, **cfg["extra"], **kw,
+    )
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of `fn` between CUDA events, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

@@ -1,0 +1,104 @@
+"""Where the time goes in a training step and a `logpdf` call on the card.
+
+    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship] [--steps 10]
+
+Builds the model (`--model power6`: the tabular power6 model, RNODE,
+MLP 6 -> 64 -> 64 -> 6; `--model flagship`: RNODE, MLP 16 -> 48 -> 16),
+its weights and its data from a seed as `utils/configs.py` makes them, one
+Gaussian VJP probe, batch 4096, fused kernels on, and for each path (the
+Hutchinson train step, the exact-trace train step, `logpdf`):
+  * the wall time per call, CUDA events over `--steps` calls after a
+    warm-up, without the profiler;
+  * the card's busy time per call, the sum of the CUDA kernels' self times
+    under `torch.profiler` over the same number of calls, and the idle share
+    1 - busy / wall;
+  * the kernels that take the most of it, by name.
+Needs a CUDA card; prints one line per figure, then one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from .configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+
+def _busy(fn, reps: int, top: int = 6):
+    """Device busy ms per call and the top kernels (name, ms per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0 and getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type):
+            rows.append((e.key, t / 1e3 / reps))
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:top]
+
+
+def profile_model(name: str, steps: int, seed: int = 0) -> dict:
+    import continuousnf_tpu_torch as cnf
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    ps_np = glorot_params(rng, MODELS[name]["dims"])
+    xs = torch.from_numpy(model_data(name, rng, 4096)).to(dev)
+
+    def model(exact: bool):
+        return make_icnf(name, dev, exact=exact)
+
+    out = {"model": name, "device": torch.cuda.get_device_name(0)}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for label, exact in (("train_step", False), ("exact_train_step", True)):
+        icnf = model(exact)
+        ps = cnf.params_from_numpy(ps_np, dev)
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        step = cnf.parallel.make_train_step_body(icnf, cnf.Lion(leaves, lr=1e-3))
+        call = lambda: step(ps, xs, gen)  # noqa: E731
+        out[label] = _measure(call, steps)
+    dist = cnf.ICNFDist(model(False), cnf.Mode.TEST, cnf.params_from_numpy(ps_np, dev))
+    with torch.no_grad():
+        out["logpdf"] = _measure(lambda: dist.logpdf(xs), steps)
+    return out
+
+
+def _measure(call, steps: int) -> dict:
+    for _ in range(3):
+        call()
+    wall = cuda_ms(call, steps)
+    busy, top = _busy(call, steps)
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall,
+            "top": [{"kernel": k[:80], "ms": t} for k, t in top]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="power6")
+    ap.add_argument("--steps", type=int, default=10)
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA card")
+    res = profile_model(a.model, a.steps)
+    for label in ("train_step", "exact_train_step", "logpdf"):
+        r = res[label]
+        print(f"{a.model} {label}: wall {r['wall_ms']:.4f} ms, card busy {r['busy_ms']:.4f} ms, "
+              f"idle {100 * r['idle_share']:.1f} %")
+        for k in r["top"]:
+            print(f"    {k['ms']:.4f} ms  {k['kernel']}")
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -28,6 +28,9 @@ from continuousnf_tpu_torch.ode.tableaus import TSIT5
 from continuousnf_tpu_torch.ops import fused_solve as tfs
 from continuousnf_tpu_torch.parallel import make_train_step_body
 
+# The port's entry points default to the CUDA card; these tests run it on the CPU.
+tcnf.set_default_device("cpu")
+
 tfit = importlib.import_module("continuousnf_tpu_torch.train.fit")
 
 TOL = dict(rtol=1e-4, atol=1e-4)

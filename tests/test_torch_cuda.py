@@ -1,5 +1,6 @@
-"""The CUDA kernels (K3, K1, K2, the K4 forward and adjoint) against their
-plain PyTorch versions, on the card, and the configurations they do not
+"""The CUDA kernels (K3, K1, K2, the K4 forward and adjoint, and the chain
+kernels: the K1 and K2 chain forms, the K7 TEST and exact forwards) against
+their plain PyTorch versions, on the card, and the configurations they do not
 cover.
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a card
@@ -15,6 +16,7 @@ import torch
 import continuousnf_tpu_torch as tcnf
 from continuousnf_tpu_torch.ode.tableaus import DOPRI5, TSIT5
 from continuousnf_tpu_torch.ops import fused_solve as tfs
+from continuousnf_tpu_torch.utils.configs import glorot_params
 
 pytestmark = pytest.mark.gpu
 
@@ -33,15 +35,7 @@ def dev():
 
 
 def _np_params(dims, seed):
-    rng = np.random.default_rng(seed)
-    ps = []
-    for din, dout in zip(dims[:-1], dims[1:]):
-        lim = np.sqrt(6.0 / (din + dout))
-        ps.append({
-            "w": rng.uniform(-lim, lim, (din, dout)).astype(np.float32),
-            "b": rng.normal(0.0, 0.05, (dout,)).astype(np.float32),
-        })
-    return tuple(ps)
+    return glorot_params(np.random.default_rng(seed), dims)
 
 
 def _kernel_args(dims, B, span, dev, seed=0):
@@ -115,20 +109,22 @@ def test_slice_through_kernel_matches_plain(dev):
 @pytest.mark.parametrize(
     "dims,final,tab",
     [
-        ((5, 9, 7, 5), torch.tanh, TSIT5),
+        ((5, 9, 7, 7, 7, 5), torch.tanh, TSIT5),
+        ((5, 80, 7, 5), torch.tanh, TSIT5),
         ((5, 15, 5), None, TSIT5),
         ((5, 15, 5), torch.tanh, DOPRI5),
         ((40, 48, 40), torch.tanh, TSIT5),
     ],
-    ids=["three-layer", "identity-out", "dopri5", "dz40"],
+    ids=["five-layer", "wide-hidden", "identity-out", "dopri5", "dz40"],
 )
 def test_uncovered_configs_raise_on_cuda(dev, dims, final, tab):
     spec = tfs.chain_spec(tcnf.MLP(dims, final_activation=final), dims[-1])
     kw = _kernel_args(dims, 8, (0.0, 1.0), dev)
-    before = tfs.run_solve_kernel.launches
+    run = tfs.run_chain_test_solve_kernel if spec.n_layers > 2 else tfs.run_solve_kernel
+    before = run.launches
     with pytest.raises(NotImplementedError):
-        tfs.run_solve_kernel(tab, spec, **kw)
-    assert tfs.run_solve_kernel.launches == before
+        run(tab, spec, **kw)
+    assert run.launches == before
 
 
 @pytest.mark.parametrize("case", ["cap", "empty-span", "single-sample"])
@@ -291,37 +287,15 @@ def _small(fused=True, **kw):
 
 @pytest.mark.parametrize(
     "kernel",
-    ["K5-test-gradients", "K6-probes", "K6-jvp", "K7-three-layer", "K7-exact-chain", "K8-conditional",
-     "K9-tableau", "K9-identity-layer", "K10-per-stage-field"],
+    ["K5-test-gradients", "K6-probes", "K6-jvp", "K6-chain-probes", "K8-conditional",
+     "K9-tableau", "K9-identity-layer", "K9-chain-identity-layer", "K10-per-stage-field"],
 )
 def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
     name = kernel.split("-")[0]
     ps_np = _np_params((5, 15, 5), 6)
     xs = torch.from_numpy(np.random.default_rng(7).uniform(size=(8, 3)).astype(np.float32)).to(dev)
     before = (tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches)
-    if kernel == "K7-exact-chain":
-        # The exact trace of a 3-layer chain: the CPU runs its plain solve,
-        # the card raises in the K4 wrappers (no silent fallback).
-        dims = (5, 9, 7, 5)
-        icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(dims), 3, 2,
-                              compute_mode=tcnf.VecJacMode(fused=True, exact_trace=True))
-        assert tfs.make_full_solve(icnf, tcnf.Mode.TRAIN, 8).adjoint is None
-        n4 = (tfs.run_exact_solve_kernel.launches, tfs.run_exact_adjoint_kernel.launches)
-        ps = tcnf.params_from_numpy(_np_params(dims, 6), dev)
-        with pytest.raises(NotImplementedError, match=name), torch.no_grad():
-            tcnf.inference(icnf, tcnf.Mode.TRAIN, xs, ps, generator=torch.Generator(dev).manual_seed(0))
-        [x.requires_grad_() for p in ps for x in p.values()]
-        with pytest.raises(NotImplementedError, match=name):
-            tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, generator=torch.Generator(dev).manual_seed(0))
-        spec = tfs.chain_spec(icnf.nn, 5)
-        kw, adj = _exact_args(dims, 8, (0.0, 1.0), dev)
-        adj.update(zT=kw["z0"], accT=kw["acc0"], dt_init=torch.tensor(-0.05, device=dev))
-        with pytest.raises(NotImplementedError, match=name):
-            tfs.run_exact_solve_kernel(TSIT5, spec, **kw)
-        with pytest.raises(NotImplementedError, match=name):
-            tfs.run_exact_adjoint_kernel(TSIT5, spec, **adj)
-        assert (tfs.run_exact_solve_kernel.launches, tfs.run_exact_adjoint_kernel.launches) == n4
-        return
+    before_c = (tfs.run_chain_train_solve_kernel.launches, tfs.run_chain_adjoint_kernel.launches)
     if kernel in ("K6-jvp", "K8-conditional"):
         icnf = {
             "K6-jvp": lambda: _small(compute_mode=tcnf.JacVecMode(fused=True)),
@@ -346,19 +320,23 @@ def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
         return
     dims, final, tab, k = {
         "K6-probes": ((5, 15, 5), torch.tanh, TSIT5, 2),
-        "K7-three-layer": ((5, 9, 7, 5), torch.tanh, TSIT5, 1),
+        "K6-chain-probes": ((5, 9, 7, 5), torch.tanh, TSIT5, 2),
         "K9-tableau": ((5, 15, 5), torch.tanh, DOPRI5, 1),
         "K9-identity-layer": ((5, 15, 5), None, TSIT5, 1),
+        "K9-chain-identity-layer": ((5, 9, 7, 5), None, TSIT5, 1),
     }[kernel]
     spec = tfs.chain_spec(tcnf.MLP(dims, final_activation=final), dims[-1])
     kw, adj = _train_args(dims, 8, (0.0, 1.0), dev)
     kw["eps"] = adj["eps"] = kw["eps"].expand(k, -1, -1).contiguous()
     adj.update(zT=kw["z0"], accT=kw["acc0"], dt_init=torch.tensor(-0.05, device=dev))
+    deep = spec.n_layers > 2
     with pytest.raises(NotImplementedError, match=name):
-        tfs.run_train_solve_kernel(tab, spec, **kw)
+        (tfs.run_chain_train_solve_kernel if deep else tfs.run_train_solve_kernel)(tab, spec, **kw)
     with pytest.raises(NotImplementedError, match=name):
-        tfs.run_adjoint_kernel(tab, spec, **adj)
+        (tfs.run_chain_adjoint_kernel if deep else tfs.run_adjoint_kernel)(tab, spec, **adj)
     assert (tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches) == before
+    assert tfs.run_chain_train_solve_kernel.launches == before_c[0]
+    assert tfs.run_chain_adjoint_kernel.launches == before_c[1]
 
 
 def _exact_args(dims, B, span, dev, seed=0):
@@ -479,3 +457,185 @@ def test_exact_train_step_on_the_card_matches_the_twins_on_the_cpu(dev):
     assert nfe_k == nfe_c and _close(l_k, l_c)
     for a, b in zip(g_k, g_c):
         assert _grad_close(a, b)
+
+
+# ---- the chain kernels: 2, 3 and 4 layers ----
+
+POWER6 = (6, 64, 64, 6)
+
+
+def _launches():
+    return {name: w.launches for name, w in tfs.KERNEL_WRAPPERS.items()}
+
+
+def _chain_case(dims, B, span, dev, norms=(True, True), seed=0):
+    """All four chain kernels against their twins on one input: the K1 chain
+    form and K7 exact from nonzero accumulators, the K2 chain form from the
+    K1 chain form's output warm-started from its last step, K7 TEST from a
+    nonzero dlogp.  Returns the outputs and the K1 chain form's inputs."""
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    kw, adj = _train_args(dims, B, span, dev, seed)
+    kw.update(norm_z=norms[0], norm_j=norms[1])
+    adj.update(norm_z=norms[0], norm_j=norms[1])
+    test_kw = _kernel_args(dims, B, span, dev, seed)
+    exact_kw = {k: v for k, v in kw.items() if k != "eps"}
+    before = _launches()
+    with torch.no_grad():
+        out_k = tfs.run_chain_train_solve_kernel(TSIT5, spec, **kw)
+        out_p = tfs.solve_train_plain(TSIT5, spec, **kw)
+        tdir = torch.sign(kw["t1"] - kw["t0"])
+        adj.update(zT=out_k[0], accT=out_k[1], dt_init=-tdir * out_k[4].abs())
+        adj_k = tfs.run_chain_adjoint_kernel(TSIT5, spec, **adj)
+        adj_p = tfs.adjoint_train_plain(TSIT5, spec, **adj)
+        adj_64 = _twin64(tfs.adjoint_train_plain, spec, adj)
+        test_k = tfs.run_chain_test_solve_kernel(TSIT5, spec, **test_kw)
+        test_p = tfs.solve_test_plain(TSIT5, spec, **test_kw)
+        ex_k = tfs.run_chain_exact_solve_kernel(TSIT5, spec, **exact_kw)
+        ex_p = tfs.solve_train_exact_plain(TSIT5, spec, **exact_kw)
+    torch.cuda.synchronize()
+    after = _launches()
+    ran = {k for k in after if after[k] != before[k]}
+    assert ran == {tfs.K1C_KERNEL, tfs.K2C_KERNEL, tfs.K7_KERNEL + "/test", tfs.K7_KERNEL + "/exact"}
+    assert all(after[k] == before[k] + 1 for k in ran)
+    return (out_k, out_p), (adj_k, adj_p, adj_64), (test_k, test_p), (ex_k, ex_p), kw
+
+
+def _hold_forward(out_k, out_p):
+    """Equal steps; z and each accumulator row within REL."""
+    assert (int(out_k[2]), int(out_k[3])) == (int(out_p[2]), int(out_p[3]))
+    assert torch.isfinite(out_k[0]).all() and torch.isfinite(out_k[1]).all()
+    assert _close(out_k[0], out_p[0])
+    B = out_k[0].shape[0]
+    assert all(_close(a, b) for a, b in zip(out_k[1].reshape(-1, B), out_p[1].reshape(-1, B)))
+
+
+@pytest.mark.parametrize(
+    "dims,B,span",
+    [
+        (POWER6, 4096, (0.0, 1.0)),
+        (POWER6, 4096, (1.0, 0.0)),
+        (POWER6, 37, (0.0, 1.0)),
+        ((5, 9, 7, 5), 300, (0.0, 2.0)),
+        ((6, 32, 32, 32, 6), 512, (0.0, 1.0)),
+        ((16, 64, 64, 64, 16), 256, (0.0, 1.0)),
+        ((32, 64, 64, 32), 128, (0.0, 1.0)),
+        ((1, 64, 64, 1), 1000, (0.0, 1.0)),
+        ((16, 48, 16), 4096, (0.0, 13.0)),
+    ],
+    ids=["power6-B4096", "power6-reverse", "power6-ragged-B37", "small-B300", "four-layer", "four-layer-dz16-w64",
+         "dz32", "beta-shape", "two-layer-flagship"],
+)
+def test_chain_kernels_match_twins(dev, dims, B, span):
+    (out_k, out_p), (adj_k, adj_p, adj_64), test, exact, _ = _chain_case(dims, B, span, dev)
+    _hold_forward(out_k, out_p)
+    _hold_forward(*test)
+    _hold_forward(*exact)
+    assert (int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6]))
+    for i in range(3):  # z0, acc0, a_z0
+        assert _state_close(adj_k[i], adj_p[i], adj_64[i])
+    for a, b in zip(adj_k[3] + adj_k[4], adj_p[3] + adj_p[4]):
+        assert torch.isfinite(a).all() and _grad_close(a, b)
+
+
+def test_chain_kernels_toy2d_with_both_norms_off(dev):
+    """The toy2d shape MLP 2 -> 32 -> 32 -> 2 under FFJORD's rates (no
+    kinetic-energy or Jacobian-norm rate)."""
+    (out_k, out_p), (adj_k, adj_p, adj_64), test, exact, kw = _chain_case(
+        (2, 32, 32, 2), 2048, (0.0, 1.0), dev, norms=(False, False)
+    )
+    _hold_forward(out_k, out_p)
+    _hold_forward(*test)
+    _hold_forward(*exact)
+    # Both norm rates are off: reg_e and reg_n keep their seeds exactly.
+    for acc in (out_k[1], exact[0][1]):
+        assert torch.equal(acc[1:], kw["acc0"][1:])
+    assert (int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6]))
+    for a, b in zip(adj_k[3] + adj_k[4], adj_p[3] + adj_p[4]):
+        assert _grad_close(a, b)
+
+
+@pytest.mark.parametrize("case", ["cap", "single-sample"])
+def test_chain_kernel_edge_cases_match_twins(dev, case):
+    dims = POWER6
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    kw, adj = _train_args(dims, 1 if case == "single-sample" else 64, (0.0, 1.0), dev)
+    test_kw = _kernel_args(dims, 1 if case == "single-sample" else 64, (0.0, 1.0), dev)
+    if case == "cap":
+        kw["max_steps"] = adj["max_steps"] = test_kw["max_steps"] = 5
+    exact_kw = {k: v for k, v in kw.items() if k != "eps"}
+    with torch.no_grad():
+        outs = [
+            (tfs.run_chain_train_solve_kernel(TSIT5, spec, **kw), tfs.solve_train_plain(TSIT5, spec, **kw)),
+            (tfs.run_chain_test_solve_kernel(TSIT5, spec, **test_kw), tfs.solve_test_plain(TSIT5, spec, **test_kw)),
+            (tfs.run_chain_exact_solve_kernel(TSIT5, spec, **exact_kw),
+             tfs.solve_train_exact_plain(TSIT5, spec, **exact_kw)),
+        ]
+        adj.update(zT=outs[0][1][0], accT=outs[0][1][1], dt_init=torch.tensor(-0.05, device=dev))
+        adj_k = tfs.run_chain_adjoint_kernel(TSIT5, spec, **adj)
+        adj_p = tfs.adjoint_train_plain(TSIT5, spec, **adj)
+        adj_64 = _twin64(tfs.adjoint_train_plain, spec, adj)
+    for k, p in outs:
+        assert (int(k[2]), int(k[3])) == (int(p[2]), int(p[3]))
+        if case == "cap":
+            # Where a capped solve stops follows step sizes set by an eest at
+            # f32 roundoff level, so only the counts are compared.
+            assert int(k[2]) == 5 and torch.isfinite(k[0]).all() and torch.isfinite(k[1]).all()
+        else:
+            _hold_forward(k, p)
+    if case == "cap":
+        assert int(adj_k[5]) == 5 and all(torch.isfinite(g).all() for g in adj_k[3] + adj_k[4])
+        return
+    # One sample: the g error estimate sits at roundoff (PERF.md §6), so
+    # the step count is held to the twin's own float32/float64 spread and
+    # the gradients to the float64 twin.
+    spread = abs(int(adj_p[5]) - int(adj_64[5]))
+    assert abs(int(adj_k[5]) - int(adj_p[5])) <= 2 * max(spread, 1)
+    for a, b in zip(adj_k[3] + adj_k[4], adj_64[3] + adj_64[4]):
+        assert _grad_close(a.double(), b)
+
+
+def test_chain_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """The power6 model on the card and on the CPU: logpdf through K7 TEST,
+    the Hutchinson loss and gradient through the K1 and K2 chain forms, and
+    the exact loss and gradient through K7 exact and the plain backward."""
+    xs = np.random.default_rng(4).normal(size=(512, 6)).astype(np.float32)
+    eps = np.random.default_rng(5).normal(size=(1, 512, 6)).astype(np.float32)
+    ps_np = _np_params(POWER6, 3)
+
+    def run(device, exact):
+        icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(POWER6, device=device), 6,
+                              compute_mode=tcnf.VecJacMode(fused=True, exact_trace=exact))
+        ps = tcnf.params_from_numpy(ps_np, device)
+        with torch.no_grad():
+            lp = tcnf.ICNFDist(icnf, tcnf.Mode.TEST, ps).logpdf(xs)
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        kw = {} if exact else {"eps": eps}
+        l, m = tcnf.loss_and_metrics(icnf, tcnf.Mode.TRAIN, xs, ps, **kw)
+        return lp.cpu(), l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)], int(m["nfe"])
+
+    for exact in (False, True):
+        before = _launches()
+        lp_k, l_k, g_k, nfe_k = run(dev, exact)
+        after = _launches()
+        ran = {k for k in after if after[k] != before[k]}
+        want = {tfs.K7_KERNEL + "/test"} | ({tfs.K7_KERNEL + "/exact"} if exact else {tfs.K1C_KERNEL, tfs.K2C_KERNEL})
+        assert ran == want
+        lp_c, l_c, g_c, nfe_c = run(torch.device("cpu"), exact)
+        assert nfe_k == nfe_c and _close(lp_k, lp_c) and _close(l_k, l_c)
+        for a, b in zip(g_k, g_c):
+            assert _grad_close(a, b)
+
+
+def test_deep_exact_adjoint_is_refused_on_the_card(dev):
+    """K7 is forward-only, as in the JAX package: the exact adjoint wrapper
+    refuses a 3-layer chain on the card, and the fused exact model has no
+    backward member."""
+    dims = (5, 9, 7, 5)
+    icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(dims, device=dev), 3, 2,
+                          compute_mode=tcnf.VecJacMode(fused=True, exact_trace=True))
+    assert tfs.make_full_solve(icnf, tcnf.Mode.TRAIN, 8).adjoint is None
+    spec = tfs.chain_spec(icnf.nn, 5)
+    kw, adj = _exact_args(dims, 8, (0.0, 1.0), dev)
+    adj.update(zT=kw["z0"], accT=kw["acc0"], dt_init=torch.tensor(-0.05, device=dev))
+    with pytest.raises(ValueError, match="forward-only"):
+        tfs.run_exact_adjoint_kernel(TSIT5, spec, **adj)

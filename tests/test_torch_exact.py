@@ -30,6 +30,9 @@ from continuousnf_tpu_torch.ode.tableaus import TSIT5
 from continuousnf_tpu_torch.ops import fused_solve as tfs
 from continuousnf_tpu_torch.ops.fused_dynamics import exact_dense_chain_jacobian as tchain_jac
 
+# The port's entry points default to the CUDA card; these tests run it on the CPU.
+tcnf.set_default_device("cpu")
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 FIELD_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)

@@ -14,6 +14,9 @@ from continuousnf_tpu.ops.fused_solve import make_full_solve as jfull
 from continuousnf_tpu_torch.ops import fused_solve as tfs
 from continuousnf_tpu_torch.ode.tableaus import TSIT5
 
+# The port's entry points default to the CUDA card; these tests run it on the CPU.
+tcnf.set_default_device("cpu")
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

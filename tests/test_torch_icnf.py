@@ -15,6 +15,9 @@ import torch
 import continuousnf_tpu as cnf
 import continuousnf_tpu_torch as tcnf
 
+# The port's entry points default to the CUDA card; these tests run it on the CPU.
+tcnf.set_default_device("cpu")
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 REPO = Path(__file__).resolve().parents[1]
 

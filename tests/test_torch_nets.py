@@ -12,6 +12,9 @@ import continuousnf_tpu_torch as tcnf
 from continuousnf_tpu.ops import fused_dynamics as jfd
 from continuousnf_tpu_torch.ops import fused_dynamics as tfd
 
+# The port's entry points default to the CUDA card; these tests run it on the CPU.
+tcnf.set_default_device("cpu")
+
 
 def _np_params(dims, seed, bias_scale=0.1):
     rng = np.random.default_rng(seed)

@@ -23,6 +23,9 @@ from continuousnf_tpu_torch.ode import tableaus as ttab
 from continuousnf_tpu_torch.ode.solve import odeint_with_stats as todeint
 from continuousnf_tpu_torch.ops.fused_solve import make_full_solve as tfull
 
+# The port's entry points default to the CUDA card; these tests run it on the CPU.
+tcnf.set_default_device("cpu")
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

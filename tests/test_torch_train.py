@@ -28,6 +28,9 @@ from continuousnf_tpu_torch.core.dynamics import make_augmented_dynamics as tdyn
 from continuousnf_tpu_torch.ode.tableaus import TSIT5
 from continuousnf_tpu_torch.ops import fused_solve as tfs
 
+# The port's entry points default to the CUDA card; these tests run it on the CPU.
+tcnf.set_default_device("cpu")
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 FIELD_TOL = dict(rtol=1e-5, atol=1e-5)
 REPO = Path(__file__).resolve().parents[1]
@@ -331,6 +334,7 @@ def test_package_trains_without_jax():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import numpy as np, torch, continuousnf_tpu_torch as t\n"
+        "t.set_default_device('cpu')\n"
         "icnf = t.construct(t.RNODE, t.MLP((5, 15, 5)), 3, 2, steer_rate=0.1, compute_mode=t.VecJacMode(fused=True))\n"
         "ps = icnf.init(torch.Generator().manual_seed(0))\n"
         "leaves = [p[k].requires_grad_() for p in ps for k in ('w', 'b')]\n"
