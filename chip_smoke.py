@@ -22,7 +22,17 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     (RNODE, nvars = 6, MLP 6 -> 64 -> 64 -> 6 tanh, lambda1 = lambda2 =
     1e-2, tspan (0, 1), no steering, one VJP probe, batch 4096) served
     through K7 TEST, trained through the K1 and K2 chain forms and, under
-    exact trace, through the K7 exact forward with the plain backward.
+    exact trace, through the K7 exact forward with the plain backward;
+  * the conditional recipe of continuousnf_tpu/recipes.py:254-289 (BASELINE
+    config #3: CondRNODE, nvars = 1, one conditioning input y, MLP
+    2 -> 64 -> 64 -> 1 tanh on [x | y], lambda1 = lambda2 = 1e-2, tspan
+    (0, 13), steer_rate 0.1, data y ~ U(-1, 1), x | y ~ N(0.7 y, 0.3^2)):
+    `CondICNFDist(icnf, Mode.TEST, ps, ys).logpdf` at B = 4096 with per-sample
+    ys and `.sample(4096)` with one ys, through K7 TEST with conditioning
+    rows (K8); `fit(CondICNFModel(icnf, n_epochs=1, batch_size=128), X, Y)`
+    on 512 samples, four Lion steps through the K1 and K2 chain forms with
+    conditioning rows and the ys cotangent; under exact trace the K7 exact
+    forward with conditioning rows.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -87,7 +97,39 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      held as in phase 12, and the exact `fit` for four Lion steps: K7 exact
      launched at least four times;
  22. CUDA-event timings of the chain kernels, their plain versions, the
-     power6 train steps and logpdf.
+     power6 train steps and logpdf;
+ 23. the conditional recipe's model with Glorot weights and N(0, 0.05)
+     biases and 4096 pairs (x, y) of its data, and the chain kernels'
+     shared memory at its widths;
+ 24. the K1 chain form with ys against `solve_train_plain` from nonzero
+     accumulators, and the K2 chain form with ys against
+     `adjoint_train_plain` from its output with its last step as the warm
+     start (bounds as K1's and K2's; a_ys0 and the ys rows of g_W0 held
+     like the other gradients).  With one state dimension the norm rates
+     have kinks, and a solve can sit at a near-tie of the step controller
+     (continuousnf_tpu_torch/utils/near_tie.py): a conditional solve that
+     misses its twin's bound passes only if its twin's own steps or values
+     move when its inputs move by one float32 ulp, and then only within the
+     near-tie rule (steps within the twin's own range, each value within 4x
+     the twin's own move of it);
+ 25. K7 TEST and K7 exact with ys against their twins (bounds as K1's, the
+     same near-tie gate);
+ 26. the serving path through CondICNFDist (logpdf with per-sample ys,
+     sample with one ys), counters reset just before it: K7 TEST launched
+     by both and no other kernel; logpdf through the kernel against the
+     plain path;
+ 27. the Hutchinson loss and its gradient in the params and in ys at
+     B = 4096 through fused=True and fused=False, held as in phase 19;
+ 28. the training path, `fit` at batch 128 for four Lion steps, counters
+     reset just before it: the K1 and K2 chain forms each launched at least
+     four times; then the exact loss and gradient at B = 512 (K7 exact
+     forward, plain backward) held as in phase 21, and the exact `fit` at
+     batch 128 for four Lion steps: K7 exact launched at least four times;
+     then the K1 and K2 chain forms and K7 exact on the inputs the fits'
+     first steps gave them (the recipe's own batch of 128), held to their
+     twins as in phases 24 and 25;
+ 29. CUDA-event timings of the conditional kernels, their plain versions,
+     the train steps at B = 128 and 4096, logpdf and sample.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call) at 67 TFLOP/s f32 and the bytes of its inputs and outputs at
@@ -96,6 +138,7 @@ kernels' JSON record, the nvidia-smi line, and {"ok": true, "device":
 {...}}.  Without a CUDA device it exits nonzero and prints no result.
 """
 
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -156,70 +199,115 @@ def hold_backward_state(label, out_k, out_p, out_64):
               f"to the float32 twin {e_kp:.3e}")
 
 
-def hold_forward(label, out_k, out_p) -> float:
+def hold_near_tie(label, out_k, out_p, twin, spec, kw, state) -> None:
+    """A solve that misses its twin's bound passes only on an input whose
+    twin shows a near-tie of the step controller: `near_tie.witness` runs
+    the twin again with its inputs moved by one float32 ulp (the state
+    `state` alone, then every input), and its steps or values must move
+    (by more than TOL for a forward, GRAD_TOL for an adjoint).  The kernel
+    must then meet `near_tie.within_near_tie`: attempted steps within the
+    range of the twin's own, each value within max(TOL, 4x the twin's own
+    move of that value) of the twin's (gradients and a_ys0: GRAD_TOL).  The
+    float64 twin's distances are printed beside them."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils import near_tie
+
+    steps, spreads = near_tie.witness(twin, TSIT5, spec, kw, state, ref=out_p)
+    s_p = near_tie.split(out_p)[0]
+    shown = near_tie.shows_near_tie(s_p, steps, spreads, TOL if len(out_p) == 5 else GRAD_TOL)
+    print(f"{label}: the twin under one-ulp moves of its inputs: steps {steps}, spread {max(spreads):.3e}"
+          + (" (a near-tie)" if shown else " (no near-tie)"))
+    check(shown, f"{label} misses its twin's bound, and its twin shows no near-tie")
+    holds, line = near_tie.within_near_tie(out_k, out_p, steps, spreads, TOL, GRAD_TOL)
+    print(f"{label}, the near-tie rule: {line}")
+    with torch.no_grad():
+        out_64 = twin(TSIT5, spec, **{k: to64(v) for k, v in kw.items()})
+    (s_k, v_k), (_, v_p), (s_64, v_64) = (near_tie.split(o) for o in (out_k, out_p, out_64))
+    print(f"{label}, beside the float64 twin ({s_64} steps; the kernel {s_k}, the twin {s_p}): relative distance "
+          + ", ".join(f"kernel {near_tie.rel(a, c):.3e} twin {near_tie.rel(b, c):.3e}" for a, b, c in zip(v_k, v_p, v_64)))
+    check(holds, f"{label} misses the near-tie rule: {line}")
+
+
+def hold_forward(label, out_k, out_p, near=None) -> float:
     """A forward kernel's (zT, accT, steps, accepted, dt_last) against its
     twin's: equal attempted and accepted steps, finite values, z and each
-    accumulator row within TOL * max(1, max|.|).  Returns the largest
-    absolute difference."""
+    accumulator row within TOL * max(1, max|.|).  Given `near` = (twin,
+    spec, kwargs), a solve that misses that bound is held to the near-tie
+    rule instead (`hold_near_tie`), on an input whose twin shows a
+    near-tie.  Returns the largest absolute difference."""
     import torch
 
-    check((int(out_k[2]), int(out_k[3])) == (int(out_p[2]), int(out_p[3])),
-          f"{label} steps/accepted {int(out_k[2])}/{int(out_k[3])} != plain {int(out_p[2])}/{int(out_p[3])}")
-    check(bool(torch.isfinite(out_k[0]).all() and torch.isfinite(out_k[1]).all()), f"{label} output not finite")
     B = out_k[0].shape[0]
-    errs = [rel_err(out_k[0], out_p[0])] + [rel_err(a, b) for a, b in zip(out_k[1].reshape(-1, B),
-                                                                           out_p[1].reshape(-1, B))]
-    check(max(errs) <= TOL, f"{label} differs from its twin: z and accumulator rows relative errors {errs}")
-    print(f"{label} vs plain: steps {int(out_k[2])}, relative errors z and accumulators "
-          + ", ".join(f"{e:.3e}" for e in errs) + f"; dt_last {float(out_k[4]):.5f} vs {float(out_p[4]):.5f}")
+    rows = lambda o: [o[0]] + list(o[1].reshape(-1, B))  # noqa: E731
+    errs = [rel_err(a, b) for a, b in zip(rows(out_k), rows(out_p))]
+    print(f"{label} vs plain: steps {int(out_k[2])}/{int(out_k[3])} (plain {int(out_p[2])}/{int(out_p[3])}), "
+          "relative errors z and accumulators " + ", ".join(f"{e:.3e}" for e in errs)
+          + f"; dt_last {float(out_k[4]):.5f} vs {float(out_p[4]):.5f}")
+    check(bool(torch.isfinite(out_k[0]).all() and torch.isfinite(out_k[1]).all()), f"{label} output not finite")
+    if (int(out_k[2]), int(out_k[3])) != (int(out_p[2]), int(out_p[3])) or max(errs) > TOL:
+        check(near is not None, f"{label} differs from its twin: steps {int(out_k[2])}/{int(out_k[3])} vs "
+              f"{int(out_p[2])}/{int(out_p[3])}, z and accumulator rows relative errors {errs}")
+        hold_near_tie(label, out_k, out_p, *near, "z0")
     return max(float((out_k[0] - out_p[0]).abs().max()), float((out_k[1] - out_p[1]).abs().max()))
 
 
-def hold_adjoint(label, adj_k, adj_p, adj_64) -> float:
+def hold_adjoint(label, adj_k, adj_p, adj_64, near=None) -> float:
     """A Hutchinson adjoint kernel's (z0, acc0, a_z0, g_ws, g_bs, steps,
-    accepted) against its twin's: equal steps, finite values, z0 and a_z0
-    held to the float64 twin, each gradient within GRAD_TOL * max(1,
-    max|g|).  Returns the largest absolute difference."""
+    accepted[, a_ys0]) against its twin's: equal steps, finite values, z0
+    and a_z0 held to the float64 twin, each gradient (and a_ys0, the
+    conditioning's per-sample cotangent) within GRAD_TOL * max(1, max|g|).
+    Given `near` = (twin, spec, kwargs), a solve that misses the steps or
+    the gradients' bound is held to the near-tie rule instead
+    (`hold_near_tie`).  Returns the largest absolute difference."""
     import torch
 
-    check((int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6])),
-          f"{label} steps/accepted {int(adj_k[5])}/{int(adj_k[6])} != plain {int(adj_p[5])}/{int(adj_p[6])}")
-    check(all(bool(torch.isfinite(x).all()) for x in [adj_k[0], adj_k[2]] + adj_k[3] + adj_k[4]),
-          f"{label} output not finite")
-    hold_backward_state(label, adj_k, adj_p, adj_64)
-    e_g = [rel_err(a, b) for a, b in zip(adj_k[3] + adj_k[4], adj_p[3] + adj_p[4])]
-    check(max(e_g) <= GRAD_TOL, f"{label} parameter gradients (ws, then bs) differ from the twin: {e_g}")
-    print(f"{label} vs plain: steps {int(adj_k[5])}, gradient relative errors (ws, then bs) "
-          + ", ".join(f"{e:.3e}" for e in e_g))
-    return max(float((a - b).abs().max()) for a, b in zip(
-        [adj_k[0], adj_k[2]] + adj_k[3] + adj_k[4], [adj_p[0], adj_p[2]] + adj_p[3] + adj_p[4]))
+    grads_k, grads_p = adj_k[3] + adj_k[4] + list(adj_k[7:]), adj_p[3] + adj_p[4] + list(adj_p[7:])
+    check(all(bool(torch.isfinite(x).all()) for x in [adj_k[0], adj_k[2]] + grads_k), f"{label} output not finite")
+    e_g = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
+    print(f"{label} vs plain: steps {int(adj_k[5])}/{int(adj_k[6])} (plain {int(adj_p[5])}/{int(adj_p[6])}), "
+          "gradient relative errors (ws, bs[, a_ys0]) " + ", ".join(f"{e:.3e}" for e in e_g))
+    if (int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6])) and max(e_g) <= GRAD_TOL:
+        hold_backward_state(label, adj_k, adj_p, adj_64)
+    else:
+        check(near is not None, f"{label} differs from its twin: steps {int(adj_k[5])}/{int(adj_k[6])} vs "
+              f"{int(adj_p[5])}/{int(adj_p[6])}, gradients (ws, bs[, a_ys0]) {e_g}")
+        hold_near_tie(label, adj_k, adj_p, *near, "zT")
+    return max(float((a - b).abs().max()) for a, b in zip([adj_k[0], adj_k[2]] + grads_k,
+                                                          [adj_p[0], adj_p[2]] + grads_p))
 
 
-def hold_logpdf(cnf, label, icnf_k, icnf_p, xs, ps) -> None:
+def hold_logpdf(cnf, label, icnf_k, icnf_p, xs, ps, ys=None) -> None:
     """TEST inference through the kernel against the plain path at B = 16
-    and BATCH: equal steps, logp within TOL * max(1, max|logp|)."""
+    and BATCH (given ys, with its first rows): equal steps, logp within
+    TOL * max(1, max|logp|)."""
     import torch
 
     for n in (16, BATCH):
+        kw = {} if ys is None else {"ys": ys[:n]}
         with torch.no_grad():
-            lp_k, _, st_k = cnf.inference(icnf_k, cnf.Mode.TEST, xs[:n], ps)
-            lp_p, _, st_p = cnf.inference(icnf_p, cnf.Mode.TEST, xs[:n], ps)
+            lp_k, _, st_k = cnf.inference(icnf_k, cnf.Mode.TEST, xs[:n], ps, **kw)
+            lp_p, _, st_p = cnf.inference(icnf_p, cnf.Mode.TEST, xs[:n], ps, **kw)
         dlp = float((lp_k - lp_p).abs().max())
         check(int(st_k.steps) == int(st_p.steps), f"{label} B={n}: steps {int(st_k.steps)} != {int(st_p.steps)}")
         check(dlp <= TOL * max(1.0, float(lp_p.abs().max())), f"{label} B={n}: logp differs by {dlp}")
         print(f"{label} logpdf B={n}: steps {int(st_k.steps)}, nfe {int(st_k.nfe)}, max|dlogp| {dlp:.3e}")
 
 
-def loss_grad(cnf, icnf, ps_np, xs, dev, dtype=None, **kw):
-    """One TRAIN loss and its gradient in the params' leaves (w1, b1, w2, b2)."""
+def loss_grad(cnf, icnf, ps_np, xs, dev, dtype=None, ys=None, **kw):
+    """One TRAIN loss and its gradient in the params' leaves (w1, b1, w2,
+    b2, ...) and, given the conditioning ys, in ys (last)."""
     import torch
 
     dtype = dtype or torch.float32
     p = cnf.params_from_numpy(ps_np, dev)
     leaves = [x.to(dtype).requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
     p = tuple({"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2]))
+    if ys is not None:
+        ys = ys.to(dtype).requires_grad_()
+        kw["ys"] = ys
     l, m = cnf.loss_and_metrics(icnf, cnf.Mode.TRAIN, xs.to(dtype), p, **kw)
-    return l.detach(), torch.autograd.grad(l, leaves), m
+    return l.detach(), torch.autograd.grad(l, leaves + ([] if ys is None else [ys])), m
 
 
 def kernel_record(name, source, replaces, launches, err, ms, plain_ms, fma, B, steps, floats):
@@ -249,21 +337,26 @@ def two_layer_fma(dz, H):
             "k4": 2 * dz * H + dz * dz * H, "k4a": 3 * dz * dz * H + 6 * dz * H}
 
 
-def chain_fma(dims):
-    """The same for the chain kernels, with S = sum in_i out_i: the K1 chain
-    form 2 S (forward, pullback); K7 exact S plus dz columns of H1 +
+def chain_fma(dims, n_cond=0):
+    """The same for the chain kernels, with S = sum in_i out_i (the first
+    layer at dz + n_cond inputs: the forward pass) and Sz = S - n_cond H1
+    (its z rows only: the pullback and the basis push): the K1 chain form
+    S + Sz (forward, pullback); K7 exact S plus dz columns of H1 +
     sum_(i>0) in_i out_i; K7 TEST S plus dz columns of H1 + the middle
     layers' in_i out_i + H_(N-1) (only the diagonal entry of the last
-    layer's product); the K2 chain form 6 S + sum out_i (four passes and the
-    outer products)."""
+    layer's product); the K2 chain form 2 S + 4 Sz + n_cond H1 + sum out_i
+    (four passes, the ys cotangent, and the outer products: ys x ca_0 alone
+    for the ys rows)."""
     pairs = list(zip(dims[:-1], dims[1:]))
     S = sum(a * b for a, b in pairs)
+    Sz = S - n_cond * dims[1]
     middle = sum(a * b for a, b in pairs[1:-1])
-    return {"k1c": 2 * S, "k7e": S + dims[0] * (dims[1] + middle + dims[-2] * dims[-1]),
-            "k7t": S + dims[0] * (dims[1] + middle + dims[-2]), "k2c": 6 * S + sum(dims[1:])}
+    dz = dims[-1]
+    return {"k1c": S + Sz, "k7e": S + dz * (dims[1] + middle + dims[-2] * dz),
+            "k7t": S + dz * (dims[1] + middle + dims[-2]), "k2c": 2 * S + 4 * Sz + n_cond * dims[1] + sum(dims[1:])}
 
 
-def hold_gradients(label, l_k, g_k, l_p, g_p, l_t, g_t):
+def hold_gradients(label, l_k, g_k, l_p, g_p, l_t, g_t, names=None):
     """The fused and plain losses within 1e-4 relative, and both gradients
     within SOLVE_REL * max|g| of the float64 rtol 1e-7 solve.  The two
     backward solves run on different step grids: the fused one is
@@ -272,7 +365,7 @@ def hold_gradients(label, l_k, g_k, l_p, g_p, l_t, g_t):
     sits 3.5e-3 * max|g| from such a solve and its plain one 5e-4 (PERF.md),
     so rtol 2e-3 between them is out of reach there."""
     check(abs(float(l_k - l_p)) <= TOL * max(1.0, abs(float(l_p))), f"{label} losses {float(l_k)} vs {float(l_p)}")
-    names = [f"{x}{i + 1}" for i in range(len(g_t) // 2) for x in ("w", "b")]
+    names = names or [f"{x}{i + 1}" for i in range(len(g_t) // 2) for x in ("w", "b")]
     for name, a, b, t in zip(names, g_k, g_p, g_t):
         d_k, d_p = float((a.double() - t).abs().max()), float((b.double() - t).abs().max())
         scale = float(t.abs().max())
@@ -282,13 +375,59 @@ def hold_gradients(label, l_k, g_k, l_p, g_p, l_t, g_t):
               f"plain {d_p:.4e}; fused vs plain {float((a - b).abs().max()):.4e}")
 
 
-def fit_path(cnf, fs, icnf, ps_np, dev, X):
-    """`fit` for one epoch of N_STEPS Lion steps at BATCH on the data X
-    (numpy), every launch counter reset just before it.  Checks the step
-    count and finite losses and params; returns the FitResult."""
+class _Recorder:
+    """Stands in for a kernel wrapper: keeps a copy of the keyword arguments
+    of the first call and passes every call on to the wrapper.  Its
+    `launches` is the wrapper's own, so the count the wrapper keeps where it
+    launches lands where it always does."""
+
+    def __init__(self, wrapper):
+        self.wrapper, self.first = wrapper, None
+
+    def __call__(self, tab, spec, **kw):
+        import torch
+
+        if self.first is None:
+            copy = lambda v: v.detach().clone() if torch.is_tensor(v) else v  # noqa: E731
+            self.first = {k: [copy(x) for x in v] if isinstance(v, list) else copy(v) for k, v in kw.items()}
+        return self.wrapper(tab, spec, **kw)
+
+    @property
+    def launches(self):
+        return self.wrapper.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.wrapper.launches = n
+
+
+@contextlib.contextmanager
+def first_calls(fs, names):
+    """While open, each wrapper fs.<name> is looked up as a `_Recorder`; the
+    yielded dict then holds, under each name, the keyword arguments of the
+    first call the main path made to it."""
+    recorders = {name: _Recorder(getattr(fs, name)) for name in names}
+    seen = {}
+    for name, rec in recorders.items():
+        setattr(fs, name, rec)
+    try:
+        yield seen
+    finally:
+        for name, rec in recorders.items():
+            setattr(fs, name, rec.wrapper)
+    seen.update({name: rec.first for name, rec in recorders.items()})
+    check(all(v is not None for v in seen.values()), f"the main path did not call each of {names}")
+
+
+def fit_path(cnf, fs, icnf, ps_np, dev, X, Y=None, batch_size=BATCH):
+    """`fit` for one epoch of N_STEPS Lion steps at `batch_size` on the data
+    X (numpy; with the conditioning Y for a conditional model), every launch
+    counter reset just before it.  Checks the step count and finite losses
+    and params; returns the FitResult."""
     import torch
 
     X = torch.from_numpy(X).to(dev)
+    Y = None if Y is None else torch.from_numpy(Y).to(dev)
     lion_steps = []
 
     def lion(params):
@@ -297,8 +436,9 @@ def fit_path(cnf, fs, icnf, ps_np, dev, X):
         return opt
 
     fs.reset_launches()
-    res = cnf.fit(cnf.ICNFModel(icnf, optimizers=(lion,), n_epochs=1, batch_size=BATCH), X,
-                  ps=cnf.params_from_numpy(ps_np, dev), seed=SEED)
+    model = (cnf.ICNFModel if Y is None else cnf.CondICNFModel)(icnf, optimizers=(lion,), n_epochs=1,
+                                                                 batch_size=batch_size)
+    res = cnf.fit(model, X, Y, ps=cnf.params_from_numpy(ps_np, dev), seed=SEED)
     torch.cuda.synchronize()
     check(len(lion_steps) == N_STEPS, f"{len(lion_steps)} Lion steps, expected {N_STEPS}")
     check(bool(np.isfinite(res.losses).all()), f"fit losses {res.losses}")
@@ -315,15 +455,16 @@ def paired_ms(fa, fb, reps: int):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-def step_ms(cnf, icnf, ps_np, xs, gen, dev, reps):
+def step_ms(cnf, icnf, ps_np, xs, gen, dev, reps, ys=None, warmup=True):
     """CUDA-event milliseconds of one step of the step body (loss, gradient,
-    Lion)."""
+    Lion); a plain model's step, whose loss and gradient have run already,
+    goes without a warm-up call."""
     from continuousnf_tpu_torch.utils.configs import cuda_ms
 
     p = cnf.params_from_numpy(ps_np, dev)
     leaves = [x.requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
     step = cnf.parallel.make_train_step_body(icnf, cnf.Lion(leaves, lr=1e-3))
-    return cuda_ms(lambda: step(p, xs, gen), reps)
+    return cuda_ms(lambda: step(p, xs, gen, ys=ys), reps, warmup)
 
 
 def serving(cnf, fs, TSIT5, icnf_k, icnf_p, ps, xs, rng, dev):
@@ -374,9 +515,9 @@ def serving(cnf, fs, TSIT5, icnf_k, icnf_p, ps, xs, rng, dev):
         nfe = int(st.nfe)
         ms_k = cuda_ms(lambda: dist.logpdf(xs), 10)
         ms_s = cuda_ms(lambda: dist.sample(BATCH, generator=gen), 10)
-        ms_p = cuda_ms(lambda: cnf.inference(icnf_p, cnf.Mode.TEST, xs, ps), 3)
+        ms_p = cuda_ms(lambda: cnf.inference(icnf_p, cnf.Mode.TEST, xs, ps), 1, warmup=False)
         ms_kernel = cuda_ms(lambda: fs.run_solve_kernel(TSIT5, spec, **kw), 10)
-        ms_plain = cuda_ms(lambda: fs.solve_test_plain(TSIT5, spec, **kw), 3)
+        ms_plain = cuda_ms(lambda: fs.solve_test_plain(TSIT5, spec, **kw), 1, warmup=False)
     print(f"logpdf B={BATCH}: kernel {ms_k:.4f} ms ({BATCH / ms_k * 1e3:.1f} evals/s, "
           f"{ms_k * 1e3 / nfe:.3f} us/NFE), plain {ms_p:.4f} ms ({BATCH / ms_p * 1e3:.1f} evals/s); "
           f"steps {int(st.steps)}, NFE {nfe}")
@@ -465,14 +606,14 @@ def training(cnf, fs, TSIT5, icnf_k, icnf_p, ps_np, xs, rng, dev):
     hold_forward("K1 chain form, 2 layers", out_c, out_p)
     hold_adjoint("K2 chain form, 2 layers", adj_c, adj_p, adj_64)
     ms_step = step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 5)
-    ms_step_p = step_ms(cnf, icnf_p, ps_np, xs, gen, dev, 1)
+    ms_step_p = step_ms(cnf, icnf_p, ps_np, xs, gen, dev, 1, warmup=False)
     with torch.no_grad():
         ms_k1, ms_k1c = paired_ms(lambda: fs.run_train_solve_kernel(TSIT5, spec, **kw1),
                                   lambda: fs.run_chain_train_solve_kernel(TSIT5, spec, **kw1), 10)
-        ms_p1 = cuda_ms(lambda: fs.solve_train_plain(TSIT5, spec, **kw1), 3)
+        ms_p1 = cuda_ms(lambda: fs.solve_train_plain(TSIT5, spec, **kw1), 1, warmup=False)
         ms_k2, ms_k2c = paired_ms(lambda: fs.run_adjoint_kernel(TSIT5, spec, **kw2),
                                   lambda: fs.run_chain_adjoint_kernel(TSIT5, spec, **kw2), 10)
-        ms_p2 = cuda_ms(lambda: fs.adjoint_train_plain(TSIT5, spec, **kw2), 2)
+        ms_p2 = cuda_ms(lambda: fs.adjoint_train_plain(TSIT5, spec, **kw2), 1, warmup=False)
         b = BATCH // 8
         kw1_b = dict(kw1, z0=kw1["z0"][:b], eps=eps[:, :b], acc0=kw1["acc0"][:, :b])
         out_b = fs.run_train_solve_kernel(TSIT5, spec, **kw1_b)
@@ -574,12 +715,12 @@ def exact_training(cnf, fs, TSIT5, ps_np, xs, rng, dev):
 
     # Phase 14: timings.
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    steps = [step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 5), step_ms(cnf, icnf_p, ps_np, xs, gen, dev, 1)]
+    steps = [step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 5), step_ms(cnf, icnf_p, ps_np, xs, gen, dev, 1, warmup=False)]
     with torch.no_grad():
         ms_f = cuda_ms(lambda: fs.run_exact_solve_kernel(TSIT5, spec, **kw1), 10)
-        ms_pf = cuda_ms(lambda: fs.solve_train_exact_plain(TSIT5, spec, **kw1), 2)
+        ms_pf = cuda_ms(lambda: fs.solve_train_exact_plain(TSIT5, spec, **kw1), 1, warmup=False)
         ms_a = cuda_ms(lambda: fs.run_exact_adjoint_kernel(TSIT5, spec, **kw2), 5)
-        ms_pa = cuda_ms(lambda: fs.adjoint_train_exact_plain(TSIT5, spec, **kw2), 1)
+        ms_pa = cuda_ms(lambda: fs.adjoint_train_exact_plain(TSIT5, spec, **kw2), 1, warmup=False)
     print(f"exact train step B={BATCH} (loss, gradient, Lion): fused {steps[0]:.4f} ms "
           f"({BATCH / steps[0] * 1e3:.1f} samples/s), plain {steps[1]:.4f} ms ({BATCH / steps[1] * 1e3:.1f} samples/s)")
     print(f"K4 forward alone: {ms_f:.4f} ms, plain version {ms_pf:.4f} ms ({int(out_k[2])} steps, "
@@ -728,12 +869,12 @@ def deep_chain(cnf, fs, TSIT5, rng, dev):
     # Phase 22: timings.
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     ms_step = step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 5)
-    ms_step_p = step_ms(cnf, icnf_p, ps_np, xs, gen, dev, 1)
+    ms_step_p = step_ms(cnf, icnf_p, ps_np, xs, gen, dev, 1, warmup=False)
     ms_estep = step_ms(cnf, icnf_ek, ps_np, xs, gen, dev, 2)
     with torch.no_grad():
         _, _, st = cnf.inference(icnf_k, cnf.Mode.TEST, xs, ps)
         ms_lp = cuda_ms(lambda: dist.logpdf(xs), 10)
-        ms_lp_p = cuda_ms(lambda: cnf.inference(icnf_p, cnf.Mode.TEST, xs, ps), 2)
+        ms_lp_p = cuda_ms(lambda: cnf.inference(icnf_p, cnf.Mode.TEST, xs, ps), 1, warmup=False)
         times = {}
         for name, kernel, plain, kw in (
             ("k1c", fs.run_chain_train_solve_kernel, fs.solve_train_plain, kw1),
@@ -741,7 +882,8 @@ def deep_chain(cnf, fs, TSIT5, rng, dev):
             ("k7t", fs.run_chain_test_solve_kernel, fs.solve_test_plain, kwt),
             ("k7e", fs.run_chain_exact_solve_kernel, fs.solve_train_exact_plain, kwe),
         ):
-            times[name] = (cuda_ms(lambda: kernel(TSIT5, spec, **kw), 5), cuda_ms(lambda: plain(TSIT5, spec, **kw), 1))
+            times[name] = (cuda_ms(lambda: kernel(TSIT5, spec, **kw), 5),
+                           cuda_ms(lambda: plain(TSIT5, spec, **kw), 1, warmup=False))
     print(f"power6 train step B={BATCH} (loss, gradient, Lion): fused {ms_step:.4f} ms "
           f"({BATCH / ms_step * 1e3:.1f} samples/s), plain {ms_step_p:.4f} ms ({BATCH / ms_step_p * 1e3:.1f} samples/s)")
     print(f"power6 exact train step B={BATCH}: fused forward, plain backward {ms_estep:.4f} ms "
@@ -765,6 +907,208 @@ def deep_chain(cnf, fs, TSIT5, rng, dev):
                       n_k7t, abs_t, *times["k7t"], fma["k7t"], BATCH, t_k[2], P + BATCH * (2 * dz + 2)),
         kernel_record(fs.K7_KERNEL + "/exact", "k7_chain_solve.cu", "continuousnf_tpu/ops/fused_solve.py:1043",
                       n_k7e, abs_e, *times["k7e"], fma["k7e"], BATCH, e_k[2], P + BATCH * (2 * dz + 6)),
+    ]
+
+
+def conditional(cnf, fs, TSIT5, rng, dev):
+    """Phases 23 to 29: the conditional recipe through the chain kernels with
+    conditioning rows (K8).  Returns their records."""
+    import torch
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    cfg = MODELS["cond_gaussian"]
+    dims, nc, b_fit = cfg["dims"], cfg["n_cond"], cfg["batch_size"]
+    dz = dims[-1]
+    ps_np = glorot_params(rng, dims)
+    xs_np, ys_np = model_data("cond_gaussian", rng, BATCH)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    xs, ys = torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev)
+    T = lambda a: torch.from_numpy(a.astype("float32")).to(dev)
+
+    def model(fused: bool, exact: bool = False, dtype=torch.float32, **kw):
+        return make_icnf("cond_gaussian", dev, fused=fused, exact=exact, dtype=dtype, **kw)
+
+    icnf_k, icnf_p = model(True), model(False)
+    opts = icnf_k.solver
+    spec = fs.chain_spec(icnf_k.nn, dz)
+    widths = ", ".join(str(w) for w in dims)
+    for lib_name, fn in ((fs.K1C_KERNEL, "cnf_k1c_smem_bytes"), (fs.K7_KERNEL, "cnf_k7_smem_bytes"),
+                         (fs.K2C_KERNEL, "cnf_k2c_smem_bytes")):
+        arr = (ctypes.c_int * len(dims))(*dims)
+        sizes = {blk: getattr(fs._library(lib_name), fn)(len(dims) - 1, arr, blk) for blk in (128, 64, 32)}
+        print(f"{lib_name} dynamic shared memory per block at widths ({widths}), {nc} conditioning input: "
+              + ", ".join(f"{v} bytes at {k} threads" for k, v in sizes.items()))
+    t1 = cfg["tspan"][1]
+    base = dict(rtol=opts.rtol, atol=opts.atol, max_steps=opts.max_steps,
+                ws=[p["w"] for p in ps], bs=[p["b"] for p in ps], ys=ys)
+    span = dict(t0=torch.tensor(0.0, device=dev), t1=torch.tensor(t1, device=dev),
+                dt_init=torch.tensor(0.05, device=dev))
+
+    # Phase 24: the K1 chain form with ys from nonzero accumulators, the K2
+    # chain form with ys from its output.
+    eps = T(rng.normal(size=(1, BATCH, dz)))
+    train = dict(base, norm_z=True, norm_j=True, eps=eps)
+    kw1 = dict(train, z0=xs, acc0=T(rng.normal(0.0, 0.1, (3, BATCH))), **span)
+    with torch.no_grad():
+        out_k = fs.run_chain_train_solve_kernel(TSIT5, spec, **kw1)
+        out_p = fs.solve_train_plain(TSIT5, spec, **kw1)
+    torch.cuda.synchronize()
+    abs1 = hold_forward("K1 chain form with ys", out_k, out_p, (fs.solve_train_plain, spec, kw1))
+    kw2 = dict(train, zT=out_k[0], accT=out_k[1], azT=T(rng.normal(0.0, 1.0 / BATCH, (BATCH, dz))),
+               aaccT=T(np.stack([np.full(BATCH, 1.0 / BATCH), np.full(BATCH, 1e-2 / BATCH),
+                                 np.full(BATCH, 1e-2 / BATCH)])),
+               t_hi=torch.tensor(t1, device=dev), t_lo=torch.tensor(0.0, device=dev), dt_init=-out_k[4].abs())
+    with torch.no_grad():
+        adj_k = fs.run_chain_adjoint_kernel(TSIT5, spec, **kw2)
+        adj_p = fs.adjoint_train_plain(TSIT5, spec, **kw2)
+        adj_64 = fs.adjoint_train_plain(TSIT5, spec, **{k: to64(v) for k, v in kw2.items()})
+    torch.cuda.synchronize()
+    abs2 = hold_adjoint("K2 chain form with ys", adj_k, adj_p, adj_64, (fs.adjoint_train_plain, spec, kw2))
+    check(len(adj_k) == 8 and float(adj_k[3][0][dz:].abs().max()) > 0.0,
+          "the K2 chain form returned no a_ys0 or a zero gradient for the ys rows of W0")
+
+    # Phase 25: K7 TEST and K7 exact with ys.
+    kwt = dict(base, z0=xs, dlogp0=T(rng.normal(0.0, 0.1, BATCH)), **span)
+    kwe = dict(base, norm_z=True, norm_j=True, z0=xs, acc0=T(rng.normal(0.0, 0.1, (3, BATCH))), **span)
+    with torch.no_grad():
+        t_k = fs.run_chain_test_solve_kernel(TSIT5, spec, **kwt)
+        t_p = fs.solve_test_plain(TSIT5, spec, **kwt)
+        e_k = fs.run_chain_exact_solve_kernel(TSIT5, spec, **kwe)
+        e_p = fs.solve_train_exact_plain(TSIT5, spec, **kwe)
+    torch.cuda.synchronize()
+    abs_t = hold_forward("K7 TEST with ys", t_k, t_p, (fs.solve_test_plain, spec, kwt))
+    abs_e = hold_forward("K7 exact with ys", e_k, e_p, (fs.solve_train_exact_plain, spec, kwe))
+
+    # Phase 26: serving through CondICNFDist, counters reset just before it.
+    hold_logpdf(cnf, "conditional", icnf_k, icnf_p, xs, ps, ys)
+    dist = cnf.CondICNFDist(icnf_k, cnf.Mode.TEST, ps, ys)
+    one = cnf.CondICNFDist(icnf_k, cnf.Mode.TEST, ps, torch.tensor([0.5], device=dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    k7t = fs.run_chain_test_solve_kernel
+    fs.reset_launches()
+    with torch.no_grad():
+        lp = dist.logpdf(xs)
+        n_logpdf = k7t.launches
+        samples = one.sample(BATCH, generator=gen)
+        n_sample = k7t.launches - n_logpdf
+    torch.cuda.synchronize()
+    n_k7t = k7t.launches
+    others = {k: w.launches for k, w in fs.KERNEL_WRAPPERS.items() if w is not k7t and w.launches}
+    check(n_logpdf >= 1 and n_sample >= 1 and not others,
+          f"K7 TEST launches: logpdf {n_logpdf}, sample {n_sample}; other kernels {others}")
+    check(tuple(lp.shape) == (BATCH,) and bool(torch.isfinite(lp).all()), "conditional logpdf not finite")
+    check(tuple(samples.shape) == (BATCH, 1) and bool(torch.isfinite(samples).all()), "conditional samples not finite")
+    print(f"conditional serving path: logpdf mean {float(lp.mean()):.4f}, samples given y = 0.5: mean "
+          f"{float(samples.mean()):.4f}, std {float(samples.std()):.4f}; K7 TEST launches {n_k7t}")
+
+    # Phase 27: the Hutchinson loss and its gradient in the params and ys.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    eps_s = icnf_k.draw_eps(gen, BATCH, dev)
+    steer_r = 0.05
+    n1, n2 = fs.run_chain_train_solve_kernel.launches, fs.run_chain_adjoint_kernel.launches
+    l_k, g_k, m_k = loss_grad(cnf, icnf_k, ps_np, xs, dev, ys=ys, eps=eps_s, steer_r=steer_r)
+    check((fs.run_chain_train_solve_kernel.launches, fs.run_chain_adjoint_kernel.launches) == (n1 + 1, n2 + 1),
+          "the fused conditional gradient did not run the K1 and K2 chain forms once each")
+    l_p, g_p, _ = loss_grad(cnf, icnf_p, ps_np, xs, dev, ys=ys, eps=eps_s, steer_r=steer_r)
+    icnf_t = model(False, dtype=torch.float64, solver=cnf.SolverOptions(rtol=1e-7, atol=1e-9))
+    l_t, g_t, _ = loss_grad(cnf, icnf_t, ps_np, xs, dev, torch.float64, ys=ys, eps=eps_s.double(), steer_r=steer_r)
+    torch.cuda.synchronize()
+    names = [f"{x}{i + 1}" for i in range(len(dims) - 1) for x in ("w", "b")] + ["ys"]
+    hold_gradients("conditional Hutchinson", l_k, g_k, l_p, g_p, l_t, g_t, names)
+    print(f"conditional train step B={BATCH}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} "
+          f"float64 {float(l_t):.6f}, forward NFE {int(m_k['nfe'])}")
+
+    # Phase 28: the training path at the recipe's batch, then the exact loss.
+    X, Y = model_data("cond_gaussian", np.random.default_rng(SEED + 12), N_STEPS * b_fit)
+    with first_calls(fs, ("run_chain_train_solve_kernel", "run_chain_adjoint_kernel")) as first:
+        res = fit_path(cnf, fs, icnf_k, ps_np, dev, X, Y, b_fit)
+    n_k1c, n_k2c = fs.run_chain_train_solve_kernel.launches, fs.run_chain_adjoint_kernel.launches
+    check(n_k1c >= N_STEPS and n_k2c >= N_STEPS, f"conditional fit launched the K1 chain form {n_k1c} and the K2 "
+          f"chain form {n_k2c} times")
+    print(f"conditional training path: fit {N_STEPS} Lion steps at B={b_fit}, epoch loss {float(res.losses[0]):.6f}, "
+          f"{float(res.metrics['samples_per_s'][0]):.1f} samples/s (host clock), K1 chain form launches {n_k1c}, "
+          f"K2 chain form launches {n_k2c}")
+    b_ex = 512
+    icnf_ek, icnf_ep = model(True, True), model(False, True)
+    n7 = fs.run_chain_exact_solve_kernel.launches
+    l_k, g_k, _ = loss_grad(cnf, icnf_ek, ps_np, xs[:b_ex], dev, ys=ys[:b_ex], steer_r=steer_r)
+    check(fs.run_chain_exact_solve_kernel.launches == n7 + 1, "the exact conditional gradient did not run K7 exact once")
+    l_p, g_p, _ = loss_grad(cnf, icnf_ep, ps_np, xs[:b_ex], dev, ys=ys[:b_ex], steer_r=steer_r)
+    icnf_t = model(False, True, torch.float64, solver=cnf.SolverOptions(rtol=1e-7, atol=1e-9))
+    l_t, g_t, _ = loss_grad(cnf, icnf_t, ps_np, xs[:b_ex], dev, torch.float64, ys=ys[:b_ex], steer_r=steer_r)
+    torch.cuda.synchronize()
+    hold_gradients(f"conditional exact B={b_ex}", l_k, g_k, l_p, g_p, l_t, g_t, names)
+    with first_calls(fs, ("run_chain_exact_solve_kernel",)) as first_exact:
+        res = fit_path(cnf, fs, icnf_ek, ps_np, dev, X, Y, b_fit)
+    n_k7e = fs.run_chain_exact_solve_kernel.launches
+    check(n_k7e >= N_STEPS, f"conditional exact fit launched K7 exact {n_k7e} times")
+    print(f"conditional exact training path: fit {N_STEPS} Lion steps at B={b_fit}, epoch loss "
+          f"{float(res.losses[0]):.6f}, K7 exact launches {n_k7e}")
+
+    # The recipe's own training batch: the K1 and K2 chain forms and K7
+    # exact on the inputs the fits' first steps gave them (their first B =
+    # 128 rows of X and Y, probe, steered span and first step), held to the
+    # twins as at B = 4096.
+    first.update(first_exact)
+    with torch.no_grad():
+        kw = first["run_chain_train_solve_kernel"]
+        f_k = fs.run_chain_train_solve_kernel(TSIT5, spec, **kw)
+        f_p = fs.solve_train_plain(TSIT5, spec, **kw)
+        hold_forward(f"K1 chain form with ys, fit batch B={b_fit}", f_k, f_p, (fs.solve_train_plain, spec, kw))
+        kw = first["run_chain_adjoint_kernel"]
+        a_k = fs.run_chain_adjoint_kernel(TSIT5, spec, **kw)
+        a_p = fs.adjoint_train_plain(TSIT5, spec, **kw)
+        a_64 = fs.adjoint_train_plain(TSIT5, spec, **{k: to64(v) for k, v in kw.items()})
+        hold_adjoint(f"K2 chain form with ys, fit batch B={b_fit}", a_k, a_p, a_64, (fs.adjoint_train_plain, spec, kw))
+        kw = first["run_chain_exact_solve_kernel"]
+        x_k = fs.run_chain_exact_solve_kernel(TSIT5, spec, **kw)
+        x_p = fs.solve_train_exact_plain(TSIT5, spec, **kw)
+        hold_forward(f"K7 exact with ys, fit batch B={b_fit}", x_k, x_p, (fs.solve_train_exact_plain, spec, kw))
+
+    # Phase 29: timings.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    ms_step = step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 5, ys)
+    ms_step_p = step_ms(cnf, icnf_p, ps_np, xs, gen, dev, 1, ys, warmup=False)
+    ms_small = step_ms(cnf, icnf_k, ps_np, xs[:b_fit], gen, dev, 10, ys[:b_fit])
+    ms_small_p = step_ms(cnf, icnf_p, ps_np, xs[:b_fit], gen, dev, 1, ys[:b_fit], warmup=False)
+    with torch.no_grad():
+        _, _, st = cnf.inference(icnf_k, cnf.Mode.TEST, xs, ps, ys=ys)
+        ms_lp = cuda_ms(lambda: dist.logpdf(xs), 10)
+        ms_lp_p = cuda_ms(lambda: cnf.inference(icnf_p, cnf.Mode.TEST, xs, ps, ys=ys), 1, warmup=False)
+        ms_s = cuda_ms(lambda: one.sample(BATCH, generator=gen), 10)
+        times = {}
+        for name, kernel, plain, kw in (
+            ("k1c", fs.run_chain_train_solve_kernel, fs.solve_train_plain, kw1),
+            ("k2c", fs.run_chain_adjoint_kernel, fs.adjoint_train_plain, kw2),
+            ("k7t", fs.run_chain_test_solve_kernel, fs.solve_test_plain, kwt),
+            ("k7e", fs.run_chain_exact_solve_kernel, fs.solve_train_exact_plain, kwe),
+        ):
+            times[name] = (cuda_ms(lambda: kernel(TSIT5, spec, **kw), 5),
+                           cuda_ms(lambda: plain(TSIT5, spec, **kw), 1, warmup=False))
+    print(f"conditional train step B={BATCH} (loss, gradient, Lion): fused {ms_step:.4f} ms "
+          f"({BATCH / ms_step * 1e3:.1f} samples/s), plain {ms_step_p:.4f} ms ({BATCH / ms_step_p * 1e3:.1f} samples/s)")
+    print(f"conditional train step B={b_fit}: fused {ms_small:.4f} ms ({b_fit / ms_small * 1e3:.1f} samples/s), "
+          f"plain {ms_small_p:.4f} ms ({b_fit / ms_small_p * 1e3:.1f} samples/s)")
+    print(f"conditional logpdf B={BATCH}: kernel {ms_lp:.4f} ms ({BATCH / ms_lp * 1e3:.1f} evals/s), plain "
+          f"{ms_lp_p:.4f} ms; steps {int(st.steps)}, NFE {int(st.nfe)}; sample n={BATCH}: {ms_s:.4f} ms "
+          f"({BATCH / ms_s * 1e3:.1f} samples/s)")
+    steps = {"k1c": out_k[2], "k2c": adj_k[5], "k7t": t_k[2], "k7e": e_k[2]}
+    for name, label in (("k1c", "K1 chain form"), ("k2c", "K2 chain form"), ("k7t", "K7 TEST"), ("k7e", "K7 exact")):
+        ms_k, ms_p = times[name]
+        n = int(steps[name])
+        print(f"{label} with ys alone: {ms_k:.4f} ms, plain version {ms_p:.4f} ms ({n} steps, "
+              f"{ms_k * 1e3 / max(n, 1):.1f} us per attempted step)")
+    fma = chain_fma(dims, nc)
+    P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    return [
+        kernel_record(fs.K1C_KERNEL + "/cond", "k1_chain_solve.cu", "continuousnf_tpu/ops/fused_solve.py:1043", n_k1c,
+                      abs1, *times["k1c"], fma["k1c"], BATCH, out_k[2], P + BATCH * (3 * dz + 6 + nc)),
+        kernel_record(fs.K2C_KERNEL + "/cond", "k2_chain_adjoint.cu", "continuousnf_tpu/ops/fused_solve.py:1767",
+                      n_k2c, abs2, *times["k2c"], fma["k2c"], BATCH, adj_k[5], 2 * P + BATCH * (5 * dz + 9 + 2 * nc)),
+        kernel_record(fs.K7_KERNEL + "/test/cond", "k7_chain_solve.cu", "continuousnf_tpu/ops/fused_solve.py:1043",
+                      n_k7t, abs_t, *times["k7t"], fma["k7t"], BATCH, t_k[2], P + BATCH * (2 * dz + 2 + nc)),
+        kernel_record(fs.K7_KERNEL + "/exact/cond", "k7_chain_solve.cu", "continuousnf_tpu/ops/fused_solve.py:1043",
+                      n_k7e, abs_e, *times["k7e"], fma["k7e"], BATCH, e_k[2], P + BATCH * (2 * dz + 6 + nc)),
     ]
 
 
@@ -808,10 +1152,16 @@ def main() -> int:
     ps = cnf.params_from_numpy(ps_np, dev)
     xs = torch.from_numpy(xs_np).to(dev)
     icnf_k, icnf_p = make_icnf("flagship", dev, fused=True), make_icnf("flagship", dev, fused=False)
+    t_paths = time.perf_counter()
     records = [serving(cnf, fs, TSIT5, icnf_k, icnf_p, ps, xs, rng, dev)]
-    records += training(cnf, fs, TSIT5, icnf_k, icnf_p, ps_np, xs, rng, dev)
-    records += exact_training(cnf, fs, TSIT5, ps_np, xs, rng, dev)
-    records += deep_chain(cnf, fs, TSIT5, rng, dev)
+    print(f"phases 4-6 took {time.perf_counter() - t_paths:.2f} s")
+    for phases, path in (("7-10", lambda: training(cnf, fs, TSIT5, icnf_k, icnf_p, ps_np, xs, rng, dev)),
+                         ("11-14", lambda: exact_training(cnf, fs, TSIT5, ps_np, xs, rng, dev)),
+                         ("15-22", lambda: deep_chain(cnf, fs, TSIT5, rng, dev)),
+                         ("23-29", lambda: conditional(cnf, fs, TSIT5, np.random.default_rng(SEED + 20), dev))):
+        t_path = time.perf_counter()
+        records += path()
+        print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")
 
     print(json.dumps({"kernels": records}))
     print(nvidia_smi_line())

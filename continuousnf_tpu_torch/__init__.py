@@ -4,7 +4,8 @@ It grows slice by slice beside the JAX package, which stays the reference.
 Ported so far: density evaluation and sampling (`inference` and `generate`
 in TEST mode, `ICNFDist`) and training (TRAIN-mode `inference`, `loss`,
 `loss_and_metrics` differentiated by the BACKSOLVE adjoint, and `fit` with
-the Lion optimizer).  The whole adaptive solves of a 2-layer tanh MLP field
+the Lion optimizer), for conditional models too (`CondICNFDist`,
+`CondICNFModel`).  The whole adaptive solves of a 2-layer tanh MLP field
 and of deeper tanh chains run in hand-written CUDA kernels for the H100
 (`ops/csrc/`): the TEST and TRAIN forward solves and the TRAIN adjoint
 solve.  Entry points run on the CUDA card unless a device is named or set
@@ -50,10 +51,10 @@ from .core import (
     loss,
     loss_and_metrics,
 )
-from .nets import MLP, Chain, Dense, params_from_numpy
+from .nets import MLP, Chain, CondLayer, CondWrap, Dense, params_from_numpy
 from .ode import SolveStats, odeint_with_stats
-from .dist import ICNFDist
-from .train import FitResult, ICNFModel, Lion, fit
+from .dist import CondICNFDist, ICNFDist
+from .train import CondICNFModel, FitResult, ICNFModel, Lion, fit
 from . import distributions, ops, parallel, train, utils
 
 __all__ = [
@@ -91,16 +92,20 @@ __all__ = [
     "loss_and_metrics",
     "TrainState",
     "ICNFModel",
+    "CondICNFModel",
     "FitResult",
     "fit",
     "Lion",
     "Chain",
+    "CondLayer",
+    "CondWrap",
     "Dense",
     "MLP",
     "params_from_numpy",
     "odeint_with_stats",
     "SolveStats",
     "ICNFDist",
+    "CondICNFDist",
     "distributions",
     "ops",
     "parallel",

@@ -1,12 +1,19 @@
 """Augmented CNF dynamics: vector field plus divergence and regularizer rates.
 
 Port of `continuousnf_tpu/core/dynamics.py`: `TestState`, `TrainState` and
-`safe_norm` (:35-61), the closed-form TEST branch of `make_augmented_dynamics`
-(:266-300), the VJP branch of `_hutchinson_field` (:185-206), the TRAIN
-fields `f_train` (:377-382) and `f_train_fused` (:334-375), and the
-exact-trace TRAIN field `f_train_exact` (:302-332) with its closed form
-`exact_tanh_mlp_trace_fro` (:155-182).  The state is
+`safe_norm` (:35-61), `_batch_apply` (:64-73), the closed-form TEST branch of
+`make_augmented_dynamics` (:266-300), the VJP branch of `_hutchinson_field`
+(:185-206), the TRAIN fields `f_train` (:377-382) and `f_train_fused`
+(:334-375), and the exact-trace TRAIN field `f_train_exact` (:302-332) with
+its closed form `exact_tanh_mlp_trace_fro` (:155-182).  The state is
 batch-major: z (B, dz), the accumulators (B,); probes are (K, B, dz).
+
+Conditional calls (`args["ys"]`, (B, n_cond) or (n_cond,), broadcast over
+the batch) feed the net [z | ys]; the divergence is in z only.  The JAX
+package runs its generic identity-basis fields for them (:76-152, chosen at
+:286-297 and :314-323); the port, which has no generic field yet (ROADMAP
+queue 1, item 16), runs the same math for Dense chains as the chain product
+with the z rows of the first layer.
 """
 
 from __future__ import annotations
@@ -47,6 +54,15 @@ def safe_norm(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return safe_sqrt(torch.sum(v * v, dim=dim))
 
 
+def _batch_apply(nn_apply, ps, z: torch.Tensor, ys):
+    """The net on z, or on [z | ys] with ys broadcast over the batch."""
+    if ys is None:
+        return nn_apply(ps, z)
+    from ..nets.modules import with_cond
+
+    return nn_apply(ps, with_cond(z, ys))
+
+
 def _hutchinson_field(nn_apply):
     """dz plus the K-probe Hutchinson trace estimate and the ||eps^T J||
     rate, both averaged over probes.  eps is (K, B, dz), fixed over the
@@ -55,8 +71,8 @@ def _hutchinson_field(nn_apply):
     `torch.no_grad()` in the forward solve."""
     from torch.func import vjp
 
-    def field(ps, z, eps):
-        dz, vjp_fn = vjp(lambda zz: nn_apply(ps, zz), z)
+    def field(ps, z, ys, eps):
+        dz, vjp_fn = vjp(lambda zz: _batch_apply(nn_apply, ps, zz, ys), z)
         eJ = torch.stack([vjp_fn(e)[0] for e in eps])  # (K, B, dz)
         tr_est = torch.mean(torch.sum(eJ * eps, dim=-1), dim=0)
         n_rate = torch.mean(safe_norm(eJ), dim=0)
@@ -74,8 +90,8 @@ def make_augmented_dynamics(
     passive_aug_dims: int = 0,
 ):
     """Build the ODE right-hand side `f(t, state, args)`; `args["ps"]` holds
-    the net's params tree and, in TRAIN mode, `args["eps"]` the (K, B, dz)
-    probes.
+    the net's params tree, `args.get("ys")` the conditioning (or None) and,
+    in TRAIN mode, `args["eps"]` the (K, B, dz) probes.
 
     TEST mode on Dense/tanh chains: the closed-form 2-layer trace for tanh
     MLPs with biases, the chain product for any other tanh-or-identity chain.
@@ -110,12 +126,16 @@ def make_augmented_dynamics(
         def f_train_fused(t, state: TrainState, args):
             # The per-stage kernel (K10); the flagship step never evaluates
             # it: its solve runs in K1/K2 and its Hairer pick on f_train.
+            if args.get("ys") is not None:
+                # The kernel covers the unconditional net only.
+                dz, tr_est, n_rate = hutch(args["ps"], state.z, args["ys"], args["eps"])
+                return pack(dz, tr_est, safe_norm(dz) if norm_z else None, n_rate)
             return pack(*fused_tanh_mlp_dynamics(args["ps"], state.z, args["eps"][0]))
 
         return f_train_fused
 
     def f_train(t, state: TrainState, args):
-        dz, tr_est, n_rate = hutch(args["ps"], state.z, args["eps"])
+        dz, tr_est, n_rate = hutch(args["ps"], state.z, args.get("ys"), args["eps"])
         return pack(dz, tr_est, safe_norm(dz) if norm_z else None, n_rate)
 
     return f_train
@@ -141,31 +161,33 @@ def exact_tanh_mlp_trace_fro(params, z: torch.Tensor):
     return y, tr, safe_sqrt(fro2)
 
 
-def _exact_train_field(nn, norm_z: bool, norm_j: bool):
-    """TRAIN with the exact divergence and the exact ||J||_F rate: the closed
-    form for 2-layer tanh MLPs, the chain Jacobian for other Dense chains."""
-    from ..ops.fused_dynamics import exact_dense_chain_jacobian, is_dense_tanh_chain, supports_fusion
+def _chain_or_refuse(nn, what: str) -> None:
+    from ..ops.fused_dynamics import is_dense_tanh_chain
 
-    if supports_fusion(nn):
-
-        def fields(ps, z):
-            return exact_tanh_mlp_trace_fro(ps, z)
-
-    elif is_dense_tanh_chain(nn):
-
-        def fields(ps, z):
-            dz, jac = exact_dense_chain_jacobian(nn, ps, z)
-            tr = torch.diagonal(jac, dim1=-2, dim2=-1).sum(-1)
-            return dz, tr, safe_norm(jac.reshape(jac.shape[0], -1))
-
-    else:
+    if not is_dense_tanh_chain(nn):
         raise NotImplementedError(
-            f"exact-trace TRAIN dynamics for {type(nn).__name__} (the generic identity-basis "
-            "field) are not ported yet (ROADMAP queue 1, item 16)"
+            f"{what} for {type(nn).__name__} (Planar and the generic identity-basis fields) "
+            "are not ported yet (ROADMAP queue 1, item 16)"
         )
 
+
+def _exact_train_field(nn, norm_z: bool, norm_j: bool):
+    """TRAIN with the exact divergence and the exact ||J||_F rate: the closed
+    form for unconditional 2-layer tanh MLPs, the chain Jacobian for other
+    Dense chains and for conditional calls."""
+    from ..ops.fused_dynamics import exact_dense_chain_jacobian, supports_fusion
+
+    _chain_or_refuse(nn, "exact-trace TRAIN dynamics")
+    closed_form = supports_fusion(nn)
+
     def f_train_exact(t, state: TrainState, args):
-        dz, tr, fro = fields(args["ps"], state.z)
+        ys = args.get("ys")
+        if closed_form and ys is None:
+            dz, tr, fro = exact_tanh_mlp_trace_fro(args["ps"], state.z)
+        else:
+            dz, jac = exact_dense_chain_jacobian(nn, args["ps"], state.z, ys)
+            tr = torch.diagonal(jac, dim1=-2, dim2=-1).sum(-1)
+            fro = safe_norm(jac.reshape(jac.shape[0], -1))
         zero = torch.zeros_like(tr)
         return TrainState(
             z=dz,
@@ -178,30 +200,21 @@ def _exact_train_field(nn, norm_z: bool, norm_j: bool):
 
 
 def _test_field(nn):
-    from ..ops.fused_dynamics import (
-        exact_dense_chain_trace,
-        exact_tanh_mlp_trace,
-        is_dense_tanh_chain,
-        supports_fusion,
-    )
+    """TEST: the closed-form trace for unconditional 2-layer tanh MLPs, the
+    chain product for other Dense chains and for conditional calls."""
+    from ..ops.fused_dynamics import exact_dense_chain_trace, exact_tanh_mlp_trace, supports_fusion
 
-    if supports_fusion(nn):
+    _chain_or_refuse(nn, "TEST dynamics")
+    closed_form = supports_fusion(nn)
 
-        def f_test(t, state: TestState, args):
+    def f_test(t, state: TestState, args):
+        ys = args.get("ys")
+        if closed_form and ys is None:
             dz, tr = exact_tanh_mlp_trace(args["ps"], state.z)
-            return TestState(z=dz, dlogp=-tr)
+        else:
+            dz, tr = exact_dense_chain_trace(nn, args["ps"], state.z, ys)
+        return TestState(z=dz, dlogp=-tr)
 
-    elif is_dense_tanh_chain(nn):
-
-        def f_test(t, state: TestState, args):
-            dz, tr = exact_dense_chain_trace(nn, args["ps"], state.z)
-            return TestState(z=dz, dlogp=-tr)
-
-    else:
-        raise NotImplementedError(
-            f"TEST dynamics for {type(nn).__name__} (Planar and generic exact fields) "
-            "are not ported yet (ROADMAP queue 1, item 16)"
-        )
     return f_test
 
 

@@ -4,7 +4,8 @@ Port of `continuousnf_tpu/core/icnf.py`: the variant tags (:28-60), `Regs`,
 `ICNF` (with `draw_eps`, :192-198), `construct`, `init_params`, the steered
 `_steer_tspan` (:336-348), `_as_batch`, `_check_cond`, `_prepare_inference`
 (:434-526, TEST and TRAIN, with the logit bijector), `_solve`, `_final_regs`,
-`inference`, `generate` (TEST), `loss` and `loss_and_metrics` (:643-704).
+`inference`, `generate` (TEST), `loss` and `loss_and_metrics` (:643-704),
+conditional models included (the Cond* variants: the net reads [z | ys]).
 
 The same public signatures and batch-major layouts as the JAX package:
 `xs` is (B, nvars), params are the net's params tree (JAX layout).  Where
@@ -13,9 +14,10 @@ every draw can be given instead: the base draw of `generate` (`z1=`), the
 Hutchinson probes (`eps=`) and the steering draw r ~ U(-steer_rate,
 steer_rate) (`steer_r=`).  Tensors live on the device of the params.
 Gradients flow through the solve by the BACKSOLVE adjoint
-(`ode/adjoint.py`).  Trajectories, conditioning, TRAIN-mode generation and
-the TRAIN input variants (aug noise, x jitter, passive augmentation) are not
-ported yet and raise NotImplementedError naming their ROADMAP item.
+(`ode/adjoint.py`), to the conditioning `ys` too.  Trajectories, TRAIN-mode
+generation and the TRAIN input variants (aug noise, x jitter, passive
+augmentation) are not ported yet and raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -247,10 +249,23 @@ def _as_batch(x: torch.Tensor, name: str) -> Tuple[torch.Tensor, bool]:
 
 
 def _check_cond(icnf: ICNF, ys):
-    if icnf.cond:
-        raise NotImplementedError("conditional models are not ported yet (ROADMAP queue 1, item 13)")
-    if ys is not None:
+    if icnf.cond and ys is None:
+        raise ValueError("conditional ICNF requires ys")
+    if not icnf.cond and ys is not None:
         raise ValueError("non-conditional ICNF got ys")
+
+
+def _cond_tensor(icnf: ICNF, ys, device, batch_of_one: bool):
+    """ys as a tensor of the model's dtype on `device`: (n_cond,) or
+    (B, n_cond); a 1-D ys becomes one row where the call is a single sample
+    (`batch_of_one`), as in the JAX package."""
+    if ys is None:
+        return None
+    from ..utils.debug import check_array
+
+    ys = torch.as_tensor(ys, dtype=icnf.dtype, device=device)
+    check_array("ys", ys, rank=(1, 2))
+    return ys[None, :] if batch_of_one and ys.ndim == 1 else ys
 
 
 def _solve(icnf: ICNF, mode: Mode, state0, args, t0, t1):
@@ -326,6 +341,7 @@ def _prepare_inference(icnf: ICNF, mode: Mode, xs, ps, ys, generator=None, eps=N
     device = _device_of(ps)
     xs = torch.as_tensor(xs, dtype=icnf.dtype, device=device)
     xs, squeeze = _as_batch(xs, "xs")
+    ys = _cond_tensor(icnf, ys, device, squeeze)
     B = xs.shape[0]
     from ..utils.debug import check_array
 
@@ -374,7 +390,9 @@ def inference(
     logp(x) = logp_base(z(t1)) - Delta_logp.
 
     Returns (logpx (B,), regs: Regs, stats: SolveStats).  Rank-1 `xs` is a
-    single sample and is squeezed back.
+    single sample and is squeezed back.  A conditional model takes `ys`,
+    (B, n_cond) or one row (n_cond,) for every sample; gradients reach it
+    through the adjoint.
 
     TRAIN mode draws the probes (K, B, zdim) and then the steering r from
     `generator` (torch's default generator of the device when None), or
@@ -414,7 +432,9 @@ def generate(
     keeping the first `nvars` dims.  `n=None` returns a single sample.
 
     The base draw comes from `generator` on the params' device, or is given
-    as `z1` ((n, zdim), or (zdim,) / (1, zdim) with n=None).  TEST mode only.
+    as `z1` ((n, zdim), or (zdim,) / (1, zdim) with n=None).  A conditional
+    model takes `ys`: one row ((n_cond,) or (1, n_cond)) for every sample,
+    or (n, n_cond).  TEST mode only.
     """
     if mode != Mode.TEST:
         raise NotImplementedError("TRAIN-mode generate is not ported yet (ROADMAP queue 1, item 12)")
@@ -422,6 +442,7 @@ def generate(
     squeeze = n is None
     B = 1 if squeeze else int(n)
     device = _device_of(ps)
+    ys = _cond_tensor(icnf, ys, device, True)
     if z1 is None:
         z1 = icnf.base_sample(generator, (B,), device)
     else:

@@ -1,6 +1,7 @@
-"""Dense, Chain and MLP as `nn.Module`s with the JAX package's parameter layout.
+"""Dense, Chain and MLP as `nn.Module`s with the JAX package's parameter layout,
+and the conditional wrappers CondLayer and CondWrap.
 
-Port of `continuousnf_tpu/nets/modules.py:41-127`.  Arrays are batch-major
+Port of `continuousnf_tpu/nets/modules.py:41-170`.  Arrays are batch-major
 `(..., features)`, weights are stored `(d_in, d_out)` and a layer computes
 `act(x @ w + b)`, as in the JAX package (not `nn.Linear`'s `(out, in)`).
 
@@ -134,6 +135,43 @@ def MLP(
     return Chain(layers)
 
 
+def with_cond(z: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """[z | ys] along the last axis, ys broadcast over z's leading axes."""
+    return torch.cat([z, ys.expand(*z.shape[:-1], ys.shape[-1])], dim=-1)
+
+
+class CondLayer(nn.Module):
+    """Conditional wrapper: the wrapped net applied to [x | ys], with ys
+    given per call (`apply_with_cond`).  The parity surface of the JAX
+    package's `CondLayer` (`continuousnf_tpu/nets/modules.py:130-154`); in
+    code prefer `CondWrap`."""
+
+    def __init__(self, net: nn.Module, n_cond: int):
+        super().__init__()
+        self.nn = net
+        self.n_cond = int(n_cond)
+        self.out_dim = getattr(net, "out_dim", None)
+
+    def init(self, generator=None, dtype=torch.float32, device=None) -> Params:
+        return self.nn.init(generator, dtype, device)
+
+    def apply_with_cond(self, params: Params, x: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+        return CondWrap(self.nn, ys)(params, x)
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        raise TypeError("CondLayer requires conditioning; use apply_with_cond(params, x, ys)")
+
+
+def CondWrap(net, ys: torch.Tensor) -> Callable[[Params, torch.Tensor], torch.Tensor]:
+    """`f(params, z) = net.apply(params, [z | ys])`, ys ((n_cond,) or
+    (B, n_cond)) broadcast over z's leading axes."""
+
+    def apply(params: Params, z: torch.Tensor) -> torch.Tensor:
+        return net.apply(params, with_cond(z, ys))
+
+    return apply
+
+
 def params_from_numpy(ps_np: Params, device=None) -> Params:
     """Turn a params tree of numpy arrays (e.g. the JAX package's params after
     `jax.tree.map(np.asarray, ps)`) into the same tree of torch tensors on
@@ -147,4 +185,4 @@ def params_from_numpy(ps_np: Params, device=None) -> Params:
     return torch.from_numpy(np.array(ps_np, copy=True)).to(device)
 
 
-__all__ = ["Dense", "Chain", "MLP", "Params", "params_from_numpy"]
+__all__ = ["Dense", "Chain", "MLP", "CondLayer", "CondWrap", "Params", "params_from_numpy"]

@@ -8,7 +8,10 @@ re-integrates the state together with the adjoint ODE
 from t1 down to t0 with the same adaptive solver: memory does not grow with
 the number of forward steps.  `_Backsolve` is a `torch.autograd.Function`
 over the flat state, the two end times and the tensor leaves of `args`
-(the net's params and the Hutchinson probes).
+(the net's params, the conditioning ys of a conditional model and the
+Hutchinson probes).  The ys cotangent is integrated like the params' (in
+the plain backward, in the one error norm of the whole augmented state, as
+in the JAX package) and comes back in the shape of the ys given.
 
 The probes are Monte-Carlo constants: their cotangent is zero and is never
 integrated.  With a fused solve that has a backward kernel

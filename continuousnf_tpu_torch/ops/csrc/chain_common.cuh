@@ -1,23 +1,31 @@
 // The chain layer of the deep-chain solve kernels (the K1 chain form, the K7
 // TEST and exact forwards, the K2 chain form): a Dense tanh chain of
-// n = 2 .. kMaxLayers layers, widths dz -> H1 -> ... -> H(n-1) -> dz with
-// dz <= 32 (padded to DZ) and hidden widths <= kMaxWidth.  With n = 2 there
-// is no middle layer; the fused solve runs 2-layer nets through K3, K1, K2
-// and K4 and takes these kernels for n >= 3.
+// n = 2 .. kMaxLayers layers, widths dz + nc -> H1 -> ... -> H(n-1) -> dz
+// with dz <= 32 (padded to DZ), hidden widths <= kMaxWidth and nc
+// conditioning inputs (K8: a conditional net's first layer reads [z | ys],
+// ys constant over the solve; nc = 0 for an unconditional net; a chain whose
+// weights and slots do not fit in shared memory gets no co-resident grid).
+// With n = 2 there is no middle layer; the fused solve runs unconditional
+// 2-layer nets through K3, K1, K2 and K4 and takes these kernels for n >= 3
+// and for every conditional net.
 //
 // What lives where:
 //   * the weights and biases in shared memory, laid out by ChainLayout (made
 //     on the host from the widths, copied into the kernel's arguments):
-//       layer 0      (H1, DZ)  rows o: w[o][k] = W0[k][o], zero for k >= dz;
+//       layer 0      (H1, DZ)  rows o: w[o][k] = W0[k][o], zero for k >= dz
+//                    (its z rows), and (H1, nc) rows o: wy[o][c] =
+//                    W0[dz + c][o] (its ys rows);
 //       middle i     (in, pitch) = W_i padded to a multiple of kChunk
 //                    columns, and its transpose (out, tpitch);
 //       last layer   (H, DZ)  rows k: w[k][o] = W[k][o], zero for o >= dz;
 //     each bias padded with zeros to its layer's row width;
 //   * a sample's dz-vectors in registers (float[DZ]);
-//   * its hidden vectors in the thread's slot of shared memory: one
-//     contiguous slot per thread at an odd stride, so a warp reading entry k
-//     of its 32 slots touches 32 different banks.  A "hidden block" holds one
-//     vector per hidden level l = 1 .. n-1, level l at hofs[l].
+//   * its hidden vectors, and its ys (nc floats), in the thread's slot of
+//     shared memory: one contiguous slot per thread at an odd stride, so a
+//     warp reading entry k of its 32 slots touches 32 different banks.  A
+//     "hidden block" holds one vector per hidden level l = 1 .. n-1, level l
+//     at hofs[l].  The pullback and the basis push read only the z rows of
+//     layer 0: the Jacobian is in z.
 // The products: dz-vector times a (., DZ) row as float4 broadcasts (dot4,
 // axpy4 of solve_common.cuh), and mv_cols for hidden-to-hidden layers, which
 // keeps kChunk outputs in registers and reads each input once per chunk.
@@ -39,8 +47,10 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 // from the start of the weight region, all multiples of 4 (float4 reads).
 struct ChainLayout {
   int n;                        // layers
-  int width[kMaxLayers + 1];    // level widths, width[0] = width[n] = dz
-  int wofs[kMaxLayers];         // layer i's weights (forward orientation)
+  int dz, nc;                   // state width and conditioning inputs
+  int width[kMaxLayers + 1];    // level widths, width[0] = dz + nc, width[n] = dz
+  int wofs[kMaxLayers];         // layer i's weights (forward orientation; layer 0: its z rows)
+  int yofs;                     // layer 0's ys rows, (H1, nc)
   int pitch[kMaxLayers];        // their row width
   int tofs[kMaxLayers];         // middle layers: the transpose
   int tpitch[kMaxLayers];
@@ -52,14 +62,17 @@ struct ChainLayout {
   int wfloats;                  // floats of the weight region
 };
 
-// Fill `L` for the widths (n + 1 of them); false if the chain kernels
-// compiled for DZ do not take the chain.
+// Fill `L` for the widths (n + 1 of them: the input width dz + nc first, dz
+// last); false if the chain kernels compiled for DZ do not take the chain.
 template <int DZ>
 inline bool make_chain_layout(int n, const int* widths, ChainLayout* L) {
   if (n < 2 || n > kMaxLayers) return false;
-  if (widths[0] < 1 || widths[0] > DZ || widths[n] != widths[0]) return false;
+  const int dz = widths[n], nc = widths[0] - widths[n];
+  if (dz < 1 || dz > DZ || nc < 0) return false;
   *L = ChainLayout{};
   L->n = n;
+  L->dz = dz;
+  L->nc = nc;
   for (int l = 0; l <= n; ++l) L->width[l] = widths[l];
   int hs = 0, hm = 0;
   for (int l = 1; l < n; ++l) {
@@ -79,6 +92,8 @@ inline bool make_chain_layout(int n, const int* widths, ChainLayout* L) {
       f += round_up(out * DZ, 4);
       L->bofs[i] = f;
       f += round_up(out, 4);
+      L->yofs = f;
+      f += round_up(out * nc, 4);
     } else if (i == n - 1) {
       L->pitch[i] = DZ;
       f += in * DZ;
@@ -114,9 +129,14 @@ __device__ void load_chain_weights(const float* params, const ChainLayout& L, fl
     if (i == 0) {
       for (int idx = threadIdx.x; idx < out * DZ; idx += blockDim.x) {
         const int o = idx / DZ, k = idx % DZ;
-        w[idx] = k < in ? W[(size_t)k * out + o] : 0.f;
+        w[idx] = k < L.dz ? W[(size_t)k * out + o] : 0.f;
       }
       for (int o = threadIdx.x; o < round_up(out, 4); o += blockDim.x) bs[o] = o < out ? b[o] : 0.f;
+      float* wy = s + L.yofs;
+      for (int idx = threadIdx.x; idx < out * L.nc; idx += blockDim.x) {
+        const int o = idx / L.nc, c = idx % L.nc;
+        wy[idx] = W[(size_t)(L.dz + c) * out + o];
+      }
     } else if (i == L.n - 1) {
       for (int idx = threadIdx.x; idx < in * DZ; idx += blockDim.x) {
         const int k = idx / DZ, o = idx % DZ;
@@ -171,18 +191,31 @@ __device__ __forceinline__ void mv_cols(const float* src, int in, const float* W
   }
 }
 
-// The chain's forward pass of one sample (fused_solve.py::_chain_fwd): the
-// hidden activations to the hidden block H, the output y in registers (zero
-// beyond dz: the padded columns of the last layer are zero).
-template <int DZ>
-__device__ void chain_forward(const ChainLayout& L, const float* s, const float (&z)[DZ], float* H,
-                              float (&y)[DZ]) {
+// The chain's forward pass of one sample on [z | ys] (fused_solve.py::
+// _chain_fwd on _zin): the hidden activations to the hidden block H, the
+// output y in registers (zero beyond dz: the padded columns of the last
+// layer are zero).  COND: a conditional chain, ys its nc conditioning values
+// (the thread's slot); an unconditional instance compiles without them, so
+// the conditioning costs it no registers.
+template <int DZ, bool COND>
+__device__ void chain_forward(const ChainLayout& L, const float* s, const float (&z)[DZ], const float* ys,
+                              float* H, float (&y)[DZ]) {
   const int n = L.n;
   {
     float* h1 = H + L.hofs[1];
     const float* w = s + L.wofs[0];
     const float* b = s + L.bofs[0];
-    for (int o = 0; o < L.width[1]; ++o) h1[o] = tanhf(dot4<DZ>(z, w + o * DZ) + b[o]);
+    if constexpr (COND) {
+      const float* wy = s + L.yofs;
+      const int nc = L.nc;
+      for (int o = 0; o < L.width[1]; ++o) {
+        float a = dot4<DZ>(z, w + o * DZ) + b[o];
+        for (int c = 0; c < nc; ++c) a = fmaf(ys[c], wy[o * nc + c], a);
+        h1[o] = tanhf(a);
+      }
+    } else {
+      for (int o = 0; o < L.width[1]; ++o) h1[o] = tanhf(dot4<DZ>(z, w + o * DZ) + b[o]);
+    }
   }
   for (int i = 1; i < n - 1; ++i) {
     float* dst = H + L.hofs[i + 1];
@@ -202,7 +235,7 @@ __device__ void chain_forward(const ChainLayout& L, const float* s, const float 
 // (fused_solve.py::_probe_pullback): `v` is the gated probe e (1 - y^2) at
 // the output.  Up the layers, each hidden level's activation h is replaced,
 // in place, by the gated cotangent u (1 - h^2) entering the layer below;
-// eJ (registers) is the cotangent of z.
+// eJ (registers) is the cotangent of z (layer 0's z rows only).
 template <int DZ>
 __device__ void chain_pullback(const ChainLayout& L, const float* s, const float (&v)[DZ], float* H,
                                float (&eJ)[DZ]) {
@@ -238,6 +271,30 @@ __device__ inline void share_layout(const ChainLayout& from, ChainLayout* to) {
 }
 
 // The padded width DZ a chain of these widths is compiled for, 0 if none.
-inline int chain_dz(int n, const int* widths) { return n >= 2 ? padded_dz(widths[0]) : 0; }
+inline int chain_dz(int n, const int* widths) { return n >= 2 && n <= kMaxLayers ? padded_dz(widths[n]) : 0; }
+
+// Whether the chain of these widths is conditional (its input is wider than
+// its state): the kernels' COND instance.
+inline bool chain_cond(int n, const int* widths) { return widths[0] > widths[n]; }
+
+// Call f.template operator()<DZ, COND>() for the kernel instance a chain of
+// these widths runs; `none` when no instance takes it.
+template <class F, class R>
+R dispatch_chain(int n, const int* widths, const F& f, R none) {
+  const bool cond = chain_dz(n, widths) != 0 && chain_cond(n, widths);
+  switch (chain_dz(n, widths)) {
+    case 4: return cond ? f.template operator()<4, true>() : f.template operator()<4, false>();
+    case 8: return cond ? f.template operator()<8, true>() : f.template operator()<8, false>();
+    case 16: return cond ? f.template operator()<16, true>() : f.template operator()<16, false>();
+    case 32: return cond ? f.template operator()<32, true>() : f.template operator()<32, false>();
+    default: return none;
+  }
+}
+
+// Copy sample s's conditioning ys[s] ((B, nc) row-major) into `dst` (the
+// thread's slot).
+__device__ __forceinline__ void load_cond(const ChainLayout& L, const float* ys, int s, float* dst) {
+  for (int c = 0; c < L.nc; ++c) dst[c] = ys[(size_t)s * L.nc + c];
+}
 
 }  // namespace cnf

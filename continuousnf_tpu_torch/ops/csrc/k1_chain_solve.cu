@@ -4,11 +4,13 @@
 //
 // Replaces the TPU kernel continuousnf_tpu/ops/fused_solve.py::_run_solve_kernel
 // (pl.pallas_call at :1043) built by _make_solve_kernel (:773-942) with the
-// _stage_train stage (:333-369) over N layers: _chain_fwd (:272) and
-// _probe_pullback (:291).  Per sample and field evaluation:
-//   forward   h_1 = tanh(z W_0 + b_0), h_(l+1) = tanh(h_l W_l + b_l), y = h_N;
+// _stage_train stage (:333-369) over N layers: _chain_fwd (:272) on the rows
+// of _zin (:265, K8: [z | ys] for a conditional net) and _probe_pullback
+// (:291).  Per sample and field evaluation:
+//   forward   h_1 = tanh([z | ys] W_0 + b_0), h_(l+1) = tanh(h_l W_l + b_l),
+//             y = h_N;
 //   pullback  v = eps (1 - y^2), then up the layers u_l = v_l W_l^T,
-//             v_(l-1) = u_l (1 - h_l^2), eJ = v_0 W_0^T;
+//             v_(l-1) = u_l (1 - h_l^2), eJ = v_0 W_0z^T (the z rows of W_0);
 //   rates     -<eJ, eps>, ||y|| (norm_z), ||eJ|| (norm_j) (safe norms);
 // then ONE Hairer norm over all B * (dz + 3) elements, the PI controller,
 // FSAL and the max_steps cap (forward_solve of solve_common.cuh, shared with
@@ -22,8 +24,9 @@
 // barrier per attempted step.  The design is K1's with the chain layer of
 // chain_common.cuh: weights in shared memory, the hidden activations in the
 // thread's shared-memory slot (overwritten in place by the pullback's gated
-// cotangents: 128 floats a sample at power6), dz-vectors in registers, the
-// state and stage registers in the (row, B) global scratch.
+// cotangents: 128 floats a sample at power6) and the sample's ys (nc floats,
+// copied from global memory at each evaluation), dz-vectors in registers,
+// the state and stage registers in the (row, B) global scratch.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
 
 #include "chain_common.cuh"
@@ -39,20 +42,24 @@ struct Args {
   cnf::FwdArgs f;
   ChainLayout L;
   const float* params;  // [W0 | b0 | W1 | b1 | ...]
+  const float* ys;      // (B, nc) conditioning, null when nc = 0
 };
 
-template <int DZ>
+template <int DZ, bool COND>
 struct ChainTrainField {
   const ChainLayout* L;
   const float* w;    // the shared weight region
   const float* eps;  // (B, dz)
-  float* sl;         // this thread's slot: one hidden block
+  const float* ys;   // (B, nc)
+  float* sl;         // this thread's slot: one hidden block, then ys
   int dz, norm_z, norm_j;
 
   __device__ __forceinline__ void operator()(int s, const float (&z)[DZ], float (&ky)[DZ],
                                              float (&kr)[3]) const {
     float y[DZ];
-    cnf::chain_forward<DZ>(*L, w, z, sl, y);
+    float* yc = sl + L->hsum;
+    if constexpr (COND) cnf::load_cond(*L, ys, s, yc);
+    cnf::chain_forward<DZ, COND>(*L, w, z, yc, sl, y);
     float e[DZ], v[DZ], ysq = 0.f;
 #pragma unroll
     for (int k = 0; k < DZ; ++k) {
@@ -75,9 +82,9 @@ struct ChainTrainField {
   }
 };
 
-int slot_floats(const ChainLayout& L) { return L.hsum | 1; }
+__host__ __device__ inline int slot_floats(const ChainLayout& L) { return (L.hsum + L.nc) | 1; }
 
-template <int DZ>
+template <int DZ, bool COND>
 __global__ void __launch_bounds__(kMaxBlock) k1_chain_solve(const Args p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ ChainLayout L;
@@ -87,8 +94,8 @@ __global__ void __launch_bounds__(kMaxBlock) k1_chain_solve(const Args p) {
   float* slots = red + kRedFloats;
   cnf::load_chain_weights<DZ>(p.params, L, w);
   __syncthreads();
-  const ChainTrainField<DZ> field{&L, w, p.f.eps, slots + threadIdx.x * (L.hsum | 1),
-                                  p.f.dz, p.f.norm_z, p.f.norm_j};
+  const ChainTrainField<DZ, COND> field{&L, w, p.f.eps, p.ys, slots + threadIdx.x * slot_floats(L),
+                                        p.f.dz, p.f.norm_z, p.f.norm_j};
   cnf::forward_solve<DZ, 3>(p.f, field, red);
 }
 
@@ -96,67 +103,78 @@ size_t smem_bytes(const ChainLayout& L, int block) {
   return sizeof(float) * ((size_t)L.wfloats + kRedFloats + (size_t)block * slot_floats(L));
 }
 
-template <int DZ>
-int max_grid(int n, const int* widths, int block, int* out) {
-  ChainLayout L;
-  *out = 0;
-  if (!cnf::make_chain_layout<DZ>(n, widths, &L)) return (int)cudaErrorInvalidValue;
-  return (int)cnf::coop_max_grid(k1_chain_solve<DZ>, smem_bytes(L, block), block, out);
-}
+// The kernel instance's shared memory, co-resident grid and launch, for
+// cnf::dispatch_chain.
+struct SmemOf {
+  int n;
+  const int* widths;
+  int block;
+  template <int DZ, bool COND>
+  long long operator()() const {
+    ChainLayout L;
+    return cnf::make_chain_layout<DZ>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
+  }
+};
 
-template <int DZ>
-int launch(Args a, int n, const int* widths, int grid, int block, cudaStream_t s) {
-  if (!cnf::make_chain_layout<DZ>(n, widths, &a.L)) return (int)cudaErrorInvalidValue;
-  return (int)cnf::coop_launch(k1_chain_solve<DZ>, a, grid, block, smem_bytes(a.L, block), s);
-}
+struct MaxGrid {
+  int n;
+  const int* widths;
+  int block;
+  int* out;
+  template <int DZ, bool COND>
+  int operator()() const {
+    ChainLayout L;
+    *out = 0;
+    if (!cnf::make_chain_layout<DZ>(n, widths, &L)) return (int)cudaErrorInvalidValue;
+    return (int)cnf::coop_max_grid(k1_chain_solve<DZ, COND>, smem_bytes(L, block), block, out);
+  }
+};
+
+struct Launch {
+  Args a;
+  int n;
+  const int* widths;
+  int grid, block;
+  cudaStream_t s;
+  template <int DZ, bool COND>
+  int operator()() const {
+    Args b = a;
+    if (!cnf::make_chain_layout<DZ>(n, widths, &b.L)) return (int)cudaErrorInvalidValue;
+    return (int)cnf::coop_launch(k1_chain_solve<DZ, COND>, b, grid, block, smem_bytes(b.L, block), s);
+  }
+};
 
 }  // namespace
 
 // Dynamic shared memory of one block (bytes), 0 for a chain not covered.
 extern "C" long long cnf_k1c_smem_bytes(int n, const int* widths, int block) {
-  ChainLayout L;
-  switch (cnf::chain_dz(n, widths)) {
-    case 4: return cnf::make_chain_layout<4>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
-    case 8: return cnf::make_chain_layout<8>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
-    case 16: return cnf::make_chain_layout<16>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
-    case 32: return cnf::make_chain_layout<32>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
-    default: return 0;
-  }
+  return cnf::dispatch_chain(n, widths, SmemOf{n, widths, block}, 0LL);
 }
 
 // Largest co-resident grid for a cooperative launch (0 if none).  widths:
-// n + 1 level widths (host memory).
+// n + 1 level widths (host memory), the input width dz + nc first.
 extern "C" int cnf_k1c_max_grid(int n, const int* widths, int block, int* out) {
-  switch (cnf::chain_dz(n, widths)) {
-    case 4: return max_grid<4>(n, widths, block, out);
-    case 8: return max_grid<8>(n, widths, block, out);
-    case 16: return max_grid<16>(n, widths, block, out);
-    case 32: return max_grid<32>(n, widths, block, out);
-    default: *out = 0; return (int)cudaErrorInvalidValue;
-  }
+  *out = 0;
+  return cnf::dispatch_chain(n, widths, MaxGrid{n, widths, block, out}, (int)cudaErrorInvalidValue);
 }
 
-// params: [W0 | b0 | ... ] flat (device); eps, z0: (B, dz); acc0/accT: (3, B),
+// params: [W0 | b0 | ... ] flat (device); eps, z0: (B, dz); ys: (B, nc), null
+// for an unconditional chain (nc = widths[0] - widths[n]); acc0/accT: (3, B),
 // rows [dlogp | reg_e | reg_n].  tab: a (kStages x kStages, row-major), b,
 // btilde.  Returns the launch's cudaError_t.
-extern "C" int cnf_k1c_train_solve(const float* params, const float* eps, const float* z0,
+extern "C" int cnf_k1c_train_solve(const float* params, const float* eps, const float* ys, const float* z0,
                                    const float* acc0, const float* ts, float* zT, float* accT,
                                    int* stats, float* dt_last, float* work, float* partials, int B,
                                    int n, const int* widths, int max_steps, int norm_z, int norm_j,
                                    float rtol, float atol, float beta1, float beta2, float inv_order,
                                    const float* tab, int grid, int block, void* stream) {
-  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1)
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < 2 || n > cnf::kMaxLayers)
     return (int)cudaErrorInvalidValue;
   Args a = {};
-  cnf::set_fwd_args(&a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[0],
+  cnf::set_fwd_args(&a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n],
                     max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
   a.params = params;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (cnf::chain_dz(n, widths)) {
-    case 4: return launch<4>(a, n, widths, grid, block, s);
-    case 8: return launch<8>(a, n, widths, grid, block, s);
-    case 16: return launch<16>(a, n, widths, grid, block, s);
-    case 32: return launch<32>(a, n, widths, grid, block, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  a.ys = ys;
+  return cnf::dispatch_chain(n, widths, Launch{a, n, widths, grid, block, (cudaStream_t)stream},
+                             (int)cudaErrorInvalidValue);
 }

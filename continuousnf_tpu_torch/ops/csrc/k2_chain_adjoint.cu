@@ -6,21 +6,28 @@
 // Replaces the TPU kernel built by continuousnf_tpu/ops/fused_solve.py::
 // _make_adjoint_kernel (:1064-1343), launched by make_full_solve.adjoint_solve
 // (pl.pallas_call at :1767), with the N-layer _stage_train_fwdbwd
-// (:372-481).  The state is, per sample, z (dz), acc (3), a_z (dz) and the
-// constant a_acc (3), plus the batch-summed parameter gradient g_p
+// (:372-481) and, for a conditional net (K8), the ys rows of _zin (:265)
+// and the ys-cotangent block of the adjoint kernel (:1110-1340).  The state
+// is, per sample, z (dz), acc (3), a_z (dz), the constant a_acc (3) and, for
+// a conditional net, a_ys (nc), plus the batch-summed parameter gradient g_p
 // (P = sum_i in_i out_i + out_i floats; 4,998 at the tabular power6 width
-// 6 -> 64 -> 64 -> 6).  Per sample and stage, the forward pass, the probe
-// pullback (keeping the cotangents u_l and the gated v_l), and the
-// hand-derived VJP against (a_z, a_acc):
+// 6 -> 64 -> 64 -> 6).  Per sample and stage, the forward pass on
+// h_0 = [z | ys], the probe pullback (keeping the cotangents u_l and the
+// gated v_l; the probe has no ys rows), and the hand-derived VJP against
+// (a_z, a_acc):
 //   ascending the pullback chain, for layer i: ct_v = pu_i W_i,
 //     pu_(i+1) = ct_v (1 - h_(i+1)^2), ct_h(i+1) = -2 h_(i+1) (ct_v u_(i+1));
 //   down the forward chain: ca_i = (ca_(i+1) W_(i+1)^T + ct_h(i+1)) (.) tanh',
-//     ct_z = ca_0 W_0^T;
-//   per-sample gradient of W_i: pu_i (x) v_i + h_i (x) ca_i, of b_i: ca_i.
+//     ct_z = ca_0 W_0z^T, and k_ays = -ct_ys = -ca_0 W_0y^T (the z and the
+//     ys rows of W_0);
+//   per-sample gradient of W_i: pu_i (x) v_i + h_i (x) ca_i, of b_i: ca_i;
+//     the ys rows of W_0 get ys (x) ca_0 alone (pu_0 has no ys rows).
 // The probes are Monte-Carlo constants: no eps cotangent is integrated.
+// a_ys is a quadrature (its rate does not read it); its nc rows ride in
+// adjoint_solve's (row, B) planes after a_z and enter the error norm.
 //
 // Controller: K2's (adjoint_solve of solve_common.cuh, shared with K2 and the
-// K4 adjoint): one batch-global Hairer norm over B * 2 * (dz + 3) + P
+// K4 adjoint): one batch-global Hairer norm over B * (2 * (dz + 3) + nc) + P
 // elements, g_p scaled by atol + rtol * max(|g_p|, |g_p_new|); per attempted
 // step each block adds its samples' b- and btilde-weighted g_p rates into
 // parity-indexed global partials, one grid.sync(), and every block sums all
@@ -29,8 +36,9 @@
 // single-tile numerics, as for K2 and the K4 adjoint.
 //
 // Memory plan.  A sample's residuals (the activations, pu, v, u then ct_h,
-// and ca of every level: 4 DZ + 5 sum(hidden) floats, 673 at power6) live in
-// the thread's shared-memory slot; at 128 threads that is 345 KB, over the
+// and ca of every level, and its ys: 4 DZ + 5 sum(hidden) + nc floats, 673
+// at power6, 657 at the conditional recipe 2 -> 64 -> 64 -> 1) live in the
+// thread's shared-memory slot; at 128 threads that is 345 KB, over the
 // 227 KB a block may use, so the wrapper takes the largest of 128, 64 and 32
 // threads that fits (64 at power6: 172 KB of slots and 37 KB of weights).
 // g_p, its proposal and the block's FSAL and last-stage partials (4 P floats
@@ -60,10 +68,10 @@ using cnf::safe_norm_sq;
 
 // Offsets in a thread's slot: four dz-vectors (z, pu_0, and v and ca of the
 // last layer), then five hidden blocks (activations h, pullback cotangents
-// pu, gated cotangents v, u then ct_h, and ca), and for each layer where the
-// gradient pass reads its four vectors.
+// pu, gated cotangents v, u then ct_h, and ca), then ys (nc floats), and for
+// each layer where the gradient pass reads its four vectors.
 struct Slot {
-  int z, pu0, vl, cal, hs, pu, v, u, ca, size;
+  int z, pu0, vl, cal, hs, pu, v, u, ca, ys, size;
   int gin[kMaxLayers], gpu[kMaxLayers], gv[kMaxLayers], gca[kMaxLayers];
 };
 
@@ -79,7 +87,8 @@ Slot make_slot(const ChainLayout& L) {
   m.v = m.pu + L.hsum;
   m.u = m.v + L.hsum;
   m.ca = m.u + L.hsum;
-  m.size = (m.ca + L.hsum) | 1;
+  m.ys = m.ca + L.hsum;
+  m.size = (m.ys + L.nc) | 1;
   for (int i = 0; i < L.n; ++i) {
     m.gin[i] = i == 0 ? m.z : m.hs + L.hofs[i];
     m.gpu[i] = i == 0 ? m.pu0 : m.pu + L.hofs[i];
@@ -95,19 +104,22 @@ struct AdjArgs {
   Slot m;
   const float* params;  // [W0 | b0 | W1 | b1 | ...]
   const float* eps;     // (B, dz) Hutchinson probe
+  const float* ys;      // (B, nc) conditioning, null when nc = 0
   float* g;             // (P) the gradient, laid out as params
   float* gblk;          // [gridDim.x][4 P]: each block's g, g_new, FSAL and last-stage partials
   int norm_z, norm_j;
 };
 
 // One augmented stage of one sample (fused_solve.py::_stage_train_fwdbwd with
-// ct_y = a_z, ct_r = a_acc): the field y and rates kr, k_az = -ct_z, and the
-// residuals of the outer-product pass left in the slot `sl`.
-template <int DZ>
+// ct_y = a_z, ct_r = a_acc): the field y and rates kr, k_az = -ct_z,
+// k_ays = -ct_ys to kys[c * stride] (c < nc; the sample's ys already in the
+// slot; a COND instance only), and the residuals of the outer-product pass
+// left in the slot `sl`.
+template <int DZ, bool COND>
 __device__ void chain_adjoint_stage(const ChainLayout& L, const Slot& m, const float* w, float* sl, int norm_z,
                                     int norm_j, const float (&z)[DZ], const float (&az)[DZ],
                                     const float (&e)[DZ], const float (&aacc)[3], float (&kz)[DZ],
-                                    float (&kr)[3], float (&kaz)[DZ]) {
+                                    float (&kr)[3], float (&kaz)[DZ], float* kys, size_t stride) {
   const int n = L.n;
   float* HS = sl + m.hs;
   float* PU = sl + m.pu;
@@ -120,7 +132,7 @@ __device__ void chain_adjoint_stage(const ChainLayout& L, const Slot& m, const f
 
   // Forward.
   float y[DZ];
-  cnf::chain_forward<DZ>(L, w, z, HS, y);
+  cnf::chain_forward<DZ, COND>(L, w, z, sl + m.ys, HS, y);
   float vl[DZ], ysq = 0.f;
 #pragma unroll
   for (int k = 0; k < DZ; ++k) {
@@ -224,11 +236,22 @@ __device__ void chain_adjoint_stage(const ChainLayout& L, const Slot& m, const f
   for (int o = 0; o < L.width[1]; ++o) axpy4<DZ>(cz, CA[L.hofs[1] + o], w0 + o * DZ);
 #pragma unroll
   for (int i = 0; i < DZ; ++i) kaz[i] = -cz[i];
+  if constexpr (COND) {
+    // The ys rows: k_ays = -ca_0 W_0y^T.
+    const float* ca0 = CA + L.hofs[1];
+    const float* wy = w + L.yofs;
+    for (int c = 0; c < L.nc; ++c) {
+      float a = 0.f;
+      for (int o = 0; o < L.width[1]; ++o) a = fmaf(ca0[o], wy[o * L.nc + c], a);
+      kys[c * stride] = -a;
+    }
+  }
 }
 
 // The block's sum over its first `nvalid` samples (thread order) of the
 // negated gradient rate of the stage just evaluated, entry q of the flat
 // [W0 | b0 | W1 | b1 | ...].
+template <bool COND>
 __device__ __forceinline__ float block_grad_entry(const ChainLayout& L, const Slot& m, const float* slots, int q,
                                                   int nvalid) {
   int i = 0;
@@ -238,6 +261,12 @@ __device__ __forceinline__ float block_grad_entry(const ChainLayout& L, const Sl
   float v = 0.f;
   if (r < in * out) {
     const int k = r / out, o = r % out;
+    if (COND && i == 0 && k >= L.dz) {
+      // A ys row of W_0: ys (x) ca_0 (the probe tangent has no ys rows).
+      const int c = m.ys + (k - L.dz), d = m.gca[0] + o;
+      for (int t = 0; t < nvalid; ++t) v = fmaf(slots[t * m.size + c], slots[t * m.size + d], v);
+      return -v;
+    }
     const int a = m.gpu[i] + k, b = m.gv[i] + o, c = m.gin[i] + k, d = m.gca[i] + o;
     for (int t = 0; t < nvalid; ++t) {
       const float* sl = slots + t * m.size;
@@ -252,31 +281,36 @@ __device__ __forceinline__ float block_grad_entry(const ChainLayout& L, const Sl
 }
 
 // The stage and gradient callbacks of cnf::adjoint_solve.
-template <int DZ>
+template <int DZ, bool COND>
 struct ChainStage {
   const ChainLayout* L;
   const Slot* m;
   const float* w;
   const float* eps;  // (B, dz)
+  const float* ys;   // (B, nc)
   float* sl;         // this thread's slot
-  int dz, norm_z, norm_j;
+  int B, dz, norm_z, norm_j;
   __device__ void operator()(int s, const float (&z)[DZ], const float (&az)[DZ], const float (&aacc)[3],
-                             float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ]) const {
+                             float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ], float* kys) const {
     float e[DZ];
 #pragma unroll
     for (int i = 0; i < DZ; ++i) e[i] = i < dz ? eps[(size_t)s * dz + i] : 0.f;
-    chain_adjoint_stage<DZ>(*L, *m, w, sl, norm_z, norm_j, z, az, e, aacc, kz, kr, kaz);
+    if constexpr (COND) cnf::load_cond(*L, ys, s, sl + m->ys);
+    chain_adjoint_stage<DZ, COND>(*L, *m, w, sl, norm_z, norm_j, z, az, e, aacc, kz, kr, kaz, kys, (size_t)B);
   }
 };
 
+template <bool COND>
 struct ChainGrad {
   const ChainLayout* L;
   const Slot* m;
   const float* slots;
-  __device__ float operator()(int q, int, int nvalid) const { return block_grad_entry(*L, *m, slots, q, nvalid); }
+  __device__ float operator()(int q, int, int nvalid) const {
+    return block_grad_entry<COND>(*L, *m, slots, q, nvalid);
+  }
 };
 
-template <int DZ>
+template <int DZ, bool COND>
 __global__ void __launch_bounds__(kMaxBlock) k2_chain_adjoint(const AdjArgs p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ ChainLayout L;
@@ -292,9 +326,10 @@ __global__ void __launch_bounds__(kMaxBlock) k2_chain_adjoint(const AdjArgs p) {
   // This block's g (the same in every block), proposed g, FSAL stage rate and
   // last-stage rate, in global memory.
   float* gp = p.gblk + (size_t)blockIdx.x * 4 * P;
-  const ChainStage<DZ> stage{&L, &m, w, p.eps, slots + threadIdx.x * m.size, p.s.dz, p.norm_z, p.norm_j};
-  const ChainGrad grad{&L, &m, slots};
-  cnf::adjoint_solve<DZ>(p.s, stage, grad, P, gp, gp + P, gp + 2 * P, gp + 3 * P, red);
+  const ChainStage<DZ, COND> stage{&L, &m, w, p.eps, p.ys, slots + threadIdx.x * m.size, p.s.B, p.s.dz,
+                                   p.norm_z, p.norm_j};
+  const ChainGrad<COND> grad{&L, &m, slots};
+  cnf::adjoint_solve<DZ, COND>(p.s, stage, grad, P, gp, gp + P, gp + 2 * P, gp + 3 * P, red);
   if (blockIdx.x == 0)
     for (int q = threadIdx.x; q < P; q += blockDim.x) p.g[q] = gp[q];
 }
@@ -310,80 +345,89 @@ bool layout(int n, const int* widths, ChainLayout* L, Slot* m) {
   return true;
 }
 
-template <int DZ>
-long long smem_of(int n, const int* widths, int block) {
-  ChainLayout L;
-  Slot m;
-  return layout<DZ>(n, widths, &L, &m) ? (long long)smem_bytes(L, m, block) : 0;
-}
+// The kernel instance's shared memory, co-resident grid and launch, for
+// cnf::dispatch_chain.
+struct SmemOf {
+  int n;
+  const int* widths;
+  int block;
+  template <int DZ, bool COND>
+  long long operator()() const {
+    ChainLayout L;
+    Slot m;
+    return layout<DZ>(n, widths, &L, &m) ? (long long)smem_bytes(L, m, block) : 0;
+  }
+};
 
-template <int DZ>
-int max_grid(int n, const int* widths, int block, int* out) {
-  ChainLayout L;
-  Slot m;
-  *out = 0;
-  if (!layout<DZ>(n, widths, &L, &m)) return (int)cudaErrorInvalidValue;
-  return (int)cnf::coop_max_grid(k2_chain_adjoint<DZ>, smem_bytes(L, m, block), block, out);
-}
+struct MaxGrid {
+  int n;
+  const int* widths;
+  int block;
+  int* out;
+  template <int DZ, bool COND>
+  int operator()() const {
+    ChainLayout L;
+    Slot m;
+    *out = 0;
+    if (!layout<DZ>(n, widths, &L, &m)) return (int)cudaErrorInvalidValue;
+    return (int)cnf::coop_max_grid(k2_chain_adjoint<DZ, COND>, smem_bytes(L, m, block), block, out);
+  }
+};
 
-template <int DZ>
-int launch(AdjArgs a, int n, const int* widths, int grid, int block, cudaStream_t s) {
-  if (!layout<DZ>(n, widths, &a.L, &a.m)) return (int)cudaErrorInvalidValue;
-  return (int)cnf::coop_launch(k2_chain_adjoint<DZ>, a, grid, block, smem_bytes(a.L, a.m, block), s);
-}
+struct Launch {
+  AdjArgs a;
+  int n;
+  const int* widths;
+  int grid, block;
+  cudaStream_t s;
+  template <int DZ, bool COND>
+  int operator()() const {
+    AdjArgs b = a;
+    if (!layout<DZ>(n, widths, &b.L, &b.m)) return (int)cudaErrorInvalidValue;
+    return (int)cnf::coop_launch(k2_chain_adjoint<DZ, COND>, b, grid, block, smem_bytes(b.L, b.m, block), s);
+  }
+};
 
 }  // namespace
 
 // Dynamic shared memory of one block (bytes), 0 for a chain not covered.
 extern "C" long long cnf_k2c_smem_bytes(int n, const int* widths, int block) {
-  switch (cnf::chain_dz(n, widths)) {
-    case 4: return smem_of<4>(n, widths, block);
-    case 8: return smem_of<8>(n, widths, block);
-    case 16: return smem_of<16>(n, widths, block);
-    case 32: return smem_of<32>(n, widths, block);
-    default: return 0;
-  }
+  return cnf::dispatch_chain(n, widths, SmemOf{n, widths, block}, 0LL);
 }
 
 // Largest co-resident grid for a cooperative launch (0 if none).  widths:
-// n + 1 level widths (host memory).
+// n + 1 level widths (host memory), the input width dz + nc first.
 extern "C" int cnf_k2c_max_grid(int n, const int* widths, int block, int* out) {
-  switch (cnf::chain_dz(n, widths)) {
-    case 4: return max_grid<4>(n, widths, block, out);
-    case 8: return max_grid<8>(n, widths, block, out);
-    case 16: return max_grid<16>(n, widths, block, out);
-    case 32: return max_grid<32>(n, widths, block, out);
-    default: *out = 0; return (int)cudaErrorInvalidValue;
-  }
+  *out = 0;
+  return cnf::dispatch_chain(n, widths, MaxGrid{n, widths, block, out}, (int)cudaErrorInvalidValue);
 }
 
 // params/g: [W0 | b0 | ...] flat (device); eps, zT, azT, z0, az0: (B, dz);
-// accT/aaccT/acc0: (3, B).  gpart: 2 * grid * 2 P floats, gblk: grid * 4 P.
-// tab: a (kStages x kStages, row-major), b, btilde.  Returns the launch's
-// cudaError_t.
-extern "C" int cnf_k2c_train_adjoint(const float* params, const float* eps, const float* zT, const float* accT,
-                                     const float* azT, const float* aaccT, const float* ts, float* z0,
-                                     float* acc0, float* az0, float* g, int* stats, float* work, float* partials,
-                                     float* gpart, float* gblk, int B, int n, const int* widths, int max_steps,
-                                     int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
-                                     float inv_order, const float* tab, int grid, int block, void* stream) {
-  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1)
+// ys, ays0: (B, nc), null for an unconditional chain (nc = widths[0] -
+// widths[n]); accT/aaccT/acc0: (3, B).  work: (kStages + 2) (2 dz + 3 + nc) B
+// floats, gpart: 2 * grid * 2 P, gblk: grid * 4 P.  tab: a (kStages x
+// kStages, row-major), b, btilde.  Returns the launch's cudaError_t.
+extern "C" int cnf_k2c_train_adjoint(const float* params, const float* eps, const float* ys, const float* zT,
+                                     const float* accT, const float* azT, const float* aaccT, const float* ts,
+                                     float* z0, float* acc0, float* az0, float* ays0, float* g, int* stats,
+                                     float* work, float* partials, float* gpart, float* gblk, int B, int n,
+                                     const int* widths, int max_steps, int norm_z, int norm_j, float rtol,
+                                     float atol, float beta1, float beta2, float inv_order, const float* tab,
+                                     int grid, int block, void* stream) {
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < 2 || n > kMaxLayers)
     return (int)cudaErrorInvalidValue;
   AdjArgs a = {};
   cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, gpart, B,
-                     widths[0], max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+                     widths[n], max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.s.nc = widths[0] - widths[n];
+  a.s.ays0 = ays0;
   a.params = params;
   a.eps = eps;
+  a.ys = ys;
   a.g = g;
   a.gblk = gblk;
   a.norm_z = norm_z;
   a.norm_j = norm_j;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (cnf::chain_dz(n, widths)) {
-    case 4: return launch<4>(a, n, widths, grid, block, s);
-    case 8: return launch<8>(a, n, widths, grid, block, s);
-    case 16: return launch<16>(a, n, widths, grid, block, s);
-    case 32: return launch<32>(a, n, widths, grid, block, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return cnf::dispatch_chain(n, widths, Launch{a, n, widths, grid, block, (cudaStream_t)stream},
+                             (int)cudaErrorInvalidValue);
 }

@@ -216,7 +216,7 @@ struct ProbeStage {
   const float* eps;  // (B, dz)
   float* sl;         // this thread's slot
   __device__ void operator()(int s, const float (&z)[DZ], const float (&az)[DZ], const float (&aacc)[3],
-                             float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ]) const {
+                             float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ], float*) const {
     float e[DZ];
 #pragma unroll
     for (int i = 0; i < DZ; ++i) e[i] = i < w.dz ? eps[(size_t)s * w.dz + i] : 0.f;

@@ -270,7 +270,7 @@ struct ExactStage {
   float* mbuf;  // (dz^2, B)
   float* sl;    // this thread's slot
   __device__ void operator()(int s, const float (&z)[DZ], const float (&az)[DZ], const float (&aacc)[3],
-                             float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ]) const {
+                             float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ], float*) const {
     exact_adjoint_stage<DZ>(w, sl, mbuf + s, z, az, aacc, kz, kr, kaz);
   }
 };

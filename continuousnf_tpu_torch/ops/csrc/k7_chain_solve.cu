@@ -8,14 +8,16 @@
 // Replaces the TPU kernel continuousnf_tpu/ops/fused_solve.py::_run_solve_kernel
 // (pl.pallas_call at :1043) built by _make_solve_kernel (:773-942) with
 // _stage_test -> _stage_exact_chain (:484-493, :678-719; want_fro=False) and
-// with _stage_train_exact_chain (:722-728).  As in the JAX package these are
-// forward-only: a deep exact chain's gradient runs the plain BACKSOLVE.
+// with _stage_train_exact_chain (:722-728), the conditional rows of _zin
+// (:265, K8) included: the forward pass reads [z | ys], the basis push only
+// the z rows of W_0 (:701).  As in the JAX package these are forward-only: a
+// deep exact chain's gradient runs the plain BACKSOLVE.
 //
 // Per sample and field evaluation: the forward pass (chain_forward of
 // chain_common.cuh), each hidden level's activation h replaced by its tanh'
 // d = 1 - h^2, then for each basis column j < dz one column of J pushed
 // through the linearised layers:
-//   t_1 = d_1 (.) W_0[j, :],  t_(l+1) = d_(l+1) (.) (t_l W_l),
+//   t_1 = d_1 (.) W_0[j, :] (j < dz: a z row),  t_(l+1) = d_(l+1) (.) (t_l W_l),
 //   t_N = dy (.) (t_(N-1) W_(N-1)),
 // tr += t_N[j] and ||J||_F^2 += |t_N|^2.  TEST needs only t_N[j] but
 // computes the whole row t_N all the same: as DZ independent FMA chains fed
@@ -34,8 +36,8 @@
 // 0.26 GFLOP, about 4 us of the card's f32 rate.  The time goes to the
 // per-thread chain of FMAs and shared-memory reads (mv_cols reads each t
 // entry once per 8 outputs) and to the barrier.  The thread's slot holds the
-// d vectors (one hidden block) and two hidden-width columns for t: 256
-// floats a sample at power6.
+// d vectors (one hidden block), two hidden-width columns for t and the
+// sample's ys (nc floats): 256 floats a sample at power6.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
 
 #include "chain_common.cuh"
@@ -51,25 +53,29 @@ struct Args {
   cnf::FwdArgs f;
   ChainLayout L;
   const float* params;  // [W0 | b0 | W1 | b1 | ...]
+  const float* ys;      // (B, nc) conditioning, null when nc = 0
 };
 
-__host__ __device__ inline int slot_floats(const ChainLayout& L) { return (L.hsum + 2 * L.hmax) | 1; }
+__host__ __device__ inline int slot_floats(const ChainLayout& L) { return (L.hsum + 2 * L.hmax + L.nc) | 1; }
 
 // The exact field of one sample: ky = y; kr = [-tr] (NACC = 1) or
 // [-tr, ||y||, ||J||_F] (NACC = 3).
-template <int DZ, int NACC>
+template <int DZ, int NACC, bool COND>
 struct ChainExactField {
   const ChainLayout* L;
-  const float* w;  // the shared weight region
-  float* sl;       // this thread's slot: d (a hidden block), then t columns
+  const float* w;   // the shared weight region
+  const float* ys;  // (B, nc)
+  float* sl;        // this thread's slot: d (a hidden block), then t columns, then ys
   int dz, norm_z, norm_j;
 
-  __device__ __forceinline__ void operator()(int, const float (&z)[DZ], float (&ky)[DZ],
+  __device__ __forceinline__ void operator()(int s, const float (&z)[DZ], float (&ky)[DZ],
                                              float (&kr)[NACC]) const {
     const ChainLayout& c = *L;
     const int n = c.n;
     float y[DZ];
-    cnf::chain_forward<DZ>(c, w, z, sl, y);
+    float* yc = sl + c.hsum + 2 * c.hmax;
+    if constexpr (COND) cnf::load_cond(c, ys, s, yc);
+    cnf::chain_forward<DZ, COND>(c, w, z, yc, sl, y);
     for (int q = 0; q < c.hsum; ++q) {
       const float h = sl[q];
       sl[q] = 1.f - h * h;
@@ -119,7 +125,7 @@ struct ChainExactField {
   }
 };
 
-template <int DZ, int NACC>
+template <int DZ, int NACC, bool COND>
 __global__ void __launch_bounds__(kMaxBlock) k7_chain_solve(const Args p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ ChainLayout L;
@@ -129,8 +135,8 @@ __global__ void __launch_bounds__(kMaxBlock) k7_chain_solve(const Args p) {
   float* slots = red + kRedFloats;
   cnf::load_chain_weights<DZ>(p.params, L, w);
   __syncthreads();
-  const ChainExactField<DZ, NACC> field{&L, w, slots + threadIdx.x * slot_floats(L), p.f.dz, p.f.norm_z,
-                                        p.f.norm_j};
+  const ChainExactField<DZ, NACC, COND> field{&L, w, p.ys, slots + threadIdx.x * slot_floats(L), p.f.dz,
+                                              p.f.norm_z, p.f.norm_j};
   cnf::forward_solve<DZ, NACC>(p.f, field, red);
 }
 
@@ -138,50 +144,69 @@ size_t smem_bytes(const ChainLayout& L, int block) {
   return sizeof(float) * ((size_t)L.wfloats + kRedFloats + (size_t)block * slot_floats(L));
 }
 
-template <int DZ, int NACC>
-int max_grid(int n, const int* widths, int block, int* out) {
-  ChainLayout L;
-  *out = 0;
-  if (!cnf::make_chain_layout<DZ>(n, widths, &L)) return (int)cudaErrorInvalidValue;
-  return (int)cnf::coop_max_grid(k7_chain_solve<DZ, NACC>, smem_bytes(L, block), block, out);
-}
+// The kernel instance's shared memory (either entry point), co-resident grid
+// and launch, for cnf::dispatch_chain.
+struct SmemOf {
+  int n;
+  const int* widths;
+  int block;
+  template <int DZ, bool COND>
+  long long operator()() const {
+    ChainLayout L;
+    return cnf::make_chain_layout<DZ>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
+  }
+};
 
-template <int DZ, int NACC>
-int launch(Args a, int n, const int* widths, int grid, int block, cudaStream_t s) {
-  if (!cnf::make_chain_layout<DZ>(n, widths, &a.L)) return (int)cudaErrorInvalidValue;
-  return (int)cnf::coop_launch(k7_chain_solve<DZ, NACC>, a, grid, block, smem_bytes(a.L, block), s);
-}
+template <int NACC>
+struct MaxGrid {
+  int n;
+  const int* widths;
+  int block;
+  int* out;
+  template <int DZ, bool COND>
+  int operator()() const {
+    ChainLayout L;
+    *out = 0;
+    if (!cnf::make_chain_layout<DZ>(n, widths, &L)) return (int)cudaErrorInvalidValue;
+    return (int)cnf::coop_max_grid(k7_chain_solve<DZ, NACC, COND>, smem_bytes(L, block), block, out);
+  }
+};
+
+template <int NACC>
+struct Launch {
+  Args a;
+  int n;
+  const int* widths;
+  int grid, block;
+  cudaStream_t s;
+  template <int DZ, bool COND>
+  int operator()() const {
+    Args b = a;
+    if (!cnf::make_chain_layout<DZ>(n, widths, &b.L)) return (int)cudaErrorInvalidValue;
+    return (int)cnf::coop_launch(k7_chain_solve<DZ, NACC, COND>, b, grid, block, smem_bytes(b.L, block), s);
+  }
+};
 
 template <int NACC>
 int max_grid_any(int n, const int* widths, int block, int* out) {
-  switch (cnf::chain_dz(n, widths)) {
-    case 4: return max_grid<4, NACC>(n, widths, block, out);
-    case 8: return max_grid<8, NACC>(n, widths, block, out);
-    case 16: return max_grid<16, NACC>(n, widths, block, out);
-    case 32: return max_grid<32, NACC>(n, widths, block, out);
-    default: *out = 0; return (int)cudaErrorInvalidValue;
-  }
+  *out = 0;
+  return cnf::dispatch_chain(n, widths, MaxGrid<NACC>{n, widths, block, out}, (int)cudaErrorInvalidValue);
 }
 
 template <int NACC>
-int solve(const float* params, const float* z0, const float* acc0, const float* ts, float* zT, float* accT,
-          int* stats, float* dt_last, float* work, float* partials, int B, int n, const int* widths,
+int solve(const float* params, const float* ys, const float* z0, const float* acc0, const float* ts, float* zT,
+          float* accT, int* stats, float* dt_last, float* work, float* partials, int B, int n, const int* widths,
           int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
           float inv_order, const float* tab, int grid, int block, void* stream) {
-  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1)
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < 2 || n > cnf::kMaxLayers)
     return (int)cudaErrorInvalidValue;
   Args a = {};
-  cnf::set_fwd_args(&a.f, nullptr, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[0],
+  cnf::set_fwd_args(&a.f, nullptr, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n],
                     max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
   a.params = params;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (cnf::chain_dz(n, widths)) {
-    case 4: return launch<4, NACC>(a, n, widths, grid, block, s);
-    case 8: return launch<8, NACC>(a, n, widths, grid, block, s);
-    case 16: return launch<16, NACC>(a, n, widths, grid, block, s);
-    case 32: return launch<32, NACC>(a, n, widths, grid, block, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  a.ys = ys;
+  return cnf::dispatch_chain(n, widths, Launch<NACC>{a, n, widths, grid, block, (cudaStream_t)stream},
+                             (int)cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -189,18 +214,12 @@ int solve(const float* params, const float* z0, const float* acc0, const float* 
 // Dynamic shared memory of one block (bytes, either entry point), 0 for a
 // chain not covered.
 extern "C" long long cnf_k7_smem_bytes(int n, const int* widths, int block) {
-  ChainLayout L;
-  switch (cnf::chain_dz(n, widths)) {
-    case 4: return cnf::make_chain_layout<4>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
-    case 8: return cnf::make_chain_layout<8>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
-    case 16: return cnf::make_chain_layout<16>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
-    case 32: return cnf::make_chain_layout<32>(n, widths, &L) ? (long long)smem_bytes(L, block) : 0;
-    default: return 0;
-  }
+  return cnf::dispatch_chain(n, widths, SmemOf{n, widths, block}, 0LL);
 }
 
 // Largest co-resident grid for a cooperative launch of the TEST or the exact
-// TRAIN entry point (0 if none).  widths: n + 1 level widths (host memory).
+// TRAIN entry point (0 if none).  widths: n + 1 level widths (host memory),
+// the input width dz + nc first.
 extern "C" int cnf_k7_test_max_grid(int n, const int* widths, int block, int* out) {
   return max_grid_any<1>(n, widths, block, out);
 }
@@ -209,24 +228,25 @@ extern "C" int cnf_k7_exact_max_grid(int n, const int* widths, int block, int* o
   return max_grid_any<3>(n, widths, block, out);
 }
 
-// TEST: params [W0 | b0 | ...] flat (device), z0 (B, dz), dlogp0/dlogpT (B).
-// Returns the launch's cudaError_t.
-extern "C" int cnf_k7_test_solve(const float* params, const float* z0, const float* dlogp0, const float* ts,
-                                 float* zT, float* dlogpT, int* stats, float* dt_last, float* work,
-                                 float* partials, int B, int n, const int* widths, int max_steps, float rtol,
-                                 float atol, float beta1, float beta2, float inv_order, const float* tab,
-                                 int grid, int block, void* stream) {
-  return solve<1>(params, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, B, n, widths, max_steps,
-                  0, 0, rtol, atol, beta1, beta2, inv_order, tab, grid, block, stream);
+// TEST: params [W0 | b0 | ...] flat (device), ys (B, nc) or null for an
+// unconditional chain (nc = widths[0] - widths[n]), z0 (B, dz), dlogp0/dlogpT
+// (B).  Returns the launch's cudaError_t.
+extern "C" int cnf_k7_test_solve(const float* params, const float* ys, const float* z0, const float* dlogp0,
+                                 const float* ts, float* zT, float* dlogpT, int* stats, float* dt_last,
+                                 float* work, float* partials, int B, int n, const int* widths, int max_steps,
+                                 float rtol, float atol, float beta1, float beta2, float inv_order,
+                                 const float* tab, int grid, int block, void* stream) {
+  return solve<1>(params, ys, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, B, n, widths,
+                  max_steps, 0, 0, rtol, atol, beta1, beta2, inv_order, tab, grid, block, stream);
 }
 
 // Exact TRAIN: acc0/accT (3, B), rows [dlogp | reg_e | reg_n].  Returns the
 // launch's cudaError_t.
-extern "C" int cnf_k7_exact_solve(const float* params, const float* z0, const float* acc0, const float* ts,
-                                  float* zT, float* accT, int* stats, float* dt_last, float* work,
-                                  float* partials, int B, int n, const int* widths, int max_steps, int norm_z,
-                                  int norm_j, float rtol, float atol, float beta1, float beta2, float inv_order,
-                                  const float* tab, int grid, int block, void* stream) {
-  return solve<3>(params, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths, max_steps,
+extern "C" int cnf_k7_exact_solve(const float* params, const float* ys, const float* z0, const float* acc0,
+                                  const float* ts, float* zT, float* accT, int* stats, float* dt_last,
+                                  float* work, float* partials, int B, int n, const int* widths, int max_steps,
+                                  int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
+                                  float inv_order, const float* tab, int grid, int block, void* stream) {
+  return solve<3>(params, ys, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths, max_steps,
                   norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab, grid, block, stream);
 }

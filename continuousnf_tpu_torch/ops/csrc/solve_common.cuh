@@ -379,25 +379,31 @@ struct AdjState {
   float* z0;          // (B, dz) state at t_lo
   float* acc0;        // (3, B)
   float* az0;         // (B, dz)
+  float* ays0;        // (B, nc) cotangent of the conditioning at t_lo (nc > 0)
   int* stats;         // attempted, accepted
-  float* work;        // (kStages + 2) * (2 dz + 3) * B
+  float* work;        // (kStages + 2) * (2 dz + 3 + nc) * B
   float* partials;    // [parity][sum | flag][gridDim.x]
   float* gpart;       // [parity][gridDim.x][2 Pg]: the blocks' b- and btilde-weighted g sums
-  int B, dz, max_steps;
+  int B, dz, nc, max_steps;  // nc: per-sample conditioning cotangent rows (0 but for the K2 chain form)
   float rtol, atol, beta1, beta2, inv_order;
   Tableau tab;
 };
 
-// The whole adaptive backsolve (K2 and the K4 adjoint) of the per-sample
-// state (z, acc, a_z, a_acc: a_acc constant) and of the batch-summed
-// gradient g (Pg floats) from ts[0] to ts[1].  Per sample, `stage(s, z, az,
-// aacc, kz, kr, kaz)` evaluates the augmented stage (the field, its rates and
-// k_az = -ct_z) and leaves in the thread's slot what `grad` reads; after each
-// stage `grad(q, base, nvalid)` is the block's sum, over its samples base ..
-// base + nvalid - 1 in thread order, of the negated g rate entry q.
+// The whole adaptive backsolve (K2, the K4 adjoint and the K2 chain form) of
+// the per-sample state (z, acc, a_z, a_acc: a_acc constant; a_ys for a
+// conditional chain) and of the batch-summed gradient g (Pg floats) from
+// ts[0] to ts[1].  Per sample, `stage(s, z, az, aacc, kz, kr, kaz, kys)`
+// evaluates the augmented stage (the field, its rates, k_az = -ct_z and, in
+// a COND instance, k_ays = -ct_ys written to kys[c * B], c < p.nc; kys is
+// null otherwise) and leaves in the thread's slot what `grad` reads; after each stage `grad(q, base, nvalid)`
+// is the block's sum, over its samples base .. base + nvalid - 1 in thread
+// order, of the negated g rate entry q.  a_ys starts at 0; its rate does not
+// read it (a quadrature, like g), so its nc rows ride in the (row, B) planes
+// after a_z but are never staged back into the field's input.  A non-COND
+// instance (K2, the K4 adjoint, unconditional chains) compiles without them.
 //
-// One batch-global Hairer norm over B * 2 * (dz + 3) + Pg elements, the g
-// entries scaled by atol + rtol * max(|g|, |g_new|) of the batch-summed
+// One batch-global Hairer norm over B * (2 * (dz + 3) + nc) + Pg elements,
+// the g entries scaled by atol + rtol * max(|g|, |g_new|) of the batch-summed
 // values.  Each block accumulates its partials of dt * sum_i b_i k_g,i and
 // dt * sum_i btilde_i k_g,i in its parity-indexed slice of gpart, writes its
 // per-sample sum of squares, one grid.sync(), and then every block adds all
@@ -406,15 +412,16 @@ struct AdjState {
 // g rate (the sum is linear in the samples).  gp, gnew, K1p and K7p are the
 // block's own Pg-float buffers (shared or global memory) for g, the proposed
 // g, and the FSAL and last-stage partials; on return gp holds g.
-template <int DZ, class Stage, class Grad>
+template <int DZ, bool COND = false, class Stage, class Grad>
 __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad& grad, int Pg, float* gp,
                               float* gnew, float* K1p, float* K7p, float* red) {
   cg::grid_group grid = cg::this_grid();
   const int dz = p.dz, B = p.B, G = gridDim.x;
+  const int nc = COND ? p.nc : 0;
   const int nthr = G * blockDim.x;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const int rounds = (B + nthr - 1) / nthr;
-  const int R = 2 * dz + 3;         // rows: z, acc, a_z
+  const int R = 2 * dz + 3 + nc;  // rows: z, acc, a_z, a_ys
   const size_t RB = (size_t)R * B;  // one (row, B) plane
   float* Y = p.work;
   float* Yn = Y + RB;
@@ -431,7 +438,7 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
     float aacc[3], kz[DZ], kr[3], kaz[DZ];
 #pragma unroll
     for (int r = 0; r < 3; ++r) aacc[r] = p.aaccT[(size_t)r * B + s];
-    stage(s, z, az, aacc, kz, kr, kaz);
+    stage(s, z, az, aacc, kz, kr, kaz, COND ? kst + (size_t)(2 * dz + 3) * B + s : nullptr);
 #pragma unroll
     for (int i = 0; i < DZ; ++i) {
       if (i < dz) {
@@ -462,6 +469,7 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
         Y[(size_t)(dz + 3 + i) * B + s] = az[i];
       }
       for (int r = 0; r < 3; ++r) Y[(size_t)(dz + r) * B + s] = p.accT[(size_t)r * B + s];
+      for (int c = 0; c < nc; ++c) Y[(size_t)(2 * dz + 3 + c) * B + s] = 0.f;
     }
     __syncthreads();
     const int base = round_base(rd), nv = round_valid(rd);
@@ -471,7 +479,7 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
 
   Controller c;
   c.init(p.ts, p.beta1, p.beta2, p.inv_order);
-  const float n_elems = (float)B * (float)(2 * (dz + 3)) + (float)Pg;
+  const float n_elems = (float)B * (float)(2 * (dz + 3) + nc) + (float)Pg;
 
   while (c.running(p.max_steps)) {
     bool is_last;
@@ -525,7 +533,7 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
       }
     }
 
-    // Per-sample proposals and errors: z, acc and a_z rows (a_acc is
+    // Per-sample proposals and errors: z, acc, a_z and a_ys rows (a_acc is
     // constant: zero error, but counted in n_elems).
     float sumsq = 0.f;
     bool finite = true;
@@ -589,6 +597,7 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
       p.az0[(size_t)s * dz + i] = Y[(size_t)(dz + 3 + i) * B + s];
     }
     for (int r = 0; r < 3; ++r) p.acc0[(size_t)r * B + s] = Y[(size_t)(dz + r) * B + s];
+    for (int c = 0; c < nc; ++c) p.ays0[(size_t)s * nc + c] = Y[(size_t)(2 * dz + 3 + c) * B + s];
   }
   if (gtid == 0) {
     p.stats[0] = c.steps;
@@ -612,12 +621,14 @@ inline void set_fwd_args(FwdArgs* a, const float* eps, const float* z0, const fl
   read_tableau(tab, &a->tab);
 }
 
-// Fill the AdjState fields from the adjoint kernels' C arguments.
+// Fill the AdjState fields from the adjoint kernels' C arguments (nc = 0:
+// the K2 chain form sets nc and ays0 itself).
 inline void set_adj_state(AdjState* a, const float* zT, const float* accT, const float* azT,
                           const float* aaccT, const float* ts, float* z0, float* acc0, float* az0,
                           int* stats, float* work, float* partials, float* gpart, int B, int dz,
                           int max_steps, float rtol, float atol, float beta1, float beta2,
                           float inv_order, const float* tab) {
+  *a = AdjState{};
   a->zT = zT; a->accT = accT; a->azT = azT; a->aaccT = aaccT; a->ts = ts;
   a->z0 = z0; a->acc0 = acc0; a->az0 = az0; a->stats = stats;
   a->work = work; a->partials = partials; a->gpart = gpart;

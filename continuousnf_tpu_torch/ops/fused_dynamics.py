@@ -3,10 +3,12 @@ that the fused solve (`ops/fused_solve.py`) is held against.
 
 Port of `continuousnf_tpu/ops/fused_dynamics.py`: `exact_tanh_mlp_trace`
 (:145-166), `is_dense_tanh_chain` (:169-181), `exact_dense_chain_jacobian`
-(:184-214), `exact_dense_chain_trace` (:217-258), `supports_fusion`
-(:261-272), and the plain version of the
-per-stage TRAIN kernel `_fused_forward` (K10, `_reference_impl` :43-54),
-whose CUDA kernel is not ported yet (ROADMAP queue 2).
+(:184-214) and `exact_dense_chain_trace` (:217-258) with their conditional
+forms (the first layer reads [z | ys]; the Jacobian is in z, so only the z
+rows of its weight enter), `supports_fusion` (:261-272), and the plain
+version of the per-stage TRAIN kernel `_fused_forward` (K10,
+`_reference_impl` :43-54), whose CUDA kernel is not ported yet (ROADMAP
+queue 2).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from ..nets.modules import with_cond
 
 
 def exact_tanh_mlp_trace(params, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -39,18 +43,21 @@ def dense_chain_trace(
     bs: Sequence[Optional[torch.Tensor]],
     acts: Sequence[bool],
     z: torch.Tensor,
+    ys: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Closed-form (y, tr J) of an N-layer Dense chain without forming the
     final (B, d, d) Jacobian.  `acts[k]` is True for a tanh layer and False
-    for an identity layer; `bs[k]` may be None (no bias).
+    for an identity layer; `bs[k]` may be None (no bias).  With `ys` the
+    first layer reads [z | ys] and J is the Jacobian in z: only the z rows
+    of the first weight enter the chain product.
 
     The chain product C = d h_{N-1} / d z (B, d, H_{N-1}) is carried layer by
     layer; the last factor W_N diag(act'_N) enters only through the trace
     contraction tr = sum_{i,h} C[b,i,h] W_N[h,i] d_N[b,i].
     """
-    B = z.shape[0]
+    B, dz = z.shape
     n = len(ws)
-    h = z
+    h = z if ys is None else with_cond(z, ys)
     C = None
     tr = None
     for idx, (w, b, act) in enumerate(zip(ws, bs, acts)):
@@ -63,6 +70,8 @@ def dense_chain_trace(
         else:
             h = a
             d = None
+        if idx == 0:
+            w = w[:dz]
         if idx == n - 1:
             if C is None:
                 diag = torch.diagonal(w)
@@ -84,11 +93,14 @@ def dense_chain_jacobian(
     bs: Sequence[Optional[torch.Tensor]],
     acts: Sequence[bool],
     z: torch.Tensor,
+    ys: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Closed-form (y, J) of an N-layer Dense chain, J (B, d, d) with
     J[b, j, i] = d y_i / d z_j: the batched left-to-right chain product of
-    the layer factors W_k diag(act'_k)."""
-    h = z
+    the layer factors W_k diag(act'_k).  With `ys` the first layer reads
+    [z | ys] and only its z rows enter the product."""
+    dz = z.shape[-1]
+    h = z if ys is None else with_cond(z, ys)
     J = None
     for w, b, act in zip(ws, bs, acts):
         a = h @ w
@@ -100,7 +112,7 @@ def dense_chain_jacobian(
         else:
             h = a
             d = None
-        J = w.expand(z.shape[0], *w.shape) if J is None else torch.einsum("bij,jk->bik", J, w)
+        J = w[:dz].expand(z.shape[0], dz, w.shape[1]) if J is None else torch.einsum("bij,jk->bik", J, w)
         if d is not None:
             J = J * d[:, None, :]
     return h, J
@@ -114,14 +126,14 @@ def _chain_args(nn, params):
     )
 
 
-def exact_dense_chain_trace(nn, params, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def exact_dense_chain_trace(nn, params, z: torch.Tensor, ys=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """`dense_chain_trace` for a Chain module and its params tree."""
-    return dense_chain_trace(*_chain_args(nn, params), z)
+    return dense_chain_trace(*_chain_args(nn, params), z, ys)
 
 
-def exact_dense_chain_jacobian(nn, params, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def exact_dense_chain_jacobian(nn, params, z: torch.Tensor, ys=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """`dense_chain_jacobian` for a Chain module and its params tree."""
-    return dense_chain_jacobian(*_chain_args(nn, params), z)
+    return dense_chain_jacobian(*_chain_args(nn, params), z, ys)
 
 
 def is_dense_tanh_chain(nn) -> bool:

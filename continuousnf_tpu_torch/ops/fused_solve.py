@@ -7,7 +7,8 @@ Port of `continuousnf_tpu/ops/fused_solve.py`: `ChainSpec`/`chain_spec`
 hand-derived stage VJP `_stage_train_fwdbwd` (:372-481), the exact stages
 `exact_stage_consts`, `exact_pm_chain`, `_stage_train_exact`,
 `_stage_train_exact_fwdbwd` and `_stage_train_exact_chain` (:542-728),
-`FullSolve` (:1346-1357) and `make_full_solve` (:1378-1823), in batch-major
+`FullSolve` (:1346-1357) and `make_full_solve` (:1378-1823), with the
+conditioning rows of `_zin` (:265-269) in every stage, in batch-major
 layout.
 
 Eight CUDA kernels (`csrc/`), each with a plain PyTorch twin; five for
@@ -38,9 +39,12 @@ layer of `csrc/chain_common.cuh`:
   `_stage_train_exact_chain` (exact TRAIN, `run_chain_exact_solve_kernel`,
   twin `solve_train_exact_plain`).
 Each runs one whole adaptive tsit5 solve in one cooperative launch, with one
-batch-global error norm per attempted step.  `make_full_solve` takes the
-chain kernels for chains of 3 or more layers and the 2-layer kernels for
-2-layer nets.
+batch-global error norm per attempted step.  The chain kernels also take
+conditional nets (K8: the first layer reads [z | ys], ys constant over the
+solve; the K2 chain form integrates the per-sample ys cotangent).
+`make_full_solve` takes the chain kernels for chains of 3 or more layers and
+for every conditional net, the 2-layer kernels for unconditional 2-layer
+nets.
 
 A wrapper launches its kernel for CUDA tensors and runs its twin for CPU
 tensors.  On a CUDA tensor there is no fallback: a configuration the kernel
@@ -70,8 +74,9 @@ K2C_KERNEL = "k2_chain_adjoint"
 K7_KERNEL = "k7_chain_solve"
 
 #: The chain kernels (the K1 and K2 chain forms, K7) take tanh chains of 2
-#: to CHAIN_MAX_LAYERS layers with hidden widths up to CHAIN_MAX_WIDTH, and
-#: every kernel a state width up to MAX_DZ (csrc/chain_common.cuh).
+#: to CHAIN_MAX_LAYERS layers with hidden widths up to CHAIN_MAX_WIDTH,
+#: conditional or not, and every kernel a state width up to MAX_DZ
+#: (csrc/chain_common.cuh).
 CHAIN_MAX_LAYERS = 4
 CHAIN_MAX_WIDTH = 64
 MAX_DZ = 32
@@ -144,19 +149,27 @@ class FullSolve(NamedTuple):
 # ---- stages (batch-major) ----
 
 
-def _test_stage(spec: ChainSpec, ws, bs, z):
-    """The plain TEST field of the chain: (y, tr J)."""
+def _zin(z, ys):
+    """The chain's input rows [z | ys] (ys (B, n_cond) or None)."""
+    from ..nets.modules import with_cond
+
+    return z if ys is None else with_cond(z, ys)
+
+
+def _test_stage(spec: ChainSpec, ws, bs, z, ys=None):
+    """The plain TEST field of the chain: (y, tr J), J in z."""
     from .fused_dynamics import dense_chain_trace, exact_tanh_mlp_trace
 
-    if spec.n_layers == 2 and all(spec.acts):
+    if ys is None and spec.n_layers == 2 and all(spec.acts):
         return exact_tanh_mlp_trace(({"w": ws[0], "b": bs[0]}, {"w": ws[1], "b": bs[1]}), z)
-    return dense_chain_trace(ws, bs, spec.acts, z)
+    return dense_chain_trace(ws, bs, spec.acts, z, ys)
 
 
-def _chain_fwd(spec: ChainSpec, z, ws, bs):
-    """Forward pass of the chain: hs[0] = z, hs[i+1] = layer i's output;
-    ds[i] = its tanh' gate (None for an identity layer)."""
-    hs, ds = [z], []
+def _chain_fwd(spec: ChainSpec, zin, ws, bs):
+    """Forward pass of the chain on its input rows zin = [z | ys]: hs[0] =
+    zin, hs[i+1] = layer i's output; ds[i] = its tanh' gate (None for an
+    identity layer)."""
+    hs, ds = [zin], []
     for i in range(spec.n_layers):
         a = hs[-1] @ ws[i] + bs[i]
         if spec.acts[i]:
@@ -172,7 +185,7 @@ def _chain_fwd(spec: ChainSpec, z, ws, bs):
 def _probe_pullback(spec: ChainSpec, ek, ws, ds):
     """One Hutchinson VJP pass, eps^T J.  Returns (us, vs, eJ): us[i] = the
     cotangent arriving at hs[i] (us[N] = ek), vs[i] = the gated cotangent
-    entering layer i's matmul, eJ = us[0]."""
+    entering layer i's matmul, eJ = the z columns of us[0]."""
     N = spec.n_layers
     us = [None] * (N + 1)
     vs = [None] * N
@@ -180,7 +193,7 @@ def _probe_pullback(spec: ChainSpec, ek, ws, ds):
     for i in reversed(range(N)):
         vs[i] = us[i + 1] * ds[i] if ds[i] is not None else us[i + 1]
         us[i] = vs[i] @ ws[i].T
-    return us, vs, us[0]
+    return us, vs, us[0][:, : spec.dz]
 
 
 def _ct_safe_norm(ct, norm):
@@ -189,11 +202,12 @@ def _ct_safe_norm(ct, norm):
     return torch.where(pos, ct / torch.where(pos, norm, torch.ones_like(norm)), torch.zeros_like(norm))
 
 
-def _stage_train(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool):
-    """One TRAIN field evaluation: z (B, dz), probes eps (K, B, dz).
-    Returns (k_z (B, dz), rates (3, B) = [-tr, ||y||, ||eps^T J||]), the
-    trace and the Jacobian norm averaged over the K probes."""
-    hs, ds = _chain_fwd(spec, z, ws, bs)
+def _stage_train(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ys=None):
+    """One TRAIN field evaluation: z (B, dz), probes eps (K, B, dz), the
+    conditioning ys (B, n_cond) or None.  Returns (k_z (B, dz), rates (3, B)
+    = [-tr, ||y||, ||eps^T J||]), the trace and the Jacobian norm averaged
+    over the K probes."""
+    hs, ds = _chain_fwd(spec, _zin(z, ys), ws, bs)
     y = hs[-1]
     zero = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
     tr, n_rate = zero, zero
@@ -209,14 +223,16 @@ def _stage_train(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool):
     return y, torch.stack([-tr, e_rate, n_rate])
 
 
-def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ct_y, ct_r):
+def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ct_y, ct_r, ys=None):
     """`_stage_train` and its hand-derived VJP against (ct_y (B, dz), ct_r
     (3, B)) in one pass: the math the K2 kernel runs.  Returns (k_z, rates,
-    ct_z, ct_ws, ct_bs), the cotangents not negated and the parameter ones
-    summed over the batch."""
+    ct_zin, ct_ws, ct_bs), the cotangents not negated and the parameter ones
+    summed over the batch; ct_zin is the cotangent of the input rows
+    [z | ys].  The probe tangent has zero ys rows, so the ys rows of W0's
+    gradient come from the forward chain alone (ys x ca_0)."""
     N = spec.n_layers
     K = eps.shape[0]
-    hs, ds = _chain_fwd(spec, z, ws, bs)
+    hs, ds = _chain_fwd(spec, _zin(z, ys), ws, bs)
     y = hs[-1]
     zero = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
     uss, vss, eJs, ns = [], [], [], []
@@ -250,6 +266,8 @@ def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: b
         ct_u = ek * ct_tr[:, None]
         if norm_j:
             ct_u = ct_u + eJs[k] * _ct_safe_norm(ct_r[2] / K, ns[k])[:, None]
+        if spec.n_cond:
+            ct_u = torch.cat([ct_u, ct_u.new_zeros(ct_u.shape[0], spec.n_cond)], dim=-1)
         # Up the pullback chain: u_i = v_i W_i^T, v_i = u_{i+1} * d_i.
         for i in range(N):
             ct_v = ct_u @ ws[i]
@@ -293,19 +311,19 @@ def exact_pm_chain(g_pm, w1, w2):
     return torch.einsum("jih,hi->jh", g3, w2), torch.einsum("jih,jh->hi", g3, w1)
 
 
-def _exact_m3(spec: ChainSpec, z, ws, bs, pm):
+def _exact_m3(spec: ChainSpec, z, ws, bs, pm, ys=None):
     """Forward pass and m[b, j, i] = sum_h pm[(j, i), h] dh[b, h]."""
-    hs, ds = _chain_fwd(spec, z, ws, bs)
+    hs, ds = _chain_fwd(spec, _zin(z, ys), ws, bs)
     m3 = (ds[0] @ pm.T).reshape(z.shape[0], spec.dz, spec.dz)
     return hs, ds, m3
 
 
-def _stage_train_exact(spec: ChainSpec, z, ws, bs, pm, norm_z: bool, norm_j: bool):
+def _stage_train_exact(spec: ChainSpec, z, ws, bs, pm, norm_z: bool, norm_j: bool, ys=None):
     """One exact TRAIN field evaluation of a 2-layer tanh chain: with
     J[b]_ji = dy_i m[b, j, i], tr = sum_i dy_i m[i, i] and
-    ||J||_F^2 = sum_i dy_i^2 sum_j m[j, i]^2.  Returns (k_z, rates (3, B) =
-    [-tr, ||y||, ||J||_F])."""
-    hs, ds, m3 = _exact_m3(spec, z, ws, bs, pm)
+    ||J||_F^2 = sum_i dy_i^2 sum_j m[j, i]^2 (pm built from the z rows of
+    W0).  Returns (k_z, rates (3, B) = [-tr, ||y||, ||J||_F])."""
+    hs, ds, m3 = _exact_m3(spec, z, ws, bs, pm, ys)
     y, dy = hs[-1], ds[1]
     tr = torch.sum(dy * torch.diagonal(m3, dim1=1, dim2=2), dim=-1)
     zero = torch.zeros_like(tr)
@@ -314,12 +332,13 @@ def _stage_train_exact(spec: ChainSpec, z, ws, bs, pm, norm_z: bool, norm_j: boo
     return y, torch.stack([-tr, e_rate, n_rate])
 
 
-def _stage_train_exact_fwdbwd(spec: ChainSpec, z, ws, bs, pm, norm_z: bool, norm_j: bool, ct_y, ct_r):
+def _stage_train_exact_fwdbwd(spec: ChainSpec, z, ws, bs, pm, norm_z: bool, norm_j: bool, ct_y, ct_r, ys=None):
     """`_stage_train_exact` and its hand-derived VJP against (ct_y (B, dz),
     ct_r (3, B)) in one pass: the math the K4 adjoint runs.  Returns (k_z,
-    rates, ct_z, ct_ws, ct_bs, ct_pm), the cotangents not negated and the
-    parameter and pm ones summed over the batch."""
-    hs, ds, m3 = _exact_m3(spec, z, ws, bs, pm)
+    rates, ct_zin, ct_ws, ct_bs, ct_pm), the cotangents not negated and the
+    parameter and pm ones summed over the batch; ct_zin is the cotangent of
+    the input rows [z | ys]."""
+    hs, ds, m3 = _exact_m3(spec, z, ws, bs, pm, ys)
     y, (dh, dy) = hs[-1], ds
     d = torch.diagonal(m3, dim1=1, dim2=2)  # (B, dz)
     s = torch.sum(m3 * m3, dim=1)  # (B, dz): s[i] = sum_j m[j, i]^2
@@ -348,17 +367,17 @@ def _stage_train_exact_fwdbwd(spec: ChainSpec, z, ws, bs, pm, norm_z: bool, norm
     ct_pre2 = ct_ytot * dy
     ct_h = ct_pre2 @ ws[1].T + (-2.0 * hs[1]) * ct_dh
     ct_pre1 = ct_h * dh
-    ct_ws = [z.T @ ct_pre1, hs[1].T @ ct_pre2]
+    ct_ws = [hs[0].T @ ct_pre1, hs[1].T @ ct_pre2]
     ct_bs = [torch.sum(ct_pre1, dim=0), torch.sum(ct_pre2, dim=0)]
     return y, kr, ct_pre1 @ ws[0].T, ct_ws, ct_bs, ct_pm
 
 
-def _stage_train_exact_chain(spec: ChainSpec, z, ws, bs, norm_z: bool, norm_j: bool):
+def _stage_train_exact_chain(spec: ChainSpec, z, ws, bs, norm_z: bool, norm_j: bool, ys=None):
     """The exact TRAIN stage of any Dense tanh-or-identity chain, from the
-    batched chain Jacobian (the basis-propagation form, K7)."""
+    batched chain Jacobian in z (the basis-propagation form, K7)."""
     from .fused_dynamics import dense_chain_jacobian
 
-    y, J = dense_chain_jacobian(ws, bs, spec.acts, z)
+    y, J = dense_chain_jacobian(ws, bs, spec.acts, z, ys)
     tr = torch.diagonal(J, dim1=1, dim2=2).sum(-1)
     zero = torch.zeros_like(tr)
     n_rate = safe_sqrt(torch.sum(J * J, dim=(1, 2))) if norm_j else zero
@@ -384,13 +403,14 @@ def _solve_plain(stage, tab, *, rtol, atol, max_steps, z0, acc0, t0, t1, dt_init
     return yf[: B * dz].reshape(B, dz), yf[B * dz :].reshape(acc0.shape), st.steps, st.accepted, st.dt_last
 
 
-def solve_test_plain(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init):
-    """Plain PyTorch version of K3: the eager adaptive solve of [z | dlogp]
-    on the closed-form TEST field, from the given initial step.  Returns
+def solve_test_plain(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None):
+    """Plain PyTorch version of K3 and K7 TEST: the eager adaptive solve of
+    [z | dlogp] on the closed-form TEST field (conditioned on ys (B, n_cond)
+    when given), from the given initial step.  Returns
     (zT, dlogpT, steps, accepted, dt_last)."""
 
     def stage(z):
-        y, tr = _test_stage(spec, ws, bs, z)
+        y, tr = _test_stage(spec, ws, bs, z, ys)
         return y, -tr
 
     return _solve_plain(stage, tab, rtol=rtol, atol=atol, max_steps=max_steps, z0=z0, acc0=dlogp0,
@@ -398,62 +418,87 @@ def solve_test_plain(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0
 
 
 def solve_train_plain(
-    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None
 ):
-    """Plain PyTorch version of K1: the eager adaptive solve of
-    [z | acc] with acc (3, B) = [dlogp | reg_e | reg_n] rows, seeded from
-    acc0, on `_stage_train` with probes eps (K, B, dz).  Returns
+    """Plain PyTorch version of K1 and its chain form: the eager adaptive
+    solve of [z | acc] with acc (3, B) = [dlogp | reg_e | reg_n] rows,
+    seeded from acc0, on `_stage_train` with probes eps (K, B, dz) and the
+    conditioning ys (B, n_cond) or None.  Returns
     (zT, accT, steps, accepted, dt_last)."""
     return _solve_plain(
-        lambda z: _stage_train(spec, z, eps, ws, bs, norm_z, norm_j), tab, rtol=rtol, atol=atol,
+        lambda z: _stage_train(spec, z, eps, ws, bs, norm_z, norm_j, ys), tab, rtol=rtol, atol=atol,
         max_steps=max_steps, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
     )
 
 
+def _exact_pm(spec, ws):
+    """The 2-layer exact stage's constant, from the z rows of W0."""
+    return exact_stage_consts(ws[0][: spec.dz], ws[1])
+
+
 def solve_train_exact_plain(
-    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init, ys=None
 ):
-    """Plain PyTorch version of the K4 forward: the eager adaptive solve of
-    [z | acc] with acc (3, B) = [dlogp | reg_e | reg_n] rows, seeded from
-    acc0, on the exact TRAIN stage (`_stage_train_exact` for 2-layer tanh
-    chains, `_stage_train_exact_chain` for others).  Returns
+    """Plain PyTorch version of the K4 forward and K7 exact: the eager
+    adaptive solve of [z | acc] with acc (3, B) = [dlogp | reg_e | reg_n]
+    rows, seeded from acc0, on the exact TRAIN stage (`_stage_train_exact`
+    for 2-layer tanh chains, `_stage_train_exact_chain` for others), with
+    the conditioning ys (B, n_cond) or None.  Returns
     (zT, accT, steps, accepted, dt_last)."""
     if _exact_pm_stage(spec):
-        pm = exact_stage_consts(ws[0], ws[1])
-        stage = lambda z: _stage_train_exact(spec, z, ws, bs, pm, norm_z, norm_j)  # noqa: E731
+        pm = _exact_pm(spec, ws)
+        stage = lambda z: _stage_train_exact(spec, z, ws, bs, pm, norm_z, norm_j, ys)  # noqa: E731
     else:
-        stage = lambda z: _stage_train_exact_chain(spec, z, ws, bs, norm_z, norm_j)  # noqa: E731
+        stage = lambda z: _stage_train_exact_chain(spec, z, ws, bs, norm_z, norm_j, ys)  # noqa: E731
     return _solve_plain(stage, tab, rtol=rtol, atol=atol, max_steps=max_steps, z0=z0, acc0=acc0,
                         t0=t0, t1=t1, dt_init=dt_init)
 
 
-def _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT):
-    """`(z, a_z) -> (k_z, rates, ct_z, gradient blocks [w..., b...])` of the
-    Hutchinson TRAIN stage (K2)."""
+def _split_zin(spec, ct_zin, ys):
+    """(ct_z, the per-sample ys block) of an input-row cotangent: the ys
+    block is [ct_ys] for a conditional stage, [] otherwise."""
+    return ct_zin[:, : spec.dz], ([] if ys is None else [ct_zin[:, spec.dz :]])
+
+
+def _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT, ys=None):
+    """`(z, a_z) -> (k_z, rates, ct_z, gradient blocks [ct_ys,] [w..., b...])`
+    of the Hutchinson TRAIN stage (K2): the ct_ys block (B, n_cond) only for
+    a conditional stage."""
 
     def stage(z, az):
-        y, kr, ct_z, ct_ws, ct_bs = _stage_train_fwdbwd(spec, z, eps, ws, bs, norm_z, norm_j, az, aaccT)
-        return y, kr, ct_z, list(ct_ws) + list(ct_bs)
+        y, kr, ct_zin, ct_ws, ct_bs = _stage_train_fwdbwd(spec, z, eps, ws, bs, norm_z, norm_j, az, aaccT, ys)
+        ct_z, ys_block = _split_zin(spec, ct_zin, ys)
+        return y, kr, ct_z, ys_block + list(ct_ws) + list(ct_bs)
 
     return stage
 
 
-def _exact_adjoint_stage(spec, ws, bs, pm, norm_z, norm_j, aaccT):
+def _exact_adjoint_stage(spec, ws, bs, pm, norm_z, norm_j, aaccT, ys=None):
     """The same for the 2-layer exact TRAIN stage (K4): the blocks are
-    [w1, w2, b1, b2, pm]."""
+    [ct_ys,] [w1, w2, b1, b2, pm]."""
 
     def stage(z, az):
-        y, kr, ct_z, ct_ws, ct_bs, ct_pm = _stage_train_exact_fwdbwd(spec, z, ws, bs, pm, norm_z, norm_j, az, aaccT)
-        return y, kr, ct_z, list(ct_ws) + list(ct_bs) + [ct_pm]
+        y, kr, ct_zin, ct_ws, ct_bs, ct_pm = _stage_train_exact_fwdbwd(
+            spec, z, ws, bs, pm, norm_z, norm_j, az, aaccT, ys
+        )
+        ct_z, ys_block = _split_zin(spec, ct_zin, ys)
+        return y, kr, ct_z, ys_block + list(ct_ws) + list(ct_bs) + [ct_pm]
 
     return stage
+
+
+def _block_shapes(ws, bs, ys, extra=()):
+    """The shapes of the backward state's blocks after a_acc: [the per-sample
+    a_ys (B, n_cond),] the parameter gradients [w..., b...], then `extra`."""
+    return ([] if ys is None else [ys.shape]) + [x.shape for x in list(ws) + list(bs)] + list(extra)
 
 
 def _adjoint_state(stage, zT, accT, azT, aaccT, shapes):
     """The backward field of the flat augmented state
-    [z | acc (3, B) | a_z | a_acc (3, B) | gradient blocks of `shapes`] (the
-    stage, its rates, -ct_z, a constant a_acc and the negated cotangents)
-    and its value at t_hi (zero gradients)."""
+    [z | acc (3, B) | a_z | a_acc (3, B) | blocks of `shapes`] (the stage,
+    its rates, -ct_z, a constant a_acc and the negated cotangents of the
+    blocks: a per-sample a_ys, then the parameter gradients) and its value at
+    t_hi (zero blocks)."""
     B, dz = zT.shape
     n = B * dz
 
@@ -472,9 +517,9 @@ def _adjoint_state(stage, zT, accT, azT, aaccT, shapes):
 
 
 def _adjoint_plain(stage, shapes, tab, *, rtol, atol, max_steps, zT, accT, azT, aaccT, t_hi, t_lo, dt_init):
-    """The eager adaptive backsolve of (z, acc, a_z, a_acc, gradient blocks)
-    from t_hi to t_lo, one error norm over the whole augmented state.
-    Returns (z0, acc0, a_z0, blocks, steps, accepted)."""
+    """The eager adaptive backsolve of (z, acc, a_z, a_acc, blocks) from t_hi
+    to t_lo, one error norm over the whole augmented state.  Returns
+    (z0, acc0, a_z0, blocks, steps, accepted)."""
     B, dz = zT.shape
     n = B * dz
     f, u0 = _adjoint_state(stage, zT, accT, azT, aaccT, shapes)
@@ -487,22 +532,30 @@ def _adjoint_plain(stage, shapes, tab, *, rtol, atol, max_steps, zT, accT, azT, 
     return z0, acc0, az0, blocks, st.steps, st.accepted
 
 
+def _adjoint_result(z0, acc0, az0, blocks, steps, accepted, N, ys):
+    """(z0, acc0, a_z0, g_ws, g_bs, steps, accepted), then a_ys0 for a
+    conditional backsolve."""
+    ays = [] if ys is None else [blocks.pop(0)]
+    return (z0, acc0, az0, blocks[:N], blocks[N : 2 * N], steps, accepted, *ays)
+
+
 def adjoint_train_plain(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-    t_hi, t_lo, dt_init,
+    t_hi, t_lo, dt_init, ys=None,
 ):
-    """Plain PyTorch version of K2: the eager adaptive backsolve of
-    (z, acc, a_z, a_acc, g_p) from t_hi to t_lo, one error norm over the whole
-    augmented state (a_acc constant), on the hand-derived stage VJP.
+    """Plain PyTorch version of K2 and its chain form: the eager adaptive
+    backsolve of (z, acc, a_z, a_acc, [a_ys,] g_p) from t_hi to t_lo, one
+    error norm over the whole augmented state (a_acc constant), on the
+    hand-derived stage VJP.  With the conditioning ys (B, n_cond) the
+    per-sample a_ys (from 0 at t_hi) is integrated too and returned last.
     `dt_init` None picks the first step by Hairer's rule.  Returns
-    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted)."""
-    N = len(ws)
-    z0, acc0, az0, g, steps, accepted = _adjoint_plain(
-        _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT), [x.shape for x in list(ws) + list(bs)],
+    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted[, a_ys0])."""
+    out = _adjoint_plain(
+        _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT, ys), _block_shapes(ws, bs, ys),
         tab, rtol=rtol, atol=atol, max_steps=max_steps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
         t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
     )
-    return z0, acc0, az0, g[:N], g[N:], steps, accepted
+    return _adjoint_result(*out, len(ws), ys)
 
 
 _NO_EXACT_CHAIN_ADJOINT = (
@@ -511,26 +564,33 @@ _NO_EXACT_CHAIN_ADJOINT = (
 )
 
 
+def _pad_rows(g, rows):
+    """g with zero rows appended up to `rows` rows."""
+    return g if g.shape[0] == rows else torch.cat([g, g.new_zeros(rows - g.shape[0], *g.shape[1:])])
+
+
 def adjoint_train_exact_plain(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
-    t_hi, t_lo, dt_init,
+    t_hi, t_lo, dt_init, ys=None,
 ):
     """Plain PyTorch version of the K4 adjoint: the eager adaptive backsolve
-    of (z, acc, a_z, a_acc, g_p, g_pm) from t_hi to t_lo on the hand-derived
-    exact stage VJP of a 2-layer tanh chain, one error norm over the whole
-    augmented state, g_pm included.  g_pm is chained back into g_w1 and g_w2
-    after the solve.  Returns (z0, acc0, a_z0, g_ws, g_bs, steps, accepted)."""
+    of (z, acc, a_z, a_acc, [a_ys,] g_p, g_pm) from t_hi to t_lo on the
+    hand-derived exact stage VJP of a 2-layer tanh chain, one error norm
+    over the whole augmented state, g_pm included.  g_pm is chained back
+    into g_w1 (its z rows) and g_w2 after the solve.  Returns
+    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted[, a_ys0])."""
     if not _exact_pm_stage(spec):
         raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
-    pm = exact_stage_consts(ws[0], ws[1])
+    pm = _exact_pm(spec, ws)
     z0, acc0, az0, g, steps, accepted = _adjoint_plain(
-        _exact_adjoint_stage(spec, ws, bs, pm, norm_z, norm_j, aaccT),
-        [x.shape for x in list(ws) + list(bs)] + [pm.shape], tab, rtol=rtol, atol=atol,
-        max_steps=max_steps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo,
-        dt_init=dt_init,
+        _exact_adjoint_stage(spec, ws, bs, pm, norm_z, norm_j, aaccT, ys), _block_shapes(ws, bs, ys, [pm.shape]),
+        tab, rtol=rtol, atol=atol, max_steps=max_steps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+        t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
     )
-    g_w1, g_w2 = exact_pm_chain(g[4], ws[0], ws[1])
-    return z0, acc0, az0, [g[0] + g_w1, g[1] + g_w2], g[2:4], steps, accepted
+    g_w1, g_w2 = exact_pm_chain(g.pop(), ws[0][: spec.dz], ws[1])
+    g[-4] = g[-4] + _pad_rows(g_w1, ws[0].shape[0])
+    g[-3] = g[-3] + g_w2
+    return _adjoint_result(z0, acc0, az0, g, steps, accepted, 2, ys)
 
 
 # ---- the CUDA kernels ----
@@ -541,15 +601,17 @@ def _kernel_covers(
 ) -> Optional[str]:
     """Why the 2-layer kernels (K3, K1, K2, K4; `chain` False) or the chain
     kernels (the K1 and K2 chain forms, K7; `chain` True) do not run this
-    configuration (None if they do).  The 2-layer kernels take 2-layer tanh
-    chains; the chain kernels take tanh chains of 2 to CHAIN_MAX_LAYERS
-    layers with hidden widths up to CHAIN_MAX_WIDTH."""
+    configuration (None if they do).  The 2-layer kernels take
+    unconditional 2-layer tanh chains; the chain kernels take tanh chains of
+    2 to CHAIN_MAX_LAYERS layers with hidden widths up to CHAIN_MAX_WIDTH,
+    conditional ones (K8) included; a chain whose weights and per-thread
+    slots do not fit in shared memory is refused at launch (`_launch_shape`)."""
     if tab != TSIT5:
         return f"the {tab.name} tableau (K9, ROADMAP queue 2)"
     if not all(spec.acts):
         return "identity-activation layers (K9, ROADMAP queue 2)"
-    if spec.n_cond:
-        return "conditional nets (K8, ROADMAP queue 2)"
+    if spec.n_cond and not chain:
+        return "conditional nets (K8 in the 2-layer kernels, ROADMAP queue 2)"
     if k_probes != 1:
         return f"{k_probes} Hutchinson probes (K6, ROADMAP queue 2)"
     if spec.dz > MAX_DZ:
@@ -616,19 +678,19 @@ _SIGNATURES = {
     K1C_KERNEL: {
         "cnf_k1c_max_grid": _CHAIN_GRID,
         "cnf_k1c_smem_bytes": _CHAIN_SMEM,
-        "cnf_k1c_train_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I] + _TAIL, _I),
+        "cnf_k1c_train_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I] + _TAIL, _I),
     },
     K7_KERNEL: {
         "cnf_k7_test_max_grid": _CHAIN_GRID,
         "cnf_k7_exact_max_grid": _CHAIN_GRID,
         "cnf_k7_smem_bytes": _CHAIN_SMEM,
-        "cnf_k7_test_solve": ([_P] * 10 + [_I, _I, _IP, _I] + _TAIL, _I),
-        "cnf_k7_exact_solve": ([_P] * 10 + [_I, _I, _IP, _I, _I, _I] + _TAIL, _I),
+        "cnf_k7_test_solve": ([_P] * 11 + [_I, _I, _IP, _I] + _TAIL, _I),
+        "cnf_k7_exact_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I] + _TAIL, _I),
     },
     K2C_KERNEL: {
         "cnf_k2c_max_grid": _CHAIN_GRID,
         "cnf_k2c_smem_bytes": _CHAIN_SMEM,
-        "cnf_k2c_train_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I] + _TAIL, _I),
+        "cnf_k2c_train_adjoint": ([_P] * 18 + [_I, _I, _IP, _I, _I, _I] + _TAIL, _I),
     },
 }
 
@@ -699,19 +761,20 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
         raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
 
-def run_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init):
+def run_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None):
     """K3: the TEST solve of [z | dlogp] from t0 to t1 (0-d tensors; t1 < t0
     runs backward) starting with step `dt_init`.  z0 is (B, dz) batch-major
     and dlogp0 (B,) seeds the accumulator.  Returns
     (zT, dlogpT, steps, accepted, dt_last), all on z0's device.
 
-    CUDA tensors go through the K3 kernel (2-layer tanh chains), CPU
-    tensors through its plain version (any Dense chain)."""
-    _no_grad_inputs("K3", ws, bs, z0, dlogp0)
+    CUDA tensors go through the K3 kernel (unconditional 2-layer tanh
+    chains), CPU tensors through its plain version (any Dense chain, ys
+    (B, n_cond) or None)."""
+    _no_grad_inputs("K3", ws, bs, z0, dlogp0, ys)
     if z0.device.type == "cpu":
         return solve_test_plain(
             tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
-            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K3", z0, tab, spec)
     B, dz = z0.shape
@@ -748,20 +811,21 @@ run_solve_kernel.launches = 0
 
 
 def run_train_solve_kernel(
-    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None
 ):
     """K1: the TRAIN solve of [z | acc] from t0 to t1 starting with step
     `dt_init`.  z0 is (B, dz), eps (K, B, dz) and acc0 (3, B) = [dlogp |
     reg_e | reg_n] seeds the accumulators.  Returns
     (zT, accT, steps, accepted, dt_last), all on z0's device.
 
-    CUDA tensors go through the K1 kernel (2-layer tanh chains, one probe),
-    CPU tensors through its plain version (any Dense chain)."""
-    _no_grad_inputs("K1", ws, bs, z0, eps, acc0)
+    CUDA tensors go through the K1 kernel (unconditional 2-layer tanh
+    chains, one probe), CPU tensors through its plain version (any Dense
+    chain, ys (B, n_cond) or None)."""
+    _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
-            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K1", z0, tab, spec, eps.shape[0])
     B, dz = z0.shape
@@ -799,21 +863,22 @@ run_train_solve_kernel.launches = 0
 
 def run_adjoint_kernel(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-    t_hi, t_lo, dt_init,
+    t_hi, t_lo, dt_init, ys=None,
 ):
     """K2: the backsolve of (z, acc, a_z, a_acc, g_p) from t_hi to t_lo
     starting with step `dt_init`, on the TRAIN stage with probes eps
     (K, B, dz).  zT, azT are (B, dz), accT, aaccT (3, B).  Returns
     (z0, acc0, a_z0, g_ws, g_bs, steps, accepted), g_* summed over the batch.
 
-    CUDA tensors go through the K2 kernel (2-layer tanh chains, one probe),
-    CPU tensors through its plain version (any Dense chain)."""
-    _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT)
+    CUDA tensors go through the K2 kernel (unconditional 2-layer tanh
+    chains, one probe), CPU tensors through its plain version (any Dense
+    chain; with ys (B, n_cond), a_ys0 is returned last)."""
+    _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
     if zT.device.type == "cpu":
         return adjoint_train_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
             ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
-            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K2", zT, tab, spec, eps.shape[0])
     if dt_init is None:
@@ -854,20 +919,21 @@ run_adjoint_kernel.launches = 0
 
 
 def run_exact_solve_kernel(
-    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init, ys=None
 ):
     """K4 forward: the exact-trace TRAIN solve of [z | acc] from t0 to t1
     starting with step `dt_init`.  z0 is (B, dz) and acc0 (3, B) = [dlogp |
     reg_e | reg_n] seeds the accumulators.  Returns
     (zT, accT, steps, accepted, dt_last), all on z0's device.
 
-    CUDA tensors go through the K4 forward kernel (2-layer tanh chains), CPU
-    tensors through its plain version (any Dense chain)."""
-    _no_grad_inputs("K4", ws, bs, z0, acc0)
+    CUDA tensors go through the K4 forward kernel (unconditional 2-layer
+    tanh chains), CPU tensors through its plain version (any Dense chain, ys
+    (B, n_cond) or None)."""
+    _no_grad_inputs("K4", ws, bs, z0, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_exact_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
-            ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+            ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K4", z0, tab, spec)
     B, dz = z0.shape
@@ -905,7 +971,7 @@ run_exact_solve_kernel.launches = 0
 
 def run_exact_adjoint_kernel(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
-    t_hi, t_lo, dt_init,
+    t_hi, t_lo, dt_init, ys=None,
 ):
     """K4 adjoint: the backsolve of (z, acc, a_z, a_acc, g_p, g_pm) from t_hi
     to t_lo starting with step `dt_init`, on the exact TRAIN stage of a
@@ -913,16 +979,18 @@ def run_exact_adjoint_kernel(
     (z0, acc0, a_z0, g_ws, g_bs, steps, accepted), g_* summed over the batch
     with g_pm chained into g_w1 and g_w2.
 
-    CUDA tensors go through the K4 adjoint kernel, CPU tensors through its
-    plain version.  Deeper chains have no exact adjoint, as in the JAX
-    package: K7 is forward-only."""
+    CUDA tensors go through the K4 adjoint kernel (unconditional nets: the
+    conditional rows of the 2-layer kernels are not ported), CPU tensors
+    through its plain version (with ys (B, n_cond), a_ys0 is returned
+    last).  Deeper chains have no exact adjoint, as in the JAX package: K7
+    is forward-only."""
     if not _exact_pm_stage(spec):
         raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
-    _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT)
+    _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT, ys)
     if zT.device.type == "cpu":
         return adjoint_train_exact_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
-            ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
+            ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K4", zT, tab, spec)
     if dt_init is None:
@@ -973,7 +1041,8 @@ _CHAIN_BLOCKS = (128, 64, 32)
 
 def _chain_params(label: str, spec: ChainSpec, ws, bs, device):
     """The flat params [W0 | b0 | W1 | b1 | ...] of a chain kernel and its
-    level widths as a C int array."""
+    level widths as a C int array: the input width dz + n_cond first, dz
+    last (the kernels read n_cond as their difference)."""
     widths = (spec.in_dims[0],) + tuple(spec.out_dims)
     shapes = [s for a, b in zip(widths[:-1], widths[1:]) for s in ((a, b), (b,))]
     leaves = _check_inputs(label, device, [x for w, b in zip(ws, bs) for x in (w, b)], shapes)
@@ -990,15 +1059,30 @@ def _split_params(flat: torch.Tensor, spec: ChainSpec):
     return ws, bs
 
 
+def _cond_rows(label: str, spec: ChainSpec, ys, B: int, device):
+    """The conditioning (B, n_cond) as the chain kernels read it, None for an
+    unconditional chain."""
+    if (ys is None) != (spec.n_cond == 0):
+        raise ValueError(f"{label}: ys must be given exactly for a conditional chain (n_cond = {spec.n_cond})")
+    if ys is None:
+        return None
+    return _check_inputs(label, device, [ys], [(B, spec.n_cond)])[0]
+
+
+def _ptr_or_null(x: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None) if x is None else _ptr(x)
+
+
 def _run_chain_forward(label, lib_name, entry, max_grid, tab, spec, *, rtol, atol, max_steps, ws, bs, z0, acc0,
-                       t0, t1, dt_init, eps=None, norms=()):
+                       t0, t1, dt_init, ys=None, eps=None, norms=()):
     """Launch a chain forward kernel, whose C arguments are (params, [eps],
-    z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths,
+    ys, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths,
     max_steps, *norms, rtol, atol, the controller, the tableau, grid, block,
     stream).  Returns (zT, accT, steps, accepted, dt_last)."""
     B, dz = z0.shape
     device = z0.device
     params, widths = _chain_params(label, spec, ws, bs, device)
+    ys = _cond_rows(label, spec, ys, B, device)
     probe = [] if eps is None else [eps[0]]
     z0, acc0, *probe = _check_inputs(label, device, [z0, acc0] + probe, [(B, dz), tuple(acc0.shape), (B, dz)])
     nacc = 1 if acc0.dim() == 1 else acc0.shape[0]
@@ -1013,33 +1097,34 @@ def _run_chain_forward(label, lib_name, entry, max_grid, tab, spec, *, rtol, ato
     work = torch.empty((TSIT5.num_stages + 2) * (dz + nacc) * B, dtype=torch.float32, device=device)
     partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
     err = getattr(lib, entry)(
-        _ptr(params), *[_ptr(x) for x in probe], _ptr(z0), _ptr(acc0), _ptr(ts), _ptr(zT), _ptr(accT),
-        _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials), B, spec.n_layers, widths, int(max_steps),
-        *[int(x) for x in norms], rtol, atol, *_controller_floats(tab), _tableau_array(), grid, block,
-        _stream(device),
+        _ptr(params), *[_ptr(x) for x in probe], _ptr_or_null(ys), _ptr(z0), _ptr(acc0), _ptr(ts), _ptr(zT),
+        _ptr(accT), _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials), B, spec.n_layers, widths,
+        int(max_steps), *[int(x) for x in norms], rtol, atol, *_controller_floats(tab), _tableau_array(), grid,
+        block, _stream(device),
     )
     if err != 0:
         raise RuntimeError(f"{label} launch failed with cudaError {err} (grid {grid}, block {block})")
     return zT, accT, stats[0], stats[1], dt_last[0]
 
 
-def run_chain_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init):
+def run_chain_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None):
     """K7 TEST: the TEST solve of [z | dlogp] of a tanh chain of 2 to
     CHAIN_MAX_LAYERS layers, the exact trace by basis propagation; arguments
-    and returns as `run_solve_kernel`.
+    and returns as `run_solve_kernel`, with the conditioning ys (B, n_cond)
+    of a conditional chain (K8: the first layer reads [z | ys]).
 
     CUDA tensors go through the K7 kernel's TEST entry point, CPU tensors
     through its plain version."""
-    _no_grad_inputs("K7", ws, bs, z0, dlogp0)
+    _no_grad_inputs("K7", ws, bs, z0, dlogp0, ys)
     if z0.device.type == "cpu":
         return solve_test_plain(
             tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
-            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K7", z0, tab, spec, chain=True)
     out = _run_chain_forward(
         "K7 TEST", K7_KERNEL, "cnf_k7_test_solve", "cnf_k7_test_max_grid", tab, spec, rtol=rtol, atol=atol,
-        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
     )
     run_chain_test_solve_kernel.launches += 1
     return out
@@ -1049,24 +1134,25 @@ run_chain_test_solve_kernel.launches = 0
 
 
 def run_chain_exact_solve_kernel(
-    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init, ys=None
 ):
     """K7 exact: the exact-trace TRAIN solve of [z | acc] of a tanh chain of
     2 to CHAIN_MAX_LAYERS layers (trace and ||J||_F by basis propagation);
-    arguments and returns as `run_exact_solve_kernel`.
+    arguments and returns as `run_exact_solve_kernel`, with the conditioning
+    ys (B, n_cond) of a conditional chain.
 
     CUDA tensors go through the K7 kernel's exact entry point, CPU tensors
     through its plain version."""
-    _no_grad_inputs("K7", ws, bs, z0, acc0)
+    _no_grad_inputs("K7", ws, bs, z0, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_exact_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
-            ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+            ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K7", z0, tab, spec, chain=True)
     out = _run_chain_forward(
         "K7 exact", K7_KERNEL, "cnf_k7_exact_solve", "cnf_k7_exact_max_grid", tab, spec, rtol=rtol, atol=atol,
-        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         norms=(norm_z, norm_j),
     )
     run_chain_exact_solve_kernel.launches += 1
@@ -1077,25 +1163,26 @@ run_chain_exact_solve_kernel.launches = 0
 
 
 def run_chain_train_solve_kernel(
-    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None
 ):
     """The K1 chain form: the TRAIN solve of [z | acc] of a tanh chain of 2
     to CHAIN_MAX_LAYERS layers with one VJP probe; arguments and returns as
-    `run_train_solve_kernel`.
+    `run_train_solve_kernel`, with the conditioning ys (B, n_cond) of a
+    conditional chain.
 
     CUDA tensors go through the kernel, CPU tensors through its plain
     version."""
-    _no_grad_inputs("K1", ws, bs, z0, eps, acc0)
+    _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
-            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K1", z0, tab, spec, eps.shape[0], chain=True)
     out = _run_chain_forward(
         "K1 chain form", K1C_KERNEL, "cnf_k1c_train_solve", "cnf_k1c_max_grid", tab, spec, rtol=rtol,
-        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
-        norms=(norm_z, norm_j),
+        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        eps=eps, norms=(norm_z, norm_j),
     )
     run_chain_train_solve_kernel.launches += 1
     return out
@@ -1106,28 +1193,32 @@ run_chain_train_solve_kernel.launches = 0
 
 def run_chain_adjoint_kernel(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-    t_hi, t_lo, dt_init,
+    t_hi, t_lo, dt_init, ys=None,
 ):
-    """The K2 chain form: the backsolve of (z, acc, a_z, a_acc, g_p) of a
-    tanh chain of 2 to CHAIN_MAX_LAYERS layers with one VJP probe; arguments
-    and returns as `run_adjoint_kernel`.
+    """The K2 chain form: the backsolve of (z, acc, a_z, a_acc, [a_ys,] g_p)
+    of a tanh chain of 2 to CHAIN_MAX_LAYERS layers with one VJP probe;
+    arguments and returns as `run_adjoint_kernel`.  A conditional chain
+    takes ys (B, n_cond) and integrates the per-sample a_ys from 0 at t_hi
+    in the same error norm; a_ys0 (B, n_cond) is returned last.
 
     CUDA tensors go through the kernel, CPU tensors through its plain
     version."""
-    _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT)
+    _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
     if zT.device.type == "cpu":
         return adjoint_train_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
             ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
-            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K2", zT, tab, spec, eps.shape[0], chain=True)
     if dt_init is None:
         raise ValueError("the K2 chain form needs dt_init (the caller picks it)")
     label = "K2 chain form"
     B, dz = zT.shape
+    nc = spec.n_cond
     device = zT.device
     params, widths = _chain_params(label, spec, ws, bs, device)
+    ys = _cond_rows(label, spec, ys, B, device)
     e0, zT, accT, azT, aaccT = _check_inputs(
         label, device, [eps[0], zT, accT, azT, aaccT], [(B, dz), (B, dz), (3, B), (B, dz), (3, B)]
     )
@@ -1138,23 +1229,24 @@ def run_chain_adjoint_kernel(
     P = params.numel()
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
     z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
+    ays0 = torch.empty((B, nc), dtype=torch.float32, device=device) if nc else None
     g = torch.empty(P, dtype=torch.float32, device=device)
     stats = torch.empty(2, dtype=torch.int32, device=device)
-    work = torch.empty((TSIT5.num_stages + 2) * (2 * dz + 3) * B, dtype=torch.float32, device=device)
+    work = torch.empty((TSIT5.num_stages + 2) * (2 * dz + 3 + nc) * B, dtype=torch.float32, device=device)
     partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
     gpart = torch.empty(2 * grid * 2 * P, dtype=torch.float32, device=device)
     gblk = torch.empty(grid * 4 * P, dtype=torch.float32, device=device)
     err = lib.cnf_k2c_train_adjoint(
-        _ptr(params), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
-        _ptr(az0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gpart), _ptr(gblk),
-        B, spec.n_layers, widths, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
-        _tableau_array(), grid, block, _stream(device),
+        _ptr(params), _ptr(e0), _ptr_or_null(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts),
+        _ptr(z0), _ptr(acc0), _ptr(az0), _ptr_or_null(ays0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials),
+        _ptr(gpart), _ptr(gblk), B, spec.n_layers, widths, int(max_steps), int(norm_z), int(norm_j), rtol, atol,
+        *_controller_floats(tab), _tableau_array(), grid, block, _stream(device),
     )
     if err != 0:
         raise RuntimeError(f"{label} launch failed with cudaError {err} (grid {grid}, block {block})")
     run_chain_adjoint_kernel.launches += 1
     g_ws, g_bs = _split_params(g, spec)
-    return z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]
+    return (z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]) + (() if ays0 is None else (ays0,))
 
 
 run_chain_adjoint_kernel.launches = 0
@@ -1184,25 +1276,37 @@ def reset_launches() -> None:
 # ---- make_full_solve ----
 
 
+def _ys_cotangent(ays0, ys):
+    """The per-sample a_ys0 (B, n_cond) summed back to the shape of the
+    caller's ys ((B, n_cond), (1, n_cond) or (n_cond,))."""
+    if tuple(ys.shape) == tuple(ays0.shape):
+        return ays0
+    return ays0.sum(dim=0).reshape(ys.shape)
+
+
 def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     """Build the fused solve for `ode.solve.odeint_with_stats`, or None when
     the JAX package's megakernel would not apply either.
 
     Eligibility follows the JAX package: opted in via `compute_mode.fused`;
-    a Dense chain with tanh-or-identity activations; no passive
-    augmentation; an adaptive explicit method with an embedded error
+    a Dense chain with tanh-or-identity activations, conditional or not; no
+    passive augmentation; an adaptive explicit method with an embedded error
     estimate; float32.  Within those, what this port has not reached raises
-    NotImplementedError: JVP probes (K6), conditional nets (K8) and bf16
-    stages.  The flat layout is [z.ravel() (batch-major) | dlogp] in TEST
-    mode and [z.ravel() | dlogp | reg_e | reg_n] in TRAIN mode.  The
-    wrappers are chosen here by depth: 2-layer nets run the 2-layer kernels,
-    deeper chains the chain kernels.  Hutchinson TRAIN solves run K1 (or its
-    chain form) with the backward member K2 (or its chain form); exact-trace
-    TRAIN solves run the K4 forward (K7 for deeper chains), with the K4
-    adjoint as the backward member for 2-layer tanh chains and none for
-    other chains (the JAX package's deep exact chains are forward-only too:
-    their gradient runs the plain BACKSOLVE).  TEST solves run K3 (K7 for
-    deeper chains) and have no backward member yet (K5).
+    NotImplementedError: JVP probes (K6) and bf16 stages.  The flat layout
+    is [z.ravel() (batch-major) | dlogp] in TEST mode and
+    [z.ravel() | dlogp | reg_e | reg_n] in TRAIN mode; the conditioning
+    `args["ys"]` ((B, n_cond), (1, n_cond) or (n_cond,)) is broadcast to
+    (B, n_cond) for the kernels, and its cotangent summed back.  The
+    wrappers are chosen here: unconditional 2-layer nets run the 2-layer
+    kernels, deeper chains and every conditional chain (K8) the chain
+    kernels.  Hutchinson TRAIN solves run K1 (or its chain form) with the
+    backward member K2 (or its chain form); exact-trace TRAIN solves run the
+    K4 forward (K7 for chain-kernel nets), with the K4 adjoint as the
+    backward member for 2-layer tanh chains (conditional ones raise on the
+    card: K8 in the 2-layer kernels is not ported) and none for deeper
+    chains (the JAX package's deep exact chains are forward-only too: their
+    gradient runs the plain BACKSOLVE).  TEST solves run K3 (K7 for
+    chain-kernel nets) and have no backward member yet (K5).
     """
     cm = icnf.compute_mode
     opts = icnf.solver
@@ -1227,10 +1331,6 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     if train and not exact and cm.ad != ADMode.VJP:
         raise NotImplementedError(
             "JVP probes and their kernel (K6) are not ported yet (ROADMAP queue 1, item 14)"
-        )
-    if spec.n_cond:
-        raise NotImplementedError(
-            "conditional models and their kernel rows (K8) are not ported yet (ROADMAP queue 1, item 13)"
         )
     if cm.bf16:
         raise NotImplementedError(
@@ -1257,20 +1357,22 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     def plain_f_flat(t, yf, args):
         return torch.cat([x.reshape(-1) for x in dyn(t, unpack_flat(yf), args)])
 
-    def kernel_kw(ps):
+    def kernel_kw(args):
+        ps, ys = args["ps"], args.get("ys")
         return dict(
             rtol=opts.rtol, atol=opts.atol, max_steps=opts.max_steps,
             ws=[p["w"] for p in ps], bs=[p["b"] for p in ps],
+            ys=ys.reshape(-1, spec.n_cond).expand(B, spec.n_cond) if spec.n_cond else None,
         )
 
     nfe_per = (tab.num_stages - 1) + (0 if tab.fsal else 1)
 
     exact_pm = exact and _exact_pm_stage(spec)
-    deep = spec.n_layers > 2
-    run_test = run_chain_test_solve_kernel if deep else run_solve_kernel
-    run_train = run_chain_train_solve_kernel if deep else run_train_solve_kernel
-    run_exact = run_chain_exact_solve_kernel if deep else run_exact_solve_kernel
-    run_adjoint = run_chain_adjoint_kernel if deep else run_adjoint_kernel
+    chain = spec.n_layers > 2 or spec.n_cond > 0
+    run_test = run_chain_test_solve_kernel if chain else run_solve_kernel
+    run_train = run_chain_train_solve_kernel if chain else run_train_solve_kernel
+    run_exact = run_chain_exact_solve_kernel if chain else run_exact_solve_kernel
+    run_adjoint = run_chain_adjoint_kernel if chain else run_adjoint_kernel
 
     def forward(y0f, t0, t1, args):
         tdir = torch.sign(t1 - t0)
@@ -1287,17 +1389,17 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         z0 = y0f[: B * dz].reshape(B, dz)
         if exact:
             zT, accT, steps, accepted, dt_last = run_exact(
-                tab, spec, norm_z=norm_z, norm_j=norm_j, **kernel_kw(args["ps"]), z0=z0,
+                tab, spec, norm_z=norm_z, norm_j=norm_j, **kernel_kw(args), z0=z0,
                 acc0=y0f[B * dz :].reshape(3, B), t0=t0, t1=t1, dt_init=dt_init,
             )
         elif train:
             zT, accT, steps, accepted, dt_last = run_train(
-                tab, spec, norm_z=norm_z, norm_j=norm_j, **kernel_kw(args["ps"]), z0=z0,
+                tab, spec, norm_z=norm_z, norm_j=norm_j, **kernel_kw(args), z0=z0,
                 eps=args["eps"], acc0=y0f[B * dz :].reshape(3, B), t0=t0, t1=t1, dt_init=dt_init,
             )
         else:
             zT, accT, steps, accepted, dt_last = run_test(
-                tab, spec, **kernel_kw(args["ps"]), z0=z0, dlogp0=y0f[B * dz :],
+                tab, spec, **kernel_kw(args), z0=z0, dlogp0=y0f[B * dz :],
                 t0=t0, t1=t1, dt_init=dt_init,
             )
         stats = SolveStats(
@@ -1306,16 +1408,17 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         return torch.cat([zT.reshape(-1), accT.reshape(-1)]), stats
 
     def adjoint(yTf, g_yf, args, t_hi, t_lo, dt_warm=None):
-        """Backward solve of (z, acc, a_z, g_p) (and g_pm under exact trace)
-        from t_hi down to t_lo.  Returns (y0f, a_y0f, g_args, stats); a_acc
-        is constant, so its final value is the incoming cotangent.
+        """Backward solve of (z, acc, a_z, [a_ys,] g_p) (and g_pm under exact
+        trace) from t_hi down to t_lo.  Returns (y0f, a_y0f, g_args, stats);
+        a_acc is constant, so its final value is the incoming cotangent.
         `dt_warm` (the forward solve's last step size) is the first step;
         without it Hairer's rule picks one over the whole augmented state
-        that the backward solve integrates (under exact trace g_pm
-        included; the JAX package's pick chains pm into the parameters
-        first)."""
+        that the backward solve integrates (a zero a_ys block included and,
+        under exact trace, g_pm; the JAX package's pick chains pm into the
+        parameters first)."""
         ps, eps = args["ps"], args.get("eps")
-        kw = kernel_kw(ps)
+        kw = kernel_kw(args)
+        ysb = kw["ys"]
         zT, accT = yTf[: B * dz].reshape(B, dz), yTf[B * dz :].reshape(nacc, B)
         azT, aaccT = g_yf[: B * dz].reshape(B, dz), g_yf[B * dz :].reshape(nacc, B)
         tdir = torch.sign(t_lo - t_hi)
@@ -1323,13 +1426,13 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         if dt_warm is not None:
             dt_init = tdir * torch.abs(torch.as_tensor(dt_warm, dtype=yTf.dtype, device=yTf.device))
         elif opts.dt0 is None:
-            shapes = [x.shape for x in kw["ws"] + kw["bs"]]
             if exact:
-                pm = exact_stage_consts(kw["ws"][0], kw["ws"][1])
-                stage = _exact_adjoint_stage(spec, kw["ws"], kw["bs"], pm, norm_z, norm_j, aaccT)
-                shapes.append(pm.shape)
+                pm = _exact_pm(spec, kw["ws"])
+                stage = _exact_adjoint_stage(spec, kw["ws"], kw["bs"], pm, norm_z, norm_j, aaccT, ysb)
+                shapes = _block_shapes(kw["ws"], kw["bs"], ysb, [pm.shape])
             else:
-                stage = _train_adjoint_stage(spec, kw["ws"], kw["bs"], eps, norm_z, norm_j, aaccT)
+                stage = _train_adjoint_stage(spec, kw["ws"], kw["bs"], eps, norm_z, norm_j, aaccT, ysb)
+                shapes = _block_shapes(kw["ws"], kw["bs"], ysb)
             f, u0 = _adjoint_state(stage, zT, accT, azT, aaccT, shapes)
             dt_init = _initial_step_size(
                 f, t_hi, u0, f(t_hi, u0), tdir, tab.order, opts.rtol, opts.atol, torch.abs(t_lo - t_hi)
@@ -1339,17 +1442,16 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
             dt_init = tdir * abs(float(opts.dt0))
         state = dict(zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init)
         if exact:
-            z0, acc0, az0, g_ws, g_bs, steps, accepted = run_exact_adjoint_kernel(
-                tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, **state
-            )
+            out = run_exact_adjoint_kernel(tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, **state)
         else:
-            z0, acc0, az0, g_ws, g_bs, steps, accepted = run_adjoint(
-                tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, eps=eps, **state
-            )
+            out = run_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, eps=eps, **state)
+        z0, acc0, az0, g_ws, g_bs, steps, accepted = out[:7]
         g_ps = tuple(
             {k: (gw if k == "w" else gb) for k in p} for p, gw, gb in zip(ps, g_ws, g_bs)
         )
         g_args = dict(args, ps=g_ps)
+        if spec.n_cond:
+            g_args["ys"] = _ys_cotangent(out[7], args["ys"])
         if eps is not None:
             g_args["eps"] = torch.zeros_like(eps)
         stats = SolveStats(steps=steps, accepted=accepted, nfe=steps * nfe_per + nfe_init)

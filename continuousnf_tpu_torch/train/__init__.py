@@ -1,7 +1,7 @@
 """Training: the `fit` model wrapper and the Lion optimizer.  Checkpoints,
 `transform` and `fitted_params` are ROADMAP queue 1, items 8 and 18."""
 
-from .fit import FitResult, ICNFModel, fit
+from .fit import CondICNFModel, FitResult, ICNFModel, fit
 from .lion import Lion
 
-__all__ = ["ICNFModel", "FitResult", "fit", "Lion"]
+__all__ = ["ICNFModel", "CondICNFModel", "FitResult", "fit", "Lion"]

@@ -1,18 +1,20 @@
 """The training wrapper: `ICNFModel`, `fit` and `FitResult`.
 
-Port of `continuousnf_tpu/train/fit.py`: `ICNFModel` (:34-56), `FitResult`
-(:63-80), `_pad_count` (:83-86), the epoch loop of `_make_epochs_fn`
-(:88-152) as an eager loop, and `fit` (:155-340).  Shuffled minibatches
-with the tail padded by repeated samples of weight 0 (the reference
-DataLoader's partial batches at a fixed shape); each epoch's draws derive
-from the seed and the global epoch index, so a fit resumed at
-`epoch_start` repeats the draws of an uninterrupted one.
+Port of `continuousnf_tpu/train/fit.py`: `ICNFModel` (:34-56),
+`CondICNFModel` (:58-60), `FitResult` (:63-80), `_pad_count` (:83-86), the
+epoch loop of `_make_epochs_fn` (:88-152) as an eager loop, and `fit`
+(:155-340), conditional models with their conditioning `Y` included.
+Shuffled minibatches with the tail padded by repeated samples of weight 0
+(the reference DataLoader's partial batches at a fixed shape); X and Y are
+permuted alike.  Each epoch's draws derive from the seed and the global
+epoch index, so a fit resumed at `epoch_start` repeats the draws of an
+uninterrupted one.
 
 An optimizer is given as a factory `params -> torch.optim.Optimizer`; the
 default is `Lion(params, lr=1e-3)` (optax's `lion(1e-3)`, weight decay
-1e-3 included).  Named tables (item 18), `mesh`/`distributed` (item 19),
-`profile_dir` (item 21) and conditional models (item 13) raise
-NotImplementedError naming their ROADMAP queue 1 item.
+1e-3 included).  Named tables (item 18), `mesh`/`distributed` (item 19)
+and `profile_dir` (item 21) raise NotImplementedError naming their ROADMAP
+queue 1 item.
 """
 
 from __future__ import annotations
@@ -49,6 +51,10 @@ class ICNFModel:
             object.__setattr__(self, "optimizers", (functools.partial(Lion, lr=1.0e-3),))
         if not isinstance(self.optimizers, tuple):
             object.__setattr__(self, "optimizers", tuple(self.optimizers))
+
+
+# Conditional fitting uses the same machinery with the rows of Y next to X.
+CondICNFModel = ICNFModel
 
 
 @dataclasses.dataclass
@@ -96,7 +102,9 @@ def fit(
     state_callback=None,
     profile_dir: Optional[str] = None,
 ) -> FitResult:
-    """Train on data `X` ((n, nvars) array or tensor).
+    """Train on data `X` ((n, nvars) array or tensor) and, for a conditional
+    model, its conditioning `Y` ((n, n_cond), required; an unconditional
+    model refuses it).
 
     Params start from `ps` (their device) or a fresh draw on `device` (X's
     device when X is a tensor, else `types.resolve_device`: the CUDA card
@@ -111,13 +119,16 @@ def fit(
         raise NotImplementedError("mesh and multi-host fits are not ported yet (ROADMAP queue 1, item 19)")
     if profile_dir is not None:
         raise NotImplementedError("profile_dir is not ported yet (ROADMAP queue 1, item 21)")
-    if icnf.cond or Y is not None:
-        raise NotImplementedError("conditional fits are not ported yet (ROADMAP queue 1, item 13)")
-    if not isinstance(X, (np.ndarray, torch.Tensor)):
-        raise NotImplementedError(
-            f"fit takes a numpy array or a tensor; tables ({type(X).__name__}) are not ported yet "
-            "(ROADMAP queue 1, item 18)"
-        )
+    if icnf.cond and Y is None:
+        raise ValueError("conditional model requires Y")
+    if not icnf.cond and Y is not None:
+        raise ValueError("non-conditional model got Y")
+    for name, data in (("X", X), ("Y", Y)):
+        if data is not None and not isinstance(data, (np.ndarray, torch.Tensor)):
+            raise NotImplementedError(
+                f"fit takes numpy arrays or tensors; tables ({name}: {type(data).__name__}) are not ported yet "
+                "(ROADMAP queue 1, item 18)"
+            )
     if (opt_state is not None or epoch_start) and len(model.optimizers) != 1:
         raise ValueError("opt_state/epoch_start resume requires a single optimizer")
     from ..utils.debug import check_array
@@ -131,6 +142,12 @@ def fit(
     xs = torch.as_tensor(X, dtype=icnf.dtype).to(device)
     check_array("X", xs, rank=(2,), last_dim=icnf.nvars, dtype=icnf.dtype)
     n = xs.shape[0]
+    ys = None
+    if Y is not None:
+        ys = torch.as_tensor(Y, dtype=icnf.dtype).to(device)
+        check_array("Y", ys, rank=(2,), dtype=icnf.dtype)
+        if ys.shape[0] != n:
+            raise ValueError(f"Y has {ys.shape[0]} rows, X has {n}")
     batch_size = model.batch_size if model.use_batch else n
     n_batches, pad = _pad_count(n, batch_size)
 
@@ -163,10 +180,12 @@ def fit(
             if pad:
                 perm = torch.cat([perm, perm[:pad]])
                 w[n:] = 0.0
-            xb = xs[perm.to(device)].reshape(n_batches, batch_size, -1)
+            perm = perm.to(device)
+            xb = xs[perm].reshape(n_batches, batch_size, -1)
+            yb = [None] * n_batches if ys is None else ys[perm].reshape(n_batches, batch_size, -1)
             wb = w.to(device).reshape(n_batches, batch_size)
             t_epoch = time.perf_counter()
-            steps = [step(ps, xb[b], draw_gen, weights=wb[b]) for b in range(n_batches)]
+            steps = [step(ps, xb[b], draw_gen, weights=wb[b], ys=yb[b]) for b in range(n_batches)]
             for k in ("loss", "e", "n", "nfe"):
                 history[k].append(float(torch.stack([torch.as_tensor(m[k]).float() for m in steps]).mean()))
             history["samples_per_s"].append(n / max(time.perf_counter() - t_epoch, 1e-9))
@@ -190,4 +209,4 @@ def fit(
     )
 
 
-__all__ = ["ICNFModel", "FitResult", "fit"]
+__all__ = ["ICNFModel", "CondICNFModel", "FitResult", "fit"]

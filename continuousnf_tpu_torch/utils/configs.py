@@ -8,10 +8,15 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     6 -> 64 -> 64 -> 6 tanh on all three layers, tspan (0, 1), no steering;
     data from the recipe of the JAX package's `synthetic_tabular`
     (`continuousnf_tpu/data.py:56-64`), tanh(z mix) + 0.1 z.
+  * cond_gaussian (`continuousnf_tpu/recipes.py:254-289`, BASELINE config
+    #3): CondRNODE, nvars = 1, naug = 0, one conditioning input, MLP
+    2 -> 64 -> 64 -> 1 tanh on all three layers reading [x | y], tspan
+    (0, 13), steer_rate 0.1; data y ~ U(-1, 1), x | y ~ N(0.7 y, 0.3^2).
 
-Both: lambda1 = lambda2 = 1e-2 (the RNODE defaults), tsit5 at rtol 1e-3 /
-atol 1e-6, one Gaussian VJP probe, batch 4096 in the scripts.  Weights are
-Glorot-uniform with N(0, 0.05) biases, drawn with numpy.
+All: lambda1 = lambda2 = 1e-2 (the RNODE defaults), tsit5 at rtol 1e-3 /
+atol 1e-6, one Gaussian VJP probe, batch 4096 in the scripts (the
+conditional recipe trains at 128).  Weights are Glorot-uniform with
+N(0, 0.05) biases, drawn with numpy.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import torch
 MODELS = {
     "flagship": dict(dims=(16, 48, 16), nvars=8, naug=8, tspan=(0.0, 13.0), extra={"steer_rate": 0.1, "lam3": 1e-2}),
     "power6": dict(dims=(6, 64, 64, 6), nvars=6, naug=0, tspan=(0.0, 1.0), extra={}),
+    "cond_gaussian": dict(dims=(2, 64, 64, 1), nvars=1, naug=0, tspan=(0.0, 13.0), extra={"steer_rate": 0.1},
+                          n_cond=1, batch_size=128),
 }
 
 
@@ -48,31 +55,46 @@ def tabular_data(rng: np.random.Generator, n: int, nvars: int) -> np.ndarray:
     return (np.tanh(z @ mix) + 0.1 * z).astype(np.float32)
 
 
-def model_data(name: str, rng: np.random.Generator, n: int) -> np.ndarray:
-    """n data points of the configuration `name` (numpy float32)."""
+def cond_gaussian_data(rng: np.random.Generator, n: int):
+    """n pairs of the conditional recipe (`continuousnf_tpu/recipes.py:270-273`):
+    y ~ U(-1, 1), x | y ~ N(0.7 y, 0.3^2).  Returns (xs, ys), (n, 1) each."""
+    ys = rng.uniform(-1.0, 1.0, (n, 1))
+    xs = 0.7 * ys + 0.3 * rng.normal(size=(n, 1))
+    return xs.astype(np.float32), ys.astype(np.float32)
+
+
+def model_data(name: str, rng: np.random.Generator, n: int):
+    """n data points of the configuration `name` (numpy float32): xs, or
+    (xs, ys) for a conditional configuration."""
     nvars = MODELS[name]["nvars"]
     if name == "power6":
         return tabular_data(rng, n, nvars)
+    if name == "cond_gaussian":
+        return cond_gaussian_data(rng, n)
     return rng.uniform(0.0, 1.0, (n, nvars)).astype(np.float32)
 
 
 def make_icnf(name: str, device, *, fused: bool = True, exact: bool = False, dtype=torch.float32, **kw):
-    """The configuration `name` as an ICNF on `device`: `fused` and `exact`
-    pick `VecJacMode(fused=..., exact_trace=...)`; `kw` goes to `construct`
-    (a `solver`, say)."""
-    from .. import MLP, RNODE, VecJacMode, construct
+    """The configuration `name` as an ICNF on `device` (CondRNODE for a
+    conditional one, else RNODE): `fused` and `exact` pick
+    `VecJacMode(fused=..., exact_trace=...)`; `kw` goes to `construct` (a
+    `solver`, say)."""
+    from .. import MLP, RNODE, CondRNODE, VecJacMode, construct
 
     cfg = MODELS[name]
+    variant = CondRNODE if cfg.get("n_cond") else RNODE
     return construct(
-        RNODE, MLP(cfg["dims"], device=device, dtype=dtype), cfg["nvars"], cfg["naug"], tspan=cfg["tspan"],
+        variant, MLP(cfg["dims"], device=device, dtype=dtype), cfg["nvars"], cfg["naug"], tspan=cfg["tspan"],
         compute_mode=VecJacMode(fused=fused, exact_trace=exact), dtype=dtype, **cfg["extra"], **kw,
     )
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     """Mean milliseconds per call of `fn` between CUDA events, after one
-    warm-up call."""
-    fn()
+    warm-up call unless `warmup` is False (for a function that has run
+    already)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)

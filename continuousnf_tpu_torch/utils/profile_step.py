@@ -1,12 +1,15 @@
 """Where the time goes in a training step and a `logpdf` call on the card.
 
-    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship] [--steps 10]
+    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian] [--steps 10]
 
 Builds the model (`--model power6`: the tabular power6 model, RNODE,
-MLP 6 -> 64 -> 64 -> 6; `--model flagship`: RNODE, MLP 16 -> 48 -> 16),
-its weights and its data from a seed as `utils/configs.py` makes them, one
-Gaussian VJP probe, batch 4096, fused kernels on, and for each path (the
-Hutchinson train step, the exact-trace train step, `logpdf`):
+MLP 6 -> 64 -> 64 -> 6; `--model flagship`: RNODE, MLP 16 -> 48 -> 16;
+`--model cond_gaussian`: the conditional recipe, CondRNODE, MLP
+2 -> 64 -> 64 -> 1 on [x | y]), its weights and its data from a seed as
+`utils/configs.py` makes them, one Gaussian VJP probe, batch 4096, fused
+kernels on, and for each path (the Hutchinson train step, the exact-trace
+train step, `logpdf`; for a configuration with its own training batch, the
+train step at that batch too):
   * the wall time per call, CUDA events over `--steps` calls after a
     warm-up, without the profiler;
   * the card's busy time per call, the sum of the CUDA kernels' self times
@@ -52,22 +55,32 @@ def profile_model(name: str, steps: int, seed: int = 0) -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(seed)
-    ps_np = glorot_params(rng, MODELS[name]["dims"])
-    xs = torch.from_numpy(model_data(name, rng, 4096)).to(dev)
+    cfg = MODELS[name]
+    ps_np = glorot_params(rng, cfg["dims"])
+    data = model_data(name, rng, 4096)
+    xs_np, ys_np = data if cfg.get("n_cond") else (data, None)
+    xs = torch.from_numpy(xs_np).to(dev)
+    ys = None if ys_np is None else torch.from_numpy(ys_np).to(dev)
 
     def model(exact: bool):
         return make_icnf(name, dev, exact=exact)
 
     out = {"model": name, "device": torch.cuda.get_device_name(0)}
     gen = torch.Generator(device=dev).manual_seed(seed)
-    for label, exact in (("train_step", False), ("exact_train_step", True)):
+    paths = [("train_step", False, 4096), ("exact_train_step", True, 4096)]
+    if "batch_size" in cfg:
+        paths.append((f"train_step_b{cfg['batch_size']}", False, cfg["batch_size"]))
+    for label, exact, b in paths:
         icnf = model(exact)
         ps = cnf.params_from_numpy(ps_np, dev)
         leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
         step = cnf.parallel.make_train_step_body(icnf, cnf.Lion(leaves, lr=1e-3))
-        call = lambda: step(ps, xs, gen)  # noqa: E731
+        yb = None if ys is None else ys[:b]
+        call = lambda: step(ps, xs[:b], gen, ys=yb)  # noqa: E731
         out[label] = _measure(call, steps)
-    dist = cnf.ICNFDist(model(False), cnf.Mode.TEST, cnf.params_from_numpy(ps_np, dev))
+    ps = cnf.params_from_numpy(ps_np, dev)
+    dist = cnf.ICNFDist(model(False), cnf.Mode.TEST, ps) if ys is None else \
+        cnf.CondICNFDist(model(False), cnf.Mode.TEST, ps, ys)
     with torch.no_grad():
         out["logpdf"] = _measure(lambda: dist.logpdf(xs), steps)
     return out
@@ -90,8 +103,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
     res = profile_model(a.model, a.steps)
-    for label in ("train_step", "exact_train_step", "logpdf"):
-        r = res[label]
+    for label, r in res.items():
+        if not isinstance(r, dict):
+            continue
         print(f"{a.model} {label}: wall {r['wall_ms']:.4f} ms, card busy {r['busy_ms']:.4f} ms, "
               f"idle {100 * r['idle_share']:.1f} %")
         for k in r["top"]:

@@ -243,6 +243,7 @@ _COVERED = {
     "dz32": ((32, 64, 64, 32), TSIT5, None, 0, 1, True),
     "two-layer": ((16, 48, 16), TSIT5, None, 0, 1, False),
     "two-layer-chain-kernels": ((16, 48, 16), TSIT5, None, 0, 1, True),
+    "conditional": (POWER6, TSIT5, None, 2, 1, True),
 }
 _UNCOVERED = {
     "five-layer": ((6, 16, 16, 16, 16, 6), TSIT5, None, 0, 1, True, "at most 4 layers"),
@@ -251,7 +252,7 @@ _UNCOVERED = {
     "miniboone": ((43, 64, 64, 43), TSIT5, None, 0, 1, True, "state width 43 > 32"),
     "identity-layer": (POWER6, TSIT5, (True, True, False), 0, 1, True, "K9"),
     "dopri5": (POWER6, DOPRI5, None, 0, 1, True, "K9"),
-    "conditional": (POWER6, TSIT5, None, 2, 1, True, "K8"),
+    "two-layer-conditional-exact": ((16, 48, 16), TSIT5, None, 2, 1, False, "K8 in the 2-layer kernels"),
     "two-probes": (POWER6, TSIT5, None, 0, 2, True, "K6"),
     "one-layer": ((6, 6), TSIT5, None, 0, 1, False, "1-layer"),
     "one-layer-chain-kernels": ((6, 6), TSIT5, None, 0, 1, True, "1-layer"),
@@ -269,10 +270,13 @@ def _spec(dims, acts, n_cond):
 @pytest.mark.parametrize("name", list(_COVERED) + list(_UNCOVERED))
 def test_kernel_coverage_rule(name):
     """Which configurations each kernel family takes: the 2-layer kernels
-    (K3, K1, K2, K4) tanh chains of 2 layers, the chain kernels tanh chains
-    of 2 to 4 layers with hidden widths up to 64 (the fused solve takes them
-    for 3 and 4), both state widths up to 32; the rest names its limit or
-    the kernel still to port."""
+    (K3, K1, K2, K4) unconditional tanh chains of 2 layers, the chain
+    kernels tanh chains of 2 to 4 layers with hidden widths up to 64,
+    conditional or not (the fused solve takes them for 3 and 4 layers and
+    for conditional nets), both state widths up to 32; the rest names its
+    limit or the kernel still to port (a 2-layer conditional exact-TRAIN
+    backward needs the K4 adjoint with ys rows: K8 in the 2-layer
+    kernels)."""
     if name in _COVERED:
         dims, tab, acts, n_cond, k, chain = _COVERED[name]
         assert tfs._kernel_covers(tab, _spec(dims, acts, n_cond), k, chain) is None

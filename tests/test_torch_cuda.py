@@ -1,7 +1,7 @@
 """The CUDA kernels (K3, K1, K2, the K4 forward and adjoint, and the chain
-kernels: the K1 and K2 chain forms, the K7 TEST and exact forwards) against
-their plain PyTorch versions, on the card, and the configurations they do not
-cover.
+kernels: the K1 and K2 chain forms, the K7 TEST and exact forwards, with and
+without conditioning rows) against their plain PyTorch versions, on the
+card, and the configurations they do not cover.
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a card
 (and without JAX, whose conftest this file does not need):
@@ -16,6 +16,7 @@ import torch
 import continuousnf_tpu_torch as tcnf
 from continuousnf_tpu_torch.ode.tableaus import DOPRI5, TSIT5
 from continuousnf_tpu_torch.ops import fused_solve as tfs
+from continuousnf_tpu_torch.utils import near_tie
 from continuousnf_tpu_torch.utils.configs import glorot_params
 
 pytestmark = pytest.mark.gpu
@@ -175,7 +176,7 @@ def _rel(got, ref):
 
 
 def _twin64(twin, spec, adj):
-    """A plain adjoint twin run in float64."""
+    """A plain twin run in float64."""
     to64 = lambda v: v.double() if torch.is_tensor(v) else [x.double() for x in v] if isinstance(v, list) else v
     return twin(TSIT5, spec, **{k: to64(v) for k, v in adj.items()})
 
@@ -296,15 +297,23 @@ def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
     xs = torch.from_numpy(np.random.default_rng(7).uniform(size=(8, 3)).astype(np.float32)).to(dev)
     before = (tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches)
     before_c = (tfs.run_chain_train_solve_kernel.launches, tfs.run_chain_adjoint_kernel.launches)
-    if kernel in ("K6-jvp", "K8-conditional"):
-        icnf = {
-            "K6-jvp": lambda: _small(compute_mode=tcnf.JacVecMode(fused=True)),
-            "K8-conditional": lambda: tcnf.construct(
-                tcnf.CondRNODE, tcnf.MLP((7, 15, 5)), 3, 2, compute_mode=tcnf.VecJacMode(fused=True)
-            ),
-        }[kernel]()
+    if kernel == "K6-jvp":
         with pytest.raises(NotImplementedError, match=name):
-            tfs.make_full_solve(icnf, tcnf.Mode.TRAIN, 8)
+            tfs.make_full_solve(_small(compute_mode=tcnf.JacVecMode(fused=True)), tcnf.Mode.TRAIN, 8)
+        return
+    if kernel == "K8-conditional":
+        # A 2-layer conditional exact-TRAIN gradient: its forward runs in K7
+        # exact, its backward would need the K4 adjoint with ys rows.
+        icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP((7, 15, 5), device=dev), 3, 2,
+                              compute_mode=tcnf.VecJacMode(fused=True, exact_trace=True))
+        ps = tcnf.params_from_numpy(_np_params((7, 15, 5), 6), dev)
+        leaves = [x.requires_grad_() for p in ps for x in p.values()]
+        ys = torch.zeros((8, 2), device=dev)
+        n7, n4 = tfs.run_chain_exact_solve_kernel.launches, tfs.run_exact_adjoint_kernel.launches
+        with pytest.raises(NotImplementedError, match="K8 in the 2-layer kernels"):
+            torch.autograd.grad(tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=ys), leaves)
+        assert tfs.run_chain_exact_solve_kernel.launches == n7 + 1
+        assert tfs.run_exact_adjoint_kernel.launches == n4
         return
     if kernel == "K5-test-gradients":
         ps = tcnf.params_from_numpy(ps_np, dev)
@@ -468,16 +477,18 @@ def _launches():
     return {name: w.launches for name, w in tfs.KERNEL_WRAPPERS.items()}
 
 
-def _chain_case(dims, B, span, dev, norms=(True, True), seed=0):
+def _chain_case(dims, B, span, dev, norms=(True, True), seed=0, ys=None):
     """All four chain kernels against their twins on one input: the K1 chain
     form and K7 exact from nonzero accumulators, the K2 chain form from the
     K1 chain form's output warm-started from its last step, K7 TEST from a
-    nonzero dlogp.  Returns the outputs and the K1 chain form's inputs."""
+    nonzero dlogp; a conditional chain (dims[0] > dims[-1]) with the
+    conditioning ys (B, n_cond).  Returns the outputs, the K1 chain form's
+    inputs and the K2 chain form's."""
     spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
     kw, adj = _train_args(dims, B, span, dev, seed)
-    kw.update(norm_z=norms[0], norm_j=norms[1])
-    adj.update(norm_z=norms[0], norm_j=norms[1])
-    test_kw = _kernel_args(dims, B, span, dev, seed)
+    kw.update(norm_z=norms[0], norm_j=norms[1], ys=ys)
+    adj.update(norm_z=norms[0], norm_j=norms[1], ys=ys)
+    test_kw = dict(_kernel_args(dims, B, span, dev, seed), ys=ys)
     exact_kw = {k: v for k, v in kw.items() if k != "eps"}
     before = _launches()
     with torch.no_grad():
@@ -497,7 +508,7 @@ def _chain_case(dims, B, span, dev, norms=(True, True), seed=0):
     ran = {k for k in after if after[k] != before[k]}
     assert ran == {tfs.K1C_KERNEL, tfs.K2C_KERNEL, tfs.K7_KERNEL + "/test", tfs.K7_KERNEL + "/exact"}
     assert all(after[k] == before[k] + 1 for k in ran)
-    return (out_k, out_p), (adj_k, adj_p, adj_64), (test_k, test_p), (ex_k, ex_p), kw
+    return (out_k, out_p), (adj_k, adj_p, adj_64), (test_k, test_p), (ex_k, ex_p), kw, adj
 
 
 def _hold_forward(out_k, out_p):
@@ -526,7 +537,7 @@ def _hold_forward(out_k, out_p):
          "dz32", "beta-shape", "two-layer-flagship"],
 )
 def test_chain_kernels_match_twins(dev, dims, B, span):
-    (out_k, out_p), (adj_k, adj_p, adj_64), test, exact, _ = _chain_case(dims, B, span, dev)
+    (out_k, out_p), (adj_k, adj_p, adj_64), test, exact, _, _ = _chain_case(dims, B, span, dev)
     _hold_forward(out_k, out_p)
     _hold_forward(*test)
     _hold_forward(*exact)
@@ -540,7 +551,7 @@ def test_chain_kernels_match_twins(dev, dims, B, span):
 def test_chain_kernels_toy2d_with_both_norms_off(dev):
     """The toy2d shape MLP 2 -> 32 -> 32 -> 2 under FFJORD's rates (no
     kinetic-energy or Jacobian-norm rate)."""
-    (out_k, out_p), (adj_k, adj_p, adj_64), test, exact, kw = _chain_case(
+    (out_k, out_p), (adj_k, adj_p, adj_64), test, exact, kw, _ = _chain_case(
         (2, 32, 32, 2), 2048, (0.0, 1.0), dev, norms=(False, False)
     )
     _hold_forward(out_k, out_p)
@@ -622,6 +633,133 @@ def test_chain_paths_on_the_card_match_the_twins_on_the_cpu(dev):
         assert ran == want
         lp_c, l_c, g_c, nfe_c = run(torch.device("cpu"), exact)
         assert nfe_k == nfe_c and _close(lp_k, lp_c) and _close(l_k, l_c)
+        for a, b in zip(g_k, g_c):
+            assert _grad_close(a, b)
+
+
+# ---- the chain kernels with conditioning rows (K8) ----
+
+COND = (2, 64, 64, 1)  # the conditional recipe: x (1) and y (1) in, a 1-wide field
+
+
+def _ys(B, n_cond, dev, rows=None, seed=9):
+    """Conditioning ys (B, n_cond) ~ U(-1, 1); with `rows` = 1 one row
+    broadcast to all B samples (a non-contiguous view)."""
+    ys = np.random.default_rng(seed).uniform(-1.0, 1.0, (rows or B, n_cond)).astype(np.float32)
+    return torch.from_numpy(ys).to(dev).expand(B, n_cond)
+
+
+def _forward_matches(out_k, out_p):
+    """Equal steps; finite z and accumulators within REL of the twin's."""
+    B = out_k[0].shape[0]
+    return (
+        (int(out_k[2]), int(out_k[3])) == (int(out_p[2]), int(out_p[3]))
+        and bool(torch.isfinite(out_k[0]).all() and torch.isfinite(out_k[1]).all())
+        and _close(out_k[0], out_p[0])
+        and all(_close(a, b) for a, b in zip(out_k[1].reshape(-1, B), out_p[1].reshape(-1, B)))
+    )
+
+
+def _adjoint_matches(adj_k, adj_p, adj_64):
+    """Equal steps; z0, acc0, a_z0 and a_ys0 held to the float64 twin
+    (`_state_close`); finite gradients within GRAD_REL of the twin's."""
+    return (
+        (int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6]))
+        and all(_state_close(adj_k[i], adj_p[i], adj_64[i]) for i in (0, 1, 2, 7))
+        and all(bool(torch.isfinite(a).all()) and _grad_close(a, b)
+                for a, b in zip(adj_k[3] + adj_k[4], adj_p[3] + adj_p[4]))
+    )
+
+
+def _near_tie_holds(out_k, out_p, twin, spec, kw, state):
+    """For a solve that misses its twin's bound: the twin must show a
+    near-tie of the step controller under roundoff (`near_tie.witness`: its
+    own steps or values move when its inputs move by one float32 ulp), and
+    the kernel must meet the near-tie rule (`near_tie.within_near_tie`:
+    steps within the twin's own range, each value within 4x the twin's own
+    move of it)."""
+    steps, spreads = near_tie.witness(twin, TSIT5, spec, kw, state, ref=out_p)
+    tol = REL if len(out_p) == 5 else GRAD_REL
+    assert near_tie.shows_near_tie(near_tie.split(out_p)[0], steps, spreads, tol), (
+        f"the kernel misses its twin, and the twin shows no near-tie: steps {steps}, spreads {spreads}")
+    holds, line = near_tie.within_near_tie(out_k, out_p, steps, spreads, REL, GRAD_REL)
+    assert holds, line
+
+
+# id -> (dims, B, span, rows of ys).
+_COND_CASES = {
+    "recipe-B1": (COND, 1, (0.0, 13.0), None),
+    "recipe-B128": (COND, 128, (0.0, 13.0), None),
+    "recipe-B4096": (COND, 4096, (0.0, 13.0), None),
+    "recipe-reverse": (COND, 4096, (13.0, 0.0), None),
+    "recipe-broadcast-row": (COND, 512, (0.0, 13.0), 1),
+    "narrow-ncond2": ((5, 9, 7, 3), 300, (0.0, 2.0), None),
+    "two-layer": ((3, 16, 1), 256, (0.0, 4.0), None),
+}
+
+
+@pytest.mark.parametrize("case", list(_COND_CASES))
+def test_cond_chain_kernels_match_twins(dev, case):
+    """The conditional chain kernels against their twins: forwards with equal
+    steps and values within REL, the K2 chain form's steps, states (a_ys0
+    among them) and gradients (the ys rows of g_W0 among them) as for the
+    unconditional chains.  With one state dimension the norm rates |f| and
+    |eps^T J| have kinks, and at a step across one the next step size can
+    move with float32 roundoff (near_tie.py); a solve that misses the
+    twin's bound is held to the near-tie rule, on an input whose twin shows
+    that move."""
+    dims, B, span, rows = _COND_CASES[case]
+    ys = _ys(B, dims[0] - dims[-1], dev, rows)
+    (out_k, out_p), (adj_k, adj_p, adj_64), test, exact, kw, adj = _chain_case(dims, B, span, dev, ys=ys)
+    assert len(adj_k) == len(adj_p) == 8
+    assert float(adj_k[3][0][dims[-1]:].abs().max()) > 0.0  # the ys rows of g_W0
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    test_kw = dict(_kernel_args(dims, B, span, dev), ys=ys)
+    exact_kw = {k: v for k, v in kw.items() if k != "eps"}
+    for (k, p), twin, args in (((out_k, out_p), tfs.solve_train_plain, kw), (test, tfs.solve_test_plain, test_kw),
+                               (exact, tfs.solve_train_exact_plain, exact_kw)):
+        if not _forward_matches(k, p):
+            _near_tie_holds(k, p, twin, spec, args, "z0")
+    if not _adjoint_matches(adj_k, adj_p, adj_64):
+        _near_tie_holds(adj_k, adj_p, tfs.adjoint_train_plain, spec, adj, "zT")
+
+
+def test_cond_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """The conditional recipe on the card and on the CPU: CondICNFDist.logpdf
+    and sample through K7 TEST, the Hutchinson loss and its gradient in the
+    params and ys through the K1 and K2 chain forms, and the exact loss and
+    gradient through K7 exact and the plain backward."""
+    B = 512
+    rng = np.random.default_rng(4)
+    ys_np = rng.uniform(-1.0, 1.0, (B, 1)).astype(np.float32)
+    xs = (0.7 * ys_np + 0.3 * rng.normal(size=(B, 1))).astype(np.float32)
+    eps = rng.normal(size=(1, B, 1)).astype(np.float32)
+    z1 = rng.normal(size=(B, 1)).astype(np.float32)
+    ps_np = _np_params(COND, 3)
+
+    def run(device, exact):
+        icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP(COND, device=device), 1, tspan=(0.0, 13.0), steer_rate=0.1,
+                              compute_mode=tcnf.VecJacMode(fused=True, exact_trace=exact))
+        ps = tcnf.params_from_numpy(ps_np, device)
+        with torch.no_grad():
+            dist = tcnf.CondICNFDist(icnf, tcnf.Mode.TEST, ps, torch.from_numpy(ys_np).to(device))
+            lp, smp = dist.logpdf(xs), dist.sample(B, z1=z1)
+        ys = torch.from_numpy(ys_np).to(device).requires_grad_()
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        kw = {} if exact else {"eps": eps}
+        l, m = tcnf.loss_and_metrics(icnf, tcnf.Mode.TRAIN, xs, ps, ys=ys, steer_r=0.03, **kw)
+        grads = torch.autograd.grad(l, leaves + [ys])
+        return lp.cpu(), smp.cpu(), l.detach().cpu(), [g.cpu() for g in grads], int(m["nfe"])
+
+    for exact in (False, True):
+        before = _launches()
+        lp_k, s_k, l_k, g_k, nfe_k = run(dev, exact)
+        after = _launches()
+        ran = {k for k in after if after[k] != before[k]}
+        want = {tfs.K7_KERNEL + "/test"} | ({tfs.K7_KERNEL + "/exact"} if exact else {tfs.K1C_KERNEL, tfs.K2C_KERNEL})
+        assert ran == want
+        lp_c, s_c, l_c, g_c, nfe_c = run(torch.device("cpu"), exact)
+        assert nfe_k == nfe_c and _close(lp_k, lp_c) and _close(s_k, s_c) and _close(l_k, l_c)
         for a, b in zip(g_k, g_c):
             assert _grad_close(a, b)
 

@@ -178,8 +178,10 @@ def test_out_of_slice_calls_raise():
     with pytest.raises(NotImplementedError, match="item 15"):
         tcnf.inference(icnf, tcnf.Mode.TEST, xs, ps, trajectory=True)
     cond = tcnf.construct(tcnf.CondRNODE, tcnf.MLP((7, 15, 5)), 3, 2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tcnf.inference(cond, tcnf.Mode.TEST, xs, ps, ys=np.zeros((4, 2), np.float32))
+    with pytest.raises(ValueError, match="requires ys"):
+        tcnf.inference(cond, tcnf.Mode.TEST, xs, ps)
+    with pytest.raises(ValueError, match="requires ys"):
+        tcnf.generate(cond, tcnf.Mode.TEST, ps, 4)
     with pytest.raises(ValueError, match="got ys"):
         tcnf.inference(icnf, tcnf.Mode.TEST, xs, ps, ys=np.zeros((4, 2), np.float32))
     with pytest.raises(ValueError, match="trailing dim"):

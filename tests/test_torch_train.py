@@ -342,7 +342,12 @@ def test_package_trains_without_jax():
         "l = t.loss(icnf, t.Mode.TRAIN, xs, ps, generator=torch.Generator().manual_seed(1))\n"
         "g = torch.autograd.grad(l, leaves)\n"
         "assert torch.isfinite(l) and all(torch.isfinite(x).all() for x in g)\n"
+        "import importlib, pkgutil\n"
+        "for m in pkgutil.walk_packages(t.__path__, 'continuousnf_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert 'continuousnf_tpu_torch.utils.near_tie' in sys.modules\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m, v in sys.modules.items() if v is not None)\n"
+        "assert not any(m == 'continuousnf_tpu' or m.startswith('continuousnf_tpu.') for m in sys.modules)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
