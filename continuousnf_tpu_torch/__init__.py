@@ -4,11 +4,12 @@ It grows slice by slice beside the JAX package, which stays the reference.
 Ported so far: density evaluation and sampling (`inference` and `generate`
 in TEST mode, `ICNFDist`) and training (TRAIN-mode `inference`, `loss`,
 `loss_and_metrics` differentiated by the BACKSOLVE adjoint, and `fit` with
-the Lion optimizer), for conditional models too (`CondICNFDist`,
-`CondICNFModel`).  The whole adaptive solves of a 2-layer tanh MLP field
-and of deeper tanh chains run in hand-written CUDA kernels for the H100
-(`ops/csrc/`): the TEST and TRAIN forward solves and the TRAIN adjoint
-solve.  Entry points run on the CUDA card unless a device is named or set
+the Lion optimizer, and checkpoints), for conditional models too
+(`CondICNFDist`, `CondICNFModel`).  The whole adaptive solves of a 2-layer
+tanh MLP field and of deeper tanh-or-identity chains run in hand-written
+CUDA kernels for the H100 (`ops/csrc/`), under every explicit tableau with
+an embedded error estimate: the TEST and TRAIN forward solves and the TRAIN
+adjoint solve.  Entry points run on the CUDA card unless a device is named or set
 with `set_default_device`.  The package imports torch and numpy, never jax;
 the kernels are built at first use on a machine with nvcc, never at
 import.
@@ -54,7 +55,7 @@ from .core import (
 from .nets import MLP, Chain, CondLayer, CondWrap, Dense, params_from_numpy
 from .ode import SolveStats, odeint_with_stats
 from .dist import CondICNFDist, ICNFDist
-from .train import CondICNFModel, FitResult, ICNFModel, Lion, fit
+from .train import CondICNFModel, FitResult, ICNFModel, Lion, fit, load_checkpoint, save_checkpoint
 from . import distributions, ops, parallel, train, utils
 
 __all__ = [
@@ -96,6 +97,8 @@ __all__ = [
     "FitResult",
     "fit",
     "Lion",
+    "save_checkpoint",
+    "load_checkpoint",
     "Chain",
     "CondLayer",
     "CondWrap",

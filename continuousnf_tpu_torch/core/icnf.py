@@ -11,13 +11,13 @@ The same public signatures and batch-major layouts as the JAX package:
 `xs` is (B, nvars), params are the net's params tree (JAX layout).  Where
 the JAX package takes a PRNG key the port takes a `torch.Generator`, and
 every draw can be given instead: the base draw of `generate` (`z1=`), the
-Hutchinson probes (`eps=`) and the steering draw r ~ U(-steer_rate,
-steer_rate) (`steer_r=`).  Tensors live on the device of the params.
-Gradients flow through the solve by the BACKSOLVE adjoint
+TRAIN-mode input noise of `x_jitter` (`jitter=`) and of `aug_noise`
+(`aug=`, :466-484), the Hutchinson probes (`eps=`) and the steering draw
+r ~ U(-steer_rate, steer_rate) (`steer_r=`).  Tensors live on the device of
+the params.  Gradients flow through the solve by the BACKSOLVE adjoint
 (`ode/adjoint.py`), to the conditioning `ys` too.  Trajectories, TRAIN-mode
-generation and the TRAIN input variants (aug noise, x jitter, passive
-augmentation) are not ported yet and raise NotImplementedError naming their
-ROADMAP item.
+generation and passive augmentation are not ported yet and raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -286,10 +286,14 @@ def _solve(icnf: ICNF, mode: Mode, state0, args, t0, t1):
         and icnf.solver.adjoint == Adjoint.BACKSOLVE
         and state0.z.device.type == "cuda"
         and needs_grad(state0, args, t0, t1)
+        and len(icnf.nn.layers) == 2
     ):
+        # The JAX package runs a TEST backward kernel (K5) for 2-layer nets;
+        # deeper chains have none there, and their gradient runs the plain
+        # backward behind the forward kernel, here too.
         raise NotImplementedError(
-            "gradients through the fused TEST solve need its backward kernel (K5, ROADMAP queue 2), which "
-            "is not ported; use fused=False for these gradients on the card"
+            "gradients through the fused TEST solve of a 2-layer net need its backward kernel (K5, ROADMAP "
+            "queue 2), which is not ported; use fused=False for these gradients on the card"
         )
     return odeint_with_stats(f, state0, t0, t1, args, icnf.solver, full_solve=full_solve)
 
@@ -332,11 +336,31 @@ def _train_probes(icnf: ICNF, eps, generator, B: int, device) -> Optional[torch.
     return eps
 
 
-def _prepare_inference(icnf: ICNF, mode: Mode, xs, ps, ys, generator=None, eps=None, steer_r=None):
+def _std_normal(name: str, given, scale: float, generator, shape, icnf: ICNF, device) -> Optional[torch.Tensor]:
+    """`scale` times a standard-normal draw of `shape`: `given` (checked)
+    or drawn from `generator`; None when `scale` is 0, where a given draw is
+    refused (accepting and ignoring it would hide a configuration
+    mistake)."""
+    if scale == 0.0:
+        if given is not None:
+            raise ValueError(f"{name}= was given but the model draws no {name} noise in this mode")
+        return None
+    if given is None:
+        return scale * torch.randn(shape, generator=generator, dtype=icnf.dtype, device=device)
+    given = torch.as_tensor(given, dtype=icnf.dtype, device=device)
+    if tuple(given.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}; got {tuple(given.shape)}")
+    return scale * given
+
+
+def _prepare_inference(icnf: ICNF, mode: Mode, xs, ps, ys, generator=None, eps=None, steer_r=None, jitter=None,
+                       aug=None):
     """Input validation and batching, the logit bijector's change of
-    variables, the augmented initial state and, in TRAIN mode, the probes
-    and the steered span.  The probes are drawn from `generator` before the
-    steering draw.  Returns (state0, args, t0, t1, ldj, squeeze)."""
+    variables, the augmented initial state and, in TRAIN mode, its input
+    noise, the probes and the steered span.  The draws come from `generator`
+    in the JAX package's key-split order (`core/icnf.py:466-485`): the x
+    jitter, the aug inputs, the probes, the steering.  Returns
+    (state0, args, t0, t1, ldj, squeeze)."""
     _check_cond(icnf, ys)
     device = _device_of(ps)
     xs = torch.as_tensor(xs, dtype=icnf.dtype, device=device)
@@ -354,16 +378,24 @@ def _prepare_inference(icnf: ICNF, mode: Mode, xs, ps, ys, generator=None, eps=N
         ldj = -torch.sum(torch.log(xc) + torch.log1p(-xc), dim=-1)
         xs = torch.log(xc) - torch.log1p(-xc)
 
+    train = mode == Mode.TRAIN
+    if train and icnf.aug_passive and icnf.n_aug_input:
+        raise NotImplementedError("passive augmentation is not ported yet (ROADMAP queue 1, item 14)")
+    # TRAIN mode: xs + x_jitter N(0, 1) (smoothed MLE) and aug inputs
+    # aug_noise N(0, 1) (calibrated transported augmentation); TEST keeps
+    # xs and zero aug inputs.
+    noise = _std_normal("jitter", jitter, icnf.x_jitter if train else 0.0, generator, xs.shape, icnf, device)
+    if noise is not None:
+        xs = xs + noise
+    a0 = _std_normal("aug", aug, icnf.aug_noise if train and icnf.n_aug_input else 0.0, generator,
+                     (B, icnf.n_aug_input), icnf, device)
     z0 = xs
     if icnf.n_aug_input:
-        z0 = torch.cat([xs, torch.zeros((B, icnf.n_aug_input), dtype=icnf.dtype, device=device)], dim=-1)
+        if a0 is None:
+            a0 = torch.zeros((B, icnf.n_aug_input), dtype=icnf.dtype, device=device)
+        z0 = torch.cat([xs, a0], dim=-1)
     zeros_b = torch.zeros((B,), dtype=icnf.dtype, device=device)
-    if mode == Mode.TRAIN:
-        for name, value in (("x_jitter", icnf.x_jitter), ("aug_noise", icnf.aug_noise)):
-            if value > 0.0 and (name == "x_jitter" or icnf.n_aug_input):
-                raise NotImplementedError(f"{name} > 0 is not ported yet (ROADMAP queue 1, item 14)")
-        if icnf.aug_passive and icnf.n_aug_input:
-            raise NotImplementedError("passive augmentation is not ported yet (ROADMAP queue 1, item 14)")
+    if train:
         eps = _train_probes(icnf, eps, generator, B, device)
         state0 = TrainState(z=z0, dlogp=zeros_b, reg_e=zeros_b, reg_n=zeros_b)
         args = {"ps": ps, "eps": eps, "ys": ys}
@@ -384,6 +416,8 @@ def inference(
     generator: Optional[torch.Generator] = None,
     eps=None,
     steer_r=None,
+    jitter=None,
+    aug=None,
     trajectory: bool = False,
 ):
     """Transport data to the base distribution and return log-density:
@@ -394,17 +428,22 @@ def inference(
     (B, n_cond) or one row (n_cond,) for every sample; gradients reach it
     through the adjoint.
 
-    TRAIN mode draws the probes (K, B, zdim) and then the steering r from
-    `generator` (torch's default generator of the device when None), or
-    takes them as `eps` ((K, B, zdim), or (B, zdim) for K = 1) and
+    TRAIN mode draws, from `generator` (torch's default generator of the
+    device when None) and in this order: the x jitter (B, nvars) when
+    `x_jitter` > 0, the aug inputs (B, n_aug_input) when `aug_noise` > 0
+    (TEST mode keeps xs and zero aug inputs), the probes (K, B, zdim) and
+    the steering r.  Each can be given instead: `jitter` and `aug` as
+    standard-normal draws of those shapes (scaled here by `x_jitter` and
+    `aug_noise`), `eps` ((K, B, zdim), or (B, zdim) for K = 1) and
     `steer_r`.  Under BACKSOLVE the probes are Monte-Carlo constants: their
     gradient is zero.  With `compute_mode.exact_trace` no probes are drawn
-    and `eps` is rejected.
+    and `eps` is rejected; a `jitter` or `aug` the model does not draw is
+    rejected too.
     """
     if trajectory:
         raise NotImplementedError("trajectory=True is not ported yet (ROADMAP queue 1, item 15)")
     state0, args, t0, t1, ldj, squeeze = _prepare_inference(
-        icnf, mode, xs, ps, ys, generator, eps, steer_r
+        icnf, mode, xs, ps, ys, generator, eps, steer_r, jitter, aug
     )
     stateT, stats = _solve(icnf, mode, state0, args, t0, t1)
     logpx = icnf.base_logpdf(stateT.z) - stateT.dlogp
@@ -479,12 +518,16 @@ def loss(
     weights=None,
     eps=None,
     steer_r=None,
+    jitter=None,
+    aug=None,
 ) -> torch.Tensor:
     """Scalar loss: TRAIN mean(-logpx + lam1 E + lam2 N + lam3 A), TEST
     mean(-logpx).  `weights` (B,) gives a weighted mean (the trainer's
-    padded samples carry weight 0)."""
+    padded samples carry weight 0).  The TRAIN draws (`jitter`, `aug`,
+    `eps`, `steer_r`) are as in `inference`."""
     return loss_and_metrics(
-        icnf, mode, xs, ps, ys=ys, generator=generator, weights=weights, eps=eps, steer_r=steer_r
+        icnf, mode, xs, ps, ys=ys, generator=generator, weights=weights, eps=eps, steer_r=steer_r,
+        jitter=jitter, aug=aug,
     )[0]
 
 
@@ -499,11 +542,13 @@ def loss_and_metrics(
     weights=None,
     eps=None,
     steer_r=None,
+    jitter=None,
+    aug=None,
 ):
     """`loss` plus the per-step metrics: loss, mean E (kinetic energy) and
     mean N (Jacobian norm), both detached, and the forward solve's NFE."""
     logpx, regs, stats = inference(
-        icnf, mode, xs, ps, ys=ys, generator=generator, eps=eps, steer_r=steer_r
+        icnf, mode, xs, ps, ys=ys, generator=generator, eps=eps, steer_r=steer_r, jitter=jitter, aug=aug
     )
     if mode == Mode.TRAIN:
         per_sample = -logpx + icnf.lam1 * regs.e + icnf.lam2 * regs.n + icnf.lam3 * regs.a

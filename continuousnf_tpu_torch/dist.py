@@ -12,7 +12,7 @@ from typing import Any, Optional
 
 import torch
 
-from .core.icnf import ICNF, generate, inference
+from .core.icnf import ICNF, _device_of, generate, inference
 from .types import Mode
 
 
@@ -65,8 +65,10 @@ class CondICNFDist:
     def _ys_for(self, batch: Optional[int]):
         """The conditioning of a call over `batch` queries: a single row as
         it is, rows sliced to the first `batch` (the reference's matrix
-        mode, `ys[:, 1:size(A, 2)]`)."""
-        ys = self.ys
+        mode, `ys[:, 1:size(A, 2)]`).  ys may be given as any array-like
+        (a list, a numpy array); it is converted first, onto the params'
+        device, as the JAX package does."""
+        ys = torch.as_tensor(self.ys, dtype=self.icnf.dtype, device=_device_of(self.ps))
         if ys.ndim == 1 or batch is None:
             return ys
         return ys[:batch]

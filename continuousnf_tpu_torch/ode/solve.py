@@ -40,6 +40,7 @@ class StepState(NamedTuple):
     eest_prev: torch.Tensor
     steps: int
     accepted: torch.Tensor
+    dt_used: Any = None  # the step of the last attempt
 
 
 class SolveStats(NamedTuple):
@@ -47,6 +48,7 @@ class SolveStats(NamedTuple):
     accepted: Any  # accepted steps
     nfe: Any  # vector-field evaluations
     dt_last: Any = None  # final step size (None where not tracked)
+    dt_used: Any = None  # the step of the last attempt (None where not tracked)
 
 
 def _rms_norm(x: torch.Tensor) -> torch.Tensor:
@@ -120,7 +122,7 @@ def _controller_factors(order: int):
 
 def _attempt_step(f, tab: ButcherTableau, state: StepState, t1, tdir, rtol, atol) -> StepState:
     """Accept/reject plus the PI controller for one attempted step."""
-    t, y, dt, k1, eest_prev, steps, accepted = state
+    t, y, dt, k1, eest_prev, steps, accepted, _ = state
     beta1, beta2 = _controller_factors(tab.order)
 
     remaining = torch.abs(t1 - t)
@@ -163,6 +165,7 @@ def _attempt_step(f, tab: ButcherTableau, state: StepState, t1, tdir, rtol, atol
         eest_prev=torch.where(accept, eest_c, eest_prev),
         steps=steps + 1,
         accepted=accepted + accept.to(accepted.dtype),
+        dt_used=dt_use,
     )
 
 
@@ -186,6 +189,7 @@ def _solve_adaptive_while(f, tab: ButcherTableau, y0, t0, t1, rtol, atol, max_st
         eest_prev=torch.ones((), dtype=y0.dtype, device=y0.device),
         steps=0,
         accepted=torch.zeros((), dtype=torch.int32, device=y0.device),
+        dt_used=torch.zeros((), dtype=y0.dtype, device=y0.device),
     )
     while state.steps < max_steps and bool((state.t - t1) * tdir < 0):
         state = _attempt_step(f, tab, state, t1, tdir, rtol, atol)
@@ -196,6 +200,7 @@ def _solve_adaptive_while(f, tab: ButcherTableau, y0, t0, t1, rtol, atol, max_st
         accepted=state.accepted,
         nfe=steps * nfe_per + (2 if dt0 is None else 1),
         dt_last=state.dt,
+        dt_used=state.dt_used,
     )
     return state.y, stats
 
@@ -231,7 +236,7 @@ def _solve_forward_flat(func_flat, opts: SolverOptions, y0f, t0, t1, args):
         yf, stats = _solve_adaptive_while(
             f, tab, y0f, t0, t1, opts.rtol, opts.atol, opts.direct_max_steps, opts.dt0
         )
-        return yf, stats._replace(dt_last=None)
+        return yf, stats._replace(dt_last=None, dt_used=None)
     return _solve_adaptive_while(
         f, tab, y0f, t0, t1, opts.rtol, opts.atol, opts.max_steps, opts.dt0
     )

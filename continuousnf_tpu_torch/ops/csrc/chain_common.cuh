@@ -1,13 +1,15 @@
 // The chain layer of the deep-chain solve kernels (the K1 chain form, the K7
-// TEST and exact forwards, the K2 chain form): a Dense tanh chain of
+// TEST and exact forwards, the K2 chain form): a Dense chain of
 // n = 2 .. kMaxLayers layers, widths dz + nc -> H1 -> ... -> H(n-1) -> dz
 // with dz <= 32 (padded to DZ), hidden widths <= kMaxWidth and nc
 // conditioning inputs (K8: a conditional net's first layer reads [z | ys],
 // ys constant over the solve; nc = 0 for an unconditional net; a chain whose
 // weights and slots do not fit in shared memory gets no co-resident grid).
-// With n = 2 there is no middle layer; the fused solve runs unconditional
-// 2-layer nets through K3, K1, K2 and K4 and takes these kernels for n >= 3
-// and for every conditional net.
+// Each layer is tanh or identity (ChainLayout::act, K9): an identity layer
+// skips tanhf, its gate 1 - h^2 is 1 and its second-order terms are 0.  With
+// n = 2 there is no middle layer; the fused solve runs unconditional 2-layer
+// tanh nets through K3, K1, K2 and K4 and takes these kernels for n >= 3,
+// for every conditional net and for every net with an identity layer.
 //
 // What lives where:
 //   * the weights and biases in shared memory, laid out by ChainLayout (made
@@ -60,7 +62,18 @@ struct ChainLayout {
   int hofs[kMaxLayers + 1];     // hidden level l's offset in a hidden block
   int hsum, hmax;               // sum and max of the hidden widths
   int wfloats;                  // floats of the weight region
+  int act[kMaxLayers];          // 1: layer i is tanh, 0: identity
 };
+
+// Layer activations: tanh where `on`, else identity, and the gate (the
+// activation's derivative, from its output h).
+__device__ __forceinline__ float activate(float a, int on) { return on ? tanhf(a) : a; }
+__device__ __forceinline__ float gate(float h, int on) { return on ? 1.f - h * h : 1.f; }
+
+// Set the layers' activations from a bit mask (bit i: layer i is tanh).
+inline void set_chain_acts(ChainLayout* L, int acts) {
+  for (int i = 0; i < kMaxLayers; ++i) L->act[i] = (acts >> i) & 1;
+}
 
 // Fill `L` for the widths (n + 1 of them: the input width dz + nc first, dz
 // last); false if the chain kernels compiled for DZ do not take the chain.
@@ -113,6 +126,7 @@ inline bool make_chain_layout(int n, const int* widths, ChainLayout* L) {
   L->hsum = hs;
   L->hmax = hm;
   L->wfloats = f;
+  set_chain_acts(L, (1 << kMaxLayers) - 1);
   return true;
 }
 
@@ -194,7 +208,7 @@ __device__ __forceinline__ void mv_cols(const float* src, int in, const float* W
 // The chain's forward pass of one sample on [z | ys] (fused_solve.py::
 // _chain_fwd on _zin): the hidden activations to the hidden block H, the
 // output y in registers (zero beyond dz: the padded columns of the last
-// layer are zero).  COND: a conditional chain, ys its nc conditioning values
+// layer are zero, and either activation keeps 0).  COND: a conditional chain, ys its nc conditioning values
 // (the thread's slot); an unconditional instance compiles without them, so
 // the conditioning costs it no registers.
 template <int DZ, bool COND>
@@ -211,30 +225,32 @@ __device__ void chain_forward(const ChainLayout& L, const float* s, const float 
       for (int o = 0; o < L.width[1]; ++o) {
         float a = dot4<DZ>(z, w + o * DZ) + b[o];
         for (int c = 0; c < nc; ++c) a = fmaf(ys[c], wy[o * nc + c], a);
-        h1[o] = tanhf(a);
+        h1[o] = activate(a, L.act[0]);
       }
     } else {
-      for (int o = 0; o < L.width[1]; ++o) h1[o] = tanhf(dot4<DZ>(z, w + o * DZ) + b[o]);
+      for (int o = 0; o < L.width[1]; ++o) h1[o] = activate(dot4<DZ>(z, w + o * DZ) + b[o], L.act[0]);
     }
   }
   for (int i = 1; i < n - 1; ++i) {
     float* dst = H + L.hofs[i + 1];
+    const int on = L.act[i];
     mv_cols(H + L.hofs[i], L.width[i], s + L.wofs[i], L.pitch[i], s + L.bofs[i], L.width[i + 1],
-            [&](int o, float a) { dst[o] = tanhf(a); });
+            [&](int o, float a) { dst[o] = activate(a, on); });
   }
   const float* hl = H + L.hofs[n - 1];
   const float* w = s + L.wofs[n - 1];
 #pragma unroll
   for (int k = 0; k < DZ; ++k) y[k] = s[L.bofs[n - 1] + k];
   for (int k = 0; k < L.width[n - 1]; ++k) axpy4<DZ>(y, hl[k], w + k * DZ);
+  const int on = L.act[n - 1];
 #pragma unroll
-  for (int k = 0; k < DZ; ++k) y[k] = tanhf(y[k]);
+  for (int k = 0; k < DZ; ++k) y[k] = activate(y[k], on);
 }
 
 // One probe pullback eps^T J of one sample after chain_forward
-// (fused_solve.py::_probe_pullback): `v` is the gated probe e (1 - y^2) at
+// (fused_solve.py::_probe_pullback): `v` is the gated probe e gate(y) at
 // the output.  Up the layers, each hidden level's activation h is replaced,
-// in place, by the gated cotangent u (1 - h^2) entering the layer below;
+// in place, by the gated cotangent u gate(h) entering the layer below;
 // eJ (registers) is the cotangent of z (layer 0's z rows only).
 template <int DZ>
 __device__ void chain_pullback(const ChainLayout& L, const float* s, const float (&v)[DZ], float* H,
@@ -243,18 +259,14 @@ __device__ void chain_pullback(const ChainLayout& L, const float* s, const float
   {
     float* h = H + L.hofs[n - 1];
     const float* w = s + L.wofs[n - 1];
-    for (int k = 0; k < L.width[n - 1]; ++k) {
-      const float hk = h[k];
-      h[k] = dot4<DZ>(v, w + k * DZ) * (1.f - hk * hk);
-    }
+    const int on = L.act[n - 2];
+    for (int k = 0; k < L.width[n - 1]; ++k) h[k] = dot4<DZ>(v, w + k * DZ) * gate(h[k], on);
   }
   for (int i = n - 2; i >= 1; --i) {
     float* h = H + L.hofs[i];
+    const int on = L.act[i - 1];
     mv_cols(H + L.hofs[i + 1], L.width[i + 1], s + L.tofs[i], L.tpitch[i], nullptr, L.width[i],
-            [&](int k, float a) {
-              const float hk = h[k];
-              h[k] = a * (1.f - hk * hk);
-            });
+            [&](int k, float a) { h[k] = a * gate(h[k], on); });
   }
 #pragma unroll
   for (int i = 0; i < DZ; ++i) eJ[i] = 0.f;

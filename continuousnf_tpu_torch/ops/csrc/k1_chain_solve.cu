@@ -1,20 +1,23 @@
 // The K1 chain form: the TRAIN-mode forward solve of a CNF whose field is a
-// Dense tanh chain of 2 to 4 layers with one Hutchinson probe (reverse
-// mode), the whole adaptive tsit5 solve in one cooperative launch.
+// Dense chain of 2 to 4 tanh or identity layers with one Hutchinson probe
+// (reverse mode), the whole adaptive solve (any embedded explicit tableau,
+// K9) in one cooperative launch.
 //
 // Replaces the TPU kernel continuousnf_tpu/ops/fused_solve.py::_run_solve_kernel
 // (pl.pallas_call at :1043) built by _make_solve_kernel (:773-942) with the
 // _stage_train stage (:333-369) over N layers: _chain_fwd (:272) on the rows
 // of _zin (:265, K8: [z | ys] for a conditional net) and _probe_pullback
 // (:291).  Per sample and field evaluation:
-//   forward   h_1 = tanh([z | ys] W_0 + b_0), h_(l+1) = tanh(h_l W_l + b_l),
-//             y = h_N;
-//   pullback  v = eps (1 - y^2), then up the layers u_l = v_l W_l^T,
-//             v_(l-1) = u_l (1 - h_l^2), eJ = v_0 W_0z^T (the z rows of W_0);
+//   forward   h_1 = s_0([z | ys] W_0 + b_0), h_(l+1) = s_l(h_l W_l + b_l),
+//             y = h_N, each s_l tanh or identity (ChainSpec.acts, :104-111);
+//   pullback  v = eps s'(y), then up the layers u_l = v_l W_l^T,
+//             v_(l-1) = u_l s'(h_l), eJ = v_0 W_0z^T (the z rows of W_0),
+//             s' = 1 - h^2 for tanh and 1 for identity;
 //   rates     -<eJ, eps>, ||y|| (norm_z), ||eJ|| (norm_j) (safe norms);
 // then ONE Hairer norm over all B * (dz + 3) elements, the PI controller,
-// FSAL and the max_steps cap (forward_solve of solve_common.cuh, shared with
-// K3, K1 and the K4 forward).  The accumulators are seeded from the input.
+// FSAL or the non-FSAL refresh and the max_steps cap (forward_solve of
+// solve_common.cuh, shared with K3, K1 and the K4 forward).  The
+// accumulators are seeded from the input.
 //
 // What bounds it on the H100: latency.  One field evaluation is a forward
 // pass and one pullback, about 9.7 k FMA per sample at the tabular power6
@@ -32,6 +35,10 @@
 #include "chain_common.cuh"
 
 namespace {
+
+// The unroll factor of the solve loops over stored stages (solve_common.cuh),
+// the fastest of 1, 2, 4 and 8 for this kernel on the H100 (PERF.md, PR 6).
+constexpr int kStageUnroll = 4;
 
 using cnf::ChainLayout;
 using cnf::kMaxBlock;
@@ -61,12 +68,13 @@ struct ChainTrainField {
     if constexpr (COND) cnf::load_cond(*L, ys, s, yc);
     cnf::chain_forward<DZ, COND>(*L, w, z, yc, sl, y);
     float e[DZ], v[DZ], ysq = 0.f;
+    const int on = L->act[L->n - 1];
 #pragma unroll
     for (int k = 0; k < DZ; ++k) {
       ky[k] = y[k];
       ysq = fmaf(y[k], y[k], ysq);
       e[k] = k < dz ? eps[(size_t)s * dz + k] : 0.f;
-      v[k] = e[k] * (1.f - y[k] * y[k]);
+      v[k] = e[k] * cnf::gate(y[k], on);
     }
     float eJ[DZ];
     cnf::chain_pullback<DZ>(*L, w, v, sl, eJ);
@@ -96,7 +104,7 @@ __global__ void __launch_bounds__(kMaxBlock) k1_chain_solve(const Args p) {
   __syncthreads();
   const ChainTrainField<DZ, COND> field{&L, w, p.f.eps, p.ys, slots + threadIdx.x * slot_floats(L),
                                         p.f.dz, p.f.norm_z, p.f.norm_j};
-  cnf::forward_solve<DZ, 3>(p.f, field, red);
+  cnf::forward_solve<DZ, 3, kStageUnroll>(p.f, field, red);
 }
 
 size_t smem_bytes(const ChainLayout& L, int block) {
@@ -134,12 +142,14 @@ struct Launch {
   Args a;
   int n;
   const int* widths;
+  int acts;
   int grid, block;
   cudaStream_t s;
   template <int DZ, bool COND>
   int operator()() const {
     Args b = a;
     if (!cnf::make_chain_layout<DZ>(n, widths, &b.L)) return (int)cudaErrorInvalidValue;
+    cnf::set_chain_acts(&b.L, acts);
     return (int)cnf::coop_launch(k1_chain_solve<DZ, COND>, b, grid, block, smem_bytes(b.L, block), s);
   }
 };
@@ -159,13 +169,15 @@ extern "C" int cnf_k1c_max_grid(int n, const int* widths, int block, int* out) {
 }
 
 // params: [W0 | b0 | ... ] flat (device); eps, z0: (B, dz); ys: (B, nc), null
-// for an unconditional chain (nc = widths[0] - widths[n]); acc0/accT: (3, B),
-// rows [dlogp | reg_e | reg_n].  tab: a (kStages x kStages, row-major), b,
-// btilde.  Returns the launch's cudaError_t.
+// for an unconditional chain (nc = widths[0] - widths[n]); acts: bit i set
+// where layer i is tanh (else identity); acc0/accT: (3, B), rows [dlogp |
+// reg_e | reg_n]; dt_last: (2), the next step size and the last step taken.
+// tab: kTableauFloats floats (read_tableau).  Returns the launch's
+// cudaError_t.
 extern "C" int cnf_k1c_train_solve(const float* params, const float* eps, const float* ys, const float* z0,
                                    const float* acc0, const float* ts, float* zT, float* accT,
                                    int* stats, float* dt_last, float* work, float* partials, int B,
-                                   int n, const int* widths, int max_steps, int norm_z, int norm_j,
+                                   int n, const int* widths, int acts, int max_steps, int norm_z, int norm_j,
                                    float rtol, float atol, float beta1, float beta2, float inv_order,
                                    const float* tab, int grid, int block, void* stream) {
   if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < 2 || n > cnf::kMaxLayers)
@@ -175,6 +187,6 @@ extern "C" int cnf_k1c_train_solve(const float* params, const float* eps, const 
                     max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
   a.params = params;
   a.ys = ys;
-  return cnf::dispatch_chain(n, widths, Launch{a, n, widths, grid, block, (cudaStream_t)stream},
+  return cnf::dispatch_chain(n, widths, Launch{a, n, widths, acts, grid, block, (cudaStream_t)stream},
                              (int)cudaErrorInvalidValue);
 }

@@ -1,18 +1,18 @@
 // K1: the TRAIN-mode forward solve of a CNF whose field is a 2-layer tanh MLP
-// with one Hutchinson probe (reverse mode), the whole adaptive tsit5 solve in
-// one cooperative launch.
+// with one Hutchinson probe (reverse mode), the whole adaptive solve (any
+// embedded explicit tableau, K9) in one cooperative launch.
 //
 // Replaces the TPU kernel continuousnf_tpu/ops/fused_solve.py::_run_solve_kernel
 // (pl.pallas_call at :1043) built by _make_solve_kernel (:773-942) with the
 // _stage_train stage (:333-369; _probe_pullback :291, _safe_col_norm :155).
-// What it computes, per attempted step: the tsit5 stages of the state
+// What it computes, per attempted step: the RK stages of the state
 // [z (B, dz) | -tr | ||f|| | ||eps^T J||] (three accumulator rows), where per
 // sample
 //   h = tanh(z W1 + b1),  y = tanh(h W2 + b2)               (the field)
 //   v1 = eps (1 - y^2),  u1 = W2 v1,  v0 = u1 (1 - h^2),  eJ = W1 v0
 //   rates: -<eJ, eps>,  ||y|| (norm_z),  ||eJ|| (norm_j)   (safe norms)
 // then ONE Hairer norm over all B * (dz + 3) elements, the PI controller,
-// FSAL and the max_steps cap (the loop of solve_common.cuh, shared with K3).
+// FSAL or the non-FSAL refresh and the max_steps cap (the loop of solve_common.cuh, shared with K3).
 // The accumulators are seeded from the incoming state; the TPU kernel starts
 // them at zero (fused_solve.py:836-838), a fault that is not copied.
 //
@@ -30,6 +30,10 @@
 #include "solve_common.cuh"
 
 namespace {
+
+// The unroll factor of the solve loops over stored stages (solve_common.cuh),
+// the fastest of 1, 2, 4 and 8 for this kernel on the H100 (PERF.md, PR 6).
+constexpr int kStageUnroll = 1;
 
 using cnf::FwdArgs;
 using cnf::kMaxBlock;
@@ -142,7 +146,7 @@ __global__ void __launch_bounds__(kMaxBlock) k1_train_solve(const FwdArgs p) {
 
   const TrainField<DZ> field{w1t, b1, w2p, b2p, p.eps, hbuf + threadIdx.x,
                              H, dz, (int)blockDim.x, p.norm_z, p.norm_j};
-  cnf::forward_solve<DZ, 3>(p, field, red);
+  cnf::forward_solve<DZ, 3, kStageUnroll>(p, field, red);
 }
 
 template <int DZ>
@@ -163,8 +167,9 @@ extern "C" int cnf_k1_max_grid(int dz, int H, int block, int* out) {
   }
 }
 
-// acc0/accT: (3, B), rows [dlogp | reg_e | reg_n].  tab: a (kStages x
-// kStages, row-major), b, btilde.  Returns the launch's cudaError_t.
+// acc0/accT: (3, B), rows [dlogp | reg_e | reg_n].  dt_last: (2), the
+// next step size and the last step taken.  tab: kTableauFloats floats
+// (read_tableau).  Returns the launch's cudaError_t.
 extern "C" int cnf_k1_train_solve(const float* w1, const float* b1, const float* w2,
                                   const float* b2, const float* eps, const float* z0,
                                   const float* acc0, const float* ts, float* zT, float* accT,

@@ -1,7 +1,8 @@
 // The K2 chain form: the continuous-adjoint (backsolve) backward integration
-// of a TRAIN-mode CNF whose field is a Dense tanh chain of 2 to 4 layers with
-// one Hutchinson probe (reverse mode), the whole adaptive tsit5 solve from
-// t_hi down to t_lo in one cooperative launch.
+// of a TRAIN-mode CNF whose field is a Dense chain of 2 to 4 tanh or identity
+// layers with one Hutchinson probe (reverse mode), the whole adaptive solve
+// (any embedded explicit tableau, K9) from t_hi down to t_lo in one
+// cooperative launch.
 //
 // Replaces the TPU kernel built by continuousnf_tpu/ops/fused_solve.py::
 // _make_adjoint_kernel (:1064-1343), launched by make_full_solve.adjoint_solve
@@ -16,8 +17,10 @@
 // gated v_l; the probe has no ys rows), and the hand-derived VJP against
 // (a_z, a_acc):
 //   ascending the pullback chain, for layer i: ct_v = pu_i W_i,
-//     pu_(i+1) = ct_v (1 - h_(i+1)^2), ct_h(i+1) = -2 h_(i+1) (ct_v u_(i+1));
-//   down the forward chain: ca_i = (ca_(i+1) W_(i+1)^T + ct_h(i+1)) (.) tanh',
+//     pu_(i+1) = ct_v s'(h_(i+1)), ct_h(i+1) = -2 h_(i+1) (ct_v u_(i+1));
+//   down the forward chain: ca_i = (ca_(i+1) W_(i+1)^T + ct_h(i+1)) (.) s',
+//   with s' = 1 - h^2 for a tanh layer; an identity layer has s' = 1 and no
+//   ct_h term (ChainLayout::act);
 //     ct_z = ca_0 W_0z^T, and k_ays = -ct_ys = -ca_0 W_0y^T (the z and the
 //     ys rows of W_0);
 //   per-sample gradient of W_i: pu_i (x) v_i + h_i (x) ca_i, of b_i: ca_i;
@@ -57,10 +60,16 @@
 
 namespace {
 
+// The unroll factor of the solve loops over stored stages (solve_common.cuh),
+// per instance the fastest of 1, 2, 4 and 8 on the H100 (PERF.md, PR 6).
+template <bool COND>
+constexpr int kStageUnroll = COND ? 2 : 4;
+
 using cnf::axpy4;
 using cnf::ChainLayout;
 using cnf::ct_safe_norm;
 using cnf::dot4;
+using cnf::gate;
 using cnf::kMaxBlock;
 using cnf::kMaxLayers;
 using cnf::kRedFloats;
@@ -130,14 +139,16 @@ __device__ void chain_adjoint_stage(const ChainLayout& L, const Slot& m, const f
   const float* wl = w + L.wofs[n - 1];
   const int hl = L.hofs[n - 1], wlast = L.width[n - 1];
 
-  // Forward.
+  // Forward.  on_y: the output layer's activation; on_l: the last hidden
+  // level's (layer n - 2).
+  const int on_y = L.act[n - 1], on_l = L.act[n - 2];
   float y[DZ];
   cnf::chain_forward<DZ, COND>(L, w, z, sl + m.ys, HS, y);
   float vl[DZ], ysq = 0.f;
 #pragma unroll
   for (int k = 0; k < DZ; ++k) {
     ysq = fmaf(y[k], y[k], ysq);
-    vl[k] = e[k] * (1.f - y[k] * y[k]);
+    vl[k] = e[k] * gate(y[k], on_y);
     sl[m.z + k] = z[k];
     sl[m.vl + k] = vl[k];
   }
@@ -145,16 +156,17 @@ __device__ void chain_adjoint_stage(const ChainLayout& L, const Slot& m, const f
   for (int k = 0; k < wlast; ++k) {
     const float uk = dot4<DZ>(vl, wl + k * DZ), h = HS[hl + k];
     U[hl + k] = uk;
-    V[hl + k] = uk * (1.f - h * h);
+    V[hl + k] = uk * gate(h, on_l);
   }
   for (int i = n - 2; i >= 1; --i) {
     float* u = U + L.hofs[i];
     float* v = V + L.hofs[i];
     const float* h = HS + L.hofs[i];
+    const int on = L.act[i - 1];
     cnf::mv_cols(V + L.hofs[i + 1], L.width[i + 1], w + L.tofs[i], L.tpitch[i], nullptr, L.width[i],
                  [&](int k, float a) {
                    u[k] = a;
-                   v[k] = a * (1.f - h[k] * h[k]);
+                   v[k] = a * gate(h[k], on);
                  });
   }
   float eJ[DZ];
@@ -182,53 +194,57 @@ __device__ void chain_adjoint_stage(const ChainLayout& L, const Slot& m, const f
     cu[i] = fmaf(eJ[i], fn, e[i] * ct_tr);
     sl[m.pu0 + i] = cu[i];
   }
-  // Up the pullback chain: ct_v = pu_i W_i, pu_(i+1) = ct_v (1 - h^2) and
-  // ct_h = -2 h (ct_v u) over u in place.
+  // Up the pullback chain: ct_v = pu_i W_i, pu_(i+1) = ct_v s'(h) and
+  // ct_h = -2 h (ct_v u) over u in place (0 for an identity layer).
   {
     float* pu = PU + L.hofs[1];
     float* u = U + L.hofs[1];
     const float* h = HS + L.hofs[1];
+    const int on = L.act[0];
     for (int o = 0; o < L.width[1]; ++o) {
       const float cv = dot4<DZ>(cu, w0 + o * DZ), hh = h[o];
-      pu[o] = cv * (1.f - hh * hh);
-      u[o] = (-2.f * hh) * (cv * u[o]);
+      pu[o] = cv * gate(hh, on);
+      u[o] = on ? (-2.f * hh) * (cv * u[o]) : 0.f;
     }
   }
   for (int i = 1; i < n - 1; ++i) {
     float* pu = PU + L.hofs[i + 1];
     float* u = U + L.hofs[i + 1];
     const float* h = HS + L.hofs[i + 1];
+    const int on = L.act[i];
     cnf::mv_cols(PU + L.hofs[i], L.width[i], w + L.wofs[i], L.pitch[i], nullptr, L.width[i + 1],
                  [&](int o, float cv) {
                    const float hh = h[o];
-                   pu[o] = cv * (1.f - hh * hh);
-                   u[o] = (-2.f * hh) * (cv * u[o]);
+                   pu[o] = cv * gate(hh, on);
+                   u[o] = on ? (-2.f * hh) * (cv * u[o]) : 0.f;
                  });
   }
   float cv[DZ];
 #pragma unroll
   for (int k = 0; k < DZ; ++k) cv[k] = 0.f;
   for (int k = 0; k < wlast; ++k) axpy4<DZ>(cv, PU[hl + k], wl + k * DZ);
-  // The output layer: ct_h = a_z + y fz - 2 y (ct_v eps), ca = ct_h (1 - y^2).
+  // The output layer: ct_h = a_z + y fz - 2 y (ct_v eps) (tanh; a_z + y fz
+  // for identity), ca = ct_h s'(y).
   float cal[DZ];
 #pragma unroll
   for (int k = 0; k < DZ; ++k) {
-    const float ct_h = fmaf(y[k], fz, az[k]) + (-2.f * y[k]) * (cv[k] * e[k]);
-    cal[k] = ct_h * (1.f - y[k] * y[k]);
+    const float ct_h = on_y ? fmaf(y[k], fz, az[k]) + (-2.f * y[k]) * (cv[k] * e[k]) : fmaf(y[k], fz, az[k]);
+    cal[k] = ct_h * gate(y[k], on_y);
     sl[m.cal + k] = cal[k];
     kz[k] = y[k];
   }
-  // Down the forward chain: ca of the level below = (ca W^T + ct_h) (1 - h^2).
+  // Down the forward chain: ca of the level below = (ca W^T + ct_h) s'(h).
   for (int k = 0; k < wlast; ++k) {
     const float h = HS[hl + k];
-    CA[hl + k] = (dot4<DZ>(cal, wl + k * DZ) + U[hl + k]) * (1.f - h * h);
+    CA[hl + k] = (dot4<DZ>(cal, wl + k * DZ) + U[hl + k]) * gate(h, on_l);
   }
   for (int i = n - 2; i >= 1; --i) {
     float* ca = CA + L.hofs[i];
     const float* u = U + L.hofs[i];
     const float* h = HS + L.hofs[i];
+    const int on = L.act[i - 1];
     cnf::mv_cols(CA + L.hofs[i + 1], L.width[i + 1], w + L.tofs[i], L.tpitch[i], nullptr, L.width[i],
-                 [&](int k, float a) { ca[k] = (a + u[k]) * (1.f - h[k] * h[k]); });
+                 [&](int k, float a) { ca[k] = (a + u[k]) * gate(h[k], on); });
   }
   float cz[DZ];
 #pragma unroll
@@ -329,7 +345,7 @@ __global__ void __launch_bounds__(kMaxBlock) k2_chain_adjoint(const AdjArgs p) {
   const ChainStage<DZ, COND> stage{&L, &m, w, p.eps, p.ys, slots + threadIdx.x * m.size, p.s.B, p.s.dz,
                                    p.norm_z, p.norm_j};
   const ChainGrad<COND> grad{&L, &m, slots};
-  cnf::adjoint_solve<DZ, COND>(p.s, stage, grad, P, gp, gp + P, gp + 2 * P, gp + 3 * P, red);
+  cnf::adjoint_solve<DZ, COND, kStageUnroll<COND>>(p.s, stage, grad, P, gp, gp + P, gp + 2 * P, gp + 3 * P, red);
   if (blockIdx.x == 0)
     for (int q = threadIdx.x; q < P; q += blockDim.x) p.g[q] = gp[q];
 }
@@ -378,12 +394,14 @@ struct Launch {
   AdjArgs a;
   int n;
   const int* widths;
+  int acts;
   int grid, block;
   cudaStream_t s;
   template <int DZ, bool COND>
   int operator()() const {
     AdjArgs b = a;
     if (!layout<DZ>(n, widths, &b.L, &b.m)) return (int)cudaErrorInvalidValue;
+    cnf::set_chain_acts(&b.L, acts);
     return (int)cnf::coop_launch(k2_chain_adjoint<DZ, COND>, b, grid, block, smem_bytes(b.L, b.m, block), s);
   }
 };
@@ -404,14 +422,16 @@ extern "C" int cnf_k2c_max_grid(int n, const int* widths, int block, int* out) {
 
 // params/g: [W0 | b0 | ...] flat (device); eps, zT, azT, z0, az0: (B, dz);
 // ys, ays0: (B, nc), null for an unconditional chain (nc = widths[0] -
-// widths[n]); accT/aaccT/acc0: (3, B).  work: (kStages + 2) (2 dz + 3 + nc) B
-// floats, gpart: 2 * grid * 2 P, gblk: grid * 4 P.  tab: a (kStages x
-// kStages, row-major), b, btilde.  Returns the launch's cudaError_t.
+// widths[n]); acts: bit i set where layer i is tanh (else identity);
+// accT/aaccT/acc0: (3, B).  work: (S + 2) (2 dz + 3 + nc) B floats, gpart:
+// 2 * grid * NG * P (NG = 3 for a tableau with btilde3, else 2), gblk:
+// grid * 4 P.  tab: kTableauFloats floats (read_tableau).  Returns the
+// launch's cudaError_t.
 extern "C" int cnf_k2c_train_adjoint(const float* params, const float* eps, const float* ys, const float* zT,
                                      const float* accT, const float* azT, const float* aaccT, const float* ts,
                                      float* z0, float* acc0, float* az0, float* ays0, float* g, int* stats,
                                      float* work, float* partials, float* gpart, float* gblk, int B, int n,
-                                     const int* widths, int max_steps, int norm_z, int norm_j, float rtol,
+                                     const int* widths, int acts, int max_steps, int norm_z, int norm_j, float rtol,
                                      float atol, float beta1, float beta2, float inv_order, const float* tab,
                                      int grid, int block, void* stream) {
   if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < 2 || n > kMaxLayers)
@@ -428,6 +448,6 @@ extern "C" int cnf_k2c_train_adjoint(const float* params, const float* eps, cons
   a.gblk = gblk;
   a.norm_z = norm_z;
   a.norm_j = norm_j;
-  return cnf::dispatch_chain(n, widths, Launch{a, n, widths, grid, block, (cudaStream_t)stream},
+  return cnf::dispatch_chain(n, widths, Launch{a, n, widths, acts, grid, block, (cudaStream_t)stream},
                              (int)cudaErrorInvalidValue);
 }

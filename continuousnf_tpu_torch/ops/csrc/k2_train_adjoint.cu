@@ -1,7 +1,7 @@
 // K2: the continuous-adjoint (backsolve) backward integration of a TRAIN-mode
 // CNF whose field is a 2-layer tanh MLP with one Hutchinson probe (reverse
-// mode), the whole adaptive tsit5 solve from t_hi down to t_lo in one
-// cooperative launch.
+// mode), the whole adaptive solve (any embedded explicit tableau, K9) from
+// t_hi down to t_lo in one cooperative launch.
 //
 // Replaces the TPU kernel built by continuousnf_tpu/ops/fused_solve.py::
 // _make_adjoint_kernel (:1064-1343), launched by make_full_solve.adjoint_solve
@@ -22,12 +22,13 @@
 // block's partials of the b- and btilde-weighted g_p sums in parity-indexed
 // global buffers, one grid.sync() per attempted step, and every block adding
 // all blocks' partials in block order.  g_p, its proposal and the block's
-// FSAL and last-stage partials (4 P floats) live in shared memory.
+// stage-1 and last-stage partials (4 P floats) live in shared memory.
 //
 // What bounds it on the H100: latency.  A stage is about 8 dz H FMA per
 // sample plus 2 P FMA per sample for the outer products; the time goes to
 // the dependent chains of one thread per sample, the block's outer-product
-// pass, and one grid barrier (with a 2 P * G-float read) per attempted step.
+// pass, and one grid barrier (with a 2 P * G-float read, 3 P * G for
+// dop853) per attempted step.
 // Registers: one sample's residuals (h, u1, v0, the cotangents) are ~5 H +
 // 4 dz floats; they live in a per-thread slot of shared memory (odd stride:
 // conflict-free for the owning thread and for the outer-product pass, which
@@ -38,6 +39,10 @@
 #include "solve_common.cuh"
 
 namespace {
+
+// The unroll factor of the solve loops over stored stages (solve_common.cuh),
+// the fastest of 1, 2, 4 and 8 for this kernel on the H100 (PERF.md, PR 6).
+constexpr int kStageUnroll = 4;
 
 using cnf::axpy4;
 using cnf::ct_safe_norm;
@@ -245,7 +250,7 @@ __global__ void __launch_bounds__(kMaxBlock) k2_train_adjoint(const AdjArgs p) {
   float* red = b1 + H;             // kRedFloats
   float* gp = red + kRedFloats;    // (P) g_p, the same in every block
   float* gnew = gp + P;            // (P) the proposed g_p
-  float* K1p = gnew + P;           // (P) this block's FSAL stage rate
+  float* K1p = gnew + P;           // (P) this block's stage-1 rate
   float* K7p = K1p + P;            // (P) this block's last-stage rate
   float* slots = K7p + P;          // blockDim.x slots
   const Slot<DZ> o(H);
@@ -253,7 +258,7 @@ __global__ void __launch_bounds__(kMaxBlock) k2_train_adjoint(const AdjArgs p) {
   const Weights w{w1t, w2p, b1, b2p, H, dz, p.norm_z, p.norm_j};
   const ProbeStage<DZ> stage{w, p.eps, slots + threadIdx.x * o.size};
   const ProbeGrad<DZ> grad{slots, dz, H};
-  cnf::adjoint_solve<DZ>(p.s, stage, grad, P, gp, gnew, K1p, K7p, red);
+  cnf::adjoint_solve<DZ, false, kStageUnroll>(p.s, stage, grad, P, gp, gnew, K1p, K7p, red);
 
   if (blockIdx.x == 0) {
     for (int q = threadIdx.x; q < P; q += blockDim.x) {
@@ -302,7 +307,8 @@ extern "C" int cnf_k2_max_grid(int dz, int H, int block, int* out) {
   }
 }
 
-// accT/aaccT/acc0: (3, B).  tab: a (kStages x kStages, row-major), b, btilde.
+// accT/aaccT/acc0: (3, B).  gpart: 2 * grid * NG * P (NG = 3 for a tableau
+// with btilde3, else 2).  tab: kTableauFloats floats (read_tableau).
 // Returns the launch's cudaError_t.
 extern "C" int cnf_k2_train_adjoint(const float* w1, const float* b1, const float* w2,
                                     const float* b2, const float* eps, const float* zT,

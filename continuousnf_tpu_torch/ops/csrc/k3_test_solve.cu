@@ -1,16 +1,17 @@
 // K3: the TEST-mode forward solve of a CNF whose field is a 2-layer tanh MLP,
-// the whole adaptive tsit5 solve in one cooperative launch.
+// the whole adaptive solve (any embedded explicit tableau, K9) in one
+// cooperative launch.
 //
 // Replaces the TPU kernel continuousnf_tpu/ops/fused_solve.py::_run_solve_kernel
 // (pl.pallas_call at :1043) built by _make_solve_kernel (:773-942) with the
 // _stage_test stage (:484-503).  What it computes, per attempted step:
-//   * the tsit5 stages of the state [z (B, dz) | dlogp (B)], where the field
+//   * the RK stages of the state [z (B, dz) | dlogp (B)], where the field
 //     is y = tanh(tanh(z W1 + b1) W2 + b2) and the dlogp rate is
 //     -tr J = -sum_i dy_i (M dh)_i, M[i, h] = W1[i, h] W2[h, i];
 //   * the embedded error and ONE Hairer norm over all B * (dz + 1) elements
 //     (the step control is batch-global, as in ode/solve.py::_attempt_step);
 //   * a global finite flag over the proposed state;
-//   * the PI controller, FSAL, and the max_steps cap.
+//   * the PI controller, FSAL or the non-FSAL refresh, and the max_steps cap.
 // The accumulator row is seeded from the incoming dlogp (the TPU kernel
 // starts it at zero, fused_solve.py:836-838; that fault is not copied).
 // The solver loop, the controller and the grid reduction live in
@@ -41,6 +42,10 @@
 #include "solve_common.cuh"
 
 namespace {
+
+// The unroll factor of the solve loops over stored stages (solve_common.cuh),
+// the fastest of 1, 2, 4 and 8 for this kernel on the H100 (PERF.md, PR 6).
+constexpr int kStageUnroll = 1;
 
 using cnf::FwdArgs;
 using cnf::kMaxBlock;
@@ -130,7 +135,7 @@ __global__ void __launch_bounds__(kMaxBlock) k3_test_solve(const FwdArgs p) {
   __syncthreads();
 
   const TestField<DZ> field{w1t, b1, w2p, b2p, mt, H};
-  cnf::forward_solve<DZ, 1>(p, field, red);
+  cnf::forward_solve<DZ, 1, kStageUnroll>(p, field, red);
 }
 
 template <int DZ>
@@ -154,7 +159,8 @@ extern "C" int cnf_k3_max_grid(int dz, int H, int block, int* out) {
   }
 }
 
-// tab: a (kStages x kStages, row-major), b (kStages), btilde (kStages).
+// dt_last: (2), the next step size and the last step taken.  tab:
+// kTableauFloats floats (read_tableau).
 // Returns the launch's cudaError_t.
 extern "C" int cnf_k3_test_solve(const float* w1, const float* b1, const float* w2,
                                  const float* b2, const float* z0, const float* dlogp0,

@@ -1,6 +1,7 @@
 // K4 adjoint: the continuous-adjoint (backsolve) backward integration of an
 // exact-trace TRAIN-mode CNF whose field is a 2-layer tanh MLP, the whole
-// adaptive tsit5 solve from t_hi down to t_lo in one cooperative launch.
+// adaptive solve (any embedded explicit tableau, K9) from t_hi down to t_lo
+// in one cooperative launch.
 //
 // Replaces the TPU kernel built by continuousnf_tpu/ops/fused_solve.py::
 // _make_adjoint_kernel (:1064-1343), launched by make_full_solve.adjoint_solve
@@ -66,6 +67,10 @@
 #include "solve_common.cuh"
 
 namespace {
+
+// The unroll factor of the solve loops over stored stages (solve_common.cuh),
+// the fastest of 1, 2, 4 and 8 for this kernel on the H100 (PERF.md, PR 6).
+constexpr int kStageUnroll = 8;
 
 using cnf::axpy4;
 using cnf::ct_safe_norm;
@@ -305,7 +310,7 @@ __global__ void __launch_bounds__(kMaxBlock) k4_exact_adjoint(const AdjArgs p) {
   const Weights w{w1t, w2p, b1, b2p, H, dz, B, p.norm_z, p.norm_j};
   const ExactStage<DZ> stage{w, p.mbuf, slots + threadIdx.x * o.size};
   const ExactGrad<DZ> grad{slots, p.mbuf, dz, H, B};
-  cnf::adjoint_solve<DZ>(p.s, stage, grad, Pt, gp, gp + Pt, gp + 2 * Pt, gp + 3 * Pt, red);
+  cnf::adjoint_solve<DZ, false, kStageUnroll>(p.s, stage, grad, Pt, gp, gp + Pt, gp + 2 * Pt, gp + 3 * Pt, red);
 
   if (blockIdx.x == 0) {
     for (int q = threadIdx.x; q < Pt; q += blockDim.x) {
@@ -354,9 +359,10 @@ extern "C" int cnf_k4a_max_grid(int dz, int H, int block, int* out) {
   }
 }
 
-// accT/aaccT/acc0: (3, B).  gpart: 2 * grid * 2 * P_total floats, gblk:
-// grid * 4 * P_total, mbuf: dz^2 * B.  tab: a (kStages x kStages,
-// row-major), b, btilde.  Returns the launch's cudaError_t.
+// accT/aaccT/acc0: (3, B).  gpart: 2 * grid * NG * P_total floats (NG = 3
+// for a tableau with btilde3, else 2), gblk: grid * 4 * P_total, mbuf:
+// dz^2 * B.  tab: kTableauFloats floats (read_tableau).  Returns the
+// launch's cudaError_t.
 extern "C" int cnf_k4_exact_adjoint(const float* w1, const float* b1, const float* w2,
                                     const float* b2, const float* zT, const float* accT,
                                     const float* azT, const float* aaccT, const float* ts,

@@ -1,11 +1,11 @@
 // K4 forward: the exact-trace TRAIN-mode forward solve of a CNF whose field is
-// a 2-layer tanh MLP, the whole adaptive tsit5 solve in one cooperative
-// launch.
+// a 2-layer tanh MLP, the whole adaptive solve (any embedded explicit tableau,
+// K9) in one cooperative launch.
 //
 // Replaces the TPU kernel continuousnf_tpu/ops/fused_solve.py::_run_solve_kernel
 // (pl.pallas_call at :1043) built by _make_solve_kernel (:773-942) with the
 // _stage_train_exact stage (:571-608) and the pm matrix of exact_stage_consts
-// (:542-559).  What it computes, per attempted step: the tsit5 stages of the
+// (:542-559).  What it computes, per attempted step: the RK stages of the
 // state [z (B, dz) | -tr | ||f|| | ||J||_F] (three accumulator rows), where
 // per sample, with dh = 1 - h^2 and dy = 1 - y^2,
 //   h = tanh(z W1 + b1),  y = tanh(h W2 + b2)               (the field)
@@ -13,7 +13,7 @@
 //   tr = sum_i dy_i m[i, i],  fro^2 = sum_i dy_i^2 sum_j m[j, i]^2
 //   rates: -tr,  ||y|| (norm_z),  sqrt(fro^2) (norm_j)      (safe norms)
 // then ONE Hairer norm over all B * (dz + 3) elements, the PI controller,
-// FSAL and the max_steps cap: the loop of solve_common.cuh, shared with K3
+// FSAL or the non-FSAL refresh and the max_steps cap: the loop of solve_common.cuh, shared with K3
 // and K1; only the field differs.  The accumulators are seeded from the
 // incoming state (the TPU kernel zeroes them, fused_solve.py:836-838, a
 // fault that is not copied).
@@ -35,6 +35,10 @@
 #include "solve_common.cuh"
 
 namespace {
+
+// The unroll factor of the solve loops over stored stages (solve_common.cuh),
+// the fastest of 1, 2, 4 and 8 for this kernel on the H100 (PERF.md, PR 6).
+constexpr int kStageUnroll = 1;
 
 using cnf::axpy4;
 using cnf::dot4;
@@ -114,7 +118,7 @@ __global__ void __launch_bounds__(kMaxBlock) k4_exact_solve(const FwdArgs p) {
 
   const ExactField<DZ> field{w1t, b1, w2p, b2p, dhbuf + threadIdx.x,
                              H, dz, (int)blockDim.x, p.norm_z, p.norm_j};
-  cnf::forward_solve<DZ, 3>(p, field, red);
+  cnf::forward_solve<DZ, 3, kStageUnroll>(p, field, red);
 }
 
 template <int DZ>
@@ -135,8 +139,9 @@ extern "C" int cnf_k4_max_grid(int dz, int H, int block, int* out) {
   }
 }
 
-// acc0/accT: (3, B), rows [dlogp | reg_e | reg_n].  tab: a (kStages x
-// kStages, row-major), b, btilde.  Returns the launch's cudaError_t.
+// acc0/accT: (3, B), rows [dlogp | reg_e | reg_n].  dt_last: (2), the
+// next step size and the last step taken.  tab: kTableauFloats floats
+// (read_tableau).  Returns the launch's cudaError_t.
 extern "C" int cnf_k4_exact_solve(const float* w1, const float* b1, const float* w2,
                                   const float* b2, const float* z0, const float* acc0,
                                   const float* ts, float* zT, float* accT, int* stats,

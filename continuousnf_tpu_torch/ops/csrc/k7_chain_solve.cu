@@ -1,6 +1,7 @@
-// K7: the forward solves of a CNF whose field is a Dense tanh chain of 2 to 4
-// layers with the exact trace by basis propagation, the whole adaptive tsit5
-// solve in one cooperative launch.  Two entry points:
+// K7: the forward solves of a CNF whose field is a Dense chain of 2 to 4 tanh
+// or identity layers with the exact trace by basis propagation, the whole
+// adaptive solve (any embedded explicit tableau, K9) in one cooperative
+// launch.  Two entry points:
 //   * TEST: the state [z | dlogp], rate -tr J (one accumulator row);
 //   * exact TRAIN: [z | dlogp | reg_e | reg_n], rates -tr J, ||y|| (norm_z)
 //     and ||J||_F (norm_j) (three rows).
@@ -14,8 +15,9 @@
 // deep exact chain's gradient runs the plain BACKSOLVE.
 //
 // Per sample and field evaluation: the forward pass (chain_forward of
-// chain_common.cuh), each hidden level's activation h replaced by its tanh'
-// d = 1 - h^2, then for each basis column j < dz one column of J pushed
+// chain_common.cuh), each hidden level's activation h replaced by its gate d
+// (1 - h^2 for tanh, 1 for identity), then for each basis column j < dz one
+// column of J pushed
 // through the linearised layers:
 //   t_1 = d_1 (.) W_0[j, :] (j < dz: a z row),  t_(l+1) = d_(l+1) (.) (t_l W_l),
 //   t_N = dy (.) (t_(N-1) W_(N-1)),
@@ -43,6 +45,11 @@
 #include "chain_common.cuh"
 
 namespace {
+
+// The unroll factor of the solve loops over stored stages (solve_common.cuh),
+// per instance the fastest of 1, 2, 4 and 8 on the H100 (PERF.md, PR 6).
+template <int NACC, bool COND>
+constexpr int kStageUnroll = COND ? (NACC == 3 ? 4 : 2) : 1;
 
 using cnf::ChainLayout;
 using cnf::kMaxBlock;
@@ -76,16 +83,18 @@ struct ChainExactField {
     float* yc = sl + c.hsum + 2 * c.hmax;
     if constexpr (COND) cnf::load_cond(c, ys, s, yc);
     cnf::chain_forward<DZ, COND>(c, w, z, yc, sl, y);
-    for (int q = 0; q < c.hsum; ++q) {
-      const float h = sl[q];
-      sl[q] = 1.f - h * h;
+    for (int l = 1; l < n; ++l) {
+      float* d = sl + c.hofs[l];
+      const int on = c.act[l - 1];
+      for (int q = 0; q < c.width[l]; ++q) d[q] = cnf::gate(d[q], on);
     }
     float dy[DZ], ysq = 0.f;
+    const int on = c.act[n - 1];
 #pragma unroll
     for (int k = 0; k < DZ; ++k) {
       ky[k] = y[k];
       ysq = fmaf(y[k], y[k], ysq);
-      dy[k] = 1.f - y[k] * y[k];
+      dy[k] = cnf::gate(y[k], on);
     }
     float* ta = sl + c.hsum;
     float* tb = ta + c.hmax;
@@ -137,7 +146,7 @@ __global__ void __launch_bounds__(kMaxBlock) k7_chain_solve(const Args p) {
   __syncthreads();
   const ChainExactField<DZ, NACC, COND> field{&L, w, p.ys, slots + threadIdx.x * slot_floats(L), p.f.dz,
                                               p.f.norm_z, p.f.norm_j};
-  cnf::forward_solve<DZ, NACC>(p.f, field, red);
+  cnf::forward_solve<DZ, NACC, kStageUnroll<NACC, COND>>(p.f, field, red);
 }
 
 size_t smem_bytes(const ChainLayout& L, int block) {
@@ -177,12 +186,14 @@ struct Launch {
   Args a;
   int n;
   const int* widths;
+  int acts;
   int grid, block;
   cudaStream_t s;
   template <int DZ, bool COND>
   int operator()() const {
     Args b = a;
     if (!cnf::make_chain_layout<DZ>(n, widths, &b.L)) return (int)cudaErrorInvalidValue;
+    cnf::set_chain_acts(&b.L, acts);
     return (int)cnf::coop_launch(k7_chain_solve<DZ, NACC, COND>, b, grid, block, smem_bytes(b.L, block), s);
   }
 };
@@ -196,7 +207,7 @@ int max_grid_any(int n, const int* widths, int block, int* out) {
 template <int NACC>
 int solve(const float* params, const float* ys, const float* z0, const float* acc0, const float* ts, float* zT,
           float* accT, int* stats, float* dt_last, float* work, float* partials, int B, int n, const int* widths,
-          int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
+          int acts, int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
           float inv_order, const float* tab, int grid, int block, void* stream) {
   if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < 2 || n > cnf::kMaxLayers)
     return (int)cudaErrorInvalidValue;
@@ -205,7 +216,7 @@ int solve(const float* params, const float* ys, const float* z0, const float* ac
                     max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
   a.params = params;
   a.ys = ys;
-  return cnf::dispatch_chain(n, widths, Launch<NACC>{a, n, widths, grid, block, (cudaStream_t)stream},
+  return cnf::dispatch_chain(n, widths, Launch<NACC>{a, n, widths, acts, grid, block, (cudaStream_t)stream},
                              (int)cudaErrorInvalidValue);
 }
 
@@ -229,14 +240,16 @@ extern "C" int cnf_k7_exact_max_grid(int n, const int* widths, int block, int* o
 }
 
 // TEST: params [W0 | b0 | ...] flat (device), ys (B, nc) or null for an
-// unconditional chain (nc = widths[0] - widths[n]), z0 (B, dz), dlogp0/dlogpT
-// (B).  Returns the launch's cudaError_t.
+// unconditional chain (nc = widths[0] - widths[n]), acts: bit i set where
+// layer i is tanh (else identity), z0 (B, dz), dlogp0/dlogpT (B), dt_last
+// (2): the next step size and the last step taken.  tab: kTableauFloats
+// floats (read_tableau).  Returns the launch's cudaError_t.
 extern "C" int cnf_k7_test_solve(const float* params, const float* ys, const float* z0, const float* dlogp0,
                                  const float* ts, float* zT, float* dlogpT, int* stats, float* dt_last,
-                                 float* work, float* partials, int B, int n, const int* widths, int max_steps,
-                                 float rtol, float atol, float beta1, float beta2, float inv_order,
-                                 const float* tab, int grid, int block, void* stream) {
-  return solve<1>(params, ys, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, B, n, widths,
+                                 float* work, float* partials, int B, int n, const int* widths, int acts,
+                                 int max_steps, float rtol, float atol, float beta1, float beta2,
+                                 float inv_order, const float* tab, int grid, int block, void* stream) {
+  return solve<1>(params, ys, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, B, n, widths, acts,
                   max_steps, 0, 0, rtol, atol, beta1, beta2, inv_order, tab, grid, block, stream);
 }
 
@@ -244,9 +257,10 @@ extern "C" int cnf_k7_test_solve(const float* params, const float* ys, const flo
 // launch's cudaError_t.
 extern "C" int cnf_k7_exact_solve(const float* params, const float* ys, const float* z0, const float* acc0,
                                   const float* ts, float* zT, float* accT, int* stats, float* dt_last,
-                                  float* work, float* partials, int B, int n, const int* widths, int max_steps,
-                                  int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
-                                  float inv_order, const float* tab, int grid, int block, void* stream) {
-  return solve<3>(params, ys, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths, max_steps,
-                  norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab, grid, block, stream);
+                                  float* work, float* partials, int B, int n, const int* widths, int acts,
+                                  int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1,
+                                  float beta2, float inv_order, const float* tab, int grid, int block,
+                                  void* stream) {
+  return solve<3>(params, ys, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths, acts,
+                  max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab, grid, block, stream);
 }

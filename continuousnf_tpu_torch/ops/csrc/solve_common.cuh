@@ -1,21 +1,32 @@
 // Shared pieces of the solve kernels (K3, K1, K2, K4 and the chain kernels):
-// the tsit5 tableau, the PI step-size controller, the fixed-order block and
-// grid reductions that give every block bitwise the same error norm, the
-// cooperative-launch helpers, the 2-layer weights' shared-memory layout with
-// its float4 row products, the whole adaptive forward solve of a per-sample
-// field (K3, K1, the K4 forward, the K1 chain form and K7) and the whole
-// adaptive backsolve of a per-sample augmented stage with a batch-summed
-// gradient (K2, the K4 adjoint and the K2 chain form).
+// the explicit RK tableau (any embedded pair up to kMaxStages stages), the PI
+// step-size controller, the fixed-order block and grid reductions that give
+// every block bitwise the same error norm, the cooperative-launch helpers,
+// the 2-layer weights' shared-memory layout with its float4 row products,
+// the whole adaptive forward solve of a per-sample field (K3, K1, the K4
+// forward, the K1 chain form and K7) and the whole adaptive backsolve of a
+// per-sample augmented stage with a batch-summed gradient (K2, the K4
+// adjoint and the K2 chain form).
 //
 // The forward solve keeps the state [z (dz rows) | accumulators (NACC rows)]
 // in a global scratch laid out (row, B), so a warp's accesses are coalesced.
 // One thread owns one sample at a time (threads stride over samples beyond
 // the co-resident grid); the controller state is held, and updated
 // identically, by every thread.  One grid.sync() per attempted step: each
-// block writes its partial error sum and finite flag into a buffer chosen by
-// step parity, and after the barrier every block sums all partials in the
+// block writes its partial error sums and finite flag into a buffer chosen
+// by step parity, and after the barrier every block sums all partials in the
 // same order.  A block can only overwrite a parity's buffer after the next
 // step's barrier, which every block reaches only once it has read it.
+//
+// The tableau is a run-time value, copied once into the block's shared
+// memory (the loop over the stages is not unrolled, so one kernel instance
+// runs every tableau and its field is inlined once; the loops over stored
+// stages are unrolled by a per-kernel factor): S stages, FSAL or not (a non-FSAL
+// tableau re-evaluates stage 1 at the new point after an accepted step; a
+// rejected step keeps the point, so the old stage is kept), and for dop853
+// a second error sum with btilde3 beside the first, combined into Hairer's
+// stretched estimate eest = e5^2 / sqrt(e5^2 + 0.01 e3^2) of the two
+// batch-global norms (ode/solve.py::_attempt_step).
 
 #pragma once
 
@@ -28,23 +39,50 @@ namespace cnf {
 
 namespace cg = cooperative_groups;
 
-constexpr int kStages = 7;   // tsit5, FSAL: stage 7 is f at the proposed point
+constexpr int kMaxStages = 13;  // dop853; tsit5 and dopri5 have 7, verner65 8, bosh3 4
 constexpr int kMaxBlock = 256;
-constexpr int kRedFloats = 2 * 32 + 2;  // per-warp sums, per-warp flags, broadcast
+constexpr int kRedFloats = 3 * 32 + 4;  // per-warp sums (two) and flags, three broadcasts, padded to 16 bytes
+constexpr int kTableauFloats = kMaxStages * kMaxStages + 3 * kMaxStages + 3;
 
 struct Tableau {
-  float a[kStages][kStages];  // a[i][j] for j < i
-  float b[kStages];
-  float btilde[kStages];
+  float a[kMaxStages][kMaxStages];  // a[i][j] for j < i < S
+  float b[kMaxStages];
+  float btilde[kMaxStages];
+  float btilde3[kMaxStages];  // zero unless has3
+  int S;                      // stages
+  int fsal;                   // stage S is f at the proposed point
+  int has3;                   // dop853's stretched 5(3) estimate
 };
 
-// tab: a (kStages x kStages, row-major) | b | btilde, as the wrappers pass it.
+// tab: a (kMaxStages x kMaxStages, row-major) | b | btilde | btilde3 | S |
+// fsal | has3 (kTableauFloats floats), as the wrappers pass it.
 inline void read_tableau(const float* tab, Tableau* t) {
-  for (int i = 0; i < kStages; ++i) {
-    for (int j = 0; j < kStages; ++j) t->a[i][j] = tab[i * kStages + j];
-    t->b[i] = tab[kStages * kStages + i];
-    t->btilde[i] = tab[kStages * kStages + kStages + i];
+  constexpr int M = kMaxStages, o = M * M;
+  for (int i = 0; i < M; ++i) {
+    for (int j = 0; j < M; ++j) t->a[i][j] = tab[i * M + j];
+    t->b[i] = tab[o + i];
+    t->btilde[i] = tab[o + M + i];
+    t->btilde3[i] = tab[o + 2 * M + i];
   }
+  t->S = (int)tab[o + 3 * M];
+  t->fsal = (int)tab[o + 3 * M + 1];
+  t->has3 = (int)tab[o + 3 * M + 2];
+}
+
+// The tableau a solve reads, copied once into the block's shared memory
+// (the stage loops index it with run-time indices).
+__device__ inline const Tableau& share_tableau(const Tableau& from) {
+  __shared__ Tableau t;
+  if (threadIdx.x == 0) t = from;
+  __syncthreads();
+  return t;
+}
+
+// Hairer's stretched 8(5,3) estimate from the two norms (dop853.f), as
+// ode/solve.py::_attempt_step combines them.
+__device__ __forceinline__ float stretched_eest(float e5, float e3) {
+  const float denom = sqrtf(e5 * e5 + 0.01f * (e3 * e3));
+  return denom > 0.f ? (e5 * e5) / fmaxf(denom, 1e-30f) : e5;
 }
 
 __device__ __forceinline__ float safe_norm_sq(float sq) { return sq > 0.f ? sqrtf(sq) : 0.f; }
@@ -176,59 +214,73 @@ __device__ inline float block_sum(float v, float* red) {
   if (threadIdx.x == 0) {
     float s = 0.f;
     for (int w = 0; w < nwarps; ++w) s += red[w];
-    red[64] = s;
+    red[96] = s;
   }
   __syncthreads();
-  return red[64];
+  return red[96];
 }
 
-// Write this block's partial error sum and finite flag (1 or 0) into the
-// parity's slots of `partials` ([parity][sum | flag][gridDim.x]).
-__device__ inline void write_block_partial(float sumsq, bool finite, float* partials, int par,
-                                           float* red) {
+// Write this block's partial error sums (the btilde one, and the btilde3 one
+// when has3) and finite flag (1 or 0) into the parity's slots of `partials`
+// ([parity][sum | sum3 | flag][gridDim.x]).
+__device__ inline void write_block_partial(float sumsq, float sumsq3, bool has3, bool finite, float* partials,
+                                           int par, float* red) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = (blockDim.x + 31) >> 5;
-  float v = sumsq;
+  float v = sumsq, v3 = sumsq3;
   float fl = finite ? 1.f : 0.f;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     v += __shfl_down_sync(0xffffffffu, v, off);
     fl = fminf(fl, __shfl_down_sync(0xffffffffu, fl, off));
   }
+  if (has3) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v3 += __shfl_down_sync(0xffffffffu, v3, off);
+  }
   if (lane == 0) {
     red[warp] = v;
     red[32 + warp] = fl;
+    red[64 + warp] = v3;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    float bsum = 0.f, bflag = 1.f;
+    float bsum = 0.f, bsum3 = 0.f, bflag = 1.f;
     for (int w = 0; w < nwarps; ++w) {
       bsum += red[w];
       bflag = fminf(bflag, red[32 + w]);
     }
-    float* psum = partials + (size_t)(2 * par) * gridDim.x;
+    if (has3)
+      for (int w = 0; w < nwarps; ++w) bsum3 += red[64 + w];
+    float* psum = partials + (size_t)(3 * par) * gridDim.x;
     psum[blockIdx.x] = bsum;
-    psum[gridDim.x + blockIdx.x] = bflag;
+    psum[gridDim.x + blockIdx.x] = bsum3;
+    psum[2 * gridDim.x + blockIdx.x] = bflag;
   }
 }
 
-// After the grid barrier: the sum of all blocks' partials and whether all
-// were finite, summed in block order by every block (so bitwise equal).
-__device__ inline void read_grid_total(const float* partials, int par, float* red, float* total,
-                                       bool* all_finite) {
-  const float* psum = partials + (size_t)(2 * par) * gridDim.x;
+// After the grid barrier: the sums of all blocks' partials (total3 stays 0
+// unless has3) and whether all were finite, summed in block order by every
+// block (so bitwise equal).
+__device__ inline void read_grid_total(const float* partials, int par, bool has3, float* red, float* total,
+                                       float* total3, bool* all_finite) {
+  const float* psum = partials + (size_t)(3 * par) * gridDim.x;
   if (threadIdx.x == 0) {
-    float tot = 0.f, all = 1.f;
+    float tot = 0.f, tot3 = 0.f, all = 1.f;
     for (int g = 0; g < (int)gridDim.x; ++g) {
       tot += __ldcg(psum + g);
-      all = fminf(all, __ldcg(psum + gridDim.x + g));
+      all = fminf(all, __ldcg(psum + 2 * gridDim.x + g));
     }
-    red[64] = tot;
-    red[65] = all;
+    if (has3)
+      for (int g = 0; g < (int)gridDim.x; ++g) tot3 += __ldcg(psum + gridDim.x + g);
+    red[96] = tot;
+    red[97] = tot3;
+    red[98] = all;
   }
   __syncthreads();
-  *total = red[64];
-  *all_finite = red[65] > 0.5f;
+  *total = red[96];
+  *total3 = red[97];
+  *all_finite = red[98] > 0.5f;
   __syncthreads();
 }
 
@@ -245,114 +297,137 @@ struct FwdArgs {
   float* zT;          // (B, dz)
   float* accT;        // (NACC, B)
   int* stats;         // attempted, accepted
-  float* dt_last;     // (1)
-  float* work;        // (kStages + 2) * (dz + NACC) * B
-  float* partials;    // [parity][sum | flag][gridDim.x]
+  float* dt_last;     // (2): the next step size, and the last step taken
+  float* work;        // (S + 2) * (dz + NACC) * B
+  float* partials;    // [parity][sum | sum3 | flag][gridDim.x]
   int B, dz, H, max_steps, norm_z, norm_j;
   float rtol, atol, beta1, beta2, inv_order;
   Tableau tab;
 };
 
-// The whole adaptive solve of [z | acc] from ts[0] to ts[1].  `field(s, z,
-// ky, kr)` evaluates sample s's field at z: ky (DZ) and the accumulator
-// rates kr (NACC); z is zero beyond dz and ky must be too.  red: kRedFloats
-// floats of shared memory.
-template <int DZ, int NACC, class Field>
+// The whole adaptive solve of [z | acc] from ts[0] to ts[1] under the
+// tableau the arguments carry.  `field(s, z, ky, kr)` evaluates sample s's
+// field at z: ky (DZ) and the accumulator rates kr (NACC); z is zero beyond
+// dz and ky must be too.  red: kRedFloats floats of shared memory.  The
+// loops over the stages run at run time: the field is inlined once per
+// call site, and one instance runs every tableau.  U: the unroll factor of
+// the loops over stored stages (the stage combination and the error sums),
+// chosen per kernel from CUDA-event times on the H100 (PERF.md).
+template <int DZ, int NACC, int U, class Field>
 __device__ void forward_solve(const FwdArgs& p, const Field& field, float* red) {
   cg::grid_group grid = cg::this_grid();
+  const Tableau& T = share_tableau(p.tab);
+  const int S = T.S;
+  const bool has3 = T.has3 != 0;
+  const bool fsal = T.fsal != 0;
   const int dz = p.dz, B = p.B, R = dz + NACC;
   const int nthr = gridDim.x * blockDim.x;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const size_t RB = (size_t)R * B;  // one (row, B) plane
   float* Y = p.work;                // current state: z rows, then the accumulator rows
   float* Yn = Y + RB;               // proposed state
-  float* K = Yn + RB;               // stage registers, kStages planes
+  float* K = Yn + RB;               // stage registers, S planes
+
+  // Sample s's field at the current state Y into the stage plane K[0].
+  auto stage1 = [&](int s) {
+    float z[DZ], ky[DZ], kr[NACC];
+#pragma unroll
+    for (int i = 0; i < DZ; ++i) z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
+    field(s, z, ky, kr);
+#pragma unroll
+    for (int i = 0; i < DZ; ++i)
+      if (i < dz) K[(size_t)i * B + s] = ky[i];
+#pragma unroll
+    for (int r = 0; r < NACC; ++r) K[(size_t)(dz + r) * B + s] = kr[r];
+  };
+  // Stage st of sample s: the field at Y + dt sum_j a[st][j] K[j].
+  auto stage = [&](int s, int st, float dt_use) {
+    float z[DZ], ky[DZ], kr[NACC];
+#pragma unroll
+    for (int i = 0; i < DZ; ++i) z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
+#pragma unroll (U)
+    for (int j = 0; j < st; ++j) {
+      const float a = T.a[st][j];
+      if (a != 0.f) {
+        const float cf = dt_use * a;
+        const float* kj = K + j * RB;
+#pragma unroll
+        for (int i = 0; i < DZ; ++i)
+          if (i < dz) z[i] = fmaf(cf, kj[(size_t)i * B + s], z[i]);
+      }
+    }
+    field(s, z, ky, kr);
+    float* kst = K + st * RB;
+#pragma unroll
+    for (int i = 0; i < DZ; ++i)
+      if (i < dz) kst[(size_t)i * B + s] = ky[i];
+#pragma unroll
+    for (int r = 0; r < NACC; ++r) kst[(size_t)(dz + r) * B + s] = kr[r];
+  };
 
   // Initial state (accumulators seeded from acc0) and the first stage.
   for (int s = gtid; s < B; s += nthr) {
-    float z[DZ], ky[DZ], kr[NACC];
-#pragma unroll
-    for (int i = 0; i < DZ; ++i) z[i] = i < dz ? p.z0[(size_t)s * dz + i] : 0.f;
-    field(s, z, ky, kr);
-#pragma unroll
-    for (int i = 0; i < DZ; ++i) {
-      if (i < dz) {
-        Y[(size_t)i * B + s] = z[i];
-        K[(size_t)i * B + s] = ky[i];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < NACC; ++r) {
-      Y[(size_t)(dz + r) * B + s] = p.acc0[(size_t)r * B + s];
-      K[(size_t)(dz + r) * B + s] = kr[r];
-    }
+    for (int i = 0; i < dz; ++i) Y[(size_t)i * B + s] = p.z0[(size_t)s * dz + i];
+    for (int r = 0; r < NACC; ++r) Y[(size_t)(dz + r) * B + s] = p.acc0[(size_t)r * B + s];
+    stage1(s);
   }
 
   Controller c;
   c.init(p.ts, p.beta1, p.beta2, p.inv_order);
   const float n_elems = (float)RB;
+  float dt_taken = 0.f;
 
   while (c.running(p.max_steps)) {
     bool is_last;
     const float dt_use = c.plan(&is_last);
+    dt_taken = dt_use;
 
-    float sumsq = 0.f;
+    float sumsq = 0.f, sumsq3 = 0.f;
     bool finite = true;
     for (int s = gtid; s < B; s += nthr) {
-#pragma unroll
-      for (int st = 1; st < kStages; ++st) {
-        float z[DZ], ky[DZ], kr[NACC];
-#pragma unroll
-        for (int i = 0; i < DZ; ++i) z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
-#pragma unroll
-        for (int j = 0; j < st; ++j) {
-          if (p.tab.a[st][j] != 0.f) {
-            const float cf = dt_use * p.tab.a[st][j];
-            const float* kj = K + j * RB;
-#pragma unroll
-            for (int i = 0; i < DZ; ++i)
-              if (i < dz) z[i] = fmaf(cf, kj[(size_t)i * B + s], z[i]);
-          }
-        }
-        field(s, z, ky, kr);
-        float* kst = K + st * RB;
-#pragma unroll
-        for (int i = 0; i < DZ; ++i)
-          if (i < dz) kst[(size_t)i * B + s] = ky[i];
-#pragma unroll
-        for (int r = 0; r < NACC; ++r) kst[(size_t)(dz + r) * B + s] = kr[r];
-      }
+#pragma unroll 1
+      for (int st = 1; st < S; ++st) stage(s, st, dt_use);
       for (int r = 0; r < R; ++r) {
         const size_t o = (size_t)r * B + s;
         const float y = Y[o];
-        float yn = y, err = 0.f;
-#pragma unroll
-        for (int st = 0; st < kStages; ++st) {
+        float yn = y, err = 0.f, err3 = 0.f;
+#pragma unroll (U)
+        for (int st = 0; st < S; ++st) {
           const float k = K[st * RB + o];
-          if (p.tab.b[st] != 0.f) yn = fmaf(dt_use * p.tab.b[st], k, yn);
-          if (p.tab.btilde[st] != 0.f) err = fmaf(dt_use * p.tab.btilde[st], k, err);
+          if (T.b[st] != 0.f) yn = fmaf(dt_use * T.b[st], k, yn);
+          if (T.btilde[st] != 0.f) err = fmaf(dt_use * T.btilde[st], k, err);
+          if (has3 && T.btilde3[st] != 0.f) err3 = fmaf(dt_use * T.btilde3[st], k, err3);
         }
         Yn[o] = yn;
-        const float q = err / (p.atol + p.rtol * fmaxf(fabsf(y), fabsf(yn)));
+        const float sc = p.atol + p.rtol * fmaxf(fabsf(y), fabsf(yn));
+        const float q = err / sc;
         sumsq = fmaf(q, q, sumsq);
+        if (has3) {
+          const float q3 = err3 / sc;
+          sumsq3 = fmaf(q3, q3, sumsq3);
+        }
         finite = finite && isfinite(yn);
       }
     }
 
     const int par = c.steps & 1;
-    write_block_partial(sumsq, finite, p.partials, par, red);
+    write_block_partial(sumsq, sumsq3, has3, finite, p.partials, par, red);
     grid.sync();
-    float total;
+    float total, total3;
     bool all_finite;
-    read_grid_total(p.partials, par, red, &total, &all_finite);
-    if (c.update(sqrtf(total / n_elems), all_finite, dt_use, is_last)) {
-      // Accept: the proposed state and, FSAL, the last stage become current.
+    read_grid_total(p.partials, par, has3, red, &total, &total3, &all_finite);
+    float eest = sqrtf(total / n_elems);
+    if (has3) eest = stretched_eest(eest, sqrtf(total3 / n_elems));
+    if (c.update(eest, all_finite, dt_use, is_last)) {
+      // Accept: the proposed state becomes current, and with it stage 1: FSAL
+      // the last stage, else the field re-evaluated at the new point.
       for (int s = gtid; s < B; s += nthr) {
         for (int r = 0; r < R; ++r) {
           const size_t o = (size_t)r * B + s;
           Y[o] = Yn[o];
-          K[o] = K[(kStages - 1) * RB + o];
+          if (fsal) K[o] = K[(S - 1) * RB + o];
         }
+        if (!fsal) stage1(s);
       }
     }
   }
@@ -365,6 +440,7 @@ __device__ void forward_solve(const FwdArgs& p, const Field& field, float* red) 
     p.stats[0] = c.steps;
     p.stats[1] = c.accepted;
     p.dt_last[0] = c.dt;
+    p.dt_last[1] = dt_taken;
   }
 }
 
@@ -381,9 +457,9 @@ struct AdjState {
   float* az0;         // (B, dz)
   float* ays0;        // (B, nc) cotangent of the conditioning at t_lo (nc > 0)
   int* stats;         // attempted, accepted
-  float* work;        // (kStages + 2) * (2 dz + 3 + nc) * B
-  float* partials;    // [parity][sum | flag][gridDim.x]
-  float* gpart;       // [parity][gridDim.x][2 Pg]: the blocks' b- and btilde-weighted g sums
+  float* work;        // (S + 2) * (2 dz + 3 + nc) * B
+  float* partials;    // [parity][sum | sum3 | flag][gridDim.x]
+  float* gpart;       // [parity][gridDim.x][NG Pg]: the blocks' b-, btilde- (and btilde3-) weighted g sums
   int B, dz, nc, max_steps;  // nc: per-sample conditioning cotangent rows (0 but for the K2 chain form)
   float rtol, atol, beta1, beta2, inv_order;
   Tableau tab;
@@ -405,17 +481,25 @@ struct AdjState {
 // One batch-global Hairer norm over B * (2 * (dz + 3) + nc) + Pg elements,
 // the g entries scaled by atol + rtol * max(|g|, |g_new|) of the batch-summed
 // values.  Each block accumulates its partials of dt * sum_i b_i k_g,i and
-// dt * sum_i btilde_i k_g,i in its parity-indexed slice of gpart, writes its
-// per-sample sum of squares, one grid.sync(), and then every block adds all
+// dt * sum_i btilde_i k_g,i (and, for dop853, dt * sum_i btilde3_i k_g,i:
+// NG = 3 vectors, else 2) in its parity-indexed slice of gpart, writes its
+// per-sample sums of squares, one grid.sync(), and then every block adds all
 // blocks' vectors in block order, so every block holds the same g and takes
-// the same decision.  FSAL keeps each block's own partial of the last stage's
-// g rate (the sum is linear in the samples).  gp, gnew, K1p and K7p are the
+// the same decision.  Stage 1 keeps each block's own partial of its g rate
+// (the sum is linear in the samples): FSAL the last stage's, a non-FSAL
+// tableau the refresh's at the accepted point.  gp, gnew, K1p and K7p are the
 // block's own Pg-float buffers (shared or global memory) for g, the proposed
-// g, and the FSAL and last-stage partials; on return gp holds g.
-template <int DZ, bool COND = false, class Stage, class Grad>
+// g, and the stage-1 and last-stage partials; on return gp holds g.
+// U: as forward_solve's.
+template <int DZ, bool COND, int U, class Stage, class Grad>
 __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad& grad, int Pg, float* gp,
                               float* gnew, float* K1p, float* K7p, float* red) {
   cg::grid_group grid = cg::this_grid();
+  const Tableau& T = share_tableau(p.tab);
+  const int S = T.S;
+  const bool has3 = T.has3 != 0;
+  const bool fsal = T.fsal != 0;
+  const int NG = has3 ? 3 : 2;
   const int dz = p.dz, B = p.B, G = gridDim.x;
   const int nc = COND ? p.nc : 0;
   const int nthr = G * blockDim.x;
@@ -426,12 +510,6 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
   float* Y = p.work;
   float* Yn = Y + RB;
   float* K = Yn + RB;
-
-  for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
-    gp[q] = 0.f;
-    K1p[q] = 0.f;
-  }
-  __syncthreads();
 
   // Sample s's stage at (z, az), its rates stored into the plane kst.
   auto run_stage = [&](int s, const float (&z)[DZ], const float (&az)[DZ], float* kst) {
@@ -452,30 +530,40 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
   // The block's samples in round rd: [base, base + nvalid).
   auto round_base = [&](int rd) { return rd * nthr + (int)(blockIdx.x * blockDim.x); };
   auto round_valid = [&](int rd) { return max(0, min((int)blockDim.x, B - round_base(rd))); };
-
-  // Initial state and the first stage (its g rate partial into K1p).
-  for (int rd = 0; rd < rounds; ++rd) {
-    const int s = gtid + rd * nthr;
-    if (s < B) {
-      float z[DZ], az[DZ];
+  // Stage 1 at the current state Y into the plane K[0], its g rate partial
+  // into K1p (the initial stage, and a non-FSAL tableau's refresh).
+  auto stage1 = [&]() {
+    for (int q = threadIdx.x; q < Pg; q += blockDim.x) K1p[q] = 0.f;
+    __syncthreads();
+    for (int rd = 0; rd < rounds; ++rd) {
+      const int s = gtid + rd * nthr;
+      if (s < B) {
+        float z[DZ], az[DZ];
 #pragma unroll
-      for (int i = 0; i < DZ; ++i) {
-        z[i] = i < dz ? p.zT[(size_t)s * dz + i] : 0.f;
-        az[i] = i < dz ? p.azT[(size_t)s * dz + i] : 0.f;
+        for (int i = 0; i < DZ; ++i) {
+          z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
+          az[i] = i < dz ? Y[(size_t)(dz + 3 + i) * B + s] : 0.f;
+        }
+        run_stage(s, z, az, K);
       }
-      run_stage(s, z, az, K);
-      for (int i = 0; i < dz; ++i) {
-        Y[(size_t)i * B + s] = z[i];
-        Y[(size_t)(dz + 3 + i) * B + s] = az[i];
-      }
-      for (int r = 0; r < 3; ++r) Y[(size_t)(dz + r) * B + s] = p.accT[(size_t)r * B + s];
-      for (int c = 0; c < nc; ++c) Y[(size_t)(2 * dz + 3 + c) * B + s] = 0.f;
+      __syncthreads();
+      const int base = round_base(rd), nv = round_valid(rd);
+      for (int q = threadIdx.x; q < Pg; q += blockDim.x) K1p[q] += grad(q, base, nv);
+      __syncthreads();
     }
-    __syncthreads();
-    const int base = round_base(rd), nv = round_valid(rd);
-    for (int q = threadIdx.x; q < Pg; q += blockDim.x) K1p[q] += grad(q, base, nv);
-    __syncthreads();
+  };
+
+  // Initial state.
+  for (int s = gtid; s < B; s += nthr) {
+    for (int i = 0; i < dz; ++i) {
+      Y[(size_t)i * B + s] = p.zT[(size_t)s * dz + i];
+      Y[(size_t)(dz + 3 + i) * B + s] = p.azT[(size_t)s * dz + i];
+    }
+    for (int r = 0; r < 3; ++r) Y[(size_t)(dz + r) * B + s] = p.accT[(size_t)r * B + s];
+    for (int c = 0; c < nc; ++c) Y[(size_t)(2 * dz + 3 + c) * B + s] = 0.f;
   }
+  for (int q = threadIdx.x; q < Pg; q += blockDim.x) gp[q] = 0.f;
+  stage1();
 
   Controller c;
   c.init(p.ts, p.beta1, p.beta2, p.inv_order);
@@ -485,16 +573,19 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
     bool is_last;
     const float dt_use = c.plan(&is_last);
     const int par = c.steps & 1;
-    float* GB = p.gpart + ((size_t)par * G + blockIdx.x) * 2 * Pg;
+    float* GB = p.gpart + ((size_t)par * G + blockIdx.x) * NG * Pg;
     float* GE = GB + Pg;
-    const float cb0 = dt_use * p.tab.b[0], ce0 = dt_use * p.tab.btilde[0];
+    float* GE3 = GE + Pg;
+    const float cb0 = dt_use * T.b[0], ce0 = dt_use * T.btilde[0], ce30 = dt_use * T.btilde3[0];
     for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
       GB[q] = cb0 * K1p[q];
       GE[q] = ce0 * K1p[q];
+      if (has3) GE3[q] = ce30 * K1p[q];
       K7p[q] = 0.f;
     }
 
-    for (int st = 1; st < kStages; ++st) {
+    // Stage st over the block's rounds, and its g rate partials.
+    auto stage_st = [&](int st) {
       for (int rd = 0; rd < rounds; ++rd) {
         const int s = gtid + rd * nthr;
         if (s < B) {
@@ -504,9 +595,11 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
             z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
             az[i] = i < dz ? Y[(size_t)(dz + 3 + i) * B + s] : 0.f;
           }
+#pragma unroll (U)
           for (int j = 0; j < st; ++j) {
-            if (p.tab.a[st][j] != 0.f) {
-              const float cf = dt_use * p.tab.a[st][j];
+            const float a = T.a[st][j];
+            if (a != 0.f) {
+              const float cf = dt_use * a;
               const float* kj = K + j * RB;
 #pragma unroll
               for (int i = 0; i < DZ; ++i) {
@@ -520,52 +613,64 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
           run_stage(s, z, az, K + st * RB);
         }
         __syncthreads();
-        const float cb = dt_use * p.tab.b[st], ce = dt_use * p.tab.btilde[st];
-        const bool last = st == kStages - 1;
+        const float bs = T.b[st], bt = T.btilde[st], bt3 = T.btilde3[st];
+        const float cb = dt_use * bs, ce = dt_use * bt, ce3 = dt_use * bt3;
+        const bool last = fsal && st == S - 1;
         const int base = round_base(rd), nv = round_valid(rd);
         for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
           const float g = grad(q, base, nv);
-          if (p.tab.b[st] != 0.f) GB[q] = fmaf(cb, g, GB[q]);
-          if (p.tab.btilde[st] != 0.f) GE[q] = fmaf(ce, g, GE[q]);
+          if (bs != 0.f) GB[q] = fmaf(cb, g, GB[q]);
+          if (bt != 0.f) GE[q] = fmaf(ce, g, GE[q]);
+          if (has3 && bt3 != 0.f) GE3[q] = fmaf(ce3, g, GE3[q]);
           if (last) K7p[q] += g;
         }
         __syncthreads();
       }
-    }
+    };
+#pragma unroll 1
+    for (int st = 1; st < S; ++st) stage_st(st);
 
     // Per-sample proposals and errors: z, acc, a_z and a_ys rows (a_acc is
     // constant: zero error, but counted in n_elems).
-    float sumsq = 0.f;
+    float sumsq = 0.f, sumsq3 = 0.f;
     bool finite = true;
     for (int s = gtid; s < B; s += nthr) {
       for (int r = 0; r < R; ++r) {
         const size_t off = (size_t)r * B + s;
         const float y = Y[off];
-        float yn = y, err = 0.f;
-#pragma unroll
-        for (int st = 0; st < kStages; ++st) {
+        float yn = y, err = 0.f, err3 = 0.f;
+#pragma unroll (U)
+        for (int st = 0; st < S; ++st) {
           const float k = K[st * RB + off];
-          if (p.tab.b[st] != 0.f) yn = fmaf(dt_use * p.tab.b[st], k, yn);
-          if (p.tab.btilde[st] != 0.f) err = fmaf(dt_use * p.tab.btilde[st], k, err);
+          if (T.b[st] != 0.f) yn = fmaf(dt_use * T.b[st], k, yn);
+          if (T.btilde[st] != 0.f) err = fmaf(dt_use * T.btilde[st], k, err);
+          if (has3 && T.btilde3[st] != 0.f) err3 = fmaf(dt_use * T.btilde3[st], k, err3);
         }
         Yn[off] = yn;
-        const float qv = err / (p.atol + p.rtol * fmaxf(fabsf(y), fabsf(yn)));
+        const float sc = p.atol + p.rtol * fmaxf(fabsf(y), fabsf(yn));
+        const float qv = err / sc;
         sumsq = fmaf(qv, qv, sumsq);
+        if (has3) {
+          const float q3 = err3 / sc;
+          sumsq3 = fmaf(q3, q3, sumsq3);
+        }
         if (r < dz || r >= dz + 3) finite = finite && isfinite(yn);
       }
     }
 
-    write_block_partial(sumsq, finite, p.partials, par, red);
+    write_block_partial(sumsq, sumsq3, has3, finite, p.partials, par, red);
     grid.sync();
-    float total;
+    float total, total3;
     bool all_finite;
-    read_grid_total(p.partials, par, red, &total, &all_finite);
-    // The g block: all blocks' vectors summed in block order.
+    read_grid_total(p.partials, par, has3, red, &total, &total3, &all_finite);
+    // The g block: all blocks' vectors summed in block order (the btilde3
+    // one in a pass of its own, so the common pass stays as tight).
+    const size_t gstride = (size_t)NG * Pg;
     float gsq = 0.f;
     for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
       float gs = 0.f, es = 0.f;
       for (int g = 0; g < G; ++g) {
-        const float* base = p.gpart + ((size_t)par * G + g) * 2 * Pg;
+        const float* base = p.gpart + ((size_t)par * G + g) * gstride;
         gs += __ldcg(base + q);
         es += __ldcg(base + Pg + q);
       }
@@ -575,17 +680,32 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
       gsq = fmaf(qv, qv, gsq);
     }
     gsq = block_sum(gsq, red);
-    if (c.update(sqrtf((total + gsq) / n_elems), all_finite, dt_use, is_last)) {
+    float eest = sqrtf((total + gsq) / n_elems);
+    if (has3) {
+      float gsq3 = 0.f;
+      for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
+        float es3 = 0.f;
+        for (int g = 0; g < G; ++g) es3 += __ldcg(p.gpart + ((size_t)par * G + g) * gstride + 2 * Pg + q);
+        const float q3 = es3 / (p.atol + p.rtol * fmaxf(fabsf(gp[q]), fabsf(gnew[q])));
+        gsq3 = fmaf(q3, q3, gsq3);
+      }
+      eest = stretched_eest(eest, sqrtf((total3 + block_sum(gsq3, red)) / n_elems));
+    }
+    if (c.update(eest, all_finite, dt_use, is_last)) {
       for (int s = gtid; s < B; s += nthr) {
         for (int r = 0; r < R; ++r) {
           const size_t off = (size_t)r * B + s;
           Y[off] = Yn[off];
-          K[off] = K[(kStages - 1) * RB + off];
+          if (fsal) K[off] = K[(S - 1) * RB + off];
         }
       }
       for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
         gp[q] = gnew[q];
-        K1p[q] = K7p[q];
+        if (fsal) K1p[q] = K7p[q];
+      }
+      if (!fsal) {
+        __syncthreads();
+        stage1();
       }
     }
     __syncthreads();

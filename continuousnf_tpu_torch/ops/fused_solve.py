@@ -28,8 +28,8 @@ Eight CUDA kernels (`csrc/`), each with a plain PyTorch twin; five for
   `adjoint_train_exact_plain`) for `adjoint_solve` with
   `_stage_train_exact_fwdbwd`: the backward integration of
   (z, acc, a_z, g_p, g_pm);
-and three for tanh chains of 2 to CHAIN_MAX_LAYERS layers, sharing the chain
-layer of `csrc/chain_common.cuh`:
+and three for chains of 2 to CHAIN_MAX_LAYERS tanh or identity layers,
+sharing the chain layer of `csrc/chain_common.cuh`:
 - the K1 chain form (`k1_chain_solve.cu`, `run_chain_train_solve_kernel`,
   twin `solve_train_plain`) for `_stage_train` over N layers;
 - the K2 chain form (`k2_chain_adjoint.cu`, `run_chain_adjoint_kernel`, twin
@@ -38,13 +38,18 @@ layer of `csrc/chain_common.cuh`:
   `run_chain_test_solve_kernel`, twin `solve_test_plain`) and
   `_stage_train_exact_chain` (exact TRAIN, `run_chain_exact_solve_kernel`,
   twin `solve_train_exact_plain`).
-Each runs one whole adaptive tsit5 solve in one cooperative launch, with one
-batch-global error norm per attempted step.  The chain kernels also take
-conditional nets (K8: the first layer reads [z | ys], ys constant over the
-solve; the K2 chain form integrates the per-sample ys cotangent).
-`make_full_solve` takes the chain kernels for chains of 3 or more layers and
-for every conditional net, the 2-layer kernels for unconditional 2-layer
-nets.
+Each runs one whole adaptive solve in one cooperative launch, with one
+batch-global error norm per attempted step, under any explicit tableau with
+an embedded error estimate (K9: `_stretched_eest` :766-770 and the non-FSAL
+refresh :914-922, :1293-1298; the tableau is a run-time argument,
+`_tableau_array`).  The chain kernels also take conditional nets (K8: the
+first layer reads [z | ys], ys constant over the solve; the K2 chain form
+integrates the per-sample ys cotangent) and identity layers (K9,
+`ChainSpec.acts` :104-111).  `make_full_solve` takes the chain kernels for
+chains of 3 or more layers, for every conditional net and for every net
+with an identity layer, the 2-layer kernels for unconditional 2-layer tanh
+nets.  The forward kernels return the last step they took beside the next
+step size (`utils/near_tie.py` reads it).
 
 A wrapper launches its kernel for CUDA tensors and runs its twin for CPU
 tensors.  On a CUDA tensor there is no fallback: a configuration the kernel
@@ -61,7 +66,7 @@ import torch
 
 from ..core.dynamics import safe_norm, safe_sqrt
 from ..ode.solve import SolveStats, _initial_step_size, _solve_adaptive_while, needs_grad
-from ..ode.tableaus import TSIT5, ButcherTableau, get_tableau
+from ..ode.tableaus import TSIT5, ButcherTableau, get_tableau  # noqa: F401 (TSIT5: re-exported)
 from ..types import ADMode, Mode
 
 K3_KERNEL = "k3_test_solve"
@@ -391,7 +396,8 @@ def _stage_train_exact_chain(spec: ChainSpec, z, ws, bs, norm_z: bool, norm_j: b
 def _solve_plain(stage, tab, *, rtol, atol, max_steps, z0, acc0, t0, t1, dt_init):
     """The eager adaptive solve of [z | acc] with `stage(z) -> (k_z, k_acc)`,
     the accumulators seeded from acc0 (its shape: (B,) or (rows, B)).
-    Returns (zT, accT, steps, accepted, dt_last)."""
+    Returns (zT, accT, steps, accepted, dt_last, dt_used): dt_last the next
+    step size, dt_used the last step taken."""
     B, dz = z0.shape
 
     def f(t, yf):
@@ -400,14 +406,15 @@ def _solve_plain(stage, tab, *, rtol, atol, max_steps, z0, acc0, t0, t1, dt_init
 
     y0f = torch.cat([z0.reshape(-1), acc0.reshape(-1)])
     yf, st = _solve_adaptive_while(f, tab, y0f, t0, t1, rtol, atol, max_steps, dt_init)
-    return yf[: B * dz].reshape(B, dz), yf[B * dz :].reshape(acc0.shape), st.steps, st.accepted, st.dt_last
+    zT, accT = yf[: B * dz].reshape(B, dz), yf[B * dz :].reshape(acc0.shape)
+    return zT, accT, st.steps, st.accepted, st.dt_last, st.dt_used
 
 
 def solve_test_plain(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None):
     """Plain PyTorch version of K3 and K7 TEST: the eager adaptive solve of
     [z | dlogp] on the closed-form TEST field (conditioned on ys (B, n_cond)
     when given), from the given initial step.  Returns
-    (zT, dlogpT, steps, accepted, dt_last)."""
+    (zT, dlogpT, steps, accepted, dt_last, dt_used)."""
 
     def stage(z):
         y, tr = _test_stage(spec, ws, bs, z, ys)
@@ -424,7 +431,7 @@ def solve_train_plain(
     solve of [z | acc] with acc (3, B) = [dlogp | reg_e | reg_n] rows,
     seeded from acc0, on `_stage_train` with probes eps (K, B, dz) and the
     conditioning ys (B, n_cond) or None.  Returns
-    (zT, accT, steps, accepted, dt_last)."""
+    (zT, accT, steps, accepted, dt_last, dt_used)."""
     return _solve_plain(
         lambda z: _stage_train(spec, z, eps, ws, bs, norm_z, norm_j, ys), tab, rtol=rtol, atol=atol,
         max_steps=max_steps, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
@@ -444,7 +451,7 @@ def solve_train_exact_plain(
     rows, seeded from acc0, on the exact TRAIN stage (`_stage_train_exact`
     for 2-layer tanh chains, `_stage_train_exact_chain` for others), with
     the conditioning ys (B, n_cond) or None.  Returns
-    (zT, accT, steps, accepted, dt_last)."""
+    (zT, accT, steps, accepted, dt_last, dt_used)."""
     if _exact_pm_stage(spec):
         pm = _exact_pm(spec, ws)
         stage = lambda z: _stage_train_exact(spec, z, ws, bs, pm, norm_z, norm_j, ys)  # noqa: E731
@@ -595,21 +602,29 @@ def adjoint_train_exact_plain(
 
 # ---- the CUDA kernels ----
 
+#: The kernels take every explicit tableau with an embedded error estimate
+#: of up to MAX_STAGES stages (csrc/solve_common.cuh: bosh3, dopri5, tsit5,
+#: verner65, dop853).
+MAX_STAGES = 13
+
 
 def _kernel_covers(
     tab: ButcherTableau, spec: ChainSpec, k_probes: int = 1, chain: bool = False
 ) -> Optional[str]:
     """Why the 2-layer kernels (K3, K1, K2, K4; `chain` False) or the chain
     kernels (the K1 and K2 chain forms, K7; `chain` True) do not run this
-    configuration (None if they do).  The 2-layer kernels take
-    unconditional 2-layer tanh chains; the chain kernels take tanh chains of
-    2 to CHAIN_MAX_LAYERS layers with hidden widths up to CHAIN_MAX_WIDTH,
+    configuration (None if they do).  Both take every embedded explicit
+    tableau (K9).  The 2-layer kernels take unconditional 2-layer tanh
+    chains; the chain kernels take Dense chains of 2 to CHAIN_MAX_LAYERS
+    tanh or identity layers (K9) with hidden widths up to CHAIN_MAX_WIDTH,
     conditional ones (K8) included; a chain whose weights and per-thread
     slots do not fit in shared memory is refused at launch (`_launch_shape`)."""
-    if tab != TSIT5:
-        return f"the {tab.name} tableau (K9, ROADMAP queue 2)"
-    if not all(spec.acts):
-        return "identity-activation layers (K9, ROADMAP queue 2)"
+    if tab.btilde is None:
+        return f"the {tab.name} tableau (no embedded error estimate: fixed-step solves stay outside the kernels)"
+    if tab.num_stages > MAX_STAGES:
+        return f"the {tab.name} tableau ({tab.num_stages} > {MAX_STAGES} stages)"
+    if not chain and not all(spec.acts):
+        return "identity-activation layers in K3, K1, K2 and K4 (the chain kernels take them)"
     if spec.n_cond and not chain:
         return "conditional nets (K8 in the 2-layer kernels, ROADMAP queue 2)"
     if k_probes != 1:
@@ -638,14 +653,33 @@ def _no_grad_inputs(kernel: str, *tensors) -> None:
         )
 
 
-def _tableau_array() -> ctypes.Array:
-    """tsit5 as the kernels read it: a (7 x 7, row-major) | b | btilde."""
-    s = TSIT5.num_stages
-    a = [[0.0] * s for _ in range(s)]
-    for i, row in enumerate(TSIT5.a):
+def _tableau_array(tab: ButcherTableau) -> ctypes.Array:
+    """`tab` as the kernels read it (csrc/solve_common.cuh::read_tableau):
+    a (MAX_STAGES x MAX_STAGES, row-major) | b | btilde | btilde3 (zeros
+    without one), each padded with zeros to MAX_STAGES, then S, fsal and
+    whether btilde3 is set."""
+    m = MAX_STAGES
+    a = [[0.0] * m for _ in range(m)]
+    for i, row in enumerate(tab.a):
         a[i][: len(row)] = row
-    flat = [x for row in a for x in row] + list(TSIT5.b) + list(TSIT5.btilde)
+
+    def pad(v):
+        return list(v or ()) + [0.0] * (m - len(v or ()))
+
+    flat = [x for row in a for x in row] + pad(tab.b) + pad(tab.btilde) + pad(tab.btilde3)
+    flat += [float(tab.num_stages), float(tab.fsal), float(tab.btilde3 is not None)]
     return (ctypes.c_float * len(flat))(*flat)
+
+
+def _gvecs(tab: ButcherTableau) -> int:
+    """The gradient vectors per block the adjoint kernels keep per parity:
+    the b- and btilde-weighted sums, and the btilde3-weighted one of dop853."""
+    return 3 if tab.btilde3 is not None else 2
+
+
+def _acts_mask(spec: ChainSpec) -> int:
+    """The chain kernels' activation mask: bit i set where layer i is tanh."""
+    return sum(1 << i for i, on in enumerate(spec.acts) if on)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -656,41 +690,41 @@ _TAIL = [_F] * 5 + [_P, _I, _I, _P]
 _SIGNATURES = {
     K3_KERNEL: {
         "cnf_k3_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
-        "cnf_k3_test_solve": ([_P] * 13 + [_I] * 4 + [_F] * 5 + [_P, _I, _I, _P], _I),
+        "cnf_k3_test_solve": ([_P] * 13 + [_I] * 4 + _TAIL, _I),
     },
     K1_KERNEL: {
         "cnf_k1_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
-        "cnf_k1_train_solve": ([_P] * 14 + [_I] * 6 + [_F] * 5 + [_P, _I, _I, _P], _I),
+        "cnf_k1_train_solve": ([_P] * 14 + [_I] * 6 + _TAIL, _I),
     },
     K2_KERNEL: {
         "cnf_k2_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
-        "cnf_k2_train_adjoint": ([_P] * 21 + [_I] * 6 + [_F] * 5 + [_P, _I, _I, _P], _I),
+        "cnf_k2_train_adjoint": ([_P] * 21 + [_I] * 6 + _TAIL, _I),
     },
     K4_KERNEL: {
         "cnf_k4_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
-        "cnf_k4_exact_solve": ([_P] * 13 + [_I] * 6 + [_F] * 5 + [_P, _I, _I, _P], _I),
+        "cnf_k4_exact_solve": ([_P] * 13 + [_I] * 6 + _TAIL, _I),
     },
     K4A_KERNEL: {
         "cnf_k4a_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
         "cnf_k4a_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
-        "cnf_k4_exact_adjoint": ([_P] * 23 + [_I] * 6 + [_F] * 5 + [_P, _I, _I, _P], _I),
+        "cnf_k4_exact_adjoint": ([_P] * 23 + [_I] * 6 + _TAIL, _I),
     },
     K1C_KERNEL: {
         "cnf_k1c_max_grid": _CHAIN_GRID,
         "cnf_k1c_smem_bytes": _CHAIN_SMEM,
-        "cnf_k1c_train_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I] + _TAIL, _I),
+        "cnf_k1c_train_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I] + _TAIL, _I),
     },
     K7_KERNEL: {
         "cnf_k7_test_max_grid": _CHAIN_GRID,
         "cnf_k7_exact_max_grid": _CHAIN_GRID,
         "cnf_k7_smem_bytes": _CHAIN_SMEM,
-        "cnf_k7_test_solve": ([_P] * 11 + [_I, _I, _IP, _I] + _TAIL, _I),
-        "cnf_k7_exact_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I] + _TAIL, _I),
+        "cnf_k7_test_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I] + _TAIL, _I),
+        "cnf_k7_exact_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I, _I] + _TAIL, _I),
     },
     K2C_KERNEL: {
         "cnf_k2c_max_grid": _CHAIN_GRID,
         "cnf_k2c_smem_bytes": _CHAIN_SMEM,
-        "cnf_k2c_train_adjoint": ([_P] * 18 + [_I, _I, _IP, _I, _I, _I] + _TAIL, _I),
+        "cnf_k2c_train_adjoint": ([_P] * 18 + [_I, _I, _IP, _I, _I, _I, _I] + _TAIL, _I),
     },
 }
 
@@ -761,11 +795,67 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
         raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
 
+def _check_launch(err: int, label: str, grid: int, block: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{label} launch failed with cudaError {err} (grid {grid}, block {block})")
+
+
+def _forward_buffers(z0, acc0, tab, grid: int):
+    """(zT, accT, stats, dt_last, work, partials) of a forward kernel:
+    dt_last holds the next step size and the last step taken, work the
+    (row, B) planes of the state, the proposal and the S stages."""
+    B, dz = z0.shape
+    nacc = 1 if acc0.dim() == 1 else acc0.shape[0]
+    f32 = dict(dtype=torch.float32, device=z0.device)
+    return (
+        torch.empty_like(z0), torch.empty_like(acc0), torch.empty(2, dtype=torch.int32, device=z0.device),
+        torch.empty(2, **f32), torch.empty((tab.num_stages + 2) * (dz + nacc) * B, **f32),
+        torch.empty(6 * grid, **f32),
+    )
+
+
+def _forward_result(zT, accT, stats, dt_last):
+    return zT, accT, stats[0], stats[1], dt_last[0], dt_last[1]
+
+
+def _launch_two_layer_forward(label, lib_name, entry, max_grid, tab, spec, *, rtol, atol, max_steps, ws, bs, z0,
+                              acc0, t0, t1, dt_init, eps=None, norms=None):
+    """Launch a 2-layer forward kernel (K3: no probe, no norms; K1: the probe
+    and the norms; the K4 forward: the norms), whose C arguments are (w1, b1,
+    w2, b2, [eps], z0, acc0, ts, zT, accT, stats, dt_last, work, partials,
+    B, dz, H, max_steps, [norm_z, norm_j], rtol, atol, the controller, the
+    tableau, grid, block, stream).  Returns (zT, accT, steps, accepted,
+    dt_last, dt_used)."""
+    B, dz = z0.shape
+    H = spec.out_dims[0]
+    device = z0.device
+    probe = [] if eps is None else [eps[0]]
+    w1, b1, w2, b2, z0, acc0, *probe = _check_inputs(
+        label, device, [ws[0], bs[0], ws[1], bs[1], z0, acc0] + probe,
+        [(dz, H), (H,), (H, dz), (dz,), (B, dz), tuple(acc0.shape), (B, dz)],
+    )
+    lib = _library(lib_name)
+    block, grid = _launch_shape(
+        lambda blk, cap: getattr(lib, max_grid)(dz, H, blk, cap), label, B, _forward_blocks(B, device)
+    )
+    ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
+    zT, accT, stats, dt_last, work, partials = _forward_buffers(z0, acc0, tab, grid)
+    err = getattr(lib, entry)(
+        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), *[_ptr(x) for x in probe], _ptr(z0), _ptr(acc0), _ptr(ts),
+        _ptr(zT), _ptr(accT), _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials),
+        B, dz, H, int(max_steps), *[int(x) for x in norms or ()], rtol, atol, *_controller_floats(tab),
+        _tableau_array(tab), grid, block, _stream(device),
+    )
+    _check_launch(err, label, grid, block)
+    return _forward_result(zT, accT, stats, dt_last)
+
+
 def run_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None):
     """K3: the TEST solve of [z | dlogp] from t0 to t1 (0-d tensors; t1 < t0
     runs backward) starting with step `dt_init`.  z0 is (B, dz) batch-major
     and dlogp0 (B,) seeds the accumulator.  Returns
-    (zT, dlogpT, steps, accepted, dt_last), all on z0's device.
+    (zT, dlogpT, steps, accepted, dt_last, dt_used), all on z0's device:
+    dt_last the next step size, dt_used the last step taken.
 
     CUDA tensors go through the K3 kernel (unconditional 2-layer tanh
     chains), CPU tensors through its plain version (any Dense chain, ys
@@ -777,34 +867,12 @@ def run_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0
             z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K3", z0, tab, spec)
-    B, dz = z0.shape
-    H = spec.out_dims[0]
-    device = z0.device
-    w1, b1, w2, b2, z0, dlogp0 = _check_inputs(
-        "K3", device, [ws[0], bs[0], ws[1], bs[1], z0, dlogp0],
-        [(dz, H), (H,), (H, dz), (dz,), (B, dz), (B,)],
+    out = _launch_two_layer_forward(
+        "K3", K3_KERNEL, "cnf_k3_test_solve", "cnf_k3_max_grid", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
     )
-    lib = _library(K3_KERNEL)
-    block, grid = _launch_shape(
-        lambda blk, cap: lib.cnf_k3_max_grid(dz, H, blk, cap), "K3", B, _forward_blocks(B, device)
-    )
-    ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
-    zT = torch.empty_like(z0)
-    dlogpT = torch.empty_like(dlogp0)
-    stats = torch.empty(2, dtype=torch.int32, device=device)
-    dt_last = torch.empty(1, dtype=torch.float32, device=device)
-    work = torch.empty((TSIT5.num_stages + 2) * (dz + 1) * B, dtype=torch.float32, device=device)
-    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
-    err = lib.cnf_k3_test_solve(
-        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(z0), _ptr(dlogp0), _ptr(ts),
-        _ptr(zT), _ptr(dlogpT), _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials),
-        B, dz, H, int(max_steps), rtol, atol, *_controller_floats(tab),
-        _tableau_array(), grid, block, _stream(device),
-    )
-    if err != 0:
-        raise RuntimeError(f"K3 launch failed with cudaError {err} (grid {grid}, block {block})")
     run_solve_kernel.launches += 1
-    return zT, dlogpT, stats[0], stats[1], dt_last[0]
+    return out
 
 
 run_solve_kernel.launches = 0
@@ -816,7 +884,7 @@ def run_train_solve_kernel(
     """K1: the TRAIN solve of [z | acc] from t0 to t1 starting with step
     `dt_init`.  z0 is (B, dz), eps (K, B, dz) and acc0 (3, B) = [dlogp |
     reg_e | reg_n] seeds the accumulators.  Returns
-    (zT, accT, steps, accepted, dt_last), all on z0's device.
+    (zT, accT, steps, accepted, dt_last, dt_used), all on z0's device.
 
     CUDA tensors go through the K1 kernel (unconditional 2-layer tanh
     chains, one probe), CPU tensors through its plain version (any Dense
@@ -828,37 +896,48 @@ def run_train_solve_kernel(
             ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K1", z0, tab, spec, eps.shape[0])
-    B, dz = z0.shape
-    H = spec.out_dims[0]
-    device = z0.device
-    w1, b1, w2, b2, z0, e0, acc0 = _check_inputs(
-        "K1", device, [ws[0], bs[0], ws[1], bs[1], z0, eps[0], acc0],
-        [(dz, H), (H,), (H, dz), (dz,), (B, dz), (B, dz), (3, B)],
+    out = _launch_two_layer_forward(
+        "K1", K1_KERNEL, "cnf_k1_train_solve", "cnf_k1_max_grid", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
+        norms=(norm_z, norm_j),
     )
-    lib = _library(K1_KERNEL)
-    block, grid = _launch_shape(
-        lambda blk, cap: lib.cnf_k1_max_grid(dz, H, blk, cap), "K1", B, _forward_blocks(B, device)
-    )
-    ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
-    zT = torch.empty_like(z0)
-    accT = torch.empty_like(acc0)
-    stats = torch.empty(2, dtype=torch.int32, device=device)
-    dt_last = torch.empty(1, dtype=torch.float32, device=device)
-    work = torch.empty((TSIT5.num_stages + 2) * (dz + 3) * B, dtype=torch.float32, device=device)
-    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
-    err = lib.cnf_k1_train_solve(
-        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(e0), _ptr(z0), _ptr(acc0), _ptr(ts),
-        _ptr(zT), _ptr(accT), _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials),
-        B, dz, H, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
-        _tableau_array(), grid, block, _stream(device),
-    )
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed with cudaError {err} (grid {grid}, block {block})")
     run_train_solve_kernel.launches += 1
-    return zT, accT, stats[0], stats[1], dt_last[0]
+    return out
 
 
 run_train_solve_kernel.launches = 0
+
+
+def _launch_k2(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+               t_hi, t_lo, dt_init):
+    B, dz = zT.shape
+    H = spec.out_dims[0]
+    device = zT.device
+    w1, b1, w2, b2, e0, zT, accT, azT, aaccT = _check_inputs(
+        "K2", device, [ws[0], bs[0], ws[1], bs[1], eps[0], zT, accT, azT, aaccT],
+        [(dz, H), (H,), (H, dz), (dz,), (B, dz), (B, dz), (3, B), (B, dz), (3, B)],
+    )
+    lib = _library(K2_KERNEL)
+    block, grid = _launch_shape(
+        lambda blk, cap: lib.cnf_k2_max_grid(dz, H, blk, cap), "K2", B, (128, 64, 32)
+    )
+    P = 2 * dz * H + H + dz
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
+    z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
+    gw1, gb1, gw2, gb2 = (torch.empty_like(x) for x in (w1, b1, w2, b2))
+    stats = torch.empty(2, dtype=torch.int32, device=device)
+    work = torch.empty((tab.num_stages + 2) * (2 * dz + 3) * B, dtype=torch.float32, device=device)
+    partials = torch.empty(6 * grid, dtype=torch.float32, device=device)
+    gpart = torch.empty(2 * grid * _gvecs(tab) * P, dtype=torch.float32, device=device)
+    err = lib.cnf_k2_train_adjoint(
+        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT),
+        _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0), _ptr(gw1), _ptr(gb1), _ptr(gw2),
+        _ptr(gb2), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gpart),
+        B, dz, H, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
+        _tableau_array(tab), grid, block, _stream(device),
+    )
+    _check_launch(err, "K2", grid, block)
+    return z0, acc0, az0, [gw1, gw2], [gb1, gb2], stats[0], stats[1]
 
 
 def run_adjoint_kernel(
@@ -883,36 +962,10 @@ def run_adjoint_kernel(
     _cuda_only("K2", zT, tab, spec, eps.shape[0])
     if dt_init is None:
         raise ValueError("K2 needs dt_init (the caller picks it)")
-    B, dz = zT.shape
-    H = spec.out_dims[0]
-    device = zT.device
-    w1, b1, w2, b2, e0, zT, accT, azT, aaccT = _check_inputs(
-        "K2", device, [ws[0], bs[0], ws[1], bs[1], eps[0], zT, accT, azT, aaccT],
-        [(dz, H), (H,), (H, dz), (dz,), (B, dz), (B, dz), (3, B), (B, dz), (3, B)],
-    )
-    lib = _library(K2_KERNEL)
-    block, grid = _launch_shape(
-        lambda blk, cap: lib.cnf_k2_max_grid(dz, H, blk, cap), "K2", B, (128, 64, 32)
-    )
-    P = 2 * dz * H + H + dz
-    ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
-    z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
-    gw1, gb1, gw2, gb2 = (torch.empty_like(x) for x in (w1, b1, w2, b2))
-    stats = torch.empty(2, dtype=torch.int32, device=device)
-    work = torch.empty((TSIT5.num_stages + 2) * (2 * dz + 3) * B, dtype=torch.float32, device=device)
-    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
-    gpart = torch.empty(2 * grid * 2 * P, dtype=torch.float32, device=device)
-    err = lib.cnf_k2_train_adjoint(
-        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT),
-        _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0), _ptr(gw1), _ptr(gb1), _ptr(gw2),
-        _ptr(gb2), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gpart),
-        B, dz, H, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
-        _tableau_array(), grid, block, _stream(device),
-    )
-    if err != 0:
-        raise RuntimeError(f"K2 launch failed with cudaError {err} (grid {grid}, block {block})")
+    out = _launch_k2(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws,
+                     bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init)
     run_adjoint_kernel.launches += 1
-    return z0, acc0, az0, [gw1, gw2], [gb1, gb2], stats[0], stats[1]
+    return out
 
 
 run_adjoint_kernel.launches = 0
@@ -924,7 +977,7 @@ def run_exact_solve_kernel(
     """K4 forward: the exact-trace TRAIN solve of [z | acc] from t0 to t1
     starting with step `dt_init`.  z0 is (B, dz) and acc0 (3, B) = [dlogp |
     reg_e | reg_n] seeds the accumulators.  Returns
-    (zT, accT, steps, accepted, dt_last), all on z0's device.
+    (zT, accT, steps, accepted, dt_last, dt_used), all on z0's device.
 
     CUDA tensors go through the K4 forward kernel (unconditional 2-layer
     tanh chains), CPU tensors through its plain version (any Dense chain, ys
@@ -936,65 +989,20 @@ def run_exact_solve_kernel(
             ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K4", z0, tab, spec)
-    B, dz = z0.shape
-    H = spec.out_dims[0]
-    device = z0.device
-    w1, b1, w2, b2, z0, acc0 = _check_inputs(
-        "K4", device, [ws[0], bs[0], ws[1], bs[1], z0, acc0],
-        [(dz, H), (H,), (H, dz), (dz,), (B, dz), (3, B)],
+    out = _launch_two_layer_forward(
+        "K4 forward", K4_KERNEL, "cnf_k4_exact_solve", "cnf_k4_max_grid", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+        norms=(norm_z, norm_j),
     )
-    lib = _library(K4_KERNEL)
-    block, grid = _launch_shape(
-        lambda blk, cap: lib.cnf_k4_max_grid(dz, H, blk, cap), "K4", B, _forward_blocks(B, device)
-    )
-    ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
-    zT = torch.empty_like(z0)
-    accT = torch.empty_like(acc0)
-    stats = torch.empty(2, dtype=torch.int32, device=device)
-    dt_last = torch.empty(1, dtype=torch.float32, device=device)
-    work = torch.empty((TSIT5.num_stages + 2) * (dz + 3) * B, dtype=torch.float32, device=device)
-    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
-    err = lib.cnf_k4_exact_solve(
-        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(z0), _ptr(acc0), _ptr(ts),
-        _ptr(zT), _ptr(accT), _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials),
-        B, dz, H, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
-        _tableau_array(), grid, block, _stream(device),
-    )
-    if err != 0:
-        raise RuntimeError(f"K4 forward launch failed with cudaError {err} (grid {grid}, block {block})")
     run_exact_solve_kernel.launches += 1
-    return zT, accT, stats[0], stats[1], dt_last[0]
+    return out
 
 
 run_exact_solve_kernel.launches = 0
 
 
-def run_exact_adjoint_kernel(
-    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
-    t_hi, t_lo, dt_init, ys=None,
-):
-    """K4 adjoint: the backsolve of (z, acc, a_z, a_acc, g_p, g_pm) from t_hi
-    to t_lo starting with step `dt_init`, on the exact TRAIN stage of a
-    2-layer tanh chain.  zT, azT are (B, dz), accT, aaccT (3, B).  Returns
-    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted), g_* summed over the batch
-    with g_pm chained into g_w1 and g_w2.
-
-    CUDA tensors go through the K4 adjoint kernel (unconditional nets: the
-    conditional rows of the 2-layer kernels are not ported), CPU tensors
-    through its plain version (with ys (B, n_cond), a_ys0 is returned
-    last).  Deeper chains have no exact adjoint, as in the JAX package: K7
-    is forward-only."""
-    if not _exact_pm_stage(spec):
-        raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
-    _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT, ys)
-    if zT.device.type == "cpu":
-        return adjoint_train_exact_plain(
-            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
-            ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
-        )
-    _cuda_only("K4", zT, tab, spec)
-    if dt_init is None:
-        raise ValueError("the K4 adjoint needs dt_init (the caller picks it)")
+def _launch_k4_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
+                       t_hi, t_lo, dt_init):
     B, dz = zT.shape
     H = spec.out_dims[0]
     device = zT.device
@@ -1012,9 +1020,9 @@ def run_exact_adjoint_kernel(
     gw1, gb1, gw2, gb2 = (torch.empty_like(x) for x in (w1, b1, w2, b2))
     gpm = torch.empty((dz * dz, H), dtype=torch.float32, device=device)
     stats = torch.empty(2, dtype=torch.int32, device=device)
-    work = torch.empty((TSIT5.num_stages + 2) * (2 * dz + 3) * B, dtype=torch.float32, device=device)
-    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
-    gpart = torch.empty(2 * grid * 2 * P_total, dtype=torch.float32, device=device)
+    work = torch.empty((tab.num_stages + 2) * (2 * dz + 3) * B, dtype=torch.float32, device=device)
+    partials = torch.empty(6 * grid, dtype=torch.float32, device=device)
+    gpart = torch.empty(2 * grid * _gvecs(tab) * P_total, dtype=torch.float32, device=device)
     gblk = torch.empty(grid * 4 * P_total, dtype=torch.float32, device=device)
     mbuf = torch.empty(dz * dz * B, dtype=torch.float32, device=device)
     err = lib.cnf_k4_exact_adjoint(
@@ -1022,13 +1030,44 @@ def run_exact_adjoint_kernel(
         _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0), _ptr(gw1), _ptr(gb1), _ptr(gw2), _ptr(gb2),
         _ptr(gpm), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gpart), _ptr(gblk), _ptr(mbuf),
         B, dz, H, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
-        _tableau_array(), grid, block, _stream(device),
+        _tableau_array(tab), grid, block, _stream(device),
     )
-    if err != 0:
-        raise RuntimeError(f"K4 adjoint launch failed with cudaError {err} (grid {grid}, block {block})")
-    run_exact_adjoint_kernel.launches += 1
+    _check_launch(err, "K4 adjoint", grid, block)
     g_w1, g_w2 = exact_pm_chain(gpm, w1, w2)
     return z0, acc0, az0, [gw1 + g_w1, gw2 + g_w2], [gb1, gb2], stats[0], stats[1]
+
+
+def run_exact_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init, ys=None,
+):
+    """K4 adjoint: the backsolve of (z, acc, a_z, a_acc, g_p, g_pm) from t_hi
+    to t_lo starting with step `dt_init`, on the exact TRAIN stage of a
+    2-layer tanh chain.  zT, azT are (B, dz), accT, aaccT (3, B).  Returns
+    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted), g_* summed over the batch
+    with g_pm chained into g_w1 and g_w2.
+
+    CUDA tensors go through the K4 adjoint kernel (unconditional nets: the
+    conditional rows of the 2-layer kernels are not ported), CPU tensors
+    through its plain version (with ys (B, n_cond), a_ys0 is returned
+    last).  Other chains have no exact adjoint, as in the JAX package: K7
+    is forward-only."""
+    if not _exact_pm_stage(spec):
+        raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
+    _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("K4", zT, tab, spec)
+    if dt_init is None:
+        raise ValueError("the K4 adjoint needs dt_init (the caller picks it)")
+    out = _launch_k4_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+                             ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo,
+                             dt_init=dt_init)
+    run_exact_adjoint_kernel.launches += 1
+    return out
 
 
 run_exact_adjoint_kernel.launches = 0
@@ -1073,45 +1112,40 @@ def _ptr_or_null(x: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(None) if x is None else _ptr(x)
 
 
-def _run_chain_forward(label, lib_name, entry, max_grid, tab, spec, *, rtol, atol, max_steps, ws, bs, z0, acc0,
-                       t0, t1, dt_init, ys=None, eps=None, norms=()):
+def _launch_chain_forward(label, lib_name, entry, max_grid, tab, spec, *, rtol, atol, max_steps, ws, bs, z0,
+                          acc0, t0, t1, dt_init, ys=None, eps=None, norms=()):
     """Launch a chain forward kernel, whose C arguments are (params, [eps],
     ys, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths,
-    max_steps, *norms, rtol, atol, the controller, the tableau, grid, block,
-    stream).  Returns (zT, accT, steps, accepted, dt_last)."""
+    acts, max_steps, *norms, rtol, atol, the controller, the tableau, grid,
+    block, stream).  Returns (zT, accT, steps, accepted, dt_last, dt_used)."""
     B, dz = z0.shape
     device = z0.device
     params, widths = _chain_params(label, spec, ws, bs, device)
     ys = _cond_rows(label, spec, ys, B, device)
     probe = [] if eps is None else [eps[0]]
     z0, acc0, *probe = _check_inputs(label, device, [z0, acc0] + probe, [(B, dz), tuple(acc0.shape), (B, dz)])
-    nacc = 1 if acc0.dim() == 1 else acc0.shape[0]
     lib = _library(lib_name)
     block, grid = _launch_shape(
         lambda blk, cap: getattr(lib, max_grid)(spec.n_layers, widths, blk, cap), label, B, _CHAIN_BLOCKS
     )
     ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
-    zT, accT = torch.empty_like(z0), torch.empty_like(acc0)
-    stats = torch.empty(2, dtype=torch.int32, device=device)
-    dt_last = torch.empty(1, dtype=torch.float32, device=device)
-    work = torch.empty((TSIT5.num_stages + 2) * (dz + nacc) * B, dtype=torch.float32, device=device)
-    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
+    zT, accT, stats, dt_last, work, partials = _forward_buffers(z0, acc0, tab, grid)
     err = getattr(lib, entry)(
         _ptr(params), *[_ptr(x) for x in probe], _ptr_or_null(ys), _ptr(z0), _ptr(acc0), _ptr(ts), _ptr(zT),
         _ptr(accT), _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials), B, spec.n_layers, widths,
-        int(max_steps), *[int(x) for x in norms], rtol, atol, *_controller_floats(tab), _tableau_array(), grid,
-        block, _stream(device),
+        _acts_mask(spec), int(max_steps), *[int(x) for x in norms], rtol, atol, *_controller_floats(tab),
+        _tableau_array(tab), grid, block, _stream(device),
     )
-    if err != 0:
-        raise RuntimeError(f"{label} launch failed with cudaError {err} (grid {grid}, block {block})")
-    return zT, accT, stats[0], stats[1], dt_last[0]
+    _check_launch(err, label, grid, block)
+    return _forward_result(zT, accT, stats, dt_last)
 
 
 def run_chain_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None):
-    """K7 TEST: the TEST solve of [z | dlogp] of a tanh chain of 2 to
-    CHAIN_MAX_LAYERS layers, the exact trace by basis propagation; arguments
-    and returns as `run_solve_kernel`, with the conditioning ys (B, n_cond)
-    of a conditional chain (K8: the first layer reads [z | ys]).
+    """K7 TEST: the TEST solve of [z | dlogp] of a chain of 2 to
+    CHAIN_MAX_LAYERS tanh or identity layers, the exact trace by basis
+    propagation; arguments and returns as `run_solve_kernel`, with the
+    conditioning ys (B, n_cond) of a conditional chain (K8: the first layer
+    reads [z | ys]).
 
     CUDA tensors go through the K7 kernel's TEST entry point, CPU tensors
     through its plain version."""
@@ -1122,7 +1156,7 @@ def run_chain_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0,
             z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K7", z0, tab, spec, chain=True)
-    out = _run_chain_forward(
+    out = _launch_chain_forward(
         "K7 TEST", K7_KERNEL, "cnf_k7_test_solve", "cnf_k7_test_max_grid", tab, spec, rtol=rtol, atol=atol,
         max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
     )
@@ -1136,10 +1170,10 @@ run_chain_test_solve_kernel.launches = 0
 def run_chain_exact_solve_kernel(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init, ys=None
 ):
-    """K7 exact: the exact-trace TRAIN solve of [z | acc] of a tanh chain of
-    2 to CHAIN_MAX_LAYERS layers (trace and ||J||_F by basis propagation);
-    arguments and returns as `run_exact_solve_kernel`, with the conditioning
-    ys (B, n_cond) of a conditional chain.
+    """K7 exact: the exact-trace TRAIN solve of [z | acc] of a chain of 2 to
+    CHAIN_MAX_LAYERS tanh or identity layers (trace and ||J||_F by basis
+    propagation); arguments and returns as `run_exact_solve_kernel`, with
+    the conditioning ys (B, n_cond) of a conditional chain.
 
     CUDA tensors go through the K7 kernel's exact entry point, CPU tensors
     through its plain version."""
@@ -1150,7 +1184,7 @@ def run_chain_exact_solve_kernel(
             ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K7", z0, tab, spec, chain=True)
-    out = _run_chain_forward(
+    out = _launch_chain_forward(
         "K7 exact", K7_KERNEL, "cnf_k7_exact_solve", "cnf_k7_exact_max_grid", tab, spec, rtol=rtol, atol=atol,
         max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         norms=(norm_z, norm_j),
@@ -1165,10 +1199,10 @@ run_chain_exact_solve_kernel.launches = 0
 def run_chain_train_solve_kernel(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None
 ):
-    """The K1 chain form: the TRAIN solve of [z | acc] of a tanh chain of 2
-    to CHAIN_MAX_LAYERS layers with one VJP probe; arguments and returns as
-    `run_train_solve_kernel`, with the conditioning ys (B, n_cond) of a
-    conditional chain.
+    """The K1 chain form: the TRAIN solve of [z | acc] of a chain of 2 to
+    CHAIN_MAX_LAYERS tanh or identity layers with one VJP probe; arguments
+    and returns as `run_train_solve_kernel`, with the conditioning ys
+    (B, n_cond) of a conditional chain.
 
     CUDA tensors go through the kernel, CPU tensors through its plain
     version."""
@@ -1179,7 +1213,7 @@ def run_chain_train_solve_kernel(
             ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
     _cuda_only("K1", z0, tab, spec, eps.shape[0], chain=True)
-    out = _run_chain_forward(
+    out = _launch_chain_forward(
         "K1 chain form", K1C_KERNEL, "cnf_k1c_train_solve", "cnf_k1c_max_grid", tab, spec, rtol=rtol,
         atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         eps=eps, norms=(norm_z, norm_j),
@@ -1191,28 +1225,8 @@ def run_chain_train_solve_kernel(
 run_chain_train_solve_kernel.launches = 0
 
 
-def run_chain_adjoint_kernel(
-    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-    t_hi, t_lo, dt_init, ys=None,
-):
-    """The K2 chain form: the backsolve of (z, acc, a_z, a_acc, [a_ys,] g_p)
-    of a tanh chain of 2 to CHAIN_MAX_LAYERS layers with one VJP probe;
-    arguments and returns as `run_adjoint_kernel`.  A conditional chain
-    takes ys (B, n_cond) and integrates the per-sample a_ys from 0 at t_hi
-    in the same error norm; a_ys0 (B, n_cond) is returned last.
-
-    CUDA tensors go through the kernel, CPU tensors through its plain
-    version."""
-    _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
-    if zT.device.type == "cpu":
-        return adjoint_train_plain(
-            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
-            ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
-            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
-        )
-    _cuda_only("K2", zT, tab, spec, eps.shape[0], chain=True)
-    if dt_init is None:
-        raise ValueError("the K2 chain form needs dt_init (the caller picks it)")
+def _launch_chain_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+                          t_hi, t_lo, dt_init, ys=None):
     label = "K2 chain form"
     B, dz = zT.shape
     nc = spec.n_cond
@@ -1232,21 +1246,48 @@ def run_chain_adjoint_kernel(
     ays0 = torch.empty((B, nc), dtype=torch.float32, device=device) if nc else None
     g = torch.empty(P, dtype=torch.float32, device=device)
     stats = torch.empty(2, dtype=torch.int32, device=device)
-    work = torch.empty((TSIT5.num_stages + 2) * (2 * dz + 3 + nc) * B, dtype=torch.float32, device=device)
-    partials = torch.empty(4 * grid, dtype=torch.float32, device=device)
-    gpart = torch.empty(2 * grid * 2 * P, dtype=torch.float32, device=device)
+    work = torch.empty((tab.num_stages + 2) * (2 * dz + 3 + nc) * B, dtype=torch.float32, device=device)
+    partials = torch.empty(6 * grid, dtype=torch.float32, device=device)
+    gpart = torch.empty(2 * grid * _gvecs(tab) * P, dtype=torch.float32, device=device)
     gblk = torch.empty(grid * 4 * P, dtype=torch.float32, device=device)
     err = lib.cnf_k2c_train_adjoint(
         _ptr(params), _ptr(e0), _ptr_or_null(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts),
         _ptr(z0), _ptr(acc0), _ptr(az0), _ptr_or_null(ays0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials),
-        _ptr(gpart), _ptr(gblk), B, spec.n_layers, widths, int(max_steps), int(norm_z), int(norm_j), rtol, atol,
-        *_controller_floats(tab), _tableau_array(), grid, block, _stream(device),
+        _ptr(gpart), _ptr(gblk), B, spec.n_layers, widths, _acts_mask(spec), int(max_steps), int(norm_z),
+        int(norm_j), rtol, atol, *_controller_floats(tab), _tableau_array(tab), grid, block, _stream(device),
     )
-    if err != 0:
-        raise RuntimeError(f"{label} launch failed with cudaError {err} (grid {grid}, block {block})")
-    run_chain_adjoint_kernel.launches += 1
+    _check_launch(err, label, grid, block)
     g_ws, g_bs = _split_params(g, spec)
     return (z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]) + (() if ays0 is None else (ays0,))
+
+
+def run_chain_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init, ys=None,
+):
+    """The K2 chain form: the backsolve of (z, acc, a_z, a_acc, [a_ys,] g_p)
+    of a chain of 2 to CHAIN_MAX_LAYERS tanh or identity layers with one VJP
+    probe; arguments and returns as `run_adjoint_kernel`.  A conditional
+    chain takes ys (B, n_cond) and integrates the per-sample a_ys from 0 at
+    t_hi in the same error norm; a_ys0 (B, n_cond) is returned last.
+
+    CUDA tensors go through the kernel, CPU tensors through its plain
+    version."""
+    _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("K2", zT, tab, spec, eps.shape[0], chain=True)
+    if dt_init is None:
+        raise ValueError("the K2 chain form needs dt_init (the caller picks it)")
+    out = _launch_chain_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol,
+                                max_steps=max_steps, ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT,
+                                aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
+    run_chain_adjoint_kernel.launches += 1
+    return out
 
 
 run_chain_adjoint_kernel.launches = 0
@@ -1291,22 +1332,28 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     Eligibility follows the JAX package: opted in via `compute_mode.fused`;
     a Dense chain with tanh-or-identity activations, conditional or not; no
     passive augmentation; an adaptive explicit method with an embedded error
-    estimate; float32.  Within those, what this port has not reached raises
-    NotImplementedError: JVP probes (K6) and bf16 stages.  The flat layout
+    estimate (every such tableau runs in the kernels); float32.  Within
+    those, what this port has not reached raises NotImplementedError: JVP
+    probes (K6) and bf16 stages.  The flat layout
     is [z.ravel() (batch-major) | dlogp] in TEST mode and
     [z.ravel() | dlogp | reg_e | reg_n] in TRAIN mode; the conditioning
     `args["ys"]` ((B, n_cond), (1, n_cond) or (n_cond,)) is broadcast to
     (B, n_cond) for the kernels, and its cotangent summed back.  The
-    wrappers are chosen here: unconditional 2-layer nets run the 2-layer
-    kernels, deeper chains and every conditional chain (K8) the chain
-    kernels.  Hutchinson TRAIN solves run K1 (or its chain form) with the
+    wrappers are chosen here: unconditional 2-layer tanh nets run the
+    2-layer kernels; deeper chains, every conditional chain (K8) and every
+    chain with an identity layer run the chain kernels (the JAX package's
+    2-layer TEST and exact stages assume tanh layers; the chain kernels do
+    not).  Hutchinson TRAIN solves run K1 (or its chain form) with the
     backward member K2 (or its chain form); exact-trace TRAIN solves run the
     K4 forward (K7 for chain-kernel nets), with the K4 adjoint as the
     backward member for 2-layer tanh chains (conditional ones raise on the
-    card: K8 in the 2-layer kernels is not ported) and none for deeper
-    chains (the JAX package's deep exact chains are forward-only too: their
+    card: K8 in the 2-layer kernels is not ported) and none for other chains
+    (the JAX package's deep exact chains are forward-only too: their
     gradient runs the plain BACKSOLVE).  TEST solves run K3 (K7 for
-    chain-kernel nets) and have no backward member yet (K5).
+    chain-kernel nets) and have no backward member: K5, the JAX package's
+    for 2-layer nets, is not ported (`core/icnf.py` refuses those gradients
+    on the card); deeper chains have none in the JAX package either, so
+    their gradient runs the plain BACKSOLVE behind K7.
     """
     cm = icnf.compute_mode
     opts = icnf.solver
@@ -1368,7 +1415,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     nfe_per = (tab.num_stages - 1) + (0 if tab.fsal else 1)
 
     exact_pm = exact and _exact_pm_stage(spec)
-    chain = spec.n_layers > 2 or spec.n_cond > 0
+    chain = spec.n_layers > 2 or spec.n_cond > 0 or not all(spec.acts)
     run_test = run_chain_test_solve_kernel if chain else run_solve_kernel
     run_train = run_chain_train_solve_kernel if chain else run_train_solve_kernel
     run_exact = run_chain_exact_solve_kernel if chain else run_exact_solve_kernel
@@ -1388,22 +1435,22 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
             nfe_init = 1
         z0 = y0f[: B * dz].reshape(B, dz)
         if exact:
-            zT, accT, steps, accepted, dt_last = run_exact(
+            zT, accT, steps, accepted, dt_last, dt_used = run_exact(
                 tab, spec, norm_z=norm_z, norm_j=norm_j, **kernel_kw(args), z0=z0,
                 acc0=y0f[B * dz :].reshape(3, B), t0=t0, t1=t1, dt_init=dt_init,
             )
         elif train:
-            zT, accT, steps, accepted, dt_last = run_train(
+            zT, accT, steps, accepted, dt_last, dt_used = run_train(
                 tab, spec, norm_z=norm_z, norm_j=norm_j, **kernel_kw(args), z0=z0,
                 eps=args["eps"], acc0=y0f[B * dz :].reshape(3, B), t0=t0, t1=t1, dt_init=dt_init,
             )
         else:
-            zT, accT, steps, accepted, dt_last = run_test(
+            zT, accT, steps, accepted, dt_last, dt_used = run_test(
                 tab, spec, **kernel_kw(args), z0=z0, dlogp0=y0f[B * dz :],
                 t0=t0, t1=t1, dt_init=dt_init,
             )
         stats = SolveStats(
-            steps=steps, accepted=accepted, nfe=steps * nfe_per + nfe_init, dt_last=dt_last
+            steps=steps, accepted=accepted, nfe=steps * nfe_per + nfe_init, dt_last=dt_last, dt_used=dt_used
         )
         return torch.cat([zT.reshape(-1), accT.reshape(-1)]), stats
 

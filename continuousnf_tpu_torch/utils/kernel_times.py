@@ -1,0 +1,108 @@
+"""CUDA-event times of every solve kernel at the chip smoke's shapes.
+
+    python continuousnf_tpu_torch/utils/kernel_times.py [--tableau tsit5] [--reps 10]
+
+builds the kernels of the `continuousnf_tpu_torch` package on the import
+path and times, on one CUDA card, each kernel alone on fixed inputs: K3,
+K1, K2 and the K4 forward and adjoint on the flagship (MLP 16 -> 48 -> 16,
+B = 4096, tspan (0, 13)), the K1 and K2 chain forms and K7 TEST and exact
+on power6 (MLP 6 -> 64 -> 64 -> 6, B = 4096, tspan (0, 1)) and on the
+conditional recipe (MLP 2 -> 64 -> 64 -> 1 on [x | y], B = 4096, tspan
+(0, 13); the "_cond" keys), Glorot weights and data from numpy seeds, under
+one tableau (rtol 1e-3 / atol 1e-6; the README tolerances for verner65).  Each time is the mean of `reps` calls
+after one warm-up call.  It prints the card's name and power limit, then
+one JSON line {"tableau": ..., "kernels": {name: [ms, attempted steps]}}.
+
+It uses only wrappers that earlier versions of the package have too, so
+running it as a file with PYTHONPATH set to another checkout times that
+checkout's kernels: run two checkouts alternately in one session to compare
+them on one card.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tableau", default="tsit5")
+    parser.add_argument("--reps", type=int, default=10)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA card")
+    import continuousnf_tpu_torch as cnf
+    from continuousnf_tpu_torch.ode.tableaus import TABLEAUS
+    from continuousnf_tpu_torch.ops import _build
+    from continuousnf_tpu_torch.ops import fused_solve as fs
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, model_data
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"card: {smi}; package {cnf.__file__}", flush=True)
+    _build.build_libraries([fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL,
+                            fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tab = TABLEAUS[args.tableau]
+    tol = (3.452669831108329e-4, 1.1920929e-7) if args.tableau == "verner65" else (1e-3, 1e-6)
+    B = 4096
+    out = {}
+
+    def time_pair(label, spec, run_fwd, run_adj, kw_fwd, kw_adj_extra):
+        with torch.no_grad():
+            fwd = run_fwd(tab, spec, **kw_fwd)
+            ms_f = cuda_ms(lambda: run_fwd(tab, spec, **kw_fwd), args.reps)
+            out[label[0]] = [ms_f, int(fwd[2])]
+            if run_adj is None:
+                return
+            kw = {k: v for k, v in kw_fwd.items() if k not in ("z0", "acc0", "t0", "t1", "dt_init")}
+            kw.update(kw_adj_extra, zT=fwd[0], accT=fwd[1], t_hi=kw_fwd["t1"], t_lo=kw_fwd["t0"],
+                      dt_init=-fwd[4].abs())
+            adj = run_adj(tab, spec, **kw)
+            out[label[1]] = [cuda_ms(lambda: run_adj(tab, spec, **kw), max(2, args.reps // 2)), int(adj[5])]
+
+    for name, span in (("flagship", (0.0, 13.0)), ("power6", (0.0, 1.0)), ("cond_gaussian", (0.0, 13.0))):
+        dims = MODELS[name]["dims"]
+        rng = np.random.default_rng(0)
+        ps = cnf.params_from_numpy(glorot_params(rng, dims), dev)
+        data = model_data(name, rng, B)
+        cond = {}
+        if isinstance(data, tuple):
+            data, ys = data
+            cond = {"ys": torch.from_numpy(ys).to(dev)}
+        xs = torch.from_numpy(data).to(dev)
+        dz = dims[-1]
+        z0 = torch.cat([xs, torch.zeros((B, dz - xs.shape[1]), device=dev)], dim=1)
+        T = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+        spec = fs.chain_spec(cnf.MLP(dims, device=dev), dz)
+        tag = "_cond" if cond else ""
+        base = dict(rtol=tol[0], atol=tol[1], max_steps=10_000, ws=[p["w"] for p in ps], bs=[p["b"] for p in ps],
+                    t0=torch.tensor(span[0], device=dev), t1=torch.tensor(span[1], device=dev),
+                    dt_init=torch.tensor(0.05, device=dev), **cond)
+        train = dict(base, norm_z=True, norm_j=True, z0=z0, acc0=T(rng.normal(0.0, 0.1, (3, B))))
+        eps = T(rng.normal(size=(1, B, dz)))
+        adj = dict(azT=T(rng.normal(0.0, 1.0 / B, (B, dz))),
+                   aaccT=T(np.stack([np.full(B, 1.0 / B), np.full(B, 1e-2 / B), np.full(B, 1e-2 / B)])))
+        test = dict(base, z0=z0, dlogp0=T(rng.normal(0.0, 0.1, B)))
+        if name == "flagship":
+            time_pair(("k3",), spec, fs.run_solve_kernel, None, test, None)
+            time_pair(("k1", "k2"), spec, fs.run_train_solve_kernel, fs.run_adjoint_kernel, dict(train, eps=eps),
+                      dict(adj, eps=eps))
+            time_pair(("k4", "k4a"), spec, fs.run_exact_solve_kernel, fs.run_exact_adjoint_kernel, train, adj)
+        else:
+            time_pair(("k7t" + tag,), spec, fs.run_chain_test_solve_kernel, None, test, None)
+            time_pair(("k1c" + tag, "k2c" + tag), spec, fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel,
+                      dict(train, eps=eps), dict(adj, eps=eps))
+            time_pair(("k7e" + tag,), spec, fs.run_chain_exact_solve_kernel, None, train, None)
+        torch.cuda.synchronize()
+    print(json.dumps({"tableau": args.tableau, "kernels": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,14 +13,20 @@ whose every element is moved one float32 ulp up or down at random.  Only on an i
 such a move is a kernel let differ from its twin by more than the usual
 bound, and then by at most four times the twin's own move.
 
+A second kind of tie sits at the end of a forward solve: where the planned
+step falls within roundoff of the remaining span, one solve reaches t1 in
+one step and the other stops short of it and takes one more, short step.
+The forward kernels and their twins return the last step they took
+(`dt_used`) beside the next step size; `last_step_tie` reads it.
+
     python -m continuousnf_tpu_torch.utils.near_tie [--cases recipe-B1,recipe-B128]
 
 runs, on one CUDA card, the conditional chain kernels (the K1 chain form,
 K7 TEST and exact, the K2 chain form from the K1 chain form's output) on the
 inputs of the conditional cases of tests/test_torch_cuda.py, with the norm
 rates on and off, and prints for each solve the attempted and accepted
-steps and the last step size of the kernel, of its twin on the card and of
-its twin on the CPU, their relative distances from each other and from the
+steps, the next step size and the last step taken of the kernel, of its
+twin on the card and of its twin on the CPU, their relative distances from each other and from the
 float64 twin, and two witnesses of the twin on the card: with only z0 (zT)
 nudged, and with every input nudged.
 """
@@ -48,12 +54,18 @@ def nudge(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return torch.where(up, torch.nextafter(x, inf), torch.nextafter(x, -inf))
 
 
+def is_forward(out) -> bool:
+    """Whether `out` is a forward solve's output (zT, accT, steps,
+    accepted, dt_last, dt_used), not an adjoint's (seven or eight items)."""
+    return len(out) < 7
+
+
 def split(out):
     """(attempted steps, the tensors) of a solve's output: a forward's
-    (zT, accT, steps, accepted, dt_last) gives z and each accumulator row;
-    an adjoint's (z0, acc0, a_z0, g_ws, g_bs, steps, accepted[, a_ys0])
-    gives z0, a_z0, each gradient and a_ys0."""
-    if len(out) == 5:
+    (zT, accT, steps, accepted, dt_last, dt_used) gives z and each
+    accumulator row; an adjoint's (z0, acc0, a_z0, g_ws, g_bs, steps,
+    accepted[, a_ys0]) gives z0, a_z0, each gradient and a_ys0."""
+    if is_forward(out):
         B = out[0].shape[0]
         return int(out[2]), [out[0]] + list(out[1].reshape(-1, B))
     return int(out[5]), [out[0], out[2]] + list(out[3]) + list(out[4]) + list(out[7:])
@@ -108,7 +120,7 @@ def within_near_tie(out_k, out_p, steps, spreads, tol: float, grad_tol: float = 
     (holds, the readings as a line)."""
     (sk, vk), (sp, vp) = split(out_k), split(out_p)
     counts = [sp] + list(steps)
-    tols = [tol] * len(vk) if len(out_k) == 5 else [tol, tol] + [grad_tol or tol] * (len(vk) - 2)
+    tols = [tol] * len(vk) if is_forward(out_k) else [tol, tol] + [grad_tol or tol] * (len(vk) - 2)
     errs = [rel(a, b) for a, b in zip(vk, vp)]
     holds = (
         min(counts) <= sk <= max(counts)
@@ -117,6 +129,28 @@ def within_near_tie(out_k, out_p, steps, spreads, tol: float, grad_tol: float = 
     )
     line = (f"steps {sk} (the twin's own under roundoff {sorted(set(counts))}); relative distance to the twin "
             + ", ".join(f"{e:.3e} (its spread {d:.3e})" for e, d in zip(errs, spreads)))
+    return holds, line
+
+
+def last_step_tie(out_k, out_p, tol: float):
+    """Whether two forward solves (`is_forward`) part only at their last
+    step: their attempted and their accepted step counts each differ by
+    one, the solve with more steps took a last step shorter than the other's
+    last step (it stopped short of t1 and took the remainder, where the
+    other reached t1 at once), and z and each accumulator row agree within
+    `tol` relative (`rel`).  Returns (holds, the readings as a line)."""
+    (sk, vk), (sp, vp) = split(out_k), split(out_p)
+    longer, shorter = (out_k, out_p) if sk > sp else (out_p, out_k)
+    errs = [rel(a, b) for a, b in zip(vk, vp)]
+    holds = (
+        abs(sk - sp) == 1
+        and abs(int(out_k[3]) - int(out_p[3])) == 1
+        and abs(float(longer[5])) < abs(float(shorter[5]))
+        and max(errs) <= tol
+        and all(bool(torch.isfinite(a).all()) for a in vk)
+    )
+    line = (f"steps {sk} against {sp}; last steps taken {float(out_k[5]):.6g} against {float(out_p[5]):.6g}; "
+            f"relative distance to the twin {max(errs):.3e}")
     return holds, line
 
 
@@ -179,20 +213,23 @@ def _report(label: str, kernel, twin, tab, spec, kw: dict, key: str, tol: float)
     steps, spreads = roundoff_witness(twin, tab, spec, kw, [key], ref=out_p)
     steps_all, spreads_all = roundoff_witness(twin, tab, spec, kw, ref=out_p, seed=1)
     (sk, vk), (sp, vp), (sc, vc), (s64, v64) = (split(o) for o in (out_k, out_p, out_c, out_64))
-    acc = (lambda o: int(o[3])) if len(out_k) == 5 else (lambda o: int(o[6]))  # noqa: E731
-    dt = (lambda o: f" dt_last {float(o[4]):.5f}") if len(out_k) == 5 else (lambda o: "")  # noqa: E731
+    forward = is_forward(out_k)
+    acc = (lambda o: int(o[3])) if forward else (lambda o: int(o[6]))  # noqa: E731
+    dt = (lambda o: f" dt_last {float(o[4]):.5f} dt_used {float(o[5]):.5f}") if forward else (lambda o: "")  # noqa: E731
     d = lambda xs, ys: max(rel(a, b) for a, b in zip(xs, ys))  # noqa: E731
     near = shows_near_tie(sp, steps + steps_all, spreads + spreads_all, tol)
     strict = sk == sp and d(vk, vp) <= tol
     both = [max(a, b) for a, b in zip(spreads, spreads_all)]
     rule, _ = within_near_tie(out_k, out_p, steps + steps_all, both, 1e-4, tol)
+    last = forward and last_step_tie(out_k, out_p, tol)[0]
     print(f"{label}: kernel {sk}/{acc(out_k)}{dt(out_k)}; card twin {sp}/{acc(out_p)}{dt(out_p)}; "
           f"cpu twin {sc}/{acc(out_c)}{dt(out_c)}; float64 twin {s64}/{acc(out_64)}{dt(out_64)} | "
           f"kernel-card {d(vk, vp):.3e}, card-cpu {d(vp, vc):.3e}; to float64: kernel {d(vk, v64):.3e}, "
           f"card {d(vp, v64):.3e}, cpu {d(vc, v64):.3e} | witness, {key} nudged one ulp: steps {steps}, "
           f"spread {max(spreads):.3e}; every input nudged: steps {steps_all}, spread {max(spreads_all):.3e} "
           f"({'a near-tie' if near else 'no near-tie'}) | the kernel meets "
-          + ("the twin's bound" if strict else "the near-tie rule" if rule and near else "no rule"),
+          + ("the twin's bound" if strict else "the near-tie rule" if rule and near
+             else "the last-step rule" if last else "no rule"),
           flush=True)
 
 

@@ -1,7 +1,8 @@
 """The CUDA kernels (K3, K1, K2, the K4 forward and adjoint, and the chain
 kernels: the K1 and K2 chain forms, the K7 TEST and exact forwards, with and
-without conditioning rows) against their plain PyTorch versions, on the
-card, and the configurations they do not cover.
+without conditioning rows, under every embedded explicit tableau and with
+identity layers) against their plain PyTorch versions, on the card, and the
+configurations they do not cover.
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a card
 (and without JAX, whose conftest this file does not need):
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 import continuousnf_tpu_torch as tcnf
-from continuousnf_tpu_torch.ode.tableaus import DOPRI5, TSIT5
+from continuousnf_tpu_torch.ode.tableaus import BOSH3, DOP853, DOPRI5, TSIT5, VERNER65
 from continuousnf_tpu_torch.ops import fused_solve as tfs
 from continuousnf_tpu_torch.utils import near_tie
 from continuousnf_tpu_torch.utils.configs import glorot_params
@@ -74,8 +75,8 @@ def test_kernel_matches_plain(dev, dims, B, span):
     kw = _kernel_args(dims, B, span, dev)
     before = tfs.run_solve_kernel.launches
     with torch.no_grad():
-        zk, lk, sk, ak, dk = tfs.run_solve_kernel(TSIT5, spec, **kw)
-        zp, lp, sp, ap, dp = tfs.solve_test_plain(TSIT5, spec, **kw)
+        zk, lk, sk, ak, dk, _ = tfs.run_solve_kernel(TSIT5, spec, **kw)
+        zp, lp, sp, ap, dp, _ = tfs.solve_test_plain(TSIT5, spec, **kw)
     torch.cuda.synchronize()
     assert tfs.run_solve_kernel.launches == before + 1
     assert (int(sk), int(ak)) == (int(sp), int(ap))
@@ -112,11 +113,9 @@ def test_slice_through_kernel_matches_plain(dev):
     [
         ((5, 9, 7, 7, 7, 5), torch.tanh, TSIT5),
         ((5, 80, 7, 5), torch.tanh, TSIT5),
-        ((5, 15, 5), None, TSIT5),
-        ((5, 15, 5), torch.tanh, DOPRI5),
         ((40, 48, 40), torch.tanh, TSIT5),
     ],
-    ids=["five-layer", "wide-hidden", "identity-out", "dopri5", "dz40"],
+    ids=["five-layer", "wide-hidden", "dz40"],
 )
 def test_uncovered_configs_raise_on_cuda(dev, dims, final, tab):
     spec = tfs.chain_spec(tcnf.MLP(dims, final_activation=final), dims[-1])
@@ -138,8 +137,8 @@ def test_kernel_edge_cases_match_plain(dev, case):
     if case == "empty-span":
         kw["t1"] = kw["t0"].clone()
     with torch.no_grad():
-        zk, lk, sk, ak, _ = tfs.run_solve_kernel(TSIT5, spec, **kw)
-        zp, lp, sp, ap, _ = tfs.solve_test_plain(TSIT5, spec, **kw)
+        zk, lk, sk, ak, *_ = tfs.run_solve_kernel(TSIT5, spec, **kw)
+        zp, lp, sp, ap, *_ = tfs.solve_test_plain(TSIT5, spec, **kw)
     assert (int(sk), int(ak)) == (int(sp), int(ap))
     if case == "cap":
         # Where a capped solve stops in time follows step sizes set by an
@@ -175,10 +174,10 @@ def _rel(got, ref):
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
-def _twin64(twin, spec, adj):
+def _twin64(twin, spec, adj, tab=TSIT5):
     """A plain twin run in float64."""
     to64 = lambda v: v.double() if torch.is_tensor(v) else [x.double() for x in v] if isinstance(v, list) else v
-    return twin(TSIT5, spec, **{k: to64(v) for k, v in adj.items()})
+    return twin(tab, spec, **{k: to64(v) for k, v in adj.items()})
 
 
 def _state_close(got, ref32, ref64):
@@ -199,8 +198,8 @@ def test_train_kernels_match_twins(dev, dims, B):
     kw, adj = _train_args(dims, B, span, dev)
     n1, n2 = tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches
     with torch.no_grad():
-        zk, ak, sk, ck, dk = tfs.run_train_solve_kernel(TSIT5, spec, **kw)
-        zp, ap, sp, cp, dp = tfs.solve_train_plain(TSIT5, spec, **kw)
+        zk, ak, sk, ck, dk, _ = tfs.run_train_solve_kernel(TSIT5, spec, **kw)
+        zp, ap, sp, cp, dp, _ = tfs.solve_train_plain(TSIT5, spec, **kw)
         adj.update(zT=zk, accT=ak, dt_init=-dk.abs())
         out_k = tfs.run_adjoint_kernel(TSIT5, spec, **adj)
         out_p = tfs.adjoint_train_plain(TSIT5, spec, **adj)
@@ -230,8 +229,8 @@ def test_train_kernel_edge_cases_match_twins(dev, case):
         kw["t1"] = kw["t0"].clone()
         adj["t_hi"] = adj["t_lo"].clone()
     with torch.no_grad():
-        zk, ak, sk, ck, _ = tfs.run_train_solve_kernel(TSIT5, spec, **kw)
-        zp, ap, sp, cp, _ = tfs.solve_train_plain(TSIT5, spec, **kw)
+        zk, ak, sk, ck, *_ = tfs.run_train_solve_kernel(TSIT5, spec, **kw)
+        zp, ap, sp, cp, *_ = tfs.solve_train_plain(TSIT5, spec, **kw)
         adj.update(zT=zp, accT=ap, dt_init=torch.tensor(-0.05, device=dev))
         out_k = tfs.run_adjoint_kernel(TSIT5, spec, **adj)
         out_p = tfs.adjoint_train_plain(TSIT5, spec, **adj)
@@ -288,8 +287,7 @@ def _small(fused=True, **kw):
 
 @pytest.mark.parametrize(
     "kernel",
-    ["K5-test-gradients", "K6-probes", "K6-jvp", "K6-chain-probes", "K8-conditional",
-     "K9-tableau", "K9-identity-layer", "K9-chain-identity-layer", "K10-per-stage-field"],
+    ["K5-test-gradients", "K6-probes", "K6-jvp", "K6-chain-probes", "K8-conditional", "K10-per-stage-field"],
 )
 def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
     name = kernel.split("-")[0]
@@ -330,9 +328,6 @@ def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
     dims, final, tab, k = {
         "K6-probes": ((5, 15, 5), torch.tanh, TSIT5, 2),
         "K6-chain-probes": ((5, 9, 7, 5), torch.tanh, TSIT5, 2),
-        "K9-tableau": ((5, 15, 5), torch.tanh, DOPRI5, 1),
-        "K9-identity-layer": ((5, 15, 5), None, TSIT5, 1),
-        "K9-chain-identity-layer": ((5, 9, 7, 5), None, TSIT5, 1),
     }[kernel]
     spec = tfs.chain_spec(tcnf.MLP(dims, final_activation=final), dims[-1])
     kw, adj = _train_args(dims, 8, (0.0, 1.0), dev)
@@ -376,8 +371,8 @@ def test_exact_kernels_match_twins(dev, dims, B, span):
     kw, adj = _exact_args(dims, B, span, dev)
     n4 = (tfs.run_exact_solve_kernel.launches, tfs.run_exact_adjoint_kernel.launches)
     with torch.no_grad():
-        zk, ak, sk, ck, dk = tfs.run_exact_solve_kernel(TSIT5, spec, **kw)
-        zp, ap, sp, cp, _ = tfs.solve_train_exact_plain(TSIT5, spec, **kw)
+        zk, ak, sk, ck, dk, _ = tfs.run_exact_solve_kernel(TSIT5, spec, **kw)
+        zp, ap, sp, cp, *_ = tfs.solve_train_exact_plain(TSIT5, spec, **kw)
         adj.update(zT=zk, accT=ak, dt_init=-torch.sign(kw["t1"] - kw["t0"]) * dk.abs())
         out_k = tfs.run_exact_adjoint_kernel(TSIT5, spec, **adj)
         out_p = tfs.adjoint_train_exact_plain(TSIT5, spec, **adj)
@@ -405,8 +400,8 @@ def test_exact_kernel_edge_cases_match_twins(dev, case):
         kw["t1"] = kw["t0"].clone()
         adj["t_hi"] = adj["t_lo"].clone()
     with torch.no_grad():
-        zk, ak, sk, ck, _ = tfs.run_exact_solve_kernel(TSIT5, spec, **kw)
-        zp, ap, sp, cp, _ = tfs.solve_train_exact_plain(TSIT5, spec, **kw)
+        zk, ak, sk, ck, *_ = tfs.run_exact_solve_kernel(TSIT5, spec, **kw)
+        zp, ap, sp, cp, *_ = tfs.solve_train_exact_plain(TSIT5, spec, **kw)
         adj.update(zT=zp, accT=ap, dt_init=torch.tensor(-0.05, device=dev))
         out_k = tfs.run_exact_adjoint_kernel(TSIT5, spec, **adj)
         out_p = tfs.adjoint_train_exact_plain(TSIT5, spec, **adj)
@@ -661,25 +656,26 @@ def _forward_matches(out_k, out_p):
 
 
 def _adjoint_matches(adj_k, adj_p, adj_64):
-    """Equal steps; z0, acc0, a_z0 and a_ys0 held to the float64 twin
-    (`_state_close`); finite gradients within GRAD_REL of the twin's."""
+    """Equal steps; z0, acc0, a_z0 and (conditional) a_ys0 held to the
+    float64 twin (`_state_close`); finite gradients within GRAD_REL of the
+    twin's."""
     return (
         (int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6]))
-        and all(_state_close(adj_k[i], adj_p[i], adj_64[i]) for i in (0, 1, 2, 7))
+        and all(_state_close(adj_k[i], adj_p[i], adj_64[i]) for i in (0, 1, 2, 7)[: len(adj_k) - 4])
         and all(bool(torch.isfinite(a).all()) and _grad_close(a, b)
                 for a, b in zip(adj_k[3] + adj_k[4], adj_p[3] + adj_p[4]))
     )
 
 
-def _near_tie_holds(out_k, out_p, twin, spec, kw, state):
+def _near_tie_holds(out_k, out_p, twin, spec, kw, state, tab=TSIT5):
     """For a solve that misses its twin's bound: the twin must show a
     near-tie of the step controller under roundoff (`near_tie.witness`: its
     own steps or values move when its inputs move by one float32 ulp), and
     the kernel must meet the near-tie rule (`near_tie.within_near_tie`:
     steps within the twin's own range, each value within 4x the twin's own
     move of it)."""
-    steps, spreads = near_tie.witness(twin, TSIT5, spec, kw, state, ref=out_p)
-    tol = REL if len(out_p) == 5 else GRAD_REL
+    steps, spreads = near_tie.witness(twin, tab, spec, kw, state, ref=out_p)
+    tol = REL if near_tie.is_forward(out_p) else GRAD_REL
     assert near_tie.shows_near_tie(near_tie.split(out_p)[0], steps, spreads, tol), (
         f"the kernel misses its twin, and the twin shows no near-tie: steps {steps}, spreads {spreads}")
     holds, line = near_tie.within_near_tie(out_k, out_p, steps, spreads, REL, GRAD_REL)
@@ -777,3 +773,173 @@ def test_deep_exact_adjoint_is_refused_on_the_card(dev):
     adj.update(zT=kw["z0"], accT=kw["acc0"], dt_init=torch.tensor(-0.05, device=dev))
     with pytest.raises(ValueError, match="forward-only"):
         tfs.run_exact_adjoint_kernel(TSIT5, spec, **adj)
+
+
+# ---- K9: every embedded explicit tableau, identity layers ----
+
+# id -> (dims, last activation, tableau, rtol, atol, B, span)
+_K9_CASES = {
+    "identity-out": ((5, 15, 5), None, TSIT5, 1e-3, 1e-6, 64, (0.0, 2.0)),
+    "dopri5": ((5, 15, 5), torch.tanh, DOPRI5, 1e-3, 1e-6, 64, (0.0, 2.0)),
+    "bosh3": ((5, 15, 5), torch.tanh, BOSH3, 1e-3, 1e-6, 64, (0.0, 2.0)),
+    "K9-tableau": ((16, 48, 16), torch.tanh, VERNER65, 3.452669831108329e-4, 1.1920929e-7, 512, (0.0, 13.0)),
+    "K9-identity-layer": ((16, 48, 16), None, VERNER65, 3.452669831108329e-4, 1.1920929e-7, 512, (0.0, 13.0)),
+    "K9-chain-identity-layer": ((5, 9, 7, 5), None, TSIT5, 1e-3, 1e-6, 300, (0.0, 2.0)),
+    "verner65-power6": (POWER6, torch.tanh, VERNER65, 3.452669831108329e-4, 1.1920929e-7, 4096, (0.0, 1.0)),
+    "dop853-power6": (POWER6, torch.tanh, DOP853, 1e-6, 1e-8, 256, (0.0, 1.0)),
+}
+
+
+def _k9_hold(out_k, out_p, twin, tab, spec, kw, state, adj_64=None):
+    """A K9 solve against its twin: the twin's bound (equal steps; values
+    within REL, an adjoint's state as `_state_close` and gradients within
+    GRAD_REL), else a forward's last-step tie (`near_tie.last_step_tie`),
+    else the near-tie rule on an input whose twin shows a near-tie."""
+    if near_tie.is_forward(out_k):
+        if _forward_matches(out_k, out_p) or near_tie.last_step_tie(out_k, out_p, REL)[0]:
+            return
+    elif _adjoint_matches(out_k, out_p, adj_64):
+        return
+    _near_tie_holds(out_k, out_p, twin, spec, kw, state, tab)
+
+
+@pytest.mark.parametrize("case", list(_K9_CASES))
+def test_k9_kernels_match_twins(dev, case):
+    """Every kernel family under each embedded tableau (bosh3, dopri5, tsit5,
+    verner65 with its non-FSAL refresh, dop853 with its stretched estimate)
+    and with identity layers, against its twin, each launch counted.  Nets
+    with an identity layer run only the chain kernels; the 2-layer kernels
+    refuse them.  dop853 at rtol 1e-6 sits where the float32 error estimate
+    is roundoff (the float64 twin takes a third of the steps), so its
+    solves are held to the near-tie rule where they miss the bound."""
+    dims, final, tab, rtol, atol, B, span = _K9_CASES[case]
+    mlp = tcnf.MLP(dims, final_activation=final, device=dev)
+    spec = tfs.chain_spec(mlp, dims[-1])
+    kw, adj = _train_args(dims, B, span, dev)
+    test_kw = _kernel_args(dims, B, span, dev)
+    for d in (kw, adj, test_kw):
+        d.update(rtol=rtol, atol=atol)
+    exact_kw = {k: v for k, v in kw.items() if k != "eps"}
+    tdir = torch.sign(kw["t1"] - kw["t0"])
+    two_layer = spec.n_layers == 2 and all(spec.acts)
+    families = [(tfs.run_chain_train_solve_kernel, tfs.solve_train_plain, tfs.run_chain_adjoint_kernel,
+                 tfs.run_chain_test_solve_kernel, tfs.run_chain_exact_solve_kernel, None)]
+    if two_layer:
+        families.append((tfs.run_train_solve_kernel, tfs.solve_train_plain, tfs.run_adjoint_kernel,
+                         tfs.run_solve_kernel, tfs.run_exact_solve_kernel, tfs.run_exact_adjoint_kernel))
+    elif spec.n_layers == 2:
+        for run, args in ((tfs.run_solve_kernel, test_kw), (tfs.run_train_solve_kernel, kw)):
+            with pytest.raises(NotImplementedError, match="identity"):
+                run(tab, spec, **args)
+    for run_train, _, run_adj, run_test, run_exact, run_exact_adj in families:
+        wrappers = [w for w in (run_train, run_adj, run_test, run_exact, run_exact_adj) if w is not None]
+        before = [w.launches for w in wrappers]
+        with torch.no_grad():
+            out_k = run_train(tab, spec, **kw)
+            out_p = tfs.solve_train_plain(tab, spec, **kw)
+            a = dict(adj, zT=out_k[0], accT=out_k[1], dt_init=-tdir * out_k[4].abs())
+            adj_k, adj_p = run_adj(tab, spec, **a), tfs.adjoint_train_plain(tab, spec, **a)
+            adj_64 = _twin64(tfs.adjoint_train_plain, spec, a, tab)
+            test_k, test_p = run_test(tab, spec, **test_kw), tfs.solve_test_plain(tab, spec, **test_kw)
+            ex_k, ex_p = run_exact(tab, spec, **exact_kw), tfs.solve_train_exact_plain(tab, spec, **exact_kw)
+        torch.cuda.synchronize()
+        assert [w.launches for w in wrappers[:4]] == [n + 1 for n in before[:4]]
+        assert all(len(o) == 6 and float(o[5]) != 0.0 for o in (out_k, test_k, ex_k))
+        _k9_hold(out_k, out_p, tfs.solve_train_plain, tab, spec, kw, "z0")
+        _k9_hold(adj_k, adj_p, tfs.adjoint_train_plain, tab, spec, a, "zT", adj_64)
+        _k9_hold(test_k, test_p, tfs.solve_test_plain, tab, spec, test_kw, "z0")
+        _k9_hold(ex_k, ex_p, tfs.solve_train_exact_plain, tab, spec, exact_kw, "z0")
+        if run_exact_adj is not None:
+            e = {k: v for k, v in adj.items() if k != "eps"}
+            e.update(zT=ex_k[0], accT=ex_k[1], dt_init=-tdir * ex_k[4].abs())
+            with torch.no_grad():
+                e_k, e_p = run_exact_adj(tab, spec, **e), tfs.adjoint_train_exact_plain(tab, spec, **e)
+                e_64 = _twin64(tfs.adjoint_train_exact_plain, spec, e, tab)
+            assert run_exact_adj.launches == before[4] + 1
+            _k9_hold(e_k, e_p, tfs.adjoint_train_exact_plain, tab, spec, e, "zT", e_64)
+
+
+@pytest.mark.parametrize("mode", ["test", "train", "exact"])
+def test_identity_nets_run_the_chain_kernels(dev, mode):
+    """`make_full_solve` runs a 2-layer net with an identity layer through
+    the chain kernels, forward and (Hutchinson TRAIN) backward, and no
+    2-layer kernel; its exact gradient runs K7 exact and the plain
+    backward.  The result matches the same path on the CPU."""
+    dims = (5, 15, 5)
+    ps_np = _np_params(dims, 6)
+    xs = np.random.default_rng(7).uniform(size=(64, 3)).astype(np.float32)
+    eps = np.random.default_rng(8).normal(size=(1, 64, 5)).astype(np.float32)
+    cm = tcnf.VecJacMode(fused=True, exact_trace=mode == "exact")
+
+    def run(device):
+        icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(dims, final_activation=None, device=device), 3, 2,
+                              compute_mode=cm)
+        ps = tcnf.params_from_numpy(ps_np, device)
+        if mode == "test":
+            with torch.no_grad():
+                return [tcnf.inference(icnf, tcnf.Mode.TEST, xs, ps)[0].cpu()]
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, steer_r=0.0, **({} if mode == "exact" else {"eps": eps}))
+        return [l.detach().cpu()] + [g.cpu() for g in torch.autograd.grad(l, leaves)]
+
+    before = _launches()
+    got = run(dev)
+    after = _launches()
+    ran = {k for k in after if after[k] != before[k]}
+    want = {"test": {tfs.K7_KERNEL + "/test"}, "train": {tfs.K1C_KERNEL, tfs.K2C_KERNEL},
+            "exact": {tfs.K7_KERNEL + "/exact"}}[mode]
+    assert ran == want
+    ref = run(torch.device("cpu"))
+    assert _close(got[0], ref[0])
+    for a, b in zip(got[1:], ref[1:]):
+        assert _grad_close(a, b)
+
+
+def test_deep_test_gradient_runs_k7_and_the_plain_backward(dev):
+    """The power6 TEST loss and its gradient on the card: K7 TEST forward,
+    then the plain BACKSOLVE backward (the JAX package has no TEST backward
+    kernel for deeper chains), against a float64 solve on the card within
+    2e-2 max|g|."""
+    xs = np.random.default_rng(4).normal(size=(512, 6)).astype(np.float32)
+    ps_np = _np_params(POWER6, 3)
+
+    def run(dtype, fused):
+        icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(POWER6, device=dev, dtype=dtype), 6, dtype=dtype,
+                              compute_mode=tcnf.VecJacMode(fused=fused))
+        ps = [{k: v.to(dtype).requires_grad_() for k, v in p.items()} for p in tcnf.params_from_numpy(ps_np, dev)]
+        l = tcnf.loss(icnf, tcnf.Mode.TEST, xs, ps)
+        return l.detach(), torch.autograd.grad(l, [x for p in ps for x in (p["w"], p["b"])])
+
+    before = _launches()
+    l_k, g_k = run(torch.float32, True)
+    after = _launches()
+    assert {k for k in after if after[k] != before[k]} == {tfs.K7_KERNEL + "/test"}
+    assert after[tfs.K7_KERNEL + "/test"] == before[tfs.K7_KERNEL + "/test"] + 1
+    l_64, g_64 = run(torch.float64, False)
+    assert _close(l_k.double(), l_64)
+    for a, b in zip(g_k, g_64):
+        assert float((a.double() - b).abs().max()) <= 2e-2 * float(b.abs().max())
+
+
+def test_last_step_tie_of_the_recipe(dev):
+    """The conditional recipe at B = 4096, norm rates off: the K1 chain form
+    once took 11 steps against its twin's 10 with every value within 6e-6,
+    a move no one-ulp nudge of the inputs reproduced.  The kernels return
+    the last step taken, so such a solve is held to the last-step rule (one
+    solve reaches t1 at once, the other stops short and takes one more,
+    shorter step); otherwise the twin's bound or the near-tie rule holds."""
+    dims, B, span = near_tie.CASES["recipe-B4096"]
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    train, _, _ = near_tie.case_inputs(dims, B, span, dev)
+    train.update(norm_z=False, norm_j=False)
+    n = tfs.run_chain_train_solve_kernel.launches
+    with torch.no_grad():
+        out_k = tfs.run_chain_train_solve_kernel(TSIT5, spec, **train)
+        out_p = tfs.solve_train_plain(TSIT5, spec, **train)
+    assert tfs.run_chain_train_solve_kernel.launches == n + 1
+    assert float(out_k[5]) > 0.0  # the last step taken, forward in time
+    if _forward_matches(out_k, out_p):
+        return
+    holds, line = near_tie.last_step_tie(out_k, out_p, REL)
+    if not holds:
+        _near_tie_holds(out_k, out_p, tfs.solve_train_plain, spec, train, "z0")

@@ -227,7 +227,7 @@ def test_exact_forward_twin_seeds_accumulators():
     kw = dict(norm_z=True, norm_j=True, rtol=1e-3, atol=1e-6, max_steps=10_000,
               ws=[p["w"] for p in ps], bs=[p["b"] for p in ps], z0=torch.from_numpy(z0),
               acc0=torch.from_numpy(acc0), t0=torch.tensor(0.0), t1=torch.tensor(1.0), dt_init=None)
-    zT, accT, steps, accepted, _ = tfs.run_exact_solve_kernel(TSIT5, spec, **kw)
+    zT, accT, steps, accepted, *_ = tfs.run_exact_solve_kernel(TSIT5, spec, **kw)
     plain = tfs.solve_train_exact_plain(TSIT5, spec, **kw)
     assert torch.equal(zT, plain[0]) and torch.equal(accT, plain[1])
     assert (int(steps), int(accepted)) == (int(st_r.steps), int(st_r.accepted))

@@ -66,3 +66,25 @@ def test_near_tie_rule():
     assert not near_tie.within_near_tie(moved_row(1.5), ref, steps, spreads, 1e-4)[0]
     far = (ref[0], ref[1], torch.tensor(max(steps) + 1), ref[3], ref[4])
     assert not near_tie.within_near_tie(far, ref, steps, spreads, 1e-4)[0]
+
+
+def test_last_step_rule():
+    """The last-step rule holds two forward solves that part only at the
+    end: one more attempted and accepted step, that solve's last step
+    shorter than the other's, values within the bound.  It refuses a
+    longer last step, a second extra step and values moved beyond the
+    bound; forward outputs carry the last step taken."""
+    spec, train = _case("narrow-ncond2")
+    ref = tfs.solve_train_plain(TSIT5, spec, **train)
+    assert near_tie.is_forward(ref) and float(ref[5]) > 0.0
+
+    def longer(extra=1, last=0.5, move=0.0):
+        acc = ref[1] + move
+        return (ref[0], acc, ref[2] + extra, ref[3] + extra, ref[4], ref[5] * last)
+
+    assert near_tie.last_step_tie(longer(), ref, 1e-4)[0]
+    assert near_tie.last_step_tie(ref, longer(), 1e-4)[0]
+    assert not near_tie.last_step_tie(longer(last=1.5), ref, 1e-4)[0]
+    assert not near_tie.last_step_tie(longer(extra=2), ref, 1e-4)[0]
+    assert not near_tie.last_step_tie(longer(move=1.0), ref, 1e-4)[0]
+    assert not near_tie.last_step_tie(ref, ref, 1e-4)[0]

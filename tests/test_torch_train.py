@@ -188,7 +188,7 @@ def test_train_solve_seeded_accumulators_match_jax_unfused(fused):
             eps=torch.from_numpy(eps), acc0=torch.from_numpy(acc0), t0=torch.tensor(0.0),
             t1=torch.tensor(1.0), dt_init=None,
         )
-        zT, accT, steps, accepted, _ = tfs.run_train_solve_kernel(TSIT5, spec, **kw)
+        zT, accT, steps, accepted, *_ = tfs.run_train_solve_kernel(TSIT5, spec, **kw)
         plain = tfs.solve_train_plain(TSIT5, spec, **kw)
         assert tfs.run_train_solve_kernel.launches == before
         assert torch.equal(zT, plain[0]) and torch.equal(accT, plain[1])
@@ -242,15 +242,17 @@ def test_train_draws_come_from_the_generator():
         ({"steer_r": 0.5}, ValueError, "steer_r"),
         ({"model": {"compute_mode": "jvp"}}, NotImplementedError, "item 14"),
         ({"model": {"compute_mode": "exact"}}, None, None),
-        ({"model": {"x_jitter": 0.1}}, NotImplementedError, "item 14"),
-        ({"model": {"aug_noise": 0.1}}, NotImplementedError, "item 14"),
+        ({"model": {"x_jitter": 0.1}, "jitter": np.zeros((B, NVARS + 1), np.float32)}, ValueError,
+         "jitter must have shape"),
+        ({"model": {"aug_noise": 0.1}, "aug": np.zeros((B + 1, 2), np.float32)}, ValueError, "aug must have shape"),
         ({"model": {"aug_passive": True}}, NotImplementedError, "item 14"),
     ],
     ids=["eps-shape", "steer-range", "jvp", "exact-trace", "x-jitter", "aug-noise", "aug-passive"],
 )
 def test_train_inputs_are_validated(kw, err, match):
-    """Bad inputs raise, and configurations not ported yet raise naming
-    their ROADMAP item; exact trace (err None) runs."""
+    """Bad inputs raise (wrongly shaped injected draws among them), and
+    configurations not ported yet raise naming their ROADMAP item; exact
+    trace (err None) runs."""
     mkw = dict(kw.pop("model", {}))
     cm = mkw.pop("compute_mode", None)
     if cm == "jvp":
