@@ -42,7 +42,13 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     and `ICNFDist.pdf` / `sample` through K3 under verner65; the same
     tolerances at full width on the flagship and power6, and the other
     embedded tableaus (dop853, dopri5, bosh3) and identity layers (K9) in
-    every kernel family.
+    every kernel family;
+  * the tabular MINIBOONE model of benchmarks/tabular.py:58 (RNODE,
+    nvars = 43, MLP 43 -> 128 -> 128 -> 43 tanh, lambda1 = lambda2 = 1e-2,
+    tspan (0, 1), no steering, one VJP probe, batch 2048), past the chain
+    kernels' widths: served through wide K7 TEST, trained through the wide
+    K1 and K2 chain forms and, under exact trace, through wide K7 exact with
+    the plain backward.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -169,7 +175,26 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      their twins;
  35. power6's TEST-mode loss gradient: K7 TEST launched once and no other
      kernel (the plain backward), the gradient within 2e-2 * max|g| of a
-     float64 rtol 1e-7 solve.
+     float64 rtol 1e-7 solve;
+ 36. the MINIBOONE model with Glorot weights and N(0, 0.05) biases, 2048
+     samples of the synthetic_tabular recipe at 43 variables, and the wide
+     kernels' launch shapes (threads, blocks, tile, shared memory; their
+     registers are in phase 2's ptxas lines);
+ 37. the wide K1 chain form against `solve_train_plain` from nonzero
+     accumulators and the wide K2 chain form against `adjoint_train_plain`
+     from its output with its last step as the warm start (the bounds of
+     phase 16), each timed beside its plain version;
+ 38. wide K7 TEST against `solve_test_plain` and wide K7 exact against
+     `solve_train_exact_plain` (the bounds of phase 17), timed;
+ 39. logpdf through the kernel against the plain path at B = 16 and 2048;
+ 40. the Hutchinson loss and its gradient (the wide K1 and K2 chain forms)
+     and the exact one (wide K7 exact, plain backward) through fused, plain
+     and a float64 rtol 1e-7 solve, held as in phases 19 and 21;
+ 41. the main paths, counters reset just before each: logpdf and sample
+     launch wide K7 TEST and no other kernel, `fit` at batch 2048 for four
+     Lion steps the wide K1 and K2 chain forms (each at least four times)
+     and no other, the exact `fit` wide K7 exact (at least four times) and
+     no other; CUDA-event timings of the train steps and logpdf.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -350,11 +375,11 @@ def hold_adjoint(label, adj_k, adj_p, adj_64, near=None, gate=0) -> float:
 
 def hold_logpdf(cnf, label, icnf_k, icnf_p, xs, ps, ys=None) -> None:
     """TEST inference through the kernel against the plain path at B = 16
-    and BATCH (given ys, with its first rows): equal steps, logp within
-    TOL * max(1, max|logp|)."""
+    and B = len(xs) (given ys, with its first rows): equal steps, logp
+    within TOL * max(1, max|logp|)."""
     import torch
 
-    for n in (16, BATCH):
+    for n in (16, len(xs)):
         kw = {} if ys is None else {"ys": ys[:n]}
         with torch.no_grad():
             lp_k, _, st_k = cnf.inference(icnf_k, cnf.Mode.TEST, xs[:n], ps, **kw)
@@ -1446,47 +1471,66 @@ def readme_tolerances_flagship(cnf, fs, dev, readme_launches):
     ]
 
 
-def chain_records(fs, suffix, dims, runs, launches, tab=None):
-    """The chain kernels' records: `runs` maps k1c, k2c, k7t, k7e to
-    (out_k, err, ms, plain_ms), `launches` to their main-path counts."""
+def chain_names(fs, wide=False):
+    """The chain kernels' record keys (k1c, k2c, k7t, k7e) -> (their
+    KERNEL_WRAPPERS name, wrapper, source): the narrow forms or, `wide`,
+    the wide forms."""
+    if wide:
+        return {"k1c": (fs.K1W_KERNEL, fs.run_wide_train_solve_kernel, "k1_wide_solve.cu"),
+                "k2c": (fs.K2W_KERNEL, fs.run_wide_adjoint_kernel, "k2_wide_adjoint.cu"),
+                "k7t": (fs.K7W_KERNEL + "/test", fs.run_wide_test_solve_kernel, "k7_wide_solve.cu"),
+                "k7e": (fs.K7W_KERNEL + "/exact", fs.run_wide_exact_solve_kernel, "k7_wide_solve.cu")}
+    return {"k1c": (fs.K1C_KERNEL, fs.run_chain_train_solve_kernel, "k1_chain_solve.cu"),
+            "k2c": (fs.K2C_KERNEL, fs.run_chain_adjoint_kernel, "k2_chain_adjoint.cu"),
+            "k7t": (fs.K7_KERNEL + "/test", fs.run_chain_test_solve_kernel, "k7_chain_solve.cu"),
+            "k7e": (fs.K7_KERNEL + "/exact", fs.run_chain_exact_solve_kernel, "k7_chain_solve.cu")}
+
+
+def chain_records(fs, suffix, dims, runs, launches, tab=None, B=BATCH, wide=False):
+    """The chain kernels' records (their wide forms' when `wide`) at batch
+    B: `runs` maps k1c, k2c, k7t, k7e to (out_k, err, ms, plain_ms),
+    `launches` to their main-path counts; `suffix` (None: none) ends each
+    name."""
     fma = chain_fma(dims)
     dz = dims[-1]
     P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
-    meta = {
-        "k1c": (fs.K1C_KERNEL, "k1_chain_solve.cu", 1043, P + BATCH * (3 * dz + 6)),
-        "k2c": (fs.K2C_KERNEL, "k2_chain_adjoint.cu", 1767, 2 * P + BATCH * (5 * dz + 9)),
-        "k7t": (fs.K7_KERNEL + "/test", "k7_chain_solve.cu", 1043, P + BATCH * (2 * dz + 2)),
-        "k7e": (fs.K7_KERNEL + "/exact", "k7_chain_solve.cu", 1043, P + BATCH * (2 * dz + 6)),
-    }
+    floats = {"k1c": P + B * (3 * dz + 6), "k2c": 2 * P + B * (5 * dz + 9), "k7t": P + B * (2 * dz + 2),
+              "k7e": P + B * (2 * dz + 6)}
+    at = {"k1c": 1043, "k2c": 1767, "k7t": 1043, "k7e": 1043}
+    names = chain_names(fs, wide)
     records = []
     for key, (out, err, ms, pms) in runs.items():
-        name, src, at, floats = meta[key]
-        records.append(kernel_record(f"{name}/{suffix}", src, f"continuousnf_tpu/ops/fused_solve.py:{at}",
-                                     launches[key], err, ms, pms, fma[key], BATCH, steps_of(out)[0], floats, tab,
-                                     steps_of(out)[1]))
+        name, _, src = names[key]
+        records.append(kernel_record(name if suffix is None else f"{name}/{suffix}", src,
+                                     f"continuousnf_tpu/ops/fused_solve.py:{at[key]}", launches[key], err, ms, pms,
+                                     fma[key], B, steps_of(out)[0], floats[key], tab, steps_of(out)[1]))
     return records
 
 
-def chain_runs(fs, tab, spec, test, train, exact, cot, label, gate=0):
-    """The four chain kernels against their twins on one model's inputs."""
-    runs = {"k7t": run_pair(f"K7 TEST {label}", fs.run_chain_test_solve_kernel, fs.solve_test_plain, tab, spec, test,
+def chain_runs(fs, tab, spec, test, train, exact, cot, label, gate=0, wide=False):
+    """The four chain kernels (their wide forms when `wide`) against their
+    twins on one model's inputs."""
+    run = {key: wrapper for key, (_, wrapper, _) in chain_names(fs, wide).items()}
+    form = "wide " if wide else ""
+    runs = {"k7t": run_pair(f"{form}K7 TEST {label}", run["k7t"], fs.solve_test_plain, tab, spec, test, gate=gate),
+            "k7e": run_pair(f"{form}K7 exact {label}", run["k7e"], fs.solve_train_exact_plain, tab, spec, exact,
                             gate=gate),
-            "k7e": run_pair(f"K7 exact {label}", fs.run_chain_exact_solve_kernel, fs.solve_train_exact_plain, tab,
-                            spec, exact, gate=gate),
-            "k1c": run_pair(f"K1 chain form {label}", fs.run_chain_train_solve_kernel, fs.solve_train_plain, tab,
-                            spec, train, gate=gate)}
-    runs["k2c"] = run_pair(f"K2 chain form {label}", fs.run_chain_adjoint_kernel, fs.adjoint_train_plain, tab, spec,
+            "k1c": run_pair(f"{form}K1 chain form {label}", run["k1c"], fs.solve_train_plain, tab, spec, train,
+                            gate=gate)}
+    runs["k2c"] = run_pair(f"{form}K2 chain form {label}", run["k2c"], fs.adjoint_train_plain, tab, spec,
                            adjoint_kw(train, runs["k1c"][0], cot), adjoint=True, gate=gate)
     return runs
 
 
-def chain_main_path(cnf, fs, icnf, icnf_exact, ps_np, xs, dev, X):
-    """The chain kernels' main paths: serving (logpdf, sample) through K7
-    TEST, `fit` through the K1 and K2 chain forms and the exact `fit`
-    through K7 exact, each with the counters reset just before it.  Returns
-    the launch counts."""
+def chain_main_path(cnf, fs, icnf, icnf_exact, ps_np, xs, dev, X, wide=False):
+    """The chain kernels' main paths (their wide forms' when `wide`):
+    serving (logpdf, sample) through K7 TEST, `fit` at batch len(xs) through
+    the K1 and K2 chain forms and the exact `fit` through K7 exact, each with
+    the counters reset just before it and launching those kernels and no
+    other.  Returns the launch counts."""
     import torch
 
+    names = {key: name for key, (name, _, _) in chain_names(fs, wide).items()}
     ps = cnf.params_from_numpy(ps_np, dev)
     dist = cnf.ICNFDist(icnf, cnf.Mode.TEST, ps)
     fs.reset_launches()
@@ -1495,17 +1539,16 @@ def chain_main_path(cnf, fs, icnf, icnf_exact, ps_np, xs, dev, X):
         samples = dist.sample(xs.shape[0], generator=torch.Generator(device=dev).manual_seed(SEED + 50))
     torch.cuda.synchronize()
     n7t = launched(fs)
-    check(set(n7t) == {fs.K7_KERNEL + "/test"}, f"serving launched {n7t}")
+    check(set(n7t) == {names["k7t"]}, f"serving launched {n7t}")
     check(bool(torch.isfinite(lp).all() and torch.isfinite(samples).all()), "serving output not finite")
-    fit_path(cnf, fs, icnf, ps_np, dev, X)
+    fit_path(cnf, fs, icnf, ps_np, dev, X, batch_size=xs.shape[0])
     n12 = launched(fs)
-    check(set(n12) == {fs.K1C_KERNEL, fs.K2C_KERNEL} and min(n12.values()) >= N_STEPS, f"fit launched {n12}")
-    fit_path(cnf, fs, icnf_exact, ps_np, dev, X)
+    check(set(n12) == {names["k1c"], names["k2c"]} and min(n12.values()) >= N_STEPS, f"fit launched {n12}")
+    fit_path(cnf, fs, icnf_exact, ps_np, dev, X, batch_size=xs.shape[0])
     n7e = launched(fs)
-    check(set(n7e) == {fs.K7_KERNEL + "/exact"} and min(n7e.values()) >= N_STEPS, f"exact fit launched {n7e}")
+    check(set(n7e) == {names["k7e"]} and min(n7e.values()) >= N_STEPS, f"exact fit launched {n7e}")
     print(f"main paths: logpdf and sample launched {n7t}, fit {n12}, exact fit {n7e}")
-    return {"k7t": n7t[fs.K7_KERNEL + "/test"], "k1c": n12[fs.K1C_KERNEL], "k2c": n12[fs.K2C_KERNEL],
-            "k7e": n7e[fs.K7_KERNEL + "/exact"]}
+    return {"k7t": n7t[names["k7t"]], "k1c": n12[names["k1c"]], "k2c": n12[names["k2c"]], "k7e": n7e[names["k7e"]]}
 
 
 def readme_tolerances_power6(cnf, fs, dev):
@@ -1692,6 +1735,88 @@ def deep_test_gradient(cnf, fs, dev):
     print(f"power6 TEST loss fused {float(l_k):.6f} float64 {float(l_t):.6f}; K7 TEST launches {counts}")
 
 
+def miniboone(cnf, fs, dev):
+    """Phases 36 to 41: the tabular MINIBOONE model (benchmarks/tabular.py:58:
+    RNODE, MLP 43 -> 128 -> 128 -> 43 tanh, tspan (0, 1), batch 2048) through
+    the chain kernels' wide forms.  Returns their records."""
+    import torch
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    cfg = MODELS["miniboone43"]
+    dims, B = cfg["dims"], cfg["batch"]
+    rng = np.random.default_rng(SEED + 100)
+    ps_np = glorot_params(rng, dims)
+    xs = torch.from_numpy(model_data("miniboone43", rng, B)).to(dev)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    model = lambda **kw: make_icnf("miniboone43", dev, **kw)  # noqa: E731
+    icnf_k, icnf_p = model(), model(fused=False)
+    spec = fs.chain_spec(icnf_k.nn, icnf_k.zdim)
+    check(fs._wide_chain(spec) and fs._kernel_covers(fs.TSIT5, spec, chain=True) is None,
+          "the MINIBOONE chain should run the wide forms")
+
+    # Phase 36: the wide kernels' launch shapes at B = 2048.
+    arr = (ctypes.c_int * len(dims))(*dims)
+    for lib_name, fn in ((fs.K1W_KERNEL, "cnf_k1w_shape"), (fs.K2W_KERNEL, "cnf_k2w_shape"),
+                         (fs.K7W_KERNEL, "cnf_k7w_test_shape"), (fs.K7W_KERNEL, "cnf_k7w_exact_shape")):
+        out = (ctypes.c_int * 4)()
+        err = getattr(fs._library(lib_name), fn)(len(dims) - 1, arr, B, out)
+        check(err == 0 and out[1] >= 1, f"{fn}: cudaError {err}")
+        print(f"{fn} at widths {dims}, B={B}: {out[0]} threads a block, {out[1]} blocks, tile {out[2]}, "
+              f"{out[3]} bytes of dynamic shared memory")
+
+    # Phases 37 and 38: the four wide kernels against their twins (the
+    # bounds of phases 16 and 17), with their timings.
+    test, train, exact, cot = kernel_inputs(icnf_k, ps, xs, rng, dev)
+    runs = chain_runs(fs, fs.TSIT5, spec, test, train, exact, cot, "miniboone", wide=True)
+
+    # Phase 39: logpdf through the kernel against the plain path.
+    hold_logpdf(cnf, "miniboone", icnf_k, icnf_p, xs, ps)
+
+    # Phase 40: the Hutchinson and exact loss and gradient through the
+    # kernels, the plain path and a float64 rtol 1e-7 solve.
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 101)
+    eps = icnf_k.draw_eps(gen, B, dev)
+    for label, exact_trace in (("miniboone Hutchinson", False), ("miniboone exact", True)):
+        extra = {} if exact_trace else {"eps": eps}
+        fs.reset_launches()
+        l_k, g_k, m_k = loss_grad(cnf, model(exact=exact_trace), ps_np, xs, dev, **extra)
+        want = {fs.K7W_KERNEL + "/exact"} if exact_trace else {fs.K1W_KERNEL, fs.K2W_KERNEL}
+        check(set(launched(fs)) == want, f"{label}: the fused gradient launched {launched(fs)}")
+        l_p, g_p, _ = loss_grad(cnf, model(fused=False, exact=exact_trace), ps_np, xs, dev, **extra)
+        extra_t = {} if exact_trace else {"eps": eps.double()}
+        l_t, g_t, _ = loss_grad(cnf, model(fused=False, exact=exact_trace, dtype=torch.float64, solver=truth), ps_np,
+                                xs, dev, torch.float64, **extra_t)
+        torch.cuda.synchronize()
+        hold_gradients(label, l_k, g_k, l_p, g_p, l_t, g_t)
+        print(f"{label} B={B}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 {float(l_t):.6f}, "
+              f"forward NFE {int(m_k['nfe'])}")
+
+    # Phase 41: the main paths (serving, fit, exact fit at batch 2048), each
+    # with the counters reset just before it.
+    icnf_e = model(exact=True)
+    launches = chain_main_path(cnf, fs, icnf_k, icnf_e, ps_np, xs, dev, model_data("miniboone43", rng, N_STEPS * B),
+                               wide=True)
+
+    # Timings of the paths.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 102)
+    ms_step = step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 3)
+    ms_step_p = step_ms(cnf, icnf_p, ps_np, xs, gen, dev, 1, warmup=False)
+    ms_estep = step_ms(cnf, icnf_e, ps_np, xs, gen, dev, 2)
+    dist = cnf.ICNFDist(icnf_k, cnf.Mode.TEST, ps)
+    with torch.no_grad():
+        _, _, st = cnf.inference(icnf_k, cnf.Mode.TEST, xs, ps)
+        ms_lp = cuda_ms(lambda: dist.logpdf(xs), 3)
+        ms_lp_p = cuda_ms(lambda: cnf.inference(icnf_p, cnf.Mode.TEST, xs, ps), 1, warmup=False)
+    print(f"miniboone train step B={B} (loss, gradient, Lion): fused {ms_step:.4f} ms ({B / ms_step * 1e3:.1f} "
+          f"samples/s), plain {ms_step_p:.4f} ms ({B / ms_step_p * 1e3:.1f} samples/s)")
+    print(f"miniboone exact train step B={B}: fused forward, plain backward {ms_estep:.4f} ms "
+          f"({B / ms_estep * 1e3:.1f} samples/s)")
+    print(f"miniboone logpdf B={B}: kernel {ms_lp:.4f} ms ({B / ms_lp * 1e3:.1f} evals/s), plain {ms_lp_p:.4f} ms; "
+          f"steps {int(st.steps)}, NFE {int(st.nfe)}")
+    return chain_records(fs, None, dims, runs, launches, B=B, wide=True)
+
+
 def main() -> int:
     import torch
 
@@ -1711,7 +1836,8 @@ def main() -> int:
 
     t_build = time.perf_counter()
     built = _build.build_libraries([fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL,
-                                    fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL])
+                                    fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL, fs.K1W_KERNEL, fs.K2W_KERNEL,
+                                    fs.K7W_KERNEL])
     print(f"built {len(built)} kernels in {time.perf_counter() - t_build:.2f} s (one nvcc each, in parallel)")
     for name, (lib_path, log) in built.items():
         print(f"  {lib_path.name}")
@@ -1745,7 +1871,8 @@ def main() -> int:
                          ("32", lambda: readme_tolerances_power6(cnf, fs, dev)),
                          ("33", lambda: other_tableaus(cnf, fs, dev)),
                          ("34", lambda: identity_layers(cnf, fs, dev)),
-                         ("35", lambda: deep_test_gradient(cnf, fs, dev) or [])):
+                         ("35", lambda: deep_test_gradient(cnf, fs, dev) or []),
+                         ("36-41", lambda: miniboone(cnf, fs, dev))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -28,6 +28,7 @@
 //     "hidden block" holds one vector per hidden level l = 1 .. n-1, level l
 //     at hofs[l].  The pullback and the basis push read only the z rows of
 //     layer 0: the Jacobian is in z.
+// Chains past these widths run the wide forms (chain_wide.cuh).
 // The products: dz-vector times a (., DZ) row as float4 broadcasts (dot4,
 // axpy4 of solve_common.cuh), and mv_cols for hidden-to-hidden layers, which
 // keeps kChunk outputs in registers and reads each input once per chunk.

@@ -1,0 +1,155 @@
+// The wide K1 chain form: the TRAIN-mode forward solve of a CNF whose field
+// is an unconditional Dense chain of 2 to 4 tanh or identity layers with
+// state width up to 64 and hidden widths up to 128 (the tabular MINIBOONE
+// model 43 -> 128 -> 128 -> 43), one Hutchinson probe (reverse mode), the
+// whole adaptive solve (any embedded explicit tableau, K9) in one
+// cooperative launch.
+//
+// Replaces, at these widths, the TPU kernel continuousnf_tpu/ops/fused_solve.py::
+// _run_solve_kernel (pl.pallas_call at :1043) built by _make_solve_kernel
+// (:773-942) with the N-layer _stage_train stage (:333-369): _chain_fwd
+// (:272) and _probe_pullback (:291).  Per sample and field evaluation:
+//   forward   h_1 = s_0(z W_0 + b_0), h_(l+1) = s_l(h_l W_l + b_l), y = h_N;
+//   pullback  v = eps s'(y), then up the layers u_l = v_l W_l^T,
+//             v_(l-1) = u_l s'(h_l), eJ = v_0 W_0^T;
+//   rates     -<eJ, eps>, ||y|| (norm_z), ||eJ|| (norm_j) (safe norms);
+// then ONE Hairer norm over all B * (dz + 3) elements per attempted step, the
+// PI controller, FSAL or the non-FSAL refresh and the max_steps cap
+// (forward_solve_tiles of solve_common.cuh, shared with wide K7).
+//
+// Design: a block evaluates each stage for a tile of T samples (16, or 8
+// or 4 where the shared memory asks for it) through the wide chain layer of
+// chain_wide.cuh: all weights in shared memory (27,862 floats at
+// MINIBOONE), and per tile row the stage input and output and the probe
+// pieces (z, y, eps, v, eJ: 5 x 44), the hidden block (activations, then
+// the pullback's gated cotangents in place: 256 floats) and 3 rates; at
+// T = 16 that is 7,664 floats, 143 KB of shared memory in all, with the
+// weights.  B = 2048 gives 128 tiles for 132 SMs, one block each.
+// What bounds it on the H100: one field evaluation is a forward pass and one
+// pullback, 2 x 27,392 FMA per sample at MINIBOONE; a stage at B = 2048 is
+// 0.22 GFLOP, about 3.4 us at the card's f32 rate.  The tile products read
+// 8 weights and 8 float4 input broadcasts per 64 FMA from shared memory, so
+// shared-memory issue and latency, and one grid barrier per attempted step,
+// bound it.
+// Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+
+#include "chain_wide.cuh"
+
+namespace {
+
+constexpr int kStageUnroll = 4;
+constexpr int kTiles[] = {16, 8, 4};
+
+using cnf::kRedFloats;
+using cnf::kWideBlock;
+using cnf::safe_norm_sq;
+using cnf::WideLayout;
+
+struct Args {
+  cnf::FwdArgs f;
+  WideLayout L;
+  const float* params;  // [W0 | b0 | W1 | b1 | ...]
+  int T;                // samples a tile
+};
+
+// The TRAIN field of a tile: KY = y, KR = [-tr, ||y||, ||eJ||] per row.
+struct WideTrainField {
+  const WideLayout* L;
+  const float* w;    // the shared weight region
+  const float* eps;  // (B, dz)
+  float* HB;         // the tile's hidden block
+  float* E;          // (T, zp) each: eps, the gated probe, eJ
+  float* V;
+  float* EJ;
+  int T, norm_z, norm_j;
+
+  __device__ void operator()(int s0, int nv, const float* Z, float* KY, float* KR) const {
+    const WideLayout& c = *L;
+    const int dz = c.dz, zp = c.zp, on = c.act[c.n - 1];
+    cnf::wide_forward(c, w, Z, T, HB, KY);
+    for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+      const int t = idx / dz, k = idx % dz;
+      const float e = t < nv ? eps[(size_t)s0 * dz + idx] : 0.f;
+      E[t * zp + k] = e;
+      V[t * zp + k] = e * cnf::gate(KY[t * zp + k], on);
+    }
+    __syncthreads();
+    cnf::wide_pullback(c, w, V, T, HB, EJ);
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      float ysq = 0.f, tr = 0.f, nsq = 0.f;
+      for (int k = 0; k < dz; ++k) {
+        const float y = KY[t * zp + k], ej = EJ[t * zp + k];
+        ysq = fmaf(y, y, ysq);
+        tr = fmaf(ej, E[t * zp + k], tr);
+        nsq = fmaf(ej, ej, nsq);
+      }
+      KR[t * 3 + 0] = -tr;
+      KR[t * 3 + 1] = norm_z ? safe_norm_sq(ysq) : 0.f;
+      KR[t * 3 + 2] = norm_j ? safe_norm_sq(nsq) : 0.f;
+    }
+    __syncthreads();
+  }
+};
+
+__host__ __device__ inline size_t tile_floats(const WideLayout& L, int T) {
+  return (size_t)T * (2 * L.zp + 3) + (size_t)T * (L.hsum + 3 * L.zp);
+}
+
+__global__ void __launch_bounds__(kWideBlock) k1_wide_solve(const Args p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ WideLayout L;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T;
+  float* w = smem;
+  float* red = w + L.wfloats;
+  float* scratch = red + kRedFloats;  // the solver's Z, KY, KR
+  float* HB = scratch + T * (2 * L.zp + 3);
+  float* E = HB + T * L.hsum;
+  float* V = E + T * L.zp;
+  float* EJ = V + T * L.zp;
+  cnf::load_wide_weights(p.params, L, w);
+  __syncthreads();
+  const WideTrainField field{&L, w, p.f.eps, HB, E, V, EJ, T, p.f.norm_z, p.f.norm_j};
+  cnf::forward_solve_tiles<3, kStageUnroll>(p.f, field, T, scratch, red);
+}
+
+size_t smem_bytes(const WideLayout& L, int T) {
+  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + tile_floats(L, T));
+}
+
+}  // namespace
+
+// The launch shape at batch B: out = {threads per block, blocks, samples a
+// tile, dynamic shared memory bytes}, the largest tile whose shared memory
+// leaves a co-resident grid.  widths: n + 1 level widths (host memory).
+// Returns a cudaError_t (cudaErrorInvalidValue for a chain not covered).
+extern "C" int cnf_k1w_shape(int n, const int* widths, int B, int* out) {
+  WideLayout L;
+  if (B < 1 || !cnf::make_wide_layout(n, widths, &L)) return (int)cudaErrorInvalidValue;
+  size_t smem[3];
+  for (int o = 0; o < 3; ++o) smem[o] = smem_bytes(L, kTiles[o]);
+  return cnf::wide_shape(k1_wide_solve, smem, kTiles, kTiles, 3, B, out);
+}
+
+// params: [W0 | b0 | ...] flat (device); eps, z0: (B, dz); acts: bit i set
+// where layer i is tanh (else identity); acc0/accT: (3, B), rows [dlogp |
+// reg_e | reg_n]; dt_last: (2), the next step size and the last step taken;
+// work: (S + 2) (dz + 3) B floats; partials: 6 grid.  tab: kTableauFloats
+// floats (read_tableau).  T, grid, block: from cnf_k1w_shape.  Returns the
+// launch's cudaError_t.
+extern "C" int cnf_k1w_train_solve(const float* params, const float* eps, const float* z0, const float* acc0,
+                                   const float* ts, float* zT, float* accT, int* stats, float* dt_last, float* work,
+                                   float* partials, int B, int n, const int* widths, int acts, int max_steps,
+                                   int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
+                                   float inv_order, const float* tab, int T, int grid, int block, void* stream) {
+  Args a = {};
+  if (block != kWideBlock || grid < 1 || T < cnf::kRows || T % cnf::kRows != 0 ||
+      !cnf::make_wide_layout(n, widths, &a.L))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_wide_acts(&a.L, acts);
+  cnf::set_fwd_args(&a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n], max_steps,
+                    norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
+  a.params = params;
+  a.T = T;
+  return (int)cnf::coop_launch(k1_wide_solve, a, grid, block, smem_bytes(a.L, T), (cudaStream_t)stream);
+}

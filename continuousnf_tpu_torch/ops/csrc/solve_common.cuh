@@ -6,7 +6,9 @@
 // the whole adaptive forward solve of a per-sample field (K3, K1, the K4
 // forward, the K1 chain form and K7) and the whole adaptive backsolve of a
 // per-sample augmented stage with a batch-summed gradient (K2, the K4
-// adjoint and the K2 chain form).
+// adjoint and the K2 chain form), and both solves' block-cooperative forms,
+// which evaluate a stage for a tile of samples at once (the wide chain
+// kernels; the section at the end).
 //
 // The forward solve keeps the state [z (dz rows) | accumulators (NACC rows)]
 // in a global scratch laid out (row, B), so a warp's accesses are coalesced.
@@ -720,6 +722,433 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
     for (int c = 0; c < nc; ++c) p.ays0[(size_t)s * nc + c] = Y[(size_t)(2 * dz + 3 + c) * B + s];
   }
   if (gtid == 0) {
+    p.stats[0] = c.steps;
+    p.stats[1] = c.accepted;
+  }
+}
+
+// ---- the block-cooperative solves (the wide chain kernels) ----
+//
+// The same solves, with a block evaluating each stage for a tile of T
+// samples at once (tile k: samples kT .. kT + T - 1, the last one ragged;
+// block b takes tiles b, b + gridDim.x, ...), so the field's vectors live in
+// the block's shared memory and not in one thread's registers.  The
+// controller, the tableau in shared memory, the parity-indexed partials,
+// the one batch-global Hairer norm and the fixed-order grid sums are
+// forward_solve's and adjoint_solve's; the state, proposal and stage planes
+// stay in the (row, B) global layout.  A tile's stage input and output move
+// between the planes and the tile's (T, tile_pitch(dz)) shared arrays, T rows a
+// column (coalesced in runs of T).  Rows t >= nv of a ragged tile hold
+// zeros as input; their outputs are not stored.
+
+// The row pitch of a tile's (T, width) arrays: width rounded up to 4, so
+// every row starts 16-byte aligned for float4 reads.
+__host__ __device__ inline int tile_pitch(int width) { return (width + 3) / 4 * 4; }
+
+// dst[t * zp + i] = Y[row0 + i][s] + sum_(j < st) dt a[st][j] K_j[row0 + i][s]
+// for i < nrows, s = s0 + t, t < nv; 0 for nv <= t < T.
+template <int U>
+__device__ void tile_stage_input(const Tableau& Tb, int st, float dt_use, const float* Y, const float* K, size_t RB,
+                                 int B, int row0, int nrows, int s0, int nv, int T, float* dst, int zp) {
+  for (int idx = threadIdx.x; idx < nrows * T; idx += blockDim.x) {
+    const int i = idx / T, t = idx % T;
+    float v = 0.f;
+    if (t < nv) {
+      const size_t o = (size_t)(row0 + i) * B + s0 + t;
+      v = Y[o];
+#pragma unroll (U)
+      for (int j = 0; j < st; ++j) {
+        const float a = Tb.a[st][j];
+        if (a != 0.f) v = fmaf(dt_use * a, K[j * RB + o], v);
+      }
+    }
+    dst[t * zp + i] = v;
+  }
+}
+
+// kst[row0 + i][s0 + t] = src[t * pitch + i] for i < nrows, t < nv.
+__device__ inline void tile_store(const float* src, int pitch, int nrows, float* kst, int row0, int B, int s0,
+                                  int nv, int T) {
+  for (int idx = threadIdx.x; idx < nrows * T; idx += blockDim.x) {
+    const int i = idx / T, t = idx % T;
+    if (t < nv) kst[(size_t)(row0 + i) * B + s0 + t] = src[t * pitch + i];
+  }
+}
+
+// f(r, s) for each row r < R and sample s of the tile (s < B), the block's
+// threads over (r, s) with s fastest.
+template <class F>
+__device__ __forceinline__ void tile_entries(int tile, int T, int B, int R, const F& f) {
+  const int s0 = tile * T, nv = min(T, B - s0);
+  for (int idx = threadIdx.x; idx < R * T; idx += blockDim.x) {
+    const int t = idx % T;
+    if (t < nv) f(idx / T, s0 + t);
+  }
+}
+
+// The proposal Y + dt sum_i b_i K_i of the plane entry o into Yn, and its
+// error's share of the sums of squares (the btilde one, and the btilde3 one
+// when has3).  Returns the proposal.
+template <int U>
+__device__ __forceinline__ float propose(const Tableau& Tb, float dt_use, bool has3, const float* Y, const float* K,
+                                         size_t RB, size_t o, float rtol, float atol, float* Yn, float* sumsq,
+                                         float* sumsq3) {
+  const float y = Y[o];
+  float yn = y, err = 0.f, err3 = 0.f;
+#pragma unroll (U)
+  for (int st = 0; st < Tb.S; ++st) {
+    const float k = K[st * RB + o];
+    if (Tb.b[st] != 0.f) yn = fmaf(dt_use * Tb.b[st], k, yn);
+    if (Tb.btilde[st] != 0.f) err = fmaf(dt_use * Tb.btilde[st], k, err);
+    if (has3 && Tb.btilde3[st] != 0.f) err3 = fmaf(dt_use * Tb.btilde3[st], k, err3);
+  }
+  Yn[o] = yn;
+  const float sc = atol + rtol * fmaxf(fabsf(y), fabsf(yn));
+  const float q = err / sc;
+  *sumsq = fmaf(q, q, *sumsq);
+  if (has3) {
+    const float q3 = err3 / sc;
+    *sumsq3 = fmaf(q3, q3, *sumsq3);
+  }
+  return yn;
+}
+
+// The forward solve of forward_solve with a tile field:
+// `field(s0, nv, Z, KY, KR)` evaluates the rows t < T of the tile at
+// samples s0 .. s0 + nv - 1 from Z (T, tile_pitch(dz)) into KY (same) and
+// the accumulator rates KR (T, NACC), block-wide, ending with a barrier.
+// scratch: T (2 tile_pitch(dz) + NACC) floats of shared memory for Z, KY
+// and KR.
+template <int NACC, int U, class Field>
+__device__ void forward_solve_tiles(const FwdArgs& p, const Field& field, int T, float* scratch, float* red) {
+  cg::grid_group grid = cg::this_grid();
+  const Tableau& Tb = share_tableau(p.tab);
+  const int S = Tb.S;
+  const bool has3 = Tb.has3 != 0;
+  const bool fsal = Tb.fsal != 0;
+  const int dz = p.dz, B = p.B, R = dz + NACC, zp = tile_pitch(dz);
+  const int ntiles = (B + T - 1) / T;
+  const size_t RB = (size_t)R * B;
+  float* Y = p.work;
+  float* Yn = Y + RB;
+  float* K = Yn + RB;
+  float* Z = scratch;
+  float* KY = Z + T * zp;
+  float* KR = KY + T * zp;
+
+  // Stage st of the tile (st = 0: the field at Y) into the plane K[st].
+  auto eval = [&](int tile, int st, float dt_use) {
+    const int s0 = tile * T, nv = min(T, B - s0);
+    tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, 0, dz, s0, nv, T, Z, zp);
+    __syncthreads();
+    field(s0, nv, Z, KY, KR);
+    float* kst = K + st * RB;
+    tile_store(KY, zp, dz, kst, 0, B, s0, nv, T);
+    tile_store(KR, NACC, NACC, kst, dz, B, s0, nv, T);
+    __syncthreads();
+  };
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    tile_entries(tile, T, B, R, [&](int r, int s) {
+      Y[(size_t)r * B + s] = r < dz ? p.z0[(size_t)s * dz + r] : p.acc0[(size_t)(r - dz) * B + s];
+    });
+    __syncthreads();
+    eval(tile, 0, 0.f);
+  }
+
+  Controller c;
+  c.init(p.ts, p.beta1, p.beta2, p.inv_order);
+  const float n_elems = (float)RB;
+  float dt_taken = 0.f;
+
+  while (c.running(p.max_steps)) {
+    bool is_last;
+    const float dt_use = c.plan(&is_last);
+    dt_taken = dt_use;
+
+    float sumsq = 0.f, sumsq3 = 0.f;
+    bool finite = true;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+#pragma unroll 1
+      for (int st = 1; st < S; ++st) eval(tile, st, dt_use);
+      tile_entries(tile, T, B, R, [&](int r, int s) {
+        const float yn = propose<U>(Tb, dt_use, has3, Y, K, RB, (size_t)r * B + s, p.rtol, p.atol, Yn, &sumsq,
+                                    &sumsq3);
+        finite = finite && isfinite(yn);
+      });
+    }
+
+    const int par = c.steps & 1;
+    write_block_partial(sumsq, sumsq3, has3, finite, p.partials, par, red);
+    grid.sync();
+    float total, total3;
+    bool all_finite;
+    read_grid_total(p.partials, par, has3, red, &total, &total3, &all_finite);
+    float eest = sqrtf(total / n_elems);
+    if (has3) eest = stretched_eest(eest, sqrtf(total3 / n_elems));
+    if (c.update(eest, all_finite, dt_use, is_last)) {
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        tile_entries(tile, T, B, R, [&](int r, int s) {
+          const size_t o = (size_t)r * B + s;
+          Y[o] = Yn[o];
+          if (fsal) K[o] = K[(S - 1) * RB + o];
+        });
+        if (!fsal) {
+          __syncthreads();
+          eval(tile, 0, 0.f);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    tile_entries(tile, T, B, R, [&](int r, int s) {
+      const float v = Y[(size_t)r * B + s];
+      if (r < dz)
+        p.zT[(size_t)s * dz + r] = v;
+      else
+        p.accT[(size_t)(r - dz) * B + s] = v;
+    });
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    p.stats[0] = c.steps;
+    p.stats[1] = c.accepted;
+    p.dt_last[0] = c.dt;
+    p.dt_last[1] = dt_taken;
+  }
+}
+
+// The backsolve of adjoint_solve (unconditional: nc = 0) with a tile stage.
+// `stage(s0, nv, Z, AZ, KZ, KR, KAZ)` evaluates the augmented stage of the
+// tile's rows from Z and AZ ((T, tile_pitch(dz)): z and a_z) into KZ, KAZ
+// (the same: the field and k_az = -ct_z) and KR (T, 3), block-wide,
+// ending with a barrier, and leaves in shared memory what
+// `grad(q, nv)` reads: the tile's sum over its first nv rows of the negated
+// g rate entry q.  scratch: T (4 tile_pitch(dz) + 3) floats of shared
+// memory.
+//
+// The g reduction.  Each block adds its samples' b-, btilde- (and, for
+// dop853, btilde3-) weighted g rates into its own vectors of gblk
+// ([gridDim.x][(NG + 2) Pg]: GB | GE | GE3 | two stage-rate partials: stage
+// 1's and the last stage's, swapped on an FSAL accept).  After the grid
+// barrier block b reduces only its slice q0 .. q1 - 1 of g (Pg / gridDim.x
+// entries): it sums all blocks' vectors there in block order, writes the
+// proposal to gnew and its slice's error sum of squares into the partials,
+// and a second grid barrier makes those visible: every block then adds the
+// per-sample sums and the slice sums in block order, so every block holds
+// the same norm and takes the same decision.  A block reads NG Pg floats of
+// vectors per attempted step, where adjoint_solve's every block reads all
+// G NG Pg (58 MB a step at the MINIBOONE width).  g itself lives in gcur
+// (Pg floats, global), each entry read and written by its slice's block
+// only; on return it holds the gradient.  partials: [parity][sum | sum3 |
+// flag | gsum | gsum3][gridDim.x].  GB and GE need no parity: a block
+// rewrites them only after the second barrier, which every block reaches
+// after its slice's sums.
+template <int U, class Stage, class Grad>
+__device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const Grad& grad, int Pg, int T,
+                                    float* scratch, float* gblk, float* gcur, float* gnew, float* red) {
+  cg::grid_group grid = cg::this_grid();
+  const Tableau& Tb = share_tableau(p.tab);
+  __shared__ float gtot[2];
+  const int S = Tb.S;
+  const bool has3 = Tb.has3 != 0;
+  const bool fsal = Tb.fsal != 0;
+  const int NG = has3 ? 3 : 2;
+  const int dz = p.dz, B = p.B, G = gridDim.x, zp = tile_pitch(dz);
+  const int ntiles = (B + T - 1) / T;
+  const int R = 2 * dz + 3;  // rows: z, acc, a_z
+  const size_t RB = (size_t)R * B;
+  float* Y = p.work;
+  float* Yn = Y + RB;
+  float* K = Yn + RB;
+  float* Z = scratch;
+  float* AZ = Z + T * zp;
+  float* KZ = AZ + T * zp;
+  float* KAZ = KZ + T * zp;
+  float* KR = KAZ + T * zp;
+  const size_t bstride = (size_t)(NG + 2) * Pg;
+  float* GB = gblk + blockIdx.x * bstride;
+  float* GE = GB + Pg;
+  float* GE3 = GE + Pg;
+  float* k1p = GB + (size_t)NG * Pg;  // this block's stage-1 g rate partial
+  float* k7p = k1p + Pg;              // and its last stage's
+  const int q0 = (int)((long long)Pg * blockIdx.x / G), q1 = (int)((long long)Pg * (blockIdx.x + 1) / G);
+
+  // Stage st of the tile (st = 0: at Y) into the plane K[st].
+  auto eval = [&](int tile, int st, float dt_use) {
+    const int s0 = tile * T, nv = min(T, B - s0);
+    tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, 0, dz, s0, nv, T, Z, zp);
+    tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, dz + 3, dz, s0, nv, T, AZ, zp);
+    __syncthreads();
+    stage(s0, nv, Z, AZ, KZ, KR, KAZ);
+    float* kst = K + st * RB;
+    tile_store(KZ, zp, dz, kst, 0, B, s0, nv, T);
+    tile_store(KR, 3, 3, kst, dz, B, s0, nv, T);
+    tile_store(KAZ, zp, dz, kst, dz + 3, B, s0, nv, T);
+    return nv;
+  };
+  // Stage 1 at the current state, its g rate partial into k1p.
+  auto stage1 = [&]() {
+    for (int q = threadIdx.x; q < Pg; q += blockDim.x) k1p[q] = 0.f;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int nv = eval(tile, 0, 0.f);
+      for (int q = threadIdx.x; q < Pg; q += blockDim.x) k1p[q] += grad(q, nv);
+      __syncthreads();
+    }
+  };
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    tile_entries(tile, T, B, R, [&](int r, int s) {
+      Y[(size_t)r * B + s] = r < dz       ? p.zT[(size_t)s * dz + r]
+                             : r < dz + 3 ? p.accT[(size_t)(r - dz) * B + s]
+                                          : p.azT[(size_t)s * dz + r - dz - 3];
+    });
+  }
+  for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x) gcur[q] = 0.f;
+  __syncthreads();
+  stage1();
+
+  Controller c;
+  c.init(p.ts, p.beta1, p.beta2, p.inv_order);
+  const float n_elems = (float)B * (float)(2 * (dz + 3)) + (float)Pg;
+
+  while (c.running(p.max_steps)) {
+    bool is_last;
+    const float dt_use = c.plan(&is_last);
+    const int par = c.steps & 1;
+    const float cb0 = dt_use * Tb.b[0], ce0 = dt_use * Tb.btilde[0], ce30 = dt_use * Tb.btilde3[0];
+    for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
+      GB[q] = cb0 * k1p[q];
+      GE[q] = ce0 * k1p[q];
+      if (has3) GE3[q] = ce30 * k1p[q];
+      k7p[q] = 0.f;
+    }
+
+    float sumsq = 0.f, sumsq3 = 0.f;
+    bool finite = true;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+#pragma unroll 1
+      for (int st = 1; st < S; ++st) {
+        const int nv = eval(tile, st, dt_use);
+        const float bs = Tb.b[st], bt = Tb.btilde[st], bt3 = Tb.btilde3[st];
+        const float cb = dt_use * bs, ce = dt_use * bt, ce3 = dt_use * bt3;
+        const bool last = fsal && st == S - 1;
+        // kG entries a thread at a time: their global vectors are loaded
+        // before the rates are summed, so the loads' latency overlaps.
+        constexpr int kG = 4;
+        for (int q0 = threadIdx.x; q0 < Pg; q0 += kG * blockDim.x) {
+          float vb[kG], ve[kG], ve3[kG], v7[kG];
+#pragma unroll
+          for (int j = 0; j < kG; ++j) {
+            const int q = q0 + j * blockDim.x;
+            if (q >= Pg) continue;
+            vb[j] = GB[q];
+            ve[j] = GE[q];
+            if (has3) ve3[j] = GE3[q];
+            if (last) v7[j] = k7p[q];
+          }
+#pragma unroll
+          for (int j = 0; j < kG; ++j) {
+            const int q = q0 + j * blockDim.x;
+            if (q >= Pg) continue;
+            const float g = grad(q, nv);
+            if (bs != 0.f) GB[q] = fmaf(cb, g, vb[j]);
+            if (bt != 0.f) GE[q] = fmaf(ce, g, ve[j]);
+            if (has3 && bt3 != 0.f) GE3[q] = fmaf(ce3, g, ve3[j]);
+            if (last) k7p[q] = v7[j] + g;
+          }
+        }
+        __syncthreads();
+      }
+      // The tile's proposals and errors: z, acc and a_z rows (a_acc is
+      // constant: zero error, but counted in n_elems).
+      tile_entries(tile, T, B, R, [&](int r, int s) {
+        const float yn = propose<U>(Tb, dt_use, has3, Y, K, RB, (size_t)r * B + s, p.rtol, p.atol, Yn, &sumsq,
+                                    &sumsq3);
+        if (r < dz || r >= dz + 3) finite = finite && isfinite(yn);
+      });
+    }
+
+    float* slots = p.partials + (size_t)(5 * par) * G;
+    write_block_partial(sumsq, sumsq3, has3, finite, slots, 0, red);
+    grid.sync();
+    // This block's slice of g: all blocks' vectors summed in block order.
+    float gsq = 0.f, gsq3 = 0.f;
+    for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x) {
+      float gs = 0.f, es = 0.f, es3 = 0.f;
+#pragma unroll 8
+      for (int g = 0; g < G; ++g) {
+        const float* base = gblk + g * bstride;
+        gs += __ldcg(base + q);
+        es += __ldcg(base + Pg + q);
+        if (has3) es3 += __ldcg(base + 2 * Pg + q);
+      }
+      const float gn = gcur[q] + gs;
+      gnew[q] = gn;
+      const float sc = p.atol + p.rtol * fmaxf(fabsf(gcur[q]), fabsf(gn));
+      const float qv = es / sc;
+      gsq = fmaf(qv, qv, gsq);
+      if (has3) {
+        const float q3 = es3 / sc;
+        gsq3 = fmaf(q3, q3, gsq3);
+      }
+    }
+    gsq = block_sum(gsq, red);
+    if (has3) gsq3 = block_sum(gsq3, red);
+    if (threadIdx.x == 0) {
+      slots[3 * G + blockIdx.x] = gsq;
+      slots[4 * G + blockIdx.x] = gsq3;
+    }
+    grid.sync();
+    float total, total3;
+    bool all_finite;
+    read_grid_total(slots, 0, has3, red, &total, &total3, &all_finite);
+    if (threadIdx.x == 0) {
+      float tg = 0.f, tg3 = 0.f;
+      for (int g = 0; g < G; ++g) tg += __ldcg(slots + 3 * G + g);
+      if (has3)
+        for (int g = 0; g < G; ++g) tg3 += __ldcg(slots + 4 * G + g);
+      gtot[0] = tg;
+      gtot[1] = tg3;
+    }
+    __syncthreads();
+    float eest = sqrtf((total + gtot[0]) / n_elems);
+    if (has3) eest = stretched_eest(eest, sqrtf((total3 + gtot[1]) / n_elems));
+    __syncthreads();
+    if (c.update(eest, all_finite, dt_use, is_last)) {
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        tile_entries(tile, T, B, R, [&](int r, int s) {
+          const size_t off = (size_t)r * B + s;
+          Y[off] = Yn[off];
+          if (fsal) K[off] = K[(S - 1) * RB + off];
+        });
+      }
+      for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x) gcur[q] = gnew[q];
+      if (fsal) {
+        float* tmp = k1p;
+        k1p = k7p;
+        k7p = tmp;
+      } else {
+        __syncthreads();
+        stage1();
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    tile_entries(tile, T, B, R, [&](int r, int s) {
+      const float v = Y[(size_t)r * B + s];
+      if (r < dz)
+        p.z0[(size_t)s * dz + r] = v;
+      else if (r < dz + 3)
+        p.acc0[(size_t)(r - dz) * B + s] = v;
+      else
+        p.az0[(size_t)s * dz + r - dz - 3] = v;
+    });
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
     p.stats[0] = c.steps;
     p.stats[1] = c.accepted;
   }

@@ -11,7 +11,7 @@ hand-derived stage VJP `_stage_train_fwdbwd` (:372-481), the exact stages
 conditioning rows of `_zin` (:265-269) in every stage, in batch-major
 layout.
 
-Eight CUDA kernels (`csrc/`), each with a plain PyTorch twin; five for
+Eleven CUDA kernels (`csrc/`), each with a plain PyTorch twin; five for
 2-layer tanh MLPs:
 - K3 (`k3_test_solve.cu`, `run_solve_kernel`, twin `solve_test_plain`) for
   `_run_solve_kernel` with `_stage_test`: the TEST solve of [z | dlogp];
@@ -37,7 +37,14 @@ sharing the chain layer of `csrc/chain_common.cuh`:
 - K7 (`k7_chain_solve.cu`) for `_stage_exact_chain` (TEST,
   `run_chain_test_solve_kernel`, twin `solve_test_plain`) and
   `_stage_train_exact_chain` (exact TRAIN, `run_chain_exact_solve_kernel`,
-  twin `solve_train_exact_plain`).
+  twin `solve_train_exact_plain`);
+and the wide forms of those three for unconditional chains past their
+widths (state widths to WIDE_MAX_DZ, hidden widths to WIDE_MAX_WIDTH: the
+tabular MINIBOONE model), sharing the block-cooperative chain layer of
+`csrc/chain_wide.cuh`, with the same twins: `k1_wide_solve.cu`
+(`run_wide_train_solve_kernel`), `k2_wide_adjoint.cu`
+(`run_wide_adjoint_kernel`) and `k7_wide_solve.cu` (TEST,
+`run_wide_test_solve_kernel`; exact, `run_wide_exact_solve_kernel`).
 Each runs one whole adaptive solve in one cooperative launch, with one
 batch-global error norm per attempted step, under any explicit tableau with
 an embedded error estimate (K9: `_stretched_eest` :766-770 and the non-FSAL
@@ -47,9 +54,10 @@ first layer reads [z | ys], ys constant over the solve; the K2 chain form
 integrates the per-sample ys cotangent) and identity layers (K9,
 `ChainSpec.acts` :104-111).  `make_full_solve` takes the chain kernels for
 chains of 3 or more layers, for every conditional net and for every net
-with an identity layer, the 2-layer kernels for unconditional 2-layer tanh
-nets.  The forward kernels return the last step they took beside the next
-step size (`utils/near_tie.py` reads it).
+with an identity layer (their wide forms past the narrow widths), the
+2-layer kernels for unconditional 2-layer tanh nets.  The forward kernels
+return the last step they took beside the next step size
+(`utils/near_tie.py` reads it).
 
 A wrapper launches its kernel for CUDA tensors and runs its twin for CPU
 tensors.  On a CUDA tensor there is no fallback: a configuration the kernel
@@ -77,14 +85,23 @@ K4A_KERNEL = "k4_exact_adjoint"
 K1C_KERNEL = "k1_chain_solve"
 K2C_KERNEL = "k2_chain_adjoint"
 K7_KERNEL = "k7_chain_solve"
+K1W_KERNEL = "k1_wide_solve"
+K2W_KERNEL = "k2_wide_adjoint"
+K7W_KERNEL = "k7_wide_solve"
 
 #: The chain kernels (the K1 and K2 chain forms, K7) take tanh chains of 2
 #: to CHAIN_MAX_LAYERS layers with hidden widths up to CHAIN_MAX_WIDTH,
 #: conditional or not, and every kernel a state width up to MAX_DZ
-#: (csrc/chain_common.cuh).
+#: (csrc/chain_common.cuh).  Their wide forms take unconditional chains of
+#: as many layers with state widths up to WIDE_MAX_DZ and hidden widths up
+#: to WIDE_MAX_WIDTH (csrc/chain_wide.cuh), where a block's shared memory
+#: (WIDE_SMEM_BYTES) holds all the weights beside a tile of samples.
 CHAIN_MAX_LAYERS = 4
 CHAIN_MAX_WIDTH = 64
 MAX_DZ = 32
+WIDE_MAX_DZ = 64
+WIDE_MAX_WIDTH = 128
+WIDE_SMEM_BYTES = 232_448
 
 
 class ChainSpec(NamedTuple):
@@ -608,17 +625,40 @@ def adjoint_train_exact_plain(
 MAX_STAGES = 13
 
 
+def _wide_chain(spec: ChainSpec) -> bool:
+    """Whether a chain is past the narrow chain kernels' widths, so that the
+    chain kernels' wide forms run it."""
+    return spec.dz > MAX_DZ or max(spec.out_dims[:-1], default=0) > CHAIN_MAX_WIDTH
+
+
+def _wide_smem_floats(spec: ChainSpec) -> int:
+    """Shared-memory floats of the wide K2 chain form, the widest of the wide
+    forms, at its smallest tile of 4 samples (csrc/k2_wide_adjoint.cu): the
+    weights at odd pitches, the reduction slots and 4 rows of 9 dz-vectors
+    and 4 hidden blocks (each row padded to a multiple of 4) and 7 floats."""
+    def pad4(x):
+        return -(-x // 4) * 4
+
+    weights = sum(a * (b | 1) + b for a, b in zip(spec.in_dims, spec.out_dims))
+    hsum = sum(pad4(h) for h in spec.out_dims[:-1])
+    return pad4(weights) + 100 + 4 * (9 * pad4(spec.dz) + 4 * hsum + 7)
+
+
 def _kernel_covers(
     tab: ButcherTableau, spec: ChainSpec, k_probes: int = 1, chain: bool = False
 ) -> Optional[str]:
     """Why the 2-layer kernels (K3, K1, K2, K4; `chain` False) or the chain
-    kernels (the K1 and K2 chain forms, K7; `chain` True) do not run this
-    configuration (None if they do).  Both take every embedded explicit
-    tableau (K9).  The 2-layer kernels take unconditional 2-layer tanh
-    chains; the chain kernels take Dense chains of 2 to CHAIN_MAX_LAYERS
-    tanh or identity layers (K9) with hidden widths up to CHAIN_MAX_WIDTH,
-    conditional ones (K8) included; a chain whose weights and per-thread
-    slots do not fit in shared memory is refused at launch (`_launch_shape`)."""
+    kernels (the K1 and K2 chain forms, K7, narrow or wide; `chain` True) do
+    not run this configuration (None if they do).  Both take every embedded
+    explicit tableau (K9).  The 2-layer kernels take unconditional 2-layer
+    tanh chains with state widths up to MAX_DZ; the chain kernels take Dense
+    chains of 2 to CHAIN_MAX_LAYERS tanh or identity layers (K9): their
+    narrow forms with hidden widths up to CHAIN_MAX_WIDTH and state widths up
+    to MAX_DZ, conditional ones (K8) included, and their wide forms the
+    unconditional chains beyond, up to WIDE_MAX_DZ and WIDE_MAX_WIDTH, whose
+    weights fit in a block's shared memory beside a tile; a narrow chain
+    whose weights and per-thread slots do not fit in shared memory is
+    refused at launch (`_launch_shape`)."""
     if tab.btilde is None:
         return f"the {tab.name} tableau (no embedded error estimate: fixed-step solves stay outside the kernels)"
     if tab.num_stages > MAX_STAGES:
@@ -629,19 +669,34 @@ def _kernel_covers(
         return "conditional nets (K8 in the 2-layer kernels, ROADMAP queue 2)"
     if k_probes != 1:
         return f"{k_probes} Hutchinson probes (K6, ROADMAP queue 2)"
-    if spec.dz > MAX_DZ:
-        return f"state width {spec.dz} > {MAX_DZ} (the kernels keep one sample's state in registers; ROADMAP queue 2)"
     if spec.n_layers == 1:
-        return f"1-layer nets (the kernels take 2 to {CHAIN_MAX_LAYERS} layers)"
+        return (f"1-layer nets (the kernels take 2 to {CHAIN_MAX_LAYERS} layers; 1-layer nets: ROADMAP queue 2, "
+                "shape variants)")
     if not chain:
+        if spec.dz > MAX_DZ:
+            return (f"state width {spec.dz} > {MAX_DZ} in K3, K1, K2 and K4 (they keep one sample's state in "
+                    "registers; 2-layer nets of a wider state: ROADMAP queue 2, shape variants)")
         if spec.n_layers != 2:
             return f"{spec.n_layers}-layer chains (K3, K1, K2 and K4 take 2 layers; the chain kernels take deeper ones)"
         return None
     if spec.n_layers > CHAIN_MAX_LAYERS:
-        return f"{spec.n_layers}-layer chains (the chain kernels take at most {CHAIN_MAX_LAYERS} layers)"
+        return (f"{spec.n_layers}-layer chains (the chain kernels take at most {CHAIN_MAX_LAYERS} layers; "
+                "deeper chains: ROADMAP queue 2, shape variants)")
+    if not _wide_chain(spec):
+        return None
+    if spec.dz > WIDE_MAX_DZ:
+        return (f"state width {spec.dz} > {WIDE_MAX_DZ} (the wide chain forms take up to {WIDE_MAX_DZ}; "
+                "ROADMAP queue 2, shape variants)")
     wide = max(spec.out_dims[:-1])
-    if wide > CHAIN_MAX_WIDTH:
-        return f"hidden width {wide} > {CHAIN_MAX_WIDTH} (the chain kernels keep a sample's hidden vectors in shared memory)"
+    if wide > WIDE_MAX_WIDTH:
+        return (f"hidden width {wide} > {WIDE_MAX_WIDTH} (the wide chain forms take up to {WIDE_MAX_WIDTH}; "
+                "ROADMAP queue 2, shape variants)")
+    if spec.n_cond:
+        return "conditional wide chains (K8 in the wide chain forms, ROADMAP queue 2, shape variants)"
+    need = 4 * _wide_smem_floats(spec)
+    if need > WIDE_SMEM_BYTES:
+        return (f"weights too large for the wide chain forms' shared memory ({need} bytes with a 4-sample tile, "
+                f"over {WIDE_SMEM_BYTES}; chains of larger weights: ROADMAP queue 2, shape variants)")
     return None
 
 
@@ -687,6 +742,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _CHAIN_GRID = ([_I, _IP, _I, _IP], _I)
 _CHAIN_SMEM = ([_I, _IP, _I], ctypes.c_longlong)
 _TAIL = [_F] * 5 + [_P, _I, _I, _P]
+_WIDE_TAIL = [_F] * 5 + [_P, _I, _I, _I, _P]  # the tableau, the tile, grid, block, stream
+_WIDE_SHAPE = ([_I, _IP, _I, _IP], _I)
 _SIGNATURES = {
     K3_KERNEL: {
         "cnf_k3_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
@@ -725,6 +782,20 @@ _SIGNATURES = {
         "cnf_k2c_max_grid": _CHAIN_GRID,
         "cnf_k2c_smem_bytes": _CHAIN_SMEM,
         "cnf_k2c_train_adjoint": ([_P] * 18 + [_I, _I, _IP, _I, _I, _I, _I] + _TAIL, _I),
+    },
+    K1W_KERNEL: {
+        "cnf_k1w_shape": _WIDE_SHAPE,
+        "cnf_k1w_train_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+    },
+    K7W_KERNEL: {
+        "cnf_k7w_test_shape": _WIDE_SHAPE,
+        "cnf_k7w_exact_shape": _WIDE_SHAPE,
+        "cnf_k7w_test_solve": ([_P] * 10 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k7w_exact_solve": ([_P] * 10 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+    },
+    K2W_KERNEL: {
+        "cnf_k2w_shape": _WIDE_SHAPE,
+        "cnf_k2w_train_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
 }
 
@@ -787,10 +858,19 @@ def _controller_floats(tab):
     return 7.0 / (10.0 * tab.order), 2.0 / (5.0 * tab.order), 1.0 / tab.order
 
 
-def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain: bool = False) -> None:
+def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain: bool = False,
+               wide: bool = False) -> None:
+    """Raise unless `label`'s kernel takes the configuration on CUDA tensors:
+    a chain kernel's narrow form (`wide` False) takes no wide chain, its
+    wide form any chain the chain kernels cover unconditionally."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
     why = _kernel_covers(tab, spec, k_probes, chain)
+    if why is None and chain and not wide and _wide_chain(spec):
+        why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the narrow chain kernels (up to "
+               f"{MAX_DZ} and {CHAIN_MAX_WIDTH}: their wide forms take the chain)")
+    if why is None and wide and spec.n_cond:
+        why = "conditional wide chains (K8 in the wide chain forms, ROADMAP queue 2, shape variants)"
     if why is not None:
         raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
@@ -1293,6 +1373,187 @@ def run_chain_adjoint_kernel(
 run_chain_adjoint_kernel.launches = 0
 
 
+# ---- the chain kernels' wide forms (state widths to WIDE_MAX_DZ, hidden to WIDE_MAX_WIDTH) ----
+
+
+def _wide_shape(lib, entry: str, label: str, spec: ChainSpec, widths, B: int) -> Tuple[int, int, int]:
+    """(threads per block, blocks, tile) of a wide kernel's cooperative launch
+    at batch B, from its shape entry (csrc/chain_wide.cuh::wide_shape): the
+    tile is the samples a tile (the K1 and K2 chain forms) or the basis rows
+    a chunk (K7)."""
+    out = (ctypes.c_int * 4)()
+    err = getattr(lib, entry)(spec.n_layers, widths, B, out)
+    if err != 0 or out[1] < 1:
+        raise RuntimeError(f"{label} cannot be launched cooperatively at widths {tuple(widths)}: cudaError {err}")
+    return out[0], out[1], out[2]
+
+
+def _launch_wide_forward(label, lib_name, entry, shape, tab, spec, *, rtol, atol, max_steps, ws, bs, z0, acc0, t0,
+                         t1, dt_init, eps=None, norms=()):
+    """Launch a wide forward kernel, whose C arguments are (params, [eps], z0,
+    acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths, acts,
+    max_steps, *norms, rtol, atol, the controller, the tableau, tile, grid,
+    block, stream).  Returns (zT, accT, steps, accepted, dt_last, dt_used)."""
+    B, dz = z0.shape
+    device = z0.device
+    params, widths = _chain_params(label, spec, ws, bs, device)
+    probe = [] if eps is None else [eps[0]]
+    z0, acc0, *probe = _check_inputs(label, device, [z0, acc0] + probe, [(B, dz), tuple(acc0.shape), (B, dz)])
+    lib = _library(lib_name)
+    block, grid, tile = _wide_shape(lib, shape, label, spec, widths, B)
+    ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
+    zT, accT, stats, dt_last, work, partials = _forward_buffers(z0, acc0, tab, grid)
+    err = getattr(lib, entry)(
+        _ptr(params), *[_ptr(x) for x in probe], _ptr(z0), _ptr(acc0), _ptr(ts), _ptr(zT), _ptr(accT), _ptr(stats),
+        _ptr(dt_last), _ptr(work), _ptr(partials), B, spec.n_layers, widths, _acts_mask(spec), int(max_steps),
+        *[int(x) for x in norms], rtol, atol, *_controller_floats(tab), _tableau_array(tab), tile, grid, block,
+        _stream(device),
+    )
+    _check_launch(err, label, grid, block)
+    return _forward_result(zT, accT, stats, dt_last)
+
+
+def run_wide_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None):
+    """Wide K7 TEST: K7 TEST's solve (`run_chain_test_solve_kernel`) for
+    unconditional chains of state widths up to WIDE_MAX_DZ and hidden widths
+    up to WIDE_MAX_WIDTH (the tabular MINIBOONE model 43 -> 128 -> 128 ->
+    43); arguments and returns as `run_solve_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k7_wide_solve.cu`), CPU
+    tensors through its plain version."""
+    _no_grad_inputs("K7", ws, bs, z0, dlogp0, ys)
+    if z0.device.type == "cpu":
+        return solve_test_plain(
+            tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("wide K7", z0, tab, spec, chain=True, wide=True)
+    out = _launch_wide_forward(
+        "wide K7 TEST", K7W_KERNEL, "cnf_k7w_test_solve", "cnf_k7w_test_shape", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
+    )
+    run_wide_test_solve_kernel.launches += 1
+    return out
+
+
+run_wide_test_solve_kernel.launches = 0
+
+
+def run_wide_exact_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init, ys=None
+):
+    """Wide K7 exact: K7 exact's solve (`run_chain_exact_solve_kernel`) for
+    the wide chains; arguments and returns as `run_exact_solve_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k7_wide_solve.cu`), CPU
+    tensors through its plain version."""
+    _no_grad_inputs("K7", ws, bs, z0, acc0, ys)
+    if z0.device.type == "cpu":
+        return solve_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("wide K7", z0, tab, spec, chain=True, wide=True)
+    out = _launch_wide_forward(
+        "wide K7 exact", K7W_KERNEL, "cnf_k7w_exact_solve", "cnf_k7w_exact_shape", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, norms=(norm_z, norm_j),
+    )
+    run_wide_exact_solve_kernel.launches += 1
+    return out
+
+
+run_wide_exact_solve_kernel.launches = 0
+
+
+def run_wide_train_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None
+):
+    """The wide K1 chain form: the K1 chain form's solve
+    (`run_chain_train_solve_kernel`) for the wide chains; arguments and
+    returns as `run_train_solve_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k1_wide_solve.cu`), CPU
+    tensors through its plain version."""
+    _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
+    if z0.device.type == "cpu":
+        return solve_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("wide K1", z0, tab, spec, eps.shape[0], chain=True, wide=True)
+    out = _launch_wide_forward(
+        "wide K1 chain form", K1W_KERNEL, "cnf_k1w_train_solve", "cnf_k1w_shape", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
+        norms=(norm_z, norm_j),
+    )
+    run_wide_train_solve_kernel.launches += 1
+    return out
+
+
+run_wide_train_solve_kernel.launches = 0
+
+
+def _launch_wide_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+                         t_hi, t_lo, dt_init):
+    label = "wide K2 chain form"
+    B, dz = zT.shape
+    device = zT.device
+    params, widths = _chain_params(label, spec, ws, bs, device)
+    e0, zT, accT, azT, aaccT = _check_inputs(
+        label, device, [eps[0], zT, accT, azT, aaccT], [(B, dz), (B, dz), (3, B), (B, dz), (3, B)]
+    )
+    lib = _library(K2W_KERNEL)
+    block, grid, tile = _wide_shape(lib, "cnf_k2w_shape", label, spec, widths, B)
+    P = params.numel()
+    f32 = dict(dtype=torch.float32, device=device)
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(**f32)
+    z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
+    g, gnew = torch.empty(P, **f32), torch.empty(P, **f32)
+    stats = torch.empty(2, dtype=torch.int32, device=device)
+    work = torch.empty((tab.num_stages + 2) * (2 * dz + 3) * B, **f32)
+    partials = torch.empty(10 * grid, **f32)
+    gblk = torch.empty(grid * (_gvecs(tab) + 2) * P, **f32)
+    err = lib.cnf_k2w_train_adjoint(
+        _ptr(params), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
+        _ptr(az0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), B, spec.n_layers,
+        widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
+        _tableau_array(tab), tile, grid, block, _stream(device),
+    )
+    _check_launch(err, label, grid, block)
+    g_ws, g_bs = _split_params(g, spec)
+    return z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]
+
+
+def run_wide_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init, ys=None,
+):
+    """The wide K2 chain form: the K2 chain form's backsolve
+    (`run_chain_adjoint_kernel`) for the wide chains; arguments and returns
+    as `run_adjoint_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k2_wide_adjoint.cu`), CPU
+    tensors through its plain version."""
+    _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("wide K2", zT, tab, spec, eps.shape[0], chain=True, wide=True)
+    if dt_init is None:
+        raise ValueError("the wide K2 chain form needs dt_init (the caller picks it)")
+    out = _launch_wide_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+                               ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo,
+                               dt_init=dt_init)
+    run_wide_adjoint_kernel.launches += 1
+    return out
+
+
+run_wide_adjoint_kernel.launches = 0
+
+
 #: Every kernel's wrapper by kernel name; each wrapper's `.launches` counts
 #: its own kernel's launches.
 KERNEL_WRAPPERS = {
@@ -1305,6 +1566,10 @@ KERNEL_WRAPPERS = {
     K2C_KERNEL: run_chain_adjoint_kernel,
     K7_KERNEL + "/test": run_chain_test_solve_kernel,
     K7_KERNEL + "/exact": run_chain_exact_solve_kernel,
+    K1W_KERNEL: run_wide_train_solve_kernel,
+    K2W_KERNEL: run_wide_adjoint_kernel,
+    K7W_KERNEL + "/test": run_wide_test_solve_kernel,
+    K7W_KERNEL + "/exact": run_wide_exact_solve_kernel,
 }
 
 
@@ -1343,7 +1608,9 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     2-layer kernels; deeper chains, every conditional chain (K8) and every
     chain with an identity layer run the chain kernels (the JAX package's
     2-layer TEST and exact stages assume tanh layers; the chain kernels do
-    not).  Hutchinson TRAIN solves run K1 (or its chain form) with the
+    not), their narrow forms within state width MAX_DZ and hidden widths
+    CHAIN_MAX_WIDTH, their wide forms beyond (conditional wide chains raise
+    on the card: K8 in the wide forms is not ported).  Hutchinson TRAIN solves run K1 (or its chain form) with the
     backward member K2 (or its chain form); exact-trace TRAIN solves run the
     K4 forward (K7 for chain-kernel nets), with the K4 adjoint as the
     backward member for 2-layer tanh chains (conditional ones raise on the
@@ -1416,10 +1683,15 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
 
     exact_pm = exact and _exact_pm_stage(spec)
     chain = spec.n_layers > 2 or spec.n_cond > 0 or not all(spec.acts)
-    run_test = run_chain_test_solve_kernel if chain else run_solve_kernel
-    run_train = run_chain_train_solve_kernel if chain else run_train_solve_kernel
-    run_exact = run_chain_exact_solve_kernel if chain else run_exact_solve_kernel
-    run_adjoint = run_chain_adjoint_kernel if chain else run_adjoint_kernel
+    if chain and _wide_chain(spec):
+        run_test, run_train = run_wide_test_solve_kernel, run_wide_train_solve_kernel
+        run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel
+    elif chain:
+        run_test, run_train = run_chain_test_solve_kernel, run_chain_train_solve_kernel
+        run_exact, run_adjoint = run_chain_exact_solve_kernel, run_chain_adjoint_kernel
+    else:
+        run_test, run_train = run_solve_kernel, run_train_solve_kernel
+        run_exact, run_adjoint = run_exact_solve_kernel, run_adjoint_kernel
 
     def forward(y0f, t0, t1, args):
         tdir = torch.sign(t1 - t0)
@@ -1523,6 +1795,10 @@ __all__ = [
     "run_chain_exact_solve_kernel",
     "run_chain_train_solve_kernel",
     "run_chain_adjoint_kernel",
+    "run_wide_test_solve_kernel",
+    "run_wide_exact_solve_kernel",
+    "run_wide_train_solve_kernel",
+    "run_wide_adjoint_kernel",
     "KERNEL_WRAPPERS",
     "reset_launches",
     "solve_test_plain",

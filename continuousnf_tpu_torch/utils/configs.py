@@ -8,14 +8,19 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     6 -> 64 -> 64 -> 6 tanh on all three layers, tspan (0, 1), no steering;
     data from the recipe of the JAX package's `synthetic_tabular`
     (`continuousnf_tpu/data.py:56-64`), tanh(z mix) + 0.1 z.
+  * miniboone43 (`benchmarks/tabular.py:58-79`): RNODE, nvars = 43, naug = 0,
+    MLP 43 -> 128 -> 128 -> 43 tanh on all three layers, tspan (0, 1), no
+    steering, batch 2048 (the JAX package's tabular benchmark batch); data
+    from the same `synthetic_tabular` recipe at 43 variables.
   * cond_gaussian (`continuousnf_tpu/recipes.py:254-289`, BASELINE config
     #3): CondRNODE, nvars = 1, naug = 0, one conditioning input, MLP
     2 -> 64 -> 64 -> 1 tanh on all three layers reading [x | y], tspan
     (0, 13), steer_rate 0.1; data y ~ U(-1, 1), x | y ~ N(0.7 y, 0.3^2).
 
 All: lambda1 = lambda2 = 1e-2 (the RNODE defaults), tsit5 at rtol 1e-3 /
-atol 1e-6, one Gaussian VJP probe, batch 4096 in the scripts (the
-conditional recipe trains at 128).  Weights are Glorot-uniform with
+atol 1e-6, one Gaussian VJP probe, batch 4096 in the scripts unless the
+entry names its own `batch` (miniboone43: 2048); the conditional recipe
+trains at its `batch_size` of 128.  Weights are Glorot-uniform with
 N(0, 0.05) biases, drawn with numpy.
 """
 
@@ -29,6 +34,7 @@ import torch
 MODELS = {
     "flagship": dict(dims=(16, 48, 16), nvars=8, naug=8, tspan=(0.0, 13.0), extra={"steer_rate": 0.1, "lam3": 1e-2}),
     "power6": dict(dims=(6, 64, 64, 6), nvars=6, naug=0, tspan=(0.0, 1.0), extra={}),
+    "miniboone43": dict(dims=(43, 128, 128, 43), nvars=43, naug=0, tspan=(0.0, 1.0), extra={}, batch=2048),
     "cond_gaussian": dict(dims=(2, 64, 64, 1), nvars=1, naug=0, tspan=(0.0, 13.0), extra={"steer_rate": 0.1},
                           n_cond=1, batch_size=128),
 }
@@ -67,7 +73,7 @@ def model_data(name: str, rng: np.random.Generator, n: int):
     """n data points of the configuration `name` (numpy float32): xs, or
     (xs, ys) for a conditional configuration."""
     nvars = MODELS[name]["nvars"]
-    if name == "power6":
+    if name in ("power6", "miniboone43"):
         return tabular_data(rng, n, nvars)
     if name == "cond_gaussian":
         return cond_gaussian_data(rng, n)

@@ -1,6 +1,6 @@
 """CUDA-event times of every solve kernel at the chip smoke's shapes.
 
-    python continuousnf_tpu_torch/utils/kernel_times.py [--tableau tsit5] [--reps 10]
+    python continuousnf_tpu_torch/utils/kernel_times.py [--tableau tsit5] [--reps 10] [--models flagship,power6,...]
 
 builds the kernels of the `continuousnf_tpu_torch` package on the import
 path and times, on one CUDA card, each kernel alone on fixed inputs: K3,
@@ -8,15 +8,17 @@ K1, K2 and the K4 forward and adjoint on the flagship (MLP 16 -> 48 -> 16,
 B = 4096, tspan (0, 13)), the K1 and K2 chain forms and K7 TEST and exact
 on power6 (MLP 6 -> 64 -> 64 -> 6, B = 4096, tspan (0, 1)) and on the
 conditional recipe (MLP 2 -> 64 -> 64 -> 1 on [x | y], B = 4096, tspan
-(0, 13); the "_cond" keys), Glorot weights and data from numpy seeds, under
-one tableau (rtol 1e-3 / atol 1e-6; the README tolerances for verner65).  Each time is the mean of `reps` calls
-after one warm-up call.  It prints the card's name and power limit, then
+(0, 13); the "_cond" keys) and, when `--models` names it, the wide forms of
+those four on miniboone43 (MLP 43 -> 128 -> 128 -> 43, B = 2048, tspan
+(0, 1); the "_wide" keys), Glorot weights and data from numpy seeds, under
+one tableau (rtol 1e-3 / atol 1e-6; the README tolerances for verner65).
+Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
 one JSON line {"tableau": ..., "kernels": {name: [ms, attempted steps]}}.
 
-It uses only wrappers that earlier versions of the package have too, so
-running it as a file with PYTHONPATH set to another checkout times that
-checkout's kernels: run two checkouts alternately in one session to compare
-them on one card.
+By default it uses only wrappers that earlier versions of the package have
+too, so running it as a file with PYTHONPATH set to another checkout times
+that checkout's kernels: run two checkouts alternately, one after the
+other on the same card, to compare them.
 """
 
 import argparse
@@ -32,6 +34,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tableau", default="tsit5")
     parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--models", default="flagship,power6,cond_gaussian")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA card")
@@ -44,13 +47,17 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {smi}; package {cnf.__file__}", flush=True)
-    _build.build_libraries([fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL,
-                            fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL])
+    models = args.models.split(",")
+    kernels = {"flagship": [fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL],
+               "power6": [fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL],
+               "cond_gaussian": [fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL]}
+    if "miniboone43" in models:
+        kernels["miniboone43"] = [fs.K1W_KERNEL, fs.K2W_KERNEL, fs.K7W_KERNEL]
+    _build.build_libraries(sorted({k for m in models for k in kernels[m]}))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     tab = TABLEAUS[args.tableau]
     tol = (3.452669831108329e-4, 1.1920929e-7) if args.tableau == "verner65" else (1e-3, 1e-6)
-    B = 4096
     out = {}
 
     def time_pair(label, spec, run_fwd, run_adj, kw_fwd, kw_adj_extra):
@@ -66,8 +73,9 @@ def main() -> int:
             adj = run_adj(tab, spec, **kw)
             out[label[1]] = [cuda_ms(lambda: run_adj(tab, spec, **kw), max(2, args.reps // 2)), int(adj[5])]
 
-    for name, span in (("flagship", (0.0, 13.0)), ("power6", (0.0, 1.0)), ("cond_gaussian", (0.0, 13.0))):
-        dims = MODELS[name]["dims"]
+    for name in models:
+        cfg = MODELS[name]
+        dims, span, B = cfg["dims"], cfg["tspan"], cfg.get("batch", 4096)
         rng = np.random.default_rng(0)
         ps = cnf.params_from_numpy(glorot_params(rng, dims), dev)
         data = model_data(name, rng, B)
@@ -94,6 +102,11 @@ def main() -> int:
             time_pair(("k1", "k2"), spec, fs.run_train_solve_kernel, fs.run_adjoint_kernel, dict(train, eps=eps),
                       dict(adj, eps=eps))
             time_pair(("k4", "k4a"), spec, fs.run_exact_solve_kernel, fs.run_exact_adjoint_kernel, train, adj)
+        elif name == "miniboone43":
+            time_pair(("k7t_wide",), spec, fs.run_wide_test_solve_kernel, None, test, None)
+            time_pair(("k1c_wide", "k2c_wide"), spec, fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel,
+                      dict(train, eps=eps), dict(adj, eps=eps))
+            time_pair(("k7e_wide",), spec, fs.run_wide_exact_solve_kernel, None, train, None)
         else:
             time_pair(("k7t" + tag,), spec, fs.run_chain_test_solve_kernel, None, test, None)
             time_pair(("k1c" + tag, "k2c" + tag), spec, fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel,

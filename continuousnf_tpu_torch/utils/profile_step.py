@@ -1,21 +1,26 @@
 """Where the time goes in a training step and a `logpdf` call on the card.
 
-    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian] [--steps 10]
+    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43] [--steps 10]
 
 Builds the model (`--model power6`: the tabular power6 model, RNODE,
 MLP 6 -> 64 -> 64 -> 6; `--model flagship`: RNODE, MLP 16 -> 48 -> 16;
 `--model cond_gaussian`: the conditional recipe, CondRNODE, MLP
-2 -> 64 -> 64 -> 1 on [x | y]), its weights and its data from a seed as
-`utils/configs.py` makes them, one Gaussian VJP probe, batch 4096, fused
-kernels on, and for each path (the Hutchinson train step, the exact-trace
-train step, `logpdf`; for a configuration with its own training batch, the
-train step at that batch too):
+2 -> 64 -> 64 -> 1 on [x | y]; `--model miniboone43`: the tabular
+MINIBOONE model, RNODE, MLP 43 -> 128 -> 128 -> 43, through the wide chain
+kernels), its weights and its data from a seed as `utils/configs.py` makes
+them, one Gaussian VJP probe, batch 4096 (or the configuration's own
+`batch`: 2048 for miniboone43), fused kernels on, and for each path (the
+Hutchinson train step, the exact-trace train step, `logpdf`; for a
+configuration with its own training batch, the train step at that batch
+too):
   * the wall time per call, CUDA events over `--steps` calls after a
     warm-up, without the profiler;
   * the card's busy time per call, the sum of the CUDA kernels' self times
     under `torch.profiler` over the same number of calls, and the idle share
     1 - busy / wall;
-  * the kernels that take the most of it, by name.
+  * the kernels that take the most of it, by name, and the host operations
+    that take the most of the CPU's own time under the profiler (where an
+    idle card waits).
 Needs a CUDA card; prints one line per figure, then one JSON object.
 """
 
@@ -31,22 +36,26 @@ from .configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
 
 
 def _busy(fn, reps: int, top: int = 6):
-    """Device busy ms per call and the top kernels (name, ms per call)."""
+    """Device busy ms per call, the top kernels and the top host operations
+    by their own CPU time (name, ms per call)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = []
+    rows, host = [], []
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
         if t > 0 and getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type):
             rows.append((e.key, t / 1e3 / reps))
+        elif e.self_cpu_time_total > 0:
+            host.append((f"{e.key} ({e.count // reps} calls)", e.self_cpu_time_total / 1e3 / reps))
     rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows[:top]
+    host.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:top], host[:top]
 
 
 def profile_model(name: str, steps: int, seed: int = 0) -> dict:
@@ -57,7 +66,8 @@ def profile_model(name: str, steps: int, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     cfg = MODELS[name]
     ps_np = glorot_params(rng, cfg["dims"])
-    data = model_data(name, rng, 4096)
+    B = cfg.get("batch", 4096)
+    data = model_data(name, rng, B)
     xs_np, ys_np = data if cfg.get("n_cond") else (data, None)
     xs = torch.from_numpy(xs_np).to(dev)
     ys = None if ys_np is None else torch.from_numpy(ys_np).to(dev)
@@ -67,7 +77,7 @@ def profile_model(name: str, steps: int, seed: int = 0) -> dict:
 
     out = {"model": name, "device": torch.cuda.get_device_name(0)}
     gen = torch.Generator(device=dev).manual_seed(seed)
-    paths = [("train_step", False, 4096), ("exact_train_step", True, 4096)]
+    paths = [("train_step", False, B), ("exact_train_step", True, B)]
     if "batch_size" in cfg:
         paths.append((f"train_step_b{cfg['batch_size']}", False, cfg["batch_size"]))
     for label, exact, b in paths:
@@ -90,9 +100,10 @@ def _measure(call, steps: int) -> dict:
     for _ in range(3):
         call()
     wall = cuda_ms(call, steps)
-    busy, top = _busy(call, steps)
+    busy, top, host = _busy(call, steps)
     return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall,
-            "top": [{"kernel": k[:80], "ms": t} for k, t in top]}
+            "top": [{"kernel": k[:80], "ms": t} for k, t in top],
+            "host": [{"op": k[:80], "ms": t} for k, t in host]}
 
 
 def main(argv=None) -> int:
@@ -110,6 +121,8 @@ def main(argv=None) -> int:
               f"idle {100 * r['idle_share']:.1f} %")
         for k in r["top"]:
             print(f"    {k['ms']:.4f} ms  {k['kernel']}")
+        for k in r["host"]:
+            print(f"    host {k['ms']:.4f} ms  {k['op']}")
     print(json.dumps(res))
     return 0
 

@@ -246,12 +246,12 @@ _COVERED = {
     "conditional": (POWER6, TSIT5, None, 2, 1, True),
     "identity-layer": (POWER6, TSIT5, (True, True, False), 0, 1, True),
     "dopri5": (POWER6, DOPRI5, None, 0, 1, True),
+    "wide-hidden": ((6, 65, 64, 6), TSIT5, None, 0, 1, True),
+    "dz33": ((33, 64, 64, 33), TSIT5, None, 0, 1, True),
+    "miniboone": ((43, 64, 64, 43), TSIT5, None, 0, 1, True),
 }
 _UNCOVERED = {
     "five-layer": ((6, 16, 16, 16, 16, 6), TSIT5, None, 0, 1, True, "at most 4 layers"),
-    "wide-hidden": ((6, 65, 64, 6), TSIT5, None, 0, 1, True, "hidden width 65 > 64"),
-    "dz33": ((33, 64, 64, 33), TSIT5, None, 0, 1, True, "state width 33 > 32"),
-    "miniboone": ((43, 64, 64, 43), TSIT5, None, 0, 1, True, "state width 43 > 32"),
     "two-layer-conditional-exact": ((16, 48, 16), TSIT5, None, 2, 1, False, "K8 in the 2-layer kernels"),
     "two-probes": (POWER6, TSIT5, None, 0, 2, True, "K6"),
     "one-layer": ((6, 6), TSIT5, None, 0, 1, False, "1-layer"),
@@ -270,11 +270,12 @@ def _spec(dims, acts, n_cond):
 @pytest.mark.parametrize("name", list(_COVERED) + list(_UNCOVERED))
 def test_kernel_coverage_rule(name):
     """Which configurations each kernel family takes: the 2-layer kernels
-    (K3, K1, K2, K4) unconditional tanh chains of 2 layers, the chain
-    kernels chains of 2 to 4 tanh or identity layers with hidden widths up
-    to 64, conditional or not (the fused solve takes them for 3 and 4
-    layers, for conditional nets and for identity layers), both state
-    widths up to 32 and every embedded explicit tableau; the rest names its
+    (K3, K1, K2, K4) unconditional tanh chains of 2 layers with state widths
+    up to 32, the chain kernels chains of 2 to 4 tanh or identity layers
+    with hidden widths up to 64 and state widths up to 32, conditional or
+    not, and through their wide forms unconditional ones up to 128 and 64
+    (the fused solve takes them for 3 and 4 layers, for conditional nets and
+    for identity layers), both every embedded explicit tableau; the rest names its
     limit or the kernel still to port (a 2-layer conditional exact-TRAIN
     backward needs the K4 adjoint with ys rows: K8 in the 2-layer
     kernels)."""

@@ -1,8 +1,9 @@
 """The CUDA kernels (K3, K1, K2, the K4 forward and adjoint, and the chain
 kernels: the K1 and K2 chain forms, the K7 TEST and exact forwards, with and
 without conditioning rows, under every embedded explicit tableau and with
-identity layers) against their plain PyTorch versions, on the card, and the
-configurations they do not cover.
+identity layers, and their wide forms at the MINIBOONE width) against their
+plain PyTorch versions, on the card, and the configurations they do not
+cover.
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a card
 (and without JAX, whose conftest this file does not need):
@@ -472,13 +473,28 @@ def _launches():
     return {name: w.launches for name, w in tfs.KERNEL_WRAPPERS.items()}
 
 
-def _chain_case(dims, B, span, dev, norms=(True, True), seed=0, ys=None):
-    """All four chain kernels against their twins on one input: the K1 chain
-    form and K7 exact from nonzero accumulators, the K2 chain form from the
-    K1 chain form's output warm-started from its last step, K7 TEST from a
-    nonzero dlogp; a conditional chain (dims[0] > dims[-1]) with the
-    conditioning ys (B, n_cond).  Returns the outputs, the K1 chain form's
-    inputs and the K2 chain form's."""
+# The chain kernels' narrow and wide forms: (K1 chain form, K2 chain form,
+# K7 TEST, K7 exact) wrappers and their KERNEL_WRAPPERS names.
+_FORMS = {
+    False: (("run_chain_train_solve_kernel", "run_chain_adjoint_kernel", "run_chain_test_solve_kernel",
+             "run_chain_exact_solve_kernel"),
+            {tfs.K1C_KERNEL, tfs.K2C_KERNEL, tfs.K7_KERNEL + "/test", tfs.K7_KERNEL + "/exact"}),
+    True: (("run_wide_train_solve_kernel", "run_wide_adjoint_kernel", "run_wide_test_solve_kernel",
+            "run_wide_exact_solve_kernel"),
+           {tfs.K1W_KERNEL, tfs.K2W_KERNEL, tfs.K7W_KERNEL + "/test", tfs.K7W_KERNEL + "/exact"}),
+}
+
+
+def _chain_case(dims, B, span, dev, norms=(True, True), seed=0, ys=None, wide=False):
+    """All four chain kernels (their wide forms when `wide`) against their
+    twins on one input: the K1 chain form and K7 exact from nonzero
+    accumulators, the K2 chain form from the K1 chain form's output
+    warm-started from its last step, K7 TEST from a nonzero dlogp; a
+    conditional chain (dims[0] > dims[-1]) with the conditioning ys
+    (B, n_cond).  Returns the outputs, the K1 chain form's inputs and the K2
+    chain form's."""
+    (run1, run2, run7t, run7e), names = _FORMS[wide]
+    run1, run2, run7t, run7e = (getattr(tfs, n) for n in (run1, run2, run7t, run7e))
     spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
     kw, adj = _train_args(dims, B, span, dev, seed)
     kw.update(norm_z=norms[0], norm_j=norms[1], ys=ys)
@@ -487,21 +503,21 @@ def _chain_case(dims, B, span, dev, norms=(True, True), seed=0, ys=None):
     exact_kw = {k: v for k, v in kw.items() if k != "eps"}
     before = _launches()
     with torch.no_grad():
-        out_k = tfs.run_chain_train_solve_kernel(TSIT5, spec, **kw)
+        out_k = run1(TSIT5, spec, **kw)
         out_p = tfs.solve_train_plain(TSIT5, spec, **kw)
         tdir = torch.sign(kw["t1"] - kw["t0"])
         adj.update(zT=out_k[0], accT=out_k[1], dt_init=-tdir * out_k[4].abs())
-        adj_k = tfs.run_chain_adjoint_kernel(TSIT5, spec, **adj)
+        adj_k = run2(TSIT5, spec, **adj)
         adj_p = tfs.adjoint_train_plain(TSIT5, spec, **adj)
         adj_64 = _twin64(tfs.adjoint_train_plain, spec, adj)
-        test_k = tfs.run_chain_test_solve_kernel(TSIT5, spec, **test_kw)
+        test_k = run7t(TSIT5, spec, **test_kw)
         test_p = tfs.solve_test_plain(TSIT5, spec, **test_kw)
-        ex_k = tfs.run_chain_exact_solve_kernel(TSIT5, spec, **exact_kw)
+        ex_k = run7e(TSIT5, spec, **exact_kw)
         ex_p = tfs.solve_train_exact_plain(TSIT5, spec, **exact_kw)
     torch.cuda.synchronize()
     after = _launches()
     ran = {k for k in after if after[k] != before[k]}
-    assert ran == {tfs.K1C_KERNEL, tfs.K2C_KERNEL, tfs.K7_KERNEL + "/test", tfs.K7_KERNEL + "/exact"}
+    assert ran == names
     assert all(after[k] == before[k] + 1 for k in ran)
     return (out_k, out_p), (adj_k, adj_p, adj_64), (test_k, test_p), (ex_k, ex_p), kw, adj
 
@@ -625,6 +641,94 @@ def test_chain_paths_on_the_card_match_the_twins_on_the_cpu(dev):
         after = _launches()
         ran = {k for k in after if after[k] != before[k]}
         want = {tfs.K7_KERNEL + "/test"} | ({tfs.K7_KERNEL + "/exact"} if exact else {tfs.K1C_KERNEL, tfs.K2C_KERNEL})
+        assert ran == want
+        lp_c, l_c, g_c, nfe_c = run(torch.device("cpu"), exact)
+        assert nfe_k == nfe_c and _close(lp_k, lp_c) and _close(l_k, l_c)
+        for a, b in zip(g_k, g_c):
+            assert _grad_close(a, b)
+
+
+# ---- the chain kernels' wide forms ----
+
+MINIBOONE = (43, 128, 128, 43)
+
+
+@pytest.mark.parametrize(
+    "dims,B,span",
+    [
+        (MINIBOONE, 256, (0.0, 1.0)),
+        (MINIBOONE, 2048, (0.0, 1.0)),
+        (MINIBOONE, 37, (1.0, 0.0)),
+        ((40, 48, 40), 300, (0.0, 2.0)),
+        ((6, 96, 80, 32, 6), 128, (0.0, 1.0)),
+        (POWER6, 256, (0.0, 1.0)),
+    ],
+    ids=["miniboone-B256", "miniboone-B2048", "miniboone-reverse-B37", "two-layer-dz40", "four-layer-w96",
+         "power6-through-the-wide-forms"],
+)
+def test_wide_chain_kernels_match_twins(dev, dims, B, span):
+    """The wide forms of the K1 and K2 chain forms and of K7 TEST and exact
+    against their twins, as the narrow forms are held."""
+    (out_k, out_p), (adj_k, adj_p, adj_64), test, exact, _, _ = _chain_case(dims, B, span, dev, wide=True)
+    _hold_forward(out_k, out_p)
+    _hold_forward(*test)
+    _hold_forward(*exact)
+    assert (int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6]))
+    for i in range(3):  # z0, acc0, a_z0
+        assert _state_close(adj_k[i], adj_p[i], adj_64[i])
+    for a, b in zip(adj_k[3] + adj_k[4], adj_p[3] + adj_p[4]):
+        assert torch.isfinite(a).all() and _grad_close(a, b)
+
+
+@pytest.mark.parametrize(
+    "dims,wrapper",
+    [
+        (MINIBOONE, "run_chain_test_solve_kernel"),
+        ((6, 65, 64, 6), "run_chain_test_solve_kernel"),
+        ((65, 128, 128, 65), "run_wide_test_solve_kernel"),
+        ((43, 129, 128, 43), "run_wide_test_solve_kernel"),
+        ((43, 64, 64, 64, 64, 43), "run_wide_test_solve_kernel"),
+    ],
+    ids=["narrow-form-miniboone", "narrow-form-hidden65", "wide-dz65", "wide-hidden129", "wide-five-layer"],
+)
+def test_wide_limits_raise_on_cuda(dev, dims, wrapper):
+    """The narrow forms refuse the wide chains, the wide forms what is past
+    their widths or depth; nothing is launched."""
+    spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
+    kw = _kernel_args(dims, 8, (0.0, 1.0), dev)
+    run = getattr(tfs, wrapper)
+    before = run.launches
+    with pytest.raises(NotImplementedError):
+        run(TSIT5, spec, **kw)
+    assert run.launches == before
+
+
+def test_wide_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """The MINIBOONE model on the card and on the CPU at B = 256: logpdf
+    through wide K7 TEST, the Hutchinson loss and gradient through the wide
+    K1 and K2 chain forms, and the exact loss and gradient through wide K7
+    exact and the plain backward; no narrow chain kernel is launched."""
+    xs = np.random.default_rng(4).normal(size=(256, 43)).astype(np.float32)
+    eps = np.random.default_rng(5).normal(size=(1, 256, 43)).astype(np.float32)
+    ps_np = _np_params(MINIBOONE, 3)
+
+    def run(device, exact):
+        icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(MINIBOONE, device=device), 43,
+                              compute_mode=tcnf.VecJacMode(fused=True, exact_trace=exact))
+        ps = tcnf.params_from_numpy(ps_np, device)
+        with torch.no_grad():
+            lp = tcnf.ICNFDist(icnf, tcnf.Mode.TEST, ps).logpdf(xs)
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        kw = {} if exact else {"eps": eps}
+        l, m = tcnf.loss_and_metrics(icnf, tcnf.Mode.TRAIN, xs, ps, **kw)
+        return lp.cpu(), l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)], int(m["nfe"])
+
+    for exact in (False, True):
+        before = _launches()
+        lp_k, l_k, g_k, nfe_k = run(dev, exact)
+        after = _launches()
+        ran = {k for k in after if after[k] != before[k]}
+        want = {tfs.K7W_KERNEL + "/test"} | ({tfs.K7W_KERNEL + "/exact"} if exact else {tfs.K1W_KERNEL, tfs.K2W_KERNEL})
         assert ran == want
         lp_c, l_c, g_c, nfe_c = run(torch.device("cpu"), exact)
         assert nfe_k == nfe_c and _close(lp_k, lp_c) and _close(l_k, l_c)
