@@ -48,7 +48,13 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     tspan (0, 1), no steering, one VJP probe, batch 2048), past the chain
     kernels' widths: served through wide K7 TEST, trained through the wide
     K1 and K2 chain forms and, under exact trace, through wide K7 exact with
-    the plain backward.
+    the plain backward;
+  * K-probe and forward-mode Hutchinson training (K6, the model of
+    benchmarks/probe_scaling.py and __graft_entry__.py): the flagship and
+    power6 with K VJP probes (`VecJacMode(num_probes=K)`) or K JVP probes
+    (`JacVecMode(num_probes=K)`), the loss and its gradient through the
+    probe instances of K1 and K2 (the flagship) and of the K1 and K2 chain
+    forms (power6), and `fit` at K = 4.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -194,13 +200,31 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      launch wide K7 TEST and no other kernel, `fit` at batch 2048 for four
      Lion steps the wide K1 and K2 chain forms (each at least four times)
      and no other, the exact `fit` wide K7 exact (at least four times) and
-     no other; CUDA-event timings of the train steps and logpdf.
+     no other; CUDA-event timings of the train steps and logpdf;
+ 42. K6, the flagship (K1, K2) and power6 (the K1 and K2 chain forms), B =
+     4096: each probe instance at K = 2, 4 and 8 VJP probes and K = 1 and 2
+     JVP probes against its twin, the forward from nonzero accumulators and
+     the adjoint from its output with its last step as the warm start (the
+     bounds of phase 7, the last-step and near-tie rules allowed), timed;
+ 43. the train step's loss and gradient at K = 4 and under JVP (K = 1)
+     through fused=True, fused=False and a float64 rtol 1e-7 solve, held as
+     in phase 8, the fused one launching the two probe instances once each;
+ 44. the main paths, counters reset just before each: the loss and its
+     gradient at every probe configuration of phase 42 launch the two probe
+     instances once each and no other kernel;
+ 45. `fit` on the flagship at K = 4 for four Lion steps, counters reset just
+     before it: K1's and K2's probe instances each launched at least four
+     times and no other kernel;
+ 46. the probe curve: CUDA-event times and microseconds per attempted step
+     of the two kernels at K = 1 (the one-probe instance), 2, 4 and 8 on the
+     same inputs.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
 tableau's refresh per accepted step) at 67 TFLOP/s f32 and the bytes of its
 inputs and outputs at 3.35 TB/s (the H100 SXM's data-sheet rates).  A record
-of a K9 run carries its tableau (or "identity") in its name.  The last lines are the
+of a K9 run carries its tableau (or "identity") in its name, one of a probe
+instance its probes ("K4", "jvp-K2").  The last lines are the
 kernels' JSON record, the nvidia-smi line, and {"ok": true, "device":
 {...}}.  Without a CUDA device it exits nonzero and prints no result.
 """
@@ -1817,6 +1841,160 @@ def miniboone(cnf, fs, dev):
     return chain_records(fs, None, dims, runs, launches, B=B, wide=True)
 
 
+PROBE_CONFIGS = ((2, False), (4, False), (8, False), (1, True), (2, True))  # (K, JVP?) of the K6 kernel holds
+PROBE_PATHS = ((4, False), (1, True))  # held through the train step against a float64 solve
+PROBE_CURVE = (1, 2, 4, 8)
+
+
+def probe_tag(k, jvp) -> str:
+    return f"jvp-K{k}" if jvp else f"K{k}"
+
+
+def probe_fma(dims, k, n_cond=0):
+    """FMA per sample and field evaluation of the Hutchinson kernels with k
+    probes, VJP or JVP alike (a pushforward costs a pullback), counted from
+    the widths: the forward pass once, then per probe its pass (K1) and,
+    in the adjoint, its VJP, then the forward chain's VJP and the outer
+    products (one a probe, one for the forward chain).  2-layer: K1
+    2 dz H (1 + k), K2 4 dz H (1 + k) + (k + 1) P; chains (S = sum in_i
+    out_i, Sz its z rows): the K1 chain form S + k Sz, the K2 chain form
+    2 S + (3 k + 1) Sz + n_cond H1 + sum out_i.  At k = 1 these are
+    two_layer_fma's and chain_fma's."""
+    if len(dims) == 3:
+        dz, H = dims[0], dims[1]
+        P = 2 * dz * H + H + dz
+        return {"k1": 2 * dz * H * (1 + k), "k2": 4 * dz * H * (1 + k) + (k + 1) * P}
+    pairs = list(zip(dims[:-1], dims[1:]))
+    S = sum(a * b for a, b in pairs)
+    Sz = S - n_cond * dims[1]
+    return {"k1c": S + k * Sz, "k2c": 2 * S + (3 * k + 1) * Sz + n_cond * dims[1] + sum(dims[1:])}
+
+
+def probe_paths(cnf, fs, dev):
+    """Phases 42 to 46: K-probe and JVP Hutchinson training (K6) through the
+    probe instances of K1 and K2 (the flagship) and of their chain forms
+    (power6).  Returns their records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    records = []
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    kmax = max(k for k, _ in PROBE_CONFIGS)
+    curve = {}
+    for name, chain in (("flagship", False), ("power6", True)):
+        dims = MODELS[name]["dims"]
+        rng = np.random.default_rng(SEED + 200 + chain)
+        ps_np = glorot_params(rng, dims)
+        xs = torch.from_numpy(model_data(name, rng, BATCH)).to(dev)
+        ps = cnf.params_from_numpy(ps_np, dev)
+        model = lambda k=1, jvp=False, **kw: make_icnf(name, dev, num_probes=k, ad="jvp" if jvp else "vjp", **kw)  # noqa: E731
+        icnf = model()
+        spec = fs.chain_spec(icnf.nn, icnf.zdim)
+        steer = {"steer_r": 0.05} if icnf.steer_rate > 0 else {}  # the same steering draw on every path
+        _, train, _, cot = kernel_inputs(icnf, ps, xs, rng, dev)
+        eps_all = torch.from_numpy(rng.normal(size=(kmax, BATCH, icnf.zdim)).astype("float32")).to(dev)
+        if chain:
+            run1, run2, keys = fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel, ("k1c", "k2c")
+            names = (fs.K1C_KERNEL, fs.K2C_KERNEL)
+            sources = ("k1_chain_solve.cu", "k2_chain_adjoint.cu")
+            label = "the K1 chain form", "the K2 chain form"
+        else:
+            run1, run2, keys = fs.run_train_solve_kernel, fs.run_adjoint_kernel, ("k1", "k2")
+            names = (fs.K1_KERNEL, fs.K2_KERNEL)
+            sources = ("k1_train_solve.cu", "k2_train_adjoint.cu")
+            label = "K1", "K2"
+
+        # Phase 42: each probe instance against its twin (the forward from
+        # nonzero accumulators, the adjoint from its output with its last
+        # step as the warm start), timed.
+        held = {}
+        for k, jvp in PROBE_CONFIGS:
+            tag = probe_tag(k, jvp)
+            kw1 = dict(train, eps=eps_all[:k].contiguous(), jvp=jvp)
+            r1 = run_pair(f"{label[0]} {tag} ({name})", run1, fs.solve_train_plain, TSIT5, spec, kw1)
+            r2 = run_pair(f"{label[1]} {tag} ({name})", run2, fs.adjoint_train_plain, TSIT5, spec,
+                          adjoint_kw(kw1, r1[0], cot), adjoint=True)
+            held[(k, jvp)] = (r1, r2)
+
+        # Phase 43: the train step's loss and gradient through the kernels,
+        # the plain path and a float64 rtol 1e-7 solve, on the same draws.
+        for k, jvp in PROBE_PATHS:
+            tag = probe_tag(k, jvp)
+            icnf_k = model(k, jvp)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 210 + k)
+            eps = icnf_k.draw_eps(gen, BATCH, dev)
+            fs.reset_launches()
+            l_k, g_k, m_k = loss_grad(cnf, icnf_k, ps_np, xs, dev, eps=eps, **steer)
+            check({w.__name__: dict(w.probe_launches) for w in (run1, run2)}
+                  == {w.__name__: {(k, jvp): 1} for w in (run1, run2)},
+                  f"{name} {tag}: the fused gradient launched {launched(fs)}")
+            l_p, g_p, _ = loss_grad(cnf, model(k, jvp, fused=False), ps_np, xs, dev, eps=eps, **steer)
+            l_t, g_t, _ = loss_grad(cnf, model(k, jvp, fused=False, dtype=torch.float64, solver=truth), ps_np, xs,
+                                    dev, torch.float64, eps=eps.double(), **steer)
+            torch.cuda.synchronize()
+            hold_gradients(f"{name} {tag}", l_k, g_k, l_p, g_p, l_t, g_t)
+            print(f"{name} {tag} train step B={BATCH}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 "
+                  f"{float(l_t):.6f}, forward NFE {int(m_k['nfe'])}")
+
+        # Phase 44: the main paths, counters reset just before each: the
+        # loss and its gradient at each probe configuration launch the two
+        # probe instances once each and no other kernel.
+        launches = {}
+        for k, jvp in PROBE_CONFIGS:
+            icnf_k = model(k, jvp)
+            eps = icnf_k.draw_eps(torch.Generator(device=dev).manual_seed(SEED + 220 + k), BATCH, dev)
+            fs.reset_launches()
+            _, g, _ = loss_grad(cnf, icnf_k, ps_np, xs, dev, eps=eps, **steer)
+            torch.cuda.synchronize()
+            counts = [w.probe_launches.get((k, jvp), 0) for w in (run1, run2)]
+            check(set(launched(fs)) == set(names) and counts == [1, 1]
+                  and all(bool(torch.isfinite(x).all()) for x in g),
+                  f"{name} {probe_tag(k, jvp)}: launched {launched(fs)}, probe instances {counts}")
+            launches[(k, jvp)] = counts
+        print(f"{name} main paths (loss and gradient): probe-instance launches "
+              + ", ".join(f"{probe_tag(k, jvp)} {c}" for (k, jvp), c in launches.items()))
+
+        # Phase 45 (the flagship): fit for four Lion steps at K = 4.
+        if not chain:
+            fit_path(cnf, fs, model(4), ps_np, dev, model_data(name, rng, N_STEPS * BATCH), batch_size=BATCH)
+            n = [w.probe_launches.get((4, False), 0) for w in (run1, run2)]
+            check(min(n) >= N_STEPS and set(launched(fs)) == set(names), f"fit at K = 4 launched {launched(fs)}")
+            print(f"fit at K = 4: {N_STEPS} Lion steps at B={BATCH}, K1 and K2 probe-instance launches {n}")
+
+        # Phase 46: the probe curve, microseconds per attempted step at K = 1
+        # (the one-probe instance), 2, 4 and 8, on the same inputs.
+        with torch.no_grad():
+            for k in PROBE_CURVE:
+                kw1 = dict(train, eps=eps_all[:k].contiguous())
+                out = run1(TSIT5, spec, **kw1)
+                kw2 = adjoint_kw(kw1, out, cot)
+                adj = run2(TSIT5, spec, **kw2)
+                ms1, ms2 = cuda_ms(lambda: run1(TSIT5, spec, **kw1), 5), cuda_ms(lambda: run2(TSIT5, spec, **kw2), 5)
+                curve[(name, k)] = (ms1 * 1e3 / int(out[2]), ms2 * 1e3 / int(adj[5]))
+                print(f"probe curve {name} K={k}: {label[0]} {ms1:.4f} ms ({int(out[2])} steps, "
+                      f"{curve[(name, k)][0]:.1f} us per attempted step), {label[1]} {ms2:.4f} ms ({int(adj[5])} "
+                      f"steps, {curve[(name, k)][1]:.1f} us per attempted step)")
+        base = curve[(name, 1)]
+        print(f"probe curve {name}, per attempted step relative to K = 1: "
+              + "; ".join(f"K={k} {curve[(name, k)][0] / base[0]:.3f}x / {curve[(name, k)][1] / base[1]:.3f}x"
+                          for k in PROBE_CURVE))
+
+        P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+        dz = dims[-1]
+        for (k, jvp), (r1, r2) in held.items():
+            fma = probe_fma(dims, k)
+            extra = (k - 1) * BATCH * dz
+            for i, (r, floats) in enumerate(((r1, P + BATCH * (3 * dz + 6) + extra),
+                                             (r2, 2 * P + BATCH * (5 * dz + 9) + extra))):
+                out, err, ms, pms = r
+                records.append(kernel_record(f"{names[i]}/{probe_tag(k, jvp)}", sources[i],
+                                             f"continuousnf_tpu/ops/fused_solve.py:{1043 if i == 0 else 1767}",
+                                             launches[(k, jvp)][i], err, ms, pms, fma[keys[i]], BATCH,
+                                             steps_of(out)[0], floats, accepted=steps_of(out)[1]))
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -1872,7 +2050,8 @@ def main() -> int:
                          ("33", lambda: other_tableaus(cnf, fs, dev)),
                          ("34", lambda: identity_layers(cnf, fs, dev)),
                          ("35", lambda: deep_test_gradient(cnf, fs, dev) or []),
-                         ("36-41", lambda: miniboone(cnf, fs, dev))):
+                         ("36-41", lambda: miniboone(cnf, fs, dev)),
+                         ("42-46", lambda: probe_paths(cnf, fs, dev))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -2,8 +2,8 @@
 
 Port of `continuousnf_tpu/core/dynamics.py`: `TestState`, `TrainState` and
 `safe_norm` (:35-61), `_batch_apply` (:64-73), the closed-form TEST branch of
-`make_augmented_dynamics` (:266-300), the VJP branch of `_hutchinson_field`
-(:185-206), the TRAIN fields `f_train` (:377-382) and `f_train_fused`
+`make_augmented_dynamics` (:266-300), `_hutchinson_field` with its VJP and
+JVP probes (:185-206), the TRAIN fields `f_train` (:377-382) and `f_train_fused`
 (:334-375), and the exact-trace TRAIN field `f_train_exact` (:302-332) with
 its closed form `exact_tanh_mlp_trace_fro` (:155-182).  The state is
 batch-major: z (B, dz), the accumulators (B,); probes are (K, B, dz).
@@ -63,17 +63,23 @@ def _batch_apply(nn_apply, ps, z: torch.Tensor, ys):
     return nn_apply(ps, with_cond(z, ys))
 
 
-def _hutchinson_field(nn_apply):
-    """dz plus the K-probe Hutchinson trace estimate and the ||eps^T J||
-    rate, both averaged over probes.  eps is (K, B, dz), fixed over the
-    trajectory.  The VJP goes through `torch.func.vjp`, so the field is
-    differentiable again (the adjoint takes its VJP) and runs under
-    `torch.no_grad()` in the forward solve."""
-    from torch.func import vjp
+def _hutchinson_field(nn_apply, ad: ADMode):
+    """dz plus the K-probe Hutchinson trace estimate and the probe-norm
+    rate, both averaged over probes: reverse mode (`ADMode.VJP`) from
+    eps^T J, forward mode (`ADMode.JVP`) from J eps.  eps is (K, B, dz),
+    fixed over the trajectory.  The products go through `torch.func.vjp` /
+    `torch.func.jvp`, so the field is differentiable again (the adjoint
+    takes its VJP) and runs under `torch.no_grad()` in the forward solve."""
+    from torch.func import jvp, vjp
 
     def field(ps, z, ys, eps):
-        dz, vjp_fn = vjp(lambda zz: _batch_apply(nn_apply, ps, zz, ys), z)
-        eJ = torch.stack([vjp_fn(e)[0] for e in eps])  # (K, B, dz)
+        f = lambda zz: _batch_apply(nn_apply, ps, zz, ys)  # noqa: E731
+        if ad == ADMode.VJP:
+            dz, vjp_fn = vjp(f, z)
+            eJ = torch.stack([vjp_fn(e)[0] for e in eps])  # (K, B, dz)
+        else:
+            dz, Je0 = jvp(f, (z,), (eps[0],))
+            eJ = torch.stack([Je0] + [jvp(f, (z,), (e,))[1] for e in eps[1:]])  # J eps, (K, B, dz)
         tr_est = torch.mean(torch.sum(eJ * eps, dim=-1), dim=0)
         n_rate = torch.mean(safe_norm(eJ), dim=0)
         return dz, tr_est, n_rate
@@ -95,8 +101,9 @@ def make_augmented_dynamics(
 
     TEST mode on Dense/tanh chains: the closed-form 2-layer trace for tanh
     MLPs with biases, the chain product for any other tanh-or-identity chain.
-    TRAIN mode: the Hutchinson estimator with reverse-mode (VJP) probes, and
-    the RNODE rates ||f|| (norm_z) and ||eps^T J|| (norm_j); with
+    TRAIN mode: the Hutchinson estimator with reverse-mode (VJP, eps^T J)
+    or forward-mode (JVP, J eps) probes, and the RNODE rates ||f|| (norm_z)
+    and the probe norm ||eps^T J|| or ||J eps|| (norm_j); with
     `compute_mode.exact_trace` the exact trace and ||J||_F instead (Dense
     chains only; `args["eps"]` is not read).
     """
@@ -106,11 +113,9 @@ def make_augmented_dynamics(
         return _test_field(nn)
     if compute_mode.exact_trace:
         return _exact_train_field(nn, norm_z, norm_j)
-    if compute_mode.ad != ADMode.VJP:
-        raise NotImplementedError(f"forward-mode (JVP) Hutchinson probes are not ported yet {_ITEM14}")
     from ..ops.fused_dynamics import fused_tanh_mlp_dynamics, supports_fusion
 
-    hutch = _hutchinson_field(nn.apply)
+    hutch = _hutchinson_field(nn.apply, compute_mode.ad)
 
     def pack(dz, tr_est, e_rate, n_rate):
         zero = torch.zeros_like(tr_est)
@@ -121,7 +126,8 @@ def make_augmented_dynamics(
             reg_n=n_rate if norm_j else zero,
         )
 
-    if compute_mode.fused and compute_mode.num_probes == 1 and supports_fusion(nn):
+    fused_field = compute_mode.fused and compute_mode.ad == ADMode.VJP and compute_mode.num_probes == 1
+    if fused_field and supports_fusion(nn):
 
         def f_train_fused(t, state: TrainState, args):
             # The per-stage kernel (K10); the flagship step never evaluates

@@ -276,6 +276,66 @@ __device__ void chain_pullback(const ChainLayout& L, const float* s, const float
   for (int o = 0; o < L.width[1]; ++o) axpy4<DZ>(eJ, v1[o], w + o * DZ);
 }
 
+// chain_pullback with the activations kept (the probe instance, K6, runs
+// one pullback per probe): each hidden level's gated cotangent goes to the
+// hidden block G, its activation h read from the hidden block H.  (The
+// one-probe instance keeps the in-place form above: the two-block form
+// cost its conditional instance 17 % on the H100, PERF.md.)
+template <int DZ>
+__device__ void chain_pullback_to(const ChainLayout& L, const float* s, const float (&v)[DZ], const float* H,
+                                  float* G, float (&eJ)[DZ]) {
+  const int n = L.n;
+  {
+    const float* h = H + L.hofs[n - 1];
+    float* g = G + L.hofs[n - 1];
+    const float* w = s + L.wofs[n - 1];
+    const int on = L.act[n - 2];
+    for (int k = 0; k < L.width[n - 1]; ++k) g[k] = dot4<DZ>(v, w + k * DZ) * gate(h[k], on);
+  }
+  for (int i = n - 2; i >= 1; --i) {
+    const float* h = H + L.hofs[i];
+    float* g = G + L.hofs[i];
+    const int on = L.act[i - 1];
+    mv_cols(G + L.hofs[i + 1], L.width[i + 1], s + L.tofs[i], L.tpitch[i], nullptr, L.width[i],
+            [&](int k, float a) { g[k] = a * gate(h[k], on); });
+  }
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) eJ[i] = 0.f;
+  const float* v1 = G + L.hofs[1];
+  const float* w = s + L.wofs[0];
+  for (int o = 0; o < L.width[1]; ++o) axpy4<DZ>(eJ, v1[o], w + o * DZ);
+}
+
+// One probe pushforward J eps of one sample after chain_forward
+// (fused_solve.py::_probe_pushforward, K6): down the layers, each hidden
+// level's tangent t = (t_prev W) gate(h) goes to the hidden block T (h read
+// from H; the probe has no ys rows, so layer 0 reads its z rows only);
+// Je (registers) is the output layer's product t W before its gate.
+template <int DZ>
+__device__ void chain_pushforward(const ChainLayout& L, const float* s, const float (&e)[DZ], const float* H,
+                                  float* T, float (&Je)[DZ]) {
+  const int n = L.n;
+  {
+    const float* h = H + L.hofs[1];
+    float* t = T + L.hofs[1];
+    const float* w = s + L.wofs[0];
+    const int on = L.act[0];
+    for (int o = 0; o < L.width[1]; ++o) t[o] = dot4<DZ>(e, w + o * DZ) * gate(h[o], on);
+  }
+  for (int i = 1; i < n - 1; ++i) {
+    const float* h = H + L.hofs[i + 1];
+    float* t = T + L.hofs[i + 1];
+    const int on = L.act[i];
+    mv_cols(T + L.hofs[i], L.width[i], s + L.wofs[i], L.pitch[i], nullptr, L.width[i + 1],
+            [&](int o, float a) { t[o] = a * gate(h[o], on); });
+  }
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) Je[k] = 0.f;
+  const float* tl = T + L.hofs[n - 1];
+  const float* w = s + L.wofs[n - 1];
+  for (int k = 0; k < L.width[n - 1]; ++k) axpy4<DZ>(Je, tl[k], w + k * DZ);
+}
+
 // Copy of the layout in (static) shared memory, where the kernel indexes it
 // by the layer loop's dynamic index.
 __device__ inline void share_layout(const ChainLayout& from, ChainLayout* to) {

@@ -1,6 +1,8 @@
 // K1: the TRAIN-mode forward solve of a CNF whose field is a 2-layer tanh MLP
-// with one Hutchinson probe (reverse mode), the whole adaptive solve (any
-// embedded explicit tableau, K9) in one cooperative launch.
+// with Hutchinson probes, the whole adaptive solve (any embedded explicit
+// tableau, K9) in one cooperative launch.  Two instances: one reverse-mode
+// probe (below), and the probe instance (K6, at the end) for K probes,
+// reverse or forward mode.
 //
 // Replaces the TPU kernel continuousnf_tpu/ops/fused_solve.py::_run_solve_kernel
 // (pl.pallas_call at :1043) built by _make_solve_kernel (:773-942) with the
@@ -26,6 +28,17 @@
 // forward pass, go to a per-thread column of shared memory (H floats at a
 // stride of the block size: conflict-free) instead of registers.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The probe instance (K6): _stage_train with k_probes = K and jvp (the probe
+// loop :350-364, _probe_pushforward :309-330): the forward pass once, then
+// per probe, from the (K, B, dz) probes, eps^T J by the pullback above or
+// J eps by the pushforward
+//   u0 = eps W1,  t1 = u0 (1 - h^2),  Je = (t1 W2) (1 - y^2),
+// which reads the same w1t and w2p rows as the forward pass and needs no
+// hidden column of its own; the trace and probe-norm terms are summed and
+// divided by K.  K and the direction are run-time values: one instance runs
+// every probe count and both directions, and the one-probe instance stays
+// as it was.
 
 #include "solve_common.cuh"
 
@@ -130,6 +143,78 @@ struct TrainField {
   }
 };
 
+// The probe instance's field (K6): K probes of sample s at eps[k][s],
+// reverse (eps^T J) or, `jvp`, forward mode (J eps).
+template <int DZ>
+struct ProbeField {
+  const float* w1t;  // (H, DZ): w1t[j][i] = w1[i][j]
+  const float* b1;   // (H)
+  const float* w2p;  // (H, DZ): w2p[j][k] = w2[j][k]
+  const float* b2p;  // (DZ)
+  const float* eps;  // (K, B, dz)
+  float* hcol;       // this thread's h column: hcol[j * hstride]
+  int H, dz, hstride, B, K, jvp, norm_z, norm_j;
+
+  __device__ __forceinline__ void operator()(int s, const float (&z)[DZ], float (&ky)[DZ],
+                                             float (&kr)[3]) const {
+    float pre[DZ];
+#pragma unroll
+    for (int k = 0; k < DZ; ++k) pre[k] = b2p[k];
+    for (int j = 0; j < H; ++j) {
+      const float h = tanhf(cnf::dot4<DZ>(z, w1t + j * DZ) + b1[j]);
+      hcol[j * hstride] = h;
+      cnf::axpy4<DZ>(pre, h, w2p + j * DZ);
+    }
+    float gy[DZ], ysq = 0.f;
+#pragma unroll
+    for (int k = 0; k < DZ; ++k) {
+      const float y = tanhf(pre[k]);
+      ky[k] = y;
+      ysq = fmaf(y, y, ysq);
+      gy[k] = 1.f - y * y;
+    }
+    float tr = 0.f, nsum = 0.f;
+    for (int pk = 0; pk < K; ++pk) {
+      const float* ek = eps + ((size_t)pk * B + s) * dz;
+      float e[DZ], eJ[DZ];
+#pragma unroll
+      for (int k = 0; k < DZ; ++k) {
+        e[k] = k < dz ? ek[k] : 0.f;
+        eJ[k] = 0.f;
+      }
+      if (jvp) {
+        // J eps: t1_j = (eps . W1[:, j]) (1 - h_j^2), Je = (t1 W2) (1 - y^2).
+        for (int j = 0; j < H; ++j) {
+          const float h = hcol[j * hstride];
+          cnf::axpy4<DZ>(eJ, cnf::dot4<DZ>(e, w1t + j * DZ) * (1.f - h * h), w2p + j * DZ);
+        }
+#pragma unroll
+        for (int k = 0; k < DZ; ++k) eJ[k] *= gy[k];
+      } else {
+        // eps^T J: v1 = eps (1 - y^2), v0_j = (W2[j, :] . v1) (1 - h_j^2), eJ = W1 v0.
+        float v1[DZ];
+#pragma unroll
+        for (int k = 0; k < DZ; ++k) v1[k] = e[k] * gy[k];
+        for (int j = 0; j < H; ++j) {
+          const float h = hcol[j * hstride];
+          cnf::axpy4<DZ>(eJ, cnf::dot4<DZ>(v1, w2p + j * DZ) * (1.f - h * h), w1t + j * DZ);
+        }
+      }
+      float trk = 0.f, nsq = 0.f;
+#pragma unroll
+      for (int i = 0; i < DZ; ++i) {
+        trk = fmaf(eJ[i], e[i], trk);
+        nsq = fmaf(eJ[i], eJ[i], nsq);
+      }
+      tr += trk;
+      nsum += safe_norm_sq(nsq);
+    }
+    kr[0] = -(tr / K);
+    kr[1] = norm_z ? safe_norm_sq(ysq) : 0.f;
+    kr[2] = norm_j ? nsum / K : 0.f;
+  }
+};
+
 template <int DZ>
 __global__ void __launch_bounds__(kMaxBlock) k1_train_solve(const FwdArgs p) {
   extern __shared__ __align__(16) float smem[];
@@ -146,6 +231,32 @@ __global__ void __launch_bounds__(kMaxBlock) k1_train_solve(const FwdArgs p) {
 
   const TrainField<DZ> field{w1t, b1, w2p, b2p, p.eps, hbuf + threadIdx.x,
                              H, dz, (int)blockDim.x, p.norm_z, p.norm_j};
+  cnf::forward_solve<DZ, 3, kStageUnroll>(p, field, red);
+}
+
+// The probe instance's kernel (K6).
+struct ProbeArgs {
+  FwdArgs f;
+  int K, jvp;
+};
+
+template <int DZ>
+__global__ void __launch_bounds__(kMaxBlock) k1_probe_solve(const ProbeArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const FwdArgs& p = a.f;
+  const int H = p.H, dz = p.dz;
+  float* w1t = smem;          // (H, DZ)
+  float* w2p = w1t + H * DZ;  // (H, DZ)
+  float* b2p = w2p + H * DZ;  // (DZ)
+  float* b1 = b2p + DZ;       // (H)
+  float* red = b1 + H;        // kRedFloats
+  float* hbuf = red + kRedFloats;  // (H, blockDim.x)
+
+  cnf::load_weights<DZ>(p.w1, p.b1, p.w2, p.b2, dz, H, w1t, w2p, b2p, b1);
+  __syncthreads();
+
+  const ProbeField<DZ> field{w1t, b1, w2p, b2p, p.eps, hbuf + threadIdx.x, H, dz, (int)blockDim.x, p.B,
+                             a.K, a.jvp, p.norm_z, p.norm_j};
   cnf::forward_solve<DZ, 3, kStageUnroll>(p, field, red);
 }
 
@@ -189,6 +300,44 @@ extern "C" int cnf_k1_train_solve(const float* w1, const float* b1, const float*
     case 8: return (int)cnf::coop_launch(k1_train_solve<8>, a, grid, block, smem_bytes<8>(H, block), s);
     case 16: return (int)cnf::coop_launch(k1_train_solve<16>, a, grid, block, smem_bytes<16>(H, block), s);
     case 32: return (int)cnf::coop_launch(k1_train_solve<32>, a, grid, block, smem_bytes<32>(H, block), s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The probe instance (K6): its largest co-resident grid, and the solve as
+// cnf_k1_train_solve's with eps (K, B, dz), K >= 1 probes, reverse mode or
+// (jvp) forward mode.
+extern "C" int cnf_k1p_max_grid(int dz, int H, int block, int* out) {
+  switch (cnf::padded_dz(dz)) {
+    case 4: return (int)cnf::coop_max_grid(k1_probe_solve<4>, smem_bytes<4>(H, block), block, out);
+    case 8: return (int)cnf::coop_max_grid(k1_probe_solve<8>, smem_bytes<8>(H, block), block, out);
+    case 16: return (int)cnf::coop_max_grid(k1_probe_solve<16>, smem_bytes<16>(H, block), block, out);
+    case 32: return (int)cnf::coop_max_grid(k1_probe_solve<32>, smem_bytes<32>(H, block), block, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int cnf_k1_probe_solve(const float* w1, const float* b1, const float* w2,
+                                  const float* b2, const float* eps, const float* z0,
+                                  const float* acc0, const float* ts, float* zT, float* accT,
+                                  int* stats, float* dt_last, float* work, float* partials, int B,
+                                  int dz, int H, int max_steps, int norm_z, int norm_j, int K, int jvp,
+                                  float rtol, float atol, float beta1, float beta2, float inv_order,
+                                  const float* tab, int grid, int block, void* stream) {
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || K < 1)
+    return (int)cudaErrorInvalidValue;
+  ProbeArgs a;
+  cnf::set_fwd_args(&a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, dz,
+                    max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
+  a.f.w1 = w1; a.f.b1 = b1; a.f.w2 = w2; a.f.b2 = b2; a.f.H = H;
+  a.K = K;
+  a.jvp = jvp;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cnf::padded_dz(dz)) {
+    case 4: return (int)cnf::coop_launch(k1_probe_solve<4>, a, grid, block, smem_bytes<4>(H, block), s);
+    case 8: return (int)cnf::coop_launch(k1_probe_solve<8>, a, grid, block, smem_bytes<8>(H, block), s);
+    case 16: return (int)cnf::coop_launch(k1_probe_solve<16>, a, grid, block, smem_bytes<16>(H, block), s);
+    case 32: return (int)cnf::coop_launch(k1_probe_solve<32>, a, grid, block, smem_bytes<32>(H, block), s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -493,7 +493,16 @@ struct AdjState {
 // block's own Pg-float buffers (shared or global memory) for g, the proposed
 // g, and the stage-1 and last-stage partials; on return gp holds g.
 // U: as forward_solve's.
-template <int DZ, bool COND, int U, class Stage, class Grad>
+//
+// PROBES (K6: the Hutchinson kernels' probe instances, K probes a sample):
+// one slot holds one probe's residuals, so a stage runs in sub-passes.  Every
+// thread of the block calls `stage.probes(valid, s, z, az, aacc, kz, kr, kaz,
+// kys, flush)` (threads past B with `valid` false compute nothing), which
+// calls `flush()` after each probe has left its residuals in the slot; a
+// flush adds the block's probe terms `grad.probe(q, base, nvalid)` of every
+// entry q, and after the stage the forward chain's `grad.fwd(q, base,
+// nvalid)`: the sub-passes sum to the stage's g rate (in another order).
+template <int DZ, bool COND, int U, bool PROBES = false, class Stage, class Grad>
 __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad& grad, int Pg, float* gp,
                               float* gnew, float* K1p, float* K7p, float* red) {
   cg::grid_group grid = cg::this_grid();
@@ -514,7 +523,7 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
   float* K = Yn + RB;
 
   // Sample s's stage at (z, az), its rates stored into the plane kst.
-  auto run_stage = [&](int s, const float (&z)[DZ], const float (&az)[DZ], float* kst) {
+  auto run_stage = [&](int s, const float (&z)[DZ], const float (&az)[DZ], auto* kst) {
     float aacc[3], kz[DZ], kr[3], kaz[DZ];
 #pragma unroll
     for (int r = 0; r < 3; ++r) aacc[r] = p.aaccT[(size_t)r * B + s];
@@ -532,26 +541,83 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
   // The block's samples in round rd: [base, base + nvalid).
   auto round_base = [&](int rd) { return rd * nthr + (int)(blockIdx.x * blockDim.x); };
   auto round_valid = [&](int rd) { return max(0, min((int)blockDim.x, B - round_base(rd))); };
+  // PROBES: round rd of stage st (0: stage 1 at Y) in its sub-passes, each
+  // block entry q of the g rate handed to consume(q, g) once a sub-pass.
+  auto probe_round = [&](const auto& stg, const auto& grd, int rd, int st, float dt_use, const auto& consume) {
+    const int s = gtid + rd * nthr;
+    const bool valid = s < B;
+    const int base = round_base(rd), nv = round_valid(rd);
+    float z[DZ], az[DZ], aacc[3] = {0.f, 0.f, 0.f}, kz[DZ], kr[3], kaz[DZ];
+#pragma unroll
+    for (int i = 0; i < DZ; ++i) {
+      z[i] = valid && i < dz ? Y[(size_t)i * B + s] : 0.f;
+      az[i] = valid && i < dz ? Y[(size_t)(dz + 3 + i) * B + s] : 0.f;
+    }
+    if (valid) {
+      for (int j = 0; j < st; ++j) {
+        const float a = T.a[st][j];
+        if (a != 0.f) {
+          const float cf = dt_use * a;
+          const float* kj = K + j * RB;
+#pragma unroll
+          for (int i = 0; i < DZ; ++i) {
+            if (i < dz) {
+              z[i] = fmaf(cf, kj[(size_t)i * B + s], z[i]);
+              az[i] = fmaf(cf, kj[(size_t)(dz + 3 + i) * B + s], az[i]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 3; ++r) aacc[r] = p.aaccT[(size_t)r * B + s];
+    }
+    float* kst = K + st * RB;
+    auto flush = [&]() {
+      __syncthreads();
+      for (int q = threadIdx.x; q < Pg; q += blockDim.x) consume(q, grd.probe(q, base, nv));
+      __syncthreads();
+    };
+    stg.probes(valid, s, z, az, aacc, kz, kr, kaz, COND && valid ? kst + (size_t)(2 * dz + 3) * B + s : nullptr,
+               flush);
+    if (valid) {
+#pragma unroll
+      for (int i = 0; i < DZ; ++i) {
+        if (i < dz) {
+          kst[(size_t)i * B + s] = kz[i];
+          kst[(size_t)(dz + 3 + i) * B + s] = kaz[i];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 3; ++r) kst[(size_t)(dz + r) * B + s] = kr[r];
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < Pg; q += blockDim.x) consume(q, grd.fwd(q, base, nv));
+    __syncthreads();
+  };
   // Stage 1 at the current state Y into the plane K[0], its g rate partial
   // into K1p (the initial stage, and a non-FSAL tableau's refresh).
   auto stage1 = [&]() {
     for (int q = threadIdx.x; q < Pg; q += blockDim.x) K1p[q] = 0.f;
     __syncthreads();
     for (int rd = 0; rd < rounds; ++rd) {
-      const int s = gtid + rd * nthr;
-      if (s < B) {
-        float z[DZ], az[DZ];
+      if constexpr (PROBES) {
+        probe_round(stage, grad, rd, 0, 0.f, [&](int q, float g) { K1p[q] += g; });
+      } else {
+        const int s = gtid + rd * nthr;
+        if (s < B) {
+          float z[DZ], az[DZ];
 #pragma unroll
-        for (int i = 0; i < DZ; ++i) {
-          z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
-          az[i] = i < dz ? Y[(size_t)(dz + 3 + i) * B + s] : 0.f;
+          for (int i = 0; i < DZ; ++i) {
+            z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
+            az[i] = i < dz ? Y[(size_t)(dz + 3 + i) * B + s] : 0.f;
+          }
+          run_stage(s, z, az, K);
         }
-        run_stage(s, z, az, K);
+        __syncthreads();
+        const int base = round_base(rd), nv = round_valid(rd);
+        for (int q = threadIdx.x; q < Pg; q += blockDim.x) K1p[q] += grad(q, base, nv);
+        __syncthreads();
       }
-      __syncthreads();
-      const int base = round_base(rd), nv = round_valid(rd);
-      for (int q = threadIdx.x; q < Pg; q += blockDim.x) K1p[q] += grad(q, base, nv);
-      __syncthreads();
     }
   };
 
@@ -589,44 +655,55 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
     // Stage st over the block's rounds, and its g rate partials.
     auto stage_st = [&](int st) {
       for (int rd = 0; rd < rounds; ++rd) {
-        const int s = gtid + rd * nthr;
-        if (s < B) {
-          float z[DZ], az[DZ];
+        if constexpr (PROBES) {
+          const float cb = dt_use * T.b[st], ce = dt_use * T.btilde[st], ce3 = dt_use * T.btilde3[st];
+          const bool last = fsal && st == S - 1;
+          probe_round(stage, grad, rd, st, dt_use, [&](int q, float g) {
+            if (T.b[st] != 0.f) GB[q] = fmaf(cb, g, GB[q]);
+            if (T.btilde[st] != 0.f) GE[q] = fmaf(ce, g, GE[q]);
+            if (has3 && T.btilde3[st] != 0.f) GE3[q] = fmaf(ce3, g, GE3[q]);
+            if (last) K7p[q] += g;
+          });
+        } else {
+          const int s = gtid + rd * nthr;
+          if (s < B) {
+            float z[DZ], az[DZ];
 #pragma unroll
-          for (int i = 0; i < DZ; ++i) {
-            z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
-            az[i] = i < dz ? Y[(size_t)(dz + 3 + i) * B + s] : 0.f;
-          }
+            for (int i = 0; i < DZ; ++i) {
+              z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
+              az[i] = i < dz ? Y[(size_t)(dz + 3 + i) * B + s] : 0.f;
+            }
 #pragma unroll (U)
-          for (int j = 0; j < st; ++j) {
-            const float a = T.a[st][j];
-            if (a != 0.f) {
-              const float cf = dt_use * a;
-              const float* kj = K + j * RB;
+            for (int j = 0; j < st; ++j) {
+              const float a = T.a[st][j];
+              if (a != 0.f) {
+                const float cf = dt_use * a;
+                const float* kj = K + j * RB;
 #pragma unroll
-              for (int i = 0; i < DZ; ++i) {
-                if (i < dz) {
-                  z[i] = fmaf(cf, kj[(size_t)i * B + s], z[i]);
-                  az[i] = fmaf(cf, kj[(size_t)(dz + 3 + i) * B + s], az[i]);
+                for (int i = 0; i < DZ; ++i) {
+                  if (i < dz) {
+                    z[i] = fmaf(cf, kj[(size_t)i * B + s], z[i]);
+                    az[i] = fmaf(cf, kj[(size_t)(dz + 3 + i) * B + s], az[i]);
+                  }
                 }
               }
             }
+            run_stage(s, z, az, K + st * RB);
           }
-          run_stage(s, z, az, K + st * RB);
+          __syncthreads();
+          const float bs = T.b[st], bt = T.btilde[st], bt3 = T.btilde3[st];
+          const float cb = dt_use * bs, ce = dt_use * bt, ce3 = dt_use * bt3;
+          const bool last = fsal && st == S - 1;
+          const int base = round_base(rd), nv = round_valid(rd);
+          for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
+            const float g = grad(q, base, nv);
+            if (bs != 0.f) GB[q] = fmaf(cb, g, GB[q]);
+            if (bt != 0.f) GE[q] = fmaf(ce, g, GE[q]);
+            if (has3 && bt3 != 0.f) GE3[q] = fmaf(ce3, g, GE3[q]);
+            if (last) K7p[q] += g;
+          }
+          __syncthreads();
         }
-        __syncthreads();
-        const float bs = T.b[st], bt = T.btilde[st], bt3 = T.btilde3[st];
-        const float cb = dt_use * bs, ce = dt_use * bt, ce3 = dt_use * bt3;
-        const bool last = fsal && st == S - 1;
-        const int base = round_base(rd), nv = round_valid(rd);
-        for (int q = threadIdx.x; q < Pg; q += blockDim.x) {
-          const float g = grad(q, base, nv);
-          if (bs != 0.f) GB[q] = fmaf(cb, g, GB[q]);
-          if (bt != 0.f) GE[q] = fmaf(ce, g, GE[q]);
-          if (has3 && bt3 != 0.f) GE3[q] = fmaf(ce3, g, GE3[q]);
-          if (last) K7p[q] += g;
-        }
-        __syncthreads();
       }
     };
 #pragma unroll 1

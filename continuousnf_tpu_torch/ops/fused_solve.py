@@ -3,8 +3,9 @@ solves and the TRAIN backsolve adjoints.
 
 Port of `continuousnf_tpu/ops/fused_solve.py`: `ChainSpec`/`chain_spec`
 (:101-152), the stages `_stage_train` (:333-369) with `_chain_fwd`,
-`_probe_pullback`, `_safe_col_norm` and `_ct_safe_norm` (:155-306), the
-hand-derived stage VJP `_stage_train_fwdbwd` (:372-481), the exact stages
+`_probe_pullback`, `_probe_pushforward`, `_safe_col_norm` and
+`_ct_safe_norm` (:155-330), the hand-derived stage VJP
+`_stage_train_fwdbwd` (:372-481), K VJP or JVP probes in both, the exact stages
 `exact_stage_consts`, `exact_pm_chain`, `_stage_train_exact`,
 `_stage_train_exact_fwdbwd` and `_stage_train_exact_chain` (:542-728),
 `FullSolve` (:1346-1357) and `make_full_solve` (:1378-1823), with the
@@ -49,7 +50,11 @@ Each runs one whole adaptive solve in one cooperative launch, with one
 batch-global error norm per attempted step, under any explicit tableau with
 an embedded error estimate (K9: `_stretched_eest` :766-770 and the non-FSAL
 refresh :914-922, :1293-1298; the tableau is a run-time argument,
-`_tableau_array`).  The chain kernels also take conditional nets (K8: the
+`_tableau_array`).  K1, K2 and their narrow chain forms have a second,
+probe instance each (K6): K Hutchinson probes (eps (K, B, dz)), reverse or
+forward mode, K and the direction run-time values; the one-VJP-probe
+instance stays as it was, and the wrappers take it for K = 1 VJP.  The
+chain kernels also take conditional nets (K8: the
 first layer reads [z | ys], ys constant over the solve; the K2 chain form
 integrates the per-sample ys cotangent) and identity layers (K9,
 `ChainSpec.acts` :104-111).  `make_full_solve` takes the chain kernels for
@@ -62,7 +67,8 @@ return the last step they took beside the next step size
 A wrapper launches its kernel for CUDA tensors and runs its twin for CPU
 tensors.  On a CUDA tensor there is no fallback: a configuration the kernel
 does not cover raises NotImplementedError naming the kernel that would.
-Each wrapper's `.launches` counts its kernel's launches.
+Each wrapper's `.launches` counts its kernel's launches, and a Hutchinson
+kernel's `.probe_launches[(K, jvp)]` those of its probe instance.
 """
 from __future__ import annotations
 
@@ -218,23 +224,43 @@ def _probe_pullback(spec: ChainSpec, ek, ws, ds):
     return us, vs, us[0][:, : spec.dz]
 
 
+def _probe_pushforward(spec: ChainSpec, ek, ws, ds):
+    """One Hutchinson JVP pass, J eps (the forward-mode counterpart of
+    `_probe_pullback`).  Returns (ts, us, Je): ts[i] = the tangent arriving
+    at hs[i] (ts[0] = [ek | 0]: the probe has no ys rows), us[i] = layer i's
+    matmul output before its gate, Je = ts[N]."""
+    t = ek if not spec.n_cond else torch.cat([ek, ek.new_zeros(ek.shape[0], spec.n_cond)], dim=-1)
+    ts, us = [t], []
+    for i in range(spec.n_layers):
+        u = ts[-1] @ ws[i]
+        us.append(u)
+        ts.append(u * ds[i] if ds[i] is not None else u)
+    return ts, us, ts[-1]
+
+
+def _probe_pass(spec: ChainSpec, ek, ws, ds, jvp: bool):
+    """eps^T J (`_probe_pullback`) or, `jvp`, J eps (`_probe_pushforward`),
+    with the pass's residuals."""
+    return (_probe_pushforward if jvp else _probe_pullback)(spec, ek, ws, ds)
+
+
 def _ct_safe_norm(ct, norm):
     """Cotangent factor of `safe_norm`: ct / ||v||, 0 at v = 0."""
     pos = norm > 0
     return torch.where(pos, ct / torch.where(pos, norm, torch.ones_like(norm)), torch.zeros_like(norm))
 
 
-def _stage_train(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ys=None):
+def _stage_train(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ys=None, jvp: bool = False):
     """One TRAIN field evaluation: z (B, dz), probes eps (K, B, dz), the
     conditioning ys (B, n_cond) or None.  Returns (k_z (B, dz), rates (3, B)
-    = [-tr, ||y||, ||eps^T J||]), the trace and the Jacobian norm averaged
-    over the K probes."""
+    = [-tr, ||y||, ||eps^T J||]), the trace and the probe norm averaged over
+    the K probes; `jvp` takes J eps (forward mode) in place of eps^T J."""
     hs, ds = _chain_fwd(spec, _zin(z, ys), ws, bs)
     y = hs[-1]
     zero = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
     tr, n_rate = zero, zero
     for ek in eps:
-        _, _, eJ = _probe_pullback(spec, ek, ws, ds)
+        _, _, eJ = _probe_pass(spec, ek, ws, ds, jvp)
         tr = tr + torch.sum(eJ * ek, dim=-1)
         if norm_j:
             n_rate = n_rate + safe_norm(eJ)
@@ -245,13 +271,16 @@ def _stage_train(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ys
     return y, torch.stack([-tr, e_rate, n_rate])
 
 
-def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ct_y, ct_r, ys=None):
+def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ct_y, ct_r, ys=None,
+                        jvp: bool = False):
     """`_stage_train` and its hand-derived VJP against (ct_y (B, dz), ct_r
     (3, B)) in one pass: the math the K2 kernel runs.  Returns (k_z, rates,
     ct_zin, ct_ws, ct_bs), the cotangents not negated and the parameter ones
     summed over the batch; ct_zin is the cotangent of the input rows
-    [z | ys].  The probe tangent has zero ys rows, so the ys rows of W0's
-    gradient come from the forward chain alone (ys x ca_0)."""
+    [z | ys].  The probe has zero ys rows, so the ys rows of W0's gradient
+    come from the forward chain alone (ys x ca_0).  Each probe adds its own
+    terms: up the pullback chain (VJP) or down the pushforward chain (JVP);
+    the probes get no cotangent."""
     N = spec.n_layers
     K = eps.shape[0]
     hs, ds = _chain_fwd(spec, _zin(z, ys), ws, bs)
@@ -260,7 +289,7 @@ def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: b
     uss, vss, eJs, ns = [], [], [], []
     tr, n_rate = zero, zero
     for ek in eps:
-        us, vs, eJ = _probe_pullback(spec, ek, ws, ds)
+        us, vs, eJ = _probe_pass(spec, ek, ws, ds, jvp)
         uss.append(us)
         vss.append(vs)
         eJs.append(eJ)
@@ -288,6 +317,21 @@ def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: b
         ct_u = ek * ct_tr[:, None]
         if norm_j:
             ct_u = ct_u + eJs[k] * _ct_safe_norm(ct_r[2] / K, ns[k])[:, None]
+        if jvp:
+            # Down the pushforward chain: ts[i+1] = (ts[i] W_i) * d_i, with
+            # ts = uss[k] and the pre-gate products us = vss[k].
+            ct_t = ct_u
+            for i in reversed(range(N)):
+                if ds[i] is not None:
+                    ct_a = ct_t * ds[i]
+                    # d_i = 1 - hs[i+1]^2: ct_h += -2 h (ct_t * u_i)
+                    ct_hs[i + 1] = add(ct_hs[i + 1], (-2.0 * hs[i + 1]) * (ct_t * vss[k][i]))
+                else:
+                    ct_a = ct_t
+                ct_ws[i] = add(ct_ws[i], uss[k][i].T @ ct_a)
+                if i > 0:
+                    ct_t = ct_a @ ws[i].T
+            continue
         if spec.n_cond:
             ct_u = torch.cat([ct_u, ct_u.new_zeros(ct_u.shape[0], spec.n_cond)], dim=-1)
         # Up the pullback chain: u_i = v_i W_i^T, v_i = u_{i+1} * d_i.
@@ -442,15 +486,16 @@ def solve_test_plain(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0
 
 
 def solve_train_plain(
-    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None,
+    jvp=False,
 ):
     """Plain PyTorch version of K1 and its chain form: the eager adaptive
     solve of [z | acc] with acc (3, B) = [dlogp | reg_e | reg_n] rows,
-    seeded from acc0, on `_stage_train` with probes eps (K, B, dz) and the
-    conditioning ys (B, n_cond) or None.  Returns
+    seeded from acc0, on `_stage_train` with probes eps (K, B, dz), VJP or
+    (`jvp`) JVP, and the conditioning ys (B, n_cond) or None.  Returns
     (zT, accT, steps, accepted, dt_last, dt_used)."""
     return _solve_plain(
-        lambda z: _stage_train(spec, z, eps, ws, bs, norm_z, norm_j, ys), tab, rtol=rtol, atol=atol,
+        lambda z: _stage_train(spec, z, eps, ws, bs, norm_z, norm_j, ys, jvp), tab, rtol=rtol, atol=atol,
         max_steps=max_steps, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
     )
 
@@ -484,13 +529,13 @@ def _split_zin(spec, ct_zin, ys):
     return ct_zin[:, : spec.dz], ([] if ys is None else [ct_zin[:, spec.dz :]])
 
 
-def _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT, ys=None):
+def _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT, ys=None, jvp=False):
     """`(z, a_z) -> (k_z, rates, ct_z, gradient blocks [ct_ys,] [w..., b...])`
-    of the Hutchinson TRAIN stage (K2): the ct_ys block (B, n_cond) only for
-    a conditional stage."""
+    of the Hutchinson TRAIN stage (K2), VJP or (`jvp`) JVP probes: the ct_ys
+    block (B, n_cond) only for a conditional stage."""
 
     def stage(z, az):
-        y, kr, ct_zin, ct_ws, ct_bs = _stage_train_fwdbwd(spec, z, eps, ws, bs, norm_z, norm_j, az, aaccT, ys)
+        y, kr, ct_zin, ct_ws, ct_bs = _stage_train_fwdbwd(spec, z, eps, ws, bs, norm_z, norm_j, az, aaccT, ys, jvp)
         ct_z, ys_block = _split_zin(spec, ct_zin, ys)
         return y, kr, ct_z, ys_block + list(ct_ws) + list(ct_bs)
 
@@ -565,17 +610,18 @@ def _adjoint_result(z0, acc0, az0, blocks, steps, accepted, N, ys):
 
 def adjoint_train_plain(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-    t_hi, t_lo, dt_init, ys=None,
+    t_hi, t_lo, dt_init, ys=None, jvp=False,
 ):
     """Plain PyTorch version of K2 and its chain form: the eager adaptive
     backsolve of (z, acc, a_z, a_acc, [a_ys,] g_p) from t_hi to t_lo, one
     error norm over the whole augmented state (a_acc constant), on the
-    hand-derived stage VJP.  With the conditioning ys (B, n_cond) the
+    hand-derived stage VJP, with probes eps (K, B, dz), VJP or (`jvp`) JVP.
+    With the conditioning ys (B, n_cond) the
     per-sample a_ys (from 0 at t_hi) is integrated too and returned last.
     `dt_init` None picks the first step by Hairer's rule.  Returns
     (z0, acc0, a_z0, g_ws, g_bs, steps, accepted[, a_ys0])."""
     out = _adjoint_plain(
-        _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT, ys), _block_shapes(ws, bs, ys),
+        _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT, ys, jvp), _block_shapes(ws, bs, ys),
         tab, rtol=rtol, atol=atol, max_steps=max_steps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
         t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
     )
@@ -644,8 +690,13 @@ def _wide_smem_floats(spec: ChainSpec) -> int:
     return pad4(weights) + 100 + 4 * (9 * pad4(spec.dz) + 4 * hsum + 7)
 
 
+def _wide_probes(k_probes: int, jvp: bool) -> str:
+    return (f"{k_probes} {'JVP' if jvp else 'VJP'} Hutchinson probes in the wide chain forms (K6 in the wide forms, "
+            "ROADMAP queue 2; they take one VJP probe)")
+
+
 def _kernel_covers(
-    tab: ButcherTableau, spec: ChainSpec, k_probes: int = 1, chain: bool = False
+    tab: ButcherTableau, spec: ChainSpec, k_probes: int = 1, chain: bool = False, jvp: bool = False
 ) -> Optional[str]:
     """Why the 2-layer kernels (K3, K1, K2, K4; `chain` False) or the chain
     kernels (the K1 and K2 chain forms, K7, narrow or wide; `chain` True) do
@@ -658,7 +709,9 @@ def _kernel_covers(
     unconditional chains beyond, up to WIDE_MAX_DZ and WIDE_MAX_WIDTH, whose
     weights fit in a block's shared memory beside a tile; a narrow chain
     whose weights and per-thread slots do not fit in shared memory is
-    refused at launch (`_launch_shape`)."""
+    refused at launch (`_launch_shape`).  The Hutchinson kernels (K1, K2 and
+    their narrow chain forms) take any number `k_probes` of VJP or (`jvp`)
+    JVP probes (K6); the wide forms one VJP probe."""
     if tab.btilde is None:
         return f"the {tab.name} tableau (no embedded error estimate: fixed-step solves stay outside the kernels)"
     if tab.num_stages > MAX_STAGES:
@@ -667,8 +720,6 @@ def _kernel_covers(
         return "identity-activation layers in K3, K1, K2 and K4 (the chain kernels take them)"
     if spec.n_cond and not chain:
         return "conditional nets (K8 in the 2-layer kernels, ROADMAP queue 2)"
-    if k_probes != 1:
-        return f"{k_probes} Hutchinson probes (K6, ROADMAP queue 2)"
     if spec.n_layers == 1:
         return (f"1-layer nets (the kernels take 2 to {CHAIN_MAX_LAYERS} layers; 1-layer nets: ROADMAP queue 2, "
                 "shape variants)")
@@ -684,6 +735,8 @@ def _kernel_covers(
                 "deeper chains: ROADMAP queue 2, shape variants)")
     if not _wide_chain(spec):
         return None
+    if k_probes != 1 or jvp:
+        return _wide_probes(k_probes, jvp)
     if spec.dz > WIDE_MAX_DZ:
         return (f"state width {spec.dz} > {WIDE_MAX_DZ} (the wide chain forms take up to {WIDE_MAX_DZ}; "
                 "ROADMAP queue 2, shape variants)")
@@ -752,10 +805,14 @@ _SIGNATURES = {
     K1_KERNEL: {
         "cnf_k1_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
         "cnf_k1_train_solve": ([_P] * 14 + [_I] * 6 + _TAIL, _I),
+        "cnf_k1p_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k1_probe_solve": ([_P] * 14 + [_I] * 8 + _TAIL, _I),
     },
     K2_KERNEL: {
         "cnf_k2_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
         "cnf_k2_train_adjoint": ([_P] * 21 + [_I] * 6 + _TAIL, _I),
+        "cnf_k2p_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k2_probe_adjoint": ([_P] * 21 + [_I] * 8 + _TAIL, _I),
     },
     K4_KERNEL: {
         "cnf_k4_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
@@ -770,6 +827,8 @@ _SIGNATURES = {
         "cnf_k1c_max_grid": _CHAIN_GRID,
         "cnf_k1c_smem_bytes": _CHAIN_SMEM,
         "cnf_k1c_train_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I] + _TAIL, _I),
+        "cnf_k1cp_max_grid": _CHAIN_GRID,
+        "cnf_k1c_probe_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _TAIL, _I),
     },
     K7_KERNEL: {
         "cnf_k7_test_max_grid": _CHAIN_GRID,
@@ -782,6 +841,8 @@ _SIGNATURES = {
         "cnf_k2c_max_grid": _CHAIN_GRID,
         "cnf_k2c_smem_bytes": _CHAIN_SMEM,
         "cnf_k2c_train_adjoint": ([_P] * 18 + [_I, _I, _IP, _I, _I, _I, _I] + _TAIL, _I),
+        "cnf_k2cp_max_grid": _CHAIN_GRID,
+        "cnf_k2c_probe_adjoint": ([_P] * 18 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _TAIL, _I),
     },
     K1W_KERNEL: {
         "cnf_k1w_shape": _WIDE_SHAPE,
@@ -859,18 +920,21 @@ def _controller_floats(tab):
 
 
 def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain: bool = False,
-               wide: bool = False) -> None:
+               wide: bool = False, jvp: bool = False) -> None:
     """Raise unless `label`'s kernel takes the configuration on CUDA tensors:
     a chain kernel's narrow form (`wide` False) takes no wide chain, its
-    wide form any chain the chain kernels cover unconditionally."""
+    wide form any chain the chain kernels cover unconditionally, with one
+    VJP probe."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
-    why = _kernel_covers(tab, spec, k_probes, chain)
+    why = _kernel_covers(tab, spec, k_probes, chain, jvp)
     if why is None and chain and not wide and _wide_chain(spec):
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the narrow chain kernels (up to "
                f"{MAX_DZ} and {CHAIN_MAX_WIDTH}: their wide forms take the chain)")
     if why is None and wide and spec.n_cond:
         why = "conditional wide chains (K8 in the wide chain forms, ROADMAP queue 2, shape variants)"
+    if why is None and wide and (k_probes != 1 or jvp):
+        why = _wide_probes(k_probes, jvp)
     if why is not None:
         raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
@@ -900,19 +964,20 @@ def _forward_result(zT, accT, stats, dt_last):
 
 def _launch_two_layer_forward(label, lib_name, entry, max_grid, tab, spec, *, rtol, atol, max_steps, ws, bs, z0,
                               acc0, t0, t1, dt_init, eps=None, norms=None):
-    """Launch a 2-layer forward kernel (K3: no probe, no norms; K1: the probe
-    and the norms; the K4 forward: the norms), whose C arguments are (w1, b1,
-    w2, b2, [eps], z0, acc0, ts, zT, accT, stats, dt_last, work, partials,
-    B, dz, H, max_steps, [norm_z, norm_j], rtol, atol, the controller, the
+    """Launch a 2-layer forward kernel (K3: no probe, no norms; K1: the
+    probes (K, B, dz) and the norms, and for its probe instance K and jvp;
+    the K4 forward: the norms), whose C arguments are (w1, b1, w2, b2,
+    [eps], z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, dz, H,
+    max_steps, [norm_z, norm_j, [K, jvp]], rtol, atol, the controller, the
     tableau, grid, block, stream).  Returns (zT, accT, steps, accepted,
     dt_last, dt_used)."""
     B, dz = z0.shape
     H = spec.out_dims[0]
     device = z0.device
-    probe = [] if eps is None else [eps[0]]
+    probe = [] if eps is None else [eps]
     w1, b1, w2, b2, z0, acc0, *probe = _check_inputs(
         label, device, [ws[0], bs[0], ws[1], bs[1], z0, acc0] + probe,
-        [(dz, H), (H,), (H, dz), (dz,), (B, dz), tuple(acc0.shape), (B, dz)],
+        [(dz, H), (H,), (H, dz), (dz,), (B, dz), tuple(acc0.shape)] + [(x.shape[0], B, dz) for x in probe],
     )
     lib = _library(lib_name)
     block, grid = _launch_shape(
@@ -958,49 +1023,71 @@ def run_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0
 run_solve_kernel.launches = 0
 
 
+def _probe_instance(eps, jvp: bool) -> bool:
+    """Whether a Hutchinson kernel runs its probe instance (K6: the probe
+    loop, K VJP or JVP probes) rather than its one-VJP-probe instance."""
+    return eps.shape[0] != 1 or bool(jvp)
+
+
+def _count(wrapper, eps, jvp: bool) -> None:
+    """One launch of a Hutchinson kernel's wrapper: `.launches`, and
+    `.probe_launches[(K, jvp)]` for its probe instance."""
+    wrapper.launches += 1
+    if _probe_instance(eps, jvp):
+        key = (int(eps.shape[0]), bool(jvp))
+        wrapper.probe_launches[key] = wrapper.probe_launches.get(key, 0) + 1
+
+
 def run_train_solve_kernel(
-    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None,
+    jvp=False,
 ):
     """K1: the TRAIN solve of [z | acc] from t0 to t1 starting with step
-    `dt_init`.  z0 is (B, dz), eps (K, B, dz) and acc0 (3, B) = [dlogp |
-    reg_e | reg_n] seeds the accumulators.  Returns
-    (zT, accT, steps, accepted, dt_last, dt_used), all on z0's device.
+    `dt_init`.  z0 is (B, dz), eps (K, B, dz) the probes, VJP or (`jvp`) JVP,
+    and acc0 (3, B) = [dlogp | reg_e | reg_n] seeds the accumulators.
+    Returns (zT, accT, steps, accepted, dt_last, dt_used), all on z0's
+    device.
 
     CUDA tensors go through the K1 kernel (unconditional 2-layer tanh
-    chains, one probe), CPU tensors through its plain version (any Dense
+    chains: one VJP probe in its first instance, any other probes in its
+    probe instance, K6), CPU tensors through its plain version (any Dense
     chain, ys (B, n_cond) or None)."""
     _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
-            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys, jvp=jvp,
         )
-    _cuda_only("K1", z0, tab, spec, eps.shape[0])
+    _cuda_only("K1", z0, tab, spec, eps.shape[0], jvp=jvp)
+    probes = _probe_instance(eps, jvp)
     out = _launch_two_layer_forward(
-        "K1", K1_KERNEL, "cnf_k1_train_solve", "cnf_k1_max_grid", tab, spec, rtol=rtol, atol=atol,
+        "K1", K1_KERNEL, "cnf_k1_probe_solve" if probes else "cnf_k1_train_solve",
+        "cnf_k1p_max_grid" if probes else "cnf_k1_max_grid", tab, spec, rtol=rtol, atol=atol,
         max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
-        norms=(norm_z, norm_j),
+        norms=(norm_z, norm_j) + ((eps.shape[0], jvp) if probes else ()),
     )
-    run_train_solve_kernel.launches += 1
+    _count(run_train_solve_kernel, eps, jvp)
     return out
 
 
 run_train_solve_kernel.launches = 0
+run_train_solve_kernel.probe_launches = {}
 
 
 def _launch_k2(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-               t_hi, t_lo, dt_init):
+               t_hi, t_lo, dt_init, jvp=False):
     B, dz = zT.shape
     H = spec.out_dims[0]
     device = zT.device
+    K = eps.shape[0]
     w1, b1, w2, b2, e0, zT, accT, azT, aaccT = _check_inputs(
-        "K2", device, [ws[0], bs[0], ws[1], bs[1], eps[0], zT, accT, azT, aaccT],
-        [(dz, H), (H,), (H, dz), (dz,), (B, dz), (B, dz), (3, B), (B, dz), (3, B)],
+        "K2", device, [ws[0], bs[0], ws[1], bs[1], eps, zT, accT, azT, aaccT],
+        [(dz, H), (H,), (H, dz), (dz,), (K, B, dz), (B, dz), (3, B), (B, dz), (3, B)],
     )
     lib = _library(K2_KERNEL)
-    block, grid = _launch_shape(
-        lambda blk, cap: lib.cnf_k2_max_grid(dz, H, blk, cap), "K2", B, (128, 64, 32)
-    )
+    probes = _probe_instance(eps, jvp)
+    max_grid = lib.cnf_k2p_max_grid if probes else lib.cnf_k2_max_grid
+    block, grid = _launch_shape(lambda blk, cap: max_grid(dz, H, blk, cap), "K2", B, (128, 64, 32))
     P = 2 * dz * H + H + dz
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
     z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
@@ -1009,12 +1096,13 @@ def _launch_k2(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps,
     work = torch.empty((tab.num_stages + 2) * (2 * dz + 3) * B, dtype=torch.float32, device=device)
     partials = torch.empty(6 * grid, dtype=torch.float32, device=device)
     gpart = torch.empty(2 * grid * _gvecs(tab) * P, dtype=torch.float32, device=device)
-    err = lib.cnf_k2_train_adjoint(
+    entry = lib.cnf_k2_probe_adjoint if probes else lib.cnf_k2_train_adjoint
+    err = entry(
         _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT),
         _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0), _ptr(gw1), _ptr(gb1), _ptr(gw2),
         _ptr(gb2), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gpart),
-        B, dz, H, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
-        _tableau_array(tab), grid, block, _stream(device),
+        B, dz, H, int(max_steps), int(norm_z), int(norm_j), *([K, int(jvp)] if probes else []), rtol, atol,
+        *_controller_floats(tab), _tableau_array(tab), grid, block, _stream(device),
     )
     _check_launch(err, "K2", grid, block)
     return z0, acc0, az0, [gw1, gw2], [gb1, gb2], stats[0], stats[1]
@@ -1022,33 +1110,37 @@ def _launch_k2(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps,
 
 def run_adjoint_kernel(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-    t_hi, t_lo, dt_init, ys=None,
+    t_hi, t_lo, dt_init, ys=None, jvp=False,
 ):
     """K2: the backsolve of (z, acc, a_z, a_acc, g_p) from t_hi to t_lo
     starting with step `dt_init`, on the TRAIN stage with probes eps
-    (K, B, dz).  zT, azT are (B, dz), accT, aaccT (3, B).  Returns
-    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted), g_* summed over the batch.
+    (K, B, dz), VJP or (`jvp`) JVP.  zT, azT are (B, dz), accT, aaccT
+    (3, B).  Returns (z0, acc0, a_z0, g_ws, g_bs, steps, accepted), g_*
+    summed over the batch.
 
     CUDA tensors go through the K2 kernel (unconditional 2-layer tanh
-    chains, one probe), CPU tensors through its plain version (any Dense
+    chains: one VJP probe in its first instance, any other probes in its
+    probe instance, K6), CPU tensors through its plain version (any Dense
     chain; with ys (B, n_cond), a_ys0 is returned last)."""
     _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
     if zT.device.type == "cpu":
         return adjoint_train_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
             ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
-            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys, jvp=jvp,
         )
-    _cuda_only("K2", zT, tab, spec, eps.shape[0])
+    _cuda_only("K2", zT, tab, spec, eps.shape[0], jvp=jvp)
     if dt_init is None:
         raise ValueError("K2 needs dt_init (the caller picks it)")
     out = _launch_k2(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws,
-                     bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init)
-    run_adjoint_kernel.launches += 1
+                     bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
+                     jvp=jvp)
+    _count(run_adjoint_kernel, eps, jvp)
     return out
 
 
 run_adjoint_kernel.launches = 0
+run_adjoint_kernel.probe_launches = {}
 
 
 def run_exact_solve_kernel(
@@ -1197,13 +1289,16 @@ def _launch_chain_forward(label, lib_name, entry, max_grid, tab, spec, *, rtol, 
     """Launch a chain forward kernel, whose C arguments are (params, [eps],
     ys, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths,
     acts, max_steps, *norms, rtol, atol, the controller, the tableau, grid,
-    block, stream).  Returns (zT, accT, steps, accepted, dt_last, dt_used)."""
+    block, stream); `norms` ends with K and jvp for the K1 chain form's
+    probe instance.  Returns (zT, accT, steps, accepted, dt_last,
+    dt_used)."""
     B, dz = z0.shape
     device = z0.device
     params, widths = _chain_params(label, spec, ws, bs, device)
     ys = _cond_rows(label, spec, ys, B, device)
-    probe = [] if eps is None else [eps[0]]
-    z0, acc0, *probe = _check_inputs(label, device, [z0, acc0] + probe, [(B, dz), tuple(acc0.shape), (B, dz)])
+    probe = [] if eps is None else [eps]
+    z0, acc0, *probe = _check_inputs(label, device, [z0, acc0] + probe,
+                                     [(B, dz), tuple(acc0.shape)] + [(x.shape[0], B, dz) for x in probe])
     lib = _library(lib_name)
     block, grid = _launch_shape(
         lambda blk, cap: getattr(lib, max_grid)(spec.n_layers, widths, blk, cap), label, B, _CHAIN_BLOCKS
@@ -1277,48 +1372,56 @@ run_chain_exact_solve_kernel.launches = 0
 
 
 def run_chain_train_solve_kernel(
-    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None,
+    jvp=False,
 ):
     """The K1 chain form: the TRAIN solve of [z | acc] of a chain of 2 to
-    CHAIN_MAX_LAYERS tanh or identity layers with one VJP probe; arguments
-    and returns as `run_train_solve_kernel`, with the conditioning ys
-    (B, n_cond) of a conditional chain.
+    CHAIN_MAX_LAYERS tanh or identity layers with probes eps (K, B, dz), VJP
+    or (`jvp`) JVP; arguments and returns as `run_train_solve_kernel`, with
+    the conditioning ys (B, n_cond) of a conditional chain.
 
-    CUDA tensors go through the kernel, CPU tensors through its plain
-    version."""
+    CUDA tensors go through the kernel (one VJP probe in its first
+    instance, any other probes in its probe instance, K6), CPU tensors
+    through its plain version."""
     _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
-            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys, jvp=jvp,
         )
-    _cuda_only("K1", z0, tab, spec, eps.shape[0], chain=True)
+    _cuda_only("K1", z0, tab, spec, eps.shape[0], chain=True, jvp=jvp)
+    probes = _probe_instance(eps, jvp)
     out = _launch_chain_forward(
-        "K1 chain form", K1C_KERNEL, "cnf_k1c_train_solve", "cnf_k1c_max_grid", tab, spec, rtol=rtol,
+        "K1 chain form", K1C_KERNEL, "cnf_k1c_probe_solve" if probes else "cnf_k1c_train_solve",
+        "cnf_k1cp_max_grid" if probes else "cnf_k1c_max_grid", tab, spec, rtol=rtol,
         atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
-        eps=eps, norms=(norm_z, norm_j),
+        eps=eps, norms=(norm_z, norm_j) + ((eps.shape[0], jvp) if probes else ()),
     )
-    run_chain_train_solve_kernel.launches += 1
+    _count(run_chain_train_solve_kernel, eps, jvp)
     return out
 
 
 run_chain_train_solve_kernel.launches = 0
+run_chain_train_solve_kernel.probe_launches = {}
 
 
 def _launch_chain_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-                          t_hi, t_lo, dt_init, ys=None):
+                          t_hi, t_lo, dt_init, ys=None, jvp=False):
     label = "K2 chain form"
     B, dz = zT.shape
+    K = eps.shape[0]
     nc = spec.n_cond
     device = zT.device
     params, widths = _chain_params(label, spec, ws, bs, device)
     ys = _cond_rows(label, spec, ys, B, device)
     e0, zT, accT, azT, aaccT = _check_inputs(
-        label, device, [eps[0], zT, accT, azT, aaccT], [(B, dz), (B, dz), (3, B), (B, dz), (3, B)]
+        label, device, [eps, zT, accT, azT, aaccT], [(K, B, dz), (B, dz), (3, B), (B, dz), (3, B)]
     )
     lib = _library(K2C_KERNEL)
+    probes = _probe_instance(eps, jvp)
+    max_grid = lib.cnf_k2cp_max_grid if probes else lib.cnf_k2c_max_grid
     block, grid = _launch_shape(
-        lambda blk, cap: lib.cnf_k2c_max_grid(spec.n_layers, widths, blk, cap), label, B, _CHAIN_BLOCKS
+        lambda blk, cap: max_grid(spec.n_layers, widths, blk, cap), label, B, _CHAIN_BLOCKS
     )
     P = params.numel()
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
@@ -1330,11 +1433,13 @@ def _launch_chain_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, w
     partials = torch.empty(6 * grid, dtype=torch.float32, device=device)
     gpart = torch.empty(2 * grid * _gvecs(tab) * P, dtype=torch.float32, device=device)
     gblk = torch.empty(grid * 4 * P, dtype=torch.float32, device=device)
-    err = lib.cnf_k2c_train_adjoint(
+    entry = lib.cnf_k2c_probe_adjoint if probes else lib.cnf_k2c_train_adjoint
+    err = entry(
         _ptr(params), _ptr(e0), _ptr_or_null(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts),
         _ptr(z0), _ptr(acc0), _ptr(az0), _ptr_or_null(ays0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials),
         _ptr(gpart), _ptr(gblk), B, spec.n_layers, widths, _acts_mask(spec), int(max_steps), int(norm_z),
-        int(norm_j), rtol, atol, *_controller_floats(tab), _tableau_array(tab), grid, block, _stream(device),
+        int(norm_j), *([K, int(jvp)] if probes else []), rtol, atol, *_controller_floats(tab),
+        _tableau_array(tab), grid, block, _stream(device),
     )
     _check_launch(err, label, grid, block)
     g_ws, g_bs = _split_params(g, spec)
@@ -1343,34 +1448,37 @@ def _launch_chain_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, w
 
 def run_chain_adjoint_kernel(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-    t_hi, t_lo, dt_init, ys=None,
+    t_hi, t_lo, dt_init, ys=None, jvp=False,
 ):
     """The K2 chain form: the backsolve of (z, acc, a_z, a_acc, [a_ys,] g_p)
-    of a chain of 2 to CHAIN_MAX_LAYERS tanh or identity layers with one VJP
-    probe; arguments and returns as `run_adjoint_kernel`.  A conditional
-    chain takes ys (B, n_cond) and integrates the per-sample a_ys from 0 at
-    t_hi in the same error norm; a_ys0 (B, n_cond) is returned last.
+    of a chain of 2 to CHAIN_MAX_LAYERS tanh or identity layers with probes
+    eps (K, B, dz), VJP or (`jvp`) JVP; arguments and returns as
+    `run_adjoint_kernel`.  A conditional chain takes ys (B, n_cond) and
+    integrates the per-sample a_ys from 0 at t_hi in the same error norm;
+    a_ys0 (B, n_cond) is returned last.
 
-    CUDA tensors go through the kernel, CPU tensors through its plain
-    version."""
+    CUDA tensors go through the kernel (one VJP probe in its first
+    instance, any other probes in its probe instance, K6), CPU tensors
+    through its plain version."""
     _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
     if zT.device.type == "cpu":
         return adjoint_train_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
             ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
-            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys, jvp=jvp,
         )
-    _cuda_only("K2", zT, tab, spec, eps.shape[0], chain=True)
+    _cuda_only("K2", zT, tab, spec, eps.shape[0], chain=True, jvp=jvp)
     if dt_init is None:
         raise ValueError("the K2 chain form needs dt_init (the caller picks it)")
     out = _launch_chain_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol,
                                 max_steps=max_steps, ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT,
-                                aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
-    run_chain_adjoint_kernel.launches += 1
+                                aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys, jvp=jvp)
+    _count(run_chain_adjoint_kernel, eps, jvp)
     return out
 
 
 run_chain_adjoint_kernel.launches = 0
+run_chain_adjoint_kernel.probe_launches = {}
 
 
 # ---- the chain kernels' wide forms (state widths to WIDE_MAX_DZ, hidden to WIDE_MAX_WIDTH) ----
@@ -1466,21 +1574,23 @@ run_wide_exact_solve_kernel.launches = 0
 
 
 def run_wide_train_solve_kernel(
-    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None,
+    jvp=False,
 ):
     """The wide K1 chain form: the K1 chain form's solve
     (`run_chain_train_solve_kernel`) for the wide chains; arguments and
     returns as `run_train_solve_kernel`.
 
-    CUDA tensors go through the kernel (`csrc/k1_wide_solve.cu`), CPU
-    tensors through its plain version."""
+    CUDA tensors go through the kernel (`csrc/k1_wide_solve.cu`: one VJP
+    probe; K6 in the wide forms is not ported), CPU tensors through its
+    plain version."""
     _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
-            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys, jvp=jvp,
         )
-    _cuda_only("wide K1", z0, tab, spec, eps.shape[0], chain=True, wide=True)
+    _cuda_only("wide K1", z0, tab, spec, eps.shape[0], chain=True, wide=True, jvp=jvp)
     out = _launch_wide_forward(
         "wide K1 chain form", K1W_KERNEL, "cnf_k1w_train_solve", "cnf_k1w_shape", tab, spec, rtol=rtol, atol=atol,
         max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
@@ -1526,22 +1636,23 @@ def _launch_wide_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws
 
 def run_wide_adjoint_kernel(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-    t_hi, t_lo, dt_init, ys=None,
+    t_hi, t_lo, dt_init, ys=None, jvp=False,
 ):
     """The wide K2 chain form: the K2 chain form's backsolve
     (`run_chain_adjoint_kernel`) for the wide chains; arguments and returns
     as `run_adjoint_kernel`.
 
-    CUDA tensors go through the kernel (`csrc/k2_wide_adjoint.cu`), CPU
-    tensors through its plain version."""
+    CUDA tensors go through the kernel (`csrc/k2_wide_adjoint.cu`: one VJP
+    probe; K6 in the wide forms is not ported), CPU tensors through its
+    plain version."""
     _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
     if zT.device.type == "cpu":
         return adjoint_train_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
             ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
-            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys, jvp=jvp,
         )
-    _cuda_only("wide K2", zT, tab, spec, eps.shape[0], chain=True, wide=True)
+    _cuda_only("wide K2", zT, tab, spec, eps.shape[0], chain=True, wide=True, jvp=jvp)
     if dt_init is None:
         raise ValueError("the wide K2 chain form needs dt_init (the caller picks it)")
     out = _launch_wide_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
@@ -1573,10 +1684,17 @@ KERNEL_WRAPPERS = {
 }
 
 
+#: The Hutchinson kernels' wrappers, whose `.probe_launches[(K, jvp)]`
+#: counts their probe instance's launches by probe count and direction (K6).
+PROBE_WRAPPERS = (run_train_solve_kernel, run_adjoint_kernel, run_chain_train_solve_kernel, run_chain_adjoint_kernel)
+
+
 def reset_launches() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch counts to 0."""
     for wrapper in KERNEL_WRAPPERS.values():
         wrapper.launches = 0
+    for wrapper in PROBE_WRAPPERS:
+        wrapper.probe_launches = {}
 
 
 # ---- make_full_solve ----
@@ -1598,8 +1716,9 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     a Dense chain with tanh-or-identity activations, conditional or not; no
     passive augmentation; an adaptive explicit method with an embedded error
     estimate (every such tableau runs in the kernels); float32.  Within
-    those, what this port has not reached raises NotImplementedError: JVP
-    probes (K6) and bf16 stages.  The flat layout
+    those, what this port has not reached raises NotImplementedError: bf16
+    stages, and on the card K > 1 or JVP probes (K6) in the wide chain
+    forms.  The flat layout
     is [z.ravel() (batch-major) | dlogp] in TEST mode and
     [z.ravel() | dlogp | reg_e | reg_n] in TRAIN mode; the conditioning
     `args["ys"]` ((B, n_cond), (1, n_cond) or (n_cond,)) is broadcast to
@@ -1611,7 +1730,8 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     not), their narrow forms within state width MAX_DZ and hidden widths
     CHAIN_MAX_WIDTH, their wide forms beyond (conditional wide chains raise
     on the card: K8 in the wide forms is not ported).  Hutchinson TRAIN solves run K1 (or its chain form) with the
-    backward member K2 (or its chain form); exact-trace TRAIN solves run the
+    backward member K2 (or its chain form), with the K VJP or JVP probes of
+    `compute_mode` (K6: their probe instances); exact-trace TRAIN solves run the
     K4 forward (K7 for chain-kernel nets), with the K4 adjoint as the
     backward member for 2-layer tanh chains (conditional ones raise on the
     card: K8 in the 2-layer kernels is not ported) and none for other chains
@@ -1642,10 +1762,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         return None
     train = mode == Mode.TRAIN
     exact = train and cm.exact_trace
-    if train and not exact and cm.ad != ADMode.VJP:
-        raise NotImplementedError(
-            "JVP probes and their kernel (K6) are not ported yet (ROADMAP queue 1, item 14)"
-        )
+    jvp = cm.ad == ADMode.JVP
     if cm.bf16:
         raise NotImplementedError(
             "bf16 stage matmuls in the fused solve are not ported (ROADMAP queue 2, K3 variants)"
@@ -1714,7 +1831,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         elif train:
             zT, accT, steps, accepted, dt_last, dt_used = run_train(
                 tab, spec, norm_z=norm_z, norm_j=norm_j, **kernel_kw(args), z0=z0,
-                eps=args["eps"], acc0=y0f[B * dz :].reshape(3, B), t0=t0, t1=t1, dt_init=dt_init,
+                eps=args["eps"], acc0=y0f[B * dz :].reshape(3, B), t0=t0, t1=t1, dt_init=dt_init, jvp=jvp,
             )
         else:
             zT, accT, steps, accepted, dt_last, dt_used = run_test(
@@ -1750,7 +1867,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
                 stage = _exact_adjoint_stage(spec, kw["ws"], kw["bs"], pm, norm_z, norm_j, aaccT, ysb)
                 shapes = _block_shapes(kw["ws"], kw["bs"], ysb, [pm.shape])
             else:
-                stage = _train_adjoint_stage(spec, kw["ws"], kw["bs"], eps, norm_z, norm_j, aaccT, ysb)
+                stage = _train_adjoint_stage(spec, kw["ws"], kw["bs"], eps, norm_z, norm_j, aaccT, ysb, jvp)
                 shapes = _block_shapes(kw["ws"], kw["bs"], ysb)
             f, u0 = _adjoint_state(stage, zT, accT, azT, aaccT, shapes)
             dt_init = _initial_step_size(
@@ -1763,7 +1880,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         if exact:
             out = run_exact_adjoint_kernel(tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, **state)
         else:
-            out = run_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, eps=eps, **state)
+            out = run_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, eps=eps, jvp=jvp, **state)
         z0, acc0, az0, g_ws, g_bs, steps, accepted = out[:7]
         g_ps = tuple(
             {k: (gw if k == "w" else gb) for k in p} for p, gw, gb in zip(ps, g_ws, g_bs)
@@ -1800,6 +1917,7 @@ __all__ = [
     "run_wide_train_solve_kernel",
     "run_wide_adjoint_kernel",
     "KERNEL_WRAPPERS",
+    "PROBE_WRAPPERS",
     "reset_launches",
     "solve_test_plain",
     "solve_train_plain",

@@ -18,8 +18,9 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     (0, 13), steer_rate 0.1; data y ~ U(-1, 1), x | y ~ N(0.7 y, 0.3^2).
 
 All: lambda1 = lambda2 = 1e-2 (the RNODE defaults), tsit5 at rtol 1e-3 /
-atol 1e-6, one Gaussian VJP probe, batch 4096 in the scripts unless the
-entry names its own `batch` (miniboone43: 2048); the conditional recipe
+atol 1e-6, one Gaussian VJP probe (`make_icnf` takes K probes and JVP
+probes), batch 4096 in the scripts unless the entry names its own `batch`
+(miniboone43: 2048); the conditional recipe
 trains at its `batch_size` of 128.  Weights are Glorot-uniform with
 N(0, 0.05) biases, drawn with numpy.
 """
@@ -80,18 +81,20 @@ def model_data(name: str, rng: np.random.Generator, n: int):
     return rng.uniform(0.0, 1.0, (n, nvars)).astype(np.float32)
 
 
-def make_icnf(name: str, device, *, fused: bool = True, exact: bool = False, dtype=torch.float32, **kw):
+def make_icnf(name: str, device, *, fused: bool = True, exact: bool = False, dtype=torch.float32, num_probes: int = 1,
+              ad="vjp", **kw):
     """The configuration `name` as an ICNF on `device` (CondRNODE for a
-    conditional one, else RNODE): `fused` and `exact` pick
-    `VecJacMode(fused=..., exact_trace=...)`; `kw` goes to `construct` (a
-    `solver`, say)."""
-    from .. import MLP, RNODE, CondRNODE, VecJacMode, construct
+    conditional one, else RNODE): `fused`, `exact`, `num_probes` and `ad`
+    ("vjp" or "jvp", or an `ADMode`) pick its `ComputeMode` (`VecJacMode`
+    or `JacVecMode`); `kw` goes to `construct` (a `solver`, say)."""
+    from .. import MLP, RNODE, ADMode, ComputeMode, CondRNODE, construct
 
     cfg = MODELS[name]
     variant = CondRNODE if cfg.get("n_cond") else RNODE
+    mode = ComputeMode(ad=ADMode(ad), num_probes=num_probes, fused=fused, exact_trace=exact)
     return construct(
         variant, MLP(cfg["dims"], device=device, dtype=dtype), cfg["nvars"], cfg["naug"], tspan=cfg["tspan"],
-        compute_mode=VecJacMode(fused=fused, exact_trace=exact), dtype=dtype, **cfg["extra"], **kw,
+        compute_mode=mode, dtype=dtype, **cfg["extra"], **kw,
     )
 
 

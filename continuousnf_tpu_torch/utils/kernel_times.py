@@ -1,6 +1,7 @@
 """CUDA-event times of every solve kernel at the chip smoke's shapes.
 
     python continuousnf_tpu_torch/utils/kernel_times.py [--tableau tsit5] [--reps 10] [--models flagship,power6,...]
+        [--probes K] [--jvp]
 
 builds the kernels of the `continuousnf_tpu_torch` package on the import
 path and times, on one CUDA card, each kernel alone on fixed inputs: K3,
@@ -12,7 +13,10 @@ conditional recipe (MLP 2 -> 64 -> 64 -> 1 on [x | y], B = 4096, tspan
 those four on miniboone43 (MLP 43 -> 128 -> 128 -> 43, B = 2048, tspan
 (0, 1); the "_wide" keys), Glorot weights and data from numpy seeds, under
 one tableau (rtol 1e-3 / atol 1e-6; the README tolerances for verner65).
-Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
+With `--probes K` (K Gaussian probes) or `--jvp` (forward-mode probes) it
+times only the Hutchinson kernels, K1 and K2 and their chain forms, through
+their probe instances (K6; the "/K<K>" or "/jvp-K<K>" keys); the wide forms
+take one VJP probe.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
 one JSON line {"tableau": ..., "kernels": {name: [ms, attempted steps]}}.
 
 By default it uses only wrappers that earlier versions of the package have
@@ -35,7 +39,13 @@ def main() -> int:
     parser.add_argument("--tableau", default="tsit5")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--models", default="flagship,power6,cond_gaussian")
+    parser.add_argument("--probes", type=int, default=1, help="Hutchinson probes K of K1, K2 and their chain forms")
+    parser.add_argument("--jvp", action="store_true", help="forward-mode (JVP) probes")
     args = parser.parse_args()
+    probes = args.probes != 1 or args.jvp
+    # Keyword arguments earlier versions of the package lack are passed only when asked for.
+    probe_kw = {"jvp": True} if args.jvp else {}
+    suffix = (f"/jvp-K{args.probes}" if args.jvp else f"/K{args.probes}") if probes else ""
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA card")
     import continuousnf_tpu_torch as cnf
@@ -51,7 +61,12 @@ def main() -> int:
     kernels = {"flagship": [fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL],
                "power6": [fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL],
                "cond_gaussian": [fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL]}
+    if probes:
+        kernels = {"flagship": [fs.K1_KERNEL, fs.K2_KERNEL], "power6": [fs.K1C_KERNEL, fs.K2C_KERNEL],
+                   "cond_gaussian": [fs.K1C_KERNEL, fs.K2C_KERNEL]}
     if "miniboone43" in models:
+        if probes:
+            raise SystemExit("the wide chain forms take one VJP probe (K6 in the wide forms is not ported)")
         kernels["miniboone43"] = [fs.K1W_KERNEL, fs.K2W_KERNEL, fs.K7W_KERNEL]
     _build.build_libraries(sorted({k for m in models for k in kernels[m]}))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -93,11 +108,17 @@ def main() -> int:
                     t0=torch.tensor(span[0], device=dev), t1=torch.tensor(span[1], device=dev),
                     dt_init=torch.tensor(0.05, device=dev), **cond)
         train = dict(base, norm_z=True, norm_j=True, z0=z0, acc0=T(rng.normal(0.0, 0.1, (3, B))))
-        eps = T(rng.normal(size=(1, B, dz)))
+        eps = T(rng.normal(size=(args.probes, B, dz)))
         adj = dict(azT=T(rng.normal(0.0, 1.0 / B, (B, dz))),
                    aaccT=T(np.stack([np.full(B, 1.0 / B), np.full(B, 1e-2 / B), np.full(B, 1e-2 / B)])))
         test = dict(base, z0=z0, dlogp0=T(rng.normal(0.0, 0.1, B)))
-        if name == "flagship":
+        if probes and name != "miniboone43":
+            keys = ("k1", "k2") if name == "flagship" else ("k1c" + tag, "k2c" + tag)
+            runs = ((fs.run_train_solve_kernel, fs.run_adjoint_kernel) if name == "flagship"
+                    else (fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel))
+            time_pair(tuple(k + suffix for k in keys), spec, *runs, dict(train, eps=eps, **probe_kw),
+                      dict(adj, eps=eps, **probe_kw))
+        elif name == "flagship":
             time_pair(("k3",), spec, fs.run_solve_kernel, None, test, None)
             time_pair(("k1", "k2"), spec, fs.run_train_solve_kernel, fs.run_adjoint_kernel, dict(train, eps=eps),
                       dict(adj, eps=eps))
@@ -113,7 +134,7 @@ def main() -> int:
                       dict(train, eps=eps), dict(adj, eps=eps))
             time_pair(("k7e" + tag,), spec, fs.run_chain_exact_solve_kernel, None, train, None)
         torch.cuda.synchronize()
-    print(json.dumps({"tableau": args.tableau, "kernels": out}))
+    print(json.dumps({"tableau": args.tableau, "probes": args.probes, "jvp": args.jvp, "kernels": out}))
     return 0
 
 

@@ -1,6 +1,7 @@
 """Where the time goes in a training step and a `logpdf` call on the card.
 
     python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43] [--steps 10]
+        [--probes K] [--jvp]
 
 Builds the model (`--model power6`: the tabular power6 model, RNODE,
 MLP 6 -> 64 -> 64 -> 6; `--model flagship`: RNODE, MLP 16 -> 48 -> 16;
@@ -8,7 +9,9 @@ MLP 6 -> 64 -> 64 -> 6; `--model flagship`: RNODE, MLP 16 -> 48 -> 16;
 2 -> 64 -> 64 -> 1 on [x | y]; `--model miniboone43`: the tabular
 MINIBOONE model, RNODE, MLP 43 -> 128 -> 128 -> 43, through the wide chain
 kernels), its weights and its data from a seed as `utils/configs.py` makes
-them, one Gaussian VJP probe, batch 4096 (or the configuration's own
+them, one Gaussian VJP probe (`--probes K` Gaussian probes, `--jvp`
+forward-mode ones: the Hutchinson train steps run the probe instances of
+the K1 and K2 kernels or of their chain forms, K6), batch 4096 (or the configuration's own
 `batch`: 2048 for miniboone43), fused kernels on, and for each path (the
 Hutchinson train step, the exact-trace train step, `logpdf`; for a
 configuration with its own training batch, the train step at that batch
@@ -58,7 +61,7 @@ def _busy(fn, reps: int, top: int = 6):
     return sum(r[1] for r in rows), rows[:top], host[:top]
 
 
-def profile_model(name: str, steps: int, seed: int = 0) -> dict:
+def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp: bool = False) -> dict:
     import continuousnf_tpu_torch as cnf
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -73,9 +76,9 @@ def profile_model(name: str, steps: int, seed: int = 0) -> dict:
     ys = None if ys_np is None else torch.from_numpy(ys_np).to(dev)
 
     def model(exact: bool):
-        return make_icnf(name, dev, exact=exact)
+        return make_icnf(name, dev, exact=exact, num_probes=num_probes, ad="jvp" if jvp else "vjp")
 
-    out = {"model": name, "device": torch.cuda.get_device_name(0)}
+    out = {"model": name, "device": torch.cuda.get_device_name(0), "probes": num_probes, "jvp": jvp}
     gen = torch.Generator(device=dev).manual_seed(seed)
     paths = [("train_step", False, B), ("exact_train_step", True, B)]
     if "batch_size" in cfg:
@@ -110,10 +113,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(MODELS), default="power6")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--probes", type=int, default=1, help="Hutchinson probes K of the train steps")
+    ap.add_argument("--jvp", action="store_true", help="forward-mode (JVP) probes")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
-    res = profile_model(a.model, a.steps)
+    res = profile_model(a.model, a.steps, num_probes=a.probes, jvp=a.jvp)
     for label, r in res.items():
         if not isinstance(r, dict):
             continue

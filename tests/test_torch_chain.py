@@ -249,15 +249,19 @@ _COVERED = {
     "wide-hidden": ((6, 65, 64, 6), TSIT5, None, 0, 1, True),
     "dz33": ((33, 64, 64, 33), TSIT5, None, 0, 1, True),
     "miniboone": ((43, 64, 64, 43), TSIT5, None, 0, 1, True),
+    "two-probes": (POWER6, TSIT5, None, 0, 2, True),
+    "two-layer-two-probes": ((16, 48, 16), TSIT5, None, 0, 2, False),
+    "conditional-jvp": (POWER6, TSIT5, None, 2, 3, True),
+    "two-layer-jvp": ((16, 48, 16), TSIT5, None, 0, 1, False),
 }
 _UNCOVERED = {
     "five-layer": ((6, 16, 16, 16, 16, 6), TSIT5, None, 0, 1, True, "at most 4 layers"),
     "two-layer-conditional-exact": ((16, 48, 16), TSIT5, None, 2, 1, False, "K8 in the 2-layer kernels"),
-    "two-probes": (POWER6, TSIT5, None, 0, 2, True, "K6"),
     "one-layer": ((6, 6), TSIT5, None, 0, 1, False, "1-layer"),
     "one-layer-chain-kernels": ((6, 6), TSIT5, None, 0, 1, True, "1-layer"),
     "three-layer-2-layer-kernels": (POWER6, TSIT5, None, 0, 1, False, "K3, K1, K2 and K4 take 2 layers"),
-    "two-layer-two-probes": ((16, 48, 16), TSIT5, None, 0, 2, False, "K6"),
+    "wide-two-probes": ((43, 64, 64, 43), TSIT5, None, 0, 2, True, "K6 in the wide forms"),
+    "wide-jvp": ((43, 64, 64, 43), TSIT5, None, 0, 1, True, "K6 in the wide forms"),
 }
 
 
@@ -275,16 +279,17 @@ def test_kernel_coverage_rule(name):
     with hidden widths up to 64 and state widths up to 32, conditional or
     not, and through their wide forms unconditional ones up to 128 and 64
     (the fused solve takes them for 3 and 4 layers, for conditional nets and
-    for identity layers), both every embedded explicit tableau; the rest names its
+    for identity layers), both every embedded explicit tableau, and K VJP or
+    JVP probes in the Hutchinson kernels but the wide forms; the rest names its
     limit or the kernel still to port (a 2-layer conditional exact-TRAIN
     backward needs the K4 adjoint with ys rows: K8 in the 2-layer
     kernels)."""
     if name in _COVERED:
         dims, tab, acts, n_cond, k, chain = _COVERED[name]
-        assert tfs._kernel_covers(tab, _spec(dims, acts, n_cond), k, chain) is None
+        assert tfs._kernel_covers(tab, _spec(dims, acts, n_cond), k, chain, "jvp" in name) is None
     else:
         dims, tab, acts, n_cond, k, chain, why = _UNCOVERED[name]
-        assert why in tfs._kernel_covers(tab, _spec(dims, acts, n_cond), k, chain)
+        assert why in tfs._kernel_covers(tab, _spec(dims, acts, n_cond), k, chain, "jvp" in name)
 
 
 _WRAPPERS = {

@@ -1,7 +1,8 @@
 """The CUDA kernels (K3, K1, K2, the K4 forward and adjoint, and the chain
 kernels: the K1 and K2 chain forms, the K7 TEST and exact forwards, with and
 without conditioning rows, under every embedded explicit tableau and with
-identity layers, and their wide forms at the MINIBOONE width) against their
+identity layers, the probe instances of K1, K2 and their chain forms with K
+VJP or JVP probes (K6), and their wide forms at the MINIBOONE width) against their
 plain PyTorch versions, on the card, and the configurations they do not
 cover.
 
@@ -27,6 +28,7 @@ pytestmark = pytest.mark.gpu
 REL = 1e-4
 # K2's parameter gradients are sums over the batch taken in another order.
 GRAD_REL = 1e-3
+POWER6 = (6, 64, 64, 6)
 
 
 @pytest.fixture
@@ -288,17 +290,31 @@ def _small(fused=True, **kw):
 
 @pytest.mark.parametrize(
     "kernel",
-    ["K5-test-gradients", "K6-probes", "K6-jvp", "K6-chain-probes", "K8-conditional", "K10-per-stage-field"],
+    ["K5-test-gradients", "K6-wide-forms", "K8-conditional", "K10-per-stage-field"],
 )
 def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
     name = kernel.split("-")[0]
     ps_np = _np_params((5, 15, 5), 6)
     xs = torch.from_numpy(np.random.default_rng(7).uniform(size=(8, 3)).astype(np.float32)).to(dev)
-    before = (tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches)
-    before_c = (tfs.run_chain_train_solve_kernel.launches, tfs.run_chain_adjoint_kernel.launches)
-    if kernel == "K6-jvp":
-        with pytest.raises(NotImplementedError, match=name):
-            tfs.make_full_solve(_small(compute_mode=tcnf.JacVecMode(fused=True)), tcnf.Mode.TRAIN, 8)
+    if kernel == "K6-wide-forms":
+        # K probes or JVP probes on a chain past the narrow widths: the
+        # wide forms take one VJP probe, and nothing launches.
+        dims = (43, 64, 64, 43)
+        spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+        kw, adj = _train_args(dims, 8, (0.0, 1.0), dev)
+        adj.update(zT=kw["z0"], accT=kw["acc0"], dt_init=torch.tensor(-0.05, device=dev))
+        before = _launches()
+        for k, jvp in ((2, False), (1, True)):
+            kw["eps"] = adj["eps"] = torch.randn(k, 8, dims[-1], device=dev)
+            for run, args in ((tfs.run_wide_train_solve_kernel, kw), (tfs.run_wide_adjoint_kernel, adj)):
+                with pytest.raises(NotImplementedError, match="K6 in the wide forms"):
+                    run(TSIT5, spec, **args, jvp=jvp)
+        icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(dims, device=dev), 43, 0, compute_mode=tcnf.VecJacMode(2, fused=True))
+        ps = tcnf.params_from_numpy(_np_params(dims, 6), dev)
+        xs43 = torch.from_numpy(np.random.default_rng(7).normal(size=(8, 43)).astype(np.float32)).to(dev)
+        with pytest.raises(NotImplementedError, match="K6 in the wide forms"):
+            tcnf.inference(icnf, tcnf.Mode.TRAIN, xs43, ps, generator=torch.Generator(dev).manual_seed(0))
+        assert _launches() == before
         return
     if kernel == "K8-conditional":
         # A 2-layer conditional exact-TRAIN gradient: its forward runs in K7
@@ -320,28 +336,72 @@ def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
         with pytest.raises(NotImplementedError, match=name):
             tcnf.loss(_small(), tcnf.Mode.TEST, xs, ps)
         return
-    if kernel == "K10-per-stage-field":
-        icnf = _small(solver=tcnf.SolverOptions(adjoint=tcnf.Adjoint.DIRECT))
-        with pytest.raises(NotImplementedError, match=name), torch.no_grad():
-            tcnf.inference(icnf, tcnf.Mode.TRAIN, xs, tcnf.params_from_numpy(ps_np, dev),
-                           generator=torch.Generator(dev).manual_seed(0))
-        return
-    dims, final, tab, k = {
-        "K6-probes": ((5, 15, 5), torch.tanh, TSIT5, 2),
-        "K6-chain-probes": ((5, 9, 7, 5), torch.tanh, TSIT5, 2),
-    }[kernel]
-    spec = tfs.chain_spec(tcnf.MLP(dims, final_activation=final), dims[-1])
-    kw, adj = _train_args(dims, 8, (0.0, 1.0), dev)
-    kw["eps"] = adj["eps"] = kw["eps"].expand(k, -1, -1).contiguous()
-    adj.update(zT=kw["z0"], accT=kw["acc0"], dt_init=torch.tensor(-0.05, device=dev))
-    deep = spec.n_layers > 2
-    with pytest.raises(NotImplementedError, match=name):
-        (tfs.run_chain_train_solve_kernel if deep else tfs.run_train_solve_kernel)(tab, spec, **kw)
-    with pytest.raises(NotImplementedError, match=name):
-        (tfs.run_chain_adjoint_kernel if deep else tfs.run_adjoint_kernel)(tab, spec, **adj)
-    assert (tfs.run_train_solve_kernel.launches, tfs.run_adjoint_kernel.launches) == before
-    assert tfs.run_chain_train_solve_kernel.launches == before_c[0]
-    assert tfs.run_chain_adjoint_kernel.launches == before_c[1]
+    assert kernel == "K10-per-stage-field"
+    icnf = _small(solver=tcnf.SolverOptions(adjoint=tcnf.Adjoint.DIRECT))
+    with pytest.raises(NotImplementedError, match=name), torch.no_grad():
+        tcnf.inference(icnf, tcnf.Mode.TRAIN, xs, tcnf.params_from_numpy(ps_np, dev),
+                       generator=torch.Generator(dev).manual_seed(0))
+
+
+# K6: name -> (dims, B, probes K, JVP?, the chain forms?, span); a dims[0]
+# wider than dims[-1] is a conditional chain (ys (B, n_cond)).
+_K6_CASES = {
+    "K6-probes": ((5, 15, 5), 37, 2, False, False, (0.0, 2.0)),
+    "K6-jvp": ((5, 15, 5), 37, 1, True, False, (0.0, 2.0)),
+    "K6-chain-probes": ((5, 9, 7, 5), 300, 2, False, True, (0.0, 2.0)),
+    "K6-chain-jvp": ((5, 9, 7, 5), 300, 3, True, True, (0.0, 2.0)),
+    "flagship-K8": ((16, 48, 16), 4096, 8, False, False, (0.0, 13.0)),
+    "flagship-jvp-K2": ((16, 48, 16), 4096, 2, True, False, (0.0, 13.0)),
+    "flagship-K4-chain-forms": ((16, 48, 16), 512, 4, False, True, (0.0, 13.0)),
+    "power6-K4": (POWER6, 4096, 4, False, True, (0.0, 1.0)),
+    "power6-jvp": (POWER6, 4096, 1, True, True, (0.0, 1.0)),
+    "power6-jvp-reverse": (POWER6, 1000, 2, True, True, (1.0, 0.0)),
+    "conditional-K2": ((5, 16, 16, 3), 300, 2, False, True, (0.0, 2.0)),
+    "conditional-jvp-K2": ((5, 16, 16, 3), 300, 2, True, True, (0.0, 2.0)),
+}
+
+
+@pytest.mark.parametrize("case", list(_K6_CASES))
+def test_probe_kernels_match_twins(dev, case):
+    """K6: the probe instances of K1 and K2 (or of their chain forms) with K
+    VJP or JVP probes against their twins: the forward from nonzero
+    accumulators (equal steps, values within REL), the adjoint from its
+    output with its last step as the warm start (equal steps, z0 and a_z0
+    held to the float64 twin, gradients and a_ys0 within GRAD_REL), each
+    launch counted under its (K, jvp).  A forward that parts from its twin
+    only at the last step passes under the last-step rule, and a solve that
+    misses the twin's bound otherwise under the near-tie rule."""
+    dims, B, k, jvp, chain, span = _K6_CASES[case]
+    n_cond = dims[0] - dims[-1]
+    net = tcnf.MLP((dims[0],) + dims[1:], device=dev)
+    spec = tfs.chain_spec(net, dims[-1])
+    kw, adj = _train_args((dims[0],) + dims[1:], B, span, dev)
+    dz = dims[-1]
+    rng = np.random.default_rng(11)
+    T = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    kw.update(z0=T(rng.uniform(size=(B, dz))), eps=T(rng.normal(size=(k, B, dz))), jvp=jvp)
+    adj.update(eps=kw["eps"], jvp=jvp, azT=T(rng.normal(0.0, 1.0 / B, (B, dz))))
+    if n_cond:
+        kw["ys"] = adj["ys"] = _ys(B, n_cond, dev)
+    run1, run2 = ((tfs.run_chain_train_solve_kernel, tfs.run_chain_adjoint_kernel) if chain
+                  else (tfs.run_train_solve_kernel, tfs.run_adjoint_kernel))
+    before = [w.probe_launches.get((k, jvp), 0) for w in (run1, run2)]
+    with torch.no_grad():
+        out_k = run1(TSIT5, spec, **kw)
+        out_p = tfs.solve_train_plain(TSIT5, spec, **kw)
+        tdir = torch.sign(kw["t1"] - kw["t0"])
+        adj.update(zT=out_k[0], accT=out_k[1], dt_init=-tdir * out_k[4].abs())
+        adj_k = run2(TSIT5, spec, **adj)
+        adj_p = tfs.adjoint_train_plain(TSIT5, spec, **adj)
+        adj_64 = _twin64(tfs.adjoint_train_plain, spec, adj)
+    torch.cuda.synchronize()
+    assert [w.probe_launches.get((k, jvp), 0) for w in (run1, run2)] == [n + 1 for n in before]
+    if not _forward_matches(out_k, out_p):
+        last, line = near_tie.last_step_tie(out_k, out_p, REL)
+        if not last:
+            _near_tie_holds(out_k, out_p, tfs.solve_train_plain, spec, kw, "z0")
+    if not _adjoint_matches(adj_k, adj_p, adj_64):
+        _near_tie_holds(adj_k, adj_p, tfs.adjoint_train_plain, spec, adj, "zT")
 
 
 def _exact_args(dims, B, span, dev, seed=0):
@@ -465,9 +525,6 @@ def test_exact_train_step_on_the_card_matches_the_twins_on_the_cpu(dev):
 
 
 # ---- the chain kernels: 2, 3 and 4 layers ----
-
-POWER6 = (6, 64, 64, 6)
-
 
 def _launches():
     return {name: w.launches for name, w in tfs.KERNEL_WRAPPERS.items()}

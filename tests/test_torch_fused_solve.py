@@ -73,13 +73,12 @@ def test_eligibility_matches_reference(name):
 
 
 def test_train_and_bf16_raise():
-    """TRAIN builds the fused solve with its backward member; what the port
-    has not reached raises: JVP probes (K6) and bf16 stages."""
+    """TRAIN builds the fused solve with its backward member, JVP probes
+    (K6) included; what the port has not reached raises: bf16 stages."""
     assert jfull(ELIGIBILITY["fused"](cnf), cnf.Mode.TRAIN, 16) is not None
     assert tfs.make_full_solve(ELIGIBILITY["fused"](tcnf), tcnf.Mode.TRAIN, 16).adjoint is not None
     assert jfull(ELIGIBILITY["jvp"](cnf), cnf.Mode.TRAIN, 16) is not None
-    with pytest.raises(NotImplementedError, match="K6"):
-        tfs.make_full_solve(ELIGIBILITY["jvp"](tcnf), tcnf.Mode.TRAIN, 16)
+    assert tfs.make_full_solve(ELIGIBILITY["jvp"](tcnf), tcnf.Mode.TRAIN, 16).adjoint is not None
     bf16 = lambda m: m.construct(m.RNODE, m.MLP((5, 15, 5)), 3, 2, compute_mode=m.VecJacMode(fused=True, bf16=True))
     assert jfull(bf16(cnf), cnf.Mode.TEST, 16) is not None
     with pytest.raises(NotImplementedError, match="bf16"):

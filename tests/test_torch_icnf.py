@@ -170,9 +170,9 @@ def test_out_of_slice_calls_raise():
     ps = tcnf.params_from_numpy(_np_params(CONFIGS["small"][0], seed=1))
     xs = np.zeros((4, 3), np.float32)
     icnf = _models(tcnf, "small", True)
-    jvp = tcnf.construct(tcnf.RNODE, tcnf.MLP((5, 15, 5)), 3, 2, compute_mode=tcnf.JacVecMode())
+    passive = tcnf.construct(tcnf.RNODE, tcnf.MLP((5, 15, 5)), 3, 2, aug_passive=True)
     with pytest.raises(NotImplementedError, match="item 14"):
-        tcnf.inference(jvp, tcnf.Mode.TRAIN, xs, ps)
+        tcnf.inference(passive, tcnf.Mode.TRAIN, xs, ps)
     with pytest.raises(NotImplementedError, match="item 12"):
         tcnf.generate(icnf, tcnf.Mode.TRAIN, ps, 4)
     with pytest.raises(NotImplementedError, match="item 15"):

@@ -240,7 +240,7 @@ def test_train_draws_come_from_the_generator():
     [
         ({"eps": np.zeros((2, B, 5), np.float32)}, ValueError, "eps must have shape"),
         ({"steer_r": 0.5}, ValueError, "steer_r"),
-        ({"model": {"compute_mode": "jvp"}}, NotImplementedError, "item 14"),
+        ({"model": {"compute_mode": "jvp"}}, None, None),
         ({"model": {"compute_mode": "exact"}}, None, None),
         ({"model": {"x_jitter": 0.1}, "jitter": np.zeros((B, NVARS + 1), np.float32)}, ValueError,
          "jitter must have shape"),
@@ -251,8 +251,8 @@ def test_train_draws_come_from_the_generator():
 )
 def test_train_inputs_are_validated(kw, err, match):
     """Bad inputs raise (wrongly shaped injected draws among them), and
-    configurations not ported yet raise naming their ROADMAP item; exact
-    trace (err None) runs."""
+    configurations not ported yet raise naming their ROADMAP item; JVP
+    probes and exact trace (err None) run."""
     mkw = dict(kw.pop("model", {}))
     cm = mkw.pop("compute_mode", None)
     if cm == "jvp":
@@ -277,15 +277,16 @@ def test_train_inputs_are_validated(kw, err, match):
         ("k2-probes", "adjoint"),
         ("three-layer", "adjoint"),
         ("dopri5", "adjoint"),
-        ("jvp", "K6"),
+        ("jvp", "adjoint"),
         ("exact", "K4"),
         ("bf16", "bf16"),
     ],
 )
 def test_train_eligibility(name, expect):
     """The fused TRAIN solve applies where the JAX package's does; what the
-    port has not reached raises, naming its kernel.  Exact trace (K4) has
-    the backward member, as in the JAX package."""
+    port has not reached raises, naming its kernel.  K probes and JVP probes
+    (K6) and exact trace (K4) have the backward member, as in the JAX
+    package."""
     base = dict(nvars=3, naugmented=2)
     make = {
         "fused-off": lambda m: m.construct(m.RNODE, m.MLP(DIMS), **base),
