@@ -54,7 +54,14 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     power6 with K VJP probes (`VecJacMode(num_probes=K)`) or K JVP probes
     (`JacVecMode(num_probes=K)`), the loss and its gradient through the
     probe instances of K1 and K2 (the flagship) and of the K1 and K2 chain
-    forms (power6), and `fit` at K = 4.
+    forms (power6), and `fit` at K = 4;
+  * TEST-mode gradients of 2-layer nets through K5, the TEST backward
+    kernel: the flagship's TEST loss gradient (K3 forward, K5 backward),
+    the score (the x-gradient of `ICNFDist.logpdf`) and the params-gradient
+    of `sample(4096, z1=...)`, a conditional 2-layer net at the flagship
+    widths (CondRNODE, MLP 17 -> 48 -> 16 on [z | ys], one ys column,
+    nvars 8, naug 8, tspan (0, 13)) through K7 TEST with ys and K5's COND
+    instance, and the README model's TEST gradient under verner65.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -217,7 +224,30 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      times and no other kernel;
  46. the probe curve: CUDA-event times and microseconds per attempted step
      of the two kernels at K = 1 (the one-probe instance), 2, 4 and 8 on the
-     same inputs.
+     same inputs;
+ 47. the flagship's TEST loss and its gradient in the params and xs at
+     B = 4096, counters reset just before it: K3 and K5 launched exactly
+     once each; the losses of the fused and plain paths within 1e-4
+     relative, each fused gradient within 2e-2 * max|g| of a float64 rtol
+     1e-7 solve or, where the plain path of the same method at the same
+     tolerances is itself farther than that, within 2x the plain path's
+     own distance (both printed); then K5 against `adjoint_test_plain`
+     from K3's output with its last step as the warm start (the bounds of
+     phase 7's K2: equal steps, z0 and a_z0 held to the float64 twin,
+     gradients within 1e-3 * max|g|; the near-tie rule allowed), timed;
+ 48. the score (the x-gradient of `ICNFDist.logpdf`) and the params-gradient
+     of a weighted sum of `sample(4096, z1=...)` (its solve runs t1 -> t0,
+     its backward t0 -> t1), each launching K3 and K5 once, held as in
+     phase 47;
+ 49. K5's COND instance: a conditional 2-layer net at the flagship widths,
+     its TEST loss gradient in the params, xs and ys launching K7 TEST and
+     K5 once each, held as in phase 47; K5 COND against its twin (a_ys0
+     and the ys rows of g_W1 among the gradients), timed;
+ 50. the README model's TEST gradient at the README tolerances (method
+     "auto", verner65: the non-FSAL refresh) on the README workflow's
+     weights and data at B = 4096, K3 and K5 launched once each under
+     verner65 only, held as in phase 47; K5 under verner65 against its
+     twin.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -458,10 +488,20 @@ def two_layer_fma(dz, H):
     from the widths: K3 (forward, M dh), K1 (forward, one pullback), K2
     (forward, pullback, both VJPs, the outer products of P entries), the K4
     forward (forward, the dz rows of m) and adjoint (that, ct_m, the VJPs,
-    the outer products with g_pm)."""
+    the outer products with g_pm), K5 (`k5_fma`)."""
     P = 2 * dz * H + H + dz
     return {"k3": 3 * dz * H, "k1": 4 * dz * H, "k2": 8 * dz * H + 2 * P,
-            "k4": 2 * dz * H + dz * dz * H, "k4a": 3 * dz * dz * H + 6 * dz * H}
+            "k4": 2 * dz * H + dz * dz * H, "k4a": 3 * dz * dz * H + 6 * dz * H, "k5": k5_fma(dz, H)}
+
+
+def k5_fma(dz, H, n_cond=0):
+    """FMA per sample and field evaluation of K5: 6 dz H for the products
+    (the forward, m dh, m^T ct_mdh, W2 ct_pre2, W1 ct_pre1), the outer
+    products of the P gradient entries, dz H for ct_m and, for n_cond
+    conditioning rows, their forward and ct_ys products (2 n_cond H; their
+    outer products are in P)."""
+    P = 2 * dz * H + n_cond * H + H + dz
+    return 6 * dz * H + P + dz * H + 2 * n_cond * H
 
 
 def chain_fma(dims, n_cond=0):
@@ -1252,16 +1292,20 @@ README_BATCH = 32
 OTHER_TABLEAUS = {"dop853": (1e-6, 1e-8), "dopri5": (1e-3, 1e-6), "bosh3": (1e-3, 1e-6)}
 
 
-def readme_model(cnf, dev, fused=True):
+def readme_model(cnf, dev, fused=True, dtype=None, solver=None):
     """The README model (examples/readme_example.py:42-54): RNODE, MLP
     2 -> 6 -> 2 tanh, nvars 1, naug 1, tspan (0, 13), steer_rate 0.1,
     lambda1 = lambda2 = lambda3 = 1e-2, calibrated aug noise, the README
     tolerances with method "auto", which picks verner65 there (the example
-    names no method, so it runs tsit5 at them)."""
+    names no method, so it runs tsit5 at them); `dtype` and `solver` replace
+    float32 and those tolerances (the float64 reference solve)."""
+    import torch
+
+    dtype = dtype or torch.float32
     return cnf.construct(
-        cnf.RNODE, cnf.MLP(README_DIMS, device=dev), 1, 1, tspan=(0.0, 13.0), steer_rate=0.1, lam1=1e-2,
-        lam2=1e-2, lam3=1e-2, aug_noise="calibrated", compute_mode=cnf.VecJacMode(fused=fused),
-        solver=cnf.SolverOptions(method="auto", **cnf.README_TOLERANCES),
+        cnf.RNODE, cnf.MLP(README_DIMS, device=dev, dtype=dtype), 1, 1, tspan=(0.0, 13.0), steer_rate=0.1,
+        lam1=1e-2, lam2=1e-2, lam3=1e-2, aug_noise="calibrated", compute_mode=cnf.VecJacMode(fused=fused),
+        solver=solver or cnf.SolverOptions(method="auto", **cnf.README_TOLERANCES), dtype=dtype,
     )
 
 
@@ -1995,6 +2039,200 @@ def probe_paths(cnf, fs, dev):
     return records
 
 
+# ---- K5: TEST-mode gradients of 2-layer nets ----
+
+COND_TWO_LAYER = (17, 48, 16)  # phase 49: CondRNODE at the flagship widths on [z | ys], one ys column
+
+
+def cond_two_layer(cnf, dev, fused=True, dtype=None, solver=None):
+    """Phase 49's conditional 2-layer net: CondRNODE, MLP 17 -> 48 -> 16 tanh
+    on [z | ys], nvars 8, naug 8, one conditioning input, tspan (0, 13), the
+    flagship's steer_rate and lambdas, tsit5 at rtol 1e-3 (`solver` and
+    `dtype` replace them for the float64 reference solve)."""
+    import torch
+    from continuousnf_tpu_torch.utils.configs import MODELS
+
+    dtype = dtype or torch.float32
+    return cnf.construct(cnf.CondRNODE, cnf.MLP(COND_TWO_LAYER, device=dev, dtype=dtype), 8, 8, tspan=(0.0, 13.0),
+                         compute_mode=cnf.VecJacMode(fused=fused), dtype=dtype, **MODELS["flagship"]["extra"],
+                         **({"solver": solver} if solver else {}))
+
+
+def test_loss_grad(cnf, icnf, ps_np, xs, dev, dtype=None, ys=None):
+    """One TEST loss (the exact-trace maximum likelihood) and its gradient in
+    the params' leaves (w1, b1, w2, b2), in xs and, given the conditioning
+    ys, in ys (last)."""
+    import torch
+
+    dtype = dtype or torch.float32
+    p = cnf.params_from_numpy(ps_np, dev)
+    leaves = [x.to(dtype).requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
+    p = tuple({"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2]))
+    x = xs.to(dtype).requires_grad_()
+    kw = {} if ys is None else {"ys": ys.to(dtype).requires_grad_()}
+    l = cnf.loss(icnf, cnf.Mode.TEST, x, p, **kw)
+    return l.detach(), torch.autograd.grad(l, leaves + [x] + list(kw.values()))
+
+
+def hold_test_gradients(label, names, g_k, g_p, g_t):
+    """Each gradient through the fused TEST path (K5) within SOLVE_REL *
+    max|g| of the float64 rtol 1e-7 solve, finite.  Where the plain path of
+    the same method at the same tolerances (the generic BACKSOLVE backward,
+    float32) is itself farther than that from the float64 solve, the fused
+    one is held to 2x the plain one's distance instead: the method's own
+    accuracy at those tolerances, which the warm-started fused backward (on
+    its coarser step grid) may not beat.  Both distances are printed."""
+    import torch
+
+    for name, a, b, t in zip(names, g_k, g_p, g_t):
+        d_k, d_p = float((a.double() - t).abs().max()), float((b.double() - t).abs().max())
+        scale = float(t.abs().max())
+        bound = SOLVE_REL * scale if d_p <= SOLVE_REL * scale else 2.0 * d_p
+        rule = "SOLVE_REL" if d_p <= SOLVE_REL * scale else "2x the plain path's own distance"
+        check(bool(torch.isfinite(a).all()) and d_k <= bound,
+              f"{label} g_{name}: fused {d_k} from the float64 solve (bound {bound}: {rule}), plain {d_p}, "
+              f"max|g| {scale}")
+        print(f"{label} g_{name}: max|g| {scale:.4e}; distance to the float64 rtol 1e-7 solve: fused {d_k:.4e} "
+              f"({d_k / scale:.3e} max|g|), plain {d_p:.4e} ({d_p / scale:.3e} max|g|); bound {rule}")
+
+
+def test_gradient_path(label, cnf, fs, models, ps_np, xs, dev, want, ys=None):
+    """A TEST loss gradient's main path: counters reset just before the fused
+    call, which must launch exactly `want`; then the plain path and a
+    float64 rtol 1e-7 solve, the losses within 1e-4 relative and the
+    gradients (in the params, xs and ys) held by `hold_test_gradients`.
+    `models` = (fused, plain, float64).  Returns the launches."""
+    import torch
+
+    fs.reset_launches()
+    l_k, g_k = test_loss_grad(cnf, models[0], ps_np, xs, dev, ys=ys)
+    torch.cuda.synchronize()
+    counts = launched(fs)
+    check(counts == want, f"{label}: the fused TEST gradient launched {counts}, expected {want}")
+    l_p, g_p = test_loss_grad(cnf, models[1], ps_np, xs, dev, ys=ys)
+    l_t, g_t = test_loss_grad(cnf, models[2], ps_np, xs, dev, torch.float64, ys=ys)
+    check(abs(float(l_k - l_p)) <= TOL * max(1.0, abs(float(l_p))), f"{label} losses {float(l_k)} vs {float(l_p)}")
+    hold_test_gradients(label, ["w1", "b1", "w2", "b2", "xs"] + ([] if ys is None else ["ys"]), g_k, g_p, g_t)
+    print(f"{label}: TEST loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 {float(l_t):.6f}; "
+          f"launches {counts}")
+    return counts
+
+
+def k5_pair(label, fs, tab, spec, fwd, fwd_kw, rng, dev):
+    """K5 against its twin on the forward kernel's final state: `fwd` run on
+    `fwd_kw` (a TEST solve from dlogp0 = 0, with the conditioning ys of a
+    conditional net), then a loss-like cotangent
+    (a_z ~ N(0, 1 / B), a_dlogp = 1 / B) and the forward's last step as the
+    warm start (`run_pair`: equal steps or the near-tie rule, z0 and a_z0
+    held to the float64 twin).  Returns (out_k, error, ms, plain ms)."""
+    import torch
+
+    B, dz = fwd_kw["z0"].shape
+    with torch.no_grad():
+        out = fwd(tab, spec, **fwd_kw)
+    T = lambda a: torch.from_numpy(np.asarray(a, "float32")).to(dev)  # noqa: E731
+    adj = dict(adjoint_kw(fwd_kw, out, dict(azT=T(rng.normal(0.0, 1.0 / B, (B, dz))), aaccT=T(np.full((1, B), 1.0 / B)),
+                                            t_hi=fwd_kw["t1"], t_lo=fwd_kw["t0"])), accT=out[1][None])
+    adj.pop("dlogp0")
+    return run_pair(label, fs.run_test_adjoint_kernel, fs.adjoint_test_plain, tab, spec, adj, adjoint=True)
+
+
+def test_gradients(cnf, fs, dev):
+    """Phases 47 to 50: TEST-mode gradients of 2-layer nets through K5.
+    Returns the records of K5 and of its COND instance."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5, VERNER65
+    from continuousnf_tpu_torch.utils.configs import glorot_params, make_icnf, model_data
+
+    rng = np.random.default_rng(SEED + 100)
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    t0, t13 = torch.tensor(0.0, device=dev), torch.tensor(13.0, device=dev)
+
+    # Phase 47: the flagship's TEST loss gradient through K3 and K5.
+    dims = (16, 48, 16)
+    ps_np = glorot_params(rng, dims)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    xs = torch.from_numpy(model_data("flagship", rng, BATCH)).to(dev)
+    models = (make_icnf("flagship", dev), make_icnf("flagship", dev, fused=False),
+              make_icnf("flagship", dev, fused=False, dtype=torch.float64, solver=truth))
+    spec = fs.chain_spec(models[0].nn, 16)
+    n_k5 = test_gradient_path("flagship TEST gradient", cnf, fs, models, ps_np, xs, dev,
+                              {fs.K3_KERNEL: 1, fs.K5_KERNEL: 1})[fs.K5_KERNEL]
+    z0 = torch.cat([xs, torch.zeros((BATCH, 8), device=dev)], dim=1)
+    fwd_kw = dict(rtol=1e-3, atol=1e-6, max_steps=models[0].solver.max_steps, ws=[p["w"] for p in ps],
+                  bs=[p["b"] for p in ps], z0=z0, dlogp0=torch.zeros(BATCH, device=dev), t0=t0, t1=t13,
+                  dt_init=torch.tensor(0.05, device=dev))
+    out5, e5, ms5, p5 = k5_pair("K5", fs, TSIT5, spec, fs.run_solve_kernel, fwd_kw, rng, dev)
+    print(f"K5 vs K2 on this card: {ms5 * 1e3 / int(out5[5]):.1f} us per attempted step (K2: phase 10's line)")
+
+    # Phase 48: the score (the x-gradient of ICNFDist.logpdf) and the
+    # params-gradient of sample(4096, z1=...), whose solve runs t1 -> t0.
+    z1_np = rng.normal(size=(BATCH, 16)).astype("float32")
+    w_np = rng.normal(size=(BATCH, 8)).astype("float32")
+
+    def serving_grads(icnf, dtype):
+        p = cnf.params_from_numpy(ps_np, dev)
+        leaves = [x.to(dtype).requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
+        p = tuple({"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2]))
+        dist = cnf.ICNFDist(icnf, cnf.Mode.TEST, p)
+        x = xs.to(dtype).requires_grad_()
+        fs.reset_launches()
+        (g_x,) = torch.autograd.grad(dist.logpdf(x).sum(), [x])
+        n_lp = launched(fs)
+        fs.reset_launches()
+        obj = torch.sum(dist.sample(BATCH, z1=torch.from_numpy(z1_np).to(dev, dtype)) * torch.from_numpy(w_np).to(dev, dtype))
+        g_s = torch.autograd.grad(obj, leaves)
+        torch.cuda.synchronize()
+        return [g_x] + list(g_s), n_lp, launched(fs)
+
+    g_k, n_lp, n_s = serving_grads(models[0], torch.float32)
+    want = {fs.K3_KERNEL: 1, fs.K5_KERNEL: 1}
+    check(n_lp == want and n_s == want, f"the logpdf and sample gradients launched {n_lp} and {n_s}, expected {want}")
+    g_p, _, _ = serving_grads(models[1], torch.float32)
+    g_t, _, _ = serving_grads(models[2], torch.float64)
+    hold_test_gradients("flagship serving", ["score (x)", "sample w1", "sample b1", "sample w2", "sample b2"], g_k, g_p,
+                        g_t)
+    print(f"logpdf and sample gradients: launches {n_lp} and {n_s}")
+
+    # Phase 49: K5's COND instance, behind K7 TEST with ys.
+    ps_np_c = glorot_params(rng, COND_TWO_LAYER)
+    ps_c = cnf.params_from_numpy(ps_np_c, dev)
+    ys = torch.from_numpy(rng.uniform(-1.0, 1.0, (BATCH, 1)).astype("float32")).to(dev)
+    models_c = (cond_two_layer(cnf, dev), cond_two_layer(cnf, dev, fused=False),
+                cond_two_layer(cnf, dev, fused=False, dtype=torch.float64, solver=truth))
+    spec_c = fs.chain_spec(models_c[0].nn, 16)
+    n_k5c = test_gradient_path("conditional 2-layer TEST gradient", cnf, fs, models_c, ps_np_c, xs, dev,
+                               {fs.K7_KERNEL + "/test": 1, fs.K5_KERNEL: 1}, ys=ys)[fs.K5_KERNEL]
+    fwd_c = dict(fwd_kw, ws=[p["w"] for p in ps_c], bs=[p["b"] for p in ps_c], ys=ys)
+    out5c, e5c, ms5c, p5c = k5_pair("K5 COND", fs, TSIT5, spec_c, fs.run_chain_test_solve_kernel, fwd_c, rng, dev)
+
+    # Phase 50: the README model's TEST gradient at the README tolerances
+    # (verner65: the non-FSAL refresh), K3 and K5 under verner65 only, on
+    # the README workflow's weights and data (phase 30's draws; at some
+    # other Glorot draws the backsolve of this contracting 2-d flow is
+    # chaotic, and even the float64 rtol 1e-7 solve is no reference: PERF.md).
+    ps_np_r = glorot_params(np.random.default_rng(SEED + 30), README_DIMS)
+    x_r = torch.from_numpy(np.random.default_rng(SEED).beta(2.0, 4.0, (BATCH, 1)).astype("float32")).to(dev)
+    models_r = (readme_model(cnf, dev), readme_model(cnf, dev, fused=False),
+                readme_model(cnf, dev, fused=False, dtype=torch.float64, solver=truth))
+    with first_calls(fs, ("run_solve_kernel", "run_test_adjoint_kernel")) as seen:
+        test_gradient_path("README TEST gradient", cnf, fs, models_r, ps_np_r, x_r, dev,
+                           {fs.K3_KERNEL: 1, fs.K5_KERNEL: 1})
+    check(seen["tableaus"] == {"verner65"}, f"the README TEST gradient ran the tableaus {seen['tableaus']}")
+    ps_r = cnf.params_from_numpy(ps_np_r, dev)
+    fwd_r = dict(fwd_kw, **cnf.README_TOLERANCES, ws=[p["w"] for p in ps_r], bs=[p["b"] for p in ps_r],
+                 z0=torch.cat([x_r, torch.zeros((BATCH, 1), device=dev)], dim=1))
+    k5_pair("K5 verner65 (README model)", fs, VERNER65, fs.chain_spec(models_r[0].nn, 2), fs.run_solve_kernel,
+            fwd_r, rng, dev)
+
+    dz, H = 16, 48
+    rec = lambda name, n, err, ms, pms, out, nc, fma: kernel_record(  # noqa: E731
+        name, "k5_test_adjoint.cu", "continuousnf_tpu/ops/fused_solve.py:1767", n, err, ms, pms, fma, BATCH, out[5],
+        2 * (2 * dz * H + nc * H + H + dz) + BATCH * (4 * dz + 3 + 2 * nc))
+    return [rec(fs.K5_KERNEL, n_k5, e5, ms5, p5, out5, 0, two_layer_fma(dz, H)["k5"]),
+            rec(fs.K5_KERNEL + "/cond", n_k5c, e5c, ms5c, p5c, out5c, 1, k5_fma(dz, H, 1))]
+
+
 def main() -> int:
     import torch
 
@@ -2014,8 +2252,8 @@ def main() -> int:
 
     t_build = time.perf_counter()
     built = _build.build_libraries([fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL,
-                                    fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL, fs.K1W_KERNEL, fs.K2W_KERNEL,
-                                    fs.K7W_KERNEL])
+                                    fs.K5_KERNEL, fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL, fs.K1W_KERNEL,
+                                    fs.K2W_KERNEL, fs.K7W_KERNEL])
     print(f"built {len(built)} kernels in {time.perf_counter() - t_build:.2f} s (one nvcc each, in parallel)")
     for name, (lib_path, log) in built.items():
         print(f"  {lib_path.name}")
@@ -2026,6 +2264,9 @@ def main() -> int:
     dz, H = dims[0], dims[1]
     print(f"K4 adjoint dynamic shared memory per 128-thread block at dz={dz}, H={H}: "
           f"{fs._library(fs.K4A_KERNEL).cnf_k4a_smem_bytes(dz, H, 128)} bytes")
+    print(f"K5 dynamic shared memory per 128-thread block at dz={dz}, H={H}: "
+          f"{fs._library(fs.K5_KERNEL).cnf_k5_smem_bytes(dz, H, 0, 128)} bytes, with one ys row "
+          f"{fs._library(fs.K5_KERNEL).cnf_k5_smem_bytes(dz, H, 1, 128)} bytes")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2051,7 +2292,8 @@ def main() -> int:
                          ("34", lambda: identity_layers(cnf, fs, dev)),
                          ("35", lambda: deep_test_gradient(cnf, fs, dev) or []),
                          ("36-41", lambda: miniboone(cnf, fs, dev)),
-                         ("42-46", lambda: probe_paths(cnf, fs, dev))):
+                         ("42-46", lambda: probe_paths(cnf, fs, dev)),
+                         ("47-50", lambda: test_gradients(cnf, fs, dev))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -29,8 +29,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from ..distributions import sample_eps, std_normal_logpdf, std_normal_sample
-from ..ode.solve import needs_grad, odeint_with_stats
-from ..types import Adjoint, ComputeMode, Mode, SolverOptions, resolve_device
+from ..ode.solve import odeint_with_stats
+from ..types import ComputeMode, Mode, SolverOptions, resolve_device
 from .dynamics import TestState, TrainState, make_augmented_dynamics, safe_norm
 
 
@@ -280,21 +280,6 @@ def _solve(icnf: ICNF, mode: Mode, state0, args, t0, t1):
     from ..ops.fused_solve import make_full_solve
 
     full_solve = make_full_solve(icnf, mode, batch=state0.z.shape[0])
-    if (
-        full_solve is not None
-        and mode == Mode.TEST
-        and icnf.solver.adjoint == Adjoint.BACKSOLVE
-        and state0.z.device.type == "cuda"
-        and needs_grad(state0, args, t0, t1)
-        and len(icnf.nn.layers) == 2
-    ):
-        # The JAX package runs a TEST backward kernel (K5) for 2-layer nets;
-        # deeper chains have none there, and their gradient runs the plain
-        # backward behind the forward kernel, here too.
-        raise NotImplementedError(
-            "gradients through the fused TEST solve of a 2-layer net need its backward kernel (K5, ROADMAP "
-            "queue 2), which is not ported; use fused=False for these gradients on the card"
-        )
     return odeint_with_stats(f, state0, t0, t1, args, icnf.solver, full_solve=full_solve)
 
 

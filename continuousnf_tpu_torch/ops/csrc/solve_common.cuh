@@ -1,4 +1,4 @@
-// Shared pieces of the solve kernels (K3, K1, K2, K4 and the chain kernels):
+// Shared pieces of the solve kernels (K3, K1, K2, K4, K5 and the chain kernels):
 // the explicit RK tableau (any embedded pair up to kMaxStages stages), the PI
 // step-size controller, the fixed-order block and grid reductions that give
 // every block bitwise the same error norm, the cooperative-launch helpers,
@@ -6,7 +6,7 @@
 // the whole adaptive forward solve of a per-sample field (K3, K1, the K4
 // forward, the K1 chain form and K7) and the whole adaptive backsolve of a
 // per-sample augmented stage with a batch-summed gradient (K2, the K4
-// adjoint and the K2 chain form), and both solves' block-cooperative forms,
+// adjoint, the K2 chain form and K5), and both solves' block-cooperative forms,
 // which evaluate a stage for a tile of samples at once (the wide chain
 // kernels; the section at the end).
 //
@@ -446,30 +446,32 @@ __device__ void forward_solve(const FwdArgs& p, const Field& field, float* red) 
   }
 }
 
-// Arguments of the adjoint solve kernels (K2, the K4 adjoint) besides the
-// net and its gradient outputs.
+// Arguments of the adjoint solve kernels (K2, the K4 adjoint, K5) besides
+// the net and its gradient outputs.  NACC: the accumulator rows, 3 in TRAIN
+// mode (dlogp, reg_e, reg_n) and 1 in TEST mode (dlogp, K5).
 struct AdjState {
   const float* zT;    // (B, dz) state at t_hi
-  const float* accT;  // (3, B)
+  const float* accT;  // (NACC, B)
   const float* azT;   // (B, dz) cotangent of z at t_hi
-  const float* aaccT; // (3, B) cotangent of acc (constant)
+  const float* aaccT; // (NACC, B) cotangent of acc (constant)
   const float* ts;    // t_hi, t_lo, dt_init
   float* z0;          // (B, dz) state at t_lo
-  float* acc0;        // (3, B)
+  float* acc0;        // (NACC, B)
   float* az0;         // (B, dz)
   float* ays0;        // (B, nc) cotangent of the conditioning at t_lo (nc > 0)
   int* stats;         // attempted, accepted
-  float* work;        // (S + 2) * (2 dz + 3 + nc) * B
+  float* work;        // (S + 2) * (2 dz + NACC + nc) * B
   float* partials;    // [parity][sum | sum3 | flag][gridDim.x]
   float* gpart;       // [parity][gridDim.x][NG Pg]: the blocks' b-, btilde- (and btilde3-) weighted g sums
-  int B, dz, nc, max_steps;  // nc: per-sample conditioning cotangent rows (0 but for the K2 chain form)
+  int B, dz, nc, max_steps;  // nc: per-sample conditioning cotangent rows (0 but for the COND instances)
   float rtol, atol, beta1, beta2, inv_order;
   Tableau tab;
 };
 
-// The whole adaptive backsolve (K2, the K4 adjoint and the K2 chain form) of
-// the per-sample state (z, acc, a_z, a_acc: a_acc constant; a_ys for a
-// conditional chain) and of the batch-summed gradient g (Pg floats) from
+// The whole adaptive backsolve (K2, the K4 adjoint, the K2 chain form and,
+// with NACC = 1, K5) of the per-sample state (z, acc, a_z, a_acc: NACC rows
+// each, a_acc constant; a_ys for a conditional net) and of the batch-summed
+// gradient g (Pg floats) from
 // ts[0] to ts[1].  Per sample, `stage(s, z, az, aacc, kz, kr, kaz, kys)`
 // evaluates the augmented stage (the field, its rates, k_az = -ct_z and, in
 // a COND instance, k_ays = -ct_ys written to kys[c * B], c < p.nc; kys is
@@ -478,9 +480,9 @@ struct AdjState {
 // order, of the negated g rate entry q.  a_ys starts at 0; its rate does not
 // read it (a quadrature, like g), so its nc rows ride in the (row, B) planes
 // after a_z but are never staged back into the field's input.  A non-COND
-// instance (K2, the K4 adjoint, unconditional chains) compiles without them.
+// instance (K2, the K4 adjoint, unconditional nets) compiles without them.
 //
-// One batch-global Hairer norm over B * (2 * (dz + 3) + nc) + Pg elements,
+// One batch-global Hairer norm over B * (2 * (dz + NACC) + nc) + Pg elements,
 // the g entries scaled by atol + rtol * max(|g|, |g_new|) of the batch-summed
 // values.  Each block accumulates its partials of dt * sum_i b_i k_g,i and
 // dt * sum_i btilde_i k_g,i (and, for dop853, dt * sum_i btilde3_i k_g,i:
@@ -502,7 +504,7 @@ struct AdjState {
 // flush adds the block's probe terms `grad.probe(q, base, nvalid)` of every
 // entry q, and after the stage the forward chain's `grad.fwd(q, base,
 // nvalid)`: the sub-passes sum to the stage's g rate (in another order).
-template <int DZ, bool COND, int U, bool PROBES = false, class Stage, class Grad>
+template <int DZ, bool COND, int U, bool PROBES = false, int NACC = 3, class Stage, class Grad>
 __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad& grad, int Pg, float* gp,
                               float* gnew, float* K1p, float* K7p, float* red) {
   cg::grid_group grid = cg::this_grid();
@@ -516,7 +518,7 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
   const int nthr = G * blockDim.x;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const int rounds = (B + nthr - 1) / nthr;
-  const int R = 2 * dz + 3 + nc;  // rows: z, acc, a_z, a_ys
+  const int R = 2 * dz + NACC + nc;  // rows: z, acc, a_z, a_ys
   const size_t RB = (size_t)R * B;  // one (row, B) plane
   float* Y = p.work;
   float* Yn = Y + RB;
@@ -524,19 +526,19 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
 
   // Sample s's stage at (z, az), its rates stored into the plane kst.
   auto run_stage = [&](int s, const float (&z)[DZ], const float (&az)[DZ], auto* kst) {
-    float aacc[3], kz[DZ], kr[3], kaz[DZ];
+    float aacc[NACC], kz[DZ], kr[NACC], kaz[DZ];
 #pragma unroll
-    for (int r = 0; r < 3; ++r) aacc[r] = p.aaccT[(size_t)r * B + s];
-    stage(s, z, az, aacc, kz, kr, kaz, COND ? kst + (size_t)(2 * dz + 3) * B + s : nullptr);
+    for (int r = 0; r < NACC; ++r) aacc[r] = p.aaccT[(size_t)r * B + s];
+    stage(s, z, az, aacc, kz, kr, kaz, COND ? kst + (size_t)(2 * dz + NACC) * B + s : nullptr);
 #pragma unroll
     for (int i = 0; i < DZ; ++i) {
       if (i < dz) {
         kst[(size_t)i * B + s] = kz[i];
-        kst[(size_t)(dz + 3 + i) * B + s] = kaz[i];
+        kst[(size_t)(dz + NACC + i) * B + s] = kaz[i];
       }
     }
 #pragma unroll
-    for (int r = 0; r < 3; ++r) kst[(size_t)(dz + r) * B + s] = kr[r];
+    for (int r = 0; r < NACC; ++r) kst[(size_t)(dz + r) * B + s] = kr[r];
   };
   // The block's samples in round rd: [base, base + nvalid).
   auto round_base = [&](int rd) { return rd * nthr + (int)(blockIdx.x * blockDim.x); };
@@ -547,11 +549,11 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
     const int s = gtid + rd * nthr;
     const bool valid = s < B;
     const int base = round_base(rd), nv = round_valid(rd);
-    float z[DZ], az[DZ], aacc[3] = {0.f, 0.f, 0.f}, kz[DZ], kr[3], kaz[DZ];
+    float z[DZ], az[DZ], aacc[NACC] = {}, kz[DZ], kr[NACC], kaz[DZ];
 #pragma unroll
     for (int i = 0; i < DZ; ++i) {
       z[i] = valid && i < dz ? Y[(size_t)i * B + s] : 0.f;
-      az[i] = valid && i < dz ? Y[(size_t)(dz + 3 + i) * B + s] : 0.f;
+      az[i] = valid && i < dz ? Y[(size_t)(dz + NACC + i) * B + s] : 0.f;
     }
     if (valid) {
       for (int j = 0; j < st; ++j) {
@@ -563,13 +565,13 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
           for (int i = 0; i < DZ; ++i) {
             if (i < dz) {
               z[i] = fmaf(cf, kj[(size_t)i * B + s], z[i]);
-              az[i] = fmaf(cf, kj[(size_t)(dz + 3 + i) * B + s], az[i]);
+              az[i] = fmaf(cf, kj[(size_t)(dz + NACC + i) * B + s], az[i]);
             }
           }
         }
       }
 #pragma unroll
-      for (int r = 0; r < 3; ++r) aacc[r] = p.aaccT[(size_t)r * B + s];
+      for (int r = 0; r < NACC; ++r) aacc[r] = p.aaccT[(size_t)r * B + s];
     }
     float* kst = K + st * RB;
     auto flush = [&]() {
@@ -577,18 +579,18 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
       for (int q = threadIdx.x; q < Pg; q += blockDim.x) consume(q, grd.probe(q, base, nv));
       __syncthreads();
     };
-    stg.probes(valid, s, z, az, aacc, kz, kr, kaz, COND && valid ? kst + (size_t)(2 * dz + 3) * B + s : nullptr,
+    stg.probes(valid, s, z, az, aacc, kz, kr, kaz, COND && valid ? kst + (size_t)(2 * dz + NACC) * B + s : nullptr,
                flush);
     if (valid) {
 #pragma unroll
       for (int i = 0; i < DZ; ++i) {
         if (i < dz) {
           kst[(size_t)i * B + s] = kz[i];
-          kst[(size_t)(dz + 3 + i) * B + s] = kaz[i];
+          kst[(size_t)(dz + NACC + i) * B + s] = kaz[i];
         }
       }
 #pragma unroll
-      for (int r = 0; r < 3; ++r) kst[(size_t)(dz + r) * B + s] = kr[r];
+      for (int r = 0; r < NACC; ++r) kst[(size_t)(dz + r) * B + s] = kr[r];
     }
     __syncthreads();
     for (int q = threadIdx.x; q < Pg; q += blockDim.x) consume(q, grd.fwd(q, base, nv));
@@ -609,7 +611,7 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
 #pragma unroll
           for (int i = 0; i < DZ; ++i) {
             z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
-            az[i] = i < dz ? Y[(size_t)(dz + 3 + i) * B + s] : 0.f;
+            az[i] = i < dz ? Y[(size_t)(dz + NACC + i) * B + s] : 0.f;
           }
           run_stage(s, z, az, K);
         }
@@ -625,17 +627,17 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
   for (int s = gtid; s < B; s += nthr) {
     for (int i = 0; i < dz; ++i) {
       Y[(size_t)i * B + s] = p.zT[(size_t)s * dz + i];
-      Y[(size_t)(dz + 3 + i) * B + s] = p.azT[(size_t)s * dz + i];
+      Y[(size_t)(dz + NACC + i) * B + s] = p.azT[(size_t)s * dz + i];
     }
-    for (int r = 0; r < 3; ++r) Y[(size_t)(dz + r) * B + s] = p.accT[(size_t)r * B + s];
-    for (int c = 0; c < nc; ++c) Y[(size_t)(2 * dz + 3 + c) * B + s] = 0.f;
+    for (int r = 0; r < NACC; ++r) Y[(size_t)(dz + r) * B + s] = p.accT[(size_t)r * B + s];
+    for (int c = 0; c < nc; ++c) Y[(size_t)(2 * dz + NACC + c) * B + s] = 0.f;
   }
   for (int q = threadIdx.x; q < Pg; q += blockDim.x) gp[q] = 0.f;
   stage1();
 
   Controller c;
   c.init(p.ts, p.beta1, p.beta2, p.inv_order);
-  const float n_elems = (float)B * (float)(2 * (dz + 3) + nc) + (float)Pg;
+  const float n_elems = (float)B * (float)(2 * (dz + NACC) + nc) + (float)Pg;
 
   while (c.running(p.max_steps)) {
     bool is_last;
@@ -671,7 +673,7 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
 #pragma unroll
             for (int i = 0; i < DZ; ++i) {
               z[i] = i < dz ? Y[(size_t)i * B + s] : 0.f;
-              az[i] = i < dz ? Y[(size_t)(dz + 3 + i) * B + s] : 0.f;
+              az[i] = i < dz ? Y[(size_t)(dz + NACC + i) * B + s] : 0.f;
             }
 #pragma unroll (U)
             for (int j = 0; j < st; ++j) {
@@ -683,7 +685,7 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
                 for (int i = 0; i < DZ; ++i) {
                   if (i < dz) {
                     z[i] = fmaf(cf, kj[(size_t)i * B + s], z[i]);
-                    az[i] = fmaf(cf, kj[(size_t)(dz + 3 + i) * B + s], az[i]);
+                    az[i] = fmaf(cf, kj[(size_t)(dz + NACC + i) * B + s], az[i]);
                   }
                 }
               }
@@ -733,7 +735,7 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
           const float q3 = err3 / sc;
           sumsq3 = fmaf(q3, q3, sumsq3);
         }
-        if (r < dz || r >= dz + 3) finite = finite && isfinite(yn);
+        if (r < dz || r >= dz + NACC) finite = finite && isfinite(yn);
       }
     }
 
@@ -793,10 +795,10 @@ __device__ void adjoint_solve(const AdjState& p, const Stage& stage, const Grad&
   for (int s = gtid; s < B; s += nthr) {
     for (int i = 0; i < dz; ++i) {
       p.z0[(size_t)s * dz + i] = Y[(size_t)i * B + s];
-      p.az0[(size_t)s * dz + i] = Y[(size_t)(dz + 3 + i) * B + s];
+      p.az0[(size_t)s * dz + i] = Y[(size_t)(dz + NACC + i) * B + s];
     }
-    for (int r = 0; r < 3; ++r) p.acc0[(size_t)r * B + s] = Y[(size_t)(dz + r) * B + s];
-    for (int c = 0; c < nc; ++c) p.ays0[(size_t)s * nc + c] = Y[(size_t)(2 * dz + 3 + c) * B + s];
+    for (int r = 0; r < NACC; ++r) p.acc0[(size_t)r * B + s] = Y[(size_t)(dz + r) * B + s];
+    for (int c = 0; c < nc; ++c) p.ays0[(size_t)s * nc + c] = Y[(size_t)(2 * dz + NACC + c) * B + s];
   }
   if (gtid == 0) {
     p.stats[0] = c.steps;

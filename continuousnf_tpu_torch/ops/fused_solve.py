@@ -4,15 +4,16 @@ solves and the TRAIN backsolve adjoints.
 Port of `continuousnf_tpu/ops/fused_solve.py`: `ChainSpec`/`chain_spec`
 (:101-152), the stages `_stage_train` (:333-369) with `_chain_fwd`,
 `_probe_pullback`, `_probe_pushforward`, `_safe_col_norm` and
-`_ct_safe_norm` (:155-330), the hand-derived stage VJP
-`_stage_train_fwdbwd` (:372-481), K VJP or JVP probes in both, the exact stages
+`_ct_safe_norm` (:155-330), the hand-derived stage VJPs
+`_stage_train_fwdbwd` (:372-481), K VJP or JVP probes in both, and
+`_stage_test_fwdbwd` (:506-539), the exact stages
 `exact_stage_consts`, `exact_pm_chain`, `_stage_train_exact`,
 `_stage_train_exact_fwdbwd` and `_stage_train_exact_chain` (:542-728),
 `FullSolve` (:1346-1357) and `make_full_solve` (:1378-1823), with the
 conditioning rows of `_zin` (:265-269) in every stage, in batch-major
 layout.
 
-Eleven CUDA kernels (`csrc/`), each with a plain PyTorch twin; five for
+Twelve CUDA kernels (`csrc/`), each with a plain PyTorch twin; six for
 2-layer tanh MLPs:
 - K3 (`k3_test_solve.cu`, `run_solve_kernel`, twin `solve_test_plain`) for
   `_run_solve_kernel` with `_stage_test`: the TEST solve of [z | dlogp];
@@ -29,6 +30,10 @@ Eleven CUDA kernels (`csrc/`), each with a plain PyTorch twin; five for
   `adjoint_train_exact_plain`) for `adjoint_solve` with
   `_stage_train_exact_fwdbwd`: the backward integration of
   (z, acc, a_z, g_p, g_pm);
+- K5 (`k5_test_adjoint.cu`, `run_test_adjoint_kernel`, twin
+  `adjoint_test_plain`) for `adjoint_solve` with `_stage_test_fwdbwd`: the
+  TEST backward integration of (z, dlogp, a_z, [a_ys,] g_p), conditional
+  nets (K8) in a second instance;
 and three for chains of 2 to CHAIN_MAX_LAYERS tanh or identity layers,
 sharing the chain layer of `csrc/chain_common.cuh`:
 - the K1 chain form (`k1_chain_solve.cu`, `run_chain_train_solve_kernel`,
@@ -60,7 +65,8 @@ integrates the per-sample ys cotangent) and identity layers (K9,
 `ChainSpec.acts` :104-111).  `make_full_solve` takes the chain kernels for
 chains of 3 or more layers, for every conditional net and for every net
 with an identity layer (their wide forms past the narrow widths), the
-2-layer kernels for unconditional 2-layer tanh nets.  The forward kernels
+2-layer kernels for unconditional 2-layer tanh nets, and K5 for the TEST
+backward of every 2-layer tanh net, conditional or not.  The forward kernels
 return the last step they took beside the next step size
 (`utils/near_tie.py` reads it).
 
@@ -88,6 +94,7 @@ K1_KERNEL = "k1_train_solve"
 K2_KERNEL = "k2_train_adjoint"
 K4_KERNEL = "k4_exact_solve"
 K4A_KERNEL = "k4_exact_adjoint"
+K5_KERNEL = "k5_test_adjoint"
 K1C_KERNEL = "k1_chain_solve"
 K2C_KERNEL = "k2_chain_adjoint"
 K7_KERNEL = "k7_chain_solve"
@@ -164,10 +171,11 @@ class FullSolve(NamedTuple):
     forward: (y0f, t0, t1, args) -> (yTf, stats).
     adjoint: (yTf, g_yf, args, t_hi, t_lo, dt_warm=None) ->
              (y0f, a_y0f, g_args, stats), the backsolve backward integration
-             (`ode/adjoint.py`); None for TEST mode (its backward kernel,
-             K5, is not ported yet) and for exact-trace chains of N != 2
-             layers (forward-only, as in the JAX package: the plain
-             BACKSOLVE backward runs).
+             (`ode/adjoint.py`); None for TEST and exact-trace chains of
+             N != 2 layers (forward-only, as in the JAX package) and for
+             TEST 2-layer nets with an identity layer (the JAX package's
+             2-layer TEST stage assumes tanh layers): the plain BACKSOLVE
+             backward runs.
     """
 
     forward: Callable
@@ -357,9 +365,11 @@ def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: b
     return y, kr, ct_h, ct_ws, ct_bs
 
 
-def _exact_pm_stage(spec: ChainSpec) -> bool:
-    """True where the exact TRAIN stage is the 2-layer pm form (K4); other
-    Dense chains take the basis-propagation form (K7)."""
+def _two_layer_tanh(spec: ChainSpec) -> bool:
+    """True for a 2-layer tanh chain, conditional or not: where the exact
+    TRAIN stage is the 2-layer pm form (K4; other Dense chains take the
+    basis-propagation form, K7) and where the TEST backward stage exists
+    (`_stage_test_fwdbwd`, K5)."""
     return spec.n_layers == 2 and all(spec.acts)
 
 
@@ -451,6 +461,32 @@ def _stage_train_exact_chain(spec: ChainSpec, z, ws, bs, norm_z: bool, norm_j: b
     return y, torch.stack([-tr, e_rate, n_rate])
 
 
+def _stage_test_fwdbwd(spec: ChainSpec, z, ws, bs, ct_y, ct_r, ys=None):
+    """The 2-layer TEST stage and its hand-derived VJP against (ct_y (B, dz),
+    ct_r (1, B), the cotangent of the -tr row) in one pass: the math K5
+    runs.  With m = W1z * W2^T (the z rows of W1), tr = sum_i dy_i (m dh)_i.
+    Returns (k_z, kr (1, B), ct_zin, ct_ws, ct_bs), the cotangents not
+    negated and the parameter ones summed over the batch, ct_m folded in:
+    into W2 as (ct_m * W1z)^T and into the z rows of W1 as ct_m * W2^T (its
+    ys rows get none)."""
+    hs, (dh, dy) = _chain_fwd(spec, _zin(z, ys), ws, bs)
+    y = hs[-1]
+    w1z = ws[0][: spec.dz]
+    m = w1z * ws[1].T  # (dz, H)
+    mdh = dh @ m.T  # (B, dz)
+    tr = torch.sum(dy * mdh, dim=-1)
+    ct_tr = -ct_r[0][:, None]
+    ct_dy = mdh * ct_tr
+    ct_mdh = dy * ct_tr
+    ct_dh = ct_mdh @ m  # (B, H)
+    ct_m = ct_mdh.T @ dh  # (dz, H)
+    ct_pre2 = (ct_y + (-2.0 * y) * ct_dy) * dy
+    ct_pre1 = (ct_pre2 @ ws[1].T + (-2.0 * hs[1]) * ct_dh) * dh
+    ct_ws = [hs[0].T @ ct_pre1 + _pad_rows(ct_m * ws[1].T, ws[0].shape[0]), hs[1].T @ ct_pre2 + (ct_m * w1z).T]
+    ct_bs = [torch.sum(ct_pre1, dim=0), torch.sum(ct_pre2, dim=0)]
+    return y, -tr[None], ct_pre1 @ ws[0].T, ct_ws, ct_bs
+
+
 # ---- plain twins ----
 
 
@@ -514,7 +550,7 @@ def solve_train_exact_plain(
     for 2-layer tanh chains, `_stage_train_exact_chain` for others), with
     the conditioning ys (B, n_cond) or None.  Returns
     (zT, accT, steps, accepted, dt_last, dt_used)."""
-    if _exact_pm_stage(spec):
+    if _two_layer_tanh(spec):
         pm = _exact_pm(spec, ws)
         stage = lambda z: _stage_train_exact(spec, z, ws, bs, pm, norm_z, norm_j, ys)  # noqa: E731
     else:
@@ -536,6 +572,18 @@ def _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT, ys=None, jvp=
 
     def stage(z, az):
         y, kr, ct_zin, ct_ws, ct_bs = _stage_train_fwdbwd(spec, z, eps, ws, bs, norm_z, norm_j, az, aaccT, ys, jvp)
+        ct_z, ys_block = _split_zin(spec, ct_zin, ys)
+        return y, kr, ct_z, ys_block + list(ct_ws) + list(ct_bs)
+
+    return stage
+
+
+def _test_adjoint_stage(spec, ws, bs, aaccT, ys=None):
+    """The same for the 2-layer TEST stage (K5): the blocks are [ct_ys,]
+    [w1, w2, b1, b2], ct_m folded in."""
+
+    def stage(z, az):
+        y, kr, ct_zin, ct_ws, ct_bs = _stage_test_fwdbwd(spec, z, ws, bs, az, aaccT, ys)
         ct_z, ys_block = _split_zin(spec, ct_zin, ys)
         return y, kr, ct_z, ys_block + list(ct_ws) + list(ct_bs)
 
@@ -564,16 +612,16 @@ def _block_shapes(ws, bs, ys, extra=()):
 
 def _adjoint_state(stage, zT, accT, azT, aaccT, shapes):
     """The backward field of the flat augmented state
-    [z | acc (3, B) | a_z | a_acc (3, B) | blocks of `shapes`] (the stage,
-    its rates, -ct_z, a constant a_acc and the negated cotangents of the
-    blocks: a per-sample a_ys, then the parameter gradients) and its value at
-    t_hi (zero blocks)."""
+    [z | acc (nacc, B) | a_z | a_acc (nacc, B) | blocks of `shapes`] (nacc:
+    3 in TRAIN mode, 1 in TEST mode; the stage, its rates, -ct_z, a constant
+    a_acc and the negated cotangents of the blocks: a per-sample a_ys, then
+    the parameter gradients) and its value at t_hi (zero blocks)."""
     B, dz = zT.shape
-    n = B * dz
+    n, na = B * dz, accT.numel()
 
     def f(t, uf):
         z = uf[:n].reshape(B, dz)
-        az = uf[n + 3 * B : 2 * n + 3 * B].reshape(B, dz)
+        az = uf[n + na : 2 * n + na].reshape(B, dz)
         y, kr, ct_z, grads = stage(z, az)
         parts = [y.reshape(-1), kr.reshape(-1), -ct_z.reshape(-1), torch.zeros_like(aaccT).reshape(-1)]
         return torch.cat(parts + [-g.reshape(-1) for g in grads])
@@ -590,14 +638,14 @@ def _adjoint_plain(stage, shapes, tab, *, rtol, atol, max_steps, zT, accT, azT, 
     to t_lo, one error norm over the whole augmented state.  Returns
     (z0, acc0, a_z0, blocks, steps, accepted)."""
     B, dz = zT.shape
-    n = B * dz
+    n, na = B * dz, accT.numel()
     f, u0 = _adjoint_state(stage, zT, accT, azT, aaccT, shapes)
     uf, st = _solve_adaptive_while(f, tab, u0, t_hi, t_lo, rtol, atol, max_steps, dt_init)
     sizes = [torch.Size(s).numel() for s in shapes]
-    blocks = [g.reshape(s) for g, s in zip(torch.split(uf[2 * n + 6 * B :], sizes), shapes)]
+    blocks = [g.reshape(s) for g, s in zip(torch.split(uf[2 * n + 2 * na :], sizes), shapes)]
     z0 = uf[:n].reshape(B, dz)
-    acc0 = uf[n : n + 3 * B].reshape(3, B)
-    az0 = uf[n + 3 * B : 2 * n + 3 * B].reshape(B, dz)
+    acc0 = uf[n : n + na].reshape(accT.shape)
+    az0 = uf[n + na : 2 * n + na].reshape(B, dz)
     return z0, acc0, az0, blocks, st.steps, st.accepted
 
 
@@ -628,6 +676,31 @@ def adjoint_train_plain(
     return _adjoint_result(*out, len(ws), ys)
 
 
+def adjoint_test_plain(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi, t_lo, dt_init,
+                       ys=None):
+    """Plain PyTorch version of K5: the eager adaptive backsolve of
+    (z, dlogp, a_z, a_dlogp, [a_ys,] g_p) from t_hi to t_lo on the
+    hand-derived TEST stage VJP of a 2-layer tanh chain, one error norm over
+    the whole augmented state (a_dlogp constant; g_p with ct_m folded in, as
+    the JAX package's kernel integrates it).  zT, azT are (B, dz), accT,
+    aaccT (1, B); with the conditioning ys (B, n_cond) the per-sample a_ys
+    (from 0 at t_hi) is integrated too and returned last.  `dt_init` None
+    picks the first step by Hairer's rule.  Returns
+    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted[, a_ys0])."""
+    if not _two_layer_tanh(spec):
+        raise ValueError(_NO_TEST_CHAIN_ADJOINT)
+    out = _adjoint_plain(
+        _test_adjoint_stage(spec, ws, bs, aaccT, ys), _block_shapes(ws, bs, ys), tab, rtol=rtol, atol=atol,
+        max_steps=max_steps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
+    )
+    return _adjoint_result(*out, 2, ys)
+
+
+_NO_TEST_CHAIN_ADJOINT = (
+    "the TEST adjoint (K5) covers 2-layer tanh chains; other chains have none, as in the JAX package "
+    "(K7 is forward-only: their gradient runs the plain BACKSOLVE)"
+)
+
 _NO_EXACT_CHAIN_ADJOINT = (
     "the exact adjoint covers 2-layer tanh chains; deeper chains have none, as in the JAX package "
     "(K7 is forward-only: their gradient runs the plain BACKSOLVE)"
@@ -649,7 +722,7 @@ def adjoint_train_exact_plain(
     over the whole augmented state, g_pm included.  g_pm is chained back
     into g_w1 (its z rows) and g_w2 after the solve.  Returns
     (z0, acc0, a_z0, g_ws, g_bs, steps, accepted[, a_ys0])."""
-    if not _exact_pm_stage(spec):
+    if not _two_layer_tanh(spec):
         raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
     pm = _exact_pm(spec, ws)
     z0, acc0, az0, g, steps, accepted = _adjoint_plain(
@@ -698,11 +771,12 @@ def _wide_probes(k_probes: int, jvp: bool) -> str:
 def _kernel_covers(
     tab: ButcherTableau, spec: ChainSpec, k_probes: int = 1, chain: bool = False, jvp: bool = False
 ) -> Optional[str]:
-    """Why the 2-layer kernels (K3, K1, K2, K4; `chain` False) or the chain
-    kernels (the K1 and K2 chain forms, K7, narrow or wide; `chain` True) do
-    not run this configuration (None if they do).  Both take every embedded
-    explicit tableau (K9).  The 2-layer kernels take unconditional 2-layer
-    tanh chains with state widths up to MAX_DZ; the chain kernels take Dense
+    """Why the 2-layer kernels (K3, K1, K2, K4, K5; `chain` False) or the
+    chain kernels (the K1 and K2 chain forms, K7, narrow or wide; `chain`
+    True) do not run this configuration (None if they do).  Both take every
+    embedded explicit tableau (K9).  The 2-layer kernels take unconditional
+    2-layer tanh chains with state widths up to MAX_DZ (K5 conditional ones
+    too: its caller asks without the conditioning); the chain kernels take Dense
     chains of 2 to CHAIN_MAX_LAYERS tanh or identity layers (K9): their
     narrow forms with hidden widths up to CHAIN_MAX_WIDTH and state widths up
     to MAX_DZ, conditional ones (K8) included, and their wide forms the
@@ -717,7 +791,8 @@ def _kernel_covers(
     if tab.num_stages > MAX_STAGES:
         return f"the {tab.name} tableau ({tab.num_stages} > {MAX_STAGES} stages)"
     if not chain and not all(spec.acts):
-        return "identity-activation layers in K3, K1, K2 and K4 (the chain kernels take them)"
+        return ("identity-activation layers in K3, K1, K2, K4 and K5 (the chain kernels take them; a TEST "
+                "gradient of such a net runs the plain backward)")
     if spec.n_cond and not chain:
         return "conditional nets (K8 in the 2-layer kernels, ROADMAP queue 2)"
     if spec.n_layers == 1:
@@ -725,10 +800,11 @@ def _kernel_covers(
                 "shape variants)")
     if not chain:
         if spec.dz > MAX_DZ:
-            return (f"state width {spec.dz} > {MAX_DZ} in K3, K1, K2 and K4 (they keep one sample's state in "
-                    "registers; 2-layer nets of a wider state: ROADMAP queue 2, shape variants)")
+            return (f"state width {spec.dz} > {MAX_DZ} in K3, K1, K2, K4 and K5 (they keep one sample's state in "
+                    "registers; 2-layer nets of a wider state: ROADMAP queue 2, shape variants (a))")
         if spec.n_layers != 2:
-            return f"{spec.n_layers}-layer chains (K3, K1, K2 and K4 take 2 layers; the chain kernels take deeper ones)"
+            return (f"{spec.n_layers}-layer chains (K3, K1, K2 and K4 take 2 layers; the chain kernels take deeper "
+                    "ones)")
         return None
     if spec.n_layers > CHAIN_MAX_LAYERS:
         return (f"{spec.n_layers}-layer chains (the chain kernels take at most {CHAIN_MAX_LAYERS} layers; "
@@ -822,6 +898,11 @@ _SIGNATURES = {
         "cnf_k4a_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
         "cnf_k4a_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
         "cnf_k4_exact_adjoint": ([_P] * 23 + [_I] * 6 + _TAIL, _I),
+    },
+    K5_KERNEL: {
+        "cnf_k5_max_grid": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k5_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
+        "cnf_k5_test_adjoint": ([_P] * 22 + [_I] * 5 + _TAIL, _I),
     },
     K1C_KERNEL: {
         "cnf_k1c_max_grid": _CHAIN_GRID,
@@ -1224,7 +1305,7 @@ def run_exact_adjoint_kernel(
     through its plain version (with ys (B, n_cond), a_ys0 is returned
     last).  Other chains have no exact adjoint, as in the JAX package: K7
     is forward-only."""
-    if not _exact_pm_stage(spec):
+    if not _two_layer_tanh(spec):
         raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
     _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT, ys)
     if zT.device.type == "cpu":
@@ -1243,6 +1324,69 @@ def run_exact_adjoint_kernel(
 
 
 run_exact_adjoint_kernel.launches = 0
+
+
+def _launch_k5(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi, t_lo, dt_init, ys=None):
+    B, dz = zT.shape
+    H, din, nc = spec.out_dims[0], spec.in_dims[0], spec.n_cond
+    device = zT.device
+    w1, b1, w2, b2, zT, accT, azT, aaccT = _check_inputs(
+        "K5", device, [ws[0], bs[0], ws[1], bs[1], zT, accT, azT, aaccT],
+        [(din, H), (H,), (H, dz), (dz,), (B, dz), (1, B), (B, dz), (1, B)],
+    )
+    ys = _cond_rows("K5", spec, ys, B, device)
+    lib = _library(K5_KERNEL)
+    block, grid = _launch_shape(lambda blk, cap: lib.cnf_k5_max_grid(dz, H, nc, blk, cap), "K5", B, (128, 64, 32))
+    P = din * H + H + H * dz + dz
+    f32 = dict(dtype=torch.float32, device=device)
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(**f32)
+    z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
+    ays0 = torch.empty((B, nc), **f32) if nc else None
+    gw1, gb1, gw2, gb2 = (torch.empty_like(x) for x in (w1, b1, w2, b2))
+    stats = torch.empty(2, dtype=torch.int32, device=device)
+    work = torch.empty((tab.num_stages + 2) * (2 * dz + 1 + nc) * B, **f32)
+    partials = torch.empty(6 * grid, **f32)
+    gpart = torch.empty(2 * grid * _gvecs(tab) * P, **f32)
+    err = lib.cnf_k5_test_adjoint(
+        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr_or_null(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT),
+        _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0), _ptr_or_null(ays0), _ptr(gw1), _ptr(gb1), _ptr(gw2), _ptr(gb2),
+        _ptr(stats), _ptr(work), _ptr(partials), _ptr(gpart), B, dz, H, nc, int(max_steps), rtol, atol,
+        *_controller_floats(tab), _tableau_array(tab), grid, block, _stream(device),
+    )
+    _check_launch(err, "K5", grid, block)
+    return (z0, acc0, az0, [gw1, gw2], [gb1, gb2], stats[0], stats[1]) + (() if ays0 is None else (ays0,))
+
+
+def run_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi, t_lo, dt_init,
+                            ys=None):
+    """K5: the backsolve of (z, dlogp, a_z, a_dlogp, [a_ys,] g_p) from t_hi
+    to t_lo starting with step `dt_init`, on the TEST stage of a 2-layer
+    tanh chain (`_stage_test_fwdbwd`).  zT, azT are (B, dz), accT, aaccT
+    (1, B); a conditional chain takes ys (B, n_cond) and integrates the
+    per-sample a_ys from 0 at t_hi in the same error norm.  Returns
+    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted[, a_ys0]), g_* summed over
+    the batch.
+
+    CUDA tensors go through the K5 kernel (its COND instance for a
+    conditional chain), CPU tensors through its plain version.  Other chains
+    have no TEST adjoint, as in the JAX package."""
+    if not _two_layer_tanh(spec):
+        raise ValueError(_NO_TEST_CHAIN_ADJOINT)
+    _no_grad_inputs("K5", ws, bs, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_test_plain(tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, zT=zT,
+                                  accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
+    # K5 has a COND instance: the 2-layer kernels' rule without the conditioning.
+    _cuda_only("K5", zT, tab, spec._replace(n_cond=0))
+    if dt_init is None:
+        raise ValueError("K5 needs dt_init (the caller picks it)")
+    out = _launch_k5(tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, zT=zT, accT=accT, azT=azT,
+                     aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
+    run_test_adjoint_kernel.launches += 1
+    return out
+
+
+run_test_adjoint_kernel.launches = 0
 
 
 # ---- the chain kernels (2 to CHAIN_MAX_LAYERS layers) ----
@@ -1673,6 +1817,7 @@ KERNEL_WRAPPERS = {
     K2_KERNEL: run_adjoint_kernel,
     K4_KERNEL: run_exact_solve_kernel,
     K4A_KERNEL: run_exact_adjoint_kernel,
+    K5_KERNEL: run_test_adjoint_kernel,
     K1C_KERNEL: run_chain_train_solve_kernel,
     K2C_KERNEL: run_chain_adjoint_kernel,
     K7_KERNEL + "/test": run_chain_test_solve_kernel,
@@ -1737,10 +1882,13 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     card: K8 in the 2-layer kernels is not ported) and none for other chains
     (the JAX package's deep exact chains are forward-only too: their
     gradient runs the plain BACKSOLVE).  TEST solves run K3 (K7 for
-    chain-kernel nets) and have no backward member: K5, the JAX package's
-    for 2-layer nets, is not ported (`core/icnf.py` refuses those gradients
-    on the card); deeper chains have none in the JAX package either, so
-    their gradient runs the plain BACKSOLVE behind K7.
+    chain-kernel nets), with K5 as the backward member for 2-layer tanh
+    nets: unconditional ones run K3 forward and K5 backward, conditional
+    ones K7 TEST with ys forward and K5's COND instance backward.  Deeper
+    chains have no TEST backward member, as in the JAX package, and 2-layer
+    nets with an identity layer none either (the JAX package's 2-layer TEST
+    stage assumes tanh layers and fails on them; the port does not copy
+    that): their gradient runs the plain BACKSOLVE behind K7.
     """
     cm = icnf.compute_mode
     opts = icnf.solver
@@ -1798,7 +1946,8 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
 
     nfe_per = (tab.num_stages - 1) + (0 if tab.fsal else 1)
 
-    exact_pm = exact and _exact_pm_stage(spec)
+    exact_pm = exact and _two_layer_tanh(spec)
+    test_adjoint = not train and _two_layer_tanh(spec)
     chain = spec.n_layers > 2 or spec.n_cond > 0 or not all(spec.acts)
     if chain and _wide_chain(spec):
         run_test, run_train = run_wide_test_solve_kernel, run_wide_train_solve_kernel
@@ -1845,7 +1994,8 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
 
     def adjoint(yTf, g_yf, args, t_hi, t_lo, dt_warm=None):
         """Backward solve of (z, acc, a_z, [a_ys,] g_p) (and g_pm under exact
-        trace) from t_hi down to t_lo.  Returns (y0f, a_y0f, g_args, stats);
+        trace) from t_hi down to t_lo: K2 (or its chain and wide forms), the
+        K4 adjoint or, in TEST mode, K5.  Returns (y0f, a_y0f, g_args, stats);
         a_acc is constant, so its final value is the incoming cotangent.
         `dt_warm` (the forward solve's last step size) is the first step;
         without it Hairer's rule picks one over the whole augmented state
@@ -1866,6 +2016,9 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
                 pm = _exact_pm(spec, kw["ws"])
                 stage = _exact_adjoint_stage(spec, kw["ws"], kw["bs"], pm, norm_z, norm_j, aaccT, ysb)
                 shapes = _block_shapes(kw["ws"], kw["bs"], ysb, [pm.shape])
+            elif not train:
+                stage = _test_adjoint_stage(spec, kw["ws"], kw["bs"], aaccT, ysb)
+                shapes = _block_shapes(kw["ws"], kw["bs"], ysb)
             else:
                 stage = _train_adjoint_stage(spec, kw["ws"], kw["bs"], eps, norm_z, norm_j, aaccT, ysb, jvp)
                 shapes = _block_shapes(kw["ws"], kw["bs"], ysb)
@@ -1879,6 +2032,8 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         state = dict(zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init)
         if exact:
             out = run_exact_adjoint_kernel(tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, **state)
+        elif not train:
+            out = run_test_adjoint_kernel(tab, spec, **kw, **state)
         else:
             out = run_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, eps=eps, jvp=jvp, **state)
         z0, acc0, az0, g_ws, g_bs, steps, accepted = out[:7]
@@ -1895,7 +2050,8 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         a_y0f = torch.cat([az0.reshape(-1), aaccT.reshape(-1)])
         return y0f, a_y0f, g_args, stats
 
-    return FullSolve(forward=forward, adjoint=adjoint if train and (not exact or exact_pm) else None)
+    has_adjoint = (train and (not exact or exact_pm)) or test_adjoint
+    return FullSolve(forward=forward, adjoint=adjoint if has_adjoint else None)
 
 
 __all__ = [
@@ -1908,6 +2064,7 @@ __all__ = [
     "run_adjoint_kernel",
     "run_exact_solve_kernel",
     "run_exact_adjoint_kernel",
+    "run_test_adjoint_kernel",
     "run_chain_test_solve_kernel",
     "run_chain_exact_solve_kernel",
     "run_chain_train_solve_kernel",
@@ -1924,6 +2081,7 @@ __all__ = [
     "solve_train_exact_plain",
     "adjoint_train_plain",
     "adjoint_train_exact_plain",
+    "adjoint_test_plain",
     "exact_stage_consts",
     "exact_pm_chain",
 ]

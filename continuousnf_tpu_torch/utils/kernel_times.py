@@ -13,6 +13,9 @@ conditional recipe (MLP 2 -> 64 -> 64 -> 1 on [x | y], B = 4096, tspan
 those four on miniboone43 (MLP 43 -> 128 -> 128 -> 43, B = 2048, tspan
 (0, 1); the "_wide" keys), Glorot weights and data from numpy seeds, under
 one tableau (rtol 1e-3 / atol 1e-6; the README tolerances for verner65).
+Where the package has K5 (the TEST adjoint), it is timed on the flagship
+from K3's output, with a loss-like cotangent and K3's last step as the warm
+start (the "k5" key), as `chip_smoke.py` phase 47 holds it.
 With `--probes K` (K Gaussian probes) or `--jvp` (forward-mode probes) it
 times only the Hutchinson kernels, K1 and K2 and their chain forms, through
 their probe instances (K6; the "/K<K>" or "/jvp-K<K>" keys); the wide forms
@@ -58,7 +61,9 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {smi}; package {cnf.__file__}", flush=True)
     models = args.models.split(",")
-    kernels = {"flagship": [fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL],
+    has_k5 = hasattr(fs, "run_test_adjoint_kernel")
+    kernels = {"flagship": [fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL]
+               + ([fs.K5_KERNEL] if has_k5 else []),
                "power6": [fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL],
                "cond_gaussian": [fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL]}
     if probes:
@@ -120,6 +125,15 @@ def main() -> int:
                       dict(adj, eps=eps, **probe_kw))
         elif name == "flagship":
             time_pair(("k3",), spec, fs.run_solve_kernel, None, test, None)
+            if has_k5:
+                with torch.no_grad():
+                    fwd = fs.run_solve_kernel(tab, spec, **dict(test, dlogp0=torch.zeros(B, device=dev)))
+                    kw5 = {k: v for k, v in base.items() if k not in ("t0", "t1", "dt_init")}
+                    kw5.update(zT=fwd[0], accT=fwd[1][None], azT=adj["azT"], aaccT=T(np.full((1, B), 1.0 / B)),
+                               t_hi=base["t1"], t_lo=base["t0"], dt_init=-fwd[4].abs())
+                    k5 = fs.run_test_adjoint_kernel(tab, spec, **kw5)
+                    ms5 = cuda_ms(lambda: fs.run_test_adjoint_kernel(tab, spec, **kw5), max(2, args.reps // 2))
+                out["k5"] = [ms5, int(k5[5])]
             time_pair(("k1", "k2"), spec, fs.run_train_solve_kernel, fs.run_adjoint_kernel, dict(train, eps=eps),
                       dict(adj, eps=eps))
             time_pair(("k4", "k4a"), spec, fs.run_exact_solve_kernel, fs.run_exact_adjoint_kernel, train, adj)

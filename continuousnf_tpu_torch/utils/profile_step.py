@@ -1,7 +1,7 @@
 """Where the time goes in a training step and a `logpdf` call on the card.
 
     python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43] [--steps 10]
-        [--probes K] [--jvp]
+        [--probes K] [--jvp] [--test-grad]
 
 Builds the model (`--model power6`: the tabular power6 model, RNODE,
 MLP 6 -> 64 -> 64 -> 6; `--model flagship`: RNODE, MLP 16 -> 48 -> 16;
@@ -24,6 +24,10 @@ too):
   * the kernels that take the most of it, by name, and the host operations
     that take the most of the CPU's own time under the profiler (where an
     idle card waits).
+With `--test-grad` it measures one more path, the TEST loss (the
+exact-trace maximum likelihood) and its gradient in the params
+(`test_grad`): on a 2-layer net the forward runs K3 and the backward K5, on
+deeper chains K7 TEST and the plain backward.
 Needs a CUDA card; prints one line per figure, then one JSON object.
 """
 
@@ -61,7 +65,8 @@ def _busy(fn, reps: int, top: int = 6):
     return sum(r[1] for r in rows), rows[:top], host[:top]
 
 
-def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp: bool = False) -> dict:
+def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp: bool = False,
+                  test_grad: bool = False) -> dict:
     import continuousnf_tpu_torch as cnf
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -91,6 +96,13 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
         yb = None if ys is None else ys[:b]
         call = lambda: step(ps, xs[:b], gen, ys=yb)  # noqa: E731
         out[label] = _measure(call, steps)
+    if test_grad:
+        icnf = model(False)
+        ps = cnf.params_from_numpy(ps_np, dev)
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        out["test_grad"] = _measure(
+            lambda: torch.autograd.grad(cnf.loss(icnf, cnf.Mode.TEST, xs, ps, ys=ys), leaves), steps
+        )
     ps = cnf.params_from_numpy(ps_np, dev)
     dist = cnf.ICNFDist(model(False), cnf.Mode.TEST, ps) if ys is None else \
         cnf.CondICNFDist(model(False), cnf.Mode.TEST, ps, ys)
@@ -115,10 +127,11 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--probes", type=int, default=1, help="Hutchinson probes K of the train steps")
     ap.add_argument("--jvp", action="store_true", help="forward-mode (JVP) probes")
+    ap.add_argument("--test-grad", action="store_true", help="also the TEST loss and its gradient")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
-    res = profile_model(a.model, a.steps, num_probes=a.probes, jvp=a.jvp)
+    res = profile_model(a.model, a.steps, num_probes=a.probes, jvp=a.jvp, test_grad=a.test_grad)
     for label, r in res.items():
         if not isinstance(r, dict):
             continue

@@ -211,16 +211,25 @@ def test_end_time_and_probe_cotangents_match_jax(problem):
 
 @pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
 def test_test_mode_gradients_on_cpu_match_jax(problem, fused):
-    """TEST-mode gradients take the generic backward on the CPU (the fused
-    TEST solve has no backward kernel yet: K5)."""
+    """TEST-mode gradients: the plain path (the generic backward) against
+    `jax.grad` of the JAX package's unfused loss; the fused path (K3's twin
+    forward, K5's twin backward) against `jax.grad` of the JAX package's
+    fused loss (its TEST adjoint kernel in interpret mode), and against the
+    unfused one at the JAX package's own bound between the two."""
     ps_np, xs, _ = problem
-    jl = lambda p: cnf.loss(_model(cnf, False), cnf.Mode.TEST, jnp.asarray(xs), p)
-    g_r = _leaves(jax.grad(jl)(jax.tree.map(jnp.asarray, ps_np)))
+
+    def jgrad(jfused):
+        jl = lambda p: cnf.loss(_model(cnf, jfused), cnf.Mode.TEST, jnp.asarray(xs), p)  # noqa: E731
+        return _leaves(jax.grad(jl)(jax.tree.map(jnp.asarray, ps_np)))
+
     ps = tcnf.params_from_numpy(ps_np)
     leaves = [x.requires_grad_() for x in _leaves(ps)]
     g = torch.autograd.grad(tcnf.loss(_model(tcnf, fused), tcnf.Mode.TEST, xs, ps), leaves)
-    for a, b in zip(g, g_r):
+    for a, b in zip(g, jgrad(fused)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+    if fused:
+        for a, b in zip(g, jgrad(False)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **FUSED_GRAD_TOL)
 
 
 def test_direct_adjoint_gradients_raise(problem):

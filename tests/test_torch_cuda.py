@@ -1,5 +1,6 @@
-"""The CUDA kernels (K3, K1, K2, the K4 forward and adjoint, and the chain
-kernels: the K1 and K2 chain forms, the K7 TEST and exact forwards, with and
+"""The CUDA kernels (K3, K1, K2, the K4 forward and adjoint, K5 with and
+without conditioning rows, and the chain kernels: the K1 and K2 chain forms,
+the K7 TEST and exact forwards, with and
 without conditioning rows, under every embedded explicit tableau and with
 identity layers, the probe instances of K1, K2 and their chain forms with K
 VJP or JVP probes (K6), and their wide forms at the MINIBOONE width) against their
@@ -331,10 +332,26 @@ def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
         assert tfs.run_exact_adjoint_kernel.launches == n4
         return
     if kernel == "K5-test-gradients":
-        ps = tcnf.params_from_numpy(ps_np, dev)
-        [x.requires_grad_() for p in ps for x in p.values()]
-        with pytest.raises(NotImplementedError, match=name):
-            tcnf.loss(_small(), tcnf.Mode.TEST, xs, ps)
+        # K5 covers every 2-layer tanh net of state width up to 32; a wider
+        # one's TEST gradient raises naming the shape variants (its forward
+        # would need K3 at that width too), and nothing launches.
+        dims = (40, 64, 40)
+        spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+        icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(dims, device=dev), 40, 0, compute_mode=tcnf.VecJacMode(fused=True))
+        ps = tcnf.params_from_numpy(_np_params(dims, 6), dev)
+        leaves = [x.requires_grad_() for p in ps for x in p.values()]
+        xs40 = torch.from_numpy(np.random.default_rng(7).normal(size=(8, 40)).astype(np.float32)).to(dev)
+        before = _launches()
+        with pytest.raises(NotImplementedError, match=r"shape variants \(a\)"):
+            torch.autograd.grad(tcnf.loss(icnf, tcnf.Mode.TEST, xs40, ps), leaves)
+        z = torch.zeros((8, 40), device=dev)
+        acc = torch.zeros((1, 8), device=dev)
+        with pytest.raises(NotImplementedError, match=r"shape variants \(a\)"):
+            tfs.run_test_adjoint_kernel(TSIT5, spec, rtol=1e-3, atol=1e-6, max_steps=10, ws=[p["w"].detach() for p in ps],
+                                        bs=[p["b"].detach() for p in ps], zT=z, accT=acc, azT=z, aaccT=acc,
+                                        t_hi=torch.tensor(1.0, device=dev), t_lo=torch.tensor(0.0, device=dev),
+                                        dt_init=torch.tensor(-0.05, device=dev))
+        assert _launches() == before
         return
     assert kernel == "K10-per-stage-field"
     icnf = _small(solver=tcnf.SolverOptions(adjoint=tcnf.Adjoint.DIRECT))
@@ -1104,3 +1121,128 @@ def test_last_step_tie_of_the_recipe(dev):
     holds, line = near_tie.last_step_tie(out_k, out_p, REL)
     if not holds:
         _near_tie_holds(out_k, out_p, tfs.solve_train_plain, spec, train, "z0")
+
+
+# ---- K5: the TEST backward of 2-layer nets, conditional or not ----
+
+# id -> (dims, n_cond, B, tableau, rtol, atol, span)
+_K5_CASES = {
+    "flagship-B4096": ((16, 48, 16), 0, 4096, TSIT5, 1e-3, 1e-6, (0.0, 13.0)),
+    "flagship-B37": ((16, 48, 16), 0, 37, TSIT5, 1e-3, 1e-6, (0.0, 13.0)),
+    "dz5-B1": ((5, 15, 5), 0, 1, TSIT5, 1e-3, 1e-6, (0.0, 2.0)),
+    "dz5-reverse": ((5, 15, 5), 0, 300, TSIT5, 1e-3, 1e-6, (2.0, 0.0)),
+    "dz32": ((32, 40, 32), 0, 512, TSIT5, 1e-3, 1e-6, (0.0, 1.0)),
+    "readme-verner65": ((2, 6, 2), 0, 1024, VERNER65, 3.452669831108329e-4, 1.1920929e-7, (0.0, 13.0)),
+    "dz5-dop853": ((5, 15, 5), 0, 256, DOP853, 1e-6, 1e-8, (0.0, 2.0)),
+    "cond-flagship-B4096": ((17, 48, 16), 1, 4096, TSIT5, 1e-3, 1e-6, (0.0, 13.0)),
+    "cond-ncond2": ((7, 15, 5), 2, 300, TSIT5, 1e-3, 1e-6, (0.0, 2.0)),
+}
+
+
+def _k5_inputs(dims, n_cond, B, tab, rtol, atol, span, dev, seed=0):
+    """The TEST forward's twin from [x | 0] and nonzero dlogp0, then K5's
+    arguments from its output: a loss-like cotangent and its last step as
+    the warm start."""
+    ps = tcnf.params_from_numpy(_np_params(dims, seed), dev)
+    rng = np.random.default_rng(seed + 1)
+    T = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    dz = dims[-1]
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dz)
+    ys = _ys(B, n_cond, dev) if n_cond else None
+    kw = dict(rtol=rtol, atol=atol, max_steps=10_000, ws=[p["w"] for p in ps], bs=[p["b"] for p in ps], ys=ys)
+    t0, t1 = torch.tensor(span[0], device=dev), torch.tensor(span[1], device=dev)
+    with torch.no_grad():
+        zT, lT, *_, dt_last, _ = tfs.solve_test_plain(
+            tab, spec, **kw, z0=T(rng.uniform(size=(B, dz))), dlogp0=T(rng.normal(0.0, 0.1, B)), t0=t0, t1=t1,
+            dt_init=torch.sign(t1 - t0) * 0.05,
+        )
+    adj = dict(kw, zT=zT, accT=lT[None], azT=T(rng.normal(0.0, 1.0 / B, (B, dz))), aaccT=T(np.full((1, B), 1.0 / B)),
+               t_hi=t1, t_lo=t0, dt_init=-dt_last)
+    return spec, adj
+
+
+@pytest.mark.parametrize("case", list(_K5_CASES))
+def test_test_adjoint_kernel_matches_twin(dev, case):
+    """K5 (its COND instance for a conditional net) against its twin from the
+    same final state, cotangent and warm start: equal steps, z0, dlogp0,
+    a_z0 and a_ys0 held to the float64 twin (`_state_close`), finite
+    gradients within GRAD_REL (the batch sums in another order); a solve
+    that misses that bound passes only under the near-tie rule, on an input
+    whose twin shows a near-tie.  One launch each."""
+    dims, n_cond, B, tab, rtol, atol, span = _K5_CASES[case]
+    spec, adj = _k5_inputs(dims, n_cond, B, tab, rtol, atol, span, dev)
+    n = tfs.run_test_adjoint_kernel.launches
+    with torch.no_grad():
+        out_k = tfs.run_test_adjoint_kernel(tab, spec, **adj)
+        out_p = tfs.adjoint_test_plain(tab, spec, **adj)
+        out_64 = _twin64(tfs.adjoint_test_plain, spec, adj, tab)
+    torch.cuda.synchronize()
+    assert tfs.run_test_adjoint_kernel.launches == n + 1
+    assert len(out_k) == len(out_p) == (8 if n_cond else 7)
+    if n_cond:
+        assert out_k[7].shape == (B, n_cond) and float(out_k[3][0][dims[-1]:].abs().max()) > 0.0
+    if not _adjoint_matches(out_k, out_p, out_64):
+        _near_tie_holds(out_k, out_p, tfs.adjoint_test_plain, spec, adj, "zT", tab)
+
+
+@pytest.mark.parametrize("case", ["cap", "empty-span"])
+def test_test_adjoint_kernel_edge_cases_match_twin(dev, case):
+    """K5 capped at five steps (counts only, as for K2) and over an empty
+    span (no step, the state and zero gradients returned)."""
+    spec, adj = _k5_inputs((16, 48, 16), 0, 64, TSIT5, 1e-3, 1e-6, (0.0, 13.0), dev)
+    if case == "cap":
+        adj["max_steps"] = 5
+    else:
+        adj["t_hi"] = adj["t_lo"].clone()
+    with torch.no_grad():
+        out_k = tfs.run_test_adjoint_kernel(TSIT5, spec, **adj)
+        out_p = tfs.adjoint_test_plain(TSIT5, spec, **adj)
+    assert (int(out_k[5]), int(out_k[6])) == (int(out_p[5]), int(out_p[6]))
+    if case == "cap":
+        assert int(out_k[5]) == 5 and all(torch.isfinite(g).all() for g in out_k[3] + out_k[4])
+        return
+    assert int(out_k[5]) == 0 and torch.equal(out_k[0], adj["zT"]) and torch.equal(out_k[2], adj["azT"])
+    assert all(float(g.abs().max()) == 0.0 for g in out_k[3] + out_k[4])
+
+
+@pytest.mark.parametrize("cond", [False, True], ids=["flagship", "conditional"])
+def test_test_gradient_on_the_card_matches_the_twins_on_the_cpu(dev, cond):
+    """The TEST loss and its gradient in the params, xs and (conditional) ys
+    on the card, the forward in K3 (K7 TEST with ys for a conditional net)
+    and the backward in K5, against the same call on the CPU, where the
+    fused path runs the kernels' twins; then the params-gradient of
+    `generate`'s samples (the reverse-time solve) the same way."""
+    dims = (17, 48, 16) if cond else (16, 48, 16)
+    ps_np = _np_params(dims, 3)
+    rng = np.random.default_rng(4)
+    B = 512
+    xs = rng.uniform(size=(B, 8)).astype(np.float32)
+    ys_np = rng.uniform(-1.0, 1.0, (B, 1)).astype(np.float32) if cond else None
+    z1 = rng.normal(size=(B, 16)).astype(np.float32)
+
+    def run(device):
+        icnf = tcnf.construct(tcnf.CondRNODE if cond else tcnf.RNODE, tcnf.MLP(dims, device=device), 8, 8,
+                              tspan=(0.0, 13.0), compute_mode=tcnf.VecJacMode(fused=True))
+        ps = tcnf.params_from_numpy(ps_np, device)
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        x = torch.from_numpy(xs).to(device).requires_grad_()
+        extra = []
+        kw = {}
+        if cond:
+            kw["ys"] = torch.from_numpy(ys_np).to(device).requires_grad_()
+            extra = [kw["ys"]]
+        l = tcnf.loss(icnf, tcnf.Mode.TEST, x, ps, **kw)
+        grads = torch.autograd.grad(l, leaves + [x] + extra)
+        s = tcnf.generate(icnf, tcnf.Mode.TEST, ps, B, z1=z1, **({"ys": kw["ys"].detach()} if cond else {}))
+        g_gen = torch.autograd.grad(torch.sum(s * s), leaves)
+        return l.detach().cpu(), [g.cpu() for g in grads + g_gen]
+
+    before = _launches()
+    l_k, g_k = run(dev)
+    after = _launches()
+    forward = tfs.K7_KERNEL + "/test" if cond else tfs.K3_KERNEL
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {forward: 2, tfs.K5_KERNEL: 2}
+    l_c, g_c = run(torch.device("cpu"))
+    assert _close(l_k, l_c)
+    for a, b in zip(g_k, g_c):
+        assert torch.isfinite(a).all() and _grad_close(a, b)

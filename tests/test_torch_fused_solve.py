@@ -62,6 +62,12 @@ ELIGIBILITY = {
 }
 
 
+# The JAX package builds a TEST backward member for these 2-layer nets with an
+# identity layer, whose 2-layer TEST stage assumes tanh layers and fails on
+# them; the port gives them none (the plain backward runs).
+IDENTITY_TWO_LAYER = ("identity-out", "identity-hidden")
+
+
 @pytest.mark.parametrize("name", sorted(ELIGIBILITY))
 def test_eligibility_matches_reference(name):
     make = ELIGIBILITY[name]
@@ -69,7 +75,11 @@ def test_eligibility_matches_reference(name):
     got = tfs.make_full_solve(make(tcnf), tcnf.Mode.TEST, 16)
     assert (got is None) == (ref is None)
     if got is not None:
-        assert got.adjoint is None  # the TEST backward kernel (K5) is not ported yet
+        # The TEST backward member (K5) exists exactly where the JAX package's does.
+        if name in IDENTITY_TWO_LAYER:
+            assert ref.adjoint is not None and got.adjoint is None
+        else:
+            assert (got.adjoint is None) == (ref.adjoint is None)
 
 
 def test_train_and_bf16_raise():

@@ -73,12 +73,13 @@ def _jax_draws(icnf, key, batch):
 def test_readme_model_runs_verner65_in_the_kernels():
     """At the README tolerances method "auto" is verner65, and the fused
     solve takes the README net (a 2-layer tanh MLP) into the 2-layer
-    kernels under it, TEST and TRAIN."""
+    kernels under it, TEST and TRAIN, each with its backward member (K5 for
+    TEST, K2 for TRAIN)."""
     icnf = _readme(tcnf)
     assert tfs.get_tableau(icnf.solver.method, icnf.solver.rtol).name == "verner65"
     spec = tfs.chain_spec(icnf.nn, icnf.zdim)
     assert tfs._kernel_covers(tfs.get_tableau("auto", icnf.solver.rtol), spec) is None
-    assert tfs.make_full_solve(icnf, tcnf.Mode.TEST, B).adjoint is None
+    assert tfs.make_full_solve(icnf, tcnf.Mode.TEST, B).adjoint is not None
     assert tfs.make_full_solve(icnf, tcnf.Mode.TRAIN, B).adjoint is not None
     assert icnf.aug_noise == pytest.approx(tcnf.CALIBRATED_AUG_SIGMA)
 
