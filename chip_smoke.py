@@ -61,7 +61,16 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     of `sample(4096, z1=...)`, a conditional 2-layer net at the flagship
     widths (CondRNODE, MLP 17 -> 48 -> 16 on [z | ys], one ys column,
     nvars 8, naug 8, tspan (0, 13)) through K7 TEST with ys and K5's COND
-    instance, and the README model's TEST gradient under verner65.
+    instance, and the README model's TEST gradient under verner65;
+  * the paths the whole-solve kernels do not take, on the flagship: the
+    loss gradient under `SolverOptions(adjoint=Adjoint.DIRECT)` and under 32
+    rk4 steps, whose TRAIN field runs stage by stage in K10 (the per-stage
+    fused field), `fit` under DIRECT, tstops (4, 8) under BACKSOLVE through
+    K1 and K2 per segment, `adjoint_stats`, and `sample`'s DIRECT gradient;
+    and the trajectory example (examples/trajectory_plot.py: FFJORD, MLP
+    2 -> 32 -> 32 -> 2 tanh, tspan (0, 8), saveat linspace(0, 8, 33),
+    `inference(..., trajectory=True)` on 64 two-moons points) through K7
+    TEST per segment.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -247,11 +256,36 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      "auto", verner65: the non-FSAL refresh) on the README workflow's
      weights and data at B = 4096, K3 and K5 launched once each under
      verner65 only, held as in phase 47; K5 under verner65 against its
-     twin.
+     twin;
+ 51. K10 against its plain version at the flagship's shapes (B = 4096,
+     16 -> 48 -> 16), the README model's (2 -> 6 -> 2, B = 32) and an odd
+     batch (B = 4097), in float32 and float64, every output within
+     1e-5 * max(1, max|.|); CUDA-event times of both over 200 calls and
+     the kernel's own time from the profiler;
+ 52. the flagship's loss gradient (params and probes, steered) under
+     DIRECT and under 32 rk4 steps, counters reset just before each: K10
+     launched once per forward field evaluation and no other kernel; the
+     plain field (fused=False) at the same NFE, or a near-tie shown on the
+     plain path (its NFE moves under one-ulp moves of xs and covers the
+     fused one); probe gradients within 1e-3 * max|g| of each other; the
+     losses and parameter gradients held as in phase 8;
+ 53. `fit` under DIRECT for four Lion steps, counters reset just before it:
+     K10 alone launched, at least four times;
+ 54. tstops (4, 8) under BACKSOLVE: K1 and K2 launched three times each and
+     nothing else, held as in phase 8 with the NFE rule of phase 52; the
+     trajectory example: K7 TEST launched 32 times and nothing else, the
+     same grid, steps, zs and logp as the plain path (within 1e-4); the
+     flagship's `adjoint_stats`, whose backward steps equal those of K2 in
+     the gradient;
+ 55. `sample`'s params-gradient under DIRECT on phase 48's draw (no kernel
+     launched: the plain forward is recorded), printed beside phase 48's
+     BACKSOLVE gradients and a float64 DIRECT solve at rtol 1e-7, each as
+     its distance to the float64 BACKSOLVE solve.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
-tableau's refresh per accepted step) at 67 TFLOP/s f32 and the bytes of its
+tableau's refresh per accepted step; K10 evaluates the field once) at
+67 TFLOP/s f32 and the bytes of its
 inputs and outputs at 3.35 TB/s (the H100 SXM's data-sheet rates).  A record
 of a K9 run carries its tableau (or "identity") in its name, one of a probe
 instance its probes ("K4", "jvp-K2").  The last lines are the
@@ -568,6 +602,20 @@ class _Recorder:
     @launches.setter
     def launches(self, n):
         self.wrapper.launches = n
+
+
+class _StepsRecorder(_Recorder):
+    """A `_Recorder` of an adjoint wrapper that also keeps the attempted
+    steps of each call's output."""
+
+    def __init__(self, wrapper):
+        super().__init__(wrapper)
+        self.steps = []
+
+    def __call__(self, tab, spec, **kw):
+        out = super().__call__(tab, spec, **kw)
+        self.steps.append(int(out[5]))
+        return out
 
 
 @contextlib.contextmanager
@@ -2137,9 +2185,10 @@ def k5_pair(label, fs, tab, spec, fwd, fwd_kw, rng, dev):
     return run_pair(label, fs.run_test_adjoint_kernel, fs.adjoint_test_plain, tab, spec, adj, adjoint=True)
 
 
-def test_gradients(cnf, fs, dev):
+def test_gradients(cnf, fs, dev, keep):
     """Phases 47 to 50: TEST-mode gradients of 2-layer nets through K5.
-    Returns the records of K5 and of its COND instance."""
+    Returns the records of K5 and of its COND instance; `keep` receives
+    phase 48's draws and `sample` gradients (phase 55 reads them)."""
     import torch
     from continuousnf_tpu_torch.ode.tableaus import TSIT5, VERNER65
     from continuousnf_tpu_torch.utils.configs import glorot_params, make_icnf, model_data
@@ -2192,6 +2241,7 @@ def test_gradients(cnf, fs, dev):
     g_t, _, _ = serving_grads(models[2], torch.float64)
     hold_test_gradients("flagship serving", ["score (x)", "sample w1", "sample b1", "sample w2", "sample b2"], g_k, g_p,
                         g_t)
+    keep.update(ps_np=ps_np, z1_np=z1_np, w_np=w_np, g_k=g_k[1:], g_p=g_p[1:], g_t=g_t[1:])
     print(f"logpdf and sample gradients: launches {n_lp} and {n_s}")
 
     # Phase 49: K5's COND instance, behind K7 TEST with ys.
@@ -2233,6 +2283,289 @@ def test_gradients(cnf, fs, dev):
             rec(fs.K5_KERNEL + "/cond", n_k5c, e5c, ms5c, p5c, out5c, 1, k5_fma(dz, H, 1))]
 
 
+# ---- K10: the per-stage TRAIN field; DIRECT and fixed-step gradients, tstops, trajectories ----
+
+FLAGSHIP_DIMS = (16, 48, 16)
+K10_REPS = 200  # launches per CUDA-event timing of K10 and of its plain version
+K10_TOL = 1e-5  # K10 against its plain version, relative to max(1, max|.|)
+TSTOPS = (4.0, 8.0)
+TRAJ_DIMS = (2, 32, 32, 2)  # examples/trajectory_plot.py:40-55: FFJORD, tspan (0, 8), 33 save points
+TRAJ_N = 64
+
+
+def k10_inputs(dims, B, dev, dtype, rng):
+    """K10's arguments (w1, b1, w2, b2, z, eps) for a 2-layer net of widths
+    `dims`: Glorot weights, N(0, 0.05) biases, z and eps ~ N(0, 1)."""
+    import torch
+    from continuousnf_tpu_torch.utils.configs import glorot_params
+
+    ps = glorot_params(rng, dims)
+    T = lambda a: torch.from_numpy(np.asarray(a)).to(dev, dtype)  # noqa: E731
+    return [T(ps[0]["w"]), T(ps[0]["b"]), T(ps[1]["w"]), T(ps[1]["b"]), T(rng.normal(size=(B, dims[0]))),
+            T(rng.normal(size=(B, dims[0])))]
+
+
+def k10_pairs(fd, dev, rng):
+    """Phase 51: K10 against its plain version on the card at the flagship's
+    shapes, the README model's and an odd batch, in float32 and float64,
+    each output within K10_TOL * max(1, max|.|); then CUDA-event times of
+    both over K10_REPS calls at the flagship's shapes in float32 and float64
+    (a call's time: K10 is far shorter than its launch), and the kernel's
+    own time on the card from the profiler.  Returns (the largest absolute
+    error at the flagship's shapes, ms, plain ms), in float32."""
+    import torch
+    from continuousnf_tpu_torch.utils.configs import cuda_ms
+
+    flagship = {}
+    for label, dims, B in (("flagship", FLAGSHIP_DIMS, BATCH), ("README model", README_DIMS, 32),
+                           ("odd batch", FLAGSHIP_DIMS, BATCH + 1)):
+        for dtype in (torch.float32, torch.float64):
+            xs = k10_inputs(dims, B, dev, dtype, rng)
+            n = fd.run_fused_field_kernel.launches
+            with torch.no_grad():
+                got = fd.run_fused_field_kernel(*xs)
+                ref = fd.fused_field_plain(*xs)
+            torch.cuda.synchronize()
+            check(fd.run_fused_field_kernel.launches == n + 1, f"K10 {label} did not launch once")
+            errs = [rel_err(a, b) for a, b in zip(got, ref)]
+            check(all(a.dtype == dtype and a.shape == b.shape and bool(torch.isfinite(a).all()) for a, b in zip(got, ref))
+                  and max(errs) <= K10_TOL, f"K10 {label} {dtype}: relative errors (y, tr, |y|, |eJ|) {errs}")
+            print(f"K10 {label} B={B} {str(dtype)[6:]}: relative errors (y, tr, |y|, |eJ|) "
+                  + ", ".join(f"{e:.3e}" for e in errs))
+            if label == "flagship":
+                flagship[dtype] = xs, max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    for dtype, (xs, err) in flagship.items():
+        with torch.no_grad():
+            ms_k = cuda_ms(lambda: fd.run_fused_field_kernel(*xs), K10_REPS)
+            ms_p = cuda_ms(lambda: fd.fused_field_plain(*xs), K10_REPS)
+            ms_k2 = cuda_ms(lambda: fd.run_fused_field_kernel(*xs), K10_REPS)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(K10_REPS):
+                    fd.run_fused_field_kernel(*xs)
+                torch.cuda.synchronize()
+        dev_us = [e.device_time_total / e.count for e in prof.key_averages() if "k10_fused_field" in e.key and e.count]
+        print(f"K10 at the flagship's shapes (B={BATCH}, {str(dtype)[6:]}), mean of {K10_REPS} calls: kernel "
+              f"{ms_k:.4f} ms (again {ms_k2:.4f}), plain version {ms_p:.4f} ms; the kernel's own time on the card "
+              "(profiler): " + (f"{dev_us[0]:.3f} us" if dev_us else "not measured (no device events)"))
+        if dtype == torch.float32:
+            record = err, (ms_k + ms_k2) / 2, ms_p
+    return record
+
+
+def hold_steps(label, nfe_k, nfe_p, cnf, icnf_p, ps_np, xs, eps, steer_r, dev) -> None:
+    """Equal NFE (so equal attempted steps) of the fused and the plain path,
+    or a near-tie shown on the plain path: the NFE of its TRAIN forward
+    (`icnf_p` on xs, eps, steer_r) moves when xs moves by one float32 ulp
+    (`near_tie.nudge`, eight draws), and the fused NFE lies within the plain
+    path's own range."""
+    import torch
+    from continuousnf_tpu_torch.utils import near_tie
+
+    if nfe_k == nfe_p:
+        return
+
+    def nudged(i):
+        with torch.no_grad():
+            return int(cnf.loss_and_metrics(icnf_p, cnf.Mode.TRAIN, near_tie.nudge(xs, torch.Generator().manual_seed(i)),
+                                            cnf.params_from_numpy(ps_np, dev), eps=eps, steer_r=steer_r)[1]["nfe"])
+
+    moved = sorted({nfe_p} | {nudged(i) for i in range(8)})
+    print(f"{label}: NFE {nfe_k} vs plain {nfe_p}; the plain path under one-ulp moves of its inputs: {moved}")
+    check(len(moved) > 1 and moved[0] <= nfe_k <= moved[-1],
+          f"{label}: NFE {nfe_k} vs {nfe_p}, and the plain path shows no near-tie covering it ({moved})")
+
+
+def direct_grad(cnf, icnf, ps_np, xs, dev, eps, steer_r, dtype=None, ys=None):
+    """The TRAIN loss and its gradient in the params' leaves and in the
+    probes: (loss, param gradients, probe gradient, metrics)."""
+    import torch
+
+    dtype = dtype or torch.float32
+    p = cnf.params_from_numpy(ps_np, dev)
+    leaves = [x.to(dtype).requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
+    p = tuple({"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2]))
+    e = eps.to(dtype).requires_grad_()
+    l, m = cnf.loss_and_metrics(icnf, cnf.Mode.TRAIN, xs.to(dtype), p, eps=e, steer_r=steer_r)
+    g = torch.autograd.grad(l, leaves + [e])
+    return l.detach(), g[:-1], g[-1], m
+
+
+def recorded_gradient(label, cnf, fs, icnf_k, icnf_p, g_truth, ps_np, xs, eps, steer_r, dev):
+    """One loss gradient through a path the whole-solve kernels do not take:
+    K10 (fused=True, counters reset just before it, K10 launched once per
+    forward field evaluation and no other kernel) against the plain field
+    (fused=False): equal NFE or a near-tie (`hold_steps`), the probe
+    gradients within GRAD_TOL * max|g| of each other, and the losses and
+    parameter gradients held by `hold_gradients` against the float64 rtol
+    1e-7 solve `g_truth` = (loss, gradients).  Returns (K10's launches, the
+    CUDA-event ms of the fused and the plain loss gradient)."""
+    import torch
+    from continuousnf_tpu_torch.utils.configs import cuda_ms
+
+    fs.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mb = torch.cuda.memory_allocated(dev) / 2**20
+    l_k, g_k, ge_k, m_k = direct_grad(cnf, icnf_k, ps_np, xs, dev, eps, steer_r)
+    torch.cuda.synchronize()
+    graph_mb = torch.cuda.max_memory_allocated(dev) / 2**20 - base_mb
+    counts = launched(fs)
+    nfe_k = int(m_k["nfe"])
+    check(counts == {fs.K10_KERNEL: nfe_k}, f"{label}: launches {counts}, expected K10 {nfe_k} times and nothing else")
+    l_p, g_p, ge_p, m_p = direct_grad(cnf, icnf_p, ps_np, xs, dev, eps, steer_r)
+    hold_steps(label, nfe_k, int(m_p["nfe"]), cnf, icnf_p, ps_np, xs, eps, steer_r, dev)
+    e_eps = float((ge_k - ge_p).abs().max()) / max(1e-30, float(ge_p.abs().max()))
+    check(bool(torch.isfinite(ge_k).all()) and float(ge_k.abs().max()) > 0.0 and e_eps <= GRAD_TOL,
+          f"{label}: the probe gradient through K10 is {e_eps} max|g| from the plain path's")
+    hold_gradients(label, l_k, g_k, l_p, g_p, *g_truth)
+    ms_k = cuda_ms(lambda: direct_grad(cnf, icnf_k, ps_np, xs, dev, eps, steer_r), 3)
+    ms_p = cuda_ms(lambda: direct_grad(cnf, icnf_p, ps_np, xs, dev, eps, steer_r), 3)
+    print(f"{label}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 {float(g_truth[0]):.6f}; NFE {nfe_k} "
+          f"(plain {int(m_p['nfe'])}); K10 launches {nfe_k}; the probe gradient: max|g| {float(ge_p.abs().max()):.4e}, "
+          f"fused vs plain {e_eps:.3e} max|g|; loss and gradient {ms_k:.4f} ms (plain field {ms_p:.4f} ms); "
+          f"peak memory above the inputs {graph_mb:.1f} MiB (the recorded solve, no checkpointing)")
+    return nfe_k, ms_k, ms_p
+
+
+def trajectory_example(cnf, fs, dev):
+    """Phase 54b: the trajectory example's `inference(..., trajectory=True)`
+    on 64 two-moons points through K7 TEST per segment (32 launches, no other
+    kernel) against the plain path: the same grid, equal summed steps, zs and
+    logp within TOL * max(1, max|.|)."""
+    import torch
+    from continuousnf_tpu_torch.utils.configs import cuda_ms, glorot_params, two_moons
+
+    rng = np.random.default_rng(SEED + 54)
+    ps = cnf.params_from_numpy(glorot_params(rng, TRAJ_DIMS), dev)
+    xs = torch.from_numpy(two_moons(rng, TRAJ_N)).to(dev)
+    solver = cnf.SolverOptions(saveat=tuple(np.linspace(0.0, 8.0, 33)))
+    mk = lambda fused: cnf.construct(cnf.FFJORD, cnf.MLP(TRAJ_DIMS, device=dev), 2, 0, tspan=(0.0, 8.0),  # noqa: E731
+                                     compute_mode=cnf.VecJacMode(fused=fused), solver=solver)
+    fs.reset_launches()
+    with torch.no_grad():
+        lp_k, _, st_k, (ts_k, zs_k) = cnf.inference(mk(True), cnf.Mode.TEST, xs, ps, trajectory=True)
+        torch.cuda.synchronize()
+        counts = launched(fs)
+        lp_p, _, st_p, (ts_p, zs_p) = cnf.inference(mk(False), cnf.Mode.TEST, xs, ps, trajectory=True)
+    check(counts == {fs.K7_KERNEL + "/test": 32}, f"the trajectory launched {counts}, expected K7 TEST 32 times")
+    check(tuple(zs_k.shape) == (33, TRAJ_N, 2) and bool(torch.isfinite(zs_k).all()) and torch.equal(ts_k, ts_p),
+          f"trajectory shapes {tuple(zs_k.shape)}")
+    e_z, e_l = rel_err(zs_k, zs_p), rel_err(lp_k, lp_p)
+    check(int(st_k.steps) == int(st_p.steps) and max(e_z, e_l) <= TOL,
+          f"trajectory: steps {int(st_k.steps)} vs {int(st_p.steps)}, zs {e_z}, logp {e_l}")
+    with torch.no_grad():
+        ms_k = cuda_ms(lambda: cnf.inference(mk(True), cnf.Mode.TEST, xs, ps, trajectory=True), 3)
+        ms_p = cuda_ms(lambda: cnf.inference(mk(False), cnf.Mode.TEST, xs, ps, trajectory=True), 1)
+    print(f"trajectory example (FFJORD {TRAJ_DIMS}, {TRAJ_N} points, 33 save points over (0, 8)): steps "
+          f"{int(st_k.steps)} (plain {int(st_p.steps)}), zs {e_z:.3e}, logp {e_l:.3e} from the plain path; "
+          f"K7 TEST launches {counts[fs.K7_KERNEL + '/test']}; {ms_k:.4f} ms (plain {ms_p:.4f} ms)")
+
+
+def direct_paths(cnf, fs, dev, sample_draw):
+    """Phases 51 to 55: K10 and the paths the whole-solve kernels do not
+    take, on the flagship.  Returns K10's record."""
+    import dataclasses
+
+    import torch
+    from continuousnf_tpu_torch.ops import fused_dynamics as fd
+    from continuousnf_tpu_torch.utils.configs import glorot_params, make_icnf, model_data
+
+    rng = np.random.default_rng(SEED + 51)
+    err, ms_k10, ms_p10 = k10_pairs(fd, dev, rng)
+
+    # Phase 52: the flagship's loss gradient under DIRECT and under 32 rk4
+    # steps, K10 against the plain field and a float64 rtol 1e-7 solve.
+    ps_np = glorot_params(rng, FLAGSHIP_DIMS)
+    xs = torch.from_numpy(model_data("flagship", rng, BATCH)).to(dev)
+    eps = torch.from_numpy(rng.normal(size=(1, BATCH, 16)).astype("float32")).to(dev)
+    steer_r = 0.05
+    truth = make_icnf("flagship", dev, fused=False, dtype=torch.float64, solver=cnf.SolverOptions(rtol=1e-7, atol=1e-9))
+    l_t, g_t, _ = loss_grad(cnf, truth, ps_np, xs, dev, torch.float64, eps=eps.double(), steer_r=steer_r)
+    direct = cnf.SolverOptions(adjoint=cnf.Adjoint.DIRECT)
+    fixed = cnf.SolverOptions(method="rk4", fixed_num_steps=32)
+    n_k10, ms_d, ms_dp = recorded_gradient("DIRECT", cnf, fs, make_icnf("flagship", dev, solver=direct),
+                                           make_icnf("flagship", dev, fused=False, solver=direct), (l_t, g_t), ps_np,
+                                           xs, eps, steer_r, dev)
+    _, ms_f, ms_fp = recorded_gradient("rk4 x 32", cnf, fs, make_icnf("flagship", dev, solver=fixed),
+                                       make_icnf("flagship", dev, fused=False, solver=fixed), (l_t, g_t), ps_np, xs,
+                                       eps, steer_r, dev)
+
+    # Phase 53: fit under DIRECT, four Lion steps through K10 alone.
+    fit_path(cnf, fs, make_icnf("flagship", dev, solver=direct), ps_np, dev,
+             model_data("flagship", np.random.default_rng(SEED + 53), N_STEPS * BATCH), batch_size=BATCH)
+    counts = launched(fs)
+    check(set(counts) == {fs.K10_KERNEL} and counts[fs.K10_KERNEL] >= N_STEPS,
+          f"fit under DIRECT launched {counts}, expected K10 alone")
+    print(f"fit under DIRECT: {N_STEPS} Lion steps at B={BATCH}, launches {counts}")
+
+    # Phase 54: tstops under BACKSOLVE through K1 and K2 per segment, the
+    # trajectory example through K7 TEST per segment, and adjoint_stats.
+    stops = cnf.SolverOptions(tstops=TSTOPS)
+    icnf_k, icnf_p = make_icnf("flagship", dev, solver=stops), make_icnf("flagship", dev, fused=False, solver=stops)
+    fs.reset_launches()
+    l_k, g_k, m_k = loss_grad(cnf, icnf_k, ps_np, xs, dev, eps=eps, steer_r=steer_r)
+    torch.cuda.synchronize()
+    counts = launched(fs)
+    want = {fs.K1_KERNEL: len(TSTOPS) + 1, fs.K2_KERNEL: len(TSTOPS) + 1}
+    check(counts == want, f"the tstops gradient launched {counts}, expected {want}")
+    l_p, g_p, m_p = loss_grad(cnf, icnf_p, ps_np, xs, dev, eps=eps, steer_r=steer_r)
+    hold_steps("tstops", int(m_k["nfe"]), int(m_p["nfe"]), cnf, icnf_p, ps_np, xs, eps, steer_r, dev)
+    hold_gradients("tstops", l_k, g_k, l_p, g_p, l_t, g_t)
+    print(f"tstops {TSTOPS}: loss fused {float(l_k):.6f} plain {float(l_p):.6f}; NFE {int(m_k['nfe'])} (plain "
+          f"{int(m_p['nfe'])}); launches {counts}")
+    trajectory_example(cnf, fs, dev)
+    flag_k, flag_p = make_icnf("flagship", dev), make_icnf("flagship", dev, fused=False)
+    k2 = _StepsRecorder(fs.run_adjoint_kernel)
+    fs.run_adjoint_kernel = k2
+    try:
+        loss_grad(cnf, flag_k, ps_np, xs, dev, eps=eps, steer_r=steer_r)
+        fwd, bwd = cnf.adjoint_stats(flag_k, cnf.Mode.TRAIN, xs, cnf.params_from_numpy(ps_np, dev), eps=eps,
+                                     steer_r=steer_r)
+    finally:
+        fs.run_adjoint_kernel = k2.wrapper
+    k2_steps = k2.steps
+    fwd_p, bwd_p = cnf.adjoint_stats(flag_p, cnf.Mode.TRAIN, xs, cnf.params_from_numpy(ps_np, dev), eps=eps,
+                                     steer_r=steer_r)
+    check(k2_steps[:1] == [int(bwd.steps)] and len(k2_steps) == 2,
+          f"adjoint_stats' backward took {int(bwd.steps)} steps, K2 in the gradient {k2_steps[:1]}")
+    print(f"adjoint_stats: forward {int(fwd.steps)} steps / NFE {int(fwd.nfe)}, backward {int(bwd.steps)} steps / "
+          f"NFE {int(bwd.nfe)} (K2 in the gradient: {k2_steps[0]} steps); the plain path: forward "
+          f"{int(fwd_p.steps)} / {int(fwd_p.nfe)}, backward {int(bwd_p.steps)} / {int(bwd_p.nfe)}")
+
+    # Phase 55: sample's params-gradient under DIRECT on phase 48's draw,
+    # beside the BACKSOLVE ones and the float64 rtol 1e-7 solve.
+    sd = sample_draw
+    ps48 = sd["ps_np"]
+    z1, w = (torch.from_numpy(sd[k]).to(dev) for k in ("z1_np", "w_np"))
+
+    def sample_grad(icnf, dtype=torch.float32):
+        p = cnf.params_from_numpy(ps48, dev)
+        leaves = [x.to(dtype).requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
+        p = tuple({"w": a, "b": b} for a, b in zip(leaves[::2], leaves[1::2]))
+        obj = torch.sum(cnf.generate(icnf, cnf.Mode.TEST, p, BATCH, z1=z1.to(dtype)) * w.to(dtype))
+        return torch.autograd.grad(obj, leaves)
+
+    direct_test = dataclasses.replace(direct, direct_max_steps=4096)
+    fs.reset_launches()
+    g_d = sample_grad(make_icnf("flagship", dev, solver=direct_test))
+    check(not launched(fs), f"sample's DIRECT gradient launched {launched(fs)}: its forward is the plain solve")
+    g_d64 = sample_grad(make_icnf("flagship", dev, fused=False, dtype=torch.float64,
+                                  solver=dataclasses.replace(direct_test, rtol=1e-7, atol=1e-9)), torch.float64)
+    names = ("w1", "b1", "w2", "b2")
+    for name, gd, gd64, gk, gp, gt in zip(names, g_d, g_d64, sd["g_k"], sd["g_p"], sd["g_t"]):
+        scale = float(gt.abs().max())
+        dist = lambda g: float((g.double() - gt).abs().max()) / scale  # noqa: E731
+        check(bool(torch.isfinite(gd).all()), f"sample's DIRECT gradient g_{name} not finite")
+        print(f"sample g_{name}: max|g| {scale:.4e}; distance to the float64 rtol 1e-7 BACKSOLVE solve, in max|g|: "
+              f"DIRECT {dist(gd):.3e}, BACKSOLVE fused (K3 + K5) {dist(gk):.3e}, BACKSOLVE plain {dist(gp):.3e}, "
+              f"float64 DIRECT at rtol 1e-7 {dist(gd64):.3e}")
+
+    dz, H = FLAGSHIP_DIMS[0], FLAGSHIP_DIMS[1]
+    print(f"K10 on the DIRECT loss gradient: {n_k10} launches; DIRECT loss gradient {ms_d:.4f} ms (plain field "
+          f"{ms_dp:.4f}), rk4 x 32 {ms_f:.4f} ms (plain field {ms_fp:.4f})")
+    return [kernel_record(fs.K10_KERNEL, "k10_fused_field.cu", "continuousnf_tpu/ops/fused_dynamics.py:93", n_k10,
+                          err, ms_k10, ms_p10, 4 * dz * H, BATCH, 0, 2 * dz * H + H + dz + BATCH * (3 * dz + 3))]
+
+
 def main() -> int:
     import torch
 
@@ -2253,7 +2586,7 @@ def main() -> int:
     t_build = time.perf_counter()
     built = _build.build_libraries([fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL,
                                     fs.K5_KERNEL, fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL, fs.K1W_KERNEL,
-                                    fs.K2W_KERNEL, fs.K7W_KERNEL])
+                                    fs.K2W_KERNEL, fs.K7W_KERNEL, fs.K10_KERNEL])
     print(f"built {len(built)} kernels in {time.perf_counter() - t_build:.2f} s (one nvcc each, in parallel)")
     for name, (lib_path, log) in built.items():
         print(f"  {lib_path.name}")
@@ -2268,6 +2601,12 @@ def main() -> int:
           f"{fs._library(fs.K5_KERNEL).cnf_k5_smem_bytes(dz, H, 0, 128)} bytes, with one ys row "
           f"{fs._library(fs.K5_KERNEL).cnf_k5_smem_bytes(dz, H, 1, 128)} bytes")
 
+    from continuousnf_tpu_torch.ops.fused_dynamics import _k10_library
+
+    print(f"K10 dynamic shared memory per 256-thread block at dz={dz}, H={H}: "
+          f"{_k10_library().cnf_k10_smem_bytes(dz, H, 4)} bytes (float32), "
+          f"{_k10_library().cnf_k10_smem_bytes(dz, H, 8)} bytes (float64)")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2280,7 +2619,7 @@ def main() -> int:
     t_paths = time.perf_counter()
     records = [serving(cnf, fs, TSIT5, icnf_k, icnf_p, ps, xs, rng, dev)]
     print(f"phases 4-6 took {time.perf_counter() - t_paths:.2f} s")
-    readme = {}
+    readme, sample_draw = {}, {}
     for phases, path in (("7-10", lambda: training(cnf, fs, TSIT5, icnf_k, icnf_p, ps_np, xs, rng, dev)),
                          ("11-14", lambda: exact_training(cnf, fs, TSIT5, ps_np, xs, rng, dev)),
                          ("15-22", lambda: deep_chain(cnf, fs, TSIT5, rng, dev)),
@@ -2293,7 +2632,8 @@ def main() -> int:
                          ("35", lambda: deep_test_gradient(cnf, fs, dev) or []),
                          ("36-41", lambda: miniboone(cnf, fs, dev)),
                          ("42-46", lambda: probe_paths(cnf, fs, dev)),
-                         ("47-50", lambda: test_gradients(cnf, fs, dev))):
+                         ("47-50", lambda: test_gradients(cnf, fs, dev, sample_draw)),
+                         ("51-55", lambda: direct_paths(cnf, fs, dev, sample_draw))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

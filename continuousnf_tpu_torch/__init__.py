@@ -3,8 +3,10 @@
 It grows slice by slice beside the JAX package, which stays the reference.
 Ported so far: density evaluation and sampling (`inference` and `generate`
 in TEST mode, `ICNFDist`) and training (TRAIN-mode `inference`, `loss`,
-`loss_and_metrics` differentiated by the BACKSOLVE adjoint, and `fit` with
-the Lion optimizer, and checkpoints), for conditional models too
+`loss_and_metrics` differentiated by the BACKSOLVE adjoint or through the
+DIRECT and fixed-step solves, `fit` with the Lion optimizer, and
+checkpoints), trajectories (`inference(..., trajectory=True)`, tstops) and
+the adjoint's statistics (`adjoint_stats`), for conditional models too
 (`CondICNFDist`, `CondICNFModel`).  The whole adaptive solves of a 2-layer
 tanh MLP field and of deeper tanh-or-identity chains run in hand-written
 CUDA kernels for the H100 (`ops/csrc/`), under every explicit tableau with
@@ -45,6 +47,7 @@ from .core import (
     Planar,
     Regs,
     TrainState,
+    adjoint_stats,
     construct,
     generate,
     inference,
@@ -53,7 +56,7 @@ from .core import (
     loss_and_metrics,
 )
 from .nets import MLP, Chain, CondLayer, CondWrap, Dense, params_from_numpy
-from .ode import SolveStats, odeint_with_stats
+from .ode import SolveStats, odeint, odeint_with_stats
 from .dist import CondICNFDist, ICNFDist
 from .train import CondICNFModel, FitResult, ICNFModel, Lion, fit, load_checkpoint, save_checkpoint
 from . import distributions, ops, parallel, train, utils
@@ -91,6 +94,7 @@ __all__ = [
     "generate",
     "loss",
     "loss_and_metrics",
+    "adjoint_stats",
     "TrainState",
     "ICNFModel",
     "CondICNFModel",
@@ -105,6 +109,7 @@ __all__ = [
     "Dense",
     "MLP",
     "params_from_numpy",
+    "odeint",
     "odeint_with_stats",
     "SolveStats",
     "ICNFDist",

@@ -130,10 +130,12 @@ def make_augmented_dynamics(
     if fused_field and supports_fusion(nn):
 
         def f_train_fused(t, state: TrainState, args):
-            # The per-stage kernel (K10); the flagship step never evaluates
-            # it: its solve runs in K1/K2 and its Hairer pick on f_train.
+            # The per-stage kernel (K10): every stage of a TRAIN solve that
+            # the whole-solve kernels do not take (DIRECT, fixed steps,
+            # float64); those take their Hairer pick on f_train.
             if args.get("ys") is not None:
-                # The kernel covers the unconditional net only.
+                # The unconditional net only, as in the JAX package
+                # (:353-362): a conditional call runs the Hutchinson field.
                 dz, tr_est, n_rate = hutch(args["ps"], state.z, args["ys"], args["eps"])
                 return pack(dz, tr_est, safe_norm(dz) if norm_z else None, n_rate)
             return pack(*fused_tanh_mlp_dynamics(args["ps"], state.z, args["eps"][0]))

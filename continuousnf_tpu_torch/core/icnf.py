@@ -4,8 +4,10 @@ Port of `continuousnf_tpu/core/icnf.py`: the variant tags (:28-60), `Regs`,
 `ICNF` (with `draw_eps`, :192-198), `construct`, `init_params`, the steered
 `_steer_tspan` (:336-348), `_as_batch`, `_check_cond`, `_prepare_inference`
 (:434-526, TEST and TRAIN, with the logit bijector), `_solve`, `_final_regs`,
-`inference`, `generate` (TEST), `loss` and `loss_and_metrics` (:643-704),
-conditional models included (the Cond* variants: the net reads [z | ys]).
+`inference` with its trajectories (`_solve_saveat`, :388-412, 569-588),
+`generate` (TEST), `loss`, `loss_and_metrics` (:643-704) and
+`adjoint_stats` (:707-770), conditional models included (the Cond*
+variants: the net reads [z | ys]).
 
 The same public signatures and batch-major layouts as the JAX package:
 `xs` is (B, nvars), params are the net's params tree (JAX layout).  Where
@@ -15,9 +17,11 @@ TRAIN-mode input noise of `x_jitter` (`jitter=`) and of `aug_noise`
 (`aug=`, :466-484), the Hutchinson probes (`eps=`) and the steering draw
 r ~ U(-steer_rate, steer_rate) (`steer_r=`).  Tensors live on the device of
 the params.  Gradients flow through the solve by the BACKSOLVE adjoint
-(`ode/adjoint.py`), to the conditioning `ys` too.  Trajectories, TRAIN-mode
-generation and passive augmentation are not ported yet and raise
-NotImplementedError naming their ROADMAP item.
+(`ode/adjoint.py`), to the conditioning `ys` too, or under
+`SolverOptions(adjoint=Adjoint.DIRECT)` and fixed steps through the
+recorded solver loop (`ode/solve.py`).  TRAIN-mode generation and passive
+augmentation are not ported yet and raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from ..distributions import sample_eps, std_normal_logpdf, std_normal_sample
-from ..ode.solve import odeint_with_stats
+from ..ode.solve import SolveStats, backsolve_stats, odeint_saveat, odeint_with_stats
 from ..types import ComputeMode, Mode, SolverOptions, resolve_device
 from .dynamics import TestState, TrainState, make_augmented_dynamics, safe_norm
 
@@ -268,7 +272,8 @@ def _cond_tensor(icnf: ICNF, ys, device, batch_of_one: bool):
     return ys[None, :] if batch_of_one and ys.ndim == 1 else ys
 
 
-def _solve(icnf: ICNF, mode: Mode, state0, args, t0, t1):
+def _field_and_full_solve(icnf: ICNF, mode: Mode, batch: int):
+    """The augmented field and the fused solve (or None) of a solve of `batch` samples."""
     f = make_augmented_dynamics(
         icnf.nn,
         mode,
@@ -279,8 +284,58 @@ def _solve(icnf: ICNF, mode: Mode, state0, args, t0, t1):
     )
     from ..ops.fused_solve import make_full_solve
 
-    full_solve = make_full_solve(icnf, mode, batch=state0.z.shape[0])
+    return f, make_full_solve(icnf, mode, batch=batch)
+
+
+def _solve(icnf: ICNF, mode: Mode, state0, args, t0, t1):
+    f, full_solve = _field_and_full_solve(icnf, mode, state0.z.shape[0])
     return odeint_with_stats(f, state0, t0, t1, args, icnf.solver, full_solve=full_solve)
+
+
+def _saveat_grid(icnf: ICNF, t0, t1):
+    """The trajectory's time grid: t0, then the points of `solver.saveat`
+    strictly inside the span in the direction of integration, then t1;
+    without `saveat`, 17 evenly spaced points from t0 to t1.  The JAX
+    package integrates over `saveat` itself, so a grid without the span's
+    ends stops short (ROADMAP queue 3); where `saveat` holds both ends the
+    two grids agree."""
+    if icnf.solver.saveat is None:
+        return [t0 + (t1 - t0) * (i / 16) for i in range(17)]
+    lo, hi = sorted((float(t0), float(t1)))
+    inner = sorted((float(t) for t in icnf.solver.saveat if lo < float(t) < hi), reverse=float(t1) < float(t0))
+    return [t0] + [torch.tensor(t, dtype=icnf.dtype, device=t0.device) for t in inner] + [t1]
+
+
+def _solve_saveat(icnf: ICNF, mode: Mode, state0, args, t0, t1):
+    """The solve as segments over `_saveat_grid`, each through the fused
+    solve where there is one.  Returns (final state, stats, (ts (T,), zs
+    (T, B, zdim)))."""
+    f, full_solve = _field_and_full_solve(icnf, mode, state0.z.shape[0])
+    grid = _saveat_grid(icnf, t0, t1)
+    states, stats = odeint_saveat(f, state0, grid, args, icnf.solver, full_solve=full_solve)
+    stateT = type(states)(*(x[-1] for x in states))
+    return stateT, stats, (torch.stack(grid), states.z)
+
+
+def _logpx(icnf: ICNF, stateT, ldj):
+    """logp(x) = logp_base(z(t1)) - Delta_logp (+ the bijector's log-det)."""
+    logpx = icnf.base_logpdf(stateT.z) - stateT.dlogp
+    return logpx if ldj is None else logpx + ldj
+
+
+def _per_sample_loss(icnf: ICNF, mode: Mode, logpx, regs: Regs):
+    """TRAIN: -logpx + lam1 E + lam2 N + lam3 A; TEST: -logpx."""
+    if mode == Mode.TRAIN:
+        return -logpx + icnf.lam1 * regs.e + icnf.lam2 * regs.n + icnf.lam3 * regs.a
+    return -logpx
+
+
+def _weighted_mean(x, weights):
+    """The mean of x (B,), or its `weights`-weighted mean."""
+    if weights is None:
+        return torch.mean(x)
+    weights = torch.as_tensor(weights, dtype=x.dtype, device=x.device)
+    return torch.sum(x * weights) / torch.clamp(torch.sum(weights), min=1e-12)
 
 
 def _final_regs(icnf: ICNF, mode: Mode, stateT) -> Regs:
@@ -423,21 +478,30 @@ def inference(
     `steer_r`.  Under BACKSOLVE the probes are Monte-Carlo constants: their
     gradient is zero.  With `compute_mode.exact_trace` no probes are drawn
     and `eps` is rejected; a `jitter` or `aug` the model does not draw is
-    rejected too.
+    rejected too.  Under `Adjoint.DIRECT` the probes get their gradient.
+
+    `trajectory=True` also returns `(ts, zs)`: the transported states on the
+    grid t0, the points of `solver.saveat` strictly inside the span, t1
+    (without `saveat`, 17 evenly spaced points), ts (T,) and zs
+    (T, B, zdim) with zs[0] the initial and zs[-1] the final state; the
+    solve runs segment by segment over that grid.
     """
-    if trajectory:
-        raise NotImplementedError("trajectory=True is not ported yet (ROADMAP queue 1, item 15)")
     state0, args, t0, t1, ldj, squeeze = _prepare_inference(
         icnf, mode, xs, ps, ys, generator, eps, steer_r, jitter, aug
     )
-    stateT, stats = _solve(icnf, mode, state0, args, t0, t1)
-    logpx = icnf.base_logpdf(stateT.z) - stateT.dlogp
-    if ldj is not None:
-        logpx = logpx + ldj
+    if trajectory:
+        stateT, stats, traj = _solve_saveat(icnf, mode, state0, args, t0, t1)
+    else:
+        stateT, stats = _solve(icnf, mode, state0, args, t0, t1)
+    logpx = _logpx(icnf, stateT, ldj)
     regs = _final_regs(icnf, mode, stateT)
     if squeeze:
         logpx = logpx[0]
         regs = Regs(e=regs.e[0], n=regs.n[0], a=regs.a[0])
+        if trajectory:
+            traj = (traj[0], traj[1][:, 0])
+    if trajectory:
+        return logpx, regs, stats, traj
     return logpx, regs, stats
 
 
@@ -535,22 +599,43 @@ def loss_and_metrics(
     logpx, regs, stats = inference(
         icnf, mode, xs, ps, ys=ys, generator=generator, eps=eps, steer_r=steer_r, jitter=jitter, aug=aug
     )
-    if mode == Mode.TRAIN:
-        per_sample = -logpx + icnf.lam1 * regs.e + icnf.lam2 * regs.n + icnf.lam3 * regs.a
-    else:
-        per_sample = -logpx
-    if weights is None:
-        l = torch.mean(per_sample)
-        e_mean = torch.mean(regs.e)
-        n_mean = torch.mean(regs.n)
-    else:
-        weights = torch.as_tensor(weights, dtype=per_sample.dtype, device=per_sample.device)
-        denom = torch.clamp(torch.sum(weights), min=1e-12)
-        l = torch.sum(per_sample * weights) / denom
-        e_mean = torch.sum(regs.e * weights) / denom
-        n_mean = torch.sum(regs.n * weights) / denom
+    l = _weighted_mean(_per_sample_loss(icnf, mode, logpx, regs), weights)
+    e_mean, n_mean = _weighted_mean(regs.e, weights), _weighted_mean(regs.n, weights)
     metrics = {"loss": l, "e": e_mean.detach(), "n": n_mean.detach(), "nfe": stats.nfe}
     return l, metrics
+
+
+def adjoint_stats(
+    icnf: ICNF,
+    mode: Mode,
+    xs,
+    ps: Any,
+    *,
+    ys=None,
+    generator: Optional[torch.Generator] = None,
+    weights=None,
+    eps=None,
+    steer_r=None,
+    jitter=None,
+    aug=None,
+) -> Tuple[SolveStats, SolveStats]:
+    """The SolveStats of the forward and of the BACKSOLVE backward solve of
+    `loss`'s gradient at these inputs: the backward integration runs again
+    on its own from the same final state and loss cotangent (the same
+    adaptive grid, through the fused adjoint kernel where the gradient
+    would run it), with its stats kept.  The draws are as in `inference`.
+    Returns (fwd_stats, bwd_stats)."""
+    state0, args, t0, t1, ldj, _ = _prepare_inference(
+        icnf, mode, xs, ps, ys, generator, eps, steer_r, jitter, aug
+    )
+    f, full_solve = _field_and_full_solve(icnf, mode, state0.z.shape[0])
+
+    def cotangent_fn(stateT):
+        per = _per_sample_loss(icnf, mode, _logpx(icnf, stateT, ldj), _final_regs(icnf, mode, stateT))
+        return _weighted_mean(per, weights)
+
+    _, fwd_stats, bwd_stats = backsolve_stats(f, state0, t0, t1, args, cotangent_fn, icnf.solver, full_solve)
+    return fwd_stats, bwd_stats
 
 
 __all__ = [
@@ -569,4 +654,5 @@ __all__ = [
     "generate",
     "loss",
     "loss_and_metrics",
+    "adjoint_stats",
 ]

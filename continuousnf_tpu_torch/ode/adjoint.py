@@ -1,6 +1,7 @@
 """Continuous adjoint (backsolve) differentiation of the ODE solve.
 
-Port of `continuousnf_tpu/ode/adjoint.py:37-175`.  The backward pass
+Port of `continuousnf_tpu/ode/adjoint.py:37-192`, `backward_stats_flat`
+included.  The backward pass
 re-integrates the state together with the adjoint ODE
 
     dy/dt = f(t, y, p),   da/dt = -(df/dy)^T a,   dg/dt = -(df/dp)^T a
@@ -101,7 +102,7 @@ class _Backsolve(torch.autograd.Function):
     def backward(ctx, g_y):
         yT, t0, t1, *leaves = ctx.saved_tensors
         need = ctx.needs_input_grad
-        a_y0, dt0, dt1, g_leaves = _backward_integrate(
+        a_y0, dt0, dt1, g_leaves, _ = _backward_integrate(
             ctx.prob, yT, t0, t1, leaves, g_y, need_t0=need[2], need_t1=need[3]
         )
         return (None, a_y0, dt0, dt1, *g_leaves)
@@ -109,8 +110,8 @@ class _Backsolve(torch.autograd.Function):
 
 def _backward_integrate(prob: _Problem, yT, t0, t1, leaves, g_y, need_t0: bool, need_t1: bool):
     """The BACKSOLVE backward integration.  Returns (a_y0, dL/dt0, dL/dt1,
-    the cotangents of `leaves`); the time cotangents are None unless
-    asked for."""
+    the cotangents of `leaves`, its SolveStats); the time cotangents are
+    None unless asked for."""
     from .solve import _solve_forward_flat
 
     args = prob.rebuild(list(leaves))
@@ -121,7 +122,7 @@ def _backward_integrate(prob: _Problem, yT, t0, t1, leaves, g_y, need_t0: bool, 
     fs = prob.full_solve
     if fs is not None and fs.adjoint is not None:
         dt_warm = getattr(prob.stats, "dt_last", None)
-        y0_rec, a_y0, g_args, _ = fs.adjoint(yT, g_y, args, t1, t0, dt_warm=dt_warm)
+        y0_rec, a_y0, g_args, stats = fs.adjoint(yT, g_y, args, t1, t0, dt_warm=dt_warm)
         g_leaves, _ = flatten_tree(g_args)
     else:
         n = yT.numel()
@@ -140,7 +141,7 @@ def _backward_integrate(prob: _Problem, yT, t0, t1, leaves, g_y, need_t0: bool, 
             return torch.cat([f.detach()] + [-g.reshape(-1) for g in grads])
 
         aug0 = torch.cat([yT, g_y] + [torch.zeros(s, dtype=yT.dtype, device=yT.device) for s in sizes])
-        augT, _ = _solve_forward_flat(aug_flat, _forward_opts(prob.opts), aug0, t1, t0, None)
+        augT, stats = _solve_forward_flat(aug_flat, _forward_opts(prob.opts), aug0, t1, t0, None)
         y0_rec, a_y0 = augT[:n], augT[n : 2 * n]
         g_leaves = list(leaves)
         for i, part in zip(diff, torch.split(augT[2 * n :], sizes)):
@@ -149,7 +150,27 @@ def _backward_integrate(prob: _Problem, yT, t0, t1, leaves, g_y, need_t0: bool, 
         g_leaves[prob.eps_leaf] = torch.zeros_like(leaves[prob.eps_leaf])
     # dL/dt0 = -<a(t0), f(y(t0), t0)>
     dt0 = (-torch.sum(a_y0 * f_of(t0, y0_rec))).to(t0.dtype) if need_t0 else None
-    return a_y0, dt0, dt1, g_leaves
+    return a_y0, dt0, dt1, g_leaves, stats
+
+
+def _problem(func_flat, opts: SolverOptions, args, full_solve) -> Tuple[_Problem, List[torch.Tensor]]:
+    leaves, rebuild = flatten_tree(args)
+    eps = args.get("eps") if isinstance(args, dict) else None
+    eps_leaf = next((i for i, x in enumerate(leaves) if x is eps), -1)
+    return _Problem(func_flat, opts, full_solve, rebuild, eps_leaf), leaves
+
+
+def backward_stats_flat(func_flat, opts: SolverOptions, yTf, t0, t1, args, g_yf, full_solve=None, fwd_stats=None):
+    """The SolveStats of the BACKSOLVE backward integration from the final
+    state `yTf` with the cotangent `g_yf`: the integration `_Backsolve`'s
+    backward runs (the fused adjoint member when there is one, warm-started
+    from `fwd_stats.dt_last`, else the plain one), run again with its stats
+    kept, which a backward cannot return.  The same inputs give the same
+    adaptive grid."""
+    prob, leaves = _problem(func_flat, opts, args, full_solve)
+    prob.stats = fwd_stats
+    with torch.no_grad():
+        return _backward_integrate(prob, yTf, t0, t1, leaves, g_yf, need_t0=False, need_t1=False)[4]
 
 
 def odeint_backsolve_flat(func_flat, opts: SolverOptions, y0f, t0, t1, args, full_solve=None):
@@ -158,12 +179,9 @@ def odeint_backsolve_flat(func_flat, opts: SolverOptions, y0f, t0, t1, args, ful
 
     `full_solve`, when given, replaces the forward solve, and its `adjoint`
     member (when not None) the backward integration."""
-    leaves, rebuild = flatten_tree(args)
-    eps = args.get("eps") if isinstance(args, dict) else None
-    eps_leaf = next((i for i, x in enumerate(leaves) if x is eps), -1)
-    prob = _Problem(func_flat, opts, full_solve, rebuild, eps_leaf)
+    prob, leaves = _problem(func_flat, opts, args, full_solve)
     yf = _Backsolve.apply(prob, y0f, t0, t1, *leaves)
     return yf, prob.stats
 
 
-__all__ = ["odeint_backsolve_flat", "flatten_tree"]
+__all__ = ["odeint_backsolve_flat", "backward_stats_flat", "flatten_tree"]

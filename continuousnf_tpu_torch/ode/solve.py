@@ -1,20 +1,27 @@
 """Adaptive and fixed-step explicit RK integration.
 
-Port of `continuousnf_tpu/ode/solve.py:45-265` and `:411-477`.  The state is
-one flat vector (a `TestState` is flattened to `[z.ravel() | dlogp]`, a
-`TrainState` to `[z.ravel() | dlogp | reg_e | reg_n]`, batch-major, the order
-of the JAX package's `ravel_pytree`), and one error norm covers the whole
-flat state: the step control is batch-global.
+Port of `continuousnf_tpu/ode/solve.py`: the tableau steps, the controller
+and the adaptive and fixed-step loops (:45-336), the dispatch of
+`odeint_with_stats` with its tstops segments (:411-477), `backsolve_stats`
+(:480-517), `odeint_saveat` (:520-559) and `odeint` (:562-572).  The state
+is one flat vector (a `TestState` is flattened to `[z.ravel() | dlogp]`, a
+`TrainState` to `[z.ravel() | dlogp | reg_e | reg_n]`, batch-major, the
+order of the JAX package's `ravel_pytree`), and one error norm covers the
+whole flat state: the step control is batch-global.
 
 The loop is eager PyTorch: each attempted step reads its loop condition on
 the host.  The solve-in-kernel path (`full_solve`, `ops/fused_solve.py`)
 replaces it with one kernel launch.  Gradients flow through the BACKSOLVE
-adjoint (`ode/adjoint.py`); the DIRECT, fixed-step and `Adjoint.NONE` solves
-are forward only, and raise when their inputs require grad.
+adjoint (`ode/adjoint.py`) or, under `Adjoint.DIRECT` and for fixed-step
+solves (under every adjoint, as in the JAX package), through the loop
+itself: autograd records each attempted step (discretize-then-optimize).
+`Adjoint.NONE` solves are forward only and raise when their inputs require
+grad.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -130,10 +137,14 @@ def _attempt_step(f, tab: ButcherTableau, state: StepState, t1, tdir, rtol, atol
     dt_use = tdir * torch.minimum(torch.abs(dt), remaining)
 
     y_new, (err, err3), k_last = _rk_step(f, tab, t, dt_use, y, k1)
-    eest = _error_estimate(err, y, y_new, rtol, atol)
+    # The error estimate drives only control flow (accept, the next step
+    # size) and carries no gradient, as in the JAX package: through a
+    # recorded (DIRECT) step it would reach the cotangents through
+    # sqrt(mean(err^2)), whose derivative is infinite where err is 0.
+    eest = _error_estimate(err, y, y_new, rtol, atol).detach()
     if err3 is not None:
         # Hairer's stretched 8(5,3) estimate (dop853.f).
-        e3 = _error_estimate(err3, y, y_new, rtol, atol)
+        e3 = _error_estimate(err3, y, y_new, rtol, atol).detach()
         denom = torch.sqrt(torch.square(eest) + 0.01 * torch.square(e3))
         eest = torch.where(denom > 0.0, torch.square(eest) / torch.clamp(denom, min=1e-30), eest)
     finite = torch.isfinite(eest) & torch.all(torch.isfinite(y_new))
@@ -170,8 +181,12 @@ def _attempt_step(f, tab: ButcherTableau, state: StepState, t1, tdir, rtol, atol
 
 
 def _solve_adaptive_while(f, tab: ButcherTableau, y0, t0, t1, rtol, atol, max_steps, dt0):
-    """Forward adaptive solve.  `dt0` is None (Hairer pick) or a step size
-    (number or 0-d tensor); its sign is taken from the direction t0 -> t1."""
+    """Adaptive solve of at most `max_steps` attempted steps.  `dt0` is None
+    (Hairer pick) or a step size (number or 0-d tensor); its sign is taken
+    from the direction t0 -> t1.  With grad enabled autograd records every
+    attempted step, the Hairer pick and each `dt_use` included: the DIRECT
+    path (the JAX package's `_solve_adaptive_scan`, :268-313, which masks
+    the steps after t1 where this loop stops, to the same values)."""
     tdir = torch.sign(t1 - t0)
     span = torch.abs(t1 - t0)
 
@@ -206,7 +221,8 @@ def _solve_adaptive_while(f, tab: ButcherTableau, y0, t0, t1, rtol, atol, max_st
 
 
 def _solve_fixed(f, tab: ButcherTableau, y0, t0, t1, num_steps: int):
-    """Fixed-step integration (`SolverOptions.fixed_num_steps`)."""
+    """Fixed-step integration (`SolverOptions.fixed_num_steps`), recorded by
+    autograd under grad (`_solve_fixed_scan`, :316-336)."""
     dt = (t1 - t0) / num_steps
     t, y = t0, y0
     for i in range(num_steps):
@@ -231,7 +247,7 @@ def _solve_forward_flat(func_flat, opts: SolverOptions, y0f, t0, t1, args):
             "set SolverOptions.fixed_num_steps for fixed-step integration"
         )
     if opts.adjoint == Adjoint.DIRECT:
-        # The forward of the DIRECT path: the same adaptive grid, capped at
+        # The DIRECT path: the same adaptive grid, capped at
         # direct_max_steps attempts; it does not track dt_last.
         yf, stats = _solve_adaptive_while(
             f, tab, y0f, t0, t1, opts.rtol, opts.atol, opts.direct_max_steps, opts.dt0
@@ -259,13 +275,21 @@ def needs_grad(*trees) -> bool:
 
 
 def forbid_grad(*trees) -> None:
-    """Raise when autograd would have to record a graph through a solve that
-    has no backward (DIRECT, fixed-step, Adjoint.NONE)."""
+    """Raise when autograd would have to record a graph through an
+    `Adjoint.NONE` solve, which has no backward (nor in the JAX package)."""
     if needs_grad(*trees):
         raise NotImplementedError(
-            "gradients through the DIRECT, fixed-step and Adjoint.NONE solves are not "
-            "ported (ROADMAP queue 1, item 15); use Adjoint.BACKSOLVE, or run under torch.no_grad()"
+            "an Adjoint.NONE solve is forward only; differentiate with Adjoint.BACKSOLVE or "
+            "Adjoint.DIRECT, or run it under torch.no_grad()"
         )
+
+
+def _sum_stats(a: Optional[SolveStats], b: SolveStats) -> SolveStats:
+    """Stats of two chained solves: the counts summed, the second's dt_last
+    and dt_used."""
+    if a is None:
+        return b
+    return b._replace(steps=a.steps + b.steps, accepted=a.accepted + b.accepted, nfe=a.nfe + b.nfe)
 
 
 def _ravel(y0) -> Tuple[torch.Tensor, Callable]:
@@ -284,6 +308,18 @@ def _ravel(y0) -> Tuple[torch.Tensor, Callable]:
     return torch.cat([leaf.reshape(-1) for leaf in y0]), unravel
 
 
+def _flat_problem(func, y0, t0, t1):
+    """The flat initial state, its inverse map, the end times as tensors of
+    its type and device, and `func` on the flat state."""
+    y0f, unravel = _ravel(y0)
+
+    def func_flat(yf, t, args_):
+        return _ravel(func(t, unravel(yf), args_))[0]
+
+    as_t = lambda t: torch.as_tensor(t, dtype=y0f.dtype, device=y0f.device)  # noqa: E731
+    return y0f, unravel, as_t(t0), as_t(t1), func_flat
+
+
 def odeint_with_stats(
     func: Callable[[torch.Tensor, Any, Any], Any],
     y0: Any,
@@ -296,32 +332,116 @@ def odeint_with_stats(
     """Integrate `dy/dt = func(t, y, args)` from t0 to t1 (t1 < t0 runs
     backward).  Returns the final state and `SolveStats`.
 
-    `full_solve`, when given, replaces the adaptive forward solve on the flat
-    state (`full_solve.forward(y0f, t0, t1, args) -> (yTf, stats)`, the
-    solve-in-kernel path) and, under BACKSOLVE, the backward integration
-    (`full_solve.adjoint`; when it is None the plain backward runs).  The
-    DIRECT and fixed-step paths ignore it, as in the JAX package.
+    Gradients: BACKSOLVE adaptive solves by the continuous adjoint; DIRECT
+    and fixed-step solves (any adjoint) through the recorded loop; NONE
+    solves raise.  `full_solve`, when given, replaces the adaptive forward
+    solve on the flat state (`full_solve.forward(y0f, t0, t1, args) ->
+    (yTf, stats)`, the solve-in-kernel path) under BACKSOLVE and NONE and,
+    under BACKSOLVE, the backward integration (`full_solve.adjoint`; when it
+    is None the plain backward runs).  The DIRECT and fixed-step paths
+    ignore it, as in the JAX package.
+
+    `opts.tstops` (interior times in the direction of integration) chain
+    segment solves at each stop, each with `full_solve`; the stats sum the
+    segments' counts and keep the last segment's dt_last.
     """
     if getattr(opts, "tstops", None):
-        raise NotImplementedError("tstops are not ported yet (ROADMAP queue 1, item 15)")
-    y0f, unravel = _ravel(y0)
-    t0 = torch.as_tensor(t0, dtype=y0f.dtype, device=y0f.device)
-    t1 = torch.as_tensor(t1, dtype=y0f.dtype, device=y0f.device)
-
-    def func_flat(yf, t, args_):
-        return _ravel(func(t, unravel(yf), args_))[0]
-
-    if opts.adjoint == Adjoint.BACKSOLVE and opts.fixed_num_steps is None:
+        seg_opts = dataclasses.replace(opts, tstops=None)
+        grid = [t0, *opts.tstops, t1]
+        y, stats = y0, None
+        for ta, tb in zip(grid[:-1], grid[1:]):
+            y, st = odeint_with_stats(func, y, ta, tb, args, seg_opts, full_solve=full_solve)
+            stats = _sum_stats(stats, st)
+        return y, stats
+    y0f, unravel, t0, t1, func_flat = _flat_problem(func, y0, t0, t1)
+    if opts.fixed_num_steps is None and opts.adjoint == Adjoint.BACKSOLVE:
         from .adjoint import odeint_backsolve_flat
 
         yf, stats = odeint_backsolve_flat(func_flat, opts, y0f, t0, t1, args, full_solve)
         return unravel(yf), stats
-    forbid_grad(y0f, args)
-    if full_solve is not None and opts.fixed_num_steps is None and opts.adjoint != Adjoint.DIRECT:
-        yf, stats = full_solve.forward(y0f, t0, t1, args)
-    else:
-        yf, stats = _solve_forward_flat(func_flat, opts, y0f, t0, t1, args)
+    if opts.fixed_num_steps is None and opts.adjoint == Adjoint.NONE:
+        forbid_grad(y0f, args)
+        if full_solve is not None:
+            yf, stats = full_solve.forward(y0f, t0, t1, args)
+            return unravel(yf), stats
+    yf, stats = _solve_forward_flat(func_flat, opts, y0f, t0, t1, args)
     return unravel(yf), stats
 
 
-__all__ = ["odeint_with_stats", "SolveStats", "forbid_grad", "needs_grad"]
+def backsolve_stats(
+    func: Callable[[torch.Tensor, Any, Any], Any],
+    y0: Any,
+    t0,
+    t1,
+    args: Any,
+    cotangent_fn: Callable[[Any], torch.Tensor],
+    opts: SolverOptions = SolverOptions(),
+    full_solve=None,
+):
+    """The forward solve and the statistics of the BACKSOLVE backward
+    integration for the gradient of `cotangent_fn(yT_state)` (a scalar):
+    the forward as the BACKSOLVE path runs it (`full_solve.forward` when
+    given), the cotangent of the final state from `cotangent_fn`, and the
+    same backward integration `_Backsolve` runs (`full_solve.adjoint` when
+    there is one, warm-started from the forward's dt_last), with its stats
+    kept.  Returns (yT_state, fwd_stats, bwd_stats)."""
+    from .adjoint import _forward_opts, backward_stats_flat
+
+    y0f, unravel, t0, t1, func_flat = _flat_problem(func, y0, t0, t1)
+    with torch.no_grad():
+        if full_solve is not None:
+            yTf, fwd_stats = full_solve.forward(y0f, t0, t1, args)
+        else:
+            yTf, fwd_stats = _solve_forward_flat(func_flat, _forward_opts(opts), y0f, t0, t1, args)
+    with torch.enable_grad():
+        yv = yTf.detach().requires_grad_()
+        (g_yf,) = torch.autograd.grad(cotangent_fn(unravel(yv)), [yv])
+    bwd_stats = backward_stats_flat(func_flat, opts, yTf, t0, t1, args, g_yf, full_solve, fwd_stats)
+    return unravel(yTf), fwd_stats, bwd_stats
+
+
+def odeint_saveat(
+    func: Callable[[torch.Tensor, Any, Any], Any],
+    y0: Any,
+    t_grid,
+    args: Any = None,
+    opts: SolverOptions = SolverOptions(),
+    full_solve=None,
+):
+    """Integrate over the time grid `t_grid` (T + 1 points, both endpoints
+    included) by chained segment solves, each with `full_solve` and a fresh
+    step controller.  Returns (states, stats): each leaf of `states` gains a
+    leading time axis of length T + 1 (states[0] is y0), and `stats` sums
+    the segments' counts (dt_last: the last segment's)."""
+    states, stats, y = [y0], None, y0
+    for ta, tb in zip(t_grid[:-1], t_grid[1:]):
+        y, st = odeint_with_stats(func, y, ta, tb, args, opts, full_solve=full_solve)
+        states.append(y)
+        stats = _sum_stats(stats, st)
+    if isinstance(y0, torch.Tensor):
+        return torch.stack(states), stats
+    stacked = [torch.stack(leaves) for leaves in zip(*states)]
+    return (type(y0)(*stacked) if hasattr(y0, "_fields") else type(y0)(stacked)), stats
+
+
+def odeint(
+    func: Callable[[torch.Tensor, Any, Any], Any],
+    y0: Any,
+    t0,
+    t1,
+    args: Any = None,
+    opts: SolverOptions = SolverOptions(),
+):
+    """`odeint_with_stats` without the stats: the final state."""
+    return odeint_with_stats(func, y0, t0, t1, args, opts)[0]
+
+
+__all__ = [
+    "odeint",
+    "odeint_with_stats",
+    "odeint_saveat",
+    "backsolve_stats",
+    "SolveStats",
+    "forbid_grad",
+    "needs_grad",
+]

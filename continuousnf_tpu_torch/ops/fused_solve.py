@@ -87,7 +87,8 @@ import torch
 from ..core.dynamics import safe_norm, safe_sqrt
 from ..ode.solve import SolveStats, _initial_step_size, _solve_adaptive_while, needs_grad
 from ..ode.tableaus import TSIT5, ButcherTableau, get_tableau  # noqa: F401 (TSIT5: re-exported)
-from ..types import ADMode, Mode
+from ..types import ADMode, Adjoint, Mode
+from .fused_dynamics import K10_KERNEL, run_fused_field_kernel
 
 K3_KERNEL = "k3_test_solve"
 K1_KERNEL = "k1_train_solve"
@@ -1809,8 +1810,9 @@ def run_wide_adjoint_kernel(
 run_wide_adjoint_kernel.launches = 0
 
 
-#: Every kernel's wrapper by kernel name; each wrapper's `.launches` counts
-#: its own kernel's launches.
+#: Every kernel's wrapper by kernel name (K10's, the per-stage field, from
+#: `ops/fused_dynamics.py`); each wrapper's `.launches` counts its own
+#: kernel's launches.
 KERNEL_WRAPPERS = {
     K3_KERNEL: run_solve_kernel,
     K1_KERNEL: run_train_solve_kernel,
@@ -1826,6 +1828,7 @@ KERNEL_WRAPPERS = {
     K2W_KERNEL: run_wide_adjoint_kernel,
     K7W_KERNEL + "/test": run_wide_test_solve_kernel,
     K7W_KERNEL + "/exact": run_wide_exact_solve_kernel,
+    K10_KERNEL: run_fused_field_kernel,
 }
 
 
@@ -1860,7 +1863,12 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     Eligibility follows the JAX package: opted in via `compute_mode.fused`;
     a Dense chain with tanh-or-identity activations, conditional or not; no
     passive augmentation; an adaptive explicit method with an embedded error
-    estimate (every such tableau runs in the kernels); float32.  Within
+    estimate (every such tableau runs in the kernels); float32.  Fixed-step
+    and DIRECT solves get None: they are differentiated through the plain
+    loop, whose TRAIN stages run K10 (the JAX package builds a fused solve
+    there too and ignores it; the port builds none, so a configuration the
+    kernels do not cover does not raise on a path that would not use
+    them).  Within
     those, what this port has not reached raises NotImplementedError: bf16
     stages, and on the card K > 1 or JVP probes (K6) in the wide chain
     forms.  The flat layout
@@ -1901,7 +1909,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         return None
     if icnf.aug_passive and icnf.n_aug_input:
         return None
-    if opts.fixed_num_steps is not None or opts.method == "trbdf2":
+    if opts.fixed_num_steps is not None or opts.method == "trbdf2" or opts.adjoint == Adjoint.DIRECT:
         return None
     tab = get_tableau(opts.method, opts.rtol)
     if tab.btilde is None:

@@ -178,7 +178,10 @@ def fit(
             perm = torch.randperm(n, generator=perm_gen)
             w = torch.ones(n + pad, dtype=icnf.dtype)
             if pad:
-                perm = torch.cat([perm, perm[:pad]])
+                # Zero-weight repeats of the permutation; more than n of them
+                # when batch_size exceeds 2n (the JAX package's perm[:pad]
+                # then comes up short and its reshape fails).
+                perm = torch.cat([perm, perm.repeat(-(-pad // n))[:pad]])
                 w[n:] = 0.0
             perm = perm.to(device)
             xb = xs[perm].reshape(n_batches, batch_size, -1)

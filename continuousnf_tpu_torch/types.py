@@ -91,9 +91,10 @@ DIJacVecVectorMode = JacVecMode
 class Adjoint(enum.Enum):
     """How gradients flow through the ODE solve.
 
-    BACKSOLVE differentiates by the continuous adjoint (`ode/adjoint.py`).
-    NONE runs the forward solve only, and DIRECT its forward under the
-    `direct_max_steps` cap; neither is differentiable in the port yet.
+    BACKSOLVE differentiates by the continuous adjoint (`ode/adjoint.py`),
+    DIRECT through the recorded solver loop (at most `direct_max_steps`
+    attempted steps), and NONE runs the forward solve only.  Fixed-step
+    solves are differentiated through their loop under every adjoint.
     """
 
     BACKSOLVE = "backsolve"

@@ -70,6 +70,18 @@ def cond_gaussian_data(rng: np.random.Generator, n: int):
     return xs.astype(np.float32), ys.astype(np.float32)
 
 
+def two_moons(rng: np.random.Generator, n: int, noise: float = 0.05) -> np.ndarray:
+    """n points of the two-moons toy of the JAX package's `data.two_moons`
+    (`continuousnf_tpu/data.py:22-32`), the data of the trajectory example,
+    drawn with numpy: half on each arc, plus N(0, noise^2) noise."""
+    n1 = n // 2
+    t1 = rng.uniform(size=n1) * math.pi
+    t2 = rng.uniform(size=n - n1) * math.pi
+    upper = np.stack([np.cos(t1), np.sin(t1)], -1)
+    lower = np.stack([1.0 - np.cos(t2), 0.5 - np.sin(t2)], -1)
+    return (np.concatenate([upper, lower]) + noise * rng.normal(size=(n, 2))).astype(np.float32)
+
+
 def model_data(name: str, rng: np.random.Generator, n: int):
     """n data points of the configuration `name` (numpy float32): xs, or
     (xs, ys) for a conditional configuration."""

@@ -15,7 +15,9 @@ those four on miniboone43 (MLP 43 -> 128 -> 128 -> 43, B = 2048, tspan
 one tableau (rtol 1e-3 / atol 1e-6; the README tolerances for verner65).
 Where the package has K5 (the TEST adjoint), it is timed on the flagship
 from K3's output, with a loss-like cotangent and K3's last step as the warm
-start (the "k5" key), as `chip_smoke.py` phase 47 holds it.
+start (the "k5" key), as `chip_smoke.py` phase 47 holds it; where it
+has K10 (the per-stage TRAIN field), one launch on the flagship's z0 and
+probe (the "k10" key, [ms, 0]: a call's time, which its launch dominates).
 With `--probes K` (K Gaussian probes) or `--jvp` (forward-mode probes) it
 times only the Hutchinson kernels, K1 and K2 and their chain forms, through
 their probe instances (K6; the "/K<K>" or "/jvp-K<K>" keys); the wide forms
@@ -62,8 +64,9 @@ def main() -> int:
     print(f"card: {smi}; package {cnf.__file__}", flush=True)
     models = args.models.split(",")
     has_k5 = hasattr(fs, "run_test_adjoint_kernel")
+    has_k10 = hasattr(fs, "K10_KERNEL")
     kernels = {"flagship": [fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL]
-               + ([fs.K5_KERNEL] if has_k5 else []),
+               + ([fs.K5_KERNEL] if has_k5 else []) + ([fs.K10_KERNEL] if has_k10 else []),
                "power6": [fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL],
                "cond_gaussian": [fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL]}
     if probes:
@@ -134,6 +137,12 @@ def main() -> int:
                     k5 = fs.run_test_adjoint_kernel(tab, spec, **kw5)
                     ms5 = cuda_ms(lambda: fs.run_test_adjoint_kernel(tab, spec, **kw5), max(2, args.reps // 2))
                 out["k5"] = [ms5, int(k5[5])]
+            if has_k10:
+                from continuousnf_tpu_torch.ops.fused_dynamics import run_fused_field_kernel as k10
+
+                k10_args = (ps[0]["w"], ps[0]["b"], ps[1]["w"], ps[1]["b"], z0, eps[0])
+                with torch.no_grad():
+                    out["k10"] = [cuda_ms(lambda: k10(*k10_args), 20 * args.reps), 0]
             time_pair(("k1", "k2"), spec, fs.run_train_solve_kernel, fs.run_adjoint_kernel, dict(train, eps=eps),
                       dict(adj, eps=eps))
             time_pair(("k4", "k4a"), spec, fs.run_exact_solve_kernel, fs.run_exact_adjoint_kernel, train, adj)

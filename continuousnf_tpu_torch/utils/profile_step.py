@@ -1,7 +1,7 @@
 """Where the time goes in a training step and a `logpdf` call on the card.
 
     python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43] [--steps 10]
-        [--probes K] [--jvp] [--test-grad]
+        [--probes K] [--jvp] [--test-grad] [--direct | --fixed N]
 
 Builds the model (`--model power6`: the tabular power6 model, RNODE,
 MLP 6 -> 64 -> 64 -> 6; `--model flagship`: RNODE, MLP 16 -> 48 -> 16;
@@ -27,7 +27,11 @@ too):
 With `--test-grad` it measures one more path, the TEST loss (the
 exact-trace maximum likelihood) and its gradient in the params
 (`test_grad`): on a 2-layer net the forward runs K3 and the backward K5, on
-deeper chains K7 TEST and the plain backward.
+deeper chains K7 TEST and the plain backward.  `--direct` runs the train
+steps under `SolverOptions(adjoint=Adjoint.DIRECT)` and `--fixed N` under N
+rk4 steps: the whole-solve kernels do not take them, so a 2-layer net's
+Hutchinson step evaluates its field stage by stage in K10 and
+differentiates the recorded solve (`logpdf` keeps the default solver).
 Needs a CUDA card; prints one line per figure, then one JSON object.
 """
 
@@ -66,7 +70,7 @@ def _busy(fn, reps: int, top: int = 6):
 
 
 def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp: bool = False,
-                  test_grad: bool = False) -> dict:
+                  test_grad: bool = False, direct: bool = False, fixed: int = 0) -> dict:
     import continuousnf_tpu_torch as cnf
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -80,16 +84,24 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
     xs = torch.from_numpy(xs_np).to(dev)
     ys = None if ys_np is None else torch.from_numpy(ys_np).to(dev)
 
-    def model(exact: bool):
-        return make_icnf(name, dev, exact=exact, num_probes=num_probes, ad="jvp" if jvp else "vjp")
+    if direct:
+        solver = cnf.SolverOptions(adjoint=cnf.Adjoint.DIRECT)
+    elif fixed:
+        solver = cnf.SolverOptions(method="rk4", fixed_num_steps=fixed)
+    else:
+        solver = cnf.SolverOptions()
 
-    out = {"model": name, "device": torch.cuda.get_device_name(0), "probes": num_probes, "jvp": jvp}
+    def model(exact: bool, solver=cnf.SolverOptions()):
+        return make_icnf(name, dev, exact=exact, num_probes=num_probes, ad="jvp" if jvp else "vjp", solver=solver)
+
+    out = {"model": name, "device": torch.cuda.get_device_name(0), "probes": num_probes, "jvp": jvp,
+           "direct": direct, "fixed": fixed}
     gen = torch.Generator(device=dev).manual_seed(seed)
     paths = [("train_step", False, B), ("exact_train_step", True, B)]
     if "batch_size" in cfg:
         paths.append((f"train_step_b{cfg['batch_size']}", False, cfg["batch_size"]))
     for label, exact, b in paths:
-        icnf = model(exact)
+        icnf = model(exact, solver)
         ps = cnf.params_from_numpy(ps_np, dev)
         leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
         step = cnf.parallel.make_train_step_body(icnf, cnf.Lion(leaves, lr=1e-3))
@@ -128,10 +140,14 @@ def main(argv=None) -> int:
     ap.add_argument("--probes", type=int, default=1, help="Hutchinson probes K of the train steps")
     ap.add_argument("--jvp", action="store_true", help="forward-mode (JVP) probes")
     ap.add_argument("--test-grad", action="store_true", help="also the TEST loss and its gradient")
+    solve = ap.add_mutually_exclusive_group()
+    solve.add_argument("--direct", action="store_true", help="train steps under the DIRECT adjoint")
+    solve.add_argument("--fixed", type=int, default=0, metavar="N", help="train steps under N rk4 steps")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
-    res = profile_model(a.model, a.steps, num_probes=a.probes, jvp=a.jvp, test_grad=a.test_grad)
+    res = profile_model(a.model, a.steps, num_probes=a.probes, jvp=a.jvp, test_grad=a.test_grad, direct=a.direct,
+                        fixed=a.fixed)
     for label, r in res.items():
         if not isinstance(r, dict):
             continue

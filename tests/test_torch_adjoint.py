@@ -233,12 +233,37 @@ def test_test_mode_gradients_on_cpu_match_jax(problem, fused):
 
 
 def test_direct_adjoint_gradients_raise(problem):
-    ps_np, xs, _ = problem
-    icnf = _model(tcnf, solver=tcnf.SolverOptions(adjoint=tcnf.Adjoint.DIRECT))
+    """DIRECT gradients (the recorded solve, K10's field where fused) of the
+    steered TRAIN loss in the params and the probes against `jax.grad` of
+    the JAX package's DIRECT loss with the same draws: equal NFE, the loss
+    within 1e-4 and the gradients within GRAD_TOL; the probe gradient is
+    nonzero (BACKSOLVE's is zero)."""
+    ps_np, xs, key = problem
+    for fused in (False, True):
+        _hold_direct_gradients(ps_np, xs, key, fused)
+
+
+def _hold_direct_gradients(ps_np, xs, key, fused):
+    opts = dict(adjoint="direct", direct_max_steps=64)
+    jicnf = _model(cnf, fused, solver=cnf.SolverOptions(**dict(opts, adjoint=cnf.Adjoint.DIRECT)))
+    eps, r = _jax_draws(jicnf, key, B)
+
+    def jl(p, e):
+        return cnf.loss_and_metrics(jicnf, cnf.Mode.TRAIN, jnp.asarray(xs), p, key=key, eps=e)
+
+    (l_r, m_r), g_r = jax.value_and_grad(jl, argnums=(0, 1), has_aux=True)(
+        jax.tree.map(jnp.asarray, ps_np), jnp.asarray(eps))
+    icnf = _model(tcnf, fused, solver=tcnf.SolverOptions(**dict(opts, adjoint=tcnf.Adjoint.DIRECT)))
     ps = tcnf.params_from_numpy(ps_np)
-    [x.requires_grad_() for x in _leaves(ps)]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, generator=torch.Generator().manual_seed(0))
+    leaves = [x.requires_grad_() for x in _leaves(ps)]
+    e = torch.from_numpy(eps).requires_grad_()
+    l, m = tcnf.loss_and_metrics(icnf, tcnf.Mode.TRAIN, xs, ps, eps=e, steer_r=r)
+    g = torch.autograd.grad(l, leaves + [e])
+    assert int(m["nfe"]) == int(m_r["nfe"])
+    np.testing.assert_allclose(float(l.detach()), float(l_r), **TOL)
+    for a, b in zip(g, _leaves(g_r[0]) + [g_r[1]]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+    assert float(g[-1].abs().max()) > 1e-3
 
 
 def test_lion_matches_optax():

@@ -354,10 +354,79 @@ def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
         assert _launches() == before
         return
     assert kernel == "K10-per-stage-field"
-    icnf = _small(solver=tcnf.SolverOptions(adjoint=tcnf.Adjoint.DIRECT))
-    with pytest.raises(NotImplementedError, match=name), torch.no_grad():
-        tcnf.inference(icnf, tcnf.Mode.TRAIN, xs, tcnf.params_from_numpy(ps_np, dev),
-                       generator=torch.Generator(dev).manual_seed(0))
+    # K10 against its plain version on the card, float32 and float64, at a
+    # small net, the flagship and an odd batch; then the nets whose weights
+    # overflow a block's shared memory raise naming the shape variants, and
+    # nothing launches.
+    from continuousnf_tpu_torch.ops import fused_dynamics as tfd
+
+    for dims, B in (((5, 15, 5), 37), ((16, 48, 16), 4096), ((16, 48, 16), 4097), ((43, 128, 43), 300)):
+        for dtype, rel in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            xs10 = _k10_inputs(dims, B, dev, dtype)
+            before = tfd.run_fused_field_kernel.launches
+            got = tfd.run_fused_field_kernel(*xs10)
+            ref = tfd.fused_field_plain(*xs10)
+            torch.cuda.synchronize()
+            assert tfd.run_fused_field_kernel.launches == before + 1
+            for a, b in zip(got, ref):
+                assert a.dtype == dtype and a.shape == b.shape and torch.isfinite(a).all()
+                assert float((a - b).abs().max()) <= rel * max(1.0, float(b.abs().max()))
+    before = tfd.run_fused_field_kernel.launches
+    with pytest.raises(NotImplementedError, match="K10 shape variants"):
+        tfd.run_fused_field_kernel(*_k10_inputs((64, 512, 64), 8, dev, torch.float32))
+    with pytest.raises(NotImplementedError, match="K10 shape variants"):
+        tfd.run_fused_field_kernel(*_k10_inputs((32, 512, 32), 8, dev, torch.float64))
+    assert tfd.run_fused_field_kernel.launches == before
+
+
+def _k10_inputs(dims, B, dev, dtype):
+    ps = _np_params(dims, 11)
+    rng = np.random.default_rng(12)
+    T = lambda a: torch.from_numpy(np.asarray(a)).to(dev, dtype)  # noqa: E731
+    return [T(ps[0]["w"]), T(ps[0]["b"]), T(ps[1]["w"]), T(ps[1]["b"]), T(rng.normal(size=(B, dims[0]))),
+            T(rng.normal(size=(B, dims[0])))]
+
+
+@pytest.mark.parametrize("solver", ["direct", "fixed-rk4", "backsolve-f64"])
+def test_k10_paths_on_the_card_match_the_cpu(dev, solver):
+    """The K10 field's paths on the card against the same calls on the CPU
+    (K10's plain version): the DIRECT and fixed-step TRAIN loss gradients
+    (eps included) and the float64 BACKSOLVE gradient, whose forward and
+    backward solves evaluate the field stage by stage; K10 launched and no
+    solve kernel."""
+    dims = (5, 15, 5)
+    opts = {"direct": tcnf.SolverOptions(adjoint=tcnf.Adjoint.DIRECT, direct_max_steps=64),
+            "fixed-rk4": tcnf.SolverOptions(method="rk4", fixed_num_steps=8),
+            "backsolve-f64": tcnf.SolverOptions()}[solver]
+    dtype = torch.float64 if solver == "backsolve-f64" else torch.float32
+    ps_np = _np_params(dims, 13)
+    rng = np.random.default_rng(14)
+    xs_np, eps_np = rng.uniform(size=(64, 3)), rng.normal(size=(1, 64, 5))
+
+    def run(device):
+        icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(dims, device=device, dtype=dtype), 3, 2, tspan=(0.0, 1.0),
+                              steer_rate=0.1, lam3=1e-2, compute_mode=tcnf.VecJacMode(fused=True), solver=opts,
+                              dtype=dtype)
+        ps = tuple({k: v.to(dtype).requires_grad_() for k, v in p.items()}
+                   for p in tcnf.params_from_numpy(ps_np, device))
+        leaves = [x for p in ps for x in p.values()]
+        eps = torch.from_numpy(eps_np).to(device, dtype).requires_grad_()
+        l, m = tcnf.loss_and_metrics(icnf, tcnf.Mode.TRAIN, torch.from_numpy(xs_np).to(device, dtype), ps,
+                                     eps=eps, steer_r=0.05)
+        grads = torch.autograd.grad(l, leaves + [eps], allow_unused=True)
+        return float(l.detach()), [g.cpu() for g in grads if g is not None], int(m["nfe"])
+
+    before = _launches()
+    l_k, g_k, nfe_k = run(dev)
+    torch.cuda.synchronize()
+    after = _launches()
+    moved = {k for k in after if after[k] != before[k]}
+    assert moved == {"k10_fused_field"} and after["k10_fused_field"] - before["k10_fused_field"] >= nfe_k
+    l_c, g_c, nfe_c = run(torch.device("cpu"))
+    assert nfe_k == nfe_c and abs(l_k - l_c) <= 1e-5 * max(1.0, abs(l_c))
+    rel = 1e-10 if dtype == torch.float64 else 1e-4
+    for a, b in zip(g_k, g_c):
+        assert float((a - b).abs().max()) <= rel * max(1.0, float(b.abs().max()))
 
 
 # K6: name -> (dims, B, probes K, JVP?, the chain forms?, span); a dims[0]

@@ -175,8 +175,9 @@ def test_out_of_slice_calls_raise():
         tcnf.inference(passive, tcnf.Mode.TRAIN, xs, ps)
     with pytest.raises(NotImplementedError, match="item 12"):
         tcnf.generate(icnf, tcnf.Mode.TRAIN, ps, 4)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tcnf.inference(icnf, tcnf.Mode.TEST, xs, ps, trajectory=True)
+    lp, _, _, (ts, zs) = tcnf.inference(icnf, tcnf.Mode.TEST, xs, ps, trajectory=True)
+    assert tuple(ts.shape) == (17,) and tuple(zs.shape) == (17, 4, 5) and torch.isfinite(lp).all()
+    assert torch.equal(zs[0], torch.cat([torch.from_numpy(xs), torch.zeros((4, 2))], dim=1))
     cond = tcnf.construct(tcnf.CondRNODE, tcnf.MLP((7, 15, 5)), 3, 2)
     with pytest.raises(ValueError, match="requires ys"):
         tcnf.inference(cond, tcnf.Mode.TEST, xs, ps)

@@ -171,26 +171,38 @@ def test_nonzero_initial_dlogp_is_carried(fused):
 
 
 def test_tstops_not_ported():
+    """Forced stops chain segment solves: the port's plain solve and its
+    fused one (the K3 twin per segment, each seeded with the incoming dlogp)
+    against the JAX package's unfused solve (its kernel restarts dlogp at
+    zero each segment): equal summed steps and NFE, the last segment's
+    dt_last, values within 1e-4."""
     dims = (5, 15, 5)
-    ps_np, z0, dlogp0 = _problem(dims, 4)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _run_torch(dims, ps_np, z0, dlogp0, 0.0, 1.0, tcnf.SolverOptions(tstops=(0.5,)))
+    ps_np, z0, dlogp0 = _problem(dims, 16, seed=5, dlogp_scale=1.0)
+    ref = _run_jax(dims, ps_np, z0, dlogp0, 0.0, 1.0, cnf.SolverOptions(tstops=(0.3, 0.6)))
+    for fused in (False, True):
+        got = _run_torch(dims, ps_np, z0, dlogp0, 0.0, 1.0, tcnf.SolverOptions(tstops=(0.3, 0.6)), fused=fused)
+        _assert_match(ref, got)
+    one = _run_torch(dims, ps_np, z0, dlogp0, 0.0, 1.0, tcnf.SolverOptions())
+    assert int(got[2].steps) > int(one[2].steps)
 
 
 def test_gradients_raise_instead_of_recording_a_graph():
-    """The DIRECT and fixed-step solves have no backward in the port: they
-    raise when their inputs require grad.  BACKSOLVE records its adjoint."""
+    """An Adjoint.NONE solve has no backward: it raises when its inputs
+    require grad (and runs under no_grad).  The DIRECT and fixed-step solves
+    record a graph, as BACKSOLVE records its adjoint."""
     dims = (5, 15, 5)
     ps_np, z0, dlogp0 = _problem(dims, 4)
     nn = tcnf.MLP(dims)
     f = tdyn(nn, tcnf.Mode.TEST, tcnf.VecJacMode(), False, False)
     ps = tuple({k: v.requires_grad_() for k, v in p.items()} for p in tcnf.params_from_numpy(ps_np))
     y0 = TState(torch.from_numpy(z0), torch.from_numpy(dlogp0))
-    for opts in (tcnf.SolverOptions(adjoint=tcnf.Adjoint.DIRECT), tcnf.SolverOptions(fixed_num_steps=4)):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            todeint(f, y0, 0.0, 1.0, {"ps": ps}, opts)
-        with torch.no_grad():
-            yT, _ = todeint(f, y0, 0.0, 1.0, {"ps": ps}, opts)
-        assert not yT.z.requires_grad
-    yT, _ = todeint(f, y0, 0.0, 1.0, {"ps": ps})
-    assert yT.z.requires_grad
+    none = tcnf.SolverOptions(adjoint=tcnf.Adjoint.NONE)
+    with pytest.raises(NotImplementedError, match="Adjoint.NONE"):
+        todeint(f, y0, 0.0, 1.0, {"ps": ps}, none)
+    with torch.no_grad():
+        yT, _ = todeint(f, y0, 0.0, 1.0, {"ps": ps}, none)
+    assert not yT.z.requires_grad
+    for opts in (tcnf.SolverOptions(adjoint=tcnf.Adjoint.DIRECT), tcnf.SolverOptions(fixed_num_steps=4),
+                 tcnf.SolverOptions()):
+        yT, _ = todeint(f, y0, 0.0, 1.0, {"ps": ps}, opts)
+        assert yT.z.requires_grad and yT.dlogp.requires_grad
