@@ -54,7 +54,9 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     power6 with K VJP probes (`VecJacMode(num_probes=K)`) or K JVP probes
     (`JacVecMode(num_probes=K)`), the loss and its gradient through the
     probe instances of K1 and K2 (the flagship) and of the K1 and K2 chain
-    forms (power6), and `fit` at K = 4;
+    forms (power6), and `fit` at K = 4; the same at the MINIBOONE width
+    (B = 2048) through the probe instances of the wide K1 and K2 chain
+    forms (K6 in the wide forms, BASELINE config #5's probe axis);
   * TEST-mode gradients of 2-layer nets through K5, the TEST backward
     kernel: the flagship's TEST loss gradient (K3 forward, K5 backward),
     the score (the x-gradient of `ICNFDist.logpdf`) and the params-gradient
@@ -280,7 +282,24 @@ Phases, each failing the run (nonzero exit) on any mismatch:
  55. `sample`'s params-gradient under DIRECT on phase 48's draw (no kernel
      launched: the plain forward is recorded), printed beside phase 48's
      BACKSOLVE gradients and a float64 DIRECT solve at rtol 1e-7, each as
-     its distance to the float64 BACKSOLVE solve.
+     its distance to the float64 BACKSOLVE solve;
+ 56. K6 in the wide forms, the MINIBOONE model at B = 2048: the probe
+     instances' launch shapes (threads, blocks, tile, shared memory; one
+     shape for K = 2, 4 and 8, a run-time argument; registers in phase 2);
+ 57. the wide K1 and K2 chain forms' probe instances at K = 2, 4 and 8 VJP
+     and K = 1 and 2 JVP probes against their twins, held and timed as in
+     phase 42;
+ 58. the MINIBOONE loss and its gradient at K = 4 and under JVP (K = 1)
+     through fused=True, fused=False and a float64 rtol 1e-7 solve, held as
+     in phase 40; and at every probe configuration of phase 57, counters
+     reset just before each, the fused gradient launching the two wide
+     probe instances once each and no other kernel;
+ 59. `fit` at K = 4 for four Lion steps at B = 2048, counters reset just
+     before it: the two wide probe instances each launched at least four
+     times and no other kernel;
+ 60. the wide probe curve: CUDA-event times and microseconds per attempted
+     step of both wide kernels at K = 1 (the one-probe instance), 2, 4
+     and 8 on the same inputs.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -1951,7 +1970,9 @@ def probe_fma(dims, k, n_cond=0):
     2 dz H (1 + k), K2 4 dz H (1 + k) + (k + 1) P; chains (S = sum in_i
     out_i, Sz its z rows): the K1 chain form S + k Sz, the K2 chain form
     2 S + (3 k + 1) Sz + n_cond H1 + sum out_i.  At k = 1 these are
-    two_layer_fma's and chain_fma's."""
+    two_layer_fma's and chain_fma's.  The wide chain forms run the same
+    products as the narrow ones (at 43 -> 128 -> 128 -> 43, S = 27,392: the
+    wide K1 S (1 + k), the wide K2 2 S + (3 k + 1) S + 299)."""
     if len(dims) == 3:
         dz, H = dims[0], dims[1]
         P = 2 * dz * H + H + dz
@@ -1962,10 +1983,28 @@ def probe_fma(dims, k, n_cond=0):
     return {"k1c": S + k * Sz, "k2c": 2 * S + (3 * k + 1) * Sz + n_cond * dims[1] + sum(dims[1:])}
 
 
-def probe_paths(cnf, fs, dev):
-    """Phases 42 to 46: K-probe and JVP Hutchinson training (K6) through the
-    probe instances of K1 and K2 (the flagship) and of their chain forms
-    (power6).  Returns their records."""
+def probe_form(fs, form):
+    """The probe instances of a form ("two-layer", "chain" or "wide"): their
+    wrappers, KERNEL_WRAPPERS names, sources, labels and probe_fma keys."""
+    if form == "wide":
+        return ((fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel), (fs.K1W_KERNEL, fs.K2W_KERNEL),
+                ("k1_wide_solve.cu", "k2_wide_adjoint.cu"), ("the wide K1 chain form", "the wide K2 chain form"),
+                ("k1c", "k2c"))
+    if form == "chain":
+        return ((fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel), (fs.K1C_KERNEL, fs.K2C_KERNEL),
+                ("k1_chain_solve.cu", "k2_chain_adjoint.cu"), ("the K1 chain form", "the K2 chain form"),
+                ("k1c", "k2c"))
+    return ((fs.run_train_solve_kernel, fs.run_adjoint_kernel), (fs.K1_KERNEL, fs.K2_KERNEL),
+            ("k1_train_solve.cu", "k2_train_adjoint.cu"), ("K1", "K2"), ("k1", "k2"))
+
+
+def probe_model(cnf, fs, dev, name, form, rng, B, fit, phases):
+    """K-probe and JVP Hutchinson training (K6) of one model through the
+    probe instances of one form (`probe_form`) at batch B: `phases` numbers
+    the kernel holds, the held train steps, the main paths, `fit` at K = 4
+    (run when `fit`) and the probe curve (42-46; 57-60 at the wide forms,
+    whose held train steps and main paths are both phase 58).  Returns the
+    records."""
     import torch
     from continuousnf_tpu_torch.ode.tableaus import TSIT5
     from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
@@ -1974,117 +2013,148 @@ def probe_paths(cnf, fs, dev):
     truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
     kmax = max(k for k, _ in PROBE_CONFIGS)
     curve = {}
-    for name, chain in (("flagship", False), ("power6", True)):
-        dims = MODELS[name]["dims"]
-        rng = np.random.default_rng(SEED + 200 + chain)
-        ps_np = glorot_params(rng, dims)
-        xs = torch.from_numpy(model_data(name, rng, BATCH)).to(dev)
-        ps = cnf.params_from_numpy(ps_np, dev)
-        model = lambda k=1, jvp=False, **kw: make_icnf(name, dev, num_probes=k, ad="jvp" if jvp else "vjp", **kw)  # noqa: E731
-        icnf = model()
-        spec = fs.chain_spec(icnf.nn, icnf.zdim)
-        steer = {"steer_r": 0.05} if icnf.steer_rate > 0 else {}  # the same steering draw on every path
-        _, train, _, cot = kernel_inputs(icnf, ps, xs, rng, dev)
-        eps_all = torch.from_numpy(rng.normal(size=(kmax, BATCH, icnf.zdim)).astype("float32")).to(dev)
-        if chain:
-            run1, run2, keys = fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel, ("k1c", "k2c")
-            names = (fs.K1C_KERNEL, fs.K2C_KERNEL)
-            sources = ("k1_chain_solve.cu", "k2_chain_adjoint.cu")
-            label = "the K1 chain form", "the K2 chain form"
-        else:
-            run1, run2, keys = fs.run_train_solve_kernel, fs.run_adjoint_kernel, ("k1", "k2")
-            names = (fs.K1_KERNEL, fs.K2_KERNEL)
-            sources = ("k1_train_solve.cu", "k2_train_adjoint.cu")
-            label = "K1", "K2"
+    dims = MODELS[name]["dims"]
+    ps_np = glorot_params(rng, dims)
+    xs = torch.from_numpy(model_data(name, rng, B)).to(dev)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    model = lambda k=1, jvp=False, **kw: make_icnf(name, dev, num_probes=k, ad="jvp" if jvp else "vjp", **kw)  # noqa: E731
+    icnf = model()
+    spec = fs.chain_spec(icnf.nn, icnf.zdim)
+    steer = {"steer_r": 0.05} if icnf.steer_rate > 0 else {}  # the same steering draw on every path
+    _, train, _, cot = kernel_inputs(icnf, ps, xs, rng, dev)
+    eps_all = torch.from_numpy(rng.normal(size=(kmax, B, icnf.zdim)).astype("float32")).to(dev)
+    (run1, run2), names, sources, label, keys = probe_form(fs, form)
+    holds, paths, mains, fits, curves = phases
 
-        # Phase 42: each probe instance against its twin (the forward from
-        # nonzero accumulators, the adjoint from its output with its last
-        # step as the warm start), timed.
-        held = {}
-        for k, jvp in PROBE_CONFIGS:
-            tag = probe_tag(k, jvp)
-            kw1 = dict(train, eps=eps_all[:k].contiguous(), jvp=jvp)
-            r1 = run_pair(f"{label[0]} {tag} ({name})", run1, fs.solve_train_plain, TSIT5, spec, kw1)
-            r2 = run_pair(f"{label[1]} {tag} ({name})", run2, fs.adjoint_train_plain, TSIT5, spec,
-                          adjoint_kw(kw1, r1[0], cot), adjoint=True)
-            held[(k, jvp)] = (r1, r2)
+    # Phase 42 (holds): each probe instance against its twin (the forward
+    # from nonzero accumulators, the adjoint from its output with its last
+    # step as the warm start), timed.
+    held = {}
+    for k, jvp in PROBE_CONFIGS:
+        tag = probe_tag(k, jvp)
+        kw1 = dict(train, eps=eps_all[:k].contiguous(), jvp=jvp)
+        r1 = run_pair(f"{label[0]} {tag} ({name})", run1, fs.solve_train_plain, TSIT5, spec, kw1)
+        r2 = run_pair(f"{label[1]} {tag} ({name})", run2, fs.adjoint_train_plain, TSIT5, spec,
+                      adjoint_kw(kw1, r1[0], cot), adjoint=True)
+        held[(k, jvp)] = (r1, r2)
+    print(f"phase {holds}: {name} probe instances held to their twins")
 
-        # Phase 43: the train step's loss and gradient through the kernels,
-        # the plain path and a float64 rtol 1e-7 solve, on the same draws.
-        for k, jvp in PROBE_PATHS:
-            tag = probe_tag(k, jvp)
-            icnf_k = model(k, jvp)
-            gen = torch.Generator(device=dev).manual_seed(SEED + 210 + k)
-            eps = icnf_k.draw_eps(gen, BATCH, dev)
-            fs.reset_launches()
-            l_k, g_k, m_k = loss_grad(cnf, icnf_k, ps_np, xs, dev, eps=eps, **steer)
-            check({w.__name__: dict(w.probe_launches) for w in (run1, run2)}
-                  == {w.__name__: {(k, jvp): 1} for w in (run1, run2)},
-                  f"{name} {tag}: the fused gradient launched {launched(fs)}")
-            l_p, g_p, _ = loss_grad(cnf, model(k, jvp, fused=False), ps_np, xs, dev, eps=eps, **steer)
-            l_t, g_t, _ = loss_grad(cnf, model(k, jvp, fused=False, dtype=torch.float64, solver=truth), ps_np, xs,
-                                    dev, torch.float64, eps=eps.double(), **steer)
-            torch.cuda.synchronize()
-            hold_gradients(f"{name} {tag}", l_k, g_k, l_p, g_p, l_t, g_t)
-            print(f"{name} {tag} train step B={BATCH}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 "
-                  f"{float(l_t):.6f}, forward NFE {int(m_k['nfe'])}")
+    # Phase 43 (paths): the train step's loss and gradient through the
+    # kernels, the plain path and a float64 rtol 1e-7 solve, on the same
+    # draws, the fused one launching the two probe instances once each and
+    # no other kernel.
+    for k, jvp in PROBE_PATHS:
+        tag = probe_tag(k, jvp)
+        icnf_k = model(k, jvp)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 210 + k)
+        eps = icnf_k.draw_eps(gen, B, dev)
+        fs.reset_launches()
+        l_k, g_k, m_k = loss_grad(cnf, icnf_k, ps_np, xs, dev, eps=eps, **steer)
+        check(set(launched(fs)) == set(names) and {w.__name__: dict(w.probe_launches) for w in (run1, run2)}
+              == {w.__name__: {(k, jvp): 1} for w in (run1, run2)},
+              f"{name} {tag}: the fused gradient launched {launched(fs)}")
+        l_p, g_p, _ = loss_grad(cnf, model(k, jvp, fused=False), ps_np, xs, dev, eps=eps, **steer)
+        l_t, g_t, _ = loss_grad(cnf, model(k, jvp, fused=False, dtype=torch.float64, solver=truth), ps_np, xs,
+                                dev, torch.float64, eps=eps.double(), **steer)
+        torch.cuda.synchronize()
+        hold_gradients(f"{name} {tag}", l_k, g_k, l_p, g_p, l_t, g_t)
+        print(f"{name} {tag} train step B={B}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 "
+              f"{float(l_t):.6f}, forward NFE {int(m_k['nfe'])}")
 
-        # Phase 44: the main paths, counters reset just before each: the
-        # loss and its gradient at each probe configuration launch the two
-        # probe instances once each and no other kernel.
-        launches = {}
-        for k, jvp in PROBE_CONFIGS:
-            icnf_k = model(k, jvp)
-            eps = icnf_k.draw_eps(torch.Generator(device=dev).manual_seed(SEED + 220 + k), BATCH, dev)
-            fs.reset_launches()
-            _, g, _ = loss_grad(cnf, icnf_k, ps_np, xs, dev, eps=eps, **steer)
-            torch.cuda.synchronize()
-            counts = [w.probe_launches.get((k, jvp), 0) for w in (run1, run2)]
-            check(set(launched(fs)) == set(names) and counts == [1, 1]
-                  and all(bool(torch.isfinite(x).all()) for x in g),
-                  f"{name} {probe_tag(k, jvp)}: launched {launched(fs)}, probe instances {counts}")
-            launches[(k, jvp)] = counts
-        print(f"{name} main paths (loss and gradient): probe-instance launches "
-              + ", ".join(f"{probe_tag(k, jvp)} {c}" for (k, jvp), c in launches.items()))
+    # Phase 44 (mains): the main paths, counters reset just before each: the
+    # loss and its gradient at each probe configuration launch the two probe
+    # instances once each and no other kernel.
+    launches = {}
+    for k, jvp in PROBE_CONFIGS:
+        icnf_k = model(k, jvp)
+        eps = icnf_k.draw_eps(torch.Generator(device=dev).manual_seed(SEED + 220 + k), B, dev)
+        fs.reset_launches()
+        _, g, _ = loss_grad(cnf, icnf_k, ps_np, xs, dev, eps=eps, **steer)
+        torch.cuda.synchronize()
+        counts = [w.probe_launches.get((k, jvp), 0) for w in (run1, run2)]
+        check(set(launched(fs)) == set(names) and counts == [1, 1]
+              and all(bool(torch.isfinite(x).all()) for x in g),
+              f"{name} {probe_tag(k, jvp)}: launched {launched(fs)}, probe instances {counts}")
+        launches[(k, jvp)] = counts
+    print(f"phase {mains}: {name} main paths (loss and gradient): probe-instance launches "
+          + ", ".join(f"{probe_tag(k, jvp)} {c}" for (k, jvp), c in launches.items()))
 
-        # Phase 45 (the flagship): fit for four Lion steps at K = 4.
-        if not chain:
-            fit_path(cnf, fs, model(4), ps_np, dev, model_data(name, rng, N_STEPS * BATCH), batch_size=BATCH)
-            n = [w.probe_launches.get((4, False), 0) for w in (run1, run2)]
-            check(min(n) >= N_STEPS and set(launched(fs)) == set(names), f"fit at K = 4 launched {launched(fs)}")
-            print(f"fit at K = 4: {N_STEPS} Lion steps at B={BATCH}, K1 and K2 probe-instance launches {n}")
+    # Phase 45 (fits): fit for four Lion steps at K = 4.
+    if fit:
+        fit_path(cnf, fs, model(4), ps_np, dev, model_data(name, rng, N_STEPS * B), batch_size=B)
+        n = [w.probe_launches.get((4, False), 0) for w in (run1, run2)]
+        check(min(n) >= N_STEPS and set(launched(fs)) == set(names), f"fit at K = 4 launched {launched(fs)}")
+        print(f"phase {fits}: fit at K = 4 ({name}): {N_STEPS} Lion steps at B={B}, probe-instance launches {n} "
+              f"({label[0]}, {label[1]}), no other kernel")
 
-        # Phase 46: the probe curve, microseconds per attempted step at K = 1
-        # (the one-probe instance), 2, 4 and 8, on the same inputs.
-        with torch.no_grad():
-            for k in PROBE_CURVE:
-                kw1 = dict(train, eps=eps_all[:k].contiguous())
-                out = run1(TSIT5, spec, **kw1)
-                kw2 = adjoint_kw(kw1, out, cot)
-                adj = run2(TSIT5, spec, **kw2)
-                ms1, ms2 = cuda_ms(lambda: run1(TSIT5, spec, **kw1), 5), cuda_ms(lambda: run2(TSIT5, spec, **kw2), 5)
-                curve[(name, k)] = (ms1 * 1e3 / int(out[2]), ms2 * 1e3 / int(adj[5]))
-                print(f"probe curve {name} K={k}: {label[0]} {ms1:.4f} ms ({int(out[2])} steps, "
-                      f"{curve[(name, k)][0]:.1f} us per attempted step), {label[1]} {ms2:.4f} ms ({int(adj[5])} "
-                      f"steps, {curve[(name, k)][1]:.1f} us per attempted step)")
-        base = curve[(name, 1)]
-        print(f"probe curve {name}, per attempted step relative to K = 1: "
-              + "; ".join(f"K={k} {curve[(name, k)][0] / base[0]:.3f}x / {curve[(name, k)][1] / base[1]:.3f}x"
-                          for k in PROBE_CURVE))
+    # Phase 46 (curves): the probe curve, microseconds per attempted step at
+    # K = 1 (the one-probe instance), 2, 4 and 8, on the same inputs.
+    with torch.no_grad():
+        for k in PROBE_CURVE:
+            kw1 = dict(train, eps=eps_all[:k].contiguous())
+            out = run1(TSIT5, spec, **kw1)
+            kw2 = adjoint_kw(kw1, out, cot)
+            adj = run2(TSIT5, spec, **kw2)
+            ms1, ms2 = cuda_ms(lambda: run1(TSIT5, spec, **kw1), 5), cuda_ms(lambda: run2(TSIT5, spec, **kw2), 5)
+            curve[k] = (ms1 * 1e3 / int(out[2]), ms2 * 1e3 / int(adj[5]))
+            print(f"probe curve {name} K={k}: {label[0]} {ms1:.4f} ms ({int(out[2])} steps, "
+                  f"{curve[k][0]:.1f} us per attempted step), {label[1]} {ms2:.4f} ms ({int(adj[5])} "
+                  f"steps, {curve[k][1]:.1f} us per attempted step)")
+    print(f"phase {curves}: probe curve {name}, per attempted step relative to K = 1: "
+          + "; ".join(f"K={k} {curve[k][0] / curve[1][0]:.3f}x / {curve[k][1] / curve[1][1]:.3f}x"
+                      for k in PROBE_CURVE))
 
-        P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
-        dz = dims[-1]
-        for (k, jvp), (r1, r2) in held.items():
-            fma = probe_fma(dims, k)
-            extra = (k - 1) * BATCH * dz
-            for i, (r, floats) in enumerate(((r1, P + BATCH * (3 * dz + 6) + extra),
-                                             (r2, 2 * P + BATCH * (5 * dz + 9) + extra))):
-                out, err, ms, pms = r
-                records.append(kernel_record(f"{names[i]}/{probe_tag(k, jvp)}", sources[i],
-                                             f"continuousnf_tpu/ops/fused_solve.py:{1043 if i == 0 else 1767}",
-                                             launches[(k, jvp)][i], err, ms, pms, fma[keys[i]], BATCH,
-                                             steps_of(out)[0], floats, accepted=steps_of(out)[1]))
+    P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    dz = dims[-1]
+    for (k, jvp), (r1, r2) in held.items():
+        fma = probe_fma(dims, k)
+        extra = (k - 1) * B * dz
+        for i, (r, floats) in enumerate(((r1, P + B * (3 * dz + 6) + extra), (r2, 2 * P + B * (5 * dz + 9) + extra))):
+            out, err, ms, pms = r
+            records.append(kernel_record(f"{names[i]}/{probe_tag(k, jvp)}", sources[i],
+                                         f"continuousnf_tpu/ops/fused_solve.py:{1043 if i == 0 else 1767}",
+                                         launches[(k, jvp)][i], err, ms, pms, fma[keys[i]], B,
+                                         steps_of(out)[0], floats, accepted=steps_of(out)[1]))
     return records
+
+
+def probe_paths(cnf, fs, dev):
+    """Phases 42 to 46: K-probe and JVP Hutchinson training (K6) through the
+    probe instances of K1 and K2 (the flagship) and of their chain forms
+    (power6).  Returns their records."""
+    return (probe_model(cnf, fs, dev, "flagship", "two-layer", np.random.default_rng(SEED + 200), BATCH, True,
+                        (42, 43, 44, 45, 46))
+            + probe_model(cnf, fs, dev, "power6", "chain", np.random.default_rng(SEED + 201), BATCH, False,
+                          (42, 43, 44, 45, 46)))
+
+
+def wide_probe_paths(cnf, fs, dev):
+    """Phases 56 to 60: K-probe and JVP Hutchinson training at the MINIBOONE
+    width (K6 in the wide forms) through the probe instances of the wide K1
+    and K2 chain forms, B = 2048.  Returns their records."""
+    from continuousnf_tpu_torch.utils.configs import MODELS
+
+    cfg = MODELS["miniboone43"]
+    dims, B = cfg["dims"], cfg["batch"]
+    spec = fs.chain_spec(cnf.MLP(dims, device=dev), dims[-1])
+    check(fs._wide_chain(spec) and all(fs._kernel_covers(fs.TSIT5, spec, k, chain=True, jvp=jvp) is None
+                                       for k, jvp in PROBE_CONFIGS),
+          "the MINIBOONE chain with probes should run the wide forms' probe instances")
+
+    # Phase 56: the probe instances' launch shapes at B = 2048 (K is a
+    # run-time argument: one shape for K = 2, 4 and 8).
+    arr = (ctypes.c_int * len(dims))(*dims)
+    for lib_name, fn in ((fs.K1W_KERNEL, "cnf_k1wp_shape"), (fs.K2W_KERNEL, "cnf_k2wp_shape")):
+        out = (ctypes.c_int * 4)()
+        err = getattr(fs._library(lib_name), fn)(len(dims) - 1, arr, B, out)
+        check(err == 0 and out[1] >= 1, f"{fn}: cudaError {err}")
+        print(f"phase 56: {fn} at widths {dims}, B={B}, K = 2, 4 and 8: {out[0]} threads a block, {out[1]} blocks, "
+              f"tile {out[2]}, {out[3]} bytes of dynamic shared memory")
+
+    # Phases 57 to 60: the holds, the held train steps and the main paths
+    # (58), `fit` at K = 4 (59) and the wide probe curve (60).
+    return probe_model(cnf, fs, dev, "miniboone43", "wide", np.random.default_rng(SEED + 300), B, True,
+                       (57, 58, 58, 59, 60))
 
 
 # ---- K5: TEST-mode gradients of 2-layer nets ----
@@ -2633,7 +2703,8 @@ def main() -> int:
                          ("36-41", lambda: miniboone(cnf, fs, dev)),
                          ("42-46", lambda: probe_paths(cnf, fs, dev)),
                          ("47-50", lambda: test_gradients(cnf, fs, dev, sample_draw)),
-                         ("51-55", lambda: direct_paths(cnf, fs, dev, sample_draw))):
+                         ("51-55", lambda: direct_paths(cnf, fs, dev, sample_draw)),
+                         ("56-60", lambda: wide_probe_paths(cnf, fs, dev))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -130,6 +130,9 @@ __device__ inline void load_wide_weights(const float* params, const WideLayout& 
 
 // Level l's (T, hp[l]) array in a T-row hidden block HB.
 __device__ __forceinline__ float* level(const WideLayout& L, float* HB, int T, int l) { return HB + T * L.hofs[l]; }
+__device__ __forceinline__ const float* level(const WideLayout& L, const float* HB, int T, int l) {
+  return HB + T * L.hofs[l];
+}
 
 // The products below: each thread owns R rows (R = 8 where that still
 // gives every thread of the block a unit, else kRows) of two output columns
@@ -300,6 +303,53 @@ __device__ inline void wide_pullback(const WideLayout& L, const float* w, const 
   const int zp = L.zp;
   tile_mm_t(level(L, HB, T, 1), L.hp[1], L.width[1], w + L.wofs[0], L.pitch[0], L.dz, T,
             [&](int t, int k, float a) { EJ[t * zp + k] = a; });
+}
+
+// wide_pullback with the activations kept (the probe instances, K6, run one
+// pass per probe): each hidden level's gated cotangent goes to the hidden
+// block GB, its activation read from HB, as chain_pullback_to does for one
+// sample.  The one-probe instance keeps the in-place form above, so its
+// machine code stays as it was.
+__device__ inline void wide_pullback_to(const WideLayout& L, const float* w, const float* V, int T, const float* HB,
+                                        float* GB, float* EJ) {
+  const int n = L.n;
+  for (int i = n - 1; i >= 1; --i) {
+    const float* src = i == n - 1 ? V : level(L, GB, T, i + 1);
+    const float* h = level(L, HB, T, i);
+    float* g = level(L, GB, T, i);
+    const int hp = L.hp[i], on = L.act[i - 1];
+    tile_mm_t(src, L.hp[i + 1], L.width[i + 1], w + L.wofs[i], L.pitch[i], L.width[i], T,
+              [&](int t, int k, float a) { g[t * hp + k] = a * gate(h[t * hp + k], on); });
+  }
+  const int zp = L.zp;
+  tile_mm_t(level(L, GB, T, 1), L.hp[1], L.width[1], w + L.wofs[0], L.pitch[0], L.dz, T,
+            [&](int t, int k, float a) { EJ[t * zp + k] = a; });
+}
+
+// One probe pushforward J eps per row after wide_forward
+// (fused_solve.py::_probe_pushforward, K6): E (T, zp) holds the probes.
+// Down the layers, level l's tangent t_l = u_l gate(h_l), u_l = t_(l-1)
+// W_(l-1) (t_0 = eps), goes to the hidden block TB (h read from HB), and
+// u_l to UB unless UB is null; A (T, zp) gets the output layer's product
+// t_(N-1) W_(N-1) before its gate.
+__device__ inline void wide_pushforward(const WideLayout& L, const float* w, const float* E, int T, const float* HB,
+                                        float* UB, float* TB, float* A) {
+  const int n = L.n;
+  for (int i = 0; i < n - 1; ++i) {
+    const float* src = i == 0 ? E : level(L, TB, T, i);
+    const float* h = level(L, HB, T, i + 1);
+    float* u = UB ? level(L, UB, T, i + 1) : nullptr;
+    float* t = level(L, TB, T, i + 1);
+    const int hp = L.hp[i + 1], on = L.act[i];
+    tile_mm(src, L.hp[i], L.width[i], w + L.wofs[i], L.pitch[i], nullptr, L.width[i + 1], T,
+            [&](int r, int o, float a) {
+              if (u) u[r * hp + o] = a;
+              t[r * hp + o] = a * gate(h[r * hp + o], on);
+            });
+  }
+  const int zp = L.zp;
+  tile_mm(level(L, TB, T, n - 1), L.hp[n - 1], L.width[n - 1], w + L.wofs[n - 1], L.pitch[n - 1], nullptr, L.dz, T,
+          [&](int r, int k, float a) { A[r * zp + k] = a; });
 }
 
 // The co-resident launch shape of a wide kernel: the first of the `n_opts`

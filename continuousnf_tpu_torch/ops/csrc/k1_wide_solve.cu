@@ -32,6 +32,17 @@
 // shared-memory issue and latency, and one grid barrier per attempted step,
 // bound it.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The probe instance (K6 in the wide forms): _stage_train with k_probes = K
+// and jvp (the probe loop :350-364, _probe_pushforward :309-330), as the K1
+// chain form's probe instance runs it for one sample: per stage one forward
+// pass, then per probe, from the (K, B, dz) probes, eps^T J by the pullback
+// (wide_pullback_to) or J eps by the pushforward (wide_pushforward), and the
+// trace and probe-norm terms summed over the probes and divided by K.  The
+// pullback can no longer overwrite the activations, so a tile row gets a
+// second hidden block for a probe's vectors (256 floats at MINIBOONE: 11,760
+// tile floats at T = 16, 159 KB with the weights).  K and the direction are
+// run-time values; the one-probe instance above stays as it was.
 
 #include "chain_wide.cuh"
 
@@ -117,6 +128,105 @@ size_t smem_bytes(const WideLayout& L, int T) {
   return sizeof(float) * ((size_t)L.wfloats + kRedFloats + tile_floats(L, T));
 }
 
+// The probe instance's field (K6): K probes a row at eps[k][s], reverse
+// (eps^T J) or, `jvp`, forward mode (J eps); HB keeps the activations and a
+// probe's hidden vectors go to TB.
+struct WideProbeField {
+  const WideLayout* L;
+  const float* w;    // the shared weight region
+  const float* eps;  // (K, B, dz)
+  float* HB;         // the tile's hidden blocks: activations, a probe's vectors
+  float* TB;
+  float* E;          // (T, zp) each: eps, the gated probe (VJP) or t W (JVP), eJ
+  float* V;
+  float* EJ;
+  int B, T, K, jvp, norm_z, norm_j;
+
+  __device__ void operator()(int s0, int nv, const float* Z, float* KY, float* KR) const {
+    const WideLayout& c = *L;
+    const int dz = c.dz, zp = c.zp, on = c.act[c.n - 1];
+    cnf::wide_forward(c, w, Z, T, HB, KY);
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      KR[t * 3 + 0] = 0.f;
+      KR[t * 3 + 2] = 0.f;
+    }
+    for (int pk = 0; pk < K; ++pk) {
+      const float* ek = eps + ((size_t)pk * B + s0) * dz;
+      for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+        const int t = idx / dz, k = idx % dz;
+        const float e = t < nv ? ek[idx] : 0.f;
+        E[t * zp + k] = e;
+        if (!jvp) V[t * zp + k] = e * cnf::gate(KY[t * zp + k], on);
+      }
+      __syncthreads();
+      if (jvp) {
+        cnf::wide_pushforward(c, w, E, T, HB, nullptr, TB, V);
+        for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+          const int t = idx / dz, k = idx % dz;
+          EJ[t * zp + k] = V[t * zp + k] * cnf::gate(KY[t * zp + k], on);
+        }
+        __syncthreads();
+      } else {
+        cnf::wide_pullback_to(c, w, V, T, HB, TB, EJ);
+      }
+      for (int t = threadIdx.x; t < T; t += blockDim.x) {
+        float tr = 0.f, nsq = 0.f;
+        for (int k = 0; k < dz; ++k) {
+          const float ej = EJ[t * zp + k];
+          tr = fmaf(ej, E[t * zp + k], tr);
+          nsq = fmaf(ej, ej, nsq);
+        }
+        KR[t * 3 + 0] += tr;
+        KR[t * 3 + 2] += safe_norm_sq(nsq);
+      }
+      __syncthreads();
+    }
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      float ysq = 0.f;
+      for (int k = 0; k < dz; ++k) ysq = fmaf(KY[t * zp + k], KY[t * zp + k], ysq);
+      KR[t * 3 + 0] = -(KR[t * 3 + 0] / K);
+      KR[t * 3 + 1] = norm_z ? safe_norm_sq(ysq) : 0.f;
+      KR[t * 3 + 2] = norm_j ? KR[t * 3 + 2] / K : 0.f;
+    }
+    __syncthreads();
+  }
+};
+
+// The probe instance's tile arrays: the solver's, two hidden blocks and the
+// probe pieces (eps, V, eJ).
+__host__ __device__ inline size_t probe_tile_floats(const WideLayout& L, int T) {
+  return (size_t)T * (2 * L.zp + 3) + (size_t)T * (2 * L.hsum + 3 * L.zp);
+}
+
+struct ProbeArgs {
+  Args a;
+  int K, jvp;
+};
+
+__global__ void __launch_bounds__(kWideBlock) k1_wide_probe_solve(const ProbeArgs pa) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ WideLayout L;
+  const Args& p = pa.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T;
+  float* w = smem;
+  float* red = w + L.wfloats;
+  float* scratch = red + kRedFloats;  // the solver's Z, KY, KR
+  float* HB = scratch + T * (2 * L.zp + 3);
+  float* TB = HB + T * L.hsum;
+  float* E = TB + T * L.hsum;
+  float* V = E + T * L.zp;
+  float* EJ = V + T * L.zp;
+  cnf::load_wide_weights(p.params, L, w);
+  __syncthreads();
+  const WideProbeField field{&L, w, p.f.eps, HB, TB, E, V, EJ, p.f.B, T, pa.K, pa.jvp, p.f.norm_z, p.f.norm_j};
+  cnf::forward_solve_tiles<3, kStageUnroll>(p.f, field, T, scratch, red);
+}
+
+size_t probe_smem_bytes(const WideLayout& L, int T) {
+  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + probe_tile_floats(L, T));
+}
+
 }  // namespace
 
 // The launch shape at batch B: out = {threads per block, blocks, samples a
@@ -152,4 +262,37 @@ extern "C" int cnf_k1w_train_solve(const float* params, const float* eps, const 
   a.params = params;
   a.T = T;
   return (int)cnf::coop_launch(k1_wide_solve, a, grid, block, smem_bytes(a.L, T), (cudaStream_t)stream);
+}
+
+// The probe instance's launch shape (K6), as cnf_k1w_shape.
+extern "C" int cnf_k1wp_shape(int n, const int* widths, int B, int* out) {
+  WideLayout L;
+  if (B < 1 || !cnf::make_wide_layout(n, widths, &L)) return (int)cudaErrorInvalidValue;
+  size_t smem[3];
+  for (int o = 0; o < 3; ++o) smem[o] = probe_smem_bytes(L, kTiles[o]);
+  return cnf::wide_shape(k1_wide_probe_solve, smem, kTiles, kTiles, 3, B, out);
+}
+
+// The probe instance (K6): as cnf_k1w_train_solve with eps (K, B, dz), K >= 1
+// probes, reverse mode or (jvp) forward mode; T, grid, block from
+// cnf_k1wp_shape.
+extern "C" int cnf_k1w_probe_solve(const float* params, const float* eps, const float* z0, const float* acc0,
+                                   const float* ts, float* zT, float* accT, int* stats, float* dt_last, float* work,
+                                   float* partials, int B, int n, const int* widths, int acts, int max_steps,
+                                   int norm_z, int norm_j, int K, int jvp, float rtol, float atol, float beta1,
+                                   float beta2, float inv_order, const float* tab, int T, int grid, int block,
+                                   void* stream) {
+  ProbeArgs pa = {};
+  if (block != kWideBlock || grid < 1 || T < cnf::kRows || T % cnf::kRows != 0 || K < 1 ||
+      !cnf::make_wide_layout(n, widths, &pa.a.L))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_wide_acts(&pa.a.L, acts);
+  cnf::set_fwd_args(&pa.a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n], max_steps,
+                    norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
+  pa.a.params = params;
+  pa.a.T = T;
+  pa.K = K;
+  pa.jvp = jvp;
+  return (int)cnf::coop_launch(k1_wide_probe_solve, pa, grid, block, probe_smem_bytes(pa.a.L, T),
+                               (cudaStream_t)stream);
 }

@@ -53,6 +53,25 @@
 // rate.  The tile products and the gradient pass are bound by shared-memory
 // issue; per attempted step come two grid barriers and the slice reduction.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The probe instance (K6 in the wide forms): the N-layer _stage_train_fwdbwd
+// with k_probes = K and jvp (:396-431, the JVP branch :435-450), as the K2
+// chain form's probe instance runs it for one sample, on adjoint_solve_tiles'
+// PROBES form: after the forward pass each probe's pass and its VJP leave
+// that probe's vectors in the tile arrays (for W_i: a_i (x) b_i) and the
+// block adds their outer products into its g vectors (a flush), while the
+// -2 h (.) gate terms are summed over the probes in a fifth hidden block HC
+// and the output layer's in a sixth dz-vector CTY; then the rates, divided by
+// K, and the forward chain's VJP with ca over the v block (in_i (x) ca_i and
+// the biases).  VJP: a_i = pu_i, b_i = v_i as above.  JVP, the pushforward
+// t_(l+1) = (t_l W_l) s'(h_(l+1)) (t_0 = eps) keeping u_l (pre-gate, U) and
+// t_l (PU), and its VJP down the chain: ct_u = ct_t s'(h) (V), ct_h += -2 h
+// (ct_t u), ct_t of the level below = ct_u W^T: a_i = t_i (eps for i = 0),
+// b_i = ct_u of level i + 1.  Every probe's ct_tr and probe-norm factor
+// carries 1/K.  Shared memory: one more hidden block and one more dz-vector
+// a row than the one-probe stage (1,727 floats a row: 222,376 bytes at
+// T = 16).  K and the direction are run-time values; the one-probe instance
+// above stays as it was.
 
 #include "chain_wide.cuh"
 
@@ -277,6 +296,270 @@ size_t smem_bytes(const WideLayout& L, int T) {
   return sizeof(float) * ((size_t)L.wfloats + kRedFloats + tile_floats(L, T));
 }
 
+// The probe instance's tile arrays beside the solver's: six dz-vectors, five
+// hidden blocks and four scalars a row.
+struct ProbeArrays {
+  float *E, *VL, *EJ, *CU, *CAL, *CTY;  // (T, zp); CAL holds t W_last (JVP) until the probes end
+  float *HS, *PU, *V, *U, *HC;          // hidden blocks; V holds ca after the probes
+  float* SC;                            // (T, 4): fn, the trace and probe-norm sums, ct_tr then fz
+};
+
+__host__ __device__ inline size_t probe_tile_floats(const WideLayout& L, int T) {
+  return (size_t)T * (4 * L.zp + 3) + (size_t)T * (6 * L.zp + 5 * L.hsum + 4);
+}
+
+__device__ inline ProbeArrays probe_arrays(const WideLayout& L, int T, float* base) {
+  ProbeArrays a;
+  const int v = T * L.zp, h = T * L.hsum;
+  a.E = base;
+  a.VL = a.E + v;
+  a.EJ = a.VL + v;
+  a.CU = a.EJ + v;
+  a.CAL = a.CU + v;
+  a.CTY = a.CAL + v;
+  a.HS = a.CTY + v;
+  a.PU = a.HS + h;
+  a.V = a.PU + h;
+  a.U = a.V + h;
+  a.HC = a.U + h;
+  a.SC = a.HC + h;
+  return a;
+}
+
+// The probe instance's stage of a tile (K6): the forward pass, then per
+// probe its pass and that pass's VJP, leaving the probe's vectors for
+// `flush`; then the rates and the forward chain's VJP.
+struct WideProbeStage {
+  const WideLayout* L;
+  const float* w;      // the shared weight region
+  const float* eps;    // (K, B, dz)
+  const float* aaccT;  // (3, B)
+  ProbeArrays a;
+  int B, T, K, jvp, norm_z, norm_j;
+
+  template <class Flush>
+  __device__ void probes(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR, float* KAZ,
+                         const Flush& flush) const {
+    const WideLayout& c = *L;
+    const int n = c.n, dz = c.dz, zp = c.zp, hs = c.hsum;
+    const int on_y = c.act[n - 1];
+    float *E = a.E, *VL = a.VL, *EJ = a.EJ, *CU = a.CU, *CAL = a.CAL, *CTY = a.CTY, *SC = a.SC;
+    const float inv_k = 1.f / K;
+    cnf::wide_forward(c, w, Z, T, a.HS, KZ);
+    for (int idx = threadIdx.x; idx < T * hs; idx += blockDim.x) a.HC[idx] = 0.f;
+    for (int idx = threadIdx.x; idx < T * zp; idx += blockDim.x) CTY[idx] = 0.f;
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      SC[t * 4 + 1] = 0.f;
+      SC[t * 4 + 2] = 0.f;
+      SC[t * 4 + 3] = t < nv ? -aaccT[s0 + t] * inv_k : 0.f;  // ct_tr: rates row 0 is -tr over K probes
+    }
+    __syncthreads();
+    for (int pk = 0; pk < K; ++pk) {
+      const float* ek = eps + ((size_t)pk * B + s0) * dz;
+      for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+        const int t = idx / dz, k = idx % dz;
+        const float e = t < nv ? ek[idx] : 0.f;
+        E[t * zp + k] = e;
+        if (!jvp) VL[t * zp + k] = e * gate(KZ[t * zp + k], on_y);
+      }
+      __syncthreads();
+      if (jvp) {
+        // The pushforward, keeping u_l (U) and t_l (PU); t W_last to CAL.
+        cnf::wide_pushforward(c, w, E, T, a.HS, a.U, a.PU, CAL);
+        for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+          const int t = idx / dz, k = idx % dz;
+          EJ[t * zp + k] = CAL[t * zp + k] * gate(KZ[t * zp + k], on_y);
+        }
+        __syncthreads();
+      } else {
+        // The pullback, keeping u_l (U) and the gated v_l (V), and eJ.
+        for (int i = n - 1; i >= 1; --i) {
+          const float* src = i == n - 1 ? VL : level(c, a.V, T, i + 1);
+          float* u = level(c, a.U, T, i);
+          float* v = level(c, a.V, T, i);
+          const float* h = level(c, a.HS, T, i);
+          const int hp = c.hp[i], on = c.act[i - 1];
+          cnf::tile_mm_t(src, c.hp[i + 1], c.width[i + 1], w + c.wofs[i], c.pitch[i], c.width[i], T,
+                         [&](int t, int k, float x) {
+                           u[t * hp + k] = x;
+                           v[t * hp + k] = x * gate(h[t * hp + k], on);
+                         });
+        }
+        cnf::tile_mm_t(level(c, a.V, T, 1), c.hp[1], c.width[1], w + c.wofs[0], c.pitch[0], dz, T,
+                       [&](int t, int k, float x) { EJ[t * zp + k] = x; });
+      }
+      // The probe's trace and norm terms, and its norm cotangent factor.
+      for (int t = threadIdx.x; t < T; t += blockDim.x) {
+        float tr = 0.f, nsq = 0.f;
+        for (int k = 0; k < dz; ++k) {
+          const float ej = EJ[t * zp + k];
+          tr = fmaf(ej, E[t * zp + k], tr);
+          nsq = fmaf(ej, ej, nsq);
+        }
+        const float nk = safe_norm_sq(nsq);
+        SC[t * 4 + 1] += tr;
+        SC[t * 4 + 2] += nk;
+        const float ct_n = t < nv ? aaccT[(size_t)2 * B + s0 + t] * inv_k : 0.f;
+        SC[t * 4 + 0] = norm_j ? ct_safe_norm(ct_n, nk) : 0.f;
+      }
+      __syncthreads();
+      if (jvp) {
+        // Down the pushforward: ct_Je = eps ct_tr + Je fn, ct_u = ct_Je s'(y)
+        // (VL), cty += -2 y (ct_Je t W); each level's ct_t = ct_u W^T,
+        // ct_u = ct_t s'(h) (V), hc += -2 h (ct_t u); a_0 = eps (CU).
+        for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+          const int t = idx / dz, k = idx % dz, o = t * zp + k;
+          const float y = KZ[o], e = E[o];
+          const float ct = fmaf(EJ[o], SC[t * 4 + 0], e * SC[t * 4 + 3]);
+          VL[o] = ct * gate(y, on_y);
+          if (on_y) CTY[o] += (-2.f * y) * (ct * CAL[o]);
+          CU[o] = e;
+        }
+        __syncthreads();
+        for (int i = n - 1; i >= 1; --i) {
+          const float* src = i == n - 1 ? VL : level(c, a.V, T, i + 1);
+          float* v = level(c, a.V, T, i);
+          float* hc = level(c, a.HC, T, i);
+          const float* u = level(c, a.U, T, i);
+          const float* h = level(c, a.HS, T, i);
+          const int hp = c.hp[i], on = c.act[i - 1];
+          cnf::tile_mm_t(src, c.hp[i + 1], c.width[i + 1], w + c.wofs[i], c.pitch[i], c.width[i], T,
+                         [&](int t, int k, float ct) {
+                           const int o = t * hp + k;
+                           const float hh = h[o];
+                           v[o] = ct * gate(hh, on);
+                           if (on) hc[o] += (-2.f * hh) * (ct * u[o]);
+                         });
+        }
+      } else {
+        // Up the pullback: cu = eps ct_tr + eJ fn (CU); per layer ct_v = pu W,
+        // pu of the level above = ct_v s'(h), hc += -2 h (ct_v u); at the
+        // output cty += -2 y (ct_v eps).
+        for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+          const int t = idx / dz, k = idx % dz, o = t * zp + k;
+          CU[o] = fmaf(EJ[o], SC[t * 4 + 0], E[o] * SC[t * 4 + 3]);
+        }
+        __syncthreads();
+        for (int i = 0; i < n - 1; ++i) {
+          const float* src = i == 0 ? CU : level(c, a.PU, T, i);
+          float* pu = level(c, a.PU, T, i + 1);
+          float* hc = level(c, a.HC, T, i + 1);
+          const float* u = level(c, a.U, T, i + 1);
+          const float* h = level(c, a.HS, T, i + 1);
+          const int hp = c.hp[i + 1], on = c.act[i];
+          cnf::tile_mm(src, c.hp[i], c.width[i], w + c.wofs[i], c.pitch[i], nullptr, c.width[i + 1], T,
+                       [&](int t, int o, float cv) {
+                         const int x = t * hp + o;
+                         const float hh = h[x];
+                         pu[x] = cv * gate(hh, on);
+                         if (on) hc[x] += (-2.f * hh) * (cv * u[x]);
+                       });
+        }
+        if (on_y)
+          cnf::tile_mm(level(c, a.PU, T, n - 1), c.hp[n - 1], c.width[n - 1], w + c.wofs[n - 1], c.pitch[n - 1],
+                       nullptr, dz, T, [&](int t, int k, float cv) {
+                         const int o = t * zp + k;
+                         CTY[o] += (-2.f * KZ[o]) * (cv * E[o]);
+                       });
+      }
+      flush();
+    }
+    // The rates, averaged over the probes, and fz.
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      float ysq = 0.f;
+      for (int k = 0; k < dz; ++k) ysq = fmaf(KZ[t * zp + k], KZ[t * zp + k], ysq);
+      const float e_rate = safe_norm_sq(ysq);
+      KR[t * 3 + 0] = -(SC[t * 4 + 1] / K);
+      KR[t * 3 + 1] = norm_z ? e_rate : 0.f;
+      KR[t * 3 + 2] = norm_j ? SC[t * 4 + 2] / K : 0.f;
+      const float aacc1 = t < nv ? aaccT[(size_t)B + s0 + t] : 0.f;
+      SC[t * 4 + 3] = norm_z ? ct_safe_norm(aacc1, e_rate) : 0.f;
+    }
+    __syncthreads();
+    // Down the forward chain: cal = (a_z + y fz + cty) s'(y); ca of the level
+    // below = (ca W^T + hc) s'(h), over V.
+    for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+      const int t = idx / dz, k = idx % dz, o = t * zp + k;
+      const float y = KZ[o];
+      CAL[o] = (fmaf(y, SC[t * 4 + 3], AZ[o]) + CTY[o]) * gate(y, on_y);
+    }
+    __syncthreads();
+    for (int i = n - 1; i >= 1; --i) {
+      const float* src = i == n - 1 ? CAL : level(c, a.V, T, i + 1);
+      float* ca = level(c, a.V, T, i);
+      const float* hc = level(c, a.HC, T, i);
+      const float* h = level(c, a.HS, T, i);
+      const int hp = c.hp[i], on = c.act[i - 1];
+      cnf::tile_mm_t(src, c.hp[i + 1], c.width[i + 1], w + c.wofs[i], c.pitch[i], c.width[i], T,
+                     [&](int t, int k, float x) { ca[t * hp + k] = (x + hc[t * hp + k]) * gate(h[t * hp + k], on); });
+    }
+    cnf::tile_mm_t(level(c, a.V, T, 1), c.hp[1], c.width[1], w + c.wofs[0], c.pitch[0], dz, T,
+                   [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+  }
+};
+
+// The probe instance's gradient terms (K6): the tile's sum over its first
+// nv rows of the negated gradient rate entry q, a probe's part (a_i (x) b_i;
+// nothing for a bias) or the forward chain's (in_i (x) ca_i, the biases).
+struct WideProbeGrad {
+  const WideLayout* L;
+  const float* Z;  // the solver's stage input z
+  ProbeArrays a;
+  int T;
+
+  template <bool PROBE>
+  __device__ __forceinline__ float entry(int q, int nv) const {
+    const WideLayout& c = *L;
+    const int n = c.n;
+    int i = 0;
+    while (i + 1 < n && q >= c.pofs[i + 1]) ++i;
+    const int in = c.width[i], out = c.width[i + 1];
+    const int r = q - c.pofs[i];
+    const int ip = c.hp[i], op = c.hp[i + 1];
+    float v = 0.f;
+    if (r < in * out) {
+      const int k = r / out, o = r % out;
+      const float* px = (PROBE ? (i == 0 ? a.CU : level(c, a.PU, T, i)) : (i == 0 ? Z : level(c, a.HS, T, i))) + k;
+      const float* py = (PROBE ? (i == n - 1 ? a.VL : level(c, a.V, T, i + 1))
+                               : (i == n - 1 ? a.CAL : level(c, a.V, T, i + 1))) + o;
+      for (int t = 0; t < nv; ++t) v = fmaf(px[t * ip], py[t * op], v);
+    } else {
+      if (PROBE) return 0.f;
+      const float* pd = (i == n - 1 ? a.CAL : level(c, a.V, T, i + 1)) + (r - in * out);
+      for (int t = 0; t < nv; ++t) v += pd[t * op];
+    }
+    return -v;
+  }
+  __device__ float probe(int q, int nv) const { return entry<true>(q, nv); }
+  __device__ float fwd(int q, int nv) const { return entry<false>(q, nv); }
+};
+
+struct ProbeArgs {
+  AdjArgs a;
+  int K, jvp;
+};
+
+__global__ void __launch_bounds__(kWideBlock, 1) k2_wide_probe_adjoint(const ProbeArgs pa) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ WideLayout L;
+  const AdjArgs& p = pa.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T;
+  float* w = smem;
+  float* red = w + L.wfloats;
+  float* scratch = red + kRedFloats;  // the solver's Z, AZ, KZ, KAZ, KR
+  const ProbeArrays arrays = probe_arrays(L, T, scratch + T * (4 * L.zp + 3));
+  cnf::load_wide_weights(p.params, L, w);
+  __syncthreads();
+  const WideProbeStage stage{&L, w, p.eps, p.s.aaccT, arrays, p.s.B, T, pa.K, pa.jvp, p.norm_z, p.norm_j};
+  const WideProbeGrad grad{&L, scratch, arrays, T};
+  cnf::adjoint_solve_tiles<kStageUnroll, true>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew, red);
+}
+
+size_t probe_smem_bytes(const WideLayout& L, int T) {
+  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + probe_tile_floats(L, T));
+}
+
 }  // namespace
 
 // The launch shape at batch B: out = {threads per block, blocks, samples a
@@ -319,4 +602,45 @@ extern "C" int cnf_k2w_train_adjoint(const float* params, const float* eps, cons
   a.norm_j = norm_j;
   a.T = T;
   return (int)cnf::coop_launch(k2_wide_adjoint, a, grid, block, smem_bytes(a.L, T), (cudaStream_t)stream);
+}
+
+// The probe instance's launch shape (K6), as cnf_k2w_shape.
+extern "C" int cnf_k2wp_shape(int n, const int* widths, int B, int* out) {
+  WideLayout L;
+  if (B < 1 || !cnf::make_wide_layout(n, widths, &L)) return (int)cudaErrorInvalidValue;
+  size_t smem[3];
+  for (int o = 0; o < 3; ++o) smem[o] = probe_smem_bytes(L, kTiles[o]);
+  return cnf::wide_shape(k2_wide_probe_adjoint, smem, kTiles, kTiles, 3, B, out);
+}
+
+// The probe instance (K6): as cnf_k2w_train_adjoint with eps (K, B, dz),
+// K >= 1 probes, reverse mode or (jvp) forward mode; T, grid, block from
+// cnf_k2wp_shape.
+extern "C" int cnf_k2w_probe_adjoint(const float* params, const float* eps, const float* zT, const float* accT,
+                                     const float* azT, const float* aaccT, const float* ts, float* z0, float* acc0,
+                                     float* az0, float* g, int* stats, float* work, float* partials, float* gblk,
+                                     float* gnew, int B, int n, const int* widths, int acts, int max_steps,
+                                     int norm_z, int norm_j, int K, int jvp, float rtol, float atol, float beta1,
+                                     float beta2, float inv_order, const float* tab, int T, int grid, int block,
+                                     void* stream) {
+  ProbeArgs pa = {};
+  AdjArgs& a = pa.a;
+  if (block != kWideBlock || grid < 1 || T < cnf::kRows || T % cnf::kRows != 0 || K < 1 ||
+      !cnf::make_wide_layout(n, widths, &a.L))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_wide_acts(&a.L, acts);
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, nullptr, B, widths[n],
+                     max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.params = params;
+  a.eps = eps;
+  a.g = g;
+  a.gnew = gnew;
+  a.gblk = gblk;
+  a.norm_z = norm_z;
+  a.norm_j = norm_j;
+  a.T = T;
+  pa.K = K;
+  pa.jvp = jvp;
+  return (int)cnf::coop_launch(k2_wide_probe_adjoint, pa, grid, block, probe_smem_bytes(a.L, T),
+                               (cudaStream_t)stream);
 }

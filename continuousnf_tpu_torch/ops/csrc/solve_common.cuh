@@ -1024,7 +1024,17 @@ __device__ void forward_solve_tiles(const FwdArgs& p, const Field& field, int T,
 // flag | gsum | gsum3][gridDim.x].  GB and GE need no parity: a block
 // rewrites them only after the second barrier, which every block reaches
 // after its slice's sums.
-template <int U, class Stage, class Grad>
+//
+// PROBES (K6: the wide K2 chain form's probe instance, K probes a sample):
+// the tile arrays hold one probe's residuals, so a tile's stage runs in
+// sub-passes, adjoint_solve's PROBES form for a tile.  The block calls
+// `stage.probes(s0, nv, Z, AZ, KZ, KR, KAZ, flush)`, which calls `flush()`
+// after each probe has left its residuals in the tile arrays; a flush adds
+// the tile's probe terms `grad.probe(q, nv)` of every entry q into the b-,
+// btilde- (and btilde3-) weighted vectors and the stage-rate partial, and
+// after the stage the forward chain's `grad.fwd(q, nv)` follows: the
+// sub-passes sum to the stage's g rate (in another order).
+template <int U, bool PROBES = false, class Stage, class Grad>
 __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const Grad& grad, int Pg, int T,
                                     float* scratch, float* gblk, float* gcur, float* gnew, float* red) {
   cg::grid_group grid = cg::this_grid();
@@ -1054,26 +1064,54 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
   float* k7p = k1p + Pg;              // and its last stage's
   const int q0 = (int)((long long)Pg * blockIdx.x / G), q1 = (int)((long long)Pg * (blockIdx.x + 1) / G);
 
-  // Stage st of the tile (st = 0: at Y) into the plane K[st].
-  auto eval = [&](int tile, int st, float dt_use) {
+  // Stage st of the tile (st = 0: at Y) into the plane K[st].  (The stage
+  // comes in as an argument so that a PROBES instance, whose stage has only
+  // `probes`, never instantiates the call.)
+  auto eval = [&](const auto& stg, int tile, int st, float dt_use) {
     const int s0 = tile * T, nv = min(T, B - s0);
     tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, 0, dz, s0, nv, T, Z, zp);
     tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, dz + 3, dz, s0, nv, T, AZ, zp);
     __syncthreads();
-    stage(s0, nv, Z, AZ, KZ, KR, KAZ);
+    stg(s0, nv, Z, AZ, KZ, KR, KAZ);
     float* kst = K + st * RB;
     tile_store(KZ, zp, dz, kst, 0, B, s0, nv, T);
     tile_store(KR, 3, 3, kst, dz, B, s0, nv, T);
     tile_store(KAZ, zp, dz, kst, dz + 3, B, s0, nv, T);
     return nv;
   };
+  // PROBES: eval in its sub-passes; `pass(term)` adds one sub-pass's g rate
+  // entries term(q) of the tile into the block's vectors.
+  auto eval_probes = [&](const auto& stg, const auto& grd, int tile, int st, float dt_use, const auto& pass) {
+    const int s0 = tile * T, nv = min(T, B - s0);
+    tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, 0, dz, s0, nv, T, Z, zp);
+    tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, dz + 3, dz, s0, nv, T, AZ, zp);
+    __syncthreads();
+    auto flush = [&]() {
+      __syncthreads();
+      pass([&](int q) { return grd.probe(q, nv); });
+      __syncthreads();
+    };
+    stg.probes(s0, nv, Z, AZ, KZ, KR, KAZ, flush);
+    float* kst = K + st * RB;
+    tile_store(KZ, zp, dz, kst, 0, B, s0, nv, T);
+    tile_store(KR, 3, 3, kst, dz, B, s0, nv, T);
+    tile_store(KAZ, zp, dz, kst, dz + 3, B, s0, nv, T);
+    pass([&](int q) { return grd.fwd(q, nv); });
+    __syncthreads();
+  };
   // Stage 1 at the current state, its g rate partial into k1p.
   auto stage1 = [&]() {
     for (int q = threadIdx.x; q < Pg; q += blockDim.x) k1p[q] = 0.f;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int nv = eval(tile, 0, 0.f);
-      for (int q = threadIdx.x; q < Pg; q += blockDim.x) k1p[q] += grad(q, nv);
-      __syncthreads();
+      if constexpr (PROBES) {
+        eval_probes(stage, grad, tile, 0, 0.f, [&](const auto& term) {
+          for (int q = threadIdx.x; q < Pg; q += blockDim.x) k1p[q] += term(q);
+        });
+      } else {
+        const int nv = eval(stage, tile, 0, 0.f);
+        for (int q = threadIdx.x; q < Pg; q += blockDim.x) k1p[q] += grad(q, nv);
+        __syncthreads();
+      }
     }
   };
 
@@ -1109,36 +1147,72 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
 #pragma unroll 1
       for (int st = 1; st < S; ++st) {
-        const int nv = eval(tile, st, dt_use);
-        const float bs = Tb.b[st], bt = Tb.btilde[st], bt3 = Tb.btilde3[st];
-        const float cb = dt_use * bs, ce = dt_use * bt, ce3 = dt_use * bt3;
-        const bool last = fsal && st == S - 1;
-        // kG entries a thread at a time: their global vectors are loaded
-        // before the rates are summed, so the loads' latency overlaps.
-        constexpr int kG = 4;
-        for (int q0 = threadIdx.x; q0 < Pg; q0 += kG * blockDim.x) {
-          float vb[kG], ve[kG], ve3[kG], v7[kG];
+        if constexpr (PROBES) {
+          const float bs = Tb.b[st], bt = Tb.btilde[st], bt3 = Tb.btilde3[st];
+          const float cb = dt_use * bs, ce = dt_use * bt, ce3 = dt_use * bt3;
+          const bool last = fsal && st == S - 1;
+          // One sub-pass's g rate entries term(q) into GB, GE (GE3) and k7p,
+          // kG entries a thread at a time as below.  (The one-probe path
+          // keeps its own copy of the loop: through this lambda its SASS
+          // changed, and it compiles as it did before the probe instance.)
+          auto add_rates = [&](const auto& term) {
+            constexpr int kG = 4;
+            for (int q0 = threadIdx.x; q0 < Pg; q0 += kG * blockDim.x) {
+              float vb[kG], ve[kG], ve3[kG], v7[kG];
 #pragma unroll
-          for (int j = 0; j < kG; ++j) {
-            const int q = q0 + j * blockDim.x;
-            if (q >= Pg) continue;
-            vb[j] = GB[q];
-            ve[j] = GE[q];
-            if (has3) ve3[j] = GE3[q];
-            if (last) v7[j] = k7p[q];
-          }
+              for (int j = 0; j < kG; ++j) {
+                const int q = q0 + j * blockDim.x;
+                if (q >= Pg) continue;
+                vb[j] = GB[q];
+                ve[j] = GE[q];
+                if (has3) ve3[j] = GE3[q];
+                if (last) v7[j] = k7p[q];
+              }
 #pragma unroll
-          for (int j = 0; j < kG; ++j) {
-            const int q = q0 + j * blockDim.x;
-            if (q >= Pg) continue;
-            const float g = grad(q, nv);
-            if (bs != 0.f) GB[q] = fmaf(cb, g, vb[j]);
-            if (bt != 0.f) GE[q] = fmaf(ce, g, ve[j]);
-            if (has3 && bt3 != 0.f) GE3[q] = fmaf(ce3, g, ve3[j]);
-            if (last) k7p[q] = v7[j] + g;
+              for (int j = 0; j < kG; ++j) {
+                const int q = q0 + j * blockDim.x;
+                if (q >= Pg) continue;
+                const float g = term(q);
+                if (bs != 0.f) GB[q] = fmaf(cb, g, vb[j]);
+                if (bt != 0.f) GE[q] = fmaf(ce, g, ve[j]);
+                if (has3 && bt3 != 0.f) GE3[q] = fmaf(ce3, g, ve3[j]);
+                if (last) k7p[q] = v7[j] + g;
+              }
+            }
+          };
+          eval_probes(stage, grad, tile, st, dt_use, add_rates);
+        } else {
+          const int nv = eval(stage, tile, st, dt_use);
+          const float bs = Tb.b[st], bt = Tb.btilde[st], bt3 = Tb.btilde3[st];
+          const float cb = dt_use * bs, ce = dt_use * bt, ce3 = dt_use * bt3;
+          const bool last = fsal && st == S - 1;
+          // kG entries a thread at a time: their global vectors are loaded
+          // before the rates are summed, so the loads' latency overlaps.
+          constexpr int kG = 4;
+          for (int q0 = threadIdx.x; q0 < Pg; q0 += kG * blockDim.x) {
+            float vb[kG], ve[kG], ve3[kG], v7[kG];
+#pragma unroll
+            for (int j = 0; j < kG; ++j) {
+              const int q = q0 + j * blockDim.x;
+              if (q >= Pg) continue;
+              vb[j] = GB[q];
+              ve[j] = GE[q];
+              if (has3) ve3[j] = GE3[q];
+              if (last) v7[j] = k7p[q];
+            }
+#pragma unroll
+            for (int j = 0; j < kG; ++j) {
+              const int q = q0 + j * blockDim.x;
+              if (q >= Pg) continue;
+              const float g = grad(q, nv);
+              if (bs != 0.f) GB[q] = fmaf(cb, g, vb[j]);
+              if (bt != 0.f) GE[q] = fmaf(ce, g, ve[j]);
+              if (has3 && bt3 != 0.f) GE3[q] = fmaf(ce3, g, ve3[j]);
+              if (last) k7p[q] = v7[j] + g;
+            }
           }
+          __syncthreads();
         }
-        __syncthreads();
       }
       // The tile's proposals and errors: z, acc and a_z rows (a_acc is
       // constant: zero error, but counted in n_elems).

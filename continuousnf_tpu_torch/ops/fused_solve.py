@@ -55,10 +55,11 @@ Each runs one whole adaptive solve in one cooperative launch, with one
 batch-global error norm per attempted step, under any explicit tableau with
 an embedded error estimate (K9: `_stretched_eest` :766-770 and the non-FSAL
 refresh :914-922, :1293-1298; the tableau is a run-time argument,
-`_tableau_array`).  K1, K2 and their narrow chain forms have a second,
-probe instance each (K6): K Hutchinson probes (eps (K, B, dz)), reverse or
-forward mode, K and the direction run-time values; the one-VJP-probe
-instance stays as it was, and the wrappers take it for K = 1 VJP.  The
+`_tableau_array`).  K1, K2, their chain forms and the chain forms' wide
+forms have a second, probe instance each (K6): K Hutchinson probes (eps
+(K, B, dz)), reverse or forward mode, K and the direction run-time values;
+the one-VJP-probe instance stays as it was, and the wrappers take it for
+K = 1 VJP.  The
 chain kernels also take conditional nets (K8: the
 first layer reads [z | ys], ys constant over the solve; the K2 chain form
 integrates the per-sample ys cotangent) and identity layers (K9,
@@ -751,22 +752,20 @@ def _wide_chain(spec: ChainSpec) -> bool:
     return spec.dz > MAX_DZ or max(spec.out_dims[:-1], default=0) > CHAIN_MAX_WIDTH
 
 
-def _wide_smem_floats(spec: ChainSpec) -> int:
+def _wide_smem_floats(spec: ChainSpec, probes: bool = False) -> int:
     """Shared-memory floats of the wide K2 chain form, the widest of the wide
     forms, at its smallest tile of 4 samples (csrc/k2_wide_adjoint.cu): the
     weights at odd pitches, the reduction slots and 4 rows of 9 dz-vectors
-    and 4 hidden blocks (each row padded to a multiple of 4) and 7 floats."""
+    and 4 hidden blocks (each row padded to a multiple of 4) and 7 floats;
+    its probe instance (`probes`, K6) one more dz-vector and hidden block a
+    row."""
     def pad4(x):
         return -(-x // 4) * 4
 
     weights = sum(a * (b | 1) + b for a, b in zip(spec.in_dims, spec.out_dims))
     hsum = sum(pad4(h) for h in spec.out_dims[:-1])
-    return pad4(weights) + 100 + 4 * (9 * pad4(spec.dz) + 4 * hsum + 7)
-
-
-def _wide_probes(k_probes: int, jvp: bool) -> str:
-    return (f"{k_probes} {'JVP' if jvp else 'VJP'} Hutchinson probes in the wide chain forms (K6 in the wide forms, "
-            "ROADMAP queue 2; they take one VJP probe)")
+    vectors, blocks = (10, 5) if probes else (9, 4)
+    return pad4(weights) + 100 + 4 * (vectors * pad4(spec.dz) + blocks * hsum + 7)
 
 
 def _kernel_covers(
@@ -784,9 +783,9 @@ def _kernel_covers(
     unconditional chains beyond, up to WIDE_MAX_DZ and WIDE_MAX_WIDTH, whose
     weights fit in a block's shared memory beside a tile; a narrow chain
     whose weights and per-thread slots do not fit in shared memory is
-    refused at launch (`_launch_shape`).  The Hutchinson kernels (K1, K2 and
-    their narrow chain forms) take any number `k_probes` of VJP or (`jvp`)
-    JVP probes (K6); the wide forms one VJP probe."""
+    refused at launch (`_launch_shape`).  The Hutchinson kernels (K1, K2,
+    their chain forms and the chain forms' wide forms) take any number
+    `k_probes` of VJP or (`jvp`) JVP probes (K6)."""
     if tab.btilde is None:
         return f"the {tab.name} tableau (no embedded error estimate: fixed-step solves stay outside the kernels)"
     if tab.num_stages > MAX_STAGES:
@@ -812,8 +811,6 @@ def _kernel_covers(
                 "deeper chains: ROADMAP queue 2, shape variants)")
     if not _wide_chain(spec):
         return None
-    if k_probes != 1 or jvp:
-        return _wide_probes(k_probes, jvp)
     if spec.dz > WIDE_MAX_DZ:
         return (f"state width {spec.dz} > {WIDE_MAX_DZ} (the wide chain forms take up to {WIDE_MAX_DZ}; "
                 "ROADMAP queue 2, shape variants)")
@@ -823,7 +820,7 @@ def _kernel_covers(
                 "ROADMAP queue 2, shape variants)")
     if spec.n_cond:
         return "conditional wide chains (K8 in the wide chain forms, ROADMAP queue 2, shape variants)"
-    need = 4 * _wide_smem_floats(spec)
+    need = 4 * _wide_smem_floats(spec, k_probes != 1 or jvp)
     if need > WIDE_SMEM_BYTES:
         return (f"weights too large for the wide chain forms' shared memory ({need} bytes with a 4-sample tile, "
                 f"over {WIDE_SMEM_BYTES}; chains of larger weights: ROADMAP queue 2, shape variants)")
@@ -929,6 +926,8 @@ _SIGNATURES = {
     K1W_KERNEL: {
         "cnf_k1w_shape": _WIDE_SHAPE,
         "cnf_k1w_train_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k1wp_shape": _WIDE_SHAPE,
+        "cnf_k1w_probe_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K7W_KERNEL: {
         "cnf_k7w_test_shape": _WIDE_SHAPE,
@@ -939,6 +938,8 @@ _SIGNATURES = {
     K2W_KERNEL: {
         "cnf_k2w_shape": _WIDE_SHAPE,
         "cnf_k2w_train_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k2wp_shape": _WIDE_SHAPE,
+        "cnf_k2w_probe_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
 }
 
@@ -1005,8 +1006,7 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
                wide: bool = False, jvp: bool = False) -> None:
     """Raise unless `label`'s kernel takes the configuration on CUDA tensors:
     a chain kernel's narrow form (`wide` False) takes no wide chain, its
-    wide form any chain the chain kernels cover unconditionally, with one
-    VJP probe."""
+    wide form any chain the chain kernels cover unconditionally."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
     why = _kernel_covers(tab, spec, k_probes, chain, jvp)
@@ -1015,8 +1015,6 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
                f"{MAX_DZ} and {CHAIN_MAX_WIDTH}: their wide forms take the chain)")
     if why is None and wide and spec.n_cond:
         why = "conditional wide chains (K8 in the wide chain forms, ROADMAP queue 2, shape variants)"
-    if why is None and wide and (k_probes != 1 or jvp):
-        why = _wide_probes(k_probes, jvp)
     if why is not None:
         raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
@@ -1646,12 +1644,15 @@ def _launch_wide_forward(label, lib_name, entry, shape, tab, spec, *, rtol, atol
     """Launch a wide forward kernel, whose C arguments are (params, [eps], z0,
     acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths, acts,
     max_steps, *norms, rtol, atol, the controller, the tableau, tile, grid,
-    block, stream).  Returns (zT, accT, steps, accepted, dt_last, dt_used)."""
+    block, stream); `norms` ends with K and jvp for the wide K1 chain form's
+    probe instance, and eps is (K, B, dz).  Returns (zT, accT, steps,
+    accepted, dt_last, dt_used)."""
     B, dz = z0.shape
     device = z0.device
     params, widths = _chain_params(label, spec, ws, bs, device)
-    probe = [] if eps is None else [eps[0]]
-    z0, acc0, *probe = _check_inputs(label, device, [z0, acc0] + probe, [(B, dz), tuple(acc0.shape), (B, dz)])
+    probe = [] if eps is None else [eps]
+    z0, acc0, *probe = _check_inputs(label, device, [z0, acc0] + probe,
+                                     [(B, dz), tuple(acc0.shape)] + [(x.shape[0], B, dz) for x in probe])
     lib = _library(lib_name)
     block, grid, tile = _wide_shape(lib, shape, label, spec, widths, B)
     ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
@@ -1727,8 +1728,8 @@ def run_wide_train_solve_kernel(
     returns as `run_train_solve_kernel`.
 
     CUDA tensors go through the kernel (`csrc/k1_wide_solve.cu`: one VJP
-    probe; K6 in the wide forms is not ported), CPU tensors through its
-    plain version."""
+    probe in its first instance, any other probes in its probe instance,
+    K6), CPU tensors through its plain version."""
     _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_plain(
@@ -1736,29 +1737,34 @@ def run_wide_train_solve_kernel(
             ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys, jvp=jvp,
         )
     _cuda_only("wide K1", z0, tab, spec, eps.shape[0], chain=True, wide=True, jvp=jvp)
+    probes = _probe_instance(eps, jvp)
     out = _launch_wide_forward(
-        "wide K1 chain form", K1W_KERNEL, "cnf_k1w_train_solve", "cnf_k1w_shape", tab, spec, rtol=rtol, atol=atol,
-        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
-        norms=(norm_z, norm_j),
+        "wide K1 chain form", K1W_KERNEL, "cnf_k1w_probe_solve" if probes else "cnf_k1w_train_solve",
+        "cnf_k1wp_shape" if probes else "cnf_k1w_shape", tab, spec, rtol=rtol, atol=atol, max_steps=max_steps,
+        ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
+        norms=(norm_z, norm_j) + ((eps.shape[0], jvp) if probes else ()),
     )
-    run_wide_train_solve_kernel.launches += 1
+    _count(run_wide_train_solve_kernel, eps, jvp)
     return out
 
 
 run_wide_train_solve_kernel.launches = 0
+run_wide_train_solve_kernel.probe_launches = {}
 
 
 def _launch_wide_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-                         t_hi, t_lo, dt_init):
+                         t_hi, t_lo, dt_init, jvp=False):
     label = "wide K2 chain form"
     B, dz = zT.shape
+    K = eps.shape[0]
     device = zT.device
     params, widths = _chain_params(label, spec, ws, bs, device)
     e0, zT, accT, azT, aaccT = _check_inputs(
-        label, device, [eps[0], zT, accT, azT, aaccT], [(B, dz), (B, dz), (3, B), (B, dz), (3, B)]
+        label, device, [eps, zT, accT, azT, aaccT], [(K, B, dz), (B, dz), (3, B), (B, dz), (3, B)]
     )
     lib = _library(K2W_KERNEL)
-    block, grid, tile = _wide_shape(lib, "cnf_k2w_shape", label, spec, widths, B)
+    probes = _probe_instance(eps, jvp)
+    block, grid, tile = _wide_shape(lib, "cnf_k2wp_shape" if probes else "cnf_k2w_shape", label, spec, widths, B)
     P = params.numel()
     f32 = dict(dtype=torch.float32, device=device)
     ts = torch.stack([t_hi, t_lo, dt_init]).to(**f32)
@@ -1768,11 +1774,12 @@ def _launch_wide_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws
     work = torch.empty((tab.num_stages + 2) * (2 * dz + 3) * B, **f32)
     partials = torch.empty(10 * grid, **f32)
     gblk = torch.empty(grid * (_gvecs(tab) + 2) * P, **f32)
-    err = lib.cnf_k2w_train_adjoint(
+    entry = lib.cnf_k2w_probe_adjoint if probes else lib.cnf_k2w_train_adjoint
+    err = entry(
         _ptr(params), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
         _ptr(az0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), B, spec.n_layers,
-        widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
-        _tableau_array(tab), tile, grid, block, _stream(device),
+        widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j), *([K, int(jvp)] if probes else []),
+        rtol, atol, *_controller_floats(tab), _tableau_array(tab), tile, grid, block, _stream(device),
     )
     _check_launch(err, label, grid, block)
     g_ws, g_bs = _split_params(g, spec)
@@ -1788,8 +1795,8 @@ def run_wide_adjoint_kernel(
     as `run_adjoint_kernel`.
 
     CUDA tensors go through the kernel (`csrc/k2_wide_adjoint.cu`: one VJP
-    probe; K6 in the wide forms is not ported), CPU tensors through its
-    plain version."""
+    probe in its first instance, any other probes in its probe instance,
+    K6), CPU tensors through its plain version."""
     _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
     if zT.device.type == "cpu":
         return adjoint_train_plain(
@@ -1802,12 +1809,13 @@ def run_wide_adjoint_kernel(
         raise ValueError("the wide K2 chain form needs dt_init (the caller picks it)")
     out = _launch_wide_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
                                ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo,
-                               dt_init=dt_init)
-    run_wide_adjoint_kernel.launches += 1
+                               dt_init=dt_init, jvp=jvp)
+    _count(run_wide_adjoint_kernel, eps, jvp)
     return out
 
 
 run_wide_adjoint_kernel.launches = 0
+run_wide_adjoint_kernel.probe_launches = {}
 
 
 #: Every kernel's wrapper by kernel name (K10's, the per-stage field, from
@@ -1834,7 +1842,8 @@ KERNEL_WRAPPERS = {
 
 #: The Hutchinson kernels' wrappers, whose `.probe_launches[(K, jvp)]`
 #: counts their probe instance's launches by probe count and direction (K6).
-PROBE_WRAPPERS = (run_train_solve_kernel, run_adjoint_kernel, run_chain_train_solve_kernel, run_chain_adjoint_kernel)
+PROBE_WRAPPERS = (run_train_solve_kernel, run_adjoint_kernel, run_chain_train_solve_kernel, run_chain_adjoint_kernel,
+                  run_wide_train_solve_kernel, run_wide_adjoint_kernel)
 
 
 def reset_launches() -> None:
@@ -1870,8 +1879,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     kernels do not cover does not raise on a path that would not use
     them).  Within
     those, what this port has not reached raises NotImplementedError: bf16
-    stages, and on the card K > 1 or JVP probes (K6) in the wide chain
-    forms.  The flat layout
+    stages.  The flat layout
     is [z.ravel() (batch-major) | dlogp] in TEST mode and
     [z.ravel() | dlogp | reg_e | reg_n] in TRAIN mode; the conditioning
     `args["ys"]` ((B, n_cond), (1, n_cond) or (n_cond,)) is broadcast to
@@ -1921,7 +1929,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     jvp = cm.ad == ADMode.JVP
     if cm.bf16:
         raise NotImplementedError(
-            "bf16 stage matmuls in the fused solve are not ported (ROADMAP queue 2, K3 variants)"
+            "bf16 stage matmuls in the fused solve are not ported (ROADMAP queue 2, bf16 stage dots)"
         )
 
     from ..core.dynamics import TestState, TrainState, make_augmented_dynamics

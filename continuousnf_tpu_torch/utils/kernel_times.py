@@ -20,8 +20,8 @@ has K10 (the per-stage TRAIN field), one launch on the flagship's z0 and
 probe (the "k10" key, [ms, 0]: a call's time, which its launch dominates).
 With `--probes K` (K Gaussian probes) or `--jvp` (forward-mode probes) it
 times only the Hutchinson kernels, K1 and K2 and their chain forms, through
-their probe instances (K6; the "/K<K>" or "/jvp-K<K>" keys); the wide forms
-take one VJP probe.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
+their probe instances (K6; the "/K<K>" or "/jvp-K<K>" keys), with the wide
+forms on miniboone43 where `--models` names it.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
 one JSON line {"tableau": ..., "kernels": {name: [ms, attempted steps]}}.
 
 By default it uses only wrappers that earlier versions of the package have
@@ -73,9 +73,7 @@ def main() -> int:
         kernels = {"flagship": [fs.K1_KERNEL, fs.K2_KERNEL], "power6": [fs.K1C_KERNEL, fs.K2C_KERNEL],
                    "cond_gaussian": [fs.K1C_KERNEL, fs.K2C_KERNEL]}
     if "miniboone43" in models:
-        if probes:
-            raise SystemExit("the wide chain forms take one VJP probe (K6 in the wide forms is not ported)")
-        kernels["miniboone43"] = [fs.K1W_KERNEL, fs.K2W_KERNEL, fs.K7W_KERNEL]
+        kernels["miniboone43"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [fs.K7W_KERNEL])
     _build.build_libraries(sorted({k for m in models for k in kernels[m]}))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -120,10 +118,12 @@ def main() -> int:
         adj = dict(azT=T(rng.normal(0.0, 1.0 / B, (B, dz))),
                    aaccT=T(np.stack([np.full(B, 1.0 / B), np.full(B, 1e-2 / B), np.full(B, 1e-2 / B)])))
         test = dict(base, z0=z0, dlogp0=T(rng.normal(0.0, 0.1, B)))
-        if probes and name != "miniboone43":
-            keys = ("k1", "k2") if name == "flagship" else ("k1c" + tag, "k2c" + tag)
-            runs = ((fs.run_train_solve_kernel, fs.run_adjoint_kernel) if name == "flagship"
-                    else (fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel))
+        if probes:
+            keys = {"flagship": ("k1", "k2"), "miniboone43": ("k1c_wide", "k2c_wide")}.get(name, ("k1c" + tag,
+                                                                                             "k2c" + tag))
+            runs = {"flagship": (fs.run_train_solve_kernel, fs.run_adjoint_kernel),
+                    "miniboone43": (fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel)}.get(
+                name, (fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel))
             time_pair(tuple(k + suffix for k in keys), spec, *runs, dict(train, eps=eps, **probe_kw),
                       dict(adj, eps=eps, **probe_kw))
         elif name == "flagship":

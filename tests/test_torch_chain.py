@@ -253,6 +253,8 @@ _COVERED = {
     "two-layer-two-probes": ((16, 48, 16), TSIT5, None, 0, 2, False),
     "conditional-jvp": (POWER6, TSIT5, None, 2, 3, True),
     "two-layer-jvp": ((16, 48, 16), TSIT5, None, 0, 1, False),
+    "wide-two-probes": ((43, 64, 64, 43), TSIT5, None, 0, 2, True),
+    "wide-jvp": ((43, 64, 64, 43), TSIT5, None, 0, 1, True),
 }
 _UNCOVERED = {
     "five-layer": ((6, 16, 16, 16, 16, 6), TSIT5, None, 0, 1, True, "at most 4 layers"),
@@ -260,8 +262,6 @@ _UNCOVERED = {
     "one-layer": ((6, 6), TSIT5, None, 0, 1, False, "1-layer"),
     "one-layer-chain-kernels": ((6, 6), TSIT5, None, 0, 1, True, "1-layer"),
     "three-layer-2-layer-kernels": (POWER6, TSIT5, None, 0, 1, False, "K3, K1, K2 and K4 take 2 layers"),
-    "wide-two-probes": ((43, 64, 64, 43), TSIT5, None, 0, 2, True, "K6 in the wide forms"),
-    "wide-jvp": ((43, 64, 64, 43), TSIT5, None, 0, 1, True, "K6 in the wide forms"),
 }
 
 
@@ -280,7 +280,7 @@ def test_kernel_coverage_rule(name):
     not, and through their wide forms unconditional ones up to 128 and 64
     (the fused solve takes them for 3 and 4 layers, for conditional nets and
     for identity layers), both every embedded explicit tableau, and K VJP or
-    JVP probes in the Hutchinson kernels but the wide forms; the rest names its
+    JVP probes in the Hutchinson kernels, the wide forms included; the rest names its
     limit or the kernel still to port (a 2-layer conditional exact-TRAIN
     backward needs the K4 adjoint with ys rows: K8 in the 2-layer
     kernels)."""

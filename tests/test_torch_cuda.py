@@ -298,24 +298,34 @@ def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
     ps_np = _np_params((5, 15, 5), 6)
     xs = torch.from_numpy(np.random.default_rng(7).uniform(size=(8, 3)).astype(np.float32)).to(dev)
     if kernel == "K6-wide-forms":
-        # K probes or JVP probes on a chain past the narrow widths: the
-        # wide forms take one VJP probe, and nothing launches.
+        # K probes or JVP probes on a chain past the narrow widths, which the
+        # wide forms' probe instances took over from this refusal: each runs
+        # and holds to its twin, counted under its (K, jvp), and a K-probe
+        # TRAIN inference launches the wide K1 chain form's probe instance.
         dims = (43, 64, 64, 43)
         spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
         kw, adj = _train_args(dims, 8, (0.0, 1.0), dev)
-        adj.update(zT=kw["z0"], accT=kw["acc0"], dt_init=torch.tensor(-0.05, device=dev))
-        before = _launches()
+        runs = (tfs.run_wide_train_solve_kernel, tfs.run_wide_adjoint_kernel)
         for k, jvp in ((2, False), (1, True)):
             kw["eps"] = adj["eps"] = torch.randn(k, 8, dims[-1], device=dev)
-            for run, args in ((tfs.run_wide_train_solve_kernel, kw), (tfs.run_wide_adjoint_kernel, adj)):
-                with pytest.raises(NotImplementedError, match="K6 in the wide forms"):
-                    run(TSIT5, spec, **args, jvp=jvp)
+            before = [w.probe_launches.get((k, jvp), 0) for w in runs]
+            with torch.no_grad():
+                out_k = runs[0](TSIT5, spec, **kw, jvp=jvp)
+                out_p = tfs.solve_train_plain(TSIT5, spec, **kw, jvp=jvp)
+                adj.update(zT=out_k[0], accT=out_k[1], dt_init=-out_k[4].abs())
+                adj_k = runs[1](TSIT5, spec, **adj, jvp=jvp)
+                adj_p = tfs.adjoint_train_plain(TSIT5, spec, **adj, jvp=jvp)
+                adj_64 = _twin64(tfs.adjoint_train_plain, spec, dict(adj, jvp=jvp))
+            torch.cuda.synchronize()
+            assert [w.probe_launches.get((k, jvp), 0) for w in runs] == [n + 1 for n in before]
+            assert _forward_matches(out_k, out_p) and _adjoint_matches(adj_k, adj_p, adj_64)
         icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(dims, device=dev), 43, 0, compute_mode=tcnf.VecJacMode(2, fused=True))
         ps = tcnf.params_from_numpy(_np_params(dims, 6), dev)
         xs43 = torch.from_numpy(np.random.default_rng(7).normal(size=(8, 43)).astype(np.float32)).to(dev)
-        with pytest.raises(NotImplementedError, match="K6 in the wide forms"):
-            tcnf.inference(icnf, tcnf.Mode.TRAIN, xs43, ps, generator=torch.Generator(dev).manual_seed(0))
-        assert _launches() == before
+        before = runs[0].probe_launches.get((2, False), 0)
+        with torch.no_grad():
+            lp, _, _ = tcnf.inference(icnf, tcnf.Mode.TRAIN, xs43, ps, generator=torch.Generator(dev).manual_seed(0))
+        assert runs[0].probe_launches[(2, False)] == before + 1 and bool(torch.isfinite(lp).all())
         return
     if kernel == "K8-conditional":
         # A 2-layer conditional exact-TRAIN gradient: its forward runs in K7
@@ -444,13 +454,16 @@ _K6_CASES = {
     "power6-jvp-reverse": (POWER6, 1000, 2, True, True, (1.0, 0.0)),
     "conditional-K2": ((5, 16, 16, 3), 300, 2, False, True, (0.0, 2.0)),
     "conditional-jvp-K2": ((5, 16, 16, 3), 300, 2, True, True, (0.0, 2.0)),
+    "miniboone-K2": ((43, 128, 128, 43), 300, 2, False, True, (0.0, 1.0)),
+    "miniboone-jvp": ((43, 128, 128, 43), 300, 1, True, True, (0.0, 1.0)),
 }
 
 
 @pytest.mark.parametrize("case", list(_K6_CASES))
 def test_probe_kernels_match_twins(dev, case):
-    """K6: the probe instances of K1 and K2 (or of their chain forms) with K
-    VJP or JVP probes against their twins: the forward from nonzero
+    """K6: the probe instances of K1 and K2 (or of their chain forms, narrow
+    or, past the narrow widths, wide) with K VJP or JVP probes against their
+    twins: the forward from nonzero
     accumulators (equal steps, values within REL), the adjoint from its
     output with its last step as the warm start (equal steps, z0 and a_z0
     held to the float64 twin, gradients and a_ys0 within GRAD_REL), each
@@ -469,8 +482,12 @@ def test_probe_kernels_match_twins(dev, case):
     adj.update(eps=kw["eps"], jvp=jvp, azT=T(rng.normal(0.0, 1.0 / B, (B, dz))))
     if n_cond:
         kw["ys"] = adj["ys"] = _ys(B, n_cond, dev)
-    run1, run2 = ((tfs.run_chain_train_solve_kernel, tfs.run_chain_adjoint_kernel) if chain
-                  else (tfs.run_train_solve_kernel, tfs.run_adjoint_kernel))
+    if chain and tfs._wide_chain(spec):
+        run1, run2 = tfs.run_wide_train_solve_kernel, tfs.run_wide_adjoint_kernel
+    elif chain:
+        run1, run2 = tfs.run_chain_train_solve_kernel, tfs.run_chain_adjoint_kernel
+    else:
+        run1, run2 = tfs.run_train_solve_kernel, tfs.run_adjoint_kernel
     before = [w.probe_launches.get((k, jvp), 0) for w in (run1, run2)]
     with torch.no_grad():
         out_k = run1(TSIT5, spec, **kw)
