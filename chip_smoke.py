@@ -72,7 +72,15 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     and the trajectory example (examples/trajectory_plot.py: FFJORD, MLP
     2 -> 32 -> 32 -> 2 tanh, tspan (0, 8), saveat linspace(0, 8, 33),
     `inference(..., trajectory=True)` on 64 two-moons points) through K7
-    TEST per segment.
+    TEST per segment;
+  * 2-layer nets past state width 32: the README net family
+    MLP((n_in, 3 n_in, n_in)) at the HEPMASS width (hepmass42: RNODE,
+    nvars = naug = 21, MLP 42 -> 126 -> 42 tanh, the flagship recipe, batch
+    4096), served through wide K3 (`logpdf`, `sample(4096)`), its TEST loss
+    gradient and score through wide K3 and wide K5, trained through the
+    wide K1 and K2 chain forms (`fit`, four Lion steps; one K = 4 and one
+    JVP loss gradient through their probe instances) and, under exact
+    trace, through wide K7 exact and the wide K4 adjoint.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -299,7 +307,29 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      times and no other kernel;
  60. the wide probe curve: CUDA-event times and microseconds per attempted
      step of both wide kernels at K = 1 (the one-probe instance), 2, 4
-     and 8 on the same inputs.
+     and 8 on the same inputs;
+ 61. hepmass42 at B = 4096: the launch shapes of wide K3, wide K5 and the
+     wide K4 adjoint (threads, blocks, tile, the K4 adjoint's basis rows a
+     chunk, shared memory; registers in phase 2);
+ 62. the path's six kernels against their twins, held as in phases 7 and
+     11 and timed: wide K3, the wide K1 chain form and wide K7 exact from
+     nonzero accumulators; wide K5 from wide K3's output, the wide K2 chain
+     form from the wide K1 chain form's and the wide K4 adjoint from wide
+     K7 exact's, each warm-started from its forward's last step;
+ 63. logpdf through wide K3 against the plain path, held as in phase 5;
+ 64. the Hutchinson, exact and TEST losses and their gradients (the TEST
+     one in xs too) through fused=True, fused=False and a float64 rtol
+     1e-7 solve, held as in phases 8 and 47, counters reset just before
+     each fused call: the Hutchinson gradient launches the wide K1 and K2
+     chain forms once each, the exact one wide K7 exact and the wide K4
+     adjoint, the TEST one wide K3 and wide K5, and nothing else; one K = 4
+     and one JVP loss gradient launch the wide probe instances once each;
+ 65. the main paths, counters reset just before each: logpdf and sample
+     launch wide K3 twice and nothing else; `fit` for four Lion steps the
+     wide K1 and K2 chain forms four times each; the exact `fit` wide K7
+     exact and the wide K4 adjoint four times each;
+ 66. CUDA-event times of the train step, the exact train step, `logpdf`
+     and the TEST loss gradient.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -2636,6 +2666,181 @@ def direct_paths(cnf, fs, dev, sample_draw):
                           err, ms_k10, ms_p10, 4 * dz * H, BATCH, 0, 2 * dz * H + H + dz + BATCH * (3 * dz + 3))]
 
 
+# ---- 2-layer nets past state width 32: the README net family at the HEPMASS width ----
+
+
+def wide_two_layer_names(fs):
+    """The hepmass42 path's kernels: record key -> (KERNEL_WRAPPERS name,
+    wrapper, twin, source, the TPU site)."""
+    at = "continuousnf_tpu/ops/fused_solve.py:"
+    return {
+        "k3w": (fs.K3W_KERNEL, fs.run_wide_test2_solve_kernel, fs.solve_test_plain, "k3_wide_solve.cu", at + "1043"),
+        "k5w": (fs.K5W_KERNEL, fs.run_wide_test_adjoint_kernel, fs.adjoint_test_plain, "k5_wide_adjoint.cu",
+                at + "1767"),
+        "k4w": (fs.K4WA_KERNEL, fs.run_wide_exact_adjoint_kernel, fs.adjoint_train_exact_plain, "k4_wide_adjoint.cu",
+                at + "1767"),
+        "k1c": (fs.K1W_KERNEL, fs.run_wide_train_solve_kernel, fs.solve_train_plain, "k1_wide_solve.cu", at + "1043"),
+        "k2c": (fs.K2W_KERNEL, fs.run_wide_adjoint_kernel, fs.adjoint_train_plain, "k2_wide_adjoint.cu", at + "1767"),
+        "k7e": (fs.K7W_KERNEL + "/exact", fs.run_wide_exact_solve_kernel, fs.solve_train_exact_plain,
+                "k7_wide_solve.cu", at + "1043"),
+    }
+
+
+def wide_two_layer(cnf, fs, dev):
+    """Phases 61 to 66: the README net family MLP((n_in, 3 n_in, n_in)) at
+    the HEPMASS width (hepmass42: RNODE, nvars = naug = 21, MLP 42 -> 126 ->
+    42 tanh, the flagship recipe, B = 4096), past the 2-layer kernels' state
+    width: wide K3 and wide K5 (TEST), the wide K1 and K2 chain forms
+    (Hutchinson TRAIN), wide K7 exact and the wide K4 adjoint (exact TRAIN).
+    Returns their records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    cfg = MODELS["hepmass42"]
+    dims, B = cfg["dims"], BATCH
+    dz, H = dims[0], dims[1]
+    rng = np.random.default_rng(SEED + 400)
+    ps_np = glorot_params(rng, dims)
+    xs = torch.from_numpy(model_data("hepmass42", rng, B)).to(dev)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    model = lambda **kw: make_icnf("hepmass42", dev, **kw)  # noqa: E731
+    icnf_k, icnf_p = model(), model(fused=False)
+    spec = fs.chain_spec(icnf_k.nn, icnf_k.zdim)
+    check(fs._wide_two_layer(spec) and fs._wide_two_layer_covers(TSIT5, spec) is None,
+          "the hepmass42 net should run the wide 2-layer kernels")
+    names = wide_two_layer_names(fs)
+
+    # Phase 61: the wide 2-layer kernels' launch shapes at B = 4096.
+    arr = (ctypes.c_int * 3)(*dims)
+    for lib_name, fn, n_out in ((fs.K3W_KERNEL, "cnf_k3w_shape", 4), (fs.K5W_KERNEL, "cnf_k5w_shape", 4),
+                                (fs.K4WA_KERNEL, "cnf_k4w_shape", 5)):
+        out = (ctypes.c_int * n_out)()
+        err = getattr(fs._library(lib_name), fn)(2, arr, B, out)
+        check(err == 0 and out[1] >= 1, f"{fn}: cudaError {err}")
+        tile = f"tile {out[2]}" + (f", {out[3]} basis rows a chunk" if n_out == 5 else "")
+        print(f"phase 61: {fn} at widths {dims}, B={B}: {out[0]} threads a block, {out[1]} blocks, {tile}, "
+              f"{out[n_out - 1]} bytes of dynamic shared memory")
+
+    # Phase 62: each kernel of the path against its twin (forwards from
+    # nonzero accumulators, adjoints from their forward's output with its
+    # last step as the warm start), timed.
+    test, train, exact, cot = kernel_inputs(icnf_k, ps, xs, rng, dev)
+    T = lambda a: torch.from_numpy(np.asarray(a, "float32")).to(dev)  # noqa: E731
+    runs = {}
+    for key in ("k3w", "k1c", "k7e"):
+        kw = {"k3w": test, "k1c": train, "k7e": exact}[key]
+        runs[key] = run_pair(f"{names[key][0]} (hepmass42)", names[key][1], names[key][2], TSIT5, spec, kw)
+    runs["k2c"] = run_pair(f"{fs.K2W_KERNEL} (hepmass42)", names["k2c"][1], names["k2c"][2], TSIT5, spec,
+                           adjoint_kw(train, runs["k1c"][0], cot), adjoint=True)
+    runs["k4w"] = run_pair(f"{fs.K4WA_KERNEL} (hepmass42)", names["k4w"][1], names["k4w"][2], TSIT5, spec,
+                           adjoint_kw(exact, runs["k7e"][0], cot), adjoint=True)
+    k5_kw = dict(adjoint_kw(test, runs["k3w"][0], dict(azT=T(rng.normal(0.0, 1.0 / B, (B, dz))),
+                                                       aaccT=T(np.full((1, B), 1.0 / B)), t_hi=test["t1"],
+                                                       t_lo=test["t0"])), accT=runs["k3w"][0][1][None])
+    k5_kw.pop("dlogp0")
+    runs["k5w"] = run_pair(f"{fs.K5W_KERNEL} (hepmass42)", names["k5w"][1], names["k5w"][2], TSIT5, spec, k5_kw,
+                           adjoint=True)
+    print("phase 62: hepmass42 kernels held to their twins")
+
+    # Phase 63: logpdf through the kernel against the plain path.
+    hold_logpdf(cnf, "hepmass42", icnf_k, icnf_p, xs, ps)
+
+    # Phase 64: the Hutchinson, exact and TEST losses and gradients through
+    # the kernels, the plain path and a float64 rtol 1e-7 solve; the fused
+    # gradient launches its route's two kernels once each and nothing else.
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 401)
+    eps = icnf_k.draw_eps(gen, B, dev)
+    steer = {"steer_r": 0.05}
+    for label, exact_trace in (("hepmass42 Hutchinson", False), ("hepmass42 exact", True)):
+        extra = dict(steer) if exact_trace else dict(steer, eps=eps)
+        fs.reset_launches()
+        l_k, g_k, m_k = loss_grad(cnf, model(exact=exact_trace), ps_np, xs, dev, **extra)
+        torch.cuda.synchronize()
+        want = ({names["k7e"][0]: 1, fs.K4WA_KERNEL: 1} if exact_trace else {fs.K1W_KERNEL: 1, fs.K2W_KERNEL: 1})
+        check(launched(fs) == want, f"{label}: the fused gradient launched {launched(fs)}, expected {want}")
+        l_p, g_p, _ = loss_grad(cnf, model(fused=False, exact=exact_trace), ps_np, xs, dev, **extra)
+        extra_t = dict(steer) if exact_trace else dict(steer, eps=eps.double())
+        l_t, g_t, _ = loss_grad(cnf, model(fused=False, exact=exact_trace, dtype=torch.float64, solver=truth), ps_np,
+                                xs, dev, torch.float64, **extra_t)
+        torch.cuda.synchronize()
+        hold_gradients(label, l_k, g_k, l_p, g_p, l_t, g_t)
+        print(f"{label} B={B}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 {float(l_t):.6f}, "
+              f"forward NFE {int(m_k['nfe'])}")
+    models = (icnf_k, icnf_p, model(fused=False, dtype=torch.float64, solver=truth))
+    n_test = test_gradient_path("hepmass42 TEST gradient", cnf, fs, models, ps_np, xs, dev,
+                                {fs.K3W_KERNEL: 1, fs.K5W_KERNEL: 1})
+    # One K = 4 call and one JVP call: the wide probe instances, once each.
+    for k, jvp in ((4, False), (1, True)):
+        icnf_pr = model(num_probes=k, ad="jvp" if jvp else "vjp")
+        eps_k = icnf_pr.draw_eps(torch.Generator(device=dev).manual_seed(SEED + 402 + k), B, dev)
+        fs.reset_launches()
+        _, g, _ = loss_grad(cnf, icnf_pr, ps_np, xs, dev, eps=eps_k, **steer)
+        torch.cuda.synchronize()
+        counts = [w.probe_launches.get((k, jvp), 0) for w in (names["k1c"][1], names["k2c"][1])]
+        check(set(launched(fs)) == {fs.K1W_KERNEL, fs.K2W_KERNEL} and counts == [1, 1]
+              and all(bool(torch.isfinite(x).all()) for x in g),
+              f"hepmass42 {probe_tag(k, jvp)}: launched {launched(fs)}, probe instances {counts}")
+        print(f"phase 64: hepmass42 {probe_tag(k, jvp)} loss gradient: the wide probe instances launched {counts}")
+
+    # Phase 65: the main paths, each with the counters reset just before it:
+    # serving (logpdf, sample) through wide K3 alone; `fit` for four Lion
+    # steps through the wide K1 and K2 chain forms; the exact `fit` through
+    # wide K7 exact and the wide K4 adjoint.
+    dist = cnf.ICNFDist(icnf_k, cnf.Mode.TEST, ps)
+    fs.reset_launches()
+    with torch.no_grad():
+        lp = dist.logpdf(xs)
+        samples = dist.sample(B, generator=torch.Generator(device=dev).manual_seed(SEED + 403))
+    torch.cuda.synchronize()
+    n_serve = launched(fs)
+    check(n_serve == {fs.K3W_KERNEL: 2}, f"hepmass42 serving launched {n_serve}")
+    check(bool(torch.isfinite(lp).all() and torch.isfinite(samples).all()), "hepmass42 serving output not finite")
+    X = model_data("hepmass42", rng, N_STEPS * B)
+    fit_path(cnf, fs, icnf_k, ps_np, dev, X, batch_size=B)
+    n_fit = launched(fs)
+    check(n_fit == {fs.K1W_KERNEL: N_STEPS, fs.K2W_KERNEL: N_STEPS}, f"hepmass42 fit launched {n_fit}")
+    icnf_e = model(exact=True)
+    fit_path(cnf, fs, icnf_e, ps_np, dev, X, batch_size=B)
+    n_efit = launched(fs)
+    check(n_efit == {names["k7e"][0]: N_STEPS, fs.K4WA_KERNEL: N_STEPS}, f"hepmass42 exact fit launched {n_efit}")
+    print(f"phase 65: hepmass42 main paths: logpdf and sample launched {n_serve}, fit {n_fit}, exact fit {n_efit}")
+    launches = {"k3w": n_serve[fs.K3W_KERNEL], "k5w": n_test[fs.K5W_KERNEL], "k1c": n_fit[fs.K1W_KERNEL],
+                "k2c": n_fit[fs.K2W_KERNEL], "k7e": n_efit[names["k7e"][0]], "k4w": n_efit[fs.K4WA_KERNEL]}
+
+    # Phase 66: the paths' timings.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 404)
+    ms_step = step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 3)
+    ms_step_p = step_ms(cnf, icnf_p, ps_np, xs, gen, dev, 1, warmup=False)
+    ms_estep = step_ms(cnf, icnf_e, ps_np, xs, gen, dev, 2)
+    with torch.no_grad():
+        _, _, st = cnf.inference(icnf_k, cnf.Mode.TEST, xs, ps)
+        ms_lp = cuda_ms(lambda: dist.logpdf(xs), 3)
+        ms_lp_p = cuda_ms(lambda: cnf.inference(icnf_p, cnf.Mode.TEST, xs, ps), 1, warmup=False)
+    ms_tg = cuda_ms(lambda: test_loss_grad(cnf, icnf_k, ps_np, xs, dev), 3)
+    print(f"phase 66: hepmass42 train step B={B} (loss, gradient, Lion): fused {ms_step:.4f} ms "
+          f"({B / ms_step * 1e3:.1f} samples/s), plain {ms_step_p:.4f} ms ({B / ms_step_p * 1e3:.1f} samples/s)")
+    print(f"phase 66: hepmass42 exact train step B={B}: {ms_estep:.4f} ms ({B / ms_estep * 1e3:.1f} samples/s)")
+    print(f"phase 66: hepmass42 logpdf B={B}: kernel {ms_lp:.4f} ms ({B / ms_lp * 1e3:.1f} evals/s), plain "
+          f"{ms_lp_p:.4f} ms; steps {int(st.steps)}, NFE {int(st.nfe)}; TEST loss gradient {ms_tg:.4f} ms")
+
+    fma = dict(two_layer_fma(dz, H), **chain_fma(dims))
+    fma = {"k3w": fma["k3"], "k5w": fma["k5"], "k4w": fma["k4a"], "k1c": fma["k1c"], "k2c": fma["k2c"],
+           "k7e": fma["k7e"]}
+    P = 2 * dz * H + H + dz
+    Pt = P + dz * dz * H
+    floats = {"k3w": P + 2 * B * (dz + 1), "k5w": 2 * P + B * (4 * dz + 3), "k4w": P + Pt + B * (4 * dz + 9),
+              "k1c": P + B * (3 * dz + 6), "k2c": 2 * P + B * (5 * dz + 9), "k7e": P + B * (2 * dz + 6)}
+    records = []
+    for key, (out, err, ms, pms) in runs.items():
+        name, _, _, src, at = names[key]
+        records.append(kernel_record(f"{name}/hepmass42" if key in ("k1c", "k2c", "k7e") else name, src, at,
+                                     launches[key], err, ms, pms, fma[key], B, steps_of(out)[0], floats[key],
+                                     accepted=steps_of(out)[1]))
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -2656,7 +2861,8 @@ def main() -> int:
     t_build = time.perf_counter()
     built = _build.build_libraries([fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL,
                                     fs.K5_KERNEL, fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL, fs.K1W_KERNEL,
-                                    fs.K2W_KERNEL, fs.K7W_KERNEL, fs.K10_KERNEL])
+                                    fs.K2W_KERNEL, fs.K7W_KERNEL, fs.K10_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL,
+                                    fs.K4WA_KERNEL])
     print(f"built {len(built)} kernels in {time.perf_counter() - t_build:.2f} s (one nvcc each, in parallel)")
     for name, (lib_path, log) in built.items():
         print(f"  {lib_path.name}")
@@ -2704,7 +2910,8 @@ def main() -> int:
                          ("42-46", lambda: probe_paths(cnf, fs, dev)),
                          ("47-50", lambda: test_gradients(cnf, fs, dev, sample_draw)),
                          ("51-55", lambda: direct_paths(cnf, fs, dev, sample_draw)),
-                         ("56-60", lambda: wide_probe_paths(cnf, fs, dev))):
+                         ("56-60", lambda: wide_probe_paths(cnf, fs, dev)),
+                         ("61-66", lambda: wide_two_layer(cnf, fs, dev))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -1001,11 +1001,12 @@ __device__ void forward_solve_tiles(const FwdArgs& p, const Field& field, int T,
 // The backsolve of adjoint_solve (unconditional: nc = 0) with a tile stage.
 // `stage(s0, nv, Z, AZ, KZ, KR, KAZ)` evaluates the augmented stage of the
 // tile's rows from Z and AZ ((T, tile_pitch(dz)): z and a_z) into KZ, KAZ
-// (the same: the field and k_az = -ct_z) and KR (T, 3), block-wide,
+// (the same: the field and k_az = -ct_z) and KR (T, NACC), block-wide,
 // ending with a barrier, and leaves in shared memory what
 // `grad(q, nv)` reads: the tile's sum over its first nv rows of the negated
-// g rate entry q.  scratch: T (4 tile_pitch(dz) + 3) floats of shared
-// memory.
+// g rate entry q.  scratch: T (4 tile_pitch(dz) + NACC) floats of shared
+// memory.  NACC: the accumulator rows, 3 in TRAIN mode and 1 in TEST mode
+// (wide K5), as in adjoint_solve.
 //
 // The g reduction.  Each block adds its samples' b-, btilde- (and, for
 // dop853, btilde3-) weighted g rates into its own vectors of gblk
@@ -1034,7 +1035,7 @@ __device__ void forward_solve_tiles(const FwdArgs& p, const Field& field, int T,
 // btilde- (and btilde3-) weighted vectors and the stage-rate partial, and
 // after the stage the forward chain's `grad.fwd(q, nv)` follows: the
 // sub-passes sum to the stage's g rate (in another order).
-template <int U, bool PROBES = false, class Stage, class Grad>
+template <int U, bool PROBES = false, int NACC = 3, class Stage, class Grad>
 __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const Grad& grad, int Pg, int T,
                                     float* scratch, float* gblk, float* gcur, float* gnew, float* red) {
   cg::grid_group grid = cg::this_grid();
@@ -1046,7 +1047,7 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
   const int NG = has3 ? 3 : 2;
   const int dz = p.dz, B = p.B, G = gridDim.x, zp = tile_pitch(dz);
   const int ntiles = (B + T - 1) / T;
-  const int R = 2 * dz + 3;  // rows: z, acc, a_z
+  const int R = 2 * dz + NACC;  // rows: z, acc, a_z
   const size_t RB = (size_t)R * B;
   float* Y = p.work;
   float* Yn = Y + RB;
@@ -1070,13 +1071,13 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
   auto eval = [&](const auto& stg, int tile, int st, float dt_use) {
     const int s0 = tile * T, nv = min(T, B - s0);
     tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, 0, dz, s0, nv, T, Z, zp);
-    tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, dz + 3, dz, s0, nv, T, AZ, zp);
+    tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, dz + NACC, dz, s0, nv, T, AZ, zp);
     __syncthreads();
     stg(s0, nv, Z, AZ, KZ, KR, KAZ);
     float* kst = K + st * RB;
     tile_store(KZ, zp, dz, kst, 0, B, s0, nv, T);
-    tile_store(KR, 3, 3, kst, dz, B, s0, nv, T);
-    tile_store(KAZ, zp, dz, kst, dz + 3, B, s0, nv, T);
+    tile_store(KR, NACC, NACC, kst, dz, B, s0, nv, T);
+    tile_store(KAZ, zp, dz, kst, dz + NACC, B, s0, nv, T);
     return nv;
   };
   // PROBES: eval in its sub-passes; `pass(term)` adds one sub-pass's g rate
@@ -1084,7 +1085,7 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
   auto eval_probes = [&](const auto& stg, const auto& grd, int tile, int st, float dt_use, const auto& pass) {
     const int s0 = tile * T, nv = min(T, B - s0);
     tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, 0, dz, s0, nv, T, Z, zp);
-    tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, dz + 3, dz, s0, nv, T, AZ, zp);
+    tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, dz + NACC, dz, s0, nv, T, AZ, zp);
     __syncthreads();
     auto flush = [&]() {
       __syncthreads();
@@ -1094,8 +1095,8 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
     stg.probes(s0, nv, Z, AZ, KZ, KR, KAZ, flush);
     float* kst = K + st * RB;
     tile_store(KZ, zp, dz, kst, 0, B, s0, nv, T);
-    tile_store(KR, 3, 3, kst, dz, B, s0, nv, T);
-    tile_store(KAZ, zp, dz, kst, dz + 3, B, s0, nv, T);
+    tile_store(KR, NACC, NACC, kst, dz, B, s0, nv, T);
+    tile_store(KAZ, zp, dz, kst, dz + NACC, B, s0, nv, T);
     pass([&](int q) { return grd.fwd(q, nv); });
     __syncthreads();
   };
@@ -1117,9 +1118,9 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
 
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     tile_entries(tile, T, B, R, [&](int r, int s) {
-      Y[(size_t)r * B + s] = r < dz       ? p.zT[(size_t)s * dz + r]
-                             : r < dz + 3 ? p.accT[(size_t)(r - dz) * B + s]
-                                          : p.azT[(size_t)s * dz + r - dz - 3];
+      Y[(size_t)r * B + s] = r < dz          ? p.zT[(size_t)s * dz + r]
+                             : r < dz + NACC ? p.accT[(size_t)(r - dz) * B + s]
+                                             : p.azT[(size_t)s * dz + r - dz - NACC];
     });
   }
   for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x) gcur[q] = 0.f;
@@ -1128,7 +1129,7 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
 
   Controller c;
   c.init(p.ts, p.beta1, p.beta2, p.inv_order);
-  const float n_elems = (float)B * (float)(2 * (dz + 3)) + (float)Pg;
+  const float n_elems = (float)B * (float)(2 * (dz + NACC)) + (float)Pg;
 
   while (c.running(p.max_steps)) {
     bool is_last;
@@ -1219,7 +1220,7 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
       tile_entries(tile, T, B, R, [&](int r, int s) {
         const float yn = propose<U>(Tb, dt_use, has3, Y, K, RB, (size_t)r * B + s, p.rtol, p.atol, Yn, &sumsq,
                                     &sumsq3);
-        if (r < dz || r >= dz + 3) finite = finite && isfinite(yn);
+        if (r < dz || r >= dz + NACC) finite = finite && isfinite(yn);
       });
     }
 
@@ -1295,10 +1296,10 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
       const float v = Y[(size_t)r * B + s];
       if (r < dz)
         p.z0[(size_t)s * dz + r] = v;
-      else if (r < dz + 3)
+      else if (r < dz + NACC)
         p.acc0[(size_t)(r - dz) * B + s] = v;
       else
-        p.az0[(size_t)s * dz + r - dz - 3] = v;
+        p.az0[(size_t)s * dz + r - dz - NACC] = v;
     });
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {

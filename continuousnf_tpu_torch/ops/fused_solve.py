@@ -13,8 +13,8 @@ Port of `continuousnf_tpu/ops/fused_solve.py`: `ChainSpec`/`chain_spec`
 conditioning rows of `_zin` (:265-269) in every stage, in batch-major
 layout.
 
-Twelve CUDA kernels (`csrc/`), each with a plain PyTorch twin; six for
-2-layer tanh MLPs:
+Fifteen CUDA kernels (`csrc/`), each with a plain PyTorch twin; six for
+2-layer tanh MLPs of state width up to MAX_DZ:
 - K3 (`k3_test_solve.cu`, `run_solve_kernel`, twin `solve_test_plain`) for
   `_run_solve_kernel` with `_stage_test`: the TEST solve of [z | dlogp];
 - K1 (`k1_train_solve.cu`, `run_train_solve_kernel`, twin
@@ -50,7 +50,14 @@ tabular MINIBOONE model), sharing the block-cooperative chain layer of
 `csrc/chain_wide.cuh`, with the same twins: `k1_wide_solve.cu`
 (`run_wide_train_solve_kernel`), `k2_wide_adjoint.cu`
 (`run_wide_adjoint_kernel`) and `k7_wide_solve.cu` (TEST,
-`run_wide_test_solve_kernel`; exact, `run_wide_exact_solve_kernel`).
+`run_wide_test_solve_kernel`; exact, `run_wide_exact_solve_kernel`);
+and the wide forms of the three 2-layer-only stages, for unconditional
+2-layer tanh nets past MAX_DZ (the README net family at the HEPMASS width,
+42 -> 126 -> 42), on the same tile layer (`csrc/two_layer_wide.cuh`) and
+with the same twins: wide K3 (`k3_wide_solve.cu`,
+`run_wide_test2_solve_kernel`), wide K5 (`k5_wide_adjoint.cu`,
+`run_wide_test_adjoint_kernel`) and the wide K4 adjoint
+(`k4_wide_adjoint.cu`, `run_wide_exact_adjoint_kernel`).
 Each runs one whole adaptive solve in one cooperative launch, with one
 batch-global error norm per attempted step, under any explicit tableau with
 an embedded error estimate (K9: `_stretched_eest` :766-770 and the non-FSAL
@@ -66,8 +73,10 @@ integrates the per-sample ys cotangent) and identity layers (K9,
 `ChainSpec.acts` :104-111).  `make_full_solve` takes the chain kernels for
 chains of 3 or more layers, for every conditional net and for every net
 with an identity layer (their wide forms past the narrow widths), the
-2-layer kernels for unconditional 2-layer tanh nets, and K5 for the TEST
-backward of every 2-layer tanh net, conditional or not.  The forward kernels
+2-layer kernels for unconditional 2-layer tanh nets (past MAX_DZ: wide K3,
+the wide K1 and K2 chain forms, wide K7 exact and the wide K4 adjoint,
+wide K5), and K5 for the TEST backward of every other 2-layer tanh net,
+conditional or not.  The forward kernels
 return the last step they took beside the next step size
 (`utils/near_tie.py` reads it).
 
@@ -103,6 +112,9 @@ K7_KERNEL = "k7_chain_solve"
 K1W_KERNEL = "k1_wide_solve"
 K2W_KERNEL = "k2_wide_adjoint"
 K7W_KERNEL = "k7_wide_solve"
+K3W_KERNEL = "k3_wide_solve"
+K5W_KERNEL = "k5_wide_adjoint"
+K4WA_KERNEL = "k4_wide_adjoint"
 
 #: The chain kernels (the K1 and K2 chain forms, K7) take tanh chains of 2
 #: to CHAIN_MAX_LAYERS layers with hidden widths up to CHAIN_MAX_WIDTH,
@@ -797,34 +809,60 @@ def _kernel_covers(
         return "conditional nets (K8 in the 2-layer kernels, ROADMAP queue 2)"
     if spec.n_layers == 1:
         return (f"1-layer nets (the kernels take 2 to {CHAIN_MAX_LAYERS} layers; 1-layer nets: ROADMAP queue 2, "
-                "shape variants)")
+                "shape variants (c))")
     if not chain:
         if spec.dz > MAX_DZ:
             return (f"state width {spec.dz} > {MAX_DZ} in K3, K1, K2, K4 and K5 (they keep one sample's state in "
-                    "registers; 2-layer nets of a wider state: ROADMAP queue 2, shape variants (a))")
+                    "registers; unconditional 2-layer nets of a wider state run their wide forms, ROADMAP queue 2, "
+                    "shape variants (a))")
         if spec.n_layers != 2:
             return (f"{spec.n_layers}-layer chains (K3, K1, K2 and K4 take 2 layers; the chain kernels take deeper "
                     "ones)")
         return None
     if spec.n_layers > CHAIN_MAX_LAYERS:
         return (f"{spec.n_layers}-layer chains (the chain kernels take at most {CHAIN_MAX_LAYERS} layers; "
-                "deeper chains: ROADMAP queue 2, shape variants)")
+                "deeper chains: ROADMAP queue 2, shape variants (b))")
     if not _wide_chain(spec):
         return None
     if spec.dz > WIDE_MAX_DZ:
-        return (f"state width {spec.dz} > {WIDE_MAX_DZ} (the wide chain forms take up to {WIDE_MAX_DZ}; "
-                "ROADMAP queue 2, shape variants)")
+        return (f"state width {spec.dz} > {WIDE_MAX_DZ} (the wide forms take up to {WIDE_MAX_DZ}; "
+                "ROADMAP queue 2, shape variants (e))")
     wide = max(spec.out_dims[:-1])
     if wide > WIDE_MAX_WIDTH:
-        return (f"hidden width {wide} > {WIDE_MAX_WIDTH} (the wide chain forms take up to {WIDE_MAX_WIDTH}; "
-                "ROADMAP queue 2, shape variants)")
+        return (f"hidden width {wide} > {WIDE_MAX_WIDTH} (the wide forms take up to {WIDE_MAX_WIDTH}; "
+                "ROADMAP queue 2, shape variants (e))")
     if spec.n_cond:
-        return "conditional wide chains (K8 in the wide chain forms, ROADMAP queue 2, shape variants)"
+        return _COND_WIDE
     need = 4 * _wide_smem_floats(spec, k_probes != 1 or jvp)
     if need > WIDE_SMEM_BYTES:
         return (f"weights too large for the wide chain forms' shared memory ({need} bytes with a 4-sample tile, "
-                f"over {WIDE_SMEM_BYTES}; chains of larger weights: ROADMAP queue 2, shape variants)")
+                f"over {WIDE_SMEM_BYTES}; chains of larger weights: ROADMAP queue 2, shape variants (e))")
     return None
+
+
+_COND_WIDE = "conditional wide chains (K8 in the wide chain forms, ROADMAP queue 2, shape variants (d))"
+
+
+def _wide_two_layer(spec: ChainSpec) -> bool:
+    """Whether a 2-layer tanh chain is past the 2-layer kernels' state width,
+    so that their wide forms (wide K3, wide K5, the wide K4 adjoint) and the
+    wide K1 and K2 chain forms and wide K7 exact run it."""
+    return _two_layer_tanh(spec) and spec.dz > MAX_DZ
+
+
+def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
+    """Why the wide 2-layer kernels (wide K3, wide K5, the wide K4 adjoint)
+    do not run this configuration (None if they do): they take the
+    unconditional 2-layer tanh chains the wide chain forms take, state widths
+    up to WIDE_MAX_DZ and hidden widths up to WIDE_MAX_WIDTH, under every
+    embedded tableau."""
+    if not _two_layer_tanh(spec):
+        return ("nets other than 2-layer tanh chains in wide K3, wide K5 and the wide K4 adjoint (the JAX "
+                "package's 2-layer TEST and exact stages assume tanh layers, reference fault 2: the chain kernels "
+                "take identity layers forward, and their gradient runs the plain backward)")
+    if spec.n_cond:
+        return ("conditional wide 2-layer nets (K8 in the wide forms, ROADMAP queue 2, shape variants (d))")
+    return _kernel_covers(tab, spec, chain=True)
 
 
 def _no_grad_inputs(kernel: str, *tensors) -> None:
@@ -935,6 +973,18 @@ _SIGNATURES = {
         "cnf_k7w_test_solve": ([_P] * 10 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
         "cnf_k7w_exact_solve": ([_P] * 10 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
+    K3W_KERNEL: {
+        "cnf_k3w_shape": _WIDE_SHAPE,
+        "cnf_k3w_test_solve": ([_P] * 10 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+    },
+    K5W_KERNEL: {
+        "cnf_k5w_shape": _WIDE_SHAPE,
+        "cnf_k5w_test_adjoint": ([_P] * 15 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+    },
+    K4WA_KERNEL: {
+        "cnf_k4w_shape": _WIDE_SHAPE,
+        "cnf_k4w_exact_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I] + [_F] * 5 + [_P] + [_I] * 4 + [_P], _I),
+    },
     K2W_KERNEL: {
         "cnf_k2w_shape": _WIDE_SHAPE,
         "cnf_k2w_train_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
@@ -1014,7 +1064,7 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the narrow chain kernels (up to "
                f"{MAX_DZ} and {CHAIN_MAX_WIDTH}: their wide forms take the chain)")
     if why is None and wide and spec.n_cond:
-        why = "conditional wide chains (K8 in the wide chain forms, ROADMAP queue 2, shape variants)"
+        why = _COND_WIDE
     if why is not None:
         raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
@@ -1752,6 +1802,20 @@ run_wide_train_solve_kernel.launches = 0
 run_wide_train_solve_kernel.probe_launches = {}
 
 
+def _wide_adjoint_buffers(tab, zT, accT, grid: int, Pg: int):
+    """(z0, acc0, a_z0, g, g_new, stats, work, partials, gblk) of a wide
+    adjoint (the tile solve): g of Pg floats, the (row, B) planes of
+    (z, acc, a_z), its partials and each block's (NG + 2) g vectors."""
+    B, dz = zT.shape
+    f32 = dict(dtype=torch.float32, device=zT.device)
+    return (
+        torch.empty_like(zT), torch.empty_like(accT), torch.empty_like(zT), torch.empty(Pg, **f32),
+        torch.empty(Pg, **f32), torch.empty(2, dtype=torch.int32, device=zT.device),
+        torch.empty((tab.num_stages + 2) * (2 * dz + accT.shape[0]) * B, **f32), torch.empty(10 * grid, **f32),
+        torch.empty(grid * (_gvecs(tab) + 2) * Pg, **f32),
+    )
+
+
 def _launch_wide_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
                          t_hi, t_lo, dt_init, jvp=False):
     label = "wide K2 chain form"
@@ -1765,15 +1829,8 @@ def _launch_wide_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws
     lib = _library(K2W_KERNEL)
     probes = _probe_instance(eps, jvp)
     block, grid, tile = _wide_shape(lib, "cnf_k2wp_shape" if probes else "cnf_k2w_shape", label, spec, widths, B)
-    P = params.numel()
-    f32 = dict(dtype=torch.float32, device=device)
-    ts = torch.stack([t_hi, t_lo, dt_init]).to(**f32)
-    z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
-    g, gnew = torch.empty(P, **f32), torch.empty(P, **f32)
-    stats = torch.empty(2, dtype=torch.int32, device=device)
-    work = torch.empty((tab.num_stages + 2) * (2 * dz + 3) * B, **f32)
-    partials = torch.empty(10 * grid, **f32)
-    gblk = torch.empty(grid * (_gvecs(tab) + 2) * P, **f32)
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
+    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel())
     entry = lib.cnf_k2w_probe_adjoint if probes else lib.cnf_k2w_train_adjoint
     err = entry(
         _ptr(params), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
@@ -1818,6 +1875,159 @@ run_wide_adjoint_kernel.launches = 0
 run_wide_adjoint_kernel.probe_launches = {}
 
 
+# ---- the 2-layer kernels' wide forms (2-layer tanh nets past MAX_DZ) ----
+
+
+def _cuda_only_wide_two_layer(label: str, x: torch.Tensor, tab, spec) -> None:
+    """Raise unless the wide 2-layer kernels take the configuration on CUDA
+    tensors (`_wide_two_layer_covers`)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
+    why = _wide_two_layer_covers(tab, spec)
+    if why is not None:
+        raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
+
+
+def run_wide_test2_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None):
+    """Wide K3: K3's TEST solve with the closed-form trace
+    (`run_solve_kernel`) for unconditional 2-layer tanh nets of state widths
+    up to WIDE_MAX_DZ and hidden widths up to WIDE_MAX_WIDTH (the README net
+    family at the HEPMASS width, 42 -> 126 -> 42); arguments and returns as
+    `run_solve_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k3_wide_solve.cu`), CPU
+    tensors through its plain version."""
+    _no_grad_inputs("K3", ws, bs, z0, dlogp0, ys)
+    if z0.device.type == "cpu":
+        return solve_test_plain(
+            tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only_wide_two_layer("wide K3", z0, tab, spec)
+    out = _launch_wide_forward(
+        "wide K3", K3W_KERNEL, "cnf_k3w_test_solve", "cnf_k3w_shape", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
+    )
+    run_wide_test2_solve_kernel.launches += 1
+    return out
+
+
+run_wide_test2_solve_kernel.launches = 0
+
+
+def _launch_wide_test_adjoint(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi, t_lo,
+                              dt_init):
+    label = "wide K5"
+    B, dz = zT.shape
+    device = zT.device
+    params, widths = _chain_params(label, spec, ws, bs, device)
+    zT, accT, azT, aaccT = _check_inputs(label, device, [zT, accT, azT, aaccT], [(B, dz), (1, B), (B, dz), (1, B)])
+    lib = _library(K5W_KERNEL)
+    block, grid, tile = _wide_shape(lib, "cnf_k5w_shape", label, spec, widths, B)
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
+    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel())
+    err = lib.cnf_k5w_test_adjoint(
+        _ptr(params), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0),
+        _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), B, spec.n_layers, widths,
+        _acts_mask(spec), int(max_steps), rtol, atol, *_controller_floats(tab), _tableau_array(tab), tile, grid,
+        block, _stream(device),
+    )
+    _check_launch(err, label, grid, block)
+    g_ws, g_bs = _split_params(g, spec)
+    return z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]
+
+
+def run_wide_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi, t_lo,
+                                 dt_init, ys=None):
+    """Wide K5: K5's TEST backsolve (`run_test_adjoint_kernel`, ct_m folded
+    into g) for the unconditional 2-layer tanh nets wide K3 takes; arguments
+    and returns as `run_test_adjoint_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k5_wide_adjoint.cu`), CPU
+    tensors through its plain version (with ys (B, n_cond), a_ys0 is
+    returned last)."""
+    if not _two_layer_tanh(spec):
+        raise ValueError(_NO_TEST_CHAIN_ADJOINT)
+    _no_grad_inputs("K5", ws, bs, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_test_plain(tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, zT=zT,
+                                  accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
+    _cuda_only_wide_two_layer("wide K5", zT, tab, spec)
+    if dt_init is None:
+        raise ValueError("wide K5 needs dt_init (the caller picks it)")
+    out = _launch_wide_test_adjoint(tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, zT=zT,
+                                    accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init)
+    run_wide_test_adjoint_kernel.launches += 1
+    return out
+
+
+run_wide_test_adjoint_kernel.launches = 0
+
+
+def _launch_wide_exact_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
+                               t_hi, t_lo, dt_init):
+    label = "wide K4 adjoint"
+    B, dz = zT.shape
+    H = spec.out_dims[0]
+    device = zT.device
+    params, widths = _chain_params(label, spec, ws, bs, device)
+    zT, accT, azT, aaccT = _check_inputs(label, device, [zT, accT, azT, aaccT], [(B, dz), (3, B), (B, dz), (3, B)])
+    lib = _library(K4WA_KERNEL)
+    shape = (ctypes.c_int * 5)()
+    err = lib.cnf_k4w_shape(spec.n_layers, widths, B, shape)
+    if err != 0 or shape[1] < 1:
+        raise RuntimeError(f"{label} cannot be launched cooperatively at widths {tuple(widths)}: cudaError {err}")
+    block, grid, T, R = shape[0], shape[1], shape[2], shape[3]
+    P = params.numel()
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
+    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid,
+                                                                                P + dz * dz * H)
+    mbuf = torch.empty(grid * T * dz * dz, dtype=torch.float32, device=device)
+    err = lib.cnf_k4w_exact_adjoint(
+        _ptr(params), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0),
+        _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), _ptr(mbuf), B, spec.n_layers,
+        widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
+        _tableau_array(tab), T, R, grid, block, _stream(device),
+    )
+    _check_launch(err, label, grid, block)
+    g_ws, g_bs = _split_params(g[:P], spec)
+    g_w1, g_w2 = exact_pm_chain(g[P:].view(dz * dz, H), ws[0], ws[1])
+    return z0, acc0, az0, [g_ws[0] + g_w1, g_ws[1] + g_w2], g_bs, stats[0], stats[1]
+
+
+def run_wide_exact_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init, ys=None,
+):
+    """The wide K4 adjoint: the K4 adjoint's exact backsolve with g_pm in
+    the state (`run_exact_adjoint_kernel`) for the unconditional 2-layer
+    tanh nets wide K3 takes; arguments and returns as
+    `run_exact_adjoint_kernel`, g_pm chained into g_w1 and g_w2.
+
+    CUDA tensors go through the kernel (`csrc/k4_wide_adjoint.cu`), CPU
+    tensors through its plain version (with ys (B, n_cond), a_ys0 is
+    returned last)."""
+    if not _two_layer_tanh(spec):
+        raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
+    _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only_wide_two_layer("the wide K4 adjoint", zT, tab, spec)
+    if dt_init is None:
+        raise ValueError("the wide K4 adjoint needs dt_init (the caller picks it)")
+    out = _launch_wide_exact_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol,
+                                     max_steps=max_steps, ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+                                     t_hi=t_hi, t_lo=t_lo, dt_init=dt_init)
+    run_wide_exact_adjoint_kernel.launches += 1
+    return out
+
+
+run_wide_exact_adjoint_kernel.launches = 0
+
+
 #: Every kernel's wrapper by kernel name (K10's, the per-stage field, from
 #: `ops/fused_dynamics.py`); each wrapper's `.launches` counts its own
 #: kernel's launches.
@@ -1836,6 +2046,9 @@ KERNEL_WRAPPERS = {
     K2W_KERNEL: run_wide_adjoint_kernel,
     K7W_KERNEL + "/test": run_wide_test_solve_kernel,
     K7W_KERNEL + "/exact": run_wide_exact_solve_kernel,
+    K3W_KERNEL: run_wide_test2_solve_kernel,
+    K5W_KERNEL: run_wide_test_adjoint_kernel,
+    K4WA_KERNEL: run_wide_exact_adjoint_kernel,
     K10_KERNEL: run_fused_field_kernel,
 }
 
@@ -1904,7 +2117,11 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     chains have no TEST backward member, as in the JAX package, and 2-layer
     nets with an identity layer none either (the JAX package's 2-layer TEST
     stage assumes tanh layers and fails on them; the port does not copy
-    that): their gradient runs the plain BACKSOLVE behind K7.
+    that): their gradient runs the plain BACKSOLVE behind K7.  Unconditional
+    2-layer tanh nets past MAX_DZ (the README net family at the HEPMASS
+    width) run the wide forms: wide K3 forward and wide K5 backward in TEST
+    mode, the wide K1 and K2 chain forms under Hutchinson TRAIN, wide K7
+    exact forward and the wide K4 adjoint backward under exact trace.
     """
     cm = icnf.compute_mode
     opts = icnf.solver
@@ -1965,12 +2182,19 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     exact_pm = exact and _two_layer_tanh(spec)
     test_adjoint = not train and _two_layer_tanh(spec)
     chain = spec.n_layers > 2 or spec.n_cond > 0 or not all(spec.acts)
+    wide2 = _wide_two_layer(spec)
+    run_exact_adj, run_test_adj = run_exact_adjoint_kernel, run_test_adjoint_kernel
+    if wide2:
+        run_exact_adj, run_test_adj = run_wide_exact_adjoint_kernel, run_wide_test_adjoint_kernel
     if chain and _wide_chain(spec):
         run_test, run_train = run_wide_test_solve_kernel, run_wide_train_solve_kernel
         run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel
     elif chain:
         run_test, run_train = run_chain_test_solve_kernel, run_chain_train_solve_kernel
         run_exact, run_adjoint = run_chain_exact_solve_kernel, run_chain_adjoint_kernel
+    elif wide2:
+        run_test, run_train = run_wide_test2_solve_kernel, run_wide_train_solve_kernel
+        run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel
     else:
         run_test, run_train = run_solve_kernel, run_train_solve_kernel
         run_exact, run_adjoint = run_exact_solve_kernel, run_adjoint_kernel
@@ -2047,9 +2271,9 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
             dt_init = tdir * abs(float(opts.dt0))
         state = dict(zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init)
         if exact:
-            out = run_exact_adjoint_kernel(tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, **state)
+            out = run_exact_adj(tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, **state)
         elif not train:
-            out = run_test_adjoint_kernel(tab, spec, **kw, **state)
+            out = run_test_adj(tab, spec, **kw, **state)
         else:
             out = run_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, **kw, eps=eps, jvp=jvp, **state)
         z0, acc0, az0, g_ws, g_bs, steps, accepted = out[:7]
@@ -2089,6 +2313,9 @@ __all__ = [
     "run_wide_exact_solve_kernel",
     "run_wide_train_solve_kernel",
     "run_wide_adjoint_kernel",
+    "run_wide_test2_solve_kernel",
+    "run_wide_test_adjoint_kernel",
+    "run_wide_exact_adjoint_kernel",
     "KERNEL_WRAPPERS",
     "PROBE_WRAPPERS",
     "reset_launches",

@@ -12,6 +12,13 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     MLP 43 -> 128 -> 128 -> 43 tanh on all three layers, tspan (0, 1), no
     steering, batch 2048 (the JAX package's tabular benchmark batch); data
     from the same `synthetic_tabular` recipe at 43 variables.
+  * hepmass42 (`bench.py:142-177`'s recipe at nvars = naug = 21): RNODE,
+    the README net family MLP((n_in, 3 n_in, n_in)) at n_in = 42, the
+    HEPMASS width (21 features in the MAF preprocessing of the UCI tabular
+    suite), 42 -> 126 -> 42 tanh, lambda3 = 1e-2, steer_rate 0.1, tspan
+    (0, 13); data from the `synthetic_tabular` recipe at 21 variables.  Past
+    the 2-layer kernels' state width: the wide 2-layer kernels and the wide
+    chain forms run it.
   * cond_gaussian (`continuousnf_tpu/recipes.py:254-289`, BASELINE config
     #3): CondRNODE, nvars = 1, naug = 0, one conditioning input, MLP
     2 -> 64 -> 64 -> 1 tanh on all three layers reading [x | y], tspan
@@ -36,6 +43,7 @@ MODELS = {
     "flagship": dict(dims=(16, 48, 16), nvars=8, naug=8, tspan=(0.0, 13.0), extra={"steer_rate": 0.1, "lam3": 1e-2}),
     "power6": dict(dims=(6, 64, 64, 6), nvars=6, naug=0, tspan=(0.0, 1.0), extra={}),
     "miniboone43": dict(dims=(43, 128, 128, 43), nvars=43, naug=0, tspan=(0.0, 1.0), extra={}, batch=2048),
+    "hepmass42": dict(dims=(42, 126, 42), nvars=21, naug=21, tspan=(0.0, 13.0), extra={"steer_rate": 0.1, "lam3": 1e-2}),
     "cond_gaussian": dict(dims=(2, 64, 64, 1), nvars=1, naug=0, tspan=(0.0, 13.0), extra={"steer_rate": 0.1},
                           n_cond=1, batch_size=128),
 }
@@ -86,7 +94,7 @@ def model_data(name: str, rng: np.random.Generator, n: int):
     """n data points of the configuration `name` (numpy float32): xs, or
     (xs, ys) for a conditional configuration."""
     nvars = MODELS[name]["nvars"]
-    if name in ("power6", "miniboone43"):
+    if name in ("power6", "miniboone43", "hepmass42"):
         return tabular_data(rng, n, nvars)
     if name == "cond_gaussian":
         return cond_gaussian_data(rng, n)

@@ -11,7 +11,11 @@ on power6 (MLP 6 -> 64 -> 64 -> 6, B = 4096, tspan (0, 1)) and on the
 conditional recipe (MLP 2 -> 64 -> 64 -> 1 on [x | y], B = 4096, tspan
 (0, 13); the "_cond" keys) and, when `--models` names it, the wide forms of
 those four on miniboone43 (MLP 43 -> 128 -> 128 -> 43, B = 2048, tspan
-(0, 1); the "_wide" keys), Glorot weights and data from numpy seeds, under
+(0, 1); the "_wide" keys) and on hepmass42 the five routes of a 2-layer
+net past state width 32 (MLP 42 -> 126 -> 42, B = 4096, tspan (0, 13);
+the "_hepmass" keys: wide K3 and wide K5 from its output, the wide K1 and
+K2 chain forms, wide K7 exact and the wide K4 adjoint from its output),
+Glorot weights and data from numpy seeds, under
 one tableau (rtol 1e-3 / atol 1e-6; the README tolerances for verner65).
 Where the package has K5 (the TEST adjoint), it is timed on the flagship
 from K3's output, with a loss-like cotangent and K3's last step as the warm
@@ -21,7 +25,7 @@ probe (the "k10" key, [ms, 0]: a call's time, which its launch dominates).
 With `--probes K` (K Gaussian probes) or `--jvp` (forward-mode probes) it
 times only the Hutchinson kernels, K1 and K2 and their chain forms, through
 their probe instances (K6; the "/K<K>" or "/jvp-K<K>" keys), with the wide
-forms on miniboone43 where `--models` names it.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
+forms on miniboone43 and hepmass42 where `--models` names them.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
 one JSON line {"tableau": ..., "kernels": {name: [ms, attempted steps]}}.
 
 By default it uses only wrappers that earlier versions of the package have
@@ -74,6 +78,9 @@ def main() -> int:
                    "cond_gaussian": [fs.K1C_KERNEL, fs.K2C_KERNEL]}
     if "miniboone43" in models:
         kernels["miniboone43"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [fs.K7W_KERNEL])
+    if "hepmass42" in models:
+        kernels["hepmass42"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [
+            fs.K7W_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL, fs.K4WA_KERNEL])
     _build.build_libraries(sorted({k for m in models for k in kernels[m]}))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -88,8 +95,8 @@ def main() -> int:
             out[label[0]] = [ms_f, int(fwd[2])]
             if run_adj is None:
                 return
-            kw = {k: v for k, v in kw_fwd.items() if k not in ("z0", "acc0", "t0", "t1", "dt_init")}
-            kw.update(kw_adj_extra, zT=fwd[0], accT=fwd[1], t_hi=kw_fwd["t1"], t_lo=kw_fwd["t0"],
+            kw = {k: v for k, v in kw_fwd.items() if k not in ("z0", "acc0", "dlogp0", "t0", "t1", "dt_init")}
+            kw.update(kw_adj_extra, zT=fwd[0], accT=fwd[1].reshape(-1, B), t_hi=kw_fwd["t1"], t_lo=kw_fwd["t0"],
                       dt_init=-fwd[4].abs())
             adj = run_adj(tab, spec, **kw)
             out[label[1]] = [cuda_ms(lambda: run_adj(tab, spec, **kw), max(2, args.reps // 2)), int(adj[5])]
@@ -119,11 +126,11 @@ def main() -> int:
                    aaccT=T(np.stack([np.full(B, 1.0 / B), np.full(B, 1e-2 / B), np.full(B, 1e-2 / B)])))
         test = dict(base, z0=z0, dlogp0=T(rng.normal(0.0, 0.1, B)))
         if probes:
-            keys = {"flagship": ("k1", "k2"), "miniboone43": ("k1c_wide", "k2c_wide")}.get(name, ("k1c" + tag,
-                                                                                             "k2c" + tag))
-            runs = {"flagship": (fs.run_train_solve_kernel, fs.run_adjoint_kernel),
-                    "miniboone43": (fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel)}.get(
-                name, (fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel))
+            keys = {"flagship": ("k1", "k2"), "miniboone43": ("k1c_wide", "k2c_wide"),
+                    "hepmass42": ("k1c_hepmass", "k2c_hepmass")}.get(name, ("k1c" + tag, "k2c" + tag))
+            wide = (fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel)
+            runs = {"flagship": (fs.run_train_solve_kernel, fs.run_adjoint_kernel), "miniboone43": wide,
+                    "hepmass42": wide}.get(name, (fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel))
             time_pair(tuple(k + suffix for k in keys), spec, *runs, dict(train, eps=eps, **probe_kw),
                       dict(adj, eps=eps, **probe_kw))
         elif name == "flagship":
@@ -146,6 +153,13 @@ def main() -> int:
             time_pair(("k1", "k2"), spec, fs.run_train_solve_kernel, fs.run_adjoint_kernel, dict(train, eps=eps),
                       dict(adj, eps=eps))
             time_pair(("k4", "k4a"), spec, fs.run_exact_solve_kernel, fs.run_exact_adjoint_kernel, train, adj)
+        elif name == "hepmass42":
+            time_pair(("k3w_hepmass", "k5w_hepmass"), spec, fs.run_wide_test2_solve_kernel,
+                      fs.run_wide_test_adjoint_kernel, test, dict(azT=adj["azT"], aaccT=T(np.full((1, B), 1.0 / B))))
+            time_pair(("k1c_hepmass", "k2c_hepmass"), spec, fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel,
+                      dict(train, eps=eps), dict(adj, eps=eps))
+            time_pair(("k7e_hepmass", "k4w_hepmass"), spec, fs.run_wide_exact_solve_kernel,
+                      fs.run_wide_exact_adjoint_kernel, train, adj)
         elif name == "miniboone43":
             time_pair(("k7t_wide",), spec, fs.run_wide_test_solve_kernel, None, test, None)
             time_pair(("k1c_wide", "k2c_wide"), spec, fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel,

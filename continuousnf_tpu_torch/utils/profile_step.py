@@ -1,6 +1,7 @@
 """Where the time goes in a training step and a `logpdf` call on the card.
 
-    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43] [--steps 10]
+    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|hepmass42]
+        [--steps 10]
         [--probes K] [--jvp] [--test-grad] [--direct | --fixed N]
 
 Builds the model (`--model power6`: the tabular power6 model, RNODE,
@@ -8,7 +9,9 @@ MLP 6 -> 64 -> 64 -> 6; `--model flagship`: RNODE, MLP 16 -> 48 -> 16;
 `--model cond_gaussian`: the conditional recipe, CondRNODE, MLP
 2 -> 64 -> 64 -> 1 on [x | y]; `--model miniboone43`: the tabular
 MINIBOONE model, RNODE, MLP 43 -> 128 -> 128 -> 43, through the wide chain
-kernels), its weights and its data from a seed as `utils/configs.py` makes
+kernels; `--model hepmass42`: the README net family at the HEPMASS width,
+RNODE, MLP 42 -> 126 -> 42, through the wide 2-layer kernels and the wide
+chain forms), its weights and its data from a seed as `utils/configs.py` makes
 them, one Gaussian VJP probe (`--probes K` Gaussian probes, `--jvp`
 forward-mode ones: the Hutchinson train steps run the probe instances of
 the K1 and K2 kernels or of their chain forms, narrow or wide (miniboone43),
@@ -25,10 +28,11 @@ too):
   * the kernels that take the most of it, by name, and the host operations
     that take the most of the CPU's own time under the profiler (where an
     idle card waits).
-With `--test-grad` it measures one more path, the TEST loss (the
-exact-trace maximum likelihood) and its gradient in the params
-(`test_grad`): on a 2-layer net the forward runs K3 and the backward K5, on
-deeper chains K7 TEST and the plain backward.  `--direct` runs the train
+With `--test-grad` (always for hepmass42) it measures one more path, the
+TEST loss (the exact-trace maximum likelihood) and its gradient in the
+params (`test_grad`): on a 2-layer net the forward runs K3 and the backward
+K5 (past state width 32 wide K3 and wide K5), on deeper chains K7 TEST and
+the plain backward.  `--direct` runs the train
 steps under `SolverOptions(adjoint=Adjoint.DIRECT)` and `--fixed N` under N
 rk4 steps: the whole-solve kernels do not take them, so a 2-layer net's
 Hutchinson step evaluates its field stage by stage in K10 and
@@ -109,7 +113,7 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
         yb = None if ys is None else ys[:b]
         call = lambda: step(ps, xs[:b], gen, ys=yb)  # noqa: E731
         out[label] = _measure(call, steps)
-    if test_grad:
+    if test_grad or name == "hepmass42":
         icnf = model(False)
         ps = cnf.params_from_numpy(ps_np, dev)
         leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]

@@ -3,9 +3,10 @@ without conditioning rows, and the chain kernels: the K1 and K2 chain forms,
 the K7 TEST and exact forwards, with and
 without conditioning rows, under every embedded explicit tableau and with
 identity layers, the probe instances of K1, K2 and their chain forms with K
-VJP or JVP probes (K6), and their wide forms at the MINIBOONE width) against their
-plain PyTorch versions, on the card, and the configurations they do not
-cover.
+VJP or JVP probes (K6), and their wide forms at the MINIBOONE width; wide
+K3, wide K5 and the wide K4 adjoint for 2-layer nets past state width 32,
+the HEPMASS width of the README net family) against their plain PyTorch
+versions, on the card, and the configurations they do not cover.
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a card
 (and without JAX, whose conftest this file does not need):
@@ -342,9 +343,10 @@ def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
         assert tfs.run_exact_adjoint_kernel.launches == n4
         return
     if kernel == "K5-test-gradients":
-        # K5 covers every 2-layer tanh net of state width up to 32; a wider
-        # one's TEST gradient raises naming the shape variants (its forward
-        # would need K3 at that width too), and nothing launches.
+        # K5 covers every 2-layer tanh net of state width up to 32 and refuses
+        # a wider one naming the shape variants (a), launching nothing; the
+        # fused solve takes a wider net's TEST gradient to wide K3 and wide
+        # K5, once each.
         dims = (40, 64, 40)
         spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
         icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(dims, device=dev), 40, 0, compute_mode=tcnf.VecJacMode(fused=True))
@@ -352,8 +354,12 @@ def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
         leaves = [x.requires_grad_() for p in ps for x in p.values()]
         xs40 = torch.from_numpy(np.random.default_rng(7).normal(size=(8, 40)).astype(np.float32)).to(dev)
         before = _launches()
-        with pytest.raises(NotImplementedError, match=r"shape variants \(a\)"):
-            torch.autograd.grad(tcnf.loss(icnf, tcnf.Mode.TEST, xs40, ps), leaves)
+        g = torch.autograd.grad(tcnf.loss(icnf, tcnf.Mode.TEST, xs40, ps), leaves)
+        after = _launches()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {tfs.K3W_KERNEL: 1,
+                                                                                     tfs.K5W_KERNEL: 1}
+        assert all(bool(torch.isfinite(x).all()) for x in g)
+        before = after
         z = torch.zeros((8, 40), device=dev)
         acc = torch.zeros((1, 8), device=dev)
         with pytest.raises(NotImplementedError, match=r"shape variants \(a\)"):
@@ -892,6 +898,102 @@ def test_wide_paths_on_the_card_match_the_twins_on_the_cpu(dev):
         assert ran == want
         lp_c, l_c, g_c, nfe_c = run(torch.device("cpu"), exact)
         assert nfe_k == nfe_c and _close(lp_k, lp_c) and _close(l_k, l_c)
+        for a, b in zip(g_k, g_c):
+            assert _grad_close(a, b)
+
+
+# ---- the 2-layer kernels' wide forms (2-layer tanh nets past dz 32) ----
+
+HEPMASS = (42, 126, 42)
+
+
+@pytest.mark.parametrize(
+    "dims,B,span",
+    [
+        (HEPMASS, 4096, (0.0, 13.0)),
+        (HEPMASS, 37, (13.0, 0.0)),
+        ((40, 48, 40), 300, (0.0, 2.0)),
+        ((64, 128, 64), 256, (0.0, 1.0)),
+        ((33, 99, 33), 1, (0.0, 1.0)),
+    ],
+    ids=["hepmass42-B4096", "hepmass42-reverse-B37", "dz40-B300", "dz64-hidden128", "dz33-B1"],
+)
+def test_wide_two_layer_kernels_match_twins(dev, dims, B, span):
+    """Wide K3 against `solve_test_plain` from a nonzero dlogp (equal steps,
+    values within REL), wide K5 against `adjoint_test_plain` from its output
+    and the wide K4 adjoint against `adjoint_train_exact_plain` from the
+    exact forward's twin, each warm-started from its forward's last step:
+    equal steps, z0, acc0 and a_z0 held to the float64 twin
+    (`_state_close`), finite gradients within GRAD_REL.  One launch each."""
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    kw = _kernel_args(dims, B, span, dev)
+    dz = dims[-1]
+    rng = np.random.default_rng(11)
+    T = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    runs = (tfs.run_wide_test2_solve_kernel, tfs.run_wide_test_adjoint_kernel, tfs.run_wide_exact_adjoint_kernel)
+    before = [w.launches for w in runs]
+    tdir = 1.0 if span[1] > span[0] else -1.0
+    base = {k: kw[k] for k in ("rtol", "atol", "max_steps", "ws", "bs")}
+    with torch.no_grad():
+        out_k = tfs.run_wide_test2_solve_kernel(TSIT5, spec, **kw)
+        out_p = tfs.solve_test_plain(TSIT5, spec, **kw)
+        test_adj = dict(base, zT=out_p[0], accT=out_p[1][None], azT=T(rng.normal(0.0, 1.0 / B, (B, dz))),
+                        aaccT=T(np.full((1, B), 1.0 / B)), t_hi=kw["t1"], t_lo=kw["t0"], dt_init=-tdir * out_p[4].abs())
+        k5 = [tfs.run_wide_test_adjoint_kernel(TSIT5, spec, **test_adj), tfs.adjoint_test_plain(TSIT5, spec, **test_adj),
+              _twin64(tfs.adjoint_test_plain, spec, test_adj)]
+        ex = dict(base, norm_z=True, norm_j=True, z0=kw["z0"], acc0=T(rng.normal(0.0, 0.5, (3, B))), t0=kw["t0"],
+                  t1=kw["t1"], dt_init=kw["dt_init"])
+        fo = tfs.solve_train_exact_plain(TSIT5, spec, **ex)
+        ex_adj = dict(base, norm_z=True, norm_j=True, zT=fo[0], accT=fo[1], azT=T(rng.normal(0.0, 1.0 / B, (B, dz))),
+                      aaccT=T(rng.normal(0.0, 1.0 / B, (3, B))), t_hi=kw["t1"], t_lo=kw["t0"],
+                      dt_init=-tdir * fo[4].abs())
+        k4 = [tfs.run_wide_exact_adjoint_kernel(TSIT5, spec, **ex_adj),
+              tfs.adjoint_train_exact_plain(TSIT5, spec, **ex_adj), _twin64(tfs.adjoint_train_exact_plain, spec, ex_adj)]
+    torch.cuda.synchronize()
+    assert [w.launches for w in runs] == [n + 1 for n in before]
+    _hold_forward(out_k, out_p)
+    for adj_k, adj_p, adj_64 in (k5, k4):
+        assert (int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6]))
+        for i in range(3):  # z0, acc0, a_z0
+            assert _state_close(adj_k[i], adj_p[i], adj_64[i])
+        for a, b in zip(adj_k[3] + adj_k[4], adj_p[3] + adj_p[4]):
+            assert torch.isfinite(a).all() and _grad_close(a, b)
+
+
+def test_wide_two_layer_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """The hepmass42 model (RNODE, nvars = naug = 21, MLP 42 -> 126 -> 42,
+    steer_rate 0.1; tspan (0, 1) here) on the card and on the CPU at
+    B = 256: logpdf through wide K3; the TEST loss gradient through wide K3
+    and wide K5; the Hutchinson loss and gradient through the wide K1 and K2
+    chain forms; the exact one through wide K7 exact and the wide K4
+    adjoint; each launching those kernels once and no other."""
+    xs = np.random.default_rng(4).normal(size=(256, 21)).astype(np.float32)
+    eps = np.random.default_rng(5).normal(size=(1, 256, 42)).astype(np.float32)
+    ps_np = _np_params(HEPMASS, 3)
+
+    def run(device, mode):
+        icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(HEPMASS, device=device), 21, 21, tspan=(0.0, 1.0), steer_rate=0.1,
+                              lam3=1e-2, compute_mode=tcnf.VecJacMode(fused=True, exact_trace=mode == "exact"))
+        ps = tcnf.params_from_numpy(ps_np, device)
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        if mode == "test":
+            with torch.no_grad():
+                lp = tcnf.ICNFDist(icnf, tcnf.Mode.TEST, ps).logpdf(xs)
+            l = tcnf.loss(icnf, tcnf.Mode.TEST, xs, ps)
+            return lp.cpu(), l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)]
+        kw = {"steer_r": 0.05} if mode == "exact" else {"eps": eps, "steer_r": 0.05}
+        l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, **kw)
+        return None, l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)]
+
+    wants = {"test": {tfs.K3W_KERNEL: 2, tfs.K5W_KERNEL: 1}, "train": {tfs.K1W_KERNEL: 1, tfs.K2W_KERNEL: 1},
+             "exact": {tfs.K7W_KERNEL + "/exact": 1, tfs.K4WA_KERNEL: 1}}
+    for mode, want in wants.items():
+        before = _launches()
+        lp_k, l_k, g_k = run(dev, mode)
+        after = _launches()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == want
+        lp_c, l_c, g_c = run(torch.device("cpu"), mode)
+        assert _close(l_k, l_c) and (lp_k is None or _close(lp_k, lp_c))
         for a, b in zip(g_k, g_c):
             assert _grad_close(a, b)
 

@@ -207,6 +207,7 @@ _WIDE_COVERED = {
     "miniboone": (MINIBOONE, 0, True),
     "dz64-hidden128": ((64, 128, 128, 64), 0, True),
     "two-layer-chain-dz40": ((40, 48, 40), 0, True),
+    "hepmass42": ((42, 126, 42), 0, True),
     "power6": ((6, 64, 64, 6), 0, False),
     "cond-recipe": ((1, 64, 64, 1), 1, False),
     "dz32-hidden64": ((32, 64, 64, 32), 0, False),
@@ -218,6 +219,8 @@ _WIDE_REFUSED = {
     "conditional-wide": ((43, 128, 128, 43), 2, "conditional wide chains"),
     "five-layer": ((43, 64, 64, 64, 64, 43), 0, "5-layer chains"),
     "weights-past-shared-memory": ((64, 128, 128, 128, 64), 0, "shared memory"),
+    "conditional-hepmass42": ((42, 126, 42), 1, "K8 in the wide"),
+    "two-layer-dz66": ((66, 198, 66), 0, "state width 66 > 64"),
 }
 
 
