@@ -80,7 +80,15 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     gradient and score through wide K3 and wide K5, trained through the
     wide K1 and K2 chain forms (`fit`, four Lion steps; one K = 4 and one
     JVP loss gradient through their probe instances) and, under exact
-    trace, through wide K7 exact and the wide K4 adjoint.
+    trace, through wide K7 exact and the wide K4 adjoint;
+  * chains whose weights pass a block's shared memory: FFJORD's tabular
+    MINIBOONE model (miniboone860: RNODE, nvars = 43, MLP 43 -> 860 ->
+    860 -> 43 tanh, hidden widths 20 x d as in FFJORD's appendix, lambda1
+    = lambda2 = 1e-2, tspan (0, 1), no steering, one VJP probe, batch 1024,
+    the tabular data recipe), served through streamed K7 TEST (`logpdf`,
+    `sample(1024)`), trained through the streamed K1 and K2 chain forms
+    (`fit`, four Lion steps) and, under exact trace, one train step through
+    streamed K7 exact with the plain backward.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -329,7 +337,27 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      wide K1 and K2 chain forms four times each; the exact `fit` wide K7
      exact and the wide K4 adjoint four times each;
  66. CUDA-event times of the train step, the exact train step, `logpdf`
-     and the TEST loss gradient.
+     and the TEST loss gradient;
+ 67. miniboone860 at B = 1024: the launch shapes of the streamed K1 and K2
+     chain forms and streamed K7 TEST and exact (threads, blocks, tile or
+     basis rows a chunk, shared memory, the global tile scratch; registers
+     in phase 2);
+ 68. the four streamed kernels against their twins, held as in phases 16
+     and 17 and timed (two calls each): the K1 chain form, K7 TEST and
+     exact from nonzero accumulators, the K2 chain form from the K1 chain
+     form's output warm-started from its last step;
+ 69. logpdf through streamed K7 TEST against the plain path, held as in
+     phase 5;
+ 70. the Hutchinson and exact losses and their gradients through
+     fused=True, fused=False and a float64 rtol 1e-7 solve, held as in
+     phase 8, counters reset just before each fused call: the Hutchinson
+     gradient launches the streamed K1 and K2 chain forms once each, the
+     exact one streamed K7 exact once, and nothing else;
+ 71. the main paths, counters reset just before each: logpdf and
+     sample(1024) launch streamed K7 TEST twice and nothing else; `fit` for
+     four Lion steps the streamed K1 and K2 chain forms at least four times
+     each; one exact train step streamed K7 exact once;
+ 72. CUDA-event times of the train step (fused and plain) and `logpdf`.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -1636,10 +1664,15 @@ def readme_tolerances_flagship(cnf, fs, dev, readme_launches):
     ]
 
 
-def chain_names(fs, wide=False):
+def chain_names(fs, wide=False, stream=False):
     """The chain kernels' record keys (k1c, k2c, k7t, k7e) -> (their
     KERNEL_WRAPPERS name, wrapper, source): the narrow forms or, `wide`,
-    the wide forms."""
+    the wide forms or, `stream`, the streamed forms."""
+    if stream:
+        return {"k1c": (fs.K1S_KERNEL, fs.run_stream_train_solve_kernel, "k1_stream_solve.cu"),
+                "k2c": (fs.K2S_KERNEL, fs.run_stream_adjoint_kernel, "k2_stream_adjoint.cu"),
+                "k7t": (fs.K7S_KERNEL + "/test", fs.run_stream_test_solve_kernel, "k7_stream_solve.cu"),
+                "k7e": (fs.K7S_KERNEL + "/exact", fs.run_stream_exact_solve_kernel, "k7_stream_solve.cu")}
     if wide:
         return {"k1c": (fs.K1W_KERNEL, fs.run_wide_train_solve_kernel, "k1_wide_solve.cu"),
                 "k2c": (fs.K2W_KERNEL, fs.run_wide_adjoint_kernel, "k2_wide_adjoint.cu"),
@@ -1651,18 +1684,18 @@ def chain_names(fs, wide=False):
             "k7e": (fs.K7_KERNEL + "/exact", fs.run_chain_exact_solve_kernel, "k7_chain_solve.cu")}
 
 
-def chain_records(fs, suffix, dims, runs, launches, tab=None, B=BATCH, wide=False):
-    """The chain kernels' records (their wide forms' when `wide`) at batch
-    B: `runs` maps k1c, k2c, k7t, k7e to (out_k, err, ms, plain_ms),
-    `launches` to their main-path counts; `suffix` (None: none) ends each
-    name."""
+def chain_records(fs, suffix, dims, runs, launches, tab=None, B=BATCH, wide=False, stream=False):
+    """The chain kernels' records (their wide forms' when `wide`, their
+    streamed forms' when `stream`) at batch B: `runs` maps k1c, k2c, k7t,
+    k7e to (out_k, err, ms, plain_ms), `launches` to their main-path counts;
+    `suffix` (None: none) ends each name."""
     fma = chain_fma(dims)
     dz = dims[-1]
     P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
     floats = {"k1c": P + B * (3 * dz + 6), "k2c": 2 * P + B * (5 * dz + 9), "k7t": P + B * (2 * dz + 2),
               "k7e": P + B * (2 * dz + 6)}
     at = {"k1c": 1043, "k2c": 1767, "k7t": 1043, "k7e": 1043}
-    names = chain_names(fs, wide)
+    names = chain_names(fs, wide, stream)
     records = []
     for key, (out, err, ms, pms) in runs.items():
         name, _, src = names[key]
@@ -1672,18 +1705,20 @@ def chain_records(fs, suffix, dims, runs, launches, tab=None, B=BATCH, wide=Fals
     return records
 
 
-def chain_runs(fs, tab, spec, test, train, exact, cot, label, gate=0, wide=False):
-    """The four chain kernels (their wide forms when `wide`) against their
-    twins on one model's inputs."""
-    run = {key: wrapper for key, (_, wrapper, _) in chain_names(fs, wide).items()}
-    form = "wide " if wide else ""
-    runs = {"k7t": run_pair(f"{form}K7 TEST {label}", run["k7t"], fs.solve_test_plain, tab, spec, test, gate=gate),
+def chain_runs(fs, tab, spec, test, train, exact, cot, label, gate=0, wide=False, stream=False, reps=5):
+    """The four chain kernels (their wide forms when `wide`, their streamed
+    forms when `stream`) against their twins on one model's inputs, each
+    timed over `reps` calls."""
+    run = {key: wrapper for key, (_, wrapper, _) in chain_names(fs, wide, stream).items()}
+    form = "streamed " if stream else "wide " if wide else ""
+    runs = {"k7t": run_pair(f"{form}K7 TEST {label}", run["k7t"], fs.solve_test_plain, tab, spec, test, gate=gate,
+                            reps=reps),
             "k7e": run_pair(f"{form}K7 exact {label}", run["k7e"], fs.solve_train_exact_plain, tab, spec, exact,
-                            gate=gate),
+                            gate=gate, reps=reps),
             "k1c": run_pair(f"{form}K1 chain form {label}", run["k1c"], fs.solve_train_plain, tab, spec, train,
-                            gate=gate)}
+                            gate=gate, reps=reps)}
     runs["k2c"] = run_pair(f"{form}K2 chain form {label}", run["k2c"], fs.adjoint_train_plain, tab, spec,
-                           adjoint_kw(train, runs["k1c"][0], cot), adjoint=True, gate=gate)
+                           adjoint_kw(train, runs["k1c"][0], cot), adjoint=True, gate=gate, reps=reps)
     return runs
 
 
@@ -1980,6 +2015,113 @@ def miniboone(cnf, fs, dev):
     print(f"miniboone logpdf B={B}: kernel {ms_lp:.4f} ms ({B / ms_lp * 1e3:.1f} evals/s), plain {ms_lp_p:.4f} ms; "
           f"steps {int(st.steps)}, NFE {int(st.nfe)}")
     return chain_records(fs, None, dims, runs, launches, B=B, wide=True)
+
+
+def miniboone860(cnf, fs, dev):
+    """Phases 67 to 72: FFJORD's MINIBOONE model (miniboone860: RNODE, MLP
+    43 -> 860 -> 860 -> 43 tanh, tspan (0, 1), batch 1024), whose weights
+    pass a block's shared memory, through the chain kernels' streamed forms.
+    Returns their records."""
+    import torch
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    cfg = MODELS["miniboone860"]
+    dims, B = cfg["dims"], cfg["batch"]
+    rng = np.random.default_rng(SEED + 130)
+    ps_np = glorot_params(rng, dims)
+    xs = torch.from_numpy(model_data("miniboone860", rng, B)).to(dev)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    model = lambda **kw: make_icnf("miniboone860", dev, **kw)  # noqa: E731
+    icnf_k, icnf_p = model(), model(fused=False)
+    spec = fs.chain_spec(icnf_k.nn, icnf_k.zdim)
+    check(fs._stream_chain(spec) and fs._kernel_covers(fs.TSIT5, spec, chain=True) is None,
+          "the miniboone860 chain should run the streamed forms")
+    names = {key: name for key, (name, _, _) in chain_names(fs, stream=True).items()}
+
+    # Phase 67: the streamed kernels' launch shapes at B = 1024.
+    arr = (ctypes.c_int * len(dims))(*dims)
+    for lib_name, fn in ((fs.K1S_KERNEL, "cnf_k1s_shape"), (fs.K2S_KERNEL, "cnf_k2s_shape"),
+                         (fs.K7S_KERNEL, "cnf_k7s_test_shape"), (fs.K7S_KERNEL, "cnf_k7s_exact_shape")):
+        out = (ctypes.c_int * 5)()
+        err = getattr(fs._library(lib_name), fn)(len(dims) - 1, arr, B, out)
+        check(err == 0 and out[1] >= 1, f"{fn}: cudaError {err}")
+        print(f"{fn} at widths {dims}, B={B}: {out[0]} threads a block, {out[1]} blocks, tile {out[2]}, "
+              f"{out[3]} bytes of dynamic shared memory, {out[4]} floats of global tile scratch a block")
+
+    # Phase 68: the four streamed kernels against their twins (the bounds of
+    # phases 16 and 17), with their timings.
+    test, train, exact, cot = kernel_inputs(icnf_k, ps, xs, rng, dev)
+    runs = chain_runs(fs, fs.TSIT5, spec, test, train, exact, cot, "miniboone860", stream=True, reps=2)
+
+    # Phase 69: logpdf through the kernel against the plain path.
+    hold_logpdf(cnf, "miniboone860", icnf_k, icnf_p, xs, ps)
+
+    # Phase 70: the Hutchinson and exact loss and gradient through the
+    # kernels, the plain path and a float64 rtol 1e-7 solve.
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 131)
+    eps = icnf_k.draw_eps(gen, B, dev)
+    for label, exact_trace in (("miniboone860 Hutchinson", False), ("miniboone860 exact", True)):
+        extra = {} if exact_trace else {"eps": eps}
+        fs.reset_launches()
+        l_k, g_k, m_k = loss_grad(cnf, model(exact=exact_trace), ps_np, xs, dev, **extra)
+        want = {names["k7e"]: 1} if exact_trace else {names["k1c"]: 1, names["k2c"]: 1}
+        check(launched(fs) == want, f"{label}: the fused gradient launched {launched(fs)}")
+        l_p, g_p, _ = loss_grad(cnf, model(fused=False, exact=exact_trace), ps_np, xs, dev, **extra)
+        extra_t = {} if exact_trace else {"eps": eps.double()}
+        l_t, g_t, _ = loss_grad(cnf, model(fused=False, exact=exact_trace, dtype=torch.float64, solver=truth), ps_np,
+                                xs, dev, torch.float64, **extra_t)
+        torch.cuda.synchronize()
+        hold_gradients(label, l_k, g_k, l_p, g_p, l_t, g_t)
+        print(f"{label} B={B}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 {float(l_t):.6f}, "
+              f"forward NFE {int(m_k['nfe'])}")
+
+    # Phase 71: the main paths, each with the counters reset just before it:
+    # logpdf and sample(1024) through streamed K7 TEST, `fit` for four Lion
+    # steps through the streamed K1 and K2 chain forms, one exact train step
+    # through streamed K7 exact and the plain backward.
+    dist = cnf.ICNFDist(icnf_k, cnf.Mode.TEST, ps)
+    fs.reset_launches()
+    with torch.no_grad():
+        lp = dist.logpdf(xs)
+        samples = dist.sample(B, generator=torch.Generator(device=dev).manual_seed(SEED + 132))
+    torch.cuda.synchronize()
+    n7t = launched(fs)
+    check(n7t == {names["k7t"]: 2}, f"serving launched {n7t}")
+    check(bool(torch.isfinite(lp).all() and torch.isfinite(samples).all()) and tuple(samples.shape) == (B, 43),
+          "serving output not finite or of the wrong shape")
+    fit_path(cnf, fs, icnf_k, ps_np, dev, model_data("miniboone860", rng, N_STEPS * B), batch_size=B)
+    n12 = launched(fs)
+    check(set(n12) == {names["k1c"], names["k2c"]} and min(n12.values()) >= N_STEPS, f"fit launched {n12}")
+    icnf_e = model(exact=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 133)
+    p = cnf.params_from_numpy(ps_np, dev)
+    leaves = [x.requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
+    step = cnf.parallel.make_train_step_body(icnf_e, cnf.Lion(leaves, lr=1e-3))
+    fs.reset_launches()
+    l_e = step(p, xs, gen)
+    torch.cuda.synchronize()
+    n7e = launched(fs)
+    check(n7e == {names["k7e"]: 1}, f"the exact train step launched {n7e}")
+    check(all(bool(torch.isfinite(x).all()) for x in leaves) and bool(torch.isfinite(l_e["loss"])),
+          "the exact train step's loss or params are not finite")
+    print(f"main paths: logpdf and sample launched {n7t}, fit {n12}, the exact train step {n7e}")
+    launches = {"k7t": n7t[names["k7t"]], "k1c": n12[names["k1c"]], "k2c": n12[names["k2c"]],
+                "k7e": n7e[names["k7e"]]}
+
+    # Phase 72: timings of the paths.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 134)
+    ms_step = step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 2)
+    ms_step_p = step_ms(cnf, icnf_p, ps_np, xs, gen, dev, 1, warmup=False)
+    with torch.no_grad():
+        _, _, st = cnf.inference(icnf_k, cnf.Mode.TEST, xs, ps)
+        ms_lp = cuda_ms(lambda: dist.logpdf(xs), 2)
+        ms_lp_p = cuda_ms(lambda: cnf.inference(icnf_p, cnf.Mode.TEST, xs, ps), 1, warmup=False)
+    print(f"miniboone860 train step B={B} (loss, gradient, Lion): fused {ms_step:.4f} ms ({B / ms_step * 1e3:.1f} "
+          f"samples/s), plain {ms_step_p:.4f} ms ({B / ms_step_p * 1e3:.1f} samples/s)")
+    print(f"miniboone860 logpdf B={B}: kernel {ms_lp:.4f} ms ({B / ms_lp * 1e3:.1f} evals/s), plain {ms_lp_p:.4f} ms; "
+          f"steps {int(st.steps)}, NFE {int(st.nfe)}")
+    return chain_records(fs, None, dims, runs, launches, B=B, stream=True)
 
 
 PROBE_CONFIGS = ((2, False), (4, False), (8, False), (1, True), (2, True))  # (K, JVP?) of the K6 kernel holds
@@ -2862,7 +3004,7 @@ def main() -> int:
     built = _build.build_libraries([fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL,
                                     fs.K5_KERNEL, fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL, fs.K1W_KERNEL,
                                     fs.K2W_KERNEL, fs.K7W_KERNEL, fs.K10_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL,
-                                    fs.K4WA_KERNEL])
+                                    fs.K4WA_KERNEL, fs.K1S_KERNEL, fs.K2S_KERNEL, fs.K7S_KERNEL])
     print(f"built {len(built)} kernels in {time.perf_counter() - t_build:.2f} s (one nvcc each, in parallel)")
     for name, (lib_path, log) in built.items():
         print(f"  {lib_path.name}")
@@ -2911,7 +3053,8 @@ def main() -> int:
                          ("47-50", lambda: test_gradients(cnf, fs, dev, sample_draw)),
                          ("51-55", lambda: direct_paths(cnf, fs, dev, sample_draw)),
                          ("56-60", lambda: wide_probe_paths(cnf, fs, dev)),
-                         ("61-66", lambda: wide_two_layer(cnf, fs, dev))):
+                         ("61-66", lambda: wide_two_layer(cnf, fs, dev)),
+                         ("67-72", lambda: miniboone860(cnf, fs, dev))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

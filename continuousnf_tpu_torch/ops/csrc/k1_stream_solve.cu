@@ -1,0 +1,161 @@
+// The streamed K1 chain form: the TRAIN-mode forward solve of a CNF whose
+// field is an unconditional Dense chain of 2 to 4 tanh or identity layers
+// with state width up to 64 and hidden widths past what the wide forms keep
+// in shared memory (FFJORD's tabular MINIBOONE model 43 -> 860 -> 860 ->
+// 43), one Hutchinson probe (reverse mode), the whole adaptive solve (any
+// embedded explicit tableau, K9) in one cooperative launch.
+//
+// Replaces, at these widths, the TPU kernel continuousnf_tpu/ops/fused_solve.py::
+// _run_solve_kernel (pl.pallas_call at :1043) built by _make_solve_kernel
+// (:773-942) with the N-layer _stage_train stage (:333-369): _chain_fwd
+// (:272) and _probe_pullback (:291).  Per sample and field evaluation, as the
+// wide K1 chain form (k1_wide_solve.cu):
+//   forward   h_1 = s_0(z W_0 + b_0), h_(l+1) = s_l(h_l W_l + b_l), y = h_N;
+//   pullback  v = eps s'(y), then up the layers u_l = v_l W_l^T,
+//             v_(l-1) = u_l s'(h_l), eJ = v_0 W_0^T;
+//   rates     -<eJ, eps>, ||y|| (norm_z), ||eJ|| (norm_j) (safe norms);
+// then ONE Hairer norm over all B * (dz + 3) elements per attempted step
+// (forward_solve_tiles of solve_common.cuh).
+//
+// Design: a block evaluates each stage for a tile of T = 8 samples (4 where
+// the shared memory asks for it) through the streamed chain layer of
+// chain_stream.cuh: the weights stay in global memory (3.25 MB at 860 wide,
+// L2-resident) and stream through a 17 KB chunk buffer; per tile row the
+// stage input and output and the probe pieces (z, y, eps, v, eJ: 5 x 44),
+// the hidden block (activations, then the pullback's gated cotangents in
+// place: 1,720 floats at 860 wide) and 3 rates sit in shared memory (79 KB
+// at T = 8 with the chunk buffer), or in a global scratch for wider nets.
+// B = 1024 gives 128 tiles for 132 SMs, one block each.
+// What bounds it on the H100: one field evaluation is a forward pass and one
+// pullback, 2 x 813,560 FMA per sample at 860 wide: 3.3 GFLOP a stage at
+// B = 1024, 50 us at the card's f32 rate.  Each weight read from the L2
+// serves the tile's 8 rows, so every block reads 6.5 MB of weights a stage
+// (0.83 GB for 128 blocks).  Measured, the chunks' L2 latency bounds it: the
+// layer loads the next chunk while computing on the current one (PERF.md).
+// Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+
+#include "chain_stream.cuh"
+
+namespace {
+
+constexpr int kStageUnroll = 4;
+constexpr int kTiles[] = {8, 4};
+
+using cnf::kRedFloats;
+using cnf::kStreamBlock;
+using cnf::safe_norm_sq;
+using cnf::StreamLayout;
+
+struct Args {
+  cnf::FwdArgs f;
+  StreamLayout L;
+  const float* params;  // [W0 | b0 | W1 | b1 | ...]
+  float* tiles;         // global scratch of the tile arrays (grid x region), null: shared memory
+  int T;                // samples a tile
+};
+
+// The TRAIN field of a tile: KY = y, KR = [-tr, ||y||, ||eJ||] per row.
+struct StreamTrainField {
+  const StreamLayout* L;
+  const float* params;
+  const float* eps;  // (B, dz)
+  float* HB;         // the tile's hidden block
+  float* E;          // (T, zp) each: eps, the gated probe, eJ
+  float* V;
+  float* EJ;
+  float* wc;         // the chunk buffer
+  int T, norm_z, norm_j;
+
+  __device__ void operator()(int s0, int nv, const float* Z, float* KY, float* KR) const {
+    const StreamLayout& c = *L;
+    const int dz = c.dz, zp = c.zp, on = c.act[c.n - 1];
+    cnf::stream_forward(c, params, Z, T, HB, KY, wc);
+    for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+      const int t = idx / dz, k = idx % dz;
+      const float e = t < nv ? eps[(size_t)s0 * dz + idx] : 0.f;
+      E[t * zp + k] = e;
+      V[t * zp + k] = e * cnf::gate(KY[t * zp + k], on);
+    }
+    __syncthreads();
+    cnf::stream_pullback(c, params, V, T, HB, EJ, wc);
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      float ysq = 0.f, tr = 0.f, nsq = 0.f;
+      for (int k = 0; k < dz; ++k) {
+        const float y = KY[t * zp + k], ej = EJ[t * zp + k];
+        ysq = fmaf(y, y, ysq);
+        tr = fmaf(ej, E[t * zp + k], tr);
+        nsq = fmaf(ej, ej, nsq);
+      }
+      KR[t * 3 + 0] = -tr;
+      KR[t * 3 + 1] = norm_z ? safe_norm_sq(ysq) : 0.f;
+      KR[t * 3 + 2] = norm_j ? safe_norm_sq(nsq) : 0.f;
+    }
+    __syncthreads();
+  }
+};
+
+// The tile arrays: the solver's Z, KY, KR, the hidden block and eps, V, eJ.
+__host__ __device__ inline size_t region_floats(const StreamLayout& L, int T) {
+  return (size_t)T * (2 * L.zp + 3) + (size_t)T * (L.hsum + 3 * L.zp);
+}
+
+__global__ void __launch_bounds__(kStreamBlock) k1_stream_solve(const Args p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ StreamLayout L;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T;
+  float* wc = smem;
+  float* red = wc + cnf::kChunkFloats;
+  float* scratch = p.tiles ? p.tiles + (size_t)blockIdx.x * region_floats(L, T) : red + kRedFloats;  // Z, KY, KR
+  float* HB = scratch + T * (2 * L.zp + 3);
+  float* E = HB + (size_t)T * L.hsum;
+  float* V = E + T * L.zp;
+  float* EJ = V + T * L.zp;
+  const StreamTrainField field{&L, p.params, p.f.eps, HB, E, V, EJ, wc, T, p.f.norm_z, p.f.norm_j};
+  cnf::forward_solve_tiles<3, kStageUnroll>(p.f, field, T, scratch, red);
+}
+
+size_t smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
+  return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : region_floats(L, T)));
+}
+
+}  // namespace
+
+// The launch shape at batch B: out = {threads per block, blocks, samples a
+// tile, dynamic shared memory bytes, floats of global tile scratch a block
+// (0: the tile arrays are in shared memory)}.  widths: n + 1 level widths
+// (host memory).  Returns a cudaError_t (cudaErrorInvalidValue for a chain
+// not covered).
+extern "C" int cnf_k1s_shape(int n, const int* widths, int B, int* out) {
+  StreamLayout L;
+  if (B < 1 || !cnf::make_stream_layout(n, widths, &L)) return (int)cudaErrorInvalidValue;
+  size_t region[2];
+  for (int o = 0; o < 2; ++o) region[o] = region_floats(L, kTiles[o]);
+  return cnf::stream_shape(k1_stream_solve, region, kTiles, kTiles, 2, B, out);
+}
+
+// params: [W0 | b0 | ...] flat (device); eps, z0: (B, dz); acts: bit i set
+// where layer i is tanh (else identity); acc0/accT: (3, B), rows [dlogp |
+// reg_e | reg_n]; dt_last: (2), the next step size and the last step taken;
+// work: (S + 2) (dz + 3) B floats; partials: 6 grid; tiles: grid x out[4]
+// floats of cnf_k1s_shape, or null when out[4] is 0.  tab: kTableauFloats
+// floats (read_tableau).  T, grid, block: from cnf_k1s_shape.  Returns the
+// launch's cudaError_t.
+extern "C" int cnf_k1s_train_solve(const float* params, const float* eps, const float* z0, const float* acc0,
+                                   const float* ts, float* zT, float* accT, int* stats, float* dt_last, float* work,
+                                   float* partials, float* tiles, int B, int n, const int* widths, int acts,
+                                   int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1,
+                                   float beta2, float inv_order, const float* tab, int T, int grid, int block,
+                                   void* stream) {
+  Args a = {};
+  if (block != kStreamBlock || grid < 1 || T < 4 || T % 4 != 0 || !cnf::make_stream_layout(n, widths, &a.L))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_stream_acts(&a.L, acts);
+  cnf::set_fwd_args(&a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n], max_steps,
+                    norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
+  a.params = params;
+  a.tiles = tiles;
+  a.T = T;
+  return (int)cnf::coop_launch(k1_stream_solve, a, grid, block, smem_bytes(a.L, T, tiles != nullptr),
+                               (cudaStream_t)stream);
+}

@@ -1,0 +1,321 @@
+// The streamed K2 chain form: the continuous-adjoint (backsolve) backward
+// integration of a TRAIN-mode CNF whose field is an unconditional Dense
+// chain of 2 to 4 tanh or identity layers with state width up to 64 and
+// hidden widths past what the wide forms keep in shared memory (FFJORD's
+// tabular MINIBOONE model 43 -> 860 -> 860 -> 43), one Hutchinson probe
+// (reverse mode), the whole adaptive solve (any embedded explicit tableau,
+// K9) from t_hi down to t_lo in one cooperative launch.
+//
+// Replaces, at these widths, the TPU kernel built by continuousnf_tpu/ops/
+// fused_solve.py::_make_adjoint_kernel (:1064-1343), launched by
+// make_full_solve.adjoint_solve (pl.pallas_call at :1767), with the N-layer
+// _stage_train_fwdbwd (:372-481).  The state is, per sample, z (dz), acc
+// (3), a_z (dz) and the constant a_acc (3), plus the batch-summed parameter
+// gradient g_p (P = sum_i in_i out_i + out_i floats; 815,323 at 860 wide).
+// Per sample and stage, the math of the wide K2 chain form
+// (k2_wide_adjoint.cu): the forward pass, the probe pullback keeping u_l and
+// the gated v_l, and the hand-derived VJP against (a_z, a_acc):
+//   ascending the pullback chain, for layer i: ct_v = pu_i W_i,
+//     pu_(i+1) = ct_v s'(h_(i+1)), ct_h(i+1) = -2 h_(i+1) (ct_v u_(i+1));
+//   down the forward chain: ca_i = (ca_(i+1) W_(i+1)^T + ct_h(i+1)) (.) s';
+//     ct_z = ca_0 W_0^T;
+//   per-sample gradient of W_i: pu_i (x) v_i + h_i (x) ca_i, of b_i: ca_i.
+//
+// Controller: adjoint_solve_tiles of solve_common.cuh, unchanged: one
+// batch-global Hairer norm over B * 2 (dz + 3) + P elements, each block's
+// b- and btilde-weighted g_p rates in its own global vectors, reduced one
+// slice a block after the grid barrier and the slices' error sums shared
+// after a second.  The JAX package runs four batch tiles of 256 at B = 1024;
+// the port keeps the single-tile numerics, as for the other adjoints.
+//
+// Memory plan.  A block evaluates each stage for a tile of T samples (8, or
+// 4 where the shared memory asks for it: 4 at 860 wide) through the
+// streamed chain layer of chain_stream.cuh (the weights in global memory,
+// L2-resident, through a 17 KB chunk buffer).  Per tile row the solver's z,
+// a_z, k_z (= y), k_az (4 x 44) and rates (3), five dz-vectors (eps, the
+// gated probe v_N, eJ, the pullback cotangent pu_0 and ca_N), four hidden
+// blocks (activations h, pu, v, and u, which becomes ct_h and then ca in
+// place: 4 x 1,720 at 860 wide) and four per-row scalars sit in shared
+// memory (134 KB at T = 4 with the chunk buffer), or in a global scratch for
+// wider nets.  Global memory: each block's GB, GE (and GE3), stage-1 and
+// last-stage partials ((NG + 2) P floats a block: 1.7 GB at 132 blocks under
+// tsit5), g and its proposal (P each).
+//
+// What bounds it on the H100: a stage is six passes over the weights per
+// sample (the forward pass, the pullback, its VJP and the forward chain's
+// VJP: 4.9 M FMA at 860 wide) plus the gradient pass (2 FMA per sample and
+// gradient entry: 1.6 M), 13 GFLOP at B = 1024, 0.2 ms at the card's f32
+// rate.  The gradient pass rewrites each block's (NG + 1) P-float vectors
+// for every tile and stage (20 MB a block, 2.6 GB for 132 blocks): device
+// memory bandwidth bounds it at this P (ROADMAP speed row (m) proposes the
+// batch-wide reduction that removes it).
+// Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+
+#include "chain_stream.cuh"
+
+namespace {
+
+constexpr int kStageUnroll = 4;
+constexpr int kTiles[] = {8, 4};
+
+using cnf::ct_safe_norm;
+using cnf::gate;
+using cnf::kRedFloats;
+using cnf::kStreamBlock;
+using cnf::level;
+using cnf::safe_norm_sq;
+using cnf::StreamLayout;
+
+struct AdjArgs {
+  cnf::AdjState s;
+  StreamLayout L;
+  const float* params;  // [W0 | b0 | W1 | b1 | ...]
+  const float* eps;     // (B, dz) Hutchinson probe
+  float* g;             // (P) the gradient, laid out as params
+  float* gnew;          // (P) its proposal
+  float* gblk;          // [gridDim.x][(NG + 2) P]
+  float* tiles;         // global scratch of the tile arrays (grid x region), null: shared memory
+  int norm_z, norm_j, T;
+};
+
+// The tile arrays of the stage beside the solver's: five dz-vectors, four
+// hidden blocks and four scalars a row.
+struct TileArrays {
+  float *E, *VL, *EJ, *CU, *CAL;  // (T, zp)
+  float *HS, *PU, *V, *U;         // hidden blocks; U holds u, then ct_h, then ca
+  float* SC;                      // (T, 4): fz, fn, ct_tr
+};
+
+// The tile arrays: the solver's Z, AZ, KZ, KAZ, KR and the stage's.
+__host__ __device__ inline size_t region_floats(const StreamLayout& L, int T) {
+  return (size_t)T * (4 * L.zp + 3) + (size_t)T * (5 * L.zp + 4 * (size_t)L.hsum + 4);
+}
+
+__device__ inline TileArrays tile_arrays(const StreamLayout& L, int T, float* base) {
+  TileArrays a;
+  const size_t v = (size_t)T * L.zp, h = (size_t)T * L.hsum;
+  a.E = base;
+  a.VL = a.E + v;
+  a.EJ = a.VL + v;
+  a.CU = a.EJ + v;
+  a.CAL = a.CU + v;
+  a.HS = a.CAL + v;
+  a.PU = a.HS + h;
+  a.V = a.PU + h;
+  a.U = a.V + h;
+  a.SC = a.U + h;
+  return a;
+}
+
+// One augmented stage of a tile (fused_solve.py::_stage_train_fwdbwd with
+// ct_y = a_z, ct_r = a_acc): KZ = y, KR = the rates, KAZ = -ct_z, and the
+// residuals of the gradient pass left in the tile arrays.
+struct StreamAdjStage {
+  const StreamLayout* L;
+  const float* params;
+  const float* eps;    // (B, dz)
+  const float* aaccT;  // (3, B)
+  TileArrays a;
+  float* wc;           // the chunk buffer
+  int B, T, norm_z, norm_j;
+
+  __device__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR,
+                             float* KAZ) const {
+    const StreamLayout& c = *L;
+    const int n = c.n, dz = c.dz, zp = c.zp;
+    const int on_y = c.act[n - 1];
+    float *E = a.E, *VL = a.VL, *EJ = a.EJ, *CU = a.CU, *CAL = a.CAL, *SC = a.SC;
+    cnf::stream_forward(c, params, Z, T, a.HS, KZ, wc);
+    for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+      const int t = idx / dz, k = idx % dz;
+      const float e = t < nv ? eps[(size_t)s0 * dz + idx] : 0.f;
+      E[t * zp + k] = e;
+      VL[t * zp + k] = e * gate(KZ[t * zp + k], on_y);
+    }
+    __syncthreads();
+    // The pullback, keeping u_l (U) and the gated v_l (V) of every hidden
+    // level, and eJ.
+    for (int i = n - 1; i >= 1; --i) {
+      const float* src = i == n - 1 ? VL : level(c, a.V, T, i + 1);
+      float* u = level(c, a.U, T, i);
+      float* v = level(c, a.V, T, i);
+      const float* h = level(c, a.HS, T, i);
+      const int hp = c.hp[i], on = c.act[i - 1];
+      cnf::stream_mm_t(src, c.hp[i + 1], c.width[i + 1], cnf::layer_w(c, params, i), c.width[i], T, wc,
+                       [&](int t, int k, float x) {
+                         u[t * hp + k] = x;
+                         v[t * hp + k] = x * gate(h[t * hp + k], on);
+                       });
+    }
+    cnf::stream_mm_t(level(c, a.V, T, 1), c.hp[1], c.width[1], cnf::layer_w(c, params, 0), dz, T, wc,
+                     [&](int t, int k, float x) { EJ[t * zp + k] = x; });
+    // The rates and their cotangent factors.  Rates row 0 is -tr:
+    // ct_tr = -a_acc[0].
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      float ysq = 0.f, tr = 0.f, nsq = 0.f;
+      for (int k = 0; k < dz; ++k) {
+        const float y = KZ[t * zp + k], ej = EJ[t * zp + k];
+        ysq = fmaf(y, y, ysq);
+        tr = fmaf(ej, E[t * zp + k], tr);
+        nsq = fmaf(ej, ej, nsq);
+      }
+      const float e_rate = safe_norm_sq(ysq), n_rate = safe_norm_sq(nsq);
+      KR[t * 3 + 0] = -tr;
+      KR[t * 3 + 1] = norm_z ? e_rate : 0.f;
+      KR[t * 3 + 2] = norm_j ? n_rate : 0.f;
+      float aacc[3];
+      for (int r = 0; r < 3; ++r) aacc[r] = t < nv ? aaccT[(size_t)r * B + s0 + t] : 0.f;
+      SC[t * 4 + 0] = norm_z ? ct_safe_norm(aacc[1], e_rate) : 0.f;
+      SC[t * 4 + 1] = norm_j ? ct_safe_norm(aacc[2], n_rate) : 0.f;
+      SC[t * 4 + 2] = -aacc[0];
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+      const int t = idx / dz, k = idx % dz;
+      CU[t * zp + k] = fmaf(EJ[t * zp + k], SC[t * 4 + 1], E[t * zp + k] * SC[t * 4 + 2]);
+    }
+    __syncthreads();
+    // Up the pullback chain: ct_v = pu_i W_i, pu_(i+1) = ct_v s'(h) and
+    // ct_h = -2 h (ct_v u) over u in place (0 for an identity layer).
+    for (int i = 0; i < n - 1; ++i) {
+      const float* src = i == 0 ? CU : level(c, a.PU, T, i);
+      float* pu = level(c, a.PU, T, i + 1);
+      float* u = level(c, a.U, T, i + 1);
+      const float* h = level(c, a.HS, T, i + 1);
+      const int hp = c.hp[i + 1], on = c.act[i];
+      cnf::stream_mm(src, c.hp[i], c.width[i], cnf::layer_w(c, params, i), nullptr, c.width[i + 1], T, wc,
+                     [&](int t, int o, float cv) {
+                       const float hh = h[t * hp + o];
+                       pu[t * hp + o] = cv * gate(hh, on);
+                       u[t * hp + o] = on ? (-2.f * hh) * (cv * u[t * hp + o]) : 0.f;
+                     });
+    }
+    // The output layer: ct_h = a_z + y fz - 2 y (ct_v eps) (tanh; a_z + y fz
+    // for identity), ca = ct_h s'(y).
+    cnf::stream_mm(level(c, a.PU, T, n - 1), c.hp[n - 1], c.width[n - 1], cnf::layer_w(c, params, n - 1), nullptr,
+                   dz, T, wc, [&](int t, int k, float cv) {
+                     const float y = KZ[t * zp + k], az = AZ[t * zp + k], fz = SC[t * 4];
+                     const float ct_h = on_y ? fmaf(y, fz, az) + (-2.f * y) * (cv * E[t * zp + k]) : fmaf(y, fz, az);
+                     CAL[t * zp + k] = ct_h * gate(y, on_y);
+                   });
+    // Down the forward chain: ca of the level below = (ca W^T + ct_h) s'(h),
+    // over ct_h in place.
+    for (int i = n - 1; i >= 1; --i) {
+      const float* src = i == n - 1 ? CAL : level(c, a.U, T, i + 1);
+      float* ca = level(c, a.U, T, i);
+      const float* h = level(c, a.HS, T, i);
+      const int hp = c.hp[i], on = c.act[i - 1];
+      cnf::stream_mm_t(src, c.hp[i + 1], c.width[i + 1], cnf::layer_w(c, params, i), c.width[i], T, wc,
+                       [&](int t, int k, float x) { ca[t * hp + k] = (x + ca[t * hp + k]) * gate(h[t * hp + k], on); });
+    }
+    cnf::stream_mm_t(level(c, a.U, T, 1), c.hp[1], c.width[1], cnf::layer_w(c, params, 0), dz, T, wc,
+                     [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+  }
+};
+
+// The tile's sum over its first nv rows of the negated gradient rate of the
+// stage just evaluated, entry q of the flat [W0 | b0 | W1 | b1 | ...].
+struct StreamGrad {
+  const StreamLayout* L;
+  const float* Z;  // the solver's stage input z
+  TileArrays a;
+  int T;
+
+  __device__ float operator()(int q, int nv) const {
+    const StreamLayout& c = *L;
+    const int n = c.n;
+    int i = 0;
+    while (i + 1 < n && q >= c.pofs[i + 1]) ++i;
+    const int in = c.width[i], out = c.width[i + 1];
+    const int r = q - c.pofs[i];
+    // Layer i reads the input level i (pitch ip) and the pullback cotangent
+    // pu_i; its output side is v_i and ca_i (pitch op).
+    const int ip = c.hp[i], op = c.hp[i + 1];
+    const float* pd = i == n - 1 ? a.CAL : level(c, a.U, T, i + 1);
+    float v = 0.f;
+    if (r < in * out) {
+      const int k = r / out, o = r % out;
+      const float* pa = (i == 0 ? a.CU : level(c, a.PU, T, i)) + k;
+      const float* pc = (i == 0 ? Z : level(c, a.HS, T, i)) + k;
+      const float* pb = (i == n - 1 ? a.VL : level(c, a.V, T, i + 1)) + o;
+      pd += o;
+      for (int t = 0; t < nv; ++t) {
+        v = fmaf(pa[t * ip], pb[t * op], v);
+        v = fmaf(pc[t * ip], pd[t * op], v);
+      }
+    } else {
+      pd += r - in * out;
+      for (int t = 0; t < nv; ++t) v += pd[t * op];
+    }
+    return -v;
+  }
+};
+
+// One block an SM at 860 wide (its shared memory allows no second), so the
+// compiler may give a thread up to 255 registers.
+__global__ void __launch_bounds__(kStreamBlock, 1) k2_stream_adjoint(const AdjArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ StreamLayout L;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T;
+  float* wc = smem;
+  float* red = wc + cnf::kChunkFloats;
+  // The solver's Z, AZ, KZ, KAZ, KR, then the stage's arrays.
+  float* scratch = p.tiles ? p.tiles + (size_t)blockIdx.x * region_floats(L, T) : red + kRedFloats;
+  const TileArrays arrays = tile_arrays(L, T, scratch + T * (4 * L.zp + 3));
+  const StreamAdjStage stage{&L, p.params, p.eps, p.s.aaccT, arrays, wc, p.s.B, T, p.norm_z, p.norm_j};
+  const StreamGrad grad{&L, scratch, arrays, T};
+  cnf::adjoint_solve_tiles<kStageUnroll>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew, red);
+}
+
+size_t smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
+  return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : region_floats(L, T)));
+}
+
+}  // namespace
+
+// The launch shape at batch B: out = {threads per block, blocks, samples a
+// tile, dynamic shared memory bytes, floats of global tile scratch a block
+// (0: the tile arrays are in shared memory)}.  widths: n + 1 level widths
+// (host memory).  Returns a cudaError_t (cudaErrorInvalidValue for a chain
+// not covered).
+extern "C" int cnf_k2s_shape(int n, const int* widths, int B, int* out) {
+  StreamLayout L;
+  if (B < 1 || !cnf::make_stream_layout(n, widths, &L)) return (int)cudaErrorInvalidValue;
+  size_t region[2];
+  for (int o = 0; o < 2; ++o) region[o] = region_floats(L, kTiles[o]);
+  return cnf::stream_shape(k2_stream_adjoint, region, kTiles, kTiles, 2, B, out);
+}
+
+// params/g: [W0 | b0 | ...] flat (device); eps, zT, azT, z0, az0: (B, dz);
+// acts: bit i set where layer i is tanh (else identity); accT/aaccT/acc0:
+// (3, B).  work: (S + 2) (2 dz + 3) B floats; partials: 10 grid; gblk:
+// grid (NG + 2) P (NG = 3 for a tableau with btilde3, else 2); gnew: P;
+// tiles: grid x out[4] floats of cnf_k2s_shape, or null when out[4] is 0.
+// tab: kTableauFloats floats (read_tableau).  T, grid, block: from
+// cnf_k2s_shape.  Returns the launch's cudaError_t.
+extern "C" int cnf_k2s_train_adjoint(const float* params, const float* eps, const float* zT, const float* accT,
+                                     const float* azT, const float* aaccT, const float* ts, float* z0, float* acc0,
+                                     float* az0, float* g, int* stats, float* work, float* partials, float* gblk,
+                                     float* gnew, float* tiles, int B, int n, const int* widths, int acts,
+                                     int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1,
+                                     float beta2, float inv_order, const float* tab, int T, int grid, int block,
+                                     void* stream) {
+  AdjArgs a = {};
+  if (block != kStreamBlock || grid < 1 || T < 4 || T % 4 != 0 || !cnf::make_stream_layout(n, widths, &a.L))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_stream_acts(&a.L, acts);
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, nullptr, B, widths[n],
+                     max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.params = params;
+  a.eps = eps;
+  a.g = g;
+  a.gnew = gnew;
+  a.gblk = gblk;
+  a.tiles = tiles;
+  a.norm_z = norm_z;
+  a.norm_j = norm_j;
+  a.T = T;
+  return (int)cnf::coop_launch(k2_stream_adjoint, a, grid, block, smem_bytes(a.L, T, tiles != nullptr),
+                               (cudaStream_t)stream);
+}

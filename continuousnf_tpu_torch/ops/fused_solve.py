@@ -13,7 +13,7 @@ Port of `continuousnf_tpu/ops/fused_solve.py`: `ChainSpec`/`chain_spec`
 conditioning rows of `_zin` (:265-269) in every stage, in batch-major
 layout.
 
-Fifteen CUDA kernels (`csrc/`), each with a plain PyTorch twin; six for
+Eighteen CUDA kernels (`csrc/`), each with a plain PyTorch twin; six for
 2-layer tanh MLPs of state width up to MAX_DZ:
 - K3 (`k3_test_solve.cu`, `run_solve_kernel`, twin `solve_test_plain`) for
   `_run_solve_kernel` with `_stage_test`: the TEST solve of [z | dlogp];
@@ -57,7 +57,17 @@ and the wide forms of the three 2-layer-only stages, for unconditional
 with the same twins: wide K3 (`k3_wide_solve.cu`,
 `run_wide_test2_solve_kernel`), wide K5 (`k5_wide_adjoint.cu`,
 `run_wide_test_adjoint_kernel`) and the wide K4 adjoint
-(`k4_wide_adjoint.cu`, `run_wide_exact_adjoint_kernel`).
+(`k4_wide_adjoint.cu`, `run_wide_exact_adjoint_kernel`);
+and the streamed forms of the chain kernels, for the unconditional chains
+the wide forms refuse for their hidden widths or for the shared memory their
+weights take (FFJORD's MINIBOONE model 43 -> 860 -> 860 -> 43; 2-layer tanh
+nets past MAX_DZ among them), on the streamed chain layer of
+`csrc/chain_stream.cuh` (the weights stay in global memory and stream
+through shared memory in chunks) and with the same twins:
+`k1_stream_solve.cu` (`run_stream_train_solve_kernel`),
+`k2_stream_adjoint.cu` (`run_stream_adjoint_kernel`) and
+`k7_stream_solve.cu` (TEST, `run_stream_test_solve_kernel`; exact,
+`run_stream_exact_solve_kernel`).
 Each runs one whole adaptive solve in one cooperative launch, with one
 batch-global error norm per attempted step, under any explicit tableau with
 an embedded error estimate (K9: `_stretched_eest` :766-770 and the non-FSAL
@@ -75,8 +85,12 @@ chains of 3 or more layers, for every conditional net and for every net
 with an identity layer (their wide forms past the narrow widths), the
 2-layer kernels for unconditional 2-layer tanh nets (past MAX_DZ: wide K3,
 the wide K1 and K2 chain forms, wide K7 exact and the wide K4 adjoint,
-wide K5), and K5 for the TEST backward of every other 2-layer tanh net,
-conditional or not.  The forward kernels
+wide K5; past the wide forms' hidden widths or shared memory the streamed
+chain forms forward, with wide K5 and the wide K4 adjoint backward, which
+raise there), and K5 for the TEST backward of every other 2-layer tanh net,
+conditional or not; chains the wide forms refuse for their hidden widths or
+their weights' shared memory run the streamed forms (one VJP probe).  The
+forward kernels
 return the last step they took beside the next step size
 (`utils/near_tie.py` reads it).
 
@@ -115,6 +129,9 @@ K7W_KERNEL = "k7_wide_solve"
 K3W_KERNEL = "k3_wide_solve"
 K5W_KERNEL = "k5_wide_adjoint"
 K4WA_KERNEL = "k4_wide_adjoint"
+K1S_KERNEL = "k1_stream_solve"
+K2S_KERNEL = "k2_stream_adjoint"
+K7S_KERNEL = "k7_stream_solve"
 
 #: The chain kernels (the K1 and K2 chain forms, K7) take tanh chains of 2
 #: to CHAIN_MAX_LAYERS layers with hidden widths up to CHAIN_MAX_WIDTH,
@@ -122,13 +139,19 @@ K4WA_KERNEL = "k4_wide_adjoint"
 #: (csrc/chain_common.cuh).  Their wide forms take unconditional chains of
 #: as many layers with state widths up to WIDE_MAX_DZ and hidden widths up
 #: to WIDE_MAX_WIDTH (csrc/chain_wide.cuh), where a block's shared memory
-#: (WIDE_SMEM_BYTES) holds all the weights beside a tile of samples.
+#: (WIDE_SMEM_BYTES) holds all the weights beside a tile of samples.  Their
+#: streamed forms take the unconditional chains the wide forms refuse for
+#: their hidden widths or for the shared memory their weights take, up to
+#: the same state width (csrc/chain_stream.cuh: the weights stay in global
+#: memory and stream through shared memory), with parameter counts below
+#: STREAM_MAX_PARAMS.
 CHAIN_MAX_LAYERS = 4
 CHAIN_MAX_WIDTH = 64
 MAX_DZ = 32
 WIDE_MAX_DZ = 64
 WIDE_MAX_WIDTH = 128
 WIDE_SMEM_BYTES = 232_448
+STREAM_MAX_PARAMS = 2**31 - 1
 
 
 class ChainSpec(NamedTuple):
@@ -781,23 +804,28 @@ def _wide_smem_floats(spec: ChainSpec, probes: bool = False) -> int:
 
 
 def _kernel_covers(
-    tab: ButcherTableau, spec: ChainSpec, k_probes: int = 1, chain: bool = False, jvp: bool = False
+    tab: ButcherTableau, spec: ChainSpec, k_probes: int = 1, chain: bool = False, jvp: bool = False,
+    stream: bool = True,
 ) -> Optional[str]:
     """Why the 2-layer kernels (K3, K1, K2, K4, K5; `chain` False) or the
-    chain kernels (the K1 and K2 chain forms, K7, narrow or wide; `chain`
-    True) do not run this configuration (None if they do).  Both take every
-    embedded explicit tableau (K9).  The 2-layer kernels take unconditional
-    2-layer tanh chains with state widths up to MAX_DZ (K5 conditional ones
-    too: its caller asks without the conditioning); the chain kernels take Dense
-    chains of 2 to CHAIN_MAX_LAYERS tanh or identity layers (K9): their
-    narrow forms with hidden widths up to CHAIN_MAX_WIDTH and state widths up
-    to MAX_DZ, conditional ones (K8) included, and their wide forms the
-    unconditional chains beyond, up to WIDE_MAX_DZ and WIDE_MAX_WIDTH, whose
-    weights fit in a block's shared memory beside a tile; a narrow chain
-    whose weights and per-thread slots do not fit in shared memory is
-    refused at launch (`_launch_shape`).  The Hutchinson kernels (K1, K2,
-    their chain forms and the chain forms' wide forms) take any number
-    `k_probes` of VJP or (`jvp`) JVP probes (K6)."""
+    chain kernels (the K1 and K2 chain forms, K7, narrow, wide or streamed;
+    `chain` True) do not run this configuration (None if they do).  Both take
+    every embedded explicit tableau (K9).  The 2-layer kernels take
+    unconditional 2-layer tanh chains with state widths up to MAX_DZ (K5
+    conditional ones too: its caller asks without the conditioning); the
+    chain kernels take Dense chains of 2 to CHAIN_MAX_LAYERS tanh or identity
+    layers (K9): their narrow forms with hidden widths up to CHAIN_MAX_WIDTH
+    and state widths up to MAX_DZ, conditional ones (K8) included, their wide
+    forms the unconditional chains beyond, up to WIDE_MAX_DZ and
+    WIDE_MAX_WIDTH, whose weights fit in a block's shared memory beside a
+    tile, and their streamed forms (`stream`; False asks for the wide forms
+    alone) the unconditional chains the wide forms refuse for their hidden
+    widths or their weights' shared memory, with one VJP probe and up to
+    STREAM_MAX_PARAMS parameters; a narrow chain whose weights and per-thread
+    slots do not fit in shared memory is refused at launch (`_launch_shape`).
+    The Hutchinson kernels (K1, K2, their chain forms and the chain forms'
+    wide forms) take any number `k_probes` of VJP or (`jvp`) JVP probes
+    (K6)."""
     if tab.btilde is None:
         return f"the {tab.name} tableau (no embedded error estimate: fixed-step solves stay outside the kernels)"
     if tab.num_stages > MAX_STAGES:
@@ -825,22 +853,61 @@ def _kernel_covers(
     if not _wide_chain(spec):
         return None
     if spec.dz > WIDE_MAX_DZ:
-        return (f"state width {spec.dz} > {WIDE_MAX_DZ} (the wide forms take up to {WIDE_MAX_DZ}; "
-                "ROADMAP queue 2, shape variants (e))")
-    wide = max(spec.out_dims[:-1])
-    if wide > WIDE_MAX_WIDTH:
-        return (f"hidden width {wide} > {WIDE_MAX_WIDTH} (the wide forms take up to {WIDE_MAX_WIDTH}; "
+        return (f"state width {spec.dz} > {WIDE_MAX_DZ} (the wide and streamed forms take up to {WIDE_MAX_DZ}; "
                 "ROADMAP queue 2, shape variants (e))")
     if spec.n_cond:
         return _COND_WIDE
-    need = 4 * _wide_smem_floats(spec, k_probes != 1 or jvp)
+    why = _wide_limit(spec, k_probes != 1 or jvp)
+    if why is None or not stream:
+        return why
+    if _wide_limit(spec) is None:
+        # One probe fits the wide forms, K probes or JVP do not.
+        return why
+    if k_probes != 1 or jvp:
+        probes = f"{k_probes} {'JVP' if jvp else 'VJP'} probe{'s' if k_probes != 1 else ''}"
+        return (f"{probes} at {why} in the streamed chain forms (they run the chains the wide forms refuse with one "
+                "VJP probe; K6 in the streamed forms: ROADMAP queue 2, shape variants (e))")
+    P = _param_count(spec)
+    if P > STREAM_MAX_PARAMS:
+        return (f"{P} parameters (the streamed forms' offsets are 32-bit ints, up to {STREAM_MAX_PARAMS}; ROADMAP "
+                "queue 2, shape variants (e))")
+    return None
+
+
+def _param_count(spec: ChainSpec) -> int:
+    return sum(a * b + b for a, b in zip(spec.in_dims, spec.out_dims))
+
+
+def _wide_limit(spec: ChainSpec, probes: bool = False) -> Optional[str]:
+    """Why the wide forms do not keep an unconditional chain of state width
+    up to WIDE_MAX_DZ (None if they do): a hidden width past WIDE_MAX_WIDTH,
+    or weights that with the wide K2 chain form's smallest tile (its probe
+    instance's with `probes`) pass a block's shared memory."""
+    wide = max(spec.out_dims[:-1])
+    if wide > WIDE_MAX_WIDTH:
+        return (f"hidden width {wide} > {WIDE_MAX_WIDTH} (the wide forms take up to {WIDE_MAX_WIDTH}; ROADMAP queue "
+                "2, shape variants (e))")
+    need = 4 * _wide_smem_floats(spec, probes)
     if need > WIDE_SMEM_BYTES:
         return (f"weights too large for the wide chain forms' shared memory ({need} bytes with a 4-sample tile, "
                 f"over {WIDE_SMEM_BYTES}; chains of larger weights: ROADMAP queue 2, shape variants (e))")
     return None
 
 
-_COND_WIDE = "conditional wide chains (K8 in the wide chain forms, ROADMAP queue 2, shape variants (d))"
+def _stream_chain(spec: ChainSpec) -> bool:
+    """Whether the chain kernels' streamed forms run a chain: an
+    unconditional chain of 2 to CHAIN_MAX_LAYERS layers past the narrow
+    widths, of state width up to WIDE_MAX_DZ, that the wide forms refuse
+    (with one probe) for its hidden widths or its weights' shared memory.
+    2-layer tanh nets past MAX_DZ count too: the streamed forms run their
+    Hutchinson, TEST and exact-forward stages."""
+    if spec.n_cond or not 2 <= spec.n_layers <= CHAIN_MAX_LAYERS or spec.dz > WIDE_MAX_DZ:
+        return False
+    return _wide_chain(spec) and _wide_limit(spec) is not None
+
+
+_COND_WIDE = ("conditional wide chains (K8 in the wide and streamed chain forms, ROADMAP queue 2, shape variants "
+              "(d))")
 
 
 def _wide_two_layer(spec: ChainSpec) -> bool:
@@ -855,14 +922,17 @@ def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str
     do not run this configuration (None if they do): they take the
     unconditional 2-layer tanh chains the wide chain forms take, state widths
     up to WIDE_MAX_DZ and hidden widths up to WIDE_MAX_WIDTH, under every
-    embedded tableau."""
+    embedded tableau.  Past those the streamed chain forms run the
+    Hutchinson, TEST and exact-forward stages, and the TEST and exact
+    backward members (wide K5, the wide K4 adjoint) raise: ROADMAP queue 2,
+    shape variants (e)."""
     if not _two_layer_tanh(spec):
         return ("nets other than 2-layer tanh chains in wide K3, wide K5 and the wide K4 adjoint (the JAX "
                 "package's 2-layer TEST and exact stages assume tanh layers, reference fault 2: the chain kernels "
                 "take identity layers forward, and their gradient runs the plain backward)")
     if spec.n_cond:
         return ("conditional wide 2-layer nets (K8 in the wide forms, ROADMAP queue 2, shape variants (d))")
-    return _kernel_covers(tab, spec, chain=True)
+    return _kernel_covers(tab, spec, chain=True, stream=False)
 
 
 def _no_grad_inputs(kernel: str, *tensors) -> None:
@@ -985,6 +1055,20 @@ _SIGNATURES = {
         "cnf_k4w_shape": _WIDE_SHAPE,
         "cnf_k4w_exact_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I] + [_F] * 5 + [_P] + [_I] * 4 + [_P], _I),
     },
+    K1S_KERNEL: {
+        "cnf_k1s_shape": _WIDE_SHAPE,
+        "cnf_k1s_train_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+    },
+    K7S_KERNEL: {
+        "cnf_k7s_test_shape": _WIDE_SHAPE,
+        "cnf_k7s_exact_shape": _WIDE_SHAPE,
+        "cnf_k7s_test_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k7s_exact_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+    },
+    K2S_KERNEL: {
+        "cnf_k2s_shape": _WIDE_SHAPE,
+        "cnf_k2s_train_adjoint": ([_P] * 17 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+    },
     K2W_KERNEL: {
         "cnf_k2w_shape": _WIDE_SHAPE,
         "cnf_k2w_train_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
@@ -1053,18 +1137,26 @@ def _controller_floats(tab):
 
 
 def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain: bool = False,
-               wide: bool = False, jvp: bool = False) -> None:
+               wide: bool = False, jvp: bool = False, stream: bool = False) -> None:
     """Raise unless `label`'s kernel takes the configuration on CUDA tensors:
-    a chain kernel's narrow form (`wide` False) takes no wide chain, its
-    wide form any chain the chain kernels cover unconditionally."""
+    a chain kernel's narrow form (`wide` and `stream` False) takes no wide
+    chain, its wide form (`wide`) the chains past the narrow widths that it
+    keeps in shared memory, and its streamed form (`stream`) the chains the
+    wide forms refuse for their widths or shared memory (`_stream_chain`)."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
     why = _kernel_covers(tab, spec, k_probes, chain, jvp)
-    if why is None and chain and not wide and _wide_chain(spec):
+    if why is None and chain and not wide and not stream and _wide_chain(spec):
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the narrow chain kernels (up to "
                f"{MAX_DZ} and {CHAIN_MAX_WIDTH}: their wide forms take the chain)")
     if why is None and wide and spec.n_cond:
         why = _COND_WIDE
+    if why is None and wide and _stream_chain(spec):
+        why = (f"hidden widths {spec.out_dims[:-1]} in the wide chain forms ({_wide_limit(spec)}: their streamed "
+               "forms take the chain)")
+    if why is None and stream and not _stream_chain(spec):
+        why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the streamed chain forms (the "
+               "narrow or wide forms take the chain)")
     if why is not None:
         raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
@@ -1689,14 +1781,28 @@ def _wide_shape(lib, entry: str, label: str, spec: ChainSpec, widths, B: int) ->
     return out[0], out[1], out[2]
 
 
+def _stream_shape(lib, entry: str, label: str, spec: ChainSpec, widths, B: int, device):
+    """(threads per block, blocks, tile, the global tile scratch or None) of
+    a streamed kernel's cooperative launch at batch B, from its shape entry
+    (csrc/chain_stream.cuh::stream_shape): the scratch (blocks x its floats a
+    block) when the tile arrays do not fit in shared memory."""
+    out = (ctypes.c_int * 5)()
+    err = getattr(lib, entry)(spec.n_layers, widths, B, out)
+    if err != 0 or out[1] < 1:
+        raise RuntimeError(f"{label} cannot be launched cooperatively at widths {tuple(widths)}: cudaError {err}")
+    tiles = torch.empty(out[1] * out[4], dtype=torch.float32, device=device) if out[4] else None
+    return out[0], out[1], out[2], tiles
+
+
 def _launch_wide_forward(label, lib_name, entry, shape, tab, spec, *, rtol, atol, max_steps, ws, bs, z0, acc0, t0,
-                         t1, dt_init, eps=None, norms=()):
+                         t1, dt_init, eps=None, norms=(), stream=False):
     """Launch a wide forward kernel, whose C arguments are (params, [eps], z0,
-    acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths, acts,
-    max_steps, *norms, rtol, atol, the controller, the tableau, tile, grid,
-    block, stream); `norms` ends with K and jvp for the wide K1 chain form's
-    probe instance, and eps is (K, B, dz).  Returns (zT, accT, steps,
-    accepted, dt_last, dt_used)."""
+    acc0, ts, zT, accT, stats, dt_last, work, partials, [tiles], B, n,
+    widths, acts, max_steps, *norms, rtol, atol, the controller, the tableau,
+    tile, grid, block, stream); `norms` ends with K and jvp for the wide K1
+    chain form's probe instance, and eps is (K, B, dz).  A streamed kernel
+    (`stream`) takes the global tile scratch its shape entry asks for.
+    Returns (zT, accT, steps, accepted, dt_last, dt_used)."""
     B, dz = z0.shape
     device = z0.device
     params, widths = _chain_params(label, spec, ws, bs, device)
@@ -1704,14 +1810,19 @@ def _launch_wide_forward(label, lib_name, entry, shape, tab, spec, *, rtol, atol
     z0, acc0, *probe = _check_inputs(label, device, [z0, acc0] + probe,
                                      [(B, dz), tuple(acc0.shape)] + [(x.shape[0], B, dz) for x in probe])
     lib = _library(lib_name)
-    block, grid, tile = _wide_shape(lib, shape, label, spec, widths, B)
+    if stream:
+        block, grid, tile, tiles = _stream_shape(lib, shape, label, spec, widths, B, device)
+        extra = [_ptr_or_null(tiles)]
+    else:
+        block, grid, tile = _wide_shape(lib, shape, label, spec, widths, B)
+        extra = []
     ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
     zT, accT, stats, dt_last, work, partials = _forward_buffers(z0, acc0, tab, grid)
     err = getattr(lib, entry)(
         _ptr(params), *[_ptr(x) for x in probe], _ptr(z0), _ptr(acc0), _ptr(ts), _ptr(zT), _ptr(accT), _ptr(stats),
-        _ptr(dt_last), _ptr(work), _ptr(partials), B, spec.n_layers, widths, _acts_mask(spec), int(max_steps),
-        *[int(x) for x in norms], rtol, atol, *_controller_floats(tab), _tableau_array(tab), tile, grid, block,
-        _stream(device),
+        _ptr(dt_last), _ptr(work), _ptr(partials), *extra, B, spec.n_layers, widths, _acts_mask(spec),
+        int(max_steps), *[int(x) for x in norms], rtol, atol, *_controller_floats(tab), _tableau_array(tab), tile,
+        grid, block, _stream(device),
     )
     _check_launch(err, label, grid, block)
     return _forward_result(zT, accT, stats, dt_last)
@@ -2028,6 +2139,150 @@ def run_wide_exact_adjoint_kernel(
 run_wide_exact_adjoint_kernel.launches = 0
 
 
+# ---- the chain kernels' streamed forms (weights past the wide forms' shared memory) ----
+
+
+def run_stream_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init,
+                                 ys=None):
+    """Streamed K7 TEST: K7 TEST's solve (`run_chain_test_solve_kernel`)
+    for the unconditional chains the wide forms refuse for their hidden
+    widths or their weights' shared memory (`_stream_chain`: FFJORD's
+    MINIBOONE model 43 -> 860 -> 860 -> 43), 2-layer tanh nets past MAX_DZ
+    included; arguments and returns as `run_solve_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k7_stream_solve.cu`), CPU
+    tensors through its plain version."""
+    _no_grad_inputs("K7", ws, bs, z0, dlogp0, ys)
+    if z0.device.type == "cpu":
+        return solve_test_plain(
+            tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("streamed K7", z0, tab, spec, chain=True, stream=True)
+    out = _launch_wide_forward(
+        "streamed K7 TEST", K7S_KERNEL, "cnf_k7s_test_solve", "cnf_k7s_test_shape", tab, spec, rtol=rtol,
+        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
+        stream=True,
+    )
+    run_stream_test_solve_kernel.launches += 1
+    return out
+
+
+run_stream_test_solve_kernel.launches = 0
+
+
+def run_stream_exact_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init, ys=None
+):
+    """Streamed K7 exact: K7 exact's solve (`run_chain_exact_solve_kernel`)
+    for the streamed chains; arguments and returns as
+    `run_exact_solve_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k7_stream_solve.cu`), CPU
+    tensors through its plain version."""
+    _no_grad_inputs("K7", ws, bs, z0, acc0, ys)
+    if z0.device.type == "cpu":
+        return solve_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("streamed K7", z0, tab, spec, chain=True, stream=True)
+    out = _launch_wide_forward(
+        "streamed K7 exact", K7S_KERNEL, "cnf_k7s_exact_solve", "cnf_k7s_exact_shape", tab, spec, rtol=rtol,
+        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+        norms=(norm_z, norm_j), stream=True,
+    )
+    run_stream_exact_solve_kernel.launches += 1
+    return out
+
+
+run_stream_exact_solve_kernel.launches = 0
+
+
+def run_stream_train_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None,
+    jvp=False,
+):
+    """The streamed K1 chain form: the K1 chain form's solve
+    (`run_chain_train_solve_kernel`) for the streamed chains, one VJP probe;
+    arguments and returns as `run_train_solve_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k1_stream_solve.cu`; K probes
+    or JVP raise: K6 in the streamed forms is not ported), CPU tensors
+    through its plain version."""
+    _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
+    if z0.device.type == "cpu":
+        return solve_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys, jvp=jvp,
+        )
+    _cuda_only("streamed K1", z0, tab, spec, eps.shape[0], chain=True, jvp=jvp, stream=True)
+    out = _launch_wide_forward(
+        "streamed K1 chain form", K1S_KERNEL, "cnf_k1s_train_solve", "cnf_k1s_shape", tab, spec, rtol=rtol,
+        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
+        norms=(norm_z, norm_j), stream=True,
+    )
+    run_stream_train_solve_kernel.launches += 1
+    return out
+
+
+run_stream_train_solve_kernel.launches = 0
+
+
+def _launch_stream_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+                           t_hi, t_lo, dt_init):
+    label = "streamed K2 chain form"
+    B, dz = zT.shape
+    device = zT.device
+    params, widths = _chain_params(label, spec, ws, bs, device)
+    e0, zT, accT, azT, aaccT = _check_inputs(
+        label, device, [eps, zT, accT, azT, aaccT], [(1, B, dz), (B, dz), (3, B), (B, dz), (3, B)]
+    )
+    lib = _library(K2S_KERNEL)
+    block, grid, tile, tiles = _stream_shape(lib, "cnf_k2s_shape", label, spec, widths, B, device)
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
+    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel())
+    err = lib.cnf_k2s_train_adjoint(
+        _ptr(params), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
+        _ptr(az0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), _ptr_or_null(tiles), B,
+        spec.n_layers, widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j), rtol, atol,
+        *_controller_floats(tab), _tableau_array(tab), tile, grid, block, _stream(device),
+    )
+    _check_launch(err, label, grid, block)
+    g_ws, g_bs = _split_params(g, spec)
+    return z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]
+
+
+def run_stream_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init, ys=None, jvp=False,
+):
+    """The streamed K2 chain form: the K2 chain form's backsolve
+    (`run_chain_adjoint_kernel`) for the streamed chains, one VJP probe;
+    arguments and returns as `run_adjoint_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k2_stream_adjoint.cu`; K
+    probes or JVP raise), CPU tensors through its plain version."""
+    _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys, jvp=jvp,
+        )
+    _cuda_only("streamed K2", zT, tab, spec, eps.shape[0], chain=True, jvp=jvp, stream=True)
+    if dt_init is None:
+        raise ValueError("the streamed K2 chain form needs dt_init (the caller picks it)")
+    out = _launch_stream_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+                                 ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi,
+                                 t_lo=t_lo, dt_init=dt_init)
+    run_stream_adjoint_kernel.launches += 1
+    return out
+
+
+run_stream_adjoint_kernel.launches = 0
+
+
 #: Every kernel's wrapper by kernel name (K10's, the per-stage field, from
 #: `ops/fused_dynamics.py`); each wrapper's `.launches` counts its own
 #: kernel's launches.
@@ -2049,6 +2304,10 @@ KERNEL_WRAPPERS = {
     K3W_KERNEL: run_wide_test2_solve_kernel,
     K5W_KERNEL: run_wide_test_adjoint_kernel,
     K4WA_KERNEL: run_wide_exact_adjoint_kernel,
+    K1S_KERNEL: run_stream_train_solve_kernel,
+    K2S_KERNEL: run_stream_adjoint_kernel,
+    K7S_KERNEL + "/test": run_stream_test_solve_kernel,
+    K7S_KERNEL + "/exact": run_stream_exact_solve_kernel,
     K10_KERNEL: run_fused_field_kernel,
 }
 
@@ -2122,6 +2381,13 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     width) run the wide forms: wide K3 forward and wide K5 backward in TEST
     mode, the wide K1 and K2 chain forms under Hutchinson TRAIN, wide K7
     exact forward and the wide K4 adjoint backward under exact trace.
+    Chains the wide forms refuse for their hidden widths or for the shared
+    memory their weights take (`_stream_chain`: FFJORD's MINIBOONE model
+    43 -> 860 -> 860 -> 43) run the streamed forms: streamed K7 TEST and
+    exact forward, the streamed K1 and K2 chain forms under Hutchinson TRAIN
+    with one VJP probe (K probes or JVP raise on the card); a 2-layer net
+    among them keeps wide K5 and the wide K4 adjoint as its TEST and exact
+    backward members, which raise on the card past hidden width 128.
     """
     cm = icnf.compute_mode
     opts = icnf.solver
@@ -2186,7 +2452,10 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     run_exact_adj, run_test_adj = run_exact_adjoint_kernel, run_test_adjoint_kernel
     if wide2:
         run_exact_adj, run_test_adj = run_wide_exact_adjoint_kernel, run_wide_test_adjoint_kernel
-    if chain and _wide_chain(spec):
+    if (chain and _wide_chain(spec) or wide2) and _stream_chain(spec):
+        run_test, run_train = run_stream_test_solve_kernel, run_stream_train_solve_kernel
+        run_exact, run_adjoint = run_stream_exact_solve_kernel, run_stream_adjoint_kernel
+    elif chain and _wide_chain(spec):
         run_test, run_train = run_wide_test_solve_kernel, run_wide_train_solve_kernel
         run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel
     elif chain:
@@ -2316,6 +2585,10 @@ __all__ = [
     "run_wide_test2_solve_kernel",
     "run_wide_test_adjoint_kernel",
     "run_wide_exact_adjoint_kernel",
+    "run_stream_test_solve_kernel",
+    "run_stream_exact_solve_kernel",
+    "run_stream_train_solve_kernel",
+    "run_stream_adjoint_kernel",
     "KERNEL_WRAPPERS",
     "PROBE_WRAPPERS",
     "reset_launches",

@@ -19,6 +19,19 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     (0, 13); data from the `synthetic_tabular` recipe at 21 variables.  Past
     the 2-layer kernels' state width: the wide 2-layer kernels and the wide
     chain forms run it.
+  * miniboone860 (FFJORD's tabular MINIBOONE model, Grathwohl et al.,
+    ICLR 2019, the appendix's tabular hyperparameters: hidden widths
+    20 x d, two hidden layers, at d = 43): RNODE, nvars = 43, naug = 0,
+    MLP 43 -> 860 -> 860 -> 43 tanh on all three layers, tspan (0, 1), no
+    steering, batch 1024; data and weights by miniboone43's recipe (the
+    repo's tabular family, `benchmarks/tabular.py:69`, at FFJORD's widths).
+    Its weights (3.25 MB) pass a block's shared memory: the chain kernels'
+    streamed forms run it.  Departures from FFJORD: FFJORD's own layer type
+    and nonlinearity are not in the repo's MLP family (a Dense tanh chain
+    stands in); the batch is 1024, not FFJORD's 1000: the largest power of
+    two at which the JAX package's forward-kernel VMEM guard still admits
+    the chain (at 2048 it reads 62.6 MB and falls back to XLA).  Widths and
+    depth are FFJORD's, not cut.
   * cond_gaussian (`continuousnf_tpu/recipes.py:254-289`, BASELINE config
     #3): CondRNODE, nvars = 1, naug = 0, one conditioning input, MLP
     2 -> 64 -> 64 -> 1 tanh on all three layers reading [x | y], tspan
@@ -27,7 +40,7 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
 All: lambda1 = lambda2 = 1e-2 (the RNODE defaults), tsit5 at rtol 1e-3 /
 atol 1e-6, one Gaussian VJP probe (`make_icnf` takes K probes and JVP
 probes), batch 4096 in the scripts unless the entry names its own `batch`
-(miniboone43: 2048); the conditional recipe
+(miniboone43: 2048; miniboone860: 1024); the conditional recipe
 trains at its `batch_size` of 128.  Weights are Glorot-uniform with
 N(0, 0.05) biases, drawn with numpy.
 """
@@ -43,6 +56,7 @@ MODELS = {
     "flagship": dict(dims=(16, 48, 16), nvars=8, naug=8, tspan=(0.0, 13.0), extra={"steer_rate": 0.1, "lam3": 1e-2}),
     "power6": dict(dims=(6, 64, 64, 6), nvars=6, naug=0, tspan=(0.0, 1.0), extra={}),
     "miniboone43": dict(dims=(43, 128, 128, 43), nvars=43, naug=0, tspan=(0.0, 1.0), extra={}, batch=2048),
+    "miniboone860": dict(dims=(43, 860, 860, 43), nvars=43, naug=0, tspan=(0.0, 1.0), extra={}, batch=1024),
     "hepmass42": dict(dims=(42, 126, 42), nvars=21, naug=21, tspan=(0.0, 13.0), extra={"steer_rate": 0.1, "lam3": 1e-2}),
     "cond_gaussian": dict(dims=(2, 64, 64, 1), nvars=1, naug=0, tspan=(0.0, 13.0), extra={"steer_rate": 0.1},
                           n_cond=1, batch_size=128),
@@ -94,7 +108,7 @@ def model_data(name: str, rng: np.random.Generator, n: int):
     """n data points of the configuration `name` (numpy float32): xs, or
     (xs, ys) for a conditional configuration."""
     nvars = MODELS[name]["nvars"]
-    if name in ("power6", "miniboone43", "hepmass42"):
+    if name in ("power6", "miniboone43", "miniboone860", "hepmass42"):
         return tabular_data(rng, n, nvars)
     if name == "cond_gaussian":
         return cond_gaussian_data(rng, n)

@@ -14,7 +14,10 @@ those four on miniboone43 (MLP 43 -> 128 -> 128 -> 43, B = 2048, tspan
 (0, 1); the "_wide" keys) and on hepmass42 the five routes of a 2-layer
 net past state width 32 (MLP 42 -> 126 -> 42, B = 4096, tspan (0, 13);
 the "_hepmass" keys: wide K3 and wide K5 from its output, the wide K1 and
-K2 chain forms, wide K7 exact and the wide K4 adjoint from its output),
+K2 chain forms, wide K7 exact and the wide K4 adjoint from its output) and
+on miniboone860 the streamed forms of the chain kernels (MLP 43 -> 860 ->
+860 -> 43, B = 1024, tspan (0, 1); the "_stream" keys: streamed K7 TEST,
+the streamed K1 and K2 chain forms, streamed K7 exact),
 Glorot weights and data from numpy seeds, under
 one tableau (rtol 1e-3 / atol 1e-6; the README tolerances for verner65).
 Where the package has K5 (the TEST adjoint), it is timed on the flagship
@@ -78,6 +81,10 @@ def main() -> int:
                    "cond_gaussian": [fs.K1C_KERNEL, fs.K2C_KERNEL]}
     if "miniboone43" in models:
         kernels["miniboone43"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [fs.K7W_KERNEL])
+    if "miniboone860" in models:
+        if probes:
+            raise SystemExit("the streamed chain forms (miniboone860) have no probe instance (K6)")
+        kernels["miniboone860"] = [fs.K1S_KERNEL, fs.K2S_KERNEL, fs.K7S_KERNEL]
     if "hepmass42" in models:
         kernels["hepmass42"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [
             fs.K7W_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL, fs.K4WA_KERNEL])
@@ -160,6 +167,11 @@ def main() -> int:
                       dict(train, eps=eps), dict(adj, eps=eps))
             time_pair(("k7e_hepmass", "k4w_hepmass"), spec, fs.run_wide_exact_solve_kernel,
                       fs.run_wide_exact_adjoint_kernel, train, adj)
+        elif name == "miniboone860":
+            time_pair(("k7t_stream",), spec, fs.run_stream_test_solve_kernel, None, test, None)
+            time_pair(("k1c_stream", "k2c_stream"), spec, fs.run_stream_train_solve_kernel,
+                      fs.run_stream_adjoint_kernel, dict(train, eps=eps), dict(adj, eps=eps))
+            time_pair(("k7e_stream",), spec, fs.run_stream_exact_solve_kernel, None, train, None)
         elif name == "miniboone43":
             time_pair(("k7t_wide",), spec, fs.run_wide_test_solve_kernel, None, test, None)
             time_pair(("k1c_wide", "k2c_wide"), spec, fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel,

@@ -1,6 +1,6 @@
 """Where the time goes in a training step and a `logpdf` call on the card.
 
-    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|hepmass42]
+    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|miniboone860|hepmass42]
         [--steps 10]
         [--probes K] [--jvp] [--test-grad] [--direct | --fixed N]
 
@@ -9,22 +9,27 @@ MLP 6 -> 64 -> 64 -> 6; `--model flagship`: RNODE, MLP 16 -> 48 -> 16;
 `--model cond_gaussian`: the conditional recipe, CondRNODE, MLP
 2 -> 64 -> 64 -> 1 on [x | y]; `--model miniboone43`: the tabular
 MINIBOONE model, RNODE, MLP 43 -> 128 -> 128 -> 43, through the wide chain
-kernels; `--model hepmass42`: the README net family at the HEPMASS width,
-RNODE, MLP 42 -> 126 -> 42, through the wide 2-layer kernels and the wide
-chain forms), its weights and its data from a seed as `utils/configs.py` makes
+kernels; `--model miniboone860`: FFJORD's MINIBOONE model, RNODE, MLP
+43 -> 860 -> 860 -> 43, through the streamed chain kernels; `--model
+hepmass42`: the README net family at the HEPMASS width, RNODE, MLP
+42 -> 126 -> 42, through the wide 2-layer kernels and the wide chain
+forms), its weights and its data from a seed as `utils/configs.py` makes
 them, one Gaussian VJP probe (`--probes K` Gaussian probes, `--jvp`
 forward-mode ones: the Hutchinson train steps run the probe instances of
 the K1 and K2 kernels or of their chain forms, narrow or wide (miniboone43),
 K6), batch 4096 (or the configuration's own
-`batch`: 2048 for miniboone43), fused kernels on, and for each path (the
+`batch`: 2048 for miniboone43, 1024 for miniboone860), fused kernels on, and for each path (the
 Hutchinson train step, the exact-trace train step, `logpdf`; for a
 configuration with its own training batch, the train step at that batch
 too):
   * the wall time per call, CUDA events over `--steps` calls after a
     warm-up, without the profiler;
-  * the card's busy time per call, the sum of the CUDA kernels' self times
-    under `torch.profiler` over the same number of calls, and the idle share
-    1 - busy / wall;
+  * under `torch.profiler`, one run of the same number of calls: its wall
+    time per call (a host range around the calls and the final
+    synchronize: the profiled window), the card's busy time per call (the
+    union of the device activities' intervals within that window) and the
+    idle share 1 - busy / window, both from that one run, so it never falls
+    below 0;
   * the kernels that take the most of it, by name, and the host operations
     that take the most of the CPU's own time under the profiler (where an
     idle card waits).
@@ -51,27 +56,68 @@ import torch
 from .configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
 
 
+def interval_union(intervals, lo: float, hi: float) -> float:
+    """The length of the union of the intervals (start, end), clipped to
+    [lo, hi]: the time in that window during which at least one of them
+    runs.  At most hi - lo."""
+    total, cur_lo, cur_hi = 0.0, None, None
+    for a, b in sorted((max(a, lo), min(b, hi)) for a, b in intervals):
+        if b <= a:
+            continue
+        if cur_hi is None or a > cur_hi:
+            if cur_hi is not None:
+                total += cur_hi - cur_lo
+            cur_lo, cur_hi = a, b
+        else:
+            cur_hi = max(cur_hi, b)
+    if cur_hi is not None:
+        total += cur_hi - cur_lo
+    return total
+
+
+_WINDOW = "profile_step.window"
+
+
 def _busy(fn, reps: int, top: int = 6):
-    """Device busy ms per call, the top kernels and the top host operations
-    by their own CPU time (name, ms per call)."""
-    from torch.profiler import ProfilerActivity, profile
+    """One profiled run of `reps` calls: (the profiled window's wall ms per
+    call, the card's busy ms per call, the top kernels by their self time,
+    the top host operations by their own CPU time (name, ms per call)).
+    Busy is the union of the device activities' intervals (kernels, copies,
+    sets) within the window, a host range around the calls and the final
+    synchronize, so it never passes the window's wall time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+        with record_function(_WINDOW):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
     rows, host = [], []
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
+        if e.key == _WINDOW:
+            continue
         if t > 0 and getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type):
             rows.append((e.key, t / 1e3 / reps))
         elif e.self_cpu_time_total > 0:
             host.append((f"{e.key} ({e.count // reps} calls)", e.self_cpu_time_total / 1e3 / reps))
     rows.sort(key=lambda r: -r[1])
     host.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows[:top], host[:top]
+    events = prof.events()
+    on_card = [e for e in events if "CUDA" in str(getattr(e, "device_type", ""))]
+    card_ids = {id(e) for e in on_card}
+    window = [e.time_range for e in events if e.name == _WINDOW and id(e) not in card_ids]
+    if len(window) != 1:
+        raise RuntimeError(f"profile_step: found {len(window)} profiled windows")
+    lo, hi = window[0].start, window[0].end
+    # The card's own activities; a host range's mirror on the card's
+    # timeline (a user annotation) is not one.
+    device = [(e.time_range.start, e.time_range.end) for e in on_card
+              if not getattr(e, "is_user_annotation", False) and e.name != _WINDOW]
+    busy_us = interval_union(device, lo, hi)
+    return (hi - lo) / 1e3 / reps, busy_us / 1e3 / reps, rows[:top], host[:top]
 
 
 def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp: bool = False,
@@ -132,8 +178,8 @@ def _measure(call, steps: int) -> dict:
     for _ in range(3):
         call()
     wall = cuda_ms(call, steps)
-    busy, top, host = _busy(call, steps)
-    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall,
+    window, busy, top, host = _busy(call, steps)
+    return {"wall_ms": wall, "window_ms": window, "busy_ms": busy, "idle_share": 1.0 - busy / window,
             "top": [{"kernel": k[:80], "ms": t} for k, t in top],
             "host": [{"op": k[:80], "ms": t} for k, t in host]}
 
@@ -156,8 +202,8 @@ def main(argv=None) -> int:
     for label, r in res.items():
         if not isinstance(r, dict):
             continue
-        print(f"{a.model} {label}: wall {r['wall_ms']:.4f} ms, card busy {r['busy_ms']:.4f} ms, "
-              f"idle {100 * r['idle_share']:.1f} %")
+        print(f"{a.model} {label}: wall {r['wall_ms']:.4f} ms; profiled: window {r['window_ms']:.4f} ms, card busy "
+              f"{r['busy_ms']:.4f} ms, idle {100 * r['idle_share']:.1f} %")
         for k in r["top"]:
             print(f"    {k['ms']:.4f} ms  {k['kernel']}")
         for k in r["host"]:

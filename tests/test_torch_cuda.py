@@ -5,7 +5,9 @@ without conditioning rows, under every embedded explicit tableau and with
 identity layers, the probe instances of K1, K2 and their chain forms with K
 VJP or JVP probes (K6), and their wide forms at the MINIBOONE width; wide
 K3, wide K5 and the wide K4 adjoint for 2-layer nets past state width 32,
-the HEPMASS width of the README net family) against their plain PyTorch
+the HEPMASS width of the README net family; the streamed forms of the
+chain kernels for chains whose weights pass a block's shared memory, FFJORD's
+MINIBOONE width 43 -> 860 -> 860 -> 43) against their plain PyTorch
 versions, on the card, and the configurations they do not cover.
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a card
@@ -648,11 +650,15 @@ _FORMS = {
     True: (("run_wide_train_solve_kernel", "run_wide_adjoint_kernel", "run_wide_test_solve_kernel",
             "run_wide_exact_solve_kernel"),
            {tfs.K1W_KERNEL, tfs.K2W_KERNEL, tfs.K7W_KERNEL + "/test", tfs.K7W_KERNEL + "/exact"}),
+    "stream": (("run_stream_train_solve_kernel", "run_stream_adjoint_kernel", "run_stream_test_solve_kernel",
+                "run_stream_exact_solve_kernel"),
+               {tfs.K1S_KERNEL, tfs.K2S_KERNEL, tfs.K7S_KERNEL + "/test", tfs.K7S_KERNEL + "/exact"}),
 }
 
 
 def _chain_case(dims, B, span, dev, norms=(True, True), seed=0, ys=None, wide=False):
-    """All four chain kernels (their wide forms when `wide`) against their
+    """All four chain kernels (their wide forms when `wide`, their streamed
+    forms when it is "stream") against their
     twins on one input: the K1 chain form and K7 exact from nonzero
     accumulators, the K2 chain form from the K1 chain form's output
     warm-started from its last step, K7 TEST from a nonzero dlogp; a
@@ -900,6 +906,138 @@ def test_wide_paths_on_the_card_match_the_twins_on_the_cpu(dev):
         assert nfe_k == nfe_c and _close(lp_k, lp_c) and _close(l_k, l_c)
         for a, b in zip(g_k, g_c):
             assert _grad_close(a, b)
+
+
+# ---- the chain kernels' streamed forms (weights past shared memory) ----
+
+MINIBOONE860 = (43, 860, 860, 43)
+
+
+@pytest.mark.parametrize(
+    "dims,B,span",
+    [
+        (MINIBOONE860, 1024, (0.0, 1.0)),
+        (MINIBOONE860, 37, (1.0, 0.0)),
+        ((6, 160, 160, 6), 300, (0.0, 1.0)),
+        ((64, 128, 128, 128, 64), 128, (0.0, 1.0)),
+        ((40, 160, 40), 64, (0.0, 2.0)),
+        ((8, 2500, 2500, 8), 64, (0.0, 1.0)),
+    ],
+    ids=["miniboone860-B1024", "miniboone860-reverse-B37", "hidden160-B300", "four-layer-past-shared-memory",
+         "two-layer-hidden160", "hidden2500-global-tiles"],
+)
+def test_stream_chain_kernels_match_twins(dev, dims, B, span):
+    """The streamed forms of the K1 and K2 chain forms and of K7 TEST and
+    exact against their twins, as the wide forms are held (the last case's
+    tile arrays of K2 and K7 pass shared memory and go to global
+    scratch)."""
+    (out_k, out_p), (adj_k, adj_p, adj_64), test, exact, _, _ = _chain_case(dims, B, span, dev, wide="stream")
+    _hold_forward(out_k, out_p)
+    _hold_forward(*test)
+    _hold_forward(*exact)
+    assert (int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6]))
+    for i in range(3):  # z0, acc0, a_z0
+        assert _state_close(adj_k[i], adj_p[i], adj_64[i])
+    for a, b in zip(adj_k[3] + adj_k[4], adj_p[3] + adj_p[4]):
+        assert torch.isfinite(a).all() and _grad_close(a, b)
+
+
+@pytest.mark.parametrize(
+    "dims,wrapper,kind",
+    [
+        (MINIBOONE860, "run_stream_train_solve_kernel", "two-probes"),
+        (MINIBOONE860, "run_stream_train_solve_kernel", "jvp"),
+        (MINIBOONE, "run_stream_test_solve_kernel", "test"),
+        (MINIBOONE860, "run_wide_test_solve_kernel", "test"),
+        ((40, 160, 40), "run_wide_test_adjoint_kernel", "test-adjoint"),
+    ],
+    ids=["stream-two-probes", "stream-jvp", "stream-form-miniboone43", "wide-form-miniboone860",
+         "two-layer-test-adjoint-hidden160"],
+)
+def test_stream_limits_raise_on_cuda(dev, dims, wrapper, kind):
+    """The streamed forms take one VJP probe and only the chains the wide
+    forms refuse; the wide forms refuse the streamed chains; a 2-layer net
+    past hidden 128 has no TEST backward member on the card (wide K5 stops
+    at 128: ROADMAP queue 2, shape variants (e)).  Nothing is launched."""
+    spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
+    kw = _kernel_args(dims, 8, (0.0, 1.0), dev)
+    dz = dims[-1]
+    if kind in ("two-probes", "jvp"):
+        kw = {k: v for k, v in kw.items() if k != "dlogp0"}
+        kw.update(norm_z=True, norm_j=True, acc0=torch.zeros((3, 8), device=dev),
+                  eps=torch.ones((2 if kind == "two-probes" else 1, 8, dz), device=dev), jvp=kind == "jvp")
+    elif kind == "test-adjoint":
+        z = kw["z0"]
+        acc = torch.zeros((1, 8), device=dev)
+        kw = {k: kw[k] for k in ("rtol", "atol", "max_steps", "ws", "bs")}
+        kw.update(zT=z, accT=acc, azT=z, aaccT=acc, t_hi=torch.tensor(1.0, device=dev),
+                  t_lo=torch.tensor(0.0, device=dev), dt_init=torch.tensor(-0.05, device=dev))
+    run = getattr(tfs, wrapper)
+    before = _launches()
+    with pytest.raises(NotImplementedError):
+        run(TSIT5, spec, **kw)
+    assert _launches() == before
+
+
+def test_stream_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """FFJORD's MINIBOONE widths (miniboone860) on the card and on the CPU at
+    B = 64: logpdf through streamed K7 TEST, the Hutchinson loss and
+    gradient through the streamed K1 and K2 chain forms, and the exact loss
+    and gradient through streamed K7 exact and the plain backward; no other
+    chain kernel is launched.  Where the card's and the CPU's solves take
+    equal steps they agree within REL (GRAD_REL for the gradients).  This
+    input's Hutchinson forward starts from a small Hairer step with zero
+    accumulators, whose error scale is then rtol times a rate times dt, the
+    order of the roundoff of the btilde sums: on an NVIDIA H100 the kernel,
+    its twin on the card and its twin on the CPU take 14, 12 and 13
+    attempted steps on the same arguments (the float64 twin 12), and the
+    kernel 13 with its first step moved by 1e-6.  Where the counts differ, both paths are held as
+    `chip_smoke.py` holds the training paths: losses within 1e-4 of each
+    other, each gradient within 2e-2 max|g| of a float64 rtol 1e-7 solve
+    (the plain path on the card), logpdf within 1e-4 of it."""
+    xs = np.random.default_rng(4).normal(size=(64, 43)).astype(np.float32)
+    eps = np.random.default_rng(5).normal(size=(1, 64, 43)).astype(np.float32)
+    ps_np = _np_params(MINIBOONE860, 3)
+
+    def run(device, exact, fused=True, dtype=torch.float32, solver=None):
+        kw = {} if solver is None else {"solver": solver}
+        icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(MINIBOONE860, device=device, dtype=dtype), 43, dtype=dtype,
+                              compute_mode=tcnf.VecJacMode(fused=fused, exact_trace=exact), **kw)
+        leaves = [v.to(dtype).requires_grad_() for p in tcnf.params_from_numpy(ps_np, device) for v in (p["w"], p["b"])]
+        ps = tuple({"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2]))
+        x = torch.from_numpy(xs).to(device=device, dtype=dtype)
+        with torch.no_grad():
+            lp, _, st = tcnf.inference(icnf, tcnf.Mode.TEST, x, ps)
+        kw = {} if exact else {"eps": torch.from_numpy(eps).to(device=device, dtype=dtype)}
+        l, m = tcnf.loss_and_metrics(icnf, tcnf.Mode.TRAIN, x, ps, **kw)
+        grads = [g.cpu().float() for g in torch.autograd.grad(l, leaves)]
+        return lp.cpu().float(), int(st.nfe), l.detach().cpu().float(), grads, int(m["nfe"])
+
+    for exact in (False, True):
+        before = _launches()
+        lp_k, tnfe_k, l_k, g_k, nfe_k = run(dev, exact)
+        after = _launches()
+        ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        want = {tfs.K7S_KERNEL + "/test": 1}
+        want.update({tfs.K7S_KERNEL + "/exact": 1} if exact else {tfs.K1S_KERNEL: 1, tfs.K2S_KERNEL: 1})
+        assert ran == want
+        lp_c, tnfe_c, l_c, g_c, nfe_c = run(torch.device("cpu"), exact)
+        truth = None
+        if (tnfe_k, nfe_k) != (tnfe_c, nfe_c):
+            truth = run(dev, exact, fused=False, dtype=torch.float64, solver=tcnf.SolverOptions(rtol=1e-7, atol=1e-9))
+        if tnfe_k == tnfe_c:
+            assert _close(lp_k, lp_c)
+        else:
+            assert _close(lp_k, truth[0]) and _close(lp_c, truth[0])
+        if nfe_k == nfe_c:
+            assert _close(l_k, l_c)
+            for a, b in zip(g_k, g_c):
+                assert _grad_close(a, b)
+        else:
+            assert float((l_k - l_c).abs()) <= 1e-4 * max(1.0, float(l_c.abs()))
+            for a, b, t in zip(g_k, g_c, truth[3]):
+                bound = 2e-2 * float(t.abs().max())
+                assert float((a - t).abs().max()) <= bound and float((b - t).abs().max()) <= bound
 
 
 # ---- the 2-layer kernels' wide forms (2-layer tanh nets past dz 32) ----

@@ -212,15 +212,17 @@ _WIDE_COVERED = {
     "cond-recipe": ((1, 64, 64, 1), 1, False),
     "dz32-hidden64": ((32, 64, 64, 32), 0, False),
 }
-# name -> (dims, n_cond, what the refusal names)
+# name -> (dims, n_cond, what the refusal names, probes).  Past hidden width
+# 128 or past shared memory the streamed forms take one VJP probe; with two
+# the chain is refused, naming why the wide forms do not take it.
 _WIDE_REFUSED = {
-    "dz65": ((65, 128, 128, 65), 0, "state width 65 > 64"),
-    "hidden129": ((43, 129, 128, 43), 0, "hidden width 129 > 128"),
-    "conditional-wide": ((43, 128, 128, 43), 2, "conditional wide chains"),
-    "five-layer": ((43, 64, 64, 64, 64, 43), 0, "5-layer chains"),
-    "weights-past-shared-memory": ((64, 128, 128, 128, 64), 0, "shared memory"),
-    "conditional-hepmass42": ((42, 126, 42), 1, "K8 in the wide"),
-    "two-layer-dz66": ((66, 198, 66), 0, "state width 66 > 64"),
+    "dz65": ((65, 128, 128, 65), 0, "state width 65 > 64", 1),
+    "hidden129": ((43, 129, 128, 43), 0, "hidden width 129 > 128", 2),
+    "conditional-wide": ((43, 128, 128, 43), 2, "conditional wide chains", 1),
+    "five-layer": ((43, 64, 64, 64, 64, 43), 0, "5-layer chains", 1),
+    "weights-past-shared-memory": ((64, 128, 128, 128, 64), 0, "shared memory", 2),
+    "conditional-hepmass42": ((42, 126, 42), 1, "K8 in the wide", 1),
+    "two-layer-dz66": ((66, 198, 66), 0, "state width 66 > 64", 1),
 }
 
 
@@ -237,10 +239,11 @@ def test_wide_coverage(name):
 
 @pytest.mark.parametrize("name", list(_WIDE_REFUSED))
 def test_wide_refusals_name_their_roadmap_row(name):
-    """What the wide forms do not take is refused with the reason and its
-    ROADMAP queue 2 row."""
-    dims, n_cond, why = _WIDE_REFUSED[name]
-    msg = tfs._kernel_covers(TSIT5, _spec(dims, n_cond), chain=True)
+    """What the wide forms do not take, and the streamed forms do not take
+    either (chains past hidden width 128 or past shared memory with K
+    probes), is refused with the reason and its ROADMAP queue 2 row."""
+    dims, n_cond, why, probes = _WIDE_REFUSED[name]
+    msg = tfs._kernel_covers(TSIT5, _spec(dims, n_cond), probes, chain=True)
     assert msg is not None and why in msg and "ROADMAP queue 2" in msg
 
 
