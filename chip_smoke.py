@@ -358,12 +358,47 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      four Lion steps the streamed K1 and K2 chain forms at least four times
      each; one exact train step streamed K7 exact once;
  72. CUDA-event times of the train step (fused and plain) and `logpdf`.
+ 73. bf16 stage matmuls (`VecJacMode(fused=True, bf16=True)`), the
+     flagship and microbench (the flagship at tspan (0, 1), the
+     configuration of benchmarks/kernel_microbench.py): the build seconds
+     of bf16 K3, K1 and K2, their launch shapes (threads, blocks: a block
+     is a tile of as many samples; shared memory) and the tensor-core
+     instructions (HMMA) in each instance's SASS (cuobjdump), none in K3's,
+     K1's and K2's;
+ 74. bf16 K3 and K1 from nonzero accumulators and bf16 K2 from bf16 K1's
+     output (warm-started from its last step) against their bf16 twins at
+     the flagship and microbench, B = 4096 (the GPU tests hold B = 4000 and
+     ragged warps), under the bf16 rule (`near_tie.within_bf16_noise`):
+     attempted steps within max(2, steps / 20) of the twin's or within the
+     twin's own range, each value within max(1e-4 (forward, z0, a_z0) or
+     1e-3 (gradients), 4x the twin's own spread over 2 (flagship) or 4
+     (microbench) runs with every input moved one float32 ulp); the bf16
+     and f32 solves of one input apart;
+ 75. serving under bf16, counters reset just before it: logpdf and sample
+     launch bf16 K3 twice and nothing else;
+ 76. the bf16 loss and its gradient, counters reset just before it: bf16 K1
+     and bf16 K2 once each and nothing else, the gradient within max(2e-2,
+     4x the twins' own move when xs and the params move one ulp) * max|g|
+     of the same gradient through the bf16 twins on the card (the distance
+     of both, and of the f32 kernels', to a float64 rtol 1e-7 solve of the
+     f32 field printed beside it); `fit` for four Lion steps: bf16 K1 and K2
+     at least four times each and nothing else;
+ 77. the bf16 configurations the kernels do not cover raise on the card
+     naming ROADMAP's bf16 row (a 3-layer chain, two probes, JVP probes, a
+     state past 32, a conditional net, exact trace, the TEST gradient);
+ 78. CUDA-event times: each bf16 kernel beside its f32 kernel on the same
+     input (ms, attempted steps, µs a step) and its twin, at the flagship
+     and microbench; kernel_microbench's quantities from the port
+     (`train_fwd_nfe_us`, `test_nfe_us`, `grad_step_us`, f32 and bf16) and
+     the flagship's bf16 train step, `logpdf` and `sample`.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
 tableau's refresh per accepted step; K10 evaluates the field once) at
 67 TFLOP/s f32 and the bytes of its
-inputs and outputs at 3.35 TB/s (the H100 SXM's data-sheet rates).  A record
+inputs and outputs at 3.35 TB/s (the H100 SXM's data-sheet rates); a bf16
+kernel's operations are its stage products at 989 TFLOP/s (bf16 dense) plus
+its elementwise and trace FMA at 67 TFLOP/s.  A record
 of a K9 run carries its tableau (or "identity") in its name, one of a probe
 instance its probes ("K4", "jvp-K2").  The last lines are the
 kernels' JSON record, the nvidia-smi line, and {"ok": true, "device":
@@ -386,6 +421,7 @@ GRAD_TOL = 1e-3  # K2's and K4's batch-summed parameter gradients: 4096-term sum
 SOLVE_REL = 2e-2  # training gradients vs a float64 rtol 1e-7 solve, relative to max|g|
 N_STEPS = 4  # Lion steps of the training path
 F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 HBM_BYTES = 3.35e12  # H100 SXM memory rate
 SOURCE = "continuousnf_tpu_torch/ops/csrc/"
 
@@ -2983,6 +3019,287 @@ def wide_two_layer(cnf, fs, dev):
     return records
 
 
+BF16_WITNESS = {"flagship": 2, "microbench": 4}  # phase 74: the twin's own runs, every input moved one ulp
+BF16_ROW = "bf16 stage dots"  # ROADMAP queue 2's row that every bf16 refusal names
+
+
+def bf16_fma(dz, H):
+    """(stage-product FMA, elementwise and trace FMA) per sample and field
+    evaluation of bf16 K3, K1 and K2, counted from the widths: the products
+    (K3: z W1, h W2, dh M^T; K1: z W1, h W2 and the pullback's v1 W2^T,
+    v0 W1^T; K2: those four, the four of the VJP, and the two weight
+    gradients' four outer products), then the gates, the trace and the
+    norms (K2: with the cotangents' gates and the bias sums)."""
+    return {"k3b": (3 * dz * H, H + 2 * dz), "k1b": (4 * dz * H, 2 * H + 5 * dz),
+            "k2b": (12 * dz * H, 7 * H + 11 * dz)}
+
+
+def bf16_record(name, source, replaces, launches, err, ms, plain_ms, fma, B, steps, floats):
+    """`kernel_record` with a bf16 kernel's bound: its stage products at
+    BF16_FLOPS plus its elementwise FMA at F32_FLOPS over the field
+    evaluations of the timed call (tsit5), or its bytes if larger."""
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+
+    rec = kernel_record(name, source, replaces, launches, err, ms, plain_ms, 0, B, steps, floats)
+    evals = 1 + (TSIT5.num_stages - 1) * int(steps)
+    t_ops = 2.0 * B * evals * (fma[0] / BF16_FLOPS + fma[1] / F32_FLOPS) * 1e3
+    t_bytes = 4.0 * floats / HBM_BYTES * 1e3
+    rec.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return rec
+
+
+def hmma_counts(path):
+    """{kernel function: HMMA instructions} in a built library's SASS
+    (cuobjdump beside nvcc)."""
+    from pathlib import Path
+
+    from continuousnf_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True, timeout=300, check=True)
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def hold_bf16(label, out_k, out_p, twin, spec, kw, n):
+    """A bf16 kernel's output against its bf16 twin's under the bf16 rule
+    (`near_tie.within_bf16_noise`), with the twin's own steps and spread
+    over n runs whose every input moved one float32 ulp
+    (`near_tie.roundoff_witness`).  Returns the largest absolute
+    difference."""
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils import near_tie
+
+    steps, spreads = near_tie.roundoff_witness(twin, TSIT5, spec, kw, ref=out_p, n=n)
+    holds, line = near_tie.within_bf16_noise(out_k, out_p, spreads, TOL, GRAD_TOL, steps)
+    print(f"{label} vs its bf16 twin: {line}")
+    check(holds, f"{label} misses the bf16 rule: {line}")
+    (_, vk), (_, vp) = near_tie.split(out_k), near_tie.split(out_p)
+    return max(float((a - b).abs().max()) for a, b in zip(vk, vp))
+
+
+@contextlib.contextmanager
+def bf16_twins(fs):
+    """While open, the bf16 wrappers run their twins on the card (the path
+    through the twins, phase 76's reference)."""
+    import functools
+
+    saved = {n: getattr(fs, n) for n in ("run_bf16_train_solve_kernel", "run_bf16_adjoint_kernel")}
+    fs.run_bf16_train_solve_kernel = functools.partial(fs.solve_train_plain, bf16=True)
+    fs.run_bf16_adjoint_kernel = functools.partial(fs.adjoint_train_plain, bf16=True)
+    try:
+        yield
+    finally:
+        for n, w in saved.items():
+            setattr(fs, n, w)
+
+
+def bf16_paths(cnf, fs, dev):
+    """Phases 73 to 78: bf16 stage matmuls on the flagship and microbench.
+    Returns the records of bf16 K3, K1 and K2."""
+    import functools
+
+    import torch
+    from continuousnf_tpu_torch.ops import _build
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils import near_tie
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    # Phase 73: build seconds, launch shapes, the tensor-core instructions.
+    names = (fs.K3B_KERNEL, fs.K1B_KERNEL, fs.K2B_KERNEL)
+    print("bf16 sources' nvcc seconds (in parallel with the others): "
+          + ", ".join(f"{n} {_build.BUILD_SECONDS.get(n, float('nan')):.2f}" for n in names))
+    dims = MODELS["flagship"]["dims"]
+    dz, H = dims[0], dims[1]
+    for n in names:
+        lib, tag = fs._library(n), n[:2]
+        cap = ctypes.c_int(0)
+        err = getattr(lib, f"cnf_{tag}b_max_grid")(dz, H, 128, ctypes.byref(cap))
+        print(f"{n} at dz={dz}, H={H}: 128 threads a block (a tile of 128 samples), co-resident grid {cap.value} "
+              f"(cudaError {err}), {getattr(lib, f'cnf_{tag}b_smem_bytes')(dz, H, 128)} bytes of dynamic shared "
+              f"memory; B = {BATCH}: {-(-BATCH // 128)} blocks")
+    for n in names + (fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL):
+        counts = hmma_counts(_build.build_library(n)[0])
+        print(f"{n} SASS: " + ", ".join(f"{f[-40:]} {c} HMMA" for f, c in counts.items()))
+        check(all((c > 0) == (n in names) for c in counts.values()), f"{n}: HMMA counts {counts}")
+
+    # Phase 74: each kernel against its twin; the f32 kernel on the same input.
+    rng = np.random.default_rng(SEED + 40)
+    ps_np = glorot_params(rng, dims)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    spec = fs.chain_spec(cnf.MLP(dims, device=dev), dz)
+    trio = ((fs.run_bf16_solve_kernel, fs.solve_test_plain, fs.run_solve_kernel),
+            (fs.run_bf16_train_solve_kernel, fs.solve_train_plain, fs.run_train_solve_kernel),
+            (fs.run_bf16_adjoint_kernel, fs.adjoint_train_plain, fs.run_adjoint_kernel))
+    kinds = ("bf16 K3", "bf16 K1", "bf16 K2")
+    rows = {}
+    for model in ("flagship", "microbench"):
+        B = BATCH
+        icnf = make_icnf(model, dev, bf16=True)
+        xs = torch.from_numpy(model_data(model, rng, B)).to(dev)
+        test, train, _, cot = kernel_inputs(icnf, ps, xs, rng, dev)
+        outs = []
+        for kind, (kernel, twin, f32), kw in zip(kinds, trio, (test, train, None)):
+            if kw is None:
+                kw = adjoint_kw(train, outs[1], cot)
+            twin = functools.partial(twin, bf16=True)
+            with torch.no_grad():
+                out_k = kernel(TSIT5, spec, **kw)
+                out_p, plain_ms = timed(lambda: twin(TSIT5, spec, **kw))
+                out_f = f32(TSIT5, spec, **kw)
+            torch.cuda.synchronize()
+            label = f"{kind} ({model}, B = {B})"
+            err = hold_bf16(label, out_k, out_p, twin, spec, kw, BF16_WITNESS[model])
+            (s_k, v_k), (s_f, v_f) = near_tie.split(out_k), near_tie.split(out_f)
+            apart = max(near_tie.rel(a, b) for a, b in zip(v_k, v_f))
+            print(f"{label}: the f32 kernel on the same input {s_f} steps, the bf16 one {s_k}; largest relative "
+                  f"distance {apart:.3e}")
+            check(s_k != s_f or apart > TOL, f"{label}: the bf16 and f32 solves of one input agree")
+            outs.append(out_k)
+            with torch.no_grad():
+                ms_f, ms_k = paired_ms(lambda: f32(TSIT5, spec, **kw), lambda: kernel(TSIT5, spec, **kw), 3)
+            rows[(kind, model)] = dict(err=err, ms=ms_k, steps=s_k, plain_ms=plain_ms, ms_f=ms_f, steps_f=s_f)
+            print(f"{label} alone: {ms_k:.4f} ms, {s_k} attempted steps, {ms_k * 1e3 / s_k:.1f} us a step; f32 "
+                  f"{ms_f:.4f} ms, {s_f} steps, {ms_f * 1e3 / s_f:.1f} us a step; plain version {plain_ms:.4f} ms")
+
+    # Phase 75: serving under bf16.
+    icnf_b = make_icnf("flagship", dev, bf16=True)
+    xs = torch.from_numpy(model_data("flagship", rng, BATCH)).to(dev)
+    dist = cnf.ICNFDist(icnf_b, cnf.Mode.TEST, ps)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    fs.reset_launches()
+    with torch.no_grad():
+        lp = dist.logpdf(xs)
+        samples = dist.sample(BATCH, generator=gen)
+    torch.cuda.synchronize()
+    serving_launches = launched(fs)
+    check(serving_launches == {fs.K3B_KERNEL: 2}, f"bf16 serving launched {serving_launches}")
+    check(bool(torch.isfinite(lp).all()) and bool(torch.isfinite(samples).all()) and
+          tuple(samples.shape) == (BATCH, icnf_b.nvars), "bf16 serving: values not finite")
+    print(f"bf16 serving: logpdf mean {float(lp.mean()):.4f}, launches {serving_launches}")
+
+    # Phase 76: the loss gradient against the path through the twins, and fit.
+    eps_s = icnf_b.draw_eps(gen, BATCH, dev)
+    kw = dict(eps=eps_s, steer_r=0.05)
+    fs.reset_launches()
+    l_k, g_k, m_k = loss_grad(cnf, icnf_b, ps_np, xs, dev, **kw)
+    grad_launches = launched(fs)
+    check(grad_launches == {fs.K1B_KERNEL: 1, fs.K2B_KERNEL: 1}, f"the bf16 gradient launched {grad_launches}")
+    spread = [0.0] * len(g_k)
+    with bf16_twins(fs):
+        l_p, g_p, _ = loss_grad(cnf, icnf_b, ps_np, xs, dev, **kw)
+        for seed in range(1):
+            nudge_gen = torch.Generator().manual_seed(seed)
+            ps_n = tuple({k: near_tie.nudge(torch.from_numpy(v), nudge_gen).numpy() for k, v in layer.items()}
+                         for layer in ps_np)
+            _, g_n, _ = loss_grad(cnf, icnf_b, ps_n, near_tie.nudge(xs, nudge_gen), dev, **kw)
+            spread = [max(d, float((a - b).abs().max()) / float(b.abs().max())) for d, a, b in zip(spread, g_n, g_p)]
+    icnf_t = make_icnf("flagship", dev, fused=False, dtype=torch.float64, solver=cnf.SolverOptions(rtol=1e-7, atol=1e-9))
+    _, g_t, _ = loss_grad(cnf, icnf_t, ps_np, xs, dev, torch.float64, eps=eps_s.double(), steer_r=0.05)
+    _, g_f, _ = loss_grad(cnf, make_icnf("flagship", dev), ps_np, xs, dev, **kw)
+    torch.cuda.synchronize()
+    for name, a, b, t, f, d in zip(("w1", "b1", "w2", "b2"), g_k, g_p, g_t, g_f, spread):
+        scale = float(b.abs().max())
+        e = float((a - b).abs().max()) / scale
+        print(f"bf16 g_{name}: kernels vs twins {e:.3e} of max|g| (the twins' own move {d:.3e}); distance to the "
+              f"float64 f32-field solve: bf16 {float((a.double() - t).abs().max()) / scale:.3e}, f32 kernels "
+              f"{float((f.double() - t).abs().max()) / scale:.3e}")
+        check(bool(torch.isfinite(a).all()) and e <= max(SOLVE_REL, 4.0 * d), f"bf16 g_{name}: {e} vs its spread {d}")
+    print(f"bf16 loss {float(l_k):.6f} (through the twins {float(l_p):.6f}), forward NFE {int(m_k['nfe'])}")
+    res = fit_path(cnf, fs, icnf_b, ps_np, dev, model_data("flagship", np.random.default_rng(SEED + 42),
+                                                             N_STEPS * BATCH), batch_size=BATCH)
+    fit_launches = launched(fs)
+    check(set(fit_launches) == {fs.K1B_KERNEL, fs.K2B_KERNEL} and min(fit_launches.values()) >= N_STEPS,
+          f"bf16 fit launched {fit_launches}")
+    print(f"bf16 training path: fit {N_STEPS} Lion steps, epoch loss {float(res.losses[0]):.6f}, launches "
+          f"{fit_launches}")
+
+    # Phase 77: what the bf16 kernels do not cover raises on the card.
+    def refused(label, fn):
+        fs.reset_launches()
+        try:
+            fn()
+        except NotImplementedError as exc:
+            check(BF16_ROW in str(exc), f"{label}: the refusal does not name the bf16 row: {exc}")
+            others = {k: v for k, v in launched(fs).items() if k != fs.K3B_KERNEL}
+            check(not others, f"{label}: launched {others} before refusing")
+            print(f"bf16 refusal, {label}: {exc}")
+            return
+        check(False, f"{label}: not refused on the card")
+
+    small = lambda name, n=256: torch.from_numpy(model_data(name, rng, n)).to(dev)  # noqa: E731
+    p6 = glorot_params(rng, MODELS["power6"]["dims"])
+    h42 = glorot_params(rng, MODELS["hepmass42"]["dims"])
+    refused("a 3-layer chain (power6)", lambda: loss_grad(cnf, make_icnf("power6", dev, bf16=True), p6,
+                                                          small("power6"), dev))
+    refused("two VJP probes", lambda: loss_grad(cnf, make_icnf("flagship", dev, bf16=True, num_probes=2), ps_np,
+                                                xs, dev))
+    refused("a JVP probe", lambda: loss_grad(cnf, make_icnf("flagship", dev, bf16=True, ad="jvp"), ps_np, xs, dev))
+    refused("state width 42 (hepmass42)", lambda: loss_grad(cnf, make_icnf("hepmass42", dev, bf16=True), h42,
+                                                             small("hepmass42"), dev))
+    refused("exact trace", lambda: loss_grad(cnf, make_icnf("flagship", dev, bf16=True, exact=True), ps_np, xs, dev))
+    cond = cnf.construct(cnf.CondRNODE, cnf.MLP(COND_TWO_LAYER, device=dev), 8, 8, tspan=(0.0, 13.0),
+                         compute_mode=cnf.VecJacMode(fused=True, bf16=True))
+    refused("a conditional net", lambda: cnf.inference(cond, cnf.Mode.TEST, xs[:256], cnf.params_from_numpy(
+        glorot_params(rng, COND_TWO_LAYER), dev), ys=torch.zeros(256, 1, device=dev)))
+    leaves = [x.detach().requires_grad_() for layer in ps for x in (layer["w"], layer["b"])]
+    p_req = tuple({"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2]))
+    refused("the TEST gradient (K5)", lambda: torch.autograd.grad(cnf.loss(icnf_b, cnf.Mode.TEST, xs, p_req), leaves))
+
+    # Phase 78: timings of the paths, and kernel_microbench's quantities.
+    micro = {}
+    for tag, bf16 in (("f32", False), ("bf16", True)):
+        icnf = make_icnf("microbench", dev, bf16=bf16)
+        xm = torch.from_numpy(model_data("microbench", np.random.default_rng(SEED + 43), BATCH)).to(dev)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        with torch.no_grad():
+            _, _, st = cnf.inference(icnf, cnf.Mode.TRAIN, xm, ps, generator=g)
+            ms = cuda_ms(lambda: cnf.inference(icnf, cnf.Mode.TRAIN, xm, ps, generator=g), 5)
+            micro[f"train_fwd_nfe_us_{tag}"] = ms * 1e3 / int(st.nfe)
+            micro[f"train_fwd_nfe_{tag}"] = int(st.nfe)
+            _, _, st = cnf.inference(icnf, cnf.Mode.TEST, xm, ps)
+            ms = cuda_ms(lambda: cnf.inference(icnf, cnf.Mode.TEST, xm, ps), 5)
+            micro[f"test_nfe_us_{tag}"] = ms * 1e3 / int(st.nfe)
+            micro[f"test_nfe_{tag}"] = int(st.nfe)
+        micro[f"grad_step_us_{tag}"] = 1e3 * cuda_ms(
+            lambda: loss_grad(cnf, icnf, ps_np, xm, dev, generator=g), 3)
+    print("kernel_microbench's quantities (the port, B = 4096): " + json.dumps(micro))
+    with torch.no_grad():
+        ms_lp = cuda_ms(lambda: dist.logpdf(xs), 3)
+        ms_s = cuda_ms(lambda: dist.sample(BATCH, generator=gen), 3)
+    ms_step = step_ms(cnf, icnf_b, ps_np, xs, gen, dev, 3)
+    print(f"flagship bf16 B={BATCH}: train step {ms_step:.4f} ms ({BATCH / ms_step * 1e3:.1f} samples/s), logpdf "
+          f"{ms_lp:.4f} ms, sample {ms_s:.4f} ms")
+
+    fma = bf16_fma(dz, H)
+    P = 2 * dz * H + H + dz
+    launches = {fs.K3B_KERNEL: serving_launches[fs.K3B_KERNEL], fs.K1B_KERNEL: fit_launches[fs.K1B_KERNEL],
+                fs.K2B_KERNEL: fit_launches[fs.K2B_KERNEL]}
+    records = []
+    for n, kind, src, site, tag, floats in (
+            (fs.K3B_KERNEL, "bf16 K3", "k3_bf16_solve.cu", "continuousnf_tpu/ops/fused_solve.py:1043", "k3b",
+             2 * dz * H + H + dz + 2 * BATCH * (dz + 1)),
+            (fs.K1B_KERNEL, "bf16 K1", "k1_bf16_solve.cu", "continuousnf_tpu/ops/fused_solve.py:1043", "k1b",
+             P + BATCH * (3 * dz + 6)),
+            (fs.K2B_KERNEL, "bf16 K2", "k2_bf16_adjoint.cu", "continuousnf_tpu/ops/fused_solve.py:1767", "k2b",
+             2 * P + BATCH * (5 * dz + 9))):
+        for model in ("flagship", "microbench"):
+            r = rows[(kind, model)]
+            rec = bf16_record(n if model == "flagship" else f"{n}/microbench", src, site, launches[n], r["err"],
+                              r["ms"], r["plain_ms"], fma[tag], BATCH, r["steps"], floats)
+            print(f"{kind} ({model}): {r['ms']:.4f} ms, {r['steps']} steps, {r['ms'] * 1e3 / r['steps']:.1f} us a "
+                  f"step (f32 {r['ms_f'] * 1e3 / r['steps_f']:.1f}); bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}); plain {r['plain_ms']:.4f} ms; launches {launches[n]}")
+            records.append(rec)
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -3004,7 +3321,8 @@ def main() -> int:
     built = _build.build_libraries([fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL,
                                     fs.K5_KERNEL, fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL, fs.K1W_KERNEL,
                                     fs.K2W_KERNEL, fs.K7W_KERNEL, fs.K10_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL,
-                                    fs.K4WA_KERNEL, fs.K1S_KERNEL, fs.K2S_KERNEL, fs.K7S_KERNEL])
+                                    fs.K4WA_KERNEL, fs.K1S_KERNEL, fs.K2S_KERNEL, fs.K7S_KERNEL, fs.K3B_KERNEL,
+                                    fs.K1B_KERNEL, fs.K2B_KERNEL])
     print(f"built {len(built)} kernels in {time.perf_counter() - t_build:.2f} s (one nvcc each, in parallel)")
     for name, (lib_path, log) in built.items():
         print(f"  {lib_path.name}")
@@ -3054,7 +3372,8 @@ def main() -> int:
                          ("51-55", lambda: direct_paths(cnf, fs, dev, sample_draw)),
                          ("56-60", lambda: wide_probe_paths(cnf, fs, dev)),
                          ("61-66", lambda: wide_two_layer(cnf, fs, dev)),
-                         ("67-72", lambda: miniboone860(cnf, fs, dev))):
+                         ("67-72", lambda: miniboone860(cnf, fs, dev)),
+                         ("73-78", lambda: bf16_paths(cnf, fs, dev))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -29,6 +30,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: Seconds nvcc took per kernel name, for the builds of this process.
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -56,6 +59,7 @@ def build_library(name: str) -> Tuple[Path, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    start = time.perf_counter()
     try:
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
@@ -64,6 +68,7 @@ def build_library(name: str) -> Tuple[Path, str]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
+        BUILD_SECONDS[name] = time.perf_counter() - start
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -84,4 +89,4 @@ def load_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(path))
 
 
-__all__ = ["build_library", "build_libraries", "load_library", "BUILD_DIR"]
+__all__ = ["build_library", "build_libraries", "load_library", "BUILD_DIR", "BUILD_SECONDS"]

@@ -13,7 +13,7 @@ Port of `continuousnf_tpu/ops/fused_solve.py`: `ChainSpec`/`chain_spec`
 conditioning rows of `_zin` (:265-269) in every stage, in batch-major
 layout.
 
-Eighteen CUDA kernels (`csrc/`), each with a plain PyTorch twin; six for
+Twenty-one CUDA kernels (`csrc/`), each with a plain PyTorch twin; six for
 2-layer tanh MLPs of state width up to MAX_DZ:
 - K3 (`k3_test_solve.cu`, `run_solve_kernel`, twin `solve_test_plain`) for
   `_run_solve_kernel` with `_stage_test`: the TEST solve of [z | dlogp];
@@ -67,7 +67,15 @@ through shared memory in chunks) and with the same twins:
 `k1_stream_solve.cu` (`run_stream_train_solve_kernel`),
 `k2_stream_adjoint.cu` (`run_stream_adjoint_kernel`) and
 `k7_stream_solve.cu` (TEST, `run_stream_test_solve_kernel`; exact,
-`run_stream_exact_solve_kernel`).
+`run_stream_exact_solve_kernel`);
+and three under bf16 stage matmuls (`ComputeMode.bf16`: the JAX package's
+`_mm(..., "bf16")` :193-225, both operands rounded to bfloat16, float32
+sums), for unconditional 2-layer tanh nets of state width up to MAX_DZ and
+hidden width up to BF16_MAX_WIDTH with one VJP probe, on the tensor cores
+(`csrc/mma_bf16.cuh`), with the f32 kernels' twins run with `bf16=True`:
+bf16 K3 (`k3_bf16_solve.cu`, `run_bf16_solve_kernel`), bf16 K1
+(`k1_bf16_solve.cu`, `run_bf16_train_solve_kernel`) and bf16 K2
+(`k2_bf16_adjoint.cu`, `run_bf16_adjoint_kernel`).
 Each runs one whole adaptive solve in one cooperative launch, with one
 batch-global error norm per attempted step, under any explicit tableau with
 an embedded error estimate (K9: `_stretched_eest` :766-770 and the non-FSAL
@@ -132,6 +140,9 @@ K4WA_KERNEL = "k4_wide_adjoint"
 K1S_KERNEL = "k1_stream_solve"
 K2S_KERNEL = "k2_stream_adjoint"
 K7S_KERNEL = "k7_stream_solve"
+K3B_KERNEL = "k3_bf16_solve"
+K1B_KERNEL = "k1_bf16_solve"
+K2B_KERNEL = "k2_bf16_adjoint"
 
 #: The chain kernels (the K1 and K2 chain forms, K7) take tanh chains of 2
 #: to CHAIN_MAX_LAYERS layers with hidden widths up to CHAIN_MAX_WIDTH,
@@ -238,13 +249,47 @@ def _test_stage(spec: ChainSpec, ws, bs, z, ys=None):
     return dense_chain_trace(ws, bs, spec.acts, z, ys)
 
 
-def _chain_fwd(spec: ChainSpec, zin, ws, bs):
+#: ROADMAP queue 2's row of the bf16 stage matmuls that neither a kernel nor a
+#: twin runs yet; every refusal under `ComputeMode.bf16` names it.
+BF16_ROW = "ROADMAP queue 2, bf16 stage dots"
+
+
+def _mm_bf16(a, b):
+    """a @ b under bf16 stage matmuls (the JAX package's `_mm(..., "bf16")`,
+    :193-225): both operands rounded to bfloat16 (round to nearest even),
+    their exact products summed in the operands' float type."""
+    return a.to(torch.bfloat16).to(a.dtype) @ b.to(torch.bfloat16).to(b.dtype)
+
+
+def _mm(a, b, bf16: bool):
+    """A stage matmul: a @ b, or `_mm_bf16` under bf16."""
+    return _mm_bf16(a, b) if bf16 else a @ b
+
+
+def _test_stage_bf16(spec: ChainSpec, ws, bs, z, ys=None):
+    """The 2-layer tanh TEST field under bf16 stage matmuls, in the closed
+    form of the JAX package's `_stage_test` (:484-503): (y, tr J) with
+    tr J = sum_i dy_i (dh m^T)_i, m = W1z * W2^T formed in float32 from the
+    z rows of W1 and then rounded (not the product of the rounded
+    weights).  Deeper chains (the deep exact chain stage) have no bf16
+    twin yet and raise."""
+    if not _two_layer_tanh(spec):
+        raise NotImplementedError(
+            f"the TEST stage of a {spec.n_layers}-layer chain or of a chain with an identity layer (the deep exact "
+            f"chain stage) under bf16 stage matmuls ({BF16_ROW})"
+        )
+    hs, (dh, dy) = _chain_fwd(spec, _zin(z, ys), ws, bs, bf16=True)
+    m = ws[0][: spec.dz] * ws[1].T
+    return hs[-1], torch.sum(dy * _mm_bf16(dh, m.T), dim=-1)
+
+
+def _chain_fwd(spec: ChainSpec, zin, ws, bs, bf16: bool = False):
     """Forward pass of the chain on its input rows zin = [z | ys]: hs[0] =
     zin, hs[i+1] = layer i's output; ds[i] = its tanh' gate (None for an
-    identity layer)."""
+    identity layer).  `bf16`: the products under bf16 stage matmuls."""
     hs, ds = [zin], []
     for i in range(spec.n_layers):
-        a = hs[-1] @ ws[i] + bs[i]
+        a = _mm(hs[-1], ws[i], bf16) + bs[i]
         if spec.acts[i]:
             h = torch.tanh(a)
             ds.append(1.0 - h * h)
@@ -255,7 +300,7 @@ def _chain_fwd(spec: ChainSpec, zin, ws, bs):
     return hs, ds
 
 
-def _probe_pullback(spec: ChainSpec, ek, ws, ds):
+def _probe_pullback(spec: ChainSpec, ek, ws, ds, bf16: bool = False):
     """One Hutchinson VJP pass, eps^T J.  Returns (us, vs, eJ): us[i] = the
     cotangent arriving at hs[i] (us[N] = ek), vs[i] = the gated cotangent
     entering layer i's matmul, eJ = the z columns of us[0]."""
@@ -265,11 +310,11 @@ def _probe_pullback(spec: ChainSpec, ek, ws, ds):
     us[N] = ek
     for i in reversed(range(N)):
         vs[i] = us[i + 1] * ds[i] if ds[i] is not None else us[i + 1]
-        us[i] = vs[i] @ ws[i].T
+        us[i] = _mm(vs[i], ws[i].T, bf16)
     return us, vs, us[0][:, : spec.dz]
 
 
-def _probe_pushforward(spec: ChainSpec, ek, ws, ds):
+def _probe_pushforward(spec: ChainSpec, ek, ws, ds, bf16: bool = False):
     """One Hutchinson JVP pass, J eps (the forward-mode counterpart of
     `_probe_pullback`).  Returns (ts, us, Je): ts[i] = the tangent arriving
     at hs[i] (ts[0] = [ek | 0]: the probe has no ys rows), us[i] = layer i's
@@ -277,16 +322,16 @@ def _probe_pushforward(spec: ChainSpec, ek, ws, ds):
     t = ek if not spec.n_cond else torch.cat([ek, ek.new_zeros(ek.shape[0], spec.n_cond)], dim=-1)
     ts, us = [t], []
     for i in range(spec.n_layers):
-        u = ts[-1] @ ws[i]
+        u = _mm(ts[-1], ws[i], bf16)
         us.append(u)
         ts.append(u * ds[i] if ds[i] is not None else u)
     return ts, us, ts[-1]
 
 
-def _probe_pass(spec: ChainSpec, ek, ws, ds, jvp: bool):
+def _probe_pass(spec: ChainSpec, ek, ws, ds, jvp: bool, bf16: bool = False):
     """eps^T J (`_probe_pullback`) or, `jvp`, J eps (`_probe_pushforward`),
     with the pass's residuals."""
-    return (_probe_pushforward if jvp else _probe_pullback)(spec, ek, ws, ds)
+    return (_probe_pushforward if jvp else _probe_pullback)(spec, ek, ws, ds, bf16)
 
 
 def _ct_safe_norm(ct, norm):
@@ -295,17 +340,20 @@ def _ct_safe_norm(ct, norm):
     return torch.where(pos, ct / torch.where(pos, norm, torch.ones_like(norm)), torch.zeros_like(norm))
 
 
-def _stage_train(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ys=None, jvp: bool = False):
+def _stage_train(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ys=None, jvp: bool = False,
+                 bf16: bool = False):
     """One TRAIN field evaluation: z (B, dz), probes eps (K, B, dz), the
     conditioning ys (B, n_cond) or None.  Returns (k_z (B, dz), rates (3, B)
     = [-tr, ||y||, ||eps^T J||]), the trace and the probe norm averaged over
-    the K probes; `jvp` takes J eps (forward mode) in place of eps^T J."""
-    hs, ds = _chain_fwd(spec, _zin(z, ys), ws, bs)
+    the K probes; `jvp` takes J eps (forward mode) in place of eps^T J;
+    `bf16` runs every product under bf16 stage matmuls (`_mm_bf16`), the
+    gates, sums and norms in float32."""
+    hs, ds = _chain_fwd(spec, _zin(z, ys), ws, bs, bf16)
     y = hs[-1]
     zero = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
     tr, n_rate = zero, zero
     for ek in eps:
-        _, _, eJ = _probe_pass(spec, ek, ws, ds, jvp)
+        _, _, eJ = _probe_pass(spec, ek, ws, ds, jvp, bf16)
         tr = tr + torch.sum(eJ * ek, dim=-1)
         if norm_j:
             n_rate = n_rate + safe_norm(eJ)
@@ -317,7 +365,7 @@ def _stage_train(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ys
 
 
 def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: bool, ct_y, ct_r, ys=None,
-                        jvp: bool = False):
+                        jvp: bool = False, bf16: bool = False):
     """`_stage_train` and its hand-derived VJP against (ct_y (B, dz), ct_r
     (3, B)) in one pass: the math the K2 kernel runs.  Returns (k_z, rates,
     ct_zin, ct_ws, ct_bs), the cotangents not negated and the parameter ones
@@ -325,16 +373,18 @@ def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: b
     [z | ys].  The probe has zero ys rows, so the ys rows of W0's gradient
     come from the forward chain alone (ys x ca_0).  Each probe adds its own
     terms: up the pullback chain (VJP) or down the pushforward chain (JVP);
-    the probes get no cotangent."""
+    the probes get no cotangent.  `bf16`: every product, the batch sums of
+    the weight gradients included, under bf16 stage matmuls; the bias
+    gradients are float32 sums."""
     N = spec.n_layers
     K = eps.shape[0]
-    hs, ds = _chain_fwd(spec, _zin(z, ys), ws, bs)
+    hs, ds = _chain_fwd(spec, _zin(z, ys), ws, bs, bf16)
     y = hs[-1]
     zero = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
     uss, vss, eJs, ns = [], [], [], []
     tr, n_rate = zero, zero
     for ek in eps:
-        us, vs, eJ = _probe_pass(spec, ek, ws, ds, jvp)
+        us, vs, eJ = _probe_pass(spec, ek, ws, ds, jvp, bf16)
         uss.append(us)
         vss.append(vs)
         eJs.append(eJ)
@@ -373,16 +423,16 @@ def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: b
                     ct_hs[i + 1] = add(ct_hs[i + 1], (-2.0 * hs[i + 1]) * (ct_t * vss[k][i]))
                 else:
                     ct_a = ct_t
-                ct_ws[i] = add(ct_ws[i], uss[k][i].T @ ct_a)
+                ct_ws[i] = add(ct_ws[i], _mm(uss[k][i].T, ct_a, bf16))
                 if i > 0:
-                    ct_t = ct_a @ ws[i].T
+                    ct_t = _mm(ct_a, ws[i].T, bf16)
             continue
         if spec.n_cond:
             ct_u = torch.cat([ct_u, ct_u.new_zeros(ct_u.shape[0], spec.n_cond)], dim=-1)
         # Up the pullback chain: u_i = v_i W_i^T, v_i = u_{i+1} * d_i.
         for i in range(N):
-            ct_v = ct_u @ ws[i]
-            ct_ws[i] = add(ct_ws[i], ct_u.T @ vss[k][i])
+            ct_v = _mm(ct_u, ws[i], bf16)
+            ct_ws[i] = add(ct_ws[i], _mm(ct_u.T, vss[k][i], bf16))
             if ds[i] is not None:
                 ct_u = ct_v * ds[i]
                 # d_i = 1 - hs[i+1]^2: ct_h += -2 h (ct_v * u_{i+1})
@@ -394,9 +444,9 @@ def _stage_train_fwdbwd(spec: ChainSpec, z, eps, ws, bs, norm_z: bool, norm_j: b
     ct_bs = [None] * N
     for i in reversed(range(N)):
         ct_a = ct_h * ds[i] if ds[i] is not None else ct_h
-        ct_ws[i] = add(ct_ws[i], hs[i].T @ ct_a)
+        ct_ws[i] = add(ct_ws[i], _mm(hs[i].T, ct_a, bf16))
         ct_bs[i] = torch.sum(ct_a, dim=0)
-        ct_h = ct_a @ ws[i].T
+        ct_h = _mm(ct_a, ws[i].T, bf16)
         if i > 0 and ct_hs[i] is not None:
             ct_h = ct_h + ct_hs[i]
     return y, kr, ct_h, ct_ws, ct_bs
@@ -544,14 +594,16 @@ def _solve_plain(stage, tab, *, rtol, atol, max_steps, z0, acc0, t0, t1, dt_init
     return zT, accT, st.steps, st.accepted, st.dt_last, st.dt_used
 
 
-def solve_test_plain(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None):
+def solve_test_plain(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None,
+                     bf16=False):
     """Plain PyTorch version of K3 and K7 TEST: the eager adaptive solve of
     [z | dlogp] on the closed-form TEST field (conditioned on ys (B, n_cond)
-    when given), from the given initial step.  Returns
-    (zT, dlogpT, steps, accepted, dt_last, dt_used)."""
+    when given), from the given initial step; `bf16`, of bf16 K3: the
+    2-layer closed form under bf16 stage matmuls (`_test_stage_bf16`).
+    Returns (zT, dlogpT, steps, accepted, dt_last, dt_used)."""
 
     def stage(z):
-        y, tr = _test_stage(spec, ws, bs, z, ys)
+        y, tr = (_test_stage_bf16 if bf16 else _test_stage)(spec, ws, bs, z, ys)
         return y, -tr
 
     return _solve_plain(stage, tab, rtol=rtol, atol=atol, max_steps=max_steps, z0=z0, acc0=dlogp0,
@@ -560,15 +612,16 @@ def solve_test_plain(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0
 
 def solve_train_plain(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None,
-    jvp=False,
+    jvp=False, bf16=False,
 ):
-    """Plain PyTorch version of K1 and its chain form: the eager adaptive
+    """Plain PyTorch version of K1 and its chain form (and, `bf16`, of bf16
+    K1: the stage under bf16 stage matmuls): the eager adaptive
     solve of [z | acc] with acc (3, B) = [dlogp | reg_e | reg_n] rows,
     seeded from acc0, on `_stage_train` with probes eps (K, B, dz), VJP or
     (`jvp`) JVP, and the conditioning ys (B, n_cond) or None.  Returns
     (zT, accT, steps, accepted, dt_last, dt_used)."""
     return _solve_plain(
-        lambda z: _stage_train(spec, z, eps, ws, bs, norm_z, norm_j, ys, jvp), tab, rtol=rtol, atol=atol,
+        lambda z: _stage_train(spec, z, eps, ws, bs, norm_z, norm_j, ys, jvp, bf16), tab, rtol=rtol, atol=atol,
         max_steps=max_steps, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
     )
 
@@ -602,13 +655,15 @@ def _split_zin(spec, ct_zin, ys):
     return ct_zin[:, : spec.dz], ([] if ys is None else [ct_zin[:, spec.dz :]])
 
 
-def _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT, ys=None, jvp=False):
+def _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT, ys=None, jvp=False, bf16=False):
     """`(z, a_z) -> (k_z, rates, ct_z, gradient blocks [ct_ys,] [w..., b...])`
-    of the Hutchinson TRAIN stage (K2), VJP or (`jvp`) JVP probes: the ct_ys
-    block (B, n_cond) only for a conditional stage."""
+    of the Hutchinson TRAIN stage (K2), VJP or (`jvp`) JVP probes, under bf16
+    stage matmuls with `bf16`: the ct_ys block (B, n_cond) only for a
+    conditional stage."""
 
     def stage(z, az):
-        y, kr, ct_zin, ct_ws, ct_bs = _stage_train_fwdbwd(spec, z, eps, ws, bs, norm_z, norm_j, az, aaccT, ys, jvp)
+        y, kr, ct_zin, ct_ws, ct_bs = _stage_train_fwdbwd(spec, z, eps, ws, bs, norm_z, norm_j, az, aaccT, ys, jvp,
+                                                          bf16)
         ct_z, ys_block = _split_zin(spec, ct_zin, ys)
         return y, kr, ct_z, ys_block + list(ct_ws) + list(ct_bs)
 
@@ -695,9 +750,10 @@ def _adjoint_result(z0, acc0, az0, blocks, steps, accepted, N, ys):
 
 def adjoint_train_plain(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-    t_hi, t_lo, dt_init, ys=None, jvp=False,
+    t_hi, t_lo, dt_init, ys=None, jvp=False, bf16=False,
 ):
-    """Plain PyTorch version of K2 and its chain form: the eager adaptive
+    """Plain PyTorch version of K2 and its chain form (and, `bf16`, of bf16
+    K2: the stage VJP under bf16 stage matmuls): the eager adaptive
     backsolve of (z, acc, a_z, a_acc, [a_ys,] g_p) from t_hi to t_lo, one
     error norm over the whole augmented state (a_acc constant), on the
     hand-derived stage VJP, with probes eps (K, B, dz), VJP or (`jvp`) JVP.
@@ -706,7 +762,7 @@ def adjoint_train_plain(
     `dt_init` None picks the first step by Hairer's rule.  Returns
     (z0, acc0, a_z0, g_ws, g_bs, steps, accepted[, a_ys0])."""
     out = _adjoint_plain(
-        _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT, ys, jvp), _block_shapes(ws, bs, ys),
+        _train_adjoint_stage(spec, ws, bs, eps, norm_z, norm_j, aaccT, ys, jvp, bf16), _block_shapes(ws, bs, ys),
         tab, rtol=rtol, atol=atol, max_steps=max_steps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
         t_hi=t_hi, t_lo=t_lo, dt_init=dt_init,
     )
@@ -1069,6 +1125,21 @@ _SIGNATURES = {
         "cnf_k2s_shape": _WIDE_SHAPE,
         "cnf_k2s_train_adjoint": ([_P] * 17 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
+    K3B_KERNEL: {
+        "cnf_k3b_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k3b_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+        "cnf_k3b_test_solve": ([_P] * 13 + [_I] * 4 + _TAIL, _I),
+    },
+    K1B_KERNEL: {
+        "cnf_k1b_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k1b_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+        "cnf_k1b_train_solve": ([_P] * 14 + [_I] * 6 + _TAIL, _I),
+    },
+    K2B_KERNEL: {
+        "cnf_k2b_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k2b_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+        "cnf_k2b_train_adjoint": ([_P] * 19 + [_I] * 6 + _TAIL, _I),
+    },
     K2W_KERNEL: {
         "cnf_k2w_shape": _WIDE_SHAPE,
         "cnf_k2w_train_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
@@ -1185,14 +1256,15 @@ def _forward_result(zT, accT, stats, dt_last):
 
 
 def _launch_two_layer_forward(label, lib_name, entry, max_grid, tab, spec, *, rtol, atol, max_steps, ws, bs, z0,
-                              acc0, t0, t1, dt_init, eps=None, norms=None):
+                              acc0, t0, t1, dt_init, eps=None, norms=None, blocks=None):
     """Launch a 2-layer forward kernel (K3: no probe, no norms; K1: the
     probes (K, B, dz) and the norms, and for its probe instance K and jvp;
     the K4 forward: the norms), whose C arguments are (w1, b1, w2, b2,
     [eps], z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, dz, H,
     max_steps, [norm_z, norm_j, [K, jvp]], rtol, atol, the controller, the
-    tableau, grid, block, stream).  Returns (zT, accT, steps, accepted,
-    dt_last, dt_used)."""
+    tableau, grid, block, stream), with the first block size of `blocks`
+    that launches (by default `_forward_blocks`).  Returns (zT, accT,
+    steps, accepted, dt_last, dt_used)."""
     B, dz = z0.shape
     H = spec.out_dims[0]
     device = z0.device
@@ -1203,7 +1275,7 @@ def _launch_two_layer_forward(label, lib_name, entry, max_grid, tab, spec, *, rt
     )
     lib = _library(lib_name)
     block, grid = _launch_shape(
-        lambda blk, cap: getattr(lib, max_grid)(dz, H, blk, cap), label, B, _forward_blocks(B, device)
+        lambda blk, cap: getattr(lib, max_grid)(dz, H, blk, cap), label, B, blocks or _forward_blocks(B, device)
     )
     ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
     zT, accT, stats, dt_last, work, partials = _forward_buffers(z0, acc0, tab, grid)
@@ -2283,6 +2355,159 @@ def run_stream_adjoint_kernel(
 run_stream_adjoint_kernel.launches = 0
 
 
+# ---- the bf16 kernels (bf16 stage matmuls on the tensor cores) ----
+
+#: The bf16 kernels take unconditional 2-layer tanh nets of state width up
+#: to MAX_DZ (padded to 16 or 32) and hidden width up to BF16_MAX_WIDTH
+#: (padded to a multiple of 16), with one VJP probe in TRAIN mode.
+BF16_MAX_WIDTH = 64
+#: The bf16 kernels' block sizes, tried in order: a block is a tile of as
+#: many samples, 32 a warp (the tile solves of csrc/solve_common.cuh).
+_BF16_BLOCKS = (128, 64)
+
+
+def _bf16_covers(tab: ButcherTableau, spec: ChainSpec, k_probes: int = 1, jvp: bool = False) -> Optional[str]:
+    """Why the bf16 kernels (bf16 K3, K1, K2) do not run this configuration
+    (None if they do)."""
+    if tab.btilde is None or tab.num_stages > MAX_STAGES:
+        return _kernel_covers(tab, spec)
+    if spec.n_cond:
+        return "conditional nets (K8)"
+    if not _two_layer_tanh(spec):
+        return (f"{spec.n_layers}-layer chains and chains with an identity layer (the chain forms and K7; the bf16 "
+                "kernels take 2-layer tanh nets)")
+    if spec.dz > MAX_DZ:
+        return f"state width {spec.dz} > {MAX_DZ} (the wide and streamed forms)"
+    if spec.out_dims[0] > BF16_MAX_WIDTH:
+        return f"hidden width {spec.out_dims[0]} > {BF16_MAX_WIDTH}"
+    if k_probes != 1 or jvp:
+        return f"{k_probes} {'JVP' if jvp else 'VJP'} probe{'s' if k_probes != 1 else ''} (K6)"
+    return None
+
+
+def _cuda_only_bf16(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, jvp: bool = False) -> None:
+    """Raise unless `label`'s bf16 kernel takes the configuration on CUDA
+    tensors: every other configuration under bf16 stage matmuls raises,
+    naming BF16_ROW (no f32 kernel stands in: that would change the
+    numerics the caller asked for)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
+    why = _bf16_covers(tab, spec, k_probes, jvp)
+    if why is not None:
+        raise NotImplementedError(f"the CUDA bf16 kernels do not cover {why} under bf16 stage matmuls ({BF16_ROW})")
+
+
+def run_bf16_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None):
+    """bf16 K3: K3's TEST solve (`run_solve_kernel`: arguments and returns)
+    with the stage matmuls under bf16 (`_test_stage_bf16`).
+
+    CUDA tensors go through the kernel (`csrc/k3_bf16_solve.cu`), CPU
+    tensors through its plain version (2-layer tanh chains, ys (B, n_cond)
+    or None)."""
+    _no_grad_inputs("bf16 K3", ws, bs, z0, dlogp0, ys)
+    if z0.device.type == "cpu":
+        return solve_test_plain(
+            tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys, bf16=True,
+        )
+    _cuda_only_bf16("bf16 K3", z0, tab, spec)
+    out = _launch_two_layer_forward(
+        "bf16 K3", K3B_KERNEL, "cnf_k3b_test_solve", "cnf_k3b_max_grid", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, blocks=_BF16_BLOCKS,
+    )
+    run_bf16_solve_kernel.launches += 1
+    return out
+
+
+run_bf16_solve_kernel.launches = 0
+
+
+def run_bf16_train_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None,
+    jvp=False,
+):
+    """bf16 K1: K1's TRAIN solve (`run_train_solve_kernel`: arguments and
+    returns) with the stage matmuls under bf16.
+
+    CUDA tensors go through the kernel (`csrc/k1_bf16_solve.cu`: one VJP
+    probe), CPU tensors through its plain version (any Dense chain, K VJP or
+    JVP probes, ys (B, n_cond) or None)."""
+    _no_grad_inputs("bf16 K1", ws, bs, z0, eps, acc0, ys)
+    if z0.device.type == "cpu":
+        return solve_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys, jvp=jvp, bf16=True,
+        )
+    _cuda_only_bf16("bf16 K1", z0, tab, spec, eps.shape[0], jvp)
+    out = _launch_two_layer_forward(
+        "bf16 K1", K1B_KERNEL, "cnf_k1b_train_solve", "cnf_k1b_max_grid", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
+        norms=(norm_z, norm_j), blocks=_BF16_BLOCKS,
+    )
+    run_bf16_train_solve_kernel.launches += 1
+    return out
+
+
+run_bf16_train_solve_kernel.launches = 0
+
+
+def _launch_k2_bf16(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+                    t_hi, t_lo, dt_init):
+    label = "bf16 K2"
+    B, dz = zT.shape
+    H = spec.out_dims[0]
+    device = zT.device
+    w1, b1, w2, b2, e0, zT, accT, azT, aaccT = _check_inputs(
+        label, device, [ws[0], bs[0], ws[1], bs[1], eps, zT, accT, azT, aaccT],
+        [(dz, H), (H,), (H, dz), (dz,), (1, B, dz), (B, dz), (3, B), (B, dz), (3, B)],
+    )
+    lib = _library(K2B_KERNEL)
+    block, grid = _launch_shape(lambda blk, cap: lib.cnf_k2b_max_grid(dz, H, blk, cap), label, B, _BF16_BLOCKS)
+    P = 2 * dz * H + H + dz
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
+    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, P)
+    err = lib.cnf_k2b_train_adjoint(
+        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts),
+        _ptr(z0), _ptr(acc0), _ptr(az0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew),
+        B, dz, H, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab), _tableau_array(tab),
+        grid, block, _stream(device),
+    )
+    _check_launch(err, label, grid, block)
+    g_ws, g_bs = _split_params(g, spec)
+    return z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]
+
+
+def run_bf16_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init, ys=None, jvp=False,
+):
+    """bf16 K2: K2's backsolve (`run_adjoint_kernel`: arguments and returns)
+    on the TRAIN stage VJP under bf16 stage matmuls, the weight gradients'
+    batch sums included.
+
+    CUDA tensors go through the kernel (`csrc/k2_bf16_adjoint.cu`: one VJP
+    probe), CPU tensors through its plain version (any Dense chain, K VJP or
+    JVP probes; with ys (B, n_cond), a_ys0 is returned last)."""
+    _no_grad_inputs("bf16 K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys, jvp=jvp, bf16=True,
+        )
+    _cuda_only_bf16("bf16 K2", zT, tab, spec, eps.shape[0], jvp)
+    if dt_init is None:
+        raise ValueError("bf16 K2 needs dt_init (the caller picks it)")
+    out = _launch_k2_bf16(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+                          ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo,
+                          dt_init=dt_init)
+    run_bf16_adjoint_kernel.launches += 1
+    return out
+
+
+run_bf16_adjoint_kernel.launches = 0
+
+
 #: Every kernel's wrapper by kernel name (K10's, the per-stage field, from
 #: `ops/fused_dynamics.py`); each wrapper's `.launches` counts its own
 #: kernel's launches.
@@ -2308,6 +2533,9 @@ KERNEL_WRAPPERS = {
     K2S_KERNEL: run_stream_adjoint_kernel,
     K7S_KERNEL + "/test": run_stream_test_solve_kernel,
     K7S_KERNEL + "/exact": run_stream_exact_solve_kernel,
+    K3B_KERNEL: run_bf16_solve_kernel,
+    K1B_KERNEL: run_bf16_train_solve_kernel,
+    K2B_KERNEL: run_bf16_adjoint_kernel,
     K10_KERNEL: run_fused_field_kernel,
 }
 
@@ -2349,9 +2577,18 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     loop, whose TRAIN stages run K10 (the JAX package builds a fused solve
     there too and ignores it; the port builds none, so a configuration the
     kernels do not cover does not raise on a path that would not use
-    them).  Within
-    those, what this port has not reached raises NotImplementedError: bf16
-    stages.  The flat layout
+    them).  Under
+    `ComputeMode.bf16` (the stage matmuls from bf16-rounded operands with
+    float32 sums, the JAX package's `_mm(..., "bf16")`; the Hairer pick
+    keeps the plain float32 field, as there) the TEST and Hutchinson TRAIN
+    solves run the bf16 wrappers: bf16 K3 forward, bf16 K1 forward and
+    bf16 K2 backward, whose kernels take unconditional 2-layer tanh nets of
+    state width up to MAX_DZ with one VJP probe (every other configuration
+    raises on the card, naming BF16_ROW; no f32 kernel stands in) and whose
+    twins take what their f32 twins take; what has no bf16 twin raises on
+    both devices: the exact-trace stages, the deep exact chain (TEST mode
+    past 2-layer tanh nets) and the TEST backward stage (K5), the last when
+    a gradient calls it.  The flat layout
     is [z.ravel() (batch-major) | dlogp] in TEST mode and
     [z.ravel() | dlogp | reg_e | reg_n] in TRAIN mode; the conditioning
     `args["ys"]` ((B, n_cond), (1, n_cond) or (n_cond,)) is broadcast to
@@ -2410,9 +2647,13 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     train = mode == Mode.TRAIN
     exact = train and cm.exact_trace
     jvp = cm.ad == ADMode.JVP
-    if cm.bf16:
+    bf16 = bool(cm.bf16)
+    if bf16 and exact:
+        raise NotImplementedError(f"the exact-trace stages under bf16 stage matmuls ({BF16_ROW})")
+    if bf16 and not train and not _two_layer_tanh(spec):
         raise NotImplementedError(
-            "bf16 stage matmuls in the fused solve are not ported (ROADMAP queue 2, bf16 stage dots)"
+            f"the TEST stage of a {spec.n_layers}-layer chain or of a chain with an identity layer (the deep exact "
+            f"chain stage) under bf16 stage matmuls ({BF16_ROW})"
         )
 
     from ..core.dynamics import TestState, TrainState, make_augmented_dynamics
@@ -2467,6 +2708,8 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     else:
         run_test, run_train = run_solve_kernel, run_train_solve_kernel
         run_exact, run_adjoint = run_exact_solve_kernel, run_adjoint_kernel
+    if bf16:
+        run_test, run_train, run_adjoint = run_bf16_solve_kernel, run_bf16_train_solve_kernel, run_bf16_adjoint_kernel
 
     def forward(y0f, t0, t1, args):
         tdir = torch.sign(t1 - t0)
@@ -2511,6 +2754,8 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         that the backward solve integrates (a zero a_ys block included and,
         under exact trace, g_pm; the JAX package's pick chains pm into the
         parameters first)."""
+        if bf16 and not train:
+            raise NotImplementedError(f"the TEST backward stage (K5) under bf16 stage matmuls ({BF16_ROW})")
         ps, eps = args["ps"], args.get("eps")
         kw = kernel_kw(args)
         ysb = kw["ys"]
@@ -2589,6 +2834,9 @@ __all__ = [
     "run_stream_exact_solve_kernel",
     "run_stream_train_solve_kernel",
     "run_stream_adjoint_kernel",
+    "run_bf16_solve_kernel",
+    "run_bf16_train_solve_kernel",
+    "run_bf16_adjoint_kernel",
     "KERNEL_WRAPPERS",
     "PROBE_WRAPPERS",
     "reset_launches",

@@ -32,6 +32,9 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     two at which the JAX package's forward-kernel VMEM guard still admits
     the chain (at 2048 it reads 62.6 MB and falls back to XLA).  Widths and
     depth are FFJORD's, not cut.
+  * microbench (`benchmarks/kernel_microbench.py:93-152`): the flagship at
+    tspan (0, 1), the configuration that benchmark times in float32 and
+    under bf16 stage matmuls (`make_icnf(..., bf16=True)`).
   * cond_gaussian (`continuousnf_tpu/recipes.py:254-289`, BASELINE config
     #3): CondRNODE, nvars = 1, naug = 0, one conditioning input, MLP
     2 -> 64 -> 64 -> 1 tanh on all three layers reading [x | y], tspan
@@ -61,6 +64,9 @@ MODELS = {
     "cond_gaussian": dict(dims=(2, 64, 64, 1), nvars=1, naug=0, tspan=(0.0, 13.0), extra={"steer_rate": 0.1},
                           n_cond=1, batch_size=128),
 }
+# kernel_microbench (`benchmarks/kernel_microbench.py:93-152`): the flagship at
+# tspan (0, 1), run in float32 and under bf16 stage matmuls.
+MODELS["microbench"] = dict(MODELS["flagship"], tspan=(0.0, 1.0))
 
 
 def glorot_params(rng: np.random.Generator, dims):
@@ -116,16 +122,17 @@ def model_data(name: str, rng: np.random.Generator, n: int):
 
 
 def make_icnf(name: str, device, *, fused: bool = True, exact: bool = False, dtype=torch.float32, num_probes: int = 1,
-              ad="vjp", **kw):
+              ad="vjp", bf16: bool = False, **kw):
     """The configuration `name` as an ICNF on `device` (CondRNODE for a
-    conditional one, else RNODE): `fused`, `exact`, `num_probes` and `ad`
-    ("vjp" or "jvp", or an `ADMode`) pick its `ComputeMode` (`VecJacMode`
-    or `JacVecMode`); `kw` goes to `construct` (a `solver`, say)."""
+    conditional one, else RNODE): `fused`, `exact`, `num_probes`, `ad`
+    ("vjp" or "jvp", or an `ADMode`) and `bf16` (bf16 stage matmuls) pick
+    its `ComputeMode` (`VecJacMode` or `JacVecMode`); `kw` goes to
+    `construct` (a `solver`, say)."""
     from .. import MLP, RNODE, ADMode, ComputeMode, CondRNODE, construct
 
     cfg = MODELS[name]
     variant = CondRNODE if cfg.get("n_cond") else RNODE
-    mode = ComputeMode(ad=ADMode(ad), num_probes=num_probes, fused=fused, exact_trace=exact)
+    mode = ComputeMode(ad=ADMode(ad), num_probes=num_probes, fused=fused, exact_trace=exact, bf16=bf16)
     return construct(
         variant, MLP(cfg["dims"], device=device, dtype=dtype), cfg["nvars"], cfg["naug"], tspan=cfg["tspan"],
         compute_mode=mode, dtype=dtype, **cfg["extra"], **kw,

@@ -132,6 +132,39 @@ def within_near_tie(out_k, out_p, steps, spreads, tol: float, grad_tol: float = 
     return holds, line
 
 
+def bf16_step_gate(steps: int) -> int:
+    """The attempted steps by which two solves under bf16 stage matmuls may
+    part: max(2, steps // 20), the gate ROADMAP queue 3 holds dop853's
+    roundoff-driven steps to.  Single-pass bf16 rounding (2^-9 relative a
+    product) floods the error estimate at rtol 1e-3, so the step grid
+    follows the last bits of the state."""
+    return max(2, int(steps) // 20)
+
+
+def within_bf16_noise(out_k, out_p, spreads, tol: float, grad_tol: float = None, steps=()):
+    """The rule for a solve under bf16 stage matmuls against its twin: the
+    attempted step count within `bf16_step_gate` of the twin's or within
+    the range of the twin's own under roundoff (`steps`, the witness's
+    counts), and each tensor (`split`) within max(tol, 4x that tensor's
+    spread under roundoff), the spreads of the twin's own
+    `roundoff_witness`; an adjoint's gradients with `grad_tol` for `tol`.
+    Returns (holds, the readings as a line)."""
+    (sk, vk), (sp, vp) = split(out_k), split(out_p)
+    counts = [sp] + list(steps)
+    tols = [tol] * len(vk) if is_forward(out_k) else [tol, tol] + [grad_tol or tol] * (len(vk) - 2)
+    errs = [rel(a, b) for a, b in zip(vk, vp)]
+    steps_hold = abs(sk - sp) <= bf16_step_gate(sp) or min(counts) <= sk <= max(counts)
+    holds = (
+        steps_hold
+        and all(e <= max(t, 4.0 * d) for e, d, t in zip(errs, spreads, tols))
+        and all(bool(torch.isfinite(a).all()) for a in vk)
+    )
+    line = (f"steps {sk} against {sp} (within {bf16_step_gate(sp)} or the twin's own {sorted(set(counts))}: "
+            f"{steps_hold}); relative distance to the twin "
+            + ", ".join(f"{e:.3e} (its spread {d:.3e})" for e, d in zip(errs, spreads)))
+    return holds, line
+
+
 def last_step_tie(out_k, out_p, tol: float):
     """Whether two forward solves (`is_forward`) part only at their last
     step: their attempted and their accepted step counts each differ by

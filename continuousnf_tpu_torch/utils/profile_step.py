@@ -2,7 +2,7 @@
 
     python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|miniboone860|hepmass42]
         [--steps 10]
-        [--probes K] [--jvp] [--test-grad] [--direct | --fixed N]
+        [--probes K] [--jvp] [--test-grad] [--direct | --fixed N] [--bf16]
 
 Builds the model (`--model power6`: the tabular power6 model, RNODE,
 MLP 6 -> 64 -> 64 -> 6; `--model flagship`: RNODE, MLP 16 -> 48 -> 16;
@@ -42,6 +42,11 @@ steps under `SolverOptions(adjoint=Adjoint.DIRECT)` and `--fixed N` under N
 rk4 steps: the whole-solve kernels do not take them, so a 2-layer net's
 Hutchinson step evaluates its field stage by stage in K10 and
 differentiates the recorded solve (`logpdf` keeps the default solver).
+`--bf16` builds the model under bf16 stage matmuls (`VecJacMode(fused=True,
+bf16=True)`: bf16 K1 and K2 in the train step, bf16 K3 in `logpdf`; on
+the flagship or `--model microbench`, the flagship at tspan (0, 1)),
+leaves out the exact-trace step (no bf16 kernel or twin runs it yet) and
+adds `sample(B)`.
 Needs a CUDA card; prints one line per figure, then one JSON object.
 """
 
@@ -121,7 +126,7 @@ def _busy(fn, reps: int, top: int = 6):
 
 
 def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp: bool = False,
-                  test_grad: bool = False, direct: bool = False, fixed: int = 0) -> dict:
+                  test_grad: bool = False, direct: bool = False, fixed: int = 0, bf16: bool = False) -> dict:
     import continuousnf_tpu_torch as cnf
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -143,12 +148,13 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
         solver = cnf.SolverOptions()
 
     def model(exact: bool, solver=cnf.SolverOptions()):
-        return make_icnf(name, dev, exact=exact, num_probes=num_probes, ad="jvp" if jvp else "vjp", solver=solver)
+        return make_icnf(name, dev, exact=exact, num_probes=num_probes, ad="jvp" if jvp else "vjp", solver=solver,
+                         bf16=bf16)
 
     out = {"model": name, "device": torch.cuda.get_device_name(0), "probes": num_probes, "jvp": jvp,
-           "direct": direct, "fixed": fixed}
+           "direct": direct, "fixed": fixed, "bf16": bf16}
     gen = torch.Generator(device=dev).manual_seed(seed)
-    paths = [("train_step", False, B), ("exact_train_step", True, B)]
+    paths = [("train_step", False, B)] + ([] if bf16 else [("exact_train_step", True, B)])
     if "batch_size" in cfg:
         paths.append((f"train_step_b{cfg['batch_size']}", False, cfg["batch_size"]))
     for label, exact, b in paths:
@@ -171,6 +177,8 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
         cnf.CondICNFDist(model(False), cnf.Mode.TEST, ps, ys)
     with torch.no_grad():
         out["logpdf"] = _measure(lambda: dist.logpdf(xs), steps)
+        if bf16:
+            out["sample"] = _measure(lambda: dist.sample(B, generator=gen), steps)
     return out
 
 
@@ -194,11 +202,12 @@ def main(argv=None) -> int:
     solve = ap.add_mutually_exclusive_group()
     solve.add_argument("--direct", action="store_true", help="train steps under the DIRECT adjoint")
     solve.add_argument("--fixed", type=int, default=0, metavar="N", help="train steps under N rk4 steps")
+    ap.add_argument("--bf16", action="store_true", help="bf16 stage matmuls (bf16 K3, K1, K2)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
     res = profile_model(a.model, a.steps, num_probes=a.probes, jvp=a.jvp, test_grad=a.test_grad, direct=a.direct,
-                        fixed=a.fixed)
+                        fixed=a.fixed, bf16=a.bf16)
     for label, r in res.items():
         if not isinstance(r, dict):
             continue

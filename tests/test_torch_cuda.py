@@ -1572,3 +1572,158 @@ def test_test_gradient_on_the_card_matches_the_twins_on_the_cpu(dev, cond):
     assert _close(l_k, l_c)
     for a, b in zip(g_k, g_c):
         assert torch.isfinite(a).all() and _grad_close(a, b)
+
+
+# ---- bf16 stage matmuls: bf16 K3, K1 and K2 (tensor cores) ----
+
+def _bf16_one_step_holds(out_k, out_p, dt):
+    """One attempted step of a bf16 kernel against its twin.  The tensor
+    core's sums part from the twin's at float32 roundoff (more where a sum
+    cancels), and where that moves a value across a bf16 rounding boundary
+    the next product sees one operand a bf16 ulp away, 2^-7 of it at most:
+    that moves the samples that hold it, a few of a batch.  So each
+    sample's state and accumulators (an adjoint's z and a_z) within REL but
+    for at most one sample in eight, each within 7 stages x 2^-7 x |dt| of
+    max(1, max|.|); an adjoint's gradients (batch sums) within
+    max(GRAD_REL, that bound).  A fault in the field's layout moves every
+    sample."""
+    (s_k, vk), (_, vp) = near_tie.split(out_k), near_tie.split(out_p)
+    assert s_k == 1
+    bound, B = 7 * 2.0**-7 * abs(dt), out_p[0].shape[0]
+    rows = len(vk) if near_tie.is_forward(out_k) else 2
+    apart = torch.zeros(B, dtype=torch.bool, device=out_p[0].device)
+    for a, b in zip(vk[:rows], vp[:rows]):
+        d = (a - b).abs().reshape(B, -1).amax(dim=1) / max(1.0, float(b.abs().max()))
+        assert float(d.max()) <= bound
+        apart |= d > REL
+    assert int(apart.sum()) <= B // 8
+    for a, b in zip(vk[rows:], vp[rows:]):
+        assert near_tie.rel(a, b) <= max(GRAD_REL, bound)
+
+
+def _bf16_holds(out_k, out_p, twin, spec, kw):
+    """A bf16 kernel against its bf16 twin under `near_tie.within_bf16_noise`:
+    at bf16's noise floor the step grid and the values follow roundoff, so
+    the kernel is held to max(2, steps / 20) steps or the twin's own range
+    and to 4x the twin's own spread under one-ulp moves of its inputs (4
+    runs; 16 below 1024 samples, whose error norm averages fewer)."""
+    n = 4 if near_tie.split(out_p)[1][0].shape[0] >= 1024 else 16
+    steps, spreads = near_tie.roundoff_witness(twin, TSIT5, spec, kw, ref=out_p, n=n)
+    holds, line = near_tie.within_bf16_noise(out_k, out_p, spreads, REL, GRAD_REL, steps)
+    assert holds, line
+
+
+@pytest.mark.parametrize(
+    "dims,B,span",
+    [
+        ((16, 48, 16), 4096, (0.0, 13.0)),
+        ((16, 48, 16), 4096, (0.0, 1.0)),
+        ((16, 48, 16), 4000, (0.0, 1.0)),
+        ((16, 48, 16), 4003, (0.0, 1.0)),
+        ((5, 15, 5), 37, (0.0, 1.0)),
+        ((32, 64, 32), 256, (0.0, 1.0)),
+    ],
+    ids=["flagship", "microbench", "B4000", "ragged-warp", "padded", "dz32"],
+)
+def test_bf16_kernels_match_twins(dev, dims, B, span):
+    """bf16 K3 and K1 from nonzero accumulators and bf16 K2 from bf16 K1's
+    output against their bf16 twins on the card, each launched once: one
+    attempted step (the field itself, padding included;
+    `_bf16_one_step_holds`), then the whole solve under the bf16 rule; B = 4000 fills its
+    last tile in part and B = 4003 and 37 end in a ragged warp; the f32
+    kernel on the same input takes another step grid or another result."""
+    import functools
+
+    spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
+    test = _kernel_args(dims, B, span, dev)
+    rng = np.random.default_rng(7)
+    T = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    train = {k: v for k, v in test.items() if k != "dlogp0"}
+    train.update(norm_z=True, norm_j=True, eps=T(rng.normal(size=(1, B, dims[-1]))),
+                 acc0=T(rng.normal(0.0, 0.5, (3, B))))
+    pairs = ((tfs.run_bf16_solve_kernel, tfs.solve_test_plain, tfs.run_solve_kernel, test),
+             (tfs.run_bf16_train_solve_kernel, tfs.solve_train_plain, tfs.run_train_solve_kernel, train),
+             (tfs.run_bf16_adjoint_kernel, tfs.adjoint_train_plain, tfs.run_adjoint_kernel, None))
+    out_train = None
+    for kernel, twin, f32, kw in pairs:
+        if kw is None:
+            kw = {k: v for k, v in train.items() if k not in ("z0", "acc0", "t0", "t1", "dt_init")}
+            kw.update(zT=out_train[0], accT=out_train[1], azT=T(rng.normal(0.0, 1.0 / B, (B, dims[-1]))),
+                      aaccT=T(rng.normal(0.0, 1.0 / B, (3, B))), t_hi=test["t1"], t_lo=test["t0"],
+                      dt_init=-out_train[4].abs())
+        twin = functools.partial(twin, bf16=True)
+        with torch.no_grad():
+            one_k, one_p = (fn(TSIT5, spec, **dict(kw, max_steps=1)) for fn in (kernel, twin))
+        _bf16_one_step_holds(one_k, one_p, float(kw["dt_init"]))
+        before = kernel.launches
+        with torch.no_grad():
+            out_k = kernel(TSIT5, spec, **kw)
+            out_p = twin(TSIT5, spec, **kw)
+            out_f = f32(TSIT5, spec, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        _bf16_holds(out_k, out_p, twin, spec, kw)
+        (s_k, v_k), (s_f, v_f) = near_tie.split(out_k), near_tie.split(out_f)
+        assert s_k != s_f or max(near_tie.rel(a, b) for a, b in zip(v_k, v_f)) > REL
+        if out_train is None and kernel is tfs.run_bf16_train_solve_kernel:
+            out_train = out_k
+
+
+def test_bf16_paths_launch_only_the_bf16_kernels(dev):
+    """Under `VecJacMode(fused=True, bf16=True)` (microbench: the flagship
+    at tspan (0, 1)) logpdf and sample launch bf16 K3 once each, the loss
+    gradient bf16 K1 and K2 once each, `fit` (two Lion steps) each at least
+    twice, and nothing else launches: no f32 kernel stands in."""
+    from continuousnf_tpu_torch.utils.configs import MODELS, make_icnf, model_data
+
+    icnf = make_icnf("microbench", dev, bf16=True)
+    rng = np.random.default_rng(8)
+    ps_np = _np_params(MODELS["microbench"]["dims"], 8)
+    ps = tcnf.params_from_numpy(ps_np, dev)
+    xs = torch.from_numpy(model_data("microbench", rng, 512)).to(dev)
+
+    def launched(fn):
+        tfs.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        return {k: w.launches for k, w in tfs.KERNEL_WRAPPERS.items() if w.launches}
+
+    dist = tcnf.ICNFDist(icnf, tcnf.Mode.TEST, ps)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        assert launched(lambda: dist.logpdf(xs)) == {tfs.K3B_KERNEL: 1}
+        assert launched(lambda: dist.sample(512, generator=gen)) == {tfs.K3B_KERNEL: 1}
+    leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+    grads = []
+    assert launched(lambda: grads.extend(torch.autograd.grad(
+        tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, generator=gen), leaves))) == {tfs.K1B_KERNEL: 1, tfs.K2B_KERNEL: 1}
+    assert all(torch.isfinite(g).all() for g in grads)
+    model = tcnf.ICNFModel(icnf, n_epochs=1, batch_size=256)
+    X = torch.from_numpy(model_data("microbench", rng, 512)).to(dev)
+    fitted = launched(lambda: tcnf.fit(model, X, ps=tcnf.params_from_numpy(ps_np, dev)))
+    assert set(fitted) == {tfs.K1B_KERNEL, tfs.K2B_KERNEL} and min(fitted.values()) >= 2
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["three-layer", "two-probes", "jvp", "state-42", "hidden-96", "conditional", "exact", "test-gradient"],
+)
+def test_bf16_refusals_name_the_row_on_the_card(dev, case):
+    """The bf16 configurations the kernels do not cover raise on the card,
+    naming ROADMAP's bf16 row, before any f32 kernel runs."""
+    dims = {"three-layer": (6, 64, 64, 6), "state-42": (42, 126, 42), "hidden-96": (16, 96, 16),
+            "conditional": (17, 48, 16)}.get(case, (16, 48, 16))
+    nvars = {"three-layer": 6, "state-42": 21}.get(case, 8)
+    mode = dict(num_probes=2 if case == "two-probes" else 1, fused=True, bf16=True, exact_trace=case == "exact")
+    cm = (tcnf.JacVecMode if case == "jvp" else tcnf.VecJacMode)(**mode)
+    icnf = tcnf.construct(tcnf.CondRNODE if case == "conditional" else tcnf.RNODE, tcnf.MLP(dims, device=dev), nvars,
+                          dims[-1] - nvars, tspan=(0.0, 1.0), compute_mode=cm)
+    ps = tcnf.params_from_numpy(_np_params(dims, 9), dev)
+    leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+    xs = torch.from_numpy(np.random.default_rng(10).uniform(size=(64, nvars)).astype(np.float32)).to(dev)
+    kw = {"ys": torch.zeros(64, 1, device=dev)} if case == "conditional" else {}
+    mode = tcnf.Mode.TEST if case in ("conditional", "test-gradient") else tcnf.Mode.TRAIN
+    tfs.reset_launches()
+    with pytest.raises(NotImplementedError, match="bf16 stage dots"):
+        torch.autograd.grad(tcnf.loss(icnf, mode, xs, ps, **kw), leaves)
+    assert not {k for k, w in tfs.KERNEL_WRAPPERS.items() if w.launches} - {tfs.K3B_KERNEL}

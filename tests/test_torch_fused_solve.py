@@ -84,15 +84,21 @@ def test_eligibility_matches_reference(name):
 
 def test_train_and_bf16_raise():
     """TRAIN builds the fused solve with its backward member, JVP probes
-    (K6) included; what the port has not reached raises: bf16 stages."""
+    (K6) included; under bf16 stage matmuls the CPU builds the TEST and
+    TRAIN solves of the 2-layer net (the bf16 twins), and what has no bf16
+    twin yet raises, naming ROADMAP's bf16 row: exact trace."""
     assert jfull(ELIGIBILITY["fused"](cnf), cnf.Mode.TRAIN, 16) is not None
     assert tfs.make_full_solve(ELIGIBILITY["fused"](tcnf), tcnf.Mode.TRAIN, 16).adjoint is not None
     assert jfull(ELIGIBILITY["jvp"](cnf), cnf.Mode.TRAIN, 16) is not None
     assert tfs.make_full_solve(ELIGIBILITY["jvp"](tcnf), tcnf.Mode.TRAIN, 16).adjoint is not None
-    bf16 = lambda m: m.construct(m.RNODE, m.MLP((5, 15, 5)), 3, 2, compute_mode=m.VecJacMode(fused=True, bf16=True))
+    bf16 = lambda m, **kw: m.construct(m.RNODE, m.MLP((5, 15, 5)), 3, 2,  # noqa: E731
+                                       compute_mode=m.VecJacMode(fused=True, bf16=True, **kw))
     assert jfull(bf16(cnf), cnf.Mode.TEST, 16) is not None
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tfs.make_full_solve(bf16(tcnf), tcnf.Mode.TEST, 16)
+    assert tfs.make_full_solve(bf16(tcnf), tcnf.Mode.TEST, 16) is not None
+    assert tfs.make_full_solve(bf16(tcnf), tcnf.Mode.TRAIN, 16).adjoint is not None
+    assert jfull(bf16(cnf, exact_trace=True), cnf.Mode.TRAIN, 16) is not None
+    with pytest.raises(NotImplementedError, match="bf16 stage dots"):
+        tfs.make_full_solve(bf16(tcnf, exact_trace=True), tcnf.Mode.TRAIN, 16)
 
 
 @pytest.mark.parametrize(

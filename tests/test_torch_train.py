@@ -279,14 +279,16 @@ def test_train_inputs_are_validated(kw, err, match):
         ("dopri5", "adjoint"),
         ("jvp", "adjoint"),
         ("exact", "K4"),
-        ("bf16", "bf16"),
+        ("bf16", "adjoint"),
+        ("bf16-exact", "bf16 stage dots"),
     ],
 )
 def test_train_eligibility(name, expect):
     """The fused TRAIN solve applies where the JAX package's does; what the
-    port has not reached raises, naming its kernel.  K probes and JVP probes
-    (K6) and exact trace (K4) have the backward member, as in the JAX
-    package."""
+    port has not reached raises, naming its kernel or ROADMAP's row.  K
+    probes and JVP probes (K6), exact trace (K4) and bf16 stage matmuls
+    (the bf16 twins on the CPU) have the backward member, as in the JAX
+    package; bf16 exact trace has no bf16 twin yet."""
     base = dict(nvars=3, naugmented=2)
     make = {
         "fused-off": lambda m: m.construct(m.RNODE, m.MLP(DIMS), **base),
@@ -299,6 +301,9 @@ def test_train_eligibility(name, expect):
         "jvp": lambda m: m.construct(m.RNODE, m.MLP(DIMS), **base, compute_mode=m.JacVecMode(fused=True)),
         "exact": lambda m: m.construct(m.RNODE, m.MLP(DIMS), **base, compute_mode=m.VecJacMode(fused=True, exact_trace=True)),
         "bf16": lambda m: m.construct(m.RNODE, m.MLP(DIMS), **base, compute_mode=m.VecJacMode(fused=True, bf16=True)),
+        "bf16-exact": lambda m: m.construct(
+            m.RNODE, m.MLP(DIMS), **base, compute_mode=m.VecJacMode(fused=True, exact_trace=True, bf16=True)
+        ),
     }[name]
     ref = jfs.make_full_solve(make(cnf), cnf.Mode.TRAIN, B)
     if expect is None:
