@@ -88,7 +88,16 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     the tabular data recipe), served through streamed K7 TEST (`logpdf`,
     `sample(1024)`), trained through the streamed K1 and K2 chain forms
     (`fit`, four Lion steps) and, under exact trace, one train step through
-    streamed K7 exact with the plain backward.
+    streamed K7 exact with the plain backward;
+  * 2-layer nets past the wide 2-layer kernels' limits: the README net
+    family at the MINIBOONE width (miniboone86: RNODE, nvars = naug = 43,
+    MLP 86 -> 258 -> 86 tanh, the flagship recipe, batch 4096), served
+    through streamed K3 (`logpdf`, `sample(4096)`), its TEST loss gradient
+    and score through streamed K3 and K5, trained through the streamed K1
+    and K2 chain forms at state width 86 (`fit`, four Lion steps); its
+    exact gradient raises (ROADMAP queue 2, shape variants (e)); the same
+    kernels at BSDS300's width (bsds126: MLP 126 -> 378 -> 126, batch 2048)
+    and on MLP 40 -> 160 -> 40.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -390,7 +399,40 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      input (ms, attempted steps, µs a step) and its twin, at the flagship
      and microbench; kernel_microbench's quantities from the port
      (`train_fwd_nfe_us`, `test_nfe_us`, `grad_step_us`, f32 and bf16) and
-     the flagship's bf16 train step, `logpdf` and `sample`.
+     the flagship's bf16 train step, `logpdf` and `sample`;
+ 79. miniboone86 at B = 4096: the launch shapes of streamed K3 and K5 and
+     the streamed K1 and K2 chain forms (threads, blocks, tile, shared
+     memory, the global tile scratch; registers in phase 2);
+ 80. the four kernels against their twins, held as in phases 16, 17 and 47
+     and timed: streamed K3 and the streamed K1 chain form from nonzero
+     accumulators, streamed K5 from streamed K3's output and the streamed K2
+     chain form from the K1 chain form's, each warm-started from its
+     forward's last step;
+ 81. logpdf through streamed K3 against the plain path, held as in phase 5;
+     where the steps part (the plain path's cuBLAS sums sit on the other
+     side of a near-tie), logp still within the bound and that call's
+     kernel held to its twin on the card on the same arguments (equal
+     steps and values within 1e-4, or the near-tie rule);
+ 82. the Hutchinson loss gradient (the streamed K1 and K2 chain forms once
+     each and nothing else), the TEST loss gradient and the score (streamed
+     K3 and K5 once each and nothing else), counters reset just before each
+     fused call, held against fused=False and a float64 rtol 1e-7 solve as
+     in phases 8 and 47;
+ 83. the main paths, counters reset just before each: logpdf and
+     sample(4096) launch streamed K3 twice and nothing else; `fit` for four
+     Lion steps the streamed K1 and K2 chain forms at least four times each
+     and nothing else; the exact loss gradient raises NotImplementedError
+     naming ROADMAP queue 2, shape variants (e);
+ 84. CUDA-event times of the train step (fused and plain), `logpdf`,
+     `sample` and the TEST loss gradient;
+ 85. bsds126 at B = 2048: the four kernels against their twins (one timed
+     call each), logpdf against the plain path (as in phase 81), and its logpdf, Hutchinson
+     and TEST loss gradients launching streamed K3, the streamed K1 and K2
+     chain forms, and streamed K3 and K5 once each;
+ 86. MLP 40 -> 160 -> 40 at B = 4096 (RNODE, nvars = naug = 20, tspan
+     (0, 13)): streamed K3 and K5 against their twins, streamed K3 timed
+     beside streamed K7 TEST (its TEST forward before) on the same input,
+     and its TEST loss gradient launching streamed K3 and K5 once each.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -574,10 +616,12 @@ def hold_adjoint(label, adj_k, adj_p, adj_64, near=None, gate=0) -> float:
                                                           [adj_p[0], adj_p[2]] + grads_p))
 
 
-def hold_logpdf(cnf, label, icnf_k, icnf_p, xs, ps, ys=None) -> None:
+def hold_logpdf(cnf, label, icnf_k, icnf_p, xs, ps, ys=None, kernel=None) -> None:
     """TEST inference through the kernel against the plain path at B = 16
     and B = len(xs) (given ys, with its first rows): equal steps, logp
-    within TOL * max(1, max|logp|)."""
+    within TOL * max(1, max|logp|).  Given `kernel` = (fs, the name of the
+    forward wrapper the fused path calls, its twin), a call whose steps part
+    from the plain path's is held by `logpdf_near_tie` instead."""
     import torch
 
     for n in (16, len(xs)):
@@ -586,9 +630,35 @@ def hold_logpdf(cnf, label, icnf_k, icnf_p, xs, ps, ys=None) -> None:
             lp_k, _, st_k = cnf.inference(icnf_k, cnf.Mode.TEST, xs[:n], ps, **kw)
             lp_p, _, st_p = cnf.inference(icnf_p, cnf.Mode.TEST, xs[:n], ps, **kw)
         dlp = float((lp_k - lp_p).abs().max())
-        check(int(st_k.steps) == int(st_p.steps), f"{label} B={n}: steps {int(st_k.steps)} != {int(st_p.steps)}")
         check(dlp <= TOL * max(1.0, float(lp_p.abs().max())), f"{label} B={n}: logp differs by {dlp}")
+        if kernel is not None and int(st_k.steps) != int(st_p.steps):
+            logpdf_near_tie(cnf, f"{label} B={n}", icnf_k, xs[:n], ps, int(st_k.steps), int(st_p.steps), *kernel)
+        else:
+            check(int(st_k.steps) == int(st_p.steps), f"{label} B={n}: steps {int(st_k.steps)} != {int(st_p.steps)}")
         print(f"{label} logpdf B={n}: steps {int(st_k.steps)}, nfe {int(st_k.nfe)}, max|dlogp| {dlp:.3e}")
+
+
+def logpdf_near_tie(cnf, label, icnf_k, xs, ps, s_k, s_p, fs, name, twin) -> None:
+    """A `logpdf` whose attempted steps part from the plain path's (its logp
+    held within TOL all the same): the kernel's own call on that path, its
+    arguments recorded (`first_calls`), is held to the kernel's twin on the
+    card on the same arguments (`hold_forward`: equal steps and values
+    within TOL, or the last-step and near-tie rules).  The plain path runs
+    other float32 sums (cuBLAS products) and may sit on the other side of a
+    near-tie of the step controller."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+
+    with first_calls(fs, (name,)) as seen, torch.no_grad():
+        cnf.inference(icnf_k, cnf.Mode.TEST, xs, ps)
+    kw = seen[name]
+    spec = fs.chain_spec(icnf_k.nn, icnf_k.zdim)
+    with torch.no_grad():
+        out_k = getattr(fs, name)(TSIT5, spec, **kw)
+        out_p = twin(TSIT5, spec, **kw)
+    print(f"{label} logpdf: steps {s_k} vs the plain path's {s_p}; the kernel's call against its twin on its "
+          "arguments:")
+    hold_forward(f"{label} ({name}'s call)", out_k, out_p, near=(twin, spec, kw))
 
 
 def loss_grad(cnf, icnf, ps_np, xs, dev, dtype=None, ys=None, **kw):
@@ -3019,6 +3089,272 @@ def wide_two_layer(cnf, fs, dev):
     return records
 
 
+# ---- 2-layer nets past the wide limits: the README net family at the MINIBOONE width ----
+
+
+def stream_two_layer_names(fs):
+    """The miniboone86 path's kernels: record key -> (KERNEL_WRAPPERS name,
+    wrapper, twin, source, the TPU site)."""
+    at = "continuousnf_tpu/ops/fused_solve.py:"
+    return {
+        "k3s": (fs.K3S_KERNEL, fs.run_stream_test2_solve_kernel, fs.solve_test_plain, "k3_stream_solve.cu",
+                at + "1043"),
+        "k5s": (fs.K5S_KERNEL, fs.run_stream_test_adjoint_kernel, fs.adjoint_test_plain, "k5_stream_adjoint.cu",
+                at + "1767"),
+        "k1c": (fs.K1S_KERNEL, fs.run_stream_train_solve_kernel, fs.solve_train_plain, "k1_stream_solve.cu",
+                at + "1043"),
+        "k2c": (fs.K2S_KERNEL, fs.run_stream_adjoint_kernel, fs.adjoint_train_plain, "k2_stream_adjoint.cu",
+                at + "1767"),
+    }
+
+
+def stream_two_layer_runs(label, fs, spec, test, train, cot, rng, dev, keys=("k3s", "k5s", "k1c", "k2c"), reps=3):
+    """The path's kernels against their twins on one model's inputs (held as
+    phases 16, 17 and 47 hold theirs), each timed: streamed K3 and the
+    streamed K1 chain form from nonzero accumulators, streamed K5 from
+    streamed K3's output and the streamed K2 chain form from the K1 chain
+    form's, each warm-started from its forward's last step."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+
+    names = stream_two_layer_names(fs)
+    B, dz = test["z0"].shape
+    T = lambda a: torch.from_numpy(np.asarray(a, "float32")).to(dev)  # noqa: E731
+    runs = {}
+    for key, kw in (("k3s", test), ("k1c", train)):
+        if key in keys:
+            runs[key] = run_pair(f"{names[key][0]} ({label})", names[key][1], names[key][2], TSIT5, spec, kw,
+                                 reps=reps)
+    if "k2c" in keys:
+        runs["k2c"] = run_pair(f"{names['k2c'][0]} ({label})", names["k2c"][1], names["k2c"][2], TSIT5, spec,
+                               adjoint_kw(train, runs["k1c"][0], cot), adjoint=True, reps=reps)
+    if "k5s" in keys:
+        k5_kw = dict(adjoint_kw(test, runs["k3s"][0], dict(azT=T(rng.normal(0.0, 1.0 / B, (B, dz))),
+                                                           aaccT=T(np.full((1, B), 1.0 / B)), t_hi=test["t1"],
+                                                           t_lo=test["t0"])), accT=runs["k3s"][0][1][None])
+        k5_kw.pop("dlogp0")
+        runs["k5s"] = run_pair(f"{names['k5s'][0]} ({label})", names["k5s"][1], names["k5s"][2], TSIT5, spec, k5_kw,
+                               adjoint=True, reps=reps)
+    return runs
+
+
+def stream_two_layer_records(fs, suffix, dims, runs, launches, B):
+    """The records of the path's kernels (`stream_two_layer_names`) at
+    batch B, each name ending with `suffix`."""
+    dz, H = dims[0], dims[1]
+    fma = dict(two_layer_fma(dz, H), **chain_fma(dims))
+    fma = {"k3s": fma["k3"], "k5s": fma["k5"], "k1c": fma["k1c"], "k2c": fma["k2c"]}
+    P = 2 * dz * H + H + dz
+    floats = {"k3s": P + 2 * B * (dz + 1), "k5s": 2 * P + B * (4 * dz + 3), "k1c": P + B * (3 * dz + 6),
+              "k2c": 2 * P + B * (5 * dz + 9)}
+    names = stream_two_layer_names(fs)
+    records = []
+    for key, (out, err, ms, pms) in runs.items():
+        name, _, _, src, at = names[key]
+        records.append(kernel_record(f"{name}/{suffix}", src, at, launches[key], err, ms, pms, fma[key], B,
+                                     steps_of(out)[0], floats[key], accepted=steps_of(out)[1]))
+    return records
+
+
+def stream_two_layer(cnf, fs, dev):
+    """Phases 79 to 86: the README net family MLP((n_in, 3 n_in, n_in)) past
+    the wide 2-layer kernels' limits: miniboone86 (RNODE, nvars = naug =
+    43, MLP 86 -> 258 -> 86 tanh, the flagship recipe, B = 4096) through
+    streamed K3 and K5 (TEST) and the streamed K1 and K2 chain forms
+    (Hutchinson TRAIN); bsds126 (MLP 126 -> 378 -> 126, B = 2048); and a
+    2-layer net of dz 40 past hidden 128, MLP((40, 160, 40)), where streamed
+    K3 replaces streamed K7 TEST.  Returns their records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import (MODELS, cuda_ms, glorot_params, make_icnf, model_data,
+                                                      tabular_data)
+
+    cfg = MODELS["miniboone86"]
+    dims, B = cfg["dims"], BATCH
+    dz, nv = dims[0], cfg["nvars"]
+    rng = np.random.default_rng(SEED + 500)
+    ps_np = glorot_params(rng, dims)
+    xs = torch.from_numpy(model_data("miniboone86", rng, B)).to(dev)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    model = lambda **kw: make_icnf("miniboone86", dev, **kw)  # noqa: E731
+    icnf_k, icnf_p = model(), model(fused=False)
+    spec = fs.chain_spec(icnf_k.nn, icnf_k.zdim)
+    check(fs._stream_two_layer(spec) and fs._stream_two_layer_covers(TSIT5, spec) is None
+          and fs._kernel_covers(TSIT5, spec, chain=True) is None,
+          "the miniboone86 net should run streamed K3 and K5 and the streamed chain forms")
+    names = stream_two_layer_names(fs)
+
+    # Phase 79: the launch shapes at B = 4096.
+    arr = (ctypes.c_int * 3)(*dims)
+    for lib_name, fn in ((fs.K3S_KERNEL, "cnf_k3s_shape"), (fs.K5S_KERNEL, "cnf_k5s_shape"),
+                         (fs.K1S_KERNEL, "cnf_k1s_shape"), (fs.K2S_KERNEL, "cnf_k2s_shape")):
+        out = (ctypes.c_int * 5)()
+        err = getattr(fs._library(lib_name), fn)(2, arr, B, out)
+        check(err == 0 and out[1] >= 1, f"{fn}: cudaError {err}")
+        print(f"phase 79: {fn} at widths {dims}, B={B}: {out[0]} threads a block, {out[1]} blocks, tile {out[2]}, "
+              f"{out[3]} bytes of dynamic shared memory, {out[4]} floats of global tile scratch a block")
+
+    # Phase 80: the four kernels against their twins, timed.
+    test, train, _, cot = kernel_inputs(icnf_k, ps, xs, rng, dev)
+    runs = stream_two_layer_runs("miniboone86", fs, spec, test, train, cot, rng, dev)
+    print("phase 80: miniboone86 kernels held to their twins")
+
+    # Phase 81: logpdf through streamed K3 against the plain path (at B = 16
+    # the kernel took 24 attempted steps on an H100 where its twin and the
+    # plain path took 23: that call's kernel is held to its twin, here under
+    # the last-step rule).
+    hold_logpdf(cnf, "miniboone86", icnf_k, icnf_p, xs, ps,
+                kernel=(fs, "run_stream_test2_solve_kernel", fs.solve_test_plain))
+
+    # Phase 82: the Hutchinson and TEST loss gradients and the score, counters
+    # reset just before each fused call, against fused=False and a float64
+    # rtol 1e-7 solve.
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 501)
+    eps = icnf_k.draw_eps(gen, B, dev)
+    steer = {"steer_r": 0.05}
+    fs.reset_launches()
+    l_k, g_k, m_k = loss_grad(cnf, icnf_k, ps_np, xs, dev, eps=eps, **steer)
+    torch.cuda.synchronize()
+    n_grad = launched(fs)
+    check(n_grad == {fs.K1S_KERNEL: 1, fs.K2S_KERNEL: 1}, f"miniboone86 Hutchinson gradient launched {n_grad}")
+    l_p, g_p, _ = loss_grad(cnf, icnf_p, ps_np, xs, dev, eps=eps, **steer)
+    icnf_t = model(fused=False, dtype=torch.float64, solver=truth)
+    l_t, g_t, _ = loss_grad(cnf, icnf_t, ps_np, xs, dev, torch.float64, eps=eps.double(), **steer)
+    torch.cuda.synchronize()
+    hold_gradients("miniboone86 Hutchinson", l_k, g_k, l_p, g_p, l_t, g_t)
+    print(f"phase 82: miniboone86 Hutchinson B={B}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 "
+          f"{float(l_t):.6f}, forward NFE {int(m_k['nfe'])}, launches {n_grad}")
+    n_test = test_gradient_path("miniboone86 TEST gradient", cnf, fs, (icnf_k, icnf_p, icnf_t), ps_np, xs, dev,
+                                {fs.K3S_KERNEL: 1, fs.K5S_KERNEL: 1})
+
+    def score(icnf, dtype):
+        p = tuple({k: v.to(dtype) for k, v in layer.items()} for layer in cnf.params_from_numpy(ps_np, dev))
+        dist = cnf.ICNFDist(icnf, cnf.Mode.TEST, p)
+        x = xs.to(dtype).requires_grad_()
+        fs.reset_launches()
+        (g_x,) = torch.autograd.grad(dist.logpdf(x).sum(), [x])
+        torch.cuda.synchronize()
+        return [g_x], launched(fs)
+
+    g_sk, n_score = score(icnf_k, torch.float32)
+    check(n_score == {fs.K3S_KERNEL: 1, fs.K5S_KERNEL: 1}, f"miniboone86 score launched {n_score}")
+    hold_test_gradients("miniboone86 score", ["score (x)"], g_sk, score(icnf_p, torch.float32)[0],
+                        score(icnf_t, torch.float64)[0])
+    print(f"phase 82: miniboone86 score launched {n_score}")
+
+    # Phase 83: the main paths, counters reset just before each: logpdf and
+    # sample(4096) through streamed K3 alone; `fit` for four Lion steps
+    # through the streamed K1 and K2 chain forms; the exact gradient raises
+    # naming ROADMAP queue 2 row (e).
+    dist = cnf.ICNFDist(icnf_k, cnf.Mode.TEST, ps)
+    fs.reset_launches()
+    with torch.no_grad():
+        lp = dist.logpdf(xs)
+        samples = dist.sample(B, generator=torch.Generator(device=dev).manual_seed(SEED + 502))
+    torch.cuda.synchronize()
+    n_serve = launched(fs)
+    check(n_serve == {fs.K3S_KERNEL: 2}, f"miniboone86 serving launched {n_serve}")
+    check(bool(torch.isfinite(lp).all() and torch.isfinite(samples).all()) and tuple(samples.shape) == (B, nv),
+          "miniboone86 serving output not finite or of the wrong shape")
+    fit_path(cnf, fs, icnf_k, ps_np, dev, model_data("miniboone86", rng, N_STEPS * B), batch_size=B)
+    n_fit = launched(fs)
+    check(set(n_fit) == {fs.K1S_KERNEL, fs.K2S_KERNEL} and min(n_fit.values()) >= N_STEPS,
+          f"miniboone86 fit launched {n_fit}")
+    try:
+        loss_grad(cnf, model(exact=True), ps_np, xs, dev, **steer)
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    check("ROADMAP queue 2, shape variants (e)" in raised, f"the miniboone86 exact gradient: {raised!r}")
+    print(f"phase 83: miniboone86 main paths: logpdf and sample launched {n_serve}, fit {n_fit}; the exact "
+          f"gradient raises: {raised}")
+    launches = {"k3s": n_serve[fs.K3S_KERNEL], "k5s": n_test[fs.K5S_KERNEL], "k1c": n_fit[fs.K1S_KERNEL],
+                "k2c": n_fit[fs.K2S_KERNEL]}
+
+    # Phase 84: the paths' times.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 503)
+    ms_step = step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 3)
+    ms_step_p = step_ms(cnf, icnf_p, ps_np, xs, gen, dev, 1, warmup=False)
+    with torch.no_grad():
+        _, _, st = cnf.inference(icnf_k, cnf.Mode.TEST, xs, ps)
+        ms_lp = cuda_ms(lambda: dist.logpdf(xs), 3)
+        ms_lp_p = cuda_ms(lambda: cnf.inference(icnf_p, cnf.Mode.TEST, xs, ps), 1, warmup=False)
+        ms_s = cuda_ms(lambda: dist.sample(B, generator=gen), 3)
+    ms_tg = cuda_ms(lambda: test_loss_grad(cnf, icnf_k, ps_np, xs, dev), 3)
+    print(f"phase 84: miniboone86 train step B={B} (loss, gradient, Lion): fused {ms_step:.4f} ms "
+          f"({B / ms_step * 1e3:.1f} samples/s), plain {ms_step_p:.4f} ms ({B / ms_step_p * 1e3:.1f} samples/s)")
+    print(f"phase 84: miniboone86 logpdf B={B}: kernel {ms_lp:.4f} ms ({B / ms_lp * 1e3:.1f} evals/s), plain "
+          f"{ms_lp_p:.4f} ms; steps {int(st.steps)}, NFE {int(st.nfe)}; sample({B}) {ms_s:.4f} ms; TEST loss "
+          f"gradient {ms_tg:.4f} ms")
+    records = stream_two_layer_records(fs, "miniboone86", dims, runs, launches, B)
+
+    # Phase 85: bsds126 at B = 2048: the four kernels against their twins,
+    # logpdf against the plain path, and the launches of its Hutchinson and
+    # TEST loss gradients.
+    cfg = MODELS["bsds126"]
+    dims_b, B_b = cfg["dims"], cfg["batch"]
+    ps_np_b = glorot_params(rng, dims_b)
+    xs_b = torch.from_numpy(model_data("bsds126", rng, B_b)).to(dev)
+    ps_b = cnf.params_from_numpy(ps_np_b, dev)
+    icnf_b = make_icnf("bsds126", dev)
+    spec_b = fs.chain_spec(icnf_b.nn, icnf_b.zdim)
+    test_b, train_b, _, cot_b = kernel_inputs(icnf_b, ps_b, xs_b, rng, dev)
+    runs_b = stream_two_layer_runs("bsds126", fs, spec_b, test_b, train_b, cot_b, rng, dev, reps=1)
+    hold_logpdf(cnf, "bsds126", icnf_b, make_icnf("bsds126", dev, fused=False), xs_b, ps_b,
+                kernel=(fs, "run_stream_test2_solve_kernel", fs.solve_test_plain))
+    fs.reset_launches()
+    with torch.no_grad():
+        lp_b = cnf.ICNFDist(icnf_b, cnf.Mode.TEST, ps_b).logpdf(xs_b)
+    n_lp_b = launched(fs)
+    fs.reset_launches()
+    _, g_b, _ = loss_grad(cnf, icnf_b, ps_np_b, xs_b, dev, eps=icnf_b.draw_eps(gen, B_b, dev), **steer)
+    torch.cuda.synchronize()
+    n_grad_b = launched(fs)
+    fs.reset_launches()
+    _, g_tb = test_loss_grad(cnf, icnf_b, ps_np_b, xs_b, dev)
+    torch.cuda.synchronize()
+    n_test_b = launched(fs)
+    check(n_lp_b == {fs.K3S_KERNEL: 1} and n_grad_b == {fs.K1S_KERNEL: 1, fs.K2S_KERNEL: 1}
+          and n_test_b == {fs.K3S_KERNEL: 1, fs.K5S_KERNEL: 1}, f"bsds126 launched {n_lp_b}, {n_grad_b}, {n_test_b}")
+    check(bool(torch.isfinite(lp_b).all()) and all(bool(torch.isfinite(x).all()) for x in list(g_b) + list(g_tb)),
+          "bsds126 logpdf or gradients not finite")
+    print(f"phase 85: bsds126 B={B_b}: logpdf launched {n_lp_b}, the Hutchinson gradient {n_grad_b}, the TEST "
+          f"gradient {n_test_b}")
+    records += stream_two_layer_records(fs, "bsds126", dims_b, runs_b,
+                                        {"k3s": n_lp_b[fs.K3S_KERNEL], "k5s": n_test_b[fs.K5S_KERNEL],
+                                         "k1c": n_grad_b[fs.K1S_KERNEL], "k2c": n_grad_b[fs.K2S_KERNEL]}, B_b)
+
+    # Phase 86: a 2-layer net of dz 40 past hidden 128 at B = 4096: streamed
+    # K3 and K5 against their twins, streamed K3 timed beside streamed K7
+    # TEST (which ran it before) on the same input, and its TEST loss
+    # gradient launching streamed K3 and K5 once each.
+    dims_d = (40, 160, 40)
+    ps_np_d = glorot_params(rng, dims_d)
+    icnf_d = cnf.construct(cnf.RNODE, cnf.MLP(dims_d, device=dev), 20, 20, tspan=(0.0, 13.0), steer_rate=0.1,
+                           lam3=1e-2, compute_mode=cnf.VecJacMode(fused=True))
+    xs_d = torch.from_numpy(tabular_data(rng, B, 20)).to(dev)
+    ps_d = cnf.params_from_numpy(ps_np_d, dev)
+    spec_d = fs.chain_spec(icnf_d.nn, 40)
+    test_d, _, _, cot_d = kernel_inputs(icnf_d, ps_d, xs_d, rng, dev)
+    runs_d = stream_two_layer_runs("dz40", fs, spec_d, test_d, None, cot_d, rng, dev, keys=("k3s", "k5s"))
+    out7, _, ms7, _ = run_pair(f"{fs.K7S_KERNEL}/test (dz40)", fs.run_stream_test_solve_kernel, fs.solve_test_plain,
+                               TSIT5, spec_d, test_d)
+    ms3, n3, n7 = runs_d["k3s"][2], int(runs_d["k3s"][0][2]), int(out7[2])
+    print(f"phase 86: dz40 streamed K3 {ms3:.4f} ms ({n3} steps) vs streamed K7 TEST {ms7:.4f} ms ({n7} steps): "
+          f"{ms7 / ms3:.2f}x, per attempted step {(ms7 / max(n7, 1)) / (ms3 / max(n3, 1)):.2f}x (FMA ratio dz / 3 = "
+          f"{40 / 3:.2f})")
+    fs.reset_launches()
+    _, g_d = test_loss_grad(cnf, icnf_d, ps_np_d, xs_d, dev)
+    torch.cuda.synchronize()
+    n_d = launched(fs)
+    check(n_d == {fs.K3S_KERNEL: 1, fs.K5S_KERNEL: 1} and all(bool(torch.isfinite(x).all()) for x in g_d),
+          f"dz40 TEST gradient launched {n_d}")
+    records += stream_two_layer_records(fs, "dz40", dims_d, runs_d,
+                                        {"k3s": n_d[fs.K3S_KERNEL], "k5s": n_d[fs.K5S_KERNEL]}, B)
+    return records
+
+
 BF16_WITNESS = {"flagship": 2, "microbench": 4}  # phase 74: the twin's own runs, every input moved one ulp
 BF16_ROW = "bf16 stage dots"  # ROADMAP queue 2's row that every bf16 refusal names
 
@@ -3322,7 +3658,7 @@ def main() -> int:
                                     fs.K5_KERNEL, fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL, fs.K1W_KERNEL,
                                     fs.K2W_KERNEL, fs.K7W_KERNEL, fs.K10_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL,
                                     fs.K4WA_KERNEL, fs.K1S_KERNEL, fs.K2S_KERNEL, fs.K7S_KERNEL, fs.K3B_KERNEL,
-                                    fs.K1B_KERNEL, fs.K2B_KERNEL])
+                                    fs.K1B_KERNEL, fs.K2B_KERNEL, fs.K3S_KERNEL, fs.K5S_KERNEL])
     print(f"built {len(built)} kernels in {time.perf_counter() - t_build:.2f} s (one nvcc each, in parallel)")
     for name, (lib_path, log) in built.items():
         print(f"  {lib_path.name}")
@@ -3373,7 +3709,8 @@ def main() -> int:
                          ("56-60", lambda: wide_probe_paths(cnf, fs, dev)),
                          ("61-66", lambda: wide_two_layer(cnf, fs, dev)),
                          ("67-72", lambda: miniboone860(cnf, fs, dev)),
-                         ("73-78", lambda: bf16_paths(cnf, fs, dev))):
+                         ("73-78", lambda: bf16_paths(cnf, fs, dev)),
+                         ("79-86", lambda: stream_two_layer(cnf, fs, dev))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -1,10 +1,13 @@
 // The streamed chain layer of the streamed solve kernels (the streamed K1
-// and K2 chain forms, streamed K7 TEST and exact): an unconditional Dense
+// and K2 chain forms, streamed K7 TEST and exact, streamed K3 and K5 through
+// two_layer_stream.cuh): an unconditional Dense
 // chain of n = 2 .. kMaxLayers tanh or identity layers (StreamLayout::act's
 // mask, K9), widths dz -> H1 -> ... -> H(n-1) -> dz with dz <= kStreamMaxDz
 // and hidden widths of any size, evaluated by a whole block for a tile of
 // rows (samples, or basis rows) at once, as the wide layer of
-// chain_wide.cuh does, with the weights left in global memory.
+// chain_wide.cuh does, with the weights left in global memory.  The state
+// width reaches 128 where the wide forms stop at 64: every UCI width of the
+// README net family MLP((n_in, 3 n_in, n_in)), BSDS300's 126 included.
 //
 // Why: the wide forms keep all the weights in a block's shared memory, which
 // ends at hidden width 128 or about 56 k floats of weights.  FFJORD's tabular
@@ -44,7 +47,7 @@
 
 namespace cnf {
 
-constexpr int kStreamMaxDz = 64;      // state width the streamed forms take
+constexpr int kStreamMaxDz = 128;     // state width the streamed forms take
 constexpr int kStreamBlock = 256;     // threads per block
 constexpr int kChunkFloats = 4352;    // the weight chunk buffer (17 KB): a chunk and its pad column
 constexpr int kWeightChunk = 4096;    // weights a chunk (a power of two, a multiple of kStreamBlock)
@@ -143,8 +146,11 @@ __device__ __forceinline__ const float* level(const StreamLayout& L, const float
 // the current one in shared memory, so the L2's latency overlaps the FMA,
 // and stores them after the next barrier.  A thread's loads of a forward
 // chunk are the column it computes on (rows apart by kStreamBlock / OC); of
-// a transposed chunk, consecutive entries of W's rows.
-template <bool TRANS, int R, class Store>
+// a transposed chunk, consecutive entries of W's rows.  W is read through
+// the read-only path (__ldg) unless COHERENT: a W that the kernel wrote
+// itself before a grid barrier (streamed K3's and K5's M) is read through
+// the L2 (__ldcg).
+template <bool TRANS, int R, class Store, bool COHERENT = false>
 __device__ __forceinline__ void stream_mm_rows(const float* X, int xp, int nred, const float* W, int ldw,
                                                const float* bias, int nout, int M, float* wc, const Store& store) {
   constexpr int kLoads = kWeightChunk / kStreamBlock;
@@ -178,7 +184,10 @@ __device__ __forceinline__ void stream_mm_rows(const float* X, int xp, int nred,
     for (int q = 0; q < kLoads; ++q) {
       int jj, ii;
       const bool inside = entry(c, q, &jj, &ii);
-      v[q] = inside ? __ldg(W + (TRANS ? (size_t)(j0 + jj) * ldw + i0 + ii : (size_t)(i0 + ii) * ldw + j0 + jj)) : 0.f;
+      if constexpr (COHERENT)
+        v[q] = inside ? __ldcg(W + (TRANS ? (size_t)(j0 + jj) * ldw + i0 + ii : (size_t)(i0 + ii) * ldw + j0 + jj)) : 0.f;
+      else
+        v[q] = inside ? __ldg(W + (TRANS ? (size_t)(j0 + jj) * ldw + i0 + ii : (size_t)(i0 + ii) * ldw + j0 + jj)) : 0.f;
     }
   };
   auto put = [&](int c) {
@@ -239,24 +248,24 @@ __device__ __forceinline__ bool stream_eight_rows(int M) { return M % 8 == 0 && 
 
 // For t < M and o < out: store(t, o, bias[o] + sum_k X[t * xp + k] W[k][o]),
 // W (in, out) row-major in global memory (a layer's forward product).
-template <class Store>
+template <bool COHERENT = false, class Store>
 __device__ __forceinline__ void stream_mm(const float* X, int xp, int in, const float* W, const float* bias, int out,
                                           int M, float* wc, const Store& store) {
   if (stream_eight_rows(M))
-    stream_mm_rows<false, 8>(X, xp, in, W, out, bias, out, M, wc, store);
+    stream_mm_rows<false, 8, Store, COHERENT>(X, xp, in, W, out, bias, out, M, wc, store);
   else
-    stream_mm_rows<false, 4>(X, xp, in, W, out, bias, out, M, wc, store);
+    stream_mm_rows<false, 4, Store, COHERENT>(X, xp, in, W, out, bias, out, M, wc, store);
 }
 
 // The transposed product: for t < M and k < in, store(t, k, sum_o
 // X[t * xp + o] W[k][o]) (X holds out columns), the sum in o order.
-template <class Store>
+template <bool COHERENT = false, class Store>
 __device__ __forceinline__ void stream_mm_t(const float* X, int xp, int out, const float* W, int in, int M, float* wc,
                                             const Store& store) {
   if (stream_eight_rows(M))
-    stream_mm_rows<true, 8>(X, xp, out, W, out, nullptr, in, M, wc, store);
+    stream_mm_rows<true, 8, Store, COHERENT>(X, xp, out, W, out, nullptr, in, M, wc, store);
   else
-    stream_mm_rows<true, 4>(X, xp, out, W, out, nullptr, in, M, wc, store);
+    stream_mm_rows<true, 4, Store, COHERENT>(X, xp, out, W, out, nullptr, in, M, wc, store);
 }
 
 // The chain's forward pass on a tile (fused_solve.py::_chain_fwd): Z (T, zp)

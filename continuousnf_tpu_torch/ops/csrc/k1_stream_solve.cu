@@ -1,6 +1,6 @@
 // The streamed K1 chain form: the TRAIN-mode forward solve of a CNF whose
 // field is an unconditional Dense chain of 2 to 4 tanh or identity layers
-// with state width up to 64 and hidden widths past what the wide forms keep
+// with state width up to 128 and hidden widths past what the wide forms keep
 // in shared memory (FFJORD's tabular MINIBOONE model 43 -> 860 -> 860 ->
 // 43), one Hutchinson probe (reverse mode), the whole adaptive solve (any
 // embedded explicit tableau, K9) in one cooperative launch.

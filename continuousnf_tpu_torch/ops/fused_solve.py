@@ -13,7 +13,7 @@ Port of `continuousnf_tpu/ops/fused_solve.py`: `ChainSpec`/`chain_spec`
 conditioning rows of `_zin` (:265-269) in every stage, in batch-major
 layout.
 
-Twenty-one CUDA kernels (`csrc/`), each with a plain PyTorch twin; six for
+Twenty-three CUDA kernels (`csrc/`), each with a plain PyTorch twin; six for
 2-layer tanh MLPs of state width up to MAX_DZ:
 - K3 (`k3_test_solve.cu`, `run_solve_kernel`, twin `solve_test_plain`) for
   `_run_solve_kernel` with `_stage_test`: the TEST solve of [z | dlogp];
@@ -59,15 +59,20 @@ with the same twins: wide K3 (`k3_wide_solve.cu`,
 `run_wide_test_adjoint_kernel`) and the wide K4 adjoint
 (`k4_wide_adjoint.cu`, `run_wide_exact_adjoint_kernel`);
 and the streamed forms of the chain kernels, for the unconditional chains
-the wide forms refuse for their hidden widths or for the shared memory their
-weights take (FFJORD's MINIBOONE model 43 -> 860 -> 860 -> 43; 2-layer tanh
-nets past MAX_DZ among them), on the streamed chain layer of
-`csrc/chain_stream.cuh` (the weights stay in global memory and stream
-through shared memory in chunks) and with the same twins:
-`k1_stream_solve.cu` (`run_stream_train_solve_kernel`),
-`k2_stream_adjoint.cu` (`run_stream_adjoint_kernel`) and
-`k7_stream_solve.cu` (TEST, `run_stream_test_solve_kernel`; exact,
-`run_stream_exact_solve_kernel`);
+the wide forms refuse for their state width (past WIDE_MAX_DZ, up to
+STREAM_MAX_DZ), their hidden widths or the shared memory their weights take
+(FFJORD's MINIBOONE model 43 -> 860 -> 860 -> 43; 2-layer tanh nets past
+MAX_DZ among them), on the streamed chain layer of `csrc/chain_stream.cuh`
+(the weights stay in global memory and stream through shared memory in
+chunks) and with the same twins: `k1_stream_solve.cu`
+(`run_stream_train_solve_kernel`), `k2_stream_adjoint.cu`
+(`run_stream_adjoint_kernel`) and `k7_stream_solve.cu` (TEST,
+`run_stream_test_solve_kernel`; exact, `run_stream_exact_solve_kernel`);
+and the streamed forms of the two 2-layer TEST stages for the 2-layer tanh
+nets among those (the README net family at the MINIBOONE width,
+86 -> 258 -> 86), on `csrc/two_layer_stream.cuh` and with the same twins:
+streamed K3 (`k3_stream_solve.cu`, `run_stream_test2_solve_kernel`) and
+streamed K5 (`k5_stream_adjoint.cu`, `run_stream_test_adjoint_kernel`);
 and three under bf16 stage matmuls (`ComputeMode.bf16`: the JAX package's
 `_mm(..., "bf16")` :193-225, both operands rounded to bfloat16, float32
 sums), for unconditional 2-layer tanh nets of state width up to MAX_DZ and
@@ -93,9 +98,10 @@ chains of 3 or more layers, for every conditional net and for every net
 with an identity layer (their wide forms past the narrow widths), the
 2-layer kernels for unconditional 2-layer tanh nets (past MAX_DZ: wide K3,
 the wide K1 and K2 chain forms, wide K7 exact and the wide K4 adjoint,
-wide K5; past the wide forms' hidden widths or shared memory the streamed
-chain forms forward, with wide K5 and the wide K4 adjoint backward, which
-raise there), and K5 for the TEST backward of every other 2-layer tanh net,
+wide K5; past the wide forms' state width, hidden widths or shared memory
+streamed K3 and K5 and the streamed chain forms, with the wide K4 adjoint
+as the exact backward member, which raises there), and K5 for the TEST
+backward of every other 2-layer tanh net,
 conditional or not; chains the wide forms refuse for their hidden widths or
 their weights' shared memory run the streamed forms (one VJP probe).  The
 forward kernels
@@ -140,6 +146,8 @@ K4WA_KERNEL = "k4_wide_adjoint"
 K1S_KERNEL = "k1_stream_solve"
 K2S_KERNEL = "k2_stream_adjoint"
 K7S_KERNEL = "k7_stream_solve"
+K3S_KERNEL = "k3_stream_solve"
+K5S_KERNEL = "k5_stream_adjoint"
 K3B_KERNEL = "k3_bf16_solve"
 K1B_KERNEL = "k1_bf16_solve"
 K2B_KERNEL = "k2_bf16_adjoint"
@@ -152,14 +160,15 @@ K2B_KERNEL = "k2_bf16_adjoint"
 #: to WIDE_MAX_WIDTH (csrc/chain_wide.cuh), where a block's shared memory
 #: (WIDE_SMEM_BYTES) holds all the weights beside a tile of samples.  Their
 #: streamed forms take the unconditional chains the wide forms refuse for
-#: their hidden widths or for the shared memory their weights take, up to
-#: the same state width (csrc/chain_stream.cuh: the weights stay in global
-#: memory and stream through shared memory), with parameter counts below
-#: STREAM_MAX_PARAMS.
+#: their state width, their hidden widths or the shared memory their
+#: weights take, up to state width STREAM_MAX_DZ (csrc/chain_stream.cuh:
+#: the weights stay in global memory and stream through shared memory), with
+#: parameter counts below STREAM_MAX_PARAMS.
 CHAIN_MAX_LAYERS = 4
 CHAIN_MAX_WIDTH = 64
 MAX_DZ = 32
 WIDE_MAX_DZ = 64
+STREAM_MAX_DZ = 128
 WIDE_MAX_WIDTH = 128
 WIDE_SMEM_BYTES = 232_448
 STREAM_MAX_PARAMS = 2**31 - 1
@@ -875,9 +884,10 @@ def _kernel_covers(
     forms the unconditional chains beyond, up to WIDE_MAX_DZ and
     WIDE_MAX_WIDTH, whose weights fit in a block's shared memory beside a
     tile, and their streamed forms (`stream`; False asks for the wide forms
-    alone) the unconditional chains the wide forms refuse for their hidden
-    widths or their weights' shared memory, with one VJP probe and up to
-    STREAM_MAX_PARAMS parameters; a narrow chain whose weights and per-thread
+    alone) the unconditional chains the wide forms refuse for their state
+    width, hidden widths or weights' shared memory, up to state width
+    STREAM_MAX_DZ, with one VJP probe and up to STREAM_MAX_PARAMS
+    parameters; a narrow chain whose weights and per-thread
     slots do not fit in shared memory is refused at launch (`_launch_shape`).
     The Hutchinson kernels (K1, K2, their chain forms and the chain forms'
     wide forms) take any number `k_probes` of VJP or (`jvp`) JVP probes
@@ -908,17 +918,23 @@ def _kernel_covers(
                 "deeper chains: ROADMAP queue 2, shape variants (b))")
     if not _wide_chain(spec):
         return None
-    if spec.dz > WIDE_MAX_DZ:
-        return (f"state width {spec.dz} > {WIDE_MAX_DZ} (the wide and streamed forms take up to {WIDE_MAX_DZ}; "
-                "ROADMAP queue 2, shape variants (e))")
+    if spec.dz > STREAM_MAX_DZ:
+        return (f"state width {spec.dz} > {STREAM_MAX_DZ} (the streamed forms take up to {STREAM_MAX_DZ}, the wide "
+                f"forms {WIDE_MAX_DZ}; ROADMAP queue 2, shape variants (e))")
     if spec.n_cond:
         return _COND_WIDE
-    why = _wide_limit(spec, k_probes != 1 or jvp)
-    if why is None or not stream:
-        return why
-    if _wide_limit(spec) is None:
-        # One probe fits the wide forms, K probes or JVP do not.
-        return why
+    if spec.dz > WIDE_MAX_DZ:
+        why = (f"state width {spec.dz} > {WIDE_MAX_DZ} (the wide forms take up to {WIDE_MAX_DZ}, the streamed forms "
+               f"{STREAM_MAX_DZ}; ROADMAP queue 2, shape variants (e))")
+        if not stream:
+            return why
+    else:
+        why = _wide_limit(spec, k_probes != 1 or jvp)
+        if why is None or not stream:
+            return why
+        if _wide_limit(spec) is None:
+            # One probe fits the wide forms, K probes or JVP do not.
+            return why
     if k_probes != 1 or jvp:
         probes = f"{k_probes} {'JVP' if jvp else 'VJP'} probe{'s' if k_probes != 1 else ''}"
         return (f"{probes} at {why} in the streamed chain forms (they run the chains the wide forms refuse with one "
@@ -953,13 +969,14 @@ def _wide_limit(spec: ChainSpec, probes: bool = False) -> Optional[str]:
 def _stream_chain(spec: ChainSpec) -> bool:
     """Whether the chain kernels' streamed forms run a chain: an
     unconditional chain of 2 to CHAIN_MAX_LAYERS layers past the narrow
-    widths, of state width up to WIDE_MAX_DZ, that the wide forms refuse
-    (with one probe) for its hidden widths or its weights' shared memory.
-    2-layer tanh nets past MAX_DZ count too: the streamed forms run their
-    Hutchinson, TEST and exact-forward stages."""
-    if spec.n_cond or not 2 <= spec.n_layers <= CHAIN_MAX_LAYERS or spec.dz > WIDE_MAX_DZ:
+    widths, of state width up to STREAM_MAX_DZ, that the wide forms refuse
+    (with one probe) for its state width past WIDE_MAX_DZ, its hidden widths
+    or its weights' shared memory.  2-layer tanh nets past MAX_DZ count too:
+    the streamed forms run their Hutchinson and exact-forward stages, and
+    streamed K3 and K5 their TEST stages."""
+    if spec.n_cond or not 2 <= spec.n_layers <= CHAIN_MAX_LAYERS or spec.dz > STREAM_MAX_DZ:
         return False
-    return _wide_chain(spec) and _wide_limit(spec) is not None
+    return _wide_chain(spec) and (spec.dz > WIDE_MAX_DZ or _wide_limit(spec) is not None)
 
 
 _COND_WIDE = ("conditional wide chains (K8 in the wide and streamed chain forms, ROADMAP queue 2, shape variants "
@@ -979,9 +996,9 @@ def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str
     unconditional 2-layer tanh chains the wide chain forms take, state widths
     up to WIDE_MAX_DZ and hidden widths up to WIDE_MAX_WIDTH, under every
     embedded tableau.  Past those the streamed chain forms run the
-    Hutchinson, TEST and exact-forward stages, and the TEST and exact
-    backward members (wide K5, the wide K4 adjoint) raise: ROADMAP queue 2,
-    shape variants (e)."""
+    Hutchinson and exact-forward stages, streamed K3 and K5 the TEST stages
+    (`_stream_two_layer_covers`), and the exact backward member (the wide K4
+    adjoint) raises: ROADMAP queue 2, shape variants (e)."""
     if not _two_layer_tanh(spec):
         return ("nets other than 2-layer tanh chains in wide K3, wide K5 and the wide K4 adjoint (the JAX "
                 "package's 2-layer TEST and exact stages assume tanh layers, reference fault 2: the chain kernels "
@@ -989,6 +1006,31 @@ def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str
     if spec.n_cond:
         return ("conditional wide 2-layer nets (K8 in the wide forms, ROADMAP queue 2, shape variants (d))")
     return _kernel_covers(tab, spec, chain=True, stream=False)
+
+
+def _stream_two_layer(spec: ChainSpec) -> bool:
+    """Whether streamed K3 and K5 run a net's TEST stages: an unconditional
+    2-layer tanh chain past MAX_DZ that the streamed chain forms run (state
+    widths to STREAM_MAX_DZ past the wide 2-layer kernels' limits: the README
+    net family at the MINIBOONE width, 86 -> 258 -> 86)."""
+    return _wide_two_layer(spec) and _stream_chain(spec)
+
+
+def _stream_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
+    """Why streamed K3 and K5 do not run this configuration (None if they
+    do): they take the unconditional 2-layer tanh nets of `_stream_two_layer`
+    under every embedded tableau."""
+    if not _two_layer_tanh(spec):
+        return ("nets other than 2-layer tanh chains in streamed K3 and K5 (the JAX package's 2-layer TEST stage "
+                "assumes tanh layers, reference fault 2: streamed K7 takes identity layers forward, and their "
+                "gradient runs the plain backward)")
+    if spec.n_cond:
+        return _COND_WIDE
+    why = _kernel_covers(tab, spec, chain=True)
+    if why is None and not _stream_two_layer(spec):
+        why = (f"state width {spec.dz} with hidden width {spec.out_dims[0]} in streamed K3 and K5 (K3 and K5 or "
+               "their wide forms take the net)")
+    return why
 
 
 def _no_grad_inputs(kernel: str, *tensors) -> None:
@@ -1125,6 +1167,14 @@ _SIGNATURES = {
         "cnf_k2s_shape": _WIDE_SHAPE,
         "cnf_k2s_train_adjoint": ([_P] * 17 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
+    K3S_KERNEL: {
+        "cnf_k3s_shape": _WIDE_SHAPE,
+        "cnf_k3s_test_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+    },
+    K5S_KERNEL: {
+        "cnf_k5s_shape": _WIDE_SHAPE,
+        "cnf_k5s_test_adjoint": ([_P] * 17 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+    },
     K3B_KERNEL: {
         "cnf_k3b_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
         "cnf_k3b_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
@@ -1223,8 +1273,8 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
     if why is None and wide and spec.n_cond:
         why = _COND_WIDE
     if why is None and wide and _stream_chain(spec):
-        why = (f"hidden widths {spec.out_dims[:-1]} in the wide chain forms ({_wide_limit(spec)}: their streamed "
-               "forms take the chain)")
+        why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the wide chain forms "
+               f"({_kernel_covers(tab, spec, chain=True, stream=False)}: their streamed forms take the chain)")
     if why is None and stream and not _stream_chain(spec):
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the streamed chain forms (the "
                "narrow or wide forms take the chain)")
@@ -1853,6 +1903,12 @@ def _wide_shape(lib, entry: str, label: str, spec: ChainSpec, widths, B: int) ->
     return out[0], out[1], out[2]
 
 
+def _m_scratch(spec: ChainSpec, device) -> torch.Tensor:
+    """The dz x H floats of M = W1 (.) W2^T that streamed K3 and K5 build in
+    their launch (csrc/two_layer_stream.cuh)."""
+    return torch.empty(spec.dz * spec.out_dims[0], dtype=torch.float32, device=device)
+
+
 def _stream_shape(lib, entry: str, label: str, spec: ChainSpec, widths, B: int, device):
     """(threads per block, blocks, tile, the global tile scratch or None) of
     a streamed kernel's cooperative launch at batch B, from its shape entry
@@ -1867,13 +1923,14 @@ def _stream_shape(lib, entry: str, label: str, spec: ChainSpec, widths, B: int, 
 
 
 def _launch_wide_forward(label, lib_name, entry, shape, tab, spec, *, rtol, atol, max_steps, ws, bs, z0, acc0, t0,
-                         t1, dt_init, eps=None, norms=(), stream=False):
+                         t1, dt_init, eps=None, norms=(), stream=False, m=False):
     """Launch a wide forward kernel, whose C arguments are (params, [eps], z0,
-    acc0, ts, zT, accT, stats, dt_last, work, partials, [tiles], B, n,
+    acc0, ts, zT, accT, stats, dt_last, work, partials, [m], [tiles], B, n,
     widths, acts, max_steps, *norms, rtol, atol, the controller, the tableau,
     tile, grid, block, stream); `norms` ends with K and jvp for the wide K1
     chain form's probe instance, and eps is (K, B, dz).  A streamed kernel
-    (`stream`) takes the global tile scratch its shape entry asks for.
+    (`stream`) takes the global tile scratch its shape entry asks for and,
+    with `m` (streamed K3), the dz x H scratch of M that the launch builds.
     Returns (zT, accT, steps, accepted, dt_last, dt_used)."""
     B, dz = z0.shape
     device = z0.device
@@ -1884,7 +1941,8 @@ def _launch_wide_forward(label, lib_name, entry, shape, tab, spec, *, rtol, atol
     lib = _library(lib_name)
     if stream:
         block, grid, tile, tiles = _stream_shape(lib, shape, label, spec, widths, B, device)
-        extra = [_ptr_or_null(tiles)]
+        m_buf = [_m_scratch(spec, device)] if m else []
+        extra = [_ptr(x) for x in m_buf] + [_ptr_or_null(tiles)]
     else:
         block, grid, tile = _wide_shape(lib, shape, label, spec, widths, B)
         extra = []
@@ -2061,12 +2119,13 @@ run_wide_adjoint_kernel.probe_launches = {}
 # ---- the 2-layer kernels' wide forms (2-layer tanh nets past MAX_DZ) ----
 
 
-def _cuda_only_wide_two_layer(label: str, x: torch.Tensor, tab, spec) -> None:
-    """Raise unless the wide 2-layer kernels take the configuration on CUDA
-    tensors (`_wide_two_layer_covers`)."""
+def _cuda_only_wide_two_layer(label: str, x: torch.Tensor, tab, spec, stream: bool = False) -> None:
+    """Raise unless the wide 2-layer kernels (`_wide_two_layer_covers`) or,
+    `stream`, streamed K3 and K5 (`_stream_two_layer_covers`) take the
+    configuration on CUDA tensors."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
-    why = _wide_two_layer_covers(tab, spec)
+    why = (_stream_two_layer_covers if stream else _wide_two_layer_covers)(tab, spec)
     if why is not None:
         raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
@@ -2355,6 +2414,87 @@ def run_stream_adjoint_kernel(
 run_stream_adjoint_kernel.launches = 0
 
 
+# ---- the 2-layer TEST kernels' streamed forms (2-layer tanh nets past the wide limits) ----
+
+
+def run_stream_test2_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init,
+                                  ys=None):
+    """Streamed K3: K3's TEST solve with the closed-form trace
+    (`run_solve_kernel`) for the unconditional 2-layer tanh nets past the
+    wide 2-layer kernels' limits (`_stream_two_layer`: the README net family
+    at the MINIBOONE width, 86 -> 258 -> 86); arguments and returns as
+    `run_solve_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k3_stream_solve.cu`), CPU
+    tensors through its plain version."""
+    _no_grad_inputs("K3", ws, bs, z0, dlogp0, ys)
+    if z0.device.type == "cpu":
+        return solve_test_plain(
+            tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only_wide_two_layer("streamed K3", z0, tab, spec, stream=True)
+    out = _launch_wide_forward(
+        "streamed K3", K3S_KERNEL, "cnf_k3s_test_solve", "cnf_k3s_shape", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, stream=True, m=True,
+    )
+    run_stream_test2_solve_kernel.launches += 1
+    return out
+
+
+run_stream_test2_solve_kernel.launches = 0
+
+
+def _launch_stream_test_adjoint(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi, t_lo,
+                                dt_init):
+    label = "streamed K5"
+    B, dz = zT.shape
+    device = zT.device
+    params, widths = _chain_params(label, spec, ws, bs, device)
+    zT, accT, azT, aaccT = _check_inputs(label, device, [zT, accT, azT, aaccT], [(B, dz), (1, B), (B, dz), (1, B)])
+    lib = _library(K5S_KERNEL)
+    block, grid, tile, tiles = _stream_shape(lib, "cnf_k5s_shape", label, spec, widths, B, device)
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
+    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel())
+    m = _m_scratch(spec, device)
+    err = lib.cnf_k5s_test_adjoint(
+        _ptr(params), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0),
+        _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), _ptr(m), _ptr_or_null(tiles), B,
+        spec.n_layers, widths, _acts_mask(spec), int(max_steps), rtol, atol, *_controller_floats(tab),
+        _tableau_array(tab), tile, grid, block, _stream(device),
+    )
+    _check_launch(err, label, grid, block)
+    g_ws, g_bs = _split_params(g, spec)
+    return z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]
+
+
+def run_stream_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi, t_lo,
+                                   dt_init, ys=None):
+    """Streamed K5: K5's TEST backsolve (`run_test_adjoint_kernel`, ct_m
+    folded into g) for the unconditional 2-layer tanh nets streamed K3
+    takes; arguments and returns as `run_test_adjoint_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k5_stream_adjoint.cu`), CPU
+    tensors through its plain version (with ys (B, n_cond), a_ys0 is
+    returned last)."""
+    if not _two_layer_tanh(spec):
+        raise ValueError(_NO_TEST_CHAIN_ADJOINT)
+    _no_grad_inputs("K5", ws, bs, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_test_plain(tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, zT=zT,
+                                  accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
+    _cuda_only_wide_two_layer("streamed K5", zT, tab, spec, stream=True)
+    if dt_init is None:
+        raise ValueError("streamed K5 needs dt_init (the caller picks it)")
+    out = _launch_stream_test_adjoint(tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, zT=zT,
+                                      accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init)
+    run_stream_test_adjoint_kernel.launches += 1
+    return out
+
+
+run_stream_test_adjoint_kernel.launches = 0
+
+
 # ---- the bf16 kernels (bf16 stage matmuls on the tensor cores) ----
 
 #: The bf16 kernels take unconditional 2-layer tanh nets of state width up
@@ -2533,6 +2673,8 @@ KERNEL_WRAPPERS = {
     K2S_KERNEL: run_stream_adjoint_kernel,
     K7S_KERNEL + "/test": run_stream_test_solve_kernel,
     K7S_KERNEL + "/exact": run_stream_exact_solve_kernel,
+    K3S_KERNEL: run_stream_test2_solve_kernel,
+    K5S_KERNEL: run_stream_test_adjoint_kernel,
     K3B_KERNEL: run_bf16_solve_kernel,
     K1B_KERNEL: run_bf16_train_solve_kernel,
     K2B_KERNEL: run_bf16_adjoint_kernel,
@@ -2618,13 +2760,16 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     width) run the wide forms: wide K3 forward and wide K5 backward in TEST
     mode, the wide K1 and K2 chain forms under Hutchinson TRAIN, wide K7
     exact forward and the wide K4 adjoint backward under exact trace.
-    Chains the wide forms refuse for their hidden widths or for the shared
-    memory their weights take (`_stream_chain`: FFJORD's MINIBOONE model
-    43 -> 860 -> 860 -> 43) run the streamed forms: streamed K7 TEST and
-    exact forward, the streamed K1 and K2 chain forms under Hutchinson TRAIN
-    with one VJP probe (K probes or JVP raise on the card); a 2-layer net
-    among them keeps wide K5 and the wide K4 adjoint as its TEST and exact
-    backward members, which raise on the card past hidden width 128.
+    Chains the wide forms refuse for their state width, their hidden widths
+    or the shared memory their weights take (`_stream_chain`: FFJORD's
+    MINIBOONE model 43 -> 860 -> 860 -> 43, state widths to STREAM_MAX_DZ)
+    run the streamed forms: streamed K7 TEST and exact forward, the streamed
+    K1 and K2 chain forms under Hutchinson TRAIN with one VJP probe (K
+    probes or JVP raise on the card); a 2-layer tanh net past MAX_DZ among
+    them (the README net family at the MINIBOONE width, 86 -> 258 -> 86)
+    runs streamed K3 forward and streamed K5 backward in TEST mode, and
+    keeps the wide K4 adjoint as its exact backward member, which raises on
+    the card (ROADMAP queue 2, shape variants (e)).
     """
     cm = icnf.compute_mode
     opts = icnf.solver
@@ -2696,6 +2841,8 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     if (chain and _wide_chain(spec) or wide2) and _stream_chain(spec):
         run_test, run_train = run_stream_test_solve_kernel, run_stream_train_solve_kernel
         run_exact, run_adjoint = run_stream_exact_solve_kernel, run_stream_adjoint_kernel
+        if wide2:
+            run_test, run_test_adj = run_stream_test2_solve_kernel, run_stream_test_adjoint_kernel
     elif chain and _wide_chain(spec):
         run_test, run_train = run_wide_test_solve_kernel, run_wide_train_solve_kernel
         run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel
@@ -2834,6 +2981,8 @@ __all__ = [
     "run_stream_exact_solve_kernel",
     "run_stream_train_solve_kernel",
     "run_stream_adjoint_kernel",
+    "run_stream_test2_solve_kernel",
+    "run_stream_test_adjoint_kernel",
     "run_bf16_solve_kernel",
     "run_bf16_train_solve_kernel",
     "run_bf16_adjoint_kernel",

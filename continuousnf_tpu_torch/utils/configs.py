@@ -32,6 +32,19 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     two at which the JAX package's forward-kernel VMEM guard still admits
     the chain (at 2048 it reads 62.6 MB and falls back to XLA).  Widths and
     depth are FFJORD's, not cut.
+  * miniboone86 (the README net family MLP((n_in, 3 n_in, n_in)),
+    README.md:31-33, at nvars = naug = 43, the MINIBOONE width: 43
+    features in the MAF preprocessing of the UCI tabular suite): RNODE,
+    MLP 86 -> 258 -> 86 tanh, lambda3 = 1e-2, steer_rate 0.1, tspan (0, 13),
+    batch 4096; data from the `synthetic_tabular` recipe at 43 variables.
+    Past the wide 2-layer kernels' state width: streamed K3 and K5 and the
+    streamed K1 and K2 chain forms run it.  Nothing is cut.
+  * bsds126 (the same family at BSDS300's 63 features): RNODE, nvars =
+    naug = 63, MLP 126 -> 378 -> 126 tanh, the same lambda, steering and
+    tspan, batch 2048: the largest power of two at which the JAX package's
+    forward-kernel VMEM guard still admits the net (30.2 MB; 60.4 MB at
+    4096 falls back to XLA); data from the recipe at 63 variables.  The top
+    of the streamed forms' state width.
   * microbench (`benchmarks/kernel_microbench.py:93-152`): the flagship at
     tspan (0, 1), the configuration that benchmark times in float32 and
     under bf16 stage matmuls (`make_icnf(..., bf16=True)`).
@@ -43,7 +56,7 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
 All: lambda1 = lambda2 = 1e-2 (the RNODE defaults), tsit5 at rtol 1e-3 /
 atol 1e-6, one Gaussian VJP probe (`make_icnf` takes K probes and JVP
 probes), batch 4096 in the scripts unless the entry names its own `batch`
-(miniboone43: 2048; miniboone860: 1024); the conditional recipe
+(miniboone43 and bsds126: 2048; miniboone860: 1024); the conditional recipe
 trains at its `batch_size` of 128.  Weights are Glorot-uniform with
 N(0, 0.05) biases, drawn with numpy.
 """
@@ -61,6 +74,10 @@ MODELS = {
     "miniboone43": dict(dims=(43, 128, 128, 43), nvars=43, naug=0, tspan=(0.0, 1.0), extra={}, batch=2048),
     "miniboone860": dict(dims=(43, 860, 860, 43), nvars=43, naug=0, tspan=(0.0, 1.0), extra={}, batch=1024),
     "hepmass42": dict(dims=(42, 126, 42), nvars=21, naug=21, tspan=(0.0, 13.0), extra={"steer_rate": 0.1, "lam3": 1e-2}),
+    "miniboone86": dict(dims=(86, 258, 86), nvars=43, naug=43, tspan=(0.0, 13.0),
+                        extra={"steer_rate": 0.1, "lam3": 1e-2}),
+    "bsds126": dict(dims=(126, 378, 126), nvars=63, naug=63, tspan=(0.0, 13.0),
+                    extra={"steer_rate": 0.1, "lam3": 1e-2}, batch=2048),
     "cond_gaussian": dict(dims=(2, 64, 64, 1), nvars=1, naug=0, tspan=(0.0, 13.0), extra={"steer_rate": 0.1},
                           n_cond=1, batch_size=128),
 }
@@ -114,7 +131,7 @@ def model_data(name: str, rng: np.random.Generator, n: int):
     """n data points of the configuration `name` (numpy float32): xs, or
     (xs, ys) for a conditional configuration."""
     nvars = MODELS[name]["nvars"]
-    if name in ("power6", "miniboone43", "miniboone860", "hepmass42"):
+    if name in ("power6", "miniboone43", "miniboone860", "hepmass42", "miniboone86", "bsds126"):
         return tabular_data(rng, n, nvars)
     if name == "cond_gaussian":
         return cond_gaussian_data(rng, n)

@@ -1,6 +1,6 @@
 """Where the time goes in a training step and a `logpdf` call on the card.
 
-    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|miniboone860|hepmass42]
+    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|miniboone860|hepmass42|miniboone86|bsds126]
         [--steps 10]
         [--probes K] [--jvp] [--test-grad] [--direct | --fixed N] [--bf16]
 
@@ -13,12 +13,15 @@ kernels; `--model miniboone860`: FFJORD's MINIBOONE model, RNODE, MLP
 43 -> 860 -> 860 -> 43, through the streamed chain kernels; `--model
 hepmass42`: the README net family at the HEPMASS width, RNODE, MLP
 42 -> 126 -> 42, through the wide 2-layer kernels and the wide chain
-forms), its weights and its data from a seed as `utils/configs.py` makes
+forms; `--model miniboone86` / `bsds126`: the same family at 86 -> 258 ->
+86 and 126 -> 378 -> 126, through streamed K3 and K5 and the streamed chain
+forms, without the exact-trace step, whose backward raises on the card
+there), its weights and its data from a seed as `utils/configs.py` makes
 them, one Gaussian VJP probe (`--probes K` Gaussian probes, `--jvp`
 forward-mode ones: the Hutchinson train steps run the probe instances of
 the K1 and K2 kernels or of their chain forms, narrow or wide (miniboone43),
 K6), batch 4096 (or the configuration's own
-`batch`: 2048 for miniboone43, 1024 for miniboone860), fused kernels on, and for each path (the
+`batch`: 2048 for miniboone43 and bsds126, 1024 for miniboone860), fused kernels on, and for each path (the
 Hutchinson train step, the exact-trace train step, `logpdf`; for a
 configuration with its own training batch, the train step at that batch
 too):
@@ -33,11 +36,12 @@ too):
   * the kernels that take the most of it, by name, and the host operations
     that take the most of the CPU's own time under the profiler (where an
     idle card waits).
-With `--test-grad` (always for hepmass42) it measures one more path, the
-TEST loss (the exact-trace maximum likelihood) and its gradient in the
-params (`test_grad`): on a 2-layer net the forward runs K3 and the backward
-K5 (past state width 32 wide K3 and wide K5), on deeper chains K7 TEST and
-the plain backward.  `--direct` runs the train
+With `--test-grad` (always for the README family past state width 32) it
+measures one more path, the TEST loss (the exact-trace maximum likelihood)
+and its gradient in the params (`test_grad`): on a 2-layer net the forward
+runs K3 and the backward K5 (past state width 32 wide K3 and wide K5, past
+the wide limits streamed K3 and K5), on deeper chains K7 TEST and the plain
+backward.  `--direct` runs the train
 steps under `SolverOptions(adjoint=Adjoint.DIRECT)` and `--fixed N` under N
 rk4 steps: the whole-solve kernels do not take them, so a 2-layer net's
 Hutchinson step evaluates its field stage by stage in K10 and
@@ -154,7 +158,11 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
     out = {"model": name, "device": torch.cuda.get_device_name(0), "probes": num_probes, "jvp": jvp,
            "direct": direct, "fixed": fixed, "bf16": bf16}
     gen = torch.Generator(device=dev).manual_seed(seed)
-    paths = [("train_step", False, B)] + ([] if bf16 else [("exact_train_step", True, B)])
+    from ..ops import fused_solve as fs
+
+    # Past the wide limits a 2-layer net's exact backward member raises on the card (ROADMAP queue 2, (e)).
+    stream2 = fs._stream_two_layer(fs.chain_spec(cnf.MLP(cfg["dims"], device="cpu"), cfg["dims"][-1]))
+    paths = [("train_step", False, B)] + ([] if bf16 or stream2 else [("exact_train_step", True, B)])
     if "batch_size" in cfg:
         paths.append((f"train_step_b{cfg['batch_size']}", False, cfg["batch_size"]))
     for label, exact, b in paths:
@@ -165,7 +173,7 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
         yb = None if ys is None else ys[:b]
         call = lambda: step(ps, xs[:b], gen, ys=yb)  # noqa: E731
         out[label] = _measure(call, steps)
-    if test_grad or name == "hepmass42":
+    if test_grad or name in ("hepmass42", "miniboone86", "bsds126"):
         icnf = model(False)
         ps = cnf.params_from_numpy(ps_np, dev)
         leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]

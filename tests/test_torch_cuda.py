@@ -7,7 +7,9 @@ VJP or JVP probes (K6), and their wide forms at the MINIBOONE width; wide
 K3, wide K5 and the wide K4 adjoint for 2-layer nets past state width 32,
 the HEPMASS width of the README net family; the streamed forms of the
 chain kernels for chains whose weights pass a block's shared memory, FFJORD's
-MINIBOONE width 43 -> 860 -> 860 -> 43) against their plain PyTorch
+MINIBOONE width 43 -> 860 -> 860 -> 43, and for state widths 65 to 128;
+streamed K3 and K5 for 2-layer nets past the wide limits, the README net
+family at the MINIBOONE width 86 -> 258 -> 86) against their plain PyTorch
 versions, on the card, and the configurations they do not cover.
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a card
@@ -956,9 +958,9 @@ def test_stream_chain_kernels_match_twins(dev, dims, B, span):
 )
 def test_stream_limits_raise_on_cuda(dev, dims, wrapper, kind):
     """The streamed forms take one VJP probe and only the chains the wide
-    forms refuse; the wide forms refuse the streamed chains; a 2-layer net
-    past hidden 128 has no TEST backward member on the card (wide K5 stops
-    at 128: ROADMAP queue 2, shape variants (e)).  Nothing is launched."""
+    forms refuse; the wide forms refuse the streamed chains; wide K5 refuses
+    a 2-layer net past hidden 128 (streamed K5 takes it).  Nothing is
+    launched."""
     spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
     kw = _kernel_args(dims, 8, (0.0, 1.0), dev)
     dz = dims[-1]
@@ -1134,6 +1136,164 @@ def test_wide_two_layer_paths_on_the_card_match_the_twins_on_the_cpu(dev):
         assert _close(l_k, l_c) and (lp_k is None or _close(lp_k, lp_c))
         for a, b in zip(g_k, g_c):
             assert _grad_close(a, b)
+
+
+# ---- streamed K3 and K5, and the streamed chain forms to state width 128 ----
+
+MINIBOONE86 = (86, 258, 86)
+BSDS126 = (126, 378, 126)
+
+
+@pytest.mark.parametrize(
+    "dims,B,span",
+    [
+        (MINIBOONE86, 4096, (0.0, 13.0)),
+        (MINIBOONE86, 4000, (0.0, 13.0)),
+        (MINIBOONE86, 37, (1.0, 0.0)),
+        ((72, 80, 72), 300, (0.0, 2.0)),
+        ((128, 384, 128), 256, (0.0, 1.0)),
+        (BSDS126, 2048, (0.0, 1.0)),
+        ((40, 160, 40), 64, (0.0, 2.0)),
+    ],
+    ids=["miniboone86-B4096", "miniboone86-ragged-B4000", "miniboone86-reverse-B37", "dz72-hidden80",
+         "dz128-hidden384", "bsds126-B2048", "dz40-hidden160"],
+)
+def test_stream_two_layer_kernels_match_twins(dev, dims, B, span):
+    """Streamed K3 against `solve_test_plain` from a nonzero dlogp (equal
+    steps, values within REL) and streamed K5 against `adjoint_test_plain`
+    from its output, warm-started from its last step (equal steps, z0, acc0
+    and a_z0 held to the float64 twin, finite gradients within GRAD_REL);
+    the streamed K1 and K2 chain forms and streamed K7 at the same widths,
+    held as `test_stream_chain_kernels_match_twins` holds them.  One launch
+    each."""
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    assert tfs._stream_two_layer(spec)
+    (out_k, out_p), (adj_k, adj_p, adj_64), test, exact, _, _ = _chain_case(dims, B, span, dev, wide="stream")
+    _hold_forward(out_k, out_p)
+    _hold_forward(*test)
+    _hold_forward(*exact)
+    k2 = (adj_k, adj_p, adj_64)
+    kw = _kernel_args(dims, B, span, dev)
+    dz = dims[-1]
+    rng = np.random.default_rng(11)
+    T = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    runs = (tfs.run_stream_test2_solve_kernel, tfs.run_stream_test_adjoint_kernel)
+    before = [w.launches for w in runs]
+    tdir = 1.0 if span[1] > span[0] else -1.0
+    with torch.no_grad():
+        t3_k = tfs.run_stream_test2_solve_kernel(TSIT5, spec, **kw)
+        t3_p = tfs.solve_test_plain(TSIT5, spec, **kw)
+        test_adj = dict({k: kw[k] for k in ("rtol", "atol", "max_steps", "ws", "bs")}, zT=t3_p[0],
+                        accT=t3_p[1][None], azT=T(rng.normal(0.0, 1.0 / B, (B, dz))),
+                        aaccT=T(np.full((1, B), 1.0 / B)), t_hi=kw["t1"], t_lo=kw["t0"],
+                        dt_init=-tdir * t3_p[4].abs())
+        k5 = (tfs.run_stream_test_adjoint_kernel(TSIT5, spec, **test_adj),
+              tfs.adjoint_test_plain(TSIT5, spec, **test_adj), _twin64(tfs.adjoint_test_plain, spec, test_adj))
+    torch.cuda.synchronize()
+    assert [w.launches for w in runs] == [n + 1 for n in before]
+    _hold_forward(t3_k, t3_p)
+    for a_k, a_p, a_64 in (k2, k5):
+        assert (int(a_k[5]), int(a_k[6])) == (int(a_p[5]), int(a_p[6]))
+        for i in range(3):  # z0, acc0, a_z0
+            assert _state_close(a_k[i], a_p[i], a_64[i])
+        for a, b in zip(a_k[3] + a_k[4], a_p[3] + a_p[4]):
+            assert torch.isfinite(a).all() and _grad_close(a, b)
+
+
+@pytest.mark.parametrize(
+    "dims,wrapper,kind,why",
+    [
+        ((129, 387, 129), "run_stream_test2_solve_kernel", "test", "state width 129 > 128"),
+        ((129, 387, 129), "run_stream_test_adjoint_kernel", "test-adjoint", "state width 129 > 128"),
+        ((129, 387, 129), "run_stream_train_solve_kernel", "train", "state width 129 > 128"),
+        (MINIBOONE86, "run_wide_exact_adjoint_kernel", "exact-adjoint", "state width 86 > 64"),
+        (MINIBOONE86, "run_stream_train_solve_kernel", "two-probes", "K6 in the streamed forms"),
+        (MINIBOONE86, "run_stream_train_solve_kernel", "jvp", "K6 in the streamed forms"),
+        ((42, 126, 42), "run_stream_test2_solve_kernel", "test", "wide forms take the net"),
+    ],
+    ids=["dz129-test", "dz129-test-adjoint", "dz129-train", "miniboone86-exact-adjoint", "miniboone86-two-probes",
+         "miniboone86-jvp", "hepmass42-in-streamed-K3"],
+)
+def test_stream_two_layer_limits_raise_on_cuda(dev, dims, wrapper, kind, why):
+    """A 2-layer net past state width 128, the exact backward member past
+    the wide limits (the wide K4 adjoint), K > 1 or JVP probes in the
+    streamed forms, and a net the wide 2-layer kernels take, raise
+    NotImplementedError on the card naming their reason and, past the
+    kernels' widths, ROADMAP queue 2's shape variants (e).  Nothing is
+    launched."""
+    spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
+    kw = _kernel_args(dims, 8, (0.0, 1.0), dev)
+    dz = dims[-1]
+    z = kw["z0"]
+    base = {k: kw[k] for k in ("rtol", "atol", "max_steps", "ws", "bs")}
+    adj = dict(base, zT=z, azT=z, t_hi=torch.tensor(1.0, device=dev), t_lo=torch.tensor(0.0, device=dev),
+               dt_init=torch.tensor(-0.05, device=dev))
+    if kind in ("train", "two-probes", "jvp"):
+        kw = {k: v for k, v in kw.items() if k != "dlogp0"}
+        kw.update(norm_z=True, norm_j=True, acc0=torch.zeros((3, 8), device=dev),
+                  eps=torch.ones((2 if kind == "two-probes" else 1, 8, dz), device=dev), jvp=kind == "jvp")
+    elif kind == "test-adjoint":
+        kw = dict(adj, accT=torch.zeros((1, 8), device=dev), aaccT=torch.zeros((1, 8), device=dev))
+    elif kind == "exact-adjoint":
+        kw = dict(adj, norm_z=True, norm_j=True, accT=torch.zeros((3, 8), device=dev),
+                  aaccT=torch.zeros((3, 8), device=dev))
+    before = _launches()
+    with pytest.raises(NotImplementedError) as err:
+        getattr(tfs, wrapper)(TSIT5, spec, **kw)
+    assert why in str(err.value)
+    if why.startswith("state width") or why.startswith("K6"):
+        assert "ROADMAP queue 2, shape variants (e)" in str(err.value)
+    assert _launches() == before
+
+
+def test_stream_two_layer_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """The miniboone86 model (RNODE, nvars = naug = 43, MLP 86 -> 258 -> 86,
+    steer_rate 0.1; tspan (0, 1) here) on the card and on the CPU at
+    B = 256: logpdf through streamed K3; the TEST loss gradient and the score
+    through streamed K3 and K5; the Hutchinson loss and gradient through the
+    streamed K1 and K2 chain forms; each launching those kernels once and no
+    other; the exact loss gradient raises on the card naming ROADMAP queue 2
+    row (e) after its forward (streamed K7 exact)."""
+    xs = np.random.default_rng(4).normal(size=(256, 43)).astype(np.float32)
+    eps = np.random.default_rng(5).normal(size=(1, 256, 86)).astype(np.float32)
+    ps_np = _np_params(MINIBOONE86, 3)
+
+    def model(device, exact=False):
+        return tcnf.construct(tcnf.RNODE, tcnf.MLP(MINIBOONE86, device=device), 43, 43, tspan=(0.0, 1.0),
+                              steer_rate=0.1, lam3=1e-2, compute_mode=tcnf.VecJacMode(fused=True, exact_trace=exact))
+
+    def run(device, mode):
+        icnf = model(device)
+        ps = tcnf.params_from_numpy(ps_np, device)
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        if mode == "test":
+            with torch.no_grad():
+                lp = tcnf.ICNFDist(icnf, tcnf.Mode.TEST, ps).logpdf(xs)
+            l = tcnf.loss(icnf, tcnf.Mode.TEST, xs, ps)
+            return lp.cpu(), l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)]
+        if mode == "score":
+            x = torch.from_numpy(xs).to(device).requires_grad_()
+            lp = tcnf.ICNFDist(icnf, tcnf.Mode.TEST, ps).logpdf(x)
+            return None, lp.detach().cpu(), [torch.autograd.grad(lp.sum(), x)[0].cpu()]
+        l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, eps=eps, steer_r=0.05)
+        return None, l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)]
+
+    wants = {"test": {tfs.K3S_KERNEL: 2, tfs.K5S_KERNEL: 1}, "score": {tfs.K3S_KERNEL: 1, tfs.K5S_KERNEL: 1},
+             "train": {tfs.K1S_KERNEL: 1, tfs.K2S_KERNEL: 1}}
+    for mode, want in wants.items():
+        before = _launches()
+        lp_k, l_k, g_k = run(dev, mode)
+        after = _launches()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == want
+        lp_c, l_c, g_c = run(torch.device("cpu"), mode)
+        assert _close(l_k, l_c) and (lp_k is None or _close(lp_k, lp_c))
+        for a, b in zip(g_k, g_c):
+            assert _grad_close(a, b)
+    ps = tcnf.params_from_numpy(ps_np, dev)
+    leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+    with pytest.raises(NotImplementedError) as err:
+        torch.autograd.grad(tcnf.loss(model(dev, exact=True), tcnf.Mode.TRAIN, xs, ps, steer_r=0.05), leaves)
+    assert "ROADMAP queue 2, shape variants (e)" in str(err.value)
 
 
 # ---- the chain kernels with conditioning rows (K8) ----

@@ -113,7 +113,8 @@ def test_miniboone860_configuration():
 @pytest.mark.parametrize("mode", ["train", "test", "exact"])
 def test_stream_forward_twins_match_jax_kernel(monkeypatch, mode, net):
     """The plain versions of the streamed K1 chain form (train), streamed K7
-    TEST (test) and streamed K7 exact (exact), through the fused solve on CPU
+    TEST (test; streamed K3 for the 2-layer net) and streamed K7 exact
+    (exact), through the fused solve on CPU
     tensors, against the JAX package's forward kernel in interpret mode from
     zero accumulators: equal attempted and accepted steps (or, at a
     near-tie of the step controller, a step count the twin reaches under
@@ -131,8 +132,9 @@ def test_stream_forward_twins_match_jax_kernel(monkeypatch, mode, net):
     jargs = {"ps": _jps(ps_np), "eps": None if eps is None else jnp.asarray(eps), "ys": None}
     yT_r, st_r = jfull.forward(jnp.asarray(y0f), 0.0, 1.0, jargs)
     calls = []
-    wrapper = getattr(tfs, _STREAM_FORWARDS[mode])
-    monkeypatch.setattr(tfs, _STREAM_FORWARDS[mode], lambda tab, spec, **kw: calls.append(kw) or wrapper(tab, spec, **kw))
+    name = "run_stream_test2_solve_kernel" if mode == "test" and len(dims) == 3 else _STREAM_FORWARDS[mode]
+    wrapper = getattr(tfs, name)
+    monkeypatch.setattr(tfs, name, lambda tab, spec, **kw: calls.append(kw) or wrapper(tab, spec, **kw))
     tfull = tfs.make_full_solve(_model(tcnf, dims, mode), getattr(tcnf.Mode, mode_name), B)
     targs = {"ps": tcnf.params_from_numpy(ps_np), "eps": None if eps is None else torch.from_numpy(eps), "ys": None}
     before = _launch_counts()
@@ -287,6 +289,8 @@ _STREAM_COVERED = {
     "four-layer-past-shared-memory": (NETS["four-layer"], True),
     "two-layer-hidden160": (NETS["two-layer"], True),
     "dz64-hidden4096": ((64, 4096, 64), True),
+    "dz72-hidden80": ((72, 80, 72), True),
+    "dz128-four-layer": ((128, 64, 64, 64, 128), True),
     "miniboone43": ((43, 128, 128, 43), False),
     "hepmass42": ((42, 126, 42), False),
     "power6": ((6, 64, 64, 6), False),
@@ -296,9 +300,9 @@ _STREAM_COVERED = {
 @pytest.mark.parametrize("name", list(_STREAM_COVERED))
 def test_stream_coverage(name):
     """The chain kernels take every unconditional chain of state width up to
-    64: the streamed forms exactly where the wide forms refuse it for its
-    hidden widths or its weights' shared memory, the narrow and wide forms
-    the rest as before."""
+    128: the streamed forms exactly where the wide forms refuse it for its
+    state width past 64, its hidden widths or its weights' shared memory,
+    the narrow and wide forms the rest as before."""
     dims, stream = _STREAM_COVERED[name]
     spec = _spec(dims)
     assert tfs._kernel_covers(TSIT5, spec, chain=True) is None
@@ -312,7 +316,7 @@ _STREAM_REFUSED = {
     "jvp": (MB860, 0, 1, True, "K6 in the streamed forms"),
     "four-layer-two-probes": (NETS["four-layer"], 0, 2, False, "K6 in the streamed forms"),
     "conditional": (MB860, 1, 1, False, "K8 in the wide and streamed chain forms"),
-    "dz65": ((65, 860, 65), 0, 1, False, "state width 65 > 64"),
+    "dz129": ((129, 860, 129), 0, 1, False, "state width 129 > 128"),
     "five-layer": ((43, 860, 860, 860, 860, 43), 0, 1, False, "5-layer chains"),
 }
 
@@ -320,7 +324,7 @@ _STREAM_REFUSED = {
 @pytest.mark.parametrize("name", list(_STREAM_REFUSED))
 def test_stream_refusals_name_their_roadmap_row(name):
     """K > 1 probes, JVP probes and conditional nets at these widths, and
-    state widths past 64 or chains past 4 layers, are refused with the
+    state widths past 128 or chains past 4 layers, are refused with the
     reason and its ROADMAP queue 2 row."""
     dims, n_cond, k, jvp, why = _STREAM_REFUSED[name]
     msg = tfs._kernel_covers(TSIT5, _spec(dims, n_cond), k, chain=True, jvp=jvp)
@@ -329,10 +333,13 @@ def test_stream_refusals_name_their_roadmap_row(name):
 
 def test_two_layer_backward_members_refuse_past_hidden_128():
     """A 2-layer net past hidden 128 runs the streamed forms for its
-    Hutchinson, TEST and exact forwards; its TEST and exact backward members
-    (wide K5, the wide K4 adjoint) refuse it, naming shape variants (e)."""
+    Hutchinson and exact forwards and streamed K3 and K5 for its TEST
+    forward and backward; its exact backward member (the wide K4 adjoint,
+    whose wide 2-layer layout stops at hidden 128) refuses it, naming shape
+    variants (e)."""
     spec = _spec(NETS["two-layer"])
     assert tfs._stream_chain(spec) and tfs._kernel_covers(TSIT5, spec, chain=True) is None
+    assert tfs._stream_two_layer(spec) and tfs._stream_two_layer_covers(TSIT5, spec) is None
     msg = tfs._wide_two_layer_covers(TSIT5, spec)
     assert "hidden width 160 > 128" in msg and "ROADMAP queue 2, shape variants (e)" in msg
 
@@ -349,11 +356,15 @@ _ROUTES = {
     ("wide", "exact"): ((5, 66, 7, 5), ["run_wide_exact_solve_kernel"]),
     ("stream", "exact"): ((5, 160, 7, 5), ["run_stream_exact_solve_kernel"]),
     ("wide2", "test"): ((34, 48, 34), ["run_wide_test2_solve_kernel", "run_wide_test_adjoint_kernel"]),
-    ("stream2", "test"): ((34, 160, 34), ["run_stream_test_solve_kernel", "run_wide_test_adjoint_kernel"]),
+    ("stream2", "test"): ((34, 160, 34), ["run_stream_test2_solve_kernel", "run_stream_test_adjoint_kernel"]),
     ("wide2", "train"): ((34, 48, 34), ["run_wide_train_solve_kernel", "run_wide_adjoint_kernel"]),
     ("stream2", "train"): ((34, 160, 34), ["run_stream_train_solve_kernel", "run_stream_adjoint_kernel"]),
     ("wide2", "exact"): ((34, 48, 34), ["run_wide_exact_solve_kernel", "run_wide_exact_adjoint_kernel"]),
     ("stream2", "exact"): ((34, 160, 34), ["run_stream_exact_solve_kernel", "run_wide_exact_adjoint_kernel"]),
+    ("dz70-stream2", "test"): ((70, 80, 70), ["run_stream_test2_solve_kernel", "run_stream_test_adjoint_kernel"]),
+    ("dz70-stream2", "train"): ((70, 80, 70), ["run_stream_train_solve_kernel", "run_stream_adjoint_kernel"]),
+    ("dz70-stream2", "exact"): ((70, 80, 70), ["run_stream_exact_solve_kernel", "run_wide_exact_adjoint_kernel"]),
+    ("dz70-stream", "test"): ((70, 48, 32, 70), ["run_stream_test_solve_kernel"]),
 }
 _ALL_WRAPPERS = sorted({n for _, names in _ROUTES.values() for n in names})
 
@@ -363,9 +374,10 @@ def test_fused_solve_takes_the_forms_by_width(monkeypatch, route):
     """`make_full_solve` runs a chain through the streamed wrappers exactly
     where the wide forms refuse it, and keeps the narrow and wide choices: a
     3-layer chain (TEST inference; the Hutchinson and exact losses'
-    gradients) and a 2-layer net past dz 32 (the TEST loss gradient too: its
-    backward member stays wide K5, which raises on the card past hidden
-    128, as the wide K4 adjoint does)."""
+    gradients), a 2-layer net past dz 32 (the TEST loss gradient too: past
+    hidden 128 or dz 64 through streamed K3 and K5; its exact backward
+    member stays the wide K4 adjoint, which raises on the card there) and
+    a 3-layer chain past dz 64."""
     dims, want = _ROUTES[route]
     form, mode = route
     called = []

@@ -212,17 +212,18 @@ _WIDE_COVERED = {
     "cond-recipe": ((1, 64, 64, 1), 1, False),
     "dz32-hidden64": ((32, 64, 64, 32), 0, False),
 }
-# name -> (dims, n_cond, what the refusal names, probes).  Past hidden width
-# 128 or past shared memory the streamed forms take one VJP probe; with two
-# the chain is refused, naming why the wide forms do not take it.
+# name -> (dims, n_cond, what the refusal names, probes).  Past state width
+# 64, hidden width 128 or shared memory the streamed forms take one VJP
+# probe; with two the chain is refused, naming why the wide forms do not
+# take it.
 _WIDE_REFUSED = {
-    "dz65": ((65, 128, 128, 65), 0, "state width 65 > 64", 1),
+    "dz65": ((65, 128, 128, 65), 0, "state width 65 > 64", 2),
     "hidden129": ((43, 129, 128, 43), 0, "hidden width 129 > 128", 2),
     "conditional-wide": ((43, 128, 128, 43), 2, "conditional wide chains", 1),
     "five-layer": ((43, 64, 64, 64, 64, 43), 0, "5-layer chains", 1),
     "weights-past-shared-memory": ((64, 128, 128, 128, 64), 0, "shared memory", 2),
     "conditional-hepmass42": ((42, 126, 42), 1, "K8 in the wide", 1),
-    "two-layer-dz66": ((66, 198, 66), 0, "state width 66 > 64", 1),
+    "two-layer-dz66": ((66, 198, 66), 0, "state width 66 > 64", 2),
 }
 
 
