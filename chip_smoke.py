@@ -94,10 +94,11 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     MLP 86 -> 258 -> 86 tanh, the flagship recipe, batch 4096), served
     through streamed K3 (`logpdf`, `sample(4096)`), its TEST loss gradient
     and score through streamed K3 and K5, trained through the streamed K1
-    and K2 chain forms at state width 86 (`fit`, four Lion steps); its
-    exact gradient raises (ROADMAP queue 2, shape variants (e)); the same
-    kernels at BSDS300's width (bsds126: MLP 126 -> 378 -> 126, batch 2048)
-    and on MLP 40 -> 160 -> 40.
+    and K2 chain forms at state width 86 (`fit`, four Lion steps) and,
+    under exact trace, through streamed K7 exact and the streamed K4 adjoint
+    (`fit`, four Lion steps); the same kernels at BSDS300's width (bsds126:
+    MLP 126 -> 378 -> 126, batch 2048) and on MLP 40 -> 160 -> 40; the
+    streamed K4 adjoint beside the wide K4 adjoint on hepmass42's inputs.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -421,8 +422,9 @@ Phases, each failing the run (nonzero exit) on any mismatch:
  83. the main paths, counters reset just before each: logpdf and
      sample(4096) launch streamed K3 twice and nothing else; `fit` for four
      Lion steps the streamed K1 and K2 chain forms at least four times each
-     and nothing else; the exact loss gradient raises NotImplementedError
-     naming ROADMAP queue 2, shape variants (e);
+     and nothing else; the exact loss gradient at B = 256 streamed K7 exact
+     and the streamed K4 adjoint once each and nothing else, held against
+     fused=False and a float64 rtol 1e-7 solve as in phase 8;
  84. CUDA-event times of the train step (fused and plain), `logpdf`,
      `sample` and the TEST loss gradient;
  85. bsds126 at B = 2048: the four kernels against their twins (one timed
@@ -432,7 +434,24 @@ Phases, each failing the run (nonzero exit) on any mismatch:
  86. MLP 40 -> 160 -> 40 at B = 4096 (RNODE, nvars = naug = 20, tspan
      (0, 13)): streamed K3 and K5 against their twins, streamed K3 timed
      beside streamed K7 TEST (its TEST forward before) on the same input,
-     and its TEST loss gradient launching streamed K3 and K5 once each.
+     and its TEST loss gradient launching streamed K3 and K5 once each;
+ 87. exact training past the wide limits, miniboone86 at B = 4096 and
+     bsds126 at B = 2048: the streamed K4 adjoint's launch shape (threads,
+     blocks, tile, shared memory, the global tile scratch); streamed K7 exact against its twin from nonzero accumulators
+     and the streamed K4 adjoint against its twin from that output,
+     warm-started from its last step (equal steps, z0 and a_z0 held to the
+     float64 twin, gradients within 1e-3 of max|g|), one timed call each,
+     µs a step beside the FMA bound;
+ 88. the main paths, counters reset just before each: the exact `fit` for
+     four Lion steps at miniboone86 launches streamed K7 exact and the
+     streamed K4 adjoint at least four times each and nothing else;
+     bsds126's exact loss gradient launches each once;
+ 89. CUDA-event times of the exact train step at both widths;
+ 90. the streamed K4 adjoint on hepmass42's inputs (B = 4096, through the
+     wrapper's launcher: the routing keeps hepmass42 on the wide K4
+     adjoint) beside the wide K4 adjoint on the same inputs: equal steps,
+     held to each other within the twin bounds, each timed (a b b a), µs a
+     step beside the FMA bound.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -3261,14 +3280,21 @@ def stream_two_layer(cnf, fs, dev):
     n_fit = launched(fs)
     check(set(n_fit) == {fs.K1S_KERNEL, fs.K2S_KERNEL} and min(n_fit.values()) >= N_STEPS,
           f"miniboone86 fit launched {n_fit}")
-    try:
-        loss_grad(cnf, model(exact=True), ps_np, xs, dev, **steer)
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
-    check("ROADMAP queue 2, shape variants (e)" in raised, f"the miniboone86 exact gradient: {raised!r}")
-    print(f"phase 83: miniboone86 main paths: logpdf and sample launched {n_serve}, fit {n_fit}; the exact "
-          f"gradient raises: {raised}")
+    # The exact gradient at B = 256 through streamed K7 exact and the
+    # streamed K4 adjoint, against fused=False and a float64 rtol 1e-7 solve.
+    nb = 256
+    fs.reset_launches()
+    l_k, g_k, _ = loss_grad(cnf, model(exact=True), ps_np, xs[:nb], dev, **steer)
+    torch.cuda.synchronize()
+    n_exact = launched(fs)
+    check(n_exact == {fs.K7S_KERNEL + "/exact": 1, fs.K4SA_KERNEL: 1}, f"miniboone86 exact gradient launched {n_exact}")
+    l_p, g_p, _ = loss_grad(cnf, model(exact=True, fused=False), ps_np, xs[:nb], dev, **steer)
+    l_t, g_t, _ = loss_grad(cnf, model(exact=True, fused=False, dtype=torch.float64, solver=truth), ps_np, xs[:nb],
+                            dev, torch.float64, **steer)
+    torch.cuda.synchronize()
+    hold_gradients(f"miniboone86 exact B={nb}", l_k, g_k, l_p, g_p, l_t, g_t)
+    print(f"phase 83: miniboone86 main paths: logpdf and sample launched {n_serve}, fit {n_fit}, the exact gradient "
+          f"at B={nb} {n_exact}")
     launches = {"k3s": n_serve[fs.K3S_KERNEL], "k5s": n_test[fs.K5S_KERNEL], "k1c": n_fit[fs.K1S_KERNEL],
                 "k2c": n_fit[fs.K2S_KERNEL]}
 
@@ -3352,6 +3378,142 @@ def stream_two_layer(cnf, fs, dev):
           f"dz40 TEST gradient launched {n_d}")
     records += stream_two_layer_records(fs, "dz40", dims_d, runs_d,
                                         {"k3s": n_d[fs.K3S_KERNEL], "k5s": n_d[fs.K5S_KERNEL]}, B)
+    return records
+
+
+def k4s_record(fs, suffix, dims, out, err, ms, plain_ms, launches, B):
+    """The streamed K4 adjoint's record at batch B (bound: the wide K4
+    adjoint's FMA count, `two_layer_fma`'s "k4a", and its bytes)."""
+    dz, H = dims[0], dims[1]
+    P = 2 * dz * H + H + dz
+    return kernel_record(f"{fs.K4SA_KERNEL}/{suffix}", "k4_stream_adjoint.cu", "continuousnf_tpu/ops/fused_solve.py:1767",
+                         launches, err, ms, plain_ms, two_layer_fma(dz, H)["k4a"], B, steps_of(out)[0],
+                         P + (P + dz * dz * H) + B * (4 * dz + 9), accepted=steps_of(out)[1])
+
+
+def k4s_step_bound_us(dims, B, tab=None) -> float:
+    """The FMA bound of one attempted step of the exact adjoint (S - 1 stage
+    evaluations at `two_layer_fma`'s "k4a" a sample) in microseconds."""
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+
+    tab = tab or TSIT5
+    return 2.0 * two_layer_fma(dims[0], dims[1])["k4a"] * B * (tab.num_stages - 1) / F32_FLOPS * 1e6
+
+
+def stream_exact(cnf, fs, dev):
+    """Phases 87 to 90: exact training of the README net family past the wide
+    limits, miniboone86 (B = 4096) and bsds126 (B = 2048), through streamed
+    K7 exact forward and the streamed K4 adjoint backward; then the streamed
+    K4 adjoint on hepmass42's inputs beside the wide K4 adjoint, which keeps
+    that net.  Returns the streamed K4 adjoint's records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    label_k = fs.K4SA_KERNEL
+    lib = fs._library(label_k)
+    steer = {"steer_r": 0.05}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 620)
+    records, cases = [], {}
+    for i, key in enumerate(("miniboone86", "bsds126")):
+        cfg = MODELS[key]
+        dims, B = cfg["dims"], cfg.get("batch", BATCH)
+        rng = np.random.default_rng(SEED + 600 + i)
+        ps_np = glorot_params(rng, dims)
+        xs = torch.from_numpy(model_data(key, rng, B)).to(dev)
+        ps = cnf.params_from_numpy(ps_np, dev)
+        icnf = make_icnf(key, dev, exact=True)
+        spec = fs.chain_spec(icnf.nn, icnf.zdim)
+        check(fs._stream_exact_covers(TSIT5, spec) is None, f"the streamed K4 adjoint should take {key}")
+
+        # Phase 87: the launch shape; streamed K7 exact against its twin from
+        # nonzero accumulators, then the streamed K4 adjoint against its twin
+        # from that output, warm-started from its last step: equal steps, the
+        # state held to the float64 twin, gradients within GRAD_TOL; timed.
+        arr = (ctypes.c_int * 3)(*dims)
+        shape = (ctypes.c_int * 5)()
+        err = lib.cnf_k4s_shape(2, arr, B, shape)
+        check(err == 0 and shape[1] >= 1, f"cnf_k4s_shape: cudaError {err}")
+        print(f"phase 87: cnf_k4s_shape at widths {dims}, B={B}: {shape[0]} threads a block, {shape[1]} blocks, tile "
+              f"{shape[2]}, {shape[3]} bytes of dynamic shared memory, {shape[4]} floats of global tile scratch a "
+              "block")
+        _, _, exact, cot = kernel_inputs(icnf, ps, xs, rng, dev)
+        fwd = run_pair(f"{fs.K7S_KERNEL}/exact ({key})", fs.run_stream_exact_solve_kernel, fs.solve_train_exact_plain,
+                       TSIT5, spec, exact, reps=1)[0]
+        kw = adjoint_kw(exact, fwd, cot)
+        with torch.no_grad():
+            out_k = fs.run_stream_exact_adjoint_kernel(TSIT5, spec, **kw)
+            out_p, plain_ms = timed(lambda: fs.adjoint_train_exact_plain(TSIT5, spec, **kw))
+            out_64 = fs.adjoint_train_exact_plain(TSIT5, spec, **{k: to64(v) for k, v in kw.items()})
+        check([int(x) for x in steps_of(out_k)] == [int(x) for x in steps_of(out_p)],
+              f"{label_k} ({key}) steps {steps_of(out_k)} vs its twin's {steps_of(out_p)}")
+        err = hold_adjoint(f"{label_k} ({key})", out_k, out_p, out_64)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fs.run_stream_exact_adjoint_kernel(TSIT5, spec, **kw), 1, warmup=False)
+        n = int(out_k[5])
+        print(f"phase 87: {label_k} ({key}) B={B}: {ms:.4f} ms, plain version {plain_ms:.4f} ms ({n} steps, "
+              f"{ms * 1e3 / max(n, 1):.1f} us per attempted step; the FMA bound {k4s_step_bound_us(dims, B):.1f} us)")
+        cases[key] = (dims, B, ps_np, xs, out_k, err, ms, plain_ms)
+
+    # Phase 88: the main paths, counters reset just before each: the exact
+    # `fit` for four Lion steps at miniboone86 (B = 4096); the exact loss
+    # gradient of bsds126 (B = 2048).
+    dims, B, ps_np, xs, *_ = cases["miniboone86"]
+    fit_path(cnf, fs, make_icnf("miniboone86", dev, exact=True), ps_np, dev,
+             model_data("miniboone86", np.random.default_rng(SEED + 602), N_STEPS * B), batch_size=B)
+    n_efit = launched(fs)
+    check(set(n_efit) == {fs.K7S_KERNEL + "/exact", label_k} and min(n_efit.values()) >= N_STEPS,
+          f"miniboone86 exact fit launched {n_efit}")
+    dims_b, B_b, ps_np_b, xs_b, *_ = cases["bsds126"]
+    fs.reset_launches()
+    l_b, g_b, _ = loss_grad(cnf, make_icnf("bsds126", dev, exact=True), ps_np_b, xs_b, dev, **steer)
+    torch.cuda.synchronize()
+    n_grad_b = launched(fs)
+    check(n_grad_b == {fs.K7S_KERNEL + "/exact": 1, label_k: 1}, f"bsds126 exact gradient launched {n_grad_b}")
+    check(bool(torch.isfinite(l_b)) and all(bool(torch.isfinite(x).all()) for x in g_b),
+          "bsds126 exact loss or gradient not finite")
+    print(f"phase 88: miniboone86 exact fit ({N_STEPS} Lion steps at B={B}) launched {n_efit}; bsds126 exact loss "
+          f"gradient at B={B_b} {n_grad_b}, loss {float(l_b):.6f}")
+    launches = {"miniboone86": n_efit[label_k], "bsds126": n_grad_b[label_k]}
+
+    # Phase 89: CUDA-event times of the exact train step (loss, gradient,
+    # Lion) at both widths.
+    for key in ("miniboone86", "bsds126"):
+        dims, B, ps_np, xs, out_k, err, ms, plain_ms = cases[key]
+        ms_step = step_ms(cnf, make_icnf(key, dev, exact=True), ps_np, xs, gen, dev, 2)
+        print(f"phase 89: {key} exact train step B={B}: {ms_step:.4f} ms ({B / ms_step * 1e3:.1f} samples/s)")
+        records.append(k4s_record(fs, key, dims, out_k, err, ms, plain_ms, launches[key], B))
+
+    # Phase 90: the streamed K4 adjoint on hepmass42's inputs (B = 4096,
+    # from wide K7 exact's output), through the wrapper's launcher (the
+    # wrapper's rule keeps hepmass42 on the wide K4 adjoint), beside the wide
+    # K4 adjoint on the same inputs: held to each other within the twin
+    # bounds, each timed (a b b a).
+    cfg = MODELS["hepmass42"]
+    dims, B = cfg["dims"], BATCH
+    rng = np.random.default_rng(SEED + 610)
+    ps_np = glorot_params(rng, dims)
+    xs = torch.from_numpy(model_data("hepmass42", rng, B)).to(dev)
+    icnf = make_icnf("hepmass42", dev, exact=True)
+    spec = fs.chain_spec(icnf.nn, icnf.zdim)
+    check(fs._wide_two_layer_covers(TSIT5, spec) is None and fs._stream_exact_covers(TSIT5, spec) is not None,
+          "hepmass42 should stay on the wide K4 adjoint")
+    _, _, exact, cot = kernel_inputs(icnf, cnf.params_from_numpy(ps_np, dev), xs, rng, dev)
+    with torch.no_grad():
+        kw = adjoint_kw(exact, fs.run_wide_exact_solve_kernel(TSIT5, spec, **exact), cot)
+        run_w = lambda: fs.run_wide_exact_adjoint_kernel(TSIT5, spec, **kw)  # noqa: E731
+        run_s = lambda: fs._launch_stream_exact_adjoint(TSIT5, spec, **kw)  # noqa: E731
+        out_w, out_s = run_w(), run_s()
+        out_64 = fs.adjoint_train_exact_plain(TSIT5, spec, **{k: to64(v) for k, v in kw.items()})
+    check([int(x) for x in steps_of(out_s)] == [int(x) for x in steps_of(out_w)],
+          f"hepmass42: the streamed K4 adjoint's steps {steps_of(out_s)} vs the wide K4 adjoint's {steps_of(out_w)}")
+    hold_adjoint(f"{label_k} vs {fs.K4WA_KERNEL} (hepmass42)", out_s, out_w, out_64)
+    with torch.no_grad():
+        ms_w, ms_s = paired_ms(run_w, run_s, 2)
+    n = int(out_s[5])
+    print(f"phase 90: hepmass42 B={B}, {n} attempted steps: the wide K4 adjoint {ms_w:.4f} ms "
+          f"({ms_w * 1e3 / max(n, 1):.1f} us a step), the streamed K4 adjoint {ms_s:.4f} ms "
+          f"({ms_s * 1e3 / max(n, 1):.1f} us a step); the FMA bound {k4s_step_bound_us(dims, B):.1f} us a step")
     return records
 
 
@@ -3658,7 +3820,7 @@ def main() -> int:
                                     fs.K5_KERNEL, fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL, fs.K1W_KERNEL,
                                     fs.K2W_KERNEL, fs.K7W_KERNEL, fs.K10_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL,
                                     fs.K4WA_KERNEL, fs.K1S_KERNEL, fs.K2S_KERNEL, fs.K7S_KERNEL, fs.K3B_KERNEL,
-                                    fs.K1B_KERNEL, fs.K2B_KERNEL, fs.K3S_KERNEL, fs.K5S_KERNEL])
+                                    fs.K1B_KERNEL, fs.K2B_KERNEL, fs.K3S_KERNEL, fs.K5S_KERNEL, fs.K4SA_KERNEL])
     print(f"built {len(built)} kernels in {time.perf_counter() - t_build:.2f} s (one nvcc each, in parallel)")
     for name, (lib_path, log) in built.items():
         print(f"  {lib_path.name}")
@@ -3710,7 +3872,8 @@ def main() -> int:
                          ("61-66", lambda: wide_two_layer(cnf, fs, dev)),
                          ("67-72", lambda: miniboone860(cnf, fs, dev)),
                          ("73-78", lambda: bf16_paths(cnf, fs, dev)),
-                         ("79-86", lambda: stream_two_layer(cnf, fs, dev))):
+                         ("79-86", lambda: stream_two_layer(cnf, fs, dev)),
+                         ("87-90", lambda: stream_exact(cnf, fs, dev))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -13,7 +13,7 @@ Port of `continuousnf_tpu/ops/fused_solve.py`: `ChainSpec`/`chain_spec`
 conditioning rows of `_zin` (:265-269) in every stage, in batch-major
 layout.
 
-Twenty-three CUDA kernels (`csrc/`), each with a plain PyTorch twin; six for
+Twenty-four CUDA kernels (`csrc/`), each with a plain PyTorch twin; six for
 2-layer tanh MLPs of state width up to MAX_DZ:
 - K3 (`k3_test_solve.cu`, `run_solve_kernel`, twin `solve_test_plain`) for
   `_run_solve_kernel` with `_stage_test`: the TEST solve of [z | dlogp];
@@ -72,7 +72,12 @@ and the streamed forms of the two 2-layer TEST stages for the 2-layer tanh
 nets among those (the README net family at the MINIBOONE width,
 86 -> 258 -> 86), on `csrc/two_layer_stream.cuh` and with the same twins:
 streamed K3 (`k3_stream_solve.cu`, `run_stream_test2_solve_kernel`) and
-streamed K5 (`k5_stream_adjoint.cu`, `run_stream_test_adjoint_kernel`);
+streamed K5 (`k5_stream_adjoint.cu`, `run_stream_test_adjoint_kernel`), and
+their exact backward member, the streamed K4 adjoint
+(`k4_stream_adjoint.cu`, `run_stream_exact_adjoint_kernel`, twin
+`adjoint_train_exact_plain`: each stage's per-sample pass, then the
+batch-summed gradient rate as slice-owned contractions over the whole
+batch);
 and three under bf16 stage matmuls (`ComputeMode.bf16`: the JAX package's
 `_mm(..., "bf16")` :193-225, both operands rounded to bfloat16, float32
 sums), for unconditional 2-layer tanh nets of state width up to MAX_DZ and
@@ -99,9 +104,9 @@ with an identity layer (their wide forms past the narrow widths), the
 2-layer kernels for unconditional 2-layer tanh nets (past MAX_DZ: wide K3,
 the wide K1 and K2 chain forms, wide K7 exact and the wide K4 adjoint,
 wide K5; past the wide forms' state width, hidden widths or shared memory
-streamed K3 and K5 and the streamed chain forms, with the wide K4 adjoint
-as the exact backward member, which raises there), and K5 for the TEST
-backward of every other 2-layer tanh net,
+streamed K3 and K5 and the streamed chain forms, with the streamed K4
+adjoint as the exact backward member), and K5 for the TEST backward of
+every other 2-layer tanh net,
 conditional or not; chains the wide forms refuse for their hidden widths or
 their weights' shared memory run the streamed forms (one VJP probe).  The
 forward kernels
@@ -148,6 +153,7 @@ K2S_KERNEL = "k2_stream_adjoint"
 K7S_KERNEL = "k7_stream_solve"
 K3S_KERNEL = "k3_stream_solve"
 K5S_KERNEL = "k5_stream_adjoint"
+K4SA_KERNEL = "k4_stream_adjoint"
 K3B_KERNEL = "k3_bf16_solve"
 K1B_KERNEL = "k1_bf16_solve"
 K2B_KERNEL = "k2_bf16_adjoint"
@@ -997,8 +1003,8 @@ def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str
     up to WIDE_MAX_DZ and hidden widths up to WIDE_MAX_WIDTH, under every
     embedded tableau.  Past those the streamed chain forms run the
     Hutchinson and exact-forward stages, streamed K3 and K5 the TEST stages
-    (`_stream_two_layer_covers`), and the exact backward member (the wide K4
-    adjoint) raises: ROADMAP queue 2, shape variants (e)."""
+    (`_stream_two_layer_covers`) and the streamed K4 adjoint the exact
+    backward member (`_stream_exact_covers`)."""
     if not _two_layer_tanh(spec):
         return ("nets other than 2-layer tanh chains in wide K3, wide K5 and the wide K4 adjoint (the JAX "
                 "package's 2-layer TEST and exact stages assume tanh layers, reference fault 2: the chain kernels "
@@ -1009,27 +1015,30 @@ def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str
 
 
 def _stream_two_layer(spec: ChainSpec) -> bool:
-    """Whether streamed K3 and K5 run a net's TEST stages: an unconditional
-    2-layer tanh chain past MAX_DZ that the streamed chain forms run (state
-    widths to STREAM_MAX_DZ past the wide 2-layer kernels' limits: the README
-    net family at the MINIBOONE width, 86 -> 258 -> 86)."""
+    """Whether streamed K3 and K5 run a net's TEST stages and the streamed
+    K4 adjoint its exact backward member: an unconditional 2-layer tanh
+    chain past MAX_DZ that the streamed chain forms run (state widths to
+    STREAM_MAX_DZ past the wide 2-layer kernels' limits: the README net
+    family at the MINIBOONE and BSDS300 widths, 86 -> 258 -> 86 and
+    126 -> 378 -> 126)."""
     return _wide_two_layer(spec) and _stream_chain(spec)
 
 
 def _stream_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
-    """Why streamed K3 and K5 do not run this configuration (None if they
-    do): they take the unconditional 2-layer tanh nets of `_stream_two_layer`
+    """Why streamed K3 and K5 (and the streamed K4 adjoint,
+    `_stream_exact_covers`) do not run this configuration (None if they do):
+    they take the unconditional 2-layer tanh nets of `_stream_two_layer`
     under every embedded tableau."""
     if not _two_layer_tanh(spec):
-        return ("nets other than 2-layer tanh chains in streamed K3 and K5 (the JAX package's 2-layer TEST stage "
-                "assumes tanh layers, reference fault 2: streamed K7 takes identity layers forward, and their "
-                "gradient runs the plain backward)")
+        return ("nets other than 2-layer tanh chains in streamed K3, K5 and the streamed K4 adjoint (the JAX "
+                "package's 2-layer TEST and exact stages assume tanh layers, reference fault 2: streamed K7 takes "
+                "identity layers forward, and their gradient runs the plain backward)")
     if spec.n_cond:
         return _COND_WIDE
     why = _kernel_covers(tab, spec, chain=True)
     if why is None and not _stream_two_layer(spec):
-        why = (f"state width {spec.dz} with hidden width {spec.out_dims[0]} in streamed K3 and K5 (K3 and K5 or "
-               "their wide forms take the net)")
+        why = (f"state width {spec.dz} with hidden width {spec.out_dims[0]} in streamed K3, K5 and the streamed K4 "
+               "adjoint (K3, K5 and the K4 adjoint or their wide forms take the net)")
     return why
 
 
@@ -1174,6 +1183,10 @@ _SIGNATURES = {
     K5S_KERNEL: {
         "cnf_k5s_shape": _WIDE_SHAPE,
         "cnf_k5s_test_adjoint": ([_P] * 17 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+    },
+    K4SA_KERNEL: {
+        "cnf_k4s_shape": _WIDE_SHAPE,
+        "cnf_k4s_exact_adjoint": ([_P] * 18 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K3B_KERNEL: {
         "cnf_k3b_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
@@ -2495,6 +2508,95 @@ def run_stream_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, 
 run_stream_test_adjoint_kernel.launches = 0
 
 
+def _stream_exact_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
+    """Why the streamed K4 adjoint does not run this configuration (None if
+    it does): it takes the nets streamed K3 and K5 take
+    (`_stream_two_layer_covers`) under every embedded tableau, while its
+    gradient with g_pm (P + dz^2 H floats) keeps 32-bit offsets."""
+    why = _stream_two_layer_covers(tab, spec)
+    if why is not None:
+        return why
+    dz, H = spec.dz, spec.out_dims[0]
+    total = _param_count(spec) + dz * dz * H
+    if total > STREAM_MAX_PARAMS:
+        return (f"{total} gradient entries with g_pm in the streamed K4 adjoint (its offsets are 32-bit ints, up to "
+                f"{STREAM_MAX_PARAMS}; ROADMAP queue 2, shape variants (e))")
+    return None
+
+
+def _launch_stream_exact_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
+                                 t_hi, t_lo, dt_init):
+    label = "streamed K4 adjoint"
+    B, dz = zT.shape
+    H = spec.out_dims[0]
+    device = zT.device
+    params, widths = _chain_params(label, spec, ws, bs, device)
+    zT, accT, azT, aaccT = _check_inputs(label, device, [zT, accT, azT, aaccT], [(B, dz), (3, B), (B, dz), (3, B)])
+    lib = _library(K4SA_KERNEL)
+    block, grid, T, tiles = _stream_shape(lib, "cnf_k4s_shape", label, spec, widths, B, device)
+    P = params.numel()
+    Pt = P + dz * dz * H
+    f32 = dict(dtype=torch.float32, device=device)
+    ts = torch.stack([t_hi, t_lo, dt_init]).to(**f32)
+    z0, acc0, az0 = torch.empty_like(zT), torch.empty_like(accT), torch.empty_like(zT)
+    g, gnew = torch.empty(Pt, **f32), torch.empty(Pt, **f32)
+    stats = torch.empty(2, dtype=torch.int32, device=device)
+    work = torch.empty((tab.num_stages + 2) * (2 * dz + 3) * B, **f32)
+    partials = torch.empty(10 * grid, **f32)
+    gvec = torch.empty((_gvecs(tab) + 2) * Pt, **f32)
+    fac = torch.empty(B * (dz * dz + 3 * H + 2 * dz + 2), **f32)
+    w2t = torch.empty(dz * H, **f32)
+    err = lib.cnf_k4s_exact_adjoint(
+        _ptr(params), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0),
+        _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gvec), _ptr(gnew), _ptr(fac), _ptr_or_null(tiles),
+        _ptr(w2t), B, spec.n_layers, widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j), rtol, atol,
+        *_controller_floats(tab), _tableau_array(tab), T, grid, block, _stream(device),
+    )
+    _check_launch(err, label, grid, block)
+    g_ws, g_bs = _split_params(g[:P], spec)
+    g_w1, g_w2 = exact_pm_chain(g[P:].view(dz * dz, H), ws[0], ws[1])
+    return z0, acc0, az0, [g_ws[0] + g_w1, g_ws[1] + g_w2], g_bs, stats[0], stats[1]
+
+
+def run_stream_exact_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init, ys=None,
+):
+    """The streamed K4 adjoint: the K4 adjoint's exact backsolve with g_pm
+    in the state and in the error norm (`run_exact_adjoint_kernel`) for the
+    unconditional 2-layer tanh nets streamed K3 takes (the README net family
+    at the MINIBOONE and BSDS300 widths); arguments and returns as
+    `run_exact_adjoint_kernel`, g_pm chained into g_w1 and g_w2.
+
+    CUDA tensors go through the kernel (`csrc/k4_stream_adjoint.cu`: each
+    stage's per-sample pass, then the batch-summed gradient rate as
+    slice-owned contractions over the whole batch), CPU tensors through its
+    plain version (with ys (B, n_cond), a_ys0 is returned last)."""
+    if not _two_layer_tanh(spec):
+        raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
+    _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
+        )
+    if zT.device.type != "cuda":
+        raise ValueError(f"the streamed K4 adjoint runs on CUDA or CPU tensors, got {zT.device}")
+    why = _stream_exact_covers(tab, spec)
+    if why is not None:
+        raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
+    if dt_init is None:
+        raise ValueError("the streamed K4 adjoint needs dt_init (the caller picks it)")
+    out = _launch_stream_exact_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol,
+                                       max_steps=max_steps, ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+                                       t_hi=t_hi, t_lo=t_lo, dt_init=dt_init)
+    run_stream_exact_adjoint_kernel.launches += 1
+    return out
+
+
+run_stream_exact_adjoint_kernel.launches = 0
+
+
 # ---- the bf16 kernels (bf16 stage matmuls on the tensor cores) ----
 
 #: The bf16 kernels take unconditional 2-layer tanh nets of state width up
@@ -2675,6 +2777,7 @@ KERNEL_WRAPPERS = {
     K7S_KERNEL + "/exact": run_stream_exact_solve_kernel,
     K3S_KERNEL: run_stream_test2_solve_kernel,
     K5S_KERNEL: run_stream_test_adjoint_kernel,
+    K4SA_KERNEL: run_stream_exact_adjoint_kernel,
     K3B_KERNEL: run_bf16_solve_kernel,
     K1B_KERNEL: run_bf16_train_solve_kernel,
     K2B_KERNEL: run_bf16_adjoint_kernel,
@@ -2766,10 +2869,10 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     run the streamed forms: streamed K7 TEST and exact forward, the streamed
     K1 and K2 chain forms under Hutchinson TRAIN with one VJP probe (K
     probes or JVP raise on the card); a 2-layer tanh net past MAX_DZ among
-    them (the README net family at the MINIBOONE width, 86 -> 258 -> 86)
-    runs streamed K3 forward and streamed K5 backward in TEST mode, and
-    keeps the wide K4 adjoint as its exact backward member, which raises on
-    the card (ROADMAP queue 2, shape variants (e)).
+    them (the README net family at the MINIBOONE and BSDS300 widths,
+    86 -> 258 -> 86 and 126 -> 378 -> 126) runs streamed K3 forward and
+    streamed K5 backward in TEST mode, and streamed K7 exact forward with
+    the streamed K4 adjoint backward under exact trace.
     """
     cm = icnf.compute_mode
     opts = icnf.solver
@@ -2843,6 +2946,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         run_exact, run_adjoint = run_stream_exact_solve_kernel, run_stream_adjoint_kernel
         if wide2:
             run_test, run_test_adj = run_stream_test2_solve_kernel, run_stream_test_adjoint_kernel
+            run_exact_adj = run_stream_exact_adjoint_kernel
     elif chain and _wide_chain(spec):
         run_test, run_train = run_wide_test_solve_kernel, run_wide_train_solve_kernel
         run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel
@@ -2893,8 +2997,9 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
 
     def adjoint(yTf, g_yf, args, t_hi, t_lo, dt_warm=None):
         """Backward solve of (z, acc, a_z, [a_ys,] g_p) (and g_pm under exact
-        trace) from t_hi down to t_lo: K2 (or its chain and wide forms), the
-        K4 adjoint or, in TEST mode, K5.  Returns (y0f, a_y0f, g_args, stats);
+        trace) from t_hi down to t_lo: K2 (or its chain, wide and streamed
+        forms), the K4 adjoint (or its wide and streamed forms) or, in TEST
+        mode, K5 (or its wide and streamed forms).  Returns (y0f, a_y0f, g_args, stats);
         a_acc is constant, so its final value is the incoming cotangent.
         `dt_warm` (the forward solve's last step size) is the first step;
         without it Hairer's rule picks one over the whole augmented state
@@ -2983,6 +3088,7 @@ __all__ = [
     "run_stream_adjoint_kernel",
     "run_stream_test2_solve_kernel",
     "run_stream_test_adjoint_kernel",
+    "run_stream_exact_adjoint_kernel",
     "run_bf16_solve_kernel",
     "run_bf16_train_solve_kernel",
     "run_bf16_adjoint_kernel",

@@ -37,8 +37,9 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     features in the MAF preprocessing of the UCI tabular suite): RNODE,
     MLP 86 -> 258 -> 86 tanh, lambda3 = 1e-2, steer_rate 0.1, tspan (0, 13),
     batch 4096; data from the `synthetic_tabular` recipe at 43 variables.
-    Past the wide 2-layer kernels' state width: streamed K3 and K5 and the
-    streamed K1 and K2 chain forms run it.  Nothing is cut.
+    Past the wide 2-layer kernels' state width: streamed K3 and K5, the
+    streamed K1 and K2 chain forms, and streamed K7 exact with the streamed
+    K4 adjoint run it.  Nothing is cut.
   * bsds126 (the same family at BSDS300's 63 features): RNODE, nvars =
     naug = 63, MLP 126 -> 378 -> 126 tanh, the same lambda, steering and
     tspan, batch 2048: the largest power of two at which the JAX package's

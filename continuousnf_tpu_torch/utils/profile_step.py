@@ -14,9 +14,9 @@ kernels; `--model miniboone860`: FFJORD's MINIBOONE model, RNODE, MLP
 hepmass42`: the README net family at the HEPMASS width, RNODE, MLP
 42 -> 126 -> 42, through the wide 2-layer kernels and the wide chain
 forms; `--model miniboone86` / `bsds126`: the same family at 86 -> 258 ->
-86 and 126 -> 378 -> 126, through streamed K3 and K5 and the streamed chain
-forms, without the exact-trace step, whose backward raises on the card
-there), its weights and its data from a seed as `utils/configs.py` makes
+86 and 126 -> 378 -> 126, through streamed K3 and K5, the streamed chain
+forms, and streamed K7 exact with the streamed K4 adjoint for the
+exact-trace step), its weights and its data from a seed as `utils/configs.py` makes
 them, one Gaussian VJP probe (`--probes K` Gaussian probes, `--jvp`
 forward-mode ones: the Hutchinson train steps run the probe instances of
 the K1 and K2 kernels or of their chain forms, narrow or wide (miniboone43),
@@ -158,11 +158,9 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
     out = {"model": name, "device": torch.cuda.get_device_name(0), "probes": num_probes, "jvp": jvp,
            "direct": direct, "fixed": fixed, "bf16": bf16}
     gen = torch.Generator(device=dev).manual_seed(seed)
-    from ..ops import fused_solve as fs
 
-    # Past the wide limits a 2-layer net's exact backward member raises on the card (ROADMAP queue 2, (e)).
-    stream2 = fs._stream_two_layer(fs.chain_spec(cnf.MLP(cfg["dims"], device="cpu"), cfg["dims"][-1]))
-    paths = [("train_step", False, B)] + ([] if bf16 or stream2 else [("exact_train_step", True, B)])
+    # bf16 has no exact-trace stages (ROADMAP queue 2, the bf16 row).
+    paths = [("train_step", False, B)] + ([] if bf16 else [("exact_train_step", True, B)])
     if "batch_size" in cfg:
         paths.append((f"train_step_b{cfg['batch_size']}", False, cfg["batch_size"]))
     for label, exact, b in paths:

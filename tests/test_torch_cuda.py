@@ -8,8 +8,9 @@ K3, wide K5 and the wide K4 adjoint for 2-layer nets past state width 32,
 the HEPMASS width of the README net family; the streamed forms of the
 chain kernels for chains whose weights pass a block's shared memory, FFJORD's
 MINIBOONE width 43 -> 860 -> 860 -> 43, and for state widths 65 to 128;
-streamed K3 and K5 for 2-layer nets past the wide limits, the README net
-family at the MINIBOONE width 86 -> 258 -> 86) against their plain PyTorch
+streamed K3 and K5 and the streamed K4 adjoint for 2-layer nets past the
+wide limits, the README net family at the MINIBOONE width 86 -> 258 -> 86
+and the BSDS300 width 126 -> 378 -> 126) against their plain PyTorch
 versions, on the card, and the configurations they do not cover.
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a card
@@ -1206,17 +1207,19 @@ def test_stream_two_layer_kernels_match_twins(dev, dims, B, span):
         ((129, 387, 129), "run_stream_test2_solve_kernel", "test", "state width 129 > 128"),
         ((129, 387, 129), "run_stream_test_adjoint_kernel", "test-adjoint", "state width 129 > 128"),
         ((129, 387, 129), "run_stream_train_solve_kernel", "train", "state width 129 > 128"),
+        ((129, 387, 129), "run_stream_exact_adjoint_kernel", "exact-adjoint", "state width 129 > 128"),
         (MINIBOONE86, "run_wide_exact_adjoint_kernel", "exact-adjoint", "state width 86 > 64"),
         (MINIBOONE86, "run_stream_train_solve_kernel", "two-probes", "K6 in the streamed forms"),
         (MINIBOONE86, "run_stream_train_solve_kernel", "jvp", "K6 in the streamed forms"),
         ((42, 126, 42), "run_stream_test2_solve_kernel", "test", "wide forms take the net"),
     ],
-    ids=["dz129-test", "dz129-test-adjoint", "dz129-train", "miniboone86-exact-adjoint", "miniboone86-two-probes",
-         "miniboone86-jvp", "hepmass42-in-streamed-K3"],
+    ids=["dz129-test", "dz129-test-adjoint", "dz129-train", "dz129-exact-adjoint", "miniboone86-exact-adjoint",
+         "miniboone86-two-probes", "miniboone86-jvp", "hepmass42-in-streamed-K3"],
 )
 def test_stream_two_layer_limits_raise_on_cuda(dev, dims, wrapper, kind, why):
-    """A 2-layer net past state width 128, the exact backward member past
-    the wide limits (the wide K4 adjoint), K > 1 or JVP probes in the
+    """A 2-layer net past state width 128 (the streamed K4 adjoint
+    included), the wide K4 adjoint past its own limits (the streamed K4
+    adjoint takes miniboone86's exact backward), K > 1 or JVP probes in the
     streamed forms, and a net the wide 2-layer kernels take, raise
     NotImplementedError on the card naming their reason and, past the
     kernels' widths, ROADMAP queue 2's shape variants (e).  Nothing is
@@ -1251,9 +1254,9 @@ def test_stream_two_layer_paths_on_the_card_match_the_twins_on_the_cpu(dev):
     steer_rate 0.1; tspan (0, 1) here) on the card and on the CPU at
     B = 256: logpdf through streamed K3; the TEST loss gradient and the score
     through streamed K3 and K5; the Hutchinson loss and gradient through the
-    streamed K1 and K2 chain forms; each launching those kernels once and no
-    other; the exact loss gradient raises on the card naming ROADMAP queue 2
-    row (e) after its forward (streamed K7 exact)."""
+    streamed K1 and K2 chain forms; the exact loss and gradient through
+    streamed K7 exact and the streamed K4 adjoint; each launching those
+    kernels once and no other."""
     xs = np.random.default_rng(4).normal(size=(256, 43)).astype(np.float32)
     eps = np.random.default_rng(5).normal(size=(1, 256, 86)).astype(np.float32)
     ps_np = _np_params(MINIBOONE86, 3)
@@ -1263,7 +1266,7 @@ def test_stream_two_layer_paths_on_the_card_match_the_twins_on_the_cpu(dev):
                               steer_rate=0.1, lam3=1e-2, compute_mode=tcnf.VecJacMode(fused=True, exact_trace=exact))
 
     def run(device, mode):
-        icnf = model(device)
+        icnf = model(device, exact=mode == "exact")
         ps = tcnf.params_from_numpy(ps_np, device)
         leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
         if mode == "test":
@@ -1275,11 +1278,13 @@ def test_stream_two_layer_paths_on_the_card_match_the_twins_on_the_cpu(dev):
             x = torch.from_numpy(xs).to(device).requires_grad_()
             lp = tcnf.ICNFDist(icnf, tcnf.Mode.TEST, ps).logpdf(x)
             return None, lp.detach().cpu(), [torch.autograd.grad(lp.sum(), x)[0].cpu()]
-        l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, eps=eps, steer_r=0.05)
+        kw = {"steer_r": 0.05} if mode == "exact" else {"eps": eps, "steer_r": 0.05}
+        l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, **kw)
         return None, l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)]
 
     wants = {"test": {tfs.K3S_KERNEL: 2, tfs.K5S_KERNEL: 1}, "score": {tfs.K3S_KERNEL: 1, tfs.K5S_KERNEL: 1},
-             "train": {tfs.K1S_KERNEL: 1, tfs.K2S_KERNEL: 1}}
+             "train": {tfs.K1S_KERNEL: 1, tfs.K2S_KERNEL: 1},
+             "exact": {tfs.K7S_KERNEL + "/exact": 1, tfs.K4SA_KERNEL: 1}}
     for mode, want in wants.items():
         before = _launches()
         lp_k, l_k, g_k = run(dev, mode)
@@ -1289,11 +1294,61 @@ def test_stream_two_layer_paths_on_the_card_match_the_twins_on_the_cpu(dev):
         assert _close(l_k, l_c) and (lp_k is None or _close(lp_k, lp_c))
         for a, b in zip(g_k, g_c):
             assert _grad_close(a, b)
-    ps = tcnf.params_from_numpy(ps_np, dev)
-    leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
-    with pytest.raises(NotImplementedError) as err:
-        torch.autograd.grad(tcnf.loss(model(dev, exact=True), tcnf.Mode.TRAIN, xs, ps, steer_r=0.05), leaves)
-    assert "ROADMAP queue 2, shape variants (e)" in str(err.value)
+
+
+# id -> (dims, B, span, tableau, rtol, atol)
+_K4S_CASES = {
+    "miniboone86-B4000": (MINIBOONE86, 4000, (0.0, 13.0), TSIT5, 1e-3, 1e-6),
+    "miniboone86-reverse-B37": (MINIBOONE86, 37, (1.0, 0.0), TSIT5, 1e-3, 1e-6),
+    "dz72-B1": ((72, 80, 72), 1, (0.0, 1.0), TSIT5, 1e-3, 1e-6),
+    "bsds126-B37": (BSDS126, 37, (0.0, 1.0), TSIT5, 1e-3, 1e-6),
+    "dz128-B1": ((128, 384, 128), 1, (0.0, 1.0), TSIT5, 1e-3, 1e-6),
+    "dz40-hidden160-B300": ((40, 160, 40), 300, (0.0, 2.0), TSIT5, 1e-3, 1e-6),
+    "dz72-dopri5": ((72, 80, 72), 256, (0.0, 2.0), DOPRI5, 1e-3, 1e-6),
+    "miniboone86-verner65": (MINIBOONE86, 256, (0.0, 13.0), VERNER65, 3.452669831108329e-4, 1.1920929e-7),
+    "dz40-hidden160-dop853": ((40, 160, 40), 256, (0.0, 1.0), DOP853, 1e-6, 1e-8),
+}
+
+
+@pytest.mark.parametrize("case", list(_K4S_CASES))
+def test_stream_exact_adjoint_matches_twin(dev, case):
+    """The streamed K4 adjoint against `adjoint_train_exact_plain` from
+    the exact forward twin's output, warm-started from its last step: equal
+    steps, z0, acc0 and a_z0 held to the float64 twin (`_state_close`),
+    finite gradients (g_pm chained into W1 and W2) within GRAD_REL; under
+    dop853 at rtol 1e-6, where the float32 error estimate is roundoff (its
+    second error sum in the kernel's slices), attempted steps within
+    max(2, steps / 20) of the twin's and the same value bounds, else the
+    near-tie rule.  B = 1, 37 and ragged 4000, state widths 40 to 128; one
+    launch each."""
+    dims, B, span, tab, rtol, atol = _K4S_CASES[case]
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    assert tfs._stream_exact_covers(tab, spec) is None
+    kw, adj = _train_args(dims, B, span, dev)
+    ex = {k: v for k, v in kw.items() if k != "eps"}
+    ex.update(rtol=rtol, atol=atol)
+    adj = {k: v for k, v in adj.items() if k != "eps"}
+    adj.update(rtol=rtol, atol=atol)
+    n = tfs.run_stream_exact_adjoint_kernel.launches
+    with torch.no_grad():
+        fo = tfs.solve_train_exact_plain(tab, spec, **ex)
+        adj.update(zT=fo[0], accT=fo[1], dt_init=-torch.sign(ex["t1"] - ex["t0"]) * fo[4].abs())
+        out_k = tfs.run_stream_exact_adjoint_kernel(tab, spec, **adj)
+        out_p = tfs.adjoint_train_exact_plain(tab, spec, **adj)
+        out_64 = _twin64(tfs.adjoint_train_exact_plain, spec, adj, tab)
+    torch.cuda.synchronize()
+    assert tfs.run_stream_exact_adjoint_kernel.launches == n + 1
+    assert all(bool(torch.isfinite(g).all()) for g in out_k[3] + out_k[4])
+    assert [tuple(g.shape) for g in out_k[3] + out_k[4]] == [tuple(g.shape) for g in out_p[3] + out_p[4]]
+    if _adjoint_matches(out_k, out_p, out_64):
+        return
+    if tab is DOP853:
+        s_k, s_p = int(out_k[5]), int(out_p[5])
+        if abs(s_k - s_p) <= max(2, s_p // 20) and all(
+                _state_close(out_k[i], out_p[i], out_64[i]) for i in range(3)) and all(
+                _grad_close(a, b) for a, b in zip(out_k[3] + out_k[4], out_p[3] + out_p[4])):
+            return
+    _near_tie_holds(out_k, out_p, tfs.adjoint_train_exact_plain, spec, adj, "zT", tab)
 
 
 # ---- the chain kernels with conditioning rows (K8) ----

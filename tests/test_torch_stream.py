@@ -333,13 +333,14 @@ def test_stream_refusals_name_their_roadmap_row(name):
 
 def test_two_layer_backward_members_refuse_past_hidden_128():
     """A 2-layer net past hidden 128 runs the streamed forms for its
-    Hutchinson and exact forwards and streamed K3 and K5 for its TEST
-    forward and backward; its exact backward member (the wide K4 adjoint,
-    whose wide 2-layer layout stops at hidden 128) refuses it, naming shape
-    variants (e)."""
+    Hutchinson and exact forwards, streamed K3 and K5 for its TEST forward
+    and backward, and the streamed K4 adjoint for its exact backward; the
+    wide K4 adjoint, whose wide 2-layer layout stops at hidden 128, refuses
+    it, naming shape variants (e)."""
     spec = _spec(NETS["two-layer"])
     assert tfs._stream_chain(spec) and tfs._kernel_covers(TSIT5, spec, chain=True) is None
     assert tfs._stream_two_layer(spec) and tfs._stream_two_layer_covers(TSIT5, spec) is None
+    assert tfs._stream_exact_covers(TSIT5, spec) is None
     msg = tfs._wide_two_layer_covers(TSIT5, spec)
     assert "hidden width 160 > 128" in msg and "ROADMAP queue 2, shape variants (e)" in msg
 
@@ -360,10 +361,10 @@ _ROUTES = {
     ("wide2", "train"): ((34, 48, 34), ["run_wide_train_solve_kernel", "run_wide_adjoint_kernel"]),
     ("stream2", "train"): ((34, 160, 34), ["run_stream_train_solve_kernel", "run_stream_adjoint_kernel"]),
     ("wide2", "exact"): ((34, 48, 34), ["run_wide_exact_solve_kernel", "run_wide_exact_adjoint_kernel"]),
-    ("stream2", "exact"): ((34, 160, 34), ["run_stream_exact_solve_kernel", "run_wide_exact_adjoint_kernel"]),
+    ("stream2", "exact"): ((34, 160, 34), ["run_stream_exact_solve_kernel", "run_stream_exact_adjoint_kernel"]),
     ("dz70-stream2", "test"): ((70, 80, 70), ["run_stream_test2_solve_kernel", "run_stream_test_adjoint_kernel"]),
     ("dz70-stream2", "train"): ((70, 80, 70), ["run_stream_train_solve_kernel", "run_stream_adjoint_kernel"]),
-    ("dz70-stream2", "exact"): ((70, 80, 70), ["run_stream_exact_solve_kernel", "run_wide_exact_adjoint_kernel"]),
+    ("dz70-stream2", "exact"): ((70, 80, 70), ["run_stream_exact_solve_kernel", "run_stream_exact_adjoint_kernel"]),
     ("dz70-stream", "test"): ((70, 48, 32, 70), ["run_stream_test_solve_kernel"]),
 }
 _ALL_WRAPPERS = sorted({n for _, names in _ROUTES.values() for n in names})
@@ -375,9 +376,9 @@ def test_fused_solve_takes_the_forms_by_width(monkeypatch, route):
     where the wide forms refuse it, and keeps the narrow and wide choices: a
     3-layer chain (TEST inference; the Hutchinson and exact losses'
     gradients), a 2-layer net past dz 32 (the TEST loss gradient too: past
-    hidden 128 or dz 64 through streamed K3 and K5; its exact backward
-    member stays the wide K4 adjoint, which raises on the card there) and
-    a 3-layer chain past dz 64."""
+    hidden 128 or dz 64 through streamed K3 and K5, and its exact backward
+    member through the streamed K4 adjoint) and a 3-layer chain past dz
+    64."""
     dims, want = _ROUTES[route]
     form, mode = route
     called = []

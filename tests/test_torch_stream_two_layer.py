@@ -3,14 +3,15 @@ the JAX package on the CPU: the README net family MLP((n_in, 3 n_in, n_in))
 at the MINIBOONE width, `MLP((86, 258, 86))` (miniboone86: RNODE, nvars =
 naug = 43, the flagship recipe of bench.py), and `MLP((72, 80, 72))`, a
 state width past 64 with a hidden width the wide forms would keep.  On the
-card they run streamed K3 and K5 (TEST) and the streamed K1 and K2 chain
-forms (Hutchinson TRAIN).  Their plain versions, through the fused solve on
-CPU tensors, against the JAX package's kernels in interpret mode (the TEST
-and TRAIN forwards, the TEST and Hutchinson adjoints); TEST and TRAIN
-`inference`; the Hutchinson and TEST losses and their gradients against
-`jax.grad`; the `miniboone86` and `bsds126` configurations; the coverage
-rule at state widths 64, 65, 128 and 129; the fused solve's choice of
-wrappers; the wrappers' CPU branch; `fit`.
+card they run streamed K3 and K5 (TEST), the streamed K1 and K2 chain forms
+(Hutchinson TRAIN) and streamed K7 exact with the streamed K4 adjoint (exact
+TRAIN).  Their plain versions, through the fused solve on CPU tensors,
+against the JAX package's kernels in interpret mode (the TEST and TRAIN
+forwards, the TEST, Hutchinson and exact adjoints); TEST and TRAIN
+`inference`; the Hutchinson, exact and TEST losses and their gradients
+against `jax.grad`; the `miniboone86` and `bsds126` configurations; the
+coverage rule at state widths 64, 65, 128 and 129; the fused solve's choice
+of wrappers; the wrappers' CPU branch; `fit`, Hutchinson and exact.
 
 Tolerances as in tests/test_torch_wide_two_layer.py: values within 1e-4
 (rtol and atol: float32 sums in another order over a few steps), losses and
@@ -140,7 +141,7 @@ def test_readme_family_configurations(name):
         dims, nvars, nvars, (0.0, 13.0), {"steer_rate": 0.1, "lam3": 1e-2}, batch)
     spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
     assert tfs._stream_two_layer(spec) and tfs._stream_two_layer_covers(TSIT5, spec) is None
-    assert tfs._kernel_covers(TSIT5, spec, chain=True) is None
+    assert tfs._kernel_covers(TSIT5, spec, chain=True) is None and tfs._stream_exact_covers(TSIT5, spec) is None
     assert f"state width {dims[-1]} > 64" in tfs._wide_two_layer_covers(TSIT5, spec)
     xs = model_data(name, np.random.default_rng(0), 32)
     assert xs.shape == (32, nvars) and xs.dtype == np.float32 and np.isfinite(xs).all()
@@ -175,15 +176,17 @@ def test_stream_two_layer_forward_twins_match_jax_kernel(monkeypatch, net, mode)
     np.testing.assert_allclose(yT.numpy(), np.asarray(yT_r), **TOL)
 
 
-@pytest.mark.parametrize("mode", ["test", "train"], ids=["K5", "K2"])
+@pytest.mark.parametrize("mode", ["test", "train", "exact"], ids=["K5", "K2", "K4"])
 @pytest.mark.parametrize("net", list(NETS))
 def test_stream_two_layer_adjoint_twins_match_jax_kernel(net, mode):
     """The plain versions of streamed K5 (the TEST backsolve, ct_m folded
-    into g) and of the streamed K2 chain form (the Hutchinson backsolve),
-    through the fused solve's backward member on CPU tensors, against the
-    JAX package's adjoint kernel in interpret mode at one tile, from the same
-    final state, cotangent and warm start: equal steps, accepted steps and
-    NFE, states and gradients at 1e-4.  No kernel is launched."""
+    into g), of the streamed K2 chain form (the Hutchinson backsolve) and of
+    the streamed K4 adjoint (the exact backsolve, g_pm in the state and in
+    the error norm, chained into W1 and W2 after), through the fused solve's
+    backward member on CPU tensors, against the JAX package's adjoint kernel
+    in interpret mode at one tile, from the same final state, cotangent and
+    warm start: equal steps, accepted steps and NFE, states and gradients at
+    1e-4.  No kernel is launched."""
     dims = NETS[net]
     span = 2.0
     seed = 4
@@ -243,13 +246,13 @@ def test_stream_two_layer_inference_matches_jax(monkeypatch, net, mode):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
 
-@pytest.mark.parametrize("mode", ["test", "train"])
+@pytest.mark.parametrize("mode", ["test", "train", "exact"])
 @pytest.mark.parametrize("net", list(NETS))
 def test_stream_two_layer_gradients_match_jax_grad(net, mode):
-    """The TEST and Hutchinson losses and their gradients through the fused
-    BACKSOLVE against `jax.grad` of the JAX package's fused loss: the
-    backward members are streamed K5's and the streamed K2 chain form's
-    twins."""
+    """The TEST, Hutchinson and exact losses and their gradients through the
+    fused BACKSOLVE against `jax.grad` of the JAX package's fused loss: the
+    backward members are streamed K5's, the streamed K2 chain form's and the
+    streamed K4 adjoint's twins."""
     dims = NETS[net]
     mode_name = MODE_NAMES[mode]
     jicnf, ticnf = _model(cnf, dims, mode), _model(tcnf, dims, mode)
@@ -260,9 +263,9 @@ def test_stream_two_layer_gradients_match_jax_grad(net, mode):
     jmode = getattr(cnf.Mode, mode_name)
     l_r, g_r = jax.value_and_grad(lambda p: cnf.loss(jicnf, jmode, jnp.asarray(xs), p, key=key))(_jps(ps_np))
     extra = {}
-    if mode == "train":
-        eps, r = _jax_draws(jicnf, key, B)
-        extra = {"eps": eps, "steer_r": r}
+    if mode != "test":
+        eps, r = _jax_draws(jicnf, key, B, mode == "train")
+        extra = {"steer_r": r} if eps is None else {"eps": eps, "steer_r": r}
     ps = tcnf.params_from_numpy(ps_np)
     leaves = [x.requires_grad_() for x in _leaves(ps)]
     before = _launch_counts()
@@ -282,6 +285,7 @@ _COVERAGE = {
     "dz64-hidden192": ((64, 192, 64), "stream"),
     "dz65": ((65, 195, 65), "stream"),
     "dz65-hidden66": ((65, 66, 65), "stream"),
+    "dz40-hidden160": ((40, 160, 40), "stream"),
     "dz128": ((128, 384, 128), "stream"),
     "dz129": ((129, 387, 129), None),
 }
@@ -290,32 +294,73 @@ _COVERAGE = {
 @pytest.mark.parametrize("name", list(_COVERAGE))
 def test_stream_two_layer_coverage_at_the_state_width_limits(name):
     """State widths to 64 within the wide forms' hidden and shared-memory
-    limits stay in the wide forms; past 64 (whatever the hidden width) and
-    to 128 the streamed forms take the net, streamed K3 and K5 its TEST
-    stages; past 128 every form refuses it, naming shape variants (e)."""
+    limits stay in the wide forms; past 64 (whatever the hidden width), or
+    past hidden 128, and to 128 the streamed forms take the net, streamed K3
+    and K5 its TEST stages and the streamed K4 adjoint its exact backward
+    member; past 128 every form refuses it, naming shape variants (e)."""
     dims, form = _COVERAGE[name]
     spec = _spec(dims)
     chain = tfs._kernel_covers(TSIT5, spec, chain=True)
     wide2 = tfs._wide_two_layer_covers(TSIT5, spec)
     stream2 = tfs._stream_two_layer_covers(TSIT5, spec)
+    exact = tfs._stream_exact_covers(TSIT5, spec)
     if form is None:
-        for msg in (chain, wide2, stream2):
+        for msg in (chain, wide2, stream2, exact):
             assert f"state width {dims[0]} > 128" in msg and "ROADMAP queue 2, shape variants (e)" in msg
         return
     assert chain is None
     assert tfs._stream_chain(spec) == tfs._stream_two_layer(spec) == (form == "stream")
     assert (wide2 is None) == (form == "wide") and (stream2 is None) == (form == "stream")
+    assert exact == stream2
     if dims[0] > 64:
         assert f"state width {dims[0]} > 64" in wide2 and "ROADMAP queue 2, shape variants (e)" in wide2
+
+
+@pytest.mark.parametrize("tab", ["bosh3", "dopri5", "verner65", "dop853"])
+def test_stream_exact_adjoint_takes_every_embedded_tableau(tab):
+    """The streamed K4 adjoint takes miniboone86 under every embedded
+    tableau (K9), as streamed K3 and K5 do, and refuses a fixed-step one."""
+    from continuousnf_tpu_torch.ode.tableaus import get_tableau
+
+    spec = _spec(MB86)
+    assert tfs._stream_exact_covers(get_tableau(tab, 1e-3), spec) is None
+    assert "no embedded error estimate" in tfs._stream_exact_covers(get_tableau("rk4", 1e-3), spec)
+
+
+@pytest.mark.parametrize("kind", ["conditional", "identity-output", "three-layer"])
+def test_stream_exact_adjoint_refuses_other_nets(kind):
+    """A conditional 2-layer net (K8 in the streamed forms, row (d)), a
+    2-layer net with an identity layer (the JAX package's exact stage
+    assumes tanh layers) and a 3-layer chain (no exact backward member, as
+    in the JAX package) are refused by the streamed K4 adjoint's rule, and
+    its wrapper raises ValueError for the last two on any device."""
+    if kind == "conditional":
+        spec = _spec(MB86, n_cond=1)
+    elif kind == "identity-output":
+        spec = tfs.ChainSpec((86, 258), (258, 86), (True, False), 0)
+    else:
+        spec = tfs.ChainSpec((86, 258, 258), (258, 258, 86), (True, True, True), 0)
+    why = tfs._stream_exact_covers(TSIT5, spec)
+    assert why is not None
+    if kind == "conditional":
+        assert "ROADMAP queue 2, shape variants (d)" in why
+        return
+    with pytest.raises(ValueError):
+        tfs.run_stream_exact_adjoint_kernel(TSIT5, spec, norm_z=True, norm_j=True, rtol=1e-3, atol=1e-6,
+                                            max_steps=10, ws=[], bs=[], zT=torch.zeros(2, 86),
+                                            accT=torch.zeros(3, 2), azT=torch.zeros(2, 86), aaccT=torch.zeros(3, 2),
+                                            t_hi=torch.tensor(1.0), t_lo=torch.tensor(0.0),
+                                            dt_init=torch.tensor(-0.1))
 
 
 # (net, mode) -> the wrappers the loss and its gradient call, in order
 _ROUTES = {
     ("miniboone86", "test"): ["run_stream_test2_solve_kernel", "run_stream_test_adjoint_kernel"],
     ("miniboone86", "train"): ["run_stream_train_solve_kernel", "run_stream_adjoint_kernel"],
-    ("miniboone86", "exact"): ["run_stream_exact_solve_kernel", "run_wide_exact_adjoint_kernel"],
+    ("miniboone86", "exact"): ["run_stream_exact_solve_kernel", "run_stream_exact_adjoint_kernel"],
     ("dz72", "test"): ["run_stream_test2_solve_kernel", "run_stream_test_adjoint_kernel"],
     ("dz72", "train"): ["run_stream_train_solve_kernel", "run_stream_adjoint_kernel"],
+    ("dz72", "exact"): ["run_stream_exact_solve_kernel", "run_stream_exact_adjoint_kernel"],
 }
 
 
@@ -323,16 +368,16 @@ _ROUTES = {
 def test_fused_solve_takes_the_streamed_forms_past_the_wide_limits(monkeypatch, route):
     """`make_full_solve` runs a 2-layer tanh net past the wide limits
     through streamed K3 and streamed K5 (TEST), the streamed K1 and K2 chain
-    forms (Hutchinson TRAIN) and streamed K7 exact with the wide K4 adjoint
-    (exact TRAIN; that member raises on the card), forward and backward, and
-    no other wrapper."""
+    forms (Hutchinson TRAIN) and streamed K7 exact with the streamed K4
+    adjoint (exact TRAIN), forward and backward, and no other wrapper (the
+    wide K4 adjoint among them)."""
     net, mode = route
     called = []
     names = {n for v in _ROUTES.values() for n in v} | {
         "run_solve_kernel", "run_train_solve_kernel", "run_adjoint_kernel", "run_exact_solve_kernel",
         "run_exact_adjoint_kernel", "run_test_adjoint_kernel", "run_wide_test2_solve_kernel",
         "run_wide_test_adjoint_kernel", "run_wide_train_solve_kernel", "run_wide_adjoint_kernel",
-        "run_wide_exact_solve_kernel", "run_stream_test_solve_kernel"}
+        "run_wide_exact_solve_kernel", "run_stream_test_solve_kernel", "run_wide_exact_adjoint_kernel"}
     for name in names:
         wrapped = getattr(tfs, name)
         monkeypatch.setattr(tfs, name, lambda *a, _n=name, _f=wrapped, **kw: called.append(_n) or _f(*a, **kw))
@@ -368,6 +413,43 @@ def test_stream_two_layer_wrappers_run_the_twins_on_the_cpu_without_counting():
     assert all(torch.equal(a, b) for a, b in zip(got[:3] + got[5:], ref[:3] + ref[5:]))
     assert all(torch.equal(a, b) for a, b in zip(got[3] + got[4], ref[3] + ref[4]))
     assert all(w.launches == 0 for w in tfs.KERNEL_WRAPPERS.values())
+
+
+def test_stream_exact_adjoint_runs_its_twin_on_the_cpu_without_counting():
+    """On CPU tensors the streamed K4 adjoint runs `adjoint_train_exact_plain`,
+    bit for bit, and counts no launch; `reset_launches` covers it."""
+    assert tfs.KERNEL_WRAPPERS[tfs.K4SA_KERNEL] is tfs.run_stream_exact_adjoint_kernel
+    dims = NETS["dz72"]
+    spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
+    ps = tcnf.params_from_numpy(_np_params(dims, 26))
+    rng = np.random.default_rng(27)
+    T = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    tfs.run_stream_exact_adjoint_kernel.launches = 5
+    tfs.reset_launches()
+    assert tfs.run_stream_exact_adjoint_kernel.launches == 0
+    adj = dict(rtol=1e-3, atol=1e-6, max_steps=100, ws=[p["w"] for p in ps], bs=[p["b"] for p in ps], norm_z=True,
+               norm_j=True, zT=T(rng.uniform(size=(4, 72))), accT=T(rng.normal(size=(3, 4))),
+               azT=T(rng.normal(size=(4, 72))), aaccT=T(rng.normal(0.0, 0.25, (3, 4))), t_hi=torch.tensor(1.0),
+               t_lo=torch.tensor(0.0), dt_init=torch.tensor(-0.05))
+    got, ref = tfs.run_stream_exact_adjoint_kernel(TSIT5, spec, **adj), tfs.adjoint_train_exact_plain(TSIT5, spec, **adj)
+    assert all(torch.equal(a, b) for a, b in zip(got[:3] + got[5:], ref[:3] + ref[5:]))
+    assert all(torch.equal(a, b) for a, b in zip(got[3] + got[4], ref[3] + ref[4]))
+    assert all(w.launches == 0 for w in tfs.KERNEL_WRAPPERS.values())
+
+
+def test_stream_two_layer_exact_fit_on_cpu():
+    """`fit` on the fused exact-trace miniboone86 model for two Lion steps
+    (streamed K7 exact's and the streamed K4 adjoint's twins): finite losses,
+    moving parameters, and no kernel launched on the CPU."""
+    ps_np = _np_params(MB86, 19)
+    X = _data(MB86, 2 * B, 20)
+    before = _launch_counts()
+    res = tcnf.fit(tcnf.ICNFModel(_model(tcnf, MB86, "exact"), n_epochs=1, batch_size=B), X,
+                   ps=tcnf.params_from_numpy(ps_np), seed=0)
+    assert _launch_counts() == before
+    assert res.epochs == 1 and np.isfinite(res.losses).all()
+    moved = [float((a - torch.from_numpy(b)).abs().max()) for a, b in zip(_leaves(res.ps), _leaves(ps_np))]
+    assert min(moved) > 0.0
 
 
 def test_stream_two_layer_fit_on_cpu():
