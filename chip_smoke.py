@@ -98,7 +98,15 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     under exact trace, through streamed K7 exact and the streamed K4 adjoint
     (`fit`, four Lion steps); the same kernels at BSDS300's width (bsds126:
     MLP 126 -> 378 -> 126, batch 2048) and on MLP 40 -> 160 -> 40; the
-    streamed K4 adjoint beside the wide K4 adjoint on hepmass42's inputs.
+    streamed K4 adjoint beside the wide K4 adjoint on hepmass42's inputs;
+  * K-probe and forward-mode Hutchinson training past the wide limits (K6
+    in the streamed forms): miniboone860 (B = 1024) and miniboone86
+    (B = 4096) with K VJP or JVP probes, the loss and its gradient through
+    the probe instances of the streamed K1 and K2 chain forms, and `fit` at
+    K = 4; those probe instances at bsds126 (B = 2048), and a chain the
+    wide forms keep with one probe but not with K
+    (MLP 64 -> 128 -> 128 -> 120 -> 64) reaching them through
+    `make_full_solve`.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -451,7 +459,28 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      wrapper's launcher: the routing keeps hepmass42 on the wide K4
      adjoint) beside the wide K4 adjoint on the same inputs: equal steps,
      held to each other within the twin bounds, each timed (a b b a), µs a
-     step beside the FMA bound.
+     step beside the FMA bound;
+ 91. K6 in the streamed forms: the launch shapes of the streamed K1 and K2
+     chain forms' probe instances (threads, blocks, tile, shared memory,
+     the global tile scratch; K is a run-time argument) at miniboone860,
+     B = 1024, and miniboone86, B = 4096;
+ 92. at each of the two, each probe instance against its twin at K = 2, 4,
+     8 VJP and K = 1, 2 JVP, held as in phase 42 (two timed calls each);
+ 93. the train step's loss and gradient at K = 4 VJP and K = 1 JVP through
+     the probe instances, the plain path and a float64 rtol 1e-7 solve at
+     B = 256 (the float64 solve's batch), held as in phase 43; the main
+     paths, counters reset just before each: the loss and its gradient at
+     every probe configuration, at the full batch, launch the two streamed
+     probe instances once each and no other kernel;
+ 94. `fit` at K = 4 for four Lion steps launching only the two streamed
+     probe instances, at least four times each;
+ 95. the streamed probe curve: CUDA-event ms and µs per attempted step at
+     K = 1 (the one-probe instances), 2, 4 and 8;
+ 96. bsds126 at B = 2048: the two probe instances against their twins at
+     K = 4 VJP and K = 1 JVP; MLP 64 -> 128 -> 128 -> 120 -> 64 (RNODE,
+     nvars = 64, tspan (0, 1), B = 1024) through `make_full_solve` with two
+     VJP probes: the solve and its adjoint launch the streamed probe
+     instances once each and no wide kernel, against the plain path.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -2258,7 +2287,7 @@ def probe_tag(k, jvp) -> str:
     return f"jvp-K{k}" if jvp else f"K{k}"
 
 
-def probe_fma(dims, k, n_cond=0):
+def probe_fma(dims, k, n_cond=0, chain=False):
     """FMA per sample and field evaluation of the Hutchinson kernels with k
     probes, VJP or JVP alike (a pushforward costs a pullback), counted from
     the widths: the forward pass once, then per probe its pass (K1) and,
@@ -2269,8 +2298,10 @@ def probe_fma(dims, k, n_cond=0):
     2 S + (3 k + 1) Sz + n_cond H1 + sum out_i.  At k = 1 these are
     two_layer_fma's and chain_fma's.  The wide chain forms run the same
     products as the narrow ones (at 43 -> 128 -> 128 -> 43, S = 27,392: the
-    wide K1 S (1 + k), the wide K2 2 S + (3 k + 1) S + 299)."""
-    if len(dims) == 3:
+    wide K1 S (1 + k), the wide K2 2 S + (3 k + 1) S + 299); `chain`
+    counts a 2-layer net by the chain forms' products, as the streamed chain
+    forms run it."""
+    if len(dims) == 3 and not chain:
         dz, H = dims[0], dims[1]
         P = 2 * dz * H + H + dz
         return {"k1": 2 * dz * H * (1 + k), "k2": 4 * dz * H * (1 + k) + (k + 1) * P}
@@ -2280,9 +2311,34 @@ def probe_fma(dims, k, n_cond=0):
     return {"k1c": S + k * Sz, "k2c": 2 * S + (3 * k + 1) * Sz + n_cond * dims[1] + sum(dims[1:])}
 
 
+def probe_records(dims, k, jvp, held, launches, names, sources, keys, B, suffix=None):
+    """The records of a form's two probe instances (`probe_form`) at k
+    probes: `held` their (out, err, ms, plain ms) from `run_pair`,
+    `launches` their counts on the main path; `suffix` (None: none) ends
+    each name."""
+    P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    dz = dims[-1]
+    fma = probe_fma(dims, k, chain=keys[0] == "k1c")
+    extra = (k - 1) * B * dz
+    records = []
+    for i, (r, floats) in enumerate(((held[0], P + B * (3 * dz + 6) + extra),
+                                     (held[1], 2 * P + B * (5 * dz + 9) + extra))):
+        out, err, ms, pms = r
+        records.append(kernel_record(f"{names[i]}/{probe_tag(k, jvp)}" + (f"/{suffix}" if suffix else ""), sources[i],
+                                     f"continuousnf_tpu/ops/fused_solve.py:{1043 if i == 0 else 1767}",
+                                     launches[i], err, ms, pms, fma[keys[i]], B, steps_of(out)[0], floats,
+                                     accepted=steps_of(out)[1]))
+    return records
+
+
 def probe_form(fs, form):
-    """The probe instances of a form ("two-layer", "chain" or "wide"): their
-    wrappers, KERNEL_WRAPPERS names, sources, labels and probe_fma keys."""
+    """The probe instances of a form ("two-layer", "chain", "wide" or
+    "stream"): their wrappers, KERNEL_WRAPPERS names, sources, labels and
+    probe_fma keys."""
+    if form == "stream":
+        return ((fs.run_stream_train_solve_kernel, fs.run_stream_adjoint_kernel), (fs.K1S_KERNEL, fs.K2S_KERNEL),
+                ("k1_stream_solve.cu", "k2_stream_adjoint.cu"),
+                ("the streamed K1 chain form", "the streamed K2 chain form"), ("k1c", "k2c"))
     if form == "wide":
         return ((fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel), (fs.K1W_KERNEL, fs.K2W_KERNEL),
                 ("k1_wide_solve.cu", "k2_wide_adjoint.cu"), ("the wide K1 chain form", "the wide K2 chain form"),
@@ -2295,13 +2351,16 @@ def probe_form(fs, form):
             ("k1_train_solve.cu", "k2_train_adjoint.cu"), ("K1", "K2"), ("k1", "k2"))
 
 
-def probe_model(cnf, fs, dev, name, form, rng, B, fit, phases):
+def probe_model(cnf, fs, dev, name, form, rng, B, fit, phases, truth_batch=None, reps=5, suffix=None):
     """K-probe and JVP Hutchinson training (K6) of one model through the
     probe instances of one form (`probe_form`) at batch B: `phases` numbers
     the kernel holds, the held train steps, the main paths, `fit` at K = 4
     (run when `fit`) and the probe curve (42-46; 57-60 at the wide forms,
-    whose held train steps and main paths are both phase 58).  Returns the
-    records."""
+    whose held train steps and main paths are both phase 58; 92-95 at the
+    streamed forms).  The held train steps run at `truth_batch` samples
+    when given (the float64 solve's batch), and each kernel is timed over
+    `reps` calls; `suffix` (None: none) ends each record's name.  Returns
+    the records."""
     import torch
     from continuousnf_tpu_torch.ode.tableaus import TSIT5
     from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
@@ -2330,9 +2389,9 @@ def probe_model(cnf, fs, dev, name, form, rng, B, fit, phases):
     for k, jvp in PROBE_CONFIGS:
         tag = probe_tag(k, jvp)
         kw1 = dict(train, eps=eps_all[:k].contiguous(), jvp=jvp)
-        r1 = run_pair(f"{label[0]} {tag} ({name})", run1, fs.solve_train_plain, TSIT5, spec, kw1)
+        r1 = run_pair(f"{label[0]} {tag} ({name})", run1, fs.solve_train_plain, TSIT5, spec, kw1, reps=reps)
         r2 = run_pair(f"{label[1]} {tag} ({name})", run2, fs.adjoint_train_plain, TSIT5, spec,
-                      adjoint_kw(kw1, r1[0], cot), adjoint=True)
+                      adjoint_kw(kw1, r1[0], cot), adjoint=True, reps=reps)
         held[(k, jvp)] = (r1, r2)
     print(f"phase {holds}: {name} probe instances held to their twins")
 
@@ -2340,23 +2399,26 @@ def probe_model(cnf, fs, dev, name, form, rng, B, fit, phases):
     # kernels, the plain path and a float64 rtol 1e-7 solve, on the same
     # draws, the fused one launching the two probe instances once each and
     # no other kernel.
+    bt = truth_batch or B
     for k, jvp in PROBE_PATHS:
         tag = probe_tag(k, jvp)
         icnf_k = model(k, jvp)
         gen = torch.Generator(device=dev).manual_seed(SEED + 210 + k)
-        eps = icnf_k.draw_eps(gen, B, dev)
+        eps = icnf_k.draw_eps(gen, bt, dev)
+        xt = xs[:bt]
         fs.reset_launches()
-        l_k, g_k, m_k = loss_grad(cnf, icnf_k, ps_np, xs, dev, eps=eps, **steer)
+        l_k, g_k, m_k = loss_grad(cnf, icnf_k, ps_np, xt, dev, eps=eps, **steer)
         check(set(launched(fs)) == set(names) and {w.__name__: dict(w.probe_launches) for w in (run1, run2)}
               == {w.__name__: {(k, jvp): 1} for w in (run1, run2)},
               f"{name} {tag}: the fused gradient launched {launched(fs)}")
-        l_p, g_p, _ = loss_grad(cnf, model(k, jvp, fused=False), ps_np, xs, dev, eps=eps, **steer)
-        l_t, g_t, _ = loss_grad(cnf, model(k, jvp, fused=False, dtype=torch.float64, solver=truth), ps_np, xs,
+        l_p, g_p, _ = loss_grad(cnf, model(k, jvp, fused=False), ps_np, xt, dev, eps=eps, **steer)
+        l_t, g_t, _ = loss_grad(cnf, model(k, jvp, fused=False, dtype=torch.float64, solver=truth), ps_np, xt,
                                 dev, torch.float64, eps=eps.double(), **steer)
         torch.cuda.synchronize()
         hold_gradients(f"{name} {tag}", l_k, g_k, l_p, g_p, l_t, g_t)
-        print(f"{name} {tag} train step B={B}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 "
-              f"{float(l_t):.6f}, forward NFE {int(m_k['nfe'])}")
+        print(f"{name} {tag} train step B={bt}{' (the float64 solve at a cut batch)' if bt != B else ''}: "
+              f"loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 {float(l_t):.6f}, forward NFE "
+              f"{int(m_k['nfe'])}")
 
     # Phase 44 (mains): the main paths, counters reset just before each: the
     # loss and its gradient at each probe configuration launch the two probe
@@ -2392,7 +2454,7 @@ def probe_model(cnf, fs, dev, name, form, rng, B, fit, phases):
             out = run1(TSIT5, spec, **kw1)
             kw2 = adjoint_kw(kw1, out, cot)
             adj = run2(TSIT5, spec, **kw2)
-            ms1, ms2 = cuda_ms(lambda: run1(TSIT5, spec, **kw1), 5), cuda_ms(lambda: run2(TSIT5, spec, **kw2), 5)
+            ms1, ms2 = cuda_ms(lambda: run1(TSIT5, spec, **kw1), reps), cuda_ms(lambda: run2(TSIT5, spec, **kw2), reps)
             curve[k] = (ms1 * 1e3 / int(out[2]), ms2 * 1e3 / int(adj[5]))
             print(f"probe curve {name} K={k}: {label[0]} {ms1:.4f} ms ({int(out[2])} steps, "
                   f"{curve[k][0]:.1f} us per attempted step), {label[1]} {ms2:.4f} ms ({int(adj[5])} "
@@ -2401,17 +2463,8 @@ def probe_model(cnf, fs, dev, name, form, rng, B, fit, phases):
           + "; ".join(f"K={k} {curve[k][0] / curve[1][0]:.3f}x / {curve[k][1] / curve[1][1]:.3f}x"
                       for k in PROBE_CURVE))
 
-    P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
-    dz = dims[-1]
-    for (k, jvp), (r1, r2) in held.items():
-        fma = probe_fma(dims, k)
-        extra = (k - 1) * B * dz
-        for i, (r, floats) in enumerate(((r1, P + B * (3 * dz + 6) + extra), (r2, 2 * P + B * (5 * dz + 9) + extra))):
-            out, err, ms, pms = r
-            records.append(kernel_record(f"{names[i]}/{probe_tag(k, jvp)}", sources[i],
-                                         f"continuousnf_tpu/ops/fused_solve.py:{1043 if i == 0 else 1767}",
-                                         launches[(k, jvp)][i], err, ms, pms, fma[keys[i]], B,
-                                         steps_of(out)[0], floats, accepted=steps_of(out)[1]))
+    for (k, jvp), pair in held.items():
+        records += probe_records(dims, k, jvp, pair, launches[(k, jvp)], names, sources, keys, B, suffix)
     return records
 
 
@@ -2452,6 +2505,113 @@ def wide_probe_paths(cnf, fs, dev):
     # (58), `fit` at K = 4 (59) and the wide probe curve (60).
     return probe_model(cnf, fs, dev, "miniboone43", "wide", np.random.default_rng(SEED + 300), B, True,
                        (57, 58, 58, 59, 60))
+
+
+# ---- K6 in the streamed forms: K-probe and JVP training past the wide limits ----
+
+STREAM_PROBE_TRUTH_BATCH = 256  # phase 93's float64 rtol 1e-7 solve (and its fused and plain steps) at 256 samples
+PROBE_ONLY_DIMS = (64, 128, 128, 120, 64)  # phase 96: the wide forms keep it with one probe, not with K
+PROBE_ONLY_BATCH = 1024
+
+
+def stream_probe_paths(cnf, fs, dev):
+    """Phases 91 to 96: K-probe and JVP Hutchinson training past the wide
+    limits (K6 in the streamed forms) through the probe instances of the
+    streamed K1 and K2 chain forms at miniboone860 (B = 1024) and
+    miniboone86 (B = 4096), their holds and one loss gradient each at
+    K = 4 and JVP at bsds126 (B = 2048), and a chain that only the streamed
+    probe instances keep with probes, through `make_full_solve`.  Returns
+    their records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, glorot_params, make_icnf, model_data
+
+    (run1, run2), names, sources, label, keys = probe_form(fs, "stream")
+    records = []
+    for i, name in enumerate(("miniboone860", "miniboone86")):
+        dims, B = MODELS[name]["dims"], MODELS[name].get("batch", BATCH)
+        spec = fs.chain_spec(cnf.MLP(dims, device=dev), dims[-1])
+        check(fs._stream_chain(spec, True) and all(fs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp) is None
+                                                   for k, jvp in PROBE_CONFIGS),
+              f"{name} with probes should run the streamed probe instances")
+        # Phase 91: the probe instances' launch shapes (K is a run-time
+        # argument: one shape for every K).
+        arr = (ctypes.c_int * len(dims))(*dims)
+        for lib_name, fn in ((fs.K1S_KERNEL, "cnf_k1sp_shape"), (fs.K2S_KERNEL, "cnf_k2sp_shape")):
+            out = (ctypes.c_int * 5)()
+            err = getattr(fs._library(lib_name), fn)(len(dims) - 1, arr, B, out)
+            check(err == 0 and out[1] >= 1, f"{fn}: cudaError {err}")
+            print(f"phase 91: {fn} at widths {dims}, B={B}, every K: {out[0]} threads a block, {out[1]} blocks, "
+                  f"tile {out[2]}, {out[3]} bytes of dynamic shared memory, {out[4]} floats of global tile scratch "
+                  "a block")
+        # Phases 92 to 95: the holds, the held train steps and the main
+        # paths (93), `fit` at K = 4 (94) and the streamed probe curve (95).
+        records += probe_model(cnf, fs, dev, name, "stream", np.random.default_rng(SEED + 400 + i), B, True,
+                               (92, 93, 93, 94, 95), truth_batch=STREAM_PROBE_TRUTH_BATCH, reps=2,
+                               suffix=None if name == "miniboone860" else name)
+
+    # Phase 96: bsds126's probe instances against their twins at K = 4 and
+    # JVP, and one loss gradient each (the main path, counters reset just
+    # before it).
+    name = "bsds126"
+    dims, B = MODELS[name]["dims"], MODELS[name]["batch"]
+    rng = np.random.default_rng(SEED + 410)
+    ps_np = glorot_params(rng, dims)
+    xs = torch.from_numpy(model_data(name, rng, B)).to(dev)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    icnf = make_icnf(name, dev)
+    spec = fs.chain_spec(icnf.nn, icnf.zdim)
+    _, train, _, cot = kernel_inputs(icnf, ps, xs, rng, dev)
+    eps_all = torch.from_numpy(rng.normal(size=(4, B, icnf.zdim)).astype("float32")).to(dev)
+    for k, jvp in PROBE_PATHS:
+        tag = probe_tag(k, jvp)
+        kw1 = dict(train, eps=eps_all[:k].contiguous(), jvp=jvp)
+        r1 = run_pair(f"{label[0]} {tag} ({name})", run1, fs.solve_train_plain, TSIT5, spec, kw1, reps=2)
+        r2 = run_pair(f"{label[1]} {tag} ({name})", run2, fs.adjoint_train_plain, TSIT5, spec,
+                      adjoint_kw(kw1, r1[0], cot), adjoint=True, reps=2)
+        icnf_k = make_icnf(name, dev, num_probes=k, ad="jvp" if jvp else "vjp")
+        eps = icnf_k.draw_eps(torch.Generator(device=dev).manual_seed(SEED + 411 + k), B, dev)
+        fs.reset_launches()
+        _, g, _ = loss_grad(cnf, icnf_k, ps_np, xs, dev, eps=eps, steer_r=0.05)
+        torch.cuda.synchronize()
+        counts = [w.probe_launches.get((k, jvp), 0) for w in (run1, run2)]
+        check(set(launched(fs)) == set(names) and counts == [1, 1] and all(bool(torch.isfinite(x).all()) for x in g),
+              f"{name} {tag}: launched {launched(fs)}, probe instances {counts}")
+        records += probe_records(dims, k, jvp, (r1, r2), counts, names, sources, keys, B, name)
+    print(f"phase 96: {name} B={B}: the streamed probe instances held to their twins at K = 4 and JVP; each loss "
+          "gradient launched them once each and no other kernel")
+
+    # Phase 96: a chain the wide forms keep with one probe but not with two
+    # reaches the streamed probe instances through make_full_solve.
+    dims, B = PROBE_ONLY_DIMS, PROBE_ONLY_BATCH
+    rng = np.random.default_rng(SEED + 420)
+    ps_np = glorot_params(rng, dims)
+    xs = torch.from_numpy(rng.normal(size=(B, dims[0])).astype("float32")).to(dev)
+
+    def model(fused=True, dtype=None, solver=None):
+        kw = {} if solver is None else {"solver": solver}
+        dtype = dtype or torch.float32
+        return cnf.construct(cnf.RNODE, cnf.MLP(dims, device=dev, dtype=dtype), dims[0], 0, dtype=dtype,
+                             compute_mode=cnf.VecJacMode(2, fused=fused), **kw)
+
+    spec = fs.chain_spec(model().nn, dims[-1])
+    check(not fs._stream_chain(spec) and fs._stream_chain(spec, True),
+          f"{dims} should stream with probes only")
+    eps = model().draw_eps(torch.Generator(device=dev).manual_seed(SEED + 421), B, dev)
+    fs.reset_launches()
+    l_k, g_k, _ = loss_grad(cnf, model(), ps_np, xs, dev, eps=eps)
+    torch.cuda.synchronize()
+    counts = [w.probe_launches.get((2, False), 0) for w in (run1, run2)]
+    check(set(launched(fs)) == set(names) and counts == [1, 1],
+          f"{dims} K2: launched {launched(fs)}, streamed probe instances {counts}")
+    l_p, g_p, _ = loss_grad(cnf, model(False), ps_np, xs, dev, eps=eps)
+    l_t, g_t, _ = loss_grad(cnf, model(False, torch.float64, cnf.SolverOptions(rtol=1e-7, atol=1e-9)), ps_np, xs, dev,
+                            torch.float64, eps=eps.double())
+    torch.cuda.synchronize()
+    hold_gradients(f"{dims} K2", l_k, g_k, l_p, g_p, l_t, g_t)
+    print(f"phase 96: MLP{dims} B={B}, two VJP probes through make_full_solve: launched {launched(fs)}, loss fused "
+          f"{float(l_k):.6f} plain {float(l_p):.6f} float64 {float(l_t):.6f}")
+    return records
 
 
 # ---- K5: TEST-mode gradients of 2-layer nets ----
@@ -3873,7 +4033,8 @@ def main() -> int:
                          ("67-72", lambda: miniboone860(cnf, fs, dev)),
                          ("73-78", lambda: bf16_paths(cnf, fs, dev)),
                          ("79-86", lambda: stream_two_layer(cnf, fs, dev)),
-                         ("87-90", lambda: stream_exact(cnf, fs, dev))):
+                         ("87-90", lambda: stream_exact(cnf, fs, dev)),
+                         ("91-96", lambda: stream_probe_paths(cnf, fs, dev))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -303,6 +303,52 @@ __device__ inline void stream_pullback(const StreamLayout& L, const float* param
               [&](int t, int k, float a) { EJ[t * zp + k] = a; });
 }
 
+// stream_pullback with the activations kept (the probe instances, K6, run
+// one pass per probe): each hidden level's gated cotangent goes to the
+// hidden block GB, its activation read from HB, as wide_pullback_to does.
+// The one-probe instances keep the in-place form above.
+__device__ inline void stream_pullback_to(const StreamLayout& L, const float* params, const float* V, int T,
+                                          const float* HB, float* GB, float* EJ, float* wc) {
+  const int n = L.n;
+  for (int i = n - 1; i >= 1; --i) {
+    const float* src = i == n - 1 ? V : level(L, GB, T, i + 1);
+    const float* h = level(L, HB, T, i);
+    float* g = level(L, GB, T, i);
+    const int hp = L.hp[i], on = L.act[i - 1];
+    stream_mm_t(src, L.hp[i + 1], L.width[i + 1], layer_w(L, params, i), L.width[i], T, wc,
+                [&](int t, int k, float a) { g[t * hp + k] = a * gate(h[t * hp + k], on); });
+  }
+  const int zp = L.zp;
+  stream_mm_t(level(L, GB, T, 1), L.hp[1], L.width[1], layer_w(L, params, 0), L.dz, T, wc,
+              [&](int t, int k, float a) { EJ[t * zp + k] = a; });
+}
+
+// One probe pushforward J eps per row after stream_forward
+// (fused_solve.py::_probe_pushforward, K6): E (T, zp) holds the probes.
+// Down the layers, level l's tangent t_l = u_l gate(h_l), u_l = t_(l-1)
+// W_(l-1) with no bias (t_0 = eps), goes to the hidden block TB (h read
+// from HB), and u_l to UB unless UB is null; A (T, zp) gets the output
+// layer's product t_(N-1) W_(N-1) before its gate.
+__device__ inline void stream_pushforward(const StreamLayout& L, const float* params, const float* E, int T,
+                                          const float* HB, float* UB, float* TB, float* A, float* wc) {
+  const int n = L.n;
+  for (int i = 0; i < n - 1; ++i) {
+    const float* src = i == 0 ? E : level(L, TB, T, i);
+    const float* h = level(L, HB, T, i + 1);
+    float* u = UB ? level(L, UB, T, i + 1) : nullptr;
+    float* t = level(L, TB, T, i + 1);
+    const int hp = L.hp[i + 1], on = L.act[i];
+    stream_mm(src, L.hp[i], L.width[i], layer_w(L, params, i), nullptr, L.width[i + 1], T, wc,
+              [&](int r, int o, float a) {
+                if (u) u[r * hp + o] = a;
+                t[r * hp + o] = a * gate(h[r * hp + o], on);
+              });
+  }
+  const int zp = L.zp;
+  stream_mm(level(L, TB, T, n - 1), L.hp[n - 1], L.width[n - 1], layer_w(L, params, n - 1), nullptr, L.dz, T, wc,
+            [&](int r, int k, float a) { A[r * zp + k] = a; });
+}
+
 // The launch shape of a streamed kernel: the first of the `n_opts` options
 // (largest first) whose tile arrays (region[o] floats) fit in shared memory
 // beside the chunk buffer and the reduction slots with a co-resident grid;

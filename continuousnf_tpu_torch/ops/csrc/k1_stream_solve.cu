@@ -33,6 +33,20 @@
 // (0.83 GB for 128 blocks).  Measured, the chunks' L2 latency bounds it: the
 // layer loads the next chunk while computing on the current one (PERF.md).
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The probe instance (K6 in the streamed forms): _stage_train with
+// k_probes = K and jvp (the probe loop :350-364, _probe_pushforward
+// :309-330), as the wide K1 chain form's probe instance runs it: per stage
+// one stream_forward pass, then per probe eps_k = eps[k] of the (K, B, dz)
+// probes, eps^T J by stream_pullback_to (VJP) or J eps by
+// stream_pushforward (JVP), and the trace and probe-norm terms summed over
+// the probes in probe order and divided by K.  The pullback can no longer
+// overwrite the activations, so a tile row gets a second hidden block for a
+// probe's vectors (1,720 floats at 860 wide: 3,663 tile floats a row,
+// 134 KB at T = 8 with the chunk buffer).  K and the direction are run-time
+// values; the one-probe instance above stays as it was.  A field evaluation
+// is S (1 + K) FMA a sample (S = 813,560 at 860 wide): 8.3 GFLOP at K = 4
+// and B = 1024, 0.12 ms at the card's f32 rate.
 
 #include "chain_stream.cuh"
 
@@ -119,6 +133,105 @@ size_t smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
   return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : region_floats(L, T)));
 }
 
+// The probe instance's field (K6): K probes a row at eps[k][s], reverse
+// (eps^T J) or, `jvp`, forward mode (J eps); HB keeps the activations and a
+// probe's hidden vectors go to TB.
+struct StreamProbeField {
+  const StreamLayout* L;
+  const float* params;
+  const float* eps;  // (K, B, dz)
+  float* HB;         // the tile's hidden blocks: activations, a probe's vectors
+  float* TB;
+  float* E;          // (T, zp) each: eps, the gated probe (VJP) or t W (JVP), eJ
+  float* V;
+  float* EJ;
+  float* wc;         // the chunk buffer
+  int B, T, K, jvp, norm_z, norm_j;
+
+  __device__ void operator()(int s0, int nv, const float* Z, float* KY, float* KR) const {
+    const StreamLayout& c = *L;
+    const int dz = c.dz, zp = c.zp, on = c.act[c.n - 1];
+    cnf::stream_forward(c, params, Z, T, HB, KY, wc);
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      KR[t * 3 + 0] = 0.f;
+      KR[t * 3 + 2] = 0.f;
+    }
+    for (int pk = 0; pk < K; ++pk) {
+      const float* ek = eps + ((size_t)pk * B + s0) * dz;
+      for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+        const int t = idx / dz, k = idx % dz;
+        const float e = t < nv ? ek[idx] : 0.f;
+        E[t * zp + k] = e;
+        if (!jvp) V[t * zp + k] = e * cnf::gate(KY[t * zp + k], on);
+      }
+      __syncthreads();
+      if (jvp) {
+        cnf::stream_pushforward(c, params, E, T, HB, nullptr, TB, V, wc);
+        for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+          const int t = idx / dz, k = idx % dz;
+          EJ[t * zp + k] = V[t * zp + k] * cnf::gate(KY[t * zp + k], on);
+        }
+        __syncthreads();
+      } else {
+        cnf::stream_pullback_to(c, params, V, T, HB, TB, EJ, wc);
+      }
+      for (int t = threadIdx.x; t < T; t += blockDim.x) {
+        float tr = 0.f, nsq = 0.f;
+        for (int k = 0; k < dz; ++k) {
+          const float ej = EJ[t * zp + k];
+          tr = fmaf(ej, E[t * zp + k], tr);
+          nsq = fmaf(ej, ej, nsq);
+        }
+        KR[t * 3 + 0] += tr;
+        KR[t * 3 + 2] += safe_norm_sq(nsq);
+      }
+      __syncthreads();
+    }
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      float ysq = 0.f;
+      for (int k = 0; k < dz; ++k) ysq = fmaf(KY[t * zp + k], KY[t * zp + k], ysq);
+      KR[t * 3 + 0] = -(KR[t * 3 + 0] / K);
+      KR[t * 3 + 1] = norm_z ? safe_norm_sq(ysq) : 0.f;
+      KR[t * 3 + 2] = norm_j ? KR[t * 3 + 2] / K : 0.f;
+    }
+    __syncthreads();
+  }
+};
+
+// The probe instance's tile arrays: the solver's, two hidden blocks and the
+// probe pieces (eps, V, eJ).
+__host__ __device__ inline size_t probe_region_floats(const StreamLayout& L, int T) {
+  return (size_t)T * (2 * L.zp + 3) + (size_t)T * (2 * (size_t)L.hsum + 3 * L.zp);
+}
+
+struct ProbeArgs {
+  Args a;
+  int K, jvp;
+};
+
+__global__ void __launch_bounds__(kStreamBlock) k1_stream_probe_solve(const ProbeArgs pa) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ StreamLayout L;
+  const Args& p = pa.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T;
+  float* wc = smem;
+  float* red = wc + cnf::kChunkFloats;
+  float* scratch = p.tiles ? p.tiles + (size_t)blockIdx.x * probe_region_floats(L, T) : red + kRedFloats;
+  float* HB = scratch + T * (2 * L.zp + 3);  // after the solver's Z, KY, KR
+  float* TB = HB + (size_t)T * L.hsum;
+  float* E = TB + (size_t)T * L.hsum;
+  float* V = E + T * L.zp;
+  float* EJ = V + T * L.zp;
+  const StreamProbeField field{&L, p.params, p.f.eps, HB, TB, E, V, EJ, wc, p.f.B, T, pa.K, pa.jvp, p.f.norm_z,
+                               p.f.norm_j};
+  cnf::forward_solve_tiles<3, kStageUnroll>(p.f, field, T, scratch, red);
+}
+
+size_t probe_smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
+  return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : probe_region_floats(L, T)));
+}
+
 }  // namespace
 
 // The launch shape at batch B: out = {threads per block, blocks, samples a
@@ -157,5 +270,39 @@ extern "C" int cnf_k1s_train_solve(const float* params, const float* eps, const 
   a.tiles = tiles;
   a.T = T;
   return (int)cnf::coop_launch(k1_stream_solve, a, grid, block, smem_bytes(a.L, T, tiles != nullptr),
+                               (cudaStream_t)stream);
+}
+
+// The probe instance's launch shape (K6), as cnf_k1s_shape.
+extern "C" int cnf_k1sp_shape(int n, const int* widths, int B, int* out) {
+  StreamLayout L;
+  if (B < 1 || !cnf::make_stream_layout(n, widths, &L)) return (int)cudaErrorInvalidValue;
+  size_t region[2];
+  for (int o = 0; o < 2; ++o) region[o] = probe_region_floats(L, kTiles[o]);
+  return cnf::stream_shape(k1_stream_probe_solve, region, kTiles, kTiles, 2, B, out);
+}
+
+// The probe instance (K6): as cnf_k1s_train_solve with eps (K, B, dz), K >= 1
+// probes, reverse mode or (jvp) forward mode; T, grid, block and the tile
+// scratch from cnf_k1sp_shape.
+extern "C" int cnf_k1s_probe_solve(const float* params, const float* eps, const float* z0, const float* acc0,
+                                   const float* ts, float* zT, float* accT, int* stats, float* dt_last, float* work,
+                                   float* partials, float* tiles, int B, int n, const int* widths, int acts,
+                                   int max_steps, int norm_z, int norm_j, int K, int jvp, float rtol, float atol,
+                                   float beta1, float beta2, float inv_order, const float* tab, int T, int grid,
+                                   int block, void* stream) {
+  ProbeArgs pa = {};
+  Args& a = pa.a;
+  if (block != kStreamBlock || grid < 1 || T < 4 || T % 4 != 0 || K < 1 || !cnf::make_stream_layout(n, widths, &a.L))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_stream_acts(&a.L, acts);
+  cnf::set_fwd_args(&a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n], max_steps,
+                    norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
+  a.params = params;
+  a.tiles = tiles;
+  a.T = T;
+  pa.K = K;
+  pa.jvp = jvp;
+  return (int)cnf::coop_launch(k1_stream_probe_solve, pa, grid, block, probe_smem_bytes(a.L, T, tiles != nullptr),
                                (cudaStream_t)stream);
 }

@@ -50,6 +50,36 @@
 // memory bandwidth bounds it at this P (ROADMAP speed row (m) proposes the
 // batch-wide reduction that removes it).
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The probe instance (K6 in the streamed forms): the N-layer
+// _stage_train_fwdbwd with k_probes = K and jvp (:396-431, the JVP branch
+// :435-450), as the wide K2 chain form's probe instance runs it
+// (k2_wide_adjoint.cu), on adjoint_solve_tiles' PROBES form: after the
+// forward pass each probe's pass and its VJP leave that probe's vectors in
+// the tile arrays (for W_i: a_i (x) b_i) and the block adds their outer
+// products into its g vectors (a flush), while the -2 h (.) gate terms are
+// summed over the probes in a fifth hidden block HC and the output layer's
+// in a sixth dz-vector CTY; then the rates, divided by K, and the forward
+// chain's VJP with ca over the v block (in_i (x) ca_i and the biases).
+// VJP: a_i = pu_i, b_i = v_(i+1) as above.  JVP: the pushforward
+// t_(l+1) = (t_l W_l) s'(h_(l+1)) (t_0 = eps, stream_pushforward) keeping
+// u_l (pre-gate, U) and t_l (PU), and its VJP down the chain: ct_u = ct_t
+// s'(h) (V), ct_h += -2 h (ct_t u), ct_t of the level below = ct_u W^T:
+// a_i = t_i (eps for i = 0), b_i = ct_u of level i + 1.  Every probe's ct_tr
+// and probe-norm factor carries 1/K.  Tile arrays: one more hidden block
+// and one more dz-vector a row than the one-probe stage (9,047 floats a row
+// at 860 wide: T = 4, 162 KB with the chunk buffer).  The forward pass, a
+// probe's pass with its VJP, and the forward chain's VJP are functions of
+// their own, so the flush between them (P entries a block and probe) keeps
+// its registers.  Design of the gradient: the flushes of the PROBES form,
+// as in the wide probe instance: per tile, stage and probe each block
+// reads and rewrites its g vectors, (K + 1) times a tile and stage.  On an
+// NVIDIA H100 80GB HBM3 (700 W) at 860 wide each flush costs about a
+// one-probe step (PERF.md): one block of 8 warps an SM hides little of the
+// read-modify-write latency, so the flushes, not the chain passes, set the
+// time; one contraction a stage for all probes, as k4_stream_adjoint.cu
+// does for its gradient, would remove K of them.  K and the direction are
+// run-time values; the one-probe instance above stays as it was.
 
 #include "chain_stream.cuh"
 
@@ -272,6 +302,300 @@ size_t smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
   return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : region_floats(L, T)));
 }
 
+// The probe instance's tile arrays beside the solver's: six dz-vectors, five
+// hidden blocks and four scalars a row.
+struct ProbeArrays {
+  float *E, *VL, *EJ, *CU, *CAL, *CTY;  // (T, zp); CAL holds t W_last (JVP) until the probes end
+  float *HS, *PU, *V, *U, *HC;          // hidden blocks; V holds ca after the probes
+  float* SC;                            // (T, 4): fn, the trace and probe-norm sums, ct_tr then fz
+};
+
+__host__ __device__ inline size_t probe_region_floats(const StreamLayout& L, int T) {
+  return (size_t)T * (4 * L.zp + 3) + (size_t)T * (6 * L.zp + 5 * (size_t)L.hsum + 4);
+}
+
+__device__ inline ProbeArrays probe_arrays(const StreamLayout& L, int T, float* base) {
+  ProbeArrays a;
+  const size_t v = (size_t)T * L.zp, h = (size_t)T * L.hsum;
+  a.E = base;
+  a.VL = a.E + v;
+  a.EJ = a.VL + v;
+  a.CU = a.EJ + v;
+  a.CAL = a.CU + v;
+  a.CTY = a.CAL + v;
+  a.HS = a.CTY + v;
+  a.PU = a.HS + h;
+  a.V = a.PU + h;
+  a.U = a.V + h;
+  a.HC = a.U + h;
+  a.SC = a.HC + h;
+  return a;
+}
+
+// The probe instance's stage of a tile (K6): the forward pass, then per
+// probe its pass and that pass's VJP, leaving the probe's vectors for
+// `flush`; then the rates and the forward chain's VJP.
+struct StreamProbeStage {
+  const StreamLayout* L;
+  const float* params;
+  const float* eps;    // (K, B, dz)
+  const float* aaccT;  // (3, B)
+  ProbeArrays a;
+  float* wc;           // the chunk buffer
+  int B, T, K, jvp, norm_z, norm_j;
+
+  // The forward pass; the probe sums and ct_tr.  Not inlined (nor are the
+  // two below): the flushes between them keep their registers.
+  __device__ __noinline__ void forward(int s0, int nv, const float* Z, float* KZ) const {
+    const StreamLayout& c = *L;
+    const ProbeArrays a = this->a;
+    const int zp = c.zp, hs = c.hsum;
+    const float inv_k = 1.f / K;
+    cnf::stream_forward(c, params, Z, T, a.HS, KZ, wc);
+    for (int idx = threadIdx.x; idx < T * hs; idx += blockDim.x) a.HC[idx] = 0.f;
+    for (int idx = threadIdx.x; idx < T * zp; idx += blockDim.x) a.CTY[idx] = 0.f;
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      a.SC[t * 4 + 1] = 0.f;
+      a.SC[t * 4 + 2] = 0.f;
+      a.SC[t * 4 + 3] = t < nv ? -aaccT[s0 + t] * inv_k : 0.f;  // ct_tr: rates row 0 is -tr over K probes
+    }
+    __syncthreads();
+  }
+
+  // Probe pk's pass and its VJP: its trace and norm terms into SC, its -2 h
+  // (.) gate terms into HC and CTY, its outer-product vectors left in CU /
+  // PU and VL / V.
+  __device__ __noinline__ void probe(int pk, int s0, int nv, const float* KZ) const {
+    const StreamLayout& c = *L;
+    const ProbeArrays a = this->a;
+    const int n = c.n, dz = c.dz, zp = c.zp;
+    const int on_y = c.act[n - 1];
+    float *E = a.E, *VL = a.VL, *EJ = a.EJ, *CU = a.CU, *CAL = a.CAL, *CTY = a.CTY, *SC = a.SC;
+    const float inv_k = 1.f / K;
+    const float* ek = eps + ((size_t)pk * B + s0) * dz;
+    for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+      const int t = idx / dz, k = idx % dz;
+      const float e = t < nv ? ek[idx] : 0.f;
+      E[t * zp + k] = e;
+      if (!jvp) VL[t * zp + k] = e * gate(KZ[t * zp + k], on_y);
+    }
+    __syncthreads();
+    if (jvp) {
+      // The pushforward, keeping u_l (U) and t_l (PU); t W_last to CAL.
+      cnf::stream_pushforward(c, params, E, T, a.HS, a.U, a.PU, CAL, wc);
+      for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+        const int t = idx / dz, k = idx % dz;
+        EJ[t * zp + k] = CAL[t * zp + k] * gate(KZ[t * zp + k], on_y);
+      }
+      __syncthreads();
+    } else {
+      // The pullback, keeping u_l (U) and the gated v_l (V), and eJ.
+      for (int i = n - 1; i >= 1; --i) {
+        const float* src = i == n - 1 ? VL : level(c, a.V, T, i + 1);
+        float* u = level(c, a.U, T, i);
+        float* v = level(c, a.V, T, i);
+        const float* h = level(c, a.HS, T, i);
+        const int hp = c.hp[i], on = c.act[i - 1];
+        cnf::stream_mm_t(src, c.hp[i + 1], c.width[i + 1], cnf::layer_w(c, params, i), c.width[i], T, wc,
+                         [&](int t, int k, float x) {
+                           u[t * hp + k] = x;
+                           v[t * hp + k] = x * gate(h[t * hp + k], on);
+                         });
+      }
+      cnf::stream_mm_t(level(c, a.V, T, 1), c.hp[1], c.width[1], cnf::layer_w(c, params, 0), dz, T, wc,
+                       [&](int t, int k, float x) { EJ[t * zp + k] = x; });
+    }
+    // The probe's trace and norm terms, and its norm cotangent factor.
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      float tr = 0.f, nsq = 0.f;
+      for (int k = 0; k < dz; ++k) {
+        const float ej = EJ[t * zp + k];
+        tr = fmaf(ej, E[t * zp + k], tr);
+        nsq = fmaf(ej, ej, nsq);
+      }
+      const float nk = safe_norm_sq(nsq);
+      SC[t * 4 + 1] += tr;
+      SC[t * 4 + 2] += nk;
+      const float ct_n = t < nv ? aaccT[(size_t)2 * B + s0 + t] * inv_k : 0.f;
+      SC[t * 4 + 0] = norm_j ? ct_safe_norm(ct_n, nk) : 0.f;
+    }
+    __syncthreads();
+    if (jvp) {
+      // Down the pushforward: ct_Je = eps ct_tr + Je fn, ct_u = ct_Je s'(y)
+      // (VL), cty += -2 y (ct_Je t W); each level's ct_t = ct_u W^T,
+      // ct_u = ct_t s'(h) (V), hc += -2 h (ct_t u); a_0 = eps (CU).
+      for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+        const int t = idx / dz, k = idx % dz, o = t * zp + k;
+        const float y = KZ[o], e = E[o];
+        const float ct = fmaf(EJ[o], SC[t * 4 + 0], e * SC[t * 4 + 3]);
+        VL[o] = ct * gate(y, on_y);
+        if (on_y) CTY[o] += (-2.f * y) * (ct * CAL[o]);
+        CU[o] = e;
+      }
+      __syncthreads();
+      for (int i = n - 1; i >= 1; --i) {
+        const float* src = i == n - 1 ? VL : level(c, a.V, T, i + 1);
+        float* v = level(c, a.V, T, i);
+        float* hc = level(c, a.HC, T, i);
+        const float* u = level(c, a.U, T, i);
+        const float* h = level(c, a.HS, T, i);
+        const int hp = c.hp[i], on = c.act[i - 1];
+        cnf::stream_mm_t(src, c.hp[i + 1], c.width[i + 1], cnf::layer_w(c, params, i), c.width[i], T, wc,
+                         [&](int t, int k, float ct) {
+                           const int o = t * hp + k;
+                           const float hh = h[o];
+                           v[o] = ct * gate(hh, on);
+                           if (on) hc[o] += (-2.f * hh) * (ct * u[o]);
+                         });
+      }
+    } else {
+      // Up the pullback: cu = eps ct_tr + eJ fn (CU); per layer ct_v = pu W,
+      // pu of the level above = ct_v s'(h), hc += -2 h (ct_v u); at the
+      // output cty += -2 y (ct_v eps).
+      for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+        const int t = idx / dz, k = idx % dz, o = t * zp + k;
+        CU[o] = fmaf(EJ[o], SC[t * 4 + 0], E[o] * SC[t * 4 + 3]);
+      }
+      __syncthreads();
+      for (int i = 0; i < n - 1; ++i) {
+        const float* src = i == 0 ? CU : level(c, a.PU, T, i);
+        float* pu = level(c, a.PU, T, i + 1);
+        float* hc = level(c, a.HC, T, i + 1);
+        const float* u = level(c, a.U, T, i + 1);
+        const float* h = level(c, a.HS, T, i + 1);
+        const int hp = c.hp[i + 1], on = c.act[i];
+        cnf::stream_mm(src, c.hp[i], c.width[i], cnf::layer_w(c, params, i), nullptr, c.width[i + 1], T, wc,
+                       [&](int t, int o, float cv) {
+                         const int x = t * hp + o;
+                         const float hh = h[x];
+                         pu[x] = cv * gate(hh, on);
+                         if (on) hc[x] += (-2.f * hh) * (cv * u[x]);
+                       });
+      }
+      if (on_y)
+        cnf::stream_mm(level(c, a.PU, T, n - 1), c.hp[n - 1], c.width[n - 1], cnf::layer_w(c, params, n - 1),
+                       nullptr, dz, T, wc, [&](int t, int k, float cv) {
+                         const int o = t * zp + k;
+                         CTY[o] += (-2.f * KZ[o]) * (cv * E[o]);
+                       });
+    }
+  }
+
+  // The rates, averaged over the probes, fz, and the forward chain's VJP.
+  __device__ __noinline__ void backward(int s0, int nv, const float* AZ, const float* KZ, float* KR,
+                                        float* KAZ) const {
+    const StreamLayout& c = *L;
+    const ProbeArrays a = this->a;
+    const int n = c.n, dz = c.dz, zp = c.zp;
+    const int on_y = c.act[n - 1];
+    float *CAL = a.CAL, *CTY = a.CTY, *SC = a.SC;
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      float ysq = 0.f;
+      for (int k = 0; k < dz; ++k) ysq = fmaf(KZ[t * zp + k], KZ[t * zp + k], ysq);
+      const float e_rate = safe_norm_sq(ysq);
+      KR[t * 3 + 0] = -(SC[t * 4 + 1] / K);
+      KR[t * 3 + 1] = norm_z ? e_rate : 0.f;
+      KR[t * 3 + 2] = norm_j ? SC[t * 4 + 2] / K : 0.f;
+      const float aacc1 = t < nv ? aaccT[(size_t)B + s0 + t] : 0.f;
+      SC[t * 4 + 3] = norm_z ? ct_safe_norm(aacc1, e_rate) : 0.f;
+    }
+    __syncthreads();
+    // Down the forward chain: cal = (a_z + y fz + cty) s'(y); ca of the level
+    // below = (ca W^T + hc) s'(h), over V.
+    for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
+      const int t = idx / dz, k = idx % dz, o = t * zp + k;
+      const float y = KZ[o];
+      CAL[o] = (fmaf(y, SC[t * 4 + 3], AZ[o]) + CTY[o]) * gate(y, on_y);
+    }
+    __syncthreads();
+    for (int i = n - 1; i >= 1; --i) {
+      const float* src = i == n - 1 ? CAL : level(c, a.V, T, i + 1);
+      float* ca = level(c, a.V, T, i);
+      const float* hc = level(c, a.HC, T, i);
+      const float* h = level(c, a.HS, T, i);
+      const int hp = c.hp[i], on = c.act[i - 1];
+      cnf::stream_mm_t(src, c.hp[i + 1], c.width[i + 1], cnf::layer_w(c, params, i), c.width[i], T, wc,
+                       [&](int t, int k, float x) { ca[t * hp + k] = (x + hc[t * hp + k]) * gate(h[t * hp + k], on); });
+    }
+    cnf::stream_mm_t(level(c, a.V, T, 1), c.hp[1], c.width[1], cnf::layer_w(c, params, 0), dz, T, wc,
+                     [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+  }
+
+  template <class Flush>
+  __device__ void probes(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR, float* KAZ,
+                         const Flush& flush) const {
+    forward(s0, nv, Z, KZ);
+    for (int pk = 0; pk < K; ++pk) {
+      probe(pk, s0, nv, KZ);
+      flush();
+    }
+    backward(s0, nv, AZ, KZ, KR, KAZ);
+  }
+};
+
+// The probe instance's gradient terms (K6): the tile's sum over its first
+// nv rows of the negated gradient rate entry q, a probe's part (a_i (x) b_i;
+// nothing for a bias) or the forward chain's (in_i (x) ca_i, the biases).
+struct StreamProbeGrad {
+  const StreamLayout* L;
+  const float* Z;  // the solver's stage input z
+  ProbeArrays a;
+  int T;
+
+  template <bool PROBE>
+  __device__ __forceinline__ float entry(int q, int nv) const {
+    const StreamLayout& c = *L;
+    const int n = c.n;
+    int i = 0;
+    while (i + 1 < n && q >= c.pofs[i + 1]) ++i;
+    const int in = c.width[i], out = c.width[i + 1];
+    const int r = q - c.pofs[i];
+    const int ip = c.hp[i], op = c.hp[i + 1];
+    float v = 0.f;
+    if (r < in * out) {
+      const int k = r / out, o = r % out;
+      const float* px = (PROBE ? (i == 0 ? a.CU : level(c, a.PU, T, i)) : (i == 0 ? Z : level(c, a.HS, T, i))) + k;
+      const float* py = (PROBE ? (i == n - 1 ? a.VL : level(c, a.V, T, i + 1))
+                               : (i == n - 1 ? a.CAL : level(c, a.V, T, i + 1))) + o;
+      for (int t = 0; t < nv; ++t) v = fmaf(px[t * ip], py[t * op], v);
+    } else {
+      if (PROBE) return 0.f;
+      const float* pd = (i == n - 1 ? a.CAL : level(c, a.V, T, i + 1)) + (r - in * out);
+      for (int t = 0; t < nv; ++t) v += pd[t * op];
+    }
+    return -v;
+  }
+  __device__ float probe(int q, int nv) const { return entry<true>(q, nv); }
+  __device__ float fwd(int q, int nv) const { return entry<false>(q, nv); }
+};
+
+struct ProbeArgs {
+  AdjArgs a;
+  int K, jvp;
+};
+
+// One block an SM, as the one-probe instance.
+__global__ void __launch_bounds__(kStreamBlock, 1) k2_stream_probe_adjoint(const ProbeArgs pa) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ StreamLayout L;
+  const AdjArgs& p = pa.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T;
+  float* wc = smem;
+  float* red = wc + cnf::kChunkFloats;
+  // The solver's Z, AZ, KZ, KAZ, KR, then the stage's arrays.
+  float* scratch = p.tiles ? p.tiles + (size_t)blockIdx.x * probe_region_floats(L, T) : red + kRedFloats;
+  const ProbeArrays arrays = probe_arrays(L, T, scratch + T * (4 * L.zp + 3));
+  const StreamProbeStage stage{&L, p.params, p.eps, p.s.aaccT, arrays, wc, p.s.B, T, pa.K, pa.jvp, p.norm_z,
+                               p.norm_j};
+  const StreamProbeGrad grad{&L, scratch, arrays, T};
+  cnf::adjoint_solve_tiles<kStageUnroll, true>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew, red);
+}
+
+size_t probe_smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
+  return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : probe_region_floats(L, T)));
+}
+
 }  // namespace
 
 // The launch shape at batch B: out = {threads per block, blocks, samples a
@@ -317,5 +641,46 @@ extern "C" int cnf_k2s_train_adjoint(const float* params, const float* eps, cons
   a.norm_j = norm_j;
   a.T = T;
   return (int)cnf::coop_launch(k2_stream_adjoint, a, grid, block, smem_bytes(a.L, T, tiles != nullptr),
+                               (cudaStream_t)stream);
+}
+
+// The probe instance's launch shape (K6), as cnf_k2s_shape.
+extern "C" int cnf_k2sp_shape(int n, const int* widths, int B, int* out) {
+  StreamLayout L;
+  if (B < 1 || !cnf::make_stream_layout(n, widths, &L)) return (int)cudaErrorInvalidValue;
+  size_t region[2];
+  for (int o = 0; o < 2; ++o) region[o] = probe_region_floats(L, kTiles[o]);
+  return cnf::stream_shape(k2_stream_probe_adjoint, region, kTiles, kTiles, 2, B, out);
+}
+
+// The probe instance (K6): as cnf_k2s_train_adjoint with eps (K, B, dz),
+// K >= 1 probes, reverse mode or (jvp) forward mode; T, grid, block and the
+// tile scratch from cnf_k2sp_shape.
+extern "C" int cnf_k2s_probe_adjoint(const float* params, const float* eps, const float* zT, const float* accT,
+                                     const float* azT, const float* aaccT, const float* ts, float* z0, float* acc0,
+                                     float* az0, float* g, int* stats, float* work, float* partials, float* gblk,
+                                     float* gnew, float* tiles, int B, int n, const int* widths, int acts,
+                                     int max_steps, int norm_z, int norm_j, int K, int jvp, float rtol, float atol,
+                                     float beta1, float beta2, float inv_order, const float* tab, int T, int grid,
+                                     int block, void* stream) {
+  ProbeArgs pa = {};
+  AdjArgs& a = pa.a;
+  if (block != kStreamBlock || grid < 1 || T < 4 || T % 4 != 0 || K < 1 || !cnf::make_stream_layout(n, widths, &a.L))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_stream_acts(&a.L, acts);
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, nullptr, B, widths[n],
+                     max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.params = params;
+  a.eps = eps;
+  a.g = g;
+  a.gnew = gnew;
+  a.gblk = gblk;
+  a.tiles = tiles;
+  a.norm_z = norm_z;
+  a.norm_j = norm_j;
+  a.T = T;
+  pa.K = K;
+  pa.jvp = jvp;
+  return (int)cnf::coop_launch(k2_stream_probe_adjoint, pa, grid, block, probe_smem_bytes(a.L, T, tiles != nullptr),
                                (cudaStream_t)stream);
 }

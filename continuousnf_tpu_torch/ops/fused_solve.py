@@ -891,13 +891,13 @@ def _kernel_covers(
     WIDE_MAX_WIDTH, whose weights fit in a block's shared memory beside a
     tile, and their streamed forms (`stream`; False asks for the wide forms
     alone) the unconditional chains the wide forms refuse for their state
-    width, hidden widths or weights' shared memory, up to state width
-    STREAM_MAX_DZ, with one VJP probe and up to STREAM_MAX_PARAMS
-    parameters; a narrow chain whose weights and per-thread
-    slots do not fit in shared memory is refused at launch (`_launch_shape`).
-    The Hutchinson kernels (K1, K2, their chain forms and the chain forms'
-    wide forms) take any number `k_probes` of VJP or (`jvp`) JVP probes
-    (K6)."""
+    width, hidden widths or weights' shared memory (with K probes or JVP,
+    the shared memory of the wide probe instances), up to state width
+    STREAM_MAX_DZ and STREAM_MAX_PARAMS parameters; a narrow chain whose
+    weights and per-thread slots do not fit in shared memory is refused at
+    launch (`_launch_shape`).  The Hutchinson kernels (K1, K2, their chain
+    forms and the chain forms' wide and streamed forms) take any number
+    `k_probes` of VJP or (`jvp`) JVP probes (K6)."""
     if tab.btilde is None:
         return f"the {tab.name} tableau (no embedded error estimate: fixed-step solves stay outside the kernels)"
     if tab.num_stages > MAX_STAGES:
@@ -938,13 +938,6 @@ def _kernel_covers(
         why = _wide_limit(spec, k_probes != 1 or jvp)
         if why is None or not stream:
             return why
-        if _wide_limit(spec) is None:
-            # One probe fits the wide forms, K probes or JVP do not.
-            return why
-    if k_probes != 1 or jvp:
-        probes = f"{k_probes} {'JVP' if jvp else 'VJP'} probe{'s' if k_probes != 1 else ''}"
-        return (f"{probes} at {why} in the streamed chain forms (they run the chains the wide forms refuse with one "
-                "VJP probe; K6 in the streamed forms: ROADMAP queue 2, shape variants (e))")
     P = _param_count(spec)
     if P > STREAM_MAX_PARAMS:
         return (f"{P} parameters (the streamed forms' offsets are 32-bit ints, up to {STREAM_MAX_PARAMS}; ROADMAP "
@@ -972,17 +965,19 @@ def _wide_limit(spec: ChainSpec, probes: bool = False) -> Optional[str]:
     return None
 
 
-def _stream_chain(spec: ChainSpec) -> bool:
+def _stream_chain(spec: ChainSpec, probes: bool = False) -> bool:
     """Whether the chain kernels' streamed forms run a chain: an
     unconditional chain of 2 to CHAIN_MAX_LAYERS layers past the narrow
     widths, of state width up to STREAM_MAX_DZ, that the wide forms refuse
-    (with one probe) for its state width past WIDE_MAX_DZ, its hidden widths
-    or its weights' shared memory.  2-layer tanh nets past MAX_DZ count too:
-    the streamed forms run their Hutchinson and exact-forward stages, and
-    streamed K3 and K5 their TEST stages."""
+    for its state width past WIDE_MAX_DZ, its hidden widths or its weights'
+    shared memory: with one probe, or (`probes`: K probes or JVP, K6) in
+    their probe instances, which keep one more dz-vector and hidden block a
+    row.  2-layer tanh nets past MAX_DZ count too: the streamed forms run
+    their Hutchinson and exact-forward stages, and streamed K3 and K5 their
+    TEST stages."""
     if spec.n_cond or not 2 <= spec.n_layers <= CHAIN_MAX_LAYERS or spec.dz > STREAM_MAX_DZ:
         return False
-    return _wide_chain(spec) and (spec.dz > WIDE_MAX_DZ or _wide_limit(spec) is not None)
+    return _wide_chain(spec) and (spec.dz > WIDE_MAX_DZ or _wide_limit(spec, probes) is not None)
 
 
 _COND_WIDE = ("conditional wide chains (K8 in the wide and streamed chain forms, ROADMAP queue 2, shape variants "
@@ -1165,6 +1160,8 @@ _SIGNATURES = {
     K1S_KERNEL: {
         "cnf_k1s_shape": _WIDE_SHAPE,
         "cnf_k1s_train_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k1sp_shape": _WIDE_SHAPE,
+        "cnf_k1s_probe_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K7S_KERNEL: {
         "cnf_k7s_test_shape": _WIDE_SHAPE,
@@ -1175,6 +1172,8 @@ _SIGNATURES = {
     K2S_KERNEL: {
         "cnf_k2s_shape": _WIDE_SHAPE,
         "cnf_k2s_train_adjoint": ([_P] * 17 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k2sp_shape": _WIDE_SHAPE,
+        "cnf_k2s_probe_adjoint": ([_P] * 17 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K3S_KERNEL: {
         "cnf_k3s_shape": _WIDE_SHAPE,
@@ -1276,19 +1275,22 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
     a chain kernel's narrow form (`wide` and `stream` False) takes no wide
     chain, its wide form (`wide`) the chains past the narrow widths that it
     keeps in shared memory, and its streamed form (`stream`) the chains the
-    wide forms refuse for their widths or shared memory (`_stream_chain`)."""
+    wide forms refuse for their widths or shared memory (`_stream_chain`;
+    with K probes or JVP, those of the wide probe instances)."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
+    probes = k_probes != 1 or jvp
     why = _kernel_covers(tab, spec, k_probes, chain, jvp)
     if why is None and chain and not wide and not stream and _wide_chain(spec):
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the narrow chain kernels (up to "
                f"{MAX_DZ} and {CHAIN_MAX_WIDTH}: their wide forms take the chain)")
     if why is None and wide and spec.n_cond:
         why = _COND_WIDE
-    if why is None and wide and _stream_chain(spec):
+    if why is None and wide and _stream_chain(spec, probes):
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the wide chain forms "
-               f"({_kernel_covers(tab, spec, chain=True, stream=False)}: their streamed forms take the chain)")
-    if why is None and stream and not _stream_chain(spec):
+               f"({_kernel_covers(tab, spec, k_probes, chain=True, jvp=jvp, stream=False)}: their streamed forms "
+               "take the chain)")
+    if why is None and stream and not _stream_chain(spec, probes):
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the streamed chain forms (the "
                "narrow or wide forms take the chain)")
     if why is not None:
@@ -2348,12 +2350,14 @@ def run_stream_train_solve_kernel(
     jvp=False,
 ):
     """The streamed K1 chain form: the K1 chain form's solve
-    (`run_chain_train_solve_kernel`) for the streamed chains, one VJP probe;
-    arguments and returns as `run_train_solve_kernel`.
+    (`run_chain_train_solve_kernel`) for the streamed chains (with K probes
+    or JVP also the chains only the streamed probe instances keep,
+    `_stream_chain(spec, True)`); arguments and returns as
+    `run_train_solve_kernel`.
 
-    CUDA tensors go through the kernel (`csrc/k1_stream_solve.cu`; K probes
-    or JVP raise: K6 in the streamed forms is not ported), CPU tensors
-    through its plain version."""
+    CUDA tensors go through the kernel (`csrc/k1_stream_solve.cu`: one VJP
+    probe in its first instance, any other probes in its probe instance,
+    K6), CPU tensors through its plain version."""
     _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_plain(
@@ -2361,36 +2365,44 @@ def run_stream_train_solve_kernel(
             ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys, jvp=jvp,
         )
     _cuda_only("streamed K1", z0, tab, spec, eps.shape[0], chain=True, jvp=jvp, stream=True)
+    probes = _probe_instance(eps, jvp)
     out = _launch_wide_forward(
-        "streamed K1 chain form", K1S_KERNEL, "cnf_k1s_train_solve", "cnf_k1s_shape", tab, spec, rtol=rtol,
-        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
-        norms=(norm_z, norm_j), stream=True,
+        "streamed K1 chain form", K1S_KERNEL, "cnf_k1s_probe_solve" if probes else "cnf_k1s_train_solve",
+        "cnf_k1sp_shape" if probes else "cnf_k1s_shape", tab, spec, rtol=rtol, atol=atol, max_steps=max_steps,
+        ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
+        norms=(norm_z, norm_j) + ((eps.shape[0], jvp) if probes else ()), stream=True,
     )
-    run_stream_train_solve_kernel.launches += 1
+    _count(run_stream_train_solve_kernel, eps, jvp)
     return out
 
 
 run_stream_train_solve_kernel.launches = 0
+run_stream_train_solve_kernel.probe_launches = {}
 
 
 def _launch_stream_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-                           t_hi, t_lo, dt_init):
+                           t_hi, t_lo, dt_init, jvp=False):
     label = "streamed K2 chain form"
     B, dz = zT.shape
+    K = eps.shape[0]
     device = zT.device
     params, widths = _chain_params(label, spec, ws, bs, device)
     e0, zT, accT, azT, aaccT = _check_inputs(
-        label, device, [eps, zT, accT, azT, aaccT], [(1, B, dz), (B, dz), (3, B), (B, dz), (3, B)]
+        label, device, [eps, zT, accT, azT, aaccT], [(K, B, dz), (B, dz), (3, B), (B, dz), (3, B)]
     )
     lib = _library(K2S_KERNEL)
-    block, grid, tile, tiles = _stream_shape(lib, "cnf_k2s_shape", label, spec, widths, B, device)
+    probes = _probe_instance(eps, jvp)
+    block, grid, tile, tiles = _stream_shape(lib, "cnf_k2sp_shape" if probes else "cnf_k2s_shape", label, spec,
+                                             widths, B, device)
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
     z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel())
-    err = lib.cnf_k2s_train_adjoint(
+    entry = lib.cnf_k2s_probe_adjoint if probes else lib.cnf_k2s_train_adjoint
+    err = entry(
         _ptr(params), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
         _ptr(az0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), _ptr_or_null(tiles), B,
-        spec.n_layers, widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j), rtol, atol,
-        *_controller_floats(tab), _tableau_array(tab), tile, grid, block, _stream(device),
+        spec.n_layers, widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j),
+        *([K, int(jvp)] if probes else []), rtol, atol, *_controller_floats(tab), _tableau_array(tab), tile, grid,
+        block, _stream(device),
     )
     _check_launch(err, label, grid, block)
     g_ws, g_bs = _split_params(g, spec)
@@ -2402,11 +2414,12 @@ def run_stream_adjoint_kernel(
     t_hi, t_lo, dt_init, ys=None, jvp=False,
 ):
     """The streamed K2 chain form: the K2 chain form's backsolve
-    (`run_chain_adjoint_kernel`) for the streamed chains, one VJP probe;
-    arguments and returns as `run_adjoint_kernel`.
+    (`run_chain_adjoint_kernel`) for the chains `run_stream_train_solve_kernel`
+    takes; arguments and returns as `run_adjoint_kernel`.
 
-    CUDA tensors go through the kernel (`csrc/k2_stream_adjoint.cu`; K
-    probes or JVP raise), CPU tensors through its plain version."""
+    CUDA tensors go through the kernel (`csrc/k2_stream_adjoint.cu`: one VJP
+    probe in its first instance, any other probes in its probe instance,
+    K6), CPU tensors through its plain version."""
     _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
     if zT.device.type == "cpu":
         return adjoint_train_plain(
@@ -2419,12 +2432,13 @@ def run_stream_adjoint_kernel(
         raise ValueError("the streamed K2 chain form needs dt_init (the caller picks it)")
     out = _launch_stream_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
                                  ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi,
-                                 t_lo=t_lo, dt_init=dt_init)
-    run_stream_adjoint_kernel.launches += 1
+                                 t_lo=t_lo, dt_init=dt_init, jvp=jvp)
+    _count(run_stream_adjoint_kernel, eps, jvp)
     return out
 
 
 run_stream_adjoint_kernel.launches = 0
+run_stream_adjoint_kernel.probe_launches = {}
 
 
 # ---- the 2-layer TEST kernels' streamed forms (2-layer tanh nets past the wide limits) ----
@@ -2788,7 +2802,8 @@ KERNEL_WRAPPERS = {
 #: The Hutchinson kernels' wrappers, whose `.probe_launches[(K, jvp)]`
 #: counts their probe instance's launches by probe count and direction (K6).
 PROBE_WRAPPERS = (run_train_solve_kernel, run_adjoint_kernel, run_chain_train_solve_kernel, run_chain_adjoint_kernel,
-                  run_wide_train_solve_kernel, run_wide_adjoint_kernel)
+                  run_wide_train_solve_kernel, run_wide_adjoint_kernel, run_stream_train_solve_kernel,
+                  run_stream_adjoint_kernel)
 
 
 def reset_launches() -> None:
@@ -2867,8 +2882,12 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     or the shared memory their weights take (`_stream_chain`: FFJORD's
     MINIBOONE model 43 -> 860 -> 860 -> 43, state widths to STREAM_MAX_DZ)
     run the streamed forms: streamed K7 TEST and exact forward, the streamed
-    K1 and K2 chain forms under Hutchinson TRAIN with one VJP probe (K
-    probes or JVP raise on the card); a 2-layer tanh net past MAX_DZ among
+    K1 and K2 chain forms under Hutchinson TRAIN, with K VJP or JVP probes
+    in their probe instances (K6); so do the Hutchinson TRAIN solves with K
+    probes or JVP of the wide chains that only the streamed probe instances
+    keep (`_stream_chain(spec, True)`: the wide probe instances' shared
+    memory), whose one-probe and other solves stay on the wide forms; a
+    2-layer tanh net past MAX_DZ among
     them (the README net family at the MINIBOONE and BSDS300 widths,
     86 -> 258 -> 86 and 126 -> 378 -> 126) runs streamed K3 forward and
     streamed K5 backward in TEST mode, and streamed K7 exact forward with
@@ -2950,12 +2969,16 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     elif chain and _wide_chain(spec):
         run_test, run_train = run_wide_test_solve_kernel, run_wide_train_solve_kernel
         run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel
+        if _stream_chain(spec, cm.num_probes != 1 or jvp):
+            run_train, run_adjoint = run_stream_train_solve_kernel, run_stream_adjoint_kernel
     elif chain:
         run_test, run_train = run_chain_test_solve_kernel, run_chain_train_solve_kernel
         run_exact, run_adjoint = run_chain_exact_solve_kernel, run_chain_adjoint_kernel
     elif wide2:
         run_test, run_train = run_wide_test2_solve_kernel, run_wide_train_solve_kernel
         run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel
+        if _stream_chain(spec, cm.num_probes != 1 or jvp):
+            run_train, run_adjoint = run_stream_train_solve_kernel, run_stream_adjoint_kernel
     else:
         run_test, run_train = run_solve_kernel, run_train_solve_kernel
         run_exact, run_adjoint = run_exact_solve_kernel, run_adjoint_kernel

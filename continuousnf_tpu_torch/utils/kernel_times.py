@@ -28,7 +28,8 @@ probe (the "k10" key, [ms, 0]: a call's time, which its launch dominates).
 With `--probes K` (K Gaussian probes) or `--jvp` (forward-mode probes) it
 times only the Hutchinson kernels, K1 and K2 and their chain forms, through
 their probe instances (K6; the "/K<K>" or "/jvp-K<K>" keys), with the wide
-forms on miniboone43 and hepmass42 where `--models` names them.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
+forms on miniboone43 and hepmass42 and the streamed forms on miniboone860
+where `--models` names them.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
 one JSON line {"tableau": ..., "kernels": {name: [ms, attempted steps]}}.
 
 By default it uses only wrappers that earlier versions of the package have
@@ -82,9 +83,7 @@ def main() -> int:
     if "miniboone43" in models:
         kernels["miniboone43"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [fs.K7W_KERNEL])
     if "miniboone860" in models:
-        if probes:
-            raise SystemExit("the streamed chain forms (miniboone860) have no probe instance (K6)")
-        kernels["miniboone860"] = [fs.K1S_KERNEL, fs.K2S_KERNEL, fs.K7S_KERNEL]
+        kernels["miniboone860"] = [fs.K1S_KERNEL, fs.K2S_KERNEL] + ([] if probes else [fs.K7S_KERNEL])
     if "hepmass42" in models:
         kernels["hepmass42"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [
             fs.K7W_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL, fs.K4WA_KERNEL])
@@ -134,10 +133,12 @@ def main() -> int:
         test = dict(base, z0=z0, dlogp0=T(rng.normal(0.0, 0.1, B)))
         if probes:
             keys = {"flagship": ("k1", "k2"), "miniboone43": ("k1c_wide", "k2c_wide"),
-                    "hepmass42": ("k1c_hepmass", "k2c_hepmass")}.get(name, ("k1c" + tag, "k2c" + tag))
+                    "hepmass42": ("k1c_hepmass", "k2c_hepmass"),
+                    "miniboone860": ("k1c_stream", "k2c_stream")}.get(name, ("k1c" + tag, "k2c" + tag))
             wide = (fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel)
             runs = {"flagship": (fs.run_train_solve_kernel, fs.run_adjoint_kernel), "miniboone43": wide,
-                    "hepmass42": wide}.get(name, (fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel))
+                    "hepmass42": wide, "miniboone860": (fs.run_stream_train_solve_kernel, fs.run_stream_adjoint_kernel)
+                    }.get(name, (fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel))
             time_pair(tuple(k + suffix for k in keys), spec, *runs, dict(train, eps=eps, **probe_kw),
                       dict(adj, eps=eps, **probe_kw))
         elif name == "flagship":

@@ -14,8 +14,10 @@ between two builds of one file shows beside the one between the checkouts.
 The anonymous namespace's name in the mangled names (a hash of the path, its
 length in the `_ZN<n>` prefix) differs between two paths of one source and
 is stripped, in function names and in the instructions that name a
-function.  Needs the CUDA toolkit; prints one line per source and one JSON
-object, and exits nonzero if any function differs between the checkouts.
+function.  A function only this checkout has (a new instance) is listed
+apart.  Needs the CUDA toolkit; prints one line per source and one JSON
+object, and exits nonzero if a function of the other checkout is missing
+here or has other SASS.
 """
 
 from __future__ import annotations
@@ -75,12 +77,15 @@ def main(argv=None) -> int:
     k = len(names)
     for i, n in enumerate(names):
         old, new, again = (sass_by_function(cubins[j * k + i]) for j in range(3))
-        differ = sorted(f for f in set(old) | set(new) if old.get(f) != new.get(f))
+        differ = sorted(f for f in old if old[f] != new.get(f))
+        added = sorted(set(new) - set(old))
         self_differ = sorted(f for f in set(new) | set(again) if new.get(f) != again.get(f))
         same_all &= not differ
-        report[n] = {"functions": len(new), "differ": differ, "differ_between_two_builds": self_differ}
-        print(f"{n}: {len(new)} functions, {len(differ)} with other SASS than the other checkout's"
-              + (f" ({differ})" if differ else "") + f"; {len(self_differ)} between two builds of this one")
+        report[n] = {"functions": len(new), "differ": differ, "new": added,
+                     "differ_between_two_builds": self_differ}
+        print(f"{n}: {len(new)} functions, {len(differ)} of the other checkout's {len(old)} with other SASS or "
+              f"missing" + (f" ({differ})" if differ else "") + f", {len(added)} new"
+              + f"; {len(self_differ)} between two builds of this one")
     print(json.dumps(report))
     return 0 if same_all else 1
 

@@ -467,14 +467,21 @@ _K6_CASES = {
     "conditional-jvp-K2": ((5, 16, 16, 3), 300, 2, True, True, (0.0, 2.0)),
     "miniboone-K2": ((43, 128, 128, 43), 300, 2, False, True, (0.0, 1.0)),
     "miniboone-jvp": ((43, 128, 128, 43), 300, 1, True, True, (0.0, 1.0)),
+    "miniboone860-K2": ((43, 860, 860, 43), 256, 2, False, True, (0.0, 1.0)),
+    "miniboone860-jvp-reverse": ((43, 860, 860, 43), 37, 2, True, True, (1.0, 0.0)),
+    "miniboone86-K4": ((86, 258, 86), 512, 4, False, True, (0.0, 1.0)),
+    "bsds126-jvp": ((126, 378, 126), 256, 1, True, True, (0.0, 1.0)),
+    "probe-only-shared-memory-K3": ((64, 128, 128, 120, 64), 128, 3, False, True, (0.0, 1.0)),
+    "probe-only-shared-memory-jvp": ((60, 128, 128, 128, 60), 128, 1, True, True, (0.0, 1.0)),
 }
 
 
 @pytest.mark.parametrize("case", list(_K6_CASES))
 def test_probe_kernels_match_twins(dev, case):
-    """K6: the probe instances of K1 and K2 (or of their chain forms, narrow
-    or, past the narrow widths, wide) with K VJP or JVP probes against their
-    twins: the forward from nonzero
+    """K6: the probe instances of K1 and K2 (or of their chain forms, narrow,
+    wide past the narrow widths, or streamed where the wide probe instances
+    do not keep the chain) with K VJP or JVP probes against their twins: the
+    forward from nonzero
     accumulators (equal steps, values within REL), the adjoint from its
     output with its last step as the warm start (equal steps, z0 and a_z0
     held to the float64 twin, gradients and a_ys0 within GRAD_REL), each
@@ -493,7 +500,9 @@ def test_probe_kernels_match_twins(dev, case):
     adj.update(eps=kw["eps"], jvp=jvp, azT=T(rng.normal(0.0, 1.0 / B, (B, dz))))
     if n_cond:
         kw["ys"] = adj["ys"] = _ys(B, n_cond, dev)
-    if chain and tfs._wide_chain(spec):
+    if chain and tfs._stream_chain(spec, True):
+        run1, run2 = tfs.run_stream_train_solve_kernel, tfs.run_stream_adjoint_kernel
+    elif chain and tfs._wide_chain(spec):
         run1, run2 = tfs.run_wide_train_solve_kernel, tfs.run_wide_adjoint_kernel
     elif chain:
         run1, run2 = tfs.run_chain_train_solve_kernel, tfs.run_chain_adjoint_kernel
@@ -948,24 +957,30 @@ def test_stream_chain_kernels_match_twins(dev, dims, B, span):
 @pytest.mark.parametrize(
     "dims,wrapper,kind",
     [
-        (MINIBOONE860, "run_stream_train_solve_kernel", "two-probes"),
-        (MINIBOONE860, "run_stream_train_solve_kernel", "jvp"),
+        (MINIBOONE860, "run_wide_train_solve_kernel", "two-probes"),
+        (MINIBOONE860, "run_wide_train_solve_kernel", "jvp"),
+        ((64, 128, 128, 120, 64), "run_wide_train_solve_kernel", "two-probes"),
+        ((64, 128, 128, 120, 64), "run_stream_train_solve_kernel", "train"),
+        (MINIBOONE, "run_stream_train_solve_kernel", "two-probes"),
         (MINIBOONE, "run_stream_test_solve_kernel", "test"),
         (MINIBOONE860, "run_wide_test_solve_kernel", "test"),
         ((40, 160, 40), "run_wide_test_adjoint_kernel", "test-adjoint"),
     ],
-    ids=["stream-two-probes", "stream-jvp", "stream-form-miniboone43", "wide-form-miniboone860",
-         "two-layer-test-adjoint-hidden160"],
+    ids=["wide-two-probes-miniboone860", "wide-jvp-miniboone860", "wide-two-probes-probe-only",
+         "stream-one-probe-probe-only", "stream-two-probes-miniboone43", "stream-form-miniboone43",
+         "wide-form-miniboone860", "two-layer-test-adjoint-hidden160"],
 )
 def test_stream_limits_raise_on_cuda(dev, dims, wrapper, kind):
-    """The streamed forms take one VJP probe and only the chains the wide
-    forms refuse; the wide forms refuse the streamed chains; wide K5 refuses
-    a 2-layer net past hidden 128 (streamed K5 takes it).  Nothing is
-    launched."""
+    """The streamed forms take only the chains the wide forms refuse (with K
+    probes or JVP, those the wide probe instances refuse: the one-probe
+    solve of such a chain stays on the wide forms); the wide forms refuse
+    the streamed chains, and with probes the chains only the streamed probe
+    instances keep; wide K5 refuses a 2-layer net past hidden 128 (streamed
+    K5 takes it).  Nothing is launched."""
     spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
     kw = _kernel_args(dims, 8, (0.0, 1.0), dev)
     dz = dims[-1]
-    if kind in ("two-probes", "jvp"):
+    if kind in ("train", "two-probes", "jvp"):
         kw = {k: v for k, v in kw.items() if k != "dlogp0"}
         kw.update(norm_z=True, norm_j=True, acc0=torch.zeros((3, 8), device=dev),
                   eps=torch.ones((2 if kind == "two-probes" else 1, 8, dz), device=dev), jvp=kind == "jvp")
@@ -1209,18 +1224,18 @@ def test_stream_two_layer_kernels_match_twins(dev, dims, B, span):
         ((129, 387, 129), "run_stream_train_solve_kernel", "train", "state width 129 > 128"),
         ((129, 387, 129), "run_stream_exact_adjoint_kernel", "exact-adjoint", "state width 129 > 128"),
         (MINIBOONE86, "run_wide_exact_adjoint_kernel", "exact-adjoint", "state width 86 > 64"),
-        (MINIBOONE86, "run_stream_train_solve_kernel", "two-probes", "K6 in the streamed forms"),
-        (MINIBOONE86, "run_stream_train_solve_kernel", "jvp", "K6 in the streamed forms"),
+        ((129, 387, 129), "run_stream_train_solve_kernel", "two-probes", "state width 129 > 128"),
+        ((129, 387, 129), "run_stream_train_solve_kernel", "jvp", "state width 129 > 128"),
         ((42, 126, 42), "run_stream_test2_solve_kernel", "test", "wide forms take the net"),
     ],
     ids=["dz129-test", "dz129-test-adjoint", "dz129-train", "dz129-exact-adjoint", "miniboone86-exact-adjoint",
-         "miniboone86-two-probes", "miniboone86-jvp", "hepmass42-in-streamed-K3"],
+         "dz129-two-probes", "dz129-jvp", "hepmass42-in-streamed-K3"],
 )
 def test_stream_two_layer_limits_raise_on_cuda(dev, dims, wrapper, kind, why):
     """A 2-layer net past state width 128 (the streamed K4 adjoint
-    included), the wide K4 adjoint past its own limits (the streamed K4
-    adjoint takes miniboone86's exact backward), K > 1 or JVP probes in the
-    streamed forms, and a net the wide 2-layer kernels take, raise
+    included, and K > 1 or JVP probes in the streamed probe instances), the
+    wide K4 adjoint past its own limits (the streamed K4 adjoint takes
+    miniboone86's exact backward), and a net the wide 2-layer kernels take, raise
     NotImplementedError on the card naming their reason and, past the
     kernels' widths, ROADMAP queue 2's shape variants (e).  Nothing is
     launched."""
@@ -1244,7 +1259,7 @@ def test_stream_two_layer_limits_raise_on_cuda(dev, dims, wrapper, kind, why):
     with pytest.raises(NotImplementedError) as err:
         getattr(tfs, wrapper)(TSIT5, spec, **kw)
     assert why in str(err.value)
-    if why.startswith("state width") or why.startswith("K6"):
+    if why.startswith("state width"):
         assert "ROADMAP queue 2, shape variants (e)" in str(err.value)
     assert _launches() == before
 

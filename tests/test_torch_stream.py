@@ -310,11 +310,26 @@ def test_stream_coverage(name):
     assert (tfs._kernel_covers(TSIT5, spec, chain=True, stream=False) is not None) == stream
 
 
+# name -> (dims, probes, jvp)
+_STREAM_PROBES = {
+    "two-probes": (MB860, 2, False),
+    "jvp": (MB860, 1, True),
+    "four-layer-two-probes": (NETS["four-layer"], 2, False),
+}
+
+
+@pytest.mark.parametrize("name", list(_STREAM_PROBES))
+def test_stream_forms_cover_probes(name):
+    """The streamed forms cover K probes and JVP (K6 in the streamed forms,
+    their probe instances) at the chains they run with one probe."""
+    dims, k, jvp = _STREAM_PROBES[name]
+    spec = _spec(dims)
+    assert tfs._stream_chain(spec) and tfs._stream_chain(spec, True)
+    assert tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp) is None
+
+
 # name -> (dims, n_cond, probes, jvp, what the refusal names)
 _STREAM_REFUSED = {
-    "two-probes": (MB860, 0, 2, False, "K6 in the streamed forms"),
-    "jvp": (MB860, 0, 1, True, "K6 in the streamed forms"),
-    "four-layer-two-probes": (NETS["four-layer"], 0, 2, False, "K6 in the streamed forms"),
     "conditional": (MB860, 1, 1, False, "K8 in the wide and streamed chain forms"),
     "dz129": ((129, 860, 129), 0, 1, False, "state width 129 > 128"),
     "five-layer": ((43, 860, 860, 860, 860, 43), 0, 1, False, "5-layer chains"),
@@ -323,9 +338,9 @@ _STREAM_REFUSED = {
 
 @pytest.mark.parametrize("name", list(_STREAM_REFUSED))
 def test_stream_refusals_name_their_roadmap_row(name):
-    """K > 1 probes, JVP probes and conditional nets at these widths, and
-    state widths past 128 or chains past 4 layers, are refused with the
-    reason and its ROADMAP queue 2 row."""
+    """Conditional nets at these widths, and state widths past 128 or chains
+    past 4 layers, are refused with the reason and its ROADMAP queue 2
+    row."""
     dims, n_cond, k, jvp, why = _STREAM_REFUSED[name]
     msg = tfs._kernel_covers(TSIT5, _spec(dims, n_cond), k, chain=True, jvp=jvp)
     assert msg is not None and why in msg and "ROADMAP queue 2" in msg

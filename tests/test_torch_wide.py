@@ -240,12 +240,17 @@ def test_wide_coverage(name):
 
 @pytest.mark.parametrize("name", list(_WIDE_REFUSED))
 def test_wide_refusals_name_their_roadmap_row(name):
-    """What the wide forms do not take, and the streamed forms do not take
-    either (chains past hidden width 128 or past shared memory with K
-    probes), is refused with the reason and its ROADMAP queue 2 row."""
+    """What the wide forms do not take is refused by them with the reason and
+    its ROADMAP queue 2 row; the streamed forms (their probe instances with
+    K probes, K6) take exactly the unconditional chains of up to 4 layers
+    among them (chains past state width 64, hidden width 128 or shared
+    memory), and refuse the rest."""
     dims, n_cond, why, probes = _WIDE_REFUSED[name]
-    msg = tfs._kernel_covers(TSIT5, _spec(dims, n_cond), probes, chain=True)
+    spec = _spec(dims, n_cond)
+    msg = tfs._kernel_covers(TSIT5, spec, probes, chain=True, stream=False)
     assert msg is not None and why in msg and "ROADMAP queue 2" in msg
+    streamed = tfs._kernel_covers(TSIT5, spec, probes, chain=True)
+    assert (streamed is None) == tfs._stream_chain(spec, probes != 1) == (not n_cond and len(dims) <= 5)
 
 
 def test_two_layer_kernels_refuse_a_wide_state():

@@ -188,13 +188,16 @@ def test_probe_instance_shared_memory_rule():
     """The wide K2 probe instance keeps one more dz-vector and hidden block a
     row than the one-probe instance: a chain whose weights leave room for the
     one-probe tile of 4 samples but not for the probe instance's is covered
-    with one VJP probe and refused with K probes or JVP, naming shared
-    memory; MINIBOONE fits both with room to spare."""
+    by the wide forms with one VJP probe, and with K probes or JVP refused
+    by the wide forms, naming shared memory, and taken by the streamed
+    forms' probe instances; MINIBOONE fits both with room to spare."""
     spec = _spec((64, 128, 128, 120, 64))
-    assert tfs._kernel_covers(TSIT5, spec, 1, chain=True) is None
+    assert tfs._kernel_covers(TSIT5, spec, 1, chain=True) is None and not tfs._stream_chain(spec)
     for k, jvp in ((2, False), (1, True)):
-        msg = tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp)
+        msg = tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp, stream=False)
         assert msg is not None and "shared memory" in msg and "ROADMAP queue 2" in msg
+        assert tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp) is None
+    assert tfs._stream_chain(spec, True)
     mb = _spec(MINIBOONE)
     assert 4 * tfs._wide_smem_floats(mb) < 4 * tfs._wide_smem_floats(mb, True) <= tfs.WIDE_SMEM_BYTES
 
