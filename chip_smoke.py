@@ -106,7 +106,18 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     K = 4; those probe instances at bsds126 (B = 2048), and a chain the
     wide forms keep with one probe but not with K
     (MLP 64 -> 128 -> 128 -> 120 -> 64) reaching them through
-    `make_full_solve`.
+    `make_full_solve`;
+  * conditional nets past the narrow widths (K8 in the wide forms):
+    CondRNODE at the HEPMASS width (cond_hepmass42: nvars = naug = 21, one
+    conditioning column, MLP 43 -> 126 -> 42 tanh on [z | ys], hepmass42's
+    recipe, batch 4096, ys one of HEPMASS's five standardised signal
+    masses), served through wide K3's COND instance
+    (`CondICNFDist.logpdf`, `sample(4096)`), its TEST loss gradient through
+    wide K3's and wide K5's, trained through the wide K1 and K2 chain
+    forms' (`fit`, four Lion steps); those chain-form instances on a
+    conditional 3-layer chain (MLP 44 -> 128 -> 128 -> 43); and every
+    conditional configuration still outside the kernels raising on the
+    card.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -481,6 +492,34 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      nvars = 64, tspan (0, 1), B = 1024) through `make_full_solve` with two
      VJP probes: the solve and its adjoint launch the streamed probe
      instances once each and no wide kernel, against the plain path.
+ 97. K8 in the wide forms, cond_hepmass42 (CondRNODE, nvars = naug = 21,
+     one ys column, MLP 43 -> 126 -> 42 on [z | ys], hepmass42's recipe,
+     ys the five standardised HEPMASS masses) at B = 4096: the launch shapes
+     of the COND instances of wide K3, wide K5 and the wide K1 and K2 chain
+     forms;
+ 98. each against its twin from nonzero accumulators (forwards; the
+     adjoints from their forward's output with its last step as the warm
+     start): equal steps, values within TOL, gradients and a_ys0 within
+     GRAD_TOL; each timed (µs per attempted step beside its FMA bound);
+ 99. the wide K1 and K2 chain forms' COND instances held the same way on a
+     conditional 3-layer chain past hidden 64 (CondRNODE, MLP 44 -> 128 ->
+     128 -> 43, one ys column, nvars 43, tspan (0, 1)) at B = 2048, and its
+     train step's gradient launching them once each;
+100. at B = 256, the train step's loss and gradient (params and ys) and the
+     TEST loss gradient (params, xs and ys) through the COND instances, the
+     plain path and a float64 rtol 1e-7 solve, within SOLVE_REL;
+101. the main paths at B = 4096, counters reset just before each:
+     `CondICNFDist.logpdf` and `sample` each launching wide K3 COND once and
+     nothing else, the TEST loss gradient wide K3 COND and wide K5 COND once
+     each, the train step's gradient the wide K1 and K2 chain forms' COND
+     instances once each, the conditional `fit` for four Lion steps only
+     those two, at least four times each; and each configuration still
+     refused raising on the card, naming its ROADMAP row, with nothing
+     launched: the exact gradient (wide K7 COND), K probes and JVP probes,
+     the 3-layer chain's `logpdf` (wide K7 COND), a conditional net past the
+     wide limits (the streamed forms' COND instances), the wide K4 adjoint;
+102. CUDA-event times of the train step, `logpdf` and the TEST loss
+     gradient at cond_hepmass42, each beside hepmass42's in the same run.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -719,7 +758,7 @@ def loss_grad(cnf, icnf, ps_np, xs, dev, dtype=None, ys=None, **kw):
     leaves = [x.to(dtype).requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
     p = tuple({"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2]))
     if ys is not None:
-        ys = ys.to(dtype).requires_grad_()
+        ys = ys.detach().to(dtype).requires_grad_()
         kw["ys"] = ys
     l, m = cnf.loss_and_metrics(icnf, cnf.Mode.TRAIN, xs.to(dtype), p, **kw)
     return l.detach(), torch.autograd.grad(l, leaves + ([] if ys is None else [ys])), m
@@ -2643,8 +2682,8 @@ def test_loss_grad(cnf, icnf, ps_np, xs, dev, dtype=None, ys=None):
     p = cnf.params_from_numpy(ps_np, dev)
     leaves = [x.to(dtype).requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
     p = tuple({"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2]))
-    x = xs.to(dtype).requires_grad_()
-    kw = {} if ys is None else {"ys": ys.to(dtype).requires_grad_()}
+    x = xs.detach().to(dtype).requires_grad_()
+    kw = {} if ys is None else {"ys": ys.detach().to(dtype).requires_grad_()}
     l = cnf.loss(icnf, cnf.Mode.TEST, x, p, **kw)
     return l.detach(), torch.autograd.grad(l, leaves + [x] + list(kw.values()))
 
@@ -3958,6 +3997,259 @@ def bf16_paths(cnf, fs, dev):
     return records
 
 
+# ---- K8 in the wide forms: conditional nets past the narrow widths ----
+
+COND_CHAIN_DIMS = (44, 128, 128, 43)  # phase 99: a conditional 3-layer chain past hidden 64, one ys column
+COND_CHAIN_BATCH = 2048
+COND_TRUTH_BATCH = 256  # phase 100's float64 rtol 1e-7 solves
+
+
+def cond_wide_names(fs):
+    """The cond_hepmass42 path's kernels: record key -> (KERNEL_WRAPPERS
+    name, wrapper, twin, source, the TPU site)."""
+    at = "continuousnf_tpu/ops/fused_solve.py:"
+    return {
+        "k3wc": (fs.K3W_KERNEL + "/cond", fs.run_wide_cond_test2_solve_kernel, fs.solve_test_plain,
+                 "k3_wide_solve.cu", at + "1043"),
+        "k5wc": (fs.K5W_KERNEL + "/cond", fs.run_wide_cond_test_adjoint_kernel, fs.adjoint_test_plain,
+                 "k5_wide_adjoint.cu", at + "1767"),
+        "k1wc": (fs.K1W_KERNEL + "/cond", fs.run_wide_cond_train_solve_kernel, fs.solve_train_plain,
+                 "k1_wide_solve.cu", at + "1043"),
+        "k2wc": (fs.K2W_KERNEL + "/cond", fs.run_wide_cond_adjoint_kernel, fs.adjoint_train_plain,
+                 "k2_wide_adjoint.cu", at + "1767"),
+    }
+
+
+def cond_fma_floats(dims, nc, B):
+    """FMA per sample and field evaluation and the floats read and written of
+    the COND instances at `dims` (the input width dz + nc first): the
+    unconditional counts with the first layer's ys rows (the forward's
+    nc H1, the ys gradient's nc H1) and the ys values, k_ays and a_ys0."""
+    dz, H = dims[-1], dims[1]
+    P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    chain = chain_fma(dims, nc)
+    fma = {"k1wc": chain["k1c"], "k2wc": chain["k2c"]}
+    floats = {"k1wc": P + B * (3 * dz + 6 + nc), "k2wc": 2 * P + B * (5 * dz + 9 + 2 * nc)}
+    if len(dims) == 3:
+        fma.update(k3wc=3 * dz * H + nc * H, k5wc=k5_fma(dz, H, nc))
+        floats.update(k3wc=P + B * (2 * dz + 2 + nc), k5wc=2 * P + B * (4 * dz + 3 + 2 * nc))
+    return fma, floats
+
+
+def refuses(fs, label, why, fn) -> None:
+    """`fn()` raises NotImplementedError naming `why` on the card and
+    launches nothing (the counters reset just before it)."""
+    import torch
+
+    fs.reset_launches()
+    try:
+        fn()
+    except NotImplementedError as e:
+        torch.cuda.synchronize()
+        check(why in str(e) and not launched(fs), f"{label}: raised {e!r}, launched {launched(fs)}")
+        print(f"phase 101: {label} raises on the card: {str(e)[:160]}")
+        return
+    check(False, f"{label} ran on the card; it should raise naming {why!r}")
+
+
+def cond_wide(cnf, fs, dev):
+    """Phases 97 to 102: CondRNODE at the HEPMASS width (cond_hepmass42,
+    MLP 43 -> 126 -> 42 on [z | ys]) through the COND instances of wide K3,
+    wide K5 and the wide K1 and K2 chain forms (K8 in the wide forms), and
+    the chain forms' on a conditional 3-layer chain.  Returns their
+    records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    cfg = MODELS["cond_hepmass42"]
+    dims, nc, B = cfg["dims"], cfg["n_cond"], BATCH
+    dz = dims[-1]
+    rng = np.random.default_rng(SEED + 900)
+    ps_np = glorot_params(rng, dims)
+    xs_np, ys_np = model_data("cond_hepmass42", rng, B)
+    xs, ys = torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    model = lambda **kw: make_icnf("cond_hepmass42", dev, **kw)  # noqa: E731
+    icnf_k, icnf_p = model(), model(fused=False)
+    spec = fs.chain_spec(icnf_k.nn, icnf_k.zdim)
+    check(spec.n_cond == nc and fs._wide_two_layer(spec) and fs._wide_two_layer_covers(TSIT5, spec) is None
+          and fs._kernel_covers(TSIT5, spec, chain=True) is None,
+          "cond_hepmass42 should run the COND instances of the wide forms")
+    names = cond_wide_names(fs)
+    T = lambda a: torch.from_numpy(np.asarray(a, "float32")).to(dev)  # noqa: E731
+
+    # Phase 97: the COND instances' launch shapes at B = 4096.
+    arr = (ctypes.c_int * 3)(*dims)
+    for lib_name, fn in ((fs.K3W_KERNEL, "cnf_k3wc_shape"), (fs.K5W_KERNEL, "cnf_k5wc_shape"),
+                         (fs.K1W_KERNEL, "cnf_k1wc_shape"), (fs.K2W_KERNEL, "cnf_k2wc_shape")):
+        out = (ctypes.c_int * 4)()
+        err = getattr(fs._library(lib_name), fn)(2, arr, B, out)
+        check(err == 0 and out[1] >= 1, f"{fn}: cudaError {err}")
+        print(f"phase 97: {fn} at widths {dims}, B={B}: {out[0]} threads a block, {out[1]} blocks, tile {out[2]}, "
+              f"{out[3]} bytes of dynamic shared memory")
+
+    # Phase 98: each COND instance against its twin, timed.
+    test, train, _, cot = kernel_inputs(icnf_k, ps, xs, rng, dev)
+    test["ys"], train["ys"] = ys, ys
+    runs = {}
+    for key, kw in (("k3wc", test), ("k1wc", train)):
+        runs[key] = run_pair(f"{names[key][0]} (cond_hepmass42)", names[key][1], names[key][2], TSIT5, spec, kw)
+    runs["k2wc"] = run_pair(f"{names['k2wc'][0]} (cond_hepmass42)", names["k2wc"][1], names["k2wc"][2], TSIT5, spec,
+                            adjoint_kw(train, runs["k1wc"][0], cot), adjoint=True)
+    k5_kw = dict(adjoint_kw(test, runs["k3wc"][0], dict(azT=T(rng.normal(0.0, 1.0 / B, (B, dz))),
+                                                        aaccT=T(np.full((1, B), 1.0 / B)), t_hi=test["t1"],
+                                                        t_lo=test["t0"])), accT=runs["k3wc"][0][1][None])
+    k5_kw.pop("dlogp0")
+    runs["k5wc"] = run_pair(f"{names['k5wc'][0]} (cond_hepmass42)", names["k5wc"][1], names["k5wc"][2], TSIT5, spec,
+                            k5_kw, adjoint=True)
+    for key in ("k2wc", "k5wc"):
+        out = runs[key][0]
+        check(len(out) == 8 and tuple(out[7].shape) == (B, nc) and float(out[3][0][dz:].abs().max()) > 0.0,
+              f"{names[key][0]} returned no a_ys0 or a zero gradient for W1's ys rows")
+    print("phase 98: cond_hepmass42 COND instances held to their twins")
+
+    # Phase 99: the chain forms' COND instances on a conditional 3-layer chain.
+    Bc = COND_CHAIN_BATCH
+    ps_c = glorot_params(rng, COND_CHAIN_DIMS)
+    xs_c = torch.from_numpy(model_data("miniboone43", rng, Bc)).to(dev)
+    ys_c = T(rng.uniform(-1.0, 1.0, (Bc, 1)))
+    icnf_c = cnf.construct(cnf.CondRNODE, cnf.MLP(COND_CHAIN_DIMS, device=dev), 43, 0, tspan=(0.0, 1.0),
+                           compute_mode=cnf.VecJacMode(fused=True))
+    spec_c = fs.chain_spec(icnf_c.nn, icnf_c.zdim)
+    check(fs._wide_chain(spec_c) and fs._kernel_covers(TSIT5, spec_c, chain=True) is None,
+          "the conditional 3-layer chain should run the wide chain forms' COND instances")
+    _, train_c, _, cot_c = kernel_inputs(icnf_c, cnf.params_from_numpy(ps_c, dev), xs_c, rng, dev)
+    train_c["ys"] = ys_c
+    runs_c = {"k1wc": run_pair(f"{names['k1wc'][0]} (3-layer, B={Bc})", names["k1wc"][1], names["k1wc"][2], TSIT5,
+                               spec_c, train_c, reps=3)}
+    runs_c["k2wc"] = run_pair(f"{names['k2wc'][0]} (3-layer, B={Bc})", names["k2wc"][1], names["k2wc"][2], TSIT5,
+                              spec_c, adjoint_kw(train_c, runs_c["k1wc"][0], cot_c), adjoint=True, reps=3)
+    eps_c = icnf_c.draw_eps(torch.Generator(device=dev).manual_seed(SEED + 901), Bc, dev)
+    fs.reset_launches()
+    _, g_c, _ = loss_grad(cnf, icnf_c, ps_c, xs_c, dev, ys=ys_c, eps=eps_c)
+    torch.cuda.synchronize()
+    n_c = launched(fs)
+    check(n_c == {names["k1wc"][0]: 1, names["k2wc"][0]: 1} and all(bool(torch.isfinite(g).all()) for g in g_c),
+          f"the 3-layer conditional train step launched {n_c}")
+    print(f"phase 99: the 3-layer conditional chain's train step launched {n_c}")
+
+    # Phase 100: the train step's and the TEST loss's gradients at B = 256
+    # against the plain path and a float64 rtol 1e-7 solve.
+    b = COND_TRUTH_BATCH
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    eps = icnf_k.draw_eps(torch.Generator(device=dev).manual_seed(SEED + 902), b, dev)
+    steer = {"steer_r": 0.05}
+    fs.reset_launches()
+    l_k, g_k, _ = loss_grad(cnf, icnf_k, ps_np, xs[:b], dev, ys=ys[:b], eps=eps, **steer)
+    torch.cuda.synchronize()
+    want = {names["k1wc"][0]: 1, names["k2wc"][0]: 1}
+    check(launched(fs) == want, f"cond_hepmass42 train gradient launched {launched(fs)}, expected {want}")
+    l_p, g_p, _ = loss_grad(cnf, icnf_p, ps_np, xs[:b], dev, ys=ys[:b], eps=eps, **steer)
+    l_t, g_t, _ = loss_grad(cnf, model(fused=False, dtype=torch.float64, solver=truth), ps_np, xs[:b], dev,
+                            torch.float64, ys=ys[:b], eps=eps.double(), **steer)
+    torch.cuda.synchronize()
+    hold_gradients(f"cond_hepmass42 Hutchinson B={b}", l_k, g_k, l_p, g_p, l_t, g_t,
+                   names=["w1", "b1", "w2", "b2", "ys"])
+    models = (icnf_k, icnf_p, model(fused=False, dtype=torch.float64, solver=truth))
+    test_gradient_path(f"cond_hepmass42 TEST gradient B={b}", cnf, fs, models, ps_np, xs[:b], dev,
+                       {names["k3wc"][0]: 1, names["k5wc"][0]: 1}, ys=ys[:b])
+    print("phase 100: cond_hepmass42 gradients held to the float64 solve")
+
+    # Phase 101: the main paths, counters reset just before each.
+    dist = cnf.CondICNFDist(icnf_k, cnf.Mode.TEST, ps, ys)
+    n_serve = {}
+    for what, call in (("logpdf", lambda: dist.logpdf(xs)),
+                       ("sample", lambda: dist.sample(B, generator=torch.Generator(device=dev).manual_seed(SEED + 903)))):
+        fs.reset_launches()
+        with torch.no_grad():
+            out = call()
+        torch.cuda.synchronize()
+        n = launched(fs)
+        check(n == {names["k3wc"][0]: 1} and bool(torch.isfinite(out).all()), f"cond_hepmass42 {what} launched {n}")
+        n_serve[what] = n[names["k3wc"][0]]
+    fs.reset_launches()
+    _, g_tk = test_loss_grad(cnf, icnf_k, ps_np, xs, dev, ys=ys)
+    torch.cuda.synchronize()
+    n_test = launched(fs)
+    check(n_test == {names["k3wc"][0]: 1, names["k5wc"][0]: 1} and all(bool(torch.isfinite(g).all()) for g in g_tk),
+          f"cond_hepmass42 TEST loss gradient launched {n_test}")
+    eps_b = icnf_k.draw_eps(torch.Generator(device=dev).manual_seed(SEED + 904), B, dev)
+    fs.reset_launches()
+    _, g_b, _ = loss_grad(cnf, icnf_k, ps_np, xs, dev, ys=ys, eps=eps_b, **steer)
+    torch.cuda.synchronize()
+    n_step = launched(fs)
+    check(n_step == want and all(bool(torch.isfinite(g).all()) for g in g_b),
+          f"cond_hepmass42 train step gradient launched {n_step}")
+    X, Y = model_data("cond_hepmass42", rng, N_STEPS * B)
+    fit_path(cnf, fs, icnf_k, ps_np, dev, X, Y, batch_size=B)
+    n_fit = launched(fs)
+    check(set(n_fit) == set(want) and min(n_fit.values()) >= N_STEPS, f"cond_hepmass42 fit launched {n_fit}")
+    print(f"phase 101: cond_hepmass42 main paths: logpdf {n_serve['logpdf']} and sample {n_serve['sample']} "
+          f"launches of {names['k3wc'][0]}, TEST loss gradient {n_test}, train step {n_step}, fit {n_fit}")
+    small = slice(0, COND_TRUTH_BATCH)
+    for label, why, fn in (
+        ("the exact gradient (wide K7 COND)", fs.COND_WIDE_K7,
+         lambda: loss_grad(cnf, model(exact=True), ps_np, xs[small], dev, ys=ys[small], **steer)),
+        ("K = 2 probes", fs.COND_WIDE_PROBES,
+         lambda: loss_grad(cnf, model(num_probes=2), ps_np, xs[small], dev, ys=ys[small], **steer)),
+        ("JVP probes", fs.COND_WIDE_PROBES,
+         lambda: loss_grad(cnf, model(ad="jvp"), ps_np, xs[small], dev, ys=ys[small], **steer)),
+        ("the 3-layer conditional chain's logpdf (wide K7 COND)", fs.COND_WIDE_K7,
+         lambda: cnf.CondICNFDist(icnf_c, cnf.Mode.TEST, cnf.params_from_numpy(ps_c, dev), ys_c[small]).logpdf(
+             xs_c[small])),
+        ("a conditional net past the wide limits (MLP 87 -> 258 -> 86)", fs.COND_STREAM,
+         lambda: loss_grad(cnf, cnf.construct(cnf.CondRNODE, cnf.MLP((87, 258, 86), device=dev), 43, 43,
+                                              tspan=(0.0, 1.0), compute_mode=cnf.VecJacMode(fused=True)),
+                           glorot_params(np.random.default_rng(SEED + 905), (87, 258, 86)), xs_c[small, :43], dev,
+                           ys=ys[small])),
+        ("the wide K4 adjoint", fs.COND_WIDE_K4,
+         lambda: fs.run_wide_exact_adjoint_kernel(
+             TSIT5, spec, **dict({k: v for k, v in adjoint_kw(train, runs["k1wc"][0], cot).items() if k != "eps"}))),
+    ):
+        refuses(fs, label, why, fn)
+
+    # Phase 102: CUDA-event times beside hepmass42's, in the same run.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 906)
+    hep = MODELS["hepmass42"]["dims"]
+    rng_h = np.random.default_rng(SEED + 400)
+    ps_h = glorot_params(rng_h, hep)
+    xs_h = torch.from_numpy(model_data("hepmass42", rng_h, B)).to(dev)
+    icnf_h = make_icnf("hepmass42", dev)
+    dist_h = cnf.ICNFDist(icnf_h, cnf.Mode.TEST, cnf.params_from_numpy(ps_h, dev))
+    rows = []
+    for label, icnf, p_np, x, y, d in (("cond_hepmass42", icnf_k, ps_np, xs, ys, dist),
+                                       ("hepmass42", icnf_h, ps_h, xs_h, None, dist_h)):
+        ms_step = step_ms(cnf, icnf, p_np, x, gen, dev, 3, ys=y)
+        with torch.no_grad():
+            _, _, st = cnf.inference(icnf, cnf.Mode.TEST, x, cnf.params_from_numpy(p_np, dev),
+                                     **({} if y is None else {"ys": y}))
+            ms_lp = cuda_ms(lambda: d.logpdf(x), 3)
+        ms_tg = cuda_ms(lambda: test_loss_grad(cnf, icnf, p_np, x, dev, ys=y), 3)
+        rows.append((label, ms_step, ms_lp, ms_tg, int(st.steps)))
+        print(f"phase 102: {label} B={B}: train step {ms_step:.4f} ms ({B / ms_step * 1e3:.1f} samples/s), logpdf "
+              f"{ms_lp:.4f} ms ({int(st.steps)} steps, {ms_lp * 1e3 / int(st.steps):.1f} us a step), TEST loss "
+              f"gradient {ms_tg:.4f} ms")
+    (_, a1, a2, a3, _), (_, b1, b2, b3, _) = rows
+    print(f"phase 102: cond_hepmass42 / hepmass42: train step {a1 / b1:.3f}, logpdf {a2 / b2:.3f}, TEST loss "
+          f"gradient {a3 / b3:.3f} (other data: other step counts)")
+
+    fma, floats = cond_fma_floats(dims, nc, B)
+    launches = {"k3wc": n_serve["logpdf"] + n_serve["sample"], "k5wc": n_test[names["k5wc"][0]],
+                "k1wc": n_fit[names["k1wc"][0]], "k2wc": n_fit[names["k2wc"][0]]}
+    records = []
+    for key, (out, err, ms, pms) in runs.items():
+        name, _, _, src, at = names[key]
+        records.append(kernel_record(name, src, at, launches[key], err, ms, pms, fma[key], B, steps_of(out)[0],
+                                     floats[key], accepted=steps_of(out)[1]))
+    fma_c, floats_c = cond_fma_floats(COND_CHAIN_DIMS, 1, Bc)
+    for key, (out, err, ms, pms) in runs_c.items():
+        name, _, _, src, at = names[key]
+        records.append(kernel_record(f"{name}/chain3", src, at, n_c[name], err, ms, pms, fma_c[key], Bc,
+                                     steps_of(out)[0], floats_c[key], accepted=steps_of(out)[1]))
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -4034,7 +4326,8 @@ def main() -> int:
                          ("73-78", lambda: bf16_paths(cnf, fs, dev)),
                          ("79-86", lambda: stream_two_layer(cnf, fs, dev)),
                          ("87-90", lambda: stream_exact(cnf, fs, dev)),
-                         ("91-96", lambda: stream_probe_paths(cnf, fs, dev))):
+                         ("91-96", lambda: stream_probe_paths(cnf, fs, dev)),
+                         ("97-102", lambda: cond_wide(cnf, fs, dev))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -1,9 +1,17 @@
 // The wide chain layer of the wide solve kernels (the wide K1 and K2 chain
-// forms, the wide K7 TEST and exact forwards): an unconditional Dense chain
-// of n = 2 .. kMaxLayers tanh or identity layers (ChainLayout::act's mask,
-// K9), widths dz -> H1 -> ... -> H(n-1) -> dz with dz <= kWideMaxDz and
+// forms, the wide K7 TEST and exact forwards): a Dense chain of
+// n = 2 .. kMaxLayers tanh or identity layers (ChainLayout::act's mask,
+// K9), widths dz + nc -> H1 -> ... -> H(n-1) -> dz with dz <= kWideMaxDz and
 // hidden widths <= kWideMaxWidth, evaluated by a whole block for a tile of T
-// samples at once (the solves of solve_common.cuh's tile section).
+// samples at once (the solves of solve_common.cuh's tile section).  nc is 0
+// but for the COND instances (K8: a conditional net's first layer reads
+// [z | ys], ys constant over the solve): layer 0 then keeps its nc ys rows
+// after its dz z rows in its (dz + nc, pitch) weights, width[0] = dz + nc
+// (wide_nc), and a tile's ys values sit in a (T, nc) array beside its
+// vectors.  The layout gains no field for them, so the unconditional
+// instances' arguments and machine code stay as they were.  Only the
+// forward reads the ys rows; the probe pullback reads layer 0's z rows
+// alone (the Jacobian is in z).
 //
 // Why a tile and not a thread per sample (chain_common.cuh): at the tabular
 // MINIBOONE width 43 -> 128 -> 128 -> 43 one sample's K2 residuals are about
@@ -49,11 +57,11 @@ constexpr int kRows = 4;            // rows of a tile product a thread keeps in 
 struct WideLayout {
   int n;                        // layers
   int dz, zp;                   // state width and its row pitch, dz rounded up to 4
-  int width[kMaxLayers + 1];    // level widths, width[0] = width[n] = dz
-  int hp[kMaxLayers + 1];       // level row pitches (hp[0] = hp[n] = zp)
+  int width[kMaxLayers + 1];    // level widths, width[0] = dz + nc, width[n] = dz
+  int hp[kMaxLayers + 1];       // level row pitches (hp[0] = hp[n] = zp: level 0 holds z)
   int hofs[kMaxLayers + 1];     // hidden level l's offset in a hidden block
   int hsum, hmax;               // floats per row of a hidden block; widest hidden level
-  int wofs[kMaxLayers];         // layer i's weights, (in, pitch[i]) row-major
+  int wofs[kMaxLayers];         // layer i's weights, (in, pitch[i]) row-major (layer 0: z rows, then ys rows)
   int pitch[kMaxLayers];        // out | 1 (odd)
   int bofs[kMaxLayers];         // layer i's bias
   int pofs[kMaxLayers];         // layer i's [W_i | b_i] in the flat params and gradient
@@ -62,13 +70,13 @@ struct WideLayout {
   int act[kMaxLayers];          // 1: layer i is tanh, 0: identity
 };
 
-// Fill `L` for the widths (n + 1 of them, dz first and last); false if the
-// wide forms do not take the chain (conditional chains included: their
-// first layer is wider than the state).
-inline bool make_wide_layout(int n, const int* widths, WideLayout* L) {
+// Fill `L` for the widths (n + 1 of them, the input width dz + nc first, dz
+// last); false if the wide forms do not take the chain: an unconditional
+// instance takes nc = 0 only, a COND instance (`cond`) nc >= 1 only.
+inline bool make_wide_layout(int n, const int* widths, WideLayout* L, bool cond = false) {
   if (n < 2 || n > kMaxLayers) return false;
   const int dz = widths[n];
-  if (dz < 1 || dz > kWideMaxDz || widths[0] != dz) return false;
+  if (dz < 1 || dz > kWideMaxDz || (cond ? widths[0] <= dz : widths[0] != dz)) return false;
   *L = WideLayout{};
   L->n = n;
   L->dz = dz;
@@ -104,6 +112,37 @@ inline bool make_wide_layout(int n, const int* widths, WideLayout* L) {
 
 inline void set_wide_acts(WideLayout* L, int acts) {
   for (int i = 0; i < kMaxLayers; ++i) L->act[i] = (acts >> i) & 1;
+}
+
+// The conditioning inputs nc of a layout (0 for an unconditional chain).
+__host__ __device__ __forceinline__ int wide_nc(const WideLayout& L) { return L.width[0] - L.dz; }
+
+// Layer 0's ys rows (nc, pitch[0]) in the shared weight region w.
+__device__ __forceinline__ const float* wide_ys_rows(const WideLayout& L, const float* w) {
+  return w + L.wofs[0] + L.dz * L.pitch[0];
+}
+
+// YS (T, nc) = the conditioning ys[s0 + t] ((B, nc) row-major) for t < nv,
+// 0 beyond.  Ends with a block barrier.
+__device__ inline void load_tile_cond(const float* ys, int nc, int s0, int nv, int T, float* YS) {
+  for (int idx = threadIdx.x; idx < T * nc; idx += blockDim.x)
+    YS[idx] = idx / nc < nv ? ys[(size_t)s0 * nc + idx] : 0.f;
+  __syncthreads();
+}
+
+// The ys cotangent of layer 0 for a tile: KYS (T, nc) = -(ca ys-rows^T) per
+// row, from the pre-activation cotangent CA (T, hp[1]) of layer 0's output
+// (the k_ays rate: a_ys integrates -ct_ys).  Ends with a block barrier.
+__device__ inline void wide_ys_cotangent(const WideLayout& L, const float* w, const float* CA, int T, float* KYS) {
+  const int nc = wide_nc(L), H = L.width[1], hp = L.hp[1], p0 = L.pitch[0];
+  const float* wy = wide_ys_rows(L, w);
+  for (int idx = threadIdx.x; idx < T * nc; idx += blockDim.x) {
+    const int t = idx / nc, c = idx % nc;
+    float a = 0.f;
+    for (int o = 0; o < H; ++o) a = fmaf(CA[t * hp + o], wy[c * p0 + o], a);
+    KYS[idx] = -a;
+  }
+  __syncthreads();
 }
 
 // Copy of the layout in (static) shared memory.
@@ -282,6 +321,29 @@ __device__ inline void wide_forward(const WideLayout& L, const float* w, const f
     const int dp = L.hp[i + 1], on = L.act[i];
     tile_mm(src, L.hp[i], L.width[i], w + L.wofs[i], L.pitch[i], w + L.bofs[i], L.width[i + 1], T,
             [&](int t, int o, float a) { dst[t * dp + o] = activate(a, on); });
+  }
+}
+
+// wide_forward of a COND instance (fused_solve.py::_chain_fwd on _zin, the
+// narrow chain_forward<DZ, true>): layer 0 reads [z | ys], its z rows by the
+// tile product from Z and its ys rows from YS (T, nc) added to each output
+// before the activation; the layers above as in wide_forward.
+__device__ inline void wide_forward_cond(const WideLayout& L, const float* w, const float* Z, const float* YS, int T,
+                                         float* HB, float* Y) {
+  const int n = L.n, nc = wide_nc(L), p0 = L.pitch[0];
+  const float* wy = wide_ys_rows(L, w);
+  for (int i = 0; i < n; ++i) {
+    float* dst = i == n - 1 ? Y : level(L, HB, T, i + 1);
+    const int dp = L.hp[i + 1], on = L.act[i];
+    if (i == 0) {
+      tile_mm(Z, L.zp, L.dz, w + L.wofs[0], p0, w + L.bofs[0], L.width[1], T, [&](int t, int o, float a) {
+        for (int c = 0; c < nc; ++c) a = fmaf(YS[t * nc + c], wy[c * p0 + o], a);
+        dst[t * dp + o] = activate(a, on);
+      });
+    } else {
+      tile_mm(level(L, HB, T, i), L.hp[i], L.width[i], w + L.wofs[i], L.pitch[i], w + L.bofs[i], L.width[i + 1], T,
+              [&](int t, int o, float a) { dst[t * dp + o] = activate(a, on); });
+    }
   }
 }
 

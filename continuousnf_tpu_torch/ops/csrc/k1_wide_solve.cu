@@ -43,6 +43,17 @@
 // second hidden block for a probe's vectors (256 floats at MINIBOONE: 11,760
 // tile floats at T = 16, 159 KB with the weights).  K and the direction are
 // run-time values; the one-probe instance above stays as it was.
+//
+// The COND instance (K8 in the wide forms): the same solve of a conditional
+// chain, whose first layer reads [z | ys] (_stage_train with _zin :265, one
+// VJP probe).  The ys values (B, nc) are constant over the solve: at each
+// evaluation the block reads its tile's rows into a (T, nc) array, and the
+// forward adds layer 0's ys rows (kept after its z rows) to the
+// pre-activation (wide_forward_cond); the pullback reads the z rows alone,
+// as the one-probe instance does.  At cond_hepmass42 (43 -> 126 -> 42, one
+// ys column) that is 126 more FMA a sample and evaluation beside the
+// forward's 5,292 and the pullback's 5,292.  Its launch shape and entry are
+// cnf_k1wc_shape and cnf_k1w_cond_solve.
 
 #include "chain_wide.cuh"
 
@@ -63,8 +74,19 @@ struct Args {
   int T;                // samples a tile
 };
 
+// A COND field's conditioning: ys (B, nc) in global memory and the tile's
+// (T, nc) rows in shared memory; nothing in an unconditional field.
+template <bool COND>
+struct CondRows {};
+template <>
+struct CondRows<true> {
+  const float* ys;
+  float* YS;
+};
+
 // The TRAIN field of a tile: KY = y, KR = [-tr, ||y||, ||eJ||] per row.
-struct WideTrainField {
+template <bool COND>
+struct WideTrainField : CondRows<COND> {
   const WideLayout* L;
   const float* w;    // the shared weight region
   const float* eps;  // (B, dz)
@@ -77,7 +99,12 @@ struct WideTrainField {
   __device__ void operator()(int s0, int nv, const float* Z, float* KY, float* KR) const {
     const WideLayout& c = *L;
     const int dz = c.dz, zp = c.zp, on = c.act[c.n - 1];
-    cnf::wide_forward(c, w, Z, T, HB, KY);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::wide_nc(c), s0, nv, T, this->YS);
+      cnf::wide_forward_cond(c, w, Z, this->YS, T, HB, KY);
+    } else {
+      cnf::wide_forward(c, w, Z, T, HB, KY);
+    }
     for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
       const int t = idx / dz, k = idx % dz;
       const float e = t < nv ? eps[(size_t)s0 * dz + idx] : 0.f;
@@ -120,12 +147,49 @@ __global__ void __launch_bounds__(kWideBlock) k1_wide_solve(const Args p) {
   float* EJ = V + T * L.zp;
   cnf::load_wide_weights(p.params, L, w);
   __syncthreads();
-  const WideTrainField field{&L, w, p.f.eps, HB, E, V, EJ, T, p.f.norm_z, p.f.norm_j};
+  const WideTrainField<false> field{{}, &L, w, p.f.eps, HB, E, V, EJ, T, p.f.norm_z, p.f.norm_j};
   cnf::forward_solve_tiles<3, kStageUnroll>(p.f, field, T, scratch, red);
 }
 
 size_t smem_bytes(const WideLayout& L, int T) {
   return sizeof(float) * ((size_t)L.wfloats + kRedFloats + tile_floats(L, T));
+}
+
+// The COND instance's arguments: the one-probe instance's and the
+// conditioning ys (B, nc).
+struct CondArgs {
+  Args a;
+  const float* ys;
+};
+
+// The COND instance's tile arrays: the one-probe instance's and the tile's
+// ys rows (T, nc).
+__host__ __device__ inline size_t cond_tile_floats(const WideLayout& L, int T) {
+  return tile_floats(L, T) + (size_t)T * cnf::wide_nc(L);
+}
+
+__global__ void __launch_bounds__(kWideBlock) k1_wide_cond_solve(const __grid_constant__ CondArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ WideLayout L;
+  const Args& p = ca.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T;
+  float* w = smem;
+  float* red = w + L.wfloats;
+  float* scratch = red + kRedFloats;  // the solver's Z, KY, KR
+  float* HB = scratch + T * (2 * L.zp + 3);
+  float* E = HB + T * L.hsum;
+  float* V = E + T * L.zp;
+  float* EJ = V + T * L.zp;
+  float* YS = EJ + T * L.zp;
+  cnf::load_wide_weights(p.params, L, w);
+  __syncthreads();
+  const WideTrainField<true> field{{ca.ys, YS}, &L, w, p.f.eps, HB, E, V, EJ, T, p.f.norm_z, p.f.norm_j};
+  cnf::forward_solve_tiles<3, kStageUnroll>(p.f, field, T, scratch, red);
+}
+
+size_t cond_smem_bytes(const WideLayout& L, int T) {
+  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + cond_tile_floats(L, T));
 }
 
 // The probe instance's field (K6): K probes a row at eps[k][s], reverse
@@ -295,4 +359,37 @@ extern "C" int cnf_k1w_probe_solve(const float* params, const float* eps, const 
   pa.jvp = jvp;
   return (int)cnf::coop_launch(k1_wide_probe_solve, pa, grid, block, probe_smem_bytes(pa.a.L, T),
                                (cudaStream_t)stream);
+}
+
+// The COND instance's launch shape (K8), as cnf_k1w_shape; widths[0] =
+// dz + nc with nc >= 1.
+extern "C" int cnf_k1wc_shape(int n, const int* widths, int B, int* out) {
+  WideLayout L;
+  if (B < 1 || !cnf::make_wide_layout(n, widths, &L, true)) return (int)cudaErrorInvalidValue;
+  size_t smem[3];
+  for (int o = 0; o < 3; ++o) smem[o] = cond_smem_bytes(L, kTiles[o]);
+  return cnf::wide_shape(k1_wide_cond_solve, smem, kTiles, kTiles, 3, B, out);
+}
+
+// The COND instance (K8): as cnf_k1w_train_solve for a conditional chain,
+// with ys (B, nc) (device), nc = widths[0] - widths[n] >= 1; T, grid, block
+// from cnf_k1wc_shape.
+extern "C" int cnf_k1w_cond_solve(const float* params, const float* eps, const float* ys, const float* z0,
+                                  const float* acc0, const float* ts, float* zT, float* accT, int* stats,
+                                  float* dt_last, float* work, float* partials, int B, int n, const int* widths,
+                                  int acts, int max_steps, int norm_z, int norm_j, float rtol, float atol,
+                                  float beta1, float beta2, float inv_order, const float* tab, int T, int grid,
+                                  int block, void* stream) {
+  CondArgs ca = {};
+  Args& a = ca.a;
+  if (block != kWideBlock || grid < 1 || T < cnf::kRows || T % cnf::kRows != 0 || ys == nullptr ||
+      !cnf::make_wide_layout(n, widths, &a.L, true))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_wide_acts(&a.L, acts);
+  cnf::set_fwd_args(&a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n], max_steps,
+                    norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
+  a.params = params;
+  a.T = T;
+  ca.ys = ys;
+  return (int)cnf::coop_launch(k1_wide_cond_solve, ca, grid, block, cond_smem_bytes(a.L, T), (cudaStream_t)stream);
 }

@@ -72,6 +72,20 @@
 // a row than the one-probe stage (1,727 floats a row: 222,376 bytes at
 // T = 16).  K and the direction are run-time values; the one-probe instance
 // above stays as it was.
+//
+// The COND instance (K8 in the wide forms): _stage_train_fwdbwd of a
+// conditional chain, whose first layer reads [z | ys] (:372-481 with _zin
+// :265), one VJP probe.  The forward adds layer 0's ys rows to the
+// pre-activation (wide_forward_cond, from the tile's (T, nc) ys rows); the
+// probe has no ys rows, so the pullback, its VJP and their outer products
+// read layer 0's z rows alone (ct_u = [ct_eJ | 0]); the forward chain's VJP
+// gives layer 0's ys rows the gradient ys (x) ca_1 and each sample the ys
+// cotangent, whose a_ys integrates k_ays = -(ca_1 (layer 0's ys rows)^T)
+// (wide_ys_cotangent) in the tile solve's COND form
+// (adjoint_solve_tiles): from 0 at t_hi, combined like a_z, inside
+// the one batch-global norm, a_ys0 (B, nc) returned.  The tile's ys rows
+// (T, nc) and k_ays (T, nc) take 2 nc floats a row more.  Its launch shape and entry are cnf_k2wc_shape and
+// cnf_k2w_cond_adjoint.
 
 #include "chain_wide.cuh"
 
@@ -131,10 +145,22 @@ __device__ inline TileArrays tile_arrays(const WideLayout& L, int T, float* base
   return a;
 }
 
+// A COND stage's conditioning: ys (B, nc) in global memory and the tile's
+// (T, nc) rows in shared memory; nothing in an unconditional stage.
+template <bool COND>
+struct CondRows {};
+template <>
+struct CondRows<true> {
+  const float* ys;
+  float* YS;
+};
+
 // One augmented stage of a tile (fused_solve.py::_stage_train_fwdbwd with
-// ct_y = a_z, ct_r = a_acc): KZ = y, KR = the rates, KAZ = -ct_z, and the
-// residuals of the gradient pass left in the tile arrays.
-struct WideAdjStage {
+// ct_y = a_z, ct_r = a_acc): KZ = y, KR = the rates, KAZ = -ct_z (and,
+// COND, KYS = k_ays), and the residuals of the gradient pass left in the
+// tile arrays.
+template <bool COND>
+struct WideAdjStage : CondRows<COND> {
   const WideLayout* L;
   const float* w;      // the shared weight region
   const float* eps;    // (B, dz)
@@ -142,13 +168,18 @@ struct WideAdjStage {
   TileArrays a;
   int B, T, norm_z, norm_j;
 
-  __device__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR,
-                             float* KAZ) const {
+  __device__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR, float* KAZ,
+                             [[maybe_unused]] float* KYS = nullptr) const {
     const WideLayout& c = *L;
     const int n = c.n, dz = c.dz, zp = c.zp;
     const int on_y = c.act[n - 1];
     float *E = a.E, *VL = a.VL, *EJ = a.EJ, *CU = a.CU, *CAL = a.CAL, *SC = a.SC;
-    cnf::wide_forward(c, w, Z, T, a.HS, KZ);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::wide_nc(c), s0, nv, T, this->YS);
+      cnf::wide_forward_cond(c, w, Z, this->YS, T, a.HS, KZ);
+    } else {
+      cnf::wide_forward(c, w, Z, T, a.HS, KZ);
+    }
     for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
       const int t = idx / dz, k = idx % dz;
       const float e = t < nv ? eps[(size_t)s0 * dz + idx] : 0.f;
@@ -199,14 +230,16 @@ struct WideAdjStage {
     }
     __syncthreads();
     // Up the pullback chain: ct_v = pu_i W_i, pu_(i+1) = ct_v s'(h) and
-    // ct_h = -2 h (ct_v u) over u in place (0 for an identity layer).
+    // ct_h = -2 h (ct_v u) over u in place (0 for an identity layer).  pu_0
+    // has no ys rows: layer 0's product reads its z rows.
     for (int i = 0; i < n - 1; ++i) {
       const float* src = i == 0 ? CU : level(c, a.PU, T, i);
       float* pu = level(c, a.PU, T, i + 1);
       float* u = level(c, a.U, T, i + 1);
       const float* h = level(c, a.HS, T, i + 1);
       const int hp = c.hp[i + 1], on = c.act[i];
-      cnf::tile_mm(src, c.hp[i], c.width[i], w + c.wofs[i], c.pitch[i], nullptr, c.width[i + 1], T,
+      cnf::tile_mm(src, c.hp[i], COND && i == 0 ? dz : c.width[i], w + c.wofs[i], c.pitch[i], nullptr,
+                   c.width[i + 1], T,
                    [&](int t, int o, float cv) {
                      const float hh = h[t * hp + o];
                      pu[t * hp + o] = cv * gate(hh, on);
@@ -233,12 +266,15 @@ struct WideAdjStage {
     }
     cnf::tile_mm_t(level(c, a.U, T, 1), c.hp[1], c.width[1], w + c.wofs[0], c.pitch[0], dz, T,
                    [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+    if constexpr (COND) cnf::wide_ys_cotangent(c, w, level(c, a.U, T, 1), T, KYS);
   }
 };
 
 // The tile's sum over its first nv rows of the negated gradient rate of the
-// stage just evaluated, entry q of the flat [W0 | b0 | W1 | b1 | ...].
-struct WideGrad {
+// stage just evaluated, entry q of the flat [W0 | b0 | W1 | b1 | ...]
+// (COND: layer 0's ys rows get ys (x) ca_1 alone).
+template <bool COND>
+struct WideGrad : CondRows<COND> {
   const WideLayout* L;
   const float* Z;  // the solver's stage input z
   TileArrays a;
@@ -258,6 +294,15 @@ struct WideGrad {
     float v = 0.f;
     if (r < in * out) {
       const int k = r / out, o = r % out;
+      if constexpr (COND) {
+        if (i == 0 && k >= c.dz) {
+          const int nc = in - c.dz;
+          const float* py = this->YS + (k - c.dz);
+          pd += o;
+          for (int t = 0; t < nv; ++t) v = fmaf(py[t * nc], pd[t * op], v);
+          return -v;
+        }
+      }
       const float* pa = (i == 0 ? a.CU : level(c, a.PU, T, i)) + k;
       const float* pc = (i == 0 ? Z : level(c, a.HS, T, i)) + k;
       const float* pb = (i == n - 1 ? a.VL : level(c, a.V, T, i + 1)) + o;
@@ -287,13 +332,50 @@ __global__ void __launch_bounds__(kWideBlock, 1) k2_wide_adjoint(const AdjArgs p
   const TileArrays arrays = tile_arrays(L, T, scratch + T * (4 * L.zp + 3));
   cnf::load_wide_weights(p.params, L, w);
   __syncthreads();
-  const WideAdjStage stage{&L, w, p.eps, p.s.aaccT, arrays, p.s.B, T, p.norm_z, p.norm_j};
-  const WideGrad grad{&L, scratch, arrays, T};
+  const WideAdjStage<false> stage{{}, &L, w, p.eps, p.s.aaccT, arrays, p.s.B, T, p.norm_z, p.norm_j};
+  const WideGrad<false> grad{{}, &L, scratch, arrays, T};
   cnf::adjoint_solve_tiles<kStageUnroll>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew, red);
 }
 
 size_t smem_bytes(const WideLayout& L, int T) {
   return sizeof(float) * ((size_t)L.wfloats + kRedFloats + tile_floats(L, T));
+}
+
+// The COND instance's arguments: the one-probe instance's and the
+// conditioning ys (B, nc).
+struct CondAdjArgs {
+  AdjArgs a;
+  const float* ys;
+};
+
+// The COND instance's shared arrays past the solver's Z, AZ, KZ, KAZ, KR:
+// k_ays (T, nc), then the stage's tile arrays, then the tile's ys rows
+// (T, nc).
+__host__ __device__ inline size_t cond_tile_floats(const WideLayout& L, int T) {
+  return tile_floats(L, T) + (size_t)2 * T * cnf::wide_nc(L);
+}
+
+__global__ void __launch_bounds__(kWideBlock, 1) k2_wide_cond_adjoint(const __grid_constant__ CondAdjArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ WideLayout L;
+  const AdjArgs& p = ca.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T, nc = cnf::wide_nc(L);
+  float* w = smem;
+  float* red = w + L.wfloats;
+  float* scratch = red + kRedFloats;  // the solver's Z, AZ, KZ, KAZ, KR and KYS
+  const TileArrays arrays = tile_arrays(L, T, scratch + T * (4 * L.zp + 3 + nc));
+  float* YS = arrays.SC + T * 4;
+  cnf::load_wide_weights(p.params, L, w);
+  __syncthreads();
+  const WideAdjStage<true> stage{{ca.ys, YS}, &L, w, p.eps, p.s.aaccT, arrays, p.s.B, T, p.norm_z, p.norm_j};
+  const WideGrad<true> grad{{ca.ys, YS}, &L, scratch, arrays, T};
+  cnf::adjoint_solve_tiles<kStageUnroll, false, 3, true>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew,
+                                                           red);
+}
+
+size_t cond_smem_bytes(const WideLayout& L, int T) {
+  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + cond_tile_floats(L, T));
 }
 
 // The probe instance's tile arrays beside the solver's: six dz-vectors, five
@@ -642,5 +724,49 @@ extern "C" int cnf_k2w_probe_adjoint(const float* params, const float* eps, cons
   pa.K = K;
   pa.jvp = jvp;
   return (int)cnf::coop_launch(k2_wide_probe_adjoint, pa, grid, block, probe_smem_bytes(a.L, T),
+                               (cudaStream_t)stream);
+}
+
+// The COND instance's launch shape (K8), as cnf_k2w_shape; widths[0] =
+// dz + nc with nc >= 1.
+extern "C" int cnf_k2wc_shape(int n, const int* widths, int B, int* out) {
+  WideLayout L;
+  if (B < 1 || !cnf::make_wide_layout(n, widths, &L, true)) return (int)cudaErrorInvalidValue;
+  size_t smem[3];
+  for (int o = 0; o < 3; ++o) smem[o] = cond_smem_bytes(L, kTiles[o]);
+  return cnf::wide_shape(k2_wide_cond_adjoint, smem, kTiles, kTiles, 3, B, out);
+}
+
+// The COND instance (K8): as cnf_k2w_train_adjoint for a conditional chain,
+// with ys (B, nc) (device) and ays0 (B, nc), nc = widths[0] - widths[n] >= 1,
+// the cotangent of ys at t_lo; work: (S + 2) (2 dz + 3 + nc) B floats; T,
+// grid, block from cnf_k2wc_shape.
+extern "C" int cnf_k2w_cond_adjoint(const float* params, const float* eps, const float* ys, const float* zT,
+                                    const float* accT, const float* azT, const float* aaccT, const float* ts,
+                                    float* z0, float* acc0, float* az0, float* ays0, float* g, int* stats, float* work,
+                                    float* partials, float* gblk, float* gnew, int B, int n, const int* widths,
+                                    int acts, int max_steps, int norm_z, int norm_j, float rtol, float atol,
+                                    float beta1, float beta2, float inv_order, const float* tab, int T, int grid,
+                                    int block, void* stream) {
+  CondAdjArgs ca = {};
+  AdjArgs& a = ca.a;
+  if (block != kWideBlock || grid < 1 || T < cnf::kRows || T % cnf::kRows != 0 || ys == nullptr ||
+      ays0 == nullptr || !cnf::make_wide_layout(n, widths, &a.L, true))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_wide_acts(&a.L, acts);
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, nullptr, B, widths[n],
+                     max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.s.nc = cnf::wide_nc(a.L);
+  a.s.ays0 = ays0;
+  a.params = params;
+  a.eps = eps;
+  a.g = g;
+  a.gnew = gnew;
+  a.gblk = gblk;
+  a.norm_z = norm_z;
+  a.norm_j = norm_j;
+  a.T = T;
+  ca.ys = ys;
+  return (int)cnf::coop_launch(k2_wide_cond_adjoint, ca, grid, block, cond_smem_bytes(a.L, T),
                                (cudaStream_t)stream);
 }

@@ -50,6 +50,19 @@
 // gradient pass are bound by shared-memory issue, and per attempted step
 // come two grid barriers and the slice reduction.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The COND instance (K8 in the wide forms): _stage_test_fwdbwd of a
+// conditional 2-layer net, whose W1 reads [z | ys] (:506-539 with _zin;
+// the ys rows :533-537).  The forward adds W1's ys rows to the
+// pre-activation of h (two_layer_forward_cond); M, ct_m and its fold read
+// W1's z rows only, so the ys rows of W1's gradient are ys (x) ct_pre1
+// alone; and each sample's a_ys integrates k_ays = -(W1's ys rows ct_pre1)
+// (wide_ys_cotangent) in the tile solve's COND form
+// (adjoint_solve_tiles): from 0 at t_hi, combined like a_z, inside
+// the one batch-global norm (the ct_m fold on g kept), a_ys0 (B, nc)
+// returned.  The tile's ys rows (T, nc) and k_ays
+// (T, nc) take 2 nc floats a row more.  Its launch shape and entry are
+// cnf_k5wc_shape and cnf_k5w_cond_adjoint.
 
 #include "two_layer_wide.cuh"
 
@@ -96,10 +109,22 @@ __device__ inline TileArrays tile_arrays(const WideLayout& L, int T, float* base
   return a;
 }
 
+// A COND stage's conditioning: ys (B, nc) in global memory and the tile's
+// (T, nc) rows in shared memory; nothing in an unconditional stage.
+template <bool COND>
+struct CondRows {};
+template <>
+struct CondRows<true> {
+  const float* ys;
+  float* YS;
+};
+
 // One augmented stage of a tile (fused_solve.py::_stage_test_fwdbwd with
-// ct_y = a_z, ct_r = a_dlogp): KZ = y, KR = -tr, KAZ = -ct_z, and the
-// residuals of the gradient pass left in the tile arrays.
-struct WideTestAdjStage {
+// ct_y = a_z, ct_r = a_dlogp): KZ = y, KR = -tr, KAZ = -ct_z (and, COND,
+// KYS = k_ays), and the residuals of the gradient pass left in the tile
+// arrays.
+template <bool COND>
+struct WideTestAdjStage : CondRows<COND> {
   const WideLayout* L;
   const float* w;      // the shared weight region
   const float* m;      // M (dz, pitch H | 1)
@@ -107,11 +132,16 @@ struct WideTestAdjStage {
   TileArrays a;
   int T;
 
-  __device__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR,
-                             float* KAZ) const {
+  __device__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR, float* KAZ,
+                             [[maybe_unused]] float* KYS = nullptr) const {
     const WideLayout& c = *L;
     const int dz = c.dz, zp = c.zp, H = c.width[1], hp = c.hp[1];
-    cnf::two_layer_forward(c, w, Z, T, a.HS, a.DH, KZ, a.DY);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::wide_nc(c), s0, nv, T, this->YS);
+      cnf::two_layer_forward_cond(c, w, Z, this->YS, T, a.HS, a.DH, KZ, a.DY);
+    } else {
+      cnf::two_layer_forward(c, w, Z, T, a.HS, a.DH, KZ, a.DY);
+    }
     cnf::m_dh(c, m, a.DH, T, a.CP2);
     for (int t = threadIdx.x; t < T; t += blockDim.x) {
       float tr = 0.f;
@@ -136,13 +166,16 @@ struct WideTestAdjStage {
     });
     cnf::tile_mm_t(a.CP1, hp, H, w + c.wofs[0], c.pitch[0], dz, T,
                    [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+    if constexpr (COND) cnf::wide_ys_cotangent(c, w, a.CP1, T, KYS);
   }
 };
 
 // The tile's sum over its first nv rows of the negated gradient rate of the
-// stage just evaluated, entry q of [W1 (dz, H) | b1 | W2 (H, dz) | b2], the
-// ct_m fold included.
-struct WideTestGrad {
+// stage just evaluated, entry q of [W1 (dz + nc, H) | b1 | W2 (H, dz) | b2],
+// the ct_m fold included (W1's z rows only; its ys rows, COND, are
+// ys (x) ct_pre1).
+template <bool COND>
+struct WideTestGrad : CondRows<COND> {
   const WideLayout* L;
   const float* w;  // the shared weight region
   const float* Z;  // the solver's stage input z
@@ -154,6 +187,13 @@ struct WideTestGrad {
     const int dz = c.dz, H = c.width[1], zp = c.zp, hp = c.hp[1];
     const int o1 = c.pofs[1];
     float v = 0.f;
+    if constexpr (COND) {
+      if (q >= dz * H && q < c.width[0] * H) {
+        const int nc = c.width[0] - dz, k = q / H - dz, o = q % H;
+        for (int t = 0; t < nv; ++t) v = fmaf(this->YS[t * nc + k], a.CP1[t * hp + o], v);
+        return -v;
+      }
+    }
     if (q < dz * H) {
       const int k = q / H, o = q % H;
       float cm = 0.f;
@@ -163,7 +203,7 @@ struct WideTestGrad {
       }
       v = fmaf(cm, w[c.wofs[1] + o * c.pitch[1] + k], v);
     } else if (q < o1) {
-      const int o = q - dz * H;
+      const int o = q - (COND ? c.width[0] : dz) * H;
       for (int t = 0; t < nv; ++t) v += a.CP1[t * hp + o];
     } else if (q < o1 + H * dz) {
       const int h = (q - o1) / dz, i = (q - o1) % dz;
@@ -196,13 +236,53 @@ __global__ void __launch_bounds__(kWideBlock, 1) k5_wide_adjoint(const AdjArgs p
   __syncthreads();
   cnf::build_m(L, w, m);
   __syncthreads();
-  const WideTestAdjStage stage{&L, w, m, p.s.aaccT, arrays, T};
-  const WideTestGrad grad{&L, w, scratch, arrays, T};
+  const WideTestAdjStage<false> stage{{}, &L, w, m, p.s.aaccT, arrays, T};
+  const WideTestGrad<false> grad{{}, &L, w, scratch, arrays, T};
   cnf::adjoint_solve_tiles<kStageUnroll, false, 1>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew, red);
 }
 
 size_t smem_bytes(const WideLayout& L, int T) {
   return sizeof(float) * ((size_t)L.wfloats + cnf::m_floats(L) + kRedFloats + tile_floats(L, T));
+}
+
+// The COND instance's arguments: the unconditional instance's and the
+// conditioning ys (B, nc).
+struct CondAdjArgs {
+  AdjArgs a;
+  const float* ys;
+};
+
+// The COND instance's shared arrays past the solver's Z, AZ, KZ, KAZ, KR:
+// k_ays (T, nc), then the stage's tile arrays, then the tile's ys rows
+// (T, nc).
+__host__ __device__ inline size_t cond_tile_floats(const WideLayout& L, int T) {
+  return tile_floats(L, T) + (size_t)2 * T * cnf::wide_nc(L);
+}
+
+__global__ void __launch_bounds__(kWideBlock, 1) k5_wide_cond_adjoint(const __grid_constant__ CondAdjArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ WideLayout L;
+  const AdjArgs& p = ca.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T, nc = cnf::wide_nc(L);
+  float* w = smem;
+  float* m = w + L.wfloats;
+  float* red = m + cnf::m_floats(L);
+  float* scratch = red + kRedFloats;  // the solver's Z, AZ, KZ, KAZ, KR and KYS
+  const TileArrays arrays = tile_arrays(L, T, scratch + T * (4 * L.zp + 1 + nc));
+  float* YS = arrays.SC + T * 4;
+  cnf::load_wide_weights(p.params, L, w);
+  __syncthreads();
+  cnf::build_m(L, w, m);
+  __syncthreads();
+  const WideTestAdjStage<true> stage{{ca.ys, YS}, &L, w, m, p.s.aaccT, arrays, T};
+  const WideTestGrad<true> grad{{ca.ys, YS}, &L, w, scratch, arrays, T};
+  cnf::adjoint_solve_tiles<kStageUnroll, false, 1, true>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew,
+                                                           red);
+}
+
+size_t cond_smem_bytes(const WideLayout& L, int T) {
+  return sizeof(float) * ((size_t)L.wfloats + cnf::m_floats(L) + kRedFloats + cond_tile_floats(L, T));
 }
 
 }  // namespace
@@ -243,4 +323,43 @@ extern "C" int cnf_k5w_test_adjoint(const float* params, const float* zT, const 
   a.gblk = gblk;
   a.T = T;
   return (int)cnf::coop_launch(k5_wide_adjoint, a, grid, block, smem_bytes(a.L, T), (cudaStream_t)stream);
+}
+
+// The COND instance's launch shape (K8), as cnf_k5w_shape; widths[0] =
+// dz + nc with nc >= 1.
+extern "C" int cnf_k5wc_shape(int n, const int* widths, int B, int* out) {
+  WideLayout L;
+  if (B < 1 || n != 2 || !cnf::make_wide_layout(n, widths, &L, true)) return (int)cudaErrorInvalidValue;
+  size_t smem[3];
+  for (int o = 0; o < 3; ++o) smem[o] = cond_smem_bytes(L, kTiles[o]);
+  return cnf::wide_shape(k5_wide_cond_adjoint, smem, kTiles, kTiles, 3, B, out);
+}
+
+// The COND instance (K8): as cnf_k5w_test_adjoint for a conditional net,
+// with ys (B, nc) (device) and ays0 (B, nc), nc = widths[0] - widths[2] >= 1,
+// the cotangent of ys at t_lo; work: (S + 2) (2 dz + 1 + nc) B floats; T,
+// grid, block from cnf_k5wc_shape.
+extern "C" int cnf_k5w_cond_adjoint(const float* params, const float* ys, const float* zT, const float* accT,
+                                    const float* azT, const float* aaccT, const float* ts, float* z0, float* acc0,
+                                    float* az0, float* ays0, float* g, int* stats, float* work, float* partials,
+                                    float* gblk, float* gnew, int B, int n, const int* widths, int acts,
+                                    int max_steps, float rtol, float atol, float beta1, float beta2,
+                                    float inv_order, const float* tab, int T, int grid, int block, void* stream) {
+  CondAdjArgs ca = {};
+  AdjArgs& a = ca.a;
+  if (block != kWideBlock || grid < 1 || T < cnf::kRows || T % cnf::kRows != 0 || ys == nullptr ||
+      ays0 == nullptr || !cnf::make_wide_layout(n, widths, &a.L, true) || !cnf::two_layer_tanh(a.L, acts))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, nullptr, B, widths[n],
+                     max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.s.nc = cnf::wide_nc(a.L);
+  a.s.ays0 = ays0;
+  a.params = params;
+  a.g = g;
+  a.gnew = gnew;
+  a.gblk = gblk;
+  a.T = T;
+  ca.ys = ys;
+  return (int)cnf::coop_launch(k5_wide_cond_adjoint, ca, grid, block, cond_smem_bytes(a.L, T),
+                               (cudaStream_t)stream);
 }

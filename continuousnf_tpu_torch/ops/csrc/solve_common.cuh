@@ -998,15 +998,30 @@ __device__ void forward_solve_tiles(const FwdArgs& p, const Field& field, int T,
   }
 }
 
-// The backsolve of adjoint_solve (unconditional: nc = 0) with a tile stage.
+// The backsolve of adjoint_solve with a tile stage.
 // `stage(s0, nv, Z, AZ, KZ, KR, KAZ)` evaluates the augmented stage of the
 // tile's rows from Z and AZ ((T, tile_pitch(dz)): z and a_z) into KZ, KAZ
 // (the same: the field and k_az = -ct_z) and KR (T, NACC), block-wide,
 // ending with a barrier, and leaves in shared memory what
 // `grad(q, nv)` reads: the tile's sum over its first nv rows of the negated
 // g rate entry q.  scratch: T (4 tile_pitch(dz) + NACC) floats of shared
-// memory.  NACC: the accumulator rows, 3 in TRAIN mode and 1 in TEST mode
-// (wide K5), as in adjoint_solve.
+// memory, and T p.nc more in a COND instance.  NACC: the accumulator rows,
+// 3 in TRAIN mode and 1 in TEST mode (wide K5), as in adjoint_solve.
+//
+// COND (K8: the COND instances of the wide K2 chain form and wide K5): the
+// per-sample a_ys block of a conditional net, as adjoint_solve's COND form
+// and the JAX package's adjoint kernel (fused_solve.py::
+// _make_adjoint_kernel: k_ays = -ct_zin[dz:] :1167, a_ys from 0 :1183,
+// combined like a_z :1240, in the one batch-global norm :1270, a_ys0
+// returned :1324).  The stage takes an eighth argument KYS (T, p.nc) for
+// k_ays; its p.nc rows ride in the (row, B) planes after a_z but are never
+// staged back into the stage's input, and a_ys0 goes to p.ays0 (B, p.nc).
+// Force-inlined: the wide K2 chain form's COND instance, the largest caller,
+// was left a call, which copied its kernel arguments to a 1,480-byte stack
+// frame and made it 17 % slower a step on the H100.  Forced for every
+// caller, it also took streamed K2 8-10 % faster and streamed K5 3 % slower
+// (PERF.md); a wrapper that forced it for the COND instances alone was left
+// a call in the others, 12-42 % slower.
 //
 // The g reduction.  Each block adds its samples' b-, btilde- (and, for
 // dop853, btilde3-) weighted g rates into its own vectors of gblk
@@ -1035,9 +1050,11 @@ __device__ void forward_solve_tiles(const FwdArgs& p, const Field& field, int T,
 // btilde- (and btilde3-) weighted vectors and the stage-rate partial, and
 // after the stage the forward chain's `grad.fwd(q, nv)` follows: the
 // sub-passes sum to the stage's g rate (in another order).
-template <int U, bool PROBES = false, int NACC = 3, class Stage, class Grad>
-__device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const Grad& grad, int Pg, int T,
-                                    float* scratch, float* gblk, float* gcur, float* gnew, float* red) {
+template <int U, bool PROBES = false, int NACC = 3, bool COND = false, class Stage, class Grad>
+__device__ __forceinline__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const Grad& grad, int Pg,
+                                                    int T, float* scratch, float* gblk, float* gcur, float* gnew,
+                                                    float* red) {
+  static_assert(!(PROBES && COND), "the probe instances take no conditioning");
   cg::grid_group grid = cg::this_grid();
   const Tableau& Tb = share_tableau(p.tab);
   __shared__ float gtot[2];
@@ -1047,7 +1064,8 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
   const int NG = has3 ? 3 : 2;
   const int dz = p.dz, B = p.B, G = gridDim.x, zp = tile_pitch(dz);
   const int ntiles = (B + T - 1) / T;
-  const int R = 2 * dz + NACC;  // rows: z, acc, a_z
+  const int nc = COND ? p.nc : 0;
+  const int R = 2 * dz + NACC + nc;  // rows: z, acc, a_z, a_ys
   const size_t RB = (size_t)R * B;
   float* Y = p.work;
   float* Yn = Y + RB;
@@ -1057,6 +1075,7 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
   float* KZ = AZ + T * zp;
   float* KAZ = KZ + T * zp;
   float* KR = KAZ + T * zp;
+  float* KYS = KR + T * NACC;  // COND: k_ays (T, nc)
   const size_t bstride = (size_t)(NG + 2) * Pg;
   float* GB = gblk + blockIdx.x * bstride;
   float* GE = GB + Pg;
@@ -1073,11 +1092,15 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
     tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, 0, dz, s0, nv, T, Z, zp);
     tile_stage_input<U>(Tb, st, dt_use, Y, K, RB, B, dz + NACC, dz, s0, nv, T, AZ, zp);
     __syncthreads();
-    stg(s0, nv, Z, AZ, KZ, KR, KAZ);
+    if constexpr (COND)
+      stg(s0, nv, Z, AZ, KZ, KR, KAZ, KYS);
+    else
+      stg(s0, nv, Z, AZ, KZ, KR, KAZ);
     float* kst = K + st * RB;
     tile_store(KZ, zp, dz, kst, 0, B, s0, nv, T);
     tile_store(KR, NACC, NACC, kst, dz, B, s0, nv, T);
     tile_store(KAZ, zp, dz, kst, dz + NACC, B, s0, nv, T);
+    if constexpr (COND) tile_store(KYS, nc, nc, kst, 2 * dz + NACC, B, s0, nv, T);
     return nv;
   };
   // PROBES: eval in its sub-passes; `pass(term)` adds one sub-pass's g rate
@@ -1117,11 +1140,20 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
   };
 
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    tile_entries(tile, T, B, R, [&](int r, int s) {
-      Y[(size_t)r * B + s] = r < dz          ? p.zT[(size_t)s * dz + r]
-                             : r < dz + NACC ? p.accT[(size_t)(r - dz) * B + s]
-                                             : p.azT[(size_t)s * dz + r - dz - NACC];
-    });
+    if constexpr (COND) {
+      tile_entries(tile, T, B, R, [&](int r, int s) {
+        Y[(size_t)r * B + s] = r < dz              ? p.zT[(size_t)s * dz + r]
+                               : r < dz + NACC     ? p.accT[(size_t)(r - dz) * B + s]
+                               : r < 2 * dz + NACC ? p.azT[(size_t)s * dz + r - dz - NACC]
+                                                   : 0.f;  // a_ys starts at 0
+      });
+    } else {
+      tile_entries(tile, T, B, R, [&](int r, int s) {
+        Y[(size_t)r * B + s] = r < dz          ? p.zT[(size_t)s * dz + r]
+                               : r < dz + NACC ? p.accT[(size_t)(r - dz) * B + s]
+                                               : p.azT[(size_t)s * dz + r - dz - NACC];
+      });
+    }
   }
   for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x) gcur[q] = 0.f;
   __syncthreads();
@@ -1129,7 +1161,7 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
 
   Controller c;
   c.init(p.ts, p.beta1, p.beta2, p.inv_order);
-  const float n_elems = (float)B * (float)(2 * (dz + NACC)) + (float)Pg;
+  const float n_elems = (float)B * (float)(2 * (dz + NACC) + nc) + (float)Pg;
 
   while (c.running(p.max_steps)) {
     bool is_last;
@@ -1215,8 +1247,8 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
           __syncthreads();
         }
       }
-      // The tile's proposals and errors: z, acc and a_z rows (a_acc is
-      // constant: zero error, but counted in n_elems).
+      // The tile's proposals and errors: z, acc, a_z (and a_ys) rows (a_acc
+      // is constant: zero error, but counted in n_elems).
       tile_entries(tile, T, B, R, [&](int r, int s) {
         const float yn = propose<U>(Tb, dt_use, has3, Y, K, RB, (size_t)r * B + s, p.rtol, p.atol, Yn, &sumsq,
                                     &sumsq3);
@@ -1292,15 +1324,29 @@ __device__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const
   }
 
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    tile_entries(tile, T, B, R, [&](int r, int s) {
-      const float v = Y[(size_t)r * B + s];
-      if (r < dz)
-        p.z0[(size_t)s * dz + r] = v;
-      else if (r < dz + NACC)
-        p.acc0[(size_t)(r - dz) * B + s] = v;
-      else
-        p.az0[(size_t)s * dz + r - dz - NACC] = v;
-    });
+    if constexpr (COND) {
+      tile_entries(tile, T, B, R, [&](int r, int s) {
+        const float v = Y[(size_t)r * B + s];
+        if (r < dz)
+          p.z0[(size_t)s * dz + r] = v;
+        else if (r < dz + NACC)
+          p.acc0[(size_t)(r - dz) * B + s] = v;
+        else if (r < 2 * dz + NACC)
+          p.az0[(size_t)s * dz + r - dz - NACC] = v;
+        else
+          p.ays0[(size_t)s * nc + r - 2 * dz - NACC] = v;
+      });
+    } else {
+      tile_entries(tile, T, B, R, [&](int r, int s) {
+        const float v = Y[(size_t)r * B + s];
+        if (r < dz)
+          p.z0[(size_t)s * dz + r] = v;
+        else if (r < dz + NACC)
+          p.acc0[(size_t)(r - dz) * B + s] = v;
+        else
+          p.az0[(size_t)s * dz + r - dz - NACC] = v;
+      });
+    }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     p.stats[0] = c.steps;

@@ -1,11 +1,13 @@
 // The 2-layer tanh net of the wide 2-layer kernels (wide K3, wide K5 and the
-// wide K4 adjoint): an unconditional MLP dz -> H -> dz with dz <= kWideMaxDz
-// and H <= kWideMaxWidth, in the wide chain layout of chain_wide.cuh (n = 2,
+// wide K4 adjoint): an MLP dz + nc -> H -> dz with dz <= kWideMaxDz and
+// H <= kWideMaxWidth, in the wide chain layout of chain_wide.cuh (n = 2,
 // its weights in shared memory at odd pitches), evaluated by a block for a
-// tile of T samples through chain_wide.cuh's tile products.  Besides the
-// weights: M[i, h] = W1[i, h] W2[h, i] (dz, pitch H | 1), the closed-form
-// trace's constant (fused_solve.py::_stage_test :484-503), built once per
-// launch beside them.
+// tile of T samples through chain_wide.cuh's tile products.  nc = 0 but in
+// the COND instances of wide K3 and wide K5 (K8: W1's ys rows enter the
+// pre-activation; the wide K4 adjoint has none).  Besides the weights:
+// M[i, h] = W1[i, h] W2[h, i] (dz, pitch H | 1) over W1's z rows, the
+// closed-form trace's constant (fused_solve.py::_stage_test :484-503), built
+// once per launch beside them.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
 
 #pragma once
@@ -40,6 +42,26 @@ __device__ inline void two_layer_forward(const WideLayout& L, const float* w, co
                                          float* DH, float* Y, float* DY) {
   const int hp = L.hp[1], zp = L.zp;
   tile_mm(Z, zp, L.dz, w + L.wofs[0], L.pitch[0], w + L.bofs[0], L.width[1], T, [&](int t, int o, float a) {
+    const float h = tanhf(a);
+    HS[t * hp + o] = h;
+    DH[t * hp + o] = 1.f - h * h;
+  });
+  tile_mm(HS, hp, L.width[1], w + L.wofs[1], L.pitch[1], w + L.bofs[1], L.dz, T, [&](int t, int k, float a) {
+    const float y = tanhf(a);
+    Y[t * zp + k] = y;
+    DY[t * zp + k] = 1.f - y * y;
+  });
+}
+
+// two_layer_forward of a COND instance: the pre-activation of h adds W1's
+// ys rows times YS (T, nc) (fused_solve.py::_zin).  Ends with a block
+// barrier.
+__device__ inline void two_layer_forward_cond(const WideLayout& L, const float* w, const float* Z, const float* YS,
+                                              int T, float* HS, float* DH, float* Y, float* DY) {
+  const int hp = L.hp[1], zp = L.zp, nc = wide_nc(L), p0 = L.pitch[0];
+  const float* wy = wide_ys_rows(L, w);
+  tile_mm(Z, zp, L.dz, w + L.wofs[0], p0, w + L.bofs[0], L.width[1], T, [&](int t, int o, float a) {
+    for (int c = 0; c < nc; ++c) a = fmaf(YS[t * nc + c], wy[c * p0 + o], a);
     const float h = tanhf(a);
     HS[t * hp + o] = h;
     DH[t * hp + o] = 1.f - h * h;

@@ -78,6 +78,13 @@ their exact backward member, the streamed K4 adjoint
 `adjoint_train_exact_plain`: each stage's per-sample pass, then the
 batch-summed gradient rate as slice-owned contractions over the whole
 batch);
+and the COND instances of the wide forms (K8: conditional nets past the
+narrow widths that the wide forms keep; CondRNODE at the HEPMASS width,
+43 -> 126 -> 42 on [z | ys]), in the wide sources, with the same twins
+given ys: the wide K1 chain form's (`run_wide_cond_train_solve_kernel`),
+the wide K2 chain form's (`run_wide_cond_adjoint_kernel`, a_ys0 returned),
+wide K3's (`run_wide_cond_test2_solve_kernel`) and wide K5's
+(`run_wide_cond_test_adjoint_kernel`, a_ys0 returned);
 and three under bf16 stage matmuls (`ComputeMode.bf16`: the JAX package's
 `_mm(..., "bf16")` :193-225, both operands rounded to bfloat16, float32
 sums), for unconditional 2-layer tanh nets of state width up to MAX_DZ and
@@ -100,7 +107,9 @@ first layer reads [z | ys], ys constant over the solve; the K2 chain form
 integrates the per-sample ys cotangent) and identity layers (K9,
 `ChainSpec.acts` :104-111).  `make_full_solve` takes the chain kernels for
 chains of 3 or more layers, for every conditional net and for every net
-with an identity layer (their wide forms past the narrow widths), the
+with an identity layer (their wide forms past the narrow widths, the COND
+instances there for a conditional net, with wide K3's and wide K5's for
+its TEST stages), the
 2-layer kernels for unconditional 2-layer tanh nets (past MAX_DZ: wide K3,
 the wide K1 and K2 chain forms, wide K7 exact and the wide K4 adjoint,
 wide K5; past the wide forms' state width, hidden widths or shared memory
@@ -861,17 +870,19 @@ def _wide_chain(spec: ChainSpec) -> bool:
 def _wide_smem_floats(spec: ChainSpec, probes: bool = False) -> int:
     """Shared-memory floats of the wide K2 chain form, the widest of the wide
     forms, at its smallest tile of 4 samples (csrc/k2_wide_adjoint.cu): the
-    weights at odd pitches, the reduction slots and 4 rows of 9 dz-vectors
-    and 4 hidden blocks (each row padded to a multiple of 4) and 7 floats;
-    its probe instance (`probes`, K6) one more dz-vector and hidden block a
-    row."""
+    weights at odd pitches (a conditional chain's first layer with its
+    n_cond ys rows), the reduction slots and 4 rows of 9 dz-vectors and 4
+    hidden blocks (each row padded to a multiple of 4) and 7 floats, and in
+    its COND instance (K8) a row's n_cond ys values and n_cond ys
+    cotangents; its probe instance (`probes`, K6) one more dz-vector and
+    hidden block a row."""
     def pad4(x):
         return -(-x // 4) * 4
 
     weights = sum(a * (b | 1) + b for a, b in zip(spec.in_dims, spec.out_dims))
     hsum = sum(pad4(h) for h in spec.out_dims[:-1])
     vectors, blocks = (10, 5) if probes else (9, 4)
-    return pad4(weights) + 100 + 4 * (vectors * pad4(spec.dz) + blocks * hsum + 7)
+    return pad4(weights) + 100 + 4 * (vectors * pad4(spec.dz) + blocks * hsum + 7 + 2 * spec.n_cond)
 
 
 def _kernel_covers(
@@ -887,17 +898,20 @@ def _kernel_covers(
     chain kernels take Dense chains of 2 to CHAIN_MAX_LAYERS tanh or identity
     layers (K9): their narrow forms with hidden widths up to CHAIN_MAX_WIDTH
     and state widths up to MAX_DZ, conditional ones (K8) included, their wide
-    forms the unconditional chains beyond, up to WIDE_MAX_DZ and
-    WIDE_MAX_WIDTH, whose weights fit in a block's shared memory beside a
-    tile, and their streamed forms (`stream`; False asks for the wide forms
-    alone) the unconditional chains the wide forms refuse for their state
-    width, hidden widths or weights' shared memory (with K probes or JVP,
-    the shared memory of the wide probe instances), up to state width
-    STREAM_MAX_DZ and STREAM_MAX_PARAMS parameters; a narrow chain whose
-    weights and per-thread slots do not fit in shared memory is refused at
-    launch (`_launch_shape`).  The Hutchinson kernels (K1, K2, their chain
-    forms and the chain forms' wide and streamed forms) take any number
-    `k_probes` of VJP or (`jvp`) JVP probes (K6)."""
+    forms the chains beyond, up to WIDE_MAX_DZ and WIDE_MAX_WIDTH, whose
+    weights fit in a block's shared memory beside a tile (conditional ones
+    with one VJP probe in the COND instances of the wide K1 and K2 chain
+    forms; wide K7 has no COND instance and refuses them itself,
+    COND_WIDE_K7), and their streamed forms (`stream`; False asks for the
+    wide forms alone) the unconditional chains the wide forms refuse for
+    their state width, hidden widths or weights' shared memory (with K
+    probes or JVP, the shared memory of the wide probe instances), up to
+    state width STREAM_MAX_DZ and STREAM_MAX_PARAMS parameters; a narrow
+    chain whose weights and per-thread slots do not fit in shared memory is
+    refused at launch (`_launch_shape`).  The Hutchinson kernels (K1, K2,
+    their chain forms and the chain forms' wide and streamed forms) take any
+    number `k_probes` of VJP or (`jvp`) JVP probes (K6) in unconditional
+    chains; conditional wide chains take one VJP probe (COND_WIDE_PROBES)."""
     if tab.btilde is None:
         return f"the {tab.name} tableau (no embedded error estimate: fixed-step solves stay outside the kernels)"
     if tab.num_stages > MAX_STAGES:
@@ -928,7 +942,9 @@ def _kernel_covers(
         return (f"state width {spec.dz} > {STREAM_MAX_DZ} (the streamed forms take up to {STREAM_MAX_DZ}, the wide "
                 f"forms {WIDE_MAX_DZ}; ROADMAP queue 2, shape variants (e))")
     if spec.n_cond:
-        return _COND_WIDE
+        if spec.dz > WIDE_MAX_DZ or _wide_limit(spec) is not None:
+            return COND_STREAM
+        return COND_WIDE_PROBES if k_probes != 1 or jvp else None
     if spec.dz > WIDE_MAX_DZ:
         why = (f"state width {spec.dz} > {WIDE_MAX_DZ} (the wide forms take up to {WIDE_MAX_DZ}, the streamed forms "
                f"{STREAM_MAX_DZ}; ROADMAP queue 2, shape variants (e))")
@@ -950,10 +966,11 @@ def _param_count(spec: ChainSpec) -> int:
 
 
 def _wide_limit(spec: ChainSpec, probes: bool = False) -> Optional[str]:
-    """Why the wide forms do not keep an unconditional chain of state width
-    up to WIDE_MAX_DZ (None if they do): a hidden width past WIDE_MAX_WIDTH,
-    or weights that with the wide K2 chain form's smallest tile (its probe
-    instance's with `probes`) pass a block's shared memory."""
+    """Why the wide forms do not keep a chain of state width up to
+    WIDE_MAX_DZ (None if they do): a hidden width past WIDE_MAX_WIDTH, or
+    weights that with the wide K2 chain form's smallest tile (its probe
+    instance's with `probes`, its COND instance's for a conditional chain)
+    pass a block's shared memory."""
     wide = max(spec.out_dims[:-1])
     if wide > WIDE_MAX_WIDTH:
         return (f"hidden width {wide} > {WIDE_MAX_WIDTH} (the wide forms take up to {WIDE_MAX_WIDTH}; ROADMAP queue "
@@ -980,8 +997,18 @@ def _stream_chain(spec: ChainSpec, probes: bool = False) -> bool:
     return _wide_chain(spec) and (spec.dz > WIDE_MAX_DZ or _wide_limit(spec, probes) is not None)
 
 
-_COND_WIDE = ("conditional wide chains (K8 in the wide and streamed chain forms, ROADMAP queue 2, shape variants "
-              "(d))")
+#: What the kernels still refuse of conditional nets past the narrow widths
+#: (K8), each naming its ROADMAP queue 2 row.  The COND instances of the wide
+#: K1 and K2 chain forms, wide K3 and wide K5 take the rest.
+COND_WIDE_K7 = ("the TEST and exact forwards of conditional wide chains in wide K7 (K8 in wide K7: 3- and 4-layer "
+                "conditional chains past the narrow widths in TEST mode and under exact trace, and conditional 2-layer "
+                "nets past MAX_DZ under exact trace; ROADMAP queue 2, shape variants (d), K8 in wide K7)")
+COND_WIDE_PROBES = ("K probes and JVP probes in conditional wide chains (K6 x K8 in the wide probe instances; ROADMAP "
+                    "queue 2, shape variants (d), K8 in the wide probe instances)")
+COND_STREAM = ("conditional chains past the wide limits (K8 in the wide and streamed chain forms: the streamed forms' "
+               "COND instances; ROADMAP queue 2, shape variants (d), K8 in the streamed forms)")
+COND_WIDE_K4 = ("the exact gradient of conditional 2-layer nets past MAX_DZ in the wide K4 adjoint (ROADMAP queue 2, "
+                "K8 in the wide and streamed K4 adjoints)")
 
 
 def _wide_two_layer(spec: ChainSpec) -> bool:
@@ -991,22 +1018,25 @@ def _wide_two_layer(spec: ChainSpec) -> bool:
     return _two_layer_tanh(spec) and spec.dz > MAX_DZ
 
 
-def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
-    """Why the wide 2-layer kernels (wide K3, wide K5, the wide K4 adjoint)
-    do not run this configuration (None if they do): they take the
-    unconditional 2-layer tanh chains the wide chain forms take, state widths
-    up to WIDE_MAX_DZ and hidden widths up to WIDE_MAX_WIDTH, under every
-    embedded tableau.  Past those the streamed chain forms run the
-    Hutchinson and exact-forward stages, streamed K3 and K5 the TEST stages
-    (`_stream_two_layer_covers`) and the streamed K4 adjoint the exact
-    backward member (`_stream_exact_covers`)."""
+def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec, k4: bool = False) -> Optional[str]:
+    """Why the wide 2-layer kernels (wide K3, wide K5, the wide K4 adjoint:
+    `k4`) do not run this configuration (None if they do): they take the
+    2-layer tanh chains the wide chain forms take, state widths up to
+    WIDE_MAX_DZ and hidden widths up to WIDE_MAX_WIDTH, under every embedded
+    tableau; wide K3 and wide K5 conditional ones too, in their COND
+    instances (K8), the wide K4 adjoint not (COND_WIDE_K4).  Past those the
+    streamed chain forms run the Hutchinson and exact-forward stages,
+    streamed K3 and K5 the TEST stages (`_stream_two_layer_covers`) and the
+    streamed K4 adjoint the exact backward member
+    (`_stream_exact_covers`)."""
     if not _two_layer_tanh(spec):
         return ("nets other than 2-layer tanh chains in wide K3, wide K5 and the wide K4 adjoint (the JAX "
                 "package's 2-layer TEST and exact stages assume tanh layers, reference fault 2: the chain kernels "
                 "take identity layers forward, and their gradient runs the plain backward)")
-    if spec.n_cond:
-        return ("conditional wide 2-layer nets (K8 in the wide forms, ROADMAP queue 2, shape variants (d))")
-    return _kernel_covers(tab, spec, chain=True, stream=False)
+    why = _kernel_covers(tab, spec, chain=True, stream=False)
+    if why is None and spec.n_cond and k4:
+        why = COND_WIDE_K4
+    return why
 
 
 def _stream_two_layer(spec: ChainSpec) -> bool:
@@ -1029,7 +1059,7 @@ def _stream_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[s
                 "package's 2-layer TEST and exact stages assume tanh layers, reference fault 2: streamed K7 takes "
                 "identity layers forward, and their gradient runs the plain backward)")
     if spec.n_cond:
-        return _COND_WIDE
+        return COND_STREAM
     why = _kernel_covers(tab, spec, chain=True)
     if why is None and not _stream_two_layer(spec):
         why = (f"state width {spec.dz} with hidden width {spec.out_dims[0]} in streamed K3, K5 and the streamed K4 "
@@ -1138,6 +1168,8 @@ _SIGNATURES = {
         "cnf_k1w_train_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
         "cnf_k1wp_shape": _WIDE_SHAPE,
         "cnf_k1w_probe_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k1wc_shape": _WIDE_SHAPE,
+        "cnf_k1w_cond_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K7W_KERNEL: {
         "cnf_k7w_test_shape": _WIDE_SHAPE,
@@ -1148,10 +1180,14 @@ _SIGNATURES = {
     K3W_KERNEL: {
         "cnf_k3w_shape": _WIDE_SHAPE,
         "cnf_k3w_test_solve": ([_P] * 10 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k3wc_shape": _WIDE_SHAPE,
+        "cnf_k3w_cond_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
     },
     K5W_KERNEL: {
         "cnf_k5w_shape": _WIDE_SHAPE,
         "cnf_k5w_test_adjoint": ([_P] * 15 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k5wc_shape": _WIDE_SHAPE,
+        "cnf_k5w_cond_adjoint": ([_P] * 17 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
     },
     K4WA_KERNEL: {
         "cnf_k4w_shape": _WIDE_SHAPE,
@@ -1207,6 +1243,8 @@ _SIGNATURES = {
         "cnf_k2w_train_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
         "cnf_k2wp_shape": _WIDE_SHAPE,
         "cnf_k2w_probe_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k2wc_shape": _WIDE_SHAPE,
+        "cnf_k2w_cond_adjoint": ([_P] * 18 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
 }
 
@@ -1270,13 +1308,16 @@ def _controller_floats(tab):
 
 
 def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain: bool = False,
-               wide: bool = False, jvp: bool = False, stream: bool = False) -> None:
+               wide: bool = False, jvp: bool = False, stream: bool = False, cond: bool = False,
+               k7: bool = False) -> None:
     """Raise unless `label`'s kernel takes the configuration on CUDA tensors:
     a chain kernel's narrow form (`wide` and `stream` False) takes no wide
     chain, its wide form (`wide`) the chains past the narrow widths that it
-    keeps in shared memory, and its streamed form (`stream`) the chains the
-    wide forms refuse for their widths or shared memory (`_stream_chain`;
-    with K probes or JVP, those of the wide probe instances)."""
+    keeps in shared memory, conditional ones in its COND instance (`cond`)
+    and unconditional ones in the others (wide K7, `k7`, has no COND
+    instance), and its streamed form (`stream`) the chains the wide forms
+    refuse for their widths or shared memory (`_stream_chain`; with K probes
+    or JVP, those of the wide probe instances)."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
     probes = k_probes != 1 or jvp
@@ -1284,8 +1325,12 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
     if why is None and chain and not wide and not stream and _wide_chain(spec):
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the narrow chain kernels (up to "
                f"{MAX_DZ} and {CHAIN_MAX_WIDTH}: their wide forms take the chain)")
-    if why is None and wide and spec.n_cond:
-        why = _COND_WIDE
+    if why is None and wide and spec.n_cond and k7:
+        why = COND_WIDE_K7
+    if why is None and wide and spec.n_cond and not cond:
+        why = f"conditional chains in the unconditional instance of {label} (its COND instance takes them)"
+    if why is None and cond and not spec.n_cond:
+        why = f"unconditional chains in the COND instance of {label} (its unconditional instance takes them)"
     if why is None and wide and _stream_chain(spec, probes):
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the wide chain forms "
                f"({_kernel_covers(tab, spec, k_probes, chain=True, jvp=jvp, stream=False)}: their streamed forms "
@@ -1938,18 +1983,21 @@ def _stream_shape(lib, entry: str, label: str, spec: ChainSpec, widths, B: int, 
 
 
 def _launch_wide_forward(label, lib_name, entry, shape, tab, spec, *, rtol, atol, max_steps, ws, bs, z0, acc0, t0,
-                         t1, dt_init, eps=None, norms=(), stream=False, m=False):
-    """Launch a wide forward kernel, whose C arguments are (params, [eps], z0,
-    acc0, ts, zT, accT, stats, dt_last, work, partials, [m], [tiles], B, n,
-    widths, acts, max_steps, *norms, rtol, atol, the controller, the tableau,
-    tile, grid, block, stream); `norms` ends with K and jvp for the wide K1
-    chain form's probe instance, and eps is (K, B, dz).  A streamed kernel
-    (`stream`) takes the global tile scratch its shape entry asks for and,
-    with `m` (streamed K3), the dz x H scratch of M that the launch builds.
-    Returns (zT, accT, steps, accepted, dt_last, dt_used)."""
+                         t1, dt_init, eps=None, norms=(), stream=False, m=False, ys=None):
+    """Launch a wide forward kernel, whose C arguments are (params, [eps],
+    [ys], z0, acc0, ts, zT, accT, stats, dt_last, work, partials, [m],
+    [tiles], B, n, widths, acts, max_steps, *norms, rtol, atol, the
+    controller, the tableau, tile, grid, block, stream); `norms` ends with K
+    and jvp for the wide K1 chain form's probe instance, and eps is
+    (K, B, dz).  A COND instance (K8) takes the conditioning ys (B, n_cond).
+    A streamed kernel (`stream`) takes the global tile scratch its shape
+    entry asks for and, with `m` (streamed K3), the dz x H scratch of M that
+    the launch builds.  Returns (zT, accT, steps, accepted, dt_last,
+    dt_used)."""
     B, dz = z0.shape
     device = z0.device
     params, widths = _chain_params(label, spec, ws, bs, device)
+    cond = [] if ys is None else [_cond_rows(label, spec, ys, B, device)]
     probe = [] if eps is None else [eps]
     z0, acc0, *probe = _check_inputs(label, device, [z0, acc0] + probe,
                                      [(B, dz), tuple(acc0.shape)] + [(x.shape[0], B, dz) for x in probe])
@@ -1964,8 +2012,8 @@ def _launch_wide_forward(label, lib_name, entry, shape, tab, spec, *, rtol, atol
     ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
     zT, accT, stats, dt_last, work, partials = _forward_buffers(z0, acc0, tab, grid)
     err = getattr(lib, entry)(
-        _ptr(params), *[_ptr(x) for x in probe], _ptr(z0), _ptr(acc0), _ptr(ts), _ptr(zT), _ptr(accT), _ptr(stats),
-        _ptr(dt_last), _ptr(work), _ptr(partials), *extra, B, spec.n_layers, widths, _acts_mask(spec),
+        _ptr(params), *[_ptr(x) for x in probe + cond], _ptr(z0), _ptr(acc0), _ptr(ts), _ptr(zT), _ptr(accT),
+        _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials), *extra, B, spec.n_layers, widths, _acts_mask(spec),
         int(max_steps), *[int(x) for x in norms], rtol, atol, *_controller_floats(tab), _tableau_array(tab), tile,
         grid, block, _stream(device),
     )
@@ -1987,7 +2035,7 @@ def run_wide_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, 
             tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
             z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
-    _cuda_only("wide K7", z0, tab, spec, chain=True, wide=True)
+    _cuda_only("wide K7", z0, tab, spec, chain=True, wide=True, k7=True)
     out = _launch_wide_forward(
         "wide K7 TEST", K7W_KERNEL, "cnf_k7w_test_solve", "cnf_k7w_test_shape", tab, spec, rtol=rtol, atol=atol,
         max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
@@ -2013,7 +2061,7 @@ def run_wide_exact_solve_kernel(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
             ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
-    _cuda_only("wide K7", z0, tab, spec, chain=True, wide=True)
+    _cuda_only("wide K7", z0, tab, spec, chain=True, wide=True, k7=True)
     out = _launch_wide_forward(
         "wide K7 exact", K7W_KERNEL, "cnf_k7w_exact_solve", "cnf_k7w_exact_shape", tab, spec, rtol=rtol, atol=atol,
         max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, norms=(norm_z, norm_j),
@@ -2058,25 +2106,29 @@ run_wide_train_solve_kernel.launches = 0
 run_wide_train_solve_kernel.probe_launches = {}
 
 
-def _wide_adjoint_buffers(tab, zT, accT, grid: int, Pg: int):
+def _wide_adjoint_buffers(tab, zT, accT, grid: int, Pg: int, nc: int = 0):
     """(z0, acc0, a_z0, g, g_new, stats, work, partials, gblk) of a wide
     adjoint (the tile solve): g of Pg floats, the (row, B) planes of
-    (z, acc, a_z), its partials and each block's (NG + 2) g vectors."""
+    (z, acc, a_z) and, for nc conditioning inputs (a COND instance), a_ys,
+    its partials and each block's (NG + 2) g vectors."""
     B, dz = zT.shape
     f32 = dict(dtype=torch.float32, device=zT.device)
     return (
         torch.empty_like(zT), torch.empty_like(accT), torch.empty_like(zT), torch.empty(Pg, **f32),
         torch.empty(Pg, **f32), torch.empty(2, dtype=torch.int32, device=zT.device),
-        torch.empty((tab.num_stages + 2) * (2 * dz + accT.shape[0]) * B, **f32), torch.empty(10 * grid, **f32),
+        torch.empty((tab.num_stages + 2) * (2 * dz + accT.shape[0] + nc) * B, **f32), torch.empty(10 * grid, **f32),
         torch.empty(grid * (_gvecs(tab) + 2) * Pg, **f32),
     )
 
 
 def _launch_wide_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-                         t_hi, t_lo, dt_init, jvp=False):
+                         t_hi, t_lo, dt_init, jvp=False, ys=None):
+    """Launch the wide K2 chain form: its one-probe instance, its probe
+    instance (K probes or JVP, K6) or, given ys (B, n_cond), its COND
+    instance (K8), which returns a_ys0 (B, n_cond) last."""
     label = "wide K2 chain form"
     B, dz = zT.shape
-    K = eps.shape[0]
+    K, nc = eps.shape[0], spec.n_cond if ys is not None else 0
     device = zT.device
     params, widths = _chain_params(label, spec, ws, bs, device)
     e0, zT, accT, azT, aaccT = _check_inputs(
@@ -2084,19 +2136,31 @@ def _launch_wide_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws
     )
     lib = _library(K2W_KERNEL)
     probes = _probe_instance(eps, jvp)
-    block, grid, tile = _wide_shape(lib, "cnf_k2wp_shape" if probes else "cnf_k2w_shape", label, spec, widths, B)
+    shape = "cnf_k2wc_shape" if nc else "cnf_k2wp_shape" if probes else "cnf_k2w_shape"
+    block, grid, tile = _wide_shape(lib, shape, label, spec, widths, B)
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
-    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel())
-    entry = lib.cnf_k2w_probe_adjoint if probes else lib.cnf_k2w_train_adjoint
-    err = entry(
-        _ptr(params), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
-        _ptr(az0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), B, spec.n_layers,
-        widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j), *([K, int(jvp)] if probes else []),
-        rtol, atol, *_controller_floats(tab), _tableau_array(tab), tile, grid, block, _stream(device),
-    )
+    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel(),
+                                                                                nc)
+    tail = (int(max_steps), int(norm_z), int(norm_j), *([K, int(jvp)] if probes else []), rtol, atol,
+            *_controller_floats(tab), _tableau_array(tab), tile, grid, block, _stream(device))
+    if nc:
+        ys = _cond_rows(label, spec, ys, B, device)
+        ays0 = torch.empty((B, nc), dtype=torch.float32, device=device)
+        err = lib.cnf_k2w_cond_adjoint(
+            _ptr(params), _ptr(e0), _ptr(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0),
+            _ptr(acc0), _ptr(az0), _ptr(ays0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk),
+            _ptr(gnew), B, spec.n_layers, widths, _acts_mask(spec), *tail,
+        )
+    else:
+        entry = lib.cnf_k2w_probe_adjoint if probes else lib.cnf_k2w_train_adjoint
+        err = entry(
+            _ptr(params), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
+            _ptr(az0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), B, spec.n_layers,
+            widths, _acts_mask(spec), *tail,
+        )
     _check_launch(err, label, grid, block)
     g_ws, g_bs = _split_params(g, spec)
-    return z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]
+    return (z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]) + ((ays0,) if nc else ())
 
 
 def run_wide_adjoint_kernel(
@@ -2134,13 +2198,20 @@ run_wide_adjoint_kernel.probe_launches = {}
 # ---- the 2-layer kernels' wide forms (2-layer tanh nets past MAX_DZ) ----
 
 
-def _cuda_only_wide_two_layer(label: str, x: torch.Tensor, tab, spec, stream: bool = False) -> None:
-    """Raise unless the wide 2-layer kernels (`_wide_two_layer_covers`) or,
-    `stream`, streamed K3 and K5 (`_stream_two_layer_covers`) take the
-    configuration on CUDA tensors."""
+def _cuda_only_wide_two_layer(label: str, x: torch.Tensor, tab, spec, stream: bool = False, cond: bool = False,
+                              k4: bool = False) -> None:
+    """Raise unless the wide 2-layer kernels (`_wide_two_layer_covers`; the
+    wide K4 adjoint with `k4`) or, `stream`, streamed K3 and K5
+    (`_stream_two_layer_covers`) take the configuration on CUDA tensors:
+    wide K3 and wide K5 take conditional nets in their COND instances
+    (`cond`) and unconditional ones in the others."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
-    why = (_stream_two_layer_covers if stream else _wide_two_layer_covers)(tab, spec)
+    why = _stream_two_layer_covers(tab, spec) if stream else _wide_two_layer_covers(tab, spec, k4)
+    if why is None and spec.n_cond and not cond:
+        why = f"conditional nets in the unconditional instance of {label} (its COND instance takes them)"
+    if why is None and cond and not spec.n_cond:
+        why = f"unconditional nets in the COND instance of {label} (its unconditional instance takes them)"
     if why is not None:
         raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
@@ -2173,25 +2244,37 @@ run_wide_test2_solve_kernel.launches = 0
 
 
 def _launch_wide_test_adjoint(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi, t_lo,
-                              dt_init):
+                              dt_init, ys=None):
+    """Launch wide K5: its unconditional instance or, given ys (B, n_cond),
+    its COND instance (K8), which returns a_ys0 (B, n_cond) last."""
     label = "wide K5"
     B, dz = zT.shape
+    nc = spec.n_cond if ys is not None else 0
     device = zT.device
     params, widths = _chain_params(label, spec, ws, bs, device)
     zT, accT, azT, aaccT = _check_inputs(label, device, [zT, accT, azT, aaccT], [(B, dz), (1, B), (B, dz), (1, B)])
     lib = _library(K5W_KERNEL)
-    block, grid, tile = _wide_shape(lib, "cnf_k5w_shape", label, spec, widths, B)
+    block, grid, tile = _wide_shape(lib, "cnf_k5wc_shape" if nc else "cnf_k5w_shape", label, spec, widths, B)
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
-    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel())
-    err = lib.cnf_k5w_test_adjoint(
-        _ptr(params), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0),
-        _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), B, spec.n_layers, widths,
-        _acts_mask(spec), int(max_steps), rtol, atol, *_controller_floats(tab), _tableau_array(tab), tile, grid,
-        block, _stream(device),
-    )
+    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel(),
+                                                                                nc)
+    tail = (B, spec.n_layers, widths, _acts_mask(spec), int(max_steps), rtol, atol, *_controller_floats(tab),
+            _tableau_array(tab), tile, grid, block, _stream(device))
+    if nc:
+        ys = _cond_rows(label, spec, ys, B, device)
+        ays0 = torch.empty((B, nc), dtype=torch.float32, device=device)
+        err = lib.cnf_k5w_cond_adjoint(
+            _ptr(params), _ptr(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
+            _ptr(az0), _ptr(ays0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), *tail,
+        )
+    else:
+        err = lib.cnf_k5w_test_adjoint(
+            _ptr(params), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0),
+            _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), *tail,
+        )
     _check_launch(err, label, grid, block)
     g_ws, g_bs = _split_params(g, spec)
-    return z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]
+    return (z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]) + ((ays0,) if nc else ())
 
 
 def run_wide_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi, t_lo,
@@ -2272,7 +2355,7 @@ def run_wide_exact_adjoint_kernel(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
             ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
         )
-    _cuda_only_wide_two_layer("the wide K4 adjoint", zT, tab, spec)
+    _cuda_only_wide_two_layer("the wide K4 adjoint", zT, tab, spec, k4=True)
     if dt_init is None:
         raise ValueError("the wide K4 adjoint needs dt_init (the caller picks it)")
     out = _launch_wide_exact_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol,
@@ -2283,6 +2366,131 @@ def run_wide_exact_adjoint_kernel(
 
 
 run_wide_exact_adjoint_kernel.launches = 0
+
+
+# ---- the COND instances of the wide forms (K8: conditional nets past the narrow widths) ----
+
+
+def run_wide_cond_train_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None,
+    jvp=False,
+):
+    """The wide K1 chain form's COND instance: the Hutchinson TRAIN solve
+    (`run_wide_train_solve_kernel`) of a conditional chain past the narrow
+    widths whose first layer reads [z | ys], ys (B, n_cond) constant over
+    the solve (CondRNODE at the HEPMASS width, 43 -> 126 -> 42, one ys
+    column); one VJP probe (K probes and JVP raise on the card,
+    COND_WIDE_PROBES); arguments and returns as `run_train_solve_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k1_wide_solve.cu`'s
+    `k1_wide_cond_solve`), CPU tensors through its plain version."""
+    _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
+    if z0.device.type == "cpu":
+        return solve_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys, jvp=jvp,
+        )
+    _cuda_only("wide K1 COND", z0, tab, spec, eps.shape[0], chain=True, wide=True, jvp=jvp, cond=True)
+    out = _launch_wide_forward(
+        "wide K1 chain form COND", K1W_KERNEL, "cnf_k1w_cond_solve", "cnf_k1wc_shape", tab, spec, rtol=rtol,
+        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
+        norms=(norm_z, norm_j), ys=ys,
+    )
+    run_wide_cond_train_solve_kernel.launches += 1
+    return out
+
+
+run_wide_cond_train_solve_kernel.launches = 0
+
+
+def run_wide_cond_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init, ys=None, jvp=False,
+):
+    """The wide K2 chain form's COND instance: the backsolve of (z, acc, a_z,
+    a_acc, a_ys, g_p) (`run_wide_adjoint_kernel`) of a conditional chain past
+    the narrow widths, the per-sample a_ys integrated from 0 at t_hi in the
+    one batch-global error norm; one VJP probe; arguments as
+    `run_adjoint_kernel` with ys (B, n_cond), returns (z0, acc0, a_z0, g_ws,
+    g_bs, steps, accepted, a_ys0).
+
+    CUDA tensors go through the kernel (`csrc/k2_wide_adjoint.cu`'s
+    `k2_wide_cond_adjoint`), CPU tensors through its plain version."""
+    _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys, jvp=jvp,
+        )
+    _cuda_only("wide K2 COND", zT, tab, spec, eps.shape[0], chain=True, wide=True, jvp=jvp, cond=True)
+    if dt_init is None:
+        raise ValueError("the wide K2 chain form needs dt_init (the caller picks it)")
+    out = _launch_wide_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+                               ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo,
+                               dt_init=dt_init, ys=ys)
+    run_wide_cond_adjoint_kernel.launches += 1
+    return out
+
+
+run_wide_cond_adjoint_kernel.launches = 0
+
+
+def run_wide_cond_test2_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init,
+                                     ys=None):
+    """Wide K3's COND instance: the closed-form TEST solve
+    (`run_wide_test2_solve_kernel`) of a conditional 2-layer tanh net past
+    MAX_DZ whose W1 reads [z | ys] (CondRNODE at the HEPMASS width); the
+    trace reads W1's z rows only; arguments and returns as
+    `run_solve_kernel` with ys (B, n_cond).
+
+    CUDA tensors go through the kernel (`csrc/k3_wide_solve.cu`'s
+    `k3_wide_cond_solve`), CPU tensors through its plain version."""
+    _no_grad_inputs("K3", ws, bs, z0, dlogp0, ys)
+    if z0.device.type == "cpu":
+        return solve_test_plain(
+            tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only_wide_two_layer("wide K3", z0, tab, spec, cond=True)
+    out = _launch_wide_forward(
+        "wide K3 COND", K3W_KERNEL, "cnf_k3w_cond_solve", "cnf_k3wc_shape", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+    )
+    run_wide_cond_test2_solve_kernel.launches += 1
+    return out
+
+
+run_wide_cond_test2_solve_kernel.launches = 0
+
+
+def run_wide_cond_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi, t_lo,
+                                      dt_init, ys=None):
+    """Wide K5's COND instance: the TEST backsolve (`run_wide_test_adjoint_kernel`,
+    ct_m folded into g) of the conditional 2-layer tanh nets wide K3's COND
+    instance takes, the per-sample a_ys integrated from 0 at t_hi in the
+    one batch-global error norm; arguments as `run_test_adjoint_kernel` with
+    ys (B, n_cond), returns (z0, acc0, a_z0, g_ws, g_bs, steps, accepted,
+    a_ys0).
+
+    CUDA tensors go through the kernel (`csrc/k5_wide_adjoint.cu`'s
+    `k5_wide_cond_adjoint`), CPU tensors through its plain version."""
+    if not _two_layer_tanh(spec):
+        raise ValueError(_NO_TEST_CHAIN_ADJOINT)
+    _no_grad_inputs("K5", ws, bs, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_test_plain(tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, zT=zT,
+                                  accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
+    _cuda_only_wide_two_layer("wide K5", zT, tab, spec, cond=True)
+    if dt_init is None:
+        raise ValueError("wide K5 needs dt_init (the caller picks it)")
+    out = _launch_wide_test_adjoint(tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, zT=zT,
+                                    accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
+    run_wide_cond_test_adjoint_kernel.launches += 1
+    return out
+
+
+run_wide_cond_test_adjoint_kernel.launches = 0
 
 
 # ---- the chain kernels' streamed forms (weights past the wide forms' shared memory) ----
@@ -2785,6 +2993,10 @@ KERNEL_WRAPPERS = {
     K3W_KERNEL: run_wide_test2_solve_kernel,
     K5W_KERNEL: run_wide_test_adjoint_kernel,
     K4WA_KERNEL: run_wide_exact_adjoint_kernel,
+    K1W_KERNEL + "/cond": run_wide_cond_train_solve_kernel,
+    K2W_KERNEL + "/cond": run_wide_cond_adjoint_kernel,
+    K3W_KERNEL + "/cond": run_wide_cond_test2_solve_kernel,
+    K5W_KERNEL + "/cond": run_wide_cond_test_adjoint_kernel,
     K1S_KERNEL: run_stream_train_solve_kernel,
     K2S_KERNEL: run_stream_adjoint_kernel,
     K7S_KERNEL + "/test": run_stream_test_solve_kernel,
@@ -2858,8 +3070,16 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     chain with an identity layer run the chain kernels (the JAX package's
     2-layer TEST and exact stages assume tanh layers; the chain kernels do
     not), their narrow forms within state width MAX_DZ and hidden widths
-    CHAIN_MAX_WIDTH, their wide forms beyond (conditional wide chains raise
-    on the card: K8 in the wide forms is not ported).  Hutchinson TRAIN solves run K1 (or its chain form) with the
+    CHAIN_MAX_WIDTH, their wide forms beyond.  Conditional chains past the
+    narrow widths run the COND instances of the wide forms (K8): the wide K1
+    and K2 chain forms' under Hutchinson TRAIN with one VJP probe and, for
+    2-layer tanh nets past MAX_DZ (CondRNODE at the HEPMASS width), wide
+    K3's forward and wide K5's backward in TEST mode; their TEST forward at
+    3-4 layers and their exact forward run wide K7, which raises on the card
+    (COND_WIDE_K7), as do their K probes and JVP probes (COND_WIDE_PROBES)
+    and every conditional chain past the wide limits (COND_STREAM); narrow
+    conditional nets keep the narrow chain kernels and K5's COND instance.
+    Hutchinson TRAIN solves run K1 (or its chain form) with the
     backward member K2 (or its chain form), with the K VJP or JVP probes of
     `compute_mode` (K6: their probe instances); exact-trace TRAIN solves run the
     K4 forward (K7 for chain-kernel nets), with the K4 adjoint as the
@@ -2966,6 +3186,11 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         if wide2:
             run_test, run_test_adj = run_stream_test2_solve_kernel, run_stream_test_adjoint_kernel
             run_exact_adj = run_stream_exact_adjoint_kernel
+    elif spec.n_cond and _wide_chain(spec):
+        run_test, run_train = run_wide_test_solve_kernel, run_wide_cond_train_solve_kernel
+        run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_cond_adjoint_kernel
+        if wide2:
+            run_test, run_test_adj = run_wide_cond_test2_solve_kernel, run_wide_cond_test_adjoint_kernel
     elif chain and _wide_chain(spec):
         run_test, run_train = run_wide_test_solve_kernel, run_wide_train_solve_kernel
         run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel
@@ -3105,6 +3330,10 @@ __all__ = [
     "run_wide_test2_solve_kernel",
     "run_wide_test_adjoint_kernel",
     "run_wide_exact_adjoint_kernel",
+    "run_wide_cond_train_solve_kernel",
+    "run_wide_cond_adjoint_kernel",
+    "run_wide_cond_test2_solve_kernel",
+    "run_wide_cond_test_adjoint_kernel",
     "run_stream_test_solve_kernel",
     "run_stream_exact_solve_kernel",
     "run_stream_train_solve_kernel",

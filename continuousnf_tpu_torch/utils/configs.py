@@ -53,12 +53,25 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     #3): CondRNODE, nvars = 1, naug = 0, one conditioning input, MLP
     2 -> 64 -> 64 -> 1 tanh on all three layers reading [x | y], tspan
     (0, 13), steer_rate 0.1; data y ~ U(-1, 1), x | y ~ N(0.7 y, 0.3^2).
+  * cond_hepmass42 (the README net family's conditional form at the HEPMASS
+    width): CondRNODE, nvars = naug = 21, one conditioning column, MLP
+    43 -> 126 -> 42 tanh on [z | ys], hepmass42's recipe (lambda3 = 1e-2,
+    steer_rate 0.1, tspan (0, 13)).  HEPMASS (UCI; Baldi et al. 2016,
+    "Parameterized neural networks for high-energy physics") is a
+    parametrised data set: its signal depends on a mass of 500, 750, 1000,
+    1250 or 1500 GeV, and the density-estimation literature keeps 21 of its
+    features (Papamakarios et al. 2017, MAF), so p(x | mass) is the
+    conditional density its users fit.  The data are synthetic: ys one of
+    the five masses, standardised (mean 1000, std 353.55), and xs the
+    `synthetic_tabular` recipe at 21 variables plus 0.5 ys.  Past the narrow
+    widths: the COND instances of wide K3, wide K5 and the wide K1 and K2
+    chain forms run it.  Nothing is cut.
 
 All: lambda1 = lambda2 = 1e-2 (the RNODE defaults), tsit5 at rtol 1e-3 /
 atol 1e-6, one Gaussian VJP probe (`make_icnf` takes K probes and JVP
 probes), batch 4096 in the scripts unless the entry names its own `batch`
 (miniboone43 and bsds126: 2048; miniboone860: 1024); the conditional recipe
-trains at its `batch_size` of 128.  Weights are Glorot-uniform with
+trains at its `batch_size` of 128, cond_hepmass42 at 4096.  Weights are Glorot-uniform with
 N(0, 0.05) biases, drawn with numpy.
 """
 
@@ -81,7 +94,11 @@ MODELS = {
                     extra={"steer_rate": 0.1, "lam3": 1e-2}, batch=2048),
     "cond_gaussian": dict(dims=(2, 64, 64, 1), nvars=1, naug=0, tspan=(0.0, 13.0), extra={"steer_rate": 0.1},
                           n_cond=1, batch_size=128),
+    "cond_hepmass42": dict(dims=(43, 126, 42), nvars=21, naug=21, tspan=(0.0, 13.0),
+                           extra={"steer_rate": 0.1, "lam3": 1e-2}, n_cond=1),
 }
+#: HEPMASS's signal masses in GeV (Baldi et al. 2016), cond_hepmass42's conditioning.
+HEPMASS_MASSES = (500.0, 750.0, 1000.0, 1250.0, 1500.0)
 # kernel_microbench (`benchmarks/kernel_microbench.py:93-152`): the flagship at
 # tspan (0, 1), run in float32 and under bf16 stage matmuls.
 MODELS["microbench"] = dict(MODELS["flagship"], tspan=(0.0, 1.0))
@@ -116,6 +133,17 @@ def cond_gaussian_data(rng: np.random.Generator, n: int):
     return xs.astype(np.float32), ys.astype(np.float32)
 
 
+def cond_hepmass_data(rng: np.random.Generator, n: int):
+    """n pairs of cond_hepmass42's synthetic data: ys one of HEPMASS_MASSES
+    drawn uniformly, standardised (mean 1000, std 353.55: -1.414, -0.707, 0,
+    0.707 or 1.414), and xs = the `synthetic_tabular` recipe at 21 variables
+    + 0.5 ys.  Returns (xs (n, 21), ys (n, 1)), float32."""
+    masses = np.asarray(HEPMASS_MASSES)
+    ys = (rng.choice(masses, size=(n, 1)) - masses.mean()) / masses.std()
+    xs = tabular_data(rng, n, 21) + 0.5 * ys
+    return xs.astype(np.float32), ys.astype(np.float32)
+
+
 def two_moons(rng: np.random.Generator, n: int, noise: float = 0.05) -> np.ndarray:
     """n points of the two-moons toy of the JAX package's `data.two_moons`
     (`continuousnf_tpu/data.py:22-32`), the data of the trajectory example,
@@ -136,6 +164,8 @@ def model_data(name: str, rng: np.random.Generator, n: int):
         return tabular_data(rng, n, nvars)
     if name == "cond_gaussian":
         return cond_gaussian_data(rng, n)
+    if name == "cond_hepmass42":
+        return cond_hepmass_data(rng, n)
     return rng.uniform(0.0, 1.0, (n, nvars)).astype(np.float32)
 
 

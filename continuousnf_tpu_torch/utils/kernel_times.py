@@ -17,7 +17,14 @@ the "_hepmass" keys: wide K3 and wide K5 from its output, the wide K1 and
 K2 chain forms, wide K7 exact and the wide K4 adjoint from its output) and
 on miniboone860 the streamed forms of the chain kernels (MLP 43 -> 860 ->
 860 -> 43, B = 1024, tspan (0, 1); the "_stream" keys: streamed K7 TEST,
-the streamed K1 and K2 chain forms, streamed K7 exact),
+the streamed K1 and K2 chain forms, streamed K7 exact), on miniboone86 the
+streamed forms of a 2-layer net past the wide limits (MLP 86 -> 258 -> 86,
+B = 4096, tspan (0, 13); the "_mb86" keys: streamed K3 and streamed K5 from
+its output, the streamed K1 and K2 chain forms) and on
+cond_hepmass42 the COND instances of the wide forms (CondRNODE, MLP 43 ->
+126 -> 42 on [z | ys], B = 4096, tspan (0, 13); the "_condhep" keys: wide
+K3 COND and wide K5 COND from its output, the wide K1 and K2 chain forms'
+COND instances; one probe only),
 Glorot weights and data from numpy seeds, under
 one tableau (rtol 1e-3 / atol 1e-6; the README tolerances for verner65).
 Where the package has K5 (the TEST adjoint), it is timed on the flagship
@@ -29,7 +36,7 @@ With `--probes K` (K Gaussian probes) or `--jvp` (forward-mode probes) it
 times only the Hutchinson kernels, K1 and K2 and their chain forms, through
 their probe instances (K6; the "/K<K>" or "/jvp-K<K>" keys), with the wide
 forms on miniboone43 and hepmass42 and the streamed forms on miniboone860
-where `--models` names them.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
+and miniboone86 where `--models` names them.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
 one JSON line {"tableau": ..., "kernels": {name: [ms, attempted steps]}}.
 
 By default it uses only wrappers that earlier versions of the package have
@@ -82,8 +89,14 @@ def main() -> int:
                    "cond_gaussian": [fs.K1C_KERNEL, fs.K2C_KERNEL]}
     if "miniboone43" in models:
         kernels["miniboone43"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [fs.K7W_KERNEL])
+    if "miniboone86" in models:
+        kernels["miniboone86"] = [fs.K1S_KERNEL, fs.K2S_KERNEL] + ([] if probes else [fs.K3S_KERNEL, fs.K5S_KERNEL])
     if "miniboone860" in models:
         kernels["miniboone860"] = [fs.K1S_KERNEL, fs.K2S_KERNEL] + ([] if probes else [fs.K7S_KERNEL])
+    if "cond_hepmass42" in models:
+        if probes:
+            raise SystemExit("the COND instances of the wide forms take one VJP probe (cond_hepmass42)")
+        kernels["cond_hepmass42"] = [fs.K1W_KERNEL, fs.K2W_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL]
     if "hepmass42" in models:
         kernels["hepmass42"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [
             fs.K7W_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL, fs.K4WA_KERNEL])
@@ -133,11 +146,12 @@ def main() -> int:
         test = dict(base, z0=z0, dlogp0=T(rng.normal(0.0, 0.1, B)))
         if probes:
             keys = {"flagship": ("k1", "k2"), "miniboone43": ("k1c_wide", "k2c_wide"),
-                    "hepmass42": ("k1c_hepmass", "k2c_hepmass"),
+                    "hepmass42": ("k1c_hepmass", "k2c_hepmass"), "miniboone86": ("k1c_mb86", "k2c_mb86"),
                     "miniboone860": ("k1c_stream", "k2c_stream")}.get(name, ("k1c" + tag, "k2c" + tag))
             wide = (fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel)
+            stream = (fs.run_stream_train_solve_kernel, fs.run_stream_adjoint_kernel)
             runs = {"flagship": (fs.run_train_solve_kernel, fs.run_adjoint_kernel), "miniboone43": wide,
-                    "hepmass42": wide, "miniboone860": (fs.run_stream_train_solve_kernel, fs.run_stream_adjoint_kernel)
+                    "hepmass42": wide, "miniboone860": stream, "miniboone86": stream,
                     }.get(name, (fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel))
             time_pair(tuple(k + suffix for k in keys), spec, *runs, dict(train, eps=eps, **probe_kw),
                       dict(adj, eps=eps, **probe_kw))
@@ -168,6 +182,16 @@ def main() -> int:
                       dict(train, eps=eps), dict(adj, eps=eps))
             time_pair(("k7e_hepmass", "k4w_hepmass"), spec, fs.run_wide_exact_solve_kernel,
                       fs.run_wide_exact_adjoint_kernel, train, adj)
+        elif name == "cond_hepmass42":
+            time_pair(("k3wc_condhep", "k5wc_condhep"), spec, fs.run_wide_cond_test2_solve_kernel,
+                      fs.run_wide_cond_test_adjoint_kernel, test, dict(azT=adj["azT"], aaccT=T(np.full((1, B), 1.0 / B))))
+            time_pair(("k1wc_condhep", "k2wc_condhep"), spec, fs.run_wide_cond_train_solve_kernel,
+                      fs.run_wide_cond_adjoint_kernel, dict(train, eps=eps), dict(adj, eps=eps))
+        elif name == "miniboone86":
+            time_pair(("k3s_mb86", "k5s_mb86"), spec, fs.run_stream_test2_solve_kernel,
+                      fs.run_stream_test_adjoint_kernel, test, dict(azT=adj["azT"], aaccT=T(np.full((1, B), 1.0 / B))))
+            time_pair(("k1c_mb86", "k2c_mb86"), spec, fs.run_stream_train_solve_kernel, fs.run_stream_adjoint_kernel,
+                      dict(train, eps=eps), dict(adj, eps=eps))
         elif name == "miniboone860":
             time_pair(("k7t_stream",), spec, fs.run_stream_test_solve_kernel, None, test, None)
             time_pair(("k1c_stream", "k2c_stream"), spec, fs.run_stream_train_solve_kernel,

@@ -1,6 +1,6 @@
 """Where the time goes in a training step and a `logpdf` call on the card.
 
-    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|miniboone860|hepmass42|miniboone86|bsds126]
+    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|miniboone860|hepmass42|miniboone86|bsds126|cond_hepmass42]
         [--steps 10]
         [--probes K] [--jvp] [--test-grad] [--direct | --fixed N] [--bf16]
 
@@ -16,7 +16,10 @@ hepmass42`: the README net family at the HEPMASS width, RNODE, MLP
 forms; `--model miniboone86` / `bsds126`: the same family at 86 -> 258 ->
 86 and 126 -> 378 -> 126, through streamed K3 and K5, the streamed chain
 forms, and streamed K7 exact with the streamed K4 adjoint for the
-exact-trace step), its weights and its data from a seed as `utils/configs.py` makes
+exact-trace step; `--model cond_hepmass42`: CondRNODE at the HEPMASS width,
+MLP 43 -> 126 -> 42 on [z | ys], through the COND instances of the wide K1
+and K2 chain forms, wide K3 and wide K5, with no exact-trace step: wide K7
+has no COND instance yet), its weights and its data from a seed as `utils/configs.py` makes
 them, one Gaussian VJP probe (`--probes K` Gaussian probes, `--jvp`
 forward-mode ones: the Hutchinson train steps run the probe instances of
 the K1 and K2 kernels or of their chain forms, narrow, wide (miniboone43) or
@@ -36,7 +39,8 @@ too):
   * the kernels that take the most of it, by name, and the host operations
     that take the most of the CPU's own time under the profiler (where an
     idle card waits).
-With `--test-grad` (always for the README family past state width 32) it
+With `--test-grad` (always for the README family past state width 32 and
+for cond_hepmass42) it
 measures one more path, the TEST loss (the exact-trace maximum likelihood)
 and its gradient in the params (`test_grad`): on a 2-layer net the forward
 runs K3 and the backward K5 (past state width 32 wide K3 and wide K5, past
@@ -159,8 +163,11 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
            "direct": direct, "fixed": fixed, "bf16": bf16}
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    # bf16 has no exact-trace stages (ROADMAP queue 2, the bf16 row).
-    paths = [("train_step", False, B)] + ([] if bf16 else [("exact_train_step", True, B)])
+    # bf16 has no exact-trace stages (ROADMAP queue 2, the bf16 row), and
+    # conditional nets past the narrow widths no exact forward (wide K7
+    # COND, ROADMAP queue 2 row (d)).
+    no_exact = bf16 or name == "cond_hepmass42"
+    paths = [("train_step", False, B)] + ([] if no_exact else [("exact_train_step", True, B)])
     if "batch_size" in cfg:
         paths.append((f"train_step_b{cfg['batch_size']}", False, cfg["batch_size"]))
     for label, exact, b in paths:
@@ -171,7 +178,7 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
         yb = None if ys is None else ys[:b]
         call = lambda: step(ps, xs[:b], gen, ys=yb)  # noqa: E731
         out[label] = _measure(call, steps)
-    if test_grad or name in ("hepmass42", "miniboone86", "bsds126"):
+    if test_grad or name in ("hepmass42", "miniboone86", "bsds126", "cond_hepmass42"):
         icnf = model(False)
         ps = cnf.params_from_numpy(ps_np, dev)
         leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]

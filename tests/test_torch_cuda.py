@@ -1154,6 +1154,163 @@ def test_wide_two_layer_paths_on_the_card_match_the_twins_on_the_cpu(dev):
             assert _grad_close(a, b)
 
 
+# ---- the COND instances of the wide forms (K8: conditional nets past the narrow widths) ----
+
+COND_HEPMASS = (43, 126, 42)
+
+
+def _cond_ys(B, nc, dev, seed=12):
+    return torch.from_numpy(np.random.default_rng(seed).uniform(-1.0, 1.0, (B, nc)).astype(np.float32)).to(dev)
+
+
+def _hold_cond_adjoint(adj_k, adj_p, adj_64):
+    """Equal steps; z0, acc0, a_z0 and a_ys0 held to the float64 twin
+    (`_state_close`); finite gradients within GRAD_REL."""
+    assert len(adj_k) == len(adj_p) == 8
+    assert (int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6]))
+    for i in (0, 1, 2, 7):  # z0, acc0, a_z0, a_ys0
+        assert torch.isfinite(adj_k[i]).all() and _state_close(adj_k[i], adj_p[i], adj_64[i])
+    for a, b in zip(adj_k[3] + adj_k[4], adj_p[3] + adj_p[4]):
+        assert torch.isfinite(a).all() and _grad_close(a, b)
+
+
+@pytest.mark.parametrize(
+    "dims,B,span",
+    [
+        (COND_HEPMASS, 4096, (0.0, 13.0)),
+        ((35, 72, 34), 37, (2.0, 0.0)),
+        ((10, 72, 72, 8), 300, (0.0, 2.0)),
+        ((36, 40, 33), 1, (0.0, 1.0)),
+    ],
+    ids=["cond-hepmass42-B4096", "two-layer-reverse-B37", "three-layer-ncond2-B300", "ncond3-B1"],
+)
+def test_wide_cond_kernels_match_twins(dev, dims, B, span):
+    """The COND instances of the wide K1 and K2 chain forms (and, for 2-layer
+    nets, of wide K3 and wide K5) against their twins with the conditioning
+    ys (B, n_cond): the forwards from nonzero accumulators (equal steps,
+    values within REL), the adjoints from their forward's output
+    warm-started from its last step (equal steps; z0, acc0, a_z0 and a_ys0
+    held to the float64 twin; gradients within GRAD_REL).  One launch
+    each."""
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    nc, dz = dims[0] - dims[-1], dims[-1]
+    ys = _cond_ys(B, nc, dev)
+    kw, adj = _train_args(dims, B, span, dev)
+    kw["ys"], adj["ys"] = ys, ys
+    two = len(dims) == 3
+    runs = [tfs.run_wide_cond_train_solve_kernel, tfs.run_wide_cond_adjoint_kernel]
+    if two:
+        runs += [tfs.run_wide_cond_test2_solve_kernel, tfs.run_wide_cond_test_adjoint_kernel]
+    before = [w.launches for w in runs]
+    tdir = 1.0 if span[1] > span[0] else -1.0
+    rng = np.random.default_rng(13)
+    T = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    with torch.no_grad():
+        out_k = tfs.run_wide_cond_train_solve_kernel(TSIT5, spec, **kw)
+        out_p = tfs.solve_train_plain(TSIT5, spec, **kw)
+        adj.update(zT=out_k[0], accT=out_k[1], dt_init=-tdir * out_k[4].abs())
+        k2 = [tfs.run_wide_cond_adjoint_kernel(TSIT5, spec, **adj), tfs.adjoint_train_plain(TSIT5, spec, **adj),
+              _twin64(tfs.adjoint_train_plain, spec, adj)]
+        if two:
+            test_kw = dict(_kernel_args(dims, B, span, dev), ys=ys)
+            t_k = tfs.run_wide_cond_test2_solve_kernel(TSIT5, spec, **test_kw)
+            t_p = tfs.solve_test_plain(TSIT5, spec, **test_kw)
+            test_adj = dict({k: test_kw[k] for k in ("rtol", "atol", "max_steps", "ws", "bs", "ys")}, zT=t_p[0],
+                            accT=t_p[1][None], azT=T(rng.normal(0.0, 1.0 / B, (B, dz))),
+                            aaccT=T(np.full((1, B), 1.0 / B)), t_hi=test_kw["t1"], t_lo=test_kw["t0"],
+                            dt_init=-tdir * t_p[4].abs())
+            k5 = [tfs.run_wide_cond_test_adjoint_kernel(TSIT5, spec, **test_adj),
+                  tfs.adjoint_test_plain(TSIT5, spec, **test_adj), _twin64(tfs.adjoint_test_plain, spec, test_adj)]
+    torch.cuda.synchronize()
+    assert [w.launches for w in runs] == [n + 1 for n in before]
+    _hold_forward(out_k, out_p)
+    _hold_cond_adjoint(*k2)
+    if two:
+        _hold_forward(t_k, t_p)
+        _hold_cond_adjoint(*k5)
+
+
+def test_wide_cond_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """cond_hepmass42 (CondRNODE, nvars = naug = 21, MLP 43 -> 126 -> 42 on
+    [z | ys], steer_rate 0.1; tspan (0, 1) here) on the card and on the CPU
+    at B = 256: `CondICNFDist.logpdf` through wide K3's COND instance; the
+    TEST loss gradient in the params and ys through wide K3's and wide K5's;
+    the Hutchinson loss gradient through the wide K1 and K2 chain forms';
+    each launching those kernels and no other."""
+    rng = np.random.default_rng(4)
+    xs = rng.normal(size=(256, 21)).astype(np.float32)
+    ys = rng.choice([-1.414, -0.707, 0.0, 0.707, 1.414], size=(256, 1)).astype(np.float32)
+    eps = np.random.default_rng(5).normal(size=(1, 256, 42)).astype(np.float32)
+    ps_np = _np_params(COND_HEPMASS, 3)
+
+    def run(device, mode):
+        icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP(COND_HEPMASS, device=device), 21, 21, tspan=(0.0, 1.0),
+                              steer_rate=0.1, lam3=1e-2, compute_mode=tcnf.VecJacMode(fused=True))
+        ps = tcnf.params_from_numpy(ps_np, device)
+        y = torch.from_numpy(ys).to(device).requires_grad_()
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])] + [y]
+        lp = None
+        if mode == "test":
+            with torch.no_grad():
+                lp = tcnf.CondICNFDist(icnf, tcnf.Mode.TEST, ps, y.detach()).logpdf(xs).cpu()
+            l = tcnf.loss(icnf, tcnf.Mode.TEST, xs, ps, ys=y)
+        else:
+            l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=y, eps=eps, steer_r=0.05)
+        return lp, l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)]
+
+    wants = {"test": {tfs.K3W_KERNEL + "/cond": 2, tfs.K5W_KERNEL + "/cond": 1},
+             "train": {tfs.K1W_KERNEL + "/cond": 1, tfs.K2W_KERNEL + "/cond": 1}}
+    for mode, want in wants.items():
+        before = _launches()
+        lp_k, l_k, g_k = run(dev, mode)
+        after = _launches()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == want
+        lp_c, l_c, g_c = run(torch.device("cpu"), mode)
+        assert _close(l_k, l_c) and (lp_k is None or _close(lp_k, lp_c))
+        for a, b in zip(g_k, g_c):
+            assert _grad_close(a, b)
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["wide-K7-test-three-layer", "wide-K7-exact-two-layer", "wide-K4-adjoint", "K-probes", "jvp", "streamed",
+     "unconditional-instance"],
+)
+def test_wide_cond_refusals_raise_on_cuda(dev, case):
+    """What the kernels still refuse of conditional nets past the narrow
+    widths raises on the card, naming its ROADMAP row, and launches
+    nothing: wide K7 COND (the TEST and exact forwards), the wide K4
+    adjoint's COND instance, K probes and JVP probes in the wide forms, the
+    streamed forms' COND instances; the unconditional wide K1 chain form
+    takes no conditional chain."""
+    dims = {"wide-K7-test-three-layer": (10, 72, 72, 8), "streamed": (44, 860, 860, 43)}.get(case, COND_HEPMASS)
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    nc, dz, B = dims[0] - dims[-1], dims[-1], 64
+    ys = _cond_ys(B, nc, dev)
+    kw, adj = _train_args(dims, B, (0.0, 1.0), dev)
+    kw["ys"] = ys
+    if case == "K-probes":
+        kw["eps"] = torch.randn(2, B, dz, device=dev)
+    wrapper, why, call = {
+        "wide-K7-test-three-layer": ("run_wide_test_solve_kernel", tfs.COND_WIDE_K7,
+                                     dict(_kernel_args(dims, B, (0.0, 1.0), dev), ys=ys)),
+        "wide-K7-exact-two-layer": ("run_wide_exact_solve_kernel", tfs.COND_WIDE_K7,
+                                    {k: v for k, v in kw.items() if k != "eps"}),
+        "wide-K4-adjoint": ("run_wide_exact_adjoint_kernel", tfs.COND_WIDE_K4,
+                            dict({k: v for k, v in adj.items() if k != "eps"}, zT=kw["z0"], accT=kw["acc0"],
+                                 dt_init=torch.tensor(-0.05, device=dev), ys=ys)),
+        "K-probes": ("run_wide_cond_train_solve_kernel", tfs.COND_WIDE_PROBES, kw),
+        "jvp": ("run_wide_cond_train_solve_kernel", tfs.COND_WIDE_PROBES, dict(kw, jvp=True)),
+        "streamed": ("run_wide_cond_train_solve_kernel", tfs.COND_STREAM, kw),
+        "unconditional-instance": ("run_wide_train_solve_kernel", "unconditional instance", kw),
+    }[case]
+    tfs.reset_launches()
+    with pytest.raises(NotImplementedError) as err:
+        getattr(tfs, wrapper)(TSIT5, spec, **call)
+    assert why in str(err.value)
+    assert not any(w.launches for w in tfs.KERNEL_WRAPPERS.values())
+
+
 # ---- streamed K3 and K5, and the streamed chain forms to state width 128 ----
 
 MINIBOONE86 = (86, 258, 86)

@@ -276,7 +276,7 @@ _WIDE2_CASES = {
     "hepmass42": (HEPMASS, 0, None, None),
     "dz40": ((40, 48, 40), 0, None, None),
     "dz64-hidden128": ((64, 128, 64), 0, None, None),
-    "conditional-hepmass42": (HEPMASS, 1, None, "shape variants (d)"),
+    "conditional-hepmass42": (HEPMASS, 1, None, None),
     "dz66": ((66, 198, 66), 0, None, "state width 66 > 64"),
     "hidden129": ((42, 129, 42), 0, None, "hidden width 129 > 128"),
     "identity-output": (HEPMASS, 0, (True, False), "reference fault 2"),
@@ -285,11 +285,11 @@ _WIDE2_CASES = {
 
 @pytest.mark.parametrize("name", list(_WIDE2_CASES))
 def test_wide_two_layer_coverage(name):
-    """The wide 2-layer kernels take the unconditional 2-layer tanh nets to
-    dz 64 and hidden 128, and refuse conditional ones (ROADMAP queue 2,
-    shape variants (d)), wider ones ((e)) and identity layers (the JAX
-    package's 2-layer TEST and exact stages assume tanh layers: reference
-    fault 2)."""
+    """The wide 2-layer kernels take the 2-layer tanh nets to dz 64 and
+    hidden 128 (conditional ones in wide K3's and wide K5's COND instances),
+    and refuse wider ones (ROADMAP queue 2, shape variants (e)) and identity
+    layers (the JAX package's 2-layer TEST and exact stages assume tanh
+    layers: reference fault 2)."""
     dims, n_cond, acts, why = _WIDE2_CASES[name]
     msg = tfs._wide_two_layer_covers(TSIT5, _spec(dims, n_cond, acts))
     if why is None:
