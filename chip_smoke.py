@@ -117,7 +117,15 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     forms' (`fit`, four Lion steps); those chain-form instances on a
     conditional 3-layer chain (MLP 44 -> 128 -> 128 -> 43); and every
     conditional configuration still outside the kernels raising on the
-    card.
+    card;
+  * conditional exact training and conditional deep-chain serving past the
+    narrow widths (K8 in wide K7 and in the wide K4 adjoint):
+    cond_hepmass42 under exact trace, trained through wide K7 exact's and
+    the wide K4 adjoint's COND instances (the train step, `fit`, four Lion
+    steps), and the conditional 3-layer chain (MLP 44 -> 128 -> 128 -> 43,
+    B = 2048) served through wide K7 TEST's (`CondICNFDist.logpdf`,
+    `sample`) and trained under exact trace through wide K7 exact's, its
+    backward plain.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -515,11 +523,34 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      instances once each, the conditional `fit` for four Lion steps only
      those two, at least four times each; and each configuration still
      refused raising on the card, naming its ROADMAP row, with nothing
-     launched: the exact gradient (wide K7 COND), K probes and JVP probes,
-     the 3-layer chain's `logpdf` (wide K7 COND), a conditional net past the
-     wide limits (the streamed forms' COND instances), the wide K4 adjoint;
+     launched: K probes and JVP probes (K6 x K8), a conditional net past the
+     wide limits (the streamed forms' COND instances);
 102. CUDA-event times of the train step, `logpdf` and the TEST loss
-     gradient at cond_hepmass42, each beside hepmass42's in the same run.
+     gradient at cond_hepmass42, each beside hepmass42's in the same run;
+103. K8 in wide K7 and in the wide K4 adjoint: the launch shapes of wide K7
+     TEST's COND instance (the conditional 3-layer chain MLP 44 -> 128 ->
+     128 -> 43, B = 2048), wide K7 exact's (that chain and cond_hepmass42,
+     B = 4096) and the wide K4 adjoint's (cond_hepmass42), and ptxas's
+     registers, stack frame and spills of the three instances beside the
+     unconditional ones;
+104. wide K7 exact COND and, from its output with its last step as the warm
+     start, the wide K4 adjoint COND against their twins at cond_hepmass42
+     (equal steps, values within TOL; the gradients, W1's ys rows not zero,
+     and a_ys0 within GRAD_TOL; z0 and a_z0 held to the float64 twin), and
+     wide K7 TEST COND and exact COND on the 3-layer chain, each timed;
+105. cond_hepmass42's exact loss and gradients (params and ys) at B = 256
+     through the COND instances, the plain path and a float64 rtol 1e-7
+     solve, within SOLVE_REL;
+106. the main paths, counters reset just before each: cond_hepmass42's
+     exact train step (loss, gradient, Lion) launching wide K7 exact COND
+     and the wide K4 adjoint COND once each and nothing else, its exact
+     `fit` for four Lion steps only those two, at least four times each;
+     the 3-layer chain's `logpdf` and `sample(2048)` each wide K7 TEST COND
+     once (its logpdf within TOL of the plain path's), its exact loss
+     gradient wide K7 exact COND once (the backward plain);
+107. CUDA-event times, in the order a b b a: cond_hepmass42's exact train
+     step beside hepmass42's, the 3-layer chain's `logpdf` beside
+     miniboone43's (B = 2048), in the same run.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -4189,23 +4220,15 @@ def cond_wide(cnf, fs, dev):
           f"launches of {names['k3wc'][0]}, TEST loss gradient {n_test}, train step {n_step}, fit {n_fit}")
     small = slice(0, COND_TRUTH_BATCH)
     for label, why, fn in (
-        ("the exact gradient (wide K7 COND)", fs.COND_WIDE_K7,
-         lambda: loss_grad(cnf, model(exact=True), ps_np, xs[small], dev, ys=ys[small], **steer)),
         ("K = 2 probes", fs.COND_WIDE_PROBES,
          lambda: loss_grad(cnf, model(num_probes=2), ps_np, xs[small], dev, ys=ys[small], **steer)),
         ("JVP probes", fs.COND_WIDE_PROBES,
          lambda: loss_grad(cnf, model(ad="jvp"), ps_np, xs[small], dev, ys=ys[small], **steer)),
-        ("the 3-layer conditional chain's logpdf (wide K7 COND)", fs.COND_WIDE_K7,
-         lambda: cnf.CondICNFDist(icnf_c, cnf.Mode.TEST, cnf.params_from_numpy(ps_c, dev), ys_c[small]).logpdf(
-             xs_c[small])),
         ("a conditional net past the wide limits (MLP 87 -> 258 -> 86)", fs.COND_STREAM,
          lambda: loss_grad(cnf, cnf.construct(cnf.CondRNODE, cnf.MLP((87, 258, 86), device=dev), 43, 43,
                                               tspan=(0.0, 1.0), compute_mode=cnf.VecJacMode(fused=True)),
                            glorot_params(np.random.default_rng(SEED + 905), (87, 258, 86)), xs_c[small, :43], dev,
                            ys=ys[small])),
-        ("the wide K4 adjoint", fs.COND_WIDE_K4,
-         lambda: fs.run_wide_exact_adjoint_kernel(
-             TSIT5, spec, **dict({k: v for k, v in adjoint_kw(train, runs["k1wc"][0], cot).items() if k != "eps"}))),
     ):
         refuses(fs, label, why, fn)
 
@@ -4247,6 +4270,250 @@ def cond_wide(cnf, fs, dev):
         name, _, _, src, at = names[key]
         records.append(kernel_record(f"{name}/chain3", src, at, n_c[name], err, ms, pms, fma_c[key], Bc,
                                      steps_of(out)[0], floats_c[key], accepted=steps_of(out)[1]))
+    return records
+
+
+# ---- K8 in wide K7 and in the wide K4 adjoint: conditional exact training and deep-chain serving ----
+
+
+def cond_exact_names(fs):
+    """The conditional exact and deep-chain paths' kernels: record key ->
+    (KERNEL_WRAPPERS name, wrapper, twin, source, the TPU site)."""
+    at = "continuousnf_tpu/ops/fused_solve.py:"
+    return {
+        "k7tc": (fs.K7W_KERNEL + "/test/cond", fs.run_wide_cond_test_solve_kernel, fs.solve_test_plain,
+                 "k7_wide_solve.cu", at + "1043"),
+        "k7ec": (fs.K7W_KERNEL + "/exact/cond", fs.run_wide_cond_exact_solve_kernel, fs.solve_train_exact_plain,
+                 "k7_wide_solve.cu", at + "1043"),
+        "k4wc": (fs.K4WA_KERNEL + "/cond", fs.run_wide_cond_exact_adjoint_kernel, fs.adjoint_train_exact_plain,
+                 "k4_wide_adjoint.cu", at + "1767"),
+    }
+
+
+def cond_exact_fma_floats(dims, nc, B):
+    """FMA per sample and field evaluation and the floats read and written of
+    the COND instances of wide K7 (TEST and exact, `chain_fma` with the ys
+    rows in the forward) and, for a 2-layer net, of the wide K4 adjoint (the
+    unconditional count and 3 nc H: the ys rows in the forward, k_ays and
+    their gradient rows), the ys values and a_ys0 among the floats."""
+    dz, H = dims[-1], dims[1]
+    P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    chain = chain_fma(dims, nc)
+    fma = {"k7tc": chain["k7t"], "k7ec": chain["k7e"]}
+    floats = {"k7tc": P + B * (2 * dz + 2 + nc), "k7ec": P + B * (2 * dz + 6 + nc)}
+    if len(dims) == 3:
+        fma["k4wc"] = two_layer_fma(dz, H)["k4a"] + 3 * nc * H
+        floats["k4wc"] = 2 * P + dz * dz * H + B * (4 * dz + 9 + 2 * nc)
+    return fma, floats
+
+
+def ptxas_report(log, part):
+    """{entry function: its registers, stack frame and spill bytes} of the
+    entry functions in a ptxas -v log whose mangled names hold `part`."""
+    import re
+
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props is not None and part in props:
+            out.setdefault(props, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None and part in entry:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
+def cond_wide_exact(cnf, fs, dev, built):
+    """Phases 103 to 107: cond_hepmass42 (CondRNODE, MLP 43 -> 126 -> 42 on
+    [z | ys]) under exact trace through the COND instances of wide K7 exact
+    and the wide K4 adjoint (K8 in wide K7 and in the wide K4 adjoint), and
+    the conditional 3-layer chain MLP 44 -> 128 -> 128 -> 43 served through
+    wide K7 TEST's COND instance and trained under exact trace through wide
+    K7 exact's (its backward plain).  `built`: the build's {kernel: (library,
+    nvcc log)}.  Returns the records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    cfg = MODELS["cond_hepmass42"]
+    dims, nc, B = cfg["dims"], cfg["n_cond"], BATCH
+    rng = np.random.default_rng(SEED + 1000)
+    ps_np = glorot_params(rng, dims)
+    xs_np, ys_np = model_data("cond_hepmass42", rng, B)
+    xs, ys = torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    model = lambda **kw: make_icnf("cond_hepmass42", dev, exact=True, **kw)  # noqa: E731
+    icnf_k, icnf_p = model(), model(fused=False)
+    spec = fs.chain_spec(icnf_k.nn, icnf_k.zdim)
+    check(spec.n_cond == nc and fs._wide_two_layer(spec) and fs._wide_two_layer_covers(TSIT5, spec) is None,
+          "cond_hepmass42 should run the COND instances of wide K7 exact and the wide K4 adjoint")
+    names = cond_exact_names(fs)
+    T = lambda a: torch.from_numpy(np.asarray(a, "float32")).to(dev)  # noqa: E731
+    Bc, dims_c = COND_CHAIN_BATCH, COND_CHAIN_DIMS
+    rng_c = np.random.default_rng(SEED + 1001)
+    ps_c = glorot_params(rng_c, dims_c)
+    xs_c = torch.from_numpy(model_data("miniboone43", rng_c, Bc)).to(dev)
+    ys_c = T(rng_c.uniform(-1.0, 1.0, (Bc, 1)))
+    chain = lambda **kw: cnf.construct(cnf.CondRNODE, cnf.MLP(dims_c, device=dev), 43, 0, tspan=(0.0, 1.0),  # noqa
+                                       compute_mode=cnf.VecJacMode(**kw))
+    icnf_c, icnf_cp, icnf_ce = chain(fused=True), chain(fused=False), chain(fused=True, exact_trace=True)
+    spec_c = fs.chain_spec(icnf_c.nn, icnf_c.zdim)
+    check(fs._wide_chain(spec_c) and fs._kernel_covers(TSIT5, spec_c, chain=True) is None,
+          "the conditional 3-layer chain should run wide K7's COND instances")
+
+    # Phase 103: the launch shapes at the paths' batches; ptxas's registers,
+    # stack frame and spills of the COND instances beside the unconditional.
+    for lib_name, fn, widths, b in ((fs.K7W_KERNEL, "cnf_k7wc_test_shape", dims_c, Bc),
+                                    (fs.K7W_KERNEL, "cnf_k7wc_exact_shape", dims, B),
+                                    (fs.K7W_KERNEL, "cnf_k7wc_exact_shape", dims_c, Bc),
+                                    (fs.K4WA_KERNEL, "cnf_k4wc_shape", dims, B)):
+        n_out = 5 if fn == "cnf_k4wc_shape" else 4
+        out = (ctypes.c_int * n_out)()
+        err = getattr(fs._library(lib_name), fn)(len(widths) - 1, (ctypes.c_int * len(widths))(*widths), b, out)
+        check(err == 0 and out[1] >= 1, f"{fn} at {widths}: cudaError {err}")
+        tile = f"{out[2]} samples a tile, {out[3]} basis rows a chunk" if n_out == 5 else f"{out[2]} basis rows a chunk"
+        print(f"phase 103: {fn} at widths {widths}, B={b}: {out[0]} threads a block, {out[1]} blocks, {tile}, "
+              f"{out[n_out - 1]} bytes of dynamic shared memory")
+    for lib_name, parts in ((fs.K7W_KERNEL, ("18k7_wide_cond_solve", "13k7_wide_solve")),
+                            (fs.K4WA_KERNEL, ("20k4_wide_cond_adjoint", "15k4_wide_adjoint"))):
+        log = built.get(lib_name, (None, ""))[1]
+        for part in parts:
+            found = ptxas_report(log, part)
+            if not found:
+                print(f"phase 103: {part[2:]}: no ptxas lines (the library was not compiled by this process)")
+            for fn, r in found.items():
+                print(f"phase 103: ptxas {part[2:]} ({'TEST' if 'ILi1E' in fn else 'exact' if 'ILi3E' in fn else 'one'}"
+                      f" entry): {r.get('registers')} registers, {r.get('stack')} bytes stack frame, "
+                      f"{r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} bytes spill loads")
+
+    # Phase 104: each COND instance against its twin, timed.
+    _, _, exact, cot = kernel_inputs(icnf_k, ps, xs, rng, dev)
+    exact["ys"] = ys
+    runs = {"k7ec": run_pair(f"{names['k7ec'][0]} (cond_hepmass42)", names["k7ec"][1], names["k7ec"][2], TSIT5,
+                             spec, exact)}
+    runs["k4wc"] = run_pair(f"{names['k4wc'][0]} (cond_hepmass42)", names["k4wc"][1], names["k4wc"][2], TSIT5, spec,
+                            adjoint_kw(exact, runs["k7ec"][0], cot), adjoint=True, reps=3)
+    out = runs["k4wc"][0]
+    check(len(out) == 8 and tuple(out[7].shape) == (B, nc) and float(out[3][0][dims[-1]:].abs().max()) > 0.0,
+          f"{names['k4wc'][0]} returned no a_ys0 or a zero gradient for W1's ys rows")
+    ps_ct = cnf.params_from_numpy(ps_c, dev)
+    test_c, _, exact_c, _ = kernel_inputs(icnf_c, ps_ct, xs_c, rng_c, dev)
+    test_c["ys"], exact_c["ys"] = ys_c, ys_c
+    runs_c = {key: run_pair(f"{names[key][0]} (3-layer, B={Bc})", names[key][1], names[key][2], TSIT5, spec_c, kw,
+                            reps=3) for key, kw in (("k7tc", test_c), ("k7ec", exact_c))}
+    print("phase 104: the COND instances of wide K7 and the wide K4 adjoint held to their twins")
+
+    # Phase 105: cond_hepmass42's exact loss and gradients (params and ys) at
+    # B = 256 against the plain path and a float64 rtol 1e-7 solve.
+    b = COND_TRUTH_BATCH
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    steer = {"steer_r": 0.05}
+    want = {names["k7ec"][0]: 1, names["k4wc"][0]: 1}
+    fs.reset_launches()
+    l_k, g_k, _ = loss_grad(cnf, icnf_k, ps_np, xs[:b], dev, ys=ys[:b], **steer)
+    torch.cuda.synchronize()
+    check(launched(fs) == want, f"cond_hepmass42 exact gradient launched {launched(fs)}, expected {want}")
+    l_p, g_p, _ = loss_grad(cnf, icnf_p, ps_np, xs[:b], dev, ys=ys[:b], **steer)
+    l_t, g_t, _ = loss_grad(cnf, model(fused=False, dtype=torch.float64, solver=truth), ps_np, xs[:b], dev,
+                            torch.float64, ys=ys[:b], **steer)
+    torch.cuda.synchronize()
+    hold_gradients(f"cond_hepmass42 exact B={b}", l_k, g_k, l_p, g_p, l_t, g_t, names=["w1", "b1", "w2", "b2", "ys"])
+    print("phase 105: cond_hepmass42 exact gradients held to the float64 solve")
+
+    # Phase 106: the main paths, counters reset just before each: the exact
+    # train step and the exact `fit` (wide K7 exact COND and the wide K4
+    # adjoint COND), the 3-layer chain's logpdf and sample (wide K7 TEST
+    # COND) and its exact step (wide K7 exact COND, the backward plain).
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1002)
+    p = cnf.params_from_numpy(ps_np, dev)
+    leaves = [x.requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
+    step = cnf.parallel.make_train_step_body(icnf_k, cnf.Lion(leaves, lr=1e-3))
+    fs.reset_launches()
+    metrics = step(p, xs, gen, ys=ys)
+    torch.cuda.synchronize()
+    n_step = launched(fs)
+    check(n_step == want and bool(torch.isfinite(metrics["loss"])) and all(bool(torch.isfinite(x).all())
+                                                                            for x in leaves),
+          f"cond_hepmass42 exact train step launched {n_step}, loss {float(metrics['loss'])}")
+    X, Y = model_data("cond_hepmass42", rng, N_STEPS * B)
+    fit_path(cnf, fs, icnf_k, ps_np, dev, X, Y, batch_size=B)
+    n_fit = launched(fs)
+    check(set(n_fit) == set(want) and min(n_fit.values()) >= N_STEPS, f"cond_hepmass42 exact fit launched {n_fit}")
+    dist_c = cnf.CondICNFDist(icnf_c, cnf.Mode.TEST, ps_ct, ys_c)
+    n_serve = {}
+    for what, call in (("logpdf", lambda: dist_c.logpdf(xs_c)),
+                       ("sample", lambda: dist_c.sample(Bc, generator=torch.Generator(device=dev).manual_seed(
+                           SEED + 1003)))):
+        fs.reset_launches()
+        with torch.no_grad():
+            out = call()
+        torch.cuda.synchronize()
+        n = launched(fs)
+        check(n == {names["k7tc"][0]: 1} and bool(torch.isfinite(out).all()), f"3-layer chain {what} launched {n}")
+        n_serve[what] = n[names["k7tc"][0]]
+    with torch.no_grad():
+        lp_k, _, st_k = cnf.inference(icnf_c, cnf.Mode.TEST, xs_c, ps_ct, ys=ys_c)
+        lp_p, _, st_p = cnf.inference(icnf_cp, cnf.Mode.TEST, xs_c, ps_ct, ys=ys_c)
+    dlp = float((lp_k - lp_p).abs().max())
+    check(dlp <= TOL * max(1.0, float(lp_p.abs().max())), f"3-layer chain logpdf differs from the plain path by {dlp}")
+    print(f"phase 106: 3-layer chain logpdf B={Bc}: max|dlogp| against the plain path {dlp:.3e}, steps "
+          f"{int(st_k.steps)} (plain {int(st_p.steps)}; the kernel is held to its twin in phase 104)")
+    fs.reset_launches()
+    l_c, g_c, _ = loss_grad(cnf, icnf_ce, ps_c, xs_c, dev, ys=ys_c, **steer)
+    torch.cuda.synchronize()
+    n_c = launched(fs)
+    check(n_c == {names["k7ec"][0]: 1} and all(bool(torch.isfinite(g).all()) for g in g_c),
+          f"the 3-layer chain's exact step launched {n_c}")
+    print(f"phase 106: cond_hepmass42 exact train step launched {n_step}, exact fit {n_fit}; 3-layer chain logpdf "
+          f"and sample {n_serve}, exact step {n_c} (loss {float(l_c):.6f}, the backward plain)")
+
+    # Phase 107: CUDA-event times beside hepmass42's exact step and
+    # miniboone43's logpdf, in the same run (a, b, b, a).
+    rng_h = np.random.default_rng(SEED + 400)
+    ps_h = glorot_params(rng_h, MODELS["hepmass42"]["dims"])
+    xs_h = torch.from_numpy(model_data("hepmass42", rng_h, B)).to(dev)
+    icnf_h = make_icnf("hepmass42", dev, exact=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1004)
+    a1 = step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 3, ys=ys)
+    b1 = step_ms(cnf, icnf_h, ps_h, xs_h, gen, dev, 3)
+    b2 = step_ms(cnf, icnf_h, ps_h, xs_h, gen, dev, 3)
+    a2 = step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 3, ys=ys)
+    ms_c, ms_h = (a1 + a2) / 2, (b1 + b2) / 2
+    print(f"phase 107: exact train step B={B}: cond_hepmass42 {ms_c:.4f} ms ({B / ms_c * 1e3:.1f} samples/s), "
+          f"hepmass42 {ms_h:.4f} ms ({B / ms_h * 1e3:.1f} samples/s); ratio {ms_c / ms_h:.3f}")
+    rng_m = np.random.default_rng(SEED + 1005)
+    ps_m = cnf.params_from_numpy(glorot_params(rng_m, MODELS["miniboone43"]["dims"]), dev)
+    xs_m = torch.from_numpy(model_data("miniboone43", rng_m, Bc)).to(dev)
+    dist_m = cnf.ICNFDist(make_icnf("miniboone43", dev), cnf.Mode.TEST, ps_m)
+    with torch.no_grad():
+        _, _, st_m = cnf.inference(dist_m.icnf, cnf.Mode.TEST, xs_m, ps_m)
+        lp_c, lp_m = paired_ms(lambda: dist_c.logpdf(xs_c), lambda: dist_m.logpdf(xs_m), 3)
+    print(f"phase 107: logpdf B={Bc}: the 3-layer conditional chain {lp_c:.4f} ms ({int(st_k.steps)} steps, "
+          f"{lp_c * 1e3 / int(st_k.steps):.1f} us a step), miniboone43 {lp_m:.4f} ms ({int(st_m.steps)} steps, "
+          f"{lp_m * 1e3 / int(st_m.steps):.1f} us a step); ratio {lp_c / lp_m:.3f}")
+
+    records = []
+    fma, floats = cond_exact_fma_floats(dims, nc, B)
+    launches = {"k7ec": n_fit[names["k7ec"][0]], "k4wc": n_fit[names["k4wc"][0]]}
+    for key, (out, err, ms, pms) in runs.items():
+        name, _, _, src, at = names[key]
+        records.append(kernel_record(name, src, at, launches[key], err, ms, pms, fma[key], B, steps_of(out)[0],
+                                     floats[key], accepted=steps_of(out)[1]))
+    fma_c, floats_c = cond_exact_fma_floats(dims_c, 1, Bc)
+    launches_c = {"k7tc": n_serve["logpdf"] + n_serve["sample"], "k7ec": n_c[names["k7ec"][0]]}
+    for key, (out, err, ms, pms) in runs_c.items():
+        name, _, _, src, at = names[key]
+        records.append(kernel_record(name if key == "k7tc" else f"{name}/chain3", src, at, launches_c[key], err, ms,
+                                     pms, fma_c[key], Bc, steps_of(out)[0], floats_c[key], accepted=steps_of(out)[1]))
     return records
 
 
@@ -4327,7 +4594,8 @@ def main() -> int:
                          ("79-86", lambda: stream_two_layer(cnf, fs, dev)),
                          ("87-90", lambda: stream_exact(cnf, fs, dev)),
                          ("91-96", lambda: stream_probe_paths(cnf, fs, dev)),
-                         ("97-102", lambda: cond_wide(cnf, fs, dev))):
+                         ("97-102", lambda: cond_wide(cnf, fs, dev)),
+                         ("103-107", lambda: cond_wide_exact(cnf, fs, dev, built))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

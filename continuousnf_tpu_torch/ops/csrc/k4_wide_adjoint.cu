@@ -61,6 +61,23 @@
 // basis-row passes and that rewrite take comparable shares of a step that
 // runs at 20x the FMA bound.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The COND instance (K8 in the wide K4 adjoint): _stage_train_exact_fwdbwd
+// of a conditional 2-layer net, whose W1 reads [z | ys] (:618-675 with
+// _zin :265).  The forward adds W1's ys rows to the pre-activation of h
+// (two_layer_forward_cond, from the tile's (T, nc) ys rows, read from global
+// memory at each evaluation); the m rows, ct_m and g_pm read W1's z rows
+// only (pm is built from them), so the ys rows of W1's gradient are
+// ys (x) ct_pre1 alone, and after the solve g_pm chains into W1's z rows
+// (its ys rows get zeros, :1787-1799).  Each sample's a_ys integrates
+// k_ays = -(W1's ys rows ct_pre1) (wide_ys_cotangent) in the tile solve's
+// COND form (adjoint_solve_tiles): from 0 at t_hi, combined like a_z,
+// inside the one batch-global norm, a_ys0 (B, nc) returned.  At
+// cond_hepmass42 (43 -> 126 -> 42, one ys column) that is 3 x 126 FMA a
+// sample and evaluation beside the stage's 699 k; the tile's ys rows and
+// k_ays take 2 nc floats a row more (205,488 bytes of shared memory at
+// T = 32, R = 64).  Its launch shape and entry are cnf_k4wc_shape and
+// cnf_k4w_cond_exact_adjoint.
 
 #include "two_layer_wide.cuh"
 
@@ -121,10 +138,22 @@ __device__ inline TileArrays tile_arrays(const WideLayout& L, int T, int R, floa
   return a;
 }
 
+// A COND stage's conditioning: ys (B, nc) in global memory and the tile's
+// (T, nc) rows in shared memory; nothing in an unconditional stage.
+template <bool COND>
+struct CondRows {};
+template <>
+struct CondRows<true> {
+  const float* ys;
+  float* YS;
+};
+
 // One augmented stage of a tile (fused_solve.py::_stage_train_exact_fwdbwd
-// with ct_y = a_z, ct_r = a_acc): KZ = y, KR = the rates, KAZ = -ct_z; the
-// residuals of the gradient pass left in the tile arrays and ct_m in mb.
-struct WideExactAdjStage {
+// with ct_y = a_z, ct_r = a_acc): KZ = y, KR = the rates, KAZ = -ct_z (and,
+// COND, KYS = k_ays); the residuals of the gradient pass left in the tile
+// arrays and ct_m in mb.
+template <bool COND>
+struct WideExactAdjStage : CondRows<COND> {
   const WideLayout* L;
   const float* w;      // the shared weight region
   const float* aaccT;  // (3, B)
@@ -132,15 +161,20 @@ struct WideExactAdjStage {
   TileArrays a;
   int B, T, R, norm_z, norm_j;
 
-  __device__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR,
-                             float* KAZ) const {
+  __device__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR, float* KAZ,
+                             [[maybe_unused]] float* KYS = nullptr) const {
     const WideLayout& c = *L;
     const int dz = c.dz, zp = c.zp, H = c.width[1], hp = c.hp[1], bp = chunk_pitch(c);
     const int p0 = c.pitch[0], p1 = c.pitch[1];
     const float* w1 = w + c.wofs[0];
     const float* w2 = w + c.wofs[1];
     const int rows = T * dz;
-    cnf::two_layer_forward(c, w, Z, T, a.HS, a.DH, KZ, a.DY);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::wide_nc(c), s0, nv, T, this->YS);
+      cnf::two_layer_forward_cond(c, w, Z, this->YS, T, a.HS, a.DH, KZ, a.DY);
+    } else {
+      cnf::two_layer_forward(c, w, Z, T, a.HS, a.DH, KZ, a.DY);
+    }
     for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
       const int t = idx / dz, i = idx % dz;
       a.S[t * zp + i] = 0.f;
@@ -244,13 +278,15 @@ struct WideExactAdjStage {
       a.CA[i] = (x + (-2.f * a.HS[i]) * a.CA[i]) * a.DH[i];
     });
     cnf::tile_mm_t(a.CA, hp, H, w1, p0, dz, T, [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+    if constexpr (COND) cnf::wide_ys_cotangent(c, w, a.CA, T, KYS);
   }
 };
 
 // The tile's sum over its first nv rows of the negated gradient rate of the
-// stage just evaluated, entry q of [W1 (dz, H) | b1 | W2 (H, dz) | b2 |
-// pm (dz^2, H)].
-struct WideExactGrad {
+// stage just evaluated, entry q of [W1 (dz + nc, H) | b1 | W2 (H, dz) | b2 |
+// pm (dz^2, H)] (W1's ys rows, COND, ys (x) ct_pre1).
+template <bool COND>
+struct WideExactGrad : CondRows<COND> {
   const WideLayout* L;
   const float* Z;   // the solver's stage input z
   const float* mb;  // this block's ct_m rows
@@ -261,11 +297,18 @@ struct WideExactGrad {
     const int dz = c.dz, H = c.width[1], zp = c.zp, hp = c.hp[1];
     const int o1 = c.pofs[1], P = c.P;
     float v = 0.f;
+    if constexpr (COND) {
+      if (q >= dz * H && q < c.width[0] * H) {
+        const int nc = c.width[0] - dz, k = q / H - dz, o = q % H;
+        for (int t = 0; t < nv; ++t) v = fmaf(this->YS[t * nc + k], a.CA[t * hp + o], v);
+        return -v;
+      }
+    }
     if (q < dz * H) {
       const int k = q / H, o = q % H;
       for (int t = 0; t < nv; ++t) v = fmaf(Z[t * zp + k], a.CA[t * hp + o], v);
     } else if (q < o1) {
-      const int o = q - dz * H;
+      const int o = q - (COND ? c.width[0] : dz) * H;
       for (int t = 0; t < nv; ++t) v += a.CA[t * hp + o];
     } else if (q < o1 + H * dz) {
       const int h = (q - o1) / dz, i = (q - o1) % dz;
@@ -296,14 +339,64 @@ __global__ void __launch_bounds__(kWideBlock, 1) k4_wide_adjoint(const AdjArgs p
   float* mb = p.mbuf + (size_t)blockIdx.x * T * L.dz * L.dz;
   cnf::load_wide_weights(p.params, L, w);
   __syncthreads();
-  const WideExactAdjStage stage{&L, w, p.s.aaccT, mb, arrays, p.s.B, T, R, p.norm_z, p.norm_j};
-  const WideExactGrad grad{&L, scratch, mb, arrays};
+  const WideExactAdjStage<false> stage{{}, &L, w, p.s.aaccT, mb, arrays, p.s.B, T, R, p.norm_z, p.norm_j};
+  const WideExactGrad<false> grad{{}, &L, scratch, mb, arrays};
   const int Pt = L.P + L.dz * L.dz * L.width[1];
   cnf::adjoint_solve_tiles<kStageUnroll>(p.s, stage, grad, Pt, T, scratch, p.gblk, p.g, p.gnew, red);
 }
 
+// Dynamic shared memory: the weights, the reduction slots, the tile arrays
+// and, in the COND instance, k_ays and the tile's ys rows (2 T nc).
 size_t smem_bytes(const WideLayout& L, int T, int R) {
-  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + tile_floats(L, T, R));
+  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + tile_floats(L, T, R) + (size_t)2 * T * cnf::wide_nc(L));
+}
+
+// The COND instance's arguments: the unconditional instance's and the
+// conditioning ys (B, nc).
+struct CondAdjArgs {
+  AdjArgs a;
+  const float* ys;
+};
+
+// One block an SM, as the unconditional instance.
+__global__ void __launch_bounds__(kWideBlock, 1) k4_wide_cond_adjoint(const __grid_constant__ CondAdjArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ WideLayout L;
+  const AdjArgs& p = ca.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T, R = p.R, nc = cnf::wide_nc(L);
+  float* w = smem;
+  float* red = w + L.wfloats;
+  float* scratch = red + kRedFloats;  // the solver's Z, AZ, KZ, KAZ, KR and KYS (T, nc)
+  const TileArrays arrays = tile_arrays(L, T, R, scratch + T * (4 * L.zp + 3 + nc));
+  float* YS = arrays.TB + R * chunk_pitch(L);  // the tile's ys rows (T, nc)
+  float* mb = p.mbuf + (size_t)blockIdx.x * T * L.dz * L.dz;
+  cnf::load_wide_weights(p.params, L, w);
+  __syncthreads();
+  const WideExactAdjStage<true> stage{{ca.ys, YS}, &L, w, p.s.aaccT, mb, arrays, p.s.B, T, R, p.norm_z, p.norm_j};
+  const WideExactGrad<true> grad{{ca.ys, YS}, &L, scratch, mb, arrays};
+  cnf::adjoint_solve_tiles<kStageUnroll, false, 3, true>(p.s, stage, grad, L.P + L.dz * L.dz * L.width[1], T,
+                                                           scratch, p.gblk, p.g, p.gnew, red);
+}
+
+// The launch shape of `kernel` at batch B, as cnf_k4w_shape describes it.
+template <class Kernel>
+int adjoint_shape(Kernel kernel, const WideLayout& L, int B, int* out) {
+  size_t smem[kOptions];
+  int index[kOptions];
+  for (int o = 0; o < kOptions; ++o) {
+    smem[o] = smem_bytes(L, kTiles[o], kChunks[o]);
+    index[o] = o;
+  }
+  int got[4];
+  const int err = cnf::wide_shape(kernel, smem, kTiles, index, kOptions, B, got);
+  if (err != (int)cudaSuccess) return err;
+  out[0] = got[0];
+  out[1] = got[1];
+  out[2] = kTiles[got[2]];
+  out[3] = kChunks[got[2]];
+  out[4] = got[3];
+  return err;
 }
 
 }  // namespace
@@ -316,21 +409,7 @@ size_t smem_bytes(const WideLayout& L, int T, int R) {
 extern "C" int cnf_k4w_shape(int n, const int* widths, int B, int* out) {
   WideLayout L;
   if (B < 1 || n != 2 || !cnf::make_wide_layout(n, widths, &L)) return (int)cudaErrorInvalidValue;
-  size_t smem[kOptions];
-  int index[kOptions];
-  for (int o = 0; o < kOptions; ++o) {
-    smem[o] = smem_bytes(L, kTiles[o], kChunks[o]);
-    index[o] = o;
-  }
-  int got[4];
-  const int err = cnf::wide_shape(k4_wide_adjoint, smem, kTiles, index, kOptions, B, got);
-  if (err != (int)cudaSuccess) return err;
-  out[0] = got[0];
-  out[1] = got[1];
-  out[2] = kTiles[got[2]];
-  out[3] = kChunks[got[2]];
-  out[4] = got[3];
-  return err;
+  return adjoint_shape(k4_wide_adjoint, L, B, out);
 }
 
 // params: [W1 | b1 | W2 | b2] flat (device); g: P_total = P + dz^2 H floats,
@@ -362,4 +441,48 @@ extern "C" int cnf_k4w_exact_adjoint(const float* params, const float* zT, const
   a.T = T;
   a.R = R;
   return (int)cnf::coop_launch(k4_wide_adjoint, a, grid, block, smem_bytes(a.L, T, R), (cudaStream_t)stream);
+}
+
+// The COND instance's launch shape (K8), as cnf_k4w_shape; widths[0] =
+// dz + nc with nc >= 1.
+extern "C" int cnf_k4wc_shape(int n, const int* widths, int B, int* out) {
+  WideLayout L;
+  if (B < 1 || n != 2 || !cnf::make_wide_layout(n, widths, &L, true)) return (int)cudaErrorInvalidValue;
+  return adjoint_shape(k4_wide_cond_adjoint, L, B, out);
+}
+
+// The COND instance (K8): as cnf_k4w_exact_adjoint for a conditional net,
+// with ys (B, nc) (device) and ays0 (B, nc), nc = widths[0] - widths[2] >= 1,
+// the cotangent of ys at t_lo; params and g hold W1's ys rows after its z
+// rows (g_pm: W1's z rows only); work: (S + 2) (2 dz + 3 + nc) B floats;
+// T, R, grid, block from cnf_k4wc_shape.
+extern "C" int cnf_k4w_cond_exact_adjoint(const float* params, const float* ys, const float* zT, const float* accT,
+                                          const float* azT, const float* aaccT, const float* ts, float* z0,
+                                          float* acc0, float* az0, float* ays0, float* g, int* stats, float* work,
+                                          float* partials, float* gblk, float* gnew, float* mbuf, int B, int n,
+                                          const int* widths, int acts, int max_steps, int norm_z, int norm_j,
+                                          float rtol, float atol, float beta1, float beta2, float inv_order,
+                                          const float* tab, int T, int R, int grid, int block, void* stream) {
+  CondAdjArgs ca = {};
+  AdjArgs& a = ca.a;
+  if (block != kWideBlock || grid < 1 || T < cnf::kRows || T % cnf::kRows != 0 || R < cnf::kRows ||
+      R % cnf::kRows != 0 || ys == nullptr || ays0 == nullptr || !cnf::make_wide_layout(n, widths, &a.L, true) ||
+      !cnf::two_layer_tanh(a.L, acts))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, nullptr, B, widths[n],
+                     max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.s.nc = cnf::wide_nc(a.L);
+  a.s.ays0 = ays0;
+  a.params = params;
+  a.g = g;
+  a.gnew = gnew;
+  a.gblk = gblk;
+  a.mbuf = mbuf;
+  a.norm_z = norm_z;
+  a.norm_j = norm_j;
+  a.T = T;
+  a.R = R;
+  ca.ys = ys;
+  return (int)cnf::coop_launch(k4_wide_cond_adjoint, ca, grid, block, smem_bytes(a.L, T, R),
+                               (cudaStream_t)stream);
 }

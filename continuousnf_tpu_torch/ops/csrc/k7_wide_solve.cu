@@ -42,6 +42,19 @@
 // rate.  The tile products read 8 weights and 8 float4 input broadcasts per
 // 64 FMA from shared memory: shared-memory issue and latency bound them.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The COND instances (K8 in wide K7): the TEST and exact entries for a
+// conditional chain, whose first layer reads [z | ys] (_stage_exact_chain
+// and _stage_train_exact_chain with _zin :265; the basis push reads W0's z
+// rows only, :701).  The ys values (B, nc) are constant over the solve: at
+// each evaluation the block reads its tile's rows into a (T, nc) array and
+// the forward adds layer 0's ys rows (kept after its z rows) to the
+// pre-activation (wide_forward_cond); the basis push is the unconditional
+// one, the Jacobian being in z.  At cond_hepmass42 (43 -> 126 -> 42, one ys
+// column) that is 126 more FMA a sample and evaluation beside the exact
+// push's 222 k; at the 3-layer chain 44 -> 128 -> 128 -> 43, 128 beside
+// TEST's 0.74 M.  Their launch shapes and entries are cnf_k7wc_test_shape,
+// cnf_k7wc_exact_shape, cnf_k7w_cond_test_solve and cnf_k7w_cond_exact_solve.
 
 #include "chain_wide.cuh"
 
@@ -76,10 +89,20 @@ __host__ __device__ inline size_t tile_floats(const WideLayout& L, int R) {
   return (size_t)T * (2 * L.zp + NACC) + (size_t)T * (L.hsum + L.zp + 3) + 2 * (size_t)R * basis_pitch(L) + 2 * R;
 }
 
+// A COND field's conditioning: ys (B, nc) in global memory and the tile's
+// (T, nc) rows in shared memory; nothing in an unconditional field.
+template <bool COND>
+struct CondRows {};
+template <>
+struct CondRows<true> {
+  const float* ys;
+  float* YS;
+};
+
 // The exact field of a tile: KY = y; KR = [-tr] (NACC = 1) or
 // [-tr, ||y||, ||J||_F] (NACC = 3) per row.
-template <int NACC>
-struct WideExactField {
+template <int NACC, bool COND>
+struct WideExactField : CondRows<COND> {
   const WideLayout* L;
   const float* w;  // the shared weight region
   float* HB;       // the tile's hidden block: activations, then gates
@@ -91,10 +114,16 @@ struct WideExactField {
   float* rowf2;    // (R): its squared norm
   int R, norm_z, norm_j;
 
-  __device__ void operator()(int, int, const float* Z, float* KY, float* KR) const {
+  __device__ void operator()([[maybe_unused]] int s0, [[maybe_unused]] int nv, const float* Z, float* KY,
+                             float* KR) const {
     const WideLayout& c = *L;
     const int n = c.n, dz = c.dz, zp = c.zp, T = kTileSamples, bp = basis_pitch(c);
-    cnf::wide_forward(c, w, Z, T, HB, KY);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::wide_nc(c), s0, nv, T, this->YS);
+      cnf::wide_forward_cond(c, w, Z, this->YS, T, HB, KY);
+    } else {
+      cnf::wide_forward(c, w, Z, T, HB, KY);
+    }
     for (int l = 1; l < n; ++l) {
       float* d = cnf::level(c, HB, T, l);
       const int wl = c.width[l], hp = c.hp[l], on = c.act[l - 1];
@@ -206,38 +235,80 @@ __global__ void __launch_bounds__(kWideBlock) k7_wide_solve(const Args p) {
   float* rowf2 = rowtr + R;
   cnf::load_wide_weights(p.params, L, w);
   __syncthreads();
-  const WideExactField<NACC> field{&L, w, HB, DY, acc, ta, tb, rowtr, rowf2, R, p.f.norm_z, p.f.norm_j};
+  const WideExactField<NACC, false> field{{}, &L, w, HB, DY, acc, ta, tb, rowtr, rowf2, R, p.f.norm_z, p.f.norm_j};
   cnf::forward_solve_tiles<NACC, kStageUnroll>(p.f, field, T, scratch, red);
 }
 
+// Dynamic shared memory: the weights, the reduction slots, the tile arrays
+// and, in a COND instance, the tile's ys rows (T, nc).
 template <int NACC>
 size_t smem_bytes(const WideLayout& L, int R) {
-  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + tile_floats<NACC>(L, R));
+  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + tile_floats<NACC>(L, R) + kTileSamples * cnf::wide_nc(L));
 }
 
+// The COND instances' arguments: the unconditional instances' and the
+// conditioning ys (B, nc).
+struct CondArgs {
+  Args a;
+  const float* ys;
+};
+
 template <int NACC>
+__global__ void __launch_bounds__(kWideBlock) k7_wide_cond_solve(const __grid_constant__ CondArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ WideLayout L;
+  const Args& p = ca.a;
+  cnf::share_layout(p.L, &L);
+  const int T = kTileSamples, R = p.R, bp = basis_pitch(L);
+  float* w = smem;
+  float* red = w + L.wfloats;
+  float* scratch = red + kRedFloats;  // the solver's Z, KY, KR
+  float* HB = scratch + T * (2 * L.zp + NACC);
+  float* DY = HB + T * L.hsum;
+  float* acc = DY + T * L.zp;
+  float* ta = acc + 3 * T;
+  float* tb = ta + R * bp;
+  float* rowtr = tb + R * bp;
+  float* rowf2 = rowtr + R;
+  float* YS = rowf2 + R;  // the tile's ys rows (T, nc)
+  cnf::load_wide_weights(p.params, L, w);
+  __syncthreads();
+  const WideExactField<NACC, true> field{{ca.ys, YS}, &L, w, HB, DY, acc, ta, tb, rowtr, rowf2, R, p.f.norm_z,
+                                         p.f.norm_j};
+  cnf::forward_solve_tiles<NACC, kStageUnroll>(p.f, field, T, scratch, red);
+}
+
+// The launch shape of an entry (the COND instance's with `COND`).
+template <int NACC, bool COND>
 int shape(int n, const int* widths, int B, int* out) {
   WideLayout L;
-  if (B < 1 || !cnf::make_wide_layout(n, widths, &L)) return (int)cudaErrorInvalidValue;
+  if (B < 1 || !cnf::make_wide_layout(n, widths, &L, COND)) return (int)cudaErrorInvalidValue;
   size_t smem[4];
   for (int o = 0; o < 4; ++o) smem[o] = smem_bytes<NACC>(L, kChunks[o]);
+  if constexpr (COND) return cnf::wide_shape(k7_wide_cond_solve<NACC>, smem, kSamples, kChunks, 4, B, out);
   return cnf::wide_shape(k7_wide_solve<NACC>, smem, kSamples, kChunks, 4, B, out);
 }
 
-template <int NACC>
-int solve(const float* params, const float* z0, const float* acc0, const float* ts, float* zT, float* accT,
-          int* stats, float* dt_last, float* work, float* partials, int B, int n, const int* widths, int acts,
-          int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2, float inv_order,
-          const float* tab, int R, int grid, int block, void* stream) {
-  Args a = {};
-  if (block != kWideBlock || grid < 1 || R < cnf::kRows || R % cnf::kRows != 0 ||
-      !cnf::make_wide_layout(n, widths, &a.L))
+// Launch an entry (the COND instance with `COND`, which takes ys).
+template <int NACC, bool COND>
+int solve(const float* params, const float* ys, const float* z0, const float* acc0, const float* ts, float* zT,
+          float* accT, int* stats, float* dt_last, float* work, float* partials, int B, int n, const int* widths,
+          int acts, int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
+          float inv_order, const float* tab, int R, int grid, int block, void* stream) {
+  CondArgs ca = {};
+  Args& a = ca.a;
+  if (block != kWideBlock || grid < 1 || R < cnf::kRows || R % cnf::kRows != 0 || (COND && ys == nullptr) ||
+      !cnf::make_wide_layout(n, widths, &a.L, COND))
     return (int)cudaErrorInvalidValue;
   cnf::set_wide_acts(&a.L, acts);
   cnf::set_fwd_args(&a.f, nullptr, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n], max_steps,
                     norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
   a.params = params;
   a.R = R;
+  ca.ys = ys;
+  if constexpr (COND)
+    return (int)cnf::coop_launch(k7_wide_cond_solve<NACC>, ca, grid, block, smem_bytes<NACC>(a.L, R),
+                                 (cudaStream_t)stream);
   return (int)cnf::coop_launch(k7_wide_solve<NACC>, a, grid, block, smem_bytes<NACC>(a.L, R), (cudaStream_t)stream);
 }
 
@@ -247,9 +318,13 @@ int solve(const float* params, const float* z0, const float* acc0, const float* 
 // {threads per block, blocks, basis rows a chunk, dynamic shared memory
 // bytes} (tiles of 4 samples).  widths: n + 1 level widths (host memory).
 // Returns a cudaError_t (cudaErrorInvalidValue for a chain not covered).
-extern "C" int cnf_k7w_test_shape(int n, const int* widths, int B, int* out) { return shape<1>(n, widths, B, out); }
+extern "C" int cnf_k7w_test_shape(int n, const int* widths, int B, int* out) {
+  return shape<1, false>(n, widths, B, out);
+}
 
-extern "C" int cnf_k7w_exact_shape(int n, const int* widths, int B, int* out) { return shape<3>(n, widths, B, out); }
+extern "C" int cnf_k7w_exact_shape(int n, const int* widths, int B, int* out) {
+  return shape<3, false>(n, widths, B, out);
+}
 
 // TEST: params [W0 | b0 | ...] flat (device), acts: bit i set where layer i
 // is tanh (else identity), z0 (B, dz), dlogp0/dlogpT (B), dt_last (2): the
@@ -261,8 +336,8 @@ extern "C" int cnf_k7w_test_solve(const float* params, const float* z0, const fl
                                   int B, int n, const int* widths, int acts, int max_steps, float rtol, float atol,
                                   float beta1, float beta2, float inv_order, const float* tab, int R, int grid,
                                   int block, void* stream) {
-  return solve<1>(params, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, B, n, widths, acts, max_steps,
-                  0, 0, rtol, atol, beta1, beta2, inv_order, tab, R, grid, block, stream);
+  return solve<1, false>(params, nullptr, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, B, n, widths,
+                         acts, max_steps, 0, 0, rtol, atol, beta1, beta2, inv_order, tab, R, grid, block, stream);
 }
 
 // Exact TRAIN: acc0/accT (3, B), rows [dlogp | reg_e | reg_n]; work:
@@ -272,6 +347,38 @@ extern "C" int cnf_k7w_exact_solve(const float* params, const float* z0, const f
                                    int B, int n, const int* widths, int acts, int max_steps, int norm_z, int norm_j,
                                    float rtol, float atol, float beta1, float beta2, float inv_order,
                                    const float* tab, int R, int grid, int block, void* stream) {
-  return solve<3>(params, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths, acts, max_steps,
-                  norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab, R, grid, block, stream);
+  return solve<3, false>(params, nullptr, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths, acts,
+                         max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab, R, grid, block, stream);
+}
+
+// The COND instances' launch shapes (K8), as cnf_k7w_test_shape and
+// cnf_k7w_exact_shape; widths[0] = dz + nc with nc >= 1.
+extern "C" int cnf_k7wc_test_shape(int n, const int* widths, int B, int* out) {
+  return shape<1, true>(n, widths, B, out);
+}
+
+extern "C" int cnf_k7wc_exact_shape(int n, const int* widths, int B, int* out) {
+  return shape<3, true>(n, widths, B, out);
+}
+
+// The COND instances (K8): as cnf_k7w_test_solve and cnf_k7w_exact_solve for
+// a conditional chain, with ys (B, nc) (device), nc = widths[0] - widths[n]
+// >= 1; R, grid, block from cnf_k7wc_test_shape or cnf_k7wc_exact_shape.
+extern "C" int cnf_k7w_cond_test_solve(const float* params, const float* ys, const float* z0, const float* dlogp0,
+                                       const float* ts, float* zT, float* dlogpT, int* stats, float* dt_last,
+                                       float* work, float* partials, int B, int n, const int* widths, int acts,
+                                       int max_steps, float rtol, float atol, float beta1, float beta2,
+                                       float inv_order, const float* tab, int R, int grid, int block, void* stream) {
+  return solve<1, true>(params, ys, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, B, n, widths, acts,
+                        max_steps, 0, 0, rtol, atol, beta1, beta2, inv_order, tab, R, grid, block, stream);
+}
+
+extern "C" int cnf_k7w_cond_exact_solve(const float* params, const float* ys, const float* z0, const float* acc0,
+                                        const float* ts, float* zT, float* accT, int* stats, float* dt_last,
+                                        float* work, float* partials, int B, int n, const int* widths, int acts,
+                                        int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1,
+                                        float beta2, float inv_order, const float* tab, int R, int grid, int block,
+                                        void* stream) {
+  return solve<3, true>(params, ys, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, n, widths, acts,
+                        max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab, R, grid, block, stream);
 }

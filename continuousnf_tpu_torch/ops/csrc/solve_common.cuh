@@ -1008,9 +1008,9 @@ __device__ void forward_solve_tiles(const FwdArgs& p, const Field& field, int T,
 // memory, and T p.nc more in a COND instance.  NACC: the accumulator rows,
 // 3 in TRAIN mode and 1 in TEST mode (wide K5), as in adjoint_solve.
 //
-// COND (K8: the COND instances of the wide K2 chain form and wide K5): the
-// per-sample a_ys block of a conditional net, as adjoint_solve's COND form
-// and the JAX package's adjoint kernel (fused_solve.py::
+// COND (K8: the COND instances of the wide K2 chain form, wide K5 and the
+// wide K4 adjoint): the per-sample a_ys block of a conditional net, as
+// adjoint_solve's COND form and the JAX package's adjoint kernel (fused_solve.py::
 // _make_adjoint_kernel: k_ays = -ct_zin[dz:] :1167, a_ys from 0 :1183,
 // combined like a_z :1240, in the one batch-global norm :1270, a_ys0
 // returned :1324).  The stage takes an eighth argument KYS (T, p.nc) for

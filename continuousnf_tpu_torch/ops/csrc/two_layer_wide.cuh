@@ -3,8 +3,8 @@
 // H <= kWideMaxWidth, in the wide chain layout of chain_wide.cuh (n = 2,
 // its weights in shared memory at odd pitches), evaluated by a block for a
 // tile of T samples through chain_wide.cuh's tile products.  nc = 0 but in
-// the COND instances of wide K3 and wide K5 (K8: W1's ys rows enter the
-// pre-activation; the wide K4 adjoint has none).  Besides the weights:
+// the COND instances of wide K3, wide K5 and the wide K4 adjoint (K8: W1's
+// ys rows enter the pre-activation).  Besides the weights:
 // M[i, h] = W1[i, h] W2[h, i] (dz, pitch H | 1) over W1's z rows, the
 // closed-form trace's constant (fused_solve.py::_stage_test :484-503), built
 // once per launch beside them.

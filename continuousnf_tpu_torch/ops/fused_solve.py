@@ -83,8 +83,11 @@ narrow widths that the wide forms keep; CondRNODE at the HEPMASS width,
 43 -> 126 -> 42 on [z | ys]), in the wide sources, with the same twins
 given ys: the wide K1 chain form's (`run_wide_cond_train_solve_kernel`),
 the wide K2 chain form's (`run_wide_cond_adjoint_kernel`, a_ys0 returned),
-wide K3's (`run_wide_cond_test2_solve_kernel`) and wide K5's
-(`run_wide_cond_test_adjoint_kernel`, a_ys0 returned);
+wide K3's (`run_wide_cond_test2_solve_kernel`), wide K5's
+(`run_wide_cond_test_adjoint_kernel`, a_ys0 returned), wide K7 TEST's and
+exact's (`run_wide_cond_test_solve_kernel`, `run_wide_cond_exact_solve_kernel`)
+and the wide K4 adjoint's (`run_wide_cond_exact_adjoint_kernel`, a_ys0
+returned);
 and three under bf16 stage matmuls (`ComputeMode.bf16`: the JAX package's
 `_mm(..., "bf16")` :193-225, both operands rounded to bfloat16, float32
 sums), for unconditional 2-layer tanh nets of state width up to MAX_DZ and
@@ -109,7 +112,7 @@ integrates the per-sample ys cotangent) and identity layers (K9,
 chains of 3 or more layers, for every conditional net and for every net
 with an identity layer (their wide forms past the narrow widths, the COND
 instances there for a conditional net, with wide K3's and wide K5's for
-its TEST stages), the
+its TEST stages and the wide K4 adjoint's for its exact backward), the
 2-layer kernels for unconditional 2-layer tanh nets (past MAX_DZ: wide K3,
 the wide K1 and K2 chain forms, wide K7 exact and the wide K4 adjoint,
 wide K5; past the wide forms' state width, hidden widths or shared memory
@@ -900,9 +903,9 @@ def _kernel_covers(
     and state widths up to MAX_DZ, conditional ones (K8) included, their wide
     forms the chains beyond, up to WIDE_MAX_DZ and WIDE_MAX_WIDTH, whose
     weights fit in a block's shared memory beside a tile (conditional ones
-    with one VJP probe in the COND instances of the wide K1 and K2 chain
-    forms; wide K7 has no COND instance and refuses them itself,
-    COND_WIDE_K7), and their streamed forms (`stream`; False asks for the
+    in the COND instances of the wide K1 and K2 chain forms, with one VJP
+    probe, and of wide K7's TEST and exact entries), and their streamed forms
+    (`stream`; False asks for the
     wide forms alone) the unconditional chains the wide forms refuse for
     their state width, hidden widths or weights' shared memory (with K
     probes or JVP, the shared memory of the wide probe instances), up to
@@ -999,16 +1002,12 @@ def _stream_chain(spec: ChainSpec, probes: bool = False) -> bool:
 
 #: What the kernels still refuse of conditional nets past the narrow widths
 #: (K8), each naming its ROADMAP queue 2 row.  The COND instances of the wide
-#: K1 and K2 chain forms, wide K3 and wide K5 take the rest.
-COND_WIDE_K7 = ("the TEST and exact forwards of conditional wide chains in wide K7 (K8 in wide K7: 3- and 4-layer "
-                "conditional chains past the narrow widths in TEST mode and under exact trace, and conditional 2-layer "
-                "nets past MAX_DZ under exact trace; ROADMAP queue 2, shape variants (d), K8 in wide K7)")
+#: K1 and K2 chain forms, wide K7, wide K3, wide K5 and the wide K4 adjoint
+#: take the rest.
 COND_WIDE_PROBES = ("K probes and JVP probes in conditional wide chains (K6 x K8 in the wide probe instances; ROADMAP "
                     "queue 2, shape variants (d), K8 in the wide probe instances)")
 COND_STREAM = ("conditional chains past the wide limits (K8 in the wide and streamed chain forms: the streamed forms' "
                "COND instances; ROADMAP queue 2, shape variants (d), K8 in the streamed forms)")
-COND_WIDE_K4 = ("the exact gradient of conditional 2-layer nets past MAX_DZ in the wide K4 adjoint (ROADMAP queue 2, "
-                "K8 in the wide and streamed K4 adjoints)")
 
 
 def _wide_two_layer(spec: ChainSpec) -> bool:
@@ -1018,25 +1017,21 @@ def _wide_two_layer(spec: ChainSpec) -> bool:
     return _two_layer_tanh(spec) and spec.dz > MAX_DZ
 
 
-def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec, k4: bool = False) -> Optional[str]:
-    """Why the wide 2-layer kernels (wide K3, wide K5, the wide K4 adjoint:
-    `k4`) do not run this configuration (None if they do): they take the
-    2-layer tanh chains the wide chain forms take, state widths up to
-    WIDE_MAX_DZ and hidden widths up to WIDE_MAX_WIDTH, under every embedded
-    tableau; wide K3 and wide K5 conditional ones too, in their COND
-    instances (K8), the wide K4 adjoint not (COND_WIDE_K4).  Past those the
-    streamed chain forms run the Hutchinson and exact-forward stages,
-    streamed K3 and K5 the TEST stages (`_stream_two_layer_covers`) and the
-    streamed K4 adjoint the exact backward member
-    (`_stream_exact_covers`)."""
+def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
+    """Why the wide 2-layer kernels (wide K3, wide K5, the wide K4 adjoint)
+    do not run this configuration (None if they do): they take the 2-layer
+    tanh chains the wide chain forms take, state widths up to WIDE_MAX_DZ and
+    hidden widths up to WIDE_MAX_WIDTH, under every embedded tableau,
+    conditional ones in their COND instances (K8).  Past those the streamed
+    chain forms run the Hutchinson and exact-forward stages, streamed K3 and
+    K5 the TEST stages (`_stream_two_layer_covers`) and the streamed K4
+    adjoint the exact backward member (`_stream_exact_covers`) of
+    unconditional nets; conditional ones are refused there (COND_STREAM)."""
     if not _two_layer_tanh(spec):
         return ("nets other than 2-layer tanh chains in wide K3, wide K5 and the wide K4 adjoint (the JAX "
                 "package's 2-layer TEST and exact stages assume tanh layers, reference fault 2: the chain kernels "
                 "take identity layers forward, and their gradient runs the plain backward)")
-    why = _kernel_covers(tab, spec, chain=True, stream=False)
-    if why is None and spec.n_cond and k4:
-        why = COND_WIDE_K4
-    return why
+    return _kernel_covers(tab, spec, chain=True, stream=False)
 
 
 def _stream_two_layer(spec: ChainSpec) -> bool:
@@ -1111,6 +1106,7 @@ _CHAIN_SMEM = ([_I, _IP, _I], ctypes.c_longlong)
 _TAIL = [_F] * 5 + [_P, _I, _I, _P]
 _WIDE_TAIL = [_F] * 5 + [_P, _I, _I, _I, _P]  # the tableau, the tile, grid, block, stream
 _WIDE_SHAPE = ([_I, _IP, _I, _IP], _I)
+_K4W_TAIL = [_F] * 5 + [_P] + [_I] * 4 + [_P]  # the tableau, T, R, grid, block, stream
 _SIGNATURES = {
     K3_KERNEL: {
         "cnf_k3_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
@@ -1176,6 +1172,10 @@ _SIGNATURES = {
         "cnf_k7w_exact_shape": _WIDE_SHAPE,
         "cnf_k7w_test_solve": ([_P] * 10 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
         "cnf_k7w_exact_solve": ([_P] * 10 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k7wc_test_shape": _WIDE_SHAPE,
+        "cnf_k7wc_exact_shape": _WIDE_SHAPE,
+        "cnf_k7w_cond_test_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k7w_cond_exact_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K3W_KERNEL: {
         "cnf_k3w_shape": _WIDE_SHAPE,
@@ -1191,7 +1191,9 @@ _SIGNATURES = {
     },
     K4WA_KERNEL: {
         "cnf_k4w_shape": _WIDE_SHAPE,
-        "cnf_k4w_exact_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I] + [_F] * 5 + [_P] + [_I] * 4 + [_P], _I),
+        "cnf_k4w_exact_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I] + _K4W_TAIL, _I),
+        "cnf_k4wc_shape": _WIDE_SHAPE,
+        "cnf_k4w_cond_exact_adjoint": ([_P] * 18 + [_I, _I, _IP, _I, _I, _I, _I] + _K4W_TAIL, _I),
     },
     K1S_KERNEL: {
         "cnf_k1s_shape": _WIDE_SHAPE,
@@ -1308,14 +1310,13 @@ def _controller_floats(tab):
 
 
 def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain: bool = False,
-               wide: bool = False, jvp: bool = False, stream: bool = False, cond: bool = False,
-               k7: bool = False) -> None:
+               wide: bool = False, jvp: bool = False, stream: bool = False, cond: bool = False) -> None:
     """Raise unless `label`'s kernel takes the configuration on CUDA tensors:
     a chain kernel's narrow form (`wide` and `stream` False) takes no wide
     chain, its wide form (`wide`) the chains past the narrow widths that it
     keeps in shared memory, conditional ones in its COND instance (`cond`)
-    and unconditional ones in the others (wide K7, `k7`, has no COND
-    instance), and its streamed form (`stream`) the chains the wide forms
+    and unconditional ones in the others, and its streamed form (`stream`)
+    the chains the wide forms
     refuse for their widths or shared memory (`_stream_chain`; with K probes
     or JVP, those of the wide probe instances)."""
     if x.device.type != "cuda":
@@ -1325,8 +1326,6 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
     if why is None and chain and not wide and not stream and _wide_chain(spec):
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the narrow chain kernels (up to "
                f"{MAX_DZ} and {CHAIN_MAX_WIDTH}: their wide forms take the chain)")
-    if why is None and wide and spec.n_cond and k7:
-        why = COND_WIDE_K7
     if why is None and wide and spec.n_cond and not cond:
         why = f"conditional chains in the unconditional instance of {label} (its COND instance takes them)"
     if why is None and cond and not spec.n_cond:
@@ -2035,7 +2034,7 @@ def run_wide_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, 
             tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
             z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
-    _cuda_only("wide K7", z0, tab, spec, chain=True, wide=True, k7=True)
+    _cuda_only("wide K7", z0, tab, spec, chain=True, wide=True)
     out = _launch_wide_forward(
         "wide K7 TEST", K7W_KERNEL, "cnf_k7w_test_solve", "cnf_k7w_test_shape", tab, spec, rtol=rtol, atol=atol,
         max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
@@ -2051,7 +2050,8 @@ def run_wide_exact_solve_kernel(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init, ys=None
 ):
     """Wide K7 exact: K7 exact's solve (`run_chain_exact_solve_kernel`) for
-    the wide chains; arguments and returns as `run_exact_solve_kernel`.
+    the unconditional wide chains; arguments and returns as
+    `run_exact_solve_kernel`.
 
     CUDA tensors go through the kernel (`csrc/k7_wide_solve.cu`), CPU
     tensors through its plain version."""
@@ -2061,7 +2061,7 @@ def run_wide_exact_solve_kernel(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
             ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
-    _cuda_only("wide K7", z0, tab, spec, chain=True, wide=True, k7=True)
+    _cuda_only("wide K7", z0, tab, spec, chain=True, wide=True)
     out = _launch_wide_forward(
         "wide K7 exact", K7W_KERNEL, "cnf_k7w_exact_solve", "cnf_k7w_exact_shape", tab, spec, rtol=rtol, atol=atol,
         max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, norms=(norm_z, norm_j),
@@ -2198,16 +2198,15 @@ run_wide_adjoint_kernel.probe_launches = {}
 # ---- the 2-layer kernels' wide forms (2-layer tanh nets past MAX_DZ) ----
 
 
-def _cuda_only_wide_two_layer(label: str, x: torch.Tensor, tab, spec, stream: bool = False, cond: bool = False,
-                              k4: bool = False) -> None:
-    """Raise unless the wide 2-layer kernels (`_wide_two_layer_covers`; the
-    wide K4 adjoint with `k4`) or, `stream`, streamed K3 and K5
-    (`_stream_two_layer_covers`) take the configuration on CUDA tensors:
-    wide K3 and wide K5 take conditional nets in their COND instances
-    (`cond`) and unconditional ones in the others."""
+def _cuda_only_wide_two_layer(label: str, x: torch.Tensor, tab, spec, stream: bool = False,
+                              cond: bool = False) -> None:
+    """Raise unless the wide 2-layer kernels (`_wide_two_layer_covers`) or,
+    `stream`, streamed K3 and K5 (`_stream_two_layer_covers`) take the
+    configuration on CUDA tensors: the wide ones take conditional nets in
+    their COND instances (`cond`) and unconditional ones in the others."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
-    why = _stream_two_layer_covers(tab, spec) if stream else _wide_two_layer_covers(tab, spec, k4)
+    why = _stream_two_layer_covers(tab, spec) if stream else _wide_two_layer_covers(tab, spec)
     if why is None and spec.n_cond and not cond:
         why = f"conditional nets in the unconditional instance of {label} (its COND instance takes them)"
     if why is None and cond and not spec.n_cond:
@@ -2305,34 +2304,49 @@ run_wide_test_adjoint_kernel.launches = 0
 
 
 def _launch_wide_exact_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
-                               t_hi, t_lo, dt_init):
+                               t_hi, t_lo, dt_init, ys=None):
+    """Launch the wide K4 adjoint: its unconditional instance or, given ys
+    (B, n_cond), its COND instance (K8), which returns a_ys0 (B, n_cond)
+    last.  g_pm, over W1's z rows, is chained into them and W2 after the
+    launch; W1's ys rows get none (the JAX package's :1787-1799)."""
     label = "wide K4 adjoint"
     B, dz = zT.shape
     H = spec.out_dims[0]
+    nc = spec.n_cond if ys is not None else 0
     device = zT.device
     params, widths = _chain_params(label, spec, ws, bs, device)
     zT, accT, azT, aaccT = _check_inputs(label, device, [zT, accT, azT, aaccT], [(B, dz), (3, B), (B, dz), (3, B)])
     lib = _library(K4WA_KERNEL)
     shape = (ctypes.c_int * 5)()
-    err = lib.cnf_k4w_shape(spec.n_layers, widths, B, shape)
+    err = getattr(lib, "cnf_k4wc_shape" if nc else "cnf_k4w_shape")(spec.n_layers, widths, B, shape)
     if err != 0 or shape[1] < 1:
         raise RuntimeError(f"{label} cannot be launched cooperatively at widths {tuple(widths)}: cudaError {err}")
     block, grid, T, R = shape[0], shape[1], shape[2], shape[3]
     P = params.numel()
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
     z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid,
-                                                                                P + dz * dz * H)
+                                                                                P + dz * dz * H, nc)
     mbuf = torch.empty(grid * T * dz * dz, dtype=torch.float32, device=device)
-    err = lib.cnf_k4w_exact_adjoint(
-        _ptr(params), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0),
-        _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), _ptr(mbuf), B, spec.n_layers,
-        widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
-        _tableau_array(tab), T, R, grid, block, _stream(device),
-    )
+    tail = (B, spec.n_layers, widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j), rtol, atol,
+            *_controller_floats(tab), _tableau_array(tab), T, R, grid, block, _stream(device))
+    if nc:
+        ys = _cond_rows(label, spec, ys, B, device)
+        ays0 = torch.empty((B, nc), dtype=torch.float32, device=device)
+        err = lib.cnf_k4w_cond_exact_adjoint(
+            _ptr(params), _ptr(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
+            _ptr(az0), _ptr(ays0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew),
+            _ptr(mbuf), *tail,
+        )
+    else:
+        err = lib.cnf_k4w_exact_adjoint(
+            _ptr(params), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0),
+            _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), _ptr(mbuf), *tail,
+        )
     _check_launch(err, label, grid, block)
     g_ws, g_bs = _split_params(g[:P], spec)
-    g_w1, g_w2 = exact_pm_chain(g[P:].view(dz * dz, H), ws[0], ws[1])
-    return z0, acc0, az0, [g_ws[0] + g_w1, g_ws[1] + g_w2], g_bs, stats[0], stats[1]
+    g_w1, g_w2 = exact_pm_chain(g[P:].view(dz * dz, H), ws[0][:dz], ws[1])
+    g_ws = [g_ws[0] + _pad_rows(g_w1, g_ws[0].shape[0]), g_ws[1] + g_w2]
+    return (z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]) + ((ays0,) if nc else ())
 
 
 def run_wide_exact_adjoint_kernel(
@@ -2355,7 +2369,7 @@ def run_wide_exact_adjoint_kernel(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
             ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
         )
-    _cuda_only_wide_two_layer("the wide K4 adjoint", zT, tab, spec, k4=True)
+    _cuda_only_wide_two_layer("the wide K4 adjoint", zT, tab, spec)
     if dt_init is None:
         raise ValueError("the wide K4 adjoint needs dt_init (the caller picks it)")
     out = _launch_wide_exact_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol,
@@ -2491,6 +2505,102 @@ def run_wide_cond_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws, b
 
 
 run_wide_cond_test_adjoint_kernel.launches = 0
+
+
+def run_wide_cond_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init,
+                                    ys=None):
+    """Wide K7 TEST's COND instance: the TEST solve by basis push
+    (`run_wide_test_solve_kernel`) of a conditional chain past the narrow
+    widths whose first layer reads [z | ys], ys (B, n_cond) constant over
+    the solve (the 3- and 4-layer chains; `make_full_solve` gives 2-layer
+    tanh nets wide K3's COND instance); the push reads W0's z rows only;
+    arguments and returns as `run_solve_kernel` with ys.
+
+    CUDA tensors go through the kernel (`csrc/k7_wide_solve.cu`'s
+    `k7_wide_cond_solve<1>`), CPU tensors through its plain version."""
+    _no_grad_inputs("K7", ws, bs, z0, dlogp0, ys)
+    if z0.device.type == "cpu":
+        return solve_test_plain(
+            tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("wide K7", z0, tab, spec, chain=True, wide=True, cond=True)
+    out = _launch_wide_forward(
+        "wide K7 TEST COND", K7W_KERNEL, "cnf_k7w_cond_test_solve", "cnf_k7wc_test_shape", tab, spec, rtol=rtol,
+        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+    )
+    run_wide_cond_test_solve_kernel.launches += 1
+    return out
+
+
+run_wide_cond_test_solve_kernel.launches = 0
+
+
+def run_wide_cond_exact_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init, ys=None
+):
+    """Wide K7 exact's COND instance: the exact TRAIN solve by basis push
+    (`run_wide_exact_solve_kernel`) of a conditional chain past the narrow
+    widths, 2-layer tanh nets past MAX_DZ included (CondRNODE at the HEPMASS
+    width, whose exact gradient runs the wide K4 adjoint's COND instance;
+    deeper chains' runs the plain BACKSOLVE); arguments and returns as
+    `run_exact_solve_kernel` with ys (B, n_cond).
+
+    CUDA tensors go through the kernel (`csrc/k7_wide_solve.cu`'s
+    `k7_wide_cond_solve<3>`), CPU tensors through its plain version."""
+    _no_grad_inputs("K7", ws, bs, z0, acc0, ys)
+    if z0.device.type == "cpu":
+        return solve_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("wide K7", z0, tab, spec, chain=True, wide=True, cond=True)
+    out = _launch_wide_forward(
+        "wide K7 exact COND", K7W_KERNEL, "cnf_k7w_cond_exact_solve", "cnf_k7wc_exact_shape", tab, spec, rtol=rtol,
+        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+        norms=(norm_z, norm_j), ys=ys,
+    )
+    run_wide_cond_exact_solve_kernel.launches += 1
+    return out
+
+
+run_wide_cond_exact_solve_kernel.launches = 0
+
+
+def run_wide_cond_exact_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init, ys=None,
+):
+    """The wide K4 adjoint's COND instance: the exact backsolve of (z, acc,
+    a_z, a_acc, a_ys, g_p, g_pm) (`run_wide_exact_adjoint_kernel`) of a
+    conditional 2-layer tanh net past MAX_DZ whose W1 reads [z | ys]
+    (CondRNODE at the HEPMASS width), the per-sample a_ys integrated from 0
+    at t_hi in the one batch-global error norm; g_pm (over W1's z rows) is
+    chained into W1's z rows and W2, W1's ys rows get ys (x) ct_pre1 alone;
+    arguments as `run_exact_adjoint_kernel` with ys (B, n_cond), returns
+    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted, a_ys0).
+
+    CUDA tensors go through the kernel (`csrc/k4_wide_adjoint.cu`'s
+    `k4_wide_cond_adjoint`), CPU tensors through its plain version."""
+    if not _two_layer_tanh(spec):
+        raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
+    _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only_wide_two_layer("the wide K4 adjoint", zT, tab, spec, cond=True)
+    if dt_init is None:
+        raise ValueError("the wide K4 adjoint needs dt_init (the caller picks it)")
+    out = _launch_wide_exact_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol,
+                                     max_steps=max_steps, ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+                                     t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
+    run_wide_cond_exact_adjoint_kernel.launches += 1
+    return out
+
+
+run_wide_cond_exact_adjoint_kernel.launches = 0
 
 
 # ---- the chain kernels' streamed forms (weights past the wide forms' shared memory) ----
@@ -2997,6 +3107,9 @@ KERNEL_WRAPPERS = {
     K2W_KERNEL + "/cond": run_wide_cond_adjoint_kernel,
     K3W_KERNEL + "/cond": run_wide_cond_test2_solve_kernel,
     K5W_KERNEL + "/cond": run_wide_cond_test_adjoint_kernel,
+    K7W_KERNEL + "/test/cond": run_wide_cond_test_solve_kernel,
+    K7W_KERNEL + "/exact/cond": run_wide_cond_exact_solve_kernel,
+    K4WA_KERNEL + "/cond": run_wide_cond_exact_adjoint_kernel,
     K1S_KERNEL: run_stream_train_solve_kernel,
     K2S_KERNEL: run_stream_adjoint_kernel,
     K7S_KERNEL + "/test": run_stream_test_solve_kernel,
@@ -3072,13 +3185,15 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     not), their narrow forms within state width MAX_DZ and hidden widths
     CHAIN_MAX_WIDTH, their wide forms beyond.  Conditional chains past the
     narrow widths run the COND instances of the wide forms (K8): the wide K1
-    and K2 chain forms' under Hutchinson TRAIN with one VJP probe and, for
-    2-layer tanh nets past MAX_DZ (CondRNODE at the HEPMASS width), wide
-    K3's forward and wide K5's backward in TEST mode; their TEST forward at
-    3-4 layers and their exact forward run wide K7, which raises on the card
-    (COND_WIDE_K7), as do their K probes and JVP probes (COND_WIDE_PROBES)
-    and every conditional chain past the wide limits (COND_STREAM); narrow
-    conditional nets keep the narrow chain kernels and K5's COND instance.
+    and K2 chain forms' under Hutchinson TRAIN with one VJP probe, wide K7
+    TEST's forward at 3-4 layers and wide K7 exact's forward at every depth
+    and, for 2-layer tanh nets past MAX_DZ (CondRNODE at the HEPMASS width),
+    wide K3's forward and wide K5's backward in TEST mode and the wide K4
+    adjoint's backward under exact trace (deeper chains' exact gradient runs
+    the plain BACKSOLVE, as below); their K probes and JVP probes raise on
+    the card (COND_WIDE_PROBES), as does every conditional chain past the
+    wide limits (COND_STREAM); narrow conditional nets keep the narrow chain
+    kernels and K5's COND instance.
     Hutchinson TRAIN solves run K1 (or its chain form) with the
     backward member K2 (or its chain form), with the K VJP or JVP probes of
     `compute_mode` (K6: their probe instances); exact-trace TRAIN solves run the
@@ -3187,10 +3302,11 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
             run_test, run_test_adj = run_stream_test2_solve_kernel, run_stream_test_adjoint_kernel
             run_exact_adj = run_stream_exact_adjoint_kernel
     elif spec.n_cond and _wide_chain(spec):
-        run_test, run_train = run_wide_test_solve_kernel, run_wide_cond_train_solve_kernel
-        run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_cond_adjoint_kernel
+        run_test, run_train = run_wide_cond_test_solve_kernel, run_wide_cond_train_solve_kernel
+        run_exact, run_adjoint = run_wide_cond_exact_solve_kernel, run_wide_cond_adjoint_kernel
         if wide2:
             run_test, run_test_adj = run_wide_cond_test2_solve_kernel, run_wide_cond_test_adjoint_kernel
+            run_exact_adj = run_wide_cond_exact_adjoint_kernel
     elif chain and _wide_chain(spec):
         run_test, run_train = run_wide_test_solve_kernel, run_wide_train_solve_kernel
         run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel
@@ -3334,6 +3450,9 @@ __all__ = [
     "run_wide_cond_adjoint_kernel",
     "run_wide_cond_test2_solve_kernel",
     "run_wide_cond_test_adjoint_kernel",
+    "run_wide_cond_test_solve_kernel",
+    "run_wide_cond_exact_solve_kernel",
+    "run_wide_cond_exact_adjoint_kernel",
     "run_stream_test_solve_kernel",
     "run_stream_exact_solve_kernel",
     "run_stream_train_solve_kernel",

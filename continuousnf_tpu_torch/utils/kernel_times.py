@@ -24,7 +24,8 @@ its output, the streamed K1 and K2 chain forms) and on
 cond_hepmass42 the COND instances of the wide forms (CondRNODE, MLP 43 ->
 126 -> 42 on [z | ys], B = 4096, tspan (0, 13); the "_condhep" keys: wide
 K3 COND and wide K5 COND from its output, the wide K1 and K2 chain forms'
-COND instances; one probe only),
+COND instances, wide K7 exact COND and the wide K4 adjoint COND from its
+output; one probe only),
 Glorot weights and data from numpy seeds, under
 one tableau (rtol 1e-3 / atol 1e-6; the README tolerances for verner65).
 Where the package has K5 (the TEST adjoint), it is timed on the flagship
@@ -96,7 +97,8 @@ def main() -> int:
     if "cond_hepmass42" in models:
         if probes:
             raise SystemExit("the COND instances of the wide forms take one VJP probe (cond_hepmass42)")
-        kernels["cond_hepmass42"] = [fs.K1W_KERNEL, fs.K2W_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL]
+        kernels["cond_hepmass42"] = [fs.K1W_KERNEL, fs.K2W_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL, fs.K7W_KERNEL,
+                                     fs.K4WA_KERNEL]
     if "hepmass42" in models:
         kernels["hepmass42"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [
             fs.K7W_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL, fs.K4WA_KERNEL])
@@ -187,6 +189,8 @@ def main() -> int:
                       fs.run_wide_cond_test_adjoint_kernel, test, dict(azT=adj["azT"], aaccT=T(np.full((1, B), 1.0 / B))))
             time_pair(("k1wc_condhep", "k2wc_condhep"), spec, fs.run_wide_cond_train_solve_kernel,
                       fs.run_wide_cond_adjoint_kernel, dict(train, eps=eps), dict(adj, eps=eps))
+            time_pair(("k7ec_condhep", "k4wc_condhep"), spec, fs.run_wide_cond_exact_solve_kernel,
+                      fs.run_wide_cond_exact_adjoint_kernel, train, adj)
         elif name == "miniboone86":
             time_pair(("k3s_mb86", "k5s_mb86"), spec, fs.run_stream_test2_solve_kernel,
                       fs.run_stream_test_adjoint_kernel, test, dict(azT=adj["azT"], aaccT=T(np.full((1, B), 1.0 / B))))

@@ -18,8 +18,8 @@ forms; `--model miniboone86` / `bsds126`: the same family at 86 -> 258 ->
 forms, and streamed K7 exact with the streamed K4 adjoint for the
 exact-trace step; `--model cond_hepmass42`: CondRNODE at the HEPMASS width,
 MLP 43 -> 126 -> 42 on [z | ys], through the COND instances of the wide K1
-and K2 chain forms, wide K3 and wide K5, with no exact-trace step: wide K7
-has no COND instance yet), its weights and its data from a seed as `utils/configs.py` makes
+and K2 chain forms, wide K3 and wide K5, and of wide K7 exact with the wide
+K4 adjoint for the exact-trace step), its weights and its data from a seed as `utils/configs.py` makes
 them, one Gaussian VJP probe (`--probes K` Gaussian probes, `--jvp`
 forward-mode ones: the Hutchinson train steps run the probe instances of
 the K1 and K2 kernels or of their chain forms, narrow, wide (miniboone43) or
@@ -163,11 +163,8 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
            "direct": direct, "fixed": fixed, "bf16": bf16}
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    # bf16 has no exact-trace stages (ROADMAP queue 2, the bf16 row), and
-    # conditional nets past the narrow widths no exact forward (wide K7
-    # COND, ROADMAP queue 2 row (d)).
-    no_exact = bf16 or name == "cond_hepmass42"
-    paths = [("train_step", False, B)] + ([] if no_exact else [("exact_train_step", True, B)])
+    # bf16 has no exact-trace stages (ROADMAP queue 2, the bf16 row).
+    paths = [("train_step", False, B)] + ([] if bf16 else [("exact_train_step", True, B)])
     if "batch_size" in cfg:
         paths.append((f"train_step_b{cfg['batch_size']}", False, cfg["batch_size"]))
     for label, exact, b in paths:

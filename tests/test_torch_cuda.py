@@ -1236,7 +1236,8 @@ def test_wide_cond_paths_on_the_card_match_the_twins_on_the_cpu(dev):
     at B = 256: `CondICNFDist.logpdf` through wide K3's COND instance; the
     TEST loss gradient in the params and ys through wide K3's and wide K5's;
     the Hutchinson loss gradient through the wide K1 and K2 chain forms';
-    each launching those kernels and no other."""
+    the exact one through wide K7 exact's and the wide K4 adjoint's; each
+    launching those kernels and no other."""
     rng = np.random.default_rng(4)
     xs = rng.normal(size=(256, 21)).astype(np.float32)
     ys = rng.choice([-1.414, -0.707, 0.0, 0.707, 1.414], size=(256, 1)).astype(np.float32)
@@ -1245,7 +1246,8 @@ def test_wide_cond_paths_on_the_card_match_the_twins_on_the_cpu(dev):
 
     def run(device, mode):
         icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP(COND_HEPMASS, device=device), 21, 21, tspan=(0.0, 1.0),
-                              steer_rate=0.1, lam3=1e-2, compute_mode=tcnf.VecJacMode(fused=True))
+                              steer_rate=0.1, lam3=1e-2,
+                              compute_mode=tcnf.VecJacMode(fused=True, exact_trace=mode == "exact"))
         ps = tcnf.params_from_numpy(ps_np, device)
         y = torch.from_numpy(ys).to(device).requires_grad_()
         leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])] + [y]
@@ -1254,12 +1256,15 @@ def test_wide_cond_paths_on_the_card_match_the_twins_on_the_cpu(dev):
             with torch.no_grad():
                 lp = tcnf.CondICNFDist(icnf, tcnf.Mode.TEST, ps, y.detach()).logpdf(xs).cpu()
             l = tcnf.loss(icnf, tcnf.Mode.TEST, xs, ps, ys=y)
+        elif mode == "exact":
+            l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=y, steer_r=0.05)
         else:
             l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=y, eps=eps, steer_r=0.05)
         return lp, l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)]
 
     wants = {"test": {tfs.K3W_KERNEL + "/cond": 2, tfs.K5W_KERNEL + "/cond": 1},
-             "train": {tfs.K1W_KERNEL + "/cond": 1, tfs.K2W_KERNEL + "/cond": 1}}
+             "train": {tfs.K1W_KERNEL + "/cond": 1, tfs.K2W_KERNEL + "/cond": 1},
+             "exact": {tfs.K7W_KERNEL + "/exact/cond": 1, tfs.K4WA_KERNEL + "/cond": 1}}
     for mode, want in wants.items():
         before = _launches()
         lp_k, l_k, g_k = run(dev, mode)
@@ -1272,18 +1277,109 @@ def test_wide_cond_paths_on_the_card_match_the_twins_on_the_cpu(dev):
 
 
 @pytest.mark.parametrize(
+    "dims,B,span",
+    [
+        (COND_HEPMASS, 4096, (0.0, 13.0)),
+        ((35, 72, 34), 37, (2.0, 0.0)),
+        ((10, 72, 72, 8), 300, (0.0, 2.0)),
+        ((44, 128, 128, 43), 2048, (0.0, 1.0)),
+        ((36, 40, 33), 1, (0.0, 1.0)),
+    ],
+    ids=["cond-hepmass42-B4096", "two-layer-reverse-B37", "three-layer-ncond2-B300", "three-layer-hidden128-B2048",
+         "ncond3-B1"],
+)
+def test_wide_cond_k7_and_k4_kernels_match_twins(dev, dims, B, span):
+    """The COND instances of wide K7 TEST and wide K7 exact (and, for 2-layer
+    nets, of the wide K4 adjoint) against their twins with the conditioning
+    ys (B, n_cond): the forwards from nonzero accumulators (equal steps,
+    values within REL), the adjoint from wide K7 exact COND's output
+    warm-started from its last step (equal steps; z0, acc0, a_z0 and a_ys0
+    held to the float64 twin; gradients within GRAD_REL, W1's ys rows not
+    zero).  One launch each."""
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    nc, dz = dims[0] - dims[-1], dims[-1]
+    ys = _cond_ys(B, nc, dev)
+    kw, adj = _train_args(dims, B, span, dev)
+    exact_kw = dict({k: v for k, v in kw.items() if k != "eps"}, ys=ys)
+    test_kw = dict(_kernel_args(dims, B, span, dev), ys=ys)
+    two = len(dims) == 3
+    runs = [tfs.run_wide_cond_test_solve_kernel, tfs.run_wide_cond_exact_solve_kernel]
+    if two:
+        runs.append(tfs.run_wide_cond_exact_adjoint_kernel)
+    before = [w.launches for w in runs]
+    tdir = 1.0 if span[1] > span[0] else -1.0
+    with torch.no_grad():
+        t_k = tfs.run_wide_cond_test_solve_kernel(TSIT5, spec, **test_kw)
+        t_p = tfs.solve_test_plain(TSIT5, spec, **test_kw)
+        e_k = tfs.run_wide_cond_exact_solve_kernel(TSIT5, spec, **exact_kw)
+        e_p = tfs.solve_train_exact_plain(TSIT5, spec, **exact_kw)
+        if two:
+            adj = dict({k: v for k, v in adj.items() if k != "eps"}, zT=e_k[0], accT=e_k[1],
+                       dt_init=-tdir * e_k[4].abs(), ys=ys)
+            k4 = [tfs.run_wide_cond_exact_adjoint_kernel(TSIT5, spec, **adj),
+                  tfs.adjoint_train_exact_plain(TSIT5, spec, **adj), _twin64(tfs.adjoint_train_exact_plain, spec, adj)]
+    torch.cuda.synchronize()
+    assert [w.launches for w in runs] == [n + 1 for n in before]
+    _hold_forward(t_k, t_p)
+    _hold_forward(e_k, e_p)
+    if two:
+        _hold_cond_adjoint(*k4)
+        assert float(k4[0][3][0][dz:].abs().max()) > 0.0
+
+
+def test_wide_cond_chain_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """A conditional 3-layer chain past hidden 64 (CondRNODE, MLP 44 -> 128
+    -> 128 -> 43, one ys column, nvars 43; tspan (0, 1)) on the card and on
+    the CPU at B = 256: `CondICNFDist.logpdf` and `sample` (the base draw
+    injected) through wide K7 TEST's COND instance; the exact loss gradient
+    in the params and ys through wide K7 exact's and the plain BACKSOLVE;
+    each launching that kernel once and no other."""
+    dims, B = (44, 128, 128, 43), 256
+    rng = np.random.default_rng(6)
+    xs = rng.normal(size=(B, 43)).astype(np.float32)
+    ys = rng.uniform(-1.0, 1.0, (B, 1)).astype(np.float32)
+    z1 = rng.normal(size=(B, 43)).astype(np.float32)
+    ps_np = _np_params(dims, 7)
+
+    def run(device, mode):
+        icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP(dims, device=device), 43, 0, tspan=(0.0, 1.0),
+                              compute_mode=tcnf.VecJacMode(fused=True, exact_trace=mode == "exact"))
+        ps = tcnf.params_from_numpy(ps_np, device)
+        y = torch.from_numpy(ys).to(device)
+        if mode == "test":
+            d = tcnf.CondICNFDist(icnf, tcnf.Mode.TEST, ps, y)
+            with torch.no_grad():
+                return [d.logpdf(xs).cpu(), d.sample(B, z1=z1).cpu()]
+        y.requires_grad_()
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])] + [y]
+        l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=y, steer_r=0.05)
+        return [l.detach().cpu()] + [g.cpu() for g in torch.autograd.grad(l, leaves)]
+
+    wants = {"test": {tfs.K7W_KERNEL + "/test/cond": 2}, "exact": {tfs.K7W_KERNEL + "/exact/cond": 1}}
+    for mode, want in wants.items():
+        before = _launches()
+        got = run(dev, mode)
+        after = _launches()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == want
+        ref = run(torch.device("cpu"), mode)
+        close = _close if mode == "test" else _grad_close
+        assert all(torch.isfinite(a).all() and close(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize(
     "case",
-    ["wide-K7-test-three-layer", "wide-K7-exact-two-layer", "wide-K4-adjoint", "K-probes", "jvp", "streamed",
-     "unconditional-instance"],
+    ["K-probes", "jvp", "streamed", "unconditional-instance", "unconditional-K7", "unconditional-K4",
+     "K4-hidden130"],
 )
 def test_wide_cond_refusals_raise_on_cuda(dev, case):
     """What the kernels still refuse of conditional nets past the narrow
     widths raises on the card, naming its ROADMAP row, and launches
-    nothing: wide K7 COND (the TEST and exact forwards), the wide K4
-    adjoint's COND instance, K probes and JVP probes in the wide forms, the
-    streamed forms' COND instances; the unconditional wide K1 chain form
-    takes no conditional chain."""
-    dims = {"wide-K7-test-three-layer": (10, 72, 72, 8), "streamed": (44, 860, 860, 43)}.get(case, COND_HEPMASS)
+    nothing: K probes and JVP probes in the wide forms, the streamed forms'
+    COND instances (the wide K4 adjoint's COND instance past the wide
+    limits names that row); the unconditional wide K1 chain form, wide K7
+    and the wide K4 adjoint take no conditional net."""
+    dims = {"streamed": (44, 860, 860, 43), "unconditional-K7": (10, 72, 72, 8),
+            "K4-hidden130": (44, 130, 43)}.get(case, COND_HEPMASS)
     spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
     nc, dz, B = dims[0] - dims[-1], dims[-1], 64
     ys = _cond_ys(B, nc, dev)
@@ -1291,14 +1387,13 @@ def test_wide_cond_refusals_raise_on_cuda(dev, case):
     kw["ys"] = ys
     if case == "K-probes":
         kw["eps"] = torch.randn(2, B, dz, device=dev)
+    k4_call = dict({k: v for k, v in adj.items() if k != "eps"}, zT=kw["z0"], accT=kw["acc0"],
+                   dt_init=torch.tensor(-0.05, device=dev), ys=ys)
     wrapper, why, call = {
-        "wide-K7-test-three-layer": ("run_wide_test_solve_kernel", tfs.COND_WIDE_K7,
-                                     dict(_kernel_args(dims, B, (0.0, 1.0), dev), ys=ys)),
-        "wide-K7-exact-two-layer": ("run_wide_exact_solve_kernel", tfs.COND_WIDE_K7,
-                                    {k: v for k, v in kw.items() if k != "eps"}),
-        "wide-K4-adjoint": ("run_wide_exact_adjoint_kernel", tfs.COND_WIDE_K4,
-                            dict({k: v for k, v in adj.items() if k != "eps"}, zT=kw["z0"], accT=kw["acc0"],
-                                 dt_init=torch.tensor(-0.05, device=dev), ys=ys)),
+        "unconditional-K7": ("run_wide_test_solve_kernel", "unconditional instance",
+                             dict(_kernel_args(dims, B, (0.0, 1.0), dev), ys=ys)),
+        "unconditional-K4": ("run_wide_exact_adjoint_kernel", "unconditional instance", k4_call),
+        "K4-hidden130": ("run_wide_cond_exact_adjoint_kernel", tfs.COND_STREAM, k4_call),
         "K-probes": ("run_wide_cond_train_solve_kernel", tfs.COND_WIDE_PROBES, kw),
         "jvp": ("run_wide_cond_train_solve_kernel", tfs.COND_WIDE_PROBES, dict(kw, jvp=True)),
         "streamed": ("run_wide_cond_train_solve_kernel", tfs.COND_STREAM, kw),

@@ -1,10 +1,12 @@
 """Conditional nets past the narrow widths in the port against the JAX
 package on the CPU (K8 in the wide forms): a conditional 2-layer net
 `MLP((35, 72, 34))` on [z | ys] with one ys column, whose TEST stages run
-wide K3's and wide K5's COND instances on the card and its Hutchinson ones
-the wide K1 and K2 chain forms' COND instances, and a conditional 3-layer
-chain `MLP((10, 72, 72, 8))` with two ys columns, past hidden width 64,
-which trains through the same chain-form instances.  The COND twins through
+wide K3's and wide K5's COND instances on the card, its Hutchinson ones
+the wide K1 and K2 chain forms' COND instances and its exact ones wide K7
+exact's and the wide K4 adjoint's, and a conditional 3-layer chain
+`MLP((10, 72, 72, 8))` with two ys columns, past hidden width 64, which
+trains through the same chain-form instances and serves through wide K7
+TEST's (the exact trace: tests/test_torch_wide_cond_exact.py).  The COND twins through
 the fused solve on CPU tensors against the JAX package's kernels in
 interpret mode at one tile (the TEST and TRAIN forwards, the TEST and TRAIN
 adjoints with a_ys0); TEST and TRAIN `inference`; the losses and their
@@ -48,7 +50,9 @@ NETS = {"two-layer": TWO, "three-layer": THREE}
 B = 16
 MODE_NAMES = {"train": "TRAIN", "test": "TEST", "exact": "TRAIN"}
 COND_WRAPPERS = ("run_wide_cond_train_solve_kernel", "run_wide_cond_adjoint_kernel",
-                 "run_wide_cond_test2_solve_kernel", "run_wide_cond_test_adjoint_kernel")
+                 "run_wide_cond_test2_solve_kernel", "run_wide_cond_test_adjoint_kernel",
+                 "run_wide_cond_test_solve_kernel", "run_wide_cond_exact_solve_kernel",
+                 "run_wide_cond_exact_adjoint_kernel")
 
 
 def _cm(m, mode, fused=True, k=1, ad="vjp"):
@@ -109,7 +113,9 @@ def test_cond_hepmass42_configuration():
     dimensions, one conditioning column, MLP 43 -> 126 -> 42 on [z | ys],
     hepmass42's steering, lambda3 and tspan; the data's ys are the five
     standardised signal masses and xs the tabular recipe shifted by 0.5 ys.
-    The wide COND instances take it; the narrow kernels do not."""
+    The wide COND instances take it, the wide K4 adjoint's included; the
+    narrow kernels do not, nor the wide 2-layer kernels a conditional net
+    past the wide limits (COND_STREAM)."""
     cfg = MODELS["cond_hepmass42"]
     hep = MODELS["hepmass42"]
     assert (cfg["dims"], cfg["nvars"], cfg["naug"], cfg["n_cond"]) == ((43, 126, 42), 21, 21, 1)
@@ -124,7 +130,7 @@ def test_cond_hepmass42_configuration():
     assert spec.n_cond == 1 and tfs._wide_two_layer(spec) and tfs._wide_chain(spec)
     assert tfs._wide_two_layer_covers(TSIT5, spec) is None
     assert tfs._kernel_covers(TSIT5, spec, chain=True) is None
-    assert tfs._wide_two_layer_covers(TSIT5, spec, k4=True) == tfs.COND_WIDE_K4
+    assert tfs._wide_two_layer_covers(TSIT5, _spec((44, 130, 43), 1)) == tfs.COND_STREAM
 
 
 @pytest.mark.parametrize("net,mode", [("two-layer", "test"), ("two-layer", "train"), ("three-layer", "train")])
@@ -200,7 +206,7 @@ def test_wide_cond_adjoint_twins_match_jax_kernel(net, mode):
 
 # (net, mode) -> the forward wrapper the fused solve calls
 _FORWARDS = {("two-layer", "test"): "run_wide_cond_test2_solve_kernel",
-             ("three-layer", "test"): "run_wide_test_solve_kernel",
+             ("three-layer", "test"): "run_wide_cond_test_solve_kernel",
              ("two-layer", "train"): "run_wide_cond_train_solve_kernel",
              ("three-layer", "train"): "run_wide_cond_train_solve_kernel"}
 
@@ -355,15 +361,14 @@ def _fake_cuda():
 
 # name -> (check, dims, n_cond, keyword arguments, the row or reason the refusal names)
 _REFUSED = {
-    "wide-K7-TEST-three-layer": ("chain", THREE, 2, dict(wide=True, k7=True), tfs.COND_WIDE_K7),
-    "wide-K7-exact-two-layer": ("chain", TWO, 1, dict(wide=True, k7=True), tfs.COND_WIDE_K7),
-    "wide-K4-adjoint": ("two", TWO, 1, dict(k4=True), tfs.COND_WIDE_K4),
     "wide-probes-K4": ("chain", TWO, 1, dict(wide=True, cond=True, k_probes=4), tfs.COND_WIDE_PROBES),
     "wide-probes-jvp": ("chain", THREE, 2, dict(wide=True, cond=True, jvp=True), tfs.COND_WIDE_PROBES),
     "streamed-chain": ("chain", (44, 860, 860, 43), 1, dict(wide=True, cond=True), tfs.COND_STREAM),
     "streamed-two-layer": ("two", (87, 258, 86), 1, dict(cond=True), tfs.COND_STREAM),
+    "wide-K4-adjoint-hidden130": ("two", (44, 130, 43), 1, dict(cond=True), tfs.COND_STREAM),
     "unconditional-instance": ("chain", TWO, 1, dict(wide=True), "unconditional instance"),
     "unconditional-K3": ("two", TWO, 1, {}, "unconditional instance"),
+    "unconditional-K7": ("chain", THREE, 2, dict(wide=True), "unconditional instance"),
     "cond-instance-unconditional": ("two", (34, 72, 34), 0, dict(cond=True), "COND instance"),
 }
 
@@ -372,11 +377,11 @@ _REFUSED = {
 def test_cond_refusals_on_the_card_name_their_row(name):
     """What the card still refuses of conditional nets past the narrow widths
     raises NotImplementedError through the wrappers' checks, naming its
-    ROADMAP queue 2 row (stable names): wide K7 COND (the TEST and exact
-    forwards), the wide K4 adjoint's COND instance, K probes and JVP in the
-    wide probe instances, the streamed forms' COND instances; and no
-    unconditional instance takes a conditional net, nor a COND instance an
-    unconditional one."""
+    ROADMAP queue 2 row (stable names): K probes and JVP in the wide probe
+    instances, the streamed forms' COND instances (past the wide limits the
+    wide 2-layer kernels, the wide K4 adjoint among them, name that row);
+    and no unconditional instance takes a conditional net, nor a COND
+    instance an unconditional one."""
     check, dims, nc, kw, why = _REFUSED[name]
     spec = _spec(dims, nc)
     with pytest.raises(NotImplementedError) as err:
@@ -386,18 +391,40 @@ def test_cond_refusals_on_the_card_name_their_row(name):
         else:
             tfs._cuda_only_wide_two_layer("wide K3", _fake_cuda(), TSIT5, spec, **kw)
     assert why in str(err.value)
-    if why.startswith(("the TEST", "K probes", "conditional chains past", "the exact gradient")):
+    if why.startswith(("K probes", "conditional chains past")):
         assert "ROADMAP queue 2" in str(err.value)
 
 
-def test_cond_instances_accept_what_they_cover():
+# name -> (check, label, dims, n_cond); None: the chain forms' and wide K3's
+_ACCEPTED = {
+    "chain-forms-and-K3": None,
+    "wide-K7-TEST-three-layer": ("chain", "wide K7", THREE, 2),
+    "wide-K7-exact-two-layer": ("chain", "wide K7", TWO, 1),
+    "wide-K7-exact-cond-hepmass42": ("chain", "wide K7", COND_HEPMASS, 1),
+    "wide-K4-adjoint": ("two", "the wide K4 adjoint", TWO, 1),
+    "wide-K4-adjoint-cond-hepmass42": ("two", "the wide K4 adjoint", COND_HEPMASS, 1),
+}
+
+
+@pytest.mark.parametrize("name", list(_ACCEPTED))
+def test_cond_instances_accept_what_they_cover(name):
     """The same checks pass the configurations the COND instances take:
-    cond_hepmass42 in all four, the 3-layer chain in the chain forms'."""
-    for dims, nc in ((COND_HEPMASS, 1), (TWO, 1)):
-        spec = _spec(dims, nc)
-        tfs._cuda_only("wide K1", _fake_cuda(), TSIT5, spec, chain=True, wide=True, cond=True)
-        tfs._cuda_only_wide_two_layer("wide K3", _fake_cuda(), TSIT5, spec, cond=True)
-    tfs._cuda_only("wide K2", _fake_cuda(), TSIT5, _spec(THREE, 2), chain=True, wide=True, cond=True)
+    cond_hepmass42 and the conditional 2-layer net in the chain forms', wide
+    K3's, wide K7's and the wide K4 adjoint's, the 3-layer chain in the
+    chain forms' and wide K7's."""
+    if _ACCEPTED[name] is None:
+        for dims, nc in ((COND_HEPMASS, 1), (TWO, 1)):
+            spec = _spec(dims, nc)
+            tfs._cuda_only("wide K1", _fake_cuda(), TSIT5, spec, chain=True, wide=True, cond=True)
+            tfs._cuda_only_wide_two_layer("wide K3", _fake_cuda(), TSIT5, spec, cond=True)
+        tfs._cuda_only("wide K2", _fake_cuda(), TSIT5, _spec(THREE, 2), chain=True, wide=True, cond=True)
+        return
+    check, label, dims, nc = _ACCEPTED[name]
+    spec = _spec(dims, nc)
+    if check == "chain":
+        tfs._cuda_only(label, _fake_cuda(), TSIT5, spec, chain=True, wide=True, cond=True)
+    else:
+        tfs._cuda_only_wide_two_layer(label, _fake_cuda(), TSIT5, spec, cond=True)
 
 
 # route -> (dims, mode, probes, JVP?, the wrappers the loss and its gradient call, in order)
@@ -405,10 +432,12 @@ _ROUTES = {
     "two-layer-test": (TWO, "test", 1, False, ["run_wide_cond_test2_solve_kernel",
                                                 "run_wide_cond_test_adjoint_kernel"]),
     "two-layer-train": (TWO, "train", 1, False, ["run_wide_cond_train_solve_kernel", "run_wide_cond_adjoint_kernel"]),
-    "two-layer-exact": (TWO, "exact", 1, False, ["run_wide_exact_solve_kernel", "run_wide_exact_adjoint_kernel"]),
+    "two-layer-exact": (TWO, "exact", 1, False, ["run_wide_cond_exact_solve_kernel",
+                                                  "run_wide_cond_exact_adjoint_kernel"]),
     "two-layer-train-K2": (TWO, "train", 2, False, ["run_wide_cond_train_solve_kernel",
                                                     "run_wide_cond_adjoint_kernel"]),
-    "three-layer-test": (THREE, "test", 1, False, ["run_wide_test_solve_kernel"]),
+    "three-layer-test": (THREE, "test", 1, False, ["run_wide_cond_test_solve_kernel"]),
+    "three-layer-exact": (THREE, "exact", 1, False, ["run_wide_cond_exact_solve_kernel"]),
     "three-layer-train": (THREE, "train", 1, False, ["run_wide_cond_train_solve_kernel",
                                                      "run_wide_cond_adjoint_kernel"]),
     "three-layer-train-jvp": (THREE, "train", 1, True, ["run_wide_cond_train_solve_kernel",
@@ -426,17 +455,20 @@ def test_fused_solve_takes_the_cond_instances(monkeypatch, route):
     through the COND instances: a 2-layer tanh net through wide K3's and
     wide K5's (TEST) and the wide K1 and K2 chain forms' (Hutchinson, any
     probes: the card refuses K probes and JVP there), a 3-layer chain
-    through the chain forms' (Hutchinson) and wide K7 (TEST and exact
-    forwards, which the card refuses); exact training of a 2-layer net asks
-    wide K7 exact and the wide K4 adjoint, which refuse it on the card.
-    Narrow conditional nets keep the narrow chain kernels and K5's COND
-    instance.  No other wrapper is called."""
+    through the chain forms' (Hutchinson) and wide K7 TEST's and exact's
+    (the TEST forward; the exact forward, whose gradient runs the plain
+    BACKSOLVE); exact training of a 2-layer net through wide K7 exact's and
+    the wide K4 adjoint's.  Narrow conditional nets keep the narrow chain
+    kernels and K5's COND instance.  No other wrapper is called, none of the
+    unconditional wide ones among them."""
     dims, mode, k, jvp, want = _ROUTES[route]
     called = []
     names = {n for v in _ROUTES.values() for n in v[4]} | {
         "run_wide_train_solve_kernel", "run_wide_adjoint_kernel", "run_wide_test2_solve_kernel",
         "run_wide_test_adjoint_kernel", "run_stream_train_solve_kernel", "run_stream_adjoint_kernel",
-        "run_stream_test_solve_kernel", "run_chain_exact_solve_kernel"}
+        "run_stream_test_solve_kernel", "run_chain_exact_solve_kernel", "run_wide_test_solve_kernel",
+        "run_wide_exact_solve_kernel", "run_wide_exact_adjoint_kernel", "run_stream_exact_solve_kernel",
+        "run_stream_exact_adjoint_kernel"}
     for name in names:
         wrapped = getattr(tfs, name)
 
@@ -458,8 +490,8 @@ def test_fused_solve_takes_the_cond_instances(monkeypatch, route):
 
 
 def test_wide_cond_wrappers_run_the_twins_on_the_cpu_without_counting():
-    """On CPU tensors the four COND wrappers run their twins, bit for bit
-    (a_ys0 last from both adjoints), and count no launch; they are in
+    """On CPU tensors the seven COND wrappers run their twins, bit for bit
+    (a_ys0 last from the three adjoints), and count no launch; they are in
     KERNEL_WRAPPERS, so `reset_launches` covers them."""
     assert {getattr(tfs, n) for n in COND_WRAPPERS} <= set(tfs.KERNEL_WRAPPERS.values())
     dims = TWO
@@ -476,6 +508,10 @@ def test_wide_cond_wrappers_run_the_twins_on_the_cpu_without_counting():
     got = tfs.run_wide_cond_test2_solve_kernel(TSIT5, spec, **kw)
     fwd = tfs.solve_test_plain(TSIT5, spec, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, fwd))
+    assert all(torch.equal(a, b) for a, b in zip(tfs.run_wide_cond_test_solve_kernel(TSIT5, spec, **kw), fwd))
+    exact = dict(fwd_kw, norm_z=True, norm_j=True, acc0=T(rng.normal(size=(3, 8))))
+    fwd_e = tfs.solve_train_exact_plain(TSIT5, spec, **exact)
+    assert all(torch.equal(a, b) for a, b in zip(tfs.run_wide_cond_exact_solve_kernel(TSIT5, spec, **exact), fwd_e))
     train = dict(fwd_kw, norm_z=True, norm_j=True, eps=T(rng.normal(size=(1, 8, 34))), acc0=T(rng.normal(size=(3, 8))))
     got = tfs.run_wide_cond_train_solve_kernel(TSIT5, spec, **train)
     fwd_t = tfs.solve_train_plain(TSIT5, spec, **train)
@@ -486,6 +522,9 @@ def test_wide_cond_wrappers_run_the_twins_on_the_cpu_without_counting():
                                   dict(zT=fwd[0], accT=fwd[1][None], aaccT=T(rng.normal(size=(1, 8))))),
                                  (tfs.run_wide_cond_adjoint_kernel, tfs.adjoint_train_plain,
                                   dict(norm_z=True, norm_j=True, eps=train["eps"], zT=fwd_t[0], accT=fwd_t[1],
+                                       aaccT=T(rng.normal(size=(3, 8))))),
+                                 (tfs.run_wide_cond_exact_adjoint_kernel, tfs.adjoint_train_exact_plain,
+                                  dict(norm_z=True, norm_j=True, zT=fwd_e[0], accT=fwd_e[1],
                                        aaccT=T(rng.normal(size=(3, 8)))))):
         got, ref = wrapper(TSIT5, spec, **dict(adj, **extra)), twin(TSIT5, spec, **dict(adj, **extra))
         assert len(got) == len(ref) == 8
