@@ -708,11 +708,11 @@ def hold_forward(label, out_k, out_p, near=None, gate=0) -> float:
     return max(float((out_k[0] - out_p[0]).abs().max()), float((out_k[1] - out_p[1]).abs().max()))
 
 
-def hold_adjoint(label, adj_k, adj_p, adj_64, near=None, gate=0) -> float:
+def hold_adjoint(label, adj_k, adj_p, adj_64, near=None, gate=0, grad_tol=GRAD_TOL) -> float:
     """A Hutchinson adjoint kernel's (z0, acc0, a_z0, g_ws, g_bs, steps,
     accepted[, a_ys0]) against its twin's: equal steps, finite values, z0
     and a_z0 held to the float64 twin, each gradient (and a_ys0, the
-    conditioning's per-sample cotangent) within GRAD_TOL * max(1, max|g|).
+    conditioning's per-sample cotangent) within grad_tol * max(1, max|g|).
     Given `near` = (twin, spec, kwargs), a solve that misses the steps or
     the gradients' bound is held to the near-tie rule instead
     (`hold_near_tie`), or under `roundoff_gate` when `gate` is given.
@@ -724,9 +724,9 @@ def hold_adjoint(label, adj_k, adj_p, adj_64, near=None, gate=0) -> float:
     e_g = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
     print(f"{label} vs plain: steps {int(adj_k[5])}/{int(adj_k[6])} (plain {int(adj_p[5])}/{int(adj_p[6])}), "
           "gradient relative errors (ws, bs[, a_ys0]) " + ", ".join(f"{e:.3e}" for e in e_g))
-    if (int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6])) and max(e_g) <= GRAD_TOL:
+    if (int(adj_k[5]), int(adj_k[6])) == (int(adj_p[5]), int(adj_p[6])) and max(e_g) <= grad_tol:
         hold_backward_state(label, adj_k, adj_p, adj_64)
-    elif not roundoff_gate(label, int(adj_k[5]), int(adj_p[5]), e_g, GRAD_TOL, gate):
+    elif not roundoff_gate(label, int(adj_k[5]), int(adj_p[5]), e_g, grad_tol, gate):
         check(near is not None, f"{label} differs from its twin: steps {int(adj_k[5])}/{int(adj_k[6])} vs "
               f"{int(adj_p[5])}/{int(adj_p[6])}, gradients (ws, bs[, a_ys0]) {e_g}")
         hold_near_tie(label, adj_k, adj_p, *near[:3], "zT", *near[3:])
@@ -1702,10 +1702,10 @@ def adjoint_kw(fwd_kw, out, cot):
     return dict(kw, **cot, zT=out[0], accT=out[1], dt_init=-tdir * out[4].abs())
 
 
-def run_pair(label, kernel, twin, tab, spec, kw, adjoint=False, gate=0, reps=5):
+def run_pair(label, kernel, twin, tab, spec, kw, adjoint=False, gate=0, reps=5, grad_tol=GRAD_TOL):
     """`kernel` and its twin on `kw` under `tab`, held to each other
-    (`hold_forward` / `hold_adjoint`, the last-step and near-tie rules
-    allowed; `gate`: `roundoff_gate`), then the kernel timed.  Returns
+    (`hold_forward` / `hold_adjoint` with `grad_tol`, the last-step and
+    near-tie rules allowed; `gate`: `roundoff_gate`), then the kernel timed.  Returns
     (out_k, largest absolute difference, kernel ms, the twin's ms: the
     checked call, unwarmed)."""
     import torch
@@ -1716,7 +1716,7 @@ def run_pair(label, kernel, twin, tab, spec, kw, adjoint=False, gate=0, reps=5):
         out_p, plain_ms = timed(lambda: twin(tab, spec, **kw))
         out_64 = twin(tab, spec, **{k: to64(v) for k, v in kw.items()}) if adjoint else None
     near = (twin, spec, kw, tab)
-    err = (hold_adjoint(label, out_k, out_p, out_64, near, gate) if adjoint
+    err = (hold_adjoint(label, out_k, out_p, out_64, near, gate, grad_tol) if adjoint
            else hold_forward(label, out_k, out_p, near, gate))
     with torch.no_grad():
         ms = cuda_ms(lambda: kernel(tab, spec, **kw), reps, warmup=False)
@@ -4219,18 +4219,11 @@ def cond_wide(cnf, fs, dev):
     print(f"phase 101: cond_hepmass42 main paths: logpdf {n_serve['logpdf']} and sample {n_serve['sample']} "
           f"launches of {names['k3wc'][0]}, TEST loss gradient {n_test}, train step {n_step}, fit {n_fit}")
     small = slice(0, COND_TRUTH_BATCH)
-    for label, why, fn in (
-        ("K = 2 probes", fs.COND_WIDE_PROBES,
-         lambda: loss_grad(cnf, model(num_probes=2), ps_np, xs[small], dev, ys=ys[small], **steer)),
-        ("JVP probes", fs.COND_WIDE_PROBES,
-         lambda: loss_grad(cnf, model(ad="jvp"), ps_np, xs[small], dev, ys=ys[small], **steer)),
-        ("a conditional net past the wide limits (MLP 87 -> 258 -> 86)", fs.COND_STREAM,
-         lambda: loss_grad(cnf, cnf.construct(cnf.CondRNODE, cnf.MLP((87, 258, 86), device=dev), 43, 43,
-                                              tspan=(0.0, 1.0), compute_mode=cnf.VecJacMode(fused=True)),
-                           glorot_params(np.random.default_rng(SEED + 905), (87, 258, 86)), xs_c[small, :43], dev,
-                           ys=ys[small])),
-    ):
-        refuses(fs, label, why, fn)
+    refuses(fs, "a conditional net past the wide limits (MLP 87 -> 258 -> 86)", fs.COND_STREAM,
+            lambda: loss_grad(cnf, cnf.construct(cnf.CondRNODE, cnf.MLP((87, 258, 86), device=dev), 43, 43,
+                                                 tspan=(0.0, 1.0), compute_mode=cnf.VecJacMode(fused=True)),
+                              glorot_params(np.random.default_rng(SEED + 905), (87, 258, 86)), xs_c[small, :43], dev,
+                              ys=ys[small]))
 
     # Phase 102: CUDA-event times beside hepmass42's, in the same run.
     gen = torch.Generator(device=dev).manual_seed(SEED + 906)
@@ -4517,6 +4510,241 @@ def cond_wide_exact(cnf, fs, dev, built):
     return records
 
 
+# ---- K6 x K8: conditional K-probe and JVP training past the narrow widths ----
+
+COND_PROBE_REPS = 3  # timed calls of each phase-109 hold
+COND_PROBE_GRAD_TOL = 2e-4  # phase 109: the probe COND adjoints' gradients and a_ys0 against the twin, x max(1, max|g|)
+
+
+def cond_probe_names(fs):
+    """The probe COND instances' record keys -> (KERNEL_WRAPPERS name,
+    wrapper, twin, source, the TPU site); their launches are the wrappers'
+    `.probe_launches[(K, jvp)]`."""
+    at = "continuousnf_tpu/ops/fused_solve.py:"
+    return {
+        "k1wpc": (fs.K1W_KERNEL + "/cond", fs.run_wide_cond_train_solve_kernel, fs.solve_train_plain,
+                  "k1_wide_solve.cu", at + "1043"),
+        "k2wpc": (fs.K2W_KERNEL + "/cond", fs.run_wide_cond_adjoint_kernel, fs.adjoint_train_plain,
+                  "k2_wide_adjoint.cu", at + "1767"),
+    }
+
+
+def cond_probe_fma_floats(dims, nc, k, B):
+    """FMA per sample and field evaluation and the floats read and written of
+    the probe COND instances at k probes (`probe_fma` of the chain forms with
+    the first layer's ys rows in the forward, the ys cotangent and its
+    gradient rows; the COND instances' floats and k - 1 more probe planes)."""
+    dz = dims[-1]
+    P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    fma = probe_fma(dims, k, n_cond=nc, chain=True)
+    extra = (k - 1) * B * dz
+    return ({"k1wpc": fma["k1c"], "k2wpc": fma["k2c"]},
+            {"k1wpc": P + B * (3 * dz + 6 + nc) + extra, "k2wpc": 2 * P + B * (5 * dz + 9 + 2 * nc) + extra})
+
+
+def cond_wide_probes(cnf, fs, dev, built):
+    """Phases 108 to 112: K-probe and JVP Hutchinson training of conditional
+    nets past the narrow widths (K6 x K8) through the probe COND instances of
+    the wide K1 and K2 chain forms: cond_hepmass42 (CondRNODE, MLP 43 -> 126
+    -> 42 on [z | ys], B = 4096) and the conditional 3-layer chain MLP 44 ->
+    128 -> 128 -> 43 (B = 2048), beside the unconditional wide probe
+    instances at hepmass42 and miniboone43.  `built`: the build's {kernel:
+    (library, nvcc log)}.  Returns the records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    names = cond_probe_names(fs)
+    run1, run2 = names["k1wpc"][1], names["k2wpc"][1]
+    want = {names["k1wpc"][0]: 1, names["k2wpc"][0]: 1}
+
+    def probe_counts():
+        return [dict(w.probe_launches) for w in (run1, run2)]
+
+    cfg = MODELS["cond_hepmass42"]
+    dims, nc, B = cfg["dims"], cfg["n_cond"], BATCH
+    rng = np.random.default_rng(SEED + 1100)
+    ps_np = glorot_params(rng, dims)
+    xs_np, ys_np = model_data("cond_hepmass42", rng, B)
+    xs, ys = torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev)
+    model = lambda k=1, jvp=False, **kw: make_icnf("cond_hepmass42", dev, num_probes=k,  # noqa: E731
+                                                   ad="jvp" if jvp else "vjp", **kw)
+    Bc, dims_c = COND_CHAIN_BATCH, COND_CHAIN_DIMS
+    rng_c = np.random.default_rng(SEED + 1101)
+    ps_c = glorot_params(rng_c, dims_c)
+    xs_c = torch.from_numpy(model_data("miniboone43", rng_c, Bc)).to(dev)
+    ys_c = torch.from_numpy(rng_c.uniform(-1.0, 1.0, (Bc, 1)).astype("float32")).to(dev)
+    chain = lambda k=1, jvp=False, **kw: cnf.construct(  # noqa: E731
+        cnf.CondRNODE, cnf.MLP(dims_c, device=dev), 43, 0, tspan=(0.0, 1.0),
+        compute_mode=(cnf.JacVecMode if jvp else cnf.VecJacMode)(k, **kw))
+    nets = {"cond_hepmass42": (model(), ps_np, xs, ys, B, dims),
+            "3-layer": (chain(fused=True), ps_c, xs_c, ys_c, Bc, dims_c)}
+    for label, (icnf, _, _, _, _, d) in nets.items():
+        spec = fs.chain_spec(icnf.nn, icnf.zdim)
+        check(spec.n_cond and fs._wide_chain(spec) and not fs._stream_chain(spec, True)
+              and all(fs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp) is None for k, jvp in PROBE_CONFIGS),
+              f"{label} with probes should run the probe COND instances")
+
+    # Phase 108: the probe COND instances' launch shapes at both nets' batches
+    # (K is a run-time argument: one shape for every K), and ptxas's
+    # registers, stack frame and spills beside the probe instances'.
+    for lib_name, fn in ((fs.K1W_KERNEL, "cnf_k1wpc_shape"), (fs.K2W_KERNEL, "cnf_k2wpc_shape")):
+        for widths, b in ((dims, B), (dims_c, Bc)):
+            out = (ctypes.c_int * 4)()
+            err = getattr(fs._library(lib_name), fn)(len(widths) - 1, (ctypes.c_int * len(widths))(*widths), b, out)
+            check(err == 0 and out[1] >= 1, f"{fn} at {widths}: cudaError {err}")
+            print(f"phase 108: {fn} at widths {widths}, B={b}, every K: {out[0]} threads a block, {out[1]} blocks, "
+                  f"tile {out[2]}, {out[3]} bytes of dynamic shared memory")
+    for lib_name, parts in ((fs.K1W_KERNEL, ("24k1_wide_probe_cond_solve", "19k1_wide_probe_solve")),
+                            (fs.K2W_KERNEL, ("26k2_wide_probe_cond_adjoint", "21k2_wide_probe_adjoint"))):
+        log = built.get(lib_name, (None, ""))[1]
+        for part in parts:
+            found = ptxas_report(log, part)
+            if not found:
+                print(f"phase 108: {part[2:]}: no ptxas lines (the library was not compiled by this process)")
+            for r in found.values():
+                print(f"phase 108: ptxas {part[2:]}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
+                      f"frame, {r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} bytes spill loads")
+
+    # Phase 109: each probe COND instance against its twin at every probe
+    # configuration on both nets (the forward from nonzero accumulators, the
+    # adjoint from its output warm-started from its last step), timed; the
+    # unconditional wide probe instances on hepmass42 and miniboone43 at the
+    # same batches and probes timed beside them (per attempted step).
+    yard = {"cond_hepmass42": "hepmass42", "3-layer": "miniboone43"}
+    held, per_step = {}, {}
+    for label, (icnf, p_np, x, y, b, d) in nets.items():
+        spec = fs.chain_spec(icnf.nn, icnf.zdim)
+        ps = cnf.params_from_numpy(p_np, dev)
+        _, train, _, cot = kernel_inputs(icnf, ps, x, rng, dev)
+        train["ys"] = y
+        eps_all = torch.from_numpy(rng.normal(size=(8, b, icnf.zdim)).astype("float32")).to(dev)
+        rng_u = np.random.default_rng(SEED + 1102)
+        icnf_u = make_icnf(yard[label], dev)
+        dims_u = MODELS[yard[label]]["dims"]
+        ps_u = cnf.params_from_numpy(glorot_params(rng_u, dims_u), dev)
+        x_u = torch.from_numpy(model_data(yard[label], rng_u, b)).to(dev)
+        spec_u = fs.chain_spec(icnf_u.nn, icnf_u.zdim)
+        _, train_u, _, cot_u = kernel_inputs(icnf_u, ps_u, x_u, rng_u, dev)
+        eps_u = torch.from_numpy(rng_u.normal(size=(8, b, icnf_u.zdim)).astype("float32")).to(dev)
+        for k, jvp in PROBE_CONFIGS:
+            tag = probe_tag(k, jvp)
+            kw1 = dict(train, eps=eps_all[:k].contiguous(), jvp=jvp)
+            r1 = run_pair(f"{names['k1wpc'][0]} {tag} ({label}, B={b})", run1, fs.solve_train_plain, TSIT5, spec, kw1,
+                          reps=COND_PROBE_REPS)
+            r2 = run_pair(f"{names['k2wpc'][0]} {tag} ({label}, B={b})", run2, fs.adjoint_train_plain, TSIT5, spec,
+                          adjoint_kw(kw1, r1[0], cot), adjoint=True, reps=COND_PROBE_REPS,
+                          grad_tol=COND_PROBE_GRAD_TOL)
+            out2 = r2[0]
+            check(len(out2) == 8 and tuple(out2[7].shape) == (b, d[0] - d[-1])
+                  and float(out2[3][0][icnf.zdim:].abs().max()) > 0.0,
+                  f"{label} {tag}: the probe COND adjoint returned no a_ys0 or a zero gradient for W1's ys rows")
+            held[(label, k, jvp)] = (r1, r2)
+            ku = dict(train_u, eps=eps_u[:k].contiguous(), jvp=jvp)
+            with torch.no_grad():
+                o1 = fs.run_wide_train_solve_kernel(TSIT5, spec_u, **ku)
+                ka = adjoint_kw(ku, o1, cot_u)
+                o2 = fs.run_wide_adjoint_kernel(TSIT5, spec_u, **ka)
+                m1 = cuda_ms(lambda: fs.run_wide_train_solve_kernel(TSIT5, spec_u, **ku), COND_PROBE_REPS)
+                m2 = cuda_ms(lambda: fs.run_wide_adjoint_kernel(TSIT5, spec_u, **ka), COND_PROBE_REPS)
+            us = (r1[2] * 1e3 / int(r1[0][2]), r2[2] * 1e3 / int(out2[5]), m1 * 1e3 / int(o1[2]),
+                  m2 * 1e3 / int(o2[5]))
+            per_step[(label, k, jvp)] = us
+            print(f"phase 109: {label} {tag} B={b}: per attempted step, probe COND K1 {us[0]:.1f} us / K2 "
+                  f"{us[1]:.1f} us; {yard[label]}'s probe instances {us[2]:.1f} / {us[3]:.1f} us; ratio "
+                  f"{us[0] / us[2]:.3f} / {us[1] / us[3]:.3f}")
+    print("phase 109: the probe COND instances held to their twins")
+
+    # Phase 110: cond_hepmass42's K = 4 loss gradient in the params and ys at
+    # B = 256 against the plain path and a float64 rtol 1e-7 solve.
+    bt = COND_TRUTH_BATCH
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    steer = {"steer_r": 0.05}
+    eps = model(4).draw_eps(torch.Generator(device=dev).manual_seed(SEED + 1103), bt, dev)
+    fs.reset_launches()
+    l_k, g_k, _ = loss_grad(cnf, model(4), ps_np, xs[:bt], dev, ys=ys[:bt], eps=eps, **steer)
+    torch.cuda.synchronize()
+    check(launched(fs) == want and probe_counts() == [{(4, False): 1}] * 2,
+          f"cond_hepmass42 K4 gradient launched {launched(fs)}, probe instances {probe_counts()}")
+    l_p, g_p, _ = loss_grad(cnf, model(4, fused=False), ps_np, xs[:bt], dev, ys=ys[:bt], eps=eps, **steer)
+    l_t, g_t, _ = loss_grad(cnf, model(4, fused=False, dtype=torch.float64, solver=truth), ps_np, xs[:bt], dev,
+                            torch.float64, ys=ys[:bt], eps=eps.double(), **steer)
+    torch.cuda.synchronize()
+    hold_gradients(f"cond_hepmass42 K4 B={bt}", l_k, g_k, l_p, g_p, l_t, g_t, names=["w1", "b1", "w2", "b2", "ys"])
+    print(f"phase 110: cond_hepmass42 K4 B={bt}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 "
+          f"{float(l_t):.6f}; gradients held to the float64 solve")
+
+    # Phase 111: the main paths, counters reset just before each: every probe
+    # configuration's loss gradient on both nets, cond_hepmass42's K = 4
+    # train step and K = 4 fit, the 3-layer chain's JVP train step; each
+    # launches the probe COND instances alone, under its (K, jvp).
+    launches = {}
+    for label, (icnf, p_np, x, y, b, d) in nets.items():
+        for k, jvp in PROBE_CONFIGS:
+            icnf_k = model(k, jvp) if label == "cond_hepmass42" else chain(k, jvp, fused=True)
+            e = icnf_k.draw_eps(torch.Generator(device=dev).manual_seed(SEED + 1104 + k), b, dev)
+            fs.reset_launches()
+            _, g, _ = loss_grad(cnf, icnf_k, p_np, x, dev, ys=y, eps=e, **steer)
+            torch.cuda.synchronize()
+            counts = probe_counts()
+            check(launched(fs) == want and counts == [{(k, jvp): 1}] * 2
+                  and all(bool(torch.isfinite(v).all()) for v in g),
+                  f"{label} {probe_tag(k, jvp)}: launched {launched(fs)}, probe instances {counts}")
+            launches[(label, k, jvp)] = [1, 1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1105)
+    steps = {}
+    for label, icnf_k, p_np, x, y, key in (("cond_hepmass42 K4", model(4), ps_np, xs, ys, (4, False)),
+                                           ("3-layer jvp-K1", chain(1, True, fused=True), ps_c, xs_c, ys_c,
+                                            (1, True))):
+        p = cnf.params_from_numpy(p_np, dev)
+        leaves = [v.requires_grad_() for layer in p for v in (layer["w"], layer["b"])]
+        step = cnf.parallel.make_train_step_body(icnf_k, cnf.Lion(leaves, lr=1e-3))
+        fs.reset_launches()
+        metrics = step(p, x, gen, ys=y)
+        torch.cuda.synchronize()
+        counts = probe_counts()
+        check(launched(fs) == want and counts == [{key: 1}] * 2 and bool(torch.isfinite(metrics["loss"]))
+              and all(bool(torch.isfinite(v).all()) for v in leaves),
+              f"{label} train step launched {launched(fs)}, probe instances {counts}")
+        steps[label] = counts
+    X, Y = model_data("cond_hepmass42", rng, N_STEPS * B)
+    fit_path(cnf, fs, model(4), ps_np, dev, X, Y, batch_size=B)
+    n_fit = probe_counts()
+    check(set(launched(fs)) == set(want) and all(set(c) == {(4, False)} and c[(4, False)] >= N_STEPS for c in n_fit),
+          f"cond_hepmass42 K4 fit launched {launched(fs)}, probe instances {n_fit}")
+    launches[("cond_hepmass42", 4, False)] = [c[(4, False)] for c in n_fit]
+    print(f"phase 111: every probe configuration's loss gradient on both nets launched the probe COND instances once "
+          f"each and nothing else; train steps {steps}; cond_hepmass42 K4 fit ({N_STEPS} Lion steps at B={B}) "
+          f"{[c[(4, False)] for c in n_fit]}")
+
+    # Phase 112: CUDA-event times of cond_hepmass42's K = 4 train step beside
+    # hepmass42's K = 4 step, in the same run (a, b, b, a).
+    rng_h = np.random.default_rng(SEED + 400)
+    ps_h = glorot_params(rng_h, MODELS["hepmass42"]["dims"])
+    xs_h = torch.from_numpy(model_data("hepmass42", rng_h, B)).to(dev)
+    icnf_h = make_icnf("hepmass42", dev, num_probes=4)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1106)
+    a1 = step_ms(cnf, model(4), ps_np, xs, gen, dev, 3, ys=ys)
+    b1 = step_ms(cnf, icnf_h, ps_h, xs_h, gen, dev, 3)
+    b2 = step_ms(cnf, icnf_h, ps_h, xs_h, gen, dev, 3)
+    a2 = step_ms(cnf, model(4), ps_np, xs, gen, dev, 3, ys=ys)
+    ms_c, ms_h = (a1 + a2) / 2, (b1 + b2) / 2
+    print(f"phase 112: K = 4 train step B={B}: cond_hepmass42 {ms_c:.4f} ms ({B / ms_c * 1e3:.1f} samples/s), "
+          f"hepmass42 {ms_h:.4f} ms ({B / ms_h * 1e3:.1f} samples/s); ratio {ms_c / ms_h:.3f} (other data: other "
+          "step counts)")
+
+    records = []
+    for (label, k, jvp), (r1, r2) in held.items():
+        d, b = nets[label][5], nets[label][4]
+        fma, floats = cond_probe_fma_floats(d, d[0] - d[-1], k, b)
+        suffix = "" if label == "cond_hepmass42" else "/chain3"
+        for key, (out, err, ms, pms), n in zip(("k1wpc", "k2wpc"), (r1, r2), launches[(label, k, jvp)]):
+            name, _, _, src, at = names[key]
+            records.append(kernel_record(f"{name}/{probe_tag(k, jvp)}{suffix}", src, at, n, err, ms, pms, fma[key],
+                                         b, steps_of(out)[0], floats[key], accepted=steps_of(out)[1]))
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -4595,7 +4823,8 @@ def main() -> int:
                          ("87-90", lambda: stream_exact(cnf, fs, dev)),
                          ("91-96", lambda: stream_probe_paths(cnf, fs, dev)),
                          ("97-102", lambda: cond_wide(cnf, fs, dev)),
-                         ("103-107", lambda: cond_wide_exact(cnf, fs, dev, built))):
+                         ("103-107", lambda: cond_wide_exact(cnf, fs, dev, built)),
+                         ("108-112", lambda: cond_wide_probes(cnf, fs, dev, built))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -10,8 +10,8 @@
 // (wide_nc), and a tile's ys values sit in a (T, nc) array beside its
 // vectors.  The layout gains no field for them, so the unconditional
 // instances' arguments and machine code stay as they were.  Only the
-// forward reads the ys rows; the probe pullback reads layer 0's z rows
-// alone (the Jacobian is in z).
+// forward reads the ys rows; the probe pullback and pushforward read layer
+// 0's z rows alone (the Jacobian is in z).
 //
 // Why a tile and not a thread per sample (chain_common.cuh): at the tabular
 // MINIBOONE width 43 -> 128 -> 128 -> 43 one sample's K2 residuals are about
@@ -393,7 +393,9 @@ __device__ inline void wide_pullback_to(const WideLayout& L, const float* w, con
 // Down the layers, level l's tangent t_l = u_l gate(h_l), u_l = t_(l-1)
 // W_(l-1) (t_0 = eps), goes to the hidden block TB (h read from HB), and
 // u_l to UB unless UB is null; A (T, zp) gets the output layer's product
-// t_(N-1) W_(N-1) before its gate.
+// t_(N-1) W_(N-1) before its gate.  COND (K6 x K8): t_0 = [eps | 0], so
+// layer 0's product reads its z rows alone (_probe_pushforward :318-321).
+template <bool COND = false>
 __device__ inline void wide_pushforward(const WideLayout& L, const float* w, const float* E, int T, const float* HB,
                                         float* UB, float* TB, float* A) {
   const int n = L.n;
@@ -403,7 +405,7 @@ __device__ inline void wide_pushforward(const WideLayout& L, const float* w, con
     float* u = UB ? level(L, UB, T, i + 1) : nullptr;
     float* t = level(L, TB, T, i + 1);
     const int hp = L.hp[i + 1], on = L.act[i];
-    tile_mm(src, L.hp[i], L.width[i], w + L.wofs[i], L.pitch[i], nullptr, L.width[i + 1], T,
+    tile_mm(src, L.hp[i], COND && i == 0 ? L.dz : L.width[i], w + L.wofs[i], L.pitch[i], nullptr, L.width[i + 1], T,
             [&](int r, int o, float a) {
               if (u) u[r * hp + o] = a;
               t[r * hp + o] = a * gate(h[r * hp + o], on);

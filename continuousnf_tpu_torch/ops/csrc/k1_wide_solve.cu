@@ -54,6 +54,15 @@
 // ys column) that is 126 more FMA a sample and evaluation beside the
 // forward's 5,292 and the pullback's 5,292.  Its launch shape and entry are
 // cnf_k1wc_shape and cnf_k1w_cond_solve.
+//
+// The probe COND instance (K6 x K8): the probe instance's field on a
+// conditional chain (_stage_train with k_probes = K or jvp, on _zin): the
+// forward by wide_forward_cond from the tile's ys rows, then each probe's
+// pullback ending at layer 0's z rows (eJ = us[0][:dz], _probe_pullback
+// :305) or pushforward from the tangent [eps | 0] (_probe_pushforward
+// :318-321), as in the probe instance.  Its tile arrays are the probe
+// instance's and the tile's ys rows (T, nc); its launch shape and entry are
+// cnf_k1wpc_shape and cnf_k1w_probe_cond_solve.
 
 #include "chain_wide.cuh"
 
@@ -194,8 +203,10 @@ size_t cond_smem_bytes(const WideLayout& L, int T) {
 
 // The probe instance's field (K6): K probes a row at eps[k][s], reverse
 // (eps^T J) or, `jvp`, forward mode (J eps); HB keeps the activations and a
-// probe's hidden vectors go to TB.
-struct WideProbeField {
+// probe's hidden vectors go to TB.  COND: the forward reads the tile's ys
+// rows, the probe passes layer 0's z rows alone.
+template <bool COND>
+struct WideProbeField : CondRows<COND> {
   const WideLayout* L;
   const float* w;    // the shared weight region
   const float* eps;  // (K, B, dz)
@@ -209,7 +220,12 @@ struct WideProbeField {
   __device__ void operator()(int s0, int nv, const float* Z, float* KY, float* KR) const {
     const WideLayout& c = *L;
     const int dz = c.dz, zp = c.zp, on = c.act[c.n - 1];
-    cnf::wide_forward(c, w, Z, T, HB, KY);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::wide_nc(c), s0, nv, T, this->YS);
+      cnf::wide_forward_cond(c, w, Z, this->YS, T, HB, KY);
+    } else {
+      cnf::wide_forward(c, w, Z, T, HB, KY);
+    }
     for (int t = threadIdx.x; t < T; t += blockDim.x) {
       KR[t * 3 + 0] = 0.f;
       KR[t * 3 + 2] = 0.f;
@@ -224,7 +240,7 @@ struct WideProbeField {
       }
       __syncthreads();
       if (jvp) {
-        cnf::wide_pushforward(c, w, E, T, HB, nullptr, TB, V);
+        cnf::wide_pushforward<COND>(c, w, E, T, HB, nullptr, TB, V);
         for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
           const int t = idx / dz, k = idx % dz;
           EJ[t * zp + k] = V[t * zp + k] * cnf::gate(KY[t * zp + k], on);
@@ -283,12 +299,53 @@ __global__ void __launch_bounds__(kWideBlock) k1_wide_probe_solve(const ProbeArg
   float* EJ = V + T * L.zp;
   cnf::load_wide_weights(p.params, L, w);
   __syncthreads();
-  const WideProbeField field{&L, w, p.f.eps, HB, TB, E, V, EJ, p.f.B, T, pa.K, pa.jvp, p.f.norm_z, p.f.norm_j};
+  const WideProbeField<false> field{
+      {}, &L, w, p.f.eps, HB, TB, E, V, EJ, p.f.B, T, pa.K, pa.jvp, p.f.norm_z, p.f.norm_j};
   cnf::forward_solve_tiles<3, kStageUnroll>(p.f, field, T, scratch, red);
 }
 
 size_t probe_smem_bytes(const WideLayout& L, int T) {
   return sizeof(float) * ((size_t)L.wfloats + kRedFloats + probe_tile_floats(L, T));
+}
+
+// The probe COND instance's arguments (K6 x K8): the probe instance's and
+// the conditioning ys (B, nc).
+struct ProbeCondArgs {
+  ProbeArgs pa;
+  const float* ys;
+};
+
+// The probe COND instance's tile arrays: the probe instance's and the
+// tile's ys rows (T, nc).
+__host__ __device__ inline size_t probe_cond_tile_floats(const WideLayout& L, int T) {
+  return probe_tile_floats(L, T) + (size_t)T * cnf::wide_nc(L);
+}
+
+__global__ void __launch_bounds__(kWideBlock) k1_wide_probe_cond_solve(const __grid_constant__ ProbeCondArgs pc) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ WideLayout L;
+  const ProbeArgs& pa = pc.pa;
+  const Args& p = pa.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T;
+  float* w = smem;
+  float* red = w + L.wfloats;
+  float* scratch = red + kRedFloats;  // the solver's Z, KY, KR
+  float* HB = scratch + T * (2 * L.zp + 3);
+  float* TB = HB + T * L.hsum;
+  float* E = TB + T * L.hsum;
+  float* V = E + T * L.zp;
+  float* EJ = V + T * L.zp;
+  float* YS = EJ + T * L.zp;
+  cnf::load_wide_weights(p.params, L, w);
+  __syncthreads();
+  const WideProbeField<true> field{
+      {pc.ys, YS}, &L, w, p.f.eps, HB, TB, E, V, EJ, p.f.B, T, pa.K, pa.jvp, p.f.norm_z, p.f.norm_j};
+  cnf::forward_solve_tiles<3, kStageUnroll>(p.f, field, T, scratch, red);
+}
+
+size_t probe_cond_smem_bytes(const WideLayout& L, int T) {
+  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + probe_cond_tile_floats(L, T));
 }
 
 }  // namespace
@@ -392,4 +449,39 @@ extern "C" int cnf_k1w_cond_solve(const float* params, const float* eps, const f
   a.T = T;
   ca.ys = ys;
   return (int)cnf::coop_launch(k1_wide_cond_solve, ca, grid, block, cond_smem_bytes(a.L, T), (cudaStream_t)stream);
+}
+
+// The probe COND instance's launch shape (K6 x K8), as cnf_k1wc_shape.
+extern "C" int cnf_k1wpc_shape(int n, const int* widths, int B, int* out) {
+  WideLayout L;
+  if (B < 1 || !cnf::make_wide_layout(n, widths, &L, true)) return (int)cudaErrorInvalidValue;
+  size_t smem[3];
+  for (int o = 0; o < 3; ++o) smem[o] = probe_cond_smem_bytes(L, kTiles[o]);
+  return cnf::wide_shape(k1_wide_probe_cond_solve, smem, kTiles, kTiles, 3, B, out);
+}
+
+// The probe COND instance (K6 x K8): as cnf_k1w_probe_solve for a
+// conditional chain, with ys (B, nc) (device) after eps (K, B, dz),
+// nc = widths[0] - widths[n] >= 1; T, grid, block from cnf_k1wpc_shape.
+extern "C" int cnf_k1w_probe_cond_solve(const float* params, const float* eps, const float* ys, const float* z0,
+                                        const float* acc0, const float* ts, float* zT, float* accT, int* stats,
+                                        float* dt_last, float* work, float* partials, int B, int n,
+                                        const int* widths, int acts, int max_steps, int norm_z, int norm_j, int K,
+                                        int jvp, float rtol, float atol, float beta1, float beta2, float inv_order,
+                                        const float* tab, int T, int grid, int block, void* stream) {
+  ProbeCondArgs pc = {};
+  ProbeArgs& pa = pc.pa;
+  if (block != kWideBlock || grid < 1 || T < cnf::kRows || T % cnf::kRows != 0 || K < 1 || ys == nullptr ||
+      !cnf::make_wide_layout(n, widths, &pa.a.L, true))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_wide_acts(&pa.a.L, acts);
+  cnf::set_fwd_args(&pa.a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n], max_steps,
+                    norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
+  pa.a.params = params;
+  pa.a.T = T;
+  pa.K = K;
+  pa.jvp = jvp;
+  pc.ys = ys;
+  return (int)cnf::coop_launch(k1_wide_probe_cond_solve, pc, grid, block, probe_cond_smem_bytes(pa.a.L, T),
+                               (cudaStream_t)stream);
 }

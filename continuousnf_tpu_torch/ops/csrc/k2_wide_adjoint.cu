@@ -86,6 +86,22 @@
 // the one batch-global norm, a_ys0 (B, nc) returned.  The tile's ys rows
 // (T, nc) and k_ays (T, nc) take 2 nc floats a row more.  Its launch shape and entry are cnf_k2wc_shape and
 // cnf_k2w_cond_adjoint.
+//
+// The probe COND instance (K6 x K8): the probe instance's stage on a
+// conditional chain (_stage_train_fwdbwd with k_probes = K or jvp, on
+// _zin), on adjoint_solve_tiles' PROBES and COND forms together.  The
+// forward reads the tile's ys rows (wide_forward_cond).  The probe
+// sub-passes give layer 0's ys rows no term: in VJP the pullback ends at
+// layer 0's z rows and its VJP pads ct_u with zero ys rows (:451-455), so
+// the ascent reads layer 0's z rows alone; in JVP the tangent [eps | 0]
+// has zero ys rows (wide_pushforward<true>).  The forward chain's gradient
+// pass gives layer 0's ys rows ys (x) ca_1, as the COND instance does, and
+// k_ays = -(ca_1 (layer 0's ys rows)^T) comes from the forward chain's
+// VJP, whose ca already holds every probe's -2 h gate terms (HC): a_ys
+// depends on K and the direction.  Its shared arrays are the probe
+// instance's with k_ays (T, nc) after the solver's rates and the tile's ys
+// rows (T, nc) last; its launch shape and entry are cnf_k2wpc_shape and
+// cnf_k2w_probe_cond_adjoint.
 
 #include "chain_wide.cuh"
 
@@ -410,8 +426,10 @@ __device__ inline ProbeArrays probe_arrays(const WideLayout& L, int T, float* ba
 
 // The probe instance's stage of a tile (K6): the forward pass, then per
 // probe its pass and that pass's VJP, leaving the probe's vectors for
-// `flush`; then the rates and the forward chain's VJP.
-struct WideProbeStage {
+// `flush`; then the rates and the forward chain's VJP (COND: and KYS =
+// k_ays).
+template <bool COND>
+struct WideProbeStage : CondRows<COND> {
   const WideLayout* L;
   const float* w;      // the shared weight region
   const float* eps;    // (K, B, dz)
@@ -421,13 +439,18 @@ struct WideProbeStage {
 
   template <class Flush>
   __device__ void probes(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR, float* KAZ,
-                         const Flush& flush) const {
+                         const Flush& flush, [[maybe_unused]] float* KYS = nullptr) const {
     const WideLayout& c = *L;
     const int n = c.n, dz = c.dz, zp = c.zp, hs = c.hsum;
     const int on_y = c.act[n - 1];
     float *E = a.E, *VL = a.VL, *EJ = a.EJ, *CU = a.CU, *CAL = a.CAL, *CTY = a.CTY, *SC = a.SC;
     const float inv_k = 1.f / K;
-    cnf::wide_forward(c, w, Z, T, a.HS, KZ);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::wide_nc(c), s0, nv, T, this->YS);
+      cnf::wide_forward_cond(c, w, Z, this->YS, T, a.HS, KZ);
+    } else {
+      cnf::wide_forward(c, w, Z, T, a.HS, KZ);
+    }
     for (int idx = threadIdx.x; idx < T * hs; idx += blockDim.x) a.HC[idx] = 0.f;
     for (int idx = threadIdx.x; idx < T * zp; idx += blockDim.x) CTY[idx] = 0.f;
     for (int t = threadIdx.x; t < T; t += blockDim.x) {
@@ -447,7 +470,7 @@ struct WideProbeStage {
       __syncthreads();
       if (jvp) {
         // The pushforward, keeping u_l (U) and t_l (PU); t W_last to CAL.
-        cnf::wide_pushforward(c, w, E, T, a.HS, a.U, a.PU, CAL);
+        cnf::wide_pushforward<COND>(c, w, E, T, a.HS, a.U, a.PU, CAL);
         for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
           const int t = idx / dz, k = idx % dz;
           EJ[t * zp + k] = CAL[t * zp + k] * gate(KZ[t * zp + k], on_y);
@@ -516,7 +539,8 @@ struct WideProbeStage {
       } else {
         // Up the pullback: cu = eps ct_tr + eJ fn (CU); per layer ct_v = pu W,
         // pu of the level above = ct_v s'(h), hc += -2 h (ct_v u); at the
-        // output cty += -2 y (ct_v eps).
+        // output cty += -2 y (ct_v eps).  cu has no ys rows: layer 0's
+        // product reads its z rows.
         for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
           const int t = idx / dz, k = idx % dz, o = t * zp + k;
           CU[o] = fmaf(EJ[o], SC[t * 4 + 0], E[o] * SC[t * 4 + 3]);
@@ -529,8 +553,8 @@ struct WideProbeStage {
           const float* u = level(c, a.U, T, i + 1);
           const float* h = level(c, a.HS, T, i + 1);
           const int hp = c.hp[i + 1], on = c.act[i];
-          cnf::tile_mm(src, c.hp[i], c.width[i], w + c.wofs[i], c.pitch[i], nullptr, c.width[i + 1], T,
-                       [&](int t, int o, float cv) {
+          cnf::tile_mm(src, c.hp[i], COND && i == 0 ? dz : c.width[i], w + c.wofs[i], c.pitch[i], nullptr,
+                       c.width[i + 1], T, [&](int t, int o, float cv) {
                          const int x = t * hp + o;
                          const float hh = h[x];
                          pu[x] = cv * gate(hh, on);
@@ -577,13 +601,17 @@ struct WideProbeStage {
     }
     cnf::tile_mm_t(level(c, a.V, T, 1), c.hp[1], c.width[1], w + c.wofs[0], c.pitch[0], dz, T,
                    [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+    if constexpr (COND) cnf::wide_ys_cotangent(c, w, level(c, a.V, T, 1), T, KYS);
   }
 };
 
 // The probe instance's gradient terms (K6): the tile's sum over its first
 // nv rows of the negated gradient rate entry q, a probe's part (a_i (x) b_i;
 // nothing for a bias) or the forward chain's (in_i (x) ca_i, the biases).
-struct WideProbeGrad {
+// COND: layer 0's ys rows get no probe part and ys (x) ca_1 from the
+// forward chain.
+template <bool COND>
+struct WideProbeGrad : CondRows<COND> {
   const WideLayout* L;
   const float* Z;  // the solver's stage input z
   ProbeArrays a;
@@ -601,6 +629,16 @@ struct WideProbeGrad {
     float v = 0.f;
     if (r < in * out) {
       const int k = r / out, o = r % out;
+      if constexpr (COND) {
+        if (i == 0 && k >= c.dz) {
+          if (PROBE) return 0.f;
+          const int nc = in - c.dz;
+          const float* py = this->YS + (k - c.dz);
+          const float* pd = level(c, a.V, T, 1) + o;
+          for (int t = 0; t < nv; ++t) v = fmaf(py[t * nc], pd[t * op], v);
+          return -v;
+        }
+      }
       const float* px = (PROBE ? (i == 0 ? a.CU : level(c, a.PU, T, i)) : (i == 0 ? Z : level(c, a.HS, T, i))) + k;
       const float* py = (PROBE ? (i == n - 1 ? a.VL : level(c, a.V, T, i + 1))
                                : (i == n - 1 ? a.CAL : level(c, a.V, T, i + 1))) + o;
@@ -633,13 +671,53 @@ __global__ void __launch_bounds__(kWideBlock, 1) k2_wide_probe_adjoint(const Pro
   const ProbeArrays arrays = probe_arrays(L, T, scratch + T * (4 * L.zp + 3));
   cnf::load_wide_weights(p.params, L, w);
   __syncthreads();
-  const WideProbeStage stage{&L, w, p.eps, p.s.aaccT, arrays, p.s.B, T, pa.K, pa.jvp, p.norm_z, p.norm_j};
-  const WideProbeGrad grad{&L, scratch, arrays, T};
+  const WideProbeStage<false> stage{{}, &L, w, p.eps, p.s.aaccT, arrays, p.s.B, T, pa.K, pa.jvp, p.norm_z, p.norm_j};
+  const WideProbeGrad<false> grad{{}, &L, scratch, arrays, T};
   cnf::adjoint_solve_tiles<kStageUnroll, true>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew, red);
 }
 
 size_t probe_smem_bytes(const WideLayout& L, int T) {
   return sizeof(float) * ((size_t)L.wfloats + kRedFloats + probe_tile_floats(L, T));
+}
+
+// The probe COND instance's arguments (K6 x K8): the probe instance's and
+// the conditioning ys (B, nc).
+struct ProbeCondArgs {
+  ProbeArgs pa;
+  const float* ys;
+};
+
+// The probe COND instance's shared arrays past the solver's Z, AZ, KZ, KAZ,
+// KR: k_ays (T, nc), then the probe instance's tile arrays, then the tile's
+// ys rows (T, nc).
+__host__ __device__ inline size_t probe_cond_tile_floats(const WideLayout& L, int T) {
+  return probe_tile_floats(L, T) + (size_t)2 * T * cnf::wide_nc(L);
+}
+
+__global__ void __launch_bounds__(kWideBlock, 1)
+    k2_wide_probe_cond_adjoint(const __grid_constant__ ProbeCondArgs pc) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ WideLayout L;
+  const ProbeArgs& pa = pc.pa;
+  const AdjArgs& p = pa.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T, nc = cnf::wide_nc(L);
+  float* w = smem;
+  float* red = w + L.wfloats;
+  float* scratch = red + kRedFloats;  // the solver's Z, AZ, KZ, KAZ, KR and KYS
+  const ProbeArrays arrays = probe_arrays(L, T, scratch + T * (4 * L.zp + 3 + nc));
+  float* YS = arrays.SC + T * 4;
+  cnf::load_wide_weights(p.params, L, w);
+  __syncthreads();
+  const WideProbeStage<true> stage{
+      {pc.ys, YS}, &L, w, p.eps, p.s.aaccT, arrays, p.s.B, T, pa.K, pa.jvp, p.norm_z, p.norm_j};
+  const WideProbeGrad<true> grad{{pc.ys, YS}, &L, scratch, arrays, T};
+  cnf::adjoint_solve_tiles<kStageUnroll, true, 3, true>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew,
+                                                          red);
+}
+
+size_t probe_cond_smem_bytes(const WideLayout& L, int T) {
+  return sizeof(float) * ((size_t)L.wfloats + kRedFloats + probe_cond_tile_floats(L, T));
 }
 
 }  // namespace
@@ -768,5 +846,49 @@ extern "C" int cnf_k2w_cond_adjoint(const float* params, const float* eps, const
   a.T = T;
   ca.ys = ys;
   return (int)cnf::coop_launch(k2_wide_cond_adjoint, ca, grid, block, cond_smem_bytes(a.L, T),
+                               (cudaStream_t)stream);
+}
+
+// The probe COND instance's launch shape (K6 x K8), as cnf_k2wc_shape.
+extern "C" int cnf_k2wpc_shape(int n, const int* widths, int B, int* out) {
+  WideLayout L;
+  if (B < 1 || !cnf::make_wide_layout(n, widths, &L, true)) return (int)cudaErrorInvalidValue;
+  size_t smem[3];
+  for (int o = 0; o < 3; ++o) smem[o] = probe_cond_smem_bytes(L, kTiles[o]);
+  return cnf::wide_shape(k2_wide_probe_cond_adjoint, smem, kTiles, kTiles, 3, B, out);
+}
+
+// The probe COND instance (K6 x K8): as cnf_k2w_cond_adjoint with eps
+// (K, B, dz), K >= 1 probes, reverse mode or (jvp) forward mode; T, grid,
+// block from cnf_k2wpc_shape.
+extern "C" int cnf_k2w_probe_cond_adjoint(const float* params, const float* eps, const float* ys, const float* zT,
+                                          const float* accT, const float* azT, const float* aaccT, const float* ts,
+                                          float* z0, float* acc0, float* az0, float* ays0, float* g, int* stats,
+                                          float* work, float* partials, float* gblk, float* gnew, int B, int n,
+                                          const int* widths, int acts, int max_steps, int norm_z, int norm_j, int K,
+                                          int jvp, float rtol, float atol, float beta1, float beta2, float inv_order,
+                                          const float* tab, int T, int grid, int block, void* stream) {
+  ProbeCondArgs pc = {};
+  AdjArgs& a = pc.pa.a;
+  if (block != kWideBlock || grid < 1 || T < cnf::kRows || T % cnf::kRows != 0 || K < 1 || ys == nullptr ||
+      ays0 == nullptr || !cnf::make_wide_layout(n, widths, &a.L, true))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_wide_acts(&a.L, acts);
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, nullptr, B, widths[n],
+                     max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.s.nc = cnf::wide_nc(a.L);
+  a.s.ays0 = ays0;
+  a.params = params;
+  a.eps = eps;
+  a.g = g;
+  a.gnew = gnew;
+  a.gblk = gblk;
+  a.norm_z = norm_z;
+  a.norm_j = norm_j;
+  a.T = T;
+  pc.pa.K = K;
+  pc.pa.jvp = jvp;
+  pc.ys = ys;
+  return (int)cnf::coop_launch(k2_wide_probe_cond_adjoint, pc, grid, block, probe_cond_smem_bytes(a.L, T),
                                (cudaStream_t)stream);
 }

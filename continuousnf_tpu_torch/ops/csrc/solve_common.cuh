@@ -1049,12 +1049,14 @@ __device__ void forward_solve_tiles(const FwdArgs& p, const Field& field, int T,
 // the tile's probe terms `grad.probe(q, nv)` of every entry q into the b-,
 // btilde- (and btilde3-) weighted vectors and the stage-rate partial, and
 // after the stage the forward chain's `grad.fwd(q, nv)` follows: the
-// sub-passes sum to the stage's g rate (in another order).
+// sub-passes sum to the stage's g rate (in another order).  PROBES and COND
+// together (K6 x K8: the wide K2 chain form's probe COND instance): the
+// stage's `probes` takes KYS after `flush`, and k_ays is stored with the
+// stage's other rates after its last sub-pass.
 template <int U, bool PROBES = false, int NACC = 3, bool COND = false, class Stage, class Grad>
 __device__ __forceinline__ void adjoint_solve_tiles(const AdjState& p, const Stage& stage, const Grad& grad, int Pg,
                                                     int T, float* scratch, float* gblk, float* gcur, float* gnew,
                                                     float* red) {
-  static_assert(!(PROBES && COND), "the probe instances take no conditioning");
   cg::grid_group grid = cg::this_grid();
   const Tableau& Tb = share_tableau(p.tab);
   __shared__ float gtot[2];
@@ -1115,11 +1117,15 @@ __device__ __forceinline__ void adjoint_solve_tiles(const AdjState& p, const Sta
       pass([&](int q) { return grd.probe(q, nv); });
       __syncthreads();
     };
-    stg.probes(s0, nv, Z, AZ, KZ, KR, KAZ, flush);
+    if constexpr (COND)
+      stg.probes(s0, nv, Z, AZ, KZ, KR, KAZ, flush, KYS);
+    else
+      stg.probes(s0, nv, Z, AZ, KZ, KR, KAZ, flush);
     float* kst = K + st * RB;
     tile_store(KZ, zp, dz, kst, 0, B, s0, nv, T);
     tile_store(KR, NACC, NACC, kst, dz, B, s0, nv, T);
     tile_store(KAZ, zp, dz, kst, dz + NACC, B, s0, nv, T);
+    if constexpr (COND) tile_store(KYS, nc, nc, kst, 2 * dz + NACC, B, s0, nv, T);
     pass([&](int q) { return grd.fwd(q, nv); });
     __syncthreads();
   };

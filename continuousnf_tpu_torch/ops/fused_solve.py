@@ -878,7 +878,10 @@ def _wide_smem_floats(spec: ChainSpec, probes: bool = False) -> int:
     hidden blocks (each row padded to a multiple of 4) and 7 floats, and in
     its COND instance (K8) a row's n_cond ys values and n_cond ys
     cotangents; its probe instance (`probes`, K6) one more dz-vector and
-    hidden block a row."""
+    hidden block a row, its probe COND instance (K6 x K8) both: the probe
+    instance's rows with the n_cond ys values and k_ays.  The wide K1 chain
+    form's instances keep less (its probe COND instance 5 dz-vectors, 2
+    hidden blocks and 3 + n_cond floats a row)."""
     def pad4(x):
         return -(-x // 4) * 4
 
@@ -903,8 +906,9 @@ def _kernel_covers(
     and state widths up to MAX_DZ, conditional ones (K8) included, their wide
     forms the chains beyond, up to WIDE_MAX_DZ and WIDE_MAX_WIDTH, whose
     weights fit in a block's shared memory beside a tile (conditional ones
-    in the COND instances of the wide K1 and K2 chain forms, with one VJP
-    probe, and of wide K7's TEST and exact entries), and their streamed forms
+    in the COND instances of the wide K1 and K2 chain forms, with K VJP or
+    JVP probes in their probe COND instances, and of wide K7's TEST and
+    exact entries), and their streamed forms
     (`stream`; False asks for the
     wide forms alone) the unconditional chains the wide forms refuse for
     their state width, hidden widths or weights' shared memory (with K
@@ -913,8 +917,9 @@ def _kernel_covers(
     chain whose weights and per-thread slots do not fit in shared memory is
     refused at launch (`_launch_shape`).  The Hutchinson kernels (K1, K2,
     their chain forms and the chain forms' wide and streamed forms) take any
-    number `k_probes` of VJP or (`jvp`) JVP probes (K6) in unconditional
-    chains; conditional wide chains take one VJP probe (COND_WIDE_PROBES)."""
+    number `k_probes` of VJP or (`jvp`) JVP probes (K6), in conditional wide
+    chains too (K6 x K8) where the wide probe COND instances' shared memory
+    holds the chain (else COND_STREAM)."""
     if tab.btilde is None:
         return f"the {tab.name} tableau (no embedded error estimate: fixed-step solves stay outside the kernels)"
     if tab.num_stages > MAX_STAGES:
@@ -945,9 +950,9 @@ def _kernel_covers(
         return (f"state width {spec.dz} > {STREAM_MAX_DZ} (the streamed forms take up to {STREAM_MAX_DZ}, the wide "
                 f"forms {WIDE_MAX_DZ}; ROADMAP queue 2, shape variants (e))")
     if spec.n_cond:
-        if spec.dz > WIDE_MAX_DZ or _wide_limit(spec) is not None:
+        if spec.dz > WIDE_MAX_DZ or _wide_limit(spec, k_probes != 1 or jvp) is not None:
             return COND_STREAM
-        return COND_WIDE_PROBES if k_probes != 1 or jvp else None
+        return None
     if spec.dz > WIDE_MAX_DZ:
         why = (f"state width {spec.dz} > {WIDE_MAX_DZ} (the wide forms take up to {WIDE_MAX_DZ}, the streamed forms "
                f"{STREAM_MAX_DZ}; ROADMAP queue 2, shape variants (e))")
@@ -1001,11 +1006,9 @@ def _stream_chain(spec: ChainSpec, probes: bool = False) -> bool:
 
 
 #: What the kernels still refuse of conditional nets past the narrow widths
-#: (K8), each naming its ROADMAP queue 2 row.  The COND instances of the wide
-#: K1 and K2 chain forms, wide K7, wide K3, wide K5 and the wide K4 adjoint
-#: take the rest.
-COND_WIDE_PROBES = ("K probes and JVP probes in conditional wide chains (K6 x K8 in the wide probe instances; ROADMAP "
-                    "queue 2, shape variants (d), K8 in the wide probe instances)")
+#: (K8), naming its ROADMAP queue 2 row.  The COND instances of the wide K1
+#: and K2 chain forms (and their probe COND instances, K6 x K8), wide K7,
+#: wide K3, wide K5 and the wide K4 adjoint take the rest.
 COND_STREAM = ("conditional chains past the wide limits (K8 in the wide and streamed chain forms: the streamed forms' "
                "COND instances; ROADMAP queue 2, shape variants (d), K8 in the streamed forms)")
 
@@ -1166,6 +1169,8 @@ _SIGNATURES = {
         "cnf_k1w_probe_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
         "cnf_k1wc_shape": _WIDE_SHAPE,
         "cnf_k1w_cond_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k1wpc_shape": _WIDE_SHAPE,
+        "cnf_k1w_probe_cond_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K7W_KERNEL: {
         "cnf_k7w_test_shape": _WIDE_SHAPE,
@@ -1247,6 +1252,8 @@ _SIGNATURES = {
         "cnf_k2w_probe_adjoint": ([_P] * 16 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
         "cnf_k2wc_shape": _WIDE_SHAPE,
         "cnf_k2w_cond_adjoint": ([_P] * 18 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k2wpc_shape": _WIDE_SHAPE,
+        "cnf_k2w_probe_cond_adjoint": ([_P] * 18 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
 }
 
@@ -1987,8 +1994,10 @@ def _launch_wide_forward(label, lib_name, entry, shape, tab, spec, *, rtol, atol
     [ys], z0, acc0, ts, zT, accT, stats, dt_last, work, partials, [m],
     [tiles], B, n, widths, acts, max_steps, *norms, rtol, atol, the
     controller, the tableau, tile, grid, block, stream); `norms` ends with K
-    and jvp for the wide K1 chain form's probe instance, and eps is
-    (K, B, dz).  A COND instance (K8) takes the conditioning ys (B, n_cond).
+    and jvp for the wide K1 chain form's probe and probe COND instances,
+    and eps is (K, B, dz).  A COND instance (K8) takes the conditioning ys
+    (B, n_cond); the caller names the entry and its shape entry, by the
+    conditioning and the probes together.
     A streamed kernel (`stream`) takes the global tile scratch its shape
     entry asks for and, with `m` (streamed K3), the dz x H scratch of M that
     the launch builds.  Returns (zT, accT, steps, accepted, dt_last,
@@ -2125,7 +2134,9 @@ def _launch_wide_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws
                          t_hi, t_lo, dt_init, jvp=False, ys=None):
     """Launch the wide K2 chain form: its one-probe instance, its probe
     instance (K probes or JVP, K6) or, given ys (B, n_cond), its COND
-    instance (K8), which returns a_ys0 (B, n_cond) last."""
+    instance (K8) or probe COND instance (K6 x K8), which return a_ys0
+    (B, n_cond) last.  The shape entry and the entry are picked by the
+    conditioning and the probes together."""
     label = "wide K2 chain form"
     B, dz = zT.shape
     K, nc = eps.shape[0], spec.n_cond if ys is not None else 0
@@ -2136,7 +2147,8 @@ def _launch_wide_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws
     )
     lib = _library(K2W_KERNEL)
     probes = _probe_instance(eps, jvp)
-    shape = "cnf_k2wc_shape" if nc else "cnf_k2wp_shape" if probes else "cnf_k2w_shape"
+    shape = {(True, True): "cnf_k2wpc_shape", (True, False): "cnf_k2wc_shape", (False, True): "cnf_k2wp_shape",
+             (False, False): "cnf_k2w_shape"}[(bool(nc), probes)]
     block, grid, tile = _wide_shape(lib, shape, label, spec, widths, B)
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
     z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel(),
@@ -2146,7 +2158,8 @@ def _launch_wide_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws
     if nc:
         ys = _cond_rows(label, spec, ys, B, device)
         ays0 = torch.empty((B, nc), dtype=torch.float32, device=device)
-        err = lib.cnf_k2w_cond_adjoint(
+        entry = lib.cnf_k2w_probe_cond_adjoint if probes else lib.cnf_k2w_cond_adjoint
+        err = entry(
             _ptr(params), _ptr(e0), _ptr(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0),
             _ptr(acc0), _ptr(az0), _ptr(ays0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk),
             _ptr(gnew), B, spec.n_layers, widths, _acts_mask(spec), *tail,
@@ -2393,11 +2406,12 @@ def run_wide_cond_train_solve_kernel(
     (`run_wide_train_solve_kernel`) of a conditional chain past the narrow
     widths whose first layer reads [z | ys], ys (B, n_cond) constant over
     the solve (CondRNODE at the HEPMASS width, 43 -> 126 -> 42, one ys
-    column); one VJP probe (K probes and JVP raise on the card,
-    COND_WIDE_PROBES); arguments and returns as `run_train_solve_kernel`.
+    column); one VJP probe, or K VJP or JVP probes in its probe COND
+    instance (K6 x K8); arguments and returns as `run_train_solve_kernel`.
 
     CUDA tensors go through the kernel (`csrc/k1_wide_solve.cu`'s
-    `k1_wide_cond_solve`), CPU tensors through its plain version."""
+    `k1_wide_cond_solve`, or `k1_wide_probe_cond_solve` with K probes or
+    JVP), CPU tensors through its plain version."""
     _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_plain(
@@ -2405,16 +2419,19 @@ def run_wide_cond_train_solve_kernel(
             ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys, jvp=jvp,
         )
     _cuda_only("wide K1 COND", z0, tab, spec, eps.shape[0], chain=True, wide=True, jvp=jvp, cond=True)
+    probes = _probe_instance(eps, jvp)
     out = _launch_wide_forward(
-        "wide K1 chain form COND", K1W_KERNEL, "cnf_k1w_cond_solve", "cnf_k1wc_shape", tab, spec, rtol=rtol,
-        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
-        norms=(norm_z, norm_j), ys=ys,
+        "wide K1 chain form COND", K1W_KERNEL, "cnf_k1w_probe_cond_solve" if probes else "cnf_k1w_cond_solve",
+        "cnf_k1wpc_shape" if probes else "cnf_k1wc_shape", tab, spec, rtol=rtol, atol=atol, max_steps=max_steps,
+        ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
+        norms=(norm_z, norm_j) + ((eps.shape[0], jvp) if probes else ()), ys=ys,
     )
-    run_wide_cond_train_solve_kernel.launches += 1
+    _count(run_wide_cond_train_solve_kernel, eps, jvp)
     return out
 
 
 run_wide_cond_train_solve_kernel.launches = 0
+run_wide_cond_train_solve_kernel.probe_launches = {}
 
 
 def run_wide_cond_adjoint_kernel(
@@ -2424,12 +2441,14 @@ def run_wide_cond_adjoint_kernel(
     """The wide K2 chain form's COND instance: the backsolve of (z, acc, a_z,
     a_acc, a_ys, g_p) (`run_wide_adjoint_kernel`) of a conditional chain past
     the narrow widths, the per-sample a_ys integrated from 0 at t_hi in the
-    one batch-global error norm; one VJP probe; arguments as
-    `run_adjoint_kernel` with ys (B, n_cond), returns (z0, acc0, a_z0, g_ws,
-    g_bs, steps, accepted, a_ys0).
+    one batch-global error norm; one VJP probe, or K VJP or JVP probes in its
+    probe COND instance (K6 x K8); arguments as `run_adjoint_kernel` with ys
+    (B, n_cond), returns (z0, acc0, a_z0, g_ws, g_bs, steps, accepted,
+    a_ys0).
 
     CUDA tensors go through the kernel (`csrc/k2_wide_adjoint.cu`'s
-    `k2_wide_cond_adjoint`), CPU tensors through its plain version."""
+    `k2_wide_cond_adjoint`, or `k2_wide_probe_cond_adjoint` with K probes or
+    JVP), CPU tensors through its plain version."""
     _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
     if zT.device.type == "cpu":
         return adjoint_train_plain(
@@ -2442,12 +2461,13 @@ def run_wide_cond_adjoint_kernel(
         raise ValueError("the wide K2 chain form needs dt_init (the caller picks it)")
     out = _launch_wide_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
                                ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo,
-                               dt_init=dt_init, ys=ys)
-    run_wide_cond_adjoint_kernel.launches += 1
+                               dt_init=dt_init, jvp=jvp, ys=ys)
+    _count(run_wide_cond_adjoint_kernel, eps, jvp)
     return out
 
 
 run_wide_cond_adjoint_kernel.launches = 0
+run_wide_cond_adjoint_kernel.probe_launches = {}
 
 
 def run_wide_cond_test2_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init,
@@ -3127,8 +3147,8 @@ KERNEL_WRAPPERS = {
 #: The Hutchinson kernels' wrappers, whose `.probe_launches[(K, jvp)]`
 #: counts their probe instance's launches by probe count and direction (K6).
 PROBE_WRAPPERS = (run_train_solve_kernel, run_adjoint_kernel, run_chain_train_solve_kernel, run_chain_adjoint_kernel,
-                  run_wide_train_solve_kernel, run_wide_adjoint_kernel, run_stream_train_solve_kernel,
-                  run_stream_adjoint_kernel)
+                  run_wide_train_solve_kernel, run_wide_adjoint_kernel, run_wide_cond_train_solve_kernel,
+                  run_wide_cond_adjoint_kernel, run_stream_train_solve_kernel, run_stream_adjoint_kernel)
 
 
 def reset_launches() -> None:
@@ -3185,15 +3205,16 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     not), their narrow forms within state width MAX_DZ and hidden widths
     CHAIN_MAX_WIDTH, their wide forms beyond.  Conditional chains past the
     narrow widths run the COND instances of the wide forms (K8): the wide K1
-    and K2 chain forms' under Hutchinson TRAIN with one VJP probe, wide K7
+    and K2 chain forms' under Hutchinson TRAIN (their probe COND instances
+    with K VJP or JVP probes, K6 x K8), wide K7
     TEST's forward at 3-4 layers and wide K7 exact's forward at every depth
     and, for 2-layer tanh nets past MAX_DZ (CondRNODE at the HEPMASS width),
     wide K3's forward and wide K5's backward in TEST mode and the wide K4
     adjoint's backward under exact trace (deeper chains' exact gradient runs
-    the plain BACKSOLVE, as below); their K probes and JVP probes raise on
-    the card (COND_WIDE_PROBES), as does every conditional chain past the
-    wide limits (COND_STREAM); narrow conditional nets keep the narrow chain
-    kernels and K5's COND instance.
+    the plain BACKSOLVE, as below); every conditional chain past the wide
+    limits (with K probes or JVP, those of the wide probe COND instances)
+    raises on the card (COND_STREAM); narrow conditional nets keep the
+    narrow chain kernels and K5's COND instance.
     Hutchinson TRAIN solves run K1 (or its chain form) with the
     backward member K2 (or its chain form), with the K VJP or JVP probes of
     `compute_mode` (K6: their probe instances); exact-trace TRAIN solves run the

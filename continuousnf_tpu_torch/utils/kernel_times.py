@@ -25,7 +25,7 @@ cond_hepmass42 the COND instances of the wide forms (CondRNODE, MLP 43 ->
 126 -> 42 on [z | ys], B = 4096, tspan (0, 13); the "_condhep" keys: wide
 K3 COND and wide K5 COND from its output, the wide K1 and K2 chain forms'
 COND instances, wide K7 exact COND and the wide K4 adjoint COND from its
-output; one probe only),
+output),
 Glorot weights and data from numpy seeds, under
 one tableau (rtol 1e-3 / atol 1e-6; the README tolerances for verner65).
 Where the package has K5 (the TEST adjoint), it is timed on the flagship
@@ -36,8 +36,9 @@ probe (the "k10" key, [ms, 0]: a call's time, which its launch dominates).
 With `--probes K` (K Gaussian probes) or `--jvp` (forward-mode probes) it
 times only the Hutchinson kernels, K1 and K2 and their chain forms, through
 their probe instances (K6; the "/K<K>" or "/jvp-K<K>" keys), with the wide
-forms on miniboone43 and hepmass42 and the streamed forms on miniboone860
-and miniboone86 where `--models` names them.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
+forms on miniboone43 and hepmass42, the wide forms' probe COND instances on
+cond_hepmass42 (K6 x K8) and the streamed forms on miniboone860 and
+miniboone86 where `--models` names them.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
 one JSON line {"tableau": ..., "kernels": {name: [ms, attempted steps]}}.
 
 By default it uses only wrappers that earlier versions of the package have
@@ -95,10 +96,8 @@ def main() -> int:
     if "miniboone860" in models:
         kernels["miniboone860"] = [fs.K1S_KERNEL, fs.K2S_KERNEL] + ([] if probes else [fs.K7S_KERNEL])
     if "cond_hepmass42" in models:
-        if probes:
-            raise SystemExit("the COND instances of the wide forms take one VJP probe (cond_hepmass42)")
-        kernels["cond_hepmass42"] = [fs.K1W_KERNEL, fs.K2W_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL, fs.K7W_KERNEL,
-                                     fs.K4WA_KERNEL]
+        kernels["cond_hepmass42"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [
+            fs.K3W_KERNEL, fs.K5W_KERNEL, fs.K7W_KERNEL, fs.K4WA_KERNEL])
     if "hepmass42" in models:
         kernels["hepmass42"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [
             fs.K7W_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL, fs.K4WA_KERNEL])
@@ -149,11 +148,13 @@ def main() -> int:
         if probes:
             keys = {"flagship": ("k1", "k2"), "miniboone43": ("k1c_wide", "k2c_wide"),
                     "hepmass42": ("k1c_hepmass", "k2c_hepmass"), "miniboone86": ("k1c_mb86", "k2c_mb86"),
-                    "miniboone860": ("k1c_stream", "k2c_stream")}.get(name, ("k1c" + tag, "k2c" + tag))
+                    "miniboone860": ("k1c_stream", "k2c_stream"),
+                    "cond_hepmass42": ("k1wc_condhep", "k2wc_condhep")}.get(name, ("k1c" + tag, "k2c" + tag))
             wide = (fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel)
             stream = (fs.run_stream_train_solve_kernel, fs.run_stream_adjoint_kernel)
             runs = {"flagship": (fs.run_train_solve_kernel, fs.run_adjoint_kernel), "miniboone43": wide,
                     "hepmass42": wide, "miniboone860": stream, "miniboone86": stream,
+                    "cond_hepmass42": (fs.run_wide_cond_train_solve_kernel, fs.run_wide_cond_adjoint_kernel),
                     }.get(name, (fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel))
             time_pair(tuple(k + suffix for k in keys), spec, *runs, dict(train, eps=eps, **probe_kw),
                       dict(adj, eps=eps, **probe_kw))

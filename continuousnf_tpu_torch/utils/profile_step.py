@@ -22,8 +22,9 @@ and K2 chain forms, wide K3 and wide K5, and of wide K7 exact with the wide
 K4 adjoint for the exact-trace step), its weights and its data from a seed as `utils/configs.py` makes
 them, one Gaussian VJP probe (`--probes K` Gaussian probes, `--jvp`
 forward-mode ones: the Hutchinson train steps run the probe instances of
-the K1 and K2 kernels or of their chain forms, narrow, wide (miniboone43) or
-streamed (miniboone860, miniboone86, bsds126), K6), batch 4096 (or the configuration's own
+the K1 and K2 kernels or of their chain forms, narrow, wide (miniboone43;
+at cond_hepmass42 their probe COND instances, K6 x K8) or streamed
+(miniboone860, miniboone86, bsds126), K6), batch 4096 (or the configuration's own
 `batch`: 2048 for miniboone43 and bsds126, 1024 for miniboone860), fused kernels on, and for each path (the
 Hutchinson train step, the exact-trace train step, `logpdf`; for a
 configuration with its own training batch, the train step at that batch

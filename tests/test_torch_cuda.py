@@ -1368,24 +1368,25 @@ def test_wide_cond_chain_paths_on_the_card_match_the_twins_on_the_cpu(dev):
 
 @pytest.mark.parametrize(
     "case",
-    ["K-probes", "jvp", "streamed", "unconditional-instance", "unconditional-K7", "unconditional-K4",
-     "K4-hidden130"],
+    ["streamed", "unconditional-instance", "unconditional-K7", "unconditional-K4", "K4-hidden130",
+     "probe-shared-memory"],
 )
 def test_wide_cond_refusals_raise_on_cuda(dev, case):
     """What the kernels still refuse of conditional nets past the narrow
     widths raises on the card, naming its ROADMAP row, and launches
-    nothing: K probes and JVP probes in the wide forms, the streamed forms'
-    COND instances (the wide K4 adjoint's COND instance past the wide
-    limits names that row); the unconditional wide K1 chain form, wide K7
-    and the wide K4 adjoint take no conditional net."""
+    nothing: the streamed forms' COND instances (the wide K4 adjoint's COND
+    instance past the wide limits names that row, as does a chain whose
+    probe COND instance's shared memory it passes with two probes); the
+    unconditional wide K1 chain form, wide K7 and the wide K4 adjoint take
+    no conditional net."""
     dims = {"streamed": (44, 860, 860, 43), "unconditional-K7": (10, 72, 72, 8),
-            "K4-hidden130": (44, 130, 43)}.get(case, COND_HEPMASS)
+            "K4-hidden130": (44, 130, 43), "probe-shared-memory": (65, 128, 128, 120, 64)}.get(case, COND_HEPMASS)
     spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
     nc, dz, B = dims[0] - dims[-1], dims[-1], 64
     ys = _cond_ys(B, nc, dev)
     kw, adj = _train_args(dims, B, (0.0, 1.0), dev)
     kw["ys"] = ys
-    if case == "K-probes":
+    if case == "probe-shared-memory":
         kw["eps"] = torch.randn(2, B, dz, device=dev)
     k4_call = dict({k: v for k, v in adj.items() if k != "eps"}, zT=kw["z0"], accT=kw["acc0"],
                    dt_init=torch.tensor(-0.05, device=dev), ys=ys)
@@ -1394,8 +1395,7 @@ def test_wide_cond_refusals_raise_on_cuda(dev, case):
                              dict(_kernel_args(dims, B, (0.0, 1.0), dev), ys=ys)),
         "unconditional-K4": ("run_wide_exact_adjoint_kernel", "unconditional instance", k4_call),
         "K4-hidden130": ("run_wide_cond_exact_adjoint_kernel", tfs.COND_STREAM, k4_call),
-        "K-probes": ("run_wide_cond_train_solve_kernel", tfs.COND_WIDE_PROBES, kw),
-        "jvp": ("run_wide_cond_train_solve_kernel", tfs.COND_WIDE_PROBES, dict(kw, jvp=True)),
+        "probe-shared-memory": ("run_wide_cond_train_solve_kernel", tfs.COND_STREAM, kw),
         "streamed": ("run_wide_cond_train_solve_kernel", tfs.COND_STREAM, kw),
         "unconditional-instance": ("run_wide_train_solve_kernel", "unconditional instance", kw),
     }[case]
@@ -1404,6 +1404,82 @@ def test_wide_cond_refusals_raise_on_cuda(dev, case):
         getattr(tfs, wrapper)(TSIT5, spec, **call)
     assert why in str(err.value)
     assert not any(w.launches for w in tfs.KERNEL_WRAPPERS.values())
+
+
+# K6 x K8: (K, JVP?) of the probe COND instances' holds
+_COND_PROBES = ((2, False), (4, False), (8, False), (1, True), (2, True))
+
+
+@pytest.mark.parametrize("probes", _COND_PROBES, ids=[f"{'jvp-' if j else ''}K{k}" for k, j in _COND_PROBES])
+@pytest.mark.parametrize(
+    "dims,B,span",
+    [(COND_HEPMASS, 4096, (0.0, 13.0)), ((44, 128, 128, 43), 2048, (0.0, 1.0))],
+    ids=["cond-hepmass42-B4096", "three-layer-hidden128-B2048"],
+)
+def test_wide_cond_probe_kernels_match_twins(dev, dims, B, span, probes):
+    """The probe COND instances of the wide K1 and K2 chain forms (K6 x K8)
+    against their twins with the conditioning ys (B, n_cond) and K VJP or
+    JVP probes: the forward from nonzero accumulators (equal steps, values
+    within REL), the adjoint from its output warm-started from its last step
+    (equal steps; z0, acc0, a_z0 and a_ys0 held to the float64 twin;
+    gradients within GRAD_REL, layer 0's ys rows not zero).  One launch
+    each, counted under (K, jvp)."""
+    k, jvp = probes
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    nc, dz = dims[0] - dims[-1], dims[-1]
+    ys = _cond_ys(B, nc, dev)
+    kw, adj = _train_args(dims, B, span, dev)
+    eps = torch.from_numpy(np.random.default_rng(14).normal(size=(k, B, dz)).astype(np.float32)).to(dev)
+    kw.update(ys=ys, eps=eps, jvp=jvp)
+    adj.update(ys=ys, eps=eps, jvp=jvp)
+    runs = (tfs.run_wide_cond_train_solve_kernel, tfs.run_wide_cond_adjoint_kernel)
+    before = [w.probe_launches.get((k, jvp), 0) for w in runs]
+    tdir = 1.0 if span[1] > span[0] else -1.0
+    with torch.no_grad():
+        out_k = runs[0](TSIT5, spec, **kw)
+        out_p = tfs.solve_train_plain(TSIT5, spec, **kw)
+        adj.update(zT=out_k[0], accT=out_k[1], dt_init=-tdir * out_k[4].abs())
+        k2 = [runs[1](TSIT5, spec, **adj), tfs.adjoint_train_plain(TSIT5, spec, **adj),
+              _twin64(tfs.adjoint_train_plain, spec, adj)]
+    torch.cuda.synchronize()
+    assert [w.probe_launches.get((k, jvp), 0) for w in runs] == [n + 1 for n in before]
+    _hold_forward(out_k, out_p)
+    _hold_cond_adjoint(*k2)
+    assert float(k2[0][3][0][dz:].abs().max()) > 0.0
+
+
+def test_wide_cond_probe_path_on_the_card_matches_the_twins_on_the_cpu(dev):
+    """cond_hepmass42 (CondRNODE, MLP 43 -> 126 -> 42 on [z | ys]; tspan
+    (0, 1) here) with four VJP probes on the card and on the CPU at B = 256:
+    the loss and its gradient in the params and ys through the probe COND
+    instances of the wide K1 and K2 chain forms, each launching once under
+    (4, False) and no other kernel."""
+    rng = np.random.default_rng(15)
+    xs = rng.normal(size=(256, 21)).astype(np.float32)
+    ys = rng.choice([-1.414, -0.707, 0.0, 0.707, 1.414], size=(256, 1)).astype(np.float32)
+    eps = np.random.default_rng(16).normal(size=(4, 256, 42)).astype(np.float32)
+    ps_np = _np_params(COND_HEPMASS, 17)
+
+    def run(device):
+        icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP(COND_HEPMASS, device=device), 21, 21, tspan=(0.0, 1.0),
+                              steer_rate=0.1, lam3=1e-2, compute_mode=tcnf.VecJacMode(4, fused=True))
+        ps = tcnf.params_from_numpy(ps_np, device)
+        y = torch.from_numpy(ys).to(device).requires_grad_()
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])] + [y]
+        l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=y, eps=eps, steer_r=0.05)
+        return l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)]
+
+    runs = (tfs.run_wide_cond_train_solve_kernel, tfs.run_wide_cond_adjoint_kernel)
+    before, probes = _launches(), [w.probe_launches.get((4, False), 0) for w in runs]
+    l_k, g_k = run(dev)
+    after = _launches()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        tfs.K1W_KERNEL + "/cond": 1, tfs.K2W_KERNEL + "/cond": 1}
+    assert [w.probe_launches.get((4, False), 0) for w in runs] == [n + 1 for n in probes]
+    l_c, g_c = run(torch.device("cpu"))
+    assert _close(l_k, l_c)
+    for a, b in zip(g_k, g_c):
+        assert _grad_close(a, b)
 
 
 # ---- streamed K3 and K5, and the streamed chain forms to state width 128 ----

@@ -215,16 +215,17 @@ _WIDE_COVERED = {
 # name -> (dims, n_cond, what the refusal names, probes).  Past state width
 # 64, hidden width 128 or shared memory the streamed forms take one VJP
 # probe; with two the chain is refused, naming why the wide forms do not
-# take it.  Conditional wide chains run the wide forms' COND instances with
-# one VJP probe; with two they are refused (K6 x K8 in the wide probe
-# instances).
+# take it.  Conditional wide chains run the wide forms' COND instances, with
+# two probes their probe COND instances (K6 x K8); past the probe COND
+# instances' shared memory or the wide widths they are refused (K8 in the
+# streamed forms).
 _WIDE_REFUSED = {
     "dz65": ((65, 128, 128, 65), 0, "state width 65 > 64", 2),
     "hidden129": ((43, 129, 128, 43), 0, "hidden width 129 > 128", 2),
-    "conditional-wide": ((43, 128, 128, 43), 2, "conditional wide chains", 2),
+    "conditional-wide": ((64, 128, 128, 120, 64), 1, "conditional chains past the wide limits", 2),
     "five-layer": ((43, 64, 64, 64, 64, 43), 0, "5-layer chains", 1),
     "weights-past-shared-memory": ((64, 128, 128, 128, 64), 0, "shared memory", 2),
-    "conditional-hepmass42": ((42, 126, 42), 1, "K8 in the wide", 2),
+    "conditional-hepmass42": ((42, 129, 42), 1, "K8 in the wide", 2),
     "two-layer-dz66": ((66, 198, 66), 0, "state width 66 > 64", 2),
 }
 

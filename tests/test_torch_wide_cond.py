@@ -2,8 +2,9 @@
 package on the CPU (K8 in the wide forms): a conditional 2-layer net
 `MLP((35, 72, 34))` on [z | ys] with one ys column, whose TEST stages run
 wide K3's and wide K5's COND instances on the card, its Hutchinson ones
-the wide K1 and K2 chain forms' COND instances and its exact ones wide K7
-exact's and the wide K4 adjoint's, and a conditional 3-layer chain
+the wide K1 and K2 chain forms' COND instances (with K probes or JVP their
+probe COND instances: tests/test_torch_wide_cond_probes.py) and its exact
+ones wide K7 exact's and the wide K4 adjoint's, and a conditional 3-layer chain
 `MLP((10, 72, 72, 8))` with two ys columns, past hidden width 64, which
 trains through the same chain-form instances and serves through wide K7
 TEST's (the exact trace: tests/test_torch_wide_cond_exact.py).  The COND twins through
@@ -312,8 +313,8 @@ _COVERAGE = {
     "three-layer": (THREE, 2, 1, False, None),
     "cond-hepmass42": (COND_HEPMASS, 1, 1, False, None),
     "dz64-hidden128": ((65, 128, 128, 64), 1, 1, False, None),
-    "two-layer-K2": (TWO, 1, 2, False, tfs.COND_WIDE_PROBES),
-    "three-layer-jvp": (THREE, 2, 1, True, tfs.COND_WIDE_PROBES),
+    "two-layer-K2": (TWO, 1, 2, False, None),
+    "three-layer-jvp": (THREE, 2, 1, True, None),
     "hidden129": ((44, 129, 43), 1, 1, False, tfs.COND_STREAM),
     "dz65": ((66, 130, 65), 1, 1, False, tfs.COND_STREAM),
     "miniboone860": ((44, 860, 860, 43), 1, 1, False, tfs.COND_STREAM),
@@ -323,10 +324,10 @@ _COVERAGE = {
 @pytest.mark.parametrize("name", list(_COVERAGE))
 def test_wide_cond_coverage(name):
     """The wide K1 and K2 chain forms' COND instances take conditional chains
-    past the narrow widths that the wide forms keep, with one VJP probe; K
-    probes or JVP probes there, and conditional chains past the wide limits,
-    are refused naming their ROADMAP queue 2 rows, and the streamed forms
-    take none of them."""
+    past the narrow widths that the wide forms keep, with one VJP probe and
+    (their probe COND instances) with K probes or JVP probes; conditional
+    chains past the wide limits are refused naming their ROADMAP queue 2
+    row, and the streamed forms take none of them."""
     dims, nc, k, jvp, why = _COVERAGE[name]
     spec = _spec(dims, nc)
     assert tfs._wide_chain(spec) and not tfs._stream_chain(spec) and not tfs._stream_chain(spec, True)
@@ -361,8 +362,8 @@ def _fake_cuda():
 
 # name -> (check, dims, n_cond, keyword arguments, the row or reason the refusal names)
 _REFUSED = {
-    "wide-probes-K4": ("chain", TWO, 1, dict(wide=True, cond=True, k_probes=4), tfs.COND_WIDE_PROBES),
-    "wide-probes-jvp": ("chain", THREE, 2, dict(wide=True, cond=True, jvp=True), tfs.COND_WIDE_PROBES),
+    "probe-instance-shared-memory": ("chain", (65, 128, 128, 120, 64), 1, dict(wide=True, cond=True, k_probes=2),
+                                     tfs.COND_STREAM),
     "streamed-chain": ("chain", (44, 860, 860, 43), 1, dict(wide=True, cond=True), tfs.COND_STREAM),
     "streamed-two-layer": ("two", (87, 258, 86), 1, dict(cond=True), tfs.COND_STREAM),
     "wide-K4-adjoint-hidden130": ("two", (44, 130, 43), 1, dict(cond=True), tfs.COND_STREAM),
@@ -377,9 +378,10 @@ _REFUSED = {
 def test_cond_refusals_on_the_card_name_their_row(name):
     """What the card still refuses of conditional nets past the narrow widths
     raises NotImplementedError through the wrappers' checks, naming its
-    ROADMAP queue 2 row (stable names): K probes and JVP in the wide probe
-    instances, the streamed forms' COND instances (past the wide limits the
-    wide 2-layer kernels, the wide K4 adjoint among them, name that row);
+    ROADMAP queue 2 row (stable names): the streamed forms' COND instances
+    (past the wide limits the wide 2-layer kernels, the wide K4 adjoint
+    among them, name that row; with two probes, a chain the one-probe COND
+    instance keeps whose probe COND instance's shared memory it passes);
     and no unconditional instance takes a conditional net, nor a COND
     instance an unconditional one."""
     check, dims, nc, kw, why = _REFUSED[name]
@@ -391,18 +393,20 @@ def test_cond_refusals_on_the_card_name_their_row(name):
         else:
             tfs._cuda_only_wide_two_layer("wide K3", _fake_cuda(), TSIT5, spec, **kw)
     assert why in str(err.value)
-    if why.startswith(("K probes", "conditional chains past")):
+    if why.startswith("conditional chains past"):
         assert "ROADMAP queue 2" in str(err.value)
 
 
-# name -> (check, label, dims, n_cond); None: the chain forms' and wide K3's
+# name -> (check, label, dims, n_cond, probes, JVP?); None: the chain forms' and wide K3's
 _ACCEPTED = {
     "chain-forms-and-K3": None,
-    "wide-K7-TEST-three-layer": ("chain", "wide K7", THREE, 2),
-    "wide-K7-exact-two-layer": ("chain", "wide K7", TWO, 1),
-    "wide-K7-exact-cond-hepmass42": ("chain", "wide K7", COND_HEPMASS, 1),
-    "wide-K4-adjoint": ("two", "the wide K4 adjoint", TWO, 1),
-    "wide-K4-adjoint-cond-hepmass42": ("two", "the wide K4 adjoint", COND_HEPMASS, 1),
+    "wide-K7-TEST-three-layer": ("chain", "wide K7", THREE, 2, 1, False),
+    "wide-K7-exact-two-layer": ("chain", "wide K7", TWO, 1, 1, False),
+    "wide-K7-exact-cond-hepmass42": ("chain", "wide K7", COND_HEPMASS, 1, 1, False),
+    "wide-K4-adjoint": ("two", "the wide K4 adjoint", TWO, 1, 1, False),
+    "wide-K4-adjoint-cond-hepmass42": ("two", "the wide K4 adjoint", COND_HEPMASS, 1, 1, False),
+    "wide-probes-K4": ("chain", "wide K1", TWO, 1, 4, False),
+    "wide-probes-jvp": ("chain", "wide K2", THREE, 2, 1, True),
 }
 
 
@@ -411,7 +415,8 @@ def test_cond_instances_accept_what_they_cover(name):
     """The same checks pass the configurations the COND instances take:
     cond_hepmass42 and the conditional 2-layer net in the chain forms', wide
     K3's, wide K7's and the wide K4 adjoint's, the 3-layer chain in the
-    chain forms' and wide K7's."""
+    chain forms' and wide K7's; K probes and JVP probes in the chain forms'
+    probe COND instances (K6 x K8)."""
     if _ACCEPTED[name] is None:
         for dims, nc in ((COND_HEPMASS, 1), (TWO, 1)):
             spec = _spec(dims, nc)
@@ -419,10 +424,10 @@ def test_cond_instances_accept_what_they_cover(name):
             tfs._cuda_only_wide_two_layer("wide K3", _fake_cuda(), TSIT5, spec, cond=True)
         tfs._cuda_only("wide K2", _fake_cuda(), TSIT5, _spec(THREE, 2), chain=True, wide=True, cond=True)
         return
-    check, label, dims, nc = _ACCEPTED[name]
+    check, label, dims, nc, k, jvp = _ACCEPTED[name]
     spec = _spec(dims, nc)
     if check == "chain":
-        tfs._cuda_only(label, _fake_cuda(), TSIT5, spec, chain=True, wide=True, cond=True)
+        tfs._cuda_only(label, _fake_cuda(), TSIT5, spec, k, chain=True, wide=True, jvp=jvp, cond=True)
     else:
         tfs._cuda_only_wide_two_layer(label, _fake_cuda(), TSIT5, spec, cond=True)
 
@@ -436,6 +441,10 @@ _ROUTES = {
                                                   "run_wide_cond_exact_adjoint_kernel"]),
     "two-layer-train-K2": (TWO, "train", 2, False, ["run_wide_cond_train_solve_kernel",
                                                     "run_wide_cond_adjoint_kernel"]),
+    "two-layer-train-K4": (TWO, "train", 4, False, ["run_wide_cond_train_solve_kernel",
+                                                    "run_wide_cond_adjoint_kernel"]),
+    "two-layer-train-jvp2": (TWO, "train", 2, True, ["run_wide_cond_train_solve_kernel",
+                                                     "run_wide_cond_adjoint_kernel"]),
     "three-layer-test": (THREE, "test", 1, False, ["run_wide_cond_test_solve_kernel"]),
     "three-layer-exact": (THREE, "exact", 1, False, ["run_wide_cond_exact_solve_kernel"]),
     "three-layer-train": (THREE, "train", 1, False, ["run_wide_cond_train_solve_kernel",
@@ -454,7 +463,7 @@ def test_fused_solve_takes_the_cond_instances(monkeypatch, route):
     """`make_full_solve` runs a conditional net past the narrow widths
     through the COND instances: a 2-layer tanh net through wide K3's and
     wide K5's (TEST) and the wide K1 and K2 chain forms' (Hutchinson, any
-    probes: the card refuses K probes and JVP there), a 3-layer chain
+    probes: K probes and JVP run their probe COND instances), a 3-layer chain
     through the chain forms' (Hutchinson) and wide K7 TEST's and exact's
     (the TEST forward; the exact forward, whose gradient runs the plain
     BACKSOLVE); exact training of a 2-layer net through wide K7 exact's and

@@ -177,11 +177,17 @@ def test_wide_forms_cover_probes(name, probes):
 
 @pytest.mark.parametrize("probes", list(_PROBE_CONFIGS))
 def test_conditional_wide_chains_with_probes_stay_refused(probes):
-    """A conditional wide chain is refused with probes too, naming its
-    ROADMAP row (K8 in the wide forms)."""
+    """A conditional wide chain that the wide probe COND instances keep
+    (MINIBOONE with two ys columns) runs them with probes (K6 x K8); one
+    whose probe COND instance's shared memory it passes, though the
+    one-probe COND instance keeps it, stays refused with probes, naming its
+    ROADMAP row (K8 in the streamed forms)."""
     k, jvp = _PROBE_CONFIGS[probes]
-    msg = tfs._kernel_covers(TSIT5, _spec(MINIBOONE, 2), k, chain=True, jvp=jvp)
-    assert msg is not None and "conditional wide chains" in msg and "ROADMAP queue 2" in msg
+    assert tfs._kernel_covers(TSIT5, _spec(MINIBOONE, 2), k, chain=True, jvp=jvp) is None
+    spec = _spec((64, 128, 128, 120, 64), 1)
+    assert tfs._kernel_covers(TSIT5, spec, chain=True) is None
+    msg = tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp)
+    assert msg == tfs.COND_STREAM and "conditional chains past the wide limits" in msg and "ROADMAP queue 2" in msg
 
 
 def test_probe_instance_shared_memory_rule():
