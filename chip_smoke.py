@@ -521,10 +521,9 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      nothing else, the TEST loss gradient wide K3 COND and wide K5 COND once
      each, the train step's gradient the wide K1 and K2 chain forms' COND
      instances once each, the conditional `fit` for four Lion steps only
-     those two, at least four times each; and each configuration still
-     refused raising on the card, naming its ROADMAP row, with nothing
-     launched: K probes and JVP probes (K6 x K8), a conditional net past the
-     wide limits (the streamed forms' COND instances);
+     those two, at least four times each; and a conditional net past the
+     wide limits (MLP 87 -> 258 -> 86 at B = 256) training through the
+     streamed forms' COND instances (phases 113-117);
 102. CUDA-event times of the train step, `logpdf` and the TEST loss
      gradient at cond_hepmass42, each beside hepmass42's in the same run;
 103. K8 in wide K7 and in the wide K4 adjoint: the launch shapes of wide K7
@@ -550,7 +549,46 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      gradient wide K7 exact COND once (the backward plain);
 107. CUDA-event times, in the order a b b a: cond_hepmass42's exact train
      step beside hepmass42's, the 3-layer chain's `logpdf` beside
-     miniboone43's (B = 2048), in the same run.
+     miniboone43's (B = 2048), in the same run;
+108. K6 x K8: the launch shapes of the wide K1 and K2 chain forms' probe
+     COND instances at cond_hepmass42 (B = 4096) and the 3-layer chain
+     (B = 2048), ptxas's registers, stack frame and spills;
+109. each against its twin at K = 2, 4, 8 VJP and K = 1, 2 JVP on both
+     nets, timed beside hepmass42's and miniboone43's wide probe instances;
+110. cond_hepmass42's K = 4 gradient in the params and ys at B = 256
+     against the plain path and a float64 rtol 1e-7 solve;
+111. every probe configuration's loss gradient, the K = 4 train step and
+     `fit`, the 3-layer JVP step, each launching only the probe COND
+     instances;
+112. the K = 4 train step beside hepmass42's, a b b a;
+113. K8 in the streamed forms, cond_miniboone86 (CondRNODE, nvars = naug =
+     43, one ys column, MLP 87 -> 258 -> 86 on [z | ys], miniboone86's
+     recipe, ys the standardised MiniBooNE label) at B = 4096 and the
+     conditional miniboone860 chain (MLP 44 -> 860 -> 860 -> 43, one ys
+     column, B = 1024): the launch shapes of the COND instances of streamed
+     K3, streamed K5 and the streamed K1 and K2 chain forms, and ptxas's
+     registers, stack frame and spills beside the unconditional instances';
+114. each against its twin (forwards from nonzero accumulators, adjoints
+     from their forward's output with its last step as the warm start:
+     equal steps, values within TOL, gradients and a_ys0 within GRAD_TOL,
+     W1's ys rows' gradient not zero), the chain forms' also on the
+     miniboone860 chain; each timed beside miniboone86's unconditional
+     instance in the same run, a b b a, per attempted step;
+115. at B = 256, the train step's loss and gradient (params and ys) and the
+     TEST loss gradient (params, xs and ys) through the COND instances, the
+     plain path and a float64 rtol 1e-7 solve, within SOLVE_REL;
+116. the main paths at cond_miniboone86, counters reset just before each:
+     `CondICNFDist.logpdf` and `sample` each launching streamed K3 COND
+     once and nothing else, the TEST loss gradient streamed K3 COND and
+     streamed K5 COND once each, the train step (loss, gradient, Lion) the
+     streamed K1 and K2 chain forms' COND instances once each (the
+     miniboone860 chain's train step too), `fit` for four Lion steps only
+     those two, at least four times each; and, by name with nothing
+     launched, what is still refused: exact training (row (d5)), two probes
+     (row (d6)), the miniboone860 chain's `logpdf` (streamed K7 TEST, (d5));
+117. CUDA-event times of the train step, `logpdf` and the TEST loss
+     gradient at cond_miniboone86, each beside miniboone86's in the same
+     run, a b b a.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -3357,33 +3395,41 @@ def stream_two_layer_names(fs):
     }
 
 
-def stream_two_layer_runs(label, fs, spec, test, train, cot, rng, dev, keys=("k3s", "k5s", "k1c", "k2c"), reps=3):
+def stream_two_layer_runs(label, fs, spec, test, train, cot, rng, dev, keys=("k3s", "k5s", "k1c", "k2c"), reps=3,
+                          names=None, kws=None):
     """The path's kernels against their twins on one model's inputs (held as
     phases 16, 17 and 47 hold theirs), each timed: streamed K3 and the
     streamed K1 chain form from nonzero accumulators, streamed K5 from
     streamed K3's output and the streamed K2 chain form from the K1 chain
-    form's, each warm-started from its forward's last step."""
+    form's, each warm-started from its forward's last step.  `names`: the
+    kernels of the K3, K5, K1 and K2 roles under those keys
+    (`stream_two_layer_names` unless given); `kws` receives each kernel's
+    arguments."""
     import torch
     from continuousnf_tpu_torch.ode.tableaus import TSIT5
 
-    names = stream_two_layer_names(fs)
+    names = names or stream_two_layer_names(fs)
+    kws = {} if kws is None else kws
     B, dz = test["z0"].shape
     T = lambda a: torch.from_numpy(np.asarray(a, "float32")).to(dev)  # noqa: E731
     runs = {}
+
+    def run(key, kw, adjoint=False):
+        kws[key] = kw
+        runs[key] = run_pair(f"{names[key][0]} ({label})", names[key][1], names[key][2], TSIT5, spec, kw,
+                             adjoint=adjoint, reps=reps)
+
     for key, kw in (("k3s", test), ("k1c", train)):
         if key in keys:
-            runs[key] = run_pair(f"{names[key][0]} ({label})", names[key][1], names[key][2], TSIT5, spec, kw,
-                                 reps=reps)
+            run(key, kw)
     if "k2c" in keys:
-        runs["k2c"] = run_pair(f"{names['k2c'][0]} ({label})", names["k2c"][1], names["k2c"][2], TSIT5, spec,
-                               adjoint_kw(train, runs["k1c"][0], cot), adjoint=True, reps=reps)
+        run("k2c", adjoint_kw(train, runs["k1c"][0], cot), adjoint=True)
     if "k5s" in keys:
         k5_kw = dict(adjoint_kw(test, runs["k3s"][0], dict(azT=T(rng.normal(0.0, 1.0 / B, (B, dz))),
                                                            aaccT=T(np.full((1, B), 1.0 / B)), t_hi=test["t1"],
                                                            t_lo=test["t0"])), accT=runs["k3s"][0][1][None])
         k5_kw.pop("dlogp0")
-        runs["k5s"] = run_pair(f"{names['k5s'][0]} ({label})", names["k5s"][1], names["k5s"][2], TSIT5, spec, k5_kw,
-                               adjoint=True, reps=reps)
+        run("k5s", k5_kw, adjoint=True)
     return runs
 
 
@@ -4067,9 +4113,10 @@ def cond_fma_floats(dims, nc, B):
     return fma, floats
 
 
-def refuses(fs, label, why, fn) -> None:
+def refuses(fs, label, why, fn, phase=101) -> None:
     """`fn()` raises NotImplementedError naming `why` on the card and
-    launches nothing (the counters reset just before it)."""
+    launches nothing (the counters reset just before it); printed under
+    `phase`."""
     import torch
 
     fs.reset_launches()
@@ -4078,7 +4125,7 @@ def refuses(fs, label, why, fn) -> None:
     except NotImplementedError as e:
         torch.cuda.synchronize()
         check(why in str(e) and not launched(fs), f"{label}: raised {e!r}, launched {launched(fs)}")
-        print(f"phase 101: {label} raises on the card: {str(e)[:160]}")
+        print(f"phase {phase}: {label} raises on the card: {str(e)[:160]}")
         return
     check(False, f"{label} ran on the card; it should raise naming {why!r}")
 
@@ -4218,12 +4265,20 @@ def cond_wide(cnf, fs, dev):
     check(set(n_fit) == set(want) and min(n_fit.values()) >= N_STEPS, f"cond_hepmass42 fit launched {n_fit}")
     print(f"phase 101: cond_hepmass42 main paths: logpdf {n_serve['logpdf']} and sample {n_serve['sample']} "
           f"launches of {names['k3wc'][0]}, TEST loss gradient {n_test}, train step {n_step}, fit {n_fit}")
+    # A conditional net past the wide limits, refused here until the
+    # streamed forms' COND instances (phases 113-117), trains through them.
     small = slice(0, COND_TRUTH_BATCH)
-    refuses(fs, "a conditional net past the wide limits (MLP 87 -> 258 -> 86)", fs.COND_STREAM,
-            lambda: loss_grad(cnf, cnf.construct(cnf.CondRNODE, cnf.MLP((87, 258, 86), device=dev), 43, 43,
-                                                 tspan=(0.0, 1.0), compute_mode=cnf.VecJacMode(fused=True)),
-                              glorot_params(np.random.default_rng(SEED + 905), (87, 258, 86)), xs_c[small, :43], dev,
-                              ys=ys[small]))
+    fs.reset_launches()
+    _, g_past, _ = loss_grad(cnf, cnf.construct(cnf.CondRNODE, cnf.MLP((87, 258, 86), device=dev), 43, 43,
+                                                tspan=(0.0, 1.0), compute_mode=cnf.VecJacMode(fused=True)),
+                             glorot_params(np.random.default_rng(SEED + 905), (87, 258, 86)), xs_c[small, :43], dev,
+                             ys=ys[small])
+    torch.cuda.synchronize()
+    n_past = launched(fs)
+    check(n_past == {fs.K1S_KERNEL + "/cond": 1, fs.K2S_KERNEL + "/cond": 1}
+          and all(bool(torch.isfinite(g).all()) for g in g_past),
+          f"a conditional net past the wide limits (MLP 87 -> 258 -> 86) launched {n_past}")
+    print(f"phase 101: a conditional net past the wide limits (MLP 87 -> 258 -> 86) trains on the card: {n_past}")
 
     # Phase 102: CUDA-event times beside hepmass42's, in the same run.
     gen = torch.Generator(device=dev).manual_seed(SEED + 906)
@@ -4745,6 +4800,239 @@ def cond_wide_probes(cnf, fs, dev, built):
     return records
 
 
+# ---- K8 in the streamed forms: conditional nets past the wide limits ----
+
+COND_MB860_DIMS = (44, 860, 860, 43)  # phases 114 and 116: the conditional miniboone860 chain, one ys column
+
+
+def cond_stream_names(fs):
+    """The cond_miniboone86 path's kernels: record key -> (KERNEL_WRAPPERS
+    name, wrapper, twin, source, the TPU site)."""
+    at = "continuousnf_tpu/ops/fused_solve.py:"
+    return {
+        "k3sc": (fs.K3S_KERNEL + "/cond", fs.run_stream_cond_test2_solve_kernel, fs.solve_test_plain,
+                 "k3_stream_solve.cu", at + "1043"),
+        "k5sc": (fs.K5S_KERNEL + "/cond", fs.run_stream_cond_test_adjoint_kernel, fs.adjoint_test_plain,
+                 "k5_stream_adjoint.cu", at + "1767"),
+        "k1sc": (fs.K1S_KERNEL + "/cond", fs.run_stream_cond_train_solve_kernel, fs.solve_train_plain,
+                 "k1_stream_solve.cu", at + "1043"),
+        "k2sc": (fs.K2S_KERNEL + "/cond", fs.run_stream_cond_adjoint_kernel, fs.adjoint_train_plain,
+                 "k2_stream_adjoint.cu", at + "1767"),
+    }
+
+
+def cond_stream(cnf, fs, dev, built):
+    """Phases 113 to 117: K8 in the streamed forms, CondRNODE at the
+    MINIBOONE width (cond_miniboone86, MLP 87 -> 258 -> 86 on [z | ys], B =
+    4096) through the COND instances of streamed K3, streamed K5 and the
+    streamed K1 and K2 chain forms, and the conditional miniboone860 chain
+    MLP 44 -> 860 -> 860 -> 43 (B = 1024) through the chain forms', beside
+    miniboone86's unconditional streamed instances.  `built`: the build's
+    {kernel: (library, nvcc log)}.  Returns the records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    cfg = MODELS["cond_miniboone86"]
+    dims, nc, B = cfg["dims"], cfg["n_cond"], BATCH
+    rng = np.random.default_rng(SEED + 1200)
+    ps_np = glorot_params(rng, dims)
+    xs_np, ys_np = model_data("cond_miniboone86", rng, B)
+    xs, ys = torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    model = lambda **kw: make_icnf("cond_miniboone86", dev, **kw)  # noqa: E731
+    icnf_k, icnf_p = model(), model(fused=False)
+    spec = fs.chain_spec(icnf_k.nn, icnf_k.zdim)
+    check(spec.n_cond == nc and fs._stream_two_layer(spec) and fs._stream_two_layer_covers(TSIT5, spec) is None
+          and fs._kernel_covers(TSIT5, spec, chain=True) is None,
+          "cond_miniboone86 should run the COND instances of the streamed forms")
+    names = cond_stream_names(fs)
+    want = {names["k1sc"][0]: 1, names["k2sc"][0]: 1}
+    Bc, dims_c = MODELS["miniboone860"]["batch"], COND_MB860_DIMS
+    rng_c = np.random.default_rng(SEED + 1201)
+    ps_c = glorot_params(rng_c, dims_c)
+    xs_c, ys_c = (torch.from_numpy(a).to(dev) for a in model_data("cond_miniboone86", rng_c, Bc))
+    chain = lambda **kw: cnf.construct(cnf.CondRNODE, cnf.MLP(dims_c, device=dev), 43, 0, tspan=(0.0, 1.0),  # noqa
+                                       compute_mode=cnf.VecJacMode(**kw))
+    icnf_c = chain(fused=True)
+    spec_c = fs.chain_spec(icnf_c.nn, icnf_c.zdim)
+    check(fs._stream_chain(spec_c) and fs._kernel_covers(TSIT5, spec_c, chain=True) is None,
+          "the conditional miniboone860 chain should run the streamed chain forms' COND instances")
+
+    # Phase 113: the COND instances' launch shapes; ptxas's registers, stack
+    # frame and spills beside the unconditional instances'.
+    for lib_name, fn, widths, b in ((fs.K3S_KERNEL, "cnf_k3sc_shape", dims, B),
+                                    (fs.K5S_KERNEL, "cnf_k5sc_shape", dims, B),
+                                    (fs.K1S_KERNEL, "cnf_k1sc_shape", dims, B),
+                                    (fs.K2S_KERNEL, "cnf_k2sc_shape", dims, B),
+                                    (fs.K1S_KERNEL, "cnf_k1sc_shape", dims_c, Bc),
+                                    (fs.K2S_KERNEL, "cnf_k2sc_shape", dims_c, Bc)):
+        out = (ctypes.c_int * 5)()
+        err = getattr(fs._library(lib_name), fn)(len(widths) - 1, (ctypes.c_int * len(widths))(*widths), b, out)
+        check(err == 0 and out[1] >= 1, f"{fn} at {widths}: cudaError {err}")
+        print(f"phase 113: {fn} at widths {widths}, B={b}: {out[0]} threads a block, {out[1]} blocks, tile {out[2]}, "
+              f"{out[3]} bytes of dynamic shared memory, {out[4]} floats of global tile scratch a block")
+    for lib_name, parts in ((fs.K3S_KERNEL, ("20k3_stream_cond_solve", "15k3_stream_solve")),
+                            (fs.K5S_KERNEL, ("22k5_stream_cond_adjoint", "17k5_stream_adjoint")),
+                            (fs.K1S_KERNEL, ("20k1_stream_cond_solve", "15k1_stream_solve")),
+                            (fs.K2S_KERNEL, ("22k2_stream_cond_adjoint", "17k2_stream_adjoint"))):
+        log = built.get(lib_name, (None, ""))[1]
+        for part in parts:
+            found = ptxas_report(log, part)
+            if not found:
+                print(f"phase 113: {part[2:]}: no ptxas lines (the library was not compiled by this process)")
+            for r in found.values():
+                print(f"phase 113: ptxas {part[2:]}: {r.get('registers')} registers, {r.get('stack')} bytes stack "
+                      f"frame, {r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} bytes spill loads")
+
+    # Phase 114: each COND instance against its twin (three timed calls),
+    # the chain forms' also on the conditional miniboone860 chain; then each
+    # beside miniboone86's unconditional instance on miniboone86's inputs in
+    # the same run, a b b a, per attempted step.
+    test, train, _, cot = kernel_inputs(icnf_k, ps, xs, rng, dev)
+    test["ys"], train["ys"] = ys, ys
+    roles = {"k3s": "k3sc", "k5s": "k5sc", "k1c": "k1sc", "k2c": "k2sc"}  # the unconditional keys -> the COND ones
+    kws = {}
+    runs = {roles[k]: r for k, r in stream_two_layer_runs("cond_miniboone86", fs, spec, test, train, cot, rng, dev,
+                                                           names={k: names[c] for k, c in roles.items()},
+                                                           kws=kws).items()}
+    for key in ("k2sc", "k5sc"):
+        out = runs[key][0]
+        check(len(out) == 8 and tuple(out[7].shape) == (B, nc) and float(out[3][0][dims[-1]:].abs().max()) > 0.0,
+              f"{names[key][0]} returned no a_ys0 or a zero gradient for W1's ys rows")
+    _, train_c, _, cot_c = kernel_inputs(icnf_c, cnf.params_from_numpy(ps_c, dev), xs_c, rng_c, dev)
+    train_c["ys"] = ys_c
+    runs_c = {"k1sc": run_pair(f"{names['k1sc'][0]} (miniboone860 chain, B={Bc})", names["k1sc"][1],
+                               names["k1sc"][2], TSIT5, spec_c, train_c, reps=2)}
+    runs_c["k2sc"] = run_pair(f"{names['k2sc'][0]} (miniboone860 chain, B={Bc})", names["k2sc"][1], names["k2sc"][2],
+                              TSIT5, spec_c, adjoint_kw(train_c, runs_c["k1sc"][0], cot_c), adjoint=True, reps=2)
+    rng_u = np.random.default_rng(SEED + 1202)
+    icnf_u = make_icnf("miniboone86", dev)
+    spec_u = fs.chain_spec(icnf_u.nn, icnf_u.zdim)
+    ps_u = cnf.params_from_numpy(glorot_params(rng_u, MODELS["miniboone86"]["dims"]), dev)
+    xs_u = torch.from_numpy(model_data("miniboone86", rng_u, B)).to(dev)
+    test_u, train_u, _, cot_u = kernel_inputs(icnf_u, ps_u, xs_u, rng_u, dev)
+    un, kws_u = stream_two_layer_names(fs), {}
+    runs_u = stream_two_layer_runs("miniboone86, the yardstick", fs, spec_u, test_u, train_u, cot_u, rng_u, dev, reps=1,
+                                   kws=kws_u)
+    per_step = {}
+    with torch.no_grad():
+        for ukey, key in roles.items():
+            ms_a, ms_b = paired_ms(lambda: names[key][1](TSIT5, spec, **kws[ukey]),
+                                   lambda: un[ukey][1](TSIT5, spec_u, **kws_u[ukey]), 3)
+            n_a, n_b = int(steps_of(runs[key][0])[0]), int(steps_of(runs_u[ukey][0])[0])
+            per_step[key] = (ms_a * 1e3 / n_a, ms_b * 1e3 / n_b)
+            print(f"phase 114: {names[key][0]} {ms_a:.4f} ms ({n_a} steps, {per_step[key][0]:.1f} us a step) beside "
+                  f"{un[ukey][0]} {ms_b:.4f} ms on miniboone86 ({n_b} steps, {per_step[key][1]:.1f} us a step), a b b "
+                  f"a: {100.0 * (per_step[key][0] / per_step[key][1] - 1.0):+.1f} % a step")
+    print("phase 114: the streamed COND instances held to their twins")
+
+    # Phase 115: the train step's and the TEST loss's gradients at B = 256
+    # against the plain path and a float64 rtol 1e-7 solve.
+    b = COND_TRUTH_BATCH
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    eps = icnf_k.draw_eps(torch.Generator(device=dev).manual_seed(SEED + 1203), b, dev)
+    steer = {"steer_r": 0.05}
+    fs.reset_launches()
+    l_k, g_k, _ = loss_grad(cnf, icnf_k, ps_np, xs[:b], dev, ys=ys[:b], eps=eps, **steer)
+    torch.cuda.synchronize()
+    check(launched(fs) == want, f"cond_miniboone86 train gradient launched {launched(fs)}, expected {want}")
+    l_p, g_p, _ = loss_grad(cnf, icnf_p, ps_np, xs[:b], dev, ys=ys[:b], eps=eps, **steer)
+    l_t, g_t, _ = loss_grad(cnf, model(fused=False, dtype=torch.float64, solver=truth), ps_np, xs[:b], dev,
+                            torch.float64, ys=ys[:b], eps=eps.double(), **steer)
+    torch.cuda.synchronize()
+    hold_gradients(f"cond_miniboone86 Hutchinson B={b}", l_k, g_k, l_p, g_p, l_t, g_t,
+                   names=["w1", "b1", "w2", "b2", "ys"])
+    models = (icnf_k, icnf_p, model(fused=False, dtype=torch.float64, solver=truth))
+    test_gradient_path(f"cond_miniboone86 TEST gradient B={b}", cnf, fs, models, ps_np, xs[:b], dev,
+                       {names["k3sc"][0]: 1, names["k5sc"][0]: 1}, ys=ys[:b])
+    print("phase 115: cond_miniboone86 gradients held to the float64 solve")
+
+    # Phase 116: the main paths, counters reset just before each, and what
+    # is still refused, by name.
+    dist = cnf.CondICNFDist(icnf_k, cnf.Mode.TEST, ps, ys)
+    n_serve = {}
+    draw = torch.Generator(device=dev).manual_seed(SEED + 1204)
+    for what, call in (("logpdf", lambda: dist.logpdf(xs)), ("sample", lambda: dist.sample(B, generator=draw))):
+        fs.reset_launches()
+        with torch.no_grad():
+            out = call()
+        torch.cuda.synchronize()
+        n = launched(fs)
+        check(n == {names["k3sc"][0]: 1} and bool(torch.isfinite(out).all()), f"cond_miniboone86 {what} launched {n}")
+        n_serve[what] = n[names["k3sc"][0]]
+    fs.reset_launches()
+    _, g_tk = test_loss_grad(cnf, icnf_k, ps_np, xs, dev, ys=ys)
+    torch.cuda.synchronize()
+    n_test = launched(fs)
+    check(n_test == {names["k3sc"][0]: 1, names["k5sc"][0]: 1} and all(bool(torch.isfinite(g).all()) for g in g_tk),
+          f"cond_miniboone86 TEST loss gradient launched {n_test}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1205)
+    n_steps = {}
+    for label, icnf, p_np, x, y in (("cond_miniboone86", icnf_k, ps_np, xs, ys), (f"miniboone860 chain B={Bc}", icnf_c,
+                                                                                   ps_c, xs_c, ys_c)):
+        p = cnf.params_from_numpy(p_np, dev)
+        leaves = [v.requires_grad_() for layer in p for v in (layer["w"], layer["b"])]
+        step = cnf.parallel.make_train_step_body(icnf, cnf.Lion(leaves, lr=1e-3))
+        fs.reset_launches()
+        metrics = step(p, x, gen, ys=y)
+        torch.cuda.synchronize()
+        n_steps[label] = launched(fs)
+        check(n_steps[label] == want and bool(torch.isfinite(metrics["loss"]))
+              and all(bool(torch.isfinite(v).all()) for v in leaves), f"{label} train step launched {n_steps[label]}")
+    X, Y = model_data("cond_miniboone86", rng, N_STEPS * B)
+    fit_path(cnf, fs, icnf_k, ps_np, dev, X, Y, batch_size=B)
+    n_fit = launched(fs)
+    check(set(n_fit) == set(want) and min(n_fit.values()) >= N_STEPS, f"cond_miniboone86 fit launched {n_fit}")
+    print(f"phase 116: cond_miniboone86 main paths: logpdf {n_serve['logpdf']} and sample {n_serve['sample']} "
+          f"launches of {names['k3sc'][0]}, TEST loss gradient {n_test}, train steps {n_steps}, fit {n_fit}")
+    small = slice(0, COND_TRUTH_BATCH)
+    refuses(fs, "cond_miniboone86's exact loss gradient (row (d5))", fs.COND_STREAM_EXACT,
+            lambda: loss_grad(cnf, model(exact=True), ps_np, xs[small], dev, ys=ys[small]), phase=116)
+    refuses(fs, "cond_miniboone86's loss gradient with two probes (row (d6))", fs.COND_STREAM_PROBES,
+            lambda: loss_grad(cnf, model(num_probes=2), ps_np, xs[small], dev, ys=ys[small]), phase=116)
+    refuses(fs, "the conditional miniboone860 chain's logpdf (row (d5))", fs.COND_STREAM_EXACT,
+            lambda: cnf.CondICNFDist(icnf_c, cnf.Mode.TEST, cnf.params_from_numpy(ps_c, dev),
+                                     ys_c[small]).logpdf(xs_c[small]), phase=116)
+
+    # Phase 117: CUDA-event times of the train step, `logpdf` and the TEST
+    # loss gradient at cond_miniboone86, each beside miniboone86's in the
+    # same run, a b b a.
+    dist_u = cnf.ICNFDist(icnf_u, cnf.Mode.TEST, ps_u)
+    ps_u_np = glorot_params(np.random.default_rng(SEED + 1202), MODELS["miniboone86"]["dims"])
+    ms = {}
+    for what, fa, fb in (
+            ("train step", lambda: step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 3, ys=ys),
+             lambda: step_ms(cnf, icnf_u, ps_u_np, xs_u, gen, dev, 3)),
+            ("logpdf", lambda: cuda_ms(lambda: dist.logpdf(xs), 3), lambda: cuda_ms(lambda: dist_u.logpdf(xs_u), 3)),
+            ("TEST loss gradient", lambda: cuda_ms(lambda: test_loss_grad(cnf, icnf_k, ps_np, xs, dev, ys=ys), 3),
+             lambda: cuda_ms(lambda: test_loss_grad(cnf, icnf_u, ps_u_np, xs_u, dev), 3))):
+        with torch.no_grad() if what == "logpdf" else contextlib.nullcontext():
+            a1, b1, b2, a2 = fa(), fb(), fb(), fa()
+        ms[what] = ((a1 + a2) / 2, (b1 + b2) / 2)
+        print(f"phase 117: {what} B={B}: cond_miniboone86 {ms[what][0]:.4f} ms, miniboone86 {ms[what][1]:.4f} ms, "
+              f"ratio {ms[what][0] / ms[what][1]:.3f} (a b b a; other data: other step counts)")
+    print(f"phase 117: cond_miniboone86 train step {B / ms['train step'][0] * 1e3:.1f} samples/s")
+
+    fma, floats = cond_fma_floats(dims, nc, B)
+    wide_keys = {"k3sc": "k3wc", "k5sc": "k5wc", "k1sc": "k1wc", "k2sc": "k2wc"}
+    launches = {"k3sc": n_serve["logpdf"] + n_serve["sample"], "k5sc": n_test[names["k5sc"][0]],
+                "k1sc": n_fit[names["k1sc"][0]], "k2sc": n_fit[names["k2sc"][0]]}
+    records = []
+    for key in roles.values():
+        out, err, t_ms, pms = runs[key]
+        name, _, _, src, at = names[key]
+        records.append(kernel_record(name, src, at, launches[key], err, t_ms, pms, fma[wide_keys[key]], B,
+                                     steps_of(out)[0], floats[wide_keys[key]], accepted=steps_of(out)[1]))
+    fma_c, floats_c = cond_fma_floats(dims_c, 1, Bc)
+    n_chain = n_steps[f"miniboone860 chain B={Bc}"]
+    for key, (out, err, t_ms, pms) in runs_c.items():
+        name, _, _, src, at = names[key]
+        records.append(kernel_record(f"{name}/chain3", src, at, n_chain[name], err, t_ms, pms, fma_c[wide_keys[key]],
+                                     Bc, steps_of(out)[0], floats_c[wide_keys[key]], accepted=steps_of(out)[1]))
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -4824,7 +5112,8 @@ def main() -> int:
                          ("91-96", lambda: stream_probe_paths(cnf, fs, dev)),
                          ("97-102", lambda: cond_wide(cnf, fs, dev)),
                          ("103-107", lambda: cond_wide_exact(cnf, fs, dev, built)),
-                         ("108-112", lambda: cond_wide_probes(cnf, fs, dev, built))):
+                         ("108-112", lambda: cond_wide_probes(cnf, fs, dev, built)),
+                         ("113-117", lambda: cond_stream(cnf, fs, dev, built))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

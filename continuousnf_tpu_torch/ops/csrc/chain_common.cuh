@@ -370,4 +370,13 @@ __device__ __forceinline__ void load_cond(const ChainLayout& L, const float* ys,
   for (int c = 0; c < L.nc; ++c) dst[c] = ys[(size_t)s * L.nc + c];
 }
 
+// A tile's conditioning (the wide and streamed forms' COND instances):
+// YS (T, nc) = the conditioning ys[s0 + t] ((B, nc) row-major) for t < nv,
+// 0 beyond.  Ends with a block barrier.
+__device__ inline void load_tile_cond(const float* ys, int nc, int s0, int nv, int T, float* YS) {
+  for (int idx = threadIdx.x; idx < T * nc; idx += blockDim.x)
+    YS[idx] = idx / nc < nv ? ys[(size_t)s0 * nc + idx] : 0.f;
+  __syncthreads();
+}
+
 }  // namespace cnf

@@ -1,13 +1,23 @@
 // The streamed chain layer of the streamed solve kernels (the streamed K1
 // and K2 chain forms, streamed K7 TEST and exact, streamed K3 and K5 through
-// two_layer_stream.cuh): an unconditional Dense
-// chain of n = 2 .. kMaxLayers tanh or identity layers (StreamLayout::act's
-// mask, K9), widths dz -> H1 -> ... -> H(n-1) -> dz with dz <= kStreamMaxDz
-// and hidden widths of any size, evaluated by a whole block for a tile of
-// rows (samples, or basis rows) at once, as the wide layer of
-// chain_wide.cuh does, with the weights left in global memory.  The state
-// width reaches 128 where the wide forms stop at 64: every UCI width of the
-// README net family MLP((n_in, 3 n_in, n_in)), BSDS300's 126 included.
+// two_layer_stream.cuh): a Dense chain of n = 2 .. kMaxLayers tanh or
+// identity layers (StreamLayout::act's mask, K9), widths dz + nc -> H1 ->
+// ... -> H(n-1) -> dz with dz <= kStreamMaxDz and hidden widths of any size,
+// evaluated by a whole block for a tile of rows (samples, or basis rows) at
+// once, as the wide layer of chain_wide.cuh does, with the weights left in
+// global memory.  The state width reaches 128 where the wide forms stop at
+// 64: every UCI width of the README net family MLP((n_in, 3 n_in, n_in)),
+// BSDS300's 126 included.  nc is 0 but for the COND instances (K8: a
+// conditional net's first layer reads [z | ys], ys constant over the
+// solve), as in the wide layout: width[0] = dz + nc, layer 0's ys rows are
+// rows dz .. dz + nc - 1 of W0 (in, out) in the flat params, and a tile's ys
+// values sit in a (T, nc) array beside its vectors.  The layout gains no
+// field, so the unconditional instances' arguments and machine code stay
+// as they were.  Only the forward reads the ys rows, in the epilogue of its
+// first product (stream_forward<true>): the solver's stage input Z keeps
+// its (T, zp) tile, which a (T, dz + nc) input tile would have to copy at
+// every evaluation, and the nc rows add nc FMA an output.  The pullbacks
+// read layer 0's z rows alone (the Jacobian is in z).
 //
 // Why: the wide forms keep all the weights in a block's shared memory, which
 // ends at hidden width 128 or about 56 k floats of weights.  FFJORD's tabular
@@ -59,8 +69,8 @@ constexpr int kWeightChunk = 4096;    // weights a chunk (a power of two, a mult
 struct StreamLayout {
   int n;                        // layers
   int dz, zp;                   // state width and its row pitch, dz rounded up to 4
-  int width[kMaxLayers + 1];    // level widths, width[0] = width[n] = dz
-  int hp[kMaxLayers + 1];       // level row pitches (hp[0] = hp[n] = zp)
+  int width[kMaxLayers + 1];    // level widths, width[0] = dz + nc, width[n] = dz
+  int hp[kMaxLayers + 1];       // level row pitches (hp[0] = hp[n] = zp: a tile's z rows)
   int hofs[kMaxLayers + 1];     // hidden level l's offset in a hidden block
   int hsum, hmax;               // floats per row of a hidden block; widest hidden level
   int pofs[kMaxLayers];         // layer i's [W_i | b_i] in the flat params and gradient
@@ -68,14 +78,15 @@ struct StreamLayout {
   int act[kMaxLayers];          // 1: layer i is tanh, 0: identity
 };
 
-// Fill `L` for the widths (n + 1 of them, dz first and last); false if the
-// streamed forms do not take the chain (conditional chains included: their
-// first layer is wider than the state; and chains of 2^31 or more
-// parameters, whose offsets an int does not hold).
-inline bool make_stream_layout(int n, const int* widths, StreamLayout* L) {
+// Fill `L` for the widths (n + 1 of them, the input width dz + nc first, dz
+// last); false if the streamed forms do not take the chain: an
+// unconditional instance takes nc = 0 only, a COND instance (`cond`) nc >= 1
+// only; chains of 2^31 or more parameters, whose offsets an int does not
+// hold, neither.
+inline bool make_stream_layout(int n, const int* widths, StreamLayout* L, bool cond = false) {
   if (n < 2 || n > kMaxLayers) return false;
   const int dz = widths[n];
-  if (dz < 1 || dz > kStreamMaxDz || widths[0] != dz) return false;
+  if (dz < 1 || dz > kStreamMaxDz || (cond ? widths[0] <= dz : widths[0] != dz)) return false;
   *L = StreamLayout{};
   L->n = n;
   L->dz = dz;
@@ -107,6 +118,9 @@ inline bool make_stream_layout(int n, const int* widths, StreamLayout* L) {
 inline void set_stream_acts(StreamLayout* L, int acts) {
   for (int i = 0; i < kMaxLayers; ++i) L->act[i] = (acts >> i) & 1;
 }
+
+// The conditioning inputs nc of a layout (0 for an unconditional chain).
+__host__ __device__ __forceinline__ int stream_nc(const StreamLayout& L) { return L.width[0] - L.dz; }
 
 // Copy of the layout in (static) shared memory.
 __device__ inline void share_layout(const StreamLayout& from, StreamLayout* to) {
@@ -270,14 +284,29 @@ __device__ __forceinline__ void stream_mm_t(const float* X, int xp, int out, con
 
 // The chain's forward pass on a tile (fused_solve.py::_chain_fwd): Z (T, zp)
 // in, the hidden activations to the hidden block HB, the output y to
-// Y (T, zp).
+// Y (T, zp).  COND (the COND instances, fused_solve.py::_zin): layer 0 reads
+// [z | ys], its z rows by the product from Z and its ys rows (from global
+// memory, L2-resident with the weights) times YS (T, nc) added to each
+// output before the activation, after the z rows' sum.
+template <bool COND = false>
 __device__ inline void stream_forward(const StreamLayout& L, const float* params, const float* Z, int T, float* HB,
-                                      float* Y, float* wc) {
+                                      float* Y, float* wc, [[maybe_unused]] const float* YS = nullptr) {
   const int n = L.n;
   for (int i = 0; i < n; ++i) {
     const float* src = i == 0 ? Z : level(L, HB, T, i);
     float* dst = i == n - 1 ? Y : level(L, HB, T, i + 1);
     const int dp = L.hp[i + 1], on = L.act[i];
+    if constexpr (COND) {
+      if (i == 0) {
+        const int nc = stream_nc(L), H = L.width[1];
+        const float* wy = layer_w(L, params, 0) + (size_t)L.dz * H;
+        stream_mm(Z, L.zp, L.dz, layer_w(L, params, 0), layer_b(L, params, 0), H, T, wc, [&](int t, int o, float a) {
+          for (int c = 0; c < nc; ++c) a = fmaf(YS[t * nc + c], __ldg(wy + (size_t)c * H + o), a);
+          dst[t * dp + o] = activate(a, on);
+        });
+        continue;
+      }
+    }
     stream_mm(src, L.hp[i], L.width[i], layer_w(L, params, i), layer_b(L, params, i), L.width[i + 1], T, wc,
               [&](int t, int o, float a) { dst[t * dp + o] = activate(a, on); });
   }

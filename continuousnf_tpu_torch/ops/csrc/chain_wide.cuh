@@ -122,14 +122,6 @@ __device__ __forceinline__ const float* wide_ys_rows(const WideLayout& L, const 
   return w + L.wofs[0] + L.dz * L.pitch[0];
 }
 
-// YS (T, nc) = the conditioning ys[s0 + t] ((B, nc) row-major) for t < nv,
-// 0 beyond.  Ends with a block barrier.
-__device__ inline void load_tile_cond(const float* ys, int nc, int s0, int nv, int T, float* YS) {
-  for (int idx = threadIdx.x; idx < T * nc; idx += blockDim.x)
-    YS[idx] = idx / nc < nv ? ys[(size_t)s0 * nc + idx] : 0.f;
-  __syncthreads();
-}
-
 // The ys cotangent of layer 0 for a tile: KYS (T, nc) = -(ca ys-rows^T) per
 // row, from the pre-activation cotangent CA (T, hp[1]) of layer 0's output
 // (the k_ays rate: a_ys integrates -ct_ys).  Ends with a block barrier.

@@ -47,6 +47,20 @@
 // values; the one-probe instance above stays as it was.  A field evaluation
 // is S (1 + K) FMA a sample (S = 813,560 at 860 wide): 8.3 GFLOP at K = 4
 // and B = 1024, 0.12 ms at the card's f32 rate.
+//
+// The COND instance (K8 in the streamed forms): the same solve of a
+// conditional chain past the wide limits, whose first layer reads [z | ys]
+// (_stage_train with _zin :265, one VJP probe: CondRNODE at the MINIBOONE
+// width, 87 -> 258 -> 86, or MLP 44 -> 860 -> 860 -> 43 on [z | ys]).  The
+// ys values (B, nc) are constant over the solve: at each evaluation the
+// block loads its tile's (T, nc) rows and the forward adds layer 0's ys
+// rows (kept after its z rows) to the pre-activation (stream_forward
+// <true>); the pullback reads the z rows alone, as the one-probe instance
+// does.  At cond_miniboone86 that is 258 more FMA a sample and evaluation
+// beside 2 x 44,376.  Its tile arrays are the one-probe instance's and the
+// ys rows (T, nc), which the global-scratch form counts in each block's
+// slice; its launch shape and entry are cnf_k1sc_shape and
+// cnf_k1s_cond_solve.
 
 #include "chain_stream.cuh"
 
@@ -68,8 +82,19 @@ struct Args {
   int T;                // samples a tile
 };
 
+// A COND field's conditioning: ys (B, nc) in global memory and the tile's
+// (T, nc) rows; nothing in an unconditional field.
+template <bool COND>
+struct CondRows {};
+template <>
+struct CondRows<true> {
+  const float* ys;
+  float* YS;
+};
+
 // The TRAIN field of a tile: KY = y, KR = [-tr, ||y||, ||eJ||] per row.
-struct StreamTrainField {
+template <bool COND>
+struct StreamTrainField : CondRows<COND> {
   const StreamLayout* L;
   const float* params;
   const float* eps;  // (B, dz)
@@ -83,7 +108,12 @@ struct StreamTrainField {
   __device__ void operator()(int s0, int nv, const float* Z, float* KY, float* KR) const {
     const StreamLayout& c = *L;
     const int dz = c.dz, zp = c.zp, on = c.act[c.n - 1];
-    cnf::stream_forward(c, params, Z, T, HB, KY, wc);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::stream_nc(c), s0, nv, T, this->YS);
+      cnf::stream_forward<true>(c, params, Z, T, HB, KY, wc, this->YS);
+    } else {
+      cnf::stream_forward(c, params, Z, T, HB, KY, wc);
+    }
     for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
       const int t = idx / dz, k = idx % dz;
       const float e = t < nv ? eps[(size_t)s0 * dz + idx] : 0.f;
@@ -125,12 +155,49 @@ __global__ void __launch_bounds__(kStreamBlock) k1_stream_solve(const Args p) {
   float* E = HB + (size_t)T * L.hsum;
   float* V = E + T * L.zp;
   float* EJ = V + T * L.zp;
-  const StreamTrainField field{&L, p.params, p.f.eps, HB, E, V, EJ, wc, T, p.f.norm_z, p.f.norm_j};
+  const StreamTrainField<false> field{{}, &L, p.params, p.f.eps, HB, E, V, EJ, wc, T, p.f.norm_z, p.f.norm_j};
   cnf::forward_solve_tiles<3, kStageUnroll>(p.f, field, T, scratch, red);
 }
 
 size_t smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
   return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : region_floats(L, T)));
+}
+
+// The COND instance's arguments: the one-probe instance's and the
+// conditioning ys (B, nc).
+struct CondArgs {
+  Args a;
+  const float* ys;
+};
+
+// The COND instance's tile arrays: the one-probe instance's and the tile's
+// ys rows (T, nc), in shared memory or in the block's slice of the global
+// scratch alike.
+__host__ __device__ inline size_t cond_region_floats(const StreamLayout& L, int T) {
+  return region_floats(L, T) + (size_t)T * cnf::stream_nc(L);
+}
+
+__global__ void __launch_bounds__(kStreamBlock) k1_stream_cond_solve(const __grid_constant__ CondArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ StreamLayout L;
+  const Args& p = ca.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T;
+  float* wc = smem;
+  float* red = wc + cnf::kChunkFloats;
+  float* scratch = p.tiles ? p.tiles + (size_t)blockIdx.x * cond_region_floats(L, T) : red + kRedFloats;
+  float* HB = scratch + T * (2 * L.zp + 3);
+  float* E = HB + (size_t)T * L.hsum;
+  float* V = E + T * L.zp;
+  float* EJ = V + T * L.zp;
+  float* YS = EJ + T * L.zp;
+  const StreamTrainField<true> field{{ca.ys, YS}, &L, p.params, p.f.eps, HB, E, V, EJ, wc, T, p.f.norm_z,
+                                     p.f.norm_j};
+  cnf::forward_solve_tiles<3, kStageUnroll>(p.f, field, T, scratch, red);
+}
+
+size_t cond_smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
+  return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : cond_region_floats(L, T)));
 }
 
 // The probe instance's field (K6): K probes a row at eps[k][s], reverse
@@ -304,5 +371,40 @@ extern "C" int cnf_k1s_probe_solve(const float* params, const float* eps, const 
   pa.K = K;
   pa.jvp = jvp;
   return (int)cnf::coop_launch(k1_stream_probe_solve, pa, grid, block, probe_smem_bytes(a.L, T, tiles != nullptr),
+                               (cudaStream_t)stream);
+}
+
+// The COND instance's launch shape (K8), as cnf_k1s_shape; widths[0] =
+// dz + nc with nc >= 1, out[4] counting the tile's ys rows.
+extern "C" int cnf_k1sc_shape(int n, const int* widths, int B, int* out) {
+  StreamLayout L;
+  if (B < 1 || !cnf::make_stream_layout(n, widths, &L, true)) return (int)cudaErrorInvalidValue;
+  size_t region[2];
+  for (int o = 0; o < 2; ++o) region[o] = cond_region_floats(L, kTiles[o]);
+  return cnf::stream_shape(k1_stream_cond_solve, region, kTiles, kTiles, 2, B, out);
+}
+
+// The COND instance (K8): as cnf_k1s_train_solve for a conditional chain,
+// with ys (B, nc) (device) after eps, nc = widths[0] - widths[n] >= 1; T,
+// grid, block and the tile scratch from cnf_k1sc_shape.
+extern "C" int cnf_k1s_cond_solve(const float* params, const float* eps, const float* ys, const float* z0,
+                                  const float* acc0, const float* ts, float* zT, float* accT, int* stats,
+                                  float* dt_last, float* work, float* partials, float* tiles, int B, int n,
+                                  const int* widths, int acts, int max_steps, int norm_z, int norm_j, float rtol,
+                                  float atol, float beta1, float beta2, float inv_order, const float* tab, int T,
+                                  int grid, int block, void* stream) {
+  CondArgs ca = {};
+  Args& a = ca.a;
+  if (block != kStreamBlock || grid < 1 || T < 4 || T % 4 != 0 || ys == nullptr ||
+      !cnf::make_stream_layout(n, widths, &a.L, true))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_stream_acts(&a.L, acts);
+  cnf::set_fwd_args(&a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n], max_steps,
+                    norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
+  a.params = params;
+  a.tiles = tiles;
+  a.T = T;
+  ca.ys = ys;
+  return (int)cnf::coop_launch(k1_stream_cond_solve, ca, grid, block, cond_smem_bytes(a.L, T, tiles != nullptr),
                                (cudaStream_t)stream);
 }

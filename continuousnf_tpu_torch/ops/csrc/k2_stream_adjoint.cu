@@ -80,6 +80,31 @@
 // time; one contraction a stage for all probes, as k4_stream_adjoint.cu
 // does for its gradient, would remove K of them.  K and the direction are
 // run-time values; the one-probe instance above stays as it was.
+//
+// The COND instance (K8 in the streamed forms): _stage_train_fwdbwd of a
+// conditional chain past the wide limits, whose first layer reads [z | ys]
+// (:372-481 with _zin :265, one VJP probe: CondRNODE at the MINIBOONE
+// width, 87 -> 258 -> 86, or MLP 44 -> 860 -> 860 -> 43 on [z | ys]), as
+// the wide K2 chain form's COND instance runs it (k2_wide_adjoint.cu).  The
+// forward adds layer 0's ys rows to the pre-activation (stream_forward
+// <true>, from the tile's (T, nc) ys rows); the probe has no ys rows, so the
+// pullback, its VJP and their outer products read and give layer 0's z rows
+// alone (the pullback ascent pads ct_u with zero ys rows, :451-455).  The
+// forward chain's gradient pass gives layer 0's ys rows ys (x) ca_1 summed
+// over the batch, and each sample's ys cotangent, whose a_ys integrates
+// k_ays = -(ca_1 (layer 0's ys rows)^T), comes from the same transposed
+// product as k_az, run over W0's dz + nc rows (the z rows to KAZ, the ys
+// rows to KYS): no pass of its own.  a_ys rides in the tile solve's COND
+// form (adjoint_solve_tiles): from 0 at t_hi, combined like a_z, nc more
+// plane rows inside the one batch-global norm (the single-tile numerics
+// kept), a_ys0 (B, nc) returned.  The tile's ys rows (T, nc) and k_ays
+// (T, nc) take 2 nc floats a row more.  Its stage runs behind a call of
+// its own (StreamCondAdjStage): inlined into the tile solve, as the other
+// instances' stages are, it left the kernel a 648-byte stack frame (the
+// unconditional instance's: 104) at 255 registers and 18.9 % more time a
+// step on the H100 (PERF.md); a call shrinks the frame, with results bit
+// for bit the same.  Its launch shape and entry are cnf_k2sc_shape and
+// cnf_k2s_cond_adjoint.
 
 #include "chain_stream.cuh"
 
@@ -137,10 +162,22 @@ __device__ inline TileArrays tile_arrays(const StreamLayout& L, int T, float* ba
   return a;
 }
 
+// A COND stage's conditioning: ys (B, nc) in global memory and the tile's
+// (T, nc) rows; nothing in an unconditional stage.
+template <bool COND>
+struct CondRows {};
+template <>
+struct CondRows<true> {
+  const float* ys;
+  float* YS;
+};
+
 // One augmented stage of a tile (fused_solve.py::_stage_train_fwdbwd with
-// ct_y = a_z, ct_r = a_acc): KZ = y, KR = the rates, KAZ = -ct_z, and the
-// residuals of the gradient pass left in the tile arrays.
-struct StreamAdjStage {
+// ct_y = a_z, ct_r = a_acc): KZ = y, KR = the rates, KAZ = -ct_z (and,
+// COND, KYS = k_ays), and the residuals of the gradient pass left in the
+// tile arrays.
+template <bool COND>
+struct StreamAdjStage : CondRows<COND> {
   const StreamLayout* L;
   const float* params;
   const float* eps;    // (B, dz)
@@ -149,13 +186,18 @@ struct StreamAdjStage {
   float* wc;           // the chunk buffer
   int B, T, norm_z, norm_j;
 
-  __device__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR,
-                             float* KAZ) const {
+  __device__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR, float* KAZ,
+                             [[maybe_unused]] float* KYS = nullptr) const {
     const StreamLayout& c = *L;
     const int n = c.n, dz = c.dz, zp = c.zp;
     const int on_y = c.act[n - 1];
     float *E = a.E, *VL = a.VL, *EJ = a.EJ, *CU = a.CU, *CAL = a.CAL, *SC = a.SC;
-    cnf::stream_forward(c, params, Z, T, a.HS, KZ, wc);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::stream_nc(c), s0, nv, T, this->YS);
+      cnf::stream_forward<true>(c, params, Z, T, a.HS, KZ, wc, this->YS);
+    } else {
+      cnf::stream_forward(c, params, Z, T, a.HS, KZ, wc);
+    }
     for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
       const int t = idx / dz, k = idx % dz;
       const float e = t < nv ? eps[(size_t)s0 * dz + idx] : 0.f;
@@ -206,14 +248,16 @@ struct StreamAdjStage {
     }
     __syncthreads();
     // Up the pullback chain: ct_v = pu_i W_i, pu_(i+1) = ct_v s'(h) and
-    // ct_h = -2 h (ct_v u) over u in place (0 for an identity layer).
+    // ct_h = -2 h (ct_v u) over u in place (0 for an identity layer).  pu_0
+    // has no ys rows: layer 0's product reads its z rows.
     for (int i = 0; i < n - 1; ++i) {
       const float* src = i == 0 ? CU : level(c, a.PU, T, i);
       float* pu = level(c, a.PU, T, i + 1);
       float* u = level(c, a.U, T, i + 1);
       const float* h = level(c, a.HS, T, i + 1);
       const int hp = c.hp[i + 1], on = c.act[i];
-      cnf::stream_mm(src, c.hp[i], c.width[i], cnf::layer_w(c, params, i), nullptr, c.width[i + 1], T, wc,
+      cnf::stream_mm(src, c.hp[i], COND && i == 0 ? dz : c.width[i], cnf::layer_w(c, params, i), nullptr,
+                     c.width[i + 1], T, wc,
                      [&](int t, int o, float cv) {
                        const float hh = h[t * hp + o];
                        pu[t * hp + o] = cv * gate(hh, on);
@@ -238,14 +282,28 @@ struct StreamAdjStage {
       cnf::stream_mm_t(src, c.hp[i + 1], c.width[i + 1], cnf::layer_w(c, params, i), c.width[i], T, wc,
                        [&](int t, int k, float x) { ca[t * hp + k] = (x + ca[t * hp + k]) * gate(h[t * hp + k], on); });
     }
-    cnf::stream_mm_t(level(c, a.U, T, 1), c.hp[1], c.width[1], cnf::layer_w(c, params, 0), dz, T, wc,
-                     [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+    if constexpr (COND) {
+      // k_az and k_ays in one transposed product over W0's dz + nc rows.
+      const int nc = cnf::stream_nc(c);
+      cnf::stream_mm_t(level(c, a.U, T, 1), c.hp[1], c.width[1], cnf::layer_w(c, params, 0), dz + nc, T, wc,
+                       [&](int t, int k, float x) {
+                         if (k < dz)
+                           KAZ[t * zp + k] = -x;
+                         else
+                           KYS[t * nc + k - dz] = -x;
+                       });
+    } else {
+      cnf::stream_mm_t(level(c, a.U, T, 1), c.hp[1], c.width[1], cnf::layer_w(c, params, 0), dz, T, wc,
+                       [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+    }
   }
 };
 
 // The tile's sum over its first nv rows of the negated gradient rate of the
-// stage just evaluated, entry q of the flat [W0 | b0 | W1 | b1 | ...].
-struct StreamGrad {
+// stage just evaluated, entry q of the flat [W0 | b0 | W1 | b1 | ...]
+// (COND: layer 0's ys rows get ys (x) ca_1 alone).
+template <bool COND>
+struct StreamGrad : CondRows<COND> {
   const StreamLayout* L;
   const float* Z;  // the solver's stage input z
   TileArrays a;
@@ -265,6 +323,15 @@ struct StreamGrad {
     float v = 0.f;
     if (r < in * out) {
       const int k = r / out, o = r % out;
+      if constexpr (COND) {
+        if (i == 0 && k >= c.dz) {
+          const int nc = in - c.dz;
+          const float* py = this->YS + (k - c.dz);
+          pd += o;
+          for (int t = 0; t < nv; ++t) v = fmaf(py[t * nc], pd[t * op], v);
+          return -v;
+        }
+      }
       const float* pa = (i == 0 ? a.CU : level(c, a.PU, T, i)) + k;
       const float* pc = (i == 0 ? Z : level(c, a.HS, T, i)) + k;
       const float* pb = (i == n - 1 ? a.VL : level(c, a.V, T, i + 1)) + o;
@@ -293,13 +360,61 @@ __global__ void __launch_bounds__(kStreamBlock, 1) k2_stream_adjoint(const AdjAr
   // The solver's Z, AZ, KZ, KAZ, KR, then the stage's arrays.
   float* scratch = p.tiles ? p.tiles + (size_t)blockIdx.x * region_floats(L, T) : red + kRedFloats;
   const TileArrays arrays = tile_arrays(L, T, scratch + T * (4 * L.zp + 3));
-  const StreamAdjStage stage{&L, p.params, p.eps, p.s.aaccT, arrays, wc, p.s.B, T, p.norm_z, p.norm_j};
-  const StreamGrad grad{&L, scratch, arrays, T};
+  const StreamAdjStage<false> stage{{}, &L, p.params, p.eps, p.s.aaccT, arrays, wc, p.s.B, T, p.norm_z, p.norm_j};
+  const StreamGrad<false> grad{{}, &L, scratch, arrays, T};
   cnf::adjoint_solve_tiles<kStageUnroll>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew, red);
 }
 
 size_t smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
   return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : region_floats(L, T)));
+}
+
+// The COND instance's stage behind a call of its own (module comment).
+struct StreamCondAdjStage : StreamAdjStage<true> {
+  __device__ __noinline__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR,
+                                          float* KAZ, float* KYS) const {
+    StreamAdjStage<true>::operator()(s0, nv, Z, AZ, KZ, KR, KAZ, KYS);
+  }
+};
+
+// The COND instance's arguments: the one-probe instance's and the
+// conditioning ys (B, nc).
+struct CondAdjArgs {
+  AdjArgs a;
+  const float* ys;
+};
+
+// The COND instance's tile arrays: the solver's Z, AZ, KZ, KAZ, KR and
+// k_ays (T, nc), then the stage's tile arrays, then the tile's ys rows
+// (T, nc), in shared memory or in the block's slice of the global scratch
+// alike.
+__host__ __device__ inline size_t cond_region_floats(const StreamLayout& L, int T) {
+  return region_floats(L, T) + (size_t)2 * T * cnf::stream_nc(L);
+}
+
+// One block an SM, as the one-probe instance.
+__global__ void __launch_bounds__(kStreamBlock, 1) k2_stream_cond_adjoint(const __grid_constant__ CondAdjArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ StreamLayout L;
+  const AdjArgs& p = ca.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T, nc = cnf::stream_nc(L);
+  float* wc = smem;
+  float* red = wc + cnf::kChunkFloats;
+  // The solver's Z, AZ, KZ, KAZ, KR and KYS, then the stage's arrays, then
+  // the ys rows.
+  float* scratch = p.tiles ? p.tiles + (size_t)blockIdx.x * cond_region_floats(L, T) : red + kRedFloats;
+  const TileArrays arrays = tile_arrays(L, T, scratch + T * (4 * L.zp + 3 + nc));
+  float* YS = arrays.SC + T * 4;
+  const StreamCondAdjStage stage{{{ca.ys, YS}, &L, p.params, p.eps, p.s.aaccT, arrays, wc, p.s.B, T, p.norm_z,
+                                    p.norm_j}};
+  const StreamGrad<true> grad{{ca.ys, YS}, &L, scratch, arrays, T};
+  cnf::adjoint_solve_tiles<kStageUnroll, false, 3, true>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew,
+                                                           red);
+}
+
+size_t cond_smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
+  return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : cond_region_floats(L, T)));
 }
 
 // The probe instance's tile arrays beside the solver's: six dz-vectors, five
@@ -682,5 +797,50 @@ extern "C" int cnf_k2s_probe_adjoint(const float* params, const float* eps, cons
   pa.K = K;
   pa.jvp = jvp;
   return (int)cnf::coop_launch(k2_stream_probe_adjoint, pa, grid, block, probe_smem_bytes(a.L, T, tiles != nullptr),
+                               (cudaStream_t)stream);
+}
+
+// The COND instance's launch shape (K8), as cnf_k2s_shape; widths[0] =
+// dz + nc with nc >= 1, out[4] counting the tile's ys rows and k_ays.
+extern "C" int cnf_k2sc_shape(int n, const int* widths, int B, int* out) {
+  StreamLayout L;
+  if (B < 1 || !cnf::make_stream_layout(n, widths, &L, true)) return (int)cudaErrorInvalidValue;
+  size_t region[2];
+  for (int o = 0; o < 2; ++o) region[o] = cond_region_floats(L, kTiles[o]);
+  return cnf::stream_shape(k2_stream_cond_adjoint, region, kTiles, kTiles, 2, B, out);
+}
+
+// The COND instance (K8): as cnf_k2s_train_adjoint for a conditional chain,
+// with ys (B, nc) (device) and ays0 (B, nc), nc = widths[0] - widths[n] >= 1,
+// the cotangent of ys at t_lo; work: (S + 2) (2 dz + 3 + nc) B floats; T,
+// grid, block and the tile scratch from cnf_k2sc_shape.
+extern "C" int cnf_k2s_cond_adjoint(const float* params, const float* eps, const float* ys, const float* zT,
+                                    const float* accT, const float* azT, const float* aaccT, const float* ts,
+                                    float* z0, float* acc0, float* az0, float* ays0, float* g, int* stats, float* work,
+                                    float* partials, float* gblk, float* gnew, float* tiles, int B, int n,
+                                    const int* widths, int acts, int max_steps, int norm_z, int norm_j, float rtol,
+                                    float atol, float beta1, float beta2, float inv_order, const float* tab, int T,
+                                    int grid, int block, void* stream) {
+  CondAdjArgs ca = {};
+  AdjArgs& a = ca.a;
+  if (block != kStreamBlock || grid < 1 || T < 4 || T % 4 != 0 || ys == nullptr || ays0 == nullptr ||
+      !cnf::make_stream_layout(n, widths, &a.L, true))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_stream_acts(&a.L, acts);
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, nullptr, B, widths[n],
+                     max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.s.nc = cnf::stream_nc(a.L);
+  a.s.ays0 = ays0;
+  a.params = params;
+  a.eps = eps;
+  a.g = g;
+  a.gnew = gnew;
+  a.gblk = gblk;
+  a.tiles = tiles;
+  a.norm_z = norm_z;
+  a.norm_j = norm_j;
+  a.T = T;
+  ca.ys = ys;
+  return (int)cnf::coop_launch(k2_stream_cond_adjoint, ca, grid, block, cond_smem_bytes(a.L, T, tiles != nullptr),
                                (cudaStream_t)stream);
 }

@@ -33,6 +33,16 @@
 // latency, the products' barriers and each attempted step's grid barrier
 // take the rest.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The COND instance (K8 in the streamed forms): the closed-form _stage_test
+// of a conditional 2-layer net past the wide limits (:484-503 with _zin
+// :265: CondRNODE at the MINIBOONE width, 87 -> 258 -> 86, one ys column).
+// W1's ys rows enter the pre-activation of h (stream_two_layer_forward
+// <true>, from the tile's (T, nc) ys rows, read from global memory at each
+// evaluation), while M and the trace read W1's z rows only.  At
+// cond_miniboone86 that adds 258 FMA to the stage's 66,564 a sample.  Its
+// tile arrays are the unconditional instance's and the (T, nc) ys rows; its
+// launch shape and entry are cnf_k3sc_shape and cnf_k3s_cond_solve.
 
 #include "two_layer_stream.cuh"
 
@@ -59,8 +69,19 @@ __host__ __device__ inline size_t region_floats(const StreamLayout& L, int T) {
   return (size_t)T * (2 * L.zp + 1) + (size_t)T * (2 * L.hp[1] + 2 * L.zp);
 }
 
+// A COND field's conditioning: ys (B, nc) in global memory and the tile's
+// (T, nc) rows; nothing in an unconditional field.
+template <bool COND>
+struct CondRows {};
+template <>
+struct CondRows<true> {
+  const float* ys;
+  float* YS;
+};
+
 // The TEST field of a tile: KY = y, KR = -tr per row.
-struct StreamTestField {
+template <bool COND>
+struct StreamTestField : CondRows<COND> {
   const StreamLayout* L;
   const float* params;
   const float* m;    // M (dz, H) in global memory
@@ -69,10 +90,16 @@ struct StreamTestField {
   float* wc;         // the chunk buffer
   int T;
 
-  __device__ void operator()(int, int, const float* Z, float* KY, float* KR) const {
+  __device__ void operator()([[maybe_unused]] int s0, [[maybe_unused]] int nv, const float* Z, float* KY,
+                             float* KR) const {
     const StreamLayout& c = *L;
     const int dz = c.dz, zp = c.zp;
-    cnf::stream_two_layer_forward(c, params, Z, T, HS, DH, KY, DY, wc);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::stream_nc(c), s0, nv, T, this->YS);
+      cnf::stream_two_layer_forward<true>(c, params, Z, T, HS, DH, KY, DY, wc, this->YS);
+    } else {
+      cnf::stream_two_layer_forward(c, params, Z, T, HS, DH, KY, DY, wc);
+    }
     cnf::stream_m_dh(c, m, DH, T, MDH, wc);
     for (int t = threadIdx.x; t < T; t += blockDim.x) {
       float tr = 0.f;
@@ -96,12 +123,49 @@ __global__ void __launch_bounds__(kStreamBlock) k3_stream_solve(const Args p) {
   float* DH = HS + T * L.hp[1];
   float* DY = DH + T * L.hp[1];
   float* MDH = DY + T * L.zp;
-  const StreamTestField field{&L, p.params, p.m, HS, DH, DY, MDH, wc, T};
+  const StreamTestField<false> field{{}, &L, p.params, p.m, HS, DH, DY, MDH, wc, T};
   cnf::forward_solve_tiles<1, kStageUnroll>(p.f, field, T, scratch, red);
 }
 
 size_t smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
   return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : region_floats(L, T)));
+}
+
+// The COND instance's arguments: the unconditional instance's and the
+// conditioning ys (B, nc).
+struct CondArgs {
+  Args a;
+  const float* ys;
+};
+
+// The COND instance's tile arrays: the unconditional instance's and the
+// tile's ys rows (T, nc), in shared memory or in the block's slice of the
+// global scratch alike.
+__host__ __device__ inline size_t cond_region_floats(const StreamLayout& L, int T) {
+  return region_floats(L, T) + (size_t)T * cnf::stream_nc(L);
+}
+
+__global__ void __launch_bounds__(kStreamBlock) k3_stream_cond_solve(const __grid_constant__ CondArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ StreamLayout L;
+  const Args& p = ca.a;
+  cnf::share_layout(p.L, &L);
+  cnf::build_stream_m(L, p.params, p.m);
+  const int T = p.T;
+  float* wc = smem;
+  float* red = wc + cnf::kChunkFloats;
+  float* scratch = p.tiles ? p.tiles + (size_t)blockIdx.x * cond_region_floats(L, T) : red + kRedFloats;
+  float* HS = scratch + T * (2 * L.zp + 1);
+  float* DH = HS + T * L.hp[1];
+  float* DY = DH + T * L.hp[1];
+  float* MDH = DY + T * L.zp;
+  float* YS = MDH + T * L.zp;
+  const StreamTestField<true> field{{ca.ys, YS}, &L, p.params, p.m, HS, DH, DY, MDH, wc, T};
+  cnf::forward_solve_tiles<1, kStageUnroll>(p.f, field, T, scratch, red);
+}
+
+size_t cond_smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
+  return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : cond_region_floats(L, T)));
 }
 
 }  // namespace
@@ -143,5 +207,40 @@ extern "C" int cnf_k3s_test_solve(const float* params, const float* z0, const fl
   a.tiles = tiles;
   a.T = T;
   return (int)cnf::coop_launch(k3_stream_solve, a, grid, block, smem_bytes(a.L, T, tiles != nullptr),
+                               (cudaStream_t)stream);
+}
+
+// The COND instance's launch shape (K8), as cnf_k3s_shape; widths[0] =
+// dz + nc with nc >= 1, out[4] counting the tile's ys rows.
+extern "C" int cnf_k3sc_shape(int n, const int* widths, int B, int* out) {
+  StreamLayout L;
+  if (B < 1 || n != 2 || !cnf::make_stream_layout(n, widths, &L, true)) return (int)cudaErrorInvalidValue;
+  size_t region[3];
+  for (int o = 0; o < 3; ++o) region[o] = cond_region_floats(L, kTiles[o]);
+  return cnf::stream_shape(k3_stream_cond_solve, region, kTiles, kTiles, 3, B, out);
+}
+
+// The COND instance (K8): as cnf_k3s_test_solve for a conditional net, with
+// ys (B, nc) (device), nc = widths[0] - widths[2] >= 1; T, grid, block and
+// the tile scratch from cnf_k3sc_shape.
+extern "C" int cnf_k3s_cond_solve(const float* params, const float* ys, const float* z0, const float* dlogp0,
+                                  const float* ts, float* zT, float* dlogpT, int* stats, float* dt_last, float* work,
+                                  float* partials, float* m, float* tiles, int B, int n, const int* widths, int acts,
+                                  int max_steps, float rtol, float atol, float beta1, float beta2, float inv_order,
+                                  const float* tab, int T, int grid, int block, void* stream) {
+  CondArgs ca = {};
+  Args& a = ca.a;
+  if (block != kStreamBlock || grid < 1 || T < 4 || T % 4 != 0 || ys == nullptr ||
+      !cnf::make_stream_layout(n, widths, &a.L, true) || !cnf::stream_two_layer_tanh(a.L, acts) || m == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cnf::set_stream_acts(&a.L, acts);
+  cnf::set_fwd_args(&a.f, nullptr, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, B, widths[n],
+                    max_steps, 0, 0, rtol, atol, beta1, beta2, inv_order, tab);
+  a.params = params;
+  a.m = m;
+  a.tiles = tiles;
+  a.T = T;
+  ca.ys = ys;
+  return (int)cnf::coop_launch(k3_stream_cond_solve, ca, grid, block, cond_smem_bytes(a.L, T, tiles != nullptr),
                                (cudaStream_t)stream);
 }

@@ -55,6 +55,22 @@
 // bound by shared-memory issue, and per attempted step come two grid
 // barriers and the slice reduction.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The COND instance (K8 in the streamed forms): _stage_test_fwdbwd of a
+// conditional 2-layer net past the wide limits (:506-539 with _zin :265;
+// CondRNODE at the MINIBOONE width, 87 -> 258 -> 86), as wide K5's COND
+// instance runs it (k5_wide_adjoint.cu).  The forward adds W1's ys rows to
+// the pre-activation of h (stream_two_layer_forward<true>, from the tile's
+// (T, nc) ys rows); M, the ct_m fold and k_az read W1's z rows only, the
+// fold's ys rows being zero (:533-537); the ys rows of W1's gradient are
+// ys (x) ct_pre1, and each sample's ys cotangent, whose a_ys integrates
+// k_ays = -(ct_pre1 (W1's ys rows)^T), comes from the same transposed
+// product as k_az: it runs over the dz + nc rows of W1 (the z rows to KAZ,
+// the ys rows to KYS).  a_ys rides in the tile solve's COND form
+// (adjoint_solve_tiles): from 0 at t_hi, combined like a_z, inside the one
+// batch-global norm (the ct_m fold on g kept), a_ys0 (B, nc) returned.  The
+// tile's ys rows (T, nc) and k_ays (T, nc) take 2 nc floats a row more.
+// Its launch shape and entry are cnf_k5sc_shape and cnf_k5s_cond_adjoint.
 
 #include "two_layer_stream.cuh"
 
@@ -104,10 +120,22 @@ __device__ inline TileArrays tile_arrays(const StreamLayout& L, int T, float* ba
   return a;
 }
 
+// A COND stage's conditioning: ys (B, nc) in global memory and the tile's
+// (T, nc) rows; nothing in an unconditional stage.
+template <bool COND>
+struct CondRows {};
+template <>
+struct CondRows<true> {
+  const float* ys;
+  float* YS;
+};
+
 // One augmented stage of a tile (fused_solve.py::_stage_test_fwdbwd with
-// ct_y = a_z, ct_r = a_dlogp): KZ = y, KR = -tr, KAZ = -ct_z, and the
-// residuals of the gradient pass left in the tile arrays.
-struct StreamTestAdjStage {
+// ct_y = a_z, ct_r = a_dlogp): KZ = y, KR = -tr, KAZ = -ct_z (and, COND,
+// KYS = k_ays), and the residuals of the gradient pass left in the tile
+// arrays.
+template <bool COND>
+struct StreamTestAdjStage : CondRows<COND> {
   const StreamLayout* L;
   const float* params;
   const float* m;      // M (dz, H) in global memory
@@ -116,11 +144,16 @@ struct StreamTestAdjStage {
   float* wc;           // the chunk buffer
   int T;
 
-  __device__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR,
-                             float* KAZ) const {
+  __device__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR, float* KAZ,
+                             [[maybe_unused]] float* KYS = nullptr) const {
     const StreamLayout& c = *L;
     const int dz = c.dz, zp = c.zp, H = c.width[1], hp = c.hp[1];
-    cnf::stream_two_layer_forward(c, params, Z, T, a.HS, a.DH, KZ, a.DY, wc);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::stream_nc(c), s0, nv, T, this->YS);
+      cnf::stream_two_layer_forward<true>(c, params, Z, T, a.HS, a.DH, KZ, a.DY, wc, this->YS);
+    } else {
+      cnf::stream_two_layer_forward(c, params, Z, T, a.HS, a.DH, KZ, a.DY, wc);
+    }
     cnf::stream_m_dh(c, m, a.DH, T, a.CP2, wc);
     for (int t = threadIdx.x; t < T; t += blockDim.x) {
       float tr = 0.f;
@@ -143,15 +176,28 @@ struct StreamTestAdjStage {
       const int i = t * hp + o;
       a.CP1[i] = (x + (-2.f * a.HS[i]) * a.CP1[i]) * a.DH[i];
     });
-    cnf::stream_mm_t(a.CP1, hp, H, cnf::layer_w(c, params, 0), dz, T, wc,
-                     [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+    if constexpr (COND) {
+      // k_az and k_ays in one transposed product over W1's dz + nc rows.
+      const int nc = cnf::stream_nc(c);
+      cnf::stream_mm_t(a.CP1, hp, H, cnf::layer_w(c, params, 0), dz + nc, T, wc, [&](int t, int k, float x) {
+        if (k < dz)
+          KAZ[t * zp + k] = -x;
+        else
+          KYS[t * nc + k - dz] = -x;
+      });
+    } else {
+      cnf::stream_mm_t(a.CP1, hp, H, cnf::layer_w(c, params, 0), dz, T, wc,
+                       [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+    }
   }
 };
 
 // The tile's sum over its first nv rows of the negated gradient rate of the
-// stage just evaluated, entry q of [W1 (dz, H) | b1 | W2 (H, dz) | b2], the
-// ct_m fold included (the other weight from global memory).
-struct StreamTestGrad {
+// stage just evaluated, entry q of [W1 (dz + nc, H) | b1 | W2 (H, dz) | b2],
+// the ct_m fold included (the other weight from global memory; W1's z rows
+// only: its ys rows, COND, are ys (x) ct_pre1).
+template <bool COND>
+struct StreamTestGrad : CondRows<COND> {
   const StreamLayout* L;
   const float* params;
   const float* Z;  // the solver's stage input z
@@ -163,6 +209,13 @@ struct StreamTestGrad {
     const int dz = c.dz, H = c.width[1], zp = c.zp, hp = c.hp[1];
     const int o1 = c.pofs[1];
     float v = 0.f;
+    if constexpr (COND) {
+      if (q >= dz * H && q < c.width[0] * H) {
+        const int nc = c.width[0] - dz, k = q / H - dz, o = q % H;
+        for (int t = 0; t < nv; ++t) v = fmaf(this->YS[t * nc + k], a.CP1[t * hp + o], v);
+        return -v;
+      }
+    }
     if (q < dz * H) {
       const int k = q / H, o = q % H;
       float cm = 0.f;
@@ -172,7 +225,7 @@ struct StreamTestGrad {
       }
       v = fmaf(cm, __ldg(params + o1 + (size_t)o * dz + k), v);
     } else if (q < o1) {
-      const int o = q - dz * H;
+      const int o = q - (COND ? c.width[0] : dz) * H;
       for (int t = 0; t < nv; ++t) v += a.CP1[t * hp + o];
     } else if (q < o1 + H * dz) {
       const int h = (q - o1) / dz, i = (q - o1) % dz;
@@ -202,13 +255,51 @@ __global__ void __launch_bounds__(kStreamBlock, 1) k5_stream_adjoint(const AdjAr
   // The solver's Z, AZ, KZ, KAZ, KR, then the stage's arrays.
   float* scratch = p.tiles ? p.tiles + (size_t)blockIdx.x * region_floats(L, T) : red + kRedFloats;
   const TileArrays arrays = tile_arrays(L, T, scratch + T * (4 * L.zp + 1));
-  const StreamTestAdjStage stage{&L, p.params, p.m, p.s.aaccT, arrays, wc, T};
-  const StreamTestGrad grad{&L, p.params, scratch, arrays, T};
+  const StreamTestAdjStage<false> stage{{}, &L, p.params, p.m, p.s.aaccT, arrays, wc, T};
+  const StreamTestGrad<false> grad{{}, &L, p.params, scratch, arrays, T};
   cnf::adjoint_solve_tiles<kStageUnroll, false, 1>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew, red);
 }
 
 size_t smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
   return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : region_floats(L, T)));
+}
+
+// The COND instance's arguments: the unconditional instance's and the
+// conditioning ys (B, nc).
+struct CondAdjArgs {
+  AdjArgs a;
+  const float* ys;
+};
+
+// The COND instance's tile arrays: the solver's Z, AZ, KZ, KAZ, KR and
+// k_ays (T, nc), then the stage's tile arrays, then the tile's ys rows
+// (T, nc), in shared memory or in the block's slice of the global scratch
+// alike.
+__host__ __device__ inline size_t cond_region_floats(const StreamLayout& L, int T) {
+  return region_floats(L, T) + (size_t)2 * T * cnf::stream_nc(L);
+}
+
+// One block an SM, as the unconditional instance.
+__global__ void __launch_bounds__(kStreamBlock, 1) k5_stream_cond_adjoint(const __grid_constant__ CondAdjArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ StreamLayout L;
+  const AdjArgs& p = ca.a;
+  cnf::share_layout(p.L, &L);
+  cnf::build_stream_m(L, p.params, p.m);
+  const int T = p.T, nc = cnf::stream_nc(L);
+  float* wc = smem;
+  float* red = wc + cnf::kChunkFloats;
+  float* scratch = p.tiles ? p.tiles + (size_t)blockIdx.x * cond_region_floats(L, T) : red + kRedFloats;
+  const TileArrays arrays = tile_arrays(L, T, scratch + T * (4 * L.zp + 1 + nc));
+  float* YS = arrays.SC + T * 4;
+  const StreamTestAdjStage<true> stage{{ca.ys, YS}, &L, p.params, p.m, p.s.aaccT, arrays, wc, T};
+  const StreamTestGrad<true> grad{{ca.ys, YS}, &L, p.params, scratch, arrays, T};
+  cnf::adjoint_solve_tiles<kStageUnroll, false, 1, true>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew,
+                                                           red);
+}
+
+size_t cond_smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
+  return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : cond_region_floats(L, T)));
 }
 
 }  // namespace
@@ -254,5 +345,47 @@ extern "C" int cnf_k5s_test_adjoint(const float* params, const float* zT, const 
   a.tiles = tiles;
   a.T = T;
   return (int)cnf::coop_launch(k5_stream_adjoint, a, grid, block, smem_bytes(a.L, T, tiles != nullptr),
+                               (cudaStream_t)stream);
+}
+
+// The COND instance's launch shape (K8), as cnf_k5s_shape; widths[0] =
+// dz + nc with nc >= 1, out[4] counting the tile's ys rows and k_ays.
+extern "C" int cnf_k5sc_shape(int n, const int* widths, int B, int* out) {
+  StreamLayout L;
+  if (B < 1 || n != 2 || !cnf::make_stream_layout(n, widths, &L, true)) return (int)cudaErrorInvalidValue;
+  size_t region[3];
+  for (int o = 0; o < 3; ++o) region[o] = cond_region_floats(L, kTiles[o]);
+  return cnf::stream_shape(k5_stream_cond_adjoint, region, kTiles, kTiles, 3, B, out);
+}
+
+// The COND instance (K8): as cnf_k5s_test_adjoint for a conditional net,
+// with ys (B, nc) (device) and ays0 (B, nc), nc = widths[0] - widths[2] >= 1,
+// the cotangent of ys at t_lo; work: (S + 2) (2 dz + 1 + nc) B floats; T,
+// grid, block and the tile scratch from cnf_k5sc_shape.
+extern "C" int cnf_k5s_cond_adjoint(const float* params, const float* ys, const float* zT, const float* accT,
+                                    const float* azT, const float* aaccT, const float* ts, float* z0, float* acc0,
+                                    float* az0, float* ays0, float* g, int* stats, float* work, float* partials,
+                                    float* gblk, float* gnew, float* m, float* tiles, int B, int n, const int* widths,
+                                    int acts, int max_steps, float rtol, float atol, float beta1, float beta2,
+                                    float inv_order, const float* tab, int T, int grid, int block, void* stream) {
+  CondAdjArgs ca = {};
+  AdjArgs& a = ca.a;
+  if (block != kStreamBlock || grid < 1 || T < 4 || T % 4 != 0 || ys == nullptr || ays0 == nullptr ||
+      !cnf::make_stream_layout(n, widths, &a.L, true) || !cnf::stream_two_layer_tanh(a.L, acts) || m == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cnf::set_stream_acts(&a.L, acts);
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, nullptr, B, widths[n],
+                     max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.s.nc = cnf::stream_nc(a.L);
+  a.s.ays0 = ays0;
+  a.params = params;
+  a.m = m;
+  a.g = g;
+  a.gnew = gnew;
+  a.gblk = gblk;
+  a.tiles = tiles;
+  a.T = T;
+  ca.ys = ys;
+  return (int)cnf::coop_launch(k5_stream_cond_adjoint, ca, grid, block, cond_smem_bytes(a.L, T, tiles != nullptr),
                                (cudaStream_t)stream);
 }

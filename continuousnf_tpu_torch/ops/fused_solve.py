@@ -88,6 +88,13 @@ wide K3's (`run_wide_cond_test2_solve_kernel`), wide K5's
 exact's (`run_wide_cond_test_solve_kernel`, `run_wide_cond_exact_solve_kernel`)
 and the wide K4 adjoint's (`run_wide_cond_exact_adjoint_kernel`, a_ys0
 returned);
+and the COND instances of the streamed forms (K8 past the wide limits:
+CondRNODE at the MINIBOONE width, 87 -> 258 -> 86 on [z | ys]), in the
+streamed sources, with the same twins given ys: the streamed K1 chain
+form's (`run_stream_cond_train_solve_kernel`), the streamed K2 chain
+form's (`run_stream_cond_adjoint_kernel`, a_ys0 returned), streamed K3's
+(`run_stream_cond_test2_solve_kernel`) and streamed K5's
+(`run_stream_cond_test_adjoint_kernel`, a_ys0 returned);
 and three under bf16 stage matmuls (`ComputeMode.bf16`: the JAX package's
 `_mm(..., "bf16")` :193-225, both operands rounded to bfloat16, float32
 sums), for unconditional 2-layer tanh nets of state width up to MAX_DZ and
@@ -910,16 +917,20 @@ def _kernel_covers(
     JVP probes in their probe COND instances, and of wide K7's TEST and
     exact entries), and their streamed forms
     (`stream`; False asks for the
-    wide forms alone) the unconditional chains the wide forms refuse for
+    wide forms alone) the chains the wide forms refuse for
     their state width, hidden widths or weights' shared memory (with K
     probes or JVP, the shared memory of the wide probe instances), up to
-    state width STREAM_MAX_DZ and STREAM_MAX_PARAMS parameters; a narrow
+    state width STREAM_MAX_DZ and STREAM_MAX_PARAMS parameters, conditional
+    ones with one VJP probe in the COND instances of the streamed K1 and K2
+    chain forms (streamed K7's and the streamed K4 adjoint's COND instances
+    are not ported: their wrappers refuse conditional chains,
+    COND_STREAM_EXACT); a narrow
     chain whose weights and per-thread slots do not fit in shared memory is
     refused at launch (`_launch_shape`).  The Hutchinson kernels (K1, K2,
     their chain forms and the chain forms' wide and streamed forms) take any
     number `k_probes` of VJP or (`jvp`) JVP probes (K6), in conditional wide
     chains too (K6 x K8) where the wide probe COND instances' shared memory
-    holds the chain (else COND_STREAM)."""
+    holds the chain (else COND_STREAM_PROBES, with or without `stream`)."""
     if tab.btilde is None:
         return f"the {tab.name} tableau (no embedded error estimate: fixed-step solves stay outside the kernels)"
     if tab.num_stages > MAX_STAGES:
@@ -949,19 +960,18 @@ def _kernel_covers(
     if spec.dz > STREAM_MAX_DZ:
         return (f"state width {spec.dz} > {STREAM_MAX_DZ} (the streamed forms take up to {STREAM_MAX_DZ}, the wide "
                 f"forms {WIDE_MAX_DZ}; ROADMAP queue 2, shape variants (e))")
-    if spec.n_cond:
-        if spec.dz > WIDE_MAX_DZ or _wide_limit(spec, k_probes != 1 or jvp) is not None:
-            return COND_STREAM
-        return None
+    probes = k_probes != 1 or jvp
     if spec.dz > WIDE_MAX_DZ:
         why = (f"state width {spec.dz} > {WIDE_MAX_DZ} (the wide forms take up to {WIDE_MAX_DZ}, the streamed forms "
                f"{STREAM_MAX_DZ}; ROADMAP queue 2, shape variants (e))")
-        if not stream:
-            return why
     else:
-        why = _wide_limit(spec, k_probes != 1 or jvp)
-        if why is None or not stream:
-            return why
+        why = _wide_limit(spec, probes)
+        if why is None:
+            return None
+    if spec.n_cond and probes:
+        return COND_STREAM_PROBES
+    if not stream:
+        return why
     P = _param_count(spec)
     if P > STREAM_MAX_PARAMS:
         return (f"{P} parameters (the streamed forms' offsets are 32-bit ints, up to {STREAM_MAX_PARAMS}; ROADMAP "
@@ -991,26 +1001,34 @@ def _wide_limit(spec: ChainSpec, probes: bool = False) -> Optional[str]:
 
 
 def _stream_chain(spec: ChainSpec, probes: bool = False) -> bool:
-    """Whether the chain kernels' streamed forms run a chain: an
-    unconditional chain of 2 to CHAIN_MAX_LAYERS layers past the narrow
-    widths, of state width up to STREAM_MAX_DZ, that the wide forms refuse
-    for its state width past WIDE_MAX_DZ, its hidden widths or its weights'
-    shared memory: with one probe, or (`probes`: K probes or JVP, K6) in
-    their probe instances, which keep one more dz-vector and hidden block a
-    row.  2-layer tanh nets past MAX_DZ count too: the streamed forms run
-    their Hutchinson and exact-forward stages, and streamed K3 and K5 their
-    TEST stages."""
-    if spec.n_cond or not 2 <= spec.n_layers <= CHAIN_MAX_LAYERS or spec.dz > STREAM_MAX_DZ:
+    """Whether the chain kernels' streamed forms run a chain: a chain of 2
+    to CHAIN_MAX_LAYERS layers past the narrow widths, of state width up to
+    STREAM_MAX_DZ, that the wide forms refuse for its state width past
+    WIDE_MAX_DZ, its hidden widths or its weights' shared memory: with one
+    probe, conditional chains in the COND instances (K8), or (`probes`: K
+    probes or JVP, K6) in their probe instances, which keep one more
+    dz-vector and hidden block a row, unconditional chains only (the probe
+    COND instances are not ported, COND_STREAM_PROBES).  2-layer tanh nets
+    past MAX_DZ count too: the streamed forms run their Hutchinson and
+    exact-forward stages, and streamed K3 and K5 their TEST stages."""
+    if not 2 <= spec.n_layers <= CHAIN_MAX_LAYERS or spec.dz > STREAM_MAX_DZ or (spec.n_cond and probes):
         return False
     return _wide_chain(spec) and (spec.dz > WIDE_MAX_DZ or _wide_limit(spec, probes) is not None)
 
 
-#: What the kernels still refuse of conditional nets past the narrow widths
-#: (K8), naming its ROADMAP queue 2 row.  The COND instances of the wide K1
-#: and K2 chain forms (and their probe COND instances, K6 x K8), wide K7,
-#: wide K3, wide K5 and the wide K4 adjoint take the rest.
-COND_STREAM = ("conditional chains past the wide limits (K8 in the wide and streamed chain forms: the streamed forms' "
-               "COND instances; ROADMAP queue 2, shape variants (d), K8 in the streamed forms)")
+#: What the kernels still refuse of conditional nets past the wide limits
+#: (K8 in the streamed forms), each naming its part of ROADMAP queue 2's row
+#: (d).  The COND instances of the streamed K1 and K2 chain forms, streamed
+#: K3 and streamed K5 take one-probe training, serving and the TEST gradient
+#: of 2-layer tanh nets; past 2 layers serving runs streamed K7 TEST, whose
+#: COND instance is (d5) with streamed K7 exact's and the streamed K4
+#: adjoint's (exact training); K probes or JVP are (d6).
+COND_STREAM_EXACT = ("conditional chains past the wide limits in streamed K7 and the streamed K4 adjoint (K8 in the "
+                     "streamed forms: their COND instances, for exact training and for serving past 2 layers; ROADMAP "
+                     "queue 2, shape variants (d), part (d5))")
+COND_STREAM_PROBES = ("conditional chains past the wide limits with K probes or JVP probes (K6 x K8 in the wide and "
+                      "streamed chain forms: the streamed forms' probe COND instances; ROADMAP queue 2, shape "
+                      "variants (d), part (d6))")
 
 
 def _wide_two_layer(spec: ChainSpec) -> bool:
@@ -1027,9 +1045,10 @@ def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str
     hidden widths up to WIDE_MAX_WIDTH, under every embedded tableau,
     conditional ones in their COND instances (K8).  Past those the streamed
     chain forms run the Hutchinson and exact-forward stages, streamed K3 and
-    K5 the TEST stages (`_stream_two_layer_covers`) and the streamed K4
-    adjoint the exact backward member (`_stream_exact_covers`) of
-    unconditional nets; conditional ones are refused there (COND_STREAM)."""
+    K5 the TEST stages (`_stream_two_layer_covers`, conditional nets in
+    their COND instances) and the streamed K4 adjoint the exact backward
+    member (`_stream_exact_covers`) of unconditional nets; conditional ones
+    are refused there and in streamed K7 exact (COND_STREAM_EXACT)."""
     if not _two_layer_tanh(spec):
         return ("nets other than 2-layer tanh chains in wide K3, wide K5 and the wide K4 adjoint (the JAX "
                 "package's 2-layer TEST and exact stages assume tanh layers, reference fault 2: the chain kernels "
@@ -1039,25 +1058,24 @@ def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str
 
 def _stream_two_layer(spec: ChainSpec) -> bool:
     """Whether streamed K3 and K5 run a net's TEST stages and the streamed
-    K4 adjoint its exact backward member: an unconditional 2-layer tanh
-    chain past MAX_DZ that the streamed chain forms run (state widths to
-    STREAM_MAX_DZ past the wide 2-layer kernels' limits: the README net
-    family at the MINIBOONE and BSDS300 widths, 86 -> 258 -> 86 and
-    126 -> 378 -> 126)."""
+    K4 adjoint its exact backward member: a 2-layer tanh chain past MAX_DZ
+    that the streamed chain forms run (state widths to STREAM_MAX_DZ past
+    the wide 2-layer kernels' limits: the README net family at the
+    MINIBOONE and BSDS300 widths, 86 -> 258 -> 86 and 126 -> 378 -> 126);
+    a conditional one in streamed K3's and K5's COND instances (the
+    streamed K4 adjoint refuses it, `_stream_exact_covers`)."""
     return _wide_two_layer(spec) and _stream_chain(spec)
 
 
 def _stream_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
     """Why streamed K3 and K5 (and the streamed K4 adjoint,
     `_stream_exact_covers`) do not run this configuration (None if they do):
-    they take the unconditional 2-layer tanh nets of `_stream_two_layer`
-    under every embedded tableau."""
+    they take the 2-layer tanh nets of `_stream_two_layer` under every
+    embedded tableau, conditional ones in their COND instances (K8)."""
     if not _two_layer_tanh(spec):
         return ("nets other than 2-layer tanh chains in streamed K3, K5 and the streamed K4 adjoint (the JAX "
                 "package's 2-layer TEST and exact stages assume tanh layers, reference fault 2: streamed K7 takes "
                 "identity layers forward, and their gradient runs the plain backward)")
-    if spec.n_cond:
-        return COND_STREAM
     why = _kernel_covers(tab, spec, chain=True)
     if why is None and not _stream_two_layer(spec):
         why = (f"state width {spec.dz} with hidden width {spec.out_dims[0]} in streamed K3, K5 and the streamed K4 "
@@ -1205,6 +1223,8 @@ _SIGNATURES = {
         "cnf_k1s_train_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
         "cnf_k1sp_shape": _WIDE_SHAPE,
         "cnf_k1s_probe_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k1sc_shape": _WIDE_SHAPE,
+        "cnf_k1s_cond_solve": ([_P] * 13 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K7S_KERNEL: {
         "cnf_k7s_test_shape": _WIDE_SHAPE,
@@ -1217,14 +1237,20 @@ _SIGNATURES = {
         "cnf_k2s_train_adjoint": ([_P] * 17 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
         "cnf_k2sp_shape": _WIDE_SHAPE,
         "cnf_k2s_probe_adjoint": ([_P] * 17 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k2sc_shape": _WIDE_SHAPE,
+        "cnf_k2s_cond_adjoint": ([_P] * 19 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K3S_KERNEL: {
         "cnf_k3s_shape": _WIDE_SHAPE,
         "cnf_k3s_test_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k3sc_shape": _WIDE_SHAPE,
+        "cnf_k3s_cond_solve": ([_P] * 13 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
     },
     K5S_KERNEL: {
         "cnf_k5s_shape": _WIDE_SHAPE,
         "cnf_k5s_test_adjoint": ([_P] * 17 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k5sc_shape": _WIDE_SHAPE,
+        "cnf_k5s_cond_adjoint": ([_P] * 19 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
     },
     K4SA_KERNEL: {
         "cnf_k4s_shape": _WIDE_SHAPE,
@@ -1317,15 +1343,18 @@ def _controller_floats(tab):
 
 
 def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain: bool = False,
-               wide: bool = False, jvp: bool = False, stream: bool = False, cond: bool = False) -> None:
+               wide: bool = False, jvp: bool = False, stream: bool = False, cond: bool = False,
+               cond_row: Optional[str] = None) -> None:
     """Raise unless `label`'s kernel takes the configuration on CUDA tensors:
     a chain kernel's narrow form (`wide` and `stream` False) takes no wide
     chain, its wide form (`wide`) the chains past the narrow widths that it
-    keeps in shared memory, conditional ones in its COND instance (`cond`)
-    and unconditional ones in the others, and its streamed form (`stream`)
-    the chains the wide forms
-    refuse for their widths or shared memory (`_stream_chain`; with K probes
-    or JVP, those of the wide probe instances)."""
+    keeps in shared memory, and its streamed form (`stream`) the chains the
+    wide forms refuse for their widths or shared memory (`_stream_chain`;
+    with K probes or JVP, those of the wide probe instances); the wide and
+    streamed forms take conditional chains in their COND instances (`cond`)
+    and unconditional ones in the others.  `cond_row`: the refusal of a
+    conditional chain by a form with no COND instance yet (streamed K7,
+    COND_STREAM_EXACT)."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
     probes = k_probes != 1 or jvp
@@ -1333,7 +1362,9 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
     if why is None and chain and not wide and not stream and _wide_chain(spec):
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the narrow chain kernels (up to "
                f"{MAX_DZ} and {CHAIN_MAX_WIDTH}: their wide forms take the chain)")
-    if why is None and wide and spec.n_cond and not cond:
+    if why is None and spec.n_cond and cond_row is not None:
+        why = cond_row
+    if why is None and (wide or stream) and spec.n_cond and not cond:
         why = f"conditional chains in the unconditional instance of {label} (its COND instance takes them)"
     if why is None and cond and not spec.n_cond:
         why = f"unconditional chains in the COND instance of {label} (its unconditional instance takes them)"
@@ -2635,14 +2666,15 @@ def run_stream_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0
     included; arguments and returns as `run_solve_kernel`.
 
     CUDA tensors go through the kernel (`csrc/k7_stream_solve.cu`), CPU
-    tensors through its plain version."""
+    tensors through its plain version; on the card a conditional chain raises
+    (its COND instance: COND_STREAM_EXACT)."""
     _no_grad_inputs("K7", ws, bs, z0, dlogp0, ys)
     if z0.device.type == "cpu":
         return solve_test_plain(
             tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
             z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
-    _cuda_only("streamed K7", z0, tab, spec, chain=True, stream=True)
+    _cuda_only("streamed K7", z0, tab, spec, chain=True, stream=True, cond_row=COND_STREAM_EXACT)
     out = _launch_wide_forward(
         "streamed K7 TEST", K7S_KERNEL, "cnf_k7s_test_solve", "cnf_k7s_test_shape", tab, spec, rtol=rtol,
         atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
@@ -2663,14 +2695,15 @@ def run_stream_exact_solve_kernel(
     `run_exact_solve_kernel`.
 
     CUDA tensors go through the kernel (`csrc/k7_stream_solve.cu`), CPU
-    tensors through its plain version."""
+    tensors through its plain version; on the card a conditional chain raises
+    (its COND instance: COND_STREAM_EXACT)."""
     _no_grad_inputs("K7", ws, bs, z0, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_exact_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
             ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
-    _cuda_only("streamed K7", z0, tab, spec, chain=True, stream=True)
+    _cuda_only("streamed K7", z0, tab, spec, chain=True, stream=True, cond_row=COND_STREAM_EXACT)
     out = _launch_wide_forward(
         "streamed K7 exact", K7S_KERNEL, "cnf_k7s_exact_solve", "cnf_k7s_exact_shape", tab, spec, rtol=rtol,
         atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
@@ -2719,10 +2752,13 @@ run_stream_train_solve_kernel.probe_launches = {}
 
 
 def _launch_stream_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
-                           t_hi, t_lo, dt_init, jvp=False):
+                           t_hi, t_lo, dt_init, jvp=False, ys=None):
+    """Launch the streamed K2 chain form: its one-probe instance, its probe
+    instance (K probes or JVP, K6) or, given ys (B, n_cond), its COND
+    instance (K8, one VJP probe), which returns a_ys0 (B, n_cond) last."""
     label = "streamed K2 chain form"
     B, dz = zT.shape
-    K = eps.shape[0]
+    K, nc = eps.shape[0], spec.n_cond if ys is not None else 0
     device = zT.device
     params, widths = _chain_params(label, spec, ws, bs, device)
     e0, zT, accT, azT, aaccT = _check_inputs(
@@ -2730,21 +2766,32 @@ def _launch_stream_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, 
     )
     lib = _library(K2S_KERNEL)
     probes = _probe_instance(eps, jvp)
-    block, grid, tile, tiles = _stream_shape(lib, "cnf_k2sp_shape" if probes else "cnf_k2s_shape", label, spec,
-                                             widths, B, device)
+    shape = "cnf_k2sc_shape" if nc else "cnf_k2sp_shape" if probes else "cnf_k2s_shape"
+    block, grid, tile, tiles = _stream_shape(lib, shape, label, spec, widths, B, device)
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
-    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel())
-    entry = lib.cnf_k2s_probe_adjoint if probes else lib.cnf_k2s_train_adjoint
-    err = entry(
-        _ptr(params), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
-        _ptr(az0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), _ptr_or_null(tiles), B,
-        spec.n_layers, widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j),
-        *([K, int(jvp)] if probes else []), rtol, atol, *_controller_floats(tab), _tableau_array(tab), tile, grid,
-        block, _stream(device),
-    )
+    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel(),
+                                                                                nc)
+    tail = (B, spec.n_layers, widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j),
+            *([K, int(jvp)] if probes else []), rtol, atol, *_controller_floats(tab), _tableau_array(tab), tile, grid,
+            block, _stream(device))
+    if nc:
+        ys = _cond_rows(label, spec, ys, B, device)
+        ays0 = torch.empty((B, nc), dtype=torch.float32, device=device)
+        err = lib.cnf_k2s_cond_adjoint(
+            _ptr(params), _ptr(e0), _ptr(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0),
+            _ptr(acc0), _ptr(az0), _ptr(ays0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk),
+            _ptr(gnew), _ptr_or_null(tiles), *tail,
+        )
+    else:
+        entry = lib.cnf_k2s_probe_adjoint if probes else lib.cnf_k2s_train_adjoint
+        err = entry(
+            _ptr(params), _ptr(e0), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
+            _ptr(az0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), _ptr_or_null(tiles),
+            *tail,
+        )
     _check_launch(err, label, grid, block)
     g_ws, g_bs = _split_params(g, spec)
-    return z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]
+    return (z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]) + ((ays0,) if nc else ())
 
 
 def run_stream_adjoint_kernel(
@@ -2811,26 +2858,42 @@ run_stream_test2_solve_kernel.launches = 0
 
 
 def _launch_stream_test_adjoint(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi, t_lo,
-                                dt_init):
+                                dt_init, ys=None):
+    """Launch streamed K5: its unconditional instance or, given ys
+    (B, n_cond), its COND instance (K8), which returns a_ys0 (B, n_cond)
+    last."""
     label = "streamed K5"
     B, dz = zT.shape
+    nc = spec.n_cond if ys is not None else 0
     device = zT.device
     params, widths = _chain_params(label, spec, ws, bs, device)
     zT, accT, azT, aaccT = _check_inputs(label, device, [zT, accT, azT, aaccT], [(B, dz), (1, B), (B, dz), (1, B)])
     lib = _library(K5S_KERNEL)
-    block, grid, tile, tiles = _stream_shape(lib, "cnf_k5s_shape", label, spec, widths, B, device)
+    block, grid, tile, tiles = _stream_shape(lib, "cnf_k5sc_shape" if nc else "cnf_k5s_shape", label, spec, widths, B,
+                                             device)
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
-    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel())
+    z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel(),
+                                                                                nc)
     m = _m_scratch(spec, device)
-    err = lib.cnf_k5s_test_adjoint(
-        _ptr(params), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0),
-        _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), _ptr(m), _ptr_or_null(tiles), B,
-        spec.n_layers, widths, _acts_mask(spec), int(max_steps), rtol, atol, *_controller_floats(tab),
-        _tableau_array(tab), tile, grid, block, _stream(device),
-    )
+    tail = (B, spec.n_layers, widths, _acts_mask(spec), int(max_steps), rtol, atol, *_controller_floats(tab),
+            _tableau_array(tab), tile, grid, block, _stream(device))
+    if nc:
+        ys = _cond_rows(label, spec, ys, B, device)
+        ays0 = torch.empty((B, nc), dtype=torch.float32, device=device)
+        err = lib.cnf_k5s_cond_adjoint(
+            _ptr(params), _ptr(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
+            _ptr(az0), _ptr(ays0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), _ptr(m),
+            _ptr_or_null(tiles), *tail,
+        )
+    else:
+        err = lib.cnf_k5s_test_adjoint(
+            _ptr(params), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0),
+            _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk), _ptr(gnew), _ptr(m), _ptr_or_null(tiles),
+            *tail,
+        )
     _check_launch(err, label, grid, block)
     g_ws, g_bs = _split_params(g, spec)
-    return z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]
+    return (z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]) + ((ays0,) if nc else ())
 
 
 def run_stream_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi, t_lo,
@@ -2864,8 +2927,11 @@ def _stream_exact_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
     """Why the streamed K4 adjoint does not run this configuration (None if
     it does): it takes the nets streamed K3 and K5 take
     (`_stream_two_layer_covers`) under every embedded tableau, while its
-    gradient with g_pm (P + dz^2 H floats) keeps 32-bit offsets."""
+    gradient with g_pm (P + dz^2 H floats) keeps 32-bit offsets; its COND
+    instance is not ported (COND_STREAM_EXACT)."""
     why = _stream_two_layer_covers(tab, spec)
+    if why is None and spec.n_cond:
+        return COND_STREAM_EXACT
     if why is not None:
         return why
     dz, H = spec.dz, spec.out_dims[0]
@@ -2874,6 +2940,16 @@ def _stream_exact_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
         return (f"{total} gradient entries with g_pm in the streamed K4 adjoint (its offsets are 32-bit ints, up to "
                 f"{STREAM_MAX_PARAMS}; ROADMAP queue 2, shape variants (e))")
     return None
+
+
+def _cuda_only_stream_exact(label: str, x: torch.Tensor, tab, spec) -> None:
+    """Raise unless the streamed K4 adjoint (`_stream_exact_covers`) takes
+    the configuration on CUDA tensors."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
+    why = _stream_exact_covers(tab, spec)
+    if why is not None:
+        raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
 
 def _launch_stream_exact_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
@@ -2932,11 +3008,7 @@ def run_stream_exact_adjoint_kernel(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
             ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
         )
-    if zT.device.type != "cuda":
-        raise ValueError(f"the streamed K4 adjoint runs on CUDA or CPU tensors, got {zT.device}")
-    why = _stream_exact_covers(tab, spec)
-    if why is not None:
-        raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
+    _cuda_only_stream_exact("the streamed K4 adjoint", zT, tab, spec)
     if dt_init is None:
         raise ValueError("the streamed K4 adjoint needs dt_init (the caller picks it)")
     out = _launch_stream_exact_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol,
@@ -2947,6 +3019,134 @@ def run_stream_exact_adjoint_kernel(
 
 
 run_stream_exact_adjoint_kernel.launches = 0
+
+
+# ---- the COND instances of the streamed forms (K8: conditional nets past the wide limits) ----
+
+
+def run_stream_cond_train_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None,
+    jvp=False,
+):
+    """The streamed K1 chain form's COND instance: the Hutchinson TRAIN
+    solve (`run_stream_train_solve_kernel`) of a conditional chain past the
+    wide limits whose first layer reads [z | ys], ys (B, n_cond) constant
+    over the solve (CondRNODE at the MINIBOONE width, 87 -> 258 -> 86, one
+    ys column); one VJP probe (K probes or JVP: COND_STREAM_PROBES);
+    arguments and returns as `run_train_solve_kernel`.
+
+    CUDA tensors go through the kernel (`csrc/k1_stream_solve.cu`'s
+    `k1_stream_cond_solve`), CPU tensors through its plain version."""
+    _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
+    if z0.device.type == "cpu":
+        return solve_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys, jvp=jvp,
+        )
+    _cuda_only("streamed K1 COND", z0, tab, spec, eps.shape[0], chain=True, jvp=jvp, stream=True, cond=True)
+    out = _launch_wide_forward(
+        "streamed K1 chain form COND", K1S_KERNEL, "cnf_k1s_cond_solve", "cnf_k1sc_shape", tab, spec, rtol=rtol,
+        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
+        norms=(norm_z, norm_j), stream=True, ys=ys,
+    )
+    _count(run_stream_cond_train_solve_kernel, eps, jvp)
+    return out
+
+
+run_stream_cond_train_solve_kernel.launches = 0
+run_stream_cond_train_solve_kernel.probe_launches = {}
+
+
+def run_stream_cond_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, eps, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init, ys=None, jvp=False,
+):
+    """The streamed K2 chain form's COND instance: the backsolve of (z, acc,
+    a_z, a_acc, a_ys, g_p) (`run_stream_adjoint_kernel`) of the conditional
+    chains `run_stream_cond_train_solve_kernel` takes, the per-sample a_ys
+    integrated from 0 at t_hi in the one batch-global error norm; one VJP
+    probe; arguments as `run_adjoint_kernel` with ys (B, n_cond), returns
+    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted, a_ys0).
+
+    CUDA tensors go through the kernel (`csrc/k2_stream_adjoint.cu`'s
+    `k2_stream_cond_adjoint`), CPU tensors through its plain version."""
+    _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_train_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+            t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys, jvp=jvp,
+        )
+    _cuda_only("streamed K2 COND", zT, tab, spec, eps.shape[0], chain=True, jvp=jvp, stream=True, cond=True)
+    if dt_init is None:
+        raise ValueError("the streamed K2 chain form needs dt_init (the caller picks it)")
+    out = _launch_stream_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+                                 ws=ws, bs=bs, eps=eps, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi,
+                                 t_lo=t_lo, dt_init=dt_init, jvp=jvp, ys=ys)
+    _count(run_stream_cond_adjoint_kernel, eps, jvp)
+    return out
+
+
+run_stream_cond_adjoint_kernel.launches = 0
+run_stream_cond_adjoint_kernel.probe_launches = {}
+
+
+def run_stream_cond_test2_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init,
+                                       ys=None):
+    """Streamed K3's COND instance: the closed-form TEST solve
+    (`run_stream_test2_solve_kernel`) of a conditional 2-layer tanh net past
+    the wide limits whose W1 reads [z | ys] (CondRNODE at the MINIBOONE
+    width); M and the trace read W1's z rows only; arguments and returns as
+    `run_solve_kernel` with ys (B, n_cond).
+
+    CUDA tensors go through the kernel (`csrc/k3_stream_solve.cu`'s
+    `k3_stream_cond_solve`), CPU tensors through its plain version."""
+    _no_grad_inputs("K3", ws, bs, z0, dlogp0, ys)
+    if z0.device.type == "cpu":
+        return solve_test_plain(
+            tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only_wide_two_layer("streamed K3", z0, tab, spec, stream=True, cond=True)
+    out = _launch_wide_forward(
+        "streamed K3 COND", K3S_KERNEL, "cnf_k3s_cond_solve", "cnf_k3sc_shape", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, stream=True, m=True,
+        ys=ys,
+    )
+    run_stream_cond_test2_solve_kernel.launches += 1
+    return out
+
+
+run_stream_cond_test2_solve_kernel.launches = 0
+
+
+def run_stream_cond_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT, t_hi,
+                                        t_lo, dt_init, ys=None):
+    """Streamed K5's COND instance: the TEST backsolve
+    (`run_stream_test_adjoint_kernel`, ct_m folded into g over W1's z rows)
+    of the conditional 2-layer tanh nets streamed K3's COND instance takes,
+    the per-sample a_ys integrated from 0 at t_hi in the one batch-global
+    error norm; arguments as `run_test_adjoint_kernel` with ys (B, n_cond),
+    returns (z0, acc0, a_z0, g_ws, g_bs, steps, accepted, a_ys0).
+
+    CUDA tensors go through the kernel (`csrc/k5_stream_adjoint.cu`'s
+    `k5_stream_cond_adjoint`), CPU tensors through its plain version."""
+    if not _two_layer_tanh(spec):
+        raise ValueError(_NO_TEST_CHAIN_ADJOINT)
+    _no_grad_inputs("K5", ws, bs, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_test_plain(tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, zT=zT,
+                                  accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
+    _cuda_only_wide_two_layer("streamed K5", zT, tab, spec, stream=True, cond=True)
+    if dt_init is None:
+        raise ValueError("streamed K5 needs dt_init (the caller picks it)")
+    out = _launch_stream_test_adjoint(tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, zT=zT,
+                                      accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
+    run_stream_cond_test_adjoint_kernel.launches += 1
+    return out
+
+
+run_stream_cond_test_adjoint_kernel.launches = 0
 
 
 # ---- the bf16 kernels (bf16 stage matmuls on the tensor cores) ----
@@ -3137,6 +3337,10 @@ KERNEL_WRAPPERS = {
     K3S_KERNEL: run_stream_test2_solve_kernel,
     K5S_KERNEL: run_stream_test_adjoint_kernel,
     K4SA_KERNEL: run_stream_exact_adjoint_kernel,
+    K1S_KERNEL + "/cond": run_stream_cond_train_solve_kernel,
+    K2S_KERNEL + "/cond": run_stream_cond_adjoint_kernel,
+    K3S_KERNEL + "/cond": run_stream_cond_test2_solve_kernel,
+    K5S_KERNEL + "/cond": run_stream_cond_test_adjoint_kernel,
     K3B_KERNEL: run_bf16_solve_kernel,
     K1B_KERNEL: run_bf16_train_solve_kernel,
     K2B_KERNEL: run_bf16_adjoint_kernel,
@@ -3148,7 +3352,8 @@ KERNEL_WRAPPERS = {
 #: counts their probe instance's launches by probe count and direction (K6).
 PROBE_WRAPPERS = (run_train_solve_kernel, run_adjoint_kernel, run_chain_train_solve_kernel, run_chain_adjoint_kernel,
                   run_wide_train_solve_kernel, run_wide_adjoint_kernel, run_wide_cond_train_solve_kernel,
-                  run_wide_cond_adjoint_kernel, run_stream_train_solve_kernel, run_stream_adjoint_kernel)
+                  run_wide_cond_adjoint_kernel, run_stream_train_solve_kernel, run_stream_adjoint_kernel,
+                  run_stream_cond_train_solve_kernel, run_stream_cond_adjoint_kernel)
 
 
 def reset_launches() -> None:
@@ -3211,10 +3416,16 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     and, for 2-layer tanh nets past MAX_DZ (CondRNODE at the HEPMASS width),
     wide K3's forward and wide K5's backward in TEST mode and the wide K4
     adjoint's backward under exact trace (deeper chains' exact gradient runs
-    the plain BACKSOLVE, as below); every conditional chain past the wide
-    limits (with K probes or JVP, those of the wide probe COND instances)
-    raises on the card (COND_STREAM); narrow conditional nets keep the
-    narrow chain kernels and K5's COND instance.
+    the plain BACKSOLVE, as below).  Conditional chains past the wide
+    limits run the COND instances of the streamed forms: the streamed K1 and
+    K2 chain forms' under Hutchinson TRAIN with one VJP probe and, for
+    2-layer tanh nets (CondRNODE at the MINIBOONE width), streamed K3's
+    forward and streamed K5's backward in TEST mode; their TEST forward past
+    2 layers (streamed K7 TEST), their exact training (streamed K7 exact,
+    the streamed K4 adjoint) raise on the card (COND_STREAM_EXACT), and so
+    do K probes or JVP past the wide probe COND instances' shared memory
+    (COND_STREAM_PROBES); narrow conditional nets keep the narrow chain
+    kernels and K5's COND instance.
     Hutchinson TRAIN solves run K1 (or its chain form) with the
     backward member K2 (or its chain form), with the K VJP or JVP probes of
     `compute_mode` (K6: their probe instances); exact-trace TRAIN solves run the
@@ -3316,11 +3527,16 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     run_exact_adj, run_test_adj = run_exact_adjoint_kernel, run_test_adjoint_kernel
     if wide2:
         run_exact_adj, run_test_adj = run_wide_exact_adjoint_kernel, run_wide_test_adjoint_kernel
+    probes = cm.num_probes != 1 or jvp
     if (chain and _wide_chain(spec) or wide2) and _stream_chain(spec):
         run_test, run_train = run_stream_test_solve_kernel, run_stream_train_solve_kernel
         run_exact, run_adjoint = run_stream_exact_solve_kernel, run_stream_adjoint_kernel
+        if spec.n_cond:
+            run_train, run_adjoint = run_stream_cond_train_solve_kernel, run_stream_cond_adjoint_kernel
         if wide2:
             run_test, run_test_adj = run_stream_test2_solve_kernel, run_stream_test_adjoint_kernel
+            if spec.n_cond:
+                run_test, run_test_adj = run_stream_cond_test2_solve_kernel, run_stream_cond_test_adjoint_kernel
             run_exact_adj = run_stream_exact_adjoint_kernel
     elif spec.n_cond and _wide_chain(spec):
         run_test, run_train = run_wide_cond_test_solve_kernel, run_wide_cond_train_solve_kernel
@@ -3331,7 +3547,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     elif chain and _wide_chain(spec):
         run_test, run_train = run_wide_test_solve_kernel, run_wide_train_solve_kernel
         run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel
-        if _stream_chain(spec, cm.num_probes != 1 or jvp):
+        if _stream_chain(spec, probes):
             run_train, run_adjoint = run_stream_train_solve_kernel, run_stream_adjoint_kernel
     elif chain:
         run_test, run_train = run_chain_test_solve_kernel, run_chain_train_solve_kernel
@@ -3339,7 +3555,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     elif wide2:
         run_test, run_train = run_wide_test2_solve_kernel, run_wide_train_solve_kernel
         run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel
-        if _stream_chain(spec, cm.num_probes != 1 or jvp):
+        if _stream_chain(spec, probes):
             run_train, run_adjoint = run_stream_train_solve_kernel, run_stream_adjoint_kernel
     else:
         run_test, run_train = run_solve_kernel, run_train_solve_kernel
@@ -3481,6 +3697,10 @@ __all__ = [
     "run_stream_test2_solve_kernel",
     "run_stream_test_adjoint_kernel",
     "run_stream_exact_adjoint_kernel",
+    "run_stream_cond_train_solve_kernel",
+    "run_stream_cond_adjoint_kernel",
+    "run_stream_cond_test2_solve_kernel",
+    "run_stream_cond_test_adjoint_kernel",
     "run_bf16_solve_kernel",
     "run_bf16_train_solve_kernel",
     "run_bf16_adjoint_kernel",

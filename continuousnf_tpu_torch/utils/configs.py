@@ -66,12 +66,26 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     `synthetic_tabular` recipe at 21 variables plus 0.5 ys.  Past the narrow
     widths: the COND instances of wide K3, wide K5 and the wide K1 and K2
     chain forms run it.  Nothing is cut.
+  * cond_miniboone86 (the README net family's conditional form at the
+    MINIBOONE width, beside miniboone86): CondRNODE, nvars = naug = 43, one
+    conditioning column, MLP 87 -> 258 -> 86 tanh on [z | ys], miniboone86's
+    recipe (lambda3 = 1e-2, steer_rate 0.1, tspan (0, 13), batch 4096).
+    MiniBooNE (UCI, "MiniBooNE particle identification") labels each of its
+    130,064 events signal (36,499, electron neutrinos) or background
+    (93,565), and the density-estimation literature keeps 43 of its 50
+    features (Papamakarios et al. 2017, MAF), so p(x | label) is the
+    class-conditional density its users fit.  The data are synthetic: ys
+    the label drawn with the signal share 36,499 / 130,064 and standardised
+    (signal about +1.601, background about -0.625), and xs the
+    `synthetic_tabular` recipe at 43 variables plus 0.5 ys.  Past the wide
+    limits: the COND instances of streamed K3, streamed K5 and the streamed
+    K1 and K2 chain forms run it.  Nothing is cut.
 
 All: lambda1 = lambda2 = 1e-2 (the RNODE defaults), tsit5 at rtol 1e-3 /
 atol 1e-6, one Gaussian VJP probe (`make_icnf` takes K probes and JVP
 probes), batch 4096 in the scripts unless the entry names its own `batch`
 (miniboone43 and bsds126: 2048; miniboone860: 1024); the conditional recipe
-trains at its `batch_size` of 128, cond_hepmass42 at 4096.  Weights are Glorot-uniform with
+trains at its `batch_size` of 128, cond_hepmass42 and cond_miniboone86 at 4096.  Weights are Glorot-uniform with
 N(0, 0.05) biases, drawn with numpy.
 """
 
@@ -96,9 +110,13 @@ MODELS = {
                           n_cond=1, batch_size=128),
     "cond_hepmass42": dict(dims=(43, 126, 42), nvars=21, naug=21, tspan=(0.0, 13.0),
                            extra={"steer_rate": 0.1, "lam3": 1e-2}, n_cond=1),
+    "cond_miniboone86": dict(dims=(87, 258, 86), nvars=43, naug=43, tspan=(0.0, 13.0),
+                             extra={"steer_rate": 0.1, "lam3": 1e-2}, n_cond=1),
 }
 #: HEPMASS's signal masses in GeV (Baldi et al. 2016), cond_hepmass42's conditioning.
 HEPMASS_MASSES = (500.0, 750.0, 1000.0, 1250.0, 1500.0)
+#: MiniBooNE's signal and background events (UCI), cond_miniboone86's label shares.
+MINIBOONE_EVENTS = (36_499, 93_565)
 # kernel_microbench (`benchmarks/kernel_microbench.py:93-152`): the flagship at
 # tspan (0, 1), run in float32 and under bf16 stage matmuls.
 MODELS["microbench"] = dict(MODELS["flagship"], tspan=(0.0, 1.0))
@@ -144,6 +162,21 @@ def cond_hepmass_data(rng: np.random.Generator, n: int):
     return xs.astype(np.float32), ys.astype(np.float32)
 
 
+def cond_miniboone_data(rng: np.random.Generator, n: int):
+    """n pairs of cond_miniboone86's synthetic data: ys the label, 1 for
+    signal with MiniBooNE's signal share (MINIBOONE_EVENTS) and 0 for
+    background, standardised by the share's mean and standard deviation
+    (signal about +1.601, background about -0.625), and xs = the
+    `synthetic_tabular` recipe at 43 variables + 0.5 ys.  Returns
+    (xs (n, 43), ys (n, 1)), float32."""
+    signal, background = MINIBOONE_EVENTS
+    share = signal / (signal + background)
+    label = (rng.uniform(size=(n, 1)) < share).astype(np.float64)
+    ys = (label - share) / math.sqrt(share * (1.0 - share))
+    xs = tabular_data(rng, n, 43) + 0.5 * ys
+    return xs.astype(np.float32), ys.astype(np.float32)
+
+
 def two_moons(rng: np.random.Generator, n: int, noise: float = 0.05) -> np.ndarray:
     """n points of the two-moons toy of the JAX package's `data.two_moons`
     (`continuousnf_tpu/data.py:22-32`), the data of the trajectory example,
@@ -166,6 +199,8 @@ def model_data(name: str, rng: np.random.Generator, n: int):
         return cond_gaussian_data(rng, n)
     if name == "cond_hepmass42":
         return cond_hepmass_data(rng, n)
+    if name == "cond_miniboone86":
+        return cond_miniboone_data(rng, n)
     return rng.uniform(0.0, 1.0, (n, nvars)).astype(np.float32)
 
 

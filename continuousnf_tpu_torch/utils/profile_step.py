@@ -1,6 +1,6 @@
 """Where the time goes in a training step and a `logpdf` call on the card.
 
-    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|miniboone860|hepmass42|miniboone86|bsds126|cond_hepmass42]
+    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|miniboone860|hepmass42|miniboone86|bsds126|cond_hepmass42|cond_miniboone86]
         [--steps 10]
         [--probes K] [--jvp] [--test-grad] [--direct | --fixed N] [--bf16]
 
@@ -19,7 +19,11 @@ forms, and streamed K7 exact with the streamed K4 adjoint for the
 exact-trace step; `--model cond_hepmass42`: CondRNODE at the HEPMASS width,
 MLP 43 -> 126 -> 42 on [z | ys], through the COND instances of the wide K1
 and K2 chain forms, wide K3 and wide K5, and of wide K7 exact with the wide
-K4 adjoint for the exact-trace step), its weights and its data from a seed as `utils/configs.py` makes
+K4 adjoint for the exact-trace step; `--model cond_miniboone86`: CondRNODE
+at the MINIBOONE width, MLP 87 -> 258 -> 86 on [z | ys], through the COND
+instances of the streamed K1 and K2 chain forms, streamed K3 and streamed
+K5, with no exact-trace step: its streamed K7 exact and K4 adjoint COND
+instances are ROADMAP queue 2 row (d5)), its weights and its data from a seed as `utils/configs.py` makes
 them, one Gaussian VJP probe (`--probes K` Gaussian probes, `--jvp`
 forward-mode ones: the Hutchinson train steps run the probe instances of
 the K1 and K2 kernels or of their chain forms, narrow, wide (miniboone43;
@@ -41,7 +45,7 @@ too):
     that take the most of the CPU's own time under the profiler (where an
     idle card waits).
 With `--test-grad` (always for the README family past state width 32 and
-for cond_hepmass42) it
+for cond_hepmass42 and cond_miniboone86) it
 measures one more path, the TEST loss (the exact-trace maximum likelihood)
 and its gradient in the params (`test_grad`): on a 2-layer net the forward
 runs K3 and the backward K5 (past state width 32 wide K3 and wide K5, past
@@ -164,8 +168,10 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
            "direct": direct, "fixed": fixed, "bf16": bf16}
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    # bf16 has no exact-trace stages (ROADMAP queue 2, the bf16 row).
-    paths = [("train_step", False, B)] + ([] if bf16 else [("exact_train_step", True, B)])
+    # bf16 has no exact-trace stages (ROADMAP queue 2, the bf16 row), nor
+    # have conditional nets past the wide limits (row (d5)).
+    exact_ported = not bf16 and name != "cond_miniboone86"
+    paths = [("train_step", False, B)] + ([("exact_train_step", True, B)] if exact_ported else [])
     if "batch_size" in cfg:
         paths.append((f"train_step_b{cfg['batch_size']}", False, cfg["batch_size"]))
     for label, exact, b in paths:
@@ -176,7 +182,7 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
         yb = None if ys is None else ys[:b]
         call = lambda: step(ps, xs[:b], gen, ys=yb)  # noqa: E731
         out[label] = _measure(call, steps)
-    if test_grad or name in ("hepmass42", "miniboone86", "bsds126", "cond_hepmass42"):
+    if test_grad or name in ("hepmass42", "miniboone86", "bsds126", "cond_hepmass42", "cond_miniboone86"):
         icnf = model(False)
         ps = cnf.params_from_numpy(ps_np, dev)
         leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]

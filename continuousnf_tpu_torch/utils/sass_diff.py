@@ -14,7 +14,10 @@ between two builds of one file shows beside the one between the checkouts.
 The anonymous namespace's name in the mangled names (a hash of the path, its
 length in the `_ZN<n>` prefix) differs between two paths of one source and
 is stripped, in function names and in the instructions that name a
-function.  A function only this checkout has (a new instance) is listed
+function, and runs of blanks are collapsed: cuobjdump pads each
+instruction to a column that a new kernel in the same file can move, so
+without it every line of an unchanged kernel would differ in its padding
+alone.  A function only this checkout has (a new instance) is listed
 apart.  Needs the CUDA toolkit; prints one line per source and one JSON
 object, and exits nonzero if a function of the other checkout is missing
 here or has other SASS.
@@ -38,7 +41,8 @@ _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
 
 
 def sass_by_function(cubin: Path) -> dict:
-    """{function (hash stripped): its SASS lines (addresses stripped)}."""
+    """{function (hash stripped): its SASS lines (addresses stripped, blanks
+    collapsed)}."""
     tool = Path(_nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", str(cubin)], capture_output=True, text=True, check=True,
                           timeout=600).stdout
@@ -48,7 +52,7 @@ def sass_by_function(cubin: Path) -> dict:
             fn = _HASH.sub("<anon>", line.split("Function :")[1].strip())
             out[fn] = []
         elif fn is not None and line.strip():
-            out[fn].append(_HASH.sub("<anon>", _ADDR.sub("", line)).strip())
+            out[fn].append(" ".join(_HASH.sub("<anon>", _ADDR.sub("", line)).split()))
     return out
 
 

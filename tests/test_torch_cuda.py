@@ -10,7 +10,9 @@ chain kernels for chains whose weights pass a block's shared memory, FFJORD's
 MINIBOONE width 43 -> 860 -> 860 -> 43, and for state widths 65 to 128;
 streamed K3 and K5 and the streamed K4 adjoint for 2-layer nets past the
 wide limits, the README net family at the MINIBOONE width 86 -> 258 -> 86
-and the BSDS300 width 126 -> 378 -> 126) against their plain PyTorch
+and the BSDS300 width 126 -> 378 -> 126, and the COND instances of the wide
+and streamed forms for conditional nets past the narrow and the wide
+limits) against their plain PyTorch
 versions, on the card, and the configurations they do not cover.
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a card
@@ -1374,11 +1376,12 @@ def test_wide_cond_chain_paths_on_the_card_match_the_twins_on_the_cpu(dev):
 def test_wide_cond_refusals_raise_on_cuda(dev, case):
     """What the kernels still refuse of conditional nets past the narrow
     widths raises on the card, naming its ROADMAP row, and launches
-    nothing: the streamed forms' COND instances (the wide K4 adjoint's COND
-    instance past the wide limits names that row, as does a chain whose
-    probe COND instance's shared memory it passes with two probes); the
-    unconditional wide K1 chain form, wide K7 and the wide K4 adjoint take
-    no conditional net."""
+    nothing: streamed K7's and the streamed K4 adjoint's COND instances
+    (row (d5): the deep chain's TEST forward at the miniboone860 width, the
+    exact backward past hidden 128) and K probes in a chain whose probe
+    COND instance's shared memory it passes (row (d6)); the unconditional
+    wide K1 chain form, wide K7 and the wide K4 adjoint take no conditional
+    net."""
     dims = {"streamed": (44, 860, 860, 43), "unconditional-K7": (10, 72, 72, 8),
             "K4-hidden130": (44, 130, 43), "probe-shared-memory": (65, 128, 128, 120, 64)}.get(case, COND_HEPMASS)
     spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
@@ -1394,9 +1397,10 @@ def test_wide_cond_refusals_raise_on_cuda(dev, case):
         "unconditional-K7": ("run_wide_test_solve_kernel", "unconditional instance",
                              dict(_kernel_args(dims, B, (0.0, 1.0), dev), ys=ys)),
         "unconditional-K4": ("run_wide_exact_adjoint_kernel", "unconditional instance", k4_call),
-        "K4-hidden130": ("run_wide_cond_exact_adjoint_kernel", tfs.COND_STREAM, k4_call),
-        "probe-shared-memory": ("run_wide_cond_train_solve_kernel", tfs.COND_STREAM, kw),
-        "streamed": ("run_wide_cond_train_solve_kernel", tfs.COND_STREAM, kw),
+        "K4-hidden130": ("run_stream_exact_adjoint_kernel", tfs.COND_STREAM_EXACT, k4_call),
+        "probe-shared-memory": ("run_wide_cond_train_solve_kernel", tfs.COND_STREAM_PROBES, kw),
+        "streamed": ("run_stream_test_solve_kernel", tfs.COND_STREAM_EXACT,
+                     dict(_kernel_args(dims, B, (0.0, 1.0), dev), ys=ys)),
         "unconditional-instance": ("run_wide_train_solve_kernel", "unconditional instance", kw),
     }[case]
     tfs.reset_launches()
@@ -1692,6 +1696,189 @@ def test_stream_exact_adjoint_matches_twin(dev, case):
                 _grad_close(a, b) for a, b in zip(out_k[3] + out_k[4], out_p[3] + out_p[4])):
             return
     _near_tie_holds(out_k, out_p, tfs.adjoint_train_exact_plain, spec, adj, "zT", tab)
+
+
+# ---- the COND instances of the streamed forms (K8: conditional nets past the wide limits) ----
+
+COND_MINIBOONE86 = (87, 258, 86)
+
+
+@pytest.mark.parametrize(
+    "dims,B,span",
+    [
+        (COND_MINIBOONE86, 4096, (0.0, 13.0)),
+        ((67, 80, 66), 37, (2.0, 0.0)),
+        ((10, 136, 136, 8), 300, (0.0, 2.0)),
+        ((44, 860, 860, 43), 256, (0.0, 1.0)),
+        ((87, 4000, 86), 16, (0.0, 1.0)),
+        ((36, 200, 33), 1, (0.0, 1.0)),
+    ],
+    ids=["cond-miniboone86-B4096", "dz66-reverse-B37", "three-layer-hidden136-ncond2-B300", "cond-miniboone860-B256",
+         "hidden4000-global-tiles-B16", "ncond3-B1"],
+)
+def test_stream_cond_kernels_match_twins(dev, dims, B, span):
+    """The COND instances of the streamed K1 and K2 chain forms (and, for
+    2-layer nets, of streamed K3 and streamed K5) against their twins with
+    the conditioning ys (B, n_cond): the forwards from nonzero accumulators
+    (equal steps, values within REL), the adjoints from their forward's
+    output warm-started from its last step (equal steps; z0, acc0, a_z0 and
+    a_ys0 held to the float64 twin; gradients within GRAD_REL).  Hidden
+    width 4000 sends the tile arrays of K2, K3 and K5 to the global scratch.
+    One launch each."""
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    assert tfs._stream_chain(spec)
+    nc, dz = dims[0] - dims[-1], dims[-1]
+    ys = _cond_ys(B, nc, dev)
+    kw, adj = _train_args(dims, B, span, dev)
+    kw["ys"], adj["ys"] = ys, ys
+    two = len(dims) == 3
+    runs = [tfs.run_stream_cond_train_solve_kernel, tfs.run_stream_cond_adjoint_kernel]
+    if two:
+        runs += [tfs.run_stream_cond_test2_solve_kernel, tfs.run_stream_cond_test_adjoint_kernel]
+    before = [w.launches for w in runs]
+    tdir = 1.0 if span[1] > span[0] else -1.0
+    rng = np.random.default_rng(13)
+    T = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    with torch.no_grad():
+        out_k = tfs.run_stream_cond_train_solve_kernel(TSIT5, spec, **kw)
+        out_p = tfs.solve_train_plain(TSIT5, spec, **kw)
+        adj.update(zT=out_k[0], accT=out_k[1], dt_init=-tdir * out_k[4].abs())
+        k2 = [tfs.run_stream_cond_adjoint_kernel(TSIT5, spec, **adj), tfs.adjoint_train_plain(TSIT5, spec, **adj),
+              _twin64(tfs.adjoint_train_plain, spec, adj)]
+        if two:
+            test_kw = dict(_kernel_args(dims, B, span, dev), ys=ys)
+            t_k = tfs.run_stream_cond_test2_solve_kernel(TSIT5, spec, **test_kw)
+            t_p = tfs.solve_test_plain(TSIT5, spec, **test_kw)
+            test_adj = dict({k: test_kw[k] for k in ("rtol", "atol", "max_steps", "ws", "bs", "ys")}, zT=t_p[0],
+                            accT=t_p[1][None], azT=T(rng.normal(0.0, 1.0 / B, (B, dz))),
+                            aaccT=T(np.full((1, B), 1.0 / B)), t_hi=test_kw["t1"], t_lo=test_kw["t0"],
+                            dt_init=-tdir * t_p[4].abs())
+            k5 = [tfs.run_stream_cond_test_adjoint_kernel(TSIT5, spec, **test_adj),
+                  tfs.adjoint_test_plain(TSIT5, spec, **test_adj), _twin64(tfs.adjoint_test_plain, spec, test_adj)]
+    torch.cuda.synchronize()
+    assert [w.launches for w in runs] == [n + 1 for n in before]
+    _hold_forward(out_k, out_p)
+    _hold_cond_adjoint(*k2)
+    assert float(k2[0][3][0][dz:].abs().max()) > 0.0
+    if two:
+        _hold_forward(t_k, t_p)
+        _hold_cond_adjoint(*k5)
+
+
+def _cond_miniboone86(device, mode="test", dtype=torch.float32, solver=None, span=(0.0, 1.0), fused=True):
+    """cond_miniboone86 (CondRNODE, nvars = naug = 43, MLP 87 -> 258 -> 86 on
+    [z | ys], steer_rate 0.1, lambda3 = 1e-2) on `device`."""
+    kw = {} if solver is None else {"solver": solver}
+    return tcnf.construct(tcnf.CondRNODE, tcnf.MLP(COND_MINIBOONE86, device=device, dtype=dtype), 43, 43,
+                          tspan=span, steer_rate=0.1, lam3=1e-2, dtype=dtype,
+                          compute_mode=tcnf.VecJacMode(fused=fused, exact_trace=mode == "exact"), **kw)
+
+
+def _cond_miniboone86_inputs(B, seed):
+    from continuousnf_tpu_torch.utils.configs import model_data
+
+    xs, ys = model_data("cond_miniboone86", np.random.default_rng(seed), B)
+    eps = np.random.default_rng(seed + 1).normal(size=(1, B, 86)).astype(np.float32)
+    return xs, ys, eps, _np_params(COND_MINIBOONE86, seed + 2)
+
+
+def test_stream_cond_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """cond_miniboone86 (tspan (0, 1) here) on the card and on the CPU at
+    B = 256: `CondICNFDist.logpdf` through streamed K3's COND instance; the
+    TEST loss gradient in the params and ys through streamed K3's and
+    streamed K5's; the Hutchinson loss gradient through the streamed K1 and
+    K2 chain forms'; each launching those kernels and no other."""
+    xs, ys, eps, ps_np = _cond_miniboone86_inputs(256, 4)
+
+    def run(device, mode):
+        icnf = _cond_miniboone86(device, mode)
+        ps = tcnf.params_from_numpy(ps_np, device)
+        y = torch.from_numpy(ys).to(device).requires_grad_()
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])] + [y]
+        lp = None
+        if mode == "test":
+            with torch.no_grad():
+                lp = tcnf.CondICNFDist(icnf, tcnf.Mode.TEST, ps, y.detach()).logpdf(xs).cpu()
+            l = tcnf.loss(icnf, tcnf.Mode.TEST, xs, ps, ys=y)
+        else:
+            l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=y, eps=eps, steer_r=0.05)
+        return lp, l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)]
+
+    wants = {"test": {tfs.K3S_KERNEL + "/cond": 2, tfs.K5S_KERNEL + "/cond": 1},
+             "train": {tfs.K1S_KERNEL + "/cond": 1, tfs.K2S_KERNEL + "/cond": 1}}
+    for mode, want in wants.items():
+        before = _launches()
+        lp_k, l_k, g_k = run(dev, mode)
+        after = _launches()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == want
+        lp_c, l_c, g_c = run(torch.device("cpu"), mode)
+        assert _close(l_k, l_c) and (lp_k is None or _close(lp_k, lp_c))
+        for a, b in zip(g_k, g_c):
+            assert _grad_close(a, b)
+
+
+@pytest.mark.parametrize("mode", ["test", "train"])
+def test_stream_cond_gradients_match_a_float64_solve(dev, mode):
+    """cond_miniboone86 at its own span (0, 13), B = 64: the TEST and the
+    Hutchinson loss gradients in the params and ys through the streamed
+    COND instances within 2e-2 max|g| of a float64 rtol 1e-7 solve (the
+    plain path on the card), the losses within 1e-4 of it."""
+    xs, ys, eps, ps_np = _cond_miniboone86_inputs(64, 6)
+    truth = tcnf.SolverOptions(rtol=1e-7, atol=1e-9)
+
+    def run(dtype, fused, solver=None):
+        icnf = _cond_miniboone86(dev, "test" if mode == "test" else "train", dtype, solver, (0.0, 13.0), fused)
+        leaves = [v.to(dtype).requires_grad_() for p in tcnf.params_from_numpy(ps_np, dev) for v in (p["w"], p["b"])]
+        ps = tuple({"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2]))
+        y = torch.from_numpy(ys).to(device=dev, dtype=dtype).requires_grad_()
+        x = torch.from_numpy(xs).to(device=dev, dtype=dtype)
+        if mode == "test":
+            l = tcnf.loss(icnf, tcnf.Mode.TEST, x, ps, ys=y)
+        else:
+            l = tcnf.loss(icnf, tcnf.Mode.TRAIN, x, ps, ys=y, eps=torch.from_numpy(eps).to(device=dev, dtype=dtype),
+                          steer_r=0.05)
+        return l.detach().cpu().double(), [g.cpu().double() for g in torch.autograd.grad(l, leaves + [y])]
+
+    before = _launches()
+    l_k, g_k = run(torch.float32, True)
+    after = _launches()
+    want = ({tfs.K3S_KERNEL + "/cond": 1, tfs.K5S_KERNEL + "/cond": 1} if mode == "test"
+            else {tfs.K1S_KERNEL + "/cond": 1, tfs.K2S_KERNEL + "/cond": 1})
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == want
+    l_t, g_t = run(torch.float64, False, truth)
+    assert float((l_k - l_t).abs()) <= 1e-4 * max(1.0, float(l_t.abs()))
+    for a, t in zip(g_k, g_t):
+        assert torch.isfinite(a).all() and float((a - t).abs().max()) <= 2e-2 * float(t.abs().max())
+
+
+@pytest.mark.parametrize("case", ["exact", "two-probes", "jvp", "three-layer-test"])
+def test_stream_cond_refusals_raise_on_cuda(dev, case):
+    """Through the loss on the card, what the kernels still refuse of
+    conditional nets past the wide limits raises NotImplementedError naming
+    its part of ROADMAP queue 2's row (d) and launches no kernel: exact
+    training (streamed K7 exact's COND instance, (d5)), K probes and JVP
+    probes (the streamed probe COND instances, (d6)) at cond_miniboone86,
+    and the TEST forward of a conditional 3-layer chain past hidden 128
+    (streamed K7 TEST's COND instance, (d5))."""
+    dims = (10, 136, 136, 8) if case == "three-layer-test" else COND_MINIBOONE86
+    nvars = 4 if case == "three-layer-test" else 43
+    cm = {"exact": tcnf.VecJacMode(fused=True, exact_trace=True), "two-probes": tcnf.VecJacMode(2, fused=True),
+          "jvp": tcnf.JacVecMode(fused=True)}.get(case, tcnf.VecJacMode(fused=True))
+    icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP(dims, device=dev), nvars, dims[-1] - nvars, tspan=(0.0, 1.0),
+                          compute_mode=cm)
+    ps = tcnf.params_from_numpy(_np_params(dims, 9), dev)
+    xs = torch.from_numpy(np.random.default_rng(10).normal(size=(64, nvars)).astype(np.float32)).to(dev)
+    ys = _cond_ys(64, dims[0] - dims[-1], dev)
+    why = tfs.COND_STREAM_PROBES if case in ("two-probes", "jvp") else tfs.COND_STREAM_EXACT
+    tfs.reset_launches()
+    with pytest.raises(NotImplementedError) as err:
+        if case == "three-layer-test":
+            with torch.no_grad():
+                tcnf.inference(icnf, tcnf.Mode.TEST, xs, ps, ys=ys)
+        else:
+            tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=ys)
+    assert why in str(err.value)
+    assert not any(w.launches for w in tfs.KERNEL_WRAPPERS.values())
 
 
 # ---- the chain kernels with conditioning rows (K8) ----

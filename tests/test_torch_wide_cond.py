@@ -116,7 +116,9 @@ def test_cond_hepmass42_configuration():
     standardised signal masses and xs the tabular recipe shifted by 0.5 ys.
     The wide COND instances take it, the wide K4 adjoint's included; the
     narrow kernels do not, nor the wide 2-layer kernels a conditional net
-    past the wide limits (COND_STREAM)."""
+    past the wide limits, whose TEST stages the streamed COND instances take
+    and whose exact backward the streamed K4 adjoint refuses
+    (COND_STREAM_EXACT)."""
     cfg = MODELS["cond_hepmass42"]
     hep = MODELS["hepmass42"]
     assert (cfg["dims"], cfg["nvars"], cfg["naug"], cfg["n_cond"]) == ((43, 126, 42), 21, 21, 1)
@@ -131,7 +133,10 @@ def test_cond_hepmass42_configuration():
     assert spec.n_cond == 1 and tfs._wide_two_layer(spec) and tfs._wide_chain(spec)
     assert tfs._wide_two_layer_covers(TSIT5, spec) is None
     assert tfs._kernel_covers(TSIT5, spec, chain=True) is None
-    assert tfs._wide_two_layer_covers(TSIT5, _spec((44, 130, 43), 1)) == tfs.COND_STREAM
+    past = _spec((44, 130, 43), 1)
+    assert "hidden width 130 > 128" in tfs._wide_two_layer_covers(TSIT5, past)
+    assert tfs._stream_two_layer_covers(TSIT5, past) is None
+    assert tfs._stream_exact_covers(TSIT5, past) == tfs.COND_STREAM_EXACT
 
 
 @pytest.mark.parametrize("net,mode", [("two-layer", "test"), ("two-layer", "train"), ("three-layer", "train")])
@@ -308,6 +313,9 @@ def test_cond_dist_logpdf_matches_jax(net):
 
 
 # name -> (dims, n_cond, probes, jvp, what the refusal names; None: covered)
+# Past the wide limits (_STREAMED) the streamed COND instances take one VJP probe;
+# with K probes or JVP such chains are refused (row (d6)).
+_STREAMED = {"hidden129", "dz65", "miniboone860", "hidden129-K2", "miniboone860-jvp"}
 _COVERAGE = {
     "two-layer": (TWO, 1, 1, False, None),
     "three-layer": (THREE, 2, 1, False, None),
@@ -315,9 +323,11 @@ _COVERAGE = {
     "dz64-hidden128": ((65, 128, 128, 64), 1, 1, False, None),
     "two-layer-K2": (TWO, 1, 2, False, None),
     "three-layer-jvp": (THREE, 2, 1, True, None),
-    "hidden129": ((44, 129, 43), 1, 1, False, tfs.COND_STREAM),
-    "dz65": ((66, 130, 65), 1, 1, False, tfs.COND_STREAM),
-    "miniboone860": ((44, 860, 860, 43), 1, 1, False, tfs.COND_STREAM),
+    "hidden129": ((44, 129, 43), 1, 1, False, None),
+    "dz65": ((66, 130, 65), 1, 1, False, None),
+    "miniboone860": ((44, 860, 860, 43), 1, 1, False, None),
+    "hidden129-K2": ((44, 129, 43), 1, 2, False, tfs.COND_STREAM_PROBES),
+    "miniboone860-jvp": ((44, 860, 860, 43), 1, 1, True, tfs.COND_STREAM_PROBES),
 }
 
 
@@ -326,11 +336,14 @@ def test_wide_cond_coverage(name):
     """The wide K1 and K2 chain forms' COND instances take conditional chains
     past the narrow widths that the wide forms keep, with one VJP probe and
     (their probe COND instances) with K probes or JVP probes; conditional
-    chains past the wide limits are refused naming their ROADMAP queue 2
-    row, and the streamed forms take none of them."""
+    chains past the wide limits run the streamed forms' COND instances with
+    one VJP probe and are refused with K probes or JVP, naming their
+    ROADMAP queue 2 row; the streamed forms take no conditional chain with
+    probes."""
     dims, nc, k, jvp, why = _COVERAGE[name]
     spec = _spec(dims, nc)
-    assert tfs._wide_chain(spec) and not tfs._stream_chain(spec) and not tfs._stream_chain(spec, True)
+    assert tfs._wide_chain(spec) and not tfs._stream_chain(spec, True)
+    assert tfs._stream_chain(spec) == (name in _STREAMED)
     msg = tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp)
     assert msg == why
     if why is not None:
@@ -343,7 +356,8 @@ def test_cond_shared_memory_rule_counts_the_ys_rows():
     COND instance, its ys values and ys cotangents: a chain that the wide
     forms keep unconditionally can pass the limit once it reads enough ys
     columns, and is then refused as a conditional chain past the wide
-    limits."""
+    limits, where the streamed COND instances take it with one probe and
+    refuse it with two."""
     base = (64, 128, 128, 120, 64)
     assert tfs._wide_limit(_spec(base, 0)) is None
     for nc in (1, 8):
@@ -351,7 +365,9 @@ def test_cond_shared_memory_rule_counts_the_ys_rows():
         assert tfs._wide_smem_floats(grown) - tfs._wide_smem_floats(_spec(base, 0)) >= nc * (128 | 1) + 8 * nc
     wide = next(nc for nc in range(1, 64) if tfs._wide_limit(_spec((64 + nc,) + base[1:], nc)) is not None)
     assert "shared memory" in tfs._wide_limit(_spec((64 + wide,) + base[1:], wide))
-    assert tfs._kernel_covers(TSIT5, _spec((64 + wide,) + base[1:], wide), chain=True) == tfs.COND_STREAM
+    assert tfs._kernel_covers(TSIT5, _spec((64 + wide,) + base[1:], wide), chain=True) is None
+    assert tfs._stream_chain(_spec((64 + wide,) + base[1:], wide))
+    assert tfs._kernel_covers(TSIT5, _spec((64 + wide,) + base[1:], wide), 2, chain=True) == tfs.COND_STREAM_PROBES
     assert tfs._kernel_covers(TSIT5, _spec((64 + wide - 1,) + base[1:], wide - 1), chain=True) is None
 
 
@@ -363,10 +379,11 @@ def _fake_cuda():
 # name -> (check, dims, n_cond, keyword arguments, the row or reason the refusal names)
 _REFUSED = {
     "probe-instance-shared-memory": ("chain", (65, 128, 128, 120, 64), 1, dict(wide=True, cond=True, k_probes=2),
-                                     tfs.COND_STREAM),
-    "streamed-chain": ("chain", (44, 860, 860, 43), 1, dict(wide=True, cond=True), tfs.COND_STREAM),
-    "streamed-two-layer": ("two", (87, 258, 86), 1, dict(cond=True), tfs.COND_STREAM),
-    "wide-K4-adjoint-hidden130": ("two", (44, 130, 43), 1, dict(cond=True), tfs.COND_STREAM),
+                                     tfs.COND_STREAM_PROBES),
+    "streamed-chain": ("chain", (44, 860, 860, 43), 1, dict(wide=True, cond=True),
+                       "their streamed forms take the chain"),
+    "streamed-two-layer": ("two", (87, 258, 86), 1, dict(cond=True), "state width 86 > 64"),
+    "wide-K4-adjoint-hidden130": ("two", (44, 130, 43), 1, dict(cond=True), "hidden width 130 > 128"),
     "unconditional-instance": ("chain", TWO, 1, dict(wide=True), "unconditional instance"),
     "unconditional-K3": ("two", TWO, 1, {}, "unconditional instance"),
     "unconditional-K7": ("chain", THREE, 2, dict(wide=True), "unconditional instance"),
@@ -376,14 +393,15 @@ _REFUSED = {
 
 @pytest.mark.parametrize("name", list(_REFUSED))
 def test_cond_refusals_on_the_card_name_their_row(name):
-    """What the card still refuses of conditional nets past the narrow widths
-    raises NotImplementedError through the wrappers' checks, naming its
-    ROADMAP queue 2 row (stable names): the streamed forms' COND instances
-    (past the wide limits the wide 2-layer kernels, the wide K4 adjoint
-    among them, name that row; with two probes, a chain the one-probe COND
-    instance keeps whose probe COND instance's shared memory it passes);
-    and no unconditional instance takes a conditional net, nor a COND
-    instance an unconditional one."""
+    """What the wide instances refuse of conditional nets past the narrow
+    widths raises NotImplementedError through the wrappers' checks, naming
+    its reason or ROADMAP queue 2 row (stable names): with two probes, a
+    chain the one-probe COND instance keeps whose probe COND instance's
+    shared memory it passes (row (d6)); past the wide limits the wide chain
+    forms and the wide 2-layer kernels, the wide K4 adjoint among them,
+    name the limit (the streamed COND instances take those nets:
+    tests/test_torch_stream_cond.py); and no unconditional instance takes a
+    conditional net, nor a COND instance an unconditional one."""
     check, dims, nc, kw, why = _REFUSED[name]
     spec = _spec(dims, nc)
     with pytest.raises(NotImplementedError) as err:

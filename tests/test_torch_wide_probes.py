@@ -187,7 +187,8 @@ def test_conditional_wide_chains_with_probes_stay_refused(probes):
     spec = _spec((64, 128, 128, 120, 64), 1)
     assert tfs._kernel_covers(TSIT5, spec, chain=True) is None
     msg = tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp)
-    assert msg == tfs.COND_STREAM and "conditional chains past the wide limits" in msg and "ROADMAP queue 2" in msg
+    assert msg == tfs.COND_STREAM_PROBES and "conditional chains past the wide limits" in msg
+    assert "ROADMAP queue 2" in msg
 
 
 def test_probe_instance_shared_memory_rule():
