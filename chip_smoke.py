@@ -583,12 +583,42 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      streamed K5 COND once each, the train step (loss, gradient, Lion) the
      streamed K1 and K2 chain forms' COND instances once each (the
      miniboone860 chain's train step too), `fit` for four Lion steps only
-     those two, at least four times each; and, by name with nothing
-     launched, what is still refused: exact training (row (d5)), two probes
-     (row (d6)), the miniboone860 chain's `logpdf` (streamed K7 TEST, (d5));
+     those two, at least four times each; what row (d5) refused now runs:
+     the exact loss gradient at B = 256 (streamed K7 exact COND and the
+     streamed K4 adjoint COND once each), the miniboone860 chain's `logpdf`
+     (streamed K7 TEST COND once); and, by name with nothing launched, what
+     is still refused: two probes (row (d6));
 117. CUDA-event times of the train step, `logpdf` and the TEST loss
      gradient at cond_miniboone86, each beside miniboone86's in the same
-     run, a b b a.
+     run, a b b a;
+118. K8 in streamed K7 and in the streamed K4 adjoint: the launch shapes of
+     streamed K7 exact's and the streamed K4 adjoint's COND instances at
+     cond_miniboone86 (B = 4096) and of streamed K7 TEST's and exact's at
+     cond_miniboone860 (CondRNODE, MLP 44 -> 860 -> 860 -> 43 on [z | ys],
+     nvars 43, one ys column, B = 1024), and ptxas's registers, stack frame
+     and spills of the three instances (and of the streamed K4 adjoint's
+     stage calls) beside the unconditional ones;
+119. streamed K7 exact COND and, from its output with its last step as the
+     warm start, the streamed K4 adjoint COND against their twins at
+     cond_miniboone86 (equal steps, values within TOL; the gradients, W1's
+     ys rows not zero, and a_ys0 within GRAD_TOL; z0 and a_z0 held to the
+     float64 twin), streamed K7 TEST COND and exact COND at
+     cond_miniboone860, each timed; each beside its unconditional instance
+     on miniboone86's or miniboone860's inputs in the same run, a b b a,
+     per attempted step;
+120. cond_miniboone86's exact loss and gradients (params and ys) at B = 256
+     through the COND instances, the plain path and a float64 rtol 1e-7
+     solve, within SOLVE_REL;
+121. the main paths, counters reset just before each: cond_miniboone86's
+     exact train step launching streamed K7 exact COND and the streamed K4
+     adjoint COND once each and nothing else, its exact `fit` for four Lion
+     steps only those two, at least four times each; cond_miniboone860's
+     `logpdf` and `sample(1024)` each streamed K7 TEST COND once (its
+     logpdf within TOL of the plain path's), its exact train step streamed
+     K7 exact COND once (the backward plain);
+122. CUDA-event times, a b b a in the same run: cond_miniboone86's exact
+     train step beside miniboone86's, cond_miniboone860's `logpdf` beside
+     miniboone860's.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -4987,13 +5017,26 @@ def cond_stream(cnf, fs, dev, built):
     print(f"phase 116: cond_miniboone86 main paths: logpdf {n_serve['logpdf']} and sample {n_serve['sample']} "
           f"launches of {names['k3sc'][0]}, TEST loss gradient {n_test}, train steps {n_steps}, fit {n_fit}")
     small = slice(0, COND_TRUTH_BATCH)
-    refuses(fs, "cond_miniboone86's exact loss gradient (row (d5))", fs.COND_STREAM_EXACT,
-            lambda: loss_grad(cnf, model(exact=True), ps_np, xs[small], dev, ys=ys[small]), phase=116)
+    # What row (d5) refused runs now, through its COND instances (phases
+    # 118-122 hold them).
+    fs.reset_launches()
+    _, g_e, _ = loss_grad(cnf, model(exact=True), ps_np, xs[small], dev, ys=ys[small])
+    torch.cuda.synchronize()
+    n_e = launched(fs)
+    check(n_e == {fs.K7S_KERNEL + "/exact/cond": 1, fs.K4SA_KERNEL + "/cond": 1}
+          and all(bool(torch.isfinite(g).all()) for g in g_e), f"cond_miniboone86 exact gradient launched {n_e}")
+    fs.reset_launches()
+    with torch.no_grad():
+        lp_c = cnf.CondICNFDist(icnf_c, cnf.Mode.TEST, cnf.params_from_numpy(ps_c, dev),
+                                ys_c[small]).logpdf(xs_c[small])
+    torch.cuda.synchronize()
+    n_lp = launched(fs)
+    check(n_lp == {fs.K7S_KERNEL + "/test/cond": 1} and bool(torch.isfinite(lp_c).all()),
+          f"the conditional miniboone860 chain's logpdf launched {n_lp}")
+    print(f"phase 116: row (d5) runs: cond_miniboone86's exact loss gradient launched {n_e}, the conditional "
+          f"miniboone860 chain's logpdf {n_lp}")
     refuses(fs, "cond_miniboone86's loss gradient with two probes (row (d6))", fs.COND_STREAM_PROBES,
             lambda: loss_grad(cnf, model(num_probes=2), ps_np, xs[small], dev, ys=ys[small]), phase=116)
-    refuses(fs, "the conditional miniboone860 chain's logpdf (row (d5))", fs.COND_STREAM_EXACT,
-            lambda: cnf.CondICNFDist(icnf_c, cnf.Mode.TEST, cnf.params_from_numpy(ps_c, dev),
-                                     ys_c[small]).logpdf(xs_c[small]), phase=116)
 
     # Phase 117: CUDA-event times of the train step, `logpdf` and the TEST
     # loss gradient at cond_miniboone86, each beside miniboone86's in the
@@ -5030,6 +5073,239 @@ def cond_stream(cnf, fs, dev, built):
         name, _, _, src, at = names[key]
         records.append(kernel_record(f"{name}/chain3", src, at, n_chain[name], err, t_ms, pms, fma_c[wide_keys[key]],
                                      Bc, steps_of(out)[0], floats_c[wide_keys[key]], accepted=steps_of(out)[1]))
+    return records
+
+
+# ---- K8 in streamed K7 and the streamed K4 adjoint ----
+
+
+def cond_stream_exact_names(fs):
+    """The conditional streamed exact and deep-chain paths' kernels: record
+    key -> (KERNEL_WRAPPERS name, wrapper, twin, source, the TPU site)."""
+    at = "continuousnf_tpu/ops/fused_solve.py:"
+    return {
+        "k7tc": (fs.K7S_KERNEL + "/test/cond", fs.run_stream_cond_test_solve_kernel, fs.solve_test_plain,
+                 "k7_stream_solve.cu", at + "1043"),
+        "k7ec": (fs.K7S_KERNEL + "/exact/cond", fs.run_stream_cond_exact_solve_kernel, fs.solve_train_exact_plain,
+                 "k7_stream_solve.cu", at + "1043"),
+        "k4wc": (fs.K4SA_KERNEL + "/cond", fs.run_stream_cond_exact_adjoint_kernel, fs.adjoint_train_exact_plain,
+                 "k4_stream_adjoint.cu", at + "1767"),
+    }
+
+
+def cond_stream_exact(cnf, fs, dev, built):
+    """Phases 118 to 122: cond_miniboone86 (CondRNODE, MLP 87 -> 258 -> 86 on
+    [z | ys], B = 4096) under exact trace through the COND instances of
+    streamed K7 exact and the streamed K4 adjoint (K8 in streamed K7 and in
+    the streamed K4 adjoint), and cond_miniboone860 (MLP 44 -> 860 -> 860 ->
+    43 on [z | ys], B = 1024) served through streamed K7 TEST's COND
+    instance and trained under exact trace through streamed K7 exact's (its
+    backward plain), beside miniboone86's and miniboone860's unconditional
+    instances.  `built`: the build's {kernel: (library, nvcc log)}.  Returns
+    the records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    cfg = MODELS["cond_miniboone86"]
+    dims, nc, B = cfg["dims"], cfg["n_cond"], BATCH
+    rng = np.random.default_rng(SEED + 1300)
+    ps_np = glorot_params(rng, dims)
+    xs_np, ys_np = model_data("cond_miniboone86", rng, B)
+    xs, ys = torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    model = lambda **kw: make_icnf("cond_miniboone86", dev, exact=True, **kw)  # noqa: E731
+    icnf_k, icnf_p = model(), model(fused=False)
+    spec = fs.chain_spec(icnf_k.nn, icnf_k.zdim)
+    check(spec.n_cond == nc and fs._stream_two_layer(spec) and fs._stream_exact_covers(TSIT5, spec) is None,
+          "cond_miniboone86 should run the COND instances of streamed K7 exact and the streamed K4 adjoint")
+    names = cond_stream_exact_names(fs)
+    cfg_c = MODELS["cond_miniboone860"]
+    dims_c, Bc = cfg_c["dims"], cfg_c["batch"]
+    rng_c = np.random.default_rng(SEED + 1301)
+    ps_c = glorot_params(rng_c, dims_c)
+    xs_c, ys_c = (torch.from_numpy(a).to(dev) for a in model_data("cond_miniboone860", rng_c, Bc))
+    icnf_c, icnf_cp = make_icnf("cond_miniboone860", dev), make_icnf("cond_miniboone860", dev, fused=False)
+    icnf_ce = make_icnf("cond_miniboone860", dev, exact=True)
+    spec_c = fs.chain_spec(icnf_c.nn, icnf_c.zdim)
+    check(fs._stream_chain(spec_c) and fs._kernel_covers(TSIT5, spec_c, chain=True) is None,
+          "cond_miniboone860 should run streamed K7's COND instances")
+
+    # Phase 118: the launch shapes at the paths' batches; ptxas's registers,
+    # stack frame and spills of the COND instances beside the unconditional.
+    for lib_name, fn, widths, b in ((fs.K7S_KERNEL, "cnf_k7sc_exact_shape", dims, B),
+                                    (fs.K4SA_KERNEL, "cnf_k4sc_shape", dims, B),
+                                    (fs.K7S_KERNEL, "cnf_k7sc_test_shape", dims_c, Bc),
+                                    (fs.K7S_KERNEL, "cnf_k7sc_exact_shape", dims_c, Bc)):
+        out = (ctypes.c_int * 5)()
+        err = getattr(fs._library(lib_name), fn)(len(widths) - 1, (ctypes.c_int * len(widths))(*widths), b, out)
+        check(err == 0 and out[1] >= 1, f"{fn} at {widths}: cudaError {err}")
+        tile = f"tile {out[2]}" if fn == "cnf_k4sc_shape" else f"{out[2]} basis rows a chunk"
+        print(f"phase 118: {fn} at widths {widths}, B={b}: {out[0]} threads a block, {out[1]} blocks, {tile}, "
+              f"{out[3]} bytes of dynamic shared memory, {out[4]} floats of global tile scratch a block")
+    for lib_name, parts in ((fs.K7S_KERNEL, ("20k7_stream_cond_solve", "15k7_stream_solve")),
+                            (fs.K4SA_KERNEL, ("22k4_stream_cond_adjoint", "17k4_stream_adjoint",
+                                              "23StreamExactCondAdjStage", "19StreamExactAdjStage"))):
+        log = built.get(lib_name, (None, ""))[1]
+        for part in parts:
+            found = ptxas_report(log, part)
+            if not found:
+                print(f"phase 118: {part[2:]}: no ptxas lines (the library was not compiled by this process)")
+            for fn, r in found.items():
+                entry = "TEST" if "ILi1E" in fn else "exact" if "ILi3E" in fn else "one"
+                print(f"phase 118: ptxas {part[2:]} ({entry}): {r.get('registers')} registers, {r.get('stack')} bytes "
+                      f"stack frame, {r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} bytes spill "
+                      "loads")
+
+    # Phase 119: each COND instance against its twin, timed; then beside its
+    # unconditional instance on miniboone86's or miniboone860's inputs, a b
+    # b a, per attempted step.
+    _, _, exact, cot = kernel_inputs(icnf_k, ps, xs, rng, dev)
+    exact["ys"] = ys
+    runs = {"k7ec": run_pair(f"{names['k7ec'][0]} (cond_miniboone86)", names["k7ec"][1], names["k7ec"][2], TSIT5,
+                             spec, exact, reps=2)}
+    adj = adjoint_kw(exact, runs["k7ec"][0], cot)
+    runs["k4wc"] = run_pair(f"{names['k4wc'][0]} (cond_miniboone86)", names["k4wc"][1], names["k4wc"][2], TSIT5, spec,
+                            adj, adjoint=True, reps=2)
+    out = runs["k4wc"][0]
+    check(len(out) == 8 and tuple(out[7].shape) == (B, nc) and float(out[3][0][dims[-1]:].abs().max()) > 0.0,
+          f"{names['k4wc'][0]} returned no a_ys0 or a zero gradient for W1's ys rows")
+    ps_ct = cnf.params_from_numpy(ps_c, dev)
+    test_c, _, exact_c, _ = kernel_inputs(icnf_ce, ps_ct, xs_c, rng_c, dev)
+    test_c["ys"], exact_c["ys"] = ys_c, ys_c
+    runs_c = {key: run_pair(f"{names[key][0]} (cond_miniboone860, B={Bc})", names[key][1], names[key][2], TSIT5,
+                            spec_c, kw, reps=2) for key, kw in (("k7tc", test_c), ("k7ec", exact_c))}
+    rng_u = np.random.default_rng(SEED + 1302)
+    icnf_u = make_icnf("miniboone86", dev, exact=True)
+    spec_u = fs.chain_spec(icnf_u.nn, icnf_u.zdim)
+    ps_u_np = glorot_params(rng_u, MODELS["miniboone86"]["dims"])
+    xs_u = torch.from_numpy(model_data("miniboone86", rng_u, B)).to(dev)
+    _, _, exact_u, cot_u = kernel_inputs(icnf_u, cnf.params_from_numpy(ps_u_np, dev), xs_u, rng_u, dev)
+    rng_v = np.random.default_rng(SEED + 1303)
+    icnf_v = make_icnf("miniboone860", dev, exact=True)
+    spec_v = fs.chain_spec(icnf_v.nn, icnf_v.zdim)
+    ps_v_np = glorot_params(rng_v, MODELS["miniboone860"]["dims"])
+    xs_v = torch.from_numpy(model_data("miniboone860", rng_v, Bc)).to(dev)
+    test_v, _, exact_v, _ = kernel_inputs(icnf_v, cnf.params_from_numpy(ps_v_np, dev), xs_v, rng_v, dev)
+    with torch.no_grad():
+        out_u = fs.run_stream_exact_solve_kernel(TSIT5, spec_u, **exact_u)
+        adj_u = adjoint_kw(exact_u, out_u, cot_u)
+        pairs = {
+            "k7ec": (lambda: names["k7ec"][1](TSIT5, spec, **exact), runs["k7ec"][0],
+                     lambda: fs.run_stream_exact_solve_kernel(TSIT5, spec_u, **exact_u), out_u, "miniboone86"),
+            "k4wc": (lambda: names["k4wc"][1](TSIT5, spec, **adj), runs["k4wc"][0],
+                     lambda: fs.run_stream_exact_adjoint_kernel(TSIT5, spec_u, **adj_u),
+                     fs.run_stream_exact_adjoint_kernel(TSIT5, spec_u, **adj_u), "miniboone86"),
+            "k7tc/chain3": (lambda: names["k7tc"][1](TSIT5, spec_c, **test_c), runs_c["k7tc"][0],
+                            lambda: fs.run_stream_test_solve_kernel(TSIT5, spec_v, **test_v),
+                            fs.run_stream_test_solve_kernel(TSIT5, spec_v, **test_v), "miniboone860"),
+            "k7ec/chain3": (lambda: names["k7ec"][1](TSIT5, spec_c, **exact_c), runs_c["k7ec"][0],
+                            lambda: fs.run_stream_exact_solve_kernel(TSIT5, spec_v, **exact_v),
+                            fs.run_stream_exact_solve_kernel(TSIT5, spec_v, **exact_v), "miniboone860"),
+        }
+        for key, (fa, out_a, fb, out_b, other) in pairs.items():
+            ms_a, ms_b = paired_ms(fa, fb, 2)
+            n_a, n_b = int(steps_of(out_a)[0]), int(steps_of(out_b)[0])
+            us_a, us_b = ms_a * 1e3 / n_a, ms_b * 1e3 / n_b
+            print(f"phase 119: {key} {ms_a:.4f} ms ({n_a} steps, {us_a:.1f} us a step) beside the unconditional "
+                  f"instance {ms_b:.4f} ms on {other} ({n_b} steps, {us_b:.1f} us a step), a b b a: "
+                  f"{100.0 * (us_a / us_b - 1.0):+.1f} % a step")
+    print("phase 119: the COND instances of streamed K7 and the streamed K4 adjoint held to their twins")
+
+    # Phase 120: cond_miniboone86's exact loss and gradients (params and ys)
+    # at B = 256 against the plain path and a float64 rtol 1e-7 solve.
+    b = COND_TRUTH_BATCH
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    steer = {"steer_r": 0.05}
+    want = {names["k7ec"][0]: 1, names["k4wc"][0]: 1}
+    fs.reset_launches()
+    l_k, g_k, _ = loss_grad(cnf, icnf_k, ps_np, xs[:b], dev, ys=ys[:b], **steer)
+    torch.cuda.synchronize()
+    check(launched(fs) == want, f"cond_miniboone86 exact gradient launched {launched(fs)}, expected {want}")
+    l_p, g_p, _ = loss_grad(cnf, icnf_p, ps_np, xs[:b], dev, ys=ys[:b], **steer)
+    l_t, g_t, _ = loss_grad(cnf, model(fused=False, dtype=torch.float64, solver=truth), ps_np, xs[:b], dev,
+                            torch.float64, ys=ys[:b], **steer)
+    torch.cuda.synchronize()
+    hold_gradients(f"cond_miniboone86 exact B={b}", l_k, g_k, l_p, g_p, l_t, g_t, names=["w1", "b1", "w2", "b2", "ys"])
+    print("phase 120: cond_miniboone86 exact gradients held to the float64 solve")
+
+    # Phase 121: the main paths, counters reset just before each.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1304)
+    p = cnf.params_from_numpy(ps_np, dev)
+    leaves = [x.requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
+    step = cnf.parallel.make_train_step_body(icnf_k, cnf.Lion(leaves, lr=1e-3))
+    fs.reset_launches()
+    metrics = step(p, xs, gen, ys=ys)
+    torch.cuda.synchronize()
+    n_step = launched(fs)
+    check(n_step == want and bool(torch.isfinite(metrics["loss"])) and all(bool(torch.isfinite(x).all())
+                                                                            for x in leaves),
+          f"cond_miniboone86 exact train step launched {n_step}, loss {float(metrics['loss'])}")
+    X, Y = model_data("cond_miniboone86", rng, N_STEPS * B)
+    fit_path(cnf, fs, icnf_k, ps_np, dev, X, Y, batch_size=B)
+    n_fit = launched(fs)
+    check(set(n_fit) == set(want) and min(n_fit.values()) >= N_STEPS, f"cond_miniboone86 exact fit launched {n_fit}")
+    dist_c = cnf.CondICNFDist(icnf_c, cnf.Mode.TEST, ps_ct, ys_c)
+    n_serve = {}
+    for what, call in (("logpdf", lambda: dist_c.logpdf(xs_c)),
+                       ("sample", lambda: dist_c.sample(Bc, generator=torch.Generator(device=dev).manual_seed(
+                           SEED + 1305)))):
+        fs.reset_launches()
+        with torch.no_grad():
+            out = call()
+        torch.cuda.synchronize()
+        n = launched(fs)
+        check(n == {names["k7tc"][0]: 1} and bool(torch.isfinite(out).all()), f"cond_miniboone860 {what} launched {n}")
+        n_serve[what] = n[names["k7tc"][0]]
+    with torch.no_grad():
+        lp_k, _, st_k = cnf.inference(icnf_c, cnf.Mode.TEST, xs_c, ps_ct, ys=ys_c)
+        lp_p, _, st_p = cnf.inference(icnf_cp, cnf.Mode.TEST, xs_c, ps_ct, ys=ys_c)
+    dlp = float((lp_k - lp_p).abs().max())
+    check(dlp <= TOL * max(1.0, float(lp_p.abs().max())), f"cond_miniboone860 logpdf differs from the plain path by "
+          f"{dlp}")
+    print(f"phase 121: cond_miniboone860 logpdf B={Bc}: max|dlogp| against the plain path {dlp:.3e}, steps "
+          f"{int(st_k.steps)} (plain {int(st_p.steps)}; the kernel is held to its twin in phase 119)")
+    p_c = cnf.params_from_numpy(ps_c, dev)
+    leaves_c = [x.requires_grad_() for layer in p_c for x in (layer["w"], layer["b"])]
+    step_c = cnf.parallel.make_train_step_body(icnf_ce, cnf.Lion(leaves_c, lr=1e-3))
+    fs.reset_launches()
+    metrics_c = step_c(p_c, xs_c, gen, ys=ys_c)
+    torch.cuda.synchronize()
+    n_c = launched(fs)
+    check(n_c == {names["k7ec"][0]: 1} and bool(torch.isfinite(metrics_c["loss"]))
+          and all(bool(torch.isfinite(x).all()) for x in leaves_c), f"cond_miniboone860's exact step launched {n_c}")
+    print(f"phase 121: cond_miniboone86 exact train step launched {n_step}, exact fit {n_fit}; cond_miniboone860 "
+          f"logpdf and sample {n_serve}, exact train step {n_c} (loss {float(metrics_c['loss']):.6f}, the backward "
+          "plain)")
+
+    # Phase 122: CUDA-event times beside the unconditional models' in the
+    # same run (a, b, b, a).
+    ps_v = cnf.params_from_numpy(ps_v_np, dev)
+    dist_v = cnf.ICNFDist(make_icnf("miniboone860", dev), cnf.Mode.TEST, ps_v)
+    for what, fa, fb in (
+            ("exact train step B=4096: cond_miniboone86", lambda: step_ms(cnf, icnf_k, ps_np, xs, gen, dev, 2, ys=ys),
+             lambda: step_ms(cnf, icnf_u, ps_u_np, xs_u, gen, dev, 2)),
+            (f"logpdf B={Bc}: cond_miniboone860", lambda: cuda_ms(lambda: dist_c.logpdf(xs_c), 2),
+             lambda: cuda_ms(lambda: dist_v.logpdf(xs_v), 2))):
+        with torch.no_grad() if what.startswith("logpdf") else contextlib.nullcontext():
+            a1, b1, b2, a2 = fa(), fb(), fb(), fa()
+        ms_a, ms_b = (a1 + a2) / 2, (b1 + b2) / 2
+        print(f"phase 122: {what} {ms_a:.4f} ms, the unconditional model {ms_b:.4f} ms, ratio {ms_a / ms_b:.3f} "
+              "(a b b a; other data: other step counts)")
+
+    records = []
+    fma, floats = cond_exact_fma_floats(dims, nc, B)
+    launches = {"k7ec": n_fit[names["k7ec"][0]], "k4wc": n_fit[names["k4wc"][0]]}
+    for key, (out, err, ms, pms) in runs.items():
+        name, _, _, src, at = names[key]
+        records.append(kernel_record(name, src, at, launches[key], err, ms, pms, fma[key], B, steps_of(out)[0],
+                                     floats[key], accepted=steps_of(out)[1]))
+    fma_c, floats_c = cond_exact_fma_floats(dims_c, 1, Bc)
+    launches_c = {"k7tc": n_serve["logpdf"] + n_serve["sample"], "k7ec": n_c[names["k7ec"][0]]}
+    for key, (out, err, ms, pms) in runs_c.items():
+        name, _, _, src, at = names[key]
+        records.append(kernel_record(name if key == "k7tc" else f"{name}/chain3", src, at, launches_c[key], err, ms,
+                                     pms, fma_c[key], Bc, steps_of(out)[0], floats_c[key], accepted=steps_of(out)[1]))
     return records
 
 
@@ -5113,7 +5389,8 @@ def main() -> int:
                          ("97-102", lambda: cond_wide(cnf, fs, dev)),
                          ("103-107", lambda: cond_wide_exact(cnf, fs, dev, built)),
                          ("108-112", lambda: cond_wide_probes(cnf, fs, dev, built)),
-                         ("113-117", lambda: cond_stream(cnf, fs, dev, built))):
+                         ("113-117", lambda: cond_stream(cnf, fs, dev, built)),
+                         ("118-122", lambda: cond_stream_exact(cnf, fs, dev, built))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

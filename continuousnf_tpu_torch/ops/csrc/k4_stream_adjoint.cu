@@ -84,6 +84,24 @@
 // written, read: 484 MB, 145 us).  Measured by chip_smoke.py on an NVIDIA
 // H100 80GB HBM3 at 700 W (PERF.md): 5.6x that bound an attempted step.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The COND instance (K8 in the streamed forms: k4_stream_cond_adjoint):
+// _stage_train_exact_fwdbwd on _zin of a conditional net whose W1 reads
+// [z | ys], ys (B, nc) constant over the solve (CondRNODE at the MINIBOONE
+// width, 87 -> 258 -> 86), as the wide K4 adjoint's COND instance.  The
+// forward adds W1's ys rows times the tile's (T, nc) ys rows to h's
+// pre-activation (stream_two_layer_forward<true>); the m rows, the ct_m
+// push and g_pm read W1's z rows alone (W1C holds rows j < dz), and the
+// launch chains g_pm into them (the ys rows get zeros, the JAX package's
+// :1787-1799).  k_az and k_ays = -(W1's ys rows ct_pre1) come from one
+// transposed product over W1's dz + nc rows.  Each sample's a_ys (nc rows
+// more, 2 dz + 3 + nc) integrates k_ays from 0 at t_hi, combined like a_z,
+// inside the one batch-global norm (n_elems gains B nc), a_ys0 (B, nc)
+// returned.  The factor zx becomes [z | ys | 1] (dz + nc + 1, B), so that
+// the [W1 | b1] contraction's dz + nc rows give W1's ys rows ys (x)
+// ct_pre1 summed over the batch in the same fixed order.  The tile's ys
+// rows and k_ays take 2 nc floats a row more.  Its launch shape and entry
+// are cnf_k4sc_shape and cnf_k4s_cond_exact_adjoint.
 
 #include "two_layer_stream.cuh"
 
@@ -134,7 +152,7 @@ struct Factors {
   float* ctm;  // (dz^2, B): m, then ct_m
   float* dh;   // (H, B)
   float* cp1;  // (H, B): ct_pre1
-  float* zx;   // (dz + 1, B): z, then a row of ones
+  float* zx;   // (dz + 1, B): z, then a row of ones (COND: (dz + nc + 1, B), [z | ys | 1])
   float* hx;   // (H + 1, B): h, then a row of ones
   float* cp2;  // (dz, B): ct_pre2
 };
@@ -412,6 +430,19 @@ struct StreamExactAdjStage {
   // long-lived state would otherwise take from them.
   __device__ __noinline__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR,
                                           float* KAZ) const {
+    run<false>(s0, nv, Z, AZ, KZ, KR, KAZ, nullptr, nullptr, nullptr);
+  }
+
+  // The stage; COND (the COND instance, K8): the forward adds W1's ys rows
+  // times the tile's ys rows YS (T, nc), loaded from ys (B, nc), to h's
+  // pre-activation, and k_ays = -(W1's ys rows ct_pre1) goes to KYS (T, nc),
+  // from one transposed product over W1's dz + nc rows with k_az.  The m
+  // rows, the ct_m push and g_pm read W1's z rows alone (the Jacobian is in
+  // z).
+  template <bool COND>
+  __device__ __forceinline__ void run(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR,
+                                      float* KAZ, [[maybe_unused]] const float* ys, [[maybe_unused]] float* YS,
+                                      [[maybe_unused]] float* KYS) const {
     // The members as locals: `this` points into local memory, which the
     // loops would otherwise reread.
     const StreamLayout& c = *L;
@@ -424,7 +455,12 @@ struct StreamExactAdjStage {
     const int dz = c.dz, zp = c.zp, H = c.width[1], hp = c.hp[1];
     const float* w1 = cnf::layer_w(c, params, 0);
     const float* w2 = cnf::layer_w(c, params, 1);
-    cnf::stream_two_layer_forward(c, params, Z, T, a.HS, a.DH, KZ, a.DY, wc);
+    if constexpr (COND) {
+      cnf::load_tile_cond(ys, cnf::stream_nc(c), s0, nv, T, YS);
+      cnf::stream_two_layer_forward<true>(c, params, Z, T, a.HS, a.DH, KZ, a.DY, wc, YS);
+    } else {
+      cnf::stream_two_layer_forward(c, params, Z, T, a.HS, a.DH, KZ, a.DY, wc);
+    }
     for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
       const int t = idx / dz, i = idx % dz;
       a.S[t * zp + i] = 0.f;
@@ -474,12 +510,22 @@ struct StreamExactAdjStage {
     // ct_m over m, and ct_dh into CA (zeroed first).
     ct_m_push(w1, w2t, a.D, a.S, a.W1C, a.CA, f.ctm, B, s0, nv, T, lgT, dz, H, hp, zp);
     // Down the forward chain: ct_pre1 = (W2 ct_pre2 - 2 h ct_dh) dh over
-    // ct_dh, k_az = -W1 ct_pre1.
+    // ct_dh, k_az = -W1 ct_pre1 (and, COND, k_ays over W1's ys rows).
     cnf::stream_mm_t(a.CP2, zp, dz, w2, H, T, wc, [&](int t, int o, float x) {
       const int i = t * hp + o;
       a.CA[i] = (x + (-2.f * a.HS[i]) * a.CA[i]) * a.DH[i];
     });
-    cnf::stream_mm_t(a.CA, hp, H, w1, dz, T, wc, [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+    if constexpr (COND) {
+      const int nc = cnf::stream_nc(c);
+      cnf::stream_mm_t(a.CA, hp, H, w1, dz + nc, T, wc, [&](int t, int k, float x) {
+        if (k < dz)
+          KAZ[t * zp + k] = -x;
+        else
+          KYS[t * nc + k - dz] = -x;
+      });
+    } else {
+      cnf::stream_mm_t(a.CA, hp, H, w1, dz, T, wc, [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+    }
     // The tile's factors of the gradient rate, a warp's lanes over samples.
     for (int idx = threadIdx.x; idx < H * T; idx += blockDim.x) {
       const int h = idx / T, t = idx % T;
@@ -546,6 +592,13 @@ struct Contraction {
     p[0] = make_product(f.ctm, f.dh, dz * dz, H, (size_t)L.P);
     p[1] = make_product(f.zx, f.cp1, dz + 1, H, 0);
     p[2] = make_product(f.hx, f.cp2, H + 1, dz, (size_t)L.pofs[1]);
+    ntasks = p[0].tasks + p[1].tasks + p[2].tasks;
+  }
+
+  // The COND instance's (K8): [W1 | b1] = [z | ys | 1]^T ct_pre1 over W1's
+  // dz + nc rows, W1's ys rows summing ys (x) ct_pre1 in the same order.
+  __device__ Contraction(const StreamLayout& L, const Factors& f, int nc) : Contraction(L, f) {
+    p[1] = make_product(f.zx, f.cp1, L.dz + nc + 1, L.width[1], 0);
     ntasks = p[0].tasks + p[1].tasks + p[2].tasks;
   }
 
@@ -874,14 +927,306 @@ __global__ void __launch_bounds__(kStreamBlock, 1) k4_stream_adjoint(const AdjAr
   }
 }
 
+// The COND instance's factors: zx is (dz + nc + 1, B), [z | ys | 1] (the ys
+// rows written once per launch), and the factors after it move down.
+__device__ inline Factors cond_factors(const StreamLayout& L, float* base, int B) {
+  Factors f = factors(L, base, B);
+  const size_t shift = (size_t)cnf::stream_nc(L) * B;
+  f.hx += shift;
+  f.cp2 += shift;
+  return f;
+}
+
+// The COND instance's stage: the stage's COND form behind a call of its own,
+// its conditioning and k_ays as members.
+struct StreamExactCondAdjStage : StreamExactAdjStage {
+  const float* ys;  // (B, nc)
+  float* YS;        // (T, nc): the tile's ys rows
+  float* KYS;       // (T, nc): k_ays
+
+  __device__ __noinline__ void operator()(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR,
+                                          float* KAZ) const {
+    run<true>(s0, nv, Z, AZ, KZ, KR, KAZ, ys, YS, KYS);
+  }
+};
+
+// The COND instance's arguments: the unconditional instance's (with nc and
+// ays0 set in the AdjState) and the conditioning ys (B, nc).
+struct CondAdjArgs {
+  AdjArgs a;
+  const float* ys;
+};
+
+// The COND instance's tile arrays: the solver's Z, AZ, KZ, KAZ, KR and
+// k_ays (T, nc), then the stage's tile arrays, then the tile's ys rows
+// (T, nc), in shared memory or in the block's slice of the global scratch
+// alike.
+__host__ __device__ inline size_t cond_region_floats(const StreamLayout& L, int T) {
+  return region_floats(L, T) + (size_t)2 * T * cnf::stream_nc(L);
+}
+
+// The COND instance (K8): k4_stream_adjoint for a conditional net whose W1
+// reads [z | ys], with the per-sample a_ys block of the JAX package's
+// adjoint kernel (fused_solve.py::_make_adjoint_kernel: k_ays = -ct_zin[dz:]
+// :1167, a_ys from 0 at t_hi :1183, combined like a_z, in the one
+// batch-global norm :1270, n_elems :1694, a_ys0 returned): the per-sample
+// rows are z, acc, a_z and a_ys (2 dz + 3 + nc); a_ys's rows ride in the
+// (row, B) planes after a_z but are never staged back into the stage's
+// input (its rate does not read it).  The gradient gains W1's ys rows
+// through the [W1 | b1] contraction's dz + nc rows; g_pm stays over W1's z
+// rows.  One block an SM, as the unconditional instance.
+__global__ void __launch_bounds__(kStreamBlock, 1) k4_stream_cond_adjoint(const __grid_constant__ CondAdjArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ StreamLayout L;
+  __shared__ float gtot[2];
+  const AdjArgs& p = ca.a;
+  cnf::share_layout(p.L, &L);
+  cg::grid_group grid = cg::this_grid();
+  const cnf::AdjState& st = p.s;
+  const cnf::Tableau& Tb = cnf::share_tableau(st.tab);
+  const int S = Tb.S;
+  const bool has3 = Tb.has3 != 0;
+  const bool fsal = Tb.fsal != 0;
+  const int NG = has3 ? 3 : 2;
+  const int dz = L.dz, H = L.width[1], B = st.B, G = gridDim.x, T = p.T, zp = L.zp, nc = cnf::stream_nc(L);
+  const int ntiles = (B + T - 1) / T;
+  const int R = 2 * dz + 3 + nc;  // rows: z, acc, a_z, a_ys
+  const size_t RB = (size_t)R * B;
+  const size_t Pt = (size_t)L.P + (size_t)dz * dz * H;
+  float* Y = st.work;
+  float* Yn = Y + RB;
+  float* K = Yn + RB;
+  float* wc = smem;
+  float* red = wc + cnf::kChunkFloats;
+  float* scratch =
+      p.tiles ? p.tiles + (size_t)blockIdx.x * cond_region_floats(L, T) : smem + kWorkOffset + kGemmFloats;
+  float* Z = scratch;
+  float* AZ = Z + T * zp;
+  float* KZ = AZ + T * zp;
+  float* KAZ = KZ + T * zp;
+  float* KR = KAZ + T * zp;
+  float* KYS = KR + 3 * T;
+  const TileArrays arrays = tile_arrays(L, T, KYS + T * nc);
+  float* YS = arrays.W1C + (size_t)(kGM / T) * L.hp[1];
+  const Factors f = cond_factors(L, p.fac, B);
+  const StreamExactCondAdjStage stage{{&L, p.params, p.w2t, st.aaccT, f, arrays, wc, B, T, __ffs(T) - 1, p.norm_z,
+                                       p.norm_j},
+                                      ca.ys,
+                                      YS,
+                                      KYS};
+  const Contraction contract(L, f, nc);
+  float* gcur = p.g;
+  float* gnew = p.gnew;
+  float* GB = p.gvec;
+  float* GE = GB + Pt;
+  float* GE3 = GE + Pt;
+  float* k1p = GB + NG * Pt;  // the owned entries' stage-1 g rate
+  float* k7p = k1p + Pt;      // and their last stage's
+
+  // The per-sample pass of stage stg (stg = 0: at Y) over the block's tiles
+  // into the plane K[stg] and the factor scratch.
+  auto pass = [&](int stg, float dt_use) {
+    for (int tile = blockIdx.x; tile < ntiles; tile += G) {
+      const int s0 = tile * T, nv = min(T, B - s0);
+      cnf::tile_stage_input<kStageUnroll>(Tb, stg, dt_use, Y, K, RB, B, 0, dz, s0, nv, T, Z, zp);
+      cnf::tile_stage_input<kStageUnroll>(Tb, stg, dt_use, Y, K, RB, B, dz + 3, dz, s0, nv, T, AZ, zp);
+      __syncthreads();
+      stage(s0, nv, Z, AZ, KZ, KR, KAZ);
+      float* kst = K + stg * RB;
+      cnf::tile_store(KZ, zp, dz, kst, 0, B, s0, nv, T);
+      cnf::tile_store(KR, 3, 3, kst, dz, B, s0, nv, T);
+      cnf::tile_store(KAZ, zp, dz, kst, dz + 3, B, s0, nv, T);
+      cnf::tile_store(KYS, nc, nc, kst, 2 * dz + 3, B, s0, nv, T);
+      __syncthreads();
+    }
+  };
+  // Stage 1 at the current state, the owned entries' g rate into k1p.
+  auto stage1 = [&]() {
+    pass(0, 0.f);
+    grid.sync();
+    contract(B, [&](size_t q, float v) { k1p[q] = v; });
+    grid.sync();
+  };
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += G) {
+    cnf::tile_entries(tile, T, B, R, [&](int r, int s) {
+      Y[(size_t)r * B + s] = r < dz           ? st.zT[(size_t)s * dz + r]
+                             : r < dz + 3     ? st.accT[(size_t)(r - dz) * B + s]
+                             : r < 2 * dz + 3 ? st.azT[(size_t)s * dz + r - dz - 3]
+                                              : 0.f;
+    });
+  }
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < B; s += G * blockDim.x) {
+    for (int c = 0; c < nc; ++c) f.zx[(size_t)(dz + c) * B + s] = ca.ys[(size_t)s * nc + c];
+    f.zx[(size_t)(dz + nc) * B + s] = 1.f;
+    f.hx[(size_t)H * B + s] = 1.f;
+  }
+  const float* w2 = cnf::layer_w(L, p.params, 1);
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < dz * H; idx += G * blockDim.x) {
+    const int i = idx / H, h = idx % H;
+    p.w2t[idx] = __ldg(w2 + (size_t)h * dz + i);
+  }
+  contract.owned([&](size_t q) { gcur[q] = 0.f; });
+  grid.sync();  // W2^T, read by every block's stages
+  stage1();
+
+  cnf::Controller c;
+  c.init(st.ts, st.beta1, st.beta2, st.inv_order);
+  const float n_elems = (float)B * (float)(2 * (dz + 3) + nc) + (float)Pt;
+
+  while (c.running(st.max_steps)) {
+    bool is_last;
+    const float dt_use = c.plan(&is_last);
+    const int par = c.steps & 1;
+    const float cb0 = dt_use * Tb.b[0], ce0 = dt_use * Tb.btilde[0], ce30 = dt_use * Tb.btilde3[0];
+    contract.owned([&](size_t q) {
+      const float k = k1p[q];
+      GB[q] = cb0 * k;
+      GE[q] = ce0 * k;
+      if (has3) GE3[q] = ce30 * k;
+    });
+#pragma unroll 1
+    for (int stg = 1; stg < S; ++stg) {
+      pass(stg, dt_use);
+      grid.sync();
+      const float bs = Tb.b[stg], bt = Tb.btilde[stg], bt3 = Tb.btilde3[stg];
+      const float cb = dt_use * bs, ce = dt_use * bt, ce3 = dt_use * bt3;
+      const bool last = fsal && stg == S - 1;
+      contract(B, [&](size_t q, float v) {
+        if (bs != 0.f) GB[q] = fmaf(cb, v, GB[q]);
+        if (bt != 0.f) GE[q] = fmaf(ce, v, GE[q]);
+        if (has3 && bt3 != 0.f) GE3[q] = fmaf(ce3, v, GE3[q]);
+        if (last) k7p[q] = v;
+      });
+      if (stg < S - 1) grid.sync();
+    }
+    __syncthreads();
+
+    // The proposals and errors: the tiles' z, acc, a_z and a_ys rows (a_acc
+    // is constant: zero error, but counted in n_elems), then the owned g.
+    float sumsq = 0.f, sumsq3 = 0.f;
+    bool finite = true;
+    for (int tile = blockIdx.x; tile < ntiles; tile += G) {
+      cnf::tile_entries(tile, T, B, R, [&](int r, int s) {
+        const float yn = cnf::propose<kStageUnroll>(Tb, dt_use, has3, Y, K, RB, (size_t)r * B + s, st.rtol, st.atol,
+                                                    Yn, &sumsq, &sumsq3);
+        if (r < dz || r >= dz + 3) finite = finite && isfinite(yn);
+      });
+    }
+    float gsq = 0.f, gsq3 = 0.f;
+    contract.owned([&](size_t q) {
+      const float g0 = gcur[q], gn = g0 + GB[q];
+      gnew[q] = gn;
+      const float sc = st.atol + st.rtol * fmaxf(fabsf(g0), fabsf(gn));
+      const float e = GE[q] / sc;
+      gsq = fmaf(e, e, gsq);
+      if (has3) {
+        const float e3 = GE3[q] / sc;
+        gsq3 = fmaf(e3, e3, gsq3);
+      }
+    });
+    float* slots = st.partials + (size_t)(5 * par) * G;
+    cnf::write_block_partial(sumsq, sumsq3, has3, finite, slots, 0, red);
+    gsq = cnf::block_sum(gsq, red);
+    if (has3) gsq3 = cnf::block_sum(gsq3, red);
+    if (threadIdx.x == 0) {
+      slots[3 * G + blockIdx.x] = gsq;
+      slots[4 * G + blockIdx.x] = gsq3;
+    }
+    grid.sync();
+    float total, total3;
+    bool all_finite;
+    cnf::read_grid_total(slots, 0, has3, red, &total, &total3, &all_finite);
+    if (threadIdx.x == 0) {
+      float tg = 0.f, tg3 = 0.f;
+      for (int b = 0; b < G; ++b) tg += __ldcg(slots + 3 * G + b);
+      if (has3)
+        for (int b = 0; b < G; ++b) tg3 += __ldcg(slots + 4 * G + b);
+      gtot[0] = tg;
+      gtot[1] = tg3;
+    }
+    __syncthreads();
+    float eest = sqrtf((total + gtot[0]) / n_elems);
+    if (has3) eest = cnf::stretched_eest(eest, sqrtf((total3 + gtot[1]) / n_elems));
+    __syncthreads();
+    if (c.update(eest, all_finite, dt_use, is_last)) {
+      for (int tile = blockIdx.x; tile < ntiles; tile += G) {
+        cnf::tile_entries(tile, T, B, R, [&](int r, int s) {
+          const size_t off = (size_t)r * B + s;
+          Y[off] = Yn[off];
+          if (fsal) K[off] = K[(S - 1) * RB + off];
+        });
+      }
+      contract.owned([&](size_t q) { gcur[q] = gnew[q]; });
+      if (fsal) {
+        float* tmp = k1p;
+        k1p = k7p;
+        k7p = tmp;
+      } else {
+        __syncthreads();
+        stage1();
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += G) {
+    cnf::tile_entries(tile, T, B, R, [&](int r, int s) {
+      const float v = Y[(size_t)r * B + s];
+      if (r < dz)
+        st.z0[(size_t)s * dz + r] = v;
+      else if (r < dz + 3)
+        st.acc0[(size_t)(r - dz) * B + s] = v;
+      else if (r < 2 * dz + 3)
+        st.az0[(size_t)s * dz + r - dz - 3] = v;
+      else
+        st.ays0[(size_t)s * nc + r - 2 * dz - 3] = v;
+    });
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    st.stats[0] = c.steps;
+    st.stats[1] = c.accepted;
+  }
+}
+
 size_t smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
   const size_t work = kGemmFloats + (global_tiles ? 0 : region_floats(L, T));
+  return sizeof(float) * ((size_t)kWorkOffset + (work > kContractFloats ? work : kContractFloats));
+}
+
+size_t cond_smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
+  const size_t work = kGemmFloats + (global_tiles ? 0 : cond_region_floats(L, T));
   return sizeof(float) * ((size_t)kWorkOffset + (work > kContractFloats ? work : kContractFloats));
 }
 
 // Whether the layout's gradient, P + dz^2 H floats, has int offsets.
 bool gradient_fits(const StreamLayout& L) {
   return (long long)L.P + (long long)L.dz * L.dz * L.width[1] < (1LL << 31);
+}
+
+// The launch shape of the unconditional or (COND) the COND instance.
+template <bool COND>
+int shape(int n, const int* widths, int B, int* out) {
+  StreamLayout L;
+  if (B < 1 || n != 2 || !cnf::make_stream_layout(n, widths, &L, COND) || !gradient_fits(L))
+    return (int)cudaErrorInvalidValue;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int o = 0; o < (pass == 0 ? kOptions : 1); ++o) {
+      const size_t smem = COND ? cond_smem_bytes(L, kTiles[o], pass == 1) : smem_bytes(L, kTiles[o], pass == 1);
+      int cap = 0;
+      const cudaError_t e = COND ? cnf::coop_max_grid(k4_stream_cond_adjoint, smem, kStreamBlock, &cap)
+                                 : cnf::coop_max_grid(k4_stream_adjoint, smem, kStreamBlock, &cap);
+      if (e == cudaSuccess && cap >= 1) {
+        out[0] = kStreamBlock;
+        out[1] = cap;
+        out[2] = kTiles[o];
+        out[3] = (int)smem;
+        out[4] = pass == 0 ? 0 : (int)(COND ? cond_region_floats(L, kTiles[o]) : region_floats(L, kTiles[o]));
+        return (int)cudaSuccess;
+      }
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -893,26 +1238,7 @@ bool gradient_fits(const StreamLayout& L) {
 // tile arrays fit in shared memory beside the chunk buffer, else the first
 // with them in a global scratch.  widths: the 3 level widths (host memory).
 // Returns a cudaError_t (cudaErrorInvalidValue for a net not covered).
-extern "C" int cnf_k4s_shape(int n, const int* widths, int B, int* out) {
-  StreamLayout L;
-  if (B < 1 || n != 2 || !cnf::make_stream_layout(n, widths, &L) || !gradient_fits(L))
-    return (int)cudaErrorInvalidValue;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int o = 0; o < (pass == 0 ? kOptions : 1); ++o) {
-      const size_t smem = smem_bytes(L, kTiles[o], pass == 1);
-      int cap = 0;
-      if (cnf::coop_max_grid(k4_stream_adjoint, smem, kStreamBlock, &cap) == cudaSuccess && cap >= 1) {
-        out[0] = kStreamBlock;
-        out[1] = cap;
-        out[2] = kTiles[o];
-        out[3] = (int)smem;
-        out[4] = pass == 0 ? 0 : (int)region_floats(L, kTiles[o]);
-        return (int)cudaSuccess;
-      }
-    }
-  }
-  return (int)cudaErrorInvalidValue;
-}
+extern "C" int cnf_k4s_shape(int n, const int* widths, int B, int* out) { return shape<false>(n, widths, B, out); }
 
 // params: [W1 | b1 | W2 | b2] flat (device); g: P_total = P + dz^2 H floats,
 // [W1 | b1 | W2 | b2 | g_pm]; acts: 3 (both layers tanh); zT, azT, z0, az0:
@@ -949,5 +1275,49 @@ extern "C" int cnf_k4s_exact_adjoint(const float* params, const float* zT, const
   a.norm_j = norm_j;
   a.T = T;
   return (int)cnf::coop_launch(k4_stream_adjoint, a, grid, block, smem_bytes(a.L, T, tiles != nullptr),
+                               (cudaStream_t)stream);
+}
+
+// The COND instance's launch shape (K8), as cnf_k4s_shape; widths[0] =
+// dz + nc with nc >= 1, out[4] counting the tile's ys rows and k_ays.
+extern "C" int cnf_k4sc_shape(int n, const int* widths, int B, int* out) { return shape<true>(n, widths, B, out); }
+
+// The COND instance (K8): as cnf_k4s_exact_adjoint for a conditional net,
+// with ys (B, nc) (device) after params and ays0 (B, nc), the cotangent of
+// ys at t_lo, after az0; nc = widths[0] - widths[2] >= 1.  g: P_total =
+// P + dz^2 H floats with P counting W1's dz + nc rows (g_pm over its z
+// rows); work: (S + 2) (2 dz + 3 + nc) B floats; fac: B (dz^2 + 3 H + 2 dz
+// + nc + 2) floats; T, grid, block and the tile scratch from cnf_k4sc_shape.
+extern "C" int cnf_k4s_cond_exact_adjoint(const float* params, const float* ys, const float* zT, const float* accT,
+                                          const float* azT, const float* aaccT, const float* ts, float* z0,
+                                          float* acc0, float* az0, float* ays0, float* g, int* stats, float* work,
+                                          float* partials, float* gvec, float* gnew, float* fac, float* tiles,
+                                          float* w2t, int B, int n, const int* widths, int acts, int max_steps,
+                                          int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
+                                          float inv_order, const float* tab, int T, int grid, int block,
+                                          void* stream) {
+  CondAdjArgs ca = {};
+  AdjArgs& a = ca.a;
+  if (block != kStreamBlock || grid < 1 || T < 8 || T > kGM || (T & (T - 1)) != 0 || fac == nullptr ||
+      w2t == nullptr || ys == nullptr || ays0 == nullptr || !cnf::make_stream_layout(n, widths, &a.L, true) ||
+      !cnf::stream_two_layer_tanh(a.L, acts) || !gradient_fits(a.L))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_stream_acts(&a.L, acts);
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, nullptr, B, widths[n],
+                     max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.s.nc = cnf::stream_nc(a.L);
+  a.s.ays0 = ays0;
+  a.params = params;
+  a.g = g;
+  a.gnew = gnew;
+  a.gvec = gvec;
+  a.fac = fac;
+  a.tiles = tiles;
+  a.w2t = w2t;
+  a.norm_z = norm_z;
+  a.norm_j = norm_j;
+  a.T = T;
+  ca.ys = ys;
+  return (int)cnf::coop_launch(k4_stream_cond_adjoint, ca, grid, block, cond_smem_bytes(a.L, T, tiles != nullptr),
                                (cudaStream_t)stream);
 }

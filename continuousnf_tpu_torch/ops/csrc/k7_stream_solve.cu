@@ -45,6 +45,21 @@
 // chunk's R rows; measured, the chunk loads' latency and the block barriers
 // bound it (PERF.md).
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The COND instances (K8 in the streamed forms: k7_stream_cond_solve<1>
+// and <3>): the TEST and exact solves of a conditional chain whose first
+// layer reads [z | ys], ys (B, nc) constant over the solve (a conditional
+// FFJORD-MINIBOONE chain 44 -> 860 -> 860 -> 43; CondRNODE at the
+// MINIBOONE width 87 -> 258 -> 86 under exact trace), the JAX package's
+// _stage_exact_chain and _stage_train_exact_chain on _zin (:265-269).  At
+// each evaluation the block loads its tile's (T, nc) ys rows and the
+// forward adds layer 0's ys rows (kept after its z rows) to the
+// pre-activation (stream_forward<true>); the basis push reads W0's rows
+// j < dz alone, as the unconditional one does (the JAX package's :701: the
+// trace is over z).  The ys rows (T, nc) join the tile arrays, in shared
+// memory or in the block's slice of the global scratch alike; the launch
+// shapes and entries are cnf_k7sc_test_shape / cnf_k7sc_exact_shape and
+// cnf_k7s_cond_test_solve / cnf_k7s_cond_exact_solve.
 
 #include "chain_stream.cuh"
 
@@ -79,10 +94,20 @@ __host__ __device__ inline size_t region_floats(const StreamLayout& L, int R) {
   return (size_t)T * (2 * L.zp + NACC) + (size_t)T * (L.hsum + L.zp + 3) + 2 * (size_t)R * basis_pitch(L) + 2 * R;
 }
 
+// A COND field's conditioning: ys (B, nc) in global memory and the tile's
+// (T, nc) rows; nothing in an unconditional field.
+template <bool COND>
+struct CondRows {};
+template <>
+struct CondRows<true> {
+  const float* ys;
+  float* YS;
+};
+
 // The exact field of a tile: KY = y; KR = [-tr] (NACC = 1) or
 // [-tr, ||y||, ||J||_F] (NACC = 3) per row.
-template <int NACC>
-struct StreamExactField {
+template <int NACC, bool COND>
+struct StreamExactField : CondRows<COND> {
   const StreamLayout* L;
   const float* params;
   float* HB;     // the tile's hidden block: activations, then gates
@@ -95,10 +120,16 @@ struct StreamExactField {
   float* wc;     // the chunk buffer
   int R, norm_z, norm_j;
 
-  __device__ void operator()(int, int, const float* Z, float* KY, float* KR) const {
+  __device__ void operator()([[maybe_unused]] int s0, [[maybe_unused]] int nv, const float* Z, float* KY,
+                             float* KR) const {
     const StreamLayout& c = *L;
     const int n = c.n, dz = c.dz, zp = c.zp, T = kTileSamples, bp = basis_pitch(c);
-    cnf::stream_forward(c, params, Z, T, HB, KY, wc);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::stream_nc(c), s0, nv, T, this->YS);
+      cnf::stream_forward<true>(c, params, Z, T, HB, KY, wc, this->YS);
+    } else {
+      cnf::stream_forward(c, params, Z, T, HB, KY, wc);
+    }
     for (int l = 1; l < n; ++l) {
       float* d = cnf::level(c, HB, T, l);
       const int wl = c.width[l], hp = c.hp[l], on = c.act[l - 1];
@@ -121,7 +152,7 @@ struct StreamExactField {
     __syncthreads();
 
     const float* d1 = cnf::level(c, HB, T, 1);
-    const float* w0 = cnf::layer_w(c, params, 0);  // (dz, H1) row-major
+    const float* w0 = cnf::layer_w(c, params, 0);  // (dz + nc, H1) row-major: the z rows first
     const float* wl = cnf::layer_w(c, params, n - 1);
     const int h1 = c.width[1], hp1 = c.hp[1], wlast = c.width[n - 1];
     const int rows = T * dz;
@@ -203,31 +234,77 @@ __global__ void __launch_bounds__(kStreamBlock) k7_stream_solve(const Args p) {
   float* tb = ta + (size_t)R * bp;
   float* rowtr = tb + (size_t)R * bp;
   float* rowf2 = rowtr + R;
-  const StreamExactField<NACC> field{&L, p.params, HB, DY, acc, ta, tb, rowtr, rowf2, wc, R, p.f.norm_z, p.f.norm_j};
+  const StreamExactField<NACC, false> field{{}, &L, p.params, HB, DY, acc, ta, tb, rowtr, rowf2, wc, R, p.f.norm_z,
+                                            p.f.norm_j};
   cnf::forward_solve_tiles<NACC, kStageUnroll>(p.f, field, T, scratch, red);
 }
 
-template <int NACC>
-size_t smem_bytes(const StreamLayout& L, int R, bool global_tiles) {
-  return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : region_floats<NACC>(L, R)));
+// The COND instances' arguments: the unconditional instances' and the
+// conditioning ys (B, nc).
+struct CondArgs {
+  Args a;
+  const float* ys;
+};
+
+// The COND instances' tile arrays: the unconditional instances' and the
+// tile's ys rows (T, nc), in shared memory or in the block's slice of the
+// global scratch alike.
+template <int NACC, bool COND>
+__host__ __device__ inline size_t tile_region_floats(const StreamLayout& L, int R) {
+  return region_floats<NACC>(L, R) + (COND ? (size_t)kTileSamples * cnf::stream_nc(L) : 0);
 }
 
 template <int NACC>
+__global__ void __launch_bounds__(kStreamBlock) k7_stream_cond_solve(const __grid_constant__ CondArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ StreamLayout L;
+  const Args& p = ca.a;
+  cnf::share_layout(p.L, &L);
+  const int T = kTileSamples, R = p.R, bp = basis_pitch(L);
+  float* wc = smem;
+  float* red = wc + cnf::kChunkFloats;
+  float* scratch =
+      p.tiles ? p.tiles + (size_t)blockIdx.x * tile_region_floats<NACC, true>(L, R) : red + kRedFloats;
+  float* HB = scratch + T * (2 * L.zp + NACC);  // after the solver's Z, KY, KR
+  float* DY = HB + (size_t)T * L.hsum;
+  float* acc = DY + T * L.zp;
+  float* ta = acc + 3 * T;
+  float* tb = ta + (size_t)R * bp;
+  float* rowtr = tb + (size_t)R * bp;
+  float* rowf2 = rowtr + R;
+  float* YS = rowf2 + R;  // the tile's ys rows (T, nc)
+  const StreamExactField<NACC, true> field{{ca.ys, YS}, &L, p.params, HB, DY, acc, ta, tb, rowtr, rowf2, wc, R,
+                                           p.f.norm_z, p.f.norm_j};
+  cnf::forward_solve_tiles<NACC, kStageUnroll>(p.f, field, T, scratch, red);
+}
+
+template <int NACC, bool COND>
+size_t smem_bytes(const StreamLayout& L, int R, bool global_tiles) {
+  return sizeof(float) *
+         ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : tile_region_floats<NACC, COND>(L, R)));
+}
+
+// The launch shape of an entry (the COND instance's with `COND`).
+template <int NACC, bool COND>
 int shape(int n, const int* widths, int B, int* out) {
   StreamLayout L;
-  if (B < 1 || !cnf::make_stream_layout(n, widths, &L)) return (int)cudaErrorInvalidValue;
+  if (B < 1 || !cnf::make_stream_layout(n, widths, &L, COND)) return (int)cudaErrorInvalidValue;
   size_t region[4];
-  for (int o = 0; o < 4; ++o) region[o] = region_floats<NACC>(L, kChunks[o]);
+  for (int o = 0; o < 4; ++o) region[o] = tile_region_floats<NACC, COND>(L, kChunks[o]);
+  if constexpr (COND) return cnf::stream_shape(k7_stream_cond_solve<NACC>, region, kSamples, kChunks, 4, B, out);
   return cnf::stream_shape(k7_stream_solve<NACC>, region, kSamples, kChunks, 4, B, out);
 }
 
-template <int NACC>
-int solve(const float* params, const float* z0, const float* acc0, const float* ts, float* zT, float* accT,
-          int* stats, float* dt_last, float* work, float* partials, float* tiles, int B, int n, const int* widths,
-          int acts, int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
-          float inv_order, const float* tab, int R, int grid, int block, void* stream) {
-  Args a = {};
-  if (block != kStreamBlock || grid < 1 || R < 4 || R % 4 != 0 || !cnf::make_stream_layout(n, widths, &a.L))
+// Launch an entry (the COND instance with `COND`, which takes ys).
+template <int NACC, bool COND>
+int solve(const float* params, const float* ys, const float* z0, const float* acc0, const float* ts, float* zT,
+          float* accT, int* stats, float* dt_last, float* work, float* partials, float* tiles, int B, int n,
+          const int* widths, int acts, int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1,
+          float beta2, float inv_order, const float* tab, int R, int grid, int block, void* stream) {
+  CondArgs ca = {};
+  Args& a = ca.a;
+  if (block != kStreamBlock || grid < 1 || R < 4 || R % 4 != 0 || (COND && ys == nullptr) ||
+      !cnf::make_stream_layout(n, widths, &a.L, COND))
     return (int)cudaErrorInvalidValue;
   cnf::set_stream_acts(&a.L, acts);
   cnf::set_fwd_args(&a.f, nullptr, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n], max_steps,
@@ -235,8 +312,11 @@ int solve(const float* params, const float* z0, const float* acc0, const float* 
   a.params = params;
   a.tiles = tiles;
   a.R = R;
-  return (int)cnf::coop_launch(k7_stream_solve<NACC>, a, grid, block, smem_bytes<NACC>(a.L, R, tiles != nullptr),
-                               (cudaStream_t)stream);
+  ca.ys = ys;
+  const size_t smem = smem_bytes<NACC, COND>(a.L, R, tiles != nullptr);
+  if constexpr (COND)
+    return (int)cnf::coop_launch(k7_stream_cond_solve<NACC>, ca, grid, block, smem, (cudaStream_t)stream);
+  return (int)cnf::coop_launch(k7_stream_solve<NACC>, a, grid, block, smem, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -246,9 +326,13 @@ int solve(const float* params, const float* z0, const float* acc0, const float* 
 // bytes, floats of global tile scratch a block (0: shared memory)} (tiles
 // of 4 samples).  widths: n + 1 level widths (host memory).  Returns a
 // cudaError_t (cudaErrorInvalidValue for a chain not covered).
-extern "C" int cnf_k7s_test_shape(int n, const int* widths, int B, int* out) { return shape<1>(n, widths, B, out); }
+extern "C" int cnf_k7s_test_shape(int n, const int* widths, int B, int* out) {
+  return shape<1, false>(n, widths, B, out);
+}
 
-extern "C" int cnf_k7s_exact_shape(int n, const int* widths, int B, int* out) { return shape<3>(n, widths, B, out); }
+extern "C" int cnf_k7s_exact_shape(int n, const int* widths, int B, int* out) {
+  return shape<3, false>(n, widths, B, out);
+}
 
 // TEST: params [W0 | b0 | ...] flat (device), acts: bit i set where layer i
 // is tanh (else identity), z0 (B, dz), dlogp0/dlogpT (B), dt_last (2): the
@@ -261,8 +345,9 @@ extern "C" int cnf_k7s_test_solve(const float* params, const float* z0, const fl
                                   float* tiles, int B, int n, const int* widths, int acts, int max_steps, float rtol,
                                   float atol, float beta1, float beta2, float inv_order, const float* tab, int R,
                                   int grid, int block, void* stream) {
-  return solve<1>(params, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, tiles, B, n, widths, acts,
-                  max_steps, 0, 0, rtol, atol, beta1, beta2, inv_order, tab, R, grid, block, stream);
+  return solve<1, false>(params, nullptr, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, tiles, B, n,
+                         widths, acts, max_steps, 0, 0, rtol, atol, beta1, beta2, inv_order, tab, R, grid, block,
+                         stream);
 }
 
 // Exact TRAIN: acc0/accT (3, B), rows [dlogp | reg_e | reg_n]; work:
@@ -272,6 +357,41 @@ extern "C" int cnf_k7s_exact_solve(const float* params, const float* z0, const f
                                    float* tiles, int B, int n, const int* widths, int acts, int max_steps, int norm_z,
                                    int norm_j, float rtol, float atol, float beta1, float beta2, float inv_order,
                                    const float* tab, int R, int grid, int block, void* stream) {
-  return solve<3>(params, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, tiles, B, n, widths, acts,
-                  max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab, R, grid, block, stream);
+  return solve<3, false>(params, nullptr, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, tiles, B, n, widths,
+                         acts, max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab, R, grid, block,
+                         stream);
+}
+
+// The COND instances' launch shapes (K8), as cnf_k7s_test_shape and
+// cnf_k7s_exact_shape; widths[0] = dz + nc with nc >= 1, out[4] counting
+// the tile's ys rows.
+extern "C" int cnf_k7sc_test_shape(int n, const int* widths, int B, int* out) {
+  return shape<1, true>(n, widths, B, out);
+}
+
+extern "C" int cnf_k7sc_exact_shape(int n, const int* widths, int B, int* out) {
+  return shape<3, true>(n, widths, B, out);
+}
+
+// The COND instances (K8): as cnf_k7s_test_solve and cnf_k7s_exact_solve for
+// a conditional chain, with ys (B, nc) (device) after params, nc =
+// widths[0] - widths[n] >= 1; R, grid, block and the tile scratch from
+// cnf_k7sc_test_shape or cnf_k7sc_exact_shape.
+extern "C" int cnf_k7s_cond_test_solve(const float* params, const float* ys, const float* z0, const float* dlogp0,
+                                       const float* ts, float* zT, float* dlogpT, int* stats, float* dt_last,
+                                       float* work, float* partials, float* tiles, int B, int n, const int* widths,
+                                       int acts, int max_steps, float rtol, float atol, float beta1, float beta2,
+                                       float inv_order, const float* tab, int R, int grid, int block, void* stream) {
+  return solve<1, true>(params, ys, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, tiles, B, n, widths,
+                        acts, max_steps, 0, 0, rtol, atol, beta1, beta2, inv_order, tab, R, grid, block, stream);
+}
+
+extern "C" int cnf_k7s_cond_exact_solve(const float* params, const float* ys, const float* z0, const float* acc0,
+                                        const float* ts, float* zT, float* accT, int* stats, float* dt_last,
+                                        float* work, float* partials, float* tiles, int B, int n, const int* widths,
+                                        int acts, int max_steps, int norm_z, int norm_j, float rtol, float atol,
+                                        float beta1, float beta2, float inv_order, const float* tab, int R, int grid,
+                                        int block, void* stream) {
+  return solve<3, true>(params, ys, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, tiles, B, n, widths, acts,
+                        max_steps, norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab, R, grid, block, stream);
 }

@@ -2,13 +2,13 @@
 // with dz <= kStreamMaxDz and any hidden width, in the streamed layout of
 // chain_stream.cuh (n = 2, its weights left in global memory and streamed
 // through the chunk buffer), evaluated by a block for a tile of T samples.
-// nc = 0 but in the COND instances of streamed K3 and K5 (K8: W1's ys rows
-// enter the pre-activation of h).  Besides the weights: M[i, h] = W1[i, h]
-// W2[h, i] (dz, H) row-major over W1's z rows, the closed-form trace's
-// constant (fused_solve.py::_stage_test :484-503), built once per launch
-// into a global scratch by the whole grid and then streamed like a weight
-// (22,188 floats, 88.8 KB, at 86 -> 258 -> 86: L2-resident beside the
-// weights).
+// nc = 0 but in the COND instances of streamed K3, streamed K5 and the
+// streamed K4 adjoint (K8: W1's ys rows enter the pre-activation of h).
+// Besides the weights: M[i, h] = W1[i, h] W2[h, i] (dz, H) row-major over
+// W1's z rows, the closed-form trace's constant (fused_solve.py::
+// _stage_test :484-503), built once per launch into a global scratch by the
+// whole grid and then streamed like a weight (22,188 floats, 88.8 KB, at
+// 86 -> 258 -> 86: L2-resident beside the weights).
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
 
 #pragma once

@@ -922,9 +922,7 @@ def _kernel_covers(
     probes or JVP, the shared memory of the wide probe instances), up to
     state width STREAM_MAX_DZ and STREAM_MAX_PARAMS parameters, conditional
     ones with one VJP probe in the COND instances of the streamed K1 and K2
-    chain forms (streamed K7's and the streamed K4 adjoint's COND instances
-    are not ported: their wrappers refuse conditional chains,
-    COND_STREAM_EXACT); a narrow
+    chain forms and of streamed K7's TEST and exact entries; a narrow
     chain whose weights and per-thread slots do not fit in shared memory is
     refused at launch (`_launch_shape`).  The Hutchinson kernels (K1, K2,
     their chain forms and the chain forms' wide and streamed forms) take any
@@ -1017,15 +1015,11 @@ def _stream_chain(spec: ChainSpec, probes: bool = False) -> bool:
 
 
 #: What the kernels still refuse of conditional nets past the wide limits
-#: (K8 in the streamed forms), each naming its part of ROADMAP queue 2's row
-#: (d).  The COND instances of the streamed K1 and K2 chain forms, streamed
-#: K3 and streamed K5 take one-probe training, serving and the TEST gradient
-#: of 2-layer tanh nets; past 2 layers serving runs streamed K7 TEST, whose
-#: COND instance is (d5) with streamed K7 exact's and the streamed K4
-#: adjoint's (exact training); K probes or JVP are (d6).
-COND_STREAM_EXACT = ("conditional chains past the wide limits in streamed K7 and the streamed K4 adjoint (K8 in the "
-                     "streamed forms: their COND instances, for exact training and for serving past 2 layers; ROADMAP "
-                     "queue 2, shape variants (d), part (d5))")
+#: (K8 in the streamed forms), naming its part of ROADMAP queue 2's row (d).
+#: The COND instances of the streamed K1 and K2 chain forms, streamed K3,
+#: streamed K5, streamed K7 TEST and exact and the streamed K4 adjoint take
+#: one-probe training, serving, the TEST gradient and exact training; K
+#: probes or JVP are (d6).
 COND_STREAM_PROBES = ("conditional chains past the wide limits with K probes or JVP probes (K6 x K8 in the wide and "
                       "streamed chain forms: the streamed forms' probe COND instances; ROADMAP queue 2, shape "
                       "variants (d), part (d6))")
@@ -1047,8 +1041,8 @@ def _wide_two_layer_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str
     chain forms run the Hutchinson and exact-forward stages, streamed K3 and
     K5 the TEST stages (`_stream_two_layer_covers`, conditional nets in
     their COND instances) and the streamed K4 adjoint the exact backward
-    member (`_stream_exact_covers`) of unconditional nets; conditional ones
-    are refused there and in streamed K7 exact (COND_STREAM_EXACT)."""
+    member (`_stream_exact_covers`), conditional nets in the COND instances
+    of each."""
     if not _two_layer_tanh(spec):
         return ("nets other than 2-layer tanh chains in wide K3, wide K5 and the wide K4 adjoint (the JAX "
                 "package's 2-layer TEST and exact stages assume tanh layers, reference fault 2: the chain kernels "
@@ -1062,8 +1056,8 @@ def _stream_two_layer(spec: ChainSpec) -> bool:
     that the streamed chain forms run (state widths to STREAM_MAX_DZ past
     the wide 2-layer kernels' limits: the README net family at the
     MINIBOONE and BSDS300 widths, 86 -> 258 -> 86 and 126 -> 378 -> 126);
-    a conditional one in streamed K3's and K5's COND instances (the
-    streamed K4 adjoint refuses it, `_stream_exact_covers`)."""
+    a conditional one in the COND instances of streamed K3, streamed K5 and
+    the streamed K4 adjoint."""
     return _wide_two_layer(spec) and _stream_chain(spec)
 
 
@@ -1231,6 +1225,10 @@ _SIGNATURES = {
         "cnf_k7s_exact_shape": _WIDE_SHAPE,
         "cnf_k7s_test_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
         "cnf_k7s_exact_solve": ([_P] * 11 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k7sc_test_shape": _WIDE_SHAPE,
+        "cnf_k7sc_exact_shape": _WIDE_SHAPE,
+        "cnf_k7s_cond_test_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k7s_cond_exact_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K2S_KERNEL: {
         "cnf_k2s_shape": _WIDE_SHAPE,
@@ -1255,6 +1253,8 @@ _SIGNATURES = {
     K4SA_KERNEL: {
         "cnf_k4s_shape": _WIDE_SHAPE,
         "cnf_k4s_exact_adjoint": ([_P] * 18 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k4sc_shape": _WIDE_SHAPE,
+        "cnf_k4s_cond_exact_adjoint": ([_P] * 20 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K3B_KERNEL: {
         "cnf_k3b_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
@@ -1343,8 +1343,7 @@ def _controller_floats(tab):
 
 
 def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain: bool = False,
-               wide: bool = False, jvp: bool = False, stream: bool = False, cond: bool = False,
-               cond_row: Optional[str] = None) -> None:
+               wide: bool = False, jvp: bool = False, stream: bool = False, cond: bool = False) -> None:
     """Raise unless `label`'s kernel takes the configuration on CUDA tensors:
     a chain kernel's narrow form (`wide` and `stream` False) takes no wide
     chain, its wide form (`wide`) the chains past the narrow widths that it
@@ -1352,9 +1351,7 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
     wide forms refuse for their widths or shared memory (`_stream_chain`;
     with K probes or JVP, those of the wide probe instances); the wide and
     streamed forms take conditional chains in their COND instances (`cond`)
-    and unconditional ones in the others.  `cond_row`: the refusal of a
-    conditional chain by a form with no COND instance yet (streamed K7,
-    COND_STREAM_EXACT)."""
+    and unconditional ones in the others."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
     probes = k_probes != 1 or jvp
@@ -1362,8 +1359,6 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
     if why is None and chain and not wide and not stream and _wide_chain(spec):
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the narrow chain kernels (up to "
                f"{MAX_DZ} and {CHAIN_MAX_WIDTH}: their wide forms take the chain)")
-    if why is None and spec.n_cond and cond_row is not None:
-        why = cond_row
     if why is None and (wide or stream) and spec.n_cond and not cond:
         why = f"conditional chains in the unconditional instance of {label} (its COND instance takes them)"
     if why is None and cond and not spec.n_cond:
@@ -2667,14 +2662,14 @@ def run_stream_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0
 
     CUDA tensors go through the kernel (`csrc/k7_stream_solve.cu`), CPU
     tensors through its plain version; on the card a conditional chain raises
-    (its COND instance: COND_STREAM_EXACT)."""
+    (its COND instance, `run_stream_cond_test_solve_kernel`, takes it)."""
     _no_grad_inputs("K7", ws, bs, z0, dlogp0, ys)
     if z0.device.type == "cpu":
         return solve_test_plain(
             tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
             z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
-    _cuda_only("streamed K7", z0, tab, spec, chain=True, stream=True, cond_row=COND_STREAM_EXACT)
+    _cuda_only("streamed K7", z0, tab, spec, chain=True, stream=True)
     out = _launch_wide_forward(
         "streamed K7 TEST", K7S_KERNEL, "cnf_k7s_test_solve", "cnf_k7s_test_shape", tab, spec, rtol=rtol,
         atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
@@ -2696,14 +2691,14 @@ def run_stream_exact_solve_kernel(
 
     CUDA tensors go through the kernel (`csrc/k7_stream_solve.cu`), CPU
     tensors through its plain version; on the card a conditional chain raises
-    (its COND instance: COND_STREAM_EXACT)."""
+    (its COND instance, `run_stream_cond_exact_solve_kernel`, takes it)."""
     _no_grad_inputs("K7", ws, bs, z0, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_exact_plain(
             tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
             ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
         )
-    _cuda_only("streamed K7", z0, tab, spec, chain=True, stream=True, cond_row=COND_STREAM_EXACT)
+    _cuda_only("streamed K7", z0, tab, spec, chain=True, stream=True)
     out = _launch_wide_forward(
         "streamed K7 exact", K7S_KERNEL, "cnf_k7s_exact_solve", "cnf_k7s_exact_shape", tab, spec, rtol=rtol,
         atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
@@ -2926,12 +2921,10 @@ run_stream_test_adjoint_kernel.launches = 0
 def _stream_exact_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
     """Why the streamed K4 adjoint does not run this configuration (None if
     it does): it takes the nets streamed K3 and K5 take
-    (`_stream_two_layer_covers`) under every embedded tableau, while its
-    gradient with g_pm (P + dz^2 H floats) keeps 32-bit offsets; its COND
-    instance is not ported (COND_STREAM_EXACT)."""
+    (`_stream_two_layer_covers`) under every embedded tableau, conditional
+    ones in its COND instance, while its gradient with g_pm (P + dz^2 H
+    floats, P counting W1's ys rows) keeps 32-bit offsets."""
     why = _stream_two_layer_covers(tab, spec)
-    if why is None and spec.n_cond:
-        return COND_STREAM_EXACT
     if why is not None:
         return why
     dz, H = spec.dz, spec.out_dims[0]
@@ -2942,26 +2935,37 @@ def _stream_exact_covers(tab: ButcherTableau, spec: ChainSpec) -> Optional[str]:
     return None
 
 
-def _cuda_only_stream_exact(label: str, x: torch.Tensor, tab, spec) -> None:
+def _cuda_only_stream_exact(label: str, x: torch.Tensor, tab, spec, cond: bool = False) -> None:
     """Raise unless the streamed K4 adjoint (`_stream_exact_covers`) takes
-    the configuration on CUDA tensors."""
+    the configuration on CUDA tensors: conditional nets in its COND instance
+    (`cond`), unconditional ones in the other."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
     why = _stream_exact_covers(tab, spec)
+    if why is None and spec.n_cond and not cond:
+        why = f"conditional nets in the unconditional instance of {label} (its COND instance takes them)"
+    if why is None and cond and not spec.n_cond:
+        why = f"unconditional nets in the COND instance of {label} (its unconditional instance takes them)"
     if why is not None:
         raise NotImplementedError(f"the CUDA solve kernels do not cover {why}")
 
 
 def _launch_stream_exact_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
-                                 t_hi, t_lo, dt_init):
+                                 t_hi, t_lo, dt_init, ys=None):
+    """Launch the streamed K4 adjoint: its unconditional instance or, given
+    ys (B, n_cond), its COND instance (K8), which returns a_ys0 (B, n_cond)
+    last.  g_pm, over W1's z rows, is chained into them and W2 after the
+    launch; W1's ys rows get none (the JAX package's :1787-1799)."""
     label = "streamed K4 adjoint"
     B, dz = zT.shape
     H = spec.out_dims[0]
+    nc = spec.n_cond if ys is not None else 0
     device = zT.device
     params, widths = _chain_params(label, spec, ws, bs, device)
     zT, accT, azT, aaccT = _check_inputs(label, device, [zT, accT, azT, aaccT], [(B, dz), (3, B), (B, dz), (3, B)])
     lib = _library(K4SA_KERNEL)
-    block, grid, T, tiles = _stream_shape(lib, "cnf_k4s_shape", label, spec, widths, B, device)
+    block, grid, T, tiles = _stream_shape(lib, "cnf_k4sc_shape" if nc else "cnf_k4s_shape", label, spec, widths, B,
+                                          device)
     P = params.numel()
     Pt = P + dz * dz * H
     f32 = dict(dtype=torch.float32, device=device)
@@ -2969,21 +2973,31 @@ def _launch_stream_exact_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_s
     z0, acc0, az0 = torch.empty_like(zT), torch.empty_like(accT), torch.empty_like(zT)
     g, gnew = torch.empty(Pt, **f32), torch.empty(Pt, **f32)
     stats = torch.empty(2, dtype=torch.int32, device=device)
-    work = torch.empty((tab.num_stages + 2) * (2 * dz + 3) * B, **f32)
+    work = torch.empty((tab.num_stages + 2) * (2 * dz + 3 + nc) * B, **f32)
     partials = torch.empty(10 * grid, **f32)
     gvec = torch.empty((_gvecs(tab) + 2) * Pt, **f32)
-    fac = torch.empty(B * (dz * dz + 3 * H + 2 * dz + 2), **f32)
+    fac = torch.empty(B * (dz * dz + 3 * H + 2 * dz + nc + 2), **f32)
     w2t = torch.empty(dz * H, **f32)
-    err = lib.cnf_k4s_exact_adjoint(
-        _ptr(params), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0),
-        _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gvec), _ptr(gnew), _ptr(fac), _ptr_or_null(tiles),
-        _ptr(w2t), B, spec.n_layers, widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j), rtol, atol,
-        *_controller_floats(tab), _tableau_array(tab), T, grid, block, _stream(device),
-    )
+    tail = (_ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gvec), _ptr(gnew), _ptr(fac), _ptr_or_null(tiles),
+            _ptr(w2t), B, spec.n_layers, widths, _acts_mask(spec), int(max_steps), int(norm_z), int(norm_j), rtol,
+            atol, *_controller_floats(tab), _tableau_array(tab), T, grid, block, _stream(device))
+    if nc:
+        ys = _cond_rows(label, spec, ys, B, device)
+        ays0 = torch.empty((B, nc), **f32)
+        err = lib.cnf_k4s_cond_exact_adjoint(
+            _ptr(params), _ptr(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0),
+            _ptr(az0), _ptr(ays0), *tail,
+        )
+    else:
+        err = lib.cnf_k4s_exact_adjoint(
+            _ptr(params), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0),
+            *tail,
+        )
     _check_launch(err, label, grid, block)
     g_ws, g_bs = _split_params(g[:P], spec)
-    g_w1, g_w2 = exact_pm_chain(g[P:].view(dz * dz, H), ws[0], ws[1])
-    return z0, acc0, az0, [g_ws[0] + g_w1, g_ws[1] + g_w2], g_bs, stats[0], stats[1]
+    g_w1, g_w2 = exact_pm_chain(g[P:].view(dz * dz, H), ws[0][:dz], ws[1])
+    g_ws = [g_ws[0] + _pad_rows(g_w1, g_ws[0].shape[0]), g_ws[1] + g_w2]
+    return (z0, acc0, az0, g_ws, g_bs, stats[0], stats[1]) + ((ays0,) if nc else ())
 
 
 def run_stream_exact_adjoint_kernel(
@@ -3147,6 +3161,105 @@ def run_stream_cond_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws,
 
 
 run_stream_cond_test_adjoint_kernel.launches = 0
+
+
+def run_stream_cond_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init,
+                                      ys=None):
+    """Streamed K7 TEST's COND instance: the TEST solve by basis push
+    (`run_stream_test_solve_kernel`) of a conditional chain past the wide
+    limits whose first layer reads [z | ys], ys (B, n_cond) constant over
+    the solve (a conditional FFJORD-MINIBOONE chain 44 -> 860 -> 860 -> 43;
+    `make_full_solve` gives 2-layer tanh nets streamed K3's COND instance);
+    the push reads W0's z rows only; arguments and returns as
+    `run_solve_kernel` with ys.
+
+    CUDA tensors go through the kernel (`csrc/k7_stream_solve.cu`'s
+    `k7_stream_cond_solve<1>`), CPU tensors through its plain version."""
+    _no_grad_inputs("K7", ws, bs, z0, dlogp0, ys)
+    if z0.device.type == "cpu":
+        return solve_test_plain(
+            tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("streamed K7", z0, tab, spec, chain=True, stream=True, cond=True)
+    out = _launch_wide_forward(
+        "streamed K7 TEST COND", K7S_KERNEL, "cnf_k7s_cond_test_solve", "cnf_k7sc_test_shape", tab, spec, rtol=rtol,
+        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init,
+        stream=True, ys=ys,
+    )
+    run_stream_cond_test_solve_kernel.launches += 1
+    return out
+
+
+run_stream_cond_test_solve_kernel.launches = 0
+
+
+def run_stream_cond_exact_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init, ys=None
+):
+    """Streamed K7 exact's COND instance: the exact TRAIN solve by basis push
+    (`run_stream_exact_solve_kernel`) of a conditional chain past the wide
+    limits, 2-layer tanh nets included (CondRNODE at the MINIBOONE width,
+    87 -> 258 -> 86, whose exact gradient runs the streamed K4 adjoint's
+    COND instance; deeper chains' runs the plain BACKSOLVE); arguments and
+    returns as `run_exact_solve_kernel` with ys (B, n_cond).
+
+    CUDA tensors go through the kernel (`csrc/k7_stream_solve.cu`'s
+    `k7_stream_cond_solve<3>`), CPU tensors through its plain version."""
+    _no_grad_inputs("K7", ws, bs, z0, acc0, ys)
+    if z0.device.type == "cpu":
+        return solve_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("streamed K7", z0, tab, spec, chain=True, stream=True, cond=True)
+    out = _launch_wide_forward(
+        "streamed K7 exact COND", K7S_KERNEL, "cnf_k7s_cond_exact_solve", "cnf_k7sc_exact_shape", tab, spec,
+        rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+        norms=(norm_z, norm_j), stream=True, ys=ys,
+    )
+    run_stream_cond_exact_solve_kernel.launches += 1
+    return out
+
+
+run_stream_cond_exact_solve_kernel.launches = 0
+
+
+def run_stream_cond_exact_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init, ys=None,
+):
+    """The streamed K4 adjoint's COND instance: the exact backsolve of (z,
+    acc, a_z, a_acc, a_ys, g_p, g_pm) (`run_stream_exact_adjoint_kernel`) of
+    a conditional 2-layer tanh net past the wide limits whose W1 reads
+    [z | ys] (CondRNODE at the MINIBOONE width), the per-sample a_ys
+    integrated from 0 at t_hi in the one batch-global error norm; g_pm (over
+    W1's z rows) is chained into W1's z rows and W2, W1's ys rows get
+    ys (x) ct_pre1 alone; arguments as `run_exact_adjoint_kernel` with ys
+    (B, n_cond), returns (z0, acc0, a_z0, g_ws, g_bs, steps, accepted,
+    a_ys0).
+
+    CUDA tensors go through the kernel (`csrc/k4_stream_adjoint.cu`'s
+    `k4_stream_cond_adjoint`), CPU tensors through its plain version."""
+    if not _two_layer_tanh(spec):
+        raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
+    _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only_stream_exact("the streamed K4 adjoint", zT, tab, spec, cond=True)
+    if dt_init is None:
+        raise ValueError("the streamed K4 adjoint needs dt_init (the caller picks it)")
+    out = _launch_stream_exact_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol,
+                                       max_steps=max_steps, ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT,
+                                       t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
+    run_stream_cond_exact_adjoint_kernel.launches += 1
+    return out
+
+
+run_stream_cond_exact_adjoint_kernel.launches = 0
 
 
 # ---- the bf16 kernels (bf16 stage matmuls on the tensor cores) ----
@@ -3341,6 +3454,9 @@ KERNEL_WRAPPERS = {
     K2S_KERNEL + "/cond": run_stream_cond_adjoint_kernel,
     K3S_KERNEL + "/cond": run_stream_cond_test2_solve_kernel,
     K5S_KERNEL + "/cond": run_stream_cond_test_adjoint_kernel,
+    K7S_KERNEL + "/test/cond": run_stream_cond_test_solve_kernel,
+    K7S_KERNEL + "/exact/cond": run_stream_cond_exact_solve_kernel,
+    K4SA_KERNEL + "/cond": run_stream_cond_exact_adjoint_kernel,
     K3B_KERNEL: run_bf16_solve_kernel,
     K1B_KERNEL: run_bf16_train_solve_kernel,
     K2B_KERNEL: run_bf16_adjoint_kernel,
@@ -3418,12 +3534,12 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     adjoint's backward under exact trace (deeper chains' exact gradient runs
     the plain BACKSOLVE, as below).  Conditional chains past the wide
     limits run the COND instances of the streamed forms: the streamed K1 and
-    K2 chain forms' under Hutchinson TRAIN with one VJP probe and, for
-    2-layer tanh nets (CondRNODE at the MINIBOONE width), streamed K3's
-    forward and streamed K5's backward in TEST mode; their TEST forward past
-    2 layers (streamed K7 TEST), their exact training (streamed K7 exact,
-    the streamed K4 adjoint) raise on the card (COND_STREAM_EXACT), and so
-    do K probes or JVP past the wide probe COND instances' shared memory
+    K2 chain forms' under Hutchinson TRAIN with one VJP probe, streamed K7
+    TEST's forward at 3-4 layers and streamed K7 exact's forward at every
+    depth and, for 2-layer tanh nets (CondRNODE at the MINIBOONE width),
+    streamed K3's forward and streamed K5's backward in TEST mode and the
+    streamed K4 adjoint's backward under exact trace; K probes or JVP past
+    the wide probe COND instances' shared memory raise on the card
     (COND_STREAM_PROBES); narrow conditional nets keep the narrow chain
     kernels and K5's COND instance.
     Hutchinson TRAIN solves run K1 (or its chain form) with the
@@ -3532,12 +3648,14 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         run_test, run_train = run_stream_test_solve_kernel, run_stream_train_solve_kernel
         run_exact, run_adjoint = run_stream_exact_solve_kernel, run_stream_adjoint_kernel
         if spec.n_cond:
-            run_train, run_adjoint = run_stream_cond_train_solve_kernel, run_stream_cond_adjoint_kernel
+            run_test, run_train = run_stream_cond_test_solve_kernel, run_stream_cond_train_solve_kernel
+            run_exact, run_adjoint = run_stream_cond_exact_solve_kernel, run_stream_cond_adjoint_kernel
         if wide2:
             run_test, run_test_adj = run_stream_test2_solve_kernel, run_stream_test_adjoint_kernel
+            run_exact_adj = run_stream_exact_adjoint_kernel
             if spec.n_cond:
                 run_test, run_test_adj = run_stream_cond_test2_solve_kernel, run_stream_cond_test_adjoint_kernel
-            run_exact_adj = run_stream_exact_adjoint_kernel
+                run_exact_adj = run_stream_cond_exact_adjoint_kernel
     elif spec.n_cond and _wide_chain(spec):
         run_test, run_train = run_wide_cond_test_solve_kernel, run_wide_cond_train_solve_kernel
         run_exact, run_adjoint = run_wide_cond_exact_solve_kernel, run_wide_cond_adjoint_kernel
@@ -3701,6 +3819,9 @@ __all__ = [
     "run_stream_cond_adjoint_kernel",
     "run_stream_cond_test2_solve_kernel",
     "run_stream_cond_test_adjoint_kernel",
+    "run_stream_cond_test_solve_kernel",
+    "run_stream_cond_exact_solve_kernel",
+    "run_stream_cond_exact_adjoint_kernel",
     "run_bf16_solve_kernel",
     "run_bf16_train_solve_kernel",
     "run_bf16_adjoint_kernel",

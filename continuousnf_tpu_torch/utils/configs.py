@@ -79,12 +79,22 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     (signal about +1.601, background about -0.625), and xs the
     `synthetic_tabular` recipe at 43 variables plus 0.5 ys.  Past the wide
     limits: the COND instances of streamed K3, streamed K5 and the streamed
-    K1 and K2 chain forms run it.  Nothing is cut.
+    K1 and K2 chain forms run it, and under exact trace those of streamed
+    K7 exact and the streamed K4 adjoint.  Nothing is cut.
+  * cond_miniboone860 (FFJORD's tabular MINIBOONE model in its conditional
+    form, beside miniboone860): CondRNODE, nvars = 43, naug = 0, one
+    conditioning column, MLP 44 -> 860 -> 860 -> 43 tanh on all three
+    layers reading [z | ys], miniboone860's tspan (0, 1), no steering,
+    batch 1024; data by cond_miniboone86's recipe (p(x | label) of
+    MiniBooNE).  The COND instances of streamed K7 TEST (serving) and
+    streamed K7 exact (its exact forward; the deep chain's exact gradient
+    runs the plain BACKSOLVE, as the JAX package's does) run it.  Widths,
+    depth and batch are miniboone860's, not cut.
 
 All: lambda1 = lambda2 = 1e-2 (the RNODE defaults), tsit5 at rtol 1e-3 /
 atol 1e-6, one Gaussian VJP probe (`make_icnf` takes K probes and JVP
 probes), batch 4096 in the scripts unless the entry names its own `batch`
-(miniboone43 and bsds126: 2048; miniboone860: 1024); the conditional recipe
+(miniboone43 and bsds126: 2048; miniboone860 and cond_miniboone860: 1024); the conditional recipe
 trains at its `batch_size` of 128, cond_hepmass42 and cond_miniboone86 at 4096.  Weights are Glorot-uniform with
 N(0, 0.05) biases, drawn with numpy.
 """
@@ -112,10 +122,13 @@ MODELS = {
                            extra={"steer_rate": 0.1, "lam3": 1e-2}, n_cond=1),
     "cond_miniboone86": dict(dims=(87, 258, 86), nvars=43, naug=43, tspan=(0.0, 13.0),
                              extra={"steer_rate": 0.1, "lam3": 1e-2}, n_cond=1),
+    "cond_miniboone860": dict(dims=(44, 860, 860, 43), nvars=43, naug=0, tspan=(0.0, 1.0), extra={}, n_cond=1,
+                              batch=1024),
 }
 #: HEPMASS's signal masses in GeV (Baldi et al. 2016), cond_hepmass42's conditioning.
 HEPMASS_MASSES = (500.0, 750.0, 1000.0, 1250.0, 1500.0)
-#: MiniBooNE's signal and background events (UCI), cond_miniboone86's label shares.
+#: MiniBooNE's signal and background events (UCI), the label shares of the
+#: cond_miniboone86 and cond_miniboone860 data.
 MINIBOONE_EVENTS = (36_499, 93_565)
 # kernel_microbench (`benchmarks/kernel_microbench.py:93-152`): the flagship at
 # tspan (0, 1), run in float32 and under bf16 stage matmuls.
@@ -199,7 +212,7 @@ def model_data(name: str, rng: np.random.Generator, n: int):
         return cond_gaussian_data(rng, n)
     if name == "cond_hepmass42":
         return cond_hepmass_data(rng, n)
-    if name == "cond_miniboone86":
+    if name in ("cond_miniboone86", "cond_miniboone860"):
         return cond_miniboone_data(rng, n)
     return rng.uniform(0.0, 1.0, (n, nvars)).astype(np.float32)
 

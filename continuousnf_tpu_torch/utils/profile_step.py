@@ -1,6 +1,6 @@
 """Where the time goes in a training step and a `logpdf` call on the card.
 
-    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|miniboone860|hepmass42|miniboone86|bsds126|cond_hepmass42|cond_miniboone86]
+    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|miniboone860|hepmass42|miniboone86|bsds126|cond_hepmass42|cond_miniboone86|cond_miniboone860]
         [--steps 10]
         [--probes K] [--jvp] [--test-grad] [--direct | --fixed N] [--bf16]
 
@@ -22,14 +22,19 @@ and K2 chain forms, wide K3 and wide K5, and of wide K7 exact with the wide
 K4 adjoint for the exact-trace step; `--model cond_miniboone86`: CondRNODE
 at the MINIBOONE width, MLP 87 -> 258 -> 86 on [z | ys], through the COND
 instances of the streamed K1 and K2 chain forms, streamed K3 and streamed
-K5, with no exact-trace step: its streamed K7 exact and K4 adjoint COND
-instances are ROADMAP queue 2 row (d5)), its weights and its data from a seed as `utils/configs.py` makes
+K5, and of streamed K7 exact with the streamed K4 adjoint for the
+exact-trace step; `--model cond_miniboone860`: CondRNODE, MLP 44 -> 860 ->
+860 -> 43 on [z | ys], batch 1024, through the COND instances of the
+streamed K1 and K2 chain forms, streamed K7 TEST for `logpdf` and streamed
+K7 exact for the exact-trace step's forward, its backward the plain
+BACKSOLVE), its weights and its data from a seed as `utils/configs.py` makes
 them, one Gaussian VJP probe (`--probes K` Gaussian probes, `--jvp`
 forward-mode ones: the Hutchinson train steps run the probe instances of
 the K1 and K2 kernels or of their chain forms, narrow, wide (miniboone43;
 at cond_hepmass42 their probe COND instances, K6 x K8) or streamed
 (miniboone860, miniboone86, bsds126), K6), batch 4096 (or the configuration's own
-`batch`: 2048 for miniboone43 and bsds126, 1024 for miniboone860), fused kernels on, and for each path (the
+`batch`: 2048 for miniboone43 and bsds126, 1024 for miniboone860 and
+cond_miniboone860), fused kernels on, and for each path (the
 Hutchinson train step, the exact-trace train step, `logpdf`; for a
 configuration with its own training batch, the train step at that batch
 too):
@@ -168,10 +173,8 @@ def profile_model(name: str, steps: int, seed: int = 0, num_probes: int = 1, jvp
            "direct": direct, "fixed": fixed, "bf16": bf16}
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    # bf16 has no exact-trace stages (ROADMAP queue 2, the bf16 row), nor
-    # have conditional nets past the wide limits (row (d5)).
-    exact_ported = not bf16 and name != "cond_miniboone86"
-    paths = [("train_step", False, B)] + ([("exact_train_step", True, B)] if exact_ported else [])
+    # bf16 has no exact-trace stages (ROADMAP queue 2, the bf16 row).
+    paths = [("train_step", False, B)] + ([] if bf16 else [("exact_train_step", True, B)])
     if "batch_size" in cfg:
         paths.append((f"train_step_b{cfg['batch_size']}", False, cfg["batch_size"]))
     for label, exact, b in paths:

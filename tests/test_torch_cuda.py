@@ -12,7 +12,8 @@ streamed K3 and K5 and the streamed K4 adjoint for 2-layer nets past the
 wide limits, the README net family at the MINIBOONE width 86 -> 258 -> 86
 and the BSDS300 width 126 -> 378 -> 126, and the COND instances of the wide
 and streamed forms for conditional nets past the narrow and the wide
-limits) against their plain PyTorch
+limits, streamed K7's and the streamed K4 adjoint's included) against their
+plain PyTorch
 versions, on the card, and the configurations they do not cover.
 
 These tests need a CUDA device and skip elsewhere.  On a machine with a card
@@ -1374,14 +1375,15 @@ def test_wide_cond_chain_paths_on_the_card_match_the_twins_on_the_cpu(dev):
      "probe-shared-memory"],
 )
 def test_wide_cond_refusals_raise_on_cuda(dev, case):
-    """What the kernels still refuse of conditional nets past the narrow
-    widths raises on the card, naming its ROADMAP row, and launches
-    nothing: streamed K7's and the streamed K4 adjoint's COND instances
-    (row (d5): the deep chain's TEST forward at the miniboone860 width, the
-    exact backward past hidden 128) and K probes in a chain whose probe
-    COND instance's shared memory it passes (row (d6)); the unconditional
-    wide K1 chain form, wide K7 and the wide K4 adjoint take no conditional
-    net."""
+    """What the kernels refuse of conditional nets past the narrow widths
+    raises on the card, naming its ROADMAP row or the instance that takes
+    it, and launches nothing: K probes in a chain whose probe COND
+    instance's shared memory it passes (row (d6)); the unconditional wide
+    K1 chain form, wide K7 and the wide K4 adjoint take no conditional net,
+    nor the unconditional streamed K7 and streamed K4 adjoint the deep
+    chain's TEST forward at the miniboone860 width or the exact backward
+    past hidden 128 ("streamed", "K4-hidden130"), which their COND
+    instances (row (d5)) then run, one launch each."""
     dims = {"streamed": (44, 860, 860, 43), "unconditional-K7": (10, 72, 72, 8),
             "K4-hidden130": (44, 130, 43), "probe-shared-memory": (65, 128, 128, 120, 64)}.get(case, COND_HEPMASS)
     spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
@@ -1397,9 +1399,9 @@ def test_wide_cond_refusals_raise_on_cuda(dev, case):
         "unconditional-K7": ("run_wide_test_solve_kernel", "unconditional instance",
                              dict(_kernel_args(dims, B, (0.0, 1.0), dev), ys=ys)),
         "unconditional-K4": ("run_wide_exact_adjoint_kernel", "unconditional instance", k4_call),
-        "K4-hidden130": ("run_stream_exact_adjoint_kernel", tfs.COND_STREAM_EXACT, k4_call),
+        "K4-hidden130": ("run_stream_exact_adjoint_kernel", "unconditional instance", k4_call),
         "probe-shared-memory": ("run_wide_cond_train_solve_kernel", tfs.COND_STREAM_PROBES, kw),
-        "streamed": ("run_stream_test_solve_kernel", tfs.COND_STREAM_EXACT,
+        "streamed": ("run_stream_test_solve_kernel", "unconditional instance",
                      dict(_kernel_args(dims, B, (0.0, 1.0), dev), ys=ys)),
         "unconditional-instance": ("run_wide_train_solve_kernel", "unconditional instance", kw),
     }[case]
@@ -1408,6 +1410,14 @@ def test_wide_cond_refusals_raise_on_cuda(dev, case):
         getattr(tfs, wrapper)(TSIT5, spec, **call)
     assert why in str(err.value)
     assert not any(w.launches for w in tfs.KERNEL_WRAPPERS.values())
+    cond = {"streamed": "run_stream_cond_test_solve_kernel", "K4-hidden130": "run_stream_cond_exact_adjoint_kernel"}
+    if case in cond:
+        with torch.no_grad():
+            out = getattr(tfs, cond[case])(TSIT5, spec, **call)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(x).all()) for x in out[:2])
+        assert {k: w.launches for k, w in tfs.KERNEL_WRAPPERS.items() if w.launches} == {
+            ("k7_stream_solve/test/cond" if case == "streamed" else "k4_stream_adjoint/cond"): 1}
 
 
 # K6 x K8: (K, JVP?) of the probe COND instances' holds
@@ -1855,11 +1865,13 @@ def test_stream_cond_gradients_match_a_float64_solve(dev, mode):
 def test_stream_cond_refusals_raise_on_cuda(dev, case):
     """Through the loss on the card, what the kernels still refuse of
     conditional nets past the wide limits raises NotImplementedError naming
-    its part of ROADMAP queue 2's row (d) and launches no kernel: exact
-    training (streamed K7 exact's COND instance, (d5)), K probes and JVP
-    probes (the streamed probe COND instances, (d6)) at cond_miniboone86,
-    and the TEST forward of a conditional 3-layer chain past hidden 128
-    (streamed K7 TEST's COND instance, (d5))."""
+    its part of ROADMAP queue 2's row (d) and launches no kernel: K probes
+    and JVP probes (the streamed probe COND instances, (d6)) at
+    cond_miniboone86.  What (d5) refused now runs: exact training
+    ("exact": streamed K7 exact's and the streamed K4 adjoint's COND
+    instances, one launch each) and the TEST forward of a conditional
+    3-layer chain past hidden 128 ("three-layer-test": streamed K7 TEST's
+    COND instance, one launch), finite."""
     dims = (10, 136, 136, 8) if case == "three-layer-test" else COND_MINIBOONE86
     nvars = 4 if case == "three-layer-test" else 43
     cm = {"exact": tcnf.VecJacMode(fused=True, exact_trace=True), "two-probes": tcnf.VecJacMode(2, fused=True),
@@ -1869,16 +1881,180 @@ def test_stream_cond_refusals_raise_on_cuda(dev, case):
     ps = tcnf.params_from_numpy(_np_params(dims, 9), dev)
     xs = torch.from_numpy(np.random.default_rng(10).normal(size=(64, nvars)).astype(np.float32)).to(dev)
     ys = _cond_ys(64, dims[0] - dims[-1], dev)
-    why = tfs.COND_STREAM_PROBES if case in ("two-probes", "jvp") else tfs.COND_STREAM_EXACT
     tfs.reset_launches()
+    if case == "three-layer-test":
+        with torch.no_grad():
+            out = tcnf.inference(icnf, tcnf.Mode.TEST, xs, ps, ys=ys)
+        assert all(bool(torch.isfinite(x).all()) for x in out[:2] if torch.is_tensor(x))
+        assert _launches() == dict(dict.fromkeys(_launches(), 0), **{tfs.K7S_KERNEL + "/test/cond": 1})
+        return
+    if case == "exact":
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        grads = torch.autograd.grad(tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=ys), leaves)
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+        assert _launches() == dict(dict.fromkeys(_launches(), 0),
+                                   **{tfs.K7S_KERNEL + "/exact/cond": 1, tfs.K4SA_KERNEL + "/cond": 1})
+        return
     with pytest.raises(NotImplementedError) as err:
-        if case == "three-layer-test":
-            with torch.no_grad():
-                tcnf.inference(icnf, tcnf.Mode.TEST, xs, ps, ys=ys)
-        else:
-            tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=ys)
-    assert why in str(err.value)
+        tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=ys)
+    assert tfs.COND_STREAM_PROBES in str(err.value)
     assert not any(w.launches for w in tfs.KERNEL_WRAPPERS.values())
+
+
+# ---- K8 in streamed K7 and the streamed K4 adjoint (row (d5)) ----
+
+COND_MINIBOONE860 = (44, 860, 860, 43)
+
+
+def _tile_scratch_floats(kernel, entry, dims, B):
+    """out[4] of a streamed shape entry: the floats of global tile scratch a
+    block (0: the tile arrays fit in shared memory)."""
+    import ctypes
+
+    out = (ctypes.c_int * 5)()
+    widths = (ctypes.c_int * len(dims))(*dims)
+    assert getattr(tfs._library(kernel), entry)(len(dims) - 1, widths, B, out) == 0
+    return out[4]
+
+
+@pytest.mark.parametrize(
+    "dims,B,span,tab",
+    [
+        (COND_MINIBOONE86, 4096, (0.0, 13.0), TSIT5),
+        ((67, 80, 66), 37, (2.0, 0.0), TSIT5),
+        ((67, 80, 66), 64, (1.0, 0.0), VERNER65),
+        ((10, 136, 136, 8), 300, (0.0, 2.0), TSIT5),
+        (COND_MINIBOONE860, 256, (0.0, 1.0), TSIT5),
+        ((44, 130, 43), 256, (0.0, 1.0), TSIT5),
+        ((87, 4000, 86), 16, (0.0, 1.0), TSIT5),
+        ((36, 200, 33), 1, (0.0, 1.0), TSIT5),
+    ],
+    ids=["cond-miniboone86-B4096", "dz66-reverse-B37", "dz66-verner65-reverse-B64", "three-layer-hidden136-ncond2-B300",
+         "cond-miniboone860-B256", "hidden130-B256", "hidden4000-global-tiles-B16", "ncond3-B1"],
+)
+def test_stream_cond_k7_and_k4_kernels_match_twins(dev, dims, B, span, tab):
+    """The COND instances of streamed K7 TEST and streamed K7 exact (and, for
+    2-layer nets, of the streamed K4 adjoint) against their twins with the
+    conditioning ys (B, n_cond): the forwards from nonzero accumulators
+    (equal steps, values within REL), the adjoint from streamed K7 exact
+    COND's output warm-started from its last step (equal steps; z0, acc0,
+    a_z0 and a_ys0 held to the float64 twin; gradients within GRAD_REL,
+    W1's ys rows not zero).  Hidden width 4000 sends the tile arrays of both
+    to the global scratch (the shape entries say so).  One launch each."""
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    assert tfs._stream_chain(spec)
+    nc, dz = dims[0] - dims[-1], dims[-1]
+    two = len(dims) == 3
+    if dims[1] == 4000:
+        assert _tile_scratch_floats(tfs.K7S_KERNEL, "cnf_k7sc_exact_shape", dims, B) > 0
+        assert _tile_scratch_floats(tfs.K4SA_KERNEL, "cnf_k4sc_shape", dims, B) > 0
+    ys = _cond_ys(B, nc, dev)
+    kw, adj = _train_args(dims, B, span, dev)
+    exact_kw = dict({k: v for k, v in kw.items() if k != "eps"}, ys=ys)
+    test_kw = dict(_kernel_args(dims, B, span, dev), ys=ys)
+    if tab is VERNER65:
+        exact_kw.update(rtol=3.452669831108329e-4, atol=1.1920929e-7)
+        test_kw.update(rtol=3.452669831108329e-4, atol=1.1920929e-7)
+    runs = [tfs.run_stream_cond_test_solve_kernel, tfs.run_stream_cond_exact_solve_kernel]
+    if two:
+        runs.append(tfs.run_stream_cond_exact_adjoint_kernel)
+    before = [w.launches for w in runs]
+    tdir = 1.0 if span[1] > span[0] else -1.0
+    with torch.no_grad():
+        t_k = tfs.run_stream_cond_test_solve_kernel(tab, spec, **test_kw)
+        t_p = tfs.solve_test_plain(tab, spec, **test_kw)
+        e_k = tfs.run_stream_cond_exact_solve_kernel(tab, spec, **exact_kw)
+        e_p = tfs.solve_train_exact_plain(tab, spec, **exact_kw)
+        if two:
+            adj = dict({k: v for k, v in adj.items() if k != "eps"}, zT=e_k[0], accT=e_k[1],
+                       dt_init=-tdir * e_k[4].abs(), ys=ys, rtol=exact_kw["rtol"], atol=exact_kw["atol"])
+            k4 = [tfs.run_stream_cond_exact_adjoint_kernel(tab, spec, **adj),
+                  tfs.adjoint_train_exact_plain(tab, spec, **adj),
+                  _twin64(tfs.adjoint_train_exact_plain, spec, adj, tab)]
+    torch.cuda.synchronize()
+    assert [w.launches for w in runs] == [n + 1 for n in before]
+    _hold_forward(t_k, t_p)
+    _hold_forward(e_k, e_p)
+    if two:
+        _hold_cond_adjoint(*k4)
+        assert float(k4[0][3][0][dz:].abs().max()) > 0.0
+
+
+def test_stream_cond_exact_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """On the card and on the CPU: cond_miniboone86 (tspan (0, 1), B = 256)
+    the exact loss gradient in the params and ys through streamed K7
+    exact's and the streamed K4 adjoint's COND instances; the conditional
+    miniboone860 chain (CondRNODE, MLP 44 -> 860 -> 860 -> 43, nvars 43,
+    tspan (0, 1), B = 64) `CondICNFDist.logpdf` and `sample` (the base draw
+    injected) through streamed K7 TEST's COND instance and the exact loss
+    gradient through streamed K7 exact's and the plain BACKSOLVE; each
+    launching those kernels and no other."""
+    xs86, ys86, _, ps86 = _cond_miniboone86_inputs(256, 14)
+    rng = np.random.default_rng(15)
+    xs860 = rng.normal(size=(64, 43)).astype(np.float32)
+    ys860 = rng.uniform(-1.0, 1.0, (64, 1)).astype(np.float32)
+    z1 = rng.normal(size=(64, 43)).astype(np.float32)
+    ps860 = _np_params(COND_MINIBOONE860, 16)
+
+    def run(device, case):
+        if case == "mb86-exact":
+            icnf, ps_np, xs, ys = _cond_miniboone86(device, "exact"), ps86, xs86, ys86
+        else:
+            icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP(COND_MINIBOONE860, device=device), 43, 0,
+                                  tspan=(0.0, 1.0),
+                                  compute_mode=tcnf.VecJacMode(fused=True, exact_trace=case == "mb860-exact"))
+            ps_np, xs, ys = ps860, xs860, ys860
+        ps = tcnf.params_from_numpy(ps_np, device)
+        y = torch.from_numpy(ys).to(device)
+        if case == "mb860-test":
+            d = tcnf.CondICNFDist(icnf, tcnf.Mode.TEST, ps, y)
+            with torch.no_grad():
+                return [d.logpdf(xs).cpu(), d.sample(64, z1=z1).cpu()]
+        y.requires_grad_()
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])] + [y]
+        l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=y, steer_r=0.05)
+        return [l.detach().cpu()] + [g.cpu() for g in torch.autograd.grad(l, leaves)]
+
+    wants = {"mb86-exact": {tfs.K7S_KERNEL + "/exact/cond": 1, tfs.K4SA_KERNEL + "/cond": 1},
+             "mb860-test": {tfs.K7S_KERNEL + "/test/cond": 2},
+             "mb860-exact": {tfs.K7S_KERNEL + "/exact/cond": 1}}
+    for case, want in wants.items():
+        before = _launches()
+        got = run(dev, case)
+        after = _launches()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == want
+        ref = run(torch.device("cpu"), case)
+        close = _close if case == "mb860-test" else _grad_close
+        assert all(torch.isfinite(a).all() and close(a, b) for a, b in zip(got, ref))
+
+
+def test_stream_cond_exact_gradient_matches_a_float64_solve(dev):
+    """cond_miniboone86 at its own span (0, 13), B = 64: the exact loss
+    gradient in the params and ys through streamed K7 exact's and the
+    streamed K4 adjoint's COND instances (one launch each) within
+    2e-2 max|g| of a float64 rtol 1e-7 solve (the plain path on the card),
+    the loss within 1e-4 of it."""
+    xs, ys, _, ps_np = _cond_miniboone86_inputs(64, 6)
+    truth = tcnf.SolverOptions(rtol=1e-7, atol=1e-9)
+
+    def run(dtype, fused, solver=None):
+        icnf = _cond_miniboone86(dev, "exact", dtype, solver, (0.0, 13.0), fused)
+        leaves = [v.to(dtype).requires_grad_() for p in tcnf.params_from_numpy(ps_np, dev) for v in (p["w"], p["b"])]
+        ps = tuple({"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2]))
+        y = torch.from_numpy(ys).to(device=dev, dtype=dtype).requires_grad_()
+        x = torch.from_numpy(xs).to(device=dev, dtype=dtype)
+        l = tcnf.loss(icnf, tcnf.Mode.TRAIN, x, ps, ys=y, steer_r=0.05)
+        return l.detach().cpu().double(), [g.cpu().double() for g in torch.autograd.grad(l, leaves + [y])]
+
+    before = _launches()
+    l_k, g_k = run(torch.float32, True)
+    after = _launches()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        tfs.K7S_KERNEL + "/exact/cond": 1, tfs.K4SA_KERNEL + "/cond": 1}
+    l_t, g_t = run(torch.float64, False, truth)
+    assert float((l_k - l_t).abs()) <= 1e-4 * max(1.0, float(l_t.abs()))
+    for a, t in zip(g_k, g_t):
+        assert torch.isfinite(a).all() and float((a - t).abs().max()) <= 2e-2 * float(t.abs().max())
 
 
 # ---- the chain kernels with conditioning rows (K8) ----

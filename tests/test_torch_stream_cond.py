@@ -12,7 +12,7 @@ mode at one tile (the TEST and TRAIN forwards, the TEST and Hutchinson
 adjoints with a_ys0); TEST and TRAIN `inference`; the losses and their
 gradients in the params and in ys against `jax.grad`;
 `CondICNFDist.logpdf`; the coverage rule, the wrappers `make_full_solve`
-picks, what is still refused (ROADMAP queue 2 rows (d5) and (d6), by
+picks, what is still refused (ROADMAP queue 2 row (d6), by
 name); the wrappers' CPU branch; the cond_miniboone86 configuration and
 `fit`.
 
@@ -111,7 +111,8 @@ def test_cond_miniboone86_configuration():
     dimensions, one conditioning column, MLP 87 -> 258 -> 86 on [z | ys],
     miniboone86's recipe; ys the standardised MiniBooNE label (signal share
     36,499 / 130,064), xs the tabular recipe shifted by 0.5 ys.  The
-    streamed forms' COND instances take it; the wide forms do not."""
+    streamed forms' COND instances take it, the streamed K4 adjoint's
+    included; the wide forms do not."""
     cfg, twin = MODELS["cond_miniboone86"], MODELS["miniboone86"]
     assert (cfg["dims"], cfg["nvars"], cfg["naug"], cfg["n_cond"]) == ((87, 258, 86), 43, 43, 1)
     assert (cfg["tspan"], cfg["extra"]) == (twin["tspan"], twin["extra"]) and "batch" not in cfg
@@ -128,7 +129,7 @@ def test_cond_miniboone86_configuration():
     assert tfs._stream_two_layer(spec) and tfs._stream_two_layer_covers(TSIT5, spec) is None
     assert tfs._kernel_covers(TSIT5, spec, chain=True) is None
     assert "state width 86 > 64" in tfs._wide_two_layer_covers(TSIT5, spec)
-    assert tfs._stream_exact_covers(TSIT5, spec) == tfs.COND_STREAM_EXACT
+    assert tfs._stream_exact_covers(TSIT5, spec) is None
 
 
 # ---- the twins against the JAX package's kernels (interpret mode) ----
@@ -266,7 +267,7 @@ def test_stream_cond_adjoint_twins_match_jax_kernel(jax_solves, net, mode):
 
 # (net, mode) -> the forward wrapper the fused solve calls
 _FORWARDS = {("two-layer", "test"): "run_stream_cond_test2_solve_kernel",
-             ("three-layer", "test"): "run_stream_test_solve_kernel",
+             ("three-layer", "test"): "run_stream_cond_test_solve_kernel",
              ("two-layer", "train"): "run_stream_cond_train_solve_kernel",
              ("three-layer", "train"): "run_stream_cond_train_solve_kernel"}
 
@@ -278,7 +279,7 @@ def test_stream_cond_inference_matches_jax(monkeypatch, net, mode):
     steering draws handed over) against the JAX package's fused path (its
     kernels in interpret mode), with the same weights, inputs and ys, the
     solve through the forward wrapper the route names (the 3-layer chain's
-    TEST forward: streamed K7 TEST's twin, whose COND instance is (d5)):
+    TEST forward: streamed K7 TEST's COND instance's twin):
     equal steps, or at a tie of the last step (one solve reaches t1, the
     other stops short and takes the remainder) the JAX package's own
     unfused path on the same draws taking the port's count; values at
@@ -446,12 +447,10 @@ def _fake_cuda():
 
 # name -> (check, dims, n_cond, keyword arguments, the row or reason the refusal names)
 _REFUSED = {
-    "K7-TEST-three-layer": ("chain", THREE, 2, dict(stream=True, cond_row=tfs.COND_STREAM_EXACT),
-                            tfs.COND_STREAM_EXACT),
-    "K7-exact-cond-miniboone86": ("chain", COND_MB86, 1, dict(stream=True, cond_row=tfs.COND_STREAM_EXACT),
-                                  tfs.COND_STREAM_EXACT),
-    "K4-adjoint-cond-miniboone86": ("exact", COND_MB86, 1, {}, tfs.COND_STREAM_EXACT),
-    "K4-adjoint-hidden130": ("exact", (44, 130, 43), 1, {}, tfs.COND_STREAM_EXACT),
+    "K7-TEST-three-layer": ("chain", THREE, 2, dict(stream=True), "unconditional instance"),
+    "K7-exact-cond-miniboone86": ("chain", COND_MB86, 1, dict(stream=True), "unconditional instance"),
+    "K4-adjoint-cond-miniboone86": ("exact", COND_MB86, 1, {}, "unconditional instance"),
+    "K4-adjoint-hidden130": ("exact", (44, 130, 43), 1, {}, "unconditional instance"),
     "probes-K4": ("chain", COND_MB86, 1, dict(stream=True, cond=True, k_probes=4), tfs.COND_STREAM_PROBES),
     "probes-jvp": ("chain", THREE, 2, dict(stream=True, cond=True, jvp=True), tfs.COND_STREAM_PROBES),
     "probes-wide-cond-instance": ("chain", (65, 128, 128, 120, 64), 1, dict(wide=True, cond=True, k_probes=2),
@@ -467,12 +466,14 @@ _REFUSED = {
 def test_stream_cond_refusals_on_the_card_name_their_row(name):
     """What the card still refuses of conditional nets past the wide limits
     raises NotImplementedError through the wrappers' checks, naming its
-    part of ROADMAP queue 2's row (d): streamed K7's TEST and exact COND
-    instances and the streamed K4 adjoint's (d5), K probes or JVP in the
-    streamed chain forms, or in a wide COND chain past the probe COND
-    instances' shared memory (d6); and no unconditional streamed instance
-    takes a conditional net, nor a COND instance an unconditional one, nor
-    the wide COND instances a chain past the wide limits."""
+    part of ROADMAP queue 2's row (d): K probes or JVP in the streamed chain
+    forms, or in a wide COND chain past the probe COND instances' shared
+    memory (d6); and no unconditional streamed instance takes a conditional
+    net (streamed K7's and the streamed K4 adjoint's included: their COND
+    instances, (d5), take the "K7-" and "K4-" cases,
+    `test_stream_cond_instances_accept_what_they_cover`), nor a COND
+    instance an unconditional one, nor the wide COND instances a chain past
+    the wide limits."""
     check, dims, nc, kw, why = _REFUSED[name]
     spec = _spec(dims, nc)
     with pytest.raises(NotImplementedError) as err:
@@ -482,7 +483,7 @@ def test_stream_cond_refusals_on_the_card_name_their_row(name):
         elif check == "two":
             tfs._cuda_only_wide_two_layer("streamed K3", _fake_cuda(), TSIT5, spec, **kw)
         else:
-            tfs._cuda_only_stream_exact("the streamed K4 adjoint", _fake_cuda(), TSIT5, spec)
+            tfs._cuda_only_stream_exact("the streamed K4 adjoint", _fake_cuda(), TSIT5, spec, **kw)
     assert why in str(err.value)
     if why.startswith("conditional chains past"):
         assert "ROADMAP queue 2, shape variants (d), part (d" in str(err.value)
@@ -495,17 +496,24 @@ _ACCEPTED = {
     "K1-K2-cond-miniboone860": ("streamed K1", "chain", (44, 860, 860, 43), 1),
     "K3-K5-two-layer": ("streamed K3", "two", TWO, 1),
     "K3-K5-cond-miniboone86": ("streamed K5", "two", COND_MB86, 1),
+    "K7-TEST-three-layer": ("streamed K7", "chain", THREE, 2),
+    "K7-exact-cond-miniboone86": ("streamed K7", "chain", COND_MB86, 1),
+    "K4-adjoint-cond-miniboone86": ("the streamed K4 adjoint", "exact", COND_MB86, 1),
+    "K4-adjoint-hidden130": ("the streamed K4 adjoint", "exact", (44, 130, 43), 1),
 }
 
 
 @pytest.mark.parametrize("name", list(_ACCEPTED))
 def test_stream_cond_instances_accept_what_they_cover(name):
     """The same checks pass the configurations the streamed COND instances
-    take (one VJP probe)."""
+    take (one VJP probe), streamed K7's and the streamed K4 adjoint's (d5)
+    included."""
     label, check, dims, nc = _ACCEPTED[name]
     spec = _spec(dims, nc)
     if check == "chain":
         tfs._cuda_only(label, _fake_cuda(), TSIT5, spec, chain=True, stream=True, cond=True)
+    elif check == "exact":
+        tfs._cuda_only_stream_exact(label, _fake_cuda(), TSIT5, spec, cond=True)
     else:
         tfs._cuda_only_wide_two_layer(label, _fake_cuda(), TSIT5, spec, stream=True, cond=True)
 
@@ -516,13 +524,14 @@ _ROUTES = {
                                                 "run_stream_cond_test_adjoint_kernel"]),
     "two-layer-train": (TWO, "train", 1, False, ["run_stream_cond_train_solve_kernel",
                                                   "run_stream_cond_adjoint_kernel"]),
-    "two-layer-exact": (TWO, "exact", 1, False, ["run_stream_exact_solve_kernel", "run_stream_exact_adjoint_kernel"]),
+    "two-layer-exact": (TWO, "exact", 1, False, ["run_stream_cond_exact_solve_kernel",
+                                                  "run_stream_cond_exact_adjoint_kernel"]),
     "two-layer-train-K2": (TWO, "train", 2, False, ["run_stream_cond_train_solve_kernel",
                                                     "run_stream_cond_adjoint_kernel"]),
-    "three-layer-test": (THREE, "test", 1, False, ["run_stream_test_solve_kernel"]),
+    "three-layer-test": (THREE, "test", 1, False, ["run_stream_cond_test_solve_kernel"]),
     "three-layer-train": (THREE, "train", 1, False, ["run_stream_cond_train_solve_kernel",
                                                       "run_stream_cond_adjoint_kernel"]),
-    "three-layer-exact": (THREE, "exact", 1, False, ["run_stream_exact_solve_kernel"]),
+    "three-layer-exact": (THREE, "exact", 1, False, ["run_stream_cond_exact_solve_kernel"]),
 }
 
 
@@ -532,16 +541,17 @@ def test_fused_solve_takes_the_stream_cond_instances(monkeypatch, route):
     the streamed forms' COND instances: a 2-layer tanh net through streamed
     K3's and K5's (TEST) and the streamed K1 and K2 chain forms'
     (Hutchinson), a 3-layer chain through the chain forms' (Hutchinson);
-    its TEST forward past 2 layers and its exact training reach streamed K7
-    and the streamed K4 adjoint, which refuse it on the card (d5), and K
-    probes reach the streamed COND instances, which refuse them there (d6).
-    On the CPU each runs its twin; no wide or unconditional wrapper is
-    called."""
+    its TEST forward past 2 layers and its exact training through streamed
+    K7's COND instances and, for a 2-layer net, the streamed K4 adjoint's
+    (d5); K probes reach the streamed COND instances, which refuse them on
+    the card (d6).  On the CPU each runs its twin; no wide or unconditional
+    wrapper is called."""
     dims, mode, k, jvp, want = _ROUTES[route]
     called = []
     names = {n for v in _ROUTES.values() for n in v[4]} | {
         "run_stream_train_solve_kernel", "run_stream_adjoint_kernel", "run_stream_test2_solve_kernel",
-        "run_stream_test_adjoint_kernel", "run_wide_cond_train_solve_kernel", "run_wide_cond_adjoint_kernel",
+        "run_stream_test_adjoint_kernel", "run_stream_test_solve_kernel", "run_stream_exact_solve_kernel",
+        "run_stream_exact_adjoint_kernel", "run_wide_cond_train_solve_kernel", "run_wide_cond_adjoint_kernel",
         "run_wide_cond_test2_solve_kernel", "run_wide_cond_test_adjoint_kernel", "run_wide_cond_test_solve_kernel",
         "run_wide_cond_exact_solve_kernel", "run_wide_cond_exact_adjoint_kernel"}
     for name in names:

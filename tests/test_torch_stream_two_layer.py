@@ -19,6 +19,8 @@ gradients rtol 1e-4 / atol 1e-5.  Inputs come from numpy seeds at B = 8,
 where the JAX package runs one tile; the JAX probe and steering draws are
 reproduced from its key split (`core/icnf.py:485`) and handed to the port."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -329,11 +331,12 @@ def test_stream_exact_adjoint_takes_every_embedded_tableau(tab):
 
 @pytest.mark.parametrize("kind", ["conditional", "identity-output", "three-layer"])
 def test_stream_exact_adjoint_refuses_other_nets(kind):
-    """A conditional 2-layer net (K8 in the streamed forms, row (d)), a
-    2-layer net with an identity layer (the JAX package's exact stage
-    assumes tanh layers) and a 3-layer chain (no exact backward member, as
-    in the JAX package) are refused by the streamed K4 adjoint's rule, and
-    its wrapper raises ValueError for the last two on any device."""
+    """A conditional 2-layer net is refused by the streamed K4 adjoint's
+    unconditional instance, which names its COND instance (K8, which the
+    rule admits); a 2-layer net with an identity layer (the JAX package's
+    exact stage assumes tanh layers) and a 3-layer chain (no exact backward
+    member, as in the JAX package) are refused by the streamed K4 adjoint's
+    rule, and its wrapper raises ValueError for them on any device."""
     if kind == "conditional":
         spec = _spec(MB86, n_cond=1)
     elif kind == "identity-output":
@@ -341,10 +344,13 @@ def test_stream_exact_adjoint_refuses_other_nets(kind):
     else:
         spec = tfs.ChainSpec((86, 258, 258), (258, 258, 86), (True, True, True), 0)
     why = tfs._stream_exact_covers(TSIT5, spec)
-    assert why is not None
     if kind == "conditional":
-        assert "ROADMAP queue 2, shape variants (d)" in why
+        assert why is None
+        fake = types.SimpleNamespace(device=torch.device("cuda", 0))
+        with pytest.raises(NotImplementedError, match="unconditional instance of the streamed K4 adjoint"):
+            tfs._cuda_only_stream_exact("the streamed K4 adjoint", fake, TSIT5, spec)
         return
+    assert why is not None
     with pytest.raises(ValueError):
         tfs.run_stream_exact_adjoint_kernel(TSIT5, spec, norm_z=True, norm_j=True, rtol=1e-3, atol=1e-6,
                                             max_steps=10, ws=[], bs=[], zT=torch.zeros(2, 86),

@@ -117,8 +117,8 @@ def test_cond_hepmass42_configuration():
     The wide COND instances take it, the wide K4 adjoint's included; the
     narrow kernels do not, nor the wide 2-layer kernels a conditional net
     past the wide limits, whose TEST stages the streamed COND instances take
-    and whose exact backward the streamed K4 adjoint refuses
-    (COND_STREAM_EXACT)."""
+    and whose exact backward the streamed K4 adjoint's COND instance
+    takes."""
     cfg = MODELS["cond_hepmass42"]
     hep = MODELS["hepmass42"]
     assert (cfg["dims"], cfg["nvars"], cfg["naug"], cfg["n_cond"]) == ((43, 126, 42), 21, 21, 1)
@@ -136,7 +136,7 @@ def test_cond_hepmass42_configuration():
     past = _spec((44, 130, 43), 1)
     assert "hidden width 130 > 128" in tfs._wide_two_layer_covers(TSIT5, past)
     assert tfs._stream_two_layer_covers(TSIT5, past) is None
-    assert tfs._stream_exact_covers(TSIT5, past) == tfs.COND_STREAM_EXACT
+    assert tfs._stream_exact_covers(TSIT5, past) is None
 
 
 @pytest.mark.parametrize("net,mode", [("two-layer", "test"), ("two-layer", "train"), ("three-layer", "train")])
