@@ -586,8 +586,9 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      those two, at least four times each; what row (d5) refused now runs:
      the exact loss gradient at B = 256 (streamed K7 exact COND and the
      streamed K4 adjoint COND once each), the miniboone860 chain's `logpdf`
-     (streamed K7 TEST COND once); and, by name with nothing launched, what
-     is still refused: two probes (row (d6));
+     (streamed K7 TEST COND once); and what row (d6) refused: the loss
+     gradient with two probes at B = 256 (the streamed K1 and K2 chain
+     forms' COND wrappers once each, counted under (2, False));
 117. CUDA-event times of the train step, `logpdf` and the TEST loss
      gradient at cond_miniboone86, each beside miniboone86's in the same
      run, a b b a;
@@ -618,7 +619,32 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      K7 exact COND once (the backward plain);
 122. CUDA-event times, a b b a in the same run: cond_miniboone86's exact
      train step beside miniboone86's, cond_miniboone860's `logpdf` beside
-     miniboone860's.
+     miniboone860's;
+123. K6 x K8 in the streamed forms: the launch shapes of the probe COND
+     instances of the streamed K1 and K2 chain forms at cond_miniboone86
+     (B = 4096), cond_miniboone860 (B = 1024) and MLP 65 -> 128 -> 128 ->
+     120 -> 64 with one ys column (B = 1024, past the wide probe COND
+     instances' shared memory), and ptxas's registers, stack frames and
+     spills (and the K2 stages' calls) beside the probe instances';
+124. each against its twin at cond_miniboone86 (K = 4 and JVP) and
+     cond_miniboone860 (K = 4): equal steps, values within TOL, gradients
+     and a_ys0 within COND_PROBE_GRAD_TOL, W0's ys rows' gradient not zero,
+     two timed calls each; then the ys = 0 yardstick: the COND instance
+     with ys = 0 and W0's ys rows 0 beside the unconditional streamed probe
+     instance on the same weights without those rows (steps within one;
+     with equal steps, values within TOL and GRAD_TOL), a b b a, per
+     attempted step;
+125. cond_miniboone86's K = 4 loss and gradients (params and ys) at B = 256
+     through the probe COND instances, the plain path and a float64 rtol
+     1e-7 solve, within SOLVE_REL;
+126. the main paths, counters reset just before each: the K = 4 and JVP
+     train steps of cond_miniboone86 (B = 4096) and cond_miniboone860
+     (B = 1024) and the K = 2 train step of the 65-128-128-120-64 chain,
+     each launching the streamed probe COND instances once and nothing
+     else, cond_miniboone86's K = 4 `fit` only those, at least four times
+     each;
+127. the K = 4 train step at cond_miniboone86 beside miniboone86's, a b b
+     a.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -636,6 +662,7 @@ kernels' JSON record, the nvidia-smi line, and {"ok": true, "device":
 import contextlib
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -5035,8 +5062,17 @@ def cond_stream(cnf, fs, dev, built):
           f"the conditional miniboone860 chain's logpdf launched {n_lp}")
     print(f"phase 116: row (d5) runs: cond_miniboone86's exact loss gradient launched {n_e}, the conditional "
           f"miniboone860 chain's logpdf {n_lp}")
-    refuses(fs, "cond_miniboone86's loss gradient with two probes (row (d6))", fs.COND_STREAM_PROBES,
-            lambda: loss_grad(cnf, model(num_probes=2), ps_np, xs[small], dev, ys=ys[small]), phase=116)
+    # What row (d6) refused runs now, through the streamed probe COND
+    # instances (phases 123-127 hold them).
+    fs.reset_launches()
+    _, g_2, _ = loss_grad(cnf, model(num_probes=2), ps_np, xs[small], dev, ys=ys[small])
+    torch.cuda.synchronize()
+    n_2 = launched(fs)
+    probes_2 = [dict(names[key][1].probe_launches) for key in ("k1sc", "k2sc")]
+    check(n_2 == want and probes_2 == [{(2, False): 1}] * 2 and all(bool(torch.isfinite(g).all()) for g in g_2),
+          f"cond_miniboone86's two-probe gradient launched {n_2}, probe instances {probes_2}")
+    print(f"phase 116: row (d6) runs: cond_miniboone86's loss gradient with two probes launched {n_2}, probe "
+          f"instances {probes_2}")
 
     # Phase 117: CUDA-event times of the train step, `logpdf` and the TEST
     # loss gradient at cond_miniboone86, each beside miniboone86's in the
@@ -5309,6 +5345,247 @@ def cond_stream_exact(cnf, fs, dev, built):
     return records
 
 
+
+# ---- K6 x K8 in the streamed forms: conditional K-probe and JVP training past the wide limits ----
+
+PROBE_ONLY_COND_DIMS = (65, 128, 128, 120, 64)  # phase 126: the wide COND forms keep it with one probe, not with K
+STREAM_COND_PROBE_PATHS = ((4, False), (1, True))  # phase 124's holds and phase 126's train steps
+
+
+def cond_stream_probe_names(fs):
+    """The streamed probe COND instances' record keys -> (KERNEL_WRAPPERS
+    name, wrapper, twin, source, the TPU site); their launches are the
+    wrappers' `.probe_launches[(K, jvp)]`."""
+    at = "continuousnf_tpu/ops/fused_solve.py:"
+    return {
+        "k1spc": (fs.K1S_KERNEL + "/cond", fs.run_stream_cond_train_solve_kernel, fs.solve_train_plain,
+                  "k1_stream_solve.cu", at + "1043"),
+        "k2spc": (fs.K2S_KERNEL + "/cond", fs.run_stream_cond_adjoint_kernel, fs.adjoint_train_plain,
+                  "k2_stream_adjoint.cu", at + "1767"),
+    }
+
+
+def cond_stream_probes(cnf, fs, dev, built):
+    """Phases 123 to 127: K-probe and JVP Hutchinson training of conditional
+    nets past the wide limits (K6 x K8 in the streamed forms) through the
+    probe COND instances of the streamed K1 and K2 chain forms:
+    cond_miniboone86 (CondRNODE, MLP 87 -> 258 -> 86 on [z | ys], B = 4096)
+    at K = 4 and under JVP, cond_miniboone860 (MLP 44 -> 860 -> 860 -> 43 on
+    [z | ys], B = 1024) at K = 4 and under JVP, and MLP 65 -> 128 -> 128 ->
+    120 -> 64 with one ys column at K = 2 (a wide chain past the wide probe
+    COND instances' shared memory); the ys = 0 yardstick against the
+    unconditional streamed probe instances on the same weights.  `built`:
+    the build's {kernel: (library, nvcc log)}.  Returns the records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, glorot_params, make_icnf, model_data
+
+    names = cond_stream_probe_names(fs)
+    run1, run2 = names["k1spc"][1], names["k2spc"][1]
+    want = {names["k1spc"][0]: 1, names["k2spc"][0]: 1}
+
+    def probe_counts():
+        return [dict(w.probe_launches) for w in (run1, run2)]
+
+    nets = {}
+    for label, seed in (("cond_miniboone86", 1400), ("cond_miniboone860", 1401)):
+        cfg = MODELS[label]
+        b = cfg.get("batch", BATCH)
+        rng = np.random.default_rng(SEED + seed)
+        ps_np = glorot_params(rng, cfg["dims"])
+        xs, ys = (torch.from_numpy(a).to(dev) for a in model_data(label, rng, b))
+        nets[label] = (cfg["dims"], b, ps_np, xs, ys, rng)
+    model = lambda label, k=1, jvp=False, **kw: make_icnf(label, dev, num_probes=k,  # noqa: E731
+                                                          ad="jvp" if jvp else "vjp", **kw)
+    dims_o, b_o = PROBE_ONLY_COND_DIMS, PROBE_ONLY_BATCH
+    rng_o = np.random.default_rng(SEED + 1402)
+    ps_o = glorot_params(rng_o, dims_o)
+    xs_o = torch.from_numpy(rng_o.normal(size=(b_o, 32)).astype("float32")).to(dev)
+    ys_o = torch.from_numpy(rng_o.uniform(-1.0, 1.0, (b_o, 1)).astype("float32")).to(dev)
+    icnf_o = cnf.construct(cnf.CondRNODE, cnf.MLP(dims_o, device=dev), 32, 32, tspan=(0.0, 1.0),
+                           compute_mode=cnf.VecJacMode(2, fused=True))
+    for label, icnf in (("cond_miniboone86", model("cond_miniboone86", 4)),
+                        ("cond_miniboone860", model("cond_miniboone860", 4)), ("MLP 65-128-128-120-64", icnf_o)):
+        spec = fs.chain_spec(icnf.nn, icnf.zdim)
+        check(spec.n_cond == 1 and fs._stream_chain(spec, True)
+              and all(fs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp) is None for k, jvp in PROBE_CONFIGS),
+              f"{label} with probes should run the streamed probe COND instances")
+    check(not fs._stream_chain(fs.chain_spec(icnf_o.nn, icnf_o.zdim)),
+          "MLP 65-128-128-120-64 with one ys column should keep the wide COND instances with one probe")
+
+    # Phase 123: the launch shapes at the paths' batches (K is a run-time
+    # argument: one shape for every K); ptxas's registers, stack frames and
+    # spills beside the probe instances'.
+    for lib_name, fn in ((fs.K1S_KERNEL, "cnf_k1spc_shape"), (fs.K2S_KERNEL, "cnf_k2spc_shape")):
+        for widths, b in ((nets["cond_miniboone86"][0], BATCH), (nets["cond_miniboone860"][0], nets[
+                "cond_miniboone860"][1]), (dims_o, b_o)):
+            out = (ctypes.c_int * 5)()
+            err = getattr(fs._library(lib_name), fn)(len(widths) - 1, (ctypes.c_int * len(widths))(*widths), b, out)
+            check(err == 0 and out[1] >= 1, f"{fn} at {widths}: cudaError {err}")
+            print(f"phase 123: {fn} at widths {widths}, B={b}, every K: {out[0]} threads a block, {out[1]} blocks, "
+                  f"tile {out[2]}, {out[3]} bytes of dynamic shared memory, {out[4]} floats of global tile scratch a "
+                  "block")
+    for lib_name, parts in ((fs.K1S_KERNEL, ("26k1_stream_probe_cond_solve", "21k1_stream_probe_solve")),
+                            (fs.K2S_KERNEL, ("28k2_stream_probe_cond_adjoint", "23k2_stream_probe_adjoint",
+                                             "20StreamProbeCondStage", "16StreamProbeStage"))):
+        log = built.get(lib_name, (None, ""))[1]
+        for part in parts:
+            found = ptxas_report(log, part)
+            if not found:
+                print(f"phase 123: {part[2:]}: no ptxas lines (the library was not compiled by this process)")
+            for fn, r in found.items():
+                member = re.match(r"(\d+)(\w+)", fn.split(part)[-1])  # a stage's call: its mangled member name
+                what = part[2:] + (f"::{member.group(2)[:int(member.group(1))]}" if member else "")
+                print(f"phase 123: ptxas {what}: {r.get('registers')} registers, {r.get('stack')} bytes stack frame, "
+                      f"{r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} bytes spill loads")
+
+    # Phase 124: each probe COND instance against its twin (the forward from
+    # nonzero accumulators, the adjoint from its output warm-started from its
+    # last step; two timed calls each) at cond_miniboone86 (K = 4, JVP) and
+    # cond_miniboone860 (K = 4); then the ys = 0 yardstick: the COND instance
+    # with ys = 0 and W0's ys rows 0 against the unconditional streamed probe
+    # instance on the same weights without those rows (the same field on the
+    # same data), a b b a, per attempted step.
+    held = {}
+    for label, k, jvp in (("cond_miniboone86", 4, False), ("cond_miniboone86", 1, True),
+                          ("cond_miniboone860", 4, False)):
+        d, b, p_np, x, y, rng = nets[label]
+        icnf = model(label, k, jvp)
+        spec = fs.chain_spec(icnf.nn, icnf.zdim)
+        dz = icnf.zdim
+        _, train, _, cot = kernel_inputs(icnf, cnf.params_from_numpy(p_np, dev), x, rng, dev)
+        eps = torch.from_numpy(rng.normal(size=(k, b, dz)).astype("float32")).to(dev)
+        kw1 = dict(train, eps=eps, jvp=jvp, ys=y)
+        tag = f"{probe_tag(k, jvp)} ({label}, B={b})"
+        r1 = run_pair(f"{names['k1spc'][0]} {tag}", run1, fs.solve_train_plain, TSIT5, spec, kw1, reps=2)
+        r2 = run_pair(f"{names['k2spc'][0]} {tag}", run2, fs.adjoint_train_plain, TSIT5, spec,
+                      adjoint_kw(kw1, r1[0], cot), adjoint=True, reps=2, grad_tol=COND_PROBE_GRAD_TOL)
+        out2 = r2[0]
+        check(len(out2) == 8 and tuple(out2[7].shape) == (b, 1) and float(out2[3][0][dz:].abs().max()) > 0.0,
+              f"{tag}: the probe COND adjoint returned no a_ys0 or a zero gradient for W0's ys rows")
+        held[(label, k, jvp)] = (r1, r2)
+        # The yardstick's inputs: ys = 0 and W0's ys rows 0 (COND), W0's z
+        # rows alone (unconditional).
+        ws0 = [w.clone() for w in kw1["ws"]]
+        ws0[0][dz:] = 0.0
+        kc = dict(kw1, ws=ws0, ys=torch.zeros_like(y))
+        ku = dict({n: v for n, v in kw1.items() if n != "ys"}, ws=[ws0[0][:dz].contiguous()] + ws0[1:])
+        spec_u = fs.chain_spec(cnf.MLP((dz,) + tuple(d[1:]), device=dev), dz)
+        with torch.no_grad():
+            oc1, ou1 = run1(TSIT5, spec, **kc), fs.run_stream_train_solve_kernel(TSIT5, spec_u, **ku)
+            ac, au = adjoint_kw(kc, oc1, cot), adjoint_kw(ku, ou1, cot)
+            oc2, ou2 = run2(TSIT5, spec, **ac), fs.run_stream_adjoint_kernel(TSIT5, spec_u, **au)
+            # K2: z0, a_z0 and the gradient (W0's z rows against the
+            # unconditional W0); W0's ys rows' gradient and a_ys0 are 0.
+            d1 = max(rel_err(oc1[0], ou1[0]), rel_err(oc1[1], ou1[1]))
+            pairs = [(oc2[0], ou2[0]), (oc2[2], ou2[2]), (oc2[3][0][:dz], ou2[3][0])] + list(
+                zip(oc2[3][1:] + oc2[4], ou2[3][1:] + ou2[4]))
+            d2 = max(rel_err(a, c) for a, c in pairs)
+            zero = float(oc2[3][0][dz:].abs().max()) == 0.0 and float(oc2[7].abs().max()) == 0.0
+            n = (int(oc1[2]), int(ou1[2]), int(oc2[5]), int(ou2[5]))
+            # The adjoints' norms count the a_ys rows and W0's ys rows (0
+            # here) among their elements, so their step sizes may part at
+            # roundoff: values are held where the steps agree.
+            same = n[0] == n[1] and n[2] == n[3]
+            check(abs(n[0] - n[1]) <= 1 and abs(n[2] - n[3]) <= 1 and zero
+                  and (not same or (d1 <= TOL and d2 <= GRAD_TOL)),
+                  f"{tag} yardstick: steps {n}, relative differences {d1:.3e} / {d2:.3e}, ys parts 0: {zero}")
+            m1 = paired_ms(lambda: run1(TSIT5, spec, **kc), lambda: fs.run_stream_train_solve_kernel(TSIT5, spec_u,
+                                                                                                  **ku), 2)
+            m2 = paired_ms(lambda: run2(TSIT5, spec, **ac), lambda: fs.run_stream_adjoint_kernel(TSIT5, spec_u, **au),
+                           2)
+        us = (m1[0] * 1e3 / n[0], m1[1] * 1e3 / n[1], m2[0] * 1e3 / n[2], m2[1] * 1e3 / n[3])
+        print(f"phase 124: yardstick {tag}: steps K1 {n[0]} / {n[1]}, K2 {n[2]} / {n[3]}; relative "
+              f"differences {d1:.3e} (K1 z) / {d2:.3e} (K2); per attempted step, COND ys = 0 against the "
+              f"unconditional probe instance: K1 {us[0]:.1f} / {us[1]:.1f} us ({100.0 * (us[0] / us[1] - 1.0):+.1f} "
+              f"%), K2 {us[2]:.1f} / {us[3]:.1f} us ({100.0 * (us[2] / us[3] - 1.0):+.1f} %), a b b a")
+    print("phase 124: the streamed probe COND instances held to their twins")
+
+    # Phase 125: cond_miniboone86's K = 4 loss gradient in the params and ys
+    # at B = 256 against the plain path and a float64 rtol 1e-7 solve.
+    d, b, p_np, x, y, _ = nets["cond_miniboone86"]
+    bt = STREAM_PROBE_TRUTH_BATCH
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    steer = {"steer_r": 0.05}
+    eps = model("cond_miniboone86", 4).draw_eps(torch.Generator(device=dev).manual_seed(SEED + 1403), bt, dev)
+    fs.reset_launches()
+    l_k, g_k, _ = loss_grad(cnf, model("cond_miniboone86", 4), p_np, x[:bt], dev, ys=y[:bt], eps=eps, **steer)
+    torch.cuda.synchronize()
+    check(launched(fs) == want and probe_counts() == [{(4, False): 1}] * 2,
+          f"cond_miniboone86 K4 gradient launched {launched(fs)}, probe instances {probe_counts()}")
+    l_p, g_p, _ = loss_grad(cnf, model("cond_miniboone86", 4, fused=False), p_np, x[:bt], dev, ys=y[:bt], eps=eps,
+                            **steer)
+    l_t, g_t, _ = loss_grad(cnf, model("cond_miniboone86", 4, fused=False, dtype=torch.float64, solver=truth), p_np,
+                            x[:bt], dev, torch.float64, ys=y[:bt], eps=eps.double(), **steer)
+    torch.cuda.synchronize()
+    hold_gradients(f"cond_miniboone86 K4 B={bt}", l_k, g_k, l_p, g_p, l_t, g_t, names=["w1", "b1", "w2", "b2", "ys"])
+    check(float(g_k[0][d[-1]:].abs().max()) > 0.0, "cond_miniboone86 K4: a zero gradient for W1's ys rows")
+    print(f"phase 125: cond_miniboone86 K4 B={bt}: loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 "
+          f"{float(l_t):.6f}; gradients held to the float64 solve")
+
+    # Phase 126: the main paths, counters reset just before each: the K = 4
+    # and JVP train steps of cond_miniboone86 and cond_miniboone860, the
+    # K = 2 train step of MLP 65-128-128-120-64, cond_miniboone86's K = 4
+    # fit; each launches the streamed probe COND instances alone, under its
+    # (K, jvp).
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1404)
+    steps = {}
+    paths = [(label, model(label, k, jvp), nets[label][2], nets[label][3], nets[label][4], (k, jvp))
+             for label in ("cond_miniboone86", "cond_miniboone860") for k, jvp in STREAM_COND_PROBE_PATHS]
+    paths.append(("MLP 65-128-128-120-64", icnf_o, ps_o, xs_o, ys_o, (2, False)))
+    for label, icnf, p_np, x, y, key in paths:
+        p = cnf.params_from_numpy(p_np, dev)
+        leaves = [v.requires_grad_() for layer in p for v in (layer["w"], layer["b"])]
+        step = cnf.parallel.make_train_step_body(icnf, cnf.Lion(leaves, lr=1e-3))
+        fs.reset_launches()
+        metrics = step(p, x, gen, ys=y)
+        torch.cuda.synchronize()
+        counts = probe_counts()
+        check(launched(fs) == want and counts == [{key: 1}] * 2 and bool(torch.isfinite(metrics["loss"]))
+              and all(bool(torch.isfinite(v).all()) for v in leaves),
+              f"{label} {probe_tag(*key)} train step launched {launched(fs)}, probe instances {counts}")
+        steps[(label,) + key] = counts
+    d, b, p_np, x, y, rng = nets["cond_miniboone86"]
+    X, Y = model_data("cond_miniboone86", rng, N_STEPS * b)
+    fit_path(cnf, fs, model("cond_miniboone86", 4), p_np, dev, X, Y, batch_size=b)
+    n_fit = probe_counts()
+    check(set(launched(fs)) == set(want) and all(set(c) == {(4, False)} and c[(4, False)] >= N_STEPS for c in n_fit),
+          f"cond_miniboone86 K4 fit launched {launched(fs)}, probe instances {n_fit}")
+    print(f"phase 126: train steps {steps}; cond_miniboone86 K4 fit ({N_STEPS} Lion steps at B={b}) "
+          f"{[c[(4, False)] for c in n_fit]}; each launched the streamed probe COND instances alone")
+
+    # Phase 127: CUDA-event times of cond_miniboone86's K = 4 train step
+    # beside miniboone86's K = 4 step, in the same run (a, b, b, a).
+    rng_u = np.random.default_rng(SEED + 1405)
+    ps_u = glorot_params(rng_u, MODELS["miniboone86"]["dims"])
+    xs_u = torch.from_numpy(model_data("miniboone86", rng_u, BATCH)).to(dev)
+    icnf_u = make_icnf("miniboone86", dev, num_probes=4)
+    icnf_c = model("cond_miniboone86", 4)
+    a1 = step_ms(cnf, icnf_c, p_np, x, gen, dev, 2, ys=y)
+    b1 = step_ms(cnf, icnf_u, ps_u, xs_u, gen, dev, 2)
+    b2 = step_ms(cnf, icnf_u, ps_u, xs_u, gen, dev, 2)
+    a2 = step_ms(cnf, icnf_c, p_np, x, gen, dev, 2, ys=y)
+    ms_c, ms_u = (a1 + a2) / 2, (b1 + b2) / 2
+    print(f"phase 127: K = 4 train step B={BATCH}: cond_miniboone86 {ms_c:.4f} ms ({BATCH / ms_c * 1e3:.1f} "
+          f"samples/s), miniboone86 {ms_u:.4f} ms ({BATCH / ms_u * 1e3:.1f} samples/s); ratio {ms_c / ms_u:.3f} "
+          "(other data: other step counts)")
+
+    records = []
+    launches = {("cond_miniboone86", 4, False): [c[(4, False)] for c in n_fit],
+                ("cond_miniboone86", 1, True): [c[(1, True)] for c in steps[("cond_miniboone86", 1, True)]],
+                ("cond_miniboone860", 4, False): [c[(4, False)] for c in steps[("cond_miniboone860", 4, False)]]}
+    for (label, k, jvp), (r1, r2) in held.items():
+        d, b = nets[label][0], nets[label][1]
+        fma, floats = cond_probe_fma_floats(d, d[0] - d[-1], k, b)
+        suffix = "" if label == "cond_miniboone86" else "/chain3"
+        for key, wkey, (out, err, ms, pms), n in zip(("k1spc", "k2spc"), ("k1wpc", "k2wpc"), (r1, r2),
+                                                      launches[(label, k, jvp)]):
+            name, _, _, src, at = names[key]
+            records.append(kernel_record(f"{name}/{probe_tag(k, jvp)}{suffix}", src, at, n, err, ms, pms, fma[wkey],
+                                         b, steps_of(out)[0], floats[wkey], accepted=steps_of(out)[1]))
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -5390,7 +5667,8 @@ def main() -> int:
                          ("103-107", lambda: cond_wide_exact(cnf, fs, dev, built)),
                          ("108-112", lambda: cond_wide_probes(cnf, fs, dev, built)),
                          ("113-117", lambda: cond_stream(cnf, fs, dev, built)),
-                         ("118-122", lambda: cond_stream_exact(cnf, fs, dev, built))):
+                         ("118-122", lambda: cond_stream_exact(cnf, fs, dev, built)),
+                         ("123-127", lambda: cond_stream_probes(cnf, fs, dev, built))):
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -17,7 +17,8 @@
 // first product (stream_forward<true>): the solver's stage input Z keeps
 // its (T, zp) tile, which a (T, dz + nc) input tile would have to copy at
 // every evaluation, and the nc rows add nc FMA an output.  The pullbacks
-// read layer 0's z rows alone (the Jacobian is in z).
+// and the pushforward (stream_pushforward<true>) read layer 0's z rows
+// alone (the Jacobian is in z).
 //
 // Why: the wide forms keep all the weights in a block's shared memory, which
 // ends at hidden width 128 or about 56 k floats of weights.  FFJORD's tabular
@@ -357,7 +358,10 @@ __device__ inline void stream_pullback_to(const StreamLayout& L, const float* pa
 // Down the layers, level l's tangent t_l = u_l gate(h_l), u_l = t_(l-1)
 // W_(l-1) with no bias (t_0 = eps), goes to the hidden block TB (h read
 // from HB), and u_l to UB unless UB is null; A (T, zp) gets the output
-// layer's product t_(N-1) W_(N-1) before its gate.
+// layer's product t_(N-1) W_(N-1) before its gate.  COND (the probe COND
+// instances, K6 x K8): the tangent of [z | ys] is [eps | 0]
+// (_probe_pushforward :318-321), so layer 0's product reads its dz z rows.
+template <bool COND = false>
 __device__ inline void stream_pushforward(const StreamLayout& L, const float* params, const float* E, int T,
                                           const float* HB, float* UB, float* TB, float* A, float* wc) {
   const int n = L.n;
@@ -367,8 +371,8 @@ __device__ inline void stream_pushforward(const StreamLayout& L, const float* pa
     float* u = UB ? level(L, UB, T, i + 1) : nullptr;
     float* t = level(L, TB, T, i + 1);
     const int hp = L.hp[i + 1], on = L.act[i];
-    stream_mm(src, L.hp[i], L.width[i], layer_w(L, params, i), nullptr, L.width[i + 1], T, wc,
-              [&](int r, int o, float a) {
+    stream_mm(src, L.hp[i], COND && i == 0 ? L.dz : L.width[i], layer_w(L, params, i), nullptr, L.width[i + 1], T,
+              wc, [&](int r, int o, float a) {
                 if (u) u[r * hp + o] = a;
                 t[r * hp + o] = a * gate(h[r * hp + o], on);
               });

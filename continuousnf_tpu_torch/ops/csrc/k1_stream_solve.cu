@@ -61,6 +61,17 @@
 // ys rows (T, nc), which the global-scratch form counts in each block's
 // slice; its launch shape and entry are cnf_k1sc_shape and
 // cnf_k1s_cond_solve.
+//
+// The probe COND instance (K6 x K8): the probe instance's field on a
+// conditional chain past the wide limits (_stage_train with k_probes = K or
+// jvp, on _zin): per stage one stream_forward<true> from the tile's (T, nc)
+// ys rows, then per probe its pullback ending on layer 0's z rows
+// (stream_pullback_to) or its pushforward from the tangent [eps | 0]
+// (stream_pushforward<true>, :318-321), the trace and probe-norm terms
+// summed in probe order and divided by K, as in the probe instance.  Its
+// tile arrays are the probe instance's and the tile's ys rows (T, nc),
+// counted in each block's slice of the global scratch too; its launch
+// shape and entry are cnf_k1spc_shape and cnf_k1s_probe_cond_solve.
 
 #include "chain_stream.cuh"
 
@@ -202,8 +213,10 @@ size_t cond_smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
 
 // The probe instance's field (K6): K probes a row at eps[k][s], reverse
 // (eps^T J) or, `jvp`, forward mode (J eps); HB keeps the activations and a
-// probe's hidden vectors go to TB.
-struct StreamProbeField {
+// probe's hidden vectors go to TB.  COND: the forward reads the tile's ys
+// rows, the probe passes layer 0's z rows alone.
+template <bool COND>
+struct StreamProbeField : CondRows<COND> {
   const StreamLayout* L;
   const float* params;
   const float* eps;  // (K, B, dz)
@@ -218,7 +231,12 @@ struct StreamProbeField {
   __device__ void operator()(int s0, int nv, const float* Z, float* KY, float* KR) const {
     const StreamLayout& c = *L;
     const int dz = c.dz, zp = c.zp, on = c.act[c.n - 1];
-    cnf::stream_forward(c, params, Z, T, HB, KY, wc);
+    if constexpr (COND) {
+      cnf::load_tile_cond(this->ys, cnf::stream_nc(c), s0, nv, T, this->YS);
+      cnf::stream_forward<true>(c, params, Z, T, HB, KY, wc, this->YS);
+    } else {
+      cnf::stream_forward(c, params, Z, T, HB, KY, wc);
+    }
     for (int t = threadIdx.x; t < T; t += blockDim.x) {
       KR[t * 3 + 0] = 0.f;
       KR[t * 3 + 2] = 0.f;
@@ -233,7 +251,7 @@ struct StreamProbeField {
       }
       __syncthreads();
       if (jvp) {
-        cnf::stream_pushforward(c, params, E, T, HB, nullptr, TB, V, wc);
+        cnf::stream_pushforward<COND>(c, params, E, T, HB, nullptr, TB, V, wc);
         for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
           const int t = idx / dz, k = idx % dz;
           EJ[t * zp + k] = V[t * zp + k] * cnf::gate(KY[t * zp + k], on);
@@ -290,13 +308,53 @@ __global__ void __launch_bounds__(kStreamBlock) k1_stream_probe_solve(const Prob
   float* E = TB + (size_t)T * L.hsum;
   float* V = E + T * L.zp;
   float* EJ = V + T * L.zp;
-  const StreamProbeField field{&L, p.params, p.f.eps, HB, TB, E, V, EJ, wc, p.f.B, T, pa.K, pa.jvp, p.f.norm_z,
-                               p.f.norm_j};
+  const StreamProbeField<false> field{{}, &L, p.params, p.f.eps, HB, TB, E, V, EJ, wc, p.f.B, T, pa.K, pa.jvp,
+                                      p.f.norm_z, p.f.norm_j};
   cnf::forward_solve_tiles<3, kStageUnroll>(p.f, field, T, scratch, red);
 }
 
 size_t probe_smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
   return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : probe_region_floats(L, T)));
+}
+
+// The probe COND instance's arguments (K6 x K8): the probe instance's and
+// the conditioning ys (B, nc).
+struct ProbeCondArgs {
+  ProbeArgs pa;
+  const float* ys;
+};
+
+// The probe COND instance's tile arrays: the probe instance's and the
+// tile's ys rows (T, nc), in shared memory or in the block's slice of the
+// global scratch alike.
+__host__ __device__ inline size_t probe_cond_region_floats(const StreamLayout& L, int T) {
+  return probe_region_floats(L, T) + (size_t)T * cnf::stream_nc(L);
+}
+
+__global__ void __launch_bounds__(kStreamBlock) k1_stream_probe_cond_solve(const __grid_constant__ ProbeCondArgs pc) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ StreamLayout L;
+  const ProbeArgs& pa = pc.pa;
+  const Args& p = pa.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T;
+  float* wc = smem;
+  float* red = wc + cnf::kChunkFloats;
+  float* scratch = p.tiles ? p.tiles + (size_t)blockIdx.x * probe_cond_region_floats(L, T) : red + kRedFloats;
+  float* HB = scratch + T * (2 * L.zp + 3);  // after the solver's Z, KY, KR
+  float* TB = HB + (size_t)T * L.hsum;
+  float* E = TB + (size_t)T * L.hsum;
+  float* V = E + T * L.zp;
+  float* EJ = V + T * L.zp;
+  float* YS = EJ + T * L.zp;
+  const StreamProbeField<true> field{{pc.ys, YS}, &L, p.params, p.f.eps, HB, TB, E, V, EJ, wc, p.f.B, T, pa.K,
+                                     pa.jvp, p.f.norm_z, p.f.norm_j};
+  cnf::forward_solve_tiles<3, kStageUnroll>(p.f, field, T, scratch, red);
+}
+
+size_t probe_cond_smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
+  return sizeof(float) *
+         ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : probe_cond_region_floats(L, T)));
 }
 
 }  // namespace
@@ -407,4 +465,42 @@ extern "C" int cnf_k1s_cond_solve(const float* params, const float* eps, const f
   ca.ys = ys;
   return (int)cnf::coop_launch(k1_stream_cond_solve, ca, grid, block, cond_smem_bytes(a.L, T, tiles != nullptr),
                                (cudaStream_t)stream);
+}
+
+// The probe COND instance's launch shape (K6 x K8), as cnf_k1sc_shape.
+extern "C" int cnf_k1spc_shape(int n, const int* widths, int B, int* out) {
+  StreamLayout L;
+  if (B < 1 || !cnf::make_stream_layout(n, widths, &L, true)) return (int)cudaErrorInvalidValue;
+  size_t region[2];
+  for (int o = 0; o < 2; ++o) region[o] = probe_cond_region_floats(L, kTiles[o]);
+  return cnf::stream_shape(k1_stream_probe_cond_solve, region, kTiles, kTiles, 2, B, out);
+}
+
+// The probe COND instance (K6 x K8): as cnf_k1s_probe_solve for a
+// conditional chain, with ys (B, nc) (device) after eps (K, B, dz),
+// nc = widths[0] - widths[n] >= 1; T, grid, block and the tile scratch from
+// cnf_k1spc_shape.
+extern "C" int cnf_k1s_probe_cond_solve(const float* params, const float* eps, const float* ys, const float* z0,
+                                        const float* acc0, const float* ts, float* zT, float* accT, int* stats,
+                                        float* dt_last, float* work, float* partials, float* tiles, int B, int n,
+                                        const int* widths, int acts, int max_steps, int norm_z, int norm_j, int K,
+                                        int jvp, float rtol, float atol, float beta1, float beta2, float inv_order,
+                                        const float* tab, int T, int grid, int block, void* stream) {
+  ProbeCondArgs pc = {};
+  ProbeArgs& pa = pc.pa;
+  Args& a = pa.a;
+  if (block != kStreamBlock || grid < 1 || T < 4 || T % 4 != 0 || K < 1 || ys == nullptr ||
+      !cnf::make_stream_layout(n, widths, &a.L, true))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_stream_acts(&a.L, acts);
+  cnf::set_fwd_args(&a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n], max_steps,
+                    norm_z, norm_j, rtol, atol, beta1, beta2, inv_order, tab);
+  a.params = params;
+  a.tiles = tiles;
+  a.T = T;
+  pa.K = K;
+  pa.jvp = jvp;
+  pc.ys = ys;
+  return (int)cnf::coop_launch(k1_stream_probe_cond_solve, pc, grid, block,
+                               probe_cond_smem_bytes(a.L, T, tiles != nullptr), (cudaStream_t)stream);
 }

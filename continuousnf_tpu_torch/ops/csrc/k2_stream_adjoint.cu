@@ -105,6 +105,22 @@
 // step on the H100 (PERF.md); a call shrinks the frame, with results bit
 // for bit the same.  Its launch shape and entry are cnf_k2sc_shape and
 // cnf_k2s_cond_adjoint.
+//
+// The probe COND instance (K6 x K8): the probe instance's stage on a
+// conditional chain past the wide limits (:396-455 with _zin), on
+// adjoint_solve_tiles' PROBES and COND forms together, as the wide K2 chain
+// form's probe COND instance runs it (k2_wide_adjoint.cu).  The forward
+// reads the tile's ys rows (stream_forward<true>); each probe's pass and its
+// VJP read and give layer 0's z rows alone (the tangent [eps | 0], ct_u
+// padded with zero ys rows :451-455), so its flushes leave W0's ys rows
+// alone; the forward chain's gradient pass gives them ys (x) ca_1, and
+// k_ays = -(ca_1 (W0's ys rows)^T) comes from k_az's transposed product over
+// W0's dz + nc rows after the last probe's flush, when ca_1 holds every
+// probe's -2 h gate terms.  The three parts of its stage are the probe
+// instance's bodies, force-inlined templates over COND, behind calls of
+// their own, as the probe instance's are.  Its tile arrays are the probe
+// instance's with k_ays and the ys rows (2 nc floats a row more); its
+// launch shape and entry are cnf_k2spc_shape and cnf_k2s_probe_cond_adjoint.
 
 #include "chain_stream.cuh"
 
@@ -449,7 +465,10 @@ __device__ inline ProbeArrays probe_arrays(const StreamLayout& L, int T, float* 
 
 // The probe instance's stage of a tile (K6): the forward pass, then per
 // probe its pass and that pass's VJP, leaving the probe's vectors for
-// `flush`; then the rates and the forward chain's VJP.
+// `flush`; then the rates and the forward chain's VJP.  The three parts'
+// bodies are force-inlined templates over COND, so that the probe COND
+// instance (StreamProbeCondStage) shares them while this stage's calls keep
+// their names and machine code.
 struct StreamProbeStage {
   const StreamLayout* L;
   const float* params;
@@ -459,14 +478,22 @@ struct StreamProbeStage {
   float* wc;           // the chunk buffer
   int B, T, K, jvp, norm_z, norm_j;
 
-  // The forward pass; the probe sums and ct_tr.  Not inlined (nor are the
-  // two below): the flushes between them keep their registers.
-  __device__ __noinline__ void forward(int s0, int nv, const float* Z, float* KZ) const {
+  // The forward pass (COND: from the tile's ys rows, loaded into YS); the
+  // probe sums and ct_tr.
+  template <bool COND>
+  __device__ __forceinline__ void forward_body(int s0, int nv, const float* Z, float* KZ,
+                                               [[maybe_unused]] const float* ys,
+                                               [[maybe_unused]] float* YS) const {
     const StreamLayout& c = *L;
     const ProbeArrays a = this->a;
     const int zp = c.zp, hs = c.hsum;
     const float inv_k = 1.f / K;
-    cnf::stream_forward(c, params, Z, T, a.HS, KZ, wc);
+    if constexpr (COND) {
+      cnf::load_tile_cond(ys, cnf::stream_nc(c), s0, nv, T, YS);
+      cnf::stream_forward<true>(c, params, Z, T, a.HS, KZ, wc, YS);
+    } else {
+      cnf::stream_forward(c, params, Z, T, a.HS, KZ, wc);
+    }
     for (int idx = threadIdx.x; idx < T * hs; idx += blockDim.x) a.HC[idx] = 0.f;
     for (int idx = threadIdx.x; idx < T * zp; idx += blockDim.x) a.CTY[idx] = 0.f;
     for (int t = threadIdx.x; t < T; t += blockDim.x) {
@@ -479,8 +506,10 @@ struct StreamProbeStage {
 
   // Probe pk's pass and its VJP: its trace and norm terms into SC, its -2 h
   // (.) gate terms into HC and CTY, its outer-product vectors left in CU /
-  // PU and VL / V.
-  __device__ __noinline__ void probe(int pk, int s0, int nv, const float* KZ) const {
+  // PU and VL / V.  COND: the probe has no ys rows (the tangent [eps | 0],
+  // ct_u padded with zeros :451-455), so layer 0's products read its z rows.
+  template <bool COND>
+  __device__ __forceinline__ void probe_body(int pk, int s0, int nv, const float* KZ) const {
     const StreamLayout& c = *L;
     const ProbeArrays a = this->a;
     const int n = c.n, dz = c.dz, zp = c.zp;
@@ -497,7 +526,7 @@ struct StreamProbeStage {
     __syncthreads();
     if (jvp) {
       // The pushforward, keeping u_l (U) and t_l (PU); t W_last to CAL.
-      cnf::stream_pushforward(c, params, E, T, a.HS, a.U, a.PU, CAL, wc);
+      cnf::stream_pushforward<COND>(c, params, E, T, a.HS, a.U, a.PU, CAL, wc);
       for (int idx = threadIdx.x; idx < T * dz; idx += blockDim.x) {
         const int t = idx / dz, k = idx % dz;
         EJ[t * zp + k] = CAL[t * zp + k] * gate(KZ[t * zp + k], on_y);
@@ -579,8 +608,8 @@ struct StreamProbeStage {
         const float* u = level(c, a.U, T, i + 1);
         const float* h = level(c, a.HS, T, i + 1);
         const int hp = c.hp[i + 1], on = c.act[i];
-        cnf::stream_mm(src, c.hp[i], c.width[i], cnf::layer_w(c, params, i), nullptr, c.width[i + 1], T, wc,
-                       [&](int t, int o, float cv) {
+        cnf::stream_mm(src, c.hp[i], COND && i == 0 ? dz : c.width[i], cnf::layer_w(c, params, i), nullptr,
+                       c.width[i + 1], T, wc, [&](int t, int o, float cv) {
                          const int x = t * hp + o;
                          const float hh = h[x];
                          pu[x] = cv * gate(hh, on);
@@ -596,9 +625,12 @@ struct StreamProbeStage {
     }
   }
 
-  // The rates, averaged over the probes, fz, and the forward chain's VJP.
-  __device__ __noinline__ void backward(int s0, int nv, const float* AZ, const float* KZ, float* KR,
-                                        float* KAZ) const {
+  // The rates, averaged over the probes, fz, and the forward chain's VJP
+  // (COND: k_az and k_ays in one transposed product over W0's dz + nc rows,
+  // from ca_1 after every probe's gate terms).
+  template <bool COND>
+  __device__ __forceinline__ void backward_body(int s0, int nv, const float* AZ, const float* KZ, float* KR,
+                                                float* KAZ, [[maybe_unused]] float* KYS) const {
     const StreamLayout& c = *L;
     const ProbeArrays a = this->a;
     const int n = c.n, dz = c.dz, zp = c.zp;
@@ -632,8 +664,32 @@ struct StreamProbeStage {
       cnf::stream_mm_t(src, c.hp[i + 1], c.width[i + 1], cnf::layer_w(c, params, i), c.width[i], T, wc,
                        [&](int t, int k, float x) { ca[t * hp + k] = (x + hc[t * hp + k]) * gate(h[t * hp + k], on); });
     }
-    cnf::stream_mm_t(level(c, a.V, T, 1), c.hp[1], c.width[1], cnf::layer_w(c, params, 0), dz, T, wc,
-                     [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+    if constexpr (COND) {
+      const int nc = cnf::stream_nc(c);
+      cnf::stream_mm_t(level(c, a.V, T, 1), c.hp[1], c.width[1], cnf::layer_w(c, params, 0), dz + nc, T, wc,
+                       [&](int t, int k, float x) {
+                         if (k < dz)
+                           KAZ[t * zp + k] = -x;
+                         else
+                           KYS[t * nc + k - dz] = -x;
+                       });
+    } else {
+      cnf::stream_mm_t(level(c, a.V, T, 1), c.hp[1], c.width[1], cnf::layer_w(c, params, 0), dz, T, wc,
+                       [&](int t, int k, float x) { KAZ[t * zp + k] = -x; });
+    }
+  }
+
+  // The three parts.  Not inlined: the flushes between them keep their
+  // registers.
+  __device__ __noinline__ void forward(int s0, int nv, const float* Z, float* KZ) const {
+    forward_body<false>(s0, nv, Z, KZ, nullptr, nullptr);
+  }
+  __device__ __noinline__ void probe(int pk, int s0, int nv, const float* KZ) const {
+    probe_body<false>(pk, s0, nv, KZ);
+  }
+  __device__ __noinline__ void backward(int s0, int nv, const float* AZ, const float* KZ, float* KR,
+                                        float* KAZ) const {
+    backward_body<false>(s0, nv, AZ, KZ, KR, KAZ, nullptr);
   }
 
   template <class Flush>
@@ -648,10 +704,43 @@ struct StreamProbeStage {
   }
 };
 
+// The probe COND instance's stage (K6 x K8): the probe stage's parts on a
+// conditional chain, with ys (B, nc) in global memory and the tile's (T, nc)
+// rows, and KYS = k_ays taken after the last probe's flush.
+struct StreamProbeCondStage : StreamProbeStage {
+  const float* ys;
+  float* YS;
+
+  __device__ __noinline__ void cond_forward(int s0, int nv, const float* Z, float* KZ) const {
+    forward_body<true>(s0, nv, Z, KZ, ys, YS);
+  }
+  __device__ __noinline__ void cond_probe(int pk, int s0, int nv, const float* KZ) const {
+    probe_body<true>(pk, s0, nv, KZ);
+  }
+  __device__ __noinline__ void cond_backward(int s0, int nv, const float* AZ, const float* KZ, float* KR, float* KAZ,
+                                             float* KYS) const {
+    backward_body<true>(s0, nv, AZ, KZ, KR, KAZ, KYS);
+  }
+
+  template <class Flush>
+  __device__ void probes(int s0, int nv, const float* Z, const float* AZ, float* KZ, float* KR, float* KAZ,
+                         const Flush& flush, float* KYS) const {
+    cond_forward(s0, nv, Z, KZ);
+    for (int pk = 0; pk < K; ++pk) {
+      cond_probe(pk, s0, nv, KZ);
+      flush();
+    }
+    cond_backward(s0, nv, AZ, KZ, KR, KAZ, KYS);
+  }
+};
+
 // The probe instance's gradient terms (K6): the tile's sum over its first
 // nv rows of the negated gradient rate entry q, a probe's part (a_i (x) b_i;
 // nothing for a bias) or the forward chain's (in_i (x) ca_i, the biases).
-struct StreamProbeGrad {
+// COND: layer 0's ys rows get no probe part and ys (x) ca_1 from the
+// forward chain.
+template <bool COND>
+struct StreamProbeGrad : CondRows<COND> {
   const StreamLayout* L;
   const float* Z;  // the solver's stage input z
   ProbeArrays a;
@@ -669,6 +758,16 @@ struct StreamProbeGrad {
     float v = 0.f;
     if (r < in * out) {
       const int k = r / out, o = r % out;
+      if constexpr (COND) {
+        if (i == 0 && k >= c.dz) {
+          if (PROBE) return 0.f;
+          const int nc = in - c.dz;
+          const float* py = this->YS + (k - c.dz);
+          const float* pd = level(c, a.V, T, 1) + o;
+          for (int t = 0; t < nv; ++t) v = fmaf(py[t * nc], pd[t * op], v);
+          return -v;
+        }
+      }
       const float* px = (PROBE ? (i == 0 ? a.CU : level(c, a.PU, T, i)) : (i == 0 ? Z : level(c, a.HS, T, i))) + k;
       const float* py = (PROBE ? (i == n - 1 ? a.VL : level(c, a.V, T, i + 1))
                                : (i == n - 1 ? a.CAL : level(c, a.V, T, i + 1))) + o;
@@ -703,12 +802,55 @@ __global__ void __launch_bounds__(kStreamBlock, 1) k2_stream_probe_adjoint(const
   const ProbeArrays arrays = probe_arrays(L, T, scratch + T * (4 * L.zp + 3));
   const StreamProbeStage stage{&L, p.params, p.eps, p.s.aaccT, arrays, wc, p.s.B, T, pa.K, pa.jvp, p.norm_z,
                                p.norm_j};
-  const StreamProbeGrad grad{&L, scratch, arrays, T};
+  const StreamProbeGrad<false> grad{{}, &L, scratch, arrays, T};
   cnf::adjoint_solve_tiles<kStageUnroll, true>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew, red);
 }
 
 size_t probe_smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
   return sizeof(float) * ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : probe_region_floats(L, T)));
+}
+
+// The probe COND instance's arguments (K6 x K8): the probe instance's and
+// the conditioning ys (B, nc).
+struct ProbeCondArgs {
+  ProbeArgs pa;
+  const float* ys;
+};
+
+// The probe COND instance's tile arrays: the solver's Z, AZ, KZ, KAZ, KR and
+// k_ays (T, nc), then the probe instance's tile arrays, then the tile's ys
+// rows (T, nc), in shared memory or in the block's slice of the global
+// scratch alike.
+__host__ __device__ inline size_t probe_cond_region_floats(const StreamLayout& L, int T) {
+  return probe_region_floats(L, T) + (size_t)2 * T * cnf::stream_nc(L);
+}
+
+// One block an SM, as the one-probe instance.
+__global__ void __launch_bounds__(kStreamBlock, 1)
+    k2_stream_probe_cond_adjoint(const __grid_constant__ ProbeCondArgs pc) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ StreamLayout L;
+  const ProbeArgs& pa = pc.pa;
+  const AdjArgs& p = pa.a;
+  cnf::share_layout(p.L, &L);
+  const int T = p.T, nc = cnf::stream_nc(L);
+  float* wc = smem;
+  float* red = wc + cnf::kChunkFloats;
+  // The solver's Z, AZ, KZ, KAZ, KR and KYS, then the stage's arrays, then
+  // the ys rows.
+  float* scratch = p.tiles ? p.tiles + (size_t)blockIdx.x * probe_cond_region_floats(L, T) : red + kRedFloats;
+  const ProbeArrays arrays = probe_arrays(L, T, scratch + T * (4 * L.zp + 3 + nc));
+  float* YS = arrays.SC + T * 4;
+  const StreamProbeCondStage stage{
+      {&L, p.params, p.eps, p.s.aaccT, arrays, wc, p.s.B, T, pa.K, pa.jvp, p.norm_z, p.norm_j}, pc.ys, YS};
+  const StreamProbeGrad<true> grad{{pc.ys, YS}, &L, scratch, arrays, T};
+  cnf::adjoint_solve_tiles<kStageUnroll, true, 3, true>(p.s, stage, grad, L.P, T, scratch, p.gblk, p.g, p.gnew,
+                                                          red);
+}
+
+size_t probe_cond_smem_bytes(const StreamLayout& L, int T, bool global_tiles) {
+  return sizeof(float) *
+         ((size_t)cnf::kChunkFloats + kRedFloats + (global_tiles ? 0 : probe_cond_region_floats(L, T)));
 }
 
 }  // namespace
@@ -843,4 +985,51 @@ extern "C" int cnf_k2s_cond_adjoint(const float* params, const float* eps, const
   ca.ys = ys;
   return (int)cnf::coop_launch(k2_stream_cond_adjoint, ca, grid, block, cond_smem_bytes(a.L, T, tiles != nullptr),
                                (cudaStream_t)stream);
+}
+
+// The probe COND instance's launch shape (K6 x K8), as cnf_k2sc_shape.
+extern "C" int cnf_k2spc_shape(int n, const int* widths, int B, int* out) {
+  StreamLayout L;
+  if (B < 1 || !cnf::make_stream_layout(n, widths, &L, true)) return (int)cudaErrorInvalidValue;
+  size_t region[2];
+  for (int o = 0; o < 2; ++o) region[o] = probe_cond_region_floats(L, kTiles[o]);
+  return cnf::stream_shape(k2_stream_probe_cond_adjoint, region, kTiles, kTiles, 2, B, out);
+}
+
+// The probe COND instance (K6 x K8): as cnf_k2s_cond_adjoint with eps
+// (K, B, dz), K >= 1 probes, reverse mode or (jvp) forward mode; T, grid,
+// block and the tile scratch from cnf_k2spc_shape.
+extern "C" int cnf_k2s_probe_cond_adjoint(const float* params, const float* eps, const float* ys, const float* zT,
+                                          const float* accT, const float* azT, const float* aaccT, const float* ts,
+                                          float* z0, float* acc0, float* az0, float* ays0, float* g, int* stats,
+                                          float* work, float* partials, float* gblk, float* gnew, float* tiles, int B,
+                                          int n, const int* widths, int acts, int max_steps, int norm_z, int norm_j,
+                                          int K, int jvp, float rtol, float atol, float beta1, float beta2,
+                                          float inv_order, const float* tab, int T, int grid, int block,
+                                          void* stream) {
+  ProbeCondArgs pc = {};
+  ProbeArgs& pa = pc.pa;
+  AdjArgs& a = pa.a;
+  if (block != kStreamBlock || grid < 1 || T < 4 || T % 4 != 0 || K < 1 || ys == nullptr || ays0 == nullptr ||
+      !cnf::make_stream_layout(n, widths, &a.L, true))
+    return (int)cudaErrorInvalidValue;
+  cnf::set_stream_acts(&a.L, acts);
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, nullptr, B, widths[n],
+                     max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.s.nc = cnf::stream_nc(a.L);
+  a.s.ays0 = ays0;
+  a.params = params;
+  a.eps = eps;
+  a.g = g;
+  a.gnew = gnew;
+  a.gblk = gblk;
+  a.tiles = tiles;
+  a.norm_z = norm_z;
+  a.norm_j = norm_j;
+  a.T = T;
+  pa.K = K;
+  pa.jvp = jvp;
+  pc.ys = ys;
+  return (int)cnf::coop_launch(k2_stream_probe_cond_adjoint, pc, grid, block,
+                               probe_cond_smem_bytes(a.L, T, tiles != nullptr), (cudaStream_t)stream);
 }

@@ -921,14 +921,15 @@ def _kernel_covers(
     their state width, hidden widths or weights' shared memory (with K
     probes or JVP, the shared memory of the wide probe instances), up to
     state width STREAM_MAX_DZ and STREAM_MAX_PARAMS parameters, conditional
-    ones with one VJP probe in the COND instances of the streamed K1 and K2
-    chain forms and of streamed K7's TEST and exact entries; a narrow
-    chain whose weights and per-thread slots do not fit in shared memory is
-    refused at launch (`_launch_shape`).  The Hutchinson kernels (K1, K2,
-    their chain forms and the chain forms' wide and streamed forms) take any
-    number `k_probes` of VJP or (`jvp`) JVP probes (K6), in conditional wide
-    chains too (K6 x K8) where the wide probe COND instances' shared memory
-    holds the chain (else COND_STREAM_PROBES, with or without `stream`)."""
+    ones in the COND instances of the streamed K1 and K2 chain forms (with K
+    VJP or JVP probes in their probe COND instances) and of streamed K7's
+    TEST and exact entries; a narrow chain whose weights and per-thread
+    slots do not fit in shared memory is refused at launch
+    (`_launch_shape`).  The Hutchinson kernels (K1, K2, their chain forms
+    and the chain forms' wide and streamed forms) take any number `k_probes`
+    of VJP or (`jvp`) JVP probes (K6), in conditional chains too (K6 x K8:
+    the wide probe COND instances where their shared memory holds the
+    chain, else the streamed ones)."""
     if tab.btilde is None:
         return f"the {tab.name} tableau (no embedded error estimate: fixed-step solves stay outside the kernels)"
     if tab.num_stages > MAX_STAGES:
@@ -966,8 +967,6 @@ def _kernel_covers(
         why = _wide_limit(spec, probes)
         if why is None:
             return None
-    if spec.n_cond and probes:
-        return COND_STREAM_PROBES
     if not stream:
         return why
     P = _param_count(spec)
@@ -1005,24 +1004,13 @@ def _stream_chain(spec: ChainSpec, probes: bool = False) -> bool:
     WIDE_MAX_DZ, its hidden widths or its weights' shared memory: with one
     probe, conditional chains in the COND instances (K8), or (`probes`: K
     probes or JVP, K6) in their probe instances, which keep one more
-    dz-vector and hidden block a row, unconditional chains only (the probe
-    COND instances are not ported, COND_STREAM_PROBES).  2-layer tanh nets
-    past MAX_DZ count too: the streamed forms run their Hutchinson and
-    exact-forward stages, and streamed K3 and K5 their TEST stages."""
-    if not 2 <= spec.n_layers <= CHAIN_MAX_LAYERS or spec.dz > STREAM_MAX_DZ or (spec.n_cond and probes):
+    dz-vector and hidden block a row, conditional chains in their probe
+    COND instances (K6 x K8).  2-layer tanh nets past MAX_DZ count too: the
+    streamed forms run their Hutchinson and exact-forward stages, and
+    streamed K3 and K5 their TEST stages."""
+    if not 2 <= spec.n_layers <= CHAIN_MAX_LAYERS or spec.dz > STREAM_MAX_DZ:
         return False
     return _wide_chain(spec) and (spec.dz > WIDE_MAX_DZ or _wide_limit(spec, probes) is not None)
-
-
-#: What the kernels still refuse of conditional nets past the wide limits
-#: (K8 in the streamed forms), naming its part of ROADMAP queue 2's row (d).
-#: The COND instances of the streamed K1 and K2 chain forms, streamed K3,
-#: streamed K5, streamed K7 TEST and exact and the streamed K4 adjoint take
-#: one-probe training, serving, the TEST gradient and exact training; K
-#: probes or JVP are (d6).
-COND_STREAM_PROBES = ("conditional chains past the wide limits with K probes or JVP probes (K6 x K8 in the wide and "
-                      "streamed chain forms: the streamed forms' probe COND instances; ROADMAP queue 2, shape "
-                      "variants (d), part (d6))")
 
 
 def _wide_two_layer(spec: ChainSpec) -> bool:
@@ -1219,6 +1207,8 @@ _SIGNATURES = {
         "cnf_k1s_probe_solve": ([_P] * 12 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
         "cnf_k1sc_shape": _WIDE_SHAPE,
         "cnf_k1s_cond_solve": ([_P] * 13 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k1spc_shape": _WIDE_SHAPE,
+        "cnf_k1s_probe_cond_solve": ([_P] * 13 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K7S_KERNEL: {
         "cnf_k7s_test_shape": _WIDE_SHAPE,
@@ -1237,6 +1227,8 @@ _SIGNATURES = {
         "cnf_k2s_probe_adjoint": ([_P] * 17 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
         "cnf_k2sc_shape": _WIDE_SHAPE,
         "cnf_k2s_cond_adjoint": ([_P] * 19 + [_I, _I, _IP, _I, _I, _I, _I] + _WIDE_TAIL, _I),
+        "cnf_k2spc_shape": _WIDE_SHAPE,
+        "cnf_k2s_probe_cond_adjoint": ([_P] * 19 + [_I, _I, _IP, _I, _I, _I, _I, _I, _I] + _WIDE_TAIL, _I),
     },
     K3S_KERNEL: {
         "cnf_k3s_shape": _WIDE_SHAPE,
@@ -1350,8 +1342,9 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
     keeps in shared memory, and its streamed form (`stream`) the chains the
     wide forms refuse for their widths or shared memory (`_stream_chain`;
     with K probes or JVP, those of the wide probe instances); the wide and
-    streamed forms take conditional chains in their COND instances (`cond`)
-    and unconditional ones in the others."""
+    streamed forms take conditional chains in their COND instances (`cond`;
+    with K probes or JVP, their probe COND instances) and unconditional ones
+    in the others."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
     probes = k_probes != 1 or jvp
@@ -2020,10 +2013,10 @@ def _launch_wide_forward(label, lib_name, entry, shape, tab, spec, *, rtol, atol
     [ys], z0, acc0, ts, zT, accT, stats, dt_last, work, partials, [m],
     [tiles], B, n, widths, acts, max_steps, *norms, rtol, atol, the
     controller, the tableau, tile, grid, block, stream); `norms` ends with K
-    and jvp for the wide K1 chain form's probe and probe COND instances,
-    and eps is (K, B, dz).  A COND instance (K8) takes the conditioning ys
-    (B, n_cond); the caller names the entry and its shape entry, by the
-    conditioning and the probes together.
+    and jvp for the wide and streamed K1 chain forms' probe and probe COND
+    instances, and eps is (K, B, dz).  A COND instance (K8) takes the
+    conditioning ys (B, n_cond); the caller names the entry and its shape
+    entry, by the conditioning and the probes together.
     A streamed kernel (`stream`) takes the global tile scratch its shape
     entry asks for and, with `m` (streamed K3), the dz x H scratch of M that
     the launch builds.  Returns (zT, accT, steps, accepted, dt_last,
@@ -2750,7 +2743,9 @@ def _launch_stream_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, 
                            t_hi, t_lo, dt_init, jvp=False, ys=None):
     """Launch the streamed K2 chain form: its one-probe instance, its probe
     instance (K probes or JVP, K6) or, given ys (B, n_cond), its COND
-    instance (K8, one VJP probe), which returns a_ys0 (B, n_cond) last."""
+    instance (K8) or probe COND instance (K6 x K8), which return a_ys0
+    (B, n_cond) last.  The shape entry and the entry are picked by the
+    conditioning and the probes together."""
     label = "streamed K2 chain form"
     B, dz = zT.shape
     K, nc = eps.shape[0], spec.n_cond if ys is not None else 0
@@ -2761,7 +2756,8 @@ def _launch_stream_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, 
     )
     lib = _library(K2S_KERNEL)
     probes = _probe_instance(eps, jvp)
-    shape = "cnf_k2sc_shape" if nc else "cnf_k2sp_shape" if probes else "cnf_k2s_shape"
+    shape = {(True, True): "cnf_k2spc_shape", (True, False): "cnf_k2sc_shape", (False, True): "cnf_k2sp_shape",
+             (False, False): "cnf_k2s_shape"}[(bool(nc), probes)]
     block, grid, tile, tiles = _stream_shape(lib, shape, label, spec, widths, B, device)
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
     z0, acc0, az0, g, gnew, stats, work, partials, gblk = _wide_adjoint_buffers(tab, zT, accT, grid, params.numel(),
@@ -2772,7 +2768,8 @@ def _launch_stream_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, 
     if nc:
         ys = _cond_rows(label, spec, ys, B, device)
         ays0 = torch.empty((B, nc), dtype=torch.float32, device=device)
-        err = lib.cnf_k2s_cond_adjoint(
+        entry = lib.cnf_k2s_probe_cond_adjoint if probes else lib.cnf_k2s_cond_adjoint
+        err = entry(
             _ptr(params), _ptr(e0), _ptr(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT), _ptr(ts), _ptr(z0),
             _ptr(acc0), _ptr(az0), _ptr(ays0), _ptr(g), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gblk),
             _ptr(gnew), _ptr_or_null(tiles), *tail,
@@ -3046,11 +3043,12 @@ def run_stream_cond_train_solve_kernel(
     solve (`run_stream_train_solve_kernel`) of a conditional chain past the
     wide limits whose first layer reads [z | ys], ys (B, n_cond) constant
     over the solve (CondRNODE at the MINIBOONE width, 87 -> 258 -> 86, one
-    ys column); one VJP probe (K probes or JVP: COND_STREAM_PROBES);
-    arguments and returns as `run_train_solve_kernel`.
+    ys column); one VJP probe, or K VJP or JVP probes in its probe COND
+    instance (K6 x K8); arguments and returns as `run_train_solve_kernel`.
 
     CUDA tensors go through the kernel (`csrc/k1_stream_solve.cu`'s
-    `k1_stream_cond_solve`), CPU tensors through its plain version."""
+    `k1_stream_cond_solve`, or `k1_stream_probe_cond_solve` with K probes
+    or JVP), CPU tensors through its plain version."""
     _no_grad_inputs("K1", ws, bs, z0, eps, acc0, ys)
     if z0.device.type == "cpu":
         return solve_train_plain(
@@ -3058,10 +3056,12 @@ def run_stream_cond_train_solve_kernel(
             ws=ws, bs=bs, z0=z0, eps=eps, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys, jvp=jvp,
         )
     _cuda_only("streamed K1 COND", z0, tab, spec, eps.shape[0], chain=True, jvp=jvp, stream=True, cond=True)
+    probes = _probe_instance(eps, jvp)
     out = _launch_wide_forward(
-        "streamed K1 chain form COND", K1S_KERNEL, "cnf_k1s_cond_solve", "cnf_k1sc_shape", tab, spec, rtol=rtol,
-        atol=atol, max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
-        norms=(norm_z, norm_j), stream=True, ys=ys,
+        "streamed K1 chain form COND", K1S_KERNEL, "cnf_k1s_probe_cond_solve" if probes else "cnf_k1s_cond_solve",
+        "cnf_k1spc_shape" if probes else "cnf_k1sc_shape", tab, spec, rtol=rtol, atol=atol, max_steps=max_steps,
+        ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, eps=eps,
+        norms=(norm_z, norm_j) + ((eps.shape[0], jvp) if probes else ()), stream=True, ys=ys,
     )
     _count(run_stream_cond_train_solve_kernel, eps, jvp)
     return out
@@ -3079,11 +3079,13 @@ def run_stream_cond_adjoint_kernel(
     a_z, a_acc, a_ys, g_p) (`run_stream_adjoint_kernel`) of the conditional
     chains `run_stream_cond_train_solve_kernel` takes, the per-sample a_ys
     integrated from 0 at t_hi in the one batch-global error norm; one VJP
-    probe; arguments as `run_adjoint_kernel` with ys (B, n_cond), returns
-    (z0, acc0, a_z0, g_ws, g_bs, steps, accepted, a_ys0).
+    probe, or K VJP or JVP probes in its probe COND instance (K6 x K8);
+    arguments as `run_adjoint_kernel` with ys (B, n_cond), returns (z0,
+    acc0, a_z0, g_ws, g_bs, steps, accepted, a_ys0).
 
     CUDA tensors go through the kernel (`csrc/k2_stream_adjoint.cu`'s
-    `k2_stream_cond_adjoint`), CPU tensors through its plain version."""
+    `k2_stream_cond_adjoint`, or `k2_stream_probe_cond_adjoint` with K
+    probes or JVP), CPU tensors through its plain version."""
     _no_grad_inputs("K2", ws, bs, eps, zT, accT, azT, aaccT, ys)
     if zT.device.type == "cpu":
         return adjoint_train_plain(
@@ -3534,14 +3536,16 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     adjoint's backward under exact trace (deeper chains' exact gradient runs
     the plain BACKSOLVE, as below).  Conditional chains past the wide
     limits run the COND instances of the streamed forms: the streamed K1 and
-    K2 chain forms' under Hutchinson TRAIN with one VJP probe, streamed K7
-    TEST's forward at 3-4 layers and streamed K7 exact's forward at every
-    depth and, for 2-layer tanh nets (CondRNODE at the MINIBOONE width),
-    streamed K3's forward and streamed K5's backward in TEST mode and the
-    streamed K4 adjoint's backward under exact trace; K probes or JVP past
-    the wide probe COND instances' shared memory raise on the card
-    (COND_STREAM_PROBES); narrow conditional nets keep the narrow chain
-    kernels and K5's COND instance.
+    K2 chain forms' under Hutchinson TRAIN (their probe COND instances with
+    K VJP or JVP probes, K6 x K8), streamed K7 TEST's forward at 3-4 layers
+    and streamed K7 exact's forward at every depth and, for 2-layer tanh
+    nets (CondRNODE at the MINIBOONE width), streamed K3's forward and
+    streamed K5's backward in TEST mode and the streamed K4 adjoint's
+    backward under exact trace; so do the Hutchinson TRAIN solves with K
+    probes or JVP of the conditional wide chains that only the streamed
+    probe COND instances keep (`_stream_chain(spec, True)`: the wide probe
+    COND instances' shared memory); narrow conditional nets keep the
+    narrow chain kernels and K5's COND instance.
     Hutchinson TRAIN solves run K1 (or its chain form) with the
     backward member K2 (or its chain form), with the K VJP or JVP probes of
     `compute_mode` (K6: their probe instances); exact-trace TRAIN solves run the
@@ -3662,6 +3666,8 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
         if wide2:
             run_test, run_test_adj = run_wide_cond_test2_solve_kernel, run_wide_cond_test_adjoint_kernel
             run_exact_adj = run_wide_cond_exact_adjoint_kernel
+        if _stream_chain(spec, probes):
+            run_train, run_adjoint = run_stream_cond_train_solve_kernel, run_stream_cond_adjoint_kernel
     elif chain and _wide_chain(spec):
         run_test, run_train = run_wide_test_solve_kernel, run_wide_train_solve_kernel
         run_exact, run_adjoint = run_wide_exact_solve_kernel, run_wide_adjoint_kernel

@@ -32,7 +32,8 @@ them, one Gaussian VJP probe (`--probes K` Gaussian probes, `--jvp`
 forward-mode ones: the Hutchinson train steps run the probe instances of
 the K1 and K2 kernels or of their chain forms, narrow, wide (miniboone43;
 at cond_hepmass42 their probe COND instances, K6 x K8) or streamed
-(miniboone860, miniboone86, bsds126), K6), batch 4096 (or the configuration's own
+(miniboone860, miniboone86, bsds126; at cond_miniboone86 and
+cond_miniboone860 their probe COND instances), K6), batch 4096 (or the configuration's own
 `batch`: 2048 for miniboone43 and bsds126, 1024 for miniboone860 and
 cond_miniboone860), fused kernels on, and for each path (the
 Hutchinson train step, the exact-trace train step, `logpdf`; for a

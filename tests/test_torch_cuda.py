@@ -12,7 +12,8 @@ streamed K3 and K5 and the streamed K4 adjoint for 2-layer nets past the
 wide limits, the README net family at the MINIBOONE width 86 -> 258 -> 86
 and the BSDS300 width 126 -> 378 -> 126, and the COND instances of the wide
 and streamed forms for conditional nets past the narrow and the wide
-limits, streamed K7's and the streamed K4 adjoint's included) against their
+limits, streamed K7's and the streamed K4 adjoint's included, and the
+probe COND instances of the wide and streamed chain forms) against their
 plain PyTorch
 versions, on the card, and the configurations they do not cover.
 
@@ -1377,13 +1378,15 @@ def test_wide_cond_chain_paths_on_the_card_match_the_twins_on_the_cpu(dev):
 def test_wide_cond_refusals_raise_on_cuda(dev, case):
     """What the kernels refuse of conditional nets past the narrow widths
     raises on the card, naming its ROADMAP row or the instance that takes
-    it, and launches nothing: K probes in a chain whose probe COND
-    instance's shared memory it passes (row (d6)); the unconditional wide
-    K1 chain form, wide K7 and the wide K4 adjoint take no conditional net,
-    nor the unconditional streamed K7 and streamed K4 adjoint the deep
-    chain's TEST forward at the miniboone860 width or the exact backward
-    past hidden 128 ("streamed", "K4-hidden130"), which their COND
-    instances (row (d5)) then run, one launch each."""
+    it, and launches nothing: the wide K1 chain form's COND instance takes
+    no chain whose wide probe COND instance's shared memory it passes with
+    K probes ("probe-shared-memory": the streamed probe COND instance, row
+    (d6), then runs it, one launch); the unconditional wide K1 chain form,
+    wide K7 and the wide K4 adjoint take no conditional net, nor the
+    unconditional streamed K7 and streamed K4 adjoint the deep chain's TEST
+    forward at the miniboone860 width or the exact backward past hidden 128
+    ("streamed", "K4-hidden130"), which their COND instances (row (d5)) then
+    run, one launch each."""
     dims = {"streamed": (44, 860, 860, 43), "unconditional-K7": (10, 72, 72, 8),
             "K4-hidden130": (44, 130, 43), "probe-shared-memory": (65, 128, 128, 120, 64)}.get(case, COND_HEPMASS)
     spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
@@ -1400,7 +1403,7 @@ def test_wide_cond_refusals_raise_on_cuda(dev, case):
                              dict(_kernel_args(dims, B, (0.0, 1.0), dev), ys=ys)),
         "unconditional-K4": ("run_wide_exact_adjoint_kernel", "unconditional instance", k4_call),
         "K4-hidden130": ("run_stream_exact_adjoint_kernel", "unconditional instance", k4_call),
-        "probe-shared-memory": ("run_wide_cond_train_solve_kernel", tfs.COND_STREAM_PROBES, kw),
+        "probe-shared-memory": ("run_wide_cond_train_solve_kernel", "their streamed forms take the chain", kw),
         "streamed": ("run_stream_test_solve_kernel", "unconditional instance",
                      dict(_kernel_args(dims, B, (0.0, 1.0), dev), ys=ys)),
         "unconditional-instance": ("run_wide_train_solve_kernel", "unconditional instance", kw),
@@ -1410,14 +1413,15 @@ def test_wide_cond_refusals_raise_on_cuda(dev, case):
         getattr(tfs, wrapper)(TSIT5, spec, **call)
     assert why in str(err.value)
     assert not any(w.launches for w in tfs.KERNEL_WRAPPERS.values())
-    cond = {"streamed": "run_stream_cond_test_solve_kernel", "K4-hidden130": "run_stream_cond_exact_adjoint_kernel"}
+    cond = {"streamed": ("run_stream_cond_test_solve_kernel", "k7_stream_solve/test/cond"),
+            "K4-hidden130": ("run_stream_cond_exact_adjoint_kernel", "k4_stream_adjoint/cond"),
+            "probe-shared-memory": ("run_stream_cond_train_solve_kernel", "k1_stream_solve/cond")}
     if case in cond:
         with torch.no_grad():
-            out = getattr(tfs, cond[case])(TSIT5, spec, **call)
+            out = getattr(tfs, cond[case][0])(TSIT5, spec, **call)
         torch.cuda.synchronize()
         assert all(bool(torch.isfinite(x).all()) for x in out[:2])
-        assert {k: w.launches for k, w in tfs.KERNEL_WRAPPERS.items() if w.launches} == {
-            ("k7_stream_solve/test/cond" if case == "streamed" else "k4_stream_adjoint/cond"): 1}
+        assert {k: w.launches for k, w in tfs.KERNEL_WRAPPERS.items() if w.launches} == {cond[case][1]: 1}
 
 
 # K6 x K8: (K, JVP?) of the probe COND instances' holds
@@ -1863,15 +1867,14 @@ def test_stream_cond_gradients_match_a_float64_solve(dev, mode):
 
 @pytest.mark.parametrize("case", ["exact", "two-probes", "jvp", "three-layer-test"])
 def test_stream_cond_refusals_raise_on_cuda(dev, case):
-    """Through the loss on the card, what the kernels still refuse of
-    conditional nets past the wide limits raises NotImplementedError naming
-    its part of ROADMAP queue 2's row (d) and launches no kernel: K probes
-    and JVP probes (the streamed probe COND instances, (d6)) at
-    cond_miniboone86.  What (d5) refused now runs: exact training
+    """Through the loss on the card, what rows (d5) and (d6) refused of
+    conditional nets past the wide limits now runs, finite: exact training
     ("exact": streamed K7 exact's and the streamed K4 adjoint's COND
-    instances, one launch each) and the TEST forward of a conditional
-    3-layer chain past hidden 128 ("three-layer-test": streamed K7 TEST's
-    COND instance, one launch), finite."""
+    instances, one launch each), the TEST forward of a conditional 3-layer
+    chain past hidden 128 ("three-layer-test": streamed K7 TEST's COND
+    instance, one launch), and K probes and JVP probes at cond_miniboone86
+    ("two-probes", "jvp": the streamed probe COND instances, one launch
+    each, counted under (K, jvp))."""
     dims = (10, 136, 136, 8) if case == "three-layer-test" else COND_MINIBOONE86
     nvars = 4 if case == "three-layer-test" else 43
     cm = {"exact": tcnf.VecJacMode(fused=True, exact_trace=True), "two-probes": tcnf.VecJacMode(2, fused=True),
@@ -1895,10 +1898,14 @@ def test_stream_cond_refusals_raise_on_cuda(dev, case):
         assert _launches() == dict(dict.fromkeys(_launches(), 0),
                                    **{tfs.K7S_KERNEL + "/exact/cond": 1, tfs.K4SA_KERNEL + "/cond": 1})
         return
-    with pytest.raises(NotImplementedError) as err:
-        tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=ys)
-    assert tfs.COND_STREAM_PROBES in str(err.value)
-    assert not any(w.launches for w in tfs.KERNEL_WRAPPERS.values())
+    leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+    grads = torch.autograd.grad(tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=ys), leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert _launches() == dict(dict.fromkeys(_launches(), 0), **{tfs.K1S_KERNEL + "/cond": 1,
+                                                                 tfs.K2S_KERNEL + "/cond": 1})
+    key = (2, False) if case == "two-probes" else (1, True)
+    assert [w.probe_launches for w in (tfs.run_stream_cond_train_solve_kernel, tfs.run_stream_cond_adjoint_kernel)] \
+        == [{key: 1}] * 2
 
 
 # ---- K8 in streamed K7 and the streamed K4 adjoint (row (d5)) ----
@@ -2051,6 +2058,134 @@ def test_stream_cond_exact_gradient_matches_a_float64_solve(dev):
     after = _launches()
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
         tfs.K7S_KERNEL + "/exact/cond": 1, tfs.K4SA_KERNEL + "/cond": 1}
+    l_t, g_t = run(torch.float64, False, truth)
+    assert float((l_k - l_t).abs()) <= 1e-4 * max(1.0, float(l_t.abs()))
+    for a, t in zip(g_k, g_t):
+        assert torch.isfinite(a).all() and float((a - t).abs().max()) <= 2e-2 * float(t.abs().max())
+
+
+# ---- K6 x K8 in the streamed forms: the probe COND instances (row (d6)) ----
+
+
+@pytest.mark.parametrize(
+    "dims,B,span,tab,probes",
+    [
+        (COND_MINIBOONE86, 4096, (0.0, 13.0), TSIT5, (4, False)),
+        (COND_MINIBOONE86, 4096, (0.0, 13.0), TSIT5, (1, True)),
+        (COND_MINIBOONE860, 256, (0.0, 1.0), TSIT5, (4, False)),
+        ((10, 136, 136, 8), 300, (0.0, 2.0), TSIT5, (2, True)),
+        ((67, 80, 66), 64, (1.0, 0.0), VERNER65, (3, False)),
+        ((65, 128, 128, 120, 64), 256, (0.0, 1.0), TSIT5, (2, False)),
+        ((87, 8000, 86), 16, (0.0, 1.0), TSIT5, (2, False)),
+        ((87, 8000, 86), 16, (0.0, 1.0), TSIT5, (1, True)),
+        ((36, 200, 33), 1, (0.0, 1.0), TSIT5, (2, True)),
+    ],
+    ids=["cond-miniboone86-K4-B4096", "cond-miniboone86-jvp-B4096", "cond-miniboone860-K4-B256",
+         "three-layer-hidden136-ncond2-jvp-K2-B300", "dz66-verner65-reverse-K3-B64", "probe-shared-memory-K2-B256",
+         "hidden8000-global-tiles-K2-B16", "hidden8000-global-tiles-jvp-B16", "ncond3-jvp-K2-B1"],
+)
+def test_stream_cond_probe_kernels_match_twins(dev, dims, B, span, tab, probes):
+    """The probe COND instances of the streamed K1 and K2 chain forms (K6 x
+    K8) against their twins with the conditioning ys (B, n_cond) and K VJP
+    or JVP probes: the forward from nonzero accumulators (equal steps,
+    values within REL), the adjoint from its output warm-started from its
+    last step (equal steps; z0, acc0, a_z0 and a_ys0 held to the float64
+    twin; gradients within GRAD_REL, layer 0's ys rows not zero).  Hidden
+    width 8000 sends both instances' tile arrays to the global scratch (the
+    shape entries say so); `MLP((65, 128, 128, 120, 64))` with one ys column
+    is a wide chain whose wide probe COND instance's shared memory it
+    passes.  One launch each, counted under (K, jvp)."""
+    k, jvp = probes
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    assert tfs._stream_chain(spec, True) and tfs._kernel_covers(tab, spec, k, chain=True, jvp=jvp) is None
+    nc, dz = dims[0] - dims[-1], dims[-1]
+    if dims[1] == 8000:
+        assert _tile_scratch_floats(tfs.K1S_KERNEL, "cnf_k1spc_shape", dims, B) > 0
+        assert _tile_scratch_floats(tfs.K2S_KERNEL, "cnf_k2spc_shape", dims, B) > 0
+    ys = _cond_ys(B, nc, dev)
+    kw, adj = _train_args(dims, B, span, dev)
+    eps = torch.from_numpy(np.random.default_rng(14).normal(size=(k, B, dz)).astype(np.float32)).to(dev)
+    kw.update(ys=ys, eps=eps, jvp=jvp)
+    adj.update(ys=ys, eps=eps, jvp=jvp)
+    if tab is VERNER65:
+        for d in (kw, adj):
+            d.update(rtol=3.452669831108329e-4, atol=1.1920929e-7)
+    runs = (tfs.run_stream_cond_train_solve_kernel, tfs.run_stream_cond_adjoint_kernel)
+    before = [w.probe_launches.get((k, jvp), 0) for w in runs]
+    tdir = 1.0 if span[1] > span[0] else -1.0
+    with torch.no_grad():
+        out_k = runs[0](tab, spec, **kw)
+        out_p = tfs.solve_train_plain(tab, spec, **kw)
+        adj.update(zT=out_k[0], accT=out_k[1], dt_init=-tdir * out_k[4].abs())
+        k2 = [runs[1](tab, spec, **adj), tfs.adjoint_train_plain(tab, spec, **adj),
+              _twin64(tfs.adjoint_train_plain, spec, adj, tab)]
+    torch.cuda.synchronize()
+    assert [w.probe_launches.get((k, jvp), 0) for w in runs] == [n + 1 for n in before]
+    _hold_forward(out_k, out_p)
+    _hold_cond_adjoint(*k2)
+    assert float(k2[0][3][0][dz:].abs().max()) > 0.0
+
+
+def test_stream_cond_probe_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """cond_miniboone86 (tspan (0, 1) here) with four VJP probes and with
+    one JVP probe on the card and on the CPU at B = 256: the loss and its
+    gradient in the params and ys through the probe COND instances of the
+    streamed K1 and K2 chain forms, each launching once under (K, jvp) and
+    no other kernel."""
+    xs, ys, _, ps_np = _cond_miniboone86_inputs(256, 24)
+
+    def run(device, k, jvp):
+        icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP(COND_MINIBOONE86, device=device), 43, 43, tspan=(0.0, 1.0),
+                              steer_rate=0.1, lam3=1e-2,
+                              compute_mode=(tcnf.JacVecMode if jvp else tcnf.VecJacMode)(k, fused=True))
+        eps = np.random.default_rng(25 + k).normal(size=(k, 256, 86)).astype(np.float32)
+        ps = tcnf.params_from_numpy(ps_np, device)
+        y = torch.from_numpy(ys).to(device).requires_grad_()
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])] + [y]
+        l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=y, eps=eps, steer_r=0.05)
+        return l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)]
+
+    runs = (tfs.run_stream_cond_train_solve_kernel, tfs.run_stream_cond_adjoint_kernel)
+    for k, jvp in ((4, False), (1, True)):
+        before, probes = _launches(), [w.probe_launches.get((k, jvp), 0) for w in runs]
+        l_k, g_k = run(dev, k, jvp)
+        after = _launches()
+        assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {
+            tfs.K1S_KERNEL + "/cond": 1, tfs.K2S_KERNEL + "/cond": 1}
+        assert [w.probe_launches.get((k, jvp), 0) for w in runs] == [n + 1 for n in probes]
+        l_c, g_c = run(torch.device("cpu"), k, jvp)
+        assert _close(l_k, l_c)
+        for a, b in zip(g_k, g_c):
+            assert _grad_close(a, b)
+
+
+def test_stream_cond_probe_gradient_matches_a_float64_solve(dev):
+    """cond_miniboone86 at its own span (0, 13), B = 64, four VJP probes: the
+    loss gradient in the params and ys through the streamed probe COND
+    instances (one launch each) within 2e-2 max|g| of a float64 rtol 1e-7
+    solve (the plain path on the card), the loss within 1e-4 of it."""
+    xs, ys, _, ps_np = _cond_miniboone86_inputs(64, 26)
+    eps = np.random.default_rng(27).normal(size=(4, 64, 86))
+    truth = tcnf.SolverOptions(rtol=1e-7, atol=1e-9)
+
+    def run(dtype, fused, solver=None):
+        kw = {} if solver is None else {"solver": solver}
+        icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP(COND_MINIBOONE86, device=dev, dtype=dtype), 43, 43,
+                              tspan=(0.0, 13.0), steer_rate=0.1, lam3=1e-2, dtype=dtype,
+                              compute_mode=tcnf.VecJacMode(4, fused=fused), **kw)
+        leaves = [v.to(dtype).requires_grad_() for p in tcnf.params_from_numpy(ps_np, dev) for v in (p["w"], p["b"])]
+        ps = tuple({"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2]))
+        y = torch.from_numpy(ys).to(device=dev, dtype=dtype).requires_grad_()
+        x = torch.from_numpy(xs).to(device=dev, dtype=dtype)
+        l = tcnf.loss(icnf, tcnf.Mode.TRAIN, x, ps, ys=y, eps=torch.from_numpy(eps).to(device=dev, dtype=dtype),
+                      steer_r=0.05)
+        return l.detach().cpu().double(), [g.cpu().double() for g in torch.autograd.grad(l, leaves + [y])]
+
+    before = _launches()
+    l_k, g_k = run(torch.float32, True)
+    after = _launches()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        tfs.K1S_KERNEL + "/cond": 1, tfs.K2S_KERNEL + "/cond": 1}
     l_t, g_t = run(torch.float64, False, truth)
     assert float((l_k - l_t).abs()) <= 1e-4 * max(1.0, float(l_t.abs()))
     for a, t in zip(g_k, g_t):

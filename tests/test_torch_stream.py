@@ -330,7 +330,7 @@ def test_stream_forms_cover_probes(name):
 
 # name -> (dims, n_cond, probes, jvp, what the refusal names)
 _STREAM_REFUSED = {
-    "conditional": (MB860, 1, 2, False, "K8 in the wide and streamed chain forms"),
+    "conditional": ((130, 860, 129), 1, 2, False, "state width 129 > 128"),
     "dz129": ((129, 860, 129), 0, 1, False, "state width 129 > 128"),
     "five-layer": ((43, 860, 860, 860, 860, 43), 0, 1, False, "5-layer chains"),
 }
@@ -338,11 +338,10 @@ _STREAM_REFUSED = {
 
 @pytest.mark.parametrize("name", list(_STREAM_REFUSED))
 def test_stream_refusals_name_their_roadmap_row(name):
-    """Conditional nets at these widths with K probes (their streamed
-    probe COND instances, row (d6); with one probe the streamed COND
-    instances take them: tests/test_torch_stream_cond.py), and state widths
-    past 128 or chains past 4 layers, are refused with the reason and its
-    ROADMAP queue 2 row."""
+    """State widths past 128, conditional nets among them with K probes (at
+    the miniboone860 widths the streamed probe COND instances take those,
+    row (d6): tests/test_torch_stream_cond_probes.py), and chains past 4
+    layers are refused with the reason and its ROADMAP queue 2 row."""
     dims, n_cond, k, jvp, why = _STREAM_REFUSED[name]
     msg = tfs._kernel_covers(TSIT5, _spec(dims, n_cond), k, chain=True, jvp=jvp)
     assert msg is not None and why in msg and "ROADMAP queue 2" in msg

@@ -12,8 +12,9 @@ mode at one tile (the TEST and TRAIN forwards, the TEST and Hutchinson
 adjoints with a_ys0); TEST and TRAIN `inference`; the losses and their
 gradients in the params and in ys against `jax.grad`;
 `CondICNFDist.logpdf`; the coverage rule, the wrappers `make_full_solve`
-picks, what is still refused (ROADMAP queue 2 row (d6), by
-name); the wrappers' CPU branch; the cond_miniboone86 configuration and
+picks (with K probes or JVP too: the probe COND instances, row (d6),
+tests/test_torch_stream_cond_probes.py), what the instances refuse, by
+name; the wrappers' CPU branch; the cond_miniboone86 configuration and
 `fit`.
 
 Inputs come from numpy seeds at B = 16 (cond_miniboone86: 8), where the
@@ -400,9 +401,9 @@ _COVERAGE = {
     "cond-miniboone860": ((44, 860, 860, 43), 1, 1, False, None),
     "hidden129": ((44, 129, 43), 1, 1, False, None),
     "cond-bsds126": ((127, 378, 126), 1, 1, False, None),
-    "two-layer-K2": (TWO, 1, 2, False, tfs.COND_STREAM_PROBES),
-    "three-layer-jvp": (THREE, 2, 1, True, tfs.COND_STREAM_PROBES),
-    "cond-miniboone86-K4": (COND_MB86, 1, 4, False, tfs.COND_STREAM_PROBES),
+    "two-layer-K2": (TWO, 1, 2, False, None),
+    "three-layer-jvp": (THREE, 2, 1, True, None),
+    "cond-miniboone86-K4": (COND_MB86, 1, 4, False, None),
     "dz129": ((130, 387, 129), 1, 1, False, "state width 129 > 128"),
     "five-layer": ((44, 860, 860, 860, 860, 43), 1, 1, False, "5-layer chains"),
 }
@@ -412,16 +413,16 @@ _COVERAGE = {
 def test_stream_cond_coverage(name):
     """The streamed K1 and K2 chain forms' COND instances take conditional
     chains past the wide limits (state width past 64, hidden width past 128
-    or the wide forms' shared memory) with one VJP probe, up to state width
-    128 and 4 layers; with K probes or JVP they are refused, naming row (d6)
-    (COND_STREAM_PROBES), and the streamed forms do not count them as
-    theirs; past state width 128 or 4 layers they are refused as before."""
+    or the wide forms' shared memory) with one VJP probe, and their probe
+    COND instances with K probes or JVP (row (d6)), up to state width 128
+    and 4 layers; the wide forms alone refuse them; past state width 128 or
+    4 layers they are refused as before."""
     dims, nc, k, jvp, why = _COVERAGE[name]
     spec = _spec(dims, nc)
     msg = tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp)
     if why is None:
-        assert msg is None and tfs._stream_chain(spec)
-        assert tfs._kernel_covers(TSIT5, spec, chain=True, stream=False) is not None
+        assert msg is None and tfs._stream_chain(spec) and tfs._stream_chain(spec, k != 1 or jvp)
+        assert tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp, stream=False) is not None
         return
     assert msg is not None and why in msg and "ROADMAP queue 2" in msg
     assert not tfs._stream_chain(spec, k != 1 or jvp)
@@ -430,14 +431,14 @@ def test_stream_cond_coverage(name):
 def test_cond_stream_shared_memory_rule():
     """A conditional chain that the wide COND instances keep with one probe
     stays there; enough ys columns take it past the wide forms' shared
-    memory, and the streamed COND instances take it with one probe, not with
-    two (d6)."""
+    memory, and the streamed COND instances take it with one probe, their
+    probe COND instances with two (d6)."""
     base = (64, 128, 128, 120, 64)
     wide = next(nc for nc in range(1, 64) if tfs._wide_limit(_spec((64 + nc,) + base[1:], nc)) is not None)
     kept, past = _spec((64 + wide - 1,) + base[1:], wide - 1), _spec((64 + wide,) + base[1:], wide)
     assert tfs._kernel_covers(TSIT5, kept, chain=True) is None and not tfs._stream_chain(kept)
     assert tfs._kernel_covers(TSIT5, past, chain=True) is None and tfs._stream_chain(past)
-    assert tfs._kernel_covers(TSIT5, past, 2, chain=True) == tfs.COND_STREAM_PROBES
+    assert tfs._kernel_covers(TSIT5, past, 2, chain=True) is None and tfs._stream_chain(past, True)
 
 
 def _fake_cuda():
@@ -451,10 +452,10 @@ _REFUSED = {
     "K7-exact-cond-miniboone86": ("chain", COND_MB86, 1, dict(stream=True), "unconditional instance"),
     "K4-adjoint-cond-miniboone86": ("exact", COND_MB86, 1, {}, "unconditional instance"),
     "K4-adjoint-hidden130": ("exact", (44, 130, 43), 1, {}, "unconditional instance"),
-    "probes-K4": ("chain", COND_MB86, 1, dict(stream=True, cond=True, k_probes=4), tfs.COND_STREAM_PROBES),
-    "probes-jvp": ("chain", THREE, 2, dict(stream=True, cond=True, jvp=True), tfs.COND_STREAM_PROBES),
+    "probes-K4": ("chain", COND_MB86, 1, dict(stream=True, k_probes=4), "unconditional instance"),
+    "probes-jvp": ("chain", THREE, 2, dict(stream=True, jvp=True), "unconditional instance"),
     "probes-wide-cond-instance": ("chain", (65, 128, 128, 120, 64), 1, dict(wide=True, cond=True, k_probes=2),
-                                  tfs.COND_STREAM_PROBES),
+                                  "their streamed forms take the chain"),
     "unconditional-streamed-K1": ("chain", COND_MB86, 1, dict(stream=True), "unconditional instance"),
     "unconditional-streamed-K3": ("two", COND_MB86, 1, dict(stream=True), "unconditional instance"),
     "cond-instance-unconditional": ("two", (86, 258, 86), 0, dict(stream=True, cond=True), "COND instance"),
@@ -464,16 +465,16 @@ _REFUSED = {
 
 @pytest.mark.parametrize("name", list(_REFUSED))
 def test_stream_cond_refusals_on_the_card_name_their_row(name):
-    """What the card still refuses of conditional nets past the wide limits
-    raises NotImplementedError through the wrappers' checks, naming its
-    part of ROADMAP queue 2's row (d): K probes or JVP in the streamed chain
-    forms, or in a wide COND chain past the probe COND instances' shared
-    memory (d6); and no unconditional streamed instance takes a conditional
-    net (streamed K7's and the streamed K4 adjoint's included: their COND
-    instances, (d5), take the "K7-" and "K4-" cases,
-    `test_stream_cond_instances_accept_what_they_cover`), nor a COND
-    instance an unconditional one, nor the wide COND instances a chain past
-    the wide limits."""
+    """What the instances refuse of conditional nets past the wide limits
+    raises NotImplementedError through the wrappers' checks, naming the
+    instance that takes them: no unconditional streamed instance takes a
+    conditional net, with one probe, K probes or JVP (streamed K7's and the
+    streamed K4 adjoint's included: their COND instances, (d5), and the
+    chain forms' probe COND instances, (d6), take the "K7-", "K4-" and
+    "probes-" cases, `test_stream_cond_instances_accept_what_they_cover`),
+    nor a COND instance an unconditional one, nor the wide COND instances a
+    chain past the wide limits (with K probes, past the wide probe COND
+    instances' shared memory)."""
     check, dims, nc, kw, why = _REFUSED[name]
     spec = _spec(dims, nc)
     with pytest.raises(NotImplementedError) as err:
@@ -489,7 +490,7 @@ def test_stream_cond_refusals_on_the_card_name_their_row(name):
         assert "ROADMAP queue 2, shape variants (d), part (d" in str(err.value)
 
 
-# name -> (label, check, dims, n_cond)
+# name -> (label, check, dims, n_cond[, probes, JVP?])
 _ACCEPTED = {
     "K1-K2-two-layer": ("streamed K1", "chain", TWO, 1),
     "K1-K2-three-layer": ("streamed K2", "chain", THREE, 2),
@@ -500,6 +501,9 @@ _ACCEPTED = {
     "K7-exact-cond-miniboone86": ("streamed K7", "chain", COND_MB86, 1),
     "K4-adjoint-cond-miniboone86": ("the streamed K4 adjoint", "exact", COND_MB86, 1),
     "K4-adjoint-hidden130": ("the streamed K4 adjoint", "exact", (44, 130, 43), 1),
+    "probes-K4": ("streamed K1", "chain", COND_MB86, 1, 4, False),
+    "probes-jvp": ("streamed K2", "chain", THREE, 2, 1, True),
+    "probes-wide-cond-instance": ("streamed K1", "chain", (65, 128, 128, 120, 64), 1, 2, False),
 }
 
 
@@ -507,11 +511,12 @@ _ACCEPTED = {
 def test_stream_cond_instances_accept_what_they_cover(name):
     """The same checks pass the configurations the streamed COND instances
     take (one VJP probe), streamed K7's and the streamed K4 adjoint's (d5)
-    included."""
-    label, check, dims, nc = _ACCEPTED[name]
+    included, and those the chain forms' probe COND instances take (K VJP
+    or JVP probes, (d6))."""
+    label, check, dims, nc, k, jvp = _ACCEPTED[name] + (1, False)[len(_ACCEPTED[name]) - 4:]
     spec = _spec(dims, nc)
     if check == "chain":
-        tfs._cuda_only(label, _fake_cuda(), TSIT5, spec, chain=True, stream=True, cond=True)
+        tfs._cuda_only(label, _fake_cuda(), TSIT5, spec, k, chain=True, jvp=jvp, stream=True, cond=True)
     elif check == "exact":
         tfs._cuda_only_stream_exact(label, _fake_cuda(), TSIT5, spec, cond=True)
     else:
@@ -543,9 +548,9 @@ def test_fused_solve_takes_the_stream_cond_instances(monkeypatch, route):
     (Hutchinson), a 3-layer chain through the chain forms' (Hutchinson);
     its TEST forward past 2 layers and its exact training through streamed
     K7's COND instances and, for a 2-layer net, the streamed K4 adjoint's
-    (d5); K probes reach the streamed COND instances, which refuse them on
-    the card (d6).  On the CPU each runs its twin; no wide or unconditional
-    wrapper is called."""
+    (d5); K probes reach the streamed COND instances, which run them in
+    their probe COND instances on the card (d6).  On the CPU each runs its
+    twin; no wide or unconditional wrapper is called."""
     dims, mode, k, jvp, want = _ROUTES[route]
     called = []
     names = {n for v in _ROUTES.values() for n in v[4]} | {

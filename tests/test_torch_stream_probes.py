@@ -195,7 +195,7 @@ def test_stream_forms_cover_probes_at_the_configurations(model, probes):
 
 # name -> (dims, n_cond, what the refusal names)
 _REFUSED = {
-    "conditional": (MODELS["miniboone860"]["dims"], 1, "K8 in the wide and streamed chain forms"),
+    "conditional": ((129, 387, 129), 1, "state width 129 > 128"),
     "dz129": ((129, 387, 129), 0, "state width 129 > 128"),
     "five-layer": ((43, 860, 860, 860, 860, 43), 0, "5-layer chains"),
 }
@@ -204,9 +204,10 @@ _REFUSED = {
 @pytest.mark.parametrize("probes", ["K2", "jvp"])
 @pytest.mark.parametrize("name", list(_REFUSED))
 def test_stream_probe_refusals_name_their_roadmap_row(name, probes):
-    """With K probes or JVP, conditional chains past the narrow widths,
-    state widths past 128 and chains past 4 layers are still refused, with
-    the reason and its ROADMAP queue 2 row."""
+    """With K probes or JVP, state widths past 128, of conditional chains
+    too (the streamed probe COND instances take conditional chains up to
+    128: tests/test_torch_stream_cond_probes.py), and chains past 4 layers
+    are still refused, with the reason and its ROADMAP queue 2 row."""
     k, jvp = _PROBE_CONFIGS[probes]
     dims, n_cond, why = _REFUSED[name]
     msg = tfs._kernel_covers(TSIT5, _spec(dims, n_cond), k, chain=True, jvp=jvp)

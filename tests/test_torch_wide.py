@@ -217,15 +217,16 @@ _WIDE_COVERED = {
 # probe; with two the chain is refused, naming why the wide forms do not
 # take it.  Conditional wide chains run the wide forms' COND instances, with
 # two probes their probe COND instances (K6 x K8); past the probe COND
-# instances' shared memory or the wide widths they are refused (K8 in the
+# instances' shared memory or the wide widths the wide forms refuse them,
+# naming why, and the streamed probe COND instances take them (K8 in the
 # streamed forms).
 _WIDE_REFUSED = {
     "dz65": ((65, 128, 128, 65), 0, "state width 65 > 64", 2),
     "hidden129": ((43, 129, 128, 43), 0, "hidden width 129 > 128", 2),
-    "conditional-wide": ((64, 128, 128, 120, 64), 1, "conditional chains past the wide limits", 2),
+    "conditional-wide": ((64, 128, 128, 120, 64), 1, "shared memory", 2),
     "five-layer": ((43, 64, 64, 64, 64, 43), 0, "5-layer chains", 1),
     "weights-past-shared-memory": ((64, 128, 128, 128, 64), 0, "shared memory", 2),
-    "conditional-hepmass42": ((42, 129, 42), 1, "K8 in the wide", 2),
+    "conditional-hepmass42": ((42, 129, 42), 1, "hidden width 129 > 128", 2),
     "two-layer-dz66": ((66, 198, 66), 0, "state width 66 > 64", 2),
 }
 
@@ -245,15 +246,16 @@ def test_wide_coverage(name):
 def test_wide_refusals_name_their_roadmap_row(name):
     """What the wide forms do not take is refused by them with the reason and
     its ROADMAP queue 2 row; the streamed forms (their probe instances with
-    K probes, K6) take exactly the unconditional chains of up to 4 layers
-    among them (chains past state width 64, hidden width 128 or shared
-    memory), and refuse the rest."""
+    K probes, K6, and for conditional chains their probe COND instances,
+    K6 x K8) take exactly the chains of up to 4 layers among them (chains
+    past state width 64, hidden width 128 or shared memory), and refuse the
+    rest."""
     dims, n_cond, why, probes = _WIDE_REFUSED[name]
     spec = _spec(dims, n_cond)
     msg = tfs._kernel_covers(TSIT5, spec, probes, chain=True, stream=False)
     assert msg is not None and why in msg and "ROADMAP queue 2" in msg
     streamed = tfs._kernel_covers(TSIT5, spec, probes, chain=True)
-    assert (streamed is None) == tfs._stream_chain(spec, probes != 1) == (not n_cond and len(dims) <= 5)
+    assert (streamed is None) == tfs._stream_chain(spec, probes != 1) == (len(dims) <= 5)
 
 
 def test_two_layer_kernels_refuse_a_wide_state():

@@ -313,8 +313,8 @@ def test_cond_dist_logpdf_matches_jax(net):
 
 
 # name -> (dims, n_cond, probes, jvp, what the refusal names; None: covered)
-# Past the wide limits (_STREAMED) the streamed COND instances take one VJP probe;
-# with K probes or JVP such chains are refused (row (d6)).
+# Past the wide limits (_STREAMED) the streamed COND instances take one VJP probe,
+# and their probe COND instances K probes or JVP (row (d6)).
 _STREAMED = {"hidden129", "dz65", "miniboone860", "hidden129-K2", "miniboone860-jvp"}
 _COVERAGE = {
     "two-layer": (TWO, 1, 1, False, None),
@@ -326,8 +326,8 @@ _COVERAGE = {
     "hidden129": ((44, 129, 43), 1, 1, False, None),
     "dz65": ((66, 130, 65), 1, 1, False, None),
     "miniboone860": ((44, 860, 860, 43), 1, 1, False, None),
-    "hidden129-K2": ((44, 129, 43), 1, 2, False, tfs.COND_STREAM_PROBES),
-    "miniboone860-jvp": ((44, 860, 860, 43), 1, 1, True, tfs.COND_STREAM_PROBES),
+    "hidden129-K2": ((44, 129, 43), 1, 2, False, None),
+    "miniboone860-jvp": ((44, 860, 860, 43), 1, 1, True, None),
 }
 
 
@@ -337,12 +337,11 @@ def test_wide_cond_coverage(name):
     past the narrow widths that the wide forms keep, with one VJP probe and
     (their probe COND instances) with K probes or JVP probes; conditional
     chains past the wide limits run the streamed forms' COND instances with
-    one VJP probe and are refused with K probes or JVP, naming their
-    ROADMAP queue 2 row; the streamed forms take no conditional chain with
-    probes."""
+    one VJP probe and their probe COND instances with K probes or JVP
+    (row (d6)); the streamed forms take no chain the wide forms keep."""
     dims, nc, k, jvp, why = _COVERAGE[name]
     spec = _spec(dims, nc)
-    assert tfs._wide_chain(spec) and not tfs._stream_chain(spec, True)
+    assert tfs._wide_chain(spec) and tfs._stream_chain(spec, True) == (name in _STREAMED)
     assert tfs._stream_chain(spec) == (name in _STREAMED)
     msg = tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp)
     assert msg == why
@@ -355,9 +354,9 @@ def test_cond_shared_memory_rule_counts_the_ys_rows():
     rows of the first layer and, per tile row of the wide K2 chain form's
     COND instance, its ys values and ys cotangents: a chain that the wide
     forms keep unconditionally can pass the limit once it reads enough ys
-    columns, and is then refused as a conditional chain past the wide
-    limits, where the streamed COND instances take it with one probe and
-    refuse it with two."""
+    columns, and is then a conditional chain past the wide limits, which
+    the streamed COND instances take with one probe and their probe COND
+    instances with two."""
     base = (64, 128, 128, 120, 64)
     assert tfs._wide_limit(_spec(base, 0)) is None
     for nc in (1, 8):
@@ -367,7 +366,8 @@ def test_cond_shared_memory_rule_counts_the_ys_rows():
     assert "shared memory" in tfs._wide_limit(_spec((64 + wide,) + base[1:], wide))
     assert tfs._kernel_covers(TSIT5, _spec((64 + wide,) + base[1:], wide), chain=True) is None
     assert tfs._stream_chain(_spec((64 + wide,) + base[1:], wide))
-    assert tfs._kernel_covers(TSIT5, _spec((64 + wide,) + base[1:], wide), 2, chain=True) == tfs.COND_STREAM_PROBES
+    assert tfs._kernel_covers(TSIT5, _spec((64 + wide,) + base[1:], wide), 2, chain=True) is None
+    assert tfs._stream_chain(_spec((64 + wide,) + base[1:], wide), True)
     assert tfs._kernel_covers(TSIT5, _spec((64 + wide - 1,) + base[1:], wide - 1), chain=True) is None
 
 
@@ -379,7 +379,7 @@ def _fake_cuda():
 # name -> (check, dims, n_cond, keyword arguments, the row or reason the refusal names)
 _REFUSED = {
     "probe-instance-shared-memory": ("chain", (65, 128, 128, 120, 64), 1, dict(wide=True, cond=True, k_probes=2),
-                                     tfs.COND_STREAM_PROBES),
+                                     "their streamed forms take the chain"),
     "streamed-chain": ("chain", (44, 860, 860, 43), 1, dict(wide=True, cond=True),
                        "their streamed forms take the chain"),
     "streamed-two-layer": ("two", (87, 258, 86), 1, dict(cond=True), "state width 86 > 64"),
@@ -397,9 +397,10 @@ def test_cond_refusals_on_the_card_name_their_row(name):
     widths raises NotImplementedError through the wrappers' checks, naming
     its reason or ROADMAP queue 2 row (stable names): with two probes, a
     chain the one-probe COND instance keeps whose probe COND instance's
-    shared memory it passes (row (d6)); past the wide limits the wide chain
-    forms and the wide 2-layer kernels, the wide K4 adjoint among them,
-    name the limit (the streamed COND instances take those nets:
+    shared memory it passes (the streamed probe COND instances take it, row
+    (d6): tests/test_torch_stream_cond_probes.py); past the wide limits the
+    wide chain forms and the wide 2-layer kernels, the wide K4 adjoint among
+    them, name the limit (the streamed COND instances take those nets:
     tests/test_torch_stream_cond.py); and no unconditional instance takes a
     conditional net, nor a COND instance an unconditional one."""
     check, dims, nc, kw, why = _REFUSED[name]

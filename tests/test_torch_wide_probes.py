@@ -180,15 +180,16 @@ def test_conditional_wide_chains_with_probes_stay_refused(probes):
     """A conditional wide chain that the wide probe COND instances keep
     (MINIBOONE with two ys columns) runs them with probes (K6 x K8); one
     whose probe COND instance's shared memory it passes, though the
-    one-probe COND instance keeps it, stays refused with probes, naming its
-    ROADMAP row (K8 in the streamed forms)."""
+    one-probe COND instance keeps it, runs the streamed probe COND
+    instances with probes (row (d6)), and the wide forms alone still refuse
+    it, naming shared memory and its ROADMAP row."""
     k, jvp = _PROBE_CONFIGS[probes]
     assert tfs._kernel_covers(TSIT5, _spec(MINIBOONE, 2), k, chain=True, jvp=jvp) is None
     spec = _spec((64, 128, 128, 120, 64), 1)
-    assert tfs._kernel_covers(TSIT5, spec, chain=True) is None
-    msg = tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp)
-    assert msg == tfs.COND_STREAM_PROBES and "conditional chains past the wide limits" in msg
-    assert "ROADMAP queue 2" in msg
+    assert tfs._kernel_covers(TSIT5, spec, chain=True) is None and not tfs._stream_chain(spec)
+    assert tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp) is None and tfs._stream_chain(spec, True)
+    msg = tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp, stream=False)
+    assert "shared memory" in msg and "ROADMAP queue 2" in msg
 
 
 def test_probe_instance_shared_memory_rule():
