@@ -125,12 +125,21 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     steps), and the conditional 3-layer chain (MLP 44 -> 128 -> 128 -> 43,
     B = 2048) served through wide K7 TEST's (`CondICNFDist.logpdf`,
     `sample`) and trained under exact trace through wide K7 exact's, its
-    backward plain.
+    backward plain;
+  * chains of every depth: the reference benchmark suite's model
+    (ContinuousNormalizingFlows.jl's benchmark/benchmarks.jl: refbench16,
+    RNODE, nvars = naug = 8, MLP 16 -> 16, one tanh layer, on the flagship
+    recipe, B = 4096 and the suite's n = 64) and its conditional form
+    (cond_refbench16, MLP 17 -> 16 on [z | ys]) through the narrow chain
+    kernels, served (`logpdf`, `sample`), trained (the loss gradient with
+    one VJP probe, K = 4 and JVP, `fit` for four Lion steps, at K = 4 too)
+    and under exact trace; chains of 5 and 8 layers through the narrow,
+    wide and streamed forms, conditional ones through the COND instances.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
   2. build of every kernel from the sources in this checkout (one nvcc per
-     source, all at once), with the ptxas lines;
+     source, at most eight at once, the largest first), with the ptxas lines;
   3. TF32 off for matmuls and cuDNN;
   4. the flagship model with Glorot weights, small nonzero biases and
      xs ~ U[0, 1) of shape (4096, 8);
@@ -644,7 +653,43 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      else, cond_miniboone86's K = 4 `fit` only those, at least four times
      each;
 127. the K = 4 train step at cond_miniboone86 beside miniboone86's, a b b
-     a.
+     a;
+128. chains of every depth: coverage and routing of the depth
+     configurations (DEPTH_MODELS: refbench16 and cond_refbench16, 1-layer
+     nets; MLP 6 -> 32 x 7 -> 6 on the narrow forms; power6's widths at 5
+     and 8 layers and MLP 43 -> 64 x 4 -> 43 on the wide forms, their K2
+     slots past the narrow forms' shared memory; MLP 43 -> 128 x 4 -> 43,
+     miniboone860's widths at 5 layers and its conditional form on the
+     streamed forms), the narrow kernels' launch shapes, a 9-layer chain
+     and a 1-layer net of state width 33 raising on the card (shape
+     variants (b2), (c2)), ptxas's registers, stack frames and spills of
+     the chain sources' builds for every depth (`@depths`: every narrow
+     instance, the wide and streamed COND instances);
+129. refbench16 (RNODE 8 + 8, MLP 16 -> 16 tanh, the reference benchmark
+     suite's model, on the flagship recipe, B = 4096): K7 TEST, K7 exact and
+     the K1 and K2 chain forms, and their probe instances at K = 4 VJP
+     and K = 1 JVP, against their twins (steps equal, values within
+     TOL, gradients within GRAD_TOL, the last-step and near-tie rules),
+     logpdf against the plain path (where it misses TOL, held by the
+     near-tie rule on the kernel's own call), the main paths with the counters reset
+     just before each (serving, the one-probe, K-probe, JVP and exact loss
+     gradients, `fit` and the exact `fit` for four Lion steps, launching
+     only the narrow chain kernels), the K = 4 loss gradient against a
+     float64 rtol 1e-7 solve (`hold_depth_gradients`: SOLVE_REL, or 2x the
+     plain path's own distance where that path misses it);
+130. refbench16's train step and logpdf, fused and plain (the plain ones
+     one call each), at B = 4096 and at the suite's n = 64;
+131. cond_refbench16 (CondRNODE, MLP 17 -> 16 on [z | ys]) as phase 129,
+     through the narrow kernels with ys rows, with K = 4 and JVP probe
+     instances, its K = 4 gradient in the params and ys at B = 256;
+132. the narrow 8-layer chain and the 5- and 8-layer chains of the wide
+     forms as phase 131, each through its form's kernels, the one-probe
+     gradient against the float64 solve at B = 256;
+133. the 5-layer chains of the streamed forms (MLP 43 -> 128 x 4 -> 43,
+     B = 2048; miniboone860's widths at 5 layers, B = 1024, one timed call,
+     and its conditional form through the COND instances) as phase 132,
+     and the 5-layer streamed K2 chain form's time a step beside its
+     prediction (DEPTH_K2S_PREDICTED_US).
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -834,7 +879,9 @@ def hold_logpdf(cnf, label, icnf_k, icnf_p, xs, ps, ys=None, kernel=None) -> Non
     and B = len(xs) (given ys, with its first rows): equal steps, logp
     within TOL * max(1, max|logp|).  Given `kernel` = (fs, the name of the
     forward wrapper the fused path calls, its twin), a call whose steps part
-    from the plain path's is held by `logpdf_near_tie` instead."""
+    from the plain path's, or whose logp misses that bound, is held by
+    `logpdf_near_tie` instead: the kernel's own call against its twin, and
+    for a logp that misses, only where the twin shows a near-tie."""
     import torch
 
     for n in (16, len(xs)):
@@ -843,35 +890,48 @@ def hold_logpdf(cnf, label, icnf_k, icnf_p, xs, ps, ys=None, kernel=None) -> Non
             lp_k, _, st_k = cnf.inference(icnf_k, cnf.Mode.TEST, xs[:n], ps, **kw)
             lp_p, _, st_p = cnf.inference(icnf_p, cnf.Mode.TEST, xs[:n], ps, **kw)
         dlp = float((lp_k - lp_p).abs().max())
-        check(dlp <= TOL * max(1.0, float(lp_p.abs().max())), f"{label} B={n}: logp differs by {dlp}")
-        if kernel is not None and int(st_k.steps) != int(st_p.steps):
-            logpdf_near_tie(cnf, f"{label} B={n}", icnf_k, xs[:n], ps, int(st_k.steps), int(st_p.steps), *kernel)
+        missed = dlp > TOL * max(1.0, float(lp_p.abs().max()))
+        parted = int(st_k.steps) != int(st_p.steps)
+        if kernel is not None and (missed or parted):
+            logpdf_near_tie(cnf, f"{label} B={n}", icnf_k, xs[:n], ps, int(st_k.steps), int(st_p.steps), *kernel,
+                            ys=kw.get("ys"), dlp=dlp if missed else None)
         else:
-            check(int(st_k.steps) == int(st_p.steps), f"{label} B={n}: steps {int(st_k.steps)} != {int(st_p.steps)}")
+            check(not missed, f"{label} B={n}: logp differs by {dlp}")
+            check(not parted, f"{label} B={n}: steps {int(st_k.steps)} != {int(st_p.steps)}")
         print(f"{label} logpdf B={n}: steps {int(st_k.steps)}, nfe {int(st_k.nfe)}, max|dlogp| {dlp:.3e}")
 
 
-def logpdf_near_tie(cnf, label, icnf_k, xs, ps, s_k, s_p, fs, name, twin) -> None:
-    """A `logpdf` whose attempted steps part from the plain path's (its logp
-    held within TOL all the same): the kernel's own call on that path, its
-    arguments recorded (`first_calls`), is held to the kernel's twin on the
-    card on the same arguments (`hold_forward`: equal steps and values
-    within TOL, or the last-step and near-tie rules).  The plain path runs
-    other float32 sums (cuBLAS products) and may sit on the other side of a
-    near-tie of the step controller."""
+
+def logpdf_near_tie(cnf, label, icnf_k, xs, ps, s_k, s_p, fs, name, twin, ys=None, dlp=None) -> None:
+    """A `logpdf` whose attempted steps part from the plain path's, or
+    (`dlp`, its largest difference) whose logp misses TOL against it: the
+    kernel's own call on that path, its arguments recorded
+    (`first_calls`), is held to the kernel's twin on the card on the same
+    arguments.  Steps alone: `hold_forward` (equal steps and values within
+    TOL, or the last-step and near-tie rules).  A logp that misses: the
+    near-tie rule (`hold_near_tie`), which passes only where the twin's own
+    result moves by more than TOL under one-ulp moves of its inputs.  The
+    plain path runs other float32 sums (cuBLAS products) and may sit on the
+    other side of a near-tie of the step controller, or, on such an input,
+    more than TOL from the kernel."""
     import torch
     from continuousnf_tpu_torch.ode.tableaus import TSIT5
 
     with first_calls(fs, (name,)) as seen, torch.no_grad():
-        cnf.inference(icnf_k, cnf.Mode.TEST, xs, ps)
+        cnf.inference(icnf_k, cnf.Mode.TEST, xs, ps, **({} if ys is None else {"ys": ys}))
     kw = seen[name]
     spec = fs.chain_spec(icnf_k.nn, icnf_k.zdim)
     with torch.no_grad():
         out_k = getattr(fs, name)(TSIT5, spec, **kw)
         out_p = twin(TSIT5, spec, **kw)
-    print(f"{label} logpdf: steps {s_k} vs the plain path's {s_p}; the kernel's call against its twin on its "
+    what = f"max|dlogp| {dlp:.3e} over TOL" if dlp is not None else "logp within TOL"
+    print(f"{label} logpdf: steps {s_k} vs the plain path's {s_p}, {what}; the kernel's call against its twin on its "
           "arguments:")
-    hold_forward(f"{label} ({name}'s call)", out_k, out_p, near=(twin, spec, kw))
+    if dlp is None:
+        hold_forward(f"{label} ({name}'s call)", out_k, out_p, near=(twin, spec, kw))
+    else:
+        hold_near_tie(f"{label} ({name}'s call)", out_k, out_p, twin, spec, kw, "z0")
+
 
 
 def loss_grad(cnf, icnf, ps_np, xs, dev, dtype=None, ys=None, **kw):
@@ -943,14 +1003,18 @@ def chain_fma(dims, n_cond=0):
     layers' in_i out_i + H_(N-1) (only the diagonal entry of the last
     layer's product); the K2 chain form 2 S + 4 Sz + n_cond H1 + sum out_i
     (four passes, the ys cotangent, and the outer products: ys x ca_0 alone
-    for the ys rows)."""
+    for the ys rows); a 1-layer net K7 exact S + dz^2 and K7 TEST S + dz
+    (the basis push is the gated W0z^T itself)."""
     pairs = list(zip(dims[:-1], dims[1:]))
     S = sum(a * b for a, b in pairs)
     Sz = S - n_cond * dims[1]
     middle = sum(a * b for a, b in pairs[1:-1])
     dz = dims[-1]
-    return {"k1c": S + Sz, "k7e": S + dz * (dims[1] + middle + dims[-2] * dz),
-            "k7t": S + dz * (dims[1] + middle + dims[-2]), "k2c": 2 * S + 4 * Sz + n_cond * dims[1] + sum(dims[1:])}
+    fma = {"k1c": S + Sz, "k7e": S + dz * (dims[1] + middle + dims[-2] * dz),
+           "k7t": S + dz * (dims[1] + middle + dims[-2]), "k2c": 2 * S + 4 * Sz + n_cond * dims[1] + sum(dims[1:])}
+    if len(pairs) == 1:
+        fma.update(k7e=S + dz * dz, k7t=S + dz)
+    return fma
 
 
 def hold_gradients(label, l_k, g_k, l_p, g_p, l_t, g_t, names=None):
@@ -2476,18 +2540,18 @@ def probe_fma(dims, k, n_cond=0, chain=False):
     return {"k1c": S + k * Sz, "k2c": 2 * S + (3 * k + 1) * Sz + n_cond * dims[1] + sum(dims[1:])}
 
 
-def probe_records(dims, k, jvp, held, launches, names, sources, keys, B, suffix=None):
+def probe_records(dims, k, jvp, held, launches, names, sources, keys, B, suffix=None, n_cond=0):
     """The records of a form's two probe instances (`probe_form`) at k
     probes: `held` their (out, err, ms, plain ms) from `run_pair`,
     `launches` their counts on the main path; `suffix` (None: none) ends
-    each name."""
+    each name; `n_cond` the conditioning inputs of a conditional chain."""
     P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
     dz = dims[-1]
-    fma = probe_fma(dims, k, chain=keys[0] == "k1c")
+    fma = probe_fma(dims, k, n_cond, chain=keys[0] == "k1c")
     extra = (k - 1) * B * dz
     records = []
-    for i, (r, floats) in enumerate(((held[0], P + B * (3 * dz + 6) + extra),
-                                     (held[1], 2 * P + B * (5 * dz + 9) + extra))):
+    for i, (r, floats) in enumerate(((held[0], P + B * (3 * dz + 6 + n_cond) + extra),
+                                     (held[1], 2 * P + B * (5 * dz + 9 + 2 * n_cond) + extra))):
         out, err, ms, pms = r
         records.append(kernel_record(f"{names[i]}/{probe_tag(k, jvp)}" + (f"/{suffix}" if suffix else ""), sources[i],
                                      f"continuousnf_tpu/ops/fused_solve.py:{1043 if i == 0 else 1767}",
@@ -5586,6 +5650,298 @@ def cond_stream_probes(cnf, fs, dev, built):
     return records
 
 
+# ---- chains of every depth: 1-layer nets and chains of 5 to 8 layers ----
+
+#: Phases 128-133's configurations (utils/configs.py) and the form of the
+#: chain kernels each runs: the narrow forms, "wide" or "stream".
+DEPTH_MODELS = {
+    "refbench16": "narrow", "cond_refbench16": "narrow", "deep8_narrow": "narrow", "deep5_power6": "wide",
+    "deep8_power6": "wide", "deep5_miniboone43": "wide", "deep5_miniboone128": "stream",
+    "deep5_miniboone860": "stream", "cond_deep5_miniboone860": "stream",
+}
+DEPTH_PROBES = ((4, False), (1, True))  # the probe instances held at each depth configuration
+#: The gradient each depth configuration holds to a float64 rtol 1e-7 solve:
+#: (probes K, JVP?, batch).  refbench16's K = 4 gradient at its batch; the
+#: others' one-probe gradient at 256 samples, cond_refbench16's K = 4 one.
+DEPTH_TRUTH = {"refbench16": (4, False, 4096), "cond_refbench16": (4, False, 256)}
+DEPTH_TRUTH_DEFAULT = (1, False, 256)
+#: Phase 133's prediction, written before the first timed run: the 5-layer
+#: streamed K2 chain form at 860 wide does 2,292,760 FMA a field against the
+#: 3-layer one's 813,560, whose step took 52,204.9 us (PERF.md, PR 13), so
+#: about 2.8x that a step if its time follows its FMA.
+DEPTH_K2S_PREDICTED_US = 52_204.9 * 2_292_760 / 813_560
+
+
+def hold_depth_gradients(label, l_k, g_k, l_p, g_p, l_t, g_t, names=None):
+    """The fused and plain losses within 1e-4 relative, and each fused
+    gradient held to the float64 rtol 1e-7 solve by `hold_test_gradients`'
+    rule: within SOLVE_REL * max|g|, or within 2x the plain path's own
+    distance where the plain path (the same method at the same tolerances,
+    float32) is itself farther than that.  cond_refbench16 over tspan
+    (0, 13) is such a case: its plain K = 4 gradient sits 3.5e-2 (w1) and
+    4.3e-2 (ys) max|g| from the float64 solve at B = 256, the method's own
+    accuracy at rtol 1e-3."""
+    check(abs(float(l_k - l_p)) <= TOL * max(1.0, abs(float(l_p))), f"{label} losses {float(l_k)} vs {float(l_p)}")
+    names = names or [f"{x}{i + 1}" for i in range(len(g_t) // 2) for x in ("w", "b")]
+    hold_test_gradients(label, names, g_k, g_p, g_t)
+
+
+def depth_names(fs, form, cond):
+    """The four chain kernels of a form ("narrow", "wide" or "stream") and,
+    for a conditional chain past the narrow forms, their COND instances:
+    record key (k1c, k2c, k7t, k7e) -> (KERNEL_WRAPPERS name, wrapper,
+    source).  The narrow forms take conditional chains in the same
+    wrappers."""
+    names = chain_names(fs, wide=form == "wide", stream=form == "stream")
+    if form == "narrow" or not cond:
+        return names
+    pre = f"run_{form}_cond_"
+    wrappers = {"k1c": pre + "train_solve_kernel", "k2c": pre + "adjoint_kernel", "k7t": pre + "test_solve_kernel",
+                "k7e": pre + "exact_solve_kernel"}
+    return {key: (name + "/cond", getattr(fs, wrappers[key]), src) for key, (name, _, src) in names.items()}
+
+
+def depth_records(name, dims, nc, B, names, runs, launches, held, probe_launches):
+    """The records of a depth configuration's four chain kernels (`runs`,
+    `launches`) and of their probe instances at DEPTH_PROBES (`held`,
+    `probe_launches`), each name ending in the configuration's."""
+    fma = chain_fma(dims, nc)
+    dz = dims[-1]
+    P = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    floats = {"k1c": P + B * (3 * dz + 6 + nc), "k2c": 2 * P + B * (5 * dz + 9 + 2 * nc),
+              "k7t": P + B * (2 * dz + 2 + nc), "k7e": P + B * (2 * dz + 6 + nc)}
+    at = {"k1c": 1043, "k2c": 1767, "k7t": 1043, "k7e": 1043}
+    records = []
+    for key, (out, err, ms, pms) in runs.items():
+        kname, _, src = names[key]
+        records.append(kernel_record(f"{kname}/{name}", src, f"continuousnf_tpu/ops/fused_solve.py:{at[key]}",
+                                     launches[key], err, ms, pms, fma[key], B, steps_of(out)[0], floats[key],
+                                     accepted=steps_of(out)[1]))
+    for (k, jvp), pair in held.items():
+        records += probe_records(dims, k, jvp, pair, probe_launches[(k, jvp)], (names["k1c"][0], names["k2c"][0]),
+                                 (names["k1c"][2], names["k2c"][2]), ("k1c", "k2c"), B, suffix=name, n_cond=nc)
+    return records
+
+
+def depth_model(cnf, fs, dev, name, rng, phase, reps=3, probes=DEPTH_PROBES, fit=False):
+    """One depth configuration (DEPTH_MODELS) under `phase`: its four chain
+    kernels of its form (COND instances for a conditional chain) and their
+    probe instances at `probes` against their twins, each timed over `reps`
+    calls; `logpdf` against the plain path; the main paths with the
+    counters reset just before each (serving launches K7 TEST alone, the
+    Hutchinson, K-probe, JVP and exact loss gradients their kernels once
+    each; with `fit`, `fit` and the exact `fit` for four Lion steps); the
+    loss gradient of DEPTH_TRUTH (params and ys) against a float64 rtol
+    1e-7 solve (`hold_depth_gradients`).  Returns (records, the model's
+    (ps_np, xs, ys), the microseconds per attempted step of each held
+    kernel)."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, glorot_params, make_icnf, model_data
+
+    cfg, form = MODELS[name], DEPTH_MODELS[name]
+    dims, B, nc = cfg["dims"], cfg.get("batch", BATCH), cfg.get("n_cond", 0)
+    ps_np = glorot_params(rng, dims)
+    data = model_data(name, rng, B)
+    xs, ys = (torch.from_numpy(a).to(dev) for a in data) if nc else (torch.from_numpy(data).to(dev), None)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    model = lambda k=1, jvp=False, **kw: make_icnf(name, dev, num_probes=k, ad="jvp" if jvp else "vjp", **kw)  # noqa: E731
+    icnf_k, icnf_p = model(), model(fused=False)
+    spec = fs.chain_spec(icnf_k.nn, icnf_k.zdim)
+    check(spec.n_layers == len(dims) - 1 and spec.n_cond == nc
+          and fs._wide_chain(spec) == (form != "narrow") and fs._stream_chain(spec) == (form == "stream")
+          and fs._stream_chain(spec, True) == (form == "stream")
+          and all(fs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp) is None for k, jvp in ((1, False),) + probes),
+          f"{name} should run the {form} chain kernels with every probe configuration")
+    names = depth_names(fs, form, nc)
+    run = {key: w for key, (_, w, _) in names.items()}
+    label = f"{form} {'COND ' if nc else ''}({name}, {spec.n_layers} layers, B={B})"
+
+    # The four kernels and the probe instances against their twins.
+    test, train, exact, cot = kernel_inputs(icnf_k, ps, xs, rng, dev)
+    if nc:
+        test, train, exact = (dict(d, ys=ys) for d in (test, train, exact))
+    runs = {"k7t": run_pair(f"K7 TEST {label}", run["k7t"], fs.solve_test_plain, TSIT5, spec, test, reps=reps),
+            "k7e": run_pair(f"K7 exact {label}", run["k7e"], fs.solve_train_exact_plain, TSIT5, spec, exact,
+                            reps=reps),
+            "k1c": run_pair(f"K1 chain form {label}", run["k1c"], fs.solve_train_plain, TSIT5, spec, train, reps=reps)}
+    runs["k2c"] = run_pair(f"K2 chain form {label}", run["k2c"], fs.adjoint_train_plain, TSIT5, spec,
+                           adjoint_kw(train, runs["k1c"][0], cot), adjoint=True, reps=reps)
+    us = {key: r[2] * 1e3 / max(int(steps_of(r[0])[0]), 1) for key, r in runs.items()}
+    held = {}
+    if probes:
+        eps_all = torch.from_numpy(rng.normal(size=(max(k for k, _ in probes), B, icnf_k.zdim)).astype("float32"))
+        eps_all = eps_all.to(dev)
+    for k, jvp in probes:
+        tag = probe_tag(k, jvp)
+        kw1 = dict(train, eps=eps_all[:k].contiguous(), jvp=jvp)
+        r1 = run_pair(f"K1 chain form {tag} {label}", run["k1c"], fs.solve_train_plain, TSIT5, spec, kw1, reps=reps)
+        r2 = run_pair(f"K2 chain form {tag} {label}", run["k2c"], fs.adjoint_train_plain, TSIT5, spec,
+                      adjoint_kw(kw1, r1[0], cot), adjoint=True, reps=reps)
+        held[(k, jvp)] = (r1, r2)
+        us[f"k1c/{tag}"], us[f"k2c/{tag}"] = (r[2] * 1e3 / max(int(steps_of(r[0])[0]), 1) for r in (r1, r2))
+    hold_logpdf(cnf, name, icnf_k, icnf_p, xs, ps, ys=ys, kernel=(fs, run["k7t"].__name__, fs.solve_test_plain))
+
+    # The main paths, the counters reset just before each.
+    kname = {key: n for key, (n, _, _) in names.items()}
+    dist = cnf.CondICNFDist(icnf_k, cnf.Mode.TEST, ps, ys) if nc else cnf.ICNFDist(icnf_k, cnf.Mode.TEST, ps)
+    one = cnf.CondICNFDist(icnf_k, cnf.Mode.TEST, ps, ys[0]) if nc else dist
+    fs.reset_launches()
+    with torch.no_grad():
+        lp = dist.logpdf(xs)
+        samples = one.sample(B, generator=torch.Generator(device=dev).manual_seed(SEED + 1500))
+    torch.cuda.synchronize()
+    n7t = launched(fs)
+    check(n7t == {kname["k7t"]: 2}, f"{name} serving launched {n7t}")
+    check(bool(torch.isfinite(lp).all() and torch.isfinite(samples).all()) and tuple(lp.shape) == (B,)
+          and tuple(samples.shape) == (B, cfg["nvars"]), f"{name} serving output not finite or of the wrong shape")
+    steer = {"steer_r": 0.05} if icnf_k.steer_rate > 0 else {}
+    yk = {} if ys is None else {"ys": ys}
+    launches = {"k7t": n7t[kname["k7t"]]}
+    probe_launches = {}
+    for k, jvp in ((1, False),) + tuple(probes):
+        icnf = model(k, jvp)
+        eps = icnf.draw_eps(torch.Generator(device=dev).manual_seed(SEED + 1510 + k), B, dev)
+        fs.reset_launches()
+        _, g, _ = loss_grad(cnf, icnf, ps_np, xs, dev, eps=eps, **steer, **yk)
+        torch.cuda.synchronize()
+        got = launched(fs)
+        check(got == {kname["k1c"]: 1, kname["k2c"]: 1} and all(bool(torch.isfinite(x).all()) for x in g),
+              f"{name} {probe_tag(k, jvp)} gradient launched {got}")
+        if (k, jvp) == (1, False):
+            launches.update(k1c=1, k2c=1)
+        else:
+            probe_launches[(k, jvp)] = [w.probe_launches.get((k, jvp), 0) for w in (run["k1c"], run["k2c"])]
+            check(probe_launches[(k, jvp)] == [1, 1], f"{name} {probe_tag(k, jvp)} probe instances "
+                  f"{probe_launches[(k, jvp)]}")
+    fs.reset_launches()
+    _, g, _ = loss_grad(cnf, model(exact=True), ps_np, xs, dev, **steer, **yk)
+    torch.cuda.synchronize()
+    check(launched(fs) == {kname["k7e"]: 1} and all(bool(torch.isfinite(x).all()) for x in g),
+          f"{name} exact gradient launched {launched(fs)}")
+    launches["k7e"] = 1
+    if fit:
+        X = model_data(name, rng, N_STEPS * B)
+        check(form == "narrow" and not nc, "the depth fit runs on refbench16")
+        launches = chain_main_path(cnf, fs, icnf_k, model(exact=True), ps_np, xs, dev, X)
+    print(f"phase {phase}: {name} main paths: serving {n7t}, the loss gradients one launch of each kernel "
+          f"(probe instances {probe_launches}), exact {kname['k7e']} 1" + (f"; fit {launches}" if fit else ""))
+
+    # The loss gradient of DEPTH_TRUTH against a float64 rtol 1e-7 solve.
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    k, jvp, bt = DEPTH_TRUTH.get(name, DEPTH_TRUTH_DEFAULT)
+    bt = min(B, bt)
+    eps = model(k, jvp).draw_eps(torch.Generator(device=dev).manual_seed(SEED + 1520), bt, dev)
+    yt = {} if ys is None else {"ys": ys[:bt]}
+    fs.reset_launches()
+    l_k, g_k, _ = loss_grad(cnf, model(k, jvp), ps_np, xs[:bt], dev, eps=eps, **steer, **yt)
+    check(set(launched(fs)) == {kname["k1c"], kname["k2c"]}, f"{name} {probe_tag(k, jvp)}: launched {launched(fs)}")
+    l_p, g_p, _ = loss_grad(cnf, model(k, jvp, fused=False), ps_np, xs[:bt], dev, eps=eps, **steer, **yt)
+    l_t, g_t, _ = loss_grad(cnf, model(k, jvp, fused=False, dtype=torch.float64, solver=truth), ps_np, xs[:bt], dev,
+                            torch.float64, eps=eps.double(), **steer, **yt)
+    torch.cuda.synchronize()
+    gnames = [f"{x}{i + 1}" for i in range(len(dims) - 1) for x in ("w", "b")] + (["ys"] if nc else [])
+    hold_depth_gradients(f"{name} {probe_tag(k, jvp)} B={bt}", l_k, g_k, l_p, g_p, l_t, g_t, gnames)
+    print(f"phase {phase}: {name} per attempted step (us): "
+          + ", ".join(f"{key} {v:.1f}" for key, v in us.items()))
+    return depth_records(name, dims, nc, B, names, runs, launches, held, probe_launches), (ps_np, xs, ys), us
+
+
+def depth_paths(cnf, fs, dev, built):
+    """Phases 128 to 133: 1-layer nets and chains of 5 to 8 layers through
+    the chain kernels.  `built`: the build's {kernel: (library, nvcc
+    log)}.  Returns the records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, REFBENCH_BATCH, cuda_ms, make_icnf
+
+    # Phase 128: coverage, routing and launch shapes at every depth
+    # configuration; the refusals past 8 layers (b2) and of 1-layer nets
+    # past state width 32 (c2); ptxas's registers, stack frames and spills
+    # of the chain sources' builds for every depth (`@depths`): every
+    # instance of the narrow ones, the COND instances of the others.
+    for name, form in DEPTH_MODELS.items():
+        cfg = MODELS[name]
+        dims, B = cfg["dims"], cfg.get("batch", BATCH)
+        spec = fs.chain_spec(cnf.MLP(dims, device=dev), dims[-1])
+        narrow = (f", the narrow K2 chain form's shared memory at 32 threads {fs._narrow_smem_bytes(spec)} bytes"
+                  if spec.dz <= fs.MAX_DZ and max(spec.out_dims[:-1], default=0) <= fs.CHAIN_MAX_WIDTH else "")
+        line = f"phase 128: {name} {dims} ({spec.n_layers} layers, B={B}): the {form} forms{narrow}"
+        if form == "narrow":
+            widths = (ctypes.c_int * len(dims))(*dims)
+            for lib_name, entry in ((fs.K1C_KERNEL, "cnf_k1c_max_grid"), (fs.K2C_KERNEL, "cnf_k2c_max_grid"),
+                                    (fs.K7_KERNEL, "cnf_k7_exact_max_grid")):
+                lib = fs._library(lib_name, spec)
+                block, grid = fs._launch_shape(lambda blk, cap: getattr(lib, entry)(len(dims) - 1, widths, blk, cap),
+                                               entry, B, fs._CHAIN_BLOCKS)
+                line += f"; {entry} {block} threads x {grid} blocks"
+        print(line)
+    for label, dims, why in (("a 9-layer chain", (6,) + (16,) * 8 + (6,), "shape variants (b2)"),
+                             ("a 1-layer net of state width 33", (33, 33), "shape variants (c2)")):
+        spec = fs.chain_spec(cnf.MLP(dims, device=dev), dims[-1])
+        kw = dict(rtol=1e-3, atol=1e-6, max_steps=100, ws=[torch.zeros(a, b, device=dev) for a, b in
+                                                              zip(dims[:-1], dims[1:])],
+                  bs=[torch.zeros(b, device=dev) for b in dims[1:]], z0=torch.zeros(8, dims[-1], device=dev),
+                  dlogp0=torch.zeros(8, device=dev), t0=torch.tensor(0.0, device=dev),
+                  t1=torch.tensor(1.0, device=dev), dt_init=torch.tensor(0.05, device=dev))
+        refuses(fs, label, why, lambda: fs.run_chain_test_solve_kernel(TSIT5, spec, **kw), phase=128)
+    for lib_name in (fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL, fs.K1W_KERNEL, fs.K2W_KERNEL, fs.K7W_KERNEL,
+                     fs.K1S_KERNEL, fs.K2S_KERNEL, fs.K7S_KERNEL):
+        name = lib_name + "@depths"
+        if name not in built:
+            print(f"phase 128: no ptxas lines for {name} (built by an earlier process)")
+            continue
+        narrow = lib_name in (fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL)
+        for entry, props in sorted(ptxas_report(built[name][1], lib_name).items()):
+            if narrow or "cond" in entry:
+                print(f"phase 128: ptxas {name} {entry}: {props}")
+
+    records = []
+    # Phases 129-130: refbench16, the reference benchmark suite's model, at
+    # B = 4096: the four kernels and their probe instances at K = 4 and
+    # JVP against their twins, the main paths with `fit` and the exact
+    # `fit`, the K = 4 gradient against a float64 solve (129); the train
+    # step and logpdf at B = 4096 and at the suite's n = 64, fused and plain
+    # (130).
+    t_model = time.perf_counter()
+    recs, (ps_np, xs, _), _ = depth_model(cnf, fs, dev, "refbench16", np.random.default_rng(SEED + 1600), 129,
+                                          fit=True)
+    records += recs
+    print(f"phase 129: refbench16 took {time.perf_counter() - t_model:.2f} s")
+    icnf_k, icnf_p = make_icnf("refbench16", dev), make_icnf("refbench16", dev, fused=False)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    for n in (BATCH, REFBENCH_BATCH):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1602)
+        ms_step = step_ms(cnf, icnf_k, ps_np, xs[:n], gen, dev, 5)
+        ms_step_p = step_ms(cnf, icnf_p, ps_np, xs[:n], gen, dev, 1)
+        with torch.no_grad():
+            _, _, st = cnf.inference(icnf_k, cnf.Mode.TEST, xs[:n], ps)
+            ms_lp = cuda_ms(lambda: cnf.inference(icnf_k, cnf.Mode.TEST, xs[:n], ps), 5)
+            ms_lp_p = cuda_ms(lambda: cnf.inference(icnf_p, cnf.Mode.TEST, xs[:n], ps), 1)
+        print(f"phase 130: refbench16 B={n}: train step (loss, gradient, Lion) fused {ms_step:.4f} ms "
+              f"({n / ms_step * 1e3:.1f} samples/s), plain {ms_step_p:.4f} ms; logpdf fused {ms_lp:.4f} ms "
+              f"({n / ms_lp * 1e3:.1f} evals/s), plain {ms_lp_p:.4f} ms; TEST steps {int(st.steps)}, NFE {int(st.nfe)}")
+
+    # Phases 131-133: cond_refbench16 (131); the narrow 8-layer chain and
+    # the deep chains of the wide forms (132); those of the streamed forms,
+    # the 5-layer miniboone860 chain and its conditional form (133).
+    us_all = {}
+    for name, phase, seed, reps in (("cond_refbench16", 131, 1610, 3), ("deep8_narrow", 132, 1611, 3),
+                                    ("deep5_power6", 132, 1612, 3), ("deep8_power6", 132, 1613, 3),
+                                    ("deep5_miniboone43", 132, 1614, 3), ("deep5_miniboone128", 133, 1615, 2),
+                                    ("deep5_miniboone860", 133, 1616, 1), ("cond_deep5_miniboone860", 133, 1617, 1)):
+        t_model = time.perf_counter()
+        recs, _, us_all[name] = depth_model(cnf, fs, dev, name, np.random.default_rng(SEED + seed), phase, reps=reps)
+        records += recs
+        print(f"phase {phase}: {name} took {time.perf_counter() - t_model:.2f} s")
+    got = us_all["deep5_miniboone860"]["k2c"]
+    print(f"phase 133: the 5-layer streamed K2 chain form at 860 wide, B={MODELS['deep5_miniboone860']['batch']}: "
+          f"{got:.1f} us per attempted step, "
+          f"predicted {DEPTH_K2S_PREDICTED_US:.1f} (2.8x the 3-layer one's 52,204.9 by FMA), measured/predicted "
+          f"{got / DEPTH_K2S_PREDICTED_US:.3f}")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -5604,17 +5960,31 @@ def main() -> int:
     print(f"card: {smi}")
 
     t_build = time.perf_counter()
-    built = _build.build_libraries([fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL,
-                                    fs.K5_KERNEL, fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL, fs.K1W_KERNEL,
-                                    fs.K2W_KERNEL, fs.K7W_KERNEL, fs.K10_KERNEL, fs.K3W_KERNEL, fs.K5W_KERNEL,
-                                    fs.K4WA_KERNEL, fs.K1S_KERNEL, fs.K2S_KERNEL, fs.K7S_KERNEL, fs.K3B_KERNEL,
-                                    fs.K1B_KERNEL, fs.K2B_KERNEL, fs.K3S_KERNEL, fs.K5S_KERNEL, fs.K4SA_KERNEL])
-    print(f"built {len(built)} kernels in {time.perf_counter() - t_build:.2f} s (one nvcc each, in parallel)")
-    for name, (lib_path, log) in built.items():
-        print(f"  {lib_path.name}")
-        for line in log.splitlines():
-            if any(k in line for k in ("entry function", "registers", "spill")):
-                print(f"    ptxas: {line.strip()}")
+    chain_sources = [fs.K1C_KERNEL, fs.K2C_KERNEL, fs.K7_KERNEL, fs.K1W_KERNEL, fs.K2W_KERNEL, fs.K7W_KERNEL,
+                     fs.K1S_KERNEL, fs.K2S_KERNEL, fs.K7S_KERNEL]
+    plain = [fs.K3_KERNEL, fs.K1_KERNEL, fs.K2_KERNEL, fs.K4_KERNEL, fs.K4A_KERNEL, fs.K5_KERNEL, fs.K10_KERNEL,
+             fs.K3W_KERNEL, fs.K5W_KERNEL, fs.K4WA_KERNEL, fs.K3B_KERNEL, fs.K1B_KERNEL, fs.K2B_KERNEL,
+             fs.K3S_KERNEL, fs.K5S_KERNEL, fs.K4SA_KERNEL] + chain_sources
+    depths = [n + "@depths" for n in chain_sources]
+    # Every library at once, the largest sources first; phases 4-127 need
+    # only the first 25 and start when those are built, while the chain
+    # sources' builds for every depth (phases 128-133) finish beside them.
+    futures = _build.start_builds(plain + depths)
+    done_at = {}
+    for name, future in futures.items():
+        future.add_done_callback(lambda _, n=name: done_at.setdefault(n, time.perf_counter()))
+    built = {name: futures[name].result() for name in plain}
+    print(f"built {len(built)} kernels in {time.perf_counter() - t_build:.2f} s (one nvcc each, {_build.MAX_NVCC} at "
+          f"once; the {len(depths)} builds of the chain sources for every depth go on beside phases 4-127)")
+
+    def print_ptxas(libs):
+        for name, (lib_path, log) in libs.items():
+            print(f"  {lib_path.name}")
+            for line in log.splitlines():
+                if any(k in line for k in ("entry function", "registers", "spill")):
+                    print(f"    ptxas: {line.strip()}")
+
+    print_ptxas(built)
     dims = MODELS["flagship"]["dims"]
     dz, H = dims[0], dims[1]
     print(f"K4 adjoint dynamic shared memory per 128-thread block at dz={dz}, H={H}: "
@@ -5668,7 +6038,16 @@ def main() -> int:
                          ("108-112", lambda: cond_wide_probes(cnf, fs, dev, built)),
                          ("113-117", lambda: cond_stream(cnf, fs, dev, built)),
                          ("118-122", lambda: cond_stream_exact(cnf, fs, dev, built)),
-                         ("123-127", lambda: cond_stream_probes(cnf, fs, dev, built))):
+                         ("123-127", lambda: cond_stream_probes(cnf, fs, dev, built)),
+                         ("128-133", lambda: depth_paths(cnf, fs, dev, built))):
+        if phases == "128-133":
+            t_wait = time.perf_counter()
+            libs = {name: futures[name].result() for name in depths}
+            print(f"the chain sources' builds for every depth: the last done {max(done_at.values()) - t_build:.2f} s "
+                  f"after the build began, waited {time.perf_counter() - t_wait:.2f} s for here; nvcc seconds "
+                  + ", ".join(f"{n} {_build.BUILD_SECONDS.get(n, float('nan')):.2f}" for n in plain + depths))
+            print_ptxas(libs)
+            built.update(libs)
         t_path = time.perf_counter()
         records += path()
         print(f"phases {phases} took {time.perf_counter() - t_path:.2f} s")

@@ -1,13 +1,17 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one `csrc/<name>.cu` file with a plain C interface (it may
-include the shared `csrc/*.cuh` headers).  It is compiled with nvcc for
+include the shared `csrc/*.cuh` headers).  A name `<name>@<variant>` builds
+the same source with the variant's flags (VARIANTS) into a library of its
+own: `@depths` builds the chain kernels for 1 to 8 layers, their plain
+build for 2 to 4 (csrc/chain_common.cuh).  It is compiled with nvcc for
 Hopper (`sm_90a`) into a shared library under `build/kernels/` at the
 repository root (listed in .gitignore), at its first use, and loaded with
 ctypes.  Importing the package builds nothing.  The library's file name
 carries a hash of the source, the headers and the flags, so an edited source
-is rebuilt and a stale library is never loaded.  `build_libraries` starts one
-nvcc per source at once.
+is rebuilt and a stale library is never loaded.  `start_builds` runs one
+nvcc per library, at most MAX_NVCC at once, the largest sources first, and
+`build_libraries` waits for them.
 """
 
 from __future__ import annotations
@@ -32,6 +36,13 @@ NVCC_FLAGS = (
 )
 #: Seconds nvcc took per kernel name, for the builds of this process.
 BUILD_SECONDS: Dict[str, float] = {}
+#: nvcc processes `start_builds` runs at once: one a core of the card's
+#: 8-core machine.  With 25 sources at once, three a core, the K2 chain
+#: form's source built for every depth passed the 600-second limit below (it
+#: took 386 s with 18 at once; its 2-4-layer build 323 s with 25).
+MAX_NVCC = 8
+#: The flags of each variant of a source (a kernel name `<source>@<variant>`).
+VARIANTS = {"depths": ("-DCNF_ALL_DEPTHS",)}
 
 
 def _nvcc() -> str:
@@ -44,12 +55,19 @@ def _nvcc() -> str:
     return found
 
 
+def source_of(name: str) -> Tuple[Path, Tuple[str, ...]]:
+    """The source of kernel `name` and the flags its variant adds."""
+    base, _, variant = name.partition("@")
+    return CSRC / f"{base}.cu", VARIANTS[variant] if variant else ()
+
+
 def build_library(name: str) -> Tuple[Path, str]:
-    """Compile `csrc/<name>.cu` unless a library of the same source and
-    flags exists.  Returns its path and nvcc's output (empty when nothing
-    was compiled)."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Compile kernel `name`'s source unless a library of the same source
+    and flags exists.  Returns its path and nvcc's output (empty when
+    nothing was compiled)."""
+    src, extra = source_of(name)
+    flags = NVCC_FLAGS + extra
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
@@ -62,7 +80,7 @@ def build_library(name: str) -> Tuple[Path, str]:
     start = time.perf_counter()
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [_nvcc(), *flags, "-o", tmp, str(src)],
             capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
@@ -75,18 +93,30 @@ def build_library(name: str) -> Tuple[Path, str]:
     return out, proc.stdout + proc.stderr
 
 
+def start_builds(names) -> Dict[str, concurrent.futures.Future]:
+    """Start `build_library` for several kernels, one nvcc process each, at
+    most MAX_NVCC (and the cores this process may run on) at once, the
+    largest sources first.  Returns {name: future of (path, nvcc output)}."""
+    workers = max(1, min(len(names), MAX_NVCC, len(os.sched_getaffinity(0))))
+    order = sorted(names, key=lambda n: -source_of(n)[0].stat().st_size)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=workers)
+    futures = {name: pool.submit(build_library, name) for name in order}
+    pool.shutdown(wait=False)
+    return {name: futures[name] for name in names}
+
+
 def build_libraries(names) -> Dict[str, Tuple[Path, str]]:
-    """`build_library` for several kernels, one nvcc process each, all
-    started together.  Returns {name: (path, nvcc output)}."""
-    with concurrent.futures.ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        return dict(zip(names, pool.map(build_library, names)))
+    """`start_builds` for several kernels, waited for.  Returns {name:
+    (path, nvcc output)}."""
+    return {name: f.result() for name, f in start_builds(names).items()}
 
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>.cu`'s shared library."""
+    """Build (if needed) and load kernel `name`'s shared library."""
     path, _ = build_library(name)
     return ctypes.CDLL(str(path))
 
 
-__all__ = ["build_library", "build_libraries", "load_library", "BUILD_DIR", "BUILD_SECONDS"]
+__all__ = ["build_library", "build_libraries", "start_builds", "source_of", "load_library", "BUILD_DIR",
+           "BUILD_SECONDS", "VARIANTS"]

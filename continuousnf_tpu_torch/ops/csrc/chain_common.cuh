@@ -1,22 +1,29 @@
 // The chain layer of the deep-chain solve kernels (the K1 chain form, the K7
 // TEST and exact forwards, the K2 chain form): a Dense chain of
-// n = 2 .. kMaxLayers layers, widths dz + nc -> H1 -> ... -> H(n-1) -> dz
+// n = 1 .. kMaxLayers layers, widths dz + nc -> H1 -> ... -> H(n-1) -> dz
 // with dz <= 32 (padded to DZ), hidden widths <= kMaxWidth and nc
 // conditioning inputs (K8: a conditional net's first layer reads [z | ys],
 // ys constant over the solve; nc = 0 for an unconditional net; a chain whose
 // weights and slots do not fit in shared memory gets no co-resident grid).
 // Each layer is tanh or identity (ChainLayout::act, K9): an identity layer
 // skips tanhf, its gate 1 - h^2 is 1 and its second-order terms are 0.  With
-// n = 2 there is no middle layer; the fused solve runs unconditional 2-layer
-// tanh nets through K3, K1, K2 and K4 and takes these kernels for n >= 3,
-// for every conditional net and for every net with an identity layer.
+// n = 2 there is no middle layer; with n = 1 (a 1-layer net, the reference
+// benchmark suite's Dense(16 => 16, tanh)) layer 0 is also the last layer,
+// the hidden block is empty (hsum = 0) and the field, the pullback and the
+// pushforward keep their dz-vectors in registers and stage one at a time
+// in a dz-vector of the slot.  The fused solve runs unconditional 2-layer
+// tanh nets through K3, K1, K2 and K4 and takes these kernels for every
+// other depth, for every conditional net and for every net with an identity
+// layer.
 //
 // What lives where:
 //   * the weights and biases in shared memory, laid out by ChainLayout (made
 //     on the host from the widths, copied into the kernel's arguments):
 //       layer 0      (H1, DZ)  rows o: w[o][k] = W0[k][o], zero for k >= dz
 //                    (its z rows), and (H1, nc) rows o: wy[o][c] =
-//                    W0[dz + c][o] (its ys rows);
+//                    W0[dz + c][o] (its ys rows); a 1-layer net's layer 0
+//                    is laid out as a last layer, (dz + nc, DZ) rows k:
+//                    W0[k][o], its z rows then its ys rows;
 //       middle i     (in, pitch) = W_i padded to a multiple of kChunk
 //                    columns, and its transpose (out, tpitch);
 //       last layer   (H, DZ)  rows k: w[k][o] = W[k][o], zero for o >= dz;
@@ -26,9 +33,13 @@
 //     shared memory: one contiguous slot per thread at an odd stride, so a
 //     warp reading entry k of its 32 slots touches 32 different banks.  A
 //     "hidden block" holds one vector per hidden level l = 1 .. n-1, level l
-//     at hofs[l].  The pullback and the basis push read only the z rows of
-//     layer 0: the Jacobian is in z.
-// Chains past these widths run the wide forms (chain_wide.cuh).
+//     at hofs[l]; a 1-layer net's holds one DZ-float scratch vector, where
+//     its products stage the dz-vector they read (z, a probe, a cotangent)
+//     or write, so that every loop over its rows runs at run time with an
+//     unrolled DZ-wide body, as the other layers' do.  The pullback and the
+//     basis push read only the z rows of layer 0: the Jacobian is in z.
+// Chains past these widths, or whose weights and slots pass a block's shared
+// memory, run the wide forms (chain_wide.cuh).
 // The products: dz-vector times a (., DZ) row as float4 broadcasts (dot4,
 // axpy4 of solve_common.cuh), and mv_cols for hidden-to-hidden layers, which
 // keeps kChunk outputs in registers and reads each input once per chunk.
@@ -38,9 +49,23 @@
 
 #include "solve_common.cuh"
 
+// The depths a build of the chain kernels takes.  Each source that includes
+// this header is built twice (ops/_build.py): as it stands, for chains of 2
+// to 4 layers, and with CNF_ALL_DEPTHS defined (its `@depths` library) for
+// 1 to 8, the 1-layer code below included.  The 2-4-layer build compiles
+// none of that code and sizes the layout structs for 4 layers, so its
+// instances keep their machine code whatever the depths the other takes.
+#ifdef CNF_ALL_DEPTHS
+#define CNF_MIN_LAYERS 1
+#define CNF_MAX_LAYERS 8
+#else
+#define CNF_MIN_LAYERS 2
+#define CNF_MAX_LAYERS 4
+#endif
+
 namespace cnf {
 
-constexpr int kMaxLayers = 4;   // layers of a chain the chain kernels take
+constexpr int kMaxLayers = CNF_MAX_LAYERS;   // layers of a chain the chain kernels take
 constexpr int kMaxWidth = 64;   // hidden width they take
 constexpr int kChunk = 8;       // outputs of mv_cols kept in registers
 
@@ -80,7 +105,7 @@ inline void set_chain_acts(ChainLayout* L, int acts) {
 // last); false if the chain kernels compiled for DZ do not take the chain.
 template <int DZ>
 inline bool make_chain_layout(int n, const int* widths, ChainLayout* L) {
-  if (n < 2 || n > kMaxLayers) return false;
+  if (n < CNF_MIN_LAYERS || n > kMaxLayers) return false;
   const int dz = widths[n], nc = widths[0] - widths[n];
   if (dz < 1 || dz > DZ || nc < 0) return false;
   *L = ChainLayout{};
@@ -95,13 +120,20 @@ inline bool make_chain_layout(int n, const int* widths, ChainLayout* L) {
     hs += widths[l];
     hm = widths[l] > hm ? widths[l] : hm;
   }
+#if CNF_MIN_LAYERS == 1
+  if (n == 1) hs = DZ;  // a 1-layer net: the scratch vector (hofs[1] = 0)
+#endif
   int f = 0, po = 0;
   for (int i = 0; i < n; ++i) {
     const int in = widths[i], out = widths[i + 1];
     L->pofs[i] = po;
     po += in * out + out;
     L->wofs[i] = f;
+#if CNF_MIN_LAYERS == 1
+    if (i == 0 && n > 1) {
+#else
     if (i == 0) {
+#endif
       L->pitch[i] = DZ;
       f += round_up(out * DZ, 4);
       L->bofs[i] = f;
@@ -109,6 +141,9 @@ inline bool make_chain_layout(int n, const int* widths, ChainLayout* L) {
       L->yofs = f;
       f += round_up(out * nc, 4);
     } else if (i == n - 1) {
+#if CNF_MIN_LAYERS == 1
+      if (n == 1) L->yofs = f + dz * DZ;  // a 1-layer net's ys rows
+#endif
       L->pitch[i] = DZ;
       f += in * DZ;
       L->bofs[i] = f;
@@ -141,7 +176,11 @@ __device__ void load_chain_weights(const float* params, const ChainLayout& L, fl
     const float* b = W + in * out;
     float* w = s + L.wofs[i];
     float* bs = s + L.bofs[i];
+#if CNF_MIN_LAYERS == 1
+    if (i == 0 && L.n > 1) {
+#else
     if (i == 0) {
+#endif
       for (int idx = threadIdx.x; idx < out * DZ; idx += blockDim.x) {
         const int o = idx / DZ, k = idx % DZ;
         w[idx] = k < L.dz ? W[(size_t)k * out + o] : 0.f;
@@ -206,6 +245,55 @@ __device__ __forceinline__ void mv_cols(const float* src, int in, const float* W
   }
 }
 
+#if CNF_MIN_LAYERS == 1
+// A 1-layer net (n = 1): layer 0 in the last layer's layout, (dz + nc, DZ)
+// rows k = W0[k][:] (zero past dz), and X, the slot's DZ-float scratch
+// vector.  The forward y = s_0(b0 + sum_k z_k W0[k] + sum_c ys_c
+// W0[dz + c]) with z staged in X; the pullback eJ = W0z v (v the gated
+// cotangent at the output), through X; the pushforward's product
+// Je = eps W0z before the output gate, eps staged in X.  Each loop over
+// the rows runs at run time with a DZ-wide unrolled body (axpy4, dot4).
+template <int DZ, bool COND>
+__device__ __forceinline__ void one_layer_forward(const ChainLayout& L, const float* s, const float (&z)[DZ],
+                                                  const float* ys, float* X, float (&y)[DZ]) {
+  const float* w = s + L.wofs[0];
+  const float* b = s + L.bofs[0];
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) {
+    X[k] = z[k];
+    y[k] = b[k];
+  }
+  for (int k = 0; k < L.dz; ++k) axpy4<DZ>(y, X[k], w + k * DZ);
+  if constexpr (COND) {
+    for (int c = 0; c < L.nc; ++c) axpy4<DZ>(y, ys[c], w + (L.dz + c) * DZ);
+  }
+  const int on = L.act[0];
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) y[k] = activate(y[k], on);
+}
+
+template <int DZ>
+__device__ __forceinline__ void one_layer_pullback(const ChainLayout& L, const float* s, const float (&v)[DZ],
+                                                   float* X, float (&eJ)[DZ]) {
+  const float* w = s + L.wofs[0];
+  for (int k = 0; k < L.dz; ++k) X[k] = dot4<DZ>(v, w + k * DZ);
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) eJ[k] = k < L.dz ? X[k] : 0.f;
+}
+
+template <int DZ>
+__device__ __forceinline__ void one_layer_pushforward(const ChainLayout& L, const float* s, const float (&e)[DZ],
+                                                      float* X, float (&Je)[DZ]) {
+  const float* w = s + L.wofs[0];
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) {
+    X[k] = e[k];
+    Je[k] = 0.f;
+  }
+  for (int k = 0; k < L.dz; ++k) axpy4<DZ>(Je, X[k], w + k * DZ);
+}
+#endif
+
 // The chain's forward pass of one sample on [z | ys] (fused_solve.py::
 // _chain_fwd on _zin): the hidden activations to the hidden block H, the
 // output y in registers (zero beyond dz: the padded columns of the last
@@ -216,6 +304,12 @@ template <int DZ, bool COND>
 __device__ void chain_forward(const ChainLayout& L, const float* s, const float (&z)[DZ], const float* ys,
                               float* H, float (&y)[DZ]) {
   const int n = L.n;
+#if CNF_MIN_LAYERS == 1
+  if (n == 1) {
+    one_layer_forward<DZ, COND>(L, s, z, ys, H, y);
+    return;
+  }
+#endif
   {
     float* h1 = H + L.hofs[1];
     const float* w = s + L.wofs[0];
@@ -257,6 +351,12 @@ template <int DZ>
 __device__ void chain_pullback(const ChainLayout& L, const float* s, const float (&v)[DZ], float* H,
                                float (&eJ)[DZ]) {
   const int n = L.n;
+#if CNF_MIN_LAYERS == 1
+  if (n == 1) {
+    one_layer_pullback<DZ>(L, s, v, H, eJ);
+    return;
+  }
+#endif
   {
     float* h = H + L.hofs[n - 1];
     const float* w = s + L.wofs[n - 1];
@@ -285,6 +385,12 @@ template <int DZ>
 __device__ void chain_pullback_to(const ChainLayout& L, const float* s, const float (&v)[DZ], const float* H,
                                   float* G, float (&eJ)[DZ]) {
   const int n = L.n;
+#if CNF_MIN_LAYERS == 1
+  if (n == 1) {
+    one_layer_pullback<DZ>(L, s, v, G, eJ);
+    return;
+  }
+#endif
   {
     const float* h = H + L.hofs[n - 1];
     float* g = G + L.hofs[n - 1];
@@ -315,6 +421,12 @@ template <int DZ>
 __device__ void chain_pushforward(const ChainLayout& L, const float* s, const float (&e)[DZ], const float* H,
                                   float* T, float (&Je)[DZ]) {
   const int n = L.n;
+#if CNF_MIN_LAYERS == 1
+  if (n == 1) {
+    one_layer_pushforward<DZ>(L, s, e, T, Je);
+    return;
+  }
+#endif
   {
     const float* h = H + L.hofs[1];
     float* t = T + L.hofs[1];
@@ -344,7 +456,7 @@ __device__ inline void share_layout(const ChainLayout& from, ChainLayout* to) {
 }
 
 // The padded width DZ a chain of these widths is compiled for, 0 if none.
-inline int chain_dz(int n, const int* widths) { return n >= 2 && n <= kMaxLayers ? padded_dz(widths[n]) : 0; }
+inline int chain_dz(int n, const int* widths) { return n >= CNF_MIN_LAYERS && n <= kMaxLayers ? padded_dz(widths[n]) : 0; }
 
 // Whether the chain of these widths is conditional (its input is wider than
 // its state): the kernels' COND instance.

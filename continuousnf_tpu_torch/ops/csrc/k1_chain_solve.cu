@@ -1,5 +1,5 @@
 // The K1 chain form: the TRAIN-mode forward solve of a CNF whose field is a
-// Dense chain of 2 to 4 tanh or identity layers with Hutchinson probes, the
+// Dense chain of 1 to 8 tanh or identity layers with Hutchinson probes, the
 // whole adaptive solve (any embedded explicit tableau, K9) in one
 // cooperative launch.  Two instances: one reverse-mode probe (below), and
 // the probe instance (K6, at the end) for K probes, reverse or forward mode.
@@ -25,7 +25,9 @@
 // width (6 -> 64 -> 64 -> 6), on one thread per sample; a stage at B = 4096
 // is 0.08 GFLOP, about a microsecond of the card's f32 rate, so the time goes
 // to each thread's chain of FMAs and shared-memory reads and to one grid
-// barrier per attempted step.  The design is K1's with the chain layer of
+// barrier per attempted step.  A 1-layer net (the reference benchmark suite's
+// Dense(16 => 16, tanh)) keeps its whole field in registers and its slot
+// holds only ys.  The design is K1's with the chain layer of
 // chain_common.cuh: weights in shared memory, the hidden activations in the
 // thread's shared-memory slot (overwritten in place by the pullback's gated
 // cotangents: 128 floats a sample at power6) and the sample's ys (nc floats,
@@ -287,7 +289,7 @@ extern "C" int cnf_k1c_train_solve(const float* params, const float* eps, const 
                                    int n, const int* widths, int acts, int max_steps, int norm_z, int norm_j,
                                    float rtol, float atol, float beta1, float beta2, float inv_order,
                                    const float* tab, int grid, int block, void* stream) {
-  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < 2 || n > cnf::kMaxLayers)
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < CNF_MIN_LAYERS || n > cnf::kMaxLayers)
     return (int)cudaErrorInvalidValue;
   Args a = {};
   cnf::set_fwd_args(&a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n],
@@ -306,7 +308,7 @@ extern "C" int cnf_k1c_probe_solve(const float* params, const float* eps, const 
                                    int n, const int* widths, int acts, int max_steps, int norm_z, int norm_j,
                                    int K, int jvp, float rtol, float atol, float beta1, float beta2,
                                    float inv_order, const float* tab, int grid, int block, void* stream) {
-  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < 2 || n > cnf::kMaxLayers || K < 1)
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < CNF_MIN_LAYERS || n > cnf::kMaxLayers || K < 1)
     return (int)cudaErrorInvalidValue;
   Args a = {};
   cnf::set_fwd_args(&a.f, eps, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n],

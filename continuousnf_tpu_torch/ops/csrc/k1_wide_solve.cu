@@ -1,5 +1,5 @@
 // The wide K1 chain form: the TRAIN-mode forward solve of a CNF whose field
-// is an unconditional Dense chain of 2 to 4 tanh or identity layers with
+// is an unconditional Dense chain of 2 to 8 tanh or identity layers with
 // state width up to 64 and hidden widths up to 128 (the tabular MINIBOONE
 // model 43 -> 128 -> 128 -> 43), one Hutchinson probe (reverse mode), the
 // whole adaptive solve (any embedded explicit tableau, K9) in one

@@ -1,5 +1,5 @@
 // The K2 chain form: the continuous-adjoint (backsolve) backward integration
-// of a TRAIN-mode CNF whose field is a Dense chain of 2 to 4 tanh or identity
+// of a TRAIN-mode CNF whose field is a Dense chain of 1 to 8 tanh or identity
 // layers with Hutchinson probes, the whole adaptive solve (any embedded
 // explicit tableau, K9) from t_hi down to t_lo in one cooperative launch.
 // Two instances: one reverse-mode probe (below), and the probe instance
@@ -140,6 +140,84 @@ struct AdjArgs {
   int norm_z, norm_j;
 };
 
+#if CNF_MIN_LAYERS == 1
+// A 1-layer net's per-sample state across its stage's calls below: the
+// stage's inputs and outputs (copies of the solver's arrays, so that theirs
+// keep their registers), and the probe stage's forward and running sums.
+template <int DZ>
+struct OneLayerIO {
+  float z[DZ], az[DZ], e[DZ], aacc[3];
+  float kz[DZ], kr[3], kaz[DZ];
+  float y[DZ], gy[DZ], cty[DZ], ysq, tr, nsum;
+};
+
+// A 1-layer net's augmented stage (n = 1, chain_adjoint_stage's math with
+// no hidden level): y = s_0(h_0 W_0 + b_0), v = eps s'(y), eJ = v W_0z^T;
+// cu = eps ct_tr + eJ fn (pu0), ct_v = cu W_0z, ct_y = a_z + y fz
+// - 2 y (ct_v eps) (tanh), ca = ct_y s'(y) (cal); k_az = -ca W_0z^T,
+// k_ays = -ca W_0y^T.  The slot keeps z, pu0, v (vl) and ca (cal) for the
+// gradient pass (layer 0 is the last layer: Slot::gv[0] = vl, gca[0] = cal)
+// and ys; its hidden block (HS) is the products' DZ-float scratch.  This
+// and the probe stage's parts below are calls of their own (`__noinline__`
+// on an OneLayerIO): inlined into every unrolled stage of adjoint_solve
+// beside the N-layer body, they took nvcc past ten minutes on this source.
+template <int DZ, bool COND>
+__device__ __noinline__ void one_layer_adjoint_stage(const ChainLayout& L, const Slot& m, const float* w, float* sl,
+                                                     int norm_z, int norm_j, OneLayerIO<DZ>& io, float* kys,
+                                                     size_t stride) {
+  float* X = sl + m.hs;
+  const int on_y = L.act[0];
+  float y[DZ];
+  cnf::chain_forward<DZ, COND>(L, w, io.z, sl + m.ys, X, y);
+  float vl[DZ], ysq = 0.f;
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) {
+    ysq = fmaf(y[k], y[k], ysq);
+    vl[k] = io.e[k] * gate(y[k], on_y);
+    sl[m.z + k] = io.z[k];
+    sl[m.vl + k] = vl[k];
+  }
+  float eJ[DZ];
+  cnf::one_layer_pullback<DZ>(L, w, vl, X, eJ);
+  float tr = 0.f, nsq = 0.f;
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) {
+    tr = fmaf(eJ[i], io.e[i], tr);
+    nsq = fmaf(eJ[i], eJ[i], nsq);
+  }
+  const float e_rate = safe_norm_sq(ysq), n_rate = safe_norm_sq(nsq);
+  io.kr[0] = -tr;
+  io.kr[1] = norm_z ? e_rate : 0.f;
+  io.kr[2] = norm_j ? n_rate : 0.f;
+  const float ct_tr = -io.aacc[0];
+  const float fz = norm_z ? ct_safe_norm(io.aacc[1], e_rate) : 0.f;
+  const float fn = norm_j ? ct_safe_norm(io.aacc[2], n_rate) : 0.f;
+  float cu[DZ];
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) {
+    cu[i] = fmaf(eJ[i], fn, io.e[i] * ct_tr);
+    sl[m.pu0 + i] = cu[i];
+  }
+  float cv[DZ], cal[DZ];
+  cnf::one_layer_pushforward<DZ>(L, w, cu, X, cv);
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) {
+    const float ct_h = on_y ? fmaf(y[k], fz, io.az[k]) + (-2.f * y[k]) * (cv[k] * io.e[k])
+                            : fmaf(y[k], fz, io.az[k]);
+    cal[k] = ct_h * gate(y[k], on_y);
+    sl[m.cal + k] = cal[k];
+    io.kz[k] = y[k];
+  }
+  float cz[DZ];
+  cnf::one_layer_pullback<DZ>(L, w, cal, X, cz);
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) io.kaz[i] = -cz[i];
+  if constexpr (COND) {
+    for (int c = 0; c < L.nc; ++c) kys[c * stride] = -dot4<DZ>(cal, w + L.yofs + c * DZ);
+  }
+}
+#endif
+
 // One augmented stage of one sample (fused_solve.py::_stage_train_fwdbwd with
 // ct_y = a_z, ct_r = a_acc): the field y and rates kr, k_az = -ct_z,
 // k_ays = -ct_ys to kys[c * stride] (c < nc; the sample's ys already in the
@@ -151,6 +229,28 @@ __device__ void chain_adjoint_stage(const ChainLayout& L, const Slot& m, const f
                                     const float (&e)[DZ], const float (&aacc)[3], float (&kz)[DZ],
                                     float (&kr)[3], float (&kaz)[DZ], float* kys, size_t stride) {
   const int n = L.n;
+#if CNF_MIN_LAYERS == 1
+  if (n == 1) {
+    OneLayerIO<DZ> io;
+#pragma unroll
+    for (int i = 0; i < DZ; ++i) {
+      io.z[i] = z[i];
+      io.az[i] = az[i];
+      io.e[i] = e[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 3; ++r) io.aacc[r] = aacc[r];
+    one_layer_adjoint_stage<DZ, COND>(L, m, w, sl, norm_z, norm_j, io, kys, stride);
+#pragma unroll
+    for (int i = 0; i < DZ; ++i) {
+      kz[i] = io.kz[i];
+      kaz[i] = io.kaz[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 3; ++r) kr[r] = io.kr[r];
+    return;
+  }
+#endif
   float* HS = sl + m.hs;
   float* PU = sl + m.pu;
   float* V = sl + m.v;
@@ -324,6 +424,149 @@ __device__ __forceinline__ float block_grad_entry(const ChainLayout& L, const Sl
   return -v;
 }
 
+#if CNF_MIN_LAYERS == 1
+// A 1-layer net's probe stage (n = 1, chain_probe_stage's math with no
+// hidden level), in three calls of its own around the flushes: the forward
+// (y, its gate, z into the slot); per probe, VJP eJ = (eps s'(y)) W_0z^T,
+// leaving pu0 = cu and vl = eps s'(y) for `flush` (W_0: cu (x) v), or JVP
+// Je = (eps W_0z) s'(y), leaving pu0 = eps and vl = ct_Je s'(y), with the
+// -2 y terms summed over the probes in cty; then ca = (a_z + y fz + cty)
+// s'(y) (cal), k_az = -ca W_0z^T and k_ays = -ca W_0y^T.
+template <int DZ, bool COND>
+__device__ __noinline__ void one_layer_probe_forward(const ChainLayout& L, const Slot& m, const float* w, float* sl,
+                                                     bool valid, OneLayerIO<DZ>& io) {
+  const int on_y = L.act[0];
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) {
+    io.y[k] = 0.f;
+    io.cty[k] = 0.f;
+  }
+  if (valid) cnf::chain_forward<DZ, COND>(L, w, io.z, sl + m.ys, sl + m.hs, io.y);
+  io.ysq = 0.f;
+  io.tr = 0.f;
+  io.nsum = 0.f;
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) {
+    io.ysq = fmaf(io.y[k], io.y[k], io.ysq);
+    io.gy[k] = gate(io.y[k], on_y);
+    if (valid) sl[m.z + k] = io.z[k];
+  }
+}
+
+template <int DZ>
+__device__ __noinline__ void one_layer_probe_pass(const ChainLayout& L, const Slot& m, const float* w, float* sl,
+                                                  int norm_j, const float* ek, int jvp, float ct_tr, float ct_n,
+                                                  OneLayerIO<DZ>& io) {
+  float* X = sl + m.hs;
+  const int dz = L.dz;
+  const int on_y = L.act[0];
+  float e[DZ], eJ[DZ], a[DZ];
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) e[k] = k < dz ? ek[k] : 0.f;
+  if (jvp) {
+    cnf::one_layer_pushforward<DZ>(L, w, e, X, a);
+#pragma unroll
+    for (int k = 0; k < DZ; ++k) eJ[k] = a[k] * io.gy[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < DZ; ++k) {
+      a[k] = e[k] * io.gy[k];
+      sl[m.vl + k] = a[k];
+    }
+    cnf::one_layer_pullback<DZ>(L, w, a, X, eJ);
+  }
+  float trk = 0.f, nsq = 0.f;
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) {
+    trk = fmaf(eJ[i], e[i], trk);
+    nsq = fmaf(eJ[i], eJ[i], nsq);
+  }
+  const float nk = safe_norm_sq(nsq);
+  io.tr += trk;
+  io.nsum += nk;
+  const float fn = norm_j ? ct_safe_norm(ct_n, nk) : 0.f;
+  if (jvp) {
+#pragma unroll
+    for (int k = 0; k < DZ; ++k) {
+      const float ct = fmaf(eJ[k], fn, e[k] * ct_tr);
+      if (on_y) io.cty[k] += (-2.f * io.y[k]) * (ct * a[k]);
+      sl[m.vl + k] = ct * io.gy[k];
+      sl[m.pu0 + k] = e[k];
+    }
+  } else {
+    float cu[DZ], cv[DZ];
+#pragma unroll
+    for (int i = 0; i < DZ; ++i) {
+      cu[i] = fmaf(eJ[i], fn, e[i] * ct_tr);
+      sl[m.pu0 + i] = cu[i];
+    }
+    cnf::one_layer_pushforward<DZ>(L, w, cu, X, cv);
+    if (on_y) {
+#pragma unroll
+      for (int k = 0; k < DZ; ++k) io.cty[k] += (-2.f * io.y[k]) * (cv[k] * e[k]);
+    }
+  }
+}
+
+template <int DZ, bool COND>
+__device__ __noinline__ void one_layer_probe_backward(const ChainLayout& L, const Slot& m, const float* w, float* sl,
+                                                      int norm_z, int norm_j, int K, OneLayerIO<DZ>& io, float* kys,
+                                                      size_t stride) {
+  const float e_rate = safe_norm_sq(io.ysq);
+  io.kr[0] = -(io.tr / K);
+  io.kr[1] = norm_z ? e_rate : 0.f;
+  io.kr[2] = norm_j ? io.nsum / K : 0.f;
+  const float fz = norm_z ? ct_safe_norm(io.aacc[1], e_rate) : 0.f;
+  float cal[DZ];
+#pragma unroll
+  for (int k = 0; k < DZ; ++k) {
+    cal[k] = (fmaf(io.y[k], fz, io.az[k]) + io.cty[k]) * io.gy[k];
+    sl[m.cal + k] = cal[k];
+    io.kz[k] = io.y[k];
+  }
+  float cz[DZ];
+  cnf::one_layer_pullback<DZ>(L, w, cal, sl + m.hs, cz);
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) io.kaz[i] = -cz[i];
+  if constexpr (COND) {
+    for (int c = 0; c < L.nc; ++c) kys[c * stride] = -dot4<DZ>(cal, w + L.yofs + c * DZ);
+  }
+}
+
+template <int DZ, bool COND, class Flush>
+__device__ __forceinline__ void one_layer_probe_stage(const ChainLayout& L, const Slot& m, const float* w, float* sl,
+                                                      int norm_z, int norm_j, bool valid, int s, const float* eps,
+                                                      int B, int K, int jvp, const float (&z)[DZ],
+                                                      const float (&az)[DZ], const float (&aacc)[3],
+                                                      float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ], float* kys,
+                                                      size_t stride, const Flush& flush) {
+  OneLayerIO<DZ> io;
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) {
+    io.z[i] = z[i];
+    io.az[i] = az[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) io.aacc[r] = aacc[r];
+  one_layer_probe_forward<DZ, COND>(L, m, w, sl, valid, io);
+  const float inv_k = 1.f / K;
+  const float ct_tr = -aacc[0] * inv_k, ct_n = aacc[2] * inv_k;
+  for (int pk = 0; pk < K; ++pk) {
+    if (valid) one_layer_probe_pass<DZ>(L, m, w, sl, norm_j, eps + ((size_t)pk * B + s) * L.dz, jvp, ct_tr, ct_n, io);
+    flush();
+  }
+  if (!valid) return;
+  one_layer_probe_backward<DZ, COND>(L, m, w, sl, norm_z, norm_j, K, io, kys, stride);
+#pragma unroll
+  for (int i = 0; i < DZ; ++i) {
+    kz[i] = io.kz[i];
+    kaz[i] = io.kaz[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) kr[r] = io.kr[r];
+}
+#endif
+
 // The probe instance's stage (K6) of sample s (nothing but the flushes when
 // `valid` is false; the sample's ys already in the slot): the forward pass,
 // then per probe its pass and that pass's VJP, leaving its vectors in the
@@ -337,6 +580,13 @@ __device__ void chain_probe_stage(const ChainLayout& L, const Slot& m, const flo
                                   float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ], float* kys, size_t stride,
                                   const Flush& flush) {
   const int n = L.n;
+#if CNF_MIN_LAYERS == 1
+  if (n == 1) {
+    one_layer_probe_stage<DZ, COND>(L, m, w, sl, norm_z, norm_j, valid, s, eps, B, K, jvp, z, az, aacc, kz, kr, kaz,
+                                    kys, stride, flush);
+    return;
+  }
+#endif
   const int dz = L.dz;
   float* HS = sl + m.hs;
   float* PU = sl + m.pu;
@@ -771,7 +1021,7 @@ extern "C" int cnf_k2c_train_adjoint(const float* params, const float* eps, cons
                                      const int* widths, int acts, int max_steps, int norm_z, int norm_j, float rtol,
                                      float atol, float beta1, float beta2, float inv_order, const float* tab,
                                      int grid, int block, void* stream) {
-  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < 2 || n > kMaxLayers)
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < CNF_MIN_LAYERS || n > kMaxLayers)
     return (int)cudaErrorInvalidValue;
   AdjArgs a = {};
   cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, gpart, B,
@@ -799,7 +1049,7 @@ extern "C" int cnf_k2c_probe_adjoint(const float* params, const float* eps, cons
                                      const int* widths, int acts, int max_steps, int norm_z, int norm_j, int K, int jvp, float rtol,
                                      float atol, float beta1, float beta2, float inv_order, const float* tab,
                                      int grid, int block, void* stream) {
-  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < 2 || n > kMaxLayers || K < 1)
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < CNF_MIN_LAYERS || n > kMaxLayers || K < 1)
     return (int)cudaErrorInvalidValue;
   AdjArgs a = {};
   cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, gpart, B,

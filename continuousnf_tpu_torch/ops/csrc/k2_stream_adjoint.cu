@@ -1,6 +1,6 @@
 // The streamed K2 chain form: the continuous-adjoint (backsolve) backward
 // integration of a TRAIN-mode CNF whose field is an unconditional Dense
-// chain of 2 to 4 tanh or identity layers with state width up to 128 and
+// chain of 2 to 8 tanh or identity layers with state width up to 128 and
 // hidden widths past what the wide forms keep in shared memory (FFJORD's
 // tabular MINIBOONE model 43 -> 860 -> 860 -> 43), one Hutchinson probe
 // (reverse mode), the whole adaptive solve (any embedded explicit tableau,

@@ -1,6 +1,6 @@
 // The wide K2 chain form: the continuous-adjoint (backsolve) backward
 // integration of a TRAIN-mode CNF whose field is an unconditional Dense
-// chain of 2 to 4 tanh or identity layers with state width up to 64 and
+// chain of 2 to 8 tanh or identity layers with state width up to 64 and
 // hidden widths up to 128 (the tabular MINIBOONE model 43 -> 128 -> 128 ->
 // 43), one Hutchinson probe (reverse mode), the whole adaptive solve (any
 // embedded explicit tableau, K9) from t_hi down to t_lo in one cooperative

@@ -1,4 +1,4 @@
-// K7: the forward solves of a CNF whose field is a Dense chain of 2 to 4 tanh
+// K7: the forward solves of a CNF whose field is a Dense chain of 1 to 8 tanh
 // or identity layers with the exact trace by basis propagation, the whole
 // adaptive solve (any embedded explicit tableau, K9) in one cooperative
 // launch.  Two entry points:
@@ -21,7 +21,9 @@
 // through the linearised layers:
 //   t_1 = d_1 (.) W_0[j, :] (j < dz: a z row),  t_(l+1) = d_(l+1) (.) (t_l W_l),
 //   t_N = dy (.) (t_(N-1) W_(N-1)),
-// tr += t_N[j] and ||J||_F^2 += |t_N|^2.  TEST needs only t_N[j] but
+// tr += t_N[j] and ||J||_F^2 += |t_N|^2.  A 1-layer net has no hidden level:
+// t_N = dy (.) W_0[j, :] straight from its weights, tr = sum_i dy_i W_0[i][i]
+// and ||J||_F^2 = sum (dy_i W_0[k][i])^2, in registers.  TEST needs only t_N[j] but
 // computes the whole row t_N all the same: as DZ independent FMA chains fed
 // by float4 weight reads it runs faster here than the one dependent chain of
 // H_(N-1) FMAs that column j alone is (with one warp per scheduler nothing
@@ -83,6 +85,12 @@ struct ChainExactField {
     float* yc = sl + c.hsum + 2 * c.hmax;
     if constexpr (COND) cnf::load_cond(c, ys, s, yc);
     cnf::chain_forward<DZ, COND>(c, w, z, yc, sl, y);
+#if CNF_MIN_LAYERS == 1
+    if (n == 1) {
+      one_layer(c, w, y, ky, kr);
+      return;
+    }
+#endif
     for (int l = 1; l < n; ++l) {
       float* d = sl + c.hofs[l];
       const int on = c.act[l - 1];
@@ -132,6 +140,39 @@ struct ChainExactField {
       kr[2] = norm_j ? safe_norm_sq(fro2) : 0.f;
     }
   }
+
+#if CNF_MIN_LAYERS == 1
+  // A 1-layer net: J = diag(dy) W_0z^T, column j of its basis push the z
+  // row j of W_0 gated by dy (its row j in the last layer's layout, zero
+  // past dz).
+  __device__ __forceinline__ void one_layer(const ChainLayout& c, const float* w, const float (&y)[DZ],
+                                            float (&ky)[DZ], float (&kr)[NACC]) const {
+    const float* w0 = w + c.wofs[0];
+    float dy[DZ], ysq = 0.f;
+    const int on = c.act[0];
+#pragma unroll
+    for (int k = 0; k < DZ; ++k) {
+      ky[k] = y[k];
+      ysq = fmaf(y[k], y[k], ysq);
+      dy[k] = cnf::gate(y[k], on);
+    }
+    float tr = 0.f, fro2 = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < dz; ++j) {
+#pragma unroll
+      for (int i = 0; i < DZ; ++i) {
+        const float ti = w0[j * DZ + i] * dy[i];
+        if (i == j) tr += ti;
+        fro2 = fmaf(ti, ti, fro2);
+      }
+    }
+    kr[0] = -tr;
+    if constexpr (NACC == 3) {
+      kr[1] = norm_z ? safe_norm_sq(ysq) : 0.f;
+      kr[2] = norm_j ? safe_norm_sq(fro2) : 0.f;
+    }
+  }
+#endif
 };
 
 template <int DZ, int NACC, bool COND>
@@ -209,7 +250,7 @@ int solve(const float* params, const float* ys, const float* z0, const float* ac
           float* accT, int* stats, float* dt_last, float* work, float* partials, int B, int n, const int* widths,
           int acts, int max_steps, int norm_z, int norm_j, float rtol, float atol, float beta1, float beta2,
           float inv_order, const float* tab, int grid, int block, void* stream) {
-  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < 2 || n > cnf::kMaxLayers)
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || n < CNF_MIN_LAYERS || n > cnf::kMaxLayers)
     return (int)cudaErrorInvalidValue;
   Args a = {};
   cnf::set_fwd_args(&a.f, nullptr, z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, widths[n],

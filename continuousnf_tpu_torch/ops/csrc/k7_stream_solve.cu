@@ -1,5 +1,5 @@
 // Streamed K7: the forward solves of a CNF whose field is an unconditional
-// Dense chain of 2 to 4 tanh or identity layers with state width up to 128
+// Dense chain of 2 to 8 tanh or identity layers with state width up to 128
 // and hidden widths past what the wide forms keep in shared memory (FFJORD's
 // tabular MINIBOONE model 43 -> 860 -> 860 -> 43), the exact trace by basis
 // propagation, the whole adaptive solve (any embedded explicit tableau, K9)

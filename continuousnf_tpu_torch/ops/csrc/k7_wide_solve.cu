@@ -1,5 +1,5 @@
 // Wide K7: the forward solves of a CNF whose field is an unconditional Dense
-// chain of 2 to 4 tanh or identity layers with state width up to 64 and
+// chain of 2 to 8 tanh or identity layers with state width up to 64 and
 // hidden widths up to 128 (the tabular MINIBOONE model 43 -> 128 -> 128 ->
 // 43), the exact trace by basis propagation, the whole adaptive solve (any
 // embedded explicit tableau, K9) in one cooperative launch.  Two entries:

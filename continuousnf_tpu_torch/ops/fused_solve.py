@@ -34,8 +34,9 @@ Twenty-four CUDA kernels (`csrc/`), each with a plain PyTorch twin; six for
   `adjoint_test_plain`) for `adjoint_solve` with `_stage_test_fwdbwd`: the
   TEST backward integration of (z, dlogp, a_z, [a_ys,] g_p), conditional
   nets (K8) in a second instance;
-and three for chains of 2 to CHAIN_MAX_LAYERS tanh or identity layers,
-sharing the chain layer of `csrc/chain_common.cuh`:
+and three for chains of 1 to CHAIN_MAX_LAYERS tanh or identity layers
+other than the unconditional 2-layer tanh nets above, sharing the chain
+layer of `csrc/chain_common.cuh`:
 - the K1 chain form (`k1_chain_solve.cu`, `run_chain_train_solve_kernel`,
   twin `solve_train_plain`) for `_stage_train` over N layers;
 - the K2 chain form (`k2_chain_adjoint.cu`, `run_chain_adjoint_kernel`, twin
@@ -177,19 +178,21 @@ K3B_KERNEL = "k3_bf16_solve"
 K1B_KERNEL = "k1_bf16_solve"
 K2B_KERNEL = "k2_bf16_adjoint"
 
-#: The chain kernels (the K1 and K2 chain forms, K7) take tanh chains of 2
+#: The chain kernels (the K1 and K2 chain forms, K7) take tanh chains of 1
 #: to CHAIN_MAX_LAYERS layers with hidden widths up to CHAIN_MAX_WIDTH,
 #: conditional or not, and every kernel a state width up to MAX_DZ
-#: (csrc/chain_common.cuh).  Their wide forms take unconditional chains of
-#: as many layers with state widths up to WIDE_MAX_DZ and hidden widths up
-#: to WIDE_MAX_WIDTH (csrc/chain_wide.cuh), where a block's shared memory
+#: (csrc/chain_common.cuh), where the K2 chain form's weights and the slots
+#: of a 32-thread block fit in a block's shared memory.  Their wide forms
+#: take the chains of 2 to CHAIN_MAX_LAYERS layers beyond, with state widths
+#: up to WIDE_MAX_DZ and hidden widths up to WIDE_MAX_WIDTH
+#: (csrc/chain_wide.cuh), where a block's shared memory
 #: (WIDE_SMEM_BYTES) holds all the weights beside a tile of samples.  Their
 #: streamed forms take the unconditional chains the wide forms refuse for
 #: their state width, their hidden widths or the shared memory their
 #: weights take, up to state width STREAM_MAX_DZ (csrc/chain_stream.cuh:
 #: the weights stay in global memory and stream through shared memory), with
 #: parameter counts below STREAM_MAX_PARAMS.
-CHAIN_MAX_LAYERS = 4
+CHAIN_MAX_LAYERS = 8
 CHAIN_MAX_WIDTH = 64
 MAX_DZ = 32
 WIDE_MAX_DZ = 64
@@ -872,9 +875,42 @@ MAX_STAGES = 13
 
 
 def _wide_chain(spec: ChainSpec) -> bool:
-    """Whether a chain is past the narrow chain kernels' widths, so that the
-    chain kernels' wide forms run it."""
-    return spec.dz > MAX_DZ or max(spec.out_dims[:-1], default=0) > CHAIN_MAX_WIDTH
+    """Whether a chain is past the narrow chain kernels' widths, or past
+    their shared memory (`_narrow_smem_bytes`: a deep chain such as
+    6 -> 64 x 7 -> 6), so that the chain kernels' wide forms run it."""
+    if spec.dz > MAX_DZ or max(spec.out_dims[:-1], default=0) > CHAIN_MAX_WIDTH:
+        return True
+    return _narrow_smem_bytes(spec) > WIDE_SMEM_BYTES
+
+
+def _narrow_smem_bytes(spec: ChainSpec) -> int:
+    """Shared-memory bytes of the narrow K2 chain form, the narrow form that
+    keeps the most, at its smallest block of 32 threads
+    (csrc/chain_common.cuh::make_chain_layout, csrc/k2_chain_adjoint.cu):
+    the weights (layer 0's z rows at the padded state width DZ, its bias and
+    its ys rows; each middle layer and its transpose at pitches rounded up to
+    8; the last layer's rows at DZ, a 1-layer net's dz + n_cond rows so), the
+    reduction slots, and 32 slots of 4 DZ + 5 hsum + n_cond floats (odd),
+    hsum the hidden widths' sum (a 1-layer net's DZ-float scratch vector).
+    The K1 chain form and K7 keep less a thread."""
+    def up(x, m):
+        return -(-x // m) * m
+
+    DZ = next(p for p in (4, 8, 16, 32) if spec.dz <= p)
+    n, nc = spec.n_layers, spec.n_cond
+    widths = (spec.in_dims[0],) + tuple(spec.out_dims)
+    f = 0
+    for i in range(n):
+        a, b = widths[i], widths[i + 1]
+        if i == 0 and n > 1:
+            f += up(b * DZ, 4) + up(b, 4) + up(b * nc, 4)
+        elif i == n - 1:
+            f += a * DZ + DZ
+        else:
+            f += a * up(b, 8) + b * up(a, 8) + up(b, 8)
+    hsum = DZ if n == 1 else sum(spec.out_dims[:-1])
+    slot = (4 * DZ + 5 * hsum + nc) | 1
+    return 4 * (f + 100 + 32 * slot)
 
 
 def _wide_smem_floats(spec: ChainSpec, probes: bool = False) -> int:
@@ -908,10 +944,12 @@ def _kernel_covers(
     every embedded explicit tableau (K9).  The 2-layer kernels take
     unconditional 2-layer tanh chains with state widths up to MAX_DZ (K5
     conditional ones too: its caller asks without the conditioning); the
-    chain kernels take Dense chains of 2 to CHAIN_MAX_LAYERS tanh or identity
+    chain kernels take Dense chains of 1 to CHAIN_MAX_LAYERS tanh or identity
     layers (K9): their narrow forms with hidden widths up to CHAIN_MAX_WIDTH
-    and state widths up to MAX_DZ, conditional ones (K8) included, their wide
-    forms the chains beyond, up to WIDE_MAX_DZ and WIDE_MAX_WIDTH, whose
+    and state widths up to MAX_DZ, conditional ones (K8) included, 1-layer
+    nets only there, whose weights and slots fit in shared memory
+    (`_narrow_smem_bytes`), their wide forms the chains of 2 layers or more
+    beyond, up to WIDE_MAX_DZ and WIDE_MAX_WIDTH, whose
     weights fit in a block's shared memory beside a tile (conditional ones
     in the COND instances of the wide K1 and K2 chain forms, with K VJP or
     JVP probes in their probe COND instances, and of wide K7's TEST and
@@ -923,9 +961,7 @@ def _kernel_covers(
     state width STREAM_MAX_DZ and STREAM_MAX_PARAMS parameters, conditional
     ones in the COND instances of the streamed K1 and K2 chain forms (with K
     VJP or JVP probes in their probe COND instances) and of streamed K7's
-    TEST and exact entries; a narrow chain whose weights and per-thread
-    slots do not fit in shared memory is refused at launch
-    (`_launch_shape`).  The Hutchinson kernels (K1, K2, their chain forms
+    TEST and exact entries.  The Hutchinson kernels (K1, K2, their chain forms
     and the chain forms' wide and streamed forms) take any number `k_probes`
     of VJP or (`jvp`) JVP probes (K6), in conditional chains too (K6 x K8:
     the wide probe COND instances where their shared memory holds the
@@ -939,21 +975,23 @@ def _kernel_covers(
                 "gradient of such a net runs the plain backward)")
     if spec.n_cond and not chain:
         return "conditional nets (K8 in the 2-layer kernels, ROADMAP queue 2)"
-    if spec.n_layers == 1:
-        return (f"1-layer nets (the kernels take 2 to {CHAIN_MAX_LAYERS} layers; 1-layer nets: ROADMAP queue 2, "
-                "shape variants (c))")
     if not chain:
         if spec.dz > MAX_DZ:
             return (f"state width {spec.dz} > {MAX_DZ} in K3, K1, K2, K4 and K5 (they keep one sample's state in "
                     "registers; unconditional 2-layer nets of a wider state run their wide forms, ROADMAP queue 2, "
                     "shape variants (a))")
         if spec.n_layers != 2:
-            return (f"{spec.n_layers}-layer chains (K3, K1, K2 and K4 take 2 layers; the chain kernels take deeper "
-                    "ones)")
+            return (f"{spec.n_layers}-layer chains (K3, K1, K2 and K4 take 2 layers; the chain kernels take the "
+                    "other depths)")
         return None
     if spec.n_layers > CHAIN_MAX_LAYERS:
         return (f"{spec.n_layers}-layer chains (the chain kernels take at most {CHAIN_MAX_LAYERS} layers; "
-                "deeper chains: ROADMAP queue 2, shape variants (b))")
+                "deeper chains: ROADMAP queue 2, shape variants (b2))")
+    if spec.n_layers == 1 and _wide_chain(spec):
+        past = f"state width {spec.dz} > {MAX_DZ}" if spec.dz > MAX_DZ else "shared memory"
+        return (f"1-layer nets of {past} (the narrow chain kernels take 1-layer nets up to state width {MAX_DZ} "
+                "whose weights and slots fit, the wide and streamed forms none; ROADMAP queue 2, shape variants "
+                "(c2))")
     if not _wide_chain(spec):
         return None
     if spec.dz > STREAM_MAX_DZ:
@@ -999,7 +1037,7 @@ def _wide_limit(spec: ChainSpec, probes: bool = False) -> Optional[str]:
 
 def _stream_chain(spec: ChainSpec, probes: bool = False) -> bool:
     """Whether the chain kernels' streamed forms run a chain: a chain of 2
-    to CHAIN_MAX_LAYERS layers past the narrow widths, of state width up to
+    to CHAIN_MAX_LAYERS layers past the narrow forms, of state width up to
     STREAM_MAX_DZ, that the wide forms refuse for its state width past
     WIDE_MAX_DZ, its hidden widths or its weights' shared memory: with one
     probe, conditional chains in the COND instances (K8), or (`probes`: K
@@ -1276,10 +1314,21 @@ _SIGNATURES = {
 }
 
 
-def _library(name: str) -> ctypes.CDLL:
+def _depth_build(name: str, spec: ChainSpec) -> str:
+    """The library of a chain kernel's source that takes `spec`'s depth:
+    each such source is built twice (csrc/chain_common.cuh), as it stands
+    for chains of 2 to 4 layers and as `<name>@depths` for 1 to
+    CHAIN_MAX_LAYERS, so that the 2-4-layer instances keep their machine
+    code."""
+    return name if 2 <= spec.n_layers <= 4 else name + "@depths"
+
+
+def _library(name: str, spec: Optional[ChainSpec] = None) -> ctypes.CDLL:
+    """Kernel `name`'s library, typed; given a chain `spec`, the build of
+    its source that takes its depth (`_depth_build`)."""
     from ._build import load_library
 
-    lib = load_library(name)
+    lib = load_library(name if spec is None else _depth_build(name, spec))
     if not getattr(lib, "_cnf_typed", False):
         for fn, (argtypes, restype) in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
@@ -1737,7 +1786,7 @@ def run_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, acc
 run_test_adjoint_kernel.launches = 0
 
 
-# ---- the chain kernels (2 to CHAIN_MAX_LAYERS layers) ----
+# ---- the chain kernels (1 to CHAIN_MAX_LAYERS layers) ----
 
 _CHAIN_BLOCKS = (128, 64, 32)
 
@@ -1791,7 +1840,7 @@ def _launch_chain_forward(label, lib_name, entry, max_grid, tab, spec, *, rtol, 
     probe = [] if eps is None else [eps]
     z0, acc0, *probe = _check_inputs(label, device, [z0, acc0] + probe,
                                      [(B, dz), tuple(acc0.shape)] + [(x.shape[0], B, dz) for x in probe])
-    lib = _library(lib_name)
+    lib = _library(lib_name, spec)
     block, grid = _launch_shape(
         lambda blk, cap: getattr(lib, max_grid)(spec.n_layers, widths, blk, cap), label, B, _CHAIN_BLOCKS
     )
@@ -1808,7 +1857,7 @@ def _launch_chain_forward(label, lib_name, entry, max_grid, tab, spec, *, rtol, 
 
 
 def run_chain_test_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None):
-    """K7 TEST: the TEST solve of [z | dlogp] of a chain of 2 to
+    """K7 TEST: the TEST solve of [z | dlogp] of a chain of 1 to
     CHAIN_MAX_LAYERS tanh or identity layers, the exact trace by basis
     propagation; arguments and returns as `run_solve_kernel`, with the
     conditioning ys (B, n_cond) of a conditional chain (K8: the first layer
@@ -1837,7 +1886,7 @@ run_chain_test_solve_kernel.launches = 0
 def run_chain_exact_solve_kernel(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init, ys=None
 ):
-    """K7 exact: the exact-trace TRAIN solve of [z | acc] of a chain of 2 to
+    """K7 exact: the exact-trace TRAIN solve of [z | acc] of a chain of 1 to
     CHAIN_MAX_LAYERS tanh or identity layers (trace and ||J||_F by basis
     propagation); arguments and returns as `run_exact_solve_kernel`, with
     the conditioning ys (B, n_cond) of a conditional chain.
@@ -1867,7 +1916,7 @@ def run_chain_train_solve_kernel(
     tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, eps, acc0, t0, t1, dt_init, ys=None,
     jvp=False,
 ):
-    """The K1 chain form: the TRAIN solve of [z | acc] of a chain of 2 to
+    """The K1 chain form: the TRAIN solve of [z | acc] of a chain of 1 to
     CHAIN_MAX_LAYERS tanh or identity layers with probes eps (K, B, dz), VJP
     or (`jvp`) JVP; arguments and returns as `run_train_solve_kernel`, with
     the conditioning ys (B, n_cond) of a conditional chain.
@@ -1909,7 +1958,7 @@ def _launch_chain_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, w
     e0, zT, accT, azT, aaccT = _check_inputs(
         label, device, [eps, zT, accT, azT, aaccT], [(K, B, dz), (B, dz), (3, B), (B, dz), (3, B)]
     )
-    lib = _library(K2C_KERNEL)
+    lib = _library(K2C_KERNEL, spec)
     probes = _probe_instance(eps, jvp)
     max_grid = lib.cnf_k2cp_max_grid if probes else lib.cnf_k2c_max_grid
     block, grid = _launch_shape(
@@ -1943,7 +1992,7 @@ def run_chain_adjoint_kernel(
     t_hi, t_lo, dt_init, ys=None, jvp=False,
 ):
     """The K2 chain form: the backsolve of (z, acc, a_z, a_acc, [a_ys,] g_p)
-    of a chain of 2 to CHAIN_MAX_LAYERS tanh or identity layers with probes
+    of a chain of 1 to CHAIN_MAX_LAYERS tanh or identity layers with probes
     eps (K, B, dz), VJP or (`jvp`) JVP; arguments and returns as
     `run_adjoint_kernel`.  A conditional chain takes ys (B, n_cond) and
     integrates the per-sample a_ys from 0 at t_hi in the same error norm;
@@ -2028,7 +2077,7 @@ def _launch_wide_forward(label, lib_name, entry, shape, tab, spec, *, rtol, atol
     probe = [] if eps is None else [eps]
     z0, acc0, *probe = _check_inputs(label, device, [z0, acc0] + probe,
                                      [(B, dz), tuple(acc0.shape)] + [(x.shape[0], B, dz) for x in probe])
-    lib = _library(lib_name)
+    lib = _library(lib_name, spec)
     if stream:
         block, grid, tile, tiles = _stream_shape(lib, shape, label, spec, widths, B, device)
         m_buf = [_m_scratch(spec, device)] if m else []
@@ -2164,7 +2213,7 @@ def _launch_wide_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws
     e0, zT, accT, azT, aaccT = _check_inputs(
         label, device, [eps, zT, accT, azT, aaccT], [(K, B, dz), (B, dz), (3, B), (B, dz), (3, B)]
     )
-    lib = _library(K2W_KERNEL)
+    lib = _library(K2W_KERNEL, spec)
     probes = _probe_instance(eps, jvp)
     shape = {(True, True): "cnf_k2wpc_shape", (True, False): "cnf_k2wc_shape", (False, True): "cnf_k2wp_shape",
              (False, False): "cnf_k2w_shape"}[(bool(nc), probes)]
@@ -2754,7 +2803,7 @@ def _launch_stream_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, 
     e0, zT, accT, azT, aaccT = _check_inputs(
         label, device, [eps, zT, accT, azT, aaccT], [(K, B, dz), (B, dz), (3, B), (B, dz), (3, B)]
     )
-    lib = _library(K2S_KERNEL)
+    lib = _library(K2S_KERNEL, spec)
     probes = _probe_instance(eps, jvp)
     shape = {(True, True): "cnf_k2spc_shape", (True, False): "cnf_k2sc_shape", (False, True): "cnf_k2sp_shape",
              (False, False): "cnf_k2s_shape"}[(bool(nc), probes)]
@@ -3522,22 +3571,26 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     `args["ys"]` ((B, n_cond), (1, n_cond) or (n_cond,)) is broadcast to
     (B, n_cond) for the kernels, and its cotangent summed back.  The
     wrappers are chosen here: unconditional 2-layer tanh nets run the
-    2-layer kernels; deeper chains, every conditional chain (K8) and every
-    chain with an identity layer run the chain kernels (the JAX package's
-    2-layer TEST and exact stages assume tanh layers; the chain kernels do
-    not), their narrow forms within state width MAX_DZ and hidden widths
-    CHAIN_MAX_WIDTH, their wide forms beyond.  Conditional chains past the
-    narrow widths run the COND instances of the wide forms (K8): the wide K1
+    2-layer kernels; 1-layer nets and chains of 3 to CHAIN_MAX_LAYERS
+    layers, every conditional chain (K8) and every chain with an identity
+    layer run the chain kernels, as the JAX package's kernels run their
+    N-layer stages for every depth but 2 (its 2-layer TEST and exact stages
+    assume tanh layers; the chain kernels do not), their narrow forms within
+    state width MAX_DZ, hidden widths CHAIN_MAX_WIDTH and a block's shared
+    memory (`_narrow_smem_bytes`), their wide forms beyond (1-layer nets
+    past MAX_DZ raise on the card, ROADMAP queue 2, shape variants (c2)).
+    Conditional chains past the narrow widths run the COND instances of the wide forms (K8): the wide K1
     and K2 chain forms' under Hutchinson TRAIN (their probe COND instances
     with K VJP or JVP probes, K6 x K8), wide K7
-    TEST's forward at 3-4 layers and wide K7 exact's forward at every depth
+    TEST's forward at 3 to CHAIN_MAX_LAYERS layers and wide K7 exact's
+    forward at every depth
     and, for 2-layer tanh nets past MAX_DZ (CondRNODE at the HEPMASS width),
     wide K3's forward and wide K5's backward in TEST mode and the wide K4
     adjoint's backward under exact trace (deeper chains' exact gradient runs
     the plain BACKSOLVE, as below).  Conditional chains past the wide
     limits run the COND instances of the streamed forms: the streamed K1 and
     K2 chain forms' under Hutchinson TRAIN (their probe COND instances with
-    K VJP or JVP probes, K6 x K8), streamed K7 TEST's forward at 3-4 layers
+    K VJP or JVP probes, K6 x K8), streamed K7 TEST's forward at 3-8 layers
     and streamed K7 exact's forward at every depth and, for 2-layer tanh
     nets (CondRNODE at the MINIBOONE width), streamed K3's forward and
     streamed K5's backward in TEST mode and the streamed K4 adjoint's
@@ -3642,7 +3695,7 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
 
     exact_pm = exact and _two_layer_tanh(spec)
     test_adjoint = not train and _two_layer_tanh(spec)
-    chain = spec.n_layers > 2 or spec.n_cond > 0 or not all(spec.acts)
+    chain = spec.n_layers != 2 or spec.n_cond > 0 or not all(spec.acts)
     wide2 = _wide_two_layer(spec)
     run_exact_adj, run_test_adj = run_exact_adjoint_kernel, run_test_adjoint_kernel
     if wide2:

@@ -90,6 +90,28 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     streamed K7 exact (its exact forward; the deep chain's exact gradient
     runs the plain BACKSOLVE, as the JAX package's does) run it.  Widths,
     depth and batch are miniboone860's, not cut.
+  * refbench16 (ContinuousNormalizingFlows.jl's benchmark suite, its
+    `benchmark/benchmarks.jl:24-49,78-99,146-166`, SURVEY.md:320: RNODE,
+    nvars = 8, naugs = 8, Dense(16 => 16, tanh), timed in TRAIN and TEST,
+    loss and gradient): RNODE, nvars = naug = 8, MLP 16 -> 16, one tanh
+    layer, on the flagship's recipe (lambda3 = 1e-2, steer_rate 0.1, tspan
+    (0, 13)) and data; batch 4096, and 64, the suite's n (REFBENCH_BATCH).
+    A 1-layer net: the narrow chain kernels run it.  Nothing is cut.
+  * cond_refbench16: its conditional form, CondRNODE, MLP 17 -> 16 on
+    [z | ys], one conditioning column drawn as cond_miniboone86 draws its
+    label (the standardised MiniBooNE signal label), xs the flagship's
+    U[0, 1) + 0.5 ys.
+  * deep5_power6 and deep8_power6: power6's recipe at 5 and 8 layers, MLP
+    6 -> 64 x 4 -> 6 and 6 -> 64 x 7 -> 6.  Their weights and K2 slots pass
+    the narrow forms' shared memory (`fused_solve._narrow_smem_bytes`): the
+    wide forms run them.  deep8_narrow, MLP 6 -> 32 x 7 -> 6, the same
+    recipe, keeps the narrow forms at 8 layers.
+  * deep5_miniboone43 and deep5_miniboone128: miniboone43's recipe at 5
+    layers, MLP 43 -> 64 x 4 -> 43 (the wide forms) and 43 -> 128 x 4 -> 43
+    (weights past a block's shared memory: the streamed forms), batch 2048.
+  * deep5_miniboone860 and cond_deep5_miniboone860: miniboone860's and
+    cond_miniboone860's recipes at 5 layers, MLP 43 -> 860 x 4 -> 43 and
+    44 -> 860 x 4 -> 43 (the streamed forms), batch 1024.
 
 All: lambda1 = lambda2 = 1e-2 (the RNODE defaults), tsit5 at rtol 1e-3 /
 atol 1e-6, one Gaussian VJP probe (`make_icnf` takes K probes and JVP
@@ -124,7 +146,23 @@ MODELS = {
                              extra={"steer_rate": 0.1, "lam3": 1e-2}, n_cond=1),
     "cond_miniboone860": dict(dims=(44, 860, 860, 43), nvars=43, naug=0, tspan=(0.0, 1.0), extra={}, n_cond=1,
                               batch=1024),
+    "refbench16": dict(dims=(16, 16), nvars=8, naug=8, tspan=(0.0, 13.0), extra={"steer_rate": 0.1, "lam3": 1e-2}),
+    "cond_refbench16": dict(dims=(17, 16), nvars=8, naug=8, tspan=(0.0, 13.0),
+                            extra={"steer_rate": 0.1, "lam3": 1e-2}, n_cond=1),
+    "deep5_power6": dict(dims=(6, 64, 64, 64, 64, 6), nvars=6, naug=0, tspan=(0.0, 1.0), extra={}),
+    "deep8_power6": dict(dims=(6,) + (64,) * 7 + (6,), nvars=6, naug=0, tspan=(0.0, 1.0), extra={}),
+    "deep8_narrow": dict(dims=(6,) + (32,) * 7 + (6,), nvars=6, naug=0, tspan=(0.0, 1.0), extra={}),
+    "deep5_miniboone43": dict(dims=(43, 64, 64, 64, 64, 43), nvars=43, naug=0, tspan=(0.0, 1.0), extra={},
+                              batch=2048),
+    "deep5_miniboone128": dict(dims=(43, 128, 128, 128, 128, 43), nvars=43, naug=0, tspan=(0.0, 1.0), extra={},
+                               batch=2048),
+    "deep5_miniboone860": dict(dims=(43, 860, 860, 860, 860, 43), nvars=43, naug=0, tspan=(0.0, 1.0), extra={},
+                               batch=1024),
+    "cond_deep5_miniboone860": dict(dims=(44, 860, 860, 860, 860, 43), nvars=43, naug=0, tspan=(0.0, 1.0),
+                                    extra={}, n_cond=1, batch=1024),
 }
+#: The reference benchmark suite's batch (its n), refbench16's second batch.
+REFBENCH_BATCH = 64
 #: HEPMASS's signal masses in GeV (Baldi et al. 2016), cond_hepmass42's conditioning.
 HEPMASS_MASSES = (500.0, 750.0, 1000.0, 1250.0, 1500.0)
 #: MiniBooNE's signal and background events (UCI), the label shares of the
@@ -175,18 +213,32 @@ def cond_hepmass_data(rng: np.random.Generator, n: int):
     return xs.astype(np.float32), ys.astype(np.float32)
 
 
-def cond_miniboone_data(rng: np.random.Generator, n: int):
-    """n pairs of cond_miniboone86's synthetic data: ys the label, 1 for
-    signal with MiniBooNE's signal share (MINIBOONE_EVENTS) and 0 for
-    background, standardised by the share's mean and standard deviation
-    (signal about +1.601, background about -0.625), and xs = the
-    `synthetic_tabular` recipe at 43 variables + 0.5 ys.  Returns
-    (xs (n, 43), ys (n, 1)), float32."""
+def miniboone_label(rng: np.random.Generator, n: int) -> np.ndarray:
+    """n MiniBooNE labels (n, 1), float64: 1 for signal with MiniBooNE's
+    signal share (MINIBOONE_EVENTS) and 0 for background, standardised by
+    the share's mean and standard deviation (signal about +1.601,
+    background about -0.625)."""
     signal, background = MINIBOONE_EVENTS
     share = signal / (signal + background)
     label = (rng.uniform(size=(n, 1)) < share).astype(np.float64)
-    ys = (label - share) / math.sqrt(share * (1.0 - share))
+    return (label - share) / math.sqrt(share * (1.0 - share))
+
+
+def cond_miniboone_data(rng: np.random.Generator, n: int):
+    """n pairs of cond_miniboone86's synthetic data: ys the standardised
+    label (`miniboone_label`), and xs = the `synthetic_tabular` recipe at 43
+    variables + 0.5 ys.  Returns (xs (n, 43), ys (n, 1)), float32."""
+    ys = miniboone_label(rng, n)
     xs = tabular_data(rng, n, 43) + 0.5 * ys
+    return xs.astype(np.float32), ys.astype(np.float32)
+
+
+def cond_refbench_data(rng: np.random.Generator, n: int):
+    """n pairs of cond_refbench16's synthetic data: ys the standardised
+    MiniBooNE label (`miniboone_label`), xs the flagship's U[0, 1) at 8
+    variables + 0.5 ys.  Returns (xs (n, 8), ys (n, 1)), float32."""
+    ys = miniboone_label(rng, n)
+    xs = rng.uniform(0.0, 1.0, (n, 8)) + 0.5 * ys
     return xs.astype(np.float32), ys.astype(np.float32)
 
 
@@ -206,13 +258,16 @@ def model_data(name: str, rng: np.random.Generator, n: int):
     """n data points of the configuration `name` (numpy float32): xs, or
     (xs, ys) for a conditional configuration."""
     nvars = MODELS[name]["nvars"]
-    if name in ("power6", "miniboone43", "miniboone860", "hepmass42", "miniboone86", "bsds126"):
+    if name in ("power6", "miniboone43", "miniboone860", "hepmass42", "miniboone86", "bsds126") or name.startswith(
+            "deep"):
         return tabular_data(rng, n, nvars)
+    if name == "cond_refbench16":
+        return cond_refbench_data(rng, n)
     if name == "cond_gaussian":
         return cond_gaussian_data(rng, n)
     if name == "cond_hepmass42":
         return cond_hepmass_data(rng, n)
-    if name in ("cond_miniboone86", "cond_miniboone860"):
+    if name in ("cond_miniboone86", "cond_miniboone860", "cond_deep5_miniboone860"):
         return cond_miniboone_data(rng, n)
     return rng.uniform(0.0, 1.0, (n, nvars)).astype(np.float32)
 

@@ -20,7 +20,10 @@ on miniboone860 the streamed forms of the chain kernels (MLP 43 -> 860 ->
 the streamed K1 and K2 chain forms, streamed K7 exact), on miniboone86 the
 streamed forms of a 2-layer net past the wide limits (MLP 86 -> 258 -> 86,
 B = 4096, tspan (0, 13); the "_mb86" keys: streamed K3 and streamed K5 from
-its output, the streamed K1 and K2 chain forms) and on
+its output, the streamed K1 and K2 chain forms, streamed K7 exact and the
+streamed K4 adjoint from its output) and on cond_miniboone86 their COND
+instances (CondRNODE, MLP 87 -> 258 -> 86 on [z | ys], B = 4096, tspan
+(0, 13); the "_condmb86" keys) and on
 cond_hepmass42 the COND instances of the wide forms (CondRNODE, MLP 43 ->
 126 -> 42 on [z | ys], B = 4096, tspan (0, 13); the "_condhep" keys: wide
 K3 COND and wide K5 COND from its output, the wide K1 and K2 chain forms'
@@ -38,7 +41,8 @@ times only the Hutchinson kernels, K1 and K2 and their chain forms, through
 their probe instances (K6; the "/K<K>" or "/jvp-K<K>" keys), with the wide
 forms on miniboone43 and hepmass42, the wide forms' probe COND instances on
 cond_hepmass42 (K6 x K8) and the streamed forms on miniboone860 and
-miniboone86 where `--models` names them.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
+miniboone86 and the streamed probe COND instances on cond_miniboone86 where
+`--models` names them.  Each time is the mean of `reps` calls after one warm-up call.  It prints the card's name and power limit, then
 one JSON line {"tableau": ..., "kernels": {name: [ms, attempted steps]}}.
 
 By default it uses only wrappers that earlier versions of the package have
@@ -92,7 +96,11 @@ def main() -> int:
     if "miniboone43" in models:
         kernels["miniboone43"] = [fs.K1W_KERNEL, fs.K2W_KERNEL] + ([] if probes else [fs.K7W_KERNEL])
     if "miniboone86" in models:
-        kernels["miniboone86"] = [fs.K1S_KERNEL, fs.K2S_KERNEL] + ([] if probes else [fs.K3S_KERNEL, fs.K5S_KERNEL])
+        kernels["miniboone86"] = [fs.K1S_KERNEL, fs.K2S_KERNEL] + ([] if probes else [
+            fs.K3S_KERNEL, fs.K5S_KERNEL, fs.K7S_KERNEL, fs.K4SA_KERNEL])
+    if "cond_miniboone86" in models:
+        kernels["cond_miniboone86"] = kernels.get("miniboone86") or [fs.K1S_KERNEL, fs.K2S_KERNEL] + (
+            [] if probes else [fs.K3S_KERNEL, fs.K5S_KERNEL, fs.K7S_KERNEL, fs.K4SA_KERNEL])
     if "miniboone860" in models:
         kernels["miniboone860"] = [fs.K1S_KERNEL, fs.K2S_KERNEL] + ([] if probes else [fs.K7S_KERNEL])
     if "cond_hepmass42" in models:
@@ -149,12 +157,14 @@ def main() -> int:
             keys = {"flagship": ("k1", "k2"), "miniboone43": ("k1c_wide", "k2c_wide"),
                     "hepmass42": ("k1c_hepmass", "k2c_hepmass"), "miniboone86": ("k1c_mb86", "k2c_mb86"),
                     "miniboone860": ("k1c_stream", "k2c_stream"),
-                    "cond_hepmass42": ("k1wc_condhep", "k2wc_condhep")}.get(name, ("k1c" + tag, "k2c" + tag))
+                    "cond_hepmass42": ("k1wc_condhep", "k2wc_condhep"),
+                    "cond_miniboone86": ("k1sc_condmb86", "k2sc_condmb86")}.get(name, ("k1c" + tag, "k2c" + tag))
             wide = (fs.run_wide_train_solve_kernel, fs.run_wide_adjoint_kernel)
             stream = (fs.run_stream_train_solve_kernel, fs.run_stream_adjoint_kernel)
             runs = {"flagship": (fs.run_train_solve_kernel, fs.run_adjoint_kernel), "miniboone43": wide,
                     "hepmass42": wide, "miniboone860": stream, "miniboone86": stream,
                     "cond_hepmass42": (fs.run_wide_cond_train_solve_kernel, fs.run_wide_cond_adjoint_kernel),
+                    "cond_miniboone86": (fs.run_stream_cond_train_solve_kernel, fs.run_stream_cond_adjoint_kernel),
                     }.get(name, (fs.run_chain_train_solve_kernel, fs.run_chain_adjoint_kernel))
             time_pair(tuple(k + suffix for k in keys), spec, *runs, dict(train, eps=eps, **probe_kw),
                       dict(adj, eps=eps, **probe_kw))
@@ -197,6 +207,16 @@ def main() -> int:
                       fs.run_stream_test_adjoint_kernel, test, dict(azT=adj["azT"], aaccT=T(np.full((1, B), 1.0 / B))))
             time_pair(("k1c_mb86", "k2c_mb86"), spec, fs.run_stream_train_solve_kernel, fs.run_stream_adjoint_kernel,
                       dict(train, eps=eps), dict(adj, eps=eps))
+            time_pair(("k7e_mb86", "k4s_mb86"), spec, fs.run_stream_exact_solve_kernel,
+                      fs.run_stream_exact_adjoint_kernel, train, adj)
+        elif name == "cond_miniboone86":
+            time_pair(("k3sc_condmb86", "k5sc_condmb86"), spec, fs.run_stream_cond_test2_solve_kernel,
+                      fs.run_stream_cond_test_adjoint_kernel, test,
+                      dict(azT=adj["azT"], aaccT=T(np.full((1, B), 1.0 / B))))
+            time_pair(("k1sc_condmb86", "k2sc_condmb86"), spec, fs.run_stream_cond_train_solve_kernel,
+                      fs.run_stream_cond_adjoint_kernel, dict(train, eps=eps), dict(adj, eps=eps))
+            time_pair(("k7ec_condmb86", "k4sc_condmb86"), spec, fs.run_stream_cond_exact_solve_kernel,
+                      fs.run_stream_cond_exact_adjoint_kernel, train, adj)
         elif name == "miniboone860":
             time_pair(("k7t_stream",), spec, fs.run_stream_test_solve_kernel, None, test, None)
             time_pair(("k1c_stream", "k2c_stream"), spec, fs.run_stream_train_solve_kernel,

@@ -1,6 +1,6 @@
 """Where the time goes in a training step and a `logpdf` call on the card.
 
-    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|miniboone860|hepmass42|miniboone86|bsds126|cond_hepmass42|cond_miniboone86|cond_miniboone860]
+    python -m continuousnf_tpu_torch.utils.profile_step [--model power6|flagship|cond_gaussian|miniboone43|miniboone860|hepmass42|miniboone86|bsds126|cond_hepmass42|cond_miniboone86|cond_miniboone860|refbench16|...]
         [--steps 10]
         [--probes K] [--jvp] [--test-grad] [--direct | --fixed N] [--bf16]
 
@@ -27,7 +27,10 @@ exact-trace step; `--model cond_miniboone860`: CondRNODE, MLP 44 -> 860 ->
 860 -> 43 on [z | ys], batch 1024, through the COND instances of the
 streamed K1 and K2 chain forms, streamed K7 TEST for `logpdf` and streamed
 K7 exact for the exact-trace step's forward, its backward the plain
-BACKSOLVE), its weights and its data from a seed as `utils/configs.py` makes
+BACKSOLVE; `--model refbench16`: the reference benchmark suite's RNODE 8 + 8
+with one 16 -> 16 tanh layer, through the narrow chain kernels; any other
+name of `utils/configs.py`'s MODELS, the depth configurations among them),
+its weights and its data from a seed as `utils/configs.py` makes
 them, one Gaussian VJP probe (`--probes K` Gaussian probes, `--jvp`
 forward-mode ones: the Hutchinson train steps run the probe instances of
 the K1 and K2 kernels or of their chain forms, narrow, wide (miniboone43;

@@ -21,6 +21,15 @@ alone.  A function only this checkout has (a new instance) is listed
 apart.  Needs the CUDA toolkit; prints one line per source and one JSON
 object, and exits nonzero if a function of the other checkout is missing
 here or has other SASS.
+
+    python -m continuousnf_tpu_torch.utils.sass_diff --old build/parent --preprocessed [--names all]
+
+compares, instead, what nvcc compiles: each source preprocessed by `nvcc -E`
+under the kernels' flags in both checkouts, its line markers dropped and
+runs of blanks collapsed (comments, line breaks and #if-excluded code do not
+count).  Equal token streams compile to the same code; it takes seconds
+where the SASS comparison takes nvcc's full time.  `--names all`: every
+source of this checkout's csrc/.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ ROOT = Path(__file__).resolve().parents[2]
 OUT = ROOT / "build" / "sass"
 _HASH = re.compile(r"_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
+_MARKER = re.compile(r"\s*#\s*(line\s+)?\d+(\s|$)")
 
 
 def sass_by_function(cubin: Path) -> dict:
@@ -66,13 +76,33 @@ def compile_cubin(src: Path, tag: str) -> Path:
     return cubin
 
 
+def preprocessed(src: Path) -> str:
+    """`nvcc -E` of `src` under the kernels' flags, its line markers dropped
+    and runs of blanks collapsed."""
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    text = subprocess.run([_nvcc(), *flags, "-E", str(src)], check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    return " ".join(" ".join(line for line in text.splitlines() if not _MARKER.match(line)).split())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True, help="root of the other checkout")
     ap.add_argument("--names", default="k3_test_solve,k1_train_solve,k2_train_adjoint")
+    ap.add_argument("--preprocessed", action="store_true", help="compare nvcc -E's token streams, not SASS")
     a = ap.parse_args(argv)
-    names = a.names.split(",")
+    names = sorted(p.stem for p in CSRC.glob("*.cu")) if a.names == "all" else a.names.split(",")
     old_csrc = Path(a.old).resolve() / CSRC.relative_to(ROOT)
+    if a.preprocessed:
+        jobs = [old_csrc / f"{n}.cu" for n in names] + [CSRC / f"{n}.cu" for n in names]
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+            texts = list(pool.map(preprocessed, jobs))
+        differ = [n for i, n in enumerate(names) if texts[i] != texts[len(names) + i]]
+        for i, n in enumerate(names):
+            print(f"{n}: {len(texts[len(names) + i].split())} tokens, "
+                  + ("other tokens than the other checkout's" if n in differ else "the other checkout's tokens"))
+        print(json.dumps({"sources": len(names), "differ": differ}))
+        return 1 if differ else 0
     jobs = [(old_csrc / f"{n}.cu", "old") for n in names] + [(CSRC / f"{n}.cu", t) for t in ("new", "again")
                                                                   for n in names]
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as pool:

@@ -255,12 +255,14 @@ _COVERED = {
     "two-layer-jvp": ((16, 48, 16), TSIT5, None, 0, 1, False),
     "wide-two-probes": ((43, 64, 64, 43), TSIT5, None, 0, 2, True),
     "wide-jvp": ((43, 64, 64, 43), TSIT5, None, 0, 1, True),
+    "five-layer": ((6, 16, 16, 16, 16, 6), TSIT5, None, 0, 1, True),
+    "one-layer-chain-kernels": ((6, 6), TSIT5, None, 0, 1, True),
 }
 _UNCOVERED = {
-    "five-layer": ((6, 16, 16, 16, 16, 6), TSIT5, None, 0, 1, True, "at most 4 layers"),
+    "nine-layer": ((6,) + (16,) * 8 + (6,), TSIT5, None, 0, 1, True, "at most 8 layers"),
+    "one-layer-dz33": ((33, 33), TSIT5, None, 0, 1, True, "1-layer nets of state width 33 > 32"),
     "two-layer-conditional-exact": ((16, 48, 16), TSIT5, None, 2, 1, False, "K8 in the 2-layer kernels"),
     "one-layer": ((6, 6), TSIT5, None, 0, 1, False, "1-layer"),
-    "one-layer-chain-kernels": ((6, 6), TSIT5, None, 0, 1, True, "1-layer"),
     "three-layer-2-layer-kernels": (POWER6, TSIT5, None, 0, 1, False, "K3, K1, K2 and K4 take 2 layers"),
 }
 
@@ -275,11 +277,11 @@ def _spec(dims, acts, n_cond):
 def test_kernel_coverage_rule(name):
     """Which configurations each kernel family takes: the 2-layer kernels
     (K3, K1, K2, K4) unconditional tanh chains of 2 layers with state widths
-    up to 32, the chain kernels chains of 2 to 4 tanh or identity layers
+    up to 32, the chain kernels chains of 1 to 8 tanh or identity layers
     with hidden widths up to 64 and state widths up to 32, conditional or
-    not, and through their wide forms unconditional ones up to 128 and 64
-    (the fused solve takes them for 3 and 4 layers, for conditional nets and
-    for identity layers), both every embedded explicit tableau, and K VJP or
+    not, and through their wide forms ones of 2 layers or more up to 128
+    and 64 (the fused solve takes them for every depth but 2, for
+    conditional nets and for identity layers), both every embedded explicit tableau, and K VJP or
     JVP probes in the Hutchinson kernels, the wide forms included; the rest names its
     limit or the kernel still to port (a 2-layer conditional exact-TRAIN
     backward needs the K4 adjoint with ys rows: K8 in the 2-layer
@@ -302,17 +304,23 @@ _WRAPPERS = {
 }
 
 
-@pytest.mark.parametrize("deep", [False, True], ids=["two-layer", "three-layer"])
+_DEPTHS = {"two-layer": (5, 15, 5), "three-layer": SMALL, "one-layer": (5, 5), "five-layer": (5, 9, 7, 7, 7, 5)}
+
+
+@pytest.mark.parametrize("depth", list(_DEPTHS))
 @pytest.mark.parametrize("mode", ["test", "train", "exact"])
-def test_fused_solve_takes_the_kernels_by_depth(monkeypatch, mode, deep):
+def test_fused_solve_takes_the_kernels_by_depth(monkeypatch, mode, depth):
     """`make_full_solve` runs 2-layer nets through the 2-layer wrappers and
-    deeper chains through the chain wrappers, forward and (TRAIN) backward;
-    the deep exact chain's backward is the plain one."""
+    the other depths (1-layer nets, chains of 3 layers or more) through the
+    chain wrappers, as the JAX package runs its N-layer stages for every
+    depth but 2, forward and (TRAIN) backward; the exact and TEST backward of
+    every depth but 2 is the plain one."""
     called = []
     for name in {n for names in _WRAPPERS.values() for n in names}:
         wrapped = getattr(tfs, name)
         monkeypatch.setattr(tfs, name, lambda *a, _n=name, _f=wrapped, **kw: called.append(_n) or _f(*a, **kw))
-    dims = SMALL if deep else (5, 15, 5)
+    dims = _DEPTHS[depth]
+    deep = depth != "two-layer"
     icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(dims), 3, 2, compute_mode=_cm(tcnf, mode))
     ps = tcnf.params_from_numpy(_np_params(dims, 21))
     xs = _data(SMALL, 8, 22)

@@ -125,7 +125,7 @@ def test_slice_through_kernel_matches_plain(dev):
 @pytest.mark.parametrize(
     "dims,final,tab",
     [
-        ((5, 9, 7, 7, 7, 5), torch.tanh, TSIT5),
+        ((5,) + (9,) * 8 + (5,), torch.tanh, TSIT5),
         ((5, 80, 7, 5), torch.tanh, TSIT5),
         ((40, 48, 40), torch.tanh, TSIT5),
     ],
@@ -477,6 +477,13 @@ _K6_CASES = {
     "bsds126-jvp": ((126, 378, 126), 256, 1, True, True, (0.0, 1.0)),
     "probe-only-shared-memory-K3": ((64, 128, 128, 120, 64), 128, 3, False, True, (0.0, 1.0)),
     "probe-only-shared-memory-jvp": ((60, 128, 128, 128, 60), 128, 1, True, True, (0.0, 1.0)),
+    "one-layer-K2": ((6, 6), 300, 2, False, True, (0.0, 2.0)),
+    "refbench16-K4": ((16, 16), 4096, 4, False, True, (0.0, 13.0)),
+    "one-layer-jvp-reverse": ((16, 16), 512, 2, True, True, (2.0, 0.0)),
+    "cond-one-layer-jvp": ((17, 16), 512, 1, True, True, (0.0, 13.0)),
+    "eight-layer-narrow-K2": ((6,) + (32,) * 7 + (6,), 512, 2, False, True, (0.0, 1.0)),
+    "eight-layer-power6-jvp": ((6,) + (64,) * 7 + (6,), 256, 1, True, True, (0.0, 1.0)),
+    "five-layer-miniboone860-K2": ((43,) + (860,) * 4 + (43,), 64, 2, False, True, (0.0, 1.0)),
 }
 
 
@@ -875,13 +882,14 @@ def test_wide_chain_kernels_match_twins(dev, dims, B, span):
         ((6, 65, 64, 6), "run_chain_test_solve_kernel"),
         ((65, 128, 128, 65), "run_wide_test_solve_kernel"),
         ((43, 129, 128, 43), "run_wide_test_solve_kernel"),
-        ((43, 64, 64, 64, 64, 43), "run_wide_test_solve_kernel"),
+        ((43,) + (64,) * 8 + (43,), "run_wide_test_solve_kernel"),
     ],
     ids=["narrow-form-miniboone", "narrow-form-hidden65", "wide-dz65", "wide-hidden129", "wide-five-layer"],
 )
 def test_wide_limits_raise_on_cuda(dev, dims, wrapper):
     """The narrow forms refuse the wide chains, the wide forms what is past
-    their widths or depth; nothing is launched."""
+    their widths or depth (the "wide-five-layer" case holds a 9-layer chain:
+    5-layer chains run since shape variants (b)); nothing is launched."""
     spec = tfs.chain_spec(tcnf.MLP(dims), dims[-1])
     kw = _kernel_args(dims, 8, (0.0, 1.0), dev)
     run = getattr(tfs, wrapper)
@@ -1185,8 +1193,10 @@ def _hold_cond_adjoint(adj_k, adj_p, adj_64):
         ((35, 72, 34), 37, (2.0, 0.0)),
         ((10, 72, 72, 8), 300, (0.0, 2.0)),
         ((36, 40, 33), 1, (0.0, 1.0)),
+        ((10, 72, 72, 72, 72, 8), 256, (0.0, 1.0)),
     ],
-    ids=["cond-hepmass42-B4096", "two-layer-reverse-B37", "three-layer-ncond2-B300", "ncond3-B1"],
+    ids=["cond-hepmass42-B4096", "two-layer-reverse-B37", "three-layer-ncond2-B300", "ncond3-B1",
+         "five-layer-ncond2-B256"],
 )
 def test_wide_cond_kernels_match_twins(dev, dims, B, span):
     """The COND instances of the wide K1 and K2 chain forms (and, for 2-layer
@@ -1726,9 +1736,10 @@ COND_MINIBOONE86 = (87, 258, 86)
         ((44, 860, 860, 43), 256, (0.0, 1.0)),
         ((87, 4000, 86), 16, (0.0, 1.0)),
         ((36, 200, 33), 1, (0.0, 1.0)),
+        ((44,) + (860,) * 4 + (43,), 64, (0.0, 1.0)),
     ],
     ids=["cond-miniboone86-B4096", "dz66-reverse-B37", "three-layer-hidden136-ncond2-B300", "cond-miniboone860-B256",
-         "hidden4000-global-tiles-B16", "ncond3-B1"],
+         "hidden4000-global-tiles-B16", "ncond3-B1", "cond-five-layer-miniboone860-B64"],
 )
 def test_stream_cond_kernels_match_twins(dev, dims, B, span):
     """The COND instances of the streamed K1 and K2 chain forms (and, for
@@ -2278,6 +2289,119 @@ def test_cond_chain_kernels_match_twins(dev, case):
             _near_tie_holds(k, p, twin, spec, args, "z0")
     if not _adjoint_matches(adj_k, adj_p, adj_64):
         _near_tie_holds(adj_k, adj_p, tfs.adjoint_train_plain, spec, adj, "zT")
+
+
+# ---- chains of every depth: 1-layer nets and 5 to 8 layers ----
+
+# id -> (dims, B, span, form: False narrow, True wide, "stream" streamed);
+# a dims[0] wider than dims[-1] is a conditional chain (ys (B, n_cond)).
+_DEPTH_CASES = {
+    "refbench16-B4096": ((16, 16), 4096, (0.0, 13.0), False),
+    "refbench16-B64": ((16, 16), 64, (0.0, 13.0), False),
+    "one-layer-dz6-reverse-B37": ((6, 6), 37, (2.0, 0.0), False),
+    "one-layer-dz32-B300": ((32, 32), 300, (0.0, 1.0), False),
+    "cond-refbench16-B512": ((17, 16), 512, (0.0, 13.0), False),
+    "cond-one-layer-ncond2-B300": ((7, 5), 300, (0.0, 2.0), False),
+    "five-layer-narrow-B512": ((6, 48, 48, 48, 48, 6), 512, (0.0, 1.0), False),
+    "eight-layer-narrow-B1024": ((6,) + (32,) * 7 + (6,), 1024, (0.0, 1.0), False),
+    "cond-eight-layer-narrow-B256": ((8,) + (32,) * 7 + (6,), 256, (0.0, 1.0), False),
+    "five-layer-power6-wide-B256": ((6, 64, 64, 64, 64, 6), 256, (0.0, 1.0), True),
+    "eight-layer-power6-wide-B256": ((6,) + (64,) * 7 + (6,), 256, (0.0, 1.0), True),
+    "five-layer-miniboone43-wide-B256": ((43, 64, 64, 64, 64, 43), 256, (0.0, 1.0), True),
+    "five-layer-streamed-B128": ((43, 128, 128, 128, 128, 43), 128, (0.0, 1.0), "stream"),
+    "five-layer-miniboone860-B64": ((43,) + (860,) * 4 + (43,), 64, (0.0, 1.0), "stream"),
+}
+
+
+@pytest.mark.parametrize("case", list(_DEPTH_CASES))
+def test_depth_chain_kernels_match_twins(dev, case):
+    """1-layer nets (the reference benchmark suite's Dense(16 => 16, tanh)
+    among them) and chains of 5 to 8 layers through the four chain kernels
+    of their form, against their twins as the other chains are held; the
+    routing agrees with the form (a 5- or 8-layer chain at power6's widths
+    passes the narrow forms' shared memory and runs the wide ones).  A
+    solve that misses the twin's bound passes under the near-tie rule, on
+    an input whose twin shows that move."""
+    dims, B, span, form = _DEPTH_CASES[case]
+    n_cond = dims[0] - dims[-1]
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    assert tfs._kernel_covers(TSIT5, spec, chain=True) is None
+    assert tfs._wide_chain(spec) == bool(form) and tfs._stream_chain(spec) == (form == "stream")
+    ys = _ys(B, n_cond, dev) if n_cond else None
+    (out_k, out_p), (adj_k, adj_p, adj_64), test, exact, kw, adj = _chain_case(dims, B, span, dev, ys=ys, wide=form)
+    test_kw = dict(_kernel_args(dims, B, span, dev), ys=ys)
+    exact_kw = {k: v for k, v in kw.items() if k != "eps"}
+    for (k, p), twin, args in (((out_k, out_p), tfs.solve_train_plain, kw), (test, tfs.solve_test_plain, test_kw),
+                               (exact, tfs.solve_train_exact_plain, exact_kw)):
+        if not _forward_matches(k, p):
+            _near_tie_holds(k, p, twin, spec, args, "z0")
+    if not _adjoint_matches(adj_k, adj_p, adj_64):
+        _near_tie_holds(adj_k, adj_p, tfs.adjoint_train_plain, spec, adj, "zT")
+
+
+@pytest.mark.parametrize("dims", [(6,) + (16,) * 8 + (6,), (33, 33)], ids=["nine-layer", "one-layer-dz33"])
+def test_depth_refusals_raise_on_cuda(dev, dims):
+    """Chains past 8 layers (shape variants (b2)) and 1-layer nets past
+    state width 32 (shape variants (c2)) raise on the card, naming their
+    ROADMAP row; nothing is launched."""
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    kw = _kernel_args(dims, 8, (0.0, 1.0), dev)
+    run = tfs.run_chain_test_solve_kernel
+    before = run.launches
+    with pytest.raises(NotImplementedError, match="shape variants \\([bc]2\\)"):
+        run(TSIT5, spec, **kw)
+    assert run.launches == before
+
+
+def test_refbench16_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """refbench16 (RNODE 8 + 8, Dense(16 => 16, tanh)) on the card and on
+    the CPU at the reference suite's n = 64: logpdf through K7 TEST, the
+    Hutchinson loss and gradient through the K1 and K2 chain forms, and the
+    exact loss and gradient through K7 exact and the plain backward.  Over
+    tspan (0, 13) the backward solve can sit at a near-tie of the step
+    controller; a gradient that misses GRAD_REL passes only if the CPU
+    path's own gradients move by more than GRAD_REL under one-ulp moves of
+    xs (`near_tie.nudge`, four runs) and the card's is within 4x that
+    move."""
+    dims = (16, 16)
+    xs = np.random.default_rng(4).uniform(size=(64, 8)).astype(np.float32)
+    eps = np.random.default_rng(5).normal(size=(1, 64, 16)).astype(np.float32)
+    ps_np = _np_params(dims, 3)
+
+    def run_at(device, exact, x):
+        icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(dims, device=device), 8, 8, tspan=(0.0, 13.0), steer_rate=0.1,
+                              lam3=1e-2, compute_mode=tcnf.VecJacMode(fused=True, exact_trace=exact))
+        ps = tcnf.params_from_numpy(ps_np, device)
+        with torch.no_grad():
+            lp = tcnf.ICNFDist(icnf, tcnf.Mode.TEST, ps).logpdf(x)
+        leaves = [x.requires_grad_() for p in ps for x in (p["w"], p["b"])]
+        kw = {"steer_r": 0.05} if exact else {"eps": eps, "steer_r": 0.05}
+        l, m = tcnf.loss_and_metrics(icnf, tcnf.Mode.TRAIN, x, ps, **kw)
+        return lp.cpu(), l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves)], int(m["nfe"])
+
+    def run(device, exact):
+        return run_at(device, exact, xs)
+
+    for exact in (False, True):
+        before = _launches()
+        lp_k, l_k, g_k, nfe_k = run(dev, exact)
+        after = _launches()
+        ran = {k for k in after if after[k] != before[k]}
+        want = {tfs.K7_KERNEL + "/test"} | ({tfs.K7_KERNEL + "/exact"} if exact else {tfs.K1C_KERNEL, tfs.K2C_KERNEL})
+        assert ran == want
+        lp_c, l_c, g_c, nfe_c = run(torch.device("cpu"), exact)
+        assert nfe_k == nfe_c and _close(lp_k, lp_c) and _close(l_k, l_c)
+        if all(_grad_close(a, b) for a, b in zip(g_k, g_c)):
+            continue
+        gen = torch.Generator().manual_seed(0)
+        spreads = [0.0] * len(g_c)
+        for _ in range(4):
+            xs_moved = near_tie.nudge(torch.from_numpy(xs), gen).numpy()
+            _, _, g_n, _ = run_at(torch.device("cpu"), exact, xs_moved)
+            spreads = [max(d, _rel(a, b)) for d, a, b in zip(spreads, g_n, g_c)]
+        assert max(spreads) > GRAD_REL, f"no near-tie: the CPU gradients move by {spreads}"
+        for a, b, d in zip(g_k, g_c, spreads):
+            assert _rel(a, b) <= max(GRAD_REL, 4.0 * d)
 
 
 def test_cond_paths_on_the_card_match_the_twins_on_the_cpu(dev):

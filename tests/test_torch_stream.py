@@ -8,10 +8,11 @@ weights overflow a block's shared memory, `MLP((64, 128, 128, 128, 64))`; a
 FFJORD's MINIBOONE model itself (miniboone860, `MLP((43, 860, 860, 43))`)
 at B = 4.  Their plain versions, through the fused solve on CPU tensors,
 against the JAX package's kernels in interpret mode (the forwards and the
-Hutchinson adjoint); TEST and TRAIN `inference`; the Hutchinson loss and
-its gradient against `jax.grad`; the exact forward; the fused solve's
-choice of wrappers; the coverage rule and its refusals; `fit`; and the
-interval union of `utils/profile_step.py`'s idle share.
+Hutchinson adjoint); the fused solve's choice of wrappers; the coverage
+rule and its refusals; `fit`; and the interval union of
+`utils/profile_step.py`'s idle share.  TEST and TRAIN `inference` and the
+losses' gradients of the same nets are in
+tests/test_torch_stream_grads.py (the two files run on two workers).
 
 Inputs come from numpy seeds; the JAX probe draws are reproduced from its
 key split (`core/icnf.py:485`) and handed to the port."""
@@ -35,7 +36,6 @@ from continuousnf_tpu_torch.utils.profile_step import interval_union
 tcnf.set_default_device("cpu")
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 NETS = {"hidden160": (6, 160, 160, 6), "four-layer": (64, 128, 128, 128, 64), "two-layer": (40, 160, 40)}
 MB860 = MODELS["miniboone860"]["dims"]
 B = 8
@@ -74,12 +74,6 @@ def _launch_counts():
 
 def _y0(xs, nacc):
     return np.concatenate([xs.ravel(), np.zeros(nacc * xs.shape[0], np.float32)])
-
-
-def _jax_eps(icnf, key, batch):
-    """The probes JAX `inference` draws from `key`."""
-    eps_key, _ = jax.random.split(key)
-    return np.array(icnf.draw_eps(eps_key, batch))
 
 
 _TWINS = {"train": "solve_train_plain", "test": "solve_test_plain", "exact": "solve_train_exact_plain"}
@@ -188,99 +182,6 @@ def test_stream_adjoint_twin_matches_jax_kernel(net):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
 
-@pytest.mark.parametrize("mode", ["test", "train", "exact"])
-def test_stream_inference_matches_jax(mode):
-    """TEST and TRAIN `inference` of the 3-layer chain past hidden 128
-    through its fused solve against the JAX package's kernel in interpret
-    mode, with the same weights, inputs and probes."""
-    dims = NETS["hidden160"]
-    mode_name = MODE_NAMES[mode]
-    jicnf, ticnf = _model(cnf, dims, mode), _model(tcnf, dims, mode)
-    ps_np = _np_params(dims, 8)
-    xs = _data(dims, B, 9)
-    key = jax.random.PRNGKey(10)
-    lp_r, regs_r, st_r = cnf.inference(jicnf, getattr(cnf.Mode, mode_name), jnp.asarray(xs), _jps(ps_np), key=key)
-    extra = {"eps": _jax_eps(jicnf, key, B)} if mode == "train" else {}
-    with torch.no_grad():
-        lp, regs, st = tcnf.inference(ticnf, getattr(tcnf.Mode, mode_name), xs, tcnf.params_from_numpy(ps_np), **extra)
-    assert (int(st.steps), int(st.accepted), int(st.nfe)) == (int(st_r.steps), int(st_r.accepted), int(st_r.nfe))
-    for a, b in ((lp, lp_r), (regs.e, regs_r.e), (regs.n, regs_r.n)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
-
-
-@pytest.mark.parametrize("net", list(NETS))
-def test_stream_hutchinson_gradients_match_jax_grad(net):
-    """The Hutchinson loss and its gradients through the fused BACKSOLVE
-    (the streamed K1 and K2 chain forms' twins) against `jax.grad` of the
-    JAX package's fused loss."""
-    dims = NETS[net]
-    jicnf, ticnf = _model(cnf, dims), _model(tcnf, dims)
-    ps_np = _np_params(dims, 11)
-    xs = _data(dims, B, 12)
-    key = jax.random.PRNGKey(13)
-    l_r, g_r = jax.value_and_grad(lambda p: cnf.loss(jicnf, cnf.Mode.TRAIN, jnp.asarray(xs), p, key=key))(_jps(ps_np))
-    ps = tcnf.params_from_numpy(ps_np)
-    leaves = [x.requires_grad_() for x in _leaves(ps)]
-    l = tcnf.loss(ticnf, tcnf.Mode.TRAIN, xs, ps, eps=_jax_eps(jicnf, key, B))
-    g = torch.autograd.grad(l, leaves)
-    np.testing.assert_allclose(float(l.detach()), float(l_r), **GRAD_TOL)
-    for a, b in zip(g, _leaves(g_r)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
-
-
-def test_stream_exact_gradient_matches_jax_grad():
-    """The exact-trace loss of the 4-layer chain past shared memory and its
-    gradient: streamed K7 exact's twin forward and the plain backward
-    (forward-only, as in the JAX package) against `jax.grad`."""
-    dims = NETS["four-layer"]
-    jicnf, ticnf = _model(cnf, dims, "exact"), _model(tcnf, dims, "exact")
-    assert tfs.make_full_solve(ticnf, tcnf.Mode.TRAIN, B).adjoint is None
-    ps_np = _np_params(dims, 14)
-    xs = _data(dims, B, 15)
-    key = jax.random.PRNGKey(16)
-    l_r, g_r = jax.value_and_grad(lambda p: cnf.loss(jicnf, cnf.Mode.TRAIN, jnp.asarray(xs), p, key=key))(_jps(ps_np))
-    ps = tcnf.params_from_numpy(ps_np)
-    leaves = [x.requires_grad_() for x in _leaves(ps)]
-    l = tcnf.loss(ticnf, tcnf.Mode.TRAIN, xs, ps)
-    g = torch.autograd.grad(l, leaves)
-    np.testing.assert_allclose(float(l.detach()), float(l_r), **GRAD_TOL)
-    for a, b in zip(g, _leaves(g_r)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
-
-
-def test_miniboone860_test_inference_matches_jax():
-    """miniboone860 at B = 4: TEST `inference` (streamed K7 TEST's twin)
-    against the JAX package's forward kernel in interpret mode."""
-    jicnf, ticnf = _model(cnf, MB860, "test"), _model(tcnf, MB860, "test")
-    ps_np = _np_params(MB860, 16)
-    xs = model_data("miniboone860", np.random.default_rng(17), 4)
-    lp_r, _, st_r = cnf.inference(jicnf, cnf.Mode.TEST, jnp.asarray(xs), _jps(ps_np))
-    with torch.no_grad():
-        lp, _, st = tcnf.inference(ticnf, tcnf.Mode.TEST, xs, tcnf.params_from_numpy(ps_np))
-    assert (int(st.steps), int(st.nfe)) == (int(st_r.steps), int(st_r.nfe))
-    np.testing.assert_allclose(lp.numpy(), np.asarray(lp_r), **TOL)
-
-
-def test_miniboone860_hutchinson_gradient_matches_jax_grad():
-    """miniboone860 at B = 4: the Hutchinson loss and its gradients (the
-    streamed K1 and K2 chain forms' twins) against `jax.grad` of the JAX
-    package's fused loss (its kernels in interpret mode)."""
-    jicnf, ticnf = _model(cnf, MB860), _model(tcnf, MB860)
-    ps_np = _np_params(MB860, 18)
-    xs = model_data("miniboone860", np.random.default_rng(19), 4)
-    key = jax.random.PRNGKey(20)
-    l_r, g_r = jax.value_and_grad(lambda p: cnf.loss(jicnf, cnf.Mode.TRAIN, jnp.asarray(xs), p, key=key))(_jps(ps_np))
-    ps = tcnf.params_from_numpy(ps_np)
-    leaves = [x.requires_grad_() for x in _leaves(ps)]
-    before = _launch_counts()
-    l = tcnf.loss(ticnf, tcnf.Mode.TRAIN, xs, ps, eps=_jax_eps(jicnf, key, 4))
-    g = torch.autograd.grad(l, leaves)
-    assert _launch_counts() == before
-    np.testing.assert_allclose(float(l.detach()), float(l_r), **GRAD_TOL)
-    for a, b in zip(g, _leaves(g_r)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
-
-
 # name -> (dims, streamed forms?)
 _STREAM_COVERED = {
     "miniboone860": (MB860, True),
@@ -332,7 +233,7 @@ def test_stream_forms_cover_probes(name):
 _STREAM_REFUSED = {
     "conditional": ((130, 860, 129), 1, 2, False, "state width 129 > 128"),
     "dz129": ((129, 860, 129), 0, 1, False, "state width 129 > 128"),
-    "five-layer": ((43, 860, 860, 860, 860, 43), 0, 1, False, "5-layer chains"),
+    "five-layer": ((43,) + (860,) * 8 + (43,), 0, 1, False, "9-layer chains"),
 }
 
 
@@ -340,8 +241,10 @@ _STREAM_REFUSED = {
 def test_stream_refusals_name_their_roadmap_row(name):
     """State widths past 128, conditional nets among them with K probes (at
     the miniboone860 widths the streamed probe COND instances take those,
-    row (d6): tests/test_torch_stream_cond_probes.py), and chains past 4
-    layers are refused with the reason and its ROADMAP queue 2 row."""
+    row (d6): tests/test_torch_stream_cond_probes.py), and chains past 8
+    layers (the "five-layer" case holds a 9-layer chain since 5-layer chains
+    run, shape variants (b)) are refused with the reason and its ROADMAP
+    queue 2 row."""
     dims, n_cond, k, jvp, why = _STREAM_REFUSED[name]
     msg = tfs._kernel_covers(TSIT5, _spec(dims, n_cond), k, chain=True, jvp=jvp)
     assert msg is not None and why in msg and "ROADMAP queue 2" in msg

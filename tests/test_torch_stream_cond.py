@@ -405,7 +405,7 @@ _COVERAGE = {
     "three-layer-jvp": (THREE, 2, 1, True, None),
     "cond-miniboone86-K4": (COND_MB86, 1, 4, False, None),
     "dz129": ((130, 387, 129), 1, 1, False, "state width 129 > 128"),
-    "five-layer": ((44, 860, 860, 860, 860, 43), 1, 1, False, "5-layer chains"),
+    "five-layer": ((44,) + (860,) * 8 + (43,), 1, 1, False, "9-layer chains"),
 }
 
 
@@ -415,8 +415,9 @@ def test_stream_cond_coverage(name):
     chains past the wide limits (state width past 64, hidden width past 128
     or the wide forms' shared memory) with one VJP probe, and their probe
     COND instances with K probes or JVP (row (d6)), up to state width 128
-    and 4 layers; the wide forms alone refuse them; past state width 128 or
-    4 layers they are refused as before."""
+    and 8 layers; the wide forms alone refuse them; past state width 128 or
+    8 layers they are refused (the "five-layer" case holds a 9-layer chain
+    since 5-layer chains run, shape variants (b))."""
     dims, nc, k, jvp, why = _COVERAGE[name]
     spec = _spec(dims, nc)
     msg = tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp)

@@ -356,19 +356,20 @@ _COVERAGE = {
     "probe-shared-memory-K2": ((65, 128, 128, 120, 64), 1, 2, False, None),
     "four-layer-jvp": ((44, 200, 200, 200, 43), 1, 1, True, None),
     "dz129-K2": ((130, 387, 129), 1, 2, False, "state width 129 > 128"),
-    "five-layer-jvp": ((44, 860, 860, 860, 860, 43), 1, 1, True, "5-layer chains"),
+    "five-layer-jvp": ((44,) + (860,) * 8 + (43,), 1, 1, True, "9-layer chains"),
     "offsets-K2": ((44, 50000, 50000, 43), 1, 2, False, "offsets are 32-bit ints"),
 }
 
 
 @pytest.mark.parametrize("name", list(_COVERAGE))
 def test_stream_cond_probe_coverage(name):
-    """`_kernel_covers(..., chain=True)` takes conditional chains of 2 to 4
+    """`_kernel_covers(..., chain=True)` takes conditional chains of 2 to 8
     layers up to state width 128 past the wide limits (or past the wide
     probe COND instances' shared memory) with any K VJP probes or JVP
     probes, which the streamed forms count as theirs and the wide forms
-    alone refuse; past state width 128, 4 layers or the 32-bit offsets it
-    still refuses by the same rows."""
+    alone refuse; past state width 128, 8 layers (the "five-layer-jvp"
+    case holds a 9-layer chain since 5-layer chains run, shape variants
+    (b)) or the 32-bit offsets it still refuses by the same rows."""
     dims, nc, k, jvp, why = _COVERAGE[name]
     spec = _spec(dims, nc)
     msg = tfs._kernel_covers(TSIT5, spec, k, chain=True, jvp=jvp)
