@@ -62,7 +62,7 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     the score (the x-gradient of `ICNFDist.logpdf`) and the params-gradient
     of `sample(4096, z1=...)`, a conditional 2-layer net at the flagship
     widths (CondRNODE, MLP 17 -> 48 -> 16 on [z | ys], one ys column,
-    nvars 8, naug 8, tspan (0, 13)) through K7 TEST with ys and K5's COND
+    nvars 8, naug 8, tspan (0, 13)) through K3's and K5's COND
     instance, and the README model's TEST gradient under verner65;
   * the paths the whole-solve kernels do not take, on the flagship: the
     loss gradient under `SolverOptions(adjoint=Adjoint.DIRECT)` and under 32
@@ -134,7 +134,17 @@ continuousnf_tpu_torch/utils/configs.py.  The main paths:
     kernels, served (`logpdf`, `sample`), trained (the loss gradient with
     one VJP probe, K = 4 and JVP, `fit` for four Lion steps, at K = 4 too)
     and under exact trace; chains of 5 and 8 layers through the narrow,
-    wide and streamed forms, conditional ones through the COND instances.
+    wide and streamed forms, conditional ones through the COND instances;
+  * the README net in conditional form at the flagship widths
+    (cond_flagship: CondRNODE, nvars = naug = 8, one conditioning column,
+    MLP 17 -> 48 -> 16 tanh on [z | ys], the flagship recipe, B = 4096, ys
+    the standardised MiniBooNE label as cond_refbench16's) through the COND
+    instances of the 2-layer kernels (K8): served through K3's
+    (`CondICNFDist.logpdf`, `sample(4096)`), its TEST loss gradient through
+    K3's and K5's, trained under exact trace through the K4 forward's and
+    the K4 adjoint's (the train step, `fit`, four Lion steps); the same
+    kernels at the widest state they keep, MLP 35 -> 96 -> 32 with three ys
+    columns, B = 1024.
 
 Phases, each failing the run (nonzero exit) on any mismatch:
   1. versions and the card's name and power limit;
@@ -313,9 +323,10 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      its backward t0 -> t1), each launching K3 and K5 once, held as in
      phase 47;
  49. K5's COND instance: a conditional 2-layer net at the flagship widths,
-     its TEST loss gradient in the params, xs and ys launching K7 TEST and
-     K5 once each, held as in phase 47; K5 COND against its twin (a_ys0
-     and the ys rows of g_W1 among the gradients), timed;
+     its TEST loss gradient in the params, xs and ys launching K3's and
+     K5's COND instances once each, held as in phase 47; K5 COND against
+     its twin (a_ys0 and the ys rows of g_W1 among the gradients) from K3
+     COND's output, timed;
  50. the README model's TEST gradient at the README tolerances (method
      "auto", verner65: the non-FSAL refresh) on the README workflow's
      weights and data at B = 4096, K3 and K5 launched once each under
@@ -689,7 +700,39 @@ Phases, each failing the run (nonzero exit) on any mismatch:
      B = 2048; miniboone860's widths at 5 layers, B = 1024, one timed call,
      and its conditional form through the COND instances) as phase 132,
      and the 5-layer streamed K2 chain form's time a step beside its
-     prediction (DEPTH_K2S_PREDICTED_US).
+     prediction (DEPTH_K2S_PREDICTED_US);
+134. K8 in the 2-layer kernels: cond_flagship (CondRNODE, MLP 17 -> 48 -> 16
+     on [z | ys], one ys column, the flagship recipe, B = 4096) and the dz-32
+     edge (MLP 35 -> 96 -> 32, three ys columns, B = 1024) covered by the
+     COND instances of K3, the K4 forward and the K4 adjoint, their launch
+     shapes and the K4 adjoint COND's shared memory, ptxas's registers,
+     stack frames and spills of the COND instances beside the unconditional;
+135. the three COND instances against their twins at cond_flagship (the
+     forwards from nonzero accumulators, the adjoint from the K4 forward
+     COND's output with its last step as the warm start; the bounds of
+     phases 5 and 11, a_ys0 and W1's ys rows among the gradients, the
+     last-step and near-tie rules), timed, each step's microseconds beside
+     its prediction (COND2_PREDICTED_US);
+136. cond_flagship's serving, counters reset just before each
+     (`CondICNFDist.logpdf` with per-sample ys, `sample(4096)` with one ys:
+     K3 COND once each and nothing else), logpdf against the plain path,
+     and the TEST loss gradient at B = 1024 launching K3 COND and K5 once
+     each: the params and xs held as in phase 47, the per-sample ys
+     cotangent's distance to the float64 solve printed at rtol 1e-3 (the
+     fused backward's discretization, COND_FINE_SOLVER) and, with every
+     other gradient, held within 2e-2 * max|g| at rtol 1e-4;
+137. cond_flagship's exact train step at B = 4096 launching the K4 forward
+     COND and the K4 adjoint COND once each and nothing else, the exact loss
+     and its gradients at B = 1024: the params' within 2e-2 * max|g| of a
+     float64 rtol 1e-7 solve, the ys cotangent's distance printed, and at
+     rtol 1e-4 all within 2e-2 * max|g|; the exact `fit` for four Lion steps
+     launching only those two kernels, at least four times each; the K1 and
+     K2 chain forms' COND instances (Hutchinson training) against their
+     twins, timed, and the Hutchinson train step launching them once each;
+138. the dz-32 edge: the three COND instances against their twins, its
+     logpdf and exact loss gradient launching them once each; CUDA-event
+     times of cond_flagship's exact train step beside the flagship's (a b b
+     a), of both logpdfs and of cond_flagship's TEST loss gradient.
 Every kernel's record carries its bound: the larger of the operations its
 inputs need (FMA counted from the widths, times the field evaluations of the
 timed call: the first stage, S - 1 per attempted step and a non-FSAL
@@ -3000,7 +3043,7 @@ def test_gradients(cnf, fs, dev, keep):
     keep.update(ps_np=ps_np, z1_np=z1_np, w_np=w_np, g_k=g_k[1:], g_p=g_p[1:], g_t=g_t[1:])
     print(f"logpdf and sample gradients: launches {n_lp} and {n_s}")
 
-    # Phase 49: K5's COND instance, behind K7 TEST with ys.
+    # Phase 49: K5's COND instance, behind K3's COND instance.
     ps_np_c = glorot_params(rng, COND_TWO_LAYER)
     ps_c = cnf.params_from_numpy(ps_np_c, dev)
     ys = torch.from_numpy(rng.uniform(-1.0, 1.0, (BATCH, 1)).astype("float32")).to(dev)
@@ -3008,9 +3051,9 @@ def test_gradients(cnf, fs, dev, keep):
                 cond_two_layer(cnf, dev, fused=False, dtype=torch.float64, solver=truth))
     spec_c = fs.chain_spec(models_c[0].nn, 16)
     n_k5c = test_gradient_path("conditional 2-layer TEST gradient", cnf, fs, models_c, ps_np_c, xs, dev,
-                               {fs.K7_KERNEL + "/test": 1, fs.K5_KERNEL: 1}, ys=ys)[fs.K5_KERNEL]
+                               {fs.K3_KERNEL + "/cond": 1, fs.K5_KERNEL: 1}, ys=ys)[fs.K5_KERNEL]
     fwd_c = dict(fwd_kw, ws=[p["w"] for p in ps_c], bs=[p["b"] for p in ps_c], ys=ys)
-    out5c, e5c, ms5c, p5c = k5_pair("K5 COND", fs, TSIT5, spec_c, fs.run_chain_test_solve_kernel, fwd_c, rng, dev)
+    out5c, e5c, ms5c, p5c = k5_pair("K5 COND", fs, TSIT5, spec_c, fs.run_cond_solve_kernel, fwd_c, rng, dev)
 
     # Phase 50: the README model's TEST gradient at the README tolerances
     # (verner65: the non-FSAL refresh), K3 and K5 under verner65 only, on
@@ -5942,6 +5985,355 @@ def depth_paths(cnf, fs, dev, built):
     return records
 
 
+# ---- K8 in the 2-layer kernels: the COND instances of K3 and the K4 pair ----
+
+#: Phase 138's edge: the widest state the narrow 2-layer kernels keep (dz 32,
+#: nvars = naug = 16) with three ys columns, hidden width 96, at B = 1024.
+COND_EDGE_DIMS = (35, 96, 32)
+COND_EDGE_BATCH = 1024
+COND2_TRUTH_BATCH = 1024  # phases 136-137: the float64 rtol 1e-7 solves
+#: Phases 136-137: the tolerances at which the per-sample ys cotangent is held
+#: to the float64 solve.  At cond_flagship's own rtol 1e-3 the fused
+#: backward's coarser, warm-started grid leaves it 6.1e-2 (TEST) and 9.8e-2
+#: (exact) max|g| from that solve at B = 1024, the plain BACKSOLVE 2.2e-2 and
+#: 2.0e-2, the parent's route (K7 TEST COND) 6.0e-2 (TEST): the method's
+#: discretization, not the kernels, which hold their twins; at rtol 1e-4 the
+#: fused path is 2.8e-3 and 2.5e-3 from it (PERF.md).
+COND_FINE_SOLVER = dict(rtol=1e-4, atol=1e-7)
+#: Phases 135 and 138's predictions, microseconds per attempted step, written
+#: before the first timed run (PERF.md): cond_flagship's against the
+#: flagship's unconditional K3 (1.0621 ms / 17 steps), K4 forward (3.8651 /
+#: 17) and K4 adjoint (24.469 / 10), a few per cent up for the ys products and
+#: loads; the edge by the per-sample FMA of one thread a sample (K3 x4, the K4
+#: pair x7.5 of the flagship's).
+COND2_PREDICTED_US = {"k3c": 66.0, "k4c": 232.0, "k4ac": 2_500.0,
+                      "k3c/edge": 250.0, "k4c/edge": 1_700.0, "k4ac/edge": 18_000.0}
+
+
+def cond2_names(fs):
+    """The COND instances of the 2-layer kernels: record key ->
+    (KERNEL_WRAPPERS name, wrapper, twin, source, the TPU site)."""
+    at = "continuousnf_tpu/ops/fused_solve.py:"
+    return {
+        "k3c": (fs.K3_KERNEL + "/cond", fs.run_cond_solve_kernel, fs.solve_test_plain, "k3_test_solve.cu",
+                at + "1043"),
+        "k4c": (fs.K4_KERNEL + "/cond", fs.run_cond_exact_solve_kernel, fs.solve_train_exact_plain,
+                "k4_exact_solve.cu", at + "1043"),
+        "k4ac": (fs.K4A_KERNEL + "/cond", fs.run_cond_exact_adjoint_kernel, fs.adjoint_train_exact_plain,
+                 "k4_exact_adjoint.cu", at + "1767"),
+    }
+
+
+def cond2_fma_floats(dims, nc, B):
+    """FMA per sample and field evaluation and the floats read and written of
+    the COND instances of K3, the K4 forward and the K4 adjoint: the
+    unconditional counts (`two_layer_fma`) and nc H for the ys products of
+    the forwards, 3 nc H for the adjoint's (the forward, k_ays and W1's ys
+    rows); the ys values and a_ys0 among the floats, P counting W1's ys
+    rows."""
+    dz, H = dims[-1], dims[1]
+    P = (dz + nc) * H + H + H * dz + dz
+    f = two_layer_fma(dz, H)
+    fma = {"k3c": f["k3"] + nc * H, "k4c": f["k4"] + nc * H, "k4ac": f["k4a"] + 3 * nc * H}
+    floats = {"k3c": P + B * (2 * dz + 2 + nc), "k4c": P + B * (2 * dz + 6 + nc),
+              "k4ac": 2 * P + dz * dz * H + B * (4 * dz + 9 + 2 * nc)}
+    return fma, floats
+
+
+def gradient_distances(label, names, g_k, g_p, g_t, gate=True):
+    """Each fused gradient's distance to the float64 rtol 1e-7 solve, printed
+    beside the plain path's (g_p, or None) in units of max|g|; with `gate`,
+    each fused one finite and within SOLVE_REL * max|g|."""
+    for i, (name, a, t) in enumerate(zip(names, g_k, g_t)):
+        scale = float(t.abs().max())
+        d_k = float((a.double() - t).abs().max()) / scale
+        d_p = None if g_p is None else float((g_p[i].double() - t).abs().max()) / scale
+        if gate:
+            check(bool(a.isfinite().all()) and d_k <= SOLVE_REL,
+                  f"{label} g_{name}: fused {d_k} max|g| from the float64 solve, over {SOLVE_REL}")
+        print(f"{label} g_{name}: max|g| {scale:.4e}; distance to the float64 rtol 1e-7 solve (of max|g|): fused "
+              f"{d_k:.3e}" + ("" if d_p is None else f", plain {d_p:.3e}") + ("" if gate else " (printed, not held)"))
+
+
+def cond_edge_model(cnf, dev, exact=False, fused=True, dtype=None, solver=None):
+    """Phase 138's edge net: CondRNODE, MLP 35 -> 96 -> 32 tanh on [z | ys],
+    nvars = naug = 16, three ys columns, the flagship recipe (tspan (0, 13),
+    steer_rate 0.1, lambda3 = 1e-2)."""
+    import torch
+    from continuousnf_tpu_torch.utils.configs import MODELS
+
+    dtype = dtype or torch.float32
+    return cnf.construct(cnf.CondRNODE, cnf.MLP(COND_EDGE_DIMS, device=dev, dtype=dtype), 16, 16, tspan=(0.0, 13.0),
+                         compute_mode=cnf.VecJacMode(fused=fused, exact_trace=exact), dtype=dtype,
+                         **MODELS["flagship"]["extra"], **({"solver": solver} if solver else {}))
+
+
+def cond_two_layer_paths(cnf, fs, dev, built):
+    """Phases 134 to 138: cond_flagship (the README net in conditional
+    form, CondRNODE, MLP 17 -> 48 -> 16 on [z | ys], one ys column, the
+    flagship recipe, B = 4096) through the COND instances of K3, the K4
+    forward and the K4 adjoint (K8 in the 2-layer kernels), and the dz-32
+    edge with three ys columns at B = 1024.  `built`: the build's {kernel:
+    (library, nvcc log)}.  Returns the records."""
+    import torch
+    from continuousnf_tpu_torch.ode.tableaus import TSIT5
+    from continuousnf_tpu_torch.utils.configs import MODELS, cuda_ms, glorot_params, make_icnf, model_data
+
+    names = cond2_names(fs)
+    B, dims, nc = BATCH, MODELS["cond_flagship"]["dims"], MODELS["cond_flagship"]["n_cond"]
+    Be, nce = COND_EDGE_BATCH, COND_EDGE_DIMS[0] - COND_EDGE_DIMS[-1]
+
+    # Phase 134: coverage and routing; the launch shapes at the paths'
+    # batches and the K4 adjoint COND's shared memory; ptxas's registers,
+    # stack frames and spills of the COND instances beside the unconditional.
+    for label, d, n, b in (("cond_flagship", dims, nc, B), ("the dz-32 edge", COND_EDGE_DIMS, nce, Be)):
+        spec = fs.chain_spec(cnf.MLP(d, device=dev), d[-1])
+        dz, H = d[-1], d[1]
+        check(spec.n_cond == n and fs._two_layer_tanh(spec) and not fs._wide_two_layer(spec)
+              and fs._kernel_covers(TSIT5, spec, cond=True) is None,
+              f"{label} should run the COND instances of K3 and the K4 pair")
+        line = f"phase 134: {label} {d} ({n} ys columns, B={b}):"
+        for lib_name, fn, blocks in ((fs.K3_KERNEL, "cnf_k3c_max_grid", fs._forward_blocks(b, dev)),
+                                     (fs.K4_KERNEL, "cnf_k4c_max_grid", fs._forward_blocks(b, dev)),
+                                     (fs.K4A_KERNEL, "cnf_k4ac_max_grid", (128, 64, 32))):
+            lib = fs._library(lib_name)
+            block, grid = fs._launch_shape(lambda blk, cap: getattr(lib, fn)(dz, H, n, blk, cap), fn, b, blocks)
+            line += f" {fn} {block} threads x {grid} blocks;"
+        lib = fs._library(fs.K4A_KERNEL)
+        print(line + f" the K4 adjoint COND's shared memory at 128 threads {lib.cnf_k4ac_smem_bytes(dz, H, n, 128)} "
+              f"bytes (unconditional {lib.cnf_k4a_smem_bytes(dz, H, 128)})")
+    for lib_name, parts in ((fs.K3_KERNEL, ("18k3_test_cond_solve", "13k3_test_solve")),
+                            (fs.K4_KERNEL, ("19k4_exact_cond_solve", "14k4_exact_solve")),
+                            (fs.K4A_KERNEL, ("21k4_exact_cond_adjoint", "16k4_exact_adjoint"))):
+        log = built.get(lib_name, (None, ""))[1]
+        for part in parts:
+            found = ptxas_report(log, part)
+            if not found:
+                print(f"phase 134: {part[2:]}: no ptxas lines (the library was not compiled by this process)")
+            for fn, r in sorted(found.items()):
+                dz = re.search(r"ILi(\d+)E", fn)
+                print(f"phase 134: ptxas {part[2:]} DZ {dz.group(1) if dz else '?'}: {r.get('registers')} registers, "
+                      f"{r.get('stack')} bytes stack frame, {r.get('spill_stores')} bytes spill stores, "
+                      f"{r.get('spill_loads')} bytes spill loads")
+
+    # Phase 135: each COND instance against its twin at cond_flagship,
+    # B = 4096, timed: K3 COND and the K4 forward COND from nonzero
+    # accumulators, the K4 adjoint COND from the K4 forward COND's output.
+    rng = np.random.default_rng(SEED + 2500)
+    ps_np = glorot_params(rng, dims)
+    xs_np, ys_np = model_data("cond_flagship", rng, B)
+    xs, ys = torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev)
+    ps = cnf.params_from_numpy(ps_np, dev)
+    icnf_k, icnf_p = make_icnf("cond_flagship", dev), make_icnf("cond_flagship", dev, fused=False)
+    spec = fs.chain_spec(icnf_k.nn, icnf_k.zdim)
+    test, train, exact, cot = kernel_inputs(icnf_k, ps, xs, rng, dev)
+    test["ys"], train["ys"], exact["ys"] = ys, ys, ys
+    runs = {"k3c": run_pair(f"{names['k3c'][0]} (cond_flagship)", names["k3c"][1], names["k3c"][2], TSIT5, spec,
+                            test),
+            "k4c": run_pair(f"{names['k4c'][0]} (cond_flagship)", names["k4c"][1], names["k4c"][2], TSIT5, spec,
+                            exact)}
+    runs["k4ac"] = run_pair(f"{names['k4ac'][0]} (cond_flagship)", names["k4ac"][1], names["k4ac"][2], TSIT5, spec,
+                            adjoint_kw(exact, runs["k4c"][0], cot), adjoint=True, reps=3)
+    out = runs["k4ac"][0]
+    check(len(out) == 8 and tuple(out[7].shape) == (B, nc) and float(out[3][0][dims[-1]:].abs().max()) > 0.0,
+          f"{names['k4ac'][0]} returned no a_ys0 or a zero gradient for W1's ys rows")
+    us = {key: r[2] * 1e3 / max(int(steps_of(r[0])[0]), 1) for key, r in runs.items()}
+    print("phase 135: cond_flagship per attempted step (us), measured / predicted: "
+          + ", ".join(f"{key} {v:.1f} / {COND2_PREDICTED_US[key]:.1f} ({v / COND2_PREDICTED_US[key]:.3f})"
+                      for key, v in us.items()))
+
+    # Phase 136: serving (logpdf with per-sample ys, sample with one ys)
+    # through K3 COND alone, logpdf against the plain path; the TEST loss
+    # gradient through K3 COND and K5 COND against a float64 solve.
+    hold_logpdf(cnf, "cond_flagship", icnf_k, icnf_p, xs, ps, ys=ys, kernel=(fs, "run_cond_solve_kernel",
+                                                                              fs.solve_test_plain))
+    n_serve = {}
+    for what, call in (("logpdf", lambda: cnf.CondICNFDist(icnf_k, cnf.Mode.TEST, ps, ys).logpdf(xs)),
+                       ("sample", lambda: cnf.CondICNFDist(icnf_k, cnf.Mode.TEST, ps, ys[0]).sample(
+                           B, generator=torch.Generator(device=dev).manual_seed(SEED + 2501)))):
+        fs.reset_launches()
+        with torch.no_grad():
+            res = call()
+        torch.cuda.synchronize()
+        n = launched(fs)
+        check(n == {names["k3c"][0]: 1} and bool(torch.isfinite(res).all())
+              and tuple(res.shape) == ((B,) if what == "logpdf" else (B, 8)), f"cond_flagship {what} launched {n}")
+        n_serve[what] = n[names["k3c"][0]]
+    # The TEST loss gradient at B = 1024: the params and xs held to the
+    # float64 solve as in phase 47, the per-sample ys cotangent printed at
+    # rtol 1e-3 and held within SOLVE_REL at COND_FINE_SOLVER's tolerances.
+    b = COND2_TRUTH_BATCH
+    truth = cnf.SolverOptions(rtol=1e-7, atol=1e-9)
+    want_t = {names["k3c"][0]: 1, fs.K5_KERNEL: 1}
+    fs.reset_launches()
+    l_k, g_k = test_loss_grad(cnf, icnf_k, ps_np, xs[:b], dev, ys=ys[:b])
+    torch.cuda.synchronize()
+    check(launched(fs) == want_t, f"cond_flagship TEST gradient launched {launched(fs)}, expected {want_t}")
+    l_p, g_p = test_loss_grad(cnf, icnf_p, ps_np, xs[:b], dev, ys=ys[:b])
+    l_t, g_t = test_loss_grad(cnf, make_icnf("cond_flagship", dev, fused=False, dtype=torch.float64, solver=truth),
+                              ps_np, xs[:b], dev, torch.float64, ys=ys[:b])
+    check(abs(float(l_k - l_p)) <= TOL * max(1.0, abs(float(l_p))), f"cond_flagship TEST losses {float(l_k)} vs "
+          f"{float(l_p)}")
+    label = f"cond_flagship TEST gradient B={b}"
+    hold_test_gradients(label, ["w1", "b1", "w2", "b2", "xs"], g_k[:5], g_p[:5], g_t[:5])
+    gradient_distances(label + " rtol 1e-3", ["ys"], g_k[5:], g_p[5:], g_t[5:], gate=False)
+    fs.reset_launches()
+    _, g_f = test_loss_grad(cnf, make_icnf("cond_flagship", dev, solver=cnf.SolverOptions(**COND_FINE_SOLVER)),
+                            ps_np, xs[:b], dev, ys=ys[:b])
+    torch.cuda.synchronize()
+    check(launched(fs) == want_t, f"cond_flagship TEST gradient at rtol 1e-4 launched {launched(fs)}")
+    gradient_distances(label + " rtol 1e-4", ["w1", "b1", "w2", "b2", "xs", "ys"], g_f, None, g_t)
+    print(f"phase 136: cond_flagship serving launched {n_serve} ({names['k3c'][0]} alone); the TEST gradient "
+          f"{want_t}; losses fused {float(l_k):.6f} plain {float(l_p):.6f} float64 {float(l_t):.6f}")
+
+    # Phase 137: the exact train step (K4 forward COND, K4 adjoint COND once
+    # each) at B = 4096, its loss and gradients in the params and ys at
+    # COND2_TRUTH_BATCH against the plain path and a float64 rtol 1e-7
+    # solve, and the exact `fit` for four Lion steps.
+    icnf_e, icnf_ep = make_icnf("cond_flagship", dev, exact=True), make_icnf("cond_flagship", dev, exact=True,
+                                                                                fused=False)
+    want = {names["k4c"][0]: 1, names["k4ac"][0]: 1}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2502)
+    p = cnf.params_from_numpy(ps_np, dev)
+    leaves = [x.requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
+    step = cnf.parallel.make_train_step_body(icnf_e, cnf.Lion(leaves, lr=1e-3))
+    fs.reset_launches()
+    metrics = step(p, xs, gen, ys=ys)
+    torch.cuda.synchronize()
+    n_step = launched(fs)
+    check(n_step == want and bool(torch.isfinite(metrics["loss"])) and all(bool(torch.isfinite(x).all())
+                                                                            for x in leaves),
+          f"cond_flagship exact train step launched {n_step}, loss {float(metrics['loss'])}")
+    steer = {"steer_r": 0.05}
+    fs.reset_launches()
+    l_k, g_k, _ = loss_grad(cnf, icnf_e, ps_np, xs[:b], dev, ys=ys[:b], **steer)
+    torch.cuda.synchronize()
+    check(launched(fs) == want, f"cond_flagship exact gradient launched {launched(fs)}, expected {want}")
+    l_p, g_p, _ = loss_grad(cnf, icnf_ep, ps_np, xs[:b], dev, ys=ys[:b], **steer)
+    icnf_t = make_icnf("cond_flagship", dev, exact=True, fused=False, dtype=torch.float64, solver=truth)
+    l_t, g_t, _ = loss_grad(cnf, icnf_t, ps_np, xs[:b], dev, torch.float64, ys=ys[:b], **steer)
+    torch.cuda.synchronize()
+    label = f"cond_flagship exact B={b}"
+    check(abs(float(l_k - l_p)) <= TOL * max(1.0, abs(float(l_p))), f"{label} losses {float(l_k)} vs {float(l_p)}")
+    gradient_distances(label + " rtol 1e-3", ["w1", "b1", "w2", "b2"], g_k[:4], g_p[:4], g_t[:4])
+    gradient_distances(label + " rtol 1e-3", ["ys"], g_k[4:], g_p[4:], g_t[4:], gate=False)
+    fs.reset_launches()
+    fine = make_icnf("cond_flagship", dev, exact=True, solver=cnf.SolverOptions(**COND_FINE_SOLVER))
+    _, g_f, _ = loss_grad(cnf, fine, ps_np, xs[:b], dev, ys=ys[:b], **steer)
+    torch.cuda.synchronize()
+    check(launched(fs) == want, f"cond_flagship exact gradient at rtol 1e-4 launched {launched(fs)}")
+    gradient_distances(label + " rtol 1e-4", ["w1", "b1", "w2", "b2", "ys"], g_f, None, g_t)
+    X, Y = model_data("cond_flagship", rng, N_STEPS * B)
+    fit_path(cnf, fs, icnf_e, ps_np, dev, X, Y, batch_size=B)
+    n_fit = launched(fs)
+    check(set(n_fit) == set(want) and min(n_fit.values()) >= N_STEPS, f"cond_flagship exact fit launched {n_fit}")
+    print(f"phase 137: cond_flagship exact train step launched {n_step}, exact fit ({N_STEPS} Lion steps at B={B}) "
+          f"{n_fit}; exact loss fused {float(l_k):.6f} plain {float(l_p):.6f} float64 {float(l_t):.6f}")
+    # Hutchinson training keeps the K1 and K2 chain forms' COND instances
+    # (the JAX package's one `_stage_train` for every depth): each against
+    # its twin, and the train step launching them once each.
+    chain = {"k1c": (fs.K1C_KERNEL, fs.run_chain_train_solve_kernel, fs.solve_train_plain, "k1_chain_solve.cu",
+                     "continuousnf_tpu/ops/fused_solve.py:1043"),
+             "k2c": (fs.K2C_KERNEL, fs.run_chain_adjoint_kernel, fs.adjoint_train_plain, "k2_chain_adjoint.cu",
+                     "continuousnf_tpu/ops/fused_solve.py:1767")}
+    runs_h = {"k1c": run_pair("K1 chain form COND (cond_flagship)", chain["k1c"][1], chain["k1c"][2], TSIT5, spec,
+                              train, reps=2)}
+    runs_h["k2c"] = run_pair("K2 chain form COND (cond_flagship)", chain["k2c"][1], chain["k2c"][2], TSIT5, spec,
+                             adjoint_kw(train, runs_h["k1c"][0], cot), adjoint=True, reps=2)
+    p = cnf.params_from_numpy(ps_np, dev)
+    leaves = [x.requires_grad_() for layer in p for x in (layer["w"], layer["b"])]
+    step = cnf.parallel.make_train_step_body(icnf_k, cnf.Lion(leaves, lr=1e-3))
+    fs.reset_launches()
+    metrics = step(p, xs, gen, ys=ys)
+    torch.cuda.synchronize()
+    n_hutch = launched(fs)
+    check(n_hutch == {fs.K1C_KERNEL: 1, fs.K2C_KERNEL: 1} and bool(torch.isfinite(metrics["loss"])),
+          f"cond_flagship Hutchinson train step launched {n_hutch}")
+    print(f"phase 137: cond_flagship Hutchinson train step launched {n_hutch} (the K1 and K2 chain forms' COND "
+          "instances)")
+
+    # Phase 138: the dz-32 edge (three ys columns, hidden 96) at B = 1024:
+    # the three COND instances against their twins, its logpdf and exact
+    # loss gradient launching them once each; then CUDA-event times of
+    # cond_flagship's paths beside the flagship's, a b b a.
+    rng_e = np.random.default_rng(SEED + 2503)
+    ps_e = glorot_params(rng_e, COND_EDGE_DIMS)
+    xs_e = torch.from_numpy(rng_e.uniform(0.0, 1.0, (Be, 16)).astype("float32")).to(dev)
+    ys_e = torch.from_numpy(rng_e.uniform(-1.0, 1.0, (Be, nce)).astype("float32")).to(dev)
+    pe = cnf.params_from_numpy(ps_e, dev)
+    edge_k = cond_edge_model(cnf, dev)
+    spec_e = fs.chain_spec(edge_k.nn, edge_k.zdim)
+    test_e, _, exact_e, cot_e = kernel_inputs(edge_k, pe, xs_e, rng_e, dev)
+    test_e["ys"], exact_e["ys"] = ys_e, ys_e
+    runs_e = {key: run_pair(f"{names[key][0]} (dz-32 edge, B={Be})", names[key][1], names[key][2], TSIT5, spec_e, kw,
+                            reps=2) for key, kw in (("k3c", test_e), ("k4c", exact_e))}
+    runs_e["k4ac"] = run_pair(f"{names['k4ac'][0]} (dz-32 edge, B={Be})", names["k4ac"][1], names["k4ac"][2], TSIT5,
+                              spec_e, adjoint_kw(exact_e, runs_e["k4c"][0], cot_e), adjoint=True, reps=1)
+    check(tuple(runs_e["k4ac"][0][7].shape) == (Be, nce), "the edge's K4 adjoint COND returned no a_ys0 (B, 3)")
+    fs.reset_launches()
+    with torch.no_grad():
+        lp_e = cnf.CondICNFDist(edge_k, cnf.Mode.TEST, pe, ys_e).logpdf(xs_e)
+    torch.cuda.synchronize()
+    n_lp = launched(fs)
+    check(n_lp == {names["k3c"][0]: 1} and bool(torch.isfinite(lp_e).all()), f"the edge's logpdf launched {n_lp}")
+    fs.reset_launches()
+    _, g_e, _ = loss_grad(cnf, cond_edge_model(cnf, dev, exact=True), ps_e, xs_e, dev, ys=ys_e, **steer)
+    torch.cuda.synchronize()
+    n_ex = launched(fs)
+    check(n_ex == want and all(bool(torch.isfinite(g).all()) for g in g_e),
+          f"the edge's exact gradient launched {n_ex}")
+    us_e = {f"{key}/edge": r[2] * 1e3 / max(int(steps_of(r[0])[0]), 1) for key, r in runs_e.items()}
+    print(f"phase 138: the edge's logpdf launched {n_lp}, its exact gradient {n_ex}; per attempted step (us), "
+          "measured / predicted: "
+          + ", ".join(f"{key} {v:.1f} / {COND2_PREDICTED_US[key]:.1f}" for key, v in us_e.items()))
+    rng_f = np.random.default_rng(SEED + 2504)
+    ps_f = glorot_params(rng_f, MODELS["flagship"]["dims"])
+    xs_f = torch.from_numpy(model_data("flagship", rng_f, B)).to(dev)
+    icnf_fe = make_icnf("flagship", dev, exact=True)
+    a1 = step_ms(cnf, icnf_e, ps_np, xs, gen, dev, 2, ys=ys)
+    b1 = step_ms(cnf, icnf_fe, ps_f, xs_f, gen, dev, 2)
+    b2 = step_ms(cnf, icnf_fe, ps_f, xs_f, gen, dev, 2)
+    a2 = step_ms(cnf, icnf_e, ps_np, xs, gen, dev, 2, ys=ys)
+    ms_c, ms_f = (a1 + a2) / 2, (b1 + b2) / 2
+    dist_c = cnf.CondICNFDist(icnf_k, cnf.Mode.TEST, ps, ys)
+    dist_f = cnf.ICNFDist(make_icnf("flagship", dev), cnf.Mode.TEST, cnf.params_from_numpy(ps_f, dev))
+    with torch.no_grad():
+        _, _, st_c = cnf.inference(icnf_k, cnf.Mode.TEST, xs, ps, ys=ys)
+        _, _, st_f = cnf.inference(dist_f.icnf, cnf.Mode.TEST, xs_f, dist_f.ps)
+        lp_c, lp_f = paired_ms(lambda: dist_c.logpdf(xs), lambda: dist_f.logpdf(xs_f), 3)
+    ps_g = cnf.params_from_numpy(ps_np, dev)
+    leaves_g = [x.requires_grad_() for layer in ps_g for x in (layer["w"], layer["b"])]
+    ms_tg = cuda_ms(lambda: torch.autograd.grad(cnf.loss(icnf_k, cnf.Mode.TEST, xs, ps_g, ys=ys), leaves_g), 3)
+    print(f"phase 138: exact train step B={B}: cond_flagship {ms_c:.4f} ms ({B / ms_c * 1e3:.1f} samples/s), "
+          f"flagship {ms_f:.4f} ms ({B / ms_f * 1e3:.1f} samples/s), ratio {ms_c / ms_f:.3f}; logpdf cond_flagship "
+          f"{lp_c:.4f} ms "
+          f"({int(st_c.steps)} steps, {B / lp_c * 1e3:.1f} evals/s), flagship {lp_f:.4f} ms ({int(st_f.steps)} steps); "
+          f"cond_flagship TEST loss gradient {ms_tg:.4f} ms")
+
+    records = []
+    fma, floats = cond2_fma_floats(dims, nc, B)
+    launches = {"k3c": n_serve["logpdf"] + n_serve["sample"], "k4c": n_fit[names["k4c"][0]],
+                "k4ac": n_fit[names["k4ac"][0]]}
+    for key, (o, err, ms, pms) in runs.items():
+        name, _, _, src, at = names[key]
+        records.append(kernel_record(name, src, at, launches[key], err, ms, pms, fma[key], B, steps_of(o)[0],
+                                     floats[key], accepted=steps_of(o)[1]))
+    fma_c, P = chain_fma(dims, nc), sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    dz = dims[-1]
+    floats_c = {"k1c": P + B * (3 * dz + 6 + nc), "k2c": 2 * P + B * (5 * dz + 9 + 2 * nc)}
+    for key, (o, err, ms, pms) in runs_h.items():
+        name, _, _, src, at = chain[key]
+        records.append(kernel_record(f"{name}/cond_flagship", src, at, n_hutch[name], err, ms, pms, fma_c[key], B,
+                                     steps_of(o)[0], floats_c[key], accepted=steps_of(o)[1]))
+    fma_e, floats_e = cond2_fma_floats(COND_EDGE_DIMS, nce, Be)
+    launches_e = {"k3c": n_lp[names["k3c"][0]], "k4c": n_ex[names["k4c"][0]], "k4ac": n_ex[names["k4ac"][0]]}
+    for key, (o, err, ms, pms) in runs_e.items():
+        name, _, _, src, at = names[key]
+        records.append(kernel_record(f"{name}/dz32-ncond3", src, at, launches_e[key], err, ms, pms, fma_e[key], Be,
+                                     steps_of(o)[0], floats_e[key], accepted=steps_of(o)[1]))
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -6039,7 +6431,8 @@ def main() -> int:
                          ("113-117", lambda: cond_stream(cnf, fs, dev, built)),
                          ("118-122", lambda: cond_stream_exact(cnf, fs, dev, built)),
                          ("123-127", lambda: cond_stream_probes(cnf, fs, dev, built)),
-                         ("128-133", lambda: depth_paths(cnf, fs, dev, built))):
+                         ("128-133", lambda: depth_paths(cnf, fs, dev, built)),
+                         ("134-138", lambda: cond_two_layer_paths(cnf, fs, dev, built))):
         if phases == "128-133":
             t_wait = time.perf_counter()
             libs = {name: futures[name].result() for name in depths}

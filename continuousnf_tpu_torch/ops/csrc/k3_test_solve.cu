@@ -38,8 +38,19 @@
 // Precision: f32 FMA on the CUDA cores for the stages and the controller; no
 // TF32 and no tensor cores.  The TPU's bf16x3 matmul split
 // (fused_solve.py:183-211) is not ported: the stage dots here are exact f32.
+//
+// The COND instance (K8 in the 2-layer kernels): the same _stage_test of a
+// conditional 2-layer net, whose W1 reads [z | ys] (_zin, fused_solve.py:265):
+// W1's ys rows wy (H, nc) sit in shared memory beside the z rows, and each
+// hidden pre-activation adds ys . wy[j] from the sample's ys row, loaded
+// into registers once a field evaluation (two_layer_cond.cuh).  M and the trace read
+// W1's z rows only (w1z, :497), as the unconditional instance's M does.  At
+// cond_flagship (17 -> 48 -> 16, one ys column) that adds 48 FMA to the
+// stage's 2.3 k a sample.  Its entries are cnf_k3c_max_grid and
+// cnf_k3_cond_solve.
 
 #include "solve_common.cuh"
+#include "two_layer_cond.cuh"
 
 namespace {
 
@@ -47,23 +58,25 @@ namespace {
 // the fastest of 1, 2, 4 and 8 for this kernel on the H100 (PERF.md, PR 6).
 constexpr int kStageUnroll = 1;
 
+using cnf::CondRows;
 using cnf::FwdArgs;
 using cnf::kMaxBlock;
 using cnf::kRedFloats;
 
 // The TEST field of one sample: ky = y, kr = -tr J.  Columns i >= dz of the
 // padded weights are zero, so padded inputs contribute nothing and padded
-// outputs (y = tanh(0) = 0, M dh = 0) add nothing to the trace.
-template <int DZ>
-struct TestField {
-  const float* w1t;  // (H, DZ): w1t[j][i] = w1[i][j]
+// outputs (y = tanh(0) = 0, M dh = 0) add nothing to the trace.  COND: the
+// pre-activation of h adds ys . wy[j].
+template <int DZ, bool COND>
+struct TestField : CondRows<COND> {
+  const float* w1t;  // (H, DZ): w1t[j][i] = w1[i][j], the z rows
   const float* b1;   // (H)
   const float* w2p;  // (H, DZ): w2p[j][k] = w2[j][k]
   const float* b2p;  // (DZ)
   const float* mt;   // (H, DZ): mt[j][i] = w1[i][j] * w2[j][i]
   int H;
 
-  __device__ __forceinline__ void operator()(int, const float (&z)[DZ], float (&ky)[DZ],
+  __device__ __forceinline__ void operator()([[maybe_unused]] int smp, const float (&z)[DZ], float (&ky)[DZ],
                                              float (&kr)[1]) const {
     float pre[DZ], mdh[DZ];
 #pragma unroll
@@ -71,6 +84,8 @@ struct TestField {
       pre[k] = b2p[k];
       mdh[k] = 0.f;
     }
+    [[maybe_unused]] cnf::CondRegs<COND> yv;
+    if constexpr (COND) this->load(smp, yv);
     for (int j = 0; j < H; ++j) {
       const float4* w1j = reinterpret_cast<const float4*>(w1t + j * DZ);
       float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
@@ -82,7 +97,9 @@ struct TestField {
         a2 = fmaf(z[4 * q + 2], w.z, a2);
         a3 = fmaf(z[4 * q + 3], w.w, a3);
       }
-      const float h = tanhf(((a0 + a1) + (a2 + a3)) + b1[j]);
+      float pre1 = ((a0 + a1) + (a2 + a3)) + b1[j];
+      if constexpr (COND) pre1 = this->add(pre1, j, yv, smp);
+      const float h = tanhf(pre1);
       const float dh = 1.f - h * h;
       const float4* w2j = reinterpret_cast<const float4*>(w2p + j * DZ);
       const float4* mj = reinterpret_cast<const float4*>(mt + j * DZ);
@@ -134,13 +151,57 @@ __global__ void __launch_bounds__(kMaxBlock) k3_test_solve(const FwdArgs p) {
   for (int j = threadIdx.x; j < H; j += blockDim.x) b1[j] = p.b1[j];
   __syncthreads();
 
-  const TestField<DZ> field{w1t, b1, w2p, b2p, mt, H};
+  const TestField<DZ, false> field{{}, w1t, b1, w2p, b2p, mt, H};
   cnf::forward_solve<DZ, 1, kStageUnroll>(p, field, red);
 }
 
+// The shared memory of an instance with nc ys rows (0: unconditional).
 template <int DZ>
-size_t smem_bytes(int H) {
-  return sizeof(float) * (3 * (size_t)H * DZ + DZ + H + kRedFloats);
+size_t smem_bytes(int H, int nc = 0) {
+  return sizeof(float) * (3 * (size_t)H * DZ + DZ + H + kRedFloats + (size_t)H * nc);
+}
+
+// The COND instance's arguments: the unconditional instance's and the
+// conditioning ys (B, nc), nc >= 1.
+struct CondArgs {
+  FwdArgs f;
+  const float* ys;
+  int nc;
+};
+
+// The COND instance: k3_test_solve's layout with wy (H, nc) after the
+// reduction slots; w1t holds W1's z rows, and M is built from them.
+template <int DZ>
+__global__ void __launch_bounds__(kMaxBlock) k3_test_cond_solve(const __grid_constant__ CondArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  const FwdArgs& p = ca.f;
+  const int H = p.H, dz = p.dz, nc = ca.nc;
+  float* w1t = smem;             // (H, DZ)
+  float* w2p = w1t + H * DZ;     // (H, DZ)
+  float* mt = w2p + H * DZ;      // (H, DZ)
+  float* b2p = mt + H * DZ;      // (DZ)
+  float* b1 = b2p + DZ;          // (H)
+  float* red = b1 + H;           // kRedFloats
+  float* wy = red + kRedFloats;  // (H, nc)
+
+  for (int idx = threadIdx.x; idx < H * DZ; idx += blockDim.x) {
+    const int j = idx / DZ, i = idx % DZ;
+    const float w1v = i < dz ? p.w1[(size_t)i * H + j] : 0.f;
+    const float w2v = i < dz ? p.w2[(size_t)j * dz + i] : 0.f;
+    w1t[idx] = w1v;
+    w2p[idx] = w2v;
+    mt[idx] = w1v * w2v;
+  }
+  for (int k = threadIdx.x; k < DZ; k += blockDim.x) b2p[k] = k < dz ? p.b2[k] : 0.f;
+  for (int j = threadIdx.x; j < H; j += blockDim.x) b1[j] = p.b1[j];
+  for (int idx = threadIdx.x; idx < H * nc; idx += blockDim.x) {
+    const int j = idx / nc, c = idx % nc;
+    wy[idx] = p.w1[(size_t)(dz + c) * H + j];
+  }
+  __syncthreads();
+
+  const TestField<DZ, true> field{{ca.ys, wy, nc}, w1t, b1, w2p, b2p, mt, H};
+  cnf::forward_solve<DZ, 1, kStageUnroll>(p, field, red);
 }
 
 }  // namespace
@@ -181,6 +242,43 @@ extern "C" int cnf_k3_test_solve(const float* w1, const float* b1, const float* 
     case 8: return (int)cnf::coop_launch(k3_test_solve<8>, a, grid, block, smem_bytes<8>(H), s);
     case 16: return (int)cnf::coop_launch(k3_test_solve<16>, a, grid, block, smem_bytes<16>(H), s);
     case 32: return (int)cnf::coop_launch(k3_test_solve<32>, a, grid, block, smem_bytes<32>(H), s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The COND instance (K8): largest co-resident grid with nc ys rows.
+extern "C" int cnf_k3c_max_grid(int dz, int H, int nc, int block, int* out) {
+  switch (cnf::padded_dz(dz)) {
+    case 4: return (int)cnf::coop_max_grid(k3_test_cond_solve<4>, smem_bytes<4>(H, nc), block, out);
+    case 8: return (int)cnf::coop_max_grid(k3_test_cond_solve<8>, smem_bytes<8>(H, nc), block, out);
+    case 16: return (int)cnf::coop_max_grid(k3_test_cond_solve<16>, smem_bytes<16>(H, nc), block, out);
+    case 32: return (int)cnf::coop_max_grid(k3_test_cond_solve<32>, smem_bytes<32>(H, nc), block, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The COND instance (K8): as cnf_k3_test_solve for a conditional net, w1
+// (dz + nc, H) and ys (B, nc) (device), nc >= 1.
+extern "C" int cnf_k3_cond_solve(const float* w1, const float* b1, const float* w2, const float* b2,
+                                 const float* ys, const float* z0, const float* dlogp0, const float* ts, float* zT,
+                                 float* dlogpT, int* stats, float* dt_last, float* work, float* partials, int B,
+                                 int dz, int H, int nc, int max_steps, float rtol, float atol, float beta1,
+                                 float beta2, float inv_order, const float* tab, int grid, int block, void* stream) {
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || nc < 1 || ys == nullptr)
+    return (int)cudaErrorInvalidValue;
+  CondArgs ca = {};
+  FwdArgs& a = ca.f;
+  cnf::set_fwd_args(&a, nullptr, z0, dlogp0, ts, zT, dlogpT, stats, dt_last, work, partials, B, dz,
+                    max_steps, 0, 0, rtol, atol, beta1, beta2, inv_order, tab);
+  a.w1 = w1; a.b1 = b1; a.w2 = w2; a.b2 = b2; a.H = H;
+  ca.ys = ys;
+  ca.nc = nc;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cnf::padded_dz(dz)) {
+    case 4: return (int)cnf::coop_launch(k3_test_cond_solve<4>, ca, grid, block, smem_bytes<4>(H, nc), s);
+    case 8: return (int)cnf::coop_launch(k3_test_cond_solve<8>, ca, grid, block, smem_bytes<8>(H, nc), s);
+    case 16: return (int)cnf::coop_launch(k3_test_cond_solve<16>, ca, grid, block, smem_bytes<16>(H, nc), s);
+    case 32: return (int)cnf::coop_launch(k3_test_cond_solve<32>, ca, grid, block, smem_bytes<32>(H, nc), s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

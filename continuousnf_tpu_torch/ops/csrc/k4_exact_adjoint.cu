@@ -63,8 +63,23 @@
 // sample, plus the block's outer-product pass (P_total * samples FMA, mostly
 // the g_pm product), plus one grid barrier and the partials' read per step.
 // Precision: f32 FMA on the CUDA cores, no TF32 and no tensor cores.
+//
+// The COND instance (K8 in the 2-layer kernels): the same backsolve of a
+// conditional 2-layer net whose W1 reads [z | ys] (_zin, fused_solve.py:265),
+// with the TPU kernel's a_ys block (:1110-1340).  The forward's hidden
+// pre-activation adds ys . wy[h] (W1's ys rows, (H, nc) in shared memory
+// after the slots; the sample's ys row in registers, two_layer_cond.cuh); m,
+// pm and g_pm read W1's z rows only (:1790).  Per sample, a_ys (nc) starts
+// at zero at t_hi (:1183) and integrates k_ays = -W1y^T ct_pre1 (:1167), riding in the
+// (row, B) planes after a_z and in the one batch-global error norm, whose
+// count gains B nc (:1694; adjoint_solve's COND form).  g holds W1's nc ys
+// rows after its z rows, P_total = (dz + nc) H + H + H dz + dz + dz^2 H, and
+// the block's pass adds ys (x) ct_pre1 to them; the wrapper chains g_pm into
+// the z rows alone (:1787-1799) and returns a_ys0 last.  Its entries are
+// cnf_k4ac_max_grid, cnf_k4ac_smem_bytes and cnf_k4_cond_adjoint.
 
 #include "solve_common.cuh"
+#include "two_layer_cond.cuh"
 
 namespace {
 
@@ -73,6 +88,7 @@ namespace {
 constexpr int kStageUnroll = 8;
 
 using cnf::axpy4;
+using cnf::CondRows;
 using cnf::ct_safe_norm;
 using cnf::dot4;
 using cnf::kMaxBlock;
@@ -117,11 +133,12 @@ struct Weights {
 // One augmented stage of one sample (fused_solve.py::_stage_train_exact_fwdbwd
 // with ct_y = a_z, ct_r = a_acc): the field y and rates kr, k_az = -ct_z, and
 // the residuals the outer-product pass reads, left in the slot `sl` and in
-// column `ms` of the (dz^2, B) scratch.
-template <int DZ>
-__device__ void exact_adjoint_stage(const Weights& w, float* sl, float* ms, const float (&z)[DZ],
-                                    const float (&az)[DZ], const float (&aacc)[3], float (&kz)[DZ],
-                                    float (&kr)[3], float (&kaz)[DZ]) {
+// column `ms` of the (dz^2, B) scratch.  COND: sample smp's ys enters the
+// hidden pre-activation, and k_ays = -W1y^T ct_pre1 goes to kys[c * B].
+template <int DZ, bool COND>
+__device__ void exact_adjoint_stage(const Weights& w, const CondRows<COND>& cr, [[maybe_unused]] int smp, float* sl,
+                                    float* ms, const float (&z)[DZ], const float (&az)[DZ], const float (&aacc)[3],
+                                    float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ], [[maybe_unused]] float* kys) {
   const Slot<DZ> o(w.H);
   const int H = w.H, dz = w.dz;
   const size_t B = (size_t)w.B;
@@ -129,8 +146,12 @@ __device__ void exact_adjoint_stage(const Weights& w, float* sl, float* ms, cons
   float y[DZ];
 #pragma unroll
   for (int k = 0; k < DZ; ++k) y[k] = w.b2p[k];
+  [[maybe_unused]] cnf::CondRegs<COND> yv;
+  if constexpr (COND) cr.load(smp, yv);
   for (int h = 0; h < H; ++h) {
-    const float a = tanhf(dot4<DZ>(z, w.w1t + h * DZ) + w.b1[h]);
+    float pre = dot4<DZ>(z, w.w1t + h * DZ) + w.b1[h];
+    if constexpr (COND) pre = cr.add(pre, h, yv, smp);
+    const float a = tanhf(pre);
     sl[o.h + h] = a;
     sl[o.dh + h] = 1.f - a * a;
     axpy4<DZ>(y, a, w.w2p + h * DZ);
@@ -228,16 +249,37 @@ __device__ void exact_adjoint_stage(const Weights& w, float* sl, float* ms, cons
   }
 #pragma unroll
   for (int i = 0; i < DZ; ++i) kaz[i] = -cz[i];
+  if constexpr (COND) {
+    // The ys rows: k_ays = -ct_pre1 W1y^T.
+    for (int c = 0; c < cr.nc; ++c) {
+      float a = 0.f;
+      for (int h = 0; h < H; ++h) a = fmaf(sl[o.ca + h], cr.wy[h * cr.nc + c], a);
+      kys[(size_t)c * B] = -a;
+    }
+  }
 }
 
 // The block's sum over its first `nvalid` samples (thread order) of the
 // negated gradient rate of the stage just evaluated, entry q of
 // [W1 (dz, H) | b1 | W2 (H, dz) | b2 | pm (dz^2, H)].  `mb` points at the
-// block's first sample in the (dz^2, B) scratch.
-template <int DZ>
+// block's first sample in the (dz^2, B) scratch.  COND: W1 has its nc ys
+// rows after the z rows, [W1 (dz + nc, H) | b1 | ...], each entry the sum of
+// ys (x) ct_pre1 over the block's samples base .. base + nvalid - 1.
+template <int DZ, bool COND>
 __device__ __forceinline__ float block_grad_entry(const float* slots, const float* mb, int q, int dz,
-                                                  int H, int B, int nvalid) {
+                                                  int H, int B, int nvalid, [[maybe_unused]] const CondRows<COND>& cr,
+                                                  [[maybe_unused]] int base) {
   const Slot<DZ> o(H);
+  if constexpr (COND) {
+    if (q >= dz * H && q < (dz + cr.nc) * H) {
+      const int c = q / H - dz, h = q % H;
+      float v = 0.f;
+      for (int t = 0; t < nvalid; ++t)
+        v = fmaf(cr.ys[(size_t)(base + t) * cr.nc + c], slots[t * o.size + o.ca + h], v);
+      return -v;
+    }
+    if (q >= dz * H) q -= cr.nc * H;
+  }
   const int P = 2 * dz * H + H + dz;
   float v = 0.f;
   if (q < dz * H) {
@@ -269,24 +311,26 @@ __device__ __forceinline__ float block_grad_entry(const float* slots, const floa
 }
 
 // The stage and gradient callbacks of cnf::adjoint_solve.
-template <int DZ>
+template <int DZ, bool COND>
 struct ExactStage {
   Weights w;
+  CondRows<COND> cr;
   float* mbuf;  // (dz^2, B)
   float* sl;    // this thread's slot
   __device__ void operator()(int s, const float (&z)[DZ], const float (&az)[DZ], const float (&aacc)[3],
-                             float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ], float*) const {
-    exact_adjoint_stage<DZ>(w, sl, mbuf + s, z, az, aacc, kz, kr, kaz);
+                             float (&kz)[DZ], float (&kr)[3], float (&kaz)[DZ], float* kys) const {
+    exact_adjoint_stage<DZ, COND>(w, cr, s, sl, mbuf + s, z, az, aacc, kz, kr, kaz, kys);
   }
 };
 
-template <int DZ>
+template <int DZ, bool COND>
 struct ExactGrad {
   const float* slots;
   const float* mbuf;
+  CondRows<COND> cr;
   int dz, H, B;
   __device__ float operator()(int q, int base, int nvalid) const {
-    return block_grad_entry<DZ>(slots, mbuf + base, q, dz, H, B, nvalid);
+    return block_grad_entry<DZ, COND>(slots, mbuf + base, q, dz, H, B, nvalid, cr, base);
   }
 };
 
@@ -308,8 +352,8 @@ __global__ void __launch_bounds__(kMaxBlock) k4_exact_adjoint(const AdjArgs p) {
   float* gp = p.gblk + (size_t)blockIdx.x * 4 * Pt;
   cnf::load_weights<DZ>(p.w1, p.b1, p.w2, p.b2, dz, H, w1t, w2p, b2p, b1);
   const Weights w{w1t, w2p, b1, b2p, H, dz, B, p.norm_z, p.norm_j};
-  const ExactStage<DZ> stage{w, p.mbuf, slots + threadIdx.x * o.size};
-  const ExactGrad<DZ> grad{slots, p.mbuf, dz, H, B};
+  const ExactStage<DZ, false> stage{w, {}, p.mbuf, slots + threadIdx.x * o.size};
+  const ExactGrad<DZ, false> grad{slots, p.mbuf, {}, dz, H, B};
   cnf::adjoint_solve<DZ, false, kStageUnroll>(p.s, stage, grad, Pt, gp, gp + Pt, gp + 2 * Pt, gp + 3 * Pt, red);
 
   if (blockIdx.x == 0) {
@@ -330,9 +374,67 @@ __global__ void __launch_bounds__(kMaxBlock) k4_exact_adjoint(const AdjArgs p) {
   }
 }
 
+// The shared memory of an instance with nc ys rows (0: unconditional).
 template <int DZ>
-size_t smem_bytes(int H, int block) {
-  return sizeof(float) * (cnf::weight_floats<DZ>(H) + kRedFloats + (size_t)block * Slot<DZ>(H).size);
+size_t smem_bytes(int H, int block, int nc = 0) {
+  return sizeof(float) * (cnf::weight_floats<DZ>(H) + kRedFloats + (size_t)block * Slot<DZ>(H).size +
+                          (size_t)H * nc);
+}
+
+// The COND instance's arguments: the unconditional instance's (a.s.nc and
+// a.s.ays0 set) and the conditioning ys (B, nc), nc >= 1.
+struct CondArgs {
+  AdjArgs a;
+  const float* ys;
+};
+
+// The COND instance: k4_exact_adjoint's layout with wy (H, nc) after the
+// slots, and g = [W1 (dz + nc, H) | b1 | W2 | b2 | pm].
+template <int DZ>
+__global__ void __launch_bounds__(kMaxBlock) k4_exact_cond_adjoint(const __grid_constant__ CondArgs ca) {
+  extern __shared__ __align__(16) float smem[];
+  const AdjArgs& p = ca.a;
+  const int H = p.H, dz = p.s.dz, B = p.s.B, nc = p.s.nc;
+  const int din = dz + nc;
+  const int P = din * H + H + H * dz + dz;
+  const int Pt = P + dz * dz * H;
+  float* w1t = smem;               // (H, DZ)
+  float* w2p = w1t + H * DZ;       // (H, DZ)
+  float* b2p = w2p + H * DZ;       // (DZ)
+  float* b1 = b2p + DZ;            // (H)
+  float* red = b1 + H;             // kRedFloats
+  float* slots = red + kRedFloats; // blockDim.x slots
+  const Slot<DZ> o(H);
+  float* wy = slots + blockDim.x * o.size;  // (H, nc)
+  float* gp = p.gblk + (size_t)blockIdx.x * 4 * Pt;
+  cnf::load_weights<DZ>(p.w1, p.b1, p.w2, p.b2, dz, H, w1t, w2p, b2p, b1);
+  for (int idx = threadIdx.x; idx < H * nc; idx += blockDim.x) {
+    const int h = idx / nc, c = idx % nc;
+    wy[idx] = p.w1[(size_t)(dz + c) * H + h];
+  }
+  __syncthreads();
+  const Weights w{w1t, w2p, b1, b2p, H, dz, B, p.norm_z, p.norm_j};
+  const CondRows<true> cr{ca.ys, wy, nc};
+  const ExactStage<DZ, true> stage{w, cr, p.mbuf, slots + threadIdx.x * o.size};
+  const ExactGrad<DZ, true> grad{slots, p.mbuf, cr, dz, H, B};
+  cnf::adjoint_solve<DZ, true, kStageUnroll>(p.s, stage, grad, Pt, gp, gp + Pt, gp + 2 * Pt, gp + 3 * Pt, red);
+
+  if (blockIdx.x == 0) {
+    for (int q = threadIdx.x; q < Pt; q += blockDim.x) {
+      const float g = gp[q];
+      if (q < din * H) {
+        p.gw1[q] = g;
+      } else if (q < din * H + H) {
+        p.gb1[q - din * H] = g;
+      } else if (q < din * H + H + H * dz) {
+        p.gw2[q - din * H - H] = g;
+      } else if (q < P) {
+        p.gb2[q - din * H - H - H * dz] = g;
+      } else {
+        p.gpm[q - P] = g;
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -388,6 +490,65 @@ extern "C" int cnf_k4_exact_adjoint(const float* w1, const float* b1, const floa
     case 8: return (int)cnf::coop_launch(k4_exact_adjoint<8>, a, grid, block, smem_bytes<8>(H, block), s);
     case 16: return (int)cnf::coop_launch(k4_exact_adjoint<16>, a, grid, block, smem_bytes<16>(H, block), s);
     case 32: return (int)cnf::coop_launch(k4_exact_adjoint<32>, a, grid, block, smem_bytes<32>(H, block), s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The COND instance (K8): dynamic shared memory of one block with nc ys
+// rows (bytes), 0 for an unsupported dz.
+extern "C" long long cnf_k4ac_smem_bytes(int dz, int H, int nc, int block) {
+  switch (cnf::padded_dz(dz)) {
+    case 4: return (long long)smem_bytes<4>(H, block, nc);
+    case 8: return (long long)smem_bytes<8>(H, block, nc);
+    case 16: return (long long)smem_bytes<16>(H, block, nc);
+    case 32: return (long long)smem_bytes<32>(H, block, nc);
+    default: return 0;
+  }
+}
+
+// The COND instance (K8): largest co-resident grid with nc ys rows.
+extern "C" int cnf_k4ac_max_grid(int dz, int H, int nc, int block, int* out) {
+  switch (cnf::padded_dz(dz)) {
+    case 4: return (int)cnf::coop_max_grid(k4_exact_cond_adjoint<4>, smem_bytes<4>(H, block, nc), block, out);
+    case 8: return (int)cnf::coop_max_grid(k4_exact_cond_adjoint<8>, smem_bytes<8>(H, block, nc), block, out);
+    case 16: return (int)cnf::coop_max_grid(k4_exact_cond_adjoint<16>, smem_bytes<16>(H, block, nc), block, out);
+    case 32: return (int)cnf::coop_max_grid(k4_exact_cond_adjoint<32>, smem_bytes<32>(H, block, nc), block, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The COND instance (K8): as cnf_k4_exact_adjoint for a conditional net,
+// with w1/gw1 (dz + nc, H), ys and ays0 (B, nc) (device), nc >= 1; work
+// (S + 2) (2 dz + 3 + nc) B floats, gpart and gblk sized by P_total =
+// (dz + nc) H + H + H dz + dz + dz^2 H.
+extern "C" int cnf_k4_cond_adjoint(const float* w1, const float* b1, const float* w2, const float* b2,
+                                   const float* ys, const float* zT, const float* accT, const float* azT,
+                                   const float* aaccT, const float* ts, float* z0, float* acc0, float* az0,
+                                   float* ays0, float* gw1, float* gb1, float* gw2, float* gb2, float* gpm,
+                                   int* stats, float* work, float* partials, float* gpart, float* gblk, float* mbuf,
+                                   int B, int dz, int H, int nc, int max_steps, int norm_z, int norm_j, float rtol,
+                                   float atol, float beta1, float beta2, float inv_order, const float* tab, int grid,
+                                   int block, void* stream) {
+  if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1 || nc < 1 || ys == nullptr ||
+      ays0 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  CondArgs ca = {};
+  AdjArgs& a = ca.a;
+  cnf::set_adj_state(&a.s, zT, accT, azT, aaccT, ts, z0, acc0, az0, stats, work, partials, gpart, B,
+                     dz, max_steps, rtol, atol, beta1, beta2, inv_order, tab);
+  a.s.nc = nc;
+  a.s.ays0 = ays0;
+  a.w1 = w1; a.b1 = b1; a.w2 = w2; a.b2 = b2;
+  a.gw1 = gw1; a.gb1 = gb1; a.gw2 = gw2; a.gb2 = gb2; a.gpm = gpm;
+  a.gblk = gblk; a.mbuf = mbuf;
+  a.H = H; a.norm_z = norm_z; a.norm_j = norm_j;
+  ca.ys = ys;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cnf::padded_dz(dz)) {
+    case 4: return (int)cnf::coop_launch(k4_exact_cond_adjoint<4>, ca, grid, block, smem_bytes<4>(H, block, nc), s);
+    case 8: return (int)cnf::coop_launch(k4_exact_cond_adjoint<8>, ca, grid, block, smem_bytes<8>(H, block, nc), s);
+    case 16: return (int)cnf::coop_launch(k4_exact_cond_adjoint<16>, ca, grid, block, smem_bytes<16>(H, block, nc), s);
+    case 32: return (int)cnf::coop_launch(k4_exact_cond_adjoint<32>, ca, grid, block, smem_bytes<32>(H, block, nc), s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -278,11 +278,18 @@ def _zin(z, ys):
 
 
 def _test_stage(spec: ChainSpec, ws, bs, z, ys=None):
-    """The plain TEST field of the chain: (y, tr J), J in z."""
+    """The plain TEST field of the chain: (y, tr J), J in z.  A 2-layer tanh
+    chain takes the closed form of the JAX package's `_stage_test`
+    (:484-503), as K3 runs it: a conditional one on its input rows [z | ys]
+    (`_zin`) with m from W1's z rows, as K3's COND instance runs it."""
     from .fused_dynamics import dense_chain_trace, exact_tanh_mlp_trace
 
-    if ys is None and spec.n_layers == 2 and all(spec.acts):
-        return exact_tanh_mlp_trace(({"w": ws[0], "b": bs[0]}, {"w": ws[1], "b": bs[1]}), z)
+    if spec.n_layers == 2 and all(spec.acts):
+        if ys is None:
+            return exact_tanh_mlp_trace(({"w": ws[0], "b": bs[0]}, {"w": ws[1], "b": bs[1]}), z)
+        hs, (dh, dy) = _chain_fwd(spec, _zin(z, ys), ws, bs)
+        m = ws[0][: spec.dz] * ws[1].T
+        return hs[-1], torch.sum(dy * (dh @ m.T), dim=-1)
     return dense_chain_trace(ws, bs, spec.acts, z, ys)
 
 
@@ -936,16 +943,20 @@ def _wide_smem_floats(spec: ChainSpec, probes: bool = False) -> int:
 
 def _kernel_covers(
     tab: ButcherTableau, spec: ChainSpec, k_probes: int = 1, chain: bool = False, jvp: bool = False,
-    stream: bool = True,
+    stream: bool = True, cond: bool = False,
 ) -> Optional[str]:
     """Why the 2-layer kernels (K3, K1, K2, K4, K5; `chain` False) or the
     chain kernels (the K1 and K2 chain forms, K7, narrow, wide or streamed;
     `chain` True) do not run this configuration (None if they do).  Both take
-    every embedded explicit tableau (K9).  The 2-layer kernels take
-    unconditional 2-layer tanh chains with state widths up to MAX_DZ (K5
-    conditional ones too: its caller asks without the conditioning); the
-    chain kernels take Dense chains of 1 to CHAIN_MAX_LAYERS tanh or identity
-    layers (K9): their narrow forms with hidden widths up to CHAIN_MAX_WIDTH
+    every embedded explicit tableau (K9).  The 2-layer kernels take 2-layer
+    tanh chains with state widths up to MAX_DZ: unconditional ones in every
+    instance, conditional ones (K8) in the COND instances of K3, the K4
+    forward, the K4 adjoint and K5 (`cond`: the caller asks for a kernel
+    that has one); K1 and K2 have none (the K1 and K2 chain forms' COND
+    instances take those nets under Hutchinson TRAIN, as the JAX package
+    runs one `_stage_train` for every depth).  The chain kernels take Dense
+    chains of 1 to CHAIN_MAX_LAYERS tanh or identity layers (K9): their
+    narrow forms with hidden widths up to CHAIN_MAX_WIDTH
     and state widths up to MAX_DZ, conditional ones (K8) included, 1-layer
     nets only there, whose weights and slots fit in shared memory
     (`_narrow_smem_bytes`), their wide forms the chains of 2 layers or more
@@ -973,8 +984,10 @@ def _kernel_covers(
     if not chain and not all(spec.acts):
         return ("identity-activation layers in K3, K1, K2, K4 and K5 (the chain kernels take them; a TEST "
                 "gradient of such a net runs the plain backward)")
-    if spec.n_cond and not chain:
-        return "conditional nets (K8 in the 2-layer kernels, ROADMAP queue 2)"
+    if spec.n_cond and not chain and not cond:
+        return ("conditional nets in K1 and K2 (no COND instance: the K1 and K2 chain forms' COND instances take "
+                "them) and in the unconditional instances of K3, the K4 forward, the K4 adjoint and K5 (their COND "
+                "instances take them)")
     if not chain:
         if spec.dz > MAX_DZ:
             return (f"state width {spec.dz} > {MAX_DZ} in K3, K1, K2, K4 and K5 (they keep one sample's state in "
@@ -1152,6 +1165,8 @@ _SIGNATURES = {
     K3_KERNEL: {
         "cnf_k3_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
         "cnf_k3_test_solve": ([_P] * 13 + [_I] * 4 + _TAIL, _I),
+        "cnf_k3c_max_grid": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k3_cond_solve": ([_P] * 14 + [_I] * 5 + _TAIL, _I),
     },
     K1_KERNEL: {
         "cnf_k1_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
@@ -1168,11 +1183,16 @@ _SIGNATURES = {
     K4_KERNEL: {
         "cnf_k4_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
         "cnf_k4_exact_solve": ([_P] * 13 + [_I] * 6 + _TAIL, _I),
+        "cnf_k4c_max_grid": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k4_cond_solve": ([_P] * 14 + [_I] * 7 + _TAIL, _I),
     },
     K4A_KERNEL: {
         "cnf_k4a_max_grid": ([_I, _I, _I, ctypes.POINTER(_I)], _I),
         "cnf_k4a_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
         "cnf_k4_exact_adjoint": ([_P] * 23 + [_I] * 6 + _TAIL, _I),
+        "cnf_k4ac_max_grid": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
+        "cnf_k4ac_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
+        "cnf_k4_cond_adjoint": ([_P] * 25 + [_I] * 7 + _TAIL, _I),
     },
     K5_KERNEL: {
         "cnf_k5_max_grid": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
@@ -1391,13 +1411,14 @@ def _cuda_only(label: str, x: torch.Tensor, tab, spec, k_probes: int = 1, chain:
     keeps in shared memory, and its streamed form (`stream`) the chains the
     wide forms refuse for their widths or shared memory (`_stream_chain`;
     with K probes or JVP, those of the wide probe instances); the wide and
-    streamed forms take conditional chains in their COND instances (`cond`;
-    with K probes or JVP, their probe COND instances) and unconditional ones
-    in the others."""
+    streamed forms and K3, the K4 forward and the K4 adjoint take
+    conditional chains in their COND instances (`cond`; with K probes or
+    JVP, the probe COND instances of the wide and streamed forms) and
+    unconditional ones in the others."""
     if x.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA or CPU tensors, got {x.device}")
     probes = k_probes != 1 or jvp
-    why = _kernel_covers(tab, spec, k_probes, chain, jvp)
+    why = _kernel_covers(tab, spec, k_probes, chain, jvp, cond=cond)
     if why is None and chain and not wide and not stream and _wide_chain(spec):
         why = (f"state width {spec.dz} with hidden widths {spec.out_dims[:-1]} in the narrow chain kernels (up to "
                f"{MAX_DZ} and {CHAIN_MAX_WIDTH}: their wide forms take the chain)")
@@ -1440,33 +1461,38 @@ def _forward_result(zT, accT, stats, dt_last):
 
 
 def _launch_two_layer_forward(label, lib_name, entry, max_grid, tab, spec, *, rtol, atol, max_steps, ws, bs, z0,
-                              acc0, t0, t1, dt_init, eps=None, norms=None, blocks=None):
+                              acc0, t0, t1, dt_init, eps=None, norms=None, blocks=None, ys=None):
     """Launch a 2-layer forward kernel (K3: no probe, no norms; K1: the
     probes (K, B, dz) and the norms, and for its probe instance K and jvp;
     the K4 forward: the norms), whose C arguments are (w1, b1, w2, b2,
     [eps], z0, acc0, ts, zT, accT, stats, dt_last, work, partials, B, dz, H,
     max_steps, [norm_z, norm_j, [K, jvp]], rtol, atol, the controller, the
     tableau, grid, block, stream), with the first block size of `blocks`
-    that launches (by default `_forward_blocks`).  Returns (zT, accT,
-    steps, accepted, dt_last, dt_used)."""
+    that launches (by default `_forward_blocks`); given ys (B, n_cond), a
+    COND instance (K3's and the K4 forward's, K8), whose w1 is (dz + n_cond,
+    H) and whose C arguments take ys after b2 and n_cond after H, as does
+    its `max_grid`.  Returns (zT, accT, steps, accepted, dt_last, dt_used)."""
     B, dz = z0.shape
     H = spec.out_dims[0]
+    nc = 0 if ys is None else spec.n_cond
     device = z0.device
     probe = [] if eps is None else [eps]
     w1, b1, w2, b2, z0, acc0, *probe = _check_inputs(
         label, device, [ws[0], bs[0], ws[1], bs[1], z0, acc0] + probe,
-        [(dz, H), (H,), (H, dz), (dz,), (B, dz), tuple(acc0.shape)] + [(x.shape[0], B, dz) for x in probe],
+        [(dz + nc, H), (H,), (H, dz), (dz,), (B, dz), tuple(acc0.shape)] + [(x.shape[0], B, dz) for x in probe],
     )
+    cond = [] if ys is None else [_cond_rows(label, spec, ys, B, device)]
+    ncs = [nc] if nc else []
     lib = _library(lib_name)
     block, grid = _launch_shape(
-        lambda blk, cap: getattr(lib, max_grid)(dz, H, blk, cap), label, B, blocks or _forward_blocks(B, device)
+        lambda blk, cap: getattr(lib, max_grid)(dz, H, *ncs, blk, cap), label, B, blocks or _forward_blocks(B, device)
     )
     ts = torch.stack([t0, t1, dt_init]).to(device=device, dtype=torch.float32)
     zT, accT, stats, dt_last, work, partials = _forward_buffers(z0, acc0, tab, grid)
     err = getattr(lib, entry)(
-        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), *[_ptr(x) for x in probe], _ptr(z0), _ptr(acc0), _ptr(ts),
+        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), *[_ptr(x) for x in cond + probe], _ptr(z0), _ptr(acc0), _ptr(ts),
         _ptr(zT), _ptr(accT), _ptr(stats), _ptr(dt_last), _ptr(work), _ptr(partials),
-        B, dz, H, int(max_steps), *[int(x) for x in norms or ()], rtol, atol, *_controller_floats(tab),
+        B, dz, H, *ncs, int(max_steps), *[int(x) for x in norms or ()], rtol, atol, *_controller_floats(tab),
         _tableau_array(tab), grid, block, _stream(device),
     )
     _check_launch(err, label, grid, block)
@@ -1652,39 +1678,57 @@ run_exact_solve_kernel.launches = 0
 
 
 def _launch_k4_adjoint(tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
-                       t_hi, t_lo, dt_init):
+                       t_hi, t_lo, dt_init, ys=None):
+    """Launch the K4 adjoint: its unconditional instance or, given ys
+    (B, n_cond), its COND instance (K8), which returns a_ys0 (B, n_cond)
+    last.  g_pm, over W1's z rows, is chained into them and W2 after the
+    launch; W1's ys rows get none (the JAX package's :1787-1799)."""
     B, dz = zT.shape
     H = spec.out_dims[0]
+    nc = 0 if ys is None else spec.n_cond
+    label = "K4 adjoint COND" if nc else "K4 adjoint"
     device = zT.device
     w1, b1, w2, b2, zT, accT, azT, aaccT = _check_inputs(
         "K4", device, [ws[0], bs[0], ws[1], bs[1], zT, accT, azT, aaccT],
-        [(dz, H), (H,), (H, dz), (dz,), (B, dz), (3, B), (B, dz), (3, B)],
+        [(dz + nc, H), (H,), (H, dz), (dz,), (B, dz), (3, B), (B, dz), (3, B)],
     )
     lib = _library(K4A_KERNEL)
-    block, grid = _launch_shape(
-        lambda blk, cap: lib.cnf_k4a_max_grid(dz, H, blk, cap), "K4 adjoint", B, (128, 64, 32)
-    )
-    P_total = 2 * dz * H + H + dz + dz * dz * H
+    if nc:
+        ys = _cond_rows(label, spec, ys, B, device)
+        max_grid = lambda blk, cap: lib.cnf_k4ac_max_grid(dz, H, nc, blk, cap)  # noqa: E731
+    else:
+        max_grid = lambda blk, cap: lib.cnf_k4a_max_grid(dz, H, blk, cap)  # noqa: E731
+    block, grid = _launch_shape(max_grid, label, B, (128, 64, 32))
+    P_total = (2 * dz + nc) * H + H + dz + dz * dz * H
     ts = torch.stack([t_hi, t_lo, dt_init]).to(device=device, dtype=torch.float32)
     z0, az0, acc0 = torch.empty_like(zT), torch.empty_like(azT), torch.empty_like(accT)
     gw1, gb1, gw2, gb2 = (torch.empty_like(x) for x in (w1, b1, w2, b2))
     gpm = torch.empty((dz * dz, H), dtype=torch.float32, device=device)
     stats = torch.empty(2, dtype=torch.int32, device=device)
-    work = torch.empty((tab.num_stages + 2) * (2 * dz + 3) * B, dtype=torch.float32, device=device)
+    work = torch.empty((tab.num_stages + 2) * (2 * dz + 3 + nc) * B, dtype=torch.float32, device=device)
     partials = torch.empty(6 * grid, dtype=torch.float32, device=device)
     gpart = torch.empty(2 * grid * _gvecs(tab) * P_total, dtype=torch.float32, device=device)
     gblk = torch.empty(grid * 4 * P_total, dtype=torch.float32, device=device)
     mbuf = torch.empty(dz * dz * B, dtype=torch.float32, device=device)
-    err = lib.cnf_k4_exact_adjoint(
-        _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT),
-        _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0), _ptr(gw1), _ptr(gb1), _ptr(gw2), _ptr(gb2),
-        _ptr(gpm), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gpart), _ptr(gblk), _ptr(mbuf),
-        B, dz, H, int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab),
-        _tableau_array(tab), grid, block, _stream(device),
-    )
-    _check_launch(err, "K4 adjoint", grid, block)
-    g_w1, g_w2 = exact_pm_chain(gpm, w1, w2)
-    return z0, acc0, az0, [gw1 + g_w1, gw2 + g_w2], [gb1, gb2], stats[0], stats[1]
+    tail = (_ptr(gpm), _ptr(stats), _ptr(work), _ptr(partials), _ptr(gpart), _ptr(gblk), _ptr(mbuf), B, dz, H)
+    ctl = (int(max_steps), int(norm_z), int(norm_j), rtol, atol, *_controller_floats(tab), _tableau_array(tab), grid,
+           block, _stream(device))
+    if nc:
+        ays0 = torch.empty((B, nc), dtype=torch.float32, device=device)
+        err = lib.cnf_k4_cond_adjoint(
+            _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(ys), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT),
+            _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0), _ptr(ays0), _ptr(gw1), _ptr(gb1), _ptr(gw2), _ptr(gb2),
+            *tail, nc, *ctl,
+        )
+    else:
+        err = lib.cnf_k4_exact_adjoint(
+            _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(zT), _ptr(accT), _ptr(azT), _ptr(aaccT),
+            _ptr(ts), _ptr(z0), _ptr(acc0), _ptr(az0), _ptr(gw1), _ptr(gb1), _ptr(gw2), _ptr(gb2), *tail, *ctl,
+        )
+    _check_launch(err, label, grid, block)
+    g_w1, g_w2 = exact_pm_chain(gpm, w1[:dz], w2)
+    out = (z0, acc0, az0, [gw1 + _pad_rows(g_w1, dz + nc), gw2 + g_w2], [gb1, gb2], stats[0], stats[1])
+    return out + ((ays0,) if nc else ())
 
 
 def run_exact_adjoint_kernel(
@@ -1697,11 +1741,11 @@ def run_exact_adjoint_kernel(
     (z0, acc0, a_z0, g_ws, g_bs, steps, accepted), g_* summed over the batch
     with g_pm chained into g_w1 and g_w2.
 
-    CUDA tensors go through the K4 adjoint kernel (unconditional nets: the
-    conditional rows of the 2-layer kernels are not ported), CPU tensors
-    through its plain version (with ys (B, n_cond), a_ys0 is returned
-    last).  Other chains have no exact adjoint, as in the JAX package: K7
-    is forward-only."""
+    CUDA tensors go through the K4 adjoint kernel's unconditional instance
+    (conditional nets: its COND instance, `run_cond_exact_adjoint_kernel`),
+    CPU tensors through its plain version (with ys (B, n_cond), a_ys0 is
+    returned last).  Other chains have no exact adjoint, as in the JAX
+    package: K7 is forward-only."""
     if not _two_layer_tanh(spec):
         raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
     _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT, ys)
@@ -1773,8 +1817,7 @@ def run_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, acc
     if zT.device.type == "cpu":
         return adjoint_test_plain(tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, zT=zT,
                                   accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys)
-    # K5 has a COND instance: the 2-layer kernels' rule without the conditioning.
-    _cuda_only("K5", zT, tab, spec._replace(n_cond=0))
+    _cuda_only("K5", zT, tab, spec, cond=bool(spec.n_cond))
     if dt_init is None:
         raise ValueError("K5 needs dt_init (the caller picks it)")
     out = _launch_k5(tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs, zT=zT, accT=accT, azT=azT,
@@ -1784,6 +1827,103 @@ def run_test_adjoint_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, zT, acc
 
 
 run_test_adjoint_kernel.launches = 0
+
+
+# ---- the COND instances of the 2-layer kernels (K8: conditional nets within MAX_DZ) ----
+
+
+def run_cond_solve_kernel(tab, spec, *, rtol, atol, max_steps, ws, bs, z0, dlogp0, t0, t1, dt_init, ys=None):
+    """K3's COND instance: the closed-form TEST solve (`run_solve_kernel`)
+    of a conditional 2-layer tanh net of state width up to MAX_DZ whose W1
+    reads [z | ys] (the README net in conditional form, cond_flagship); M
+    and the trace read W1's z rows only (the JAX package's `_stage_test`
+    with `_zin`); arguments and returns as `run_solve_kernel` with ys
+    (B, n_cond).
+
+    CUDA tensors go through the kernel (`csrc/k3_test_solve.cu`'s
+    `k3_test_cond_solve`), CPU tensors through its plain version."""
+    _no_grad_inputs("K3", ws, bs, z0, dlogp0, ys)
+    if z0.device.type == "cpu":
+        return solve_test_plain(
+            tab, spec, rtol=rtol, atol=atol, max_steps=max_steps, ws=ws, bs=bs,
+            z0=z0, dlogp0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("K3", z0, tab, spec, cond=True)
+    out = _launch_two_layer_forward(
+        "K3 COND", K3_KERNEL, "cnf_k3_cond_solve", "cnf_k3c_max_grid", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=dlogp0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+    )
+    run_cond_solve_kernel.launches += 1
+    return out
+
+
+run_cond_solve_kernel.launches = 0
+
+
+def run_cond_exact_solve_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, z0, acc0, t0, t1, dt_init, ys=None
+):
+    """The K4 forward's COND instance: the exact TRAIN solve
+    (`run_exact_solve_kernel`) of the conditional 2-layer tanh nets K3's
+    COND instance takes; m reads W1's z rows only, as pm does (the JAX
+    package's `_stage_train_exact` with `_zin`); arguments and returns as
+    `run_exact_solve_kernel` with ys (B, n_cond).
+
+    CUDA tensors go through the kernel (`csrc/k4_exact_solve.cu`'s
+    `k4_exact_cond_solve`), CPU tensors through its plain version."""
+    _no_grad_inputs("K4", ws, bs, z0, acc0, ys)
+    if z0.device.type == "cpu":
+        return solve_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("K4", z0, tab, spec, cond=True)
+    out = _launch_two_layer_forward(
+        "K4 forward COND", K4_KERNEL, "cnf_k4_cond_solve", "cnf_k4c_max_grid", tab, spec, rtol=rtol, atol=atol,
+        max_steps=max_steps, ws=ws, bs=bs, z0=z0, acc0=acc0, t0=t0, t1=t1, dt_init=dt_init,
+        norms=(norm_z, norm_j), ys=ys,
+    )
+    run_cond_exact_solve_kernel.launches += 1
+    return out
+
+
+run_cond_exact_solve_kernel.launches = 0
+
+
+def run_cond_exact_adjoint_kernel(
+    tab, spec, *, norm_z, norm_j, rtol, atol, max_steps, ws, bs, zT, accT, azT, aaccT,
+    t_hi, t_lo, dt_init, ys=None,
+):
+    """The K4 adjoint's COND instance: the exact backsolve of (z, acc, a_z,
+    a_acc, a_ys, g_p, g_pm) (`run_exact_adjoint_kernel`) of the conditional
+    2-layer tanh nets K3's COND instance takes, the per-sample a_ys
+    integrated from 0 at t_hi in the one batch-global error norm; g_pm (over
+    W1's z rows) is chained into W1's z rows and W2, W1's ys rows get
+    ys (x) ct_pre1 alone; arguments as `run_exact_adjoint_kernel` with ys
+    (B, n_cond), returns (z0, acc0, a_z0, g_ws, g_bs, steps, accepted,
+    a_ys0).
+
+    CUDA tensors go through the kernel (`csrc/k4_exact_adjoint.cu`'s
+    `k4_exact_cond_adjoint`), CPU tensors through its plain version."""
+    if not _two_layer_tanh(spec):
+        raise ValueError(_NO_EXACT_CHAIN_ADJOINT)
+    _no_grad_inputs("K4", ws, bs, zT, accT, azT, aaccT, ys)
+    if zT.device.type == "cpu":
+        return adjoint_train_exact_plain(
+            tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+            ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo, dt_init=dt_init, ys=ys,
+        )
+    _cuda_only("the K4 adjoint", zT, tab, spec, cond=True)
+    if dt_init is None:
+        raise ValueError("the K4 adjoint needs dt_init (the caller picks it)")
+    out = _launch_k4_adjoint(tab, spec, norm_z=norm_z, norm_j=norm_j, rtol=rtol, atol=atol, max_steps=max_steps,
+                             ws=ws, bs=bs, zT=zT, accT=accT, azT=azT, aaccT=aaccT, t_hi=t_hi, t_lo=t_lo,
+                             dt_init=dt_init, ys=ys)
+    run_cond_exact_adjoint_kernel.launches += 1
+    return out
+
+
+run_cond_exact_adjoint_kernel.launches = 0
 
 
 # ---- the chain kernels (1 to CHAIN_MAX_LAYERS layers) ----
@@ -3476,6 +3616,9 @@ KERNEL_WRAPPERS = {
     K4_KERNEL: run_exact_solve_kernel,
     K4A_KERNEL: run_exact_adjoint_kernel,
     K5_KERNEL: run_test_adjoint_kernel,
+    K3_KERNEL + "/cond": run_cond_solve_kernel,
+    K4_KERNEL + "/cond": run_cond_exact_solve_kernel,
+    K4A_KERNEL + "/cond": run_cond_exact_adjoint_kernel,
     K1C_KERNEL: run_chain_train_solve_kernel,
     K2C_KERNEL: run_chain_adjoint_kernel,
     K7_KERNEL + "/test": run_chain_test_solve_kernel,
@@ -3572,8 +3715,9 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     (B, n_cond) for the kernels, and its cotangent summed back.  The
     wrappers are chosen here: unconditional 2-layer tanh nets run the
     2-layer kernels; 1-layer nets and chains of 3 to CHAIN_MAX_LAYERS
-    layers, every conditional chain (K8) and every chain with an identity
-    layer run the chain kernels, as the JAX package's kernels run their
+    layers, conditional chains (K8; 2-layer tanh ones within MAX_DZ under
+    Hutchinson TRAIN only, below) and every chain with an identity layer run
+    the chain kernels, as the JAX package's kernels run their
     N-layer stages for every depth but 2 (its 2-layer TEST and exact stages
     assume tanh layers; the chain kernels do not), their narrow forms within
     state width MAX_DZ, hidden widths CHAIN_MAX_WIDTH and a block's shared
@@ -3597,19 +3741,26 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     backward under exact trace; so do the Hutchinson TRAIN solves with K
     probes or JVP of the conditional wide chains that only the streamed
     probe COND instances keep (`_stream_chain(spec, True)`: the wide probe
-    COND instances' shared memory); narrow conditional nets keep the
-    narrow chain kernels and K5's COND instance.
+    COND instances' shared memory).  Conditional 2-layer tanh nets within
+    MAX_DZ (the README net in conditional form, cond_flagship) run the COND
+    instances of the 2-layer kernels (K8) where the JAX package runs its
+    closed-form stages with `_zin` (its `uses_chain_stage` is
+    `n_layers != 2`): K3's forward and K5's backward in TEST mode, the K4
+    forward's and the K4 adjoint's under exact trace; under Hutchinson TRAIN
+    they keep the K1 and K2 chain forms' COND and probe COND instances
+    (narrow, or wide past CHAIN_MAX_WIDTH), the JAX package's one
+    `_stage_train` for every depth.
     Hutchinson TRAIN solves run K1 (or its chain form) with the
     backward member K2 (or its chain form), with the K VJP or JVP probes of
     `compute_mode` (K6: their probe instances); exact-trace TRAIN solves run the
     K4 forward (K7 for chain-kernel nets), with the K4 adjoint as the
-    backward member for 2-layer tanh chains (conditional ones raise on the
-    card: K8 in the 2-layer kernels is not ported) and none for other chains
+    backward member for 2-layer tanh chains (its COND instance for
+    conditional ones) and none for other chains
     (the JAX package's deep exact chains are forward-only too: their
     gradient runs the plain BACKSOLVE).  TEST solves run K3 (K7 for
     chain-kernel nets), with K5 as the backward member for 2-layer tanh
     nets: unconditional ones run K3 forward and K5 backward, conditional
-    ones K7 TEST with ys forward and K5's COND instance backward.  Deeper
+    ones K3's COND instance forward and K5's backward.  Deeper
     chains have no TEST backward member, as in the JAX package, and 2-layer
     nets with an identity layer none either (the JAX package's 2-layer TEST
     stage assumes tanh layers and fails on them; the port does not copy
@@ -3737,6 +3888,9 @@ def make_full_solve(icnf, mode: Mode, batch: int) -> Optional[FullSolve]:
     else:
         run_test, run_train = run_solve_kernel, run_train_solve_kernel
         run_exact, run_adjoint = run_exact_solve_kernel, run_adjoint_kernel
+    if spec.n_cond and _two_layer_tanh(spec) and not wide2:
+        run_test, run_exact = run_cond_solve_kernel, run_cond_exact_solve_kernel
+        run_exact_adj = run_cond_exact_adjoint_kernel
     if bf16:
         run_test, run_train, run_adjoint = run_bf16_solve_kernel, run_bf16_train_solve_kernel, run_bf16_adjoint_kernel
 
@@ -3849,6 +4003,9 @@ __all__ = [
     "run_exact_solve_kernel",
     "run_exact_adjoint_kernel",
     "run_test_adjoint_kernel",
+    "run_cond_solve_kernel",
+    "run_cond_exact_solve_kernel",
+    "run_cond_exact_adjoint_kernel",
     "run_chain_test_solve_kernel",
     "run_chain_exact_solve_kernel",
     "run_chain_train_solve_kernel",

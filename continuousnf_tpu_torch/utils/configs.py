@@ -101,6 +101,17 @@ drive on the card, their weight and data recipes, and a CUDA-event timer.
     [z | ys], one conditioning column drawn as cond_miniboone86 draws its
     label (the standardised MiniBooNE signal label), xs the flagship's
     U[0, 1) + 0.5 ys.
+  * cond_flagship (the README net, MLP((n, 3n, n)) at README.md:31-33, in
+    its conditional form at the flagship widths; the narrow member of the
+    family whose wide member is cond_hepmass42): CondRNODE, nvars = naug
+    = 8, one conditioning column, MLP 17 -> 48 -> 16 tanh on [z | ys], the
+    flagship recipe (lambda3 = 1e-2, steer_rate 0.1, tspan (0, 13)), batch
+    4096; data drawn as cond_refbench16's (ys the standardised MiniBooNE
+    label, xs U[0, 1) + 0.5 ys).  A conditional 2-layer tanh net within
+    state width 32: the COND instances of K3 (TEST) and of the K4 forward
+    and adjoint (exact trace) run it, beside K5's COND instance (the TEST
+    backward) and the K1 and K2 chain forms' (Hutchinson TRAIN).  Nothing is
+    cut.
   * deep5_power6 and deep8_power6: power6's recipe at 5 and 8 layers, MLP
     6 -> 64 x 4 -> 6 and 6 -> 64 x 7 -> 6.  Their weights and K2 slots pass
     the narrow forms' shared memory (`fused_solve._narrow_smem_bytes`): the
@@ -117,8 +128,8 @@ All: lambda1 = lambda2 = 1e-2 (the RNODE defaults), tsit5 at rtol 1e-3 /
 atol 1e-6, one Gaussian VJP probe (`make_icnf` takes K probes and JVP
 probes), batch 4096 in the scripts unless the entry names its own `batch`
 (miniboone43 and bsds126: 2048; miniboone860 and cond_miniboone860: 1024); the conditional recipe
-trains at its `batch_size` of 128, cond_hepmass42 and cond_miniboone86 at 4096.  Weights are Glorot-uniform with
-N(0, 0.05) biases, drawn with numpy.
+trains at its `batch_size` of 128, cond_hepmass42, cond_miniboone86 and cond_flagship at 4096.  Weights
+are Glorot-uniform with N(0, 0.05) biases, drawn with numpy.
 """
 
 from __future__ import annotations
@@ -149,6 +160,8 @@ MODELS = {
     "refbench16": dict(dims=(16, 16), nvars=8, naug=8, tspan=(0.0, 13.0), extra={"steer_rate": 0.1, "lam3": 1e-2}),
     "cond_refbench16": dict(dims=(17, 16), nvars=8, naug=8, tspan=(0.0, 13.0),
                             extra={"steer_rate": 0.1, "lam3": 1e-2}, n_cond=1),
+    "cond_flagship": dict(dims=(17, 48, 16), nvars=8, naug=8, tspan=(0.0, 13.0),
+                          extra={"steer_rate": 0.1, "lam3": 1e-2}, n_cond=1),
     "deep5_power6": dict(dims=(6, 64, 64, 64, 64, 6), nvars=6, naug=0, tspan=(0.0, 1.0), extra={}),
     "deep8_power6": dict(dims=(6,) + (64,) * 7 + (6,), nvars=6, naug=0, tspan=(0.0, 1.0), extra={}),
     "deep8_narrow": dict(dims=(6,) + (32,) * 7 + (6,), nvars=6, naug=0, tspan=(0.0, 1.0), extra={}),
@@ -261,7 +274,7 @@ def model_data(name: str, rng: np.random.Generator, n: int):
     if name in ("power6", "miniboone43", "miniboone860", "hepmass42", "miniboone86", "bsds126") or name.startswith(
             "deep"):
         return tabular_data(rng, n, nvars)
-    if name == "cond_refbench16":
+    if name in ("cond_refbench16", "cond_flagship"):
         return cond_refbench_data(rng, n)
     if name == "cond_gaussian":
         return cond_gaussian_data(rng, n)

@@ -257,11 +257,15 @@ _COVERED = {
     "wide-jvp": ((43, 64, 64, 43), TSIT5, None, 0, 1, True),
     "five-layer": ((6, 16, 16, 16, 16, 6), TSIT5, None, 0, 1, True),
     "one-layer-chain-kernels": ((6, 6), TSIT5, None, 0, 1, True),
+    "two-layer-conditional-exact": ((16, 48, 16), TSIT5, None, 2, 1, False),
 }
+# The cases that ask for a 2-layer kernel's COND instance (K3, the K4
+# forward and adjoint, K5: `_kernel_covers(..., cond=True)`).
+_COND_INSTANCE = {"two-layer-conditional-exact"}
 _UNCOVERED = {
     "nine-layer": ((6,) + (16,) * 8 + (6,), TSIT5, None, 0, 1, True, "at most 8 layers"),
     "one-layer-dz33": ((33, 33), TSIT5, None, 0, 1, True, "1-layer nets of state width 33 > 32"),
-    "two-layer-conditional-exact": ((16, 48, 16), TSIT5, None, 2, 1, False, "K8 in the 2-layer kernels"),
+    "two-layer-conditional-hutchinson": ((16, 48, 16), TSIT5, None, 2, 1, False, "the K1 and K2 chain forms"),
     "one-layer": ((6, 6), TSIT5, None, 0, 1, False, "1-layer"),
     "three-layer-2-layer-kernels": (POWER6, TSIT5, None, 0, 1, False, "K3, K1, K2 and K4 take 2 layers"),
 }
@@ -276,22 +280,25 @@ def _spec(dims, acts, n_cond):
 @pytest.mark.parametrize("name", list(_COVERED) + list(_UNCOVERED))
 def test_kernel_coverage_rule(name):
     """Which configurations each kernel family takes: the 2-layer kernels
-    (K3, K1, K2, K4) unconditional tanh chains of 2 layers with state widths
-    up to 32, the chain kernels chains of 1 to 8 tanh or identity layers
+    (K3, K1, K2, K4) tanh chains of 2 layers with state widths up to 32,
+    conditional ones in the COND instances of K3, the K4 forward and
+    adjoint and K5 (a 2-layer conditional exact-TRAIN solve runs the K4
+    pair's), the chain kernels chains of 1 to 8 tanh or identity layers
     with hidden widths up to 64 and state widths up to 32, conditional or
     not, and through their wide forms ones of 2 layers or more up to 128
     and 64 (the fused solve takes them for every depth but 2, for
-    conditional nets and for identity layers), both every embedded explicit tableau, and K VJP or
-    JVP probes in the Hutchinson kernels, the wide forms included; the rest names its
-    limit or the kernel still to port (a 2-layer conditional exact-TRAIN
-    backward needs the K4 adjoint with ys rows: K8 in the 2-layer
-    kernels)."""
+    conditional nets under Hutchinson TRAIN and for identity layers), both every embedded
+    explicit tableau, and K VJP or JVP probes in the Hutchinson kernels, the
+    wide forms included; the rest names its limit or the kernel that takes
+    it (K1 and K2 have no COND instance: a conditional 2-layer net's
+    Hutchinson solves run the K1 and K2 chain forms)."""
+    cond = name in _COND_INSTANCE
     if name in _COVERED:
         dims, tab, acts, n_cond, k, chain = _COVERED[name]
-        assert tfs._kernel_covers(tab, _spec(dims, acts, n_cond), k, chain, "jvp" in name) is None
+        assert tfs._kernel_covers(tab, _spec(dims, acts, n_cond), k, chain, "jvp" in name, cond=cond) is None
     else:
         dims, tab, acts, n_cond, k, chain, why = _UNCOVERED[name]
-        assert why in tfs._kernel_covers(tab, _spec(dims, acts, n_cond), k, chain, "jvp" in name)
+        assert why in tfs._kernel_covers(tab, _spec(dims, acts, n_cond), k, chain, "jvp" in name, cond=cond)
 
 
 _WRAPPERS = {
@@ -301,10 +308,14 @@ _WRAPPERS = {
     ("train", True): ["run_chain_train_solve_kernel", "run_chain_adjoint_kernel"],
     ("exact", False): ["run_exact_solve_kernel", "run_exact_adjoint_kernel"],
     ("exact", True): ["run_chain_exact_solve_kernel"],
+    ("test", "cond"): ["run_cond_solve_kernel"],
+    ("train", "cond"): ["run_chain_train_solve_kernel", "run_chain_adjoint_kernel"],
+    ("exact", "cond"): ["run_cond_exact_solve_kernel", "run_cond_exact_adjoint_kernel"],
 }
 
 
-_DEPTHS = {"two-layer": (5, 15, 5), "three-layer": SMALL, "one-layer": (5, 5), "five-layer": (5, 9, 7, 7, 7, 5)}
+_DEPTHS = {"two-layer": (5, 15, 5), "three-layer": SMALL, "one-layer": (5, 5), "five-layer": (5, 9, 7, 7, 7, 5),
+           "two-layer-conditional": (7, 15, 5)}
 
 
 @pytest.mark.parametrize("depth", list(_DEPTHS))
@@ -314,23 +325,29 @@ def test_fused_solve_takes_the_kernels_by_depth(monkeypatch, mode, depth):
     the other depths (1-layer nets, chains of 3 layers or more) through the
     chain wrappers, as the JAX package runs its N-layer stages for every
     depth but 2, forward and (TRAIN) backward; the exact and TEST backward of
-    every depth but 2 is the plain one."""
+    every depth but 2 is the plain one.  A conditional 2-layer net (two ys
+    columns) runs the COND instances of K3 and of the K4 pair in TEST and
+    exact modes and the K1 and K2 chain forms under Hutchinson TRAIN, as
+    the JAX package runs its closed-form 2-layer stages there and one
+    `_stage_train` for every depth."""
     called = []
     for name in {n for names in _WRAPPERS.values() for n in names}:
         wrapped = getattr(tfs, name)
         monkeypatch.setattr(tfs, name, lambda *a, _n=name, _f=wrapped, **kw: called.append(_n) or _f(*a, **kw))
     dims = _DEPTHS[depth]
-    deep = depth != "two-layer"
-    icnf = tcnf.construct(tcnf.RNODE, tcnf.MLP(dims), 3, 2, compute_mode=_cm(tcnf, mode))
+    deep = "cond" if depth == "two-layer-conditional" else depth != "two-layer"
+    variant = tcnf.CondRNODE if deep == "cond" else tcnf.RNODE
+    icnf = tcnf.construct(variant, tcnf.MLP(dims), 3, 2, compute_mode=_cm(tcnf, mode))
     ps = tcnf.params_from_numpy(_np_params(dims, 21))
     xs = _data(SMALL, 8, 22)
+    cond = {"ys": np.random.default_rng(24).uniform(-1.0, 1.0, (8, 2)).astype(np.float32)} if deep == "cond" else {}
     if mode == "test":
         with torch.no_grad():
-            tcnf.inference(icnf, tcnf.Mode.TEST, xs, ps)
+            tcnf.inference(icnf, tcnf.Mode.TEST, xs, ps, **cond)
     else:
         leaves = [x.requires_grad_() for x in _leaves(ps)]
         extra = {"eps": np.random.default_rng(23).normal(size=(1, 8, 5)).astype(np.float32)} if mode == "train" else {}
-        torch.autograd.grad(tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, **extra), leaves)
+        torch.autograd.grad(tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, **extra, **cond), leaves)
     assert called == _WRAPPERS[mode, deep]
 
 

@@ -1,7 +1,8 @@
 """The port's conditional slice against the JAX package on the CPU: CondLayer
 and CondWrap, the conditional TEST, Hutchinson and exact fields, the chain
 kernels' plain versions with conditioning rows (the K1 and K2 chain forms,
-K7 TEST and exact; the K4 adjoint's for a 2-layer net) against the JAX
+K7 TEST and exact; for a 2-layer net the COND instances of K3 and of the K4
+forward and adjoint) against the JAX
 package's kernels in interpret mode at one tile, TEST and TRAIN `inference`,
 the loss and its gradients in the params and in ys, `generate`,
 `CondICNFDist`, the conditional `fit` and the conditioning checks.
@@ -171,10 +172,11 @@ def test_cond_fields_match_jax(mode, dims, rank):
 def test_cond_forward_twins_match_jax_kernel(mode, dims):
     """The plain versions of the K1 chain form (train), K7 TEST (test) and K7
     exact (exact) with conditioning rows, through the fused solve on CPU
-    tensors, against the JAX package's forward kernel with ys rows in
-    interpret mode (for the 2-layer net its K1, K3 and K4 forms) from zero
-    accumulators: equal attempted and accepted steps, values at 1e-4.  No
-    kernel is launched."""
+    tensors (for the 2-layer net, whose TEST and exact forwards run the COND
+    instances of K3 and the K4 forward, theirs), against the JAX package's
+    forward kernel with ys rows in interpret mode (for the 2-layer net its
+    K1, K3 and K4 forms) from zero accumulators: equal attempted and
+    accepted steps, values at 1e-4.  No kernel is launched."""
     mode_name = MODE_NAMES[mode]
     ps_np = _np_params(dims, 6)
     xs, ys = _data(dims, B, 7)
@@ -202,7 +204,7 @@ def test_cond_forward_twins_match_jax_kernel(mode, dims):
 )
 def test_cond_adjoint_twin_matches_jax_kernel(dims, mode):
     """The K2 chain form's plain version with the ys block (and, for the
-    2-layer exact net, the K4 adjoint's with ys rows) against the JAX
+    2-layer exact net, the K4 adjoint COND instance's) against the JAX
     package's adjoint kernel in interpret mode at one tile, from the same
     final state, cotangent and warm start: equal steps, the states, a_ys0
     and the gradients (the ys rows of g_W0 among them, which are not zero)

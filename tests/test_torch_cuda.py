@@ -338,18 +338,31 @@ def test_uncovered_train_configs_raise_on_cuda(dev, kernel):
         assert runs[0].probe_launches[(2, False)] == before + 1 and bool(torch.isfinite(lp).all())
         return
     if kernel == "K8-conditional":
-        # A 2-layer conditional exact-TRAIN gradient: its forward runs in K7
-        # exact, its backward would need the K4 adjoint with ys rows.
-        icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP((7, 15, 5), device=dev), 3, 2,
-                              compute_mode=tcnf.VecJacMode(fused=True, exact_trace=True))
-        ps = tcnf.params_from_numpy(_np_params((7, 15, 5), 6), dev)
-        leaves = [x.requires_grad_() for p in ps for x in p.values()]
-        ys = torch.zeros((8, 2), device=dev)
-        n7, n4 = tfs.run_chain_exact_solve_kernel.launches, tfs.run_exact_adjoint_kernel.launches
-        with pytest.raises(NotImplementedError, match="K8 in the 2-layer kernels"):
-            torch.autograd.grad(tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=ys), leaves)
-        assert tfs.run_chain_exact_solve_kernel.launches == n7 + 1
-        assert tfs.run_exact_adjoint_kernel.launches == n4
+        # A 2-layer conditional exact-TRAIN gradient, refused here until the
+        # K4 pair had COND instances: its forward runs the K4 forward's COND
+        # instance and its backward the K4 adjoint's, once each and nothing
+        # else, and the loss and the gradient in the params and ys match the
+        # same call on the CPU, where the fused path runs their twins.
+        ys_np = np.random.default_rng(8).uniform(-1.0, 1.0, (8, 2)).astype(np.float32)
+
+        def run(device):
+            icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP((7, 15, 5), device=device), 3, 2,
+                                  compute_mode=tcnf.VecJacMode(fused=True, exact_trace=True))
+            ps = tcnf.params_from_numpy(_np_params((7, 15, 5), 6), device)
+            leaves = [x.requires_grad_() for p in ps for x in p.values()]
+            ys = torch.from_numpy(ys_np).to(device).requires_grad_()
+            l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs.to(device), ps, ys=ys, steer_r=0.05)
+            return l.detach().cpu(), [g.cpu() for g in torch.autograd.grad(l, leaves + [ys])]
+
+        tfs.reset_launches()
+        l_k, g_k = run(dev)
+        torch.cuda.synchronize()
+        assert {k: w.launches for k, w in tfs.KERNEL_WRAPPERS.items() if w.launches} == {
+            tfs.K4_KERNEL + "/cond": 1, tfs.K4A_KERNEL + "/cond": 1}
+        l_c, g_c = run(torch.device("cpu"))
+        assert _close(l_k, l_c)
+        for a, b in zip(g_k, g_c):
+            assert torch.isfinite(a).all() and _grad_close(a, b)
         return
     if kernel == "K5-test-gradients":
         # K5 covers every 2-layer tanh net of state width up to 32 and refuses
@@ -2714,7 +2727,7 @@ def test_test_adjoint_kernel_edge_cases_match_twin(dev, case):
 @pytest.mark.parametrize("cond", [False, True], ids=["flagship", "conditional"])
 def test_test_gradient_on_the_card_matches_the_twins_on_the_cpu(dev, cond):
     """The TEST loss and its gradient in the params, xs and (conditional) ys
-    on the card, the forward in K3 (K7 TEST with ys for a conditional net)
+    on the card, the forward in K3 (its COND instance for a conditional net)
     and the backward in K5, against the same call on the CPU, where the
     fused path runs the kernels' twins; then the params-gradient of
     `generate`'s samples (the reverse-time solve) the same way."""
@@ -2746,7 +2759,7 @@ def test_test_gradient_on_the_card_matches_the_twins_on_the_cpu(dev, cond):
     before = _launches()
     l_k, g_k = run(dev)
     after = _launches()
-    forward = tfs.K7_KERNEL + "/test" if cond else tfs.K3_KERNEL
+    forward = tfs.K3_KERNEL + "/cond" if cond else tfs.K3_KERNEL
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {forward: 2, tfs.K5_KERNEL: 2}
     l_c, g_c = run(torch.device("cpu"))
     assert _close(l_k, l_c)
@@ -2907,3 +2920,108 @@ def test_bf16_refusals_name_the_row_on_the_card(dev, case):
     with pytest.raises(NotImplementedError, match="bf16 stage dots"):
         torch.autograd.grad(tcnf.loss(icnf, mode, xs, ps, **kw), leaves)
     assert not {k for k, w in tfs.KERNEL_WRAPPERS.items() if w.launches} - {tfs.K3B_KERNEL}
+
+
+# ---- K8 in the 2-layer kernels: the COND instances of K3 and the K4 pair ----
+
+# id -> (dims, B, span): cond_flagship's net at its batch and span, the
+# widest state the narrow kernels keep with three ys columns past hidden
+# width 64, a reverse span with two ys columns, and one sample.
+_COND2_CASES = {
+    "cond-flagship-B4096": ((17, 48, 16), 4096, (0.0, 13.0)),
+    "dz32-hidden96-ncond3-B1024": ((35, 96, 32), 1024, (0.0, 2.0)),
+    "ncond2-reverse-B37": ((7, 15, 5), 37, (2.0, 0.0)),
+    "ncond2-B1": ((6, 8, 4), 1, (0.0, 1.0)),
+}
+
+
+@pytest.mark.parametrize("case", list(_COND2_CASES))
+def test_two_layer_cond_kernels_match_twins(dev, case):
+    """K3's COND instance from a nonzero dlogp and the K4 forward's from
+    nonzero accumulators against their twins with ys (B, n_cond) (equal
+    steps, values within REL), and the K4 adjoint's COND instance from the
+    K4 forward's output warm-started from its last step (equal steps; z0,
+    acc0, a_z0 and a_ys0 held to the float64 twin; gradients within
+    GRAD_REL, W1's ys rows not zero); a solve that misses passes only under
+    the near-tie rule.  One launch each, and the K4 adjoint's shared memory
+    with the ys rows reported by its entry."""
+    dims, B, span = _COND2_CASES[case]
+    spec = tfs.chain_spec(tcnf.MLP(dims, device=dev), dims[-1])
+    nc, dz, H = dims[0] - dims[-1], dims[-1], dims[1]
+    ys = _cond_ys(B, nc, dev)
+    kw, adj = _exact_args(dims, B, span, dev)
+    kw["ys"] = ys
+    test_kw = dict(_kernel_args(dims, B, span, dev), ys=ys)
+    runs = [tfs.run_cond_solve_kernel, tfs.run_cond_exact_solve_kernel, tfs.run_cond_exact_adjoint_kernel]
+    before = [w.launches for w in runs]
+    tdir = 1.0 if span[1] > span[0] else -1.0
+    with torch.no_grad():
+        t_k, t_p = tfs.run_cond_solve_kernel(TSIT5, spec, **test_kw), tfs.solve_test_plain(TSIT5, spec, **test_kw)
+        e_k = tfs.run_cond_exact_solve_kernel(TSIT5, spec, **kw)
+        e_p = tfs.solve_train_exact_plain(TSIT5, spec, **kw)
+        adj.update(zT=e_k[0], accT=e_k[1], dt_init=-tdir * e_k[4].abs(), ys=ys)
+        a_k = tfs.run_cond_exact_adjoint_kernel(TSIT5, spec, **adj)
+        a_p = tfs.adjoint_train_exact_plain(TSIT5, spec, **adj)
+        a_64 = _twin64(tfs.adjoint_train_exact_plain, spec, adj)
+    torch.cuda.synchronize()
+    assert [w.launches for w in runs] == [n + 1 for n in before]
+    for out_k, out_p, twin, fwd in ((t_k, t_p, tfs.solve_test_plain, test_kw),
+                                    (e_k, e_p, tfs.solve_train_exact_plain, kw)):
+        if not _forward_matches(out_k, out_p):
+            _near_tie_holds(out_k, out_p, twin, spec, fwd, "z0")
+    assert len(a_k) == 8 and a_k[7].shape == (B, nc) and float(a_k[3][0][dz:].abs().max()) > 0.0
+    if not _adjoint_matches(a_k, a_p, a_64):
+        _near_tie_holds(a_k, a_p, tfs.adjoint_train_exact_plain, spec, adj, "zT")
+    lib = tfs._library(tfs.K4A_KERNEL)
+    assert lib.cnf_k4ac_smem_bytes(dz, H, nc, 128) == lib.cnf_k4a_smem_bytes(dz, H, 128) + 4 * H * nc
+
+
+def test_two_layer_cond_paths_on_the_card_match_the_twins_on_the_cpu(dev):
+    """cond_flagship's net and recipe (CondRNODE, MLP 17 -> 48 -> 16 on
+    [z | ys], its data) at B = 512 over tspan (0, 1), as the float32 parity
+    tests run the conditional recipe (over (0, 13) float32 roundoff moves the
+    step grid and the per-sample ys cotangents by more than GRAD_REL):
+    `CondICNFDist.logpdf` through K3's COND instance alone, the TEST loss
+    gradient through K3's and K5's COND instances, the Hutchinson loss
+    gradient through the K1 and K2 chain forms' COND instances (K = 2: their
+    probe COND instances) and the exact one through the K4 pair's, each
+    launching its kernels once and nothing else; each value and gradient
+    against the same call on the CPU, where the fused path runs the twins."""
+    from continuousnf_tpu_torch.utils.configs import MODELS, model_data
+
+    rng = np.random.default_rng(13)
+    B = 512
+    ps_np = _np_params((17, 48, 16), 14)
+    xs_np, ys_np = model_data("cond_flagship", rng, B)
+    eps_np = rng.normal(size=(2, B, 16)).astype(np.float32)
+    want = {"logpdf": {tfs.K3_KERNEL + "/cond": 1},
+            "test": {tfs.K3_KERNEL + "/cond": 1, tfs.K5_KERNEL: 1},
+            "train": {tfs.K1C_KERNEL: 1, tfs.K2C_KERNEL: 1},
+            "exact": {tfs.K4_KERNEL + "/cond": 1, tfs.K4A_KERNEL + "/cond": 1}}
+
+    def run(device, what):
+        cm = tcnf.VecJacMode(num_probes=2 if what == "train" else 1, fused=True, exact_trace=what == "exact")
+        icnf = tcnf.construct(tcnf.CondRNODE, tcnf.MLP((17, 48, 16), device=device), 8, 8, tspan=(0.0, 1.0),
+                              compute_mode=cm, **MODELS["cond_flagship"]["extra"])
+        ps = tcnf.params_from_numpy(ps_np, device)
+        xs, ys = torch.from_numpy(xs_np).to(device), torch.from_numpy(ys_np).to(device)
+        if what == "logpdf":
+            with torch.no_grad():
+                return [tcnf.CondICNFDist(icnf, tcnf.Mode.TEST, ps, ys).logpdf(xs).cpu()]
+        leaves = [x.requires_grad_() for p in ps for x in p.values()] + [ys.requires_grad_()]
+        if what == "test":
+            l = tcnf.loss(icnf, tcnf.Mode.TEST, xs, ps, ys=ys)
+        else:
+            extra = {"eps": torch.from_numpy(eps_np).to(device)} if what == "train" else {}
+            l = tcnf.loss(icnf, tcnf.Mode.TRAIN, xs, ps, ys=ys, steer_r=0.05, **extra)
+        return [l.detach().cpu()] + [g.cpu() for g in torch.autograd.grad(l, leaves)]
+
+    for what, launches in want.items():
+        tfs.reset_launches()
+        got = run(dev, what)
+        torch.cuda.synchronize()
+        assert {k: w.launches for k, w in tfs.KERNEL_WRAPPERS.items() if w.launches} == launches, what
+        ref = run(torch.device("cpu"), what)
+        assert _close(got[0], ref[0]), what
+        for a, b in zip(got[1:], ref[1:]):
+            assert torch.isfinite(a).all() and _grad_close(a, b), what

@@ -470,7 +470,7 @@ _ROUTES = {
                                                      "run_wide_cond_adjoint_kernel"]),
     "three-layer-train-jvp": (THREE, "train", 1, True, ["run_wide_cond_train_solve_kernel",
                                                         "run_wide_cond_adjoint_kernel"]),
-    "narrow-two-layer-test": ((17, 48, 16), "test", 1, False, ["run_chain_test_solve_kernel",
+    "narrow-two-layer-test": ((17, 48, 16), "test", 1, False, ["run_cond_solve_kernel",
                                                                 "run_test_adjoint_kernel"]),
     "narrow-recipe-train": ((2, 64, 64, 1), "train", 1, False, ["run_chain_train_solve_kernel",
                                                                  "run_chain_adjoint_kernel"]),
@@ -486,9 +486,10 @@ def test_fused_solve_takes_the_cond_instances(monkeypatch, route):
     through the chain forms' (Hutchinson) and wide K7 TEST's and exact's
     (the TEST forward; the exact forward, whose gradient runs the plain
     BACKSOLVE); exact training of a 2-layer net through wide K7 exact's and
-    the wide K4 adjoint's.  Narrow conditional nets keep the narrow chain
-    kernels and K5's COND instance.  No other wrapper is called, none of the
-    unconditional wide ones among them."""
+    the wide K4 adjoint's.  Narrow conditional nets are not rerouted to the
+    wide forms: a 2-layer one runs K3's and K5's COND instances in TEST mode,
+    the narrow recipe chain the narrow chain forms.  No other wrapper is
+    called, none of the unconditional wide ones among them."""
     dims, mode, k, jvp, want = _ROUTES[route]
     called = []
     names = {n for v in _ROUTES.values() for n in v[4]} | {
